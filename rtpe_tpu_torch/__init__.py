@@ -1,0 +1,22 @@
+"""rtpe_tpu_torch — the PyTorch/CUDA port of ``rtpe_tpu``.
+
+A second package beside the JAX reference.  It imports ``torch``, numpy
+and scipy only: no JAX, and nothing of ``rtpe_tpu`` (it keeps its own
+copies of the numpy helpers it needs).  This first slice covers the
+teacher's image -> people serving path:
+
+  data/preprocess.py   resize-align (on-device affine warp) + normalize
+  models/              HigherHRNet-W48 (NCHW nn.Modules, reference keys)
+  decode/              NMS + top-k -> lockstep grouping -> adjust/refine
+  eval/predictor.py    PosePredictor: predict / predict_batch / stream
+  ops/                 resize, pooling, affine and the two CUDA kernels
+                       (csrc/nms_topk.cu, csrc/group_lockstep.cu)
+
+Entry points take an explicit ``device`` that defaults to ``"cuda"``
+(:func:`rtpe_tpu_torch.device.resolve_device`); without CUDA they raise
+unless the caller asks for ``"cpu"``.  On the CPU each kernel wrapper
+runs its plain PyTorch version; on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,114 @@
+"""Package rules of the PyTorch port, on the CPU.
+
+* Import hygiene: importing every ``rtpe_tpu_torch`` module pulls in
+  neither JAX nor any module of the JAX package (checked in a fresh
+  interpreter, so this test process's own JAX import does not count).
+* Device resolution: ``device=None`` means CUDA and raises where there
+  is none; the CPU is used only when the caller asks for it.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from rtpe_tpu_torch.data.preprocess import resize_align_multi_scale
+from rtpe_tpu_torch.device import default_dtype, resolve_device, set_tf32
+from rtpe_tpu_torch.eval import PosePredictor
+from rtpe_tpu_torch.models import HRNetConfig, PoseHigherHRNet, StageCfg
+from rtpe_tpu_torch.ops import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_HYGIENE = r"""
+import importlib, pkgutil, sys
+import rtpe_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rtpe_tpu_torch.__path__,
+                                               "rtpe_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+             or m == "rtpe_tpu" or m.startswith("rtpe_tpu."))
+print(len(names), "modules")
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_rtpe_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    # the package, its subpackages and every module in them
+    assert int(res.stdout.split()[0]) >= 20, res.stdout
+
+
+def test_default_device_is_cuda_or_raises():
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _tiny_cfg():
+    return HRNetConfig(num_joints=3,
+                       stage2=StageCfg(1, 2, "BASIC", (1, 1), (4, 8)),
+                       stage3=StageCfg(1, 3, "BASIC", (1, 1, 1), (4, 8, 16)),
+                       stage4=StageCfg(1, 4, "BASIC", (1, 1, 1, 1),
+                                       (4, 8, 16, 32)),
+                       deconv_chans=(4,), deconv_num_blocks=1)
+
+
+def test_entry_points_do_not_fall_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    image = torch.zeros((40, 30, 3)).numpy()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PosePredictor(PoseHigherHRNet(_tiny_cfg()), num_joints=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resize_align_multi_scale(image, 64)
+    pred = PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                         num_joints=3, input_size=64)
+    assert pred.device.type == "cpu" and pred.dtype == torch.float32
+    assert next(pred.model.parameters()).device.type == "cpu"
+
+
+def test_later_slices_raise_not_implemented():
+    for kw in (dict(packed=True), dict(int8=True), dict(with_flip=True),
+               dict(scales=(1.0, 0.5)), dict(fused_decode=False),
+               dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                          num_joints=3, **kw)
+
+
+def test_precision_policy():
+    assert default_dtype(torch.device("cuda")) == torch.bfloat16
+    assert default_dtype(torch.device("cpu")) == torch.float32
+    assert default_dtype(torch.device("cuda"), torch.float32) == \
+        torch.float32
+    cudnn, matmul = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    try:
+        set_tf32(False)
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def test_kernel_sources_and_build_command():
+    """Every kernel source is found, and the build is the plain-C nvcc
+    route for sm_90a (compiled only where ``nvcc`` exists)."""
+    assert _build.sources() == ["group_lockstep", "nms_topk"]
+    assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
+    assert os.path.basename(_build.BUILD_DIR) == "_build"
