@@ -13,18 +13,37 @@ Phases, each of which fails the run:
 4. the lockstep grouping kernel against its plain version, B in
    {1, 8, 32}, J=17, K=30, D=1, p_max=90, ``ignore_too_much`` both ways:
    exactly equal;
-5. the full-width HigherHRNet-W48 (seeded random weights) as a float32
+5. the per-joint LAP kernel against its plain version: batches of
+   cost matrices, n in {1, 8, 30, 32} x m in {30, 60, 127}, with the
+   decode's sentinel costs and planted ties: exactly equal;
+6. the grouping mega-kernel against its plain version, both solvers,
+   B in {1, 8}, J=17, K=30, D=1, p_max=90, ``ignore_too_much`` both
+   ways: exactly equal; its greedy solver equal to the lockstep kernel
+   row for row;
+7. ``kernel_selfcheck`` on the card for the greedy, exact and lockstep
+   grouping kernels: each must pass (a demotion of ``lap="auto"`` fails
+   the run);
+8. the full-width HigherHRNet-W48 (seeded random weights) as a float32
    forward on the card, TF32 off, against the same weights on the CPU at
    one 256 x 256 image: within 1e-3;
-6. the main path: ``PosePredictor`` at full W48 width in bf16 through
+9. the main path: ``PosePredictor`` at full W48 width in bf16 through
    ``predict_batch`` (8 images of mixed shapes), ``predict`` and a
-   4-frame ``stream``, with both kernels' launch counters set to 0 just
+   4-frame ``stream``, with every kernel's launch counter set to 0 just
    before and read just after; then the card's decode of the main path's
    own heatmaps against the plain decode on the CPU;
-7. timings (CUDA events after a warm-up): each kernel, its plain version
-   and its library yardstick at the main path's batch-8 shape and at
-   batch 1, the forward, decode and end-to-end rates at batch 1 and 8,
-   and a ``torch.profiler`` view of one batch-8 ``predict_batch``.
+10. the other decode paths on the bf16 predictor's heatmaps of eight
+    640 x 640 images, each with the launch counters set to 0 just before
+    and read just after: ``HeatmapParser.parse_fused`` per image (the
+    greedy mega-kernel), ``decode_full_batch(lap="kernel")`` (the exact
+    mega-kernel), ``decode_full_batch(lap="pallas")`` (the LAP kernel)
+    and ``PosePredictor(fused_decode=False).predict_batch`` (NMS + top-k
+    kernel, host grouping); each against the plain decode on the CPU
+    for one image;
+11. timings (CUDA events after a warm-up): each kernel, its plain version
+    and its library yardstick at the main path's batch-8 shape and at
+    batch 1, each decode path's host-clock time on the heatmaps of
+    phase 10, the forward, decode and end-to-end rates at batch 1 and 8,
+    and a ``torch.profiler`` view of one batch-8 ``predict_batch``.
 
 Output: the ``nvidia-smi`` line, then one JSON line ``{"kernels": ...}``,
 one JSON line of end-to-end numbers, and last
@@ -37,6 +56,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -134,6 +154,33 @@ def lockstep_input(b: int, rng: np.random.Generator, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (tags, locs, vals))
 
 
+def decode_costs(b: int, n: int, m: int, rng: np.random.Generator
+                 ) -> np.ndarray:
+    """(B, n, m) cost matrices shaped like the grouping's: quantised tag
+    distances x 100 minus the row's detection value (plus the tie bias
+    on odd matrices, exact ties on even ones) on the first p_cur
+    columns, BIG on the dummy columns, HUGE / 0 for a row at or below
+    the detection threshold; every fourth matrix plain small integers
+    (ties everywhere)."""
+    f32 = np.float32
+    rows = np.arange(n)[:, None]
+    cols = np.arange(m)[None, :]
+    out = np.empty((b, n, m), f32)
+    for i in range(b):
+        if i % 4 == 3:
+            out[i] = rng.integers(0, 3, (n, m))
+            continue
+        cost = (rng.integers(0, 4, (n, m)) * 100.0
+                - rng.uniform(0.1, 1.0, (n, 1))).astype(f32)
+        if i % 2:
+            cost = cost + ((m - rows) * cols).astype(f32) * f32(1e-8)
+        real = cols < rng.integers(1, max(1, m // 2) + 1)
+        valid = rng.random((n, 1)) > 0.2
+        cost = np.where(real, cost, f32(2048.0))
+        out[i] = np.where(valid, cost, np.where(real, f32(4096.0), f32(0)))
+    return out
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_card() -> str:
@@ -207,6 +254,77 @@ def phase_lockstep(grp_mod, dev) -> dict:
     return {"max_abs_err": err}
 
 
+def phase_lap(lap_mod, dev) -> dict:
+    rng = np.random.default_rng(SEED)
+    shapes = [(n, m) for n in (1, 8, 30, 32) for m in (30, 60, 127)
+              if n <= m]
+    for n, m in shapes:
+        cost = torch.from_numpy(decode_costs(8, n, m, rng)).to(dev)
+        got = lap_mod.lap_rect(cost)
+        want = lap_mod.lap_rect_plain(cost)
+        torch.cuda.synchronize()
+        check(got.is_cuda and got.dtype == want.dtype
+              and got.shape == want.shape, "lap_rect output layout")
+        check(torch.equal(got, want),
+              f"lap_rect differs from its plain version at n={n}, m={m}")
+        check(all(len(set(r)) == n for r in got.tolist()),
+              "lap_rect: a column assigned twice")
+    print(f"lap_rect: equal to plain at (n, m) in {shapes}, B=8",
+          flush=True)
+    return {"max_abs_err": 0.0}
+
+
+def phase_mega(mega_mod, grp_mod, dev) -> dict:
+    """Both solvers of the grouping mega-kernel against its plain version;
+    the greedy solver against the lockstep kernel."""
+    rng = np.random.default_rng(SEED + 5)
+    err = 0.0
+    for b in (1, 8):
+        inputs = lockstep_input(b, rng, dev)
+        for itm in (False, True):
+            kw = dict(max_num_people=30, ignore_too_much=itm, p_max=90)
+            for solver in ("lap", "greedy"):
+                got = mega_mod.match_by_tag_kernel(*inputs, solver=solver,
+                                                   **kw)
+                want = mega_mod.match_by_tag_kernel_plain(
+                    *inputs, solver=solver, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    check(g.is_cuda and g.dtype == w.dtype
+                          and g.shape == w.shape, "group_mega output layout")
+                    err = max(err, (g.double() - w.double()).abs().max()
+                              .item())
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1]),
+                      f"group_mega ({solver}) differs from plain at B={b}, "
+                      f"ignore_too_much={itm}")
+                check(int(got[1].min()) > 0, "no people grouped")
+            lock = grp_mod.match_by_tag_lockstep(*inputs, **kw)
+            check(torch.equal(got[0], lock[0])
+                  and torch.equal(got[1], lock[1]),
+                  f"greedy group_mega differs from group_lockstep at B={b}, "
+                  f"ignore_too_much={itm}")
+    print(f"group_mega: lap and greedy equal to plain at B in (1, 8), "
+          f"greedy equal to lockstep, max_abs_err {err}", flush=True)
+    return {"max_abs_err": err}
+
+
+def phase_selfcheck(fused, dev) -> None:
+    """The decode's one-time self-check of each grouping kernel on the
+    card, at the main path's shapes (so that ``auto`` finds the verdicts
+    cached and the main path's launch counts hold no check)."""
+    verdicts = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for solver in ("greedy", "lap", "lockstep"):
+            verdicts[solver] = fused.kernel_selfcheck(
+                30, 90, 17, 1, solver=solver, device=dev)
+    check(all(v is True for v in verdicts.values()) and not caught,
+          f"kernel_selfcheck {verdicts}: "
+          f"{[str(w.message) for w in caught]}")
+    print(f"kernel_selfcheck: {verdicts}", flush=True)
+
+
 def phase_forward(hrnet, set_tf32, dev):
     set_tf32(False)
     cpu_model = hrnet.init_random_(hrnet.PoseHigherHRNet(hrnet.w48_config()),
@@ -260,13 +378,11 @@ def phase_main_path(PosePredictor, PoseHigherHRNet, w48_config, state,
     check(pred.dtype == torch.bfloat16 and pred.fused_decode,
           "serving path is bf16 + fused decode")
     images = synthetic_images(np.random.default_rng(SEED))
-    for c in counters:
-        c.launches = 0
+    reset(counters)
     out = pred.predict_batch(images)
     single = pred.predict(images[0])
     streamed = list(pred.stream(images[:4]))
-    launches = {c.__name__: c.launches for c in counters}
-    torch.cuda.synchronize()
+    launches = read(counters)
     check(len(out) == len(images) and len(streamed) == 4,
           "one result per image")
     n = [check_people(r, 17, f"predict_batch[{i}]")
@@ -274,8 +390,8 @@ def phase_main_path(PosePredictor, PoseHigherHRNet, w48_config, state,
     n1 = check_people(single, 17, "predict")
     ns = [check_people(r, 17, "stream") for r in streamed]
     check(sum(n) > 0, "no people found on the main path")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in ("nms_topk", "match_by_tag_lockstep"):
+        check(launches[name] > 0, f"{name} was not launched on the main path")
     print(f"main path: predict_batch people {n}, predict {n1}, stream "
           f"{ns}; launches {launches}", flush=True)
     return pred, images, launches
@@ -298,6 +414,118 @@ def phase_decode_vs_cpu(pred, images, decode_full_batch) -> None:
               "card decode differs from the CPU decode")
     print(f"decode: card == CPU plain on main-path heatmaps, n_people "
           f"{got[1].tolist()}", flush=True)
+
+
+def reset(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def read(counters) -> dict:
+    torch.cuda.synchronize()
+    return {c.__name__: c.launches for c in counters}
+
+
+def check_same_decode(got, want, what: str) -> None:
+    """One image's (people list, scores) from the card and the CPU:
+    n_people exact, people and scores within 1e-5."""
+    (p_g, s_g), (p_w, s_w) = got, want
+    check(len(p_g) == len(p_w) == len(s_g) == len(s_w),
+          f"{what}: {len(p_g)} people on the card, {len(p_w)} on the CPU")
+    for a, b in zip(p_g, p_w):
+        check(np.allclose(a, b, rtol=1e-5, atol=1e-5),
+              f"{what}: card people differ from the CPU's")
+    check(np.allclose(s_g, s_w, rtol=1e-5, atol=1e-5),
+          f"{what}: card scores differ from the CPU's")
+
+
+def phase_other_paths(pred, PosePredictor, decode_mods, counters, dev):
+    """The decode paths beside the main path, on the bf16 predictor's
+    heatmaps of eight 640 x 640 images; each path with the launch
+    counters set to 0 just before it and read just after, and held
+    against the plain decode on the CPU for image 0.  Returns the
+    launches by path, the heatmaps and the cost matrices the LAP kernel
+    was given."""
+    fused, group_jit, unpack = decode_mods
+    rng = np.random.default_rng(SEED + 4)
+    square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+    with torch.inference_mode():
+        x = torch.stack([pred._preprocess(im)[0] for im in square])
+        hms, tags = pred._decode_outputs(*pred._forward(x))
+    parser = pred.parser
+    cpu = (hms[:1].cpu(), tags[:1].cpu())
+    launches = {}
+
+    def drive(path: str, kernel: str, fn):
+        reset(counters)
+        out = fn()
+        launches[path] = read(counters)
+        check(launches[path][kernel] > 0,
+              f"{path}: {kernel} was not launched")
+        return out
+
+    fused_one = drive("parse_fused", "match_by_tag_kernel", lambda: [
+        parser.parse_fused(hms[i:i + 1], tags[i:i + 1]) for i in range(8)])
+    want = parser.parse_fused(*cpu)
+    check_same_decode((fused_one[0][0][0], fused_one[0][1]),
+                      (want[0][0], want[1]), "parse_fused")
+
+    kw = parser._fused_kwargs()
+    for lap, kernel in (("kernel", "match_by_tag_kernel"),
+                        ("pallas", "lap_rect")):
+        costs = []
+        if lap == "pallas":
+            lap_rect = group_jit.lap_rect
+
+            def capture(cost):
+                costs.append(cost.clone())
+                return lap_rect(cost)
+
+            group_jit.lap_rect = capture
+        try:
+            out = drive(f"decode_full_batch_{lap}", kernel,
+                        lambda: fused.decode_full_batch(hms, tags, lap=lap,
+                                                        **kw))
+        finally:
+            if lap == "pallas":
+                group_jit.lap_rect = lap_rect
+        check(int(out[1].min()) > 0, f"lap={lap}: no people")
+        got = unpack(*(t[:1] for t in out))
+        want = unpack(*fused.decode_full_batch(*cpu, lap=lap, **kw))
+        check_same_decode((got[0][0], got[1][0]), (want[0][0], want[1][0]),
+                          f"decode_full_batch(lap={lap!r})")
+
+    host = PosePredictor(pred.model, device=dev, fused_decode=False)
+    out_h = drive("predict_batch_host_grouping", "nms_topk",
+                  lambda: host.predict_batch(square))
+    n_h = [check_people(r, 17, "host grouping") for r in out_h]
+    got = parser.parse_batch(hms[:1], tags[:1])
+    want = parser.parse_batch(*cpu)
+    check_same_decode((got[0][0], got[1][0]), (want[0][0], want[1][0]),
+                      "parse_batch")
+    print(f"other paths: parse_fused people "
+          f"{[len(p[0][0]) for p in fused_one]}"
+          f", host grouping people {n_h}; launches {launches}", flush=True)
+    return launches, (hms, tags), costs
+
+
+def decode_path_times(parser, fused, heatmaps) -> dict:
+    """Host-clock milliseconds of one call of each decode path on the
+    bf16 predictor's heatmaps of eight 640 x 640 images (ending in the
+    host pull of the people), and of ``parse_fused`` on one of them."""
+    hms, tags = heatmaps
+    kw = parser._fused_kwargs()
+    out = {"parse_fused_b1": host_ms(
+        lambda: parser.parse_fused(hms[:1], tags[:1]), 5)}
+    for lap in ("auto", "greedy", "kernel", "pallas"):
+        out[f"decode_full_batch_{lap}_b8"] = host_ms(
+            lambda: [t.cpu() for t in fused.decode_full_batch(
+                hms, tags, lap=lap, **kw)], 3)
+    out["parse_batch_host_grouping_b8"] = host_ms(
+        lambda: parser.parse_batch(hms, tags), 1)
+    print(f"decode paths (ms per call): {out}", flush=True)
+    return out
 
 
 def nms_times(nms_mod, b: int, dev) -> dict:
@@ -347,12 +575,92 @@ def lockstep_times(grp_mod, b: int, dev) -> dict:
             **bound(n_bytes, n_ops), "shape": [b, j, k, d, p_max]}
 
 
+def lap_times(lap_mod, costs, b: int) -> dict:
+    """Kernel and plain times and the bound of one LAP launch, averaged
+    over the per-joint cost matrices the decode gave the kernel
+    (``decode_full_batch(lap="pallas")``), first ``b`` images."""
+    costs = [c[:b].contiguous() for c in costs]
+    _, n, m = costs[0].shape
+    per = len(costs)
+    lap_mod.lap_columns.passes = 0
+    for c in costs:
+        lap_mod.lap_rect_plain(c)
+    passes = lap_mod.lap_columns.passes
+    # each Dijkstra step touches the m + 1 columns: ~10 float ops each
+    # (two subtractions, compare, two selects, masked min, three
+    # potential updates); the bytes are the matrices in, columns out
+    n_bytes = sum(c.numel() for c in costs) * 4 + per * b * n * 4
+    return {"ms": device_ms(lambda: [lap_mod.lap_rect(c) for c in costs],
+                            20) / per,
+            "plain_ms": host_ms(lambda: [lap_mod.lap_rect_plain(c)
+                                         for c in costs], 1) / per,
+            "library_ms": None,
+            **bound(n_bytes // per, passes * (m + 1) * 10 // per),
+            "dijkstra_steps": passes / per, "shape": [b, n, m]}
+
+
+def mega_times(mega_mod, lap_mod, topk, solver: str, b: int) -> dict:
+    """Kernel and plain times and the bound of the grouping mega-kernel
+    on the main path's own top-k (B=8 or 1, J=17, K=30, D=1), p_max=90."""
+    val_k, loc_k, tag_k = (t[:b].float().contiguous() for t in topk)
+    _, j, k, d = tag_k.shape
+    m, p_max = 30, 90
+    kw = dict(max_num_people=m, p_max=p_max, solver=solver)
+    lap_mod.lap_columns.passes = 0
+    plain_ms = host_ms(lambda: mega_mod.match_by_tag_kernel_plain(
+        tag_k, loc_k, val_k, **kw), 1, warmup=0)
+    # per image and joint: the cost build over K x 2m cells (~12 ops:
+    # difference, square, root, round, scale, clamp, tie bias, selects),
+    # the assignment (greedy: K rows x m candidates, ~3 ops; exact: the
+    # Dijkstra steps these inputs took, 2m + 1 columns x ~10 ops), the
+    # update (K rows x p_max key compares + ~12 ops)
+    n_ops = b * j * k * (2 * m * 12 + p_max + 12)
+    if solver == "greedy":
+        n_ops += b * j * k * m * 3
+    else:
+        n_ops += lap_mod.lap_columns.passes * (2 * m + 1) * 10
+    n_bytes = b * j * k * (d + 2 + 1) * 4 + b * p_max * j * (3 + d) * 4 \
+        + b * 4
+    return {"ms": device_ms(lambda: mega_mod.match_by_tag_kernel(
+                tag_k, loc_k, val_k, **kw), 20),
+            "plain_ms": plain_ms, "library_ms": None,
+            **bound(n_bytes, n_ops), "shape": [b, j, k, d, p_max]}
+
+
 def bound(n_bytes: int, n_ops: int) -> dict:
     """The least time for the work: bytes over the memory rate or
     float32 operations over the peak rate, whichever is larger."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps, costs,
+                    errs, top_k) -> list:
+    """Rows of the grouping mega-kernel (each solver) and the LAP kernel,
+    at batch 8 and batch 1, with the launches of the path that runs
+    them."""
+    topk = top_k(*heatmaps)
+    rows = []
+    for name, path, solver in (
+            ("group_mega_greedy", "parse_fused", "greedy"),
+            ("group_mega_lap", "decode_full_batch_kernel", "lap")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "rtpe_tpu_torch/csrc/group_mega.cu",
+                     "replaces": "rtpe_tpu/ops/pallas_group.py:348",
+                     "launches": path_launches[path]["match_by_tag_kernel"],
+                     "path": path, "max_abs_err": errs["group_mega"],
+                     **mega_times(mega_mod, lap_mod, topk, solver, 8),
+                     "at_b1": mega_times(mega_mod, lap_mod, topk, solver, 1)})
+    path = "decode_full_batch_pallas"
+    rows.append({"name": "lap_rect", "route": "cuda",
+                 "source": "rtpe_tpu_torch/csrc/lap_rect.cu",
+                 "replaces": "rtpe_tpu/ops/pallas_lap.py:125",
+                 "launches": path_launches[path]["lap_rect"], "path": path,
+                 "max_abs_err": errs["lap_rect"],
+                 **lap_times(lap_mod, costs, 8),
+                 "at_b1": lap_times(lap_mod, costs, 1)})
+    return rows
 
 
 def phase_kernel_times(nms_mod, grp_mod, launches, errs, dev) -> list:
@@ -448,11 +756,15 @@ def main() -> None:
         fail("torch.cuda.is_available() is false")
     try:
         from rtpe_tpu_torch.decode import decode_full_batch
+        from rtpe_tpu_torch.decode import fused, group_jit, parser
+        from rtpe_tpu_torch.decode.nms import top_k
         from rtpe_tpu_torch.device import set_tf32
         from rtpe_tpu_torch.eval import PosePredictor
         from rtpe_tpu_torch.models import hrnet
         from rtpe_tpu_torch.ops import _build
+        from rtpe_tpu_torch.ops import group as mega_mod
         from rtpe_tpu_torch.ops import group_lockstep as grp_mod
+        from rtpe_tpu_torch.ops import lap as lap_mod
         from rtpe_tpu_torch.ops import nms_topk as nms_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
@@ -461,18 +773,31 @@ def main() -> None:
     card = phase_card()
     build_s = phase_build(_build)
     errs = {"nms_topk": phase_nms(nms_mod, dev)["max_abs_err"],
-            "group_lockstep": phase_lockstep(grp_mod, dev)["max_abs_err"]}
+            "group_lockstep": phase_lockstep(grp_mod, dev)["max_abs_err"],
+            "lap_rect": phase_lap(lap_mod, dev)["max_abs_err"],
+            "group_mega": phase_mega(mega_mod, grp_mod, dev)["max_abs_err"]}
+    phase_selfcheck(fused, dev)
     state = phase_forward(hrnet, set_tf32, dev)
-    counters = (nms_mod.nms_topk, grp_mod.match_by_tag_lockstep)
+    counters = (nms_mod.nms_topk, grp_mod.match_by_tag_lockstep,
+                mega_mod.match_by_tag_kernel, lap_mod.lap_rect)
     pred, images, launches = phase_main_path(
         PosePredictor, hrnet.PoseHigherHRNet, hrnet.w48_config, state,
         counters, dev)
     phase_decode_vs_cpu(pred, images, decode_full_batch)
+    path_launches, heatmaps, costs = phase_other_paths(
+        pred, PosePredictor, (fused, group_jit, parser._unpack), counters,
+        dev)
     kernels = phase_kernel_times(nms_mod, grp_mod, launches, errs, dev)
+    kernels += new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps,
+                               costs, errs, top_k)
+    paths_ms = decode_path_times(pred.parser, fused, heatmaps)
     e2e = phase_end_to_end(pred)
     prof = phase_profile(pred)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build_s,
+                      "main_path_launches": launches,
+                      "other_path_launches": path_launches,
+                      "decode_paths_ms": paths_ms,
                       "end_to_end": e2e, "profile_bs8": prof}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Batched quarter-pixel adjust + tag-guided refine on the device.
 
-Port of ``rtpe_tpu/decode/refine_device.py`` (``adjust_refine_batch``
-with its slot cap, ``_refine_people_vectorized``).  Plain PyTorch: the
+Port of ``rtpe_tpu/decode/refine_device.py`` (``adjust_refine_device``,
+``adjust_refine_batch`` with its slot cap, ``refine_batch_device``,
+``_refine_people_vectorized`` and its per-person form).  Plain PyTorch: the
 JAX package runs this in XLA, not Pallas.  The refine's
 (people, J, H*W) score is built a few people at a time so that its
 temporary stays small at full resolution.
@@ -88,6 +89,52 @@ def _refine_people_vectorized(det: torch.Tensor, tag: torch.Tensor,
     out[:, :, 1] = torch.where(fill, fy.float(), people[:, :, 1])
     out[:, :, 2] = torch.where(fill, val, people[:, :, 2])
     return out
+
+
+def adjust_refine_device(det: torch.Tensor, tag: torch.Tensor,
+                         people: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adjust + scores + refine of one image (the device finish of
+    ``HeatmapParser.parse``).
+
+    :param det: (H, W, J); tag: (H, W, J, D); people: (P, J, 3+D),
+      zero rows for padding (a person with no visible joint is inert).
+    :returns: (people (P, J, 3+D), scores (P,)) — scores after the
+      adjust and before the refine, as the reference does.
+    """
+    det = det.float()
+    people = _adjust_people(det[None], people.float()[None])[0]
+    scores = people[:, :, 2].mean(dim=1)
+    return _refine_people_vectorized(det, tag.float(), people), scores
+
+
+def _make_refine_person(det: torch.Tensor, tag: torch.Tensor):
+    """Per-person refine over one image's (H, W, J) det and (H, W, J, D)
+    tag (reference ``group.py:202-264``): the one-person form of
+    :func:`_refine_people_vectorized`, with the same first-occurrence
+    argmax and fill condition."""
+    det = det.float()
+    tag = tag.float()
+
+    def refine_person(person: torch.Tensor) -> torch.Tensor:
+        return _refine_people_vectorized(det, tag, person[None])[0]
+
+    return refine_person
+
+
+def refine_batch_device(det: torch.Tensor, tag: torch.Tensor,
+                        people: torch.Tensor) -> torch.Tensor:
+    """Refine of a whole batch (``HeatmapParser.parse_batch``).
+
+    :param det: (B, H, W, J); tag: (B, H, W, J, D); people:
+      (B, P, J, 3+D) grouped, already adjusted, zero-padded along P.
+    :returns: refined people, same shape.
+    """
+    det = det.float()
+    tag = tag.float()
+    return torch.stack([_refine_people_vectorized(det[i], tag[i],
+                                                  people[i].float())
+                        for i in range(det.shape[0])])
 
 
 def adjust_refine_batch(det: torch.Tensor, tag: torch.Tensor,

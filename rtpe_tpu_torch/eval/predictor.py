@@ -1,10 +1,12 @@
 """High-level inference API: image in, people in image coordinates out.
 
 Port of ``rtpe_tpu/eval/predictor.py``: resize-align + normalize on the
-device, the W48 forward (bf16 on CUDA), the tag-map resize, the batched
+device, the W48 forward (bf16 on CUDA), the tag-map resize, the decode,
+then the inverse transform on the host.  The decode is the batched
 device decode (:meth:`HeatmapParser.parse_fused_batch`: the NMS + top-k
-and lockstep grouping kernels on CUDA), then the inverse transform on
-the host.
+and lockstep grouping kernels on CUDA) or, with ``fused_decode=False``,
+the host-grouping decode (:meth:`HeatmapParser.parse_batch`: the NMS +
+top-k kernel, munkres grouping on the host, the refine on the device).
 """
 
 from typing import List, Mapping, Optional, Sequence, Tuple
@@ -79,17 +81,14 @@ class PosePredictor:
             raise NotImplementedError(
                 f"scales={tuple(scales)} needs {_LATER['with_flip']}, "
                 "which a later slice of the port brings")
-        if fused_decode is False:
-            raise NotImplementedError(
-                "fused_decode=False needs the host-grouping decode "
-                "(HeatmapParser.parse_batch), which a later slice of the "
-                "port brings")
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device, dtype)
         self.num_joints = num_joints
         self.input_size = input_size
         self.parser = parser or HeatmapParser(num_joints=num_joints)
-        self.fused_decode = True
+        # None: the device decode on every device (on the CPU its plain
+        # versions stand in for the card's kernels)
+        self.fused_decode = fused_decode is not False
         if state_dict is not None:
             model.load_state_dict(strip_fp16_prefix(state_dict))
         model = model.to(self.device).eval().set_compute_dtype(self.dtype)
@@ -117,6 +116,11 @@ class PosePredictor:
 
     def _forward(self, batch_nhwc: torch.Tensor):
         return self.model(batch_nhwc.permute(0, 3, 1, 2))
+
+    def _parse(self, hms: torch.Tensor, tags: torch.Tensor):
+        if self.fused_decode:
+            return self.parser.parse_fused_batch(hms, tags)
+        return self.parser.parse_batch(hms, tags, adjust=True, refine=True)
 
     def _decode_outputs(self, coarse, refined):
         """NCHW head outputs -> NHWC (hms, tags) at the refined
@@ -159,7 +163,7 @@ class PosePredictor:
         for idxs in groups.values():
             batch = torch.stack([pre[i][0] for i in idxs])
             hms, tags = self._decode_outputs(*self._forward(batch))
-            grouped, scores = self.parser.parse_fused_batch(hms, tags)
+            grouped, scores = self._parse(hms, tags)
             hm_hw = (int(hms.shape[1]), int(hms.shape[2]))
             for k, i in enumerate(idxs):
                 out[i] = self._finalize(grouped[k], scores[k],
@@ -182,7 +186,7 @@ class PosePredictor:
             yield self._decode_one(*pending)
 
     def _decode_one(self, hms, tags, center, scale) -> People:
-        grouped, scores = self.parser.parse_fused_batch(hms, tags)
+        grouped, scores = self._parse(hms, tags)
         return self._finalize(grouped[0], scores[0], center, scale,
                               (int(hms.shape[1]), int(hms.shape[2])))
 

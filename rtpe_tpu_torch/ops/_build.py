@@ -8,8 +8,9 @@ compiled on first use with
 
 (seconds per file: no PyTorch headers), then loaded with ``ctypes``.
 The build directory is in ``.gitignore``; a library older than its
-source is rebuilt.  :func:`build_all` starts one ``nvcc`` per source at
-once and waits for all of them.
+source or a shared header (``csrc/*.cuh``) is rebuilt.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for
+all of them.
 """
 
 import ctypes
@@ -47,9 +48,14 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or any shared
+    header (``csrc/*.cuh``)."""
     src, lib = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in deps)
 
 
 def _start(name: str, verbose: bool) -> subprocess.Popen:

@@ -6,9 +6,10 @@
 * Lockstep grouping (plain version of ``csrc/group_lockstep.cu``)
   against the interpret-mode Pallas ``match_by_tag_lockstep``: exact.
 * ``adjust_refine_batch`` with the slot cap on and off, and
-  ``decode_full_batch`` end to end against
-  ``decode_full_batch(lap="lockstep_interpret")``: n_people exact,
-  people and scores within 1e-5 (summation order of the tag means).
+  ``decode_full_batch`` end to end against JAX
+  ``decode_full_batch`` with the matching solver, for every ``lap``:
+  n_people exact, people and scores within 1e-5 (summation order of the
+  tag means).
 """
 
 import numpy as np
@@ -253,8 +254,31 @@ def test_decode_full_batch_matches_jax_lockstep(tag_per_joint):
         assert len(grouped[i]) == int(n_j[i]) == len(scores[i])
 
 
-def test_decode_full_batch_refuses_later_solvers():
-    det, tag = make_scene(seed=0, h=32, w=32, num_joints=2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        decode_full_batch(torch.from_numpy(det[None]),
-                          torch.from_numpy(tag[None]), lap="greedy")
+# the port's lap -> JAX decode_full_batch's solver for the same algorithm;
+# on the CPU the port's batch "auto" is the plain lockstep kernel
+J_LAP = {"auto": "lockstep_interpret", "greedy": "greedy_interpret",
+         "kernel": "kernel_interpret", "lockstep": "lockstep_interpret",
+         "pallas": "pallas_interpret", "xla": "xla"}
+
+
+@pytest.mark.parametrize("lap", sorted(J_LAP))
+def test_decode_full_batch_runs_every_solver(lap):
+    """Every grouping solver runs on the CPU (the plain versions of the
+    card's kernels) and equals JAX's decode with the same solver."""
+    det_b, tag_b = zip(*(make_scene(seed=s, h=48, w=48, num_joints=4)
+                         for s in (0, 1)))
+    det, tag = np.stack(det_b), np.stack(tag_b)
+    kw = dict(max_num_people=8, p_max=24)
+    p_t, n_t, s_t = decode_full_batch(torch.from_numpy(det),
+                                      torch.from_numpy(tag), lap=lap, **kw)
+    p_j, n_j, s_j = j_fused.decode_full_batch(
+        jnp.asarray(det), jnp.asarray(tag), lap=J_LAP[lap], **kw)
+    assert np.asarray(n_j).min() > 0
+    np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="lap must be one of"):
+        decode_full_batch(torch.from_numpy(det), torch.from_numpy(tag),
+                          lap=lap + "_interpret")

@@ -83,8 +83,7 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 def test_later_slices_raise_not_implemented():
     for kw in (dict(packed=True), dict(int8=True), dict(with_flip=True),
-               dict(scales=(1.0, 0.5)), dict(fused_decode=False),
-               dict(mesh=object())):
+               dict(scales=(1.0, 0.5)), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="later slice"):
             PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
                           num_joints=3, **kw)
@@ -109,6 +108,7 @@ def test_precision_policy():
 def test_kernel_sources_and_build_command():
     """Every kernel source is found, and the build is the plain-C nvcc
     route for sm_90a (compiled only where ``nvcc`` exists)."""
-    assert _build.sources() == ["group_lockstep", "nms_topk"]
+    assert _build.sources() == ["group_lockstep", "group_mega", "lap_rect",
+                                "nms_topk"]
     assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert os.path.basename(_build.BUILD_DIR) == "_build"

@@ -6,7 +6,11 @@ aspect ratio through the JAX ``PosePredictor(fused_decode=True)`` and
 the port's ``PosePredictor(device="cpu")``.  The JAX side's ``auto``
 grouping is patched to ``lockstep_interpret`` — what it resolves to on
 the TPU — so both run the lockstep algorithm.  ``n_people`` must be
-equal, coordinates and scores within 1e-3.
+equal, coordinates and scores within 1e-3.  The host-grouping path
+(``fused_decode=False``: ``parse_batch``) is held to the JAX predictor's
+within 1e-4, and the single-image device decode (``parse_fused``, the
+greedy grouping mega-kernel's plain version) to JAX ``decode_full``
+with ``lap="greedy_interpret"`` on the same model's heatmaps.
 
 Decode is discrete (peak tests, top-k order, thresholds), so a forward
 difference far below the tolerance could still flip a decision near a
@@ -21,12 +25,15 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from scipy.optimize import linear_sum_assignment
 
 import jax.numpy as jnp
 
 from rtpe_tpu.decode import fused as j_fused
+from rtpe_tpu.decode import group as j_group
 from rtpe_tpu.eval.predictor import PosePredictor as JaxPredictor
 from rtpe_tpu.models import PoseHigherHRNet as JaxHRNet
+from rtpe_tpu_torch.decode import HeatmapParser
 from rtpe_tpu_torch.eval import PosePredictor
 from test_torch_model import seeded_variables, small_cfgs
 
@@ -95,15 +102,15 @@ def test_forward_agrees_and_margins_hold(predictors):
                                params.max_num_people)
 
 
-def _assert_same_people(res_t, res_j):
+def _assert_same_people(res_t, res_j, tol=TOL):
     people_t, scores_t = res_t
     people_j, scores_j = res_j
     assert len(people_t) == len(people_j) > 0
     np.testing.assert_allclose(np.asarray(scores_t), np.asarray(scores_j),
-                               rtol=0, atol=TOL)
+                               rtol=0, atol=tol)
     for pt, pj in zip(people_t, people_j):
         assert pt.shape == pj.shape
-        np.testing.assert_allclose(pt, pj, rtol=0, atol=TOL)
+        np.testing.assert_allclose(pt, pj, rtol=0, atol=tol)
 
 
 def test_predict_batch_matches_jax(predictors, lockstep_auto):
@@ -122,3 +129,42 @@ def test_predict_and_stream_match_jax(predictors, lockstep_auto):
         _assert_same_people(rt, rj)
     for rt, rj in zip(list(tp.stream(images[:2])), out_j):
         _assert_same_people(rt, rj)
+
+
+def test_host_grouping_predict_batch_matches_jax(predictors, monkeypatch):
+    """``fused_decode=False`` on both sides: NMS + top-k with the adjust,
+    host grouping, the refine of the people that miss a joint.  The JAX
+    side solves its assignments with scipy, its documented fallback,
+    so that both break exact cost ties alike."""
+    jp, tp, images = predictors
+    monkeypatch.setattr(j_group, "lap_solve",
+                        lambda cost: linear_sum_assignment(cost))
+    monkeypatch.setattr(jp, "fused_decode", False)
+    host = PosePredictor(tp.model, device="cpu", num_joints=NUM_JOINTS,
+                         input_size=128, fused_decode=False)
+    assert not host.fused_decode and tp.fused_decode
+    out_t = host.predict_batch(images)
+    out_j = jp.predict_batch(images)
+    assert len(out_t) == len(out_j) == len(images)
+    for rt, rj in zip(out_t, out_j):
+        _assert_same_people(rt, rj, tol=1e-4)
+
+
+def test_parse_fused_matches_jax_greedy_on_model_heatmaps(predictors):
+    jp, tp, images = predictors
+    parser = HeatmapParser(num_joints=NUM_JOINTS, max_num_people=8)
+    for im in images[:2]:
+        hms_j, tags_j = jp._decode_outputs(
+            *jp._fwd(jnp.asarray(jp._preprocess(im)[0][None])))
+        with torch.inference_mode():
+            x_t = tp._preprocess(im)[0]
+            hms_t, tags_t = tp._decode_outputs(*tp._forward(x_t[None]))
+        people, scores = parser.parse_fused(hms_t, tags_t)
+        p_j, n_j, s_j = j_fused.decode_full(hms_j, tags_j, max_num_people=8,
+                                            lap="greedy_interpret")
+        n = int(n_j)
+        assert len(people[0]) == len(scores) == n > 0
+        for pt, pj in zip(people[0], np.asarray(p_j)[:n]):
+            np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(scores, np.asarray(s_j)[:n], rtol=0,
+                                   atol=1e-4)
