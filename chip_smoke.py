@@ -43,7 +43,39 @@ Phases, each of which fails the run:
     and its library yardstick at the main path's batch-8 shape and at
     batch 1, each decode path's host-clock time on the heatmaps of
     phase 10, the forward, decode and end-to-end rates at batch 1 and 8,
-    and a ``torch.profiler`` view of one batch-8 ``predict_batch``.
+    and a ``torch.profiler`` view of one batch-8 ``predict_batch``;
+12. the grouping kernels (lockstep, and the mega-kernel with both
+    solvers) against their plain versions on tags with planted NaNs:
+    equal, NaN for NaN (a NaN cost matches no one);
+13. the BasicBlock-chain kernel against its plain version (float32
+    convolutions, TF32 off): B in {1, 8} x the three branch shapes of the
+    640 x 640 forward (80 x 80 x 96, 40 x 40 x 192, 20 x 20 x 384) x
+    n in {1, 4}, and a ragged (2, 12, 20, 96): the worst element within
+    2^-5 of the output's largest magnitude (sum-order flips of bf16
+    roundings compound along the chain; the worst relative error and
+    the share of elements that differ are printed); bitwise equal on
+    inputs whose every conv sum is exact in float32;
+14. the full-width W48 packed (BN-folded) forward on the card: float32
+    with the chains on cuDNN against the canonical float32 forward
+    (TF32 off) within 1e-3, as phase 8; bf16 with ``pallas_chains=True``
+    against bf16 with the chains on cuDNN within 2^-4 of the largest
+    output (cuDNN rounds each conv to bf16 before its float32 bias, a
+    second rounding the kernel does not make); 18 chain launches per
+    640 x 640 forward;
+15. the packed serving path: 8 images at 640 -> preprocess ->
+    ``packed_forward(pallas_chains=True)`` -> ``_decode_outputs`` ->
+    ``parse_fused_batch`` -> people, with the counters set to 0 just
+    before and read just after; then ``PosePredictor(packed=True)``
+    through ``predict_batch`` (mixed shapes), ``predict`` and a 4-frame
+    ``stream``, the same way;
+16. timings: the chain kernel, its plain version and one cuDNN bf16
+    conv (the library yardstick, x 2n per chain) at B = 8 and 1 for each
+    branch shape; the forward at batch 1 and 8 for the canonical, the
+    packed and the packed + chains forwards; the packed predictor's
+    end-to-end rates and its ``torch.profiler`` view.
+
+Phases 12-16 run among the others: 12 after 6, 13 and 14 after 8, 15
+after 10, and 16 with 11.
 
 Output: the ``nvidia-smi`` line, then one JSON line ``{"kernels": ...}``,
 one JSON line of end-to-end numbers, and last
@@ -64,6 +96,10 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+CHAIN_TOL = 2.0 ** -5         # chain kernel vs plain, of max |plain|
+PACKED_BF16_TOL = 2.0 ** -4   # chains on vs off, of max |off|
+BRANCHES = [(80, 80, 96), (40, 40, 192), (20, 20, 384)]   # at 640 x 640
 SEED = 0
 
 
@@ -627,10 +663,12 @@ def mega_times(mega_mod, lap_mod, topk, solver: str, b: int) -> dict:
             **bound(n_bytes, n_ops), "shape": [b, j, k, d, p_max]}
 
 
-def bound(n_bytes: int, n_ops: int) -> dict:
-    """The least time for the work: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S
+          ) -> dict:
+    """The least time for the work: bytes over the memory rate or the
+    operations over the peak rate for their type (float32 unless
+    given), whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -751,6 +789,280 @@ def phase_end_to_end(pred) -> dict:
     return out
 
 
+# ------------------------------------------- the packed serving path
+
+def phase_nan_tags(grp_mod, mega_mod, dev) -> None:
+    """The grouping kernels against their plain versions on tags with
+    planted NaNs: a whole tag at the first joint (a person whose mean
+    stays NaN), one dimension of a later row; B=8, J=17, K=30, D=2."""
+    rng = np.random.default_rng(SEED + 6)
+    b, j, k, d = 8, 17, 30, 2
+    tags = rng.normal(size=(b, j, k, d)).astype(np.float32) * 2
+    tags[..., 0] = np.round(tags[..., 0] * 2) / 2
+    locs = rng.integers(0, 320, size=(b, j, k, 2)).astype(np.float32)
+    vals = np.sort(rng.uniform(-0.3, 1.0, size=(b, j, k)).astype(
+        np.float32), axis=-1)[..., ::-1].copy()
+    vals[:4, :, :3] = np.maximum(vals[:4, :, :3], 0.5)
+    tags[0, 0, 1] = np.nan
+    tags[1, 2, 0, 1] = np.nan
+    tags[2, 5, 2] = np.nan
+    tags[3, 16, 0] = np.nan
+    args = [torch.from_numpy(a).to(dev) for a in (tags, locs, vals)]
+    kw = dict(max_num_people=30, p_max=90)
+    runs = {"lockstep": (grp_mod.match_by_tag_lockstep,
+                         grp_mod.match_by_tag_lockstep_plain, {})}
+    for solver in ("greedy", "lap"):
+        runs[f"mega_{solver}"] = (mega_mod.match_by_tag_kernel,
+                                  mega_mod.match_by_tag_kernel_plain,
+                                  {"solver": solver})
+    for name, (kernel, plain, extra) in runs.items():
+        got = kernel(*args, **kw, **extra)
+        want = plain(*args, **kw, **extra)
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(want[0][:4]).any()), f"{name}: no NaN kept")
+        check(torch.equal(got[1], want[1]),
+              f"{name} n_people on NaN tags differ from plain")
+        same = (got[0] == want[0]) | (torch.isnan(got[0])
+                                      & torch.isnan(want[0]))
+        check(bool(same.all()), f"{name} differs from plain on NaN tags")
+    print(f"NaN tags: {sorted(runs)} equal to plain, NaN for NaN",
+          flush=True)
+
+
+def chain_inputs(shape, n: int, seed: int, dev, exact: bool = False):
+    """Chain inputs on the card: normal activations and weights scaled to
+    keep the chain's activations of order 1, or with ``exact`` small
+    integers times powers of two (every conv sum exact in float32)."""
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    if exact:
+        x = torch.randint(-4, 5, shape, generator=g).float()
+        w = torch.randint(-1, 2, (n, 2, 3, 3, c, c), generator=g) / 64.0
+        b = torch.randint(-8, 9, (n, 2, c), generator=g) / 64.0
+    else:
+        x = torch.randn(shape, generator=g)
+        w = torch.randn((n, 2, 3, 3, c, c), generator=g) / (3 * c) ** 0.5
+        b = torch.randn((n, 2, c), generator=g) * 0.1
+    return (x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
+            b.to(dev))
+
+
+def phase_chain(blk_mod, set_tf32, dev) -> dict:
+    """The chain kernel against its plain version; returns the worst
+    relative error (of max |plain|) by branch shape at B=8, n=4."""
+    set_tf32(False)
+    cases = [((bb, *hwc), n) for hwc in BRANCHES for bb in (1, 8)
+             for n in (1, 4)] + [((2, 12, 20, 96), 4)]
+    worst, share, errs = 0.0, 0.0, {}
+    for shape, n in cases:
+        x, w, b = chain_inputs(shape, n, SEED + sum(shape) + n, dev)
+        got = blk_mod.basicblock_chain(x, w, b)
+        want = blk_mod.basicblock_chain_plain(x, w, b)
+        torch.cuda.synchronize()
+        check(got.is_cuda and got.dtype == torch.bfloat16
+              and got.shape == x.shape, "chain output layout")
+        diff = (got.float() - want.float()).abs()
+        rel = float(diff.max()) / float(want.float().abs().max())
+        check(bool(torch.isfinite(got.float()).all()), "non-finite chain")
+        check(rel <= CHAIN_TOL, f"chain {shape} n={n}: worst error {rel:.4g} "
+              f"of max |plain| > {CHAIN_TOL}")
+        worst = max(worst, rel)
+        share = max(share, float((diff > 0).float().mean()))
+        if shape[0] == 8 and n == 4:
+            errs[shape[3]] = float(diff.max())
+    for shape, n in (((2, 12, 20, 96), 4), ((1, 20, 20, 384), 2)):
+        x, w, b = chain_inputs(shape, n, SEED + n, dev, exact=True)
+        got = blk_mod.basicblock_chain(x, w, b)
+        with torch.backends.cudnn.flags(enabled=False):
+            want = blk_mod.basicblock_chain_plain(x, w, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"chain {shape} n={n} differs from "
+              "plain on exact sums")
+    print(f"basicblock_chain: {len(cases)} cases within {CHAIN_TOL} of max "
+          f"|plain|, worst {worst:.4g}, at most {share:.3f} of elements "
+          f"differ; bitwise equal on exact sums", flush=True)
+    return {"worst_rel": worst, "max_share_differing": share,
+            "max_abs_err_b8_n4": errs}
+
+
+def phase_packed_forward(hrnet, packed, blk_mod, state, dev):
+    """The full-width W48 packed forward on the card (TF32 is off).
+    Returns what it measured and the bf16 folded weights."""
+    cfg = hrnet.w48_config()
+    x = torch.randn((1, 3, 256, 256),
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.inference_mode():
+        model = hrnet.PoseHigherHRNet(cfg)
+        model.load_state_dict(state)
+        want = model.to(dev).eval()(x)
+        del model
+        pk32 = packed.pack_w48_params(state, cfg, torch.float32, dev)
+        got = packed.packed_forward(pk32, x, cfg, torch.float32)
+        del pk32
+    err32 = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              "packed fp32 forward output")
+        check(torch.allclose(g, w, rtol=1e-3, atol=1e-3),
+              f"fp32 packed forward differs from the canonical by "
+              f"{(g - w).abs().max().item()}")
+        err32 = max(err32, (g - w).abs().max().item())
+    torch.cuda.empty_cache()
+    pk = packed.pack_w48_params(state, cfg, torch.bfloat16, dev)
+    xb = torch.randn((8, 3, 640, 640),
+                     generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    with torch.inference_mode():
+        off = packed.packed_forward(pk, xb, cfg)
+        blk_mod.basicblock_chain.launches = 0
+        on = packed.packed_forward(pk, xb, cfg, pallas_chains=True)
+        torch.cuda.synchronize()
+        launches = blk_mod.basicblock_chain.launches
+    check(launches == 18, f"{launches} chain launches per 640 x 640 forward")
+    rel, mean_rel = 0.0, 0.0
+    for a, b in zip(on, off):
+        a, b = a.float(), b.float()
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              "packed bf16 forward output")
+        rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+        mean_rel = max(mean_rel, float((a - b).abs().mean() / b.abs().mean()))
+    check(rel <= PACKED_BF16_TOL, f"bf16 chains on vs off: {rel:.4g} of max "
+          f"|off| > {PACKED_BF16_TOL}")
+    print(f"w48 packed: fp32 vs canonical max_abs_err {err32:.3g} "
+          f"(allclose 1e-3); bf16 chains on vs off worst {rel:.4g} of max, "
+          f"mean {mean_rel:.4g}; {launches} chain launches per 640 x 640 "
+          "forward", flush=True)
+    return {"fp32_vs_canonical_max_abs_err": err32,
+            "bf16_chains_vs_cudnn_worst_rel": rel,
+            "bf16_chains_vs_cudnn_mean_rel": mean_rel,
+            "chain_launches_per_forward": launches}, pk
+
+
+def phase_packed_path(PosePredictor, hrnet, packed, state, counters,
+                      dev):
+    """The packed serving path through the chain kernel, then the packed
+    predictor's entry points; each with the counters set to 0 just
+    before and read just after."""
+    cfg = hrnet.w48_config()
+    pred = PosePredictor(hrnet.PoseHigherHRNet(cfg), state, device=dev,
+                         packed=True)
+    check(pred.packed and pred.dtype == torch.bfloat16, "packed bf16")
+    rng = np.random.default_rng(SEED + 7)
+    square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+    shapes = []
+    chain = packed.basicblock_chain
+
+    def tap(x, w, b):
+        shapes.append(tuple(x.shape[1:]))
+        return chain(x, w, b)
+
+    packed.basicblock_chain = tap
+    try:
+        reset(counters)
+        with torch.inference_mode():
+            pre = [pred._preprocess(im) for im in square]
+            x = torch.stack([p[0] for p in pre])
+            heads = packed.packed_forward(pred.packed_params,
+                                          x.permute(0, 3, 1, 2), cfg,
+                                          pred.dtype, pallas_chains=True)
+            hms, tags = pred._decode_outputs(*heads)
+            grouped, scores = pred.parser.parse_fused_batch(hms, tags)
+            hm_hw = (int(hms.shape[1]), int(hms.shape[2]))
+            out = [pred._finalize(grouped[k], scores[k], p[1], p[2], hm_hw)
+                   for k, p in enumerate(pre)]
+        path = read(counters)
+    finally:
+        packed.basicblock_chain = chain
+    n = [check_people(r, 17, f"packed path[{i}]") for i, r in enumerate(out)]
+    check(sum(n) > 0, "no people on the packed path")
+    for name in ("basicblock_chain", "nms_topk", "match_by_tag_lockstep"):
+        check(path[name] > 0, f"{name} was not launched on the packed path")
+    check(path["basicblock_chain"] == 18, f"{path['basicblock_chain']} "
+          "chain launches for one 640 x 640 forward")
+    by_shape = {f"{h}x{w}x{c}": shapes.count((h, w, c))
+                for h, w, c in BRANCHES}
+    check(sum(by_shape.values()) == 18, f"chain shapes {by_shape}")
+
+    images = synthetic_images(np.random.default_rng(SEED))
+    reset(counters)
+    res = pred.predict_batch(images)
+    single = pred.predict(images[0])
+    streamed = list(pred.stream(images[:4]))
+    served = read(counters)
+    check(len(res) == len(images) and len(streamed) == 4,
+          "one result per image")
+    nb = [check_people(r, 17, f"packed predict_batch[{i}]")
+          for i, r in enumerate(res)]
+    check_people(single, 17, "packed predict")
+    for r in streamed:
+        check_people(r, 17, "packed stream")
+    for name in ("nms_topk", "match_by_tag_lockstep"):
+        check(served[name] > 0, f"{name} was not launched by the packed "
+              "predictor")
+    print(f"packed path: people {n}, launches {path}, chains by shape "
+          f"{by_shape}; packed predictor people {nb}, launches {served}",
+          flush=True)
+    return pred, path, by_shape, served
+
+
+def chain_times(blk_mod, hwc, b: int, dev) -> dict:
+    """Kernel, plain and cuDNN times and the bound of one 4-block chain
+    at (B, H, W, C)."""
+    n = 4
+    h, w, c = hwc
+    x, wt, bs = chain_inputs((b, h, w, c), n, SEED + 11, dev)
+    xc = x.permute(0, 3, 1, 2)                       # channels_last NCHW
+    w1 = wt[0, 0].permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    b1 = bs[0, 0].to(torch.bfloat16)
+    conv_ms = device_ms(lambda: F.conv2d(xc, w1, b1, padding=1), 50)
+    n_ops = 2 * b * h * w * 9 * c * c * 2 * n
+    n_bytes = 2 * b * h * w * c * 2 + wt.numel() * 2 + bs.numel() * 4
+    return {"ms": device_ms(lambda: blk_mod.basicblock_chain(x, wt, bs), 20),
+            "plain_ms": device_ms(
+                lambda: blk_mod.basicblock_chain_plain(x, wt, bs), 5),
+            "library_ms": conv_ms * 2 * n, "library": "cuDNN F.conv2d bf16 "
+            "channels_last with bias, one conv x 2n", "library_conv_ms":
+            conv_ms, **bound(n_bytes, n_ops, BF16_OPS_PER_S),
+            "shape": [b, h, w, c, n]}
+
+
+def chain_rows(blk_mod, by_shape, chain_errs, dev) -> list:
+    rows = []
+    for hwc in BRANCHES:
+        key = "x".join(map(str, hwc))
+        rows.append({"name": f"basicblock_chain_{key}", "route": "cuda",
+                     "source": "rtpe_tpu_torch/csrc/basicblock_chain.cu",
+                     "replaces": "rtpe_tpu/ops/pallas_blocks.py:58",
+                     "launches": by_shape[key],
+                     "path": "packed_forward(pallas_chains=True)",
+                     "max_abs_err": chain_errs["max_abs_err_b8_n4"][hwc[2]],
+                     **chain_times(blk_mod, hwc, 8, dev),
+                     "at_b1": chain_times(blk_mod, hwc, 1, dev)})
+    return rows
+
+
+def forward_times(packed, canonical, pk, dev) -> dict:
+    """Device and host milliseconds of one forward at batch 1 and 8 on
+    640 x 640 inputs: canonical, packed, packed + chains (bf16)."""
+    cfg = canonical.cfg
+    out = {}
+    for bs in (1, 8):
+        x = torch.randn((bs, 3, 640, 640),
+                        generator=torch.Generator().manual_seed(bs)).to(dev)
+        x = x.contiguous(memory_format=torch.channels_last)
+        runs = {"canonical": lambda: canonical(x),
+                "packed": lambda: packed.packed_forward(pk, x, cfg),
+                "packed_chains": lambda: packed.packed_forward(
+                    pk, x, cfg, pallas_chains=True)}
+        with torch.inference_mode():
+            for name, fn in runs.items():
+                out[f"{name}_bs{bs}"] = {"device_ms": device_ms(fn, 5),
+                                         "host_ms": host_ms(fn, 5)}
+    print(f"forward ms: {out}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -761,7 +1073,9 @@ def main() -> None:
         from rtpe_tpu_torch.device import set_tf32
         from rtpe_tpu_torch.eval import PosePredictor
         from rtpe_tpu_torch.models import hrnet
+        from rtpe_tpu_torch.models import hrnet_packed as packed_mod
         from rtpe_tpu_torch.ops import _build
+        from rtpe_tpu_torch.ops import blocks as blk_mod
         from rtpe_tpu_torch.ops import group as mega_mod
         from rtpe_tpu_torch.ops import group_lockstep as grp_mod
         from rtpe_tpu_torch.ops import lap as lap_mod
@@ -776,10 +1090,15 @@ def main() -> None:
             "group_lockstep": phase_lockstep(grp_mod, dev)["max_abs_err"],
             "lap_rect": phase_lap(lap_mod, dev)["max_abs_err"],
             "group_mega": phase_mega(mega_mod, grp_mod, dev)["max_abs_err"]}
+    phase_nan_tags(grp_mod, mega_mod, dev)
     phase_selfcheck(fused, dev)
     state = phase_forward(hrnet, set_tf32, dev)
+    chain_errs = phase_chain(blk_mod, set_tf32, dev)
+    packed_info, pk = phase_packed_forward(hrnet, packed_mod, blk_mod, state,
+                                           dev)
     counters = (nms_mod.nms_topk, grp_mod.match_by_tag_lockstep,
-                mega_mod.match_by_tag_kernel, lap_mod.lap_rect)
+                mega_mod.match_by_tag_kernel, lap_mod.lap_rect,
+                blk_mod.basicblock_chain)
     pred, images, launches = phase_main_path(
         PosePredictor, hrnet.PoseHigherHRNet, hrnet.w48_config, state,
         counters, dev)
@@ -790,15 +1109,26 @@ def main() -> None:
     kernels = phase_kernel_times(nms_mod, grp_mod, launches, errs, dev)
     kernels += new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps,
                                costs, errs, top_k)
+    pred_p, packed_launches, by_shape, served = phase_packed_path(
+        PosePredictor, hrnet, packed_mod, state, counters, dev)
+    kernels += chain_rows(blk_mod, by_shape, chain_errs, dev)
     paths_ms = decode_path_times(pred.parser, fused, heatmaps)
+    fwd_ms = forward_times(packed_mod, pred.model, pk, dev)
     e2e = phase_end_to_end(pred)
     prof = phase_profile(pred)
+    e2e_packed = phase_end_to_end(pred_p)
+    prof_packed = phase_profile(pred_p)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build_s,
                       "main_path_launches": launches,
                       "other_path_launches": path_launches,
                       "decode_paths_ms": paths_ms,
-                      "end_to_end": e2e, "profile_bs8": prof}))
+                      "end_to_end": e2e, "profile_bs8": prof,
+                      "chain_check": chain_errs, "packed_forward": packed_info,
+                      "packed_path_launches": packed_launches,
+                      "packed_predictor_launches": served,
+                      "forward_ms": fwd_ms, "end_to_end_packed": e2e_packed,
+                      "profile_bs8_packed": prof_packed}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

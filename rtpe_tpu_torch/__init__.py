@@ -2,15 +2,21 @@
 
 A second package beside the JAX reference.  It imports ``torch``, numpy
 and scipy only: no JAX, and nothing of ``rtpe_tpu`` (it keeps its own
-copies of the numpy helpers it needs).  This first slice covers the
-teacher's image -> people serving path:
+copies of the numpy helpers it needs).  It covers the teacher's
+image -> people serving path:
 
   data/preprocess.py   resize-align (on-device affine warp) + normalize
-  models/              HigherHRNet-W48 (NCHW nn.Modules, reference keys)
-  decode/              NMS + top-k -> lockstep grouping -> adjust/refine
-  eval/predictor.py    PosePredictor: predict / predict_batch / stream
-  ops/                 resize, pooling, affine and the two CUDA kernels
-                       (csrc/nms_topk.cu, csrc/group_lockstep.cu)
+  models/              HigherHRNet-W48 (NCHW nn.Modules, reference keys),
+                       the BN-folded serving forward (hrnet_packed.py)
+                       and the factories
+  decode/              NMS + top-k -> grouping -> adjust/refine, every
+                       decode path of the JAX package
+  eval/predictor.py    PosePredictor: predict / predict_batch / stream,
+                       canonical or packed, from_jax / from_artifact
+  io/                  JAX variables, folded weights and serving
+                       artifacts -> the port
+  ops/                 resize, pooling, affine, the BN fold and the
+                       wrappers of the five CUDA kernels in csrc/
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``
 (:func:`rtpe_tpu_torch.device.resolve_device`); without CUDA they raise

@@ -13,7 +13,9 @@
 //     - val, clamped at 1000, plus the tie bias (2m - r) * 1e-8 * slot,
 //     or HUGE for an inactive row (val <= detection threshold, or the
 //     joint skipped under ignore_too_much); the row matches when that
-//     cost < BIG and the unrounded distance < tag_threshold;
+//     cost < BIG and the unrounded distance < tag_threshold.  A NaN cost
+//     (a NaN tag or tag mean) survives the clamp and wins the argmin, as
+//     jnp.min and torch.argmin propagate it, so that row matches no one;
 //   loop 2 (row by row, evolving state): a matched row adds its tag to
 //     its slot; an unmatched active row merges onto the first person
 //     whose key equals its first tag dimension exactly (setdefault),
@@ -51,6 +53,15 @@ constexpr float BIG = 2048.0f;
 constexpr float HUGE_COST = 4096.0f;
 constexpr float MASKED = 1e18f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// (a, sa) comes before (b, sb) in the row's argmin: a NaN first (jnp.min
+// and torch.argmin propagate it), then the smaller cost, then the smaller
+// slot.
+__device__ __forceinline__ bool before(float a, int sa, float b, int sb) {
+  const bool a_nan = a != a, b_nan = b != b;
+  if (a_nan || b_nan) return a_nan && (!b_nan || sa < sb);
+  return a < b || (a == b && sa < sb);
+}
 
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 lockstep_kernel(const float *__restrict__ tag, const float *__restrict__ loc,
@@ -127,11 +138,11 @@ lockstep_kernel(const float *__restrict__ tag, const float *__restrict__ loc,
         diff[q] = __fsqrt_rn(sq);
         float cost = use_val ? __fsub_rn(__fmul_rn(rintf(diff[q]), 100.0f), v_r)
                              : diff[q];
-        cost = fminf(cost, COST_CLAMP);
+        cost = cost > COST_CLAMP ? COST_CLAMP : cost;  // keeps a NaN
         const float crow =
             active ? __fadd_rn(cost, __fmul_rn(tie_coef, (float)s)) : HUGE_COST;
         const float masked = (s < p_cur && !used[q]) ? crow : MASKED;
-        if (masked < best || (masked == best && s < best_s)) {
+        if (before(masked, s, best, best_s)) {
           best = masked;
           best_s = s;
         }
@@ -140,7 +151,7 @@ lockstep_kernel(const float *__restrict__ tag, const float *__restrict__ loc,
       for (int off = 16; off > 0; off >>= 1) {
         const float ob = __shfl_xor_sync(FULL, best, off);
         const int os = __shfl_xor_sync(FULL, best_s, off);
-        if (ob < best || (ob == best && os < best_s)) {
+        if (before(ob, os, best, best_s)) {
           best = ob;
           best_s = os;
         }

@@ -20,7 +20,10 @@
 //             is below the tag threshold;
 //     greedy: rows in top-k order each take the cheapest unused real slot
 //             (smallest slot on ties) and match under the same two tests
-//             (the lockstep kernel's function, row for row);
+//             (the lockstep kernel's function, row for row).  A NaN cost
+//             (a NaN tag or tag mean) survives the clamp and wins the
+//             argmin, as jnp.min and torch.argmin propagate it, so that
+//             row matches no one;
 //   update, row by row in order: a matched row adds its tag to its slot;
 //     an unmatched active row merges onto the first person whose key
 //     equals its first tag dimension exactly (setdefault), else appends a
@@ -61,6 +64,27 @@ constexpr int DMAX = 8;
 constexpr float COST_CLAMP = 1000.0f;
 constexpr float BIG = 2048.0f;
 constexpr float HUGE_COST = 4096.0f;
+
+// (a, la) comes before (b, lb) in a greedy row's argmin: a NaN first (jnp.min
+// and torch.argmin propagate it), then the smaller cost, then the smaller
+// column.
+__device__ __forceinline__ bool before(float a, int la, float b, int lb) {
+  const bool a_nan = a != a, b_nan = b != b;
+  if (a_nan || b_nan) return a_nan && (!b_nan || la < lb);
+  return a < b || (a == b && la < lb);
+}
+
+__device__ __forceinline__ void warp_argmin_nan_first(float &v, int &c) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, v, off);
+    const int oc = __shfl_xor_sync(FULL, c, off);
+    if (before(ov, oc, v, c)) {
+      v = ov;
+      c = oc;
+    }
+  }
+}
 
 template <bool GREEDY>
 __global__ void __launch_bounds__(32)
@@ -139,7 +163,7 @@ group_mega_kernel(const float *__restrict__ tag, const float *__restrict__ loc,
         if (s < m2) {
           float dn = use_val ? __fsub_rn(__fmul_rn(rintf(diff), 100.0f), v_r)
                              : diff;
-          dn = fminf(dn, COST_CLAMP);
+          dn = dn > COST_CLAMP ? COST_CLAMP : dn;  // keeps a NaN
           const bool col_real = s < p_cur;
           const float tie = __fmul_rn(__fmul_rn(tie_row, (float)s), 1e-8f);
           const float padded = __fadd_rn(s < m ? dn : 0.0f, tie);
@@ -166,12 +190,12 @@ group_mega_kernel(const float *__restrict__ tag, const float *__restrict__ loc,
           const int l = lane + 32 * q + 1;  // column of slot l - 1
           const bool cand = l <= p_cur && !used[q];
           const float masked = cand ? cost_s[r * LANES + l] : INF;
-          if (masked < best || (masked == best && l < best_l)) {
+          if (before(masked, l, best, best_l)) {
             best = masked;
             best_l = l;
           }
         }
-        lapcore::warp_argmin(best, best_l);
+        warp_argmin_nan_first(best, best_l);
         const int s_at = best_l - 1;  // 0..127
         const float d_at = diff_s[r * LANES + s_at];
         const bool matched = active && best < BIG && d_at < tag_thr;

@@ -1,12 +1,14 @@
 """High-level inference API: image in, people in image coordinates out.
 
 Port of ``rtpe_tpu/eval/predictor.py``: resize-align + normalize on the
-device, the W48 forward (bf16 on CUDA), the tag-map resize, the decode,
-then the inverse transform on the host.  The decode is the batched
-device decode (:meth:`HeatmapParser.parse_fused_batch`: the NMS + top-k
-and lockstep grouping kernels on CUDA) or, with ``fused_decode=False``,
-the host-grouping decode (:meth:`HeatmapParser.parse_batch`: the NMS +
-top-k kernel, munkres grouping on the host, the refine on the device).
+device, the W48 forward (bf16 on CUDA; with ``packed=True`` the
+BN-folded serving forward of ``models/hrnet_packed.py``), the tag-map
+resize, the decode, then the inverse transform on the host.  The decode
+is the batched device decode (:meth:`HeatmapParser.parse_fused_batch`:
+the NMS + top-k and lockstep grouping kernels on CUDA) or, with
+``fused_decode=False``, the host-grouping decode
+(:meth:`HeatmapParser.parse_batch`: the NMS + top-k kernel, munkres
+grouping on the host, the refine on the device).
 """
 
 from typing import List, Mapping, Optional, Sequence, Tuple
@@ -19,15 +21,15 @@ from ..data.preprocess import (get_final_preds, normalize_image,
 from ..decode import HeatmapParser
 from ..device import DeviceLike, default_dtype, resolve_device
 from ..io.jax_import import state_dict_from_jax, strip_fp16_prefix
+from ..io.serving import load_serving_artifact
 from ..models.hrnet import HRNetConfig, PoseHigherHRNet
+from ..models.hrnet_packed import pack_w48_params, packed_forward
 from ..ops.resize import resize_bilinear
 
 People = Tuple[List[np.ndarray], List[float]]
 
 # options of the JAX predictor that later slices of the port bring
 _LATER = {
-    "packed": "the packed/BN-folded fast serving modes (ROADMAP.md "
-              "Queue 1 item 5)",
     "int8": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
     "int8_act": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
     "with_flip": "test-time augmentation (ROADMAP.md Queue 1 item 6)",
@@ -56,6 +58,13 @@ class PosePredictor:
     it in eval mode and casts its convolutions to ``dtype`` (default
     bf16 on CUDA, float32 on the CPU).  ``state_dict``, when given, is
     loaded first (the reference's fp16 ``"1."`` prefix is tolerated).
+
+    ``packed=True`` folds BatchNorm into the weights once here
+    (:func:`~rtpe_tpu_torch.models.hrnet_packed.pack_w48_params`, in
+    ``dtype`` on ``device``) and serves every call through
+    :func:`~rtpe_tpu_torch.models.hrnet_packed.packed_forward`, with the
+    block chains on cuDNN as the JAX predictor serves them (it never
+    sets ``pallas_chains``); the module itself then stays where it was.
     """
 
     def __init__(self, model: PoseHigherHRNet,
@@ -69,7 +78,7 @@ class PosePredictor:
                  with_flip: bool = False, packed: bool = False,
                  int8: bool = False, int8_act: bool = False,
                  mesh=None, spatial_mesh=None):
-        later = dict(packed=packed, int8=int8, int8_act=int8_act,
+        later = dict(int8=int8, int8_act=int8_act,
                      with_flip=with_flip, mesh=mesh,
                      spatial_mesh=spatial_mesh)
         for name, value in later.items():
@@ -91,6 +100,13 @@ class PosePredictor:
         self.fused_decode = fused_decode is not False
         if state_dict is not None:
             model.load_state_dict(strip_fp16_prefix(state_dict))
+        self.packed = bool(packed)
+        self.packed_params = None
+        if self.packed:
+            self.packed_params = pack_w48_params(
+                model.state_dict(), model.cfg, self.dtype, self.device)
+            self.model = model.eval()
+            return
         model = model.to(self.device).eval().set_compute_dtype(self.dtype)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -104,6 +120,19 @@ class PosePredictor:
         return cls(PoseHigherHRNet(cfg), state_dict_from_jax(variables_np,
                                                              cfg), **kwargs)
 
+    @classmethod
+    def from_artifact(cls, path: str, **overrides) -> "PosePredictor":
+        """Serve the JAX package's serving artifact directory
+        (:func:`~rtpe_tpu_torch.io.serving.load_serving_artifact`): its
+        weights, model config and predictor settings.  Keyword overrides
+        win over the recorded settings (``packed=False`` serves the same
+        weights through the canonical forward; ``dtype=`` and
+        ``device=`` as for the constructor)."""
+        art = load_serving_artifact(path)
+        kwargs = dict(art.predictor_kwargs)
+        kwargs.update(overrides)
+        return cls.from_jax(art.variables, art.cfg, **kwargs)
+
     # ------------------------------------------------------ shared path
 
     def _preprocess(self, image_rgb):
@@ -115,7 +144,11 @@ class PosePredictor:
         return normalize_image(resized / 255.0), center, scale
 
     def _forward(self, batch_nhwc: torch.Tensor):
-        return self.model(batch_nhwc.permute(0, 3, 1, 2))
+        x = batch_nhwc.permute(0, 3, 1, 2)
+        if self.packed:
+            return packed_forward(self.packed_params, x, self.model.cfg,
+                                  self.dtype)
+        return self.model(x)
 
     def _parse(self, hms: torch.Tensor, tags: torch.Tensor):
         if self.fused_decode:

@@ -13,6 +13,11 @@ torch-statedict importer, ``rtpe_tpu/io/torch_import.py``).
 It is strict: every JAX leaf maps to one port key, every port key gets
 a value, and every shape is checked.  The flax-path -> torch-key table
 is this package's own copy.
+
+``folded_params_from_jax(folded_np, cfg)`` turns the JAX package's
+BN-folded dict (``rtpe_tpu.models.hrnet_packed.fold_w48_params``: numpy,
+HWIO kernels, ``(kh, kw, in, out)`` for the transposed conv) into the
+port's serving dict (``rtpe_tpu_torch.models.hrnet_packed``).
 """
 
 import re
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models.hrnet import HRNetConfig, PoseHigherHRNet
+from ..models.hrnet_packed import PackedParams, serving_params
 
 _LEAF_SUFFIXES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                   "mean": "running_mean", "var": "running_var"}
@@ -143,3 +149,22 @@ def state_dict_from_jax(variables_np: Mapping,
         if k.endswith("num_batches_tracked"):
             out[k] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def folded_params_from_jax(folded_np: Mapping[str, Tuple[object, object]],
+                           cfg: HRNetConfig,
+                           dtype: torch.dtype = torch.float32,
+                           device="cpu") -> PackedParams:
+    """The port's serving dict from JAX's dense BN-folded dict
+    ``name -> (kernel, bias)`` under the same names: kernels HWIO ->
+    OIHW, the transposed conv's ``(kh, kw, in, out)`` -> ``(in, out, kh,
+    kw)``, then the dtype, the device and the stacked chains of
+    :func:`rtpe_tpu_torch.models.hrnet_packed.serving_params`."""
+    folded = {}
+    for key, (kernel, bias) in folded_np.items():
+        k = np.asarray(kernel, np.float32)
+        k = np.transpose(k, (2, 3, 0, 1) if key.endswith("tconv")
+                         else (3, 2, 0, 1))
+        folded[key] = (torch.from_numpy(np.ascontiguousarray(k)),
+                       torch.from_numpy(np.array(bias, np.float32)))
+    return serving_params(folded, cfg, dtype, torch.device(device))

@@ -1,2 +1,3 @@
-"""Tensor ops (resize, pooling, affine) and the CUDA kernels' wrappers
-(``nms_topk``, ``group_lockstep``), each with its plain version."""
+"""Tensor ops (resize, pooling, affine, the BN fold) and the CUDA
+kernels' wrappers (``nms_topk``, ``group_lockstep``, ``group``, ``lap``,
+``blocks``), each with its plain version."""

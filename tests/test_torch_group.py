@@ -6,6 +6,10 @@
   ``ignore_too_much`` both ways, one and two tag dimensions, and the
   edge cases of the JAX tests: people and n_people exactly equal;
 * its greedy solver against the port's lockstep grouping, row for row;
+* both greedy groupings (the plain versions of ``csrc/group_lockstep.cu``
+  and of ``csrc/group_mega.cu``'s greedy solver) on tags with planted
+  NaNs against the interpret-mode kernels: a NaN cost keeps its NaN
+  through the clamp and the row matches no one;
 * ``decode/group_jit.py`` against JAX ``match_by_tag_jit`` with
   ``lap="xla"`` and the per-joint LAP kernel (``"pallas_interpret"``):
   exactly equal;
@@ -25,6 +29,8 @@ import jax.numpy as jnp
 
 from rtpe_tpu.decode.group_jit import match_by_tag_jit as j_match_by_tag_jit
 from rtpe_tpu.ops.pallas_group import match_by_tag_kernel as j_kernel
+from rtpe_tpu.ops.pallas_group_lockstep import \
+    match_by_tag_lockstep as j_lockstep
 from rtpe_tpu_torch.decode import fused
 from rtpe_tpu_torch.decode.group_jit import match_by_tag_jit
 from rtpe_tpu_torch.ops import group as mega
@@ -114,6 +120,43 @@ def test_greedy_equals_lockstep_row_for_row(ignore_too_much, shape, m,
     p_g, n_g = match_by_tag_kernel(*args, solver="greedy", **kw)
     p_l, n_l = match_by_tag_lockstep(*args, **kw)
     assert torch.equal(n_g, n_l) and torch.equal(p_g, p_l)
+
+
+def nan_scene(b, j, k, d, seed):
+    """A scene in top-k order with NaN tags planted on active rows: a
+    whole tag at the first joint (a new person whose mean stays NaN, so
+    no later row can match it or anyone beside it), one dimension
+    of a later row, and an image without NaN."""
+    tags, locs, vals = scene(b, j, k, d, seed)
+    vals = np.sort(vals, axis=-1)[..., ::-1].copy()
+    tags[0, 0, 1] = np.nan
+    tags[1, 2, 0, d - 1] = np.nan
+    tags[1, 3, 2] = np.nan
+    vals[:2, :, :3] = np.maximum(vals[:2, :, :3], 0.5)
+    return tags, locs, vals
+
+
+@pytest.mark.parametrize("grouping", ["lockstep", "greedy"])
+@pytest.mark.parametrize("ignore_too_much", [False, True])
+@pytest.mark.parametrize("shape,m,p_max", [((3, 5, 8, 1), 8, 24),
+                                           ((3, 4, 6, 2), 8, 10)])
+def test_nan_tags_match_pallas_interpret(grouping, ignore_too_much, shape,
+                                         m, p_max):
+    arrays = nan_scene(*shape, seed=5)
+    kw = dict(max_num_people=m, ignore_too_much=ignore_too_much,
+              p_max=p_max)
+    if grouping == "lockstep":
+        p_j, n_j = j_lockstep(*as_jax(arrays), interpret=True, **kw)
+        p_t, n_t = match_by_tag_lockstep(*as_torch(arrays), **kw)
+    else:
+        p_j, n_j = j_kernel(*as_jax(arrays), interpret=True,
+                            solver="greedy", **kw)
+        p_t, n_t = match_by_tag_kernel(*as_torch(arrays), solver="greedy",
+                                       **kw)
+    assert torch.isnan(p_t[0]).any() and torch.isnan(p_t[1]).any()
+    assert not torch.isnan(p_t[2]).any()
+    np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
+    np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
 
 
 @pytest.mark.parametrize("lap", ["xla", "pallas"])

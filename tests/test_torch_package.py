@@ -82,11 +82,24 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    for kw in (dict(packed=True), dict(int8=True), dict(with_flip=True),
+    for kw in (dict(int8=True), dict(packed=True, int8=True),
+               dict(packed=True, int8_act=True), dict(with_flip=True),
                dict(scales=(1.0, 0.5)), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="later slice"):
             PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
                           num_joints=3, **kw)
+
+
+def test_packed_predictor_serves_on_the_cpu():
+    """``packed=True`` is this slice's: the weights are folded once, in
+    the predictor's dtype, and the module stays where it was."""
+    pred = PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                         num_joints=3, input_size=64, packed=True)
+    assert pred.packed and pred.dtype == torch.float32
+    w, b = pred.packed_params["stage4_0/branch0_0/conv1"]
+    assert w.dtype == torch.float32 and b.dtype == torch.float32
+    people, scores = pred.predict(torch.zeros((40, 30, 3)).numpy())
+    assert len(people) == len(scores)
 
 
 def test_precision_policy():
@@ -108,7 +121,7 @@ def test_precision_policy():
 def test_kernel_sources_and_build_command():
     """Every kernel source is found, and the build is the plain-C nvcc
     route for sm_90a (compiled only where ``nvcc`` exists)."""
-    assert _build.sources() == ["group_lockstep", "group_mega", "lap_rect",
-                                "nms_topk"]
+    assert _build.sources() == ["basicblock_chain", "group_lockstep",
+                                "group_mega", "lap_rect", "nms_topk"]
     assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert os.path.basename(_build.BUILD_DIR) == "_build"
