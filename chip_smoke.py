@@ -72,13 +72,33 @@ Phases, each of which fails the run:
     conv (the library yardstick, x 2n per chain) at B = 8 and 1 for each
     branch shape; the forward at batch 1 and 8 for the canonical, the
     packed and the packed + chains forwards; the packed predictor's
-    end-to-end rates and its ``torch.profiler`` view.
+    end-to-end rates and its ``torch.profiler`` view;
+17. the six fused-CAM kernels against their plain versions (float32
+    convs, TF32 off) at the train step's two CAM shapes, B=16, 113 x 113
+    x 163 (dilations 1-3) and x 83 (1-4), and a ragged (3, 29, 21, 83)
+    case with per-image gates of both signs: forward statistics within
+    2^-8 of their largest magnitude, every other output within the
+    ``CAM_*`` limits (worst element, mean, share off); bitwise equal on
+    exact-sum inputs;
+18. the slice's main path: 5 train steps of
+    ``make_distill_train_step`` at the reference configuration
+    (``AttentionStudentSteps(inplanes=80, fused_cam=True)``, bf16, B=16,
+    450 x 450, the stem of the seeded W48 through
+    ``load_pretrained_stem``), with the CAM counters set to 0 just before
+    and read just after: 30 launches of each kernel and no plain call,
+    finite losses, frozen parameters unchanged, every other group and
+    running statistic moved; then 5 steps with the CAMs on cuDNN, each
+    from the fused run's parameters of that step: each step's losses
+    within 5 %; step times, peak memory and a ``torch.profiler`` view of
+    one fused step;
+19. each CAM kernel's time, its plain version's, its bound and the cuDNN
+    CAM's train-mode forward (or forward + backward) at both shapes.
 
-Phases 12-16 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, and 16 with 11.
+Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
+after 10, 16 with 11, and 17-19 after 15.
 
 Output: the ``nvidia-smi`` line, then one JSON line ``{"kernels": ...}``,
-one JSON line of end-to-end numbers, and last
+one JSON line of end-to-end and train-step numbers, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
 prints no result.
@@ -101,6 +121,26 @@ CHAIN_TOL = 2.0 ** -5         # chain kernel vs plain, of max |plain|
 PACKED_BF16_TOL = 2.0 ** -4   # chains on vs off, of max |off|
 BRANCHES = [(80, 80, 96), (40, 40, 192), (20, 20, 384)]   # at 640 x 640
 SEED = 0
+CAM_STAT_TOL = 2.0 ** -8      # CAM kernels vs plain: forward statistics
+# CAM kernels vs plain, activations and gradients (the backward sums over
+# pixels included): a conv output whose
+# bf16 rounding lands on the other side of a tie can move a ReLU mask
+# (z within a rounding of 0), and the one cotangent behind it moves by
+# its own size; at B=16 a few such flips happen per call.  So: the worst
+# element within CAM_WORST of max |plain|, the mean within CAM_MEAN, and
+# at most CAM_SHARE of the elements off by more than CAM_TOL of it.
+CAM_TOL = 2.0 ** -5
+CAM_WORST = 2.0 ** -2
+CAM_MEAN = 2.0 ** -8
+CAM_SHARE = 1e-4
+TRAIN_LOSS_TOL = 0.05         # fused vs cuDNN CAMs, each step's losses
+                              # from the same parameters
+# (B, H, W, C, dilations, hc) of the train step's CAMs at B=16, 450 x 450
+STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
+PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
+CAM_REPLACES = {"cam_f1_fwd": 558, "cam_f1_bwd": 580, "cam_f2_fwd": 609,
+                "cam_f2_bwd": 627, "cam_f3_fwd": 655, "cam_f3_bwd": 675}
 
 
 def fail(msg: str) -> None:
@@ -721,47 +761,16 @@ def phase_kernel_times(nms_mod, grp_mod, launches, errs, dev) -> list:
 
 
 def phase_profile(pred) -> dict:
-    """Where the time of one ``predict_batch`` of 8 square images goes:
-    the wall time, the device's busy share (the union of kernel
-    intervals) and the largest kernels, from ``torch.profiler``.
-    Returns nulls where the profiler saw no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where the time of one ``predict_batch`` of 8 square images goes
+    (:func:`device_profile`), with the decode kernels' share."""
     rng = np.random.default_rng(SEED + 3)
     square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
               for _ in range(8)]
     pred.predict_batch(square)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pred.predict_batch(square)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return {"wall_ms": wall_ms, "device_busy": None, "top": None}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s_, e_ in spans[1:]:
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
-                                                      - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ours = {n: sum(v for k, v in by_name.items() if n in k) / 1e3
-            for n in ("nms_tile_kernel", "nms_merge_kernel",
-                      "lockstep_kernel")}
-    return {"wall_ms": wall_ms, "kernel_ms": busy / 1e3,
-            "device_busy": busy / 1e3 / wall_ms,
-            "n_kernels": len(kernels), "ours_ms": ours,
-            "top": [[n[:80], v / 1e3] for n, v in top]}
+    return device_profile(lambda: pred.predict_batch(square),
+                          ("nms_tile_kernel", "nms_merge_kernel",
+                           "lockstep_kernel"))
 
 
 def phase_end_to_end(pred) -> dict:
@@ -1063,6 +1072,425 @@ def forward_times(packed, canonical, pk, dev) -> dict:
     return out
 
 
+# ------------------------------------------- the distillation train step
+
+def cam_rows_bn(s, n, gen, exact):
+    """BN rows [mean, inv, scale, bias] per branch from sums ``s`` (2k, w)
+    over n pixels: the batch statistics, or dyadic rows near them."""
+    mean = s[0::2] / n
+    var = (s[1::2] / n - mean * mean).clamp(min=0)
+    if exact:
+        mean = torch.round(mean)
+        inv = torch.full_like(mean, 0.25)
+        scale = 0.5 * torch.randint(1, 3, mean.shape, generator=gen)
+        bias = torch.randint(-4, 5, mean.shape, generator=gen) / 8.0
+    else:
+        inv = torch.rsqrt(var + 1e-5)
+        scale = 1.0 + 0.1 * torch.randn(mean.shape, generator=gen)
+        bias = 0.1 * torch.randn(mean.shape, generator=gen)
+    return torch.stack([mean, inv, scale.float(), bias.float()],
+                       1).reshape(-1, mean.shape[1]).contiguous()
+
+
+def cam_case(cam_mod, shape, seed, dev, exact=False, signed_gates=False):
+    """Every input of the six CAM kernels at shape (B, H, W, C, dils, hc):
+    x in [0, 1), weights N(0, 1/fan_in), BN rows from the batch
+    statistics, random cotangents; or with ``exact`` small integers,
+    weights in {-1, 0, 1} and dyadic rows, gates and cotangents (every
+    sum exact in float32)."""
+    b, h, w, c, dils, hc = shape
+    gen = torch.Generator().manual_seed(seed)
+    nb = len(dils)
+
+    def weight(shp, fan_in):
+        if exact:
+            keep = torch.rand(shp, generator=gen) < 0.15
+            return (torch.randint(-1, 2, shp, generator=gen) * keep).float()
+        return torch.randn(shp, generator=gen) / fan_in ** 0.5
+
+    x = (torch.randint(-1, 2, (b, h, w, c), generator=gen).float() if exact
+         else torch.rand((b, h, w, c), generator=gen))
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    k = {"x": x.to(**bf), "kr": weight((c, c), c).to(**bf),
+         "kh": weight((nb, 3, 3, c, hc), 9 * c).to(**bf),
+         "kt": weight((nb, hc, c), nb * hc).to(**bf), "dils": tuple(dils)}
+    n = b * h * w
+    with torch.backends.cudnn.flags(enabled=False):
+        s_r, s_h, _ = cam_mod.cam_f1_fwd_plain(k["x"], k["kr"], k["kh"], dils)
+        k["bnh"] = cam_rows_bn(s_h.cpu(), n, gen, exact).to(dev)
+        k["bnr"] = cam_rows_bn(s_r.cpu(), n, gen, exact).to(dev)
+        s_t = cam_mod.cam_f2_fwd_plain(k["x"], k["kh"], k["kt"], k["bnh"],
+                                       dils)
+    k["bnt"] = cam_rows_bn(s_t.cpu(), n, gen, exact).to(dev)
+    if exact:
+        def cot(shp):
+            return torch.randint(-4, 5, shp, generator=gen) / 8.0
+        gate = torch.randint(-8, 9, (b, c), generator=gen) / 8.0
+        g = torch.randint(-2, 3, (b, h, w, c), generator=gen).float()
+    else:
+        def cot(shp):
+            return torch.randn(shp, generator=gen) * 1e-3
+        gate = (torch.randn((b, c), generator=gen) if signed_gates
+                else torch.rand((b, c), generator=gen))
+        g = torch.randn((b, h, w, c), generator=gen)
+    for name, shp in (("dsr", (2, c)), ("dsh", (2 * nb, hc)),
+                      ("dgap", (b, c)), ("dst", (2, c))):
+        k[name] = cot(shp).float().to(dev)
+    k["gate"] = gate.float().to(dev)
+    k["g"] = g.to(**bf)
+    return k
+
+
+def cam_calls(cam_mod, k):
+    """(name, kernel, plain, args) of the six CAM kernels on case ``k``."""
+    d = k["dils"]
+    m = cam_mod
+    return [
+        ("cam_f1_fwd", m.cam_f1_fwd, m.cam_f1_fwd_plain,
+         (k["x"], k["kr"], k["kh"], d)),
+        ("cam_f1_bwd", m.cam_f1_bwd, m.cam_f1_bwd_plain,
+         (k["x"], k["kr"], k["kh"], k["dsr"], k["dsh"], k["dgap"], d)),
+        ("cam_f2_fwd", m.cam_f2_fwd, m.cam_f2_fwd_plain,
+         (k["x"], k["kh"], k["kt"], k["bnh"], d)),
+        ("cam_f2_bwd", m.cam_f2_bwd, m.cam_f2_bwd_plain,
+         (k["x"], k["kh"], k["kt"], k["bnh"], k["dst"], d)),
+        ("cam_f3_fwd", m.cam_f3_fwd, m.cam_f3_fwd_plain,
+         (k["x"], k["kr"], k["kh"], k["kt"], k["bnr"], k["bnh"], k["bnt"],
+          k["gate"], d)),
+        ("cam_f3_bwd", m.cam_f3_bwd, m.cam_f3_bwd_plain,
+         (k["x"], k["kr"], k["kh"], k["kt"], k["bnr"], k["bnh"], k["bnt"],
+          k["gate"], k["g"], d)),
+    ]
+
+
+# the outputs of each CAM kernel that are forward batch statistics (held
+# to CAM_STAT_TOL); the rest are activations and gradients
+CAM_STATS = {"cam_f1_fwd": (0, 1, 2), "cam_f2_fwd": (0,)}
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_cam(cam_mod, set_tf32, dev) -> dict:
+    """The six CAM kernels against their plain versions (float32 convs,
+    TF32 off): both CAM shapes of the train step at B=16, and a ragged
+    (3, 29, 21, 83) case with per-image gates of both signs; bitwise on
+    exact-sum inputs.  Returns the max abs error of each kernel's outputs
+    at the steps' shape, and the worst and mean error (of max |plain|)
+    and the share of elements off by more than CAM_TOL of each."""
+    set_tf32(False)
+    cases = [(STEPS_CAM, False), (PYRAMID_CAM, False),
+             ((3, 29, 21, 83, (1, 2, 3, 4), 20), True)]
+    errs, worst, mean, share, bad = {}, {}, {}, {}, []
+    for shape, signed in cases:
+        k = cam_case(cam_mod, shape, SEED + sum(shape[:4]), dev,
+                     signed_gates=signed)
+        for name, kernel, plain, args in cam_calls(cam_mod, k):
+            got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
+            torch.cuda.synchronize()
+            check(len(got) == len(want), f"{name} output count")
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(a.is_cuda and a.dtype == b.dtype
+                      and a.shape == b.shape, f"{name}[{i}] output layout")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"{name}[{i}] not finite at {shape}")
+                d = (a.float() - b.float()).abs()
+                scale = max(float(b.float().abs().max()), 1e-30)
+                rel, avg = float(d.max()) / scale, float(d.mean()) / scale
+                off = float((d > CAM_TOL * scale).float().mean())
+                what = f"{name}[{i}] at {shape}"
+                if i in CAM_STATS.get(name, ()):
+                    ok = rel <= CAM_STAT_TOL
+                else:
+                    ok = (rel <= CAM_WORST and avg <= CAM_MEAN
+                          and off <= CAM_SHARE)
+                if not ok:
+                    bad.append(f"{what}: worst {rel:.4g}, mean {avg:.4g} of "
+                               f"max |plain|, {off:.3g} of the elements off "
+                               f"by > {CAM_TOL}")
+                worst[name] = max(worst.get(name, 0.0), rel)
+                mean[name] = max(mean.get(name, 0.0), avg)
+                share[name] = max(share.get(name, 0.0), off)
+                if shape == STEPS_CAM:
+                    errs[name] = max(errs.get(name, 0.0), float(d.max()))
+        del k, got, want
+        torch.cuda.empty_cache()
+    check(not bad, "CAM kernels differ from plain beyond the limits "
+          f"(statistics {CAM_STAT_TOL}; else worst {CAM_WORST}, mean "
+          f"{CAM_MEAN}, share {CAM_SHARE}): {bad}")
+    for shape in ((2, 12, 20, 163, (1, 2, 3), 40),
+                  (3, 9, 14, 83, (1, 2, 3, 4), 20)):
+        k = cam_case(cam_mod, shape, SEED + 7, dev, exact=True)
+        for name, kernel, plain, args in cam_calls(cam_mod, k):
+            got = as_tuple(kernel(*args))
+            with torch.backends.cudnn.flags(enabled=False):
+                want = as_tuple(plain(*args))
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(torch.equal(a, b), f"{name}[{i}] at {shape} differs "
+                      "from plain on exact sums")
+    print(f"cam kernels vs plain at {[c[0][:4] for c in cases]}: worst "
+          f"(of max |plain|) {worst}, mean {mean}, share off by > {CAM_TOL} "
+          f"{share}; bitwise equal on exact sums", flush=True)
+    return {"max_abs_err": errs, "worst_rel": worst, "mean_rel": mean,
+            "share_off": share}
+
+
+def train_batch(dev) -> dict:
+    """A seeded batch of the step's contract (``rtpe_tpu/train/step.py:
+    121-125``), made on the card: normalised images, LAB-like alt images
+    in [0, 1), segmentation masks, sparse gt heatmaps, teacher heatmaps a
+    little outside [0, 1], loss masks."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b, s = TRAIN_BATCH, TRAIN_SIZE
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    gt = rand(b, s, s, 17) ** 8
+    return {"img": torch.randn((b, s, s, 3), generator=g, device=dev),
+            "img_alt": rand(b, s, s, 3),
+            "segm_mask": (rand(b, s, s, 1) > 0.7).float(),
+            "gt_hms": torch.where(gt < 0.01, torch.zeros_like(gt), gt),
+            "teacher_hms": rand(b, s, s, 17) * 1.2 - 0.1,
+            "mask": (rand(b, s, s, 1) > 0.1).float()}
+
+
+def device_profile(fn, ours=()) -> dict:
+    """Wall time, device busy share (the union of kernel intervals), the
+    largest kernels and the time of the kernels whose names contain each
+    of ``ours``, for one call of ``fn`` under ``torch.profiler``; nulls
+    where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_busy": None, "top": None}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "kernel_ms": busy / 1e3,
+            "device_busy": busy / 1e3 / wall_ms, "n_kernels": len(kernels),
+            "ours_ms": {n: sum(v for k, v in by_name.items() if n in k) / 1e3
+                        for n in ours},
+            "top": [[n[:80], v / 1e3] for n, v in top]}
+
+
+def run_train(students, train_mod, cam_mod, fused, w48_state, params,
+              batch, dev, profile=False) -> dict:
+    """TRAIN_STEPS steps of ``make_distill_train_step`` at the reference
+    configuration (``AttentionStudentSteps(inplanes=80)``, bf16,
+    ``detach_att_for_det``, BN output bf16) from the seeded student with
+    the W48 stem, each step's parameters kept in ``params``; or, given
+    ``params``, each step from those parameters (loaded outside the timed
+    step).  The CAM kernels' counters are set to 0 just before the steps
+    and read just after."""
+    factory, _ = students
+    model = factory.get_attention_student(fused_cam=fused, device=dev,
+                                          seed=SEED)
+    factory.load_pretrained_stem(model, w48_state)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    record = params is None
+    params = [] if record else params
+    cfg = train_mod.DistillConfig()
+    state = train_mod.DistillTrainState.create(model, cfg)
+    step = train_mod.make_distill_train_step(model, cfg,
+                                             bn_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(cam_mod.KERNELS)
+    for f in cam_mod.PLAIN:
+        f.calls = 0
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        if record:
+            params.append({k: p.detach().clone()
+                           for k, p in model.named_parameters()})
+        else:
+            model.load_state_dict(params[i], strict=False)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append([float(m["attention_loss"]),
+                       float(m["keypoints_loss"])])
+    launches = read(cam_mod.KERNELS)
+    plain_calls = sum(f.calls for f in cam_mod.PLAIN)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"model": model, "init": init, "params": params, "losses": losses,
+           "step_ms": step_ms, "launches": launches,
+           "plain_calls": plain_calls, "peak_bytes": peak,
+           "labels": train_mod.label_params(model.named_parameters())}
+    if profile:
+        out["profile"] = device_profile(lambda: step(state, batch),
+                                        ("cam::",))
+    return out
+
+
+def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
+    """The slice's main path: TRAIN_STEPS fused train steps at full width
+    (B=16, 450 x 450, inplanes=80), then the same steps with the CAMs on
+    cuDNN on the same batch, each from the fused run's parameters of that
+    step (so each step's losses differ by the CAM implementation alone)."""
+    batch = train_batch(dev)
+    fused = run_train(students, train_mod, cam_mod, True, w48_state, None,
+                      batch, dev, profile=True)
+    n = 6 * TRAIN_STEPS
+    for name, count in fused["launches"].items():
+        check(count == n, f"{name}: {count} launches in {TRAIN_STEPS} steps, "
+              f"not {n}")
+    check(fused["plain_calls"] == 0, "a plain CAM version ran on the card")
+    check(all(np.isfinite(v) for row in fused["losses"] for v in row),
+          f"non-finite losses {fused['losses']}")
+    model, init, labels = fused.pop("model"), fused["init"], fused["labels"]
+    moved = {"att": False, "det": False}
+    for name, p in model.named_parameters():
+        if labels[name] == "frozen":
+            check(torch.equal(p.detach(), init[name]),
+                  f"frozen {name} moved")
+        elif not torch.equal(p.detach(), init[name]):
+            moved[labels[name]] = True
+    check(all(moved.values()), f"parameters moved: {moved}")
+    sd = model.state_dict()
+    stats = [k for k in sd if k.endswith("running_mean")
+             or k.endswith("running_var")]
+    still = [k for k in stats if torch.equal(sd[k], init[k])]
+    check(not still, f"running statistics that did not move: {still[:5]}")
+    del model
+    torch.cuda.empty_cache()
+    unfused = run_train(students, train_mod, cam_mod, False, w48_state,
+                        fused.pop("params"), batch, dev)
+    unfused.pop("model")
+    unfused.pop("params")
+    check(sum(unfused["launches"].values()) == 0,
+          "the cuDNN path launched a CAM kernel")
+    rel = 0.0
+    for (a1, d1), (a2, d2) in zip(fused["losses"], unfused["losses"]):
+        rel = max(rel, abs(a1 - a2) / abs(a2), abs(d1 - d2) / abs(d2))
+    check(rel <= TRAIN_LOSS_TOL, f"fused vs cuDNN losses differ by {rel:.4g} "
+          f"> {TRAIN_LOSS_TOL}: {fused['losses']} vs {unfused['losses']}")
+    out = {}
+    for name, run in (("fused", fused), ("unfused", unfused)):
+        ms = sum(run["step_ms"][1:]) / (TRAIN_STEPS - 1)
+        out[name] = {"losses": run["losses"], "step_ms": run["step_ms"],
+                     "mean_step_ms_after_first": ms,
+                     "img_per_s": TRAIN_BATCH * 1e3 / ms,
+                     "peak_gb": run["peak_bytes"] / 1e9,
+                     "launches": run["launches"]}
+    out["fused"]["profile"] = fused["profile"]
+    out["loss_worst_rel_fused_vs_unfused"] = rel
+    print(f"train step: {TRAIN_STEPS} fused steps, B={TRAIN_BATCH} "
+          f"{TRAIN_SIZE}^2, launches {fused['launches']}, frozen unchanged, "
+          f"att/det/running stats moved; losses fused {fused['losses']} vs "
+          f"cuDNN {unfused['losses']} (worst {rel:.4g}); ms/step fused "
+          f"{out['fused']['mean_step_ms_after_first']:.1f}, cuDNN "
+          f"{out['unfused']['mean_step_ms_after_first']:.1f}; peak GB "
+          f"{out['fused']['peak_gb']:.2f} / {out['unfused']['peak_gb']:.2f}",
+          flush=True)
+    return out
+
+
+def cam_bound(name: str, shape) -> dict:
+    """Each CAM kernel's least time at ``shape``: its multiply-adds at the
+    bf16 tensor-core rate against its inputs read once and its outputs
+    written once."""
+    b, h, w, c, dils, hc = shape
+    nb, m = len(dils), b * h * w
+    nh = nb * hc
+    conv, res, top = 9 * nb * c * hc, c * c, nh * c
+    macs = {"cam_f1_fwd": res + conv, "cam_f1_bwd": 3 * (res + conv),
+            "cam_f2_fwd": conv + top, "cam_f2_bwd": 3 * (conv + top),
+            "cam_f3_fwd": res + conv + top,
+            "cam_f3_bwd": 3 * (res + conv + top)}[name]
+    act = m * c * 2                                   # one bf16 (M, C)
+    wts = {"cam_f1": (res + conv) * 2, "cam_f2": (conv + top) * 2,
+           "cam_f3": (res + conv + top) * 2}[name[:6]]
+    small = {"cam_f1_fwd": (2 * c + 2 * nh + b * c) * 4,
+             "cam_f1_bwd": (2 * c + 2 * nh + b * c + res + conv) * 4,
+             "cam_f2_fwd": (4 * nh + 2 * c) * 4,
+             "cam_f2_bwd": (4 * nh + 2 * c + conv + top + 2 * nh) * 4,
+             "cam_f3_fwd": (8 * c + 4 * nh + b * c) * 4,
+             "cam_f3_bwd": (8 * c + 4 * nh + b * c + res + conv + top
+                            + 4 * c + 2 * nh + b * c) * 4}[name]
+    n_act = {"cam_f1_fwd": 1, "cam_f1_bwd": 2, "cam_f2_fwd": 1,
+             "cam_f2_bwd": 2, "cam_f3_fwd": 2, "cam_f3_bwd": 3}[name]
+    return bound(n_act * act + wts + small, 2 * macs * m, BF16_OPS_PER_S)
+
+
+def cam_yardstick(students_mod, shape, dev) -> dict:
+    """The unfused cuDNN ContextAwareModule at ``shape`` in train mode
+    (bf16, channels_last): forward, and forward plus backward."""
+    b, h, w, c, dils, _ = shape
+    mod = students_mod.ContextAwareModule(c, dils, dtype=torch.bfloat16)
+    mod = mod.to(dev, memory_format=torch.channels_last).train()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.rand((b, c, h, w), generator=gen, device=dev,
+                   dtype=torch.bfloat16).contiguous(
+                       memory_format=torch.channels_last).requires_grad_(True)
+    g = torch.randn((b, c, h, w), generator=gen, device=dev,
+                    dtype=torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    fwd = device_ms(lambda: mod(x), 5)
+    fwd_bwd = device_ms(lambda: mod(x).backward(g), 5)
+    return {"fwd_ms": fwd, "fwd_bwd_ms": fwd_bwd}
+
+
+def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
+    """One row per CAM kernel: at the steps' shape, and at the pyramid's
+    full-resolution shape under ``at_pyramid_hi``."""
+    per_shape = {}
+    for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM)):
+        yard = cam_yardstick(students_mod, shape, dev)
+        k = cam_case(cam_mod, shape, SEED + 10, dev)
+        for name, kernel, plain, args in cam_calls(cam_mod, k):
+            fwd = name.endswith("fwd")
+            per_shape.setdefault(name, {})[key] = {
+                "ms": device_ms(lambda: kernel(*args), 5),
+                "plain_ms": device_ms(lambda: plain(*args), 2, warmup=1),
+                "library_ms": yard["fwd_ms" if fwd else "fwd_bwd_ms"],
+                "library": ("unfused cuDNN ContextAwareModule, train-mode "
+                            + ("forward" if fwd else "forward + backward")
+                            + ", same shape (no one PyTorch call computes "
+                              "the op)"),
+                **cam_bound(name, shape), "shape": list(shape[:4])
+                + [list(shape[4]), shape[5]]}
+        del k
+        torch.cuda.empty_cache()
+    rows = []
+    for name, by in per_shape.items():
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"rtpe_tpu_torch/csrc/{name[:6]}.cu",
+                     "replaces": "rtpe_tpu/ops/pallas_cam.py:"
+                                 f"{CAM_REPLACES[name]}",
+                     "launches": launches[name],
+                     "launches_per_step": 6, "path": "train step "
+                     "(AttentionStudentSteps(fused_cam=True)): 3 at the "
+                     "steps' shape, 3 in the pyramid (113, 57, 29)",
+                     "max_abs_err": errs[name], **by["steps"],
+                     "at_pyramid_hi": by["pyramid_hi"]})
+    ms = {r["name"]: [r["ms"], r["at_pyramid_hi"]["ms"]] for r in rows}
+    print(f"cam kernel ms (steps / pyramid hi): {ms}", flush=True)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1072,10 +1500,14 @@ def main() -> None:
         from rtpe_tpu_torch.decode.nms import top_k
         from rtpe_tpu_torch.device import set_tf32
         from rtpe_tpu_torch.eval import PosePredictor
+        from rtpe_tpu_torch import train as train_mod
+        from rtpe_tpu_torch.models import factory as factory_mod
         from rtpe_tpu_torch.models import hrnet
         from rtpe_tpu_torch.models import hrnet_packed as packed_mod
+        from rtpe_tpu_torch.models import students as students_mod
         from rtpe_tpu_torch.ops import _build
         from rtpe_tpu_torch.ops import blocks as blk_mod
+        from rtpe_tpu_torch.ops import cam as cam_mod
         from rtpe_tpu_torch.ops import group as mega_mod
         from rtpe_tpu_torch.ops import group_lockstep as grp_mod
         from rtpe_tpu_torch.ops import lap as lap_mod
@@ -1112,6 +1544,11 @@ def main() -> None:
     pred_p, packed_launches, by_shape, served = phase_packed_path(
         PosePredictor, hrnet, packed_mod, state, counters, dev)
     kernels += chain_rows(blk_mod, by_shape, chain_errs, dev)
+    cam_errs = phase_cam(cam_mod, set_tf32, dev)
+    train = phase_train((factory_mod, students_mod), train_mod, cam_mod,
+                        state, dev)
+    kernels += cam_kernel_rows(cam_mod, students_mod, cam_errs["max_abs_err"],
+                               train["fused"]["launches"], dev)
     paths_ms = decode_path_times(pred.parser, fused, heatmaps)
     fwd_ms = forward_times(packed_mod, pred.model, pk, dev)
     e2e = phase_end_to_end(pred)
@@ -1128,7 +1565,8 @@ def main() -> None:
                       "packed_path_launches": packed_launches,
                       "packed_predictor_launches": served,
                       "forward_ms": fwd_ms, "end_to_end_packed": e2e_packed,
-                      "profile_bs8_packed": prof_packed}))
+                      "profile_bs8_packed": prof_packed,
+                      "cam_check": cam_errs, "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,203 @@
+// Fused CAM op F2 and its backward F2b, CUDA C++ for sm_90a.
+//
+// Replaces the TPU kernels of rtpe_tpu/ops/pallas_cam.py:
+//   F2  (_f2_call, _f2_kernel): s_t (2, C) = [sum, sum of squares] of
+//       t = bf16(sum_i bf16(relu(BN_i(bf16(conv3x3_dil_i(x))))) . kt[i]),
+//       the top 1x1 conv over the normalised branches;
+//   F2b (_f2b_call, _f2b_kernel): given dst, recompute t, dt = dst[0] +
+//       2 t dst[1], dkt[i] = sum a_i^T bf16(dt), da = bf16(dt) . kt[i]^T,
+//       dz = (z > 0) da, dS (2 nb, hc) = [sum dz, sum dz (c - mean)],
+//       dc = dz scale inv, dkh = sum x_tap^T bf16(dc) (phase 0), then
+//       dx = sum_i convT_i(bf16(dc_i)) (phase 1).
+// x (B, H, W, C) bf16, kh (nb, 3, 3, C, hc) bf16, kt (nb, hc, C) bf16,
+// bnh (4 nb, hc) f32 rows [mean, inv, scale, bias] per branch.  Design in
+// cam_core.cuh.
+//
+// Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
+// operations.  F2 does 9 nb C hc + nb hc C = 195.6 K multiply-adds a
+// pixel: 0.081 ms at 989 TFLOP/s (bf16 dense); F2b about 3x.
+
+#include "cam_core.cuh"
+
+namespace cam {
+namespace {
+
+// Per-tile partial row: s_t (2C).
+__global__ void __launch_bounds__(THREADS)
+f2_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
+          const bf16 *__restrict__ kt, const float *__restrict__ bnh,
+          float *__restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PixSmem s = pix_smem(g, smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
+  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
+  float *prow = part + static_cast<int64_t>(T) * 2 * g.C;
+
+  zero_pads(g, s);
+  branches_to_smem(g, x, kh, bnh, b, p0, s, nullptr);
+  for (int n0 = 0; n0 < g.C; n0 += NC) {
+    __syncthreads();
+    stage_w(s.sW, g.nhp, kt, g.C, true, g.NH, g.C, n0, g.knh, NC);
+    __syncthreads();
+    float acc[NTC][4];
+    zero_acc(acc);
+    warp_mma<NTC>(acc, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
+                  g.knh / 16, lane);
+    float v1[NTC][4], v2[NTC][4];
+#pragma unroll
+    for (int j = 0; j < NTC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = frag_row(warp, lane, e) < nvalid;
+        v1[j][e] = ok ? bfr(acc[j][e]) : 0.0f;
+        v2[j][e] = v1[j][e] * v1[j][e];
+      }
+    warp_colsum<NTC>(v1, s.red + warp * NRED * NC, lane);
+    warp_colsum<NTC>(v2, s.red + warp * NRED * NC + NC, lane);
+    __syncthreads();
+    for (int c = threadIdx.x; c < NC && n0 + c < g.C; c += THREADS) {
+      prow[n0 + c] = block_col(s.red, 0, c);
+      prow[g.C + n0 + c] = block_col(s.red, 1, c);
+    }
+  }
+}
+
+// Phase 0 of F2b: a (M, NH), dt (M, C), dc (M, NH) in bf16; per-tile
+// partial row dS (2 NH).
+__global__ void __launch_bounds__(THREADS)
+f2b_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
+           const bf16 *__restrict__ kt, const float *__restrict__ bnh,
+           const float *__restrict__ dst, bf16 *__restrict__ a_out,
+           bf16 *__restrict__ dt_out, bf16 *__restrict__ dc_out,
+           float *__restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PixSmem s = pix_smem(g, smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
+  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
+  const int64_t pix0 = static_cast<int64_t>(b) * g.HW + p0;
+
+  zero_pads(g, s);
+  branches_to_smem(g, x, kh, bnh, b, p0, s, a_out);
+  for (int n0 = 0; n0 < g.C; n0 += NC) {
+    __syncthreads();
+    stage_w(s.sW, g.nhp, kt, g.C, true, g.NH, g.C, n0, g.knh, NC);
+    __syncthreads();
+    float acc[NTC][4];
+    zero_acc(acc);
+    warp_mma<NTC>(acc, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
+                  g.knh / 16, lane);
+#pragma unroll
+    for (int j = 0; j < NTC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(warp, lane, e), c = n0 + frag_col(lane, j, e);
+        if (c >= g.C) continue;
+        bf16 dtb = bzero();
+        if (r < nvalid) {
+          const float tb = bfr(acc[j][e]);
+          dtb = f2bf(__fadd_rn(dst[c],
+                               __fmul_rn(__fmul_rn(2.0f, tb), dst[g.C + c])));
+          dt_out[(pix0 + r) * g.C + c] = dtb;
+        }
+        s.sD[r * g.xp + c] = dtb;
+      }
+  }
+  branch_backward(g, kt, bnh, b, p0, s, dc_out,
+                  part + static_cast<int64_t>(T) * 2 * g.NH);
+}
+
+struct F2bWs {
+  bf16 *a, *dt, *dc;
+  float *part, *part_h, *part_t;
+};
+
+F2bWs carve_f2b(const Geo &g, void *base, int64_t *bytes) {
+  Carve cv(base);
+  F2bWs w;
+  w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
+  w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
+  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
+  w.part = cv.take<float>(static_cast<int64_t>(g.n_tiles) * 2 * g.NH);
+  w.part_h = cv.take<float>(
+      wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
+  w.part_t = cv.take<float>(
+      wgrad_part_floats(g, static_cast<int64_t>(g.NH) * g.C));
+  *bytes = cv.off;
+  return w;
+}
+
+}  // namespace
+}  // namespace cam
+
+using namespace cam;
+
+extern "C" long long cam_f2_workspace(const int *geo) {
+  Geo g;
+  if (!make_geo(geo, &g)) return -1;
+  Carve cv(nullptr);
+  cv.take<float>(static_cast<int64_t>(g.n_tiles) * 2 * g.C);
+  return cv.off;
+}
+
+// s_t (2, C) f32.
+extern "C" int cam_f2_launch(const int *geo, const void *x, const void *kh,
+                             const void *kt, const void *bnh, void *ws,
+                             void *s_t, void *stream) {
+  Geo g;
+  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto *part = static_cast<float *>(ws);
+  CAM_TRY(set_pix_smem(f2_kernel, g));
+  f2_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
+      g, static_cast<const bf16 *>(x), static_cast<const bf16 *>(kh),
+      static_cast<const bf16 *>(kt), static_cast<const float *>(bnh), part);
+  CAM_TRY(cudaGetLastError());
+  CAM_TRY(reduce_rows(part, 2 * g.C, 0, 2 * g.C, g.n_tiles, 1,
+                      static_cast<float *>(s_t), 0, st));
+  return 0;
+}
+
+extern "C" long long cam_f2b_workspace(const int *geo) {
+  Geo g;
+  if (!make_geo(geo, &g)) return -1;
+  int64_t bytes = 0;
+  carve_f2b(g, nullptr, &bytes);
+  return bytes;
+}
+
+// dx (B, H, W, C) bf16, dkh (nb, 3, 3, C, hc), dkt (nb, hc, C) and
+// dS (2 nb, hc) f32.
+extern "C" int cam_f2b_launch(const int *geo, const void *x, const void *kh,
+                              const void *kt, const void *bnh,
+                              const void *dst, void *ws, void *dx, void *dkh,
+                              void *dkt, void *dS, void *stream) {
+  Geo g;
+  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  int64_t bytes = 0;
+  const F2bWs w = carve_f2b(g, ws, &bytes);
+  const auto *xx = static_cast<const bf16 *>(x);
+  const auto *khh = static_cast<const bf16 *>(kh);
+  CAM_TRY(set_pix_smem(f2b_kernel, g));
+  f2b_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
+      g, xx, khh, static_cast<const bf16 *>(kt),
+      static_cast<const float *>(bnh), static_cast<const float *>(dst), w.a,
+      w.dt, w.dc, w.part);
+  CAM_TRY(cudaGetLastError());
+  CAM_TRY(reduce_rows(w.part, 2 * g.NH, 0, 2 * g.NH, g.n_tiles, 1,
+                      static_cast<float *>(dS), 0, st));
+  CAM_TRY(wgrad<NTB>(dkh_jobs(g, xx, w.dc), g, g.C, g.hc, w.part_h,
+                     static_cast<int64_t>(9) * g.NH * g.C,
+                     static_cast<float *>(dkh), st));
+  WJobs jt;
+  jt.n = 1;
+  jt.j[0] = plain_job(w.a, g.NH, g.NH, w.dt, g.C, g.C, 0);
+  CAM_TRY(wgrad<NTC>(jt, g, g.NH, g.C, w.part_t,
+                     static_cast<int64_t>(g.NH) * g.C,
+                     static_cast<float *>(dkt), st));
+  CAM_TRY((launch_dx<false, false>(g, nullptr, nullptr, w.dc, khh, nullptr,
+                                   0.0f, static_cast<bf16 *>(dx), st)));
+  return 0;
+}

@@ -14,6 +14,11 @@ It is strict: every JAX leaf maps to one port key, every port key gets
 a value, and every shape is checked.  The flax-path -> torch-key table
 is this package's own copy.
 
+``student_state_dict_from_jax(variables_np)`` does the same for a
+student (``AttentionStudentSteps``): its module names follow the JAX
+tree, the stem takes the teacher's names, and a Dense kernel ``(in,
+out)`` becomes a Linear weight ``(out, in)``.
+
 ``folded_params_from_jax(folded_np, cfg)`` turns the JAX package's
 BN-folded dict (``rtpe_tpu.models.hrnet_packed.fold_w48_params``: numpy,
 HWIO kernels, ``(kh, kw, in, out)`` for the transposed conv) into the
@@ -148,6 +153,39 @@ def state_dict_from_jax(variables_np: Mapping,
     for k in template:
         if k.endswith("num_batches_tracked"):
             out[k] = torch.zeros((), dtype=torch.long)
+    return out
+
+
+def _student_prefix(mods: Tuple[str, ...]) -> str:
+    if mods[0] == "stem":
+        return "stem." + _teacher_prefix(mods[1:])
+    return ".".join(mods)
+
+
+def student_state_dict_from_jax(variables_np: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of a student from the JAX package's
+    variables (numpy or array-like leaves): conv kernels HWIO -> OIHW,
+    Dense kernels ``(in, out)`` -> ``(out, in)``, BN scale / bias / mean /
+    var -> weight / bias / running_mean / running_var, and a zero
+    ``num_batches_tracked`` beside each BN.  Load it with
+    ``load_state_dict(strict=True)``, which checks every key and shape."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables_np):
+        _collection, *mods, leaf = path
+        if leaf not in _LEAF_SUFFIXES:
+            raise KeyError(f"unknown leaf {path}")
+        prefix = _student_prefix(tuple(mods))
+        key = f"{prefix}.{_LEAF_SUFFIXES[leaf]}"
+        if key in out:
+            raise KeyError(f"two JAX leaves map to {key}")
+        arr = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            arr = arr.T if arr.ndim == 2 else _convert(arr, leaf, False)
+        out[key] = torch.from_numpy(np.array(arr, np.float32))
+        if leaf == "mean":
+            out[f"{prefix}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.long)
     return out
 
 

@@ -4,7 +4,8 @@ Port of ``rtpe_tpu/ops/resize.py``: bilinear resize for both
 ``align_corners`` values as two separable interpolation matmuls
 (H-contraction then W-contraction, float32 accumulation) — the same
 formulation as the JAX version, so the two agree to float32 rounding —
-and nearest x2^k upsampling.
+nearest x2^k upsampling, and nearest resizing to any size with torch's
+``mode='nearest'`` indices.
 """
 
 from typing import Tuple
@@ -67,3 +68,21 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
         return x
     return x.repeat_interleave(factor, dim=1).repeat_interleave(factor,
                                                                 dim=2)
+
+
+def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    # torch 'nearest' (legacy): src = floor(dst * in / out)
+    idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NHWC ``x`` with torch ``mode='nearest'`` indices
+    (any factor: the attention pyramid's 29 -> 113)."""
+    out_h, out_w = out_hw
+    _, in_h, in_w, _ = x.shape
+    if (out_h, out_w) == (in_h, in_w):
+        return x
+    hi = torch.from_numpy(_nearest_indices(in_h, out_h)).to(x.device)
+    wi = torch.from_numpy(_nearest_indices(in_w, out_w)).to(x.device)
+    return x.index_select(1, hi).index_select(2, wi)

@@ -12,7 +12,9 @@ size is not a multiple of the NMS tile, other pooling windows, more
 than one tag dimension, LAP matrices of every size the kernel takes,
 NaN tags in the grouping kernels, BasicBlock chains at ragged and
 narrow shapes, a small packed forward with its chains on the kernel,
-and the checks the wrappers make.
+the six fused-CAM kernels at small and ragged shapes (random inputs,
+exact-sum inputs, per-image gates of both signs), and the checks the
+wrappers make.
 
 Chain tolerance: the kernel and its plain version (float32 convolutions,
 TF32 off) differ only in the order of each conv's float32 sum.  On
@@ -21,6 +23,16 @@ of two) they must be bitwise equal.  On random inputs the order flips
 some bf16 roundings (2^-8 relative) and each flip carries into the next
 convs of the chain, so the worst element must lie within 2^-5 of the
 output's largest magnitude (4 bf16 ulps there).
+
+CAM tolerance: each kernel against its plain version (float32
+convolutions, TF32 off) on the same inputs.  The batch statistics
+differ only by sum order and by the rare bf16 rounding of a conv output
+that lands on the other side of a tie: within 2^-8 of the statistic's
+largest magnitude.  Activations and gradients also pass such roundings
+through a ReLU mask or a weight-gradient sum: within 2^-5 of the
+output's largest magnitude.  On exact-sum inputs (small integers,
+weights in {-1, 0, 1}, dyadic BN rows, gates and cotangents) every
+output is bitwise equal.
 """
 
 import numpy as np
@@ -31,6 +43,7 @@ from rtpe_tpu_torch.device import set_tf32
 from rtpe_tpu_torch.models.hrnet import (HRNetConfig, PoseHigherHRNet,
                                          StageCfg, init_random_)
 from rtpe_tpu_torch.models.hrnet_packed import pack_w48_params, packed_forward
+from rtpe_tpu_torch.ops import cam
 from rtpe_tpu_torch.ops.blocks import basicblock_chain, basicblock_chain_plain
 from rtpe_tpu_torch.ops.group import (match_by_tag_kernel,
                                       match_by_tag_kernel_plain)
@@ -348,3 +361,165 @@ def test_packed_forward_chains_on_the_card(no_tf32):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
         with pytest.raises(TypeError):
             packed_forward(pk32, x, cfg, torch.float32, pallas_chains=True)
+
+
+CAM_STAT_TOL = 2.0 ** -8
+CAM_TOL = 2.0 ** -5
+
+
+def _cam_rows(s, n, gen, exact):
+    """BN rows [mean, inv, scale, bias] per branch from sums ``s`` (2k, w)
+    over n pixels: the batch statistics, or dyadic rows near them."""
+    mean = s[0::2] / n
+    var = (s[1::2] / n - mean * mean).clamp(min=0)
+    if exact:
+        mean = torch.round(mean)
+        inv = torch.full_like(mean, 0.25)
+        scale = 0.5 * torch.randint(1, 3, mean.shape, generator=gen)
+        bias = torch.randint(-4, 5, mean.shape, generator=gen) / 8.0
+    else:
+        inv = torch.rsqrt(var + 1e-5)
+        scale = 1.0 + 0.1 * torch.randn(mean.shape, generator=gen)
+        bias = 0.1 * torch.randn(mean.shape, generator=gen)
+    return torch.stack([mean, inv, scale.float(), bias.float()],
+                       1).reshape(-1, mean.shape[1]).contiguous()
+
+
+def cam_case(b, h, w, c, dils, hc, seed, device, exact=False,
+             signed_gates=False):
+    """Every input of the six CAM kernels, on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    nb = len(dils)
+
+    def weight(shape, fan_in):
+        if exact:
+            keep = torch.rand(shape, generator=gen) < 0.15
+            return (torch.randint(-1, 2, shape, generator=gen) * keep).float()
+        return torch.randn(shape, generator=gen) / fan_in ** 0.5
+
+    if exact:
+        x = torch.randint(-1, 2, (b, h, w, c), generator=gen).float()
+    else:
+        x = torch.rand((b, h, w, c), generator=gen)
+    bf = dict(dtype=torch.bfloat16, device=device)
+    case = {"x": x.to(**bf), "kr": weight((c, c), c).to(**bf),
+            "kh": weight((nb, 3, 3, c, hc), 9 * c).to(**bf),
+            "kt": weight((nb, hc, c), nb * hc).to(**bf), "dils": tuple(dils)}
+    n = b * h * w
+    with torch.backends.cudnn.flags(enabled=False):
+        s_r, s_h, _ = cam.cam_f1_fwd_plain(case["x"], case["kr"],
+                                           case["kh"], dils)
+        case["bnh"] = _cam_rows(s_h.cpu(), n, gen, exact).to(device)
+        case["bnr"] = _cam_rows(s_r.cpu(), n, gen, exact).to(device)
+        s_t = cam.cam_f2_fwd_plain(case["x"], case["kh"], case["kt"],
+                                   case["bnh"], dils)
+    case["bnt"] = _cam_rows(s_t.cpu(), n, gen, exact).to(device)
+    if exact:
+        def cot(shape):
+            return torch.randint(-4, 5, shape, generator=gen) / 8.0
+        gate = torch.randint(-8, 9, (b, c), generator=gen) / 8.0
+        g = torch.randint(-2, 3, (b, h, w, c), generator=gen).float()
+    else:
+        def cot(shape):
+            return torch.randn(shape, generator=gen) * 1e-3
+        gate = (torch.randn((b, c), generator=gen) if signed_gates
+                else torch.rand((b, c), generator=gen))
+        g = torch.randn((b, h, w, c), generator=gen)
+    for name, shape in (("dsr", (2, c)), ("dsh", (2 * nb, hc)),
+                        ("dgap", (b, c)), ("dst", (2, c))):
+        case[name] = cot(shape).float().to(device)
+    case["gate"] = gate.float().to(device)
+    case["g"] = g.to(**bf)
+    return case
+
+
+def cam_calls(case):
+    """(name, kernel, plain, args) of the six CAM kernels on ``case``."""
+    k = case
+    d = k["dils"]
+    return [
+        ("cam_f1_fwd", cam.cam_f1_fwd, cam.cam_f1_fwd_plain,
+         (k["x"], k["kr"], k["kh"], d)),
+        ("cam_f1_bwd", cam.cam_f1_bwd, cam.cam_f1_bwd_plain,
+         (k["x"], k["kr"], k["kh"], k["dsr"], k["dsh"], k["dgap"], d)),
+        ("cam_f2_fwd", cam.cam_f2_fwd, cam.cam_f2_fwd_plain,
+         (k["x"], k["kh"], k["kt"], k["bnh"], d)),
+        ("cam_f2_bwd", cam.cam_f2_bwd, cam.cam_f2_bwd_plain,
+         (k["x"], k["kh"], k["kt"], k["bnh"], k["dst"], d)),
+        ("cam_f3_fwd", cam.cam_f3_fwd, cam.cam_f3_fwd_plain,
+         (k["x"], k["kr"], k["kh"], k["kt"], k["bnr"], k["bnh"], k["bnt"],
+          k["gate"], d)),
+        ("cam_f3_bwd", cam.cam_f3_bwd, cam.cam_f3_bwd_plain,
+         (k["x"], k["kr"], k["kh"], k["kt"], k["bnr"], k["bnh"], k["bnt"],
+          k["gate"], k["g"], d)),
+    ]
+
+
+# which outputs of each kernel are batch statistics (the rest are
+# activations and gradients)
+CAM_STATS = {"cam_f1_fwd": (0, 1, 2), "cam_f2_fwd": (0,),
+             "cam_f2_bwd": (3,), "cam_f3_bwd": (4, 5, 6, 7)}
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+CAM_SHAPES = [(2, 21, 21, 12, (1, 2, 3), 3),
+              (3, 29, 21, 83, (1, 2, 3, 4), 20),
+              (2, 17, 23, 163, (1, 2, 3), 40)]
+
+
+@pytest.mark.parametrize("shape", CAM_SHAPES)
+def test_cam_kernels_match_plain(no_tf32, shape):
+    case = cam_case(*shape, seed=sum(shape[:4]), device=no_tf32)
+    for name, kernel, plain, args in cam_calls(case):
+        before = kernel.launches
+        got = _as_tuple(kernel(*args))
+        want = _as_tuple(plain(*args))
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+            assert bool(torch.isfinite(a.float()).all()), (name, i)
+            tol = CAM_STAT_TOL if i in CAM_STATS.get(name, ()) else CAM_TOL
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= tol * scale, (name, i, err, scale)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 20, 163, (1, 2, 3), 40),
+                                   (1, 9, 14, 83, (1, 2, 3, 4), 20)])
+def test_cam_kernels_are_exact_on_exact_sums(cuda, shape):
+    case = cam_case(*shape, seed=7, device=cuda, exact=True)
+    for name, kernel, plain, args in cam_calls(case):
+        got = _as_tuple(kernel(*args))
+        with torch.backends.cudnn.flags(enabled=False):
+            want = _as_tuple(plain(*args))
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (name, i)
+
+
+def test_cam_f3b_uses_each_images_gate(no_tf32):
+    """Distinct gates of both signs per image: the kernel's dx follows
+    image b's gate (the plain version), on every image."""
+    case = cam_case(3, 19, 17, 83, (1, 2, 3, 4), 20, seed=11,
+                    device=no_tf32, signed_gates=True)
+    name, kernel, plain, args = cam_calls(case)[5]
+    got, want = kernel(*args)[0], plain(*args)[0]
+    for b in range(3):
+        scale = float(want[b].float().abs().max())
+        assert float((got[b].float() - want[b].float()).abs().max()) \
+            <= CAM_TOL * scale, b
+
+
+def test_cam_wrappers_refuse(cuda):
+    case = cam_case(1, 8, 8, 12, (1, 2), 3, seed=1, device=cuda)
+    with pytest.raises(TypeError):
+        cam.cam_f1_fwd(case["x"].float(), case["kr"], case["kh"], (1, 2))
+    with pytest.raises(ValueError):
+        cam.cam_f1_fwd(case["x"], case["kr"], case["kh"], (1, 2, 3))
+    wide = torch.zeros((1, 3, 3, 12, 41), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        cam.cam_f1_fwd(case["x"], case["kr"], wide, (1,))

@@ -121,7 +121,8 @@ def test_precision_policy():
 def test_kernel_sources_and_build_command():
     """Every kernel source is found, and the build is the plain-C nvcc
     route for sm_90a (compiled only where ``nvcc`` exists)."""
-    assert _build.sources() == ["basicblock_chain", "group_lockstep",
-                                "group_mega", "lap_rect", "nms_topk"]
+    assert _build.sources() == ["basicblock_chain", "cam_f1", "cam_f2",
+                                "cam_f3", "group_lockstep", "group_mega",
+                                "lap_rect", "nms_topk"]
     assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert os.path.basename(_build.BUILD_DIR) == "_build"
