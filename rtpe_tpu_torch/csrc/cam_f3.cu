@@ -13,7 +13,8 @@
 //       (phase 1).
 // x (B, H, W, C) bf16, kr (C, C), kh (nb, 3, 3, C, hc), kt (nb, hc, C)
 // bf16; bnr, bnt (4, C) and bnh (4 nb, hc) f32 rows [mean, inv, scale,
-// bias]; gate (B, C) f32.  Design in cam_core.cuh.
+// bias]; gate (B, C) f32.  F3's design is in cam_core.cuh, F3b's (2-D
+// tiles, one halo per tile, 16-byte async copies) in cam_tile.cuh.
 //
 // Fault of the TPU kernel not copied: _f3b_kernel's phase 1 reads image
 // 0's gate for every image (pallas_cam.py:507, gate_ref[0:1, :]), so its
@@ -22,9 +23,9 @@
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3 does C^2 + 9 nb C hc + nb hc C = 222.2 K multiply-adds
-// a pixel: 0.092 ms at 989 TFLOP/s (bf16 dense); F3b about 3x.
+// a pixel: 0.092 ms at 989 TFLOP/s (bf16 dense); F3b 3x: 0.275 ms.
 
-#include "cam_core.cuh"
+#include "cam_tile.cuh"
 
 namespace cam {
 namespace {
@@ -77,112 +78,22 @@ f3_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
   }
 }
 
-// Phase 0 of F3b: dr (M, C), a (M, NH), dt (M, C), dc (M, NH) in bf16;
-// per-tile partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].
-__global__ void __launch_bounds__(THREADS)
-f3b_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
-           const bf16 *__restrict__ kh, const bf16 *__restrict__ kt,
-           const float *__restrict__ bnr, const float *__restrict__ bnh,
-           const float *__restrict__ bnt, const float *__restrict__ gate,
-           const bf16 *__restrict__ gout, bf16 *__restrict__ dr_out,
-           bf16 *__restrict__ a_out, bf16 *__restrict__ dt_out,
-           bf16 *__restrict__ dc_out, float *__restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PixSmem s = pix_smem(g, smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  const int64_t pix0 = static_cast<int64_t>(b) * g.HW + p0;
-  const int C = g.C;
-  float *prow = part + static_cast<int64_t>(T) * (5 * C + 2 * g.NH);
-
-  zero_pads(g, s);
-  branches_to_smem(g, x, kh, bnh, b, p0, s, a_out);
-  __syncthreads();
-  stage_rows(s.sX, g.xp, x, C, 0, C, g.kc, g, b, p0, 0, 0);
-  for (int n0 = 0; n0 < C; n0 += NC) {
-    float ar[NTC][4], at[NTC][4];
-    __syncthreads();
-    stage_w(s.sW, g.xp, kr, C, true, C, C, n0, g.kc, NC);
-    __syncthreads();
-    zero_acc(ar);
-    warp_mma<NTC>(ar, s.sX + warp * 16 * g.xp, g.xp, s.sW, g.xp, g.kc / 16,
-                  lane);
-    __syncthreads();
-    stage_w(s.sW, g.nhp, kt, C, true, g.NH, C, n0, g.knh, NC);
-    __syncthreads();
-    zero_acc(at);
-    warp_mma<NTC>(at, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
-                  g.knh / 16, lane);
-    // reuse the accumulators for the five column sums:
-    // ar <- dzr, at <- dzr (rc - mean_r); vg <- do y; vt1, vt2 for the top
-    float vg[NTC][4], vt1[NTC][4], vt2[NTC][4];
-#pragma unroll
-    for (int j = 0; j < NTC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = n0 + frag_col(lane, j, e);
-        float dzr = 0.0f, rmm = 0.0f, dzt = 0.0f, tmm = 0.0f, dgy = 0.0f;
-        bf16 dtb = bzero();
-        if (r < nvalid && c < C) {
-          const float rb = bfr(ar[j][e]), tb = bfr(at[j][e]);
-          const float mr = bnr[c], ir = bnr[C + c], sr = bnr[2 * C + c];
-          const float mt = bnt[c], it = bnt[C + c], stt = bnt[2 * C + c];
-          const float zr = bn_apply(rb, mr, ir, sr, bnr[3 * C + c]);
-          const float zt = bn_apply(tb, mt, it, stt, bnt[3 * C + c]);
-          const float y = relu(zt);
-          const float gt = gate[b * C + c];
-          const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
-          const float d_o = pre > 0.0f ? bf2f(gout[(pix0 + r) * C + c]) : 0.0f;
-          dgy = __fmul_rn(d_o, y);
-          dzr = zr > 0.0f ? d_o : 0.0f;
-          rmm = __fsub_rn(rb, mr);
-          dr_out[(pix0 + r) * C + c] =
-              f2bf(__fmul_rn(dzr, __fmul_rn(sr, ir)));
-          const float dy = __fmul_rn(d_o, gt);
-          dzt = zt > 0.0f ? dy : 0.0f;
-          tmm = __fsub_rn(tb, mt);
-          dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
-          dt_out[(pix0 + r) * C + c] = dtb;
-        }
-        if (c < C) s.sD[r * g.xp + c] = dtb;
-        vg[j][e] = dgy;
-        ar[j][e] = dzr;
-        at[j][e] = __fmul_rn(dzr, rmm);
-        vt1[j][e] = dzt;
-        vt2[j][e] = __fmul_rn(dzt, tmm);
-      }
-    float *red_w = s.red + warp * NRED * NC;
-    warp_colsum<NTC>(ar, red_w, lane);
-    warp_colsum<NTC>(at, red_w + NC, lane);
-    warp_colsum<NTC>(vt1, red_w + 2 * NC, lane);
-    warp_colsum<NTC>(vt2, red_w + 3 * NC, lane);
-    warp_colsum<NTC>(vg, red_w + 4 * NC, lane);
-    __syncthreads();
-    for (int c = threadIdx.x; c < NC && n0 + c < C; c += THREADS) {
-      prow[n0 + c] = block_col(s.red, 0, c);
-      prow[C + n0 + c] = block_col(s.red, 1, c);
-      prow[2 * C + n0 + c] = block_col(s.red, 2, c);
-      prow[3 * C + n0 + c] = block_col(s.red, 3, c);
-      prow[4 * C + 2 * g.NH + n0 + c] = block_col(s.red, 4, c);
-    }
-  }
-  branch_backward(g, kt, bnh, b, p0, s, dc_out, prow + 4 * C);
-}
-
 struct F3bWs {
   bf16 *dr, *a, *dt, *dc;
   float *part, *part_h, *part_rt;
 };
 
-F3bWs carve_f3b(const Geo &g, void *base, int64_t *bytes) {
+// dr (M, kc) and dc (M, nb khc) keep the zero padding the tile kernels
+// stage; a (M, NH) and dt (M, C) are dense.
+F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
+                int64_t *bytes) {
   Carve cv(base);
   F3bWs w;
-  w.dr = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
+  w.dr = cv.take<bf16>(static_cast<int64_t>(g.M) * g.kc);
   w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
   w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
-  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
-  w.part = cv.take<float>(static_cast<int64_t>(g.n_tiles) *
+  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * t.ldc);
+  w.part = cv.take<float>(static_cast<int64_t>(t.n_tiles) *
                           (5 * g.C + 2 * g.NH));
   w.part_h = cv.take<float>(
       wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
@@ -190,6 +101,28 @@ F3bWs carve_f3b(const Geo &g, void *base, int64_t *bytes) {
       g, static_cast<int64_t>(g.C) * g.C + static_cast<int64_t>(g.NH) * g.C));
   *bytes = cv.off;
   return w;
+}
+
+// The dkh jobs of F3b: x (padded, pitch kc) shifted by each tap of each
+// branch against that branch's dc columns (pitch nb khc); out laid out as
+// kh, (nb, 3, 3, C, hc).
+WJobs f3b_dkh_jobs(const Geo &g, const tile::TGeo &t, const bf16 *xpad,
+                   const bf16 *dc) {
+  WJobs J = dkh_jobs(g, xpad, dc);
+  for (int k = 0; k < J.n; ++k) {
+    J.j[k].ldu = g.kc;
+    J.j[k].ldv = t.ldc;
+    J.j[k].v0 = (k / 9) * g.khc;
+  }
+  return J;
+}
+
+// A geometry both tile kernels take, or false.
+bool f3b_geo(const int *geo, Geo *g, tile::TGeo *t) {
+  if (!make_geo(geo, g)) return false;
+  *t = tile::make_tgeo(*g);
+  return tile::smem0_bytes(*g, *t) <= tile::SMEM_MAX &&
+         tile::smem1_bytes(*g, *t) <= tile::SMEM_MAX;
 }
 
 }  // namespace
@@ -217,16 +150,35 @@ extern "C" int cam_f3_launch(const int *geo, const void *x, const void *kr,
 
 extern "C" long long cam_f3b_workspace(const int *geo) {
   Geo g;
-  if (!make_geo(geo, &g)) return -1;
+  tile::TGeo t;
+  if (!f3b_geo(geo, &g, &t)) return -1;
   int64_t bytes = 0;
-  carve_f3b(g, nullptr, &bytes);
+  carve_f3b(g, t, nullptr, &bytes);
   return bytes;
 }
 
-// dx (B, H, W, C) bf16; dkr (C, C), dkh (nb, 3, 3, C, hc), dkt (nb, hc, C),
-// dSr (2, C), dSh (2 nb, hc), dSt (2, C), dgate (B, C) f32.
-extern "C" int cam_f3b_launch(const int *geo, const void *x, const void *kr,
-                              const void *kh, const void *kt,
+// The tile kernels' shared memory (what = 0: phase 0, 1: phase 1) and the
+// bf16 elements of the re-laid weights (2: w0, 3: w1), as ops/cam.py:
+// f3b_plan computes them; -1 for a geometry the kernels refuse.
+extern "C" long long cam_f3b_plan(const int *geo, int what) {
+  Geo g;
+  if (!make_geo(geo, &g)) return -1;
+  const tile::TGeo t = tile::make_tgeo(g);
+  switch (what) {
+    case 0: return tile::smem0_bytes(g, t);
+    case 1: return tile::smem1_bytes(g, t);
+    case 2: return tile::w0_elems(g, t);
+    case 3: return tile::w1_elems(g, t);
+    default: return -1;
+  }
+}
+
+// xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
+// re-laid by ops/cam.py:_f3b_weights.  dx (B, H, W, C) bf16; dkr (C, C),
+// dkh (nb, 3, 3, C, hc), dkt (nb, hc, C), dSr (2, C), dSh (2 nb, hc),
+// dSt (2, C), dgate (B, C) f32.
+extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
+                              const void *w0, const void *w1,
                               const void *bnr, const void *bnh,
                               const void *bnt, const void *gate,
                               const void *gout, void *ws, void *dx,
@@ -234,30 +186,34 @@ extern "C" int cam_f3b_launch(const int *geo, const void *x, const void *kr,
                               void *dSh, void *dSt, void *dgate,
                               void *stream) {
   Geo g;
-  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  tile::TGeo t;
+  if (!f3b_geo(geo, &g, &t)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
-  const F3bWs w = carve_f3b(g, ws, &bytes);
-  const auto *xx = static_cast<const bf16 *>(x);
-  const auto *krr = static_cast<const bf16 *>(kr);
-  const auto *khh = static_cast<const bf16 *>(kh);
-  CAM_TRY(set_pix_smem(f3b_kernel, g));
-  f3b_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
-      g, xx, krr, khh, static_cast<const bf16 *>(kt),
+  const F3bWs w = carve_f3b(g, t, ws, &bytes);
+  const auto *xx = static_cast<const bf16 *>(xpad);
+  const int s0 = static_cast<int>(tile::smem0_bytes(g, t));
+  const int s1 = static_cast<int>(tile::smem1_bytes(g, t));
+  CAM_TRY(cudaFuncSetAttribute(tile::f3b_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               s0));
+  tile::f3b_tile_kernel<<<t.n_tiles, tile::TT, s0, st>>>(
+      g, t, xx, static_cast<const bf16 *>(w0),
       static_cast<const float *>(bnr), static_cast<const float *>(bnh),
       static_cast<const float *>(bnt), static_cast<const float *>(gate),
       static_cast<const bf16 *>(gout), w.dr, w.a, w.dt, w.dc, w.part);
   CAM_TRY(cudaGetLastError());
   const int64_t ld = 5 * g.C + 2 * g.NH;
-  CAM_TRY(reduce_rows(w.part, ld, 0, 2 * g.C, g.n_tiles, 1,
+  CAM_TRY(reduce_rows(w.part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(dSr), 0, st));
-  CAM_TRY(reduce_rows(w.part, ld, 2 * g.C, 2 * g.C, g.n_tiles, 1,
+  CAM_TRY(reduce_rows(w.part, ld, 2 * g.C, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(dSt), 0, st));
-  CAM_TRY(reduce_rows(w.part, ld, 4 * g.C, 2 * g.NH, g.n_tiles, 1,
+  CAM_TRY(reduce_rows(w.part, ld, 4 * g.C, 2 * g.NH, t.n_tiles, 1,
                       static_cast<float *>(dSh), 0, st));
-  CAM_TRY(reduce_rows(w.part, ld, 4 * g.C + 2 * g.NH, g.C, g.tpi, g.B,
+  // tiles are numbered image-major: image b's tpi rows are contiguous
+  CAM_TRY(reduce_rows(w.part, ld, 4 * g.C + 2 * g.NH, g.C, t.tpi, g.B,
                       static_cast<float *>(dgate), g.C, st));
-  CAM_TRY(wgrad<NTB>(dkh_jobs(g, xx, w.dc), g, g.C, g.hc, w.part_h,
+  CAM_TRY(wgrad<NTB>(f3b_dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
                      static_cast<int64_t>(9) * g.NH * g.C,
                      static_cast<float *>(dkh), st));
   // dkr and dkt in one launch, their partials end to end; each range is
@@ -266,7 +222,7 @@ extern "C" int cam_f3b_launch(const int *geo, const void *x, const void *kr,
   const int64_t total = n_rr + static_cast<int64_t>(g.NH) * g.C;
   WJobs jrt;
   jrt.n = 2;
-  jrt.j[0] = plain_job(xx, g.C, g.C, w.dr, g.C, g.C, 0);
+  jrt.j[0] = plain_job(xx, g.kc, g.C, w.dr, g.kc, g.C, 0);
   jrt.j[1] = plain_job(w.a, g.NH, g.NH, w.dt, g.C, g.C, n_rr);
   const int kmax = g.C > g.NH ? g.C : g.NH;
   CAM_TRY(wgrad_launch<NTC>(jrt, g, kmax, g.C, w.part_rt, total, st));
@@ -275,7 +231,11 @@ extern "C" int cam_f3b_launch(const int *geo, const void *x, const void *kr,
                       static_cast<float *>(dkr), 0, st));
   CAM_TRY(reduce_rows(w.part_rt, total, n_rr, total - n_rr, splits, 1,
                       static_cast<float *>(dkt), 0, st));
-  CAM_TRY((launch_dx<true, false>(g, w.dr, krr, w.dc, khh, nullptr, 0.0f,
-                                  static_cast<bf16 *>(dx), st)));
-  return 0;
+  CAM_TRY(cudaFuncSetAttribute(tile::f3b_dx_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               s1));
+  tile::f3b_dx_kernel<<<dim3(t.n_tiles, t.nchx), tile::TT, s1, st>>>(
+      g, t, w.dr, w.dc, static_cast<const bf16 *>(w1),
+      static_cast<bf16 *>(dx));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,7 @@ People = Tuple[List[np.ndarray], List[float]]
 _LATER = {
     "int8": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
     "int8_act": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
+    "act_scales": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
     "with_flip": "test-time augmentation (ROADMAP.md Queue 1 item 6)",
     "mesh": "data-parallel serving (ROADMAP.md Queue 1 item 9)",
     "spatial_mesh": "spatially sharded serving (ROADMAP.md Queue 1 "
@@ -77,8 +78,9 @@ class PosePredictor:
                  fused_decode: Optional[bool] = None,
                  with_flip: bool = False, packed: bool = False,
                  int8: bool = False, int8_act: bool = False,
+                 act_scales: Optional[Mapping[str, float]] = None,
                  mesh=None, spatial_mesh=None):
-        later = dict(int8=int8, int8_act=int8_act,
+        later = dict(int8=int8, int8_act=int8_act, act_scales=act_scales,
                      with_flip=with_flip, mesh=mesh,
                      spatial_mesh=spatial_mesh)
         for name, value in later.items():
@@ -126,11 +128,15 @@ class PosePredictor:
         (:func:`~rtpe_tpu_torch.io.serving.load_serving_artifact`): its
         weights, model config and predictor settings.  Keyword overrides
         win over the recorded settings (``packed=False`` serves the same
-        weights through the canonical forward; ``dtype=`` and
-        ``device=`` as for the constructor)."""
+        weights through the canonical forward; ``int8=False`` serves an
+        int8 artifact's weights in ``dtype`` and drops its scales, as in
+        JAX; ``dtype=`` and ``device=`` as for the constructor).  The
+        constructor refuses only what the merged settings ask for."""
         art = load_serving_artifact(path)
         kwargs = dict(art.predictor_kwargs)
         kwargs.update(overrides)
+        if not kwargs.get("int8"):
+            kwargs.pop("act_scales", None)
         return cls.from_jax(art.variables, art.cfg, **kwargs)
 
     # ------------------------------------------------------ shared path

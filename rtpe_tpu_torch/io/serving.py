@@ -13,10 +13,12 @@ writes it, holds
 The reader checks the marker, the model family, the sha256 and the
 array count as the JAX one does, and rebuilds the nested variable tree
 without flax; ``PosePredictor.from_artifact`` serves it through
-``state_dict_from_jax``.  An artifact that declares an int8 mode or
-flip test-time augmentation raises ``NotImplementedError``: those
-serving modes come with later slices of the port.  Writing an artifact
-(``export_serving_artifact``) waits too (ROADMAP.md).
+``state_dict_from_jax``.  Every artifact loads, as in JAX: an int8 one
+brings its activation scales in ``predictor_kwargs["act_scales"]``.
+The predictor, not the loader, refuses the serving modes the port has
+not yet (int8, flip test-time augmentation), so ``from_artifact(d,
+int8=False)`` serves an int8 artifact's weights in float, as JAX does.
+Writing an artifact (``export_serving_artifact``) waits (ROADMAP.md).
 """
 
 import dataclasses
@@ -31,9 +33,7 @@ from ..models.hrnet import HRNetConfig, StageCfg
 
 _FORMAT = "rtpe_tpu-serving-artifact-v1"
 _META = "meta.json"
-_LATER = {"int8": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
-          "int8_act": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
-          "with_flip": "test-time augmentation (ROADMAP.md Queue 1 item 6)"}
+_ACT_SCALES_FORMAT = "rtpe_tpu-act-scales-v1"
 
 
 def _cfg_from_dict(d: Dict[str, Any]) -> HRNetConfig:
@@ -53,6 +53,23 @@ def _sha256(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def _load_act_scales(path: str) -> Dict[str, float]:
+    """An activation-scale file (``rtpe_tpu/models/hrnet_packed.py:
+    save_act_scales`` format), checked for its marker and entry count."""
+    with open(path) as f:
+        payload = json.load(f)
+    got = (payload.get("format") if isinstance(payload, dict)
+           else type(payload).__name__)
+    if got != _ACT_SCALES_FORMAT:
+        raise ValueError(f"{path}: not an activation-scale file (expected "
+                         f"format={_ACT_SCALES_FORMAT!r}, got {got!r})")
+    scales = payload.get("scales")
+    if not isinstance(scales, dict) \
+            or len(scales) != payload.get("num_entries"):
+        raise ValueError(f"{path}: truncated or inconsistent scale set")
+    return {k: float(v) for k, v in scales.items()}
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -81,7 +98,7 @@ def load_serving_artifact(path: str) -> ServingArtifact:
     """Read and validate an artifact directory written by the JAX
     package's ``export_serving_artifact``; fails loudly on a foreign or
     truncated meta, a weights file whose sha256 or array count differs
-    from the manifest, and on serving modes the port has not yet."""
+    from the manifest, and on an int8 artifact without its scales."""
     mpath = os.path.join(path, _META)
     if not os.path.isfile(mpath):
         raise FileNotFoundError(
@@ -96,12 +113,6 @@ def load_serving_artifact(path: str) -> ServingArtifact:
         raise ValueError(f"{mpath}: unsupported model_family "
                          f"{meta.get('model_family')!r}")
     pkw = dict(meta["predictor"])
-    for name, what in _LATER.items():
-        if pkw.get(name):
-            raise NotImplementedError(
-                f"{mpath} declares {name}=True, which needs {what}: a later "
-                "slice of the port brings it")
-
     wmeta = meta["weights"]
     wpath = os.path.join(path, wmeta["file"])
     got = _sha256(wpath)
@@ -115,6 +126,12 @@ def load_serving_artifact(path: str) -> ServingArtifact:
         raise ValueError(f"{wpath}: {len(flat)} arrays, manifest says "
                          f"{wmeta['num_arrays']}")
     pkw["scales"] = tuple(float(s) for s in pkw.get("scales", [1.0]))
+    if pkw.get("int8"):
+        sfile = meta.get("act_scales_file")
+        if not sfile:
+            raise ValueError(f"{mpath}: int8 artifact without an "
+                             "act_scales_file entry")
+        pkw["act_scales"] = _load_act_scales(os.path.join(path, sfile))
     return ServingArtifact(cfg=_cfg_from_dict(meta["cfg"]),
                            variables=_unflatten(flat),
                            predictor_kwargs=pkw, meta=meta)

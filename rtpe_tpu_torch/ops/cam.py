@@ -55,7 +55,7 @@ _P = ctypes.c_void_p
 _SIGS = {
     "cam_f1": {"cam_f1_launch": [_P] * 9, "cam_f1b_launch": [_P] * 12},
     "cam_f2": {"cam_f2_launch": [_P] * 8, "cam_f2b_launch": [_P] * 12},
-    "cam_f3": {"cam_f3_launch": [_P] * 11, "cam_f3b_launch": [_P] * 20},
+    "cam_f3": {"cam_f3_launch": [_P] * 11, "cam_f3b_launch": [_P] * 19},
 }
 _WORKSPACE = {"cam_f1": ("cam_f1_workspace", "cam_f1b_workspace"),
               "cam_f2": ("cam_f2_workspace", "cam_f2b_workspace"),
@@ -315,6 +315,9 @@ def _lib(name: str) -> ctypes.CDLL:
     for fn in _WORKSPACE[name]:
         getattr(lib, fn).argtypes = [_P]
         getattr(lib, fn).restype = ctypes.c_longlong
+    if name == "cam_f3":
+        lib.cam_f3b_plan.argtypes = [_P, ctypes.c_int]
+        lib.cam_f3b_plan.restype = ctypes.c_longlong
     return lib
 
 
@@ -437,20 +440,121 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
     return out
 
 
+# ------------------------------------------------------------ F3b's tiles
+#
+# F3b's kernels (csrc/cam_tile.cuh) walk 8 x 8 pixel tiles of one image,
+# stage each tile's halo once at full channel depth, and read every
+# weight in the order and layout the wrapper gives it once per call.
+# f3b_plan and _f3b_weights are that contract's Python side; the C side
+# (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0)
+# computes the same, and the wrapper checks the weight counts against it
+# on every call.
+
+F3B_TS = 8           # tile side (cam_tile.cuh:TS)
+F3B_NC = 56          # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
+F3B_NX = 168         # output channels of a dx block (cam_tile.cuh:NX)
+F3B_ROW_WARPS = 4    # warps of 16 pixel rows (times 2 column groups)
+F3B_NBUF = 3         # weight stages in shared memory (cam_tile.cuh:NBUF)
+SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
+
+
+def _up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def f3b_plan(b: int, h: int, w: int, c: int, dils: Sequence[int],
+             hc: int) -> Dict[str, int]:
+    """Tiles, padded widths and pitches (bf16 elements), stage counts,
+    shared memory (bytes) and re-laid weight sizes (bf16 elements) of
+    F3b's tile kernels at x (b, h, w, c), ``dils``, branch width hc."""
+    nb = len(dils)
+    nh = nb * hc
+    kc, khc, knh = _up(c, 16), _up(hc, 16), _up(nh, 16)
+    tiles_x, tiles_y = -(-w // F3B_TS), -(-h // F3B_TS)
+    dmax = max(dils)
+    hs = F3B_TS + 2 * dmax
+    p = dict(tiles_x=tiles_x, tiles_y=tiles_y, tpi=tiles_x * tiles_y,
+             n_tiles=b * tiles_x * tiles_y, dmax=dmax, hs=hs, hr=hs * hs,
+             kc=kc, khc=khc, knh=knh, brows=_up(hc, 8),
+             nchr=-(-c // F3B_NC), kw0=max(kc, knh), ldc=nb * khc,
+             xp=kc + 8, nhp=knh + 8, nxr=min(F3B_NX, _up(c, 8)),
+             nchx=-(-c // F3B_NX), nksr=-(-kc // khc))
+    p["cp"] = p["ldc"] + 8
+    p["nst0"] = 10 * nb + 2 * p["nchr"]
+    p["nst1"] = p["nksr"] + 9 * nb
+    tp, nwarps, nred = F3B_TS * F3B_TS, F3B_ROW_WARPS, 5
+    p["smem0"] = 2 * (p["hr"] * p["xp"] + F3B_NBUF * F3B_NC * (p["kw0"] + 8)
+                      + 2 * tp * p["nhp"] + tp * p["xp"]) \
+        + 4 * (nwarps * nred * F3B_NC + 9 * c + 4 * nh)
+    p["smem1"] = 2 * (tp * p["xp"] + p["hr"] * p["cp"]
+                      + F3B_NBUF * p["nxr"] * (khc + 8))
+    p["w0_elems"] = 10 * nb * p["brows"] * kc \
+        + p["nchr"] * F3B_NC * (kc + knh)
+    p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc
+    return p
+
+
+def _f3b_weights(kr, kh, kt) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kr, kh, kt re-laid for F3b's tile kernels, [n][k] with zeros
+    padding n and k: w0, phase 0's stages in walking order (the branch
+    taps, nb x 9 of kh[i, tap]^T [brows][kc]; then per chunk of F3B_NC
+    output channels kr^T [NC][kc] and kt^T [NC][knh]; then per branch
+    kt[i] [brows][kc], as ``cam_tile.cuh:stage0`` walks them); w1, per
+    chunk of F3B_NX output channels (nxr rows), nksr stages of kr's k
+    slices [nxr][khc] and then nb x 9 stages of kh[i, tap] [nxr][khc]."""
+    nb, _, _, c, hc = kh.shape
+    p = f3b_plan(1, 1, 1, c, [1] * nb, hc)
+    kc, khc, knh, br = p["kc"], p["khc"], p["knh"], p["brows"]
+    nchr, nh = p["nchr"], nb * hc
+    taps = kh.reshape(nb * 9, c, hc)
+    wh = F.pad(taps.transpose(1, 2), (0, kc - c, 0, br - hc))
+    cpad = nchr * F3B_NC
+    krn = F.pad(kr.t(), (0, kc - c, 0, cpad - c)).reshape(nchr, -1)
+    ktn = F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c))
+    ktt = F.pad(kt, (0, kc - c, 0, br - hc))
+    w0 = torch.cat([wh.reshape(-1),
+                    torch.cat([krn, ktn.reshape(nchr, -1)], 1).reshape(-1),
+                    ktt.reshape(-1)])
+    nxr, nchx, nksr = p["nxr"], p["nchx"], p["nksr"]
+    npad = nchx * nxr
+    krt = F.pad(kr, (0, nksr * khc - c, 0, npad - c))
+    krt = krt.reshape(nchx, nxr, nksr, khc).transpose(1, 2)
+    kht = F.pad(taps, (0, khc - hc, 0, npad - c))
+    kht = kht.reshape(nb * 9, nchx, nxr, khc).transpose(0, 1)
+    w1 = torch.cat([krt, kht], 1).reshape(-1)
+    return w0.contiguous(), w1.contiguous()
+
+
 def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
     """F3b (replaces ``pallas_cam.py:_f3b_call``): (dx, dkr, dkh, dkt,
-    dSr, dSh, dSt, dgate); image b's gate in both phases."""
+    dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
+    the tile kernels of ``csrc/cam_tile.cuh``; they take the geometries
+    whose halo and weight stages fit a block's shared memory
+    (:func:`f3b_plan`; the train step's C = 163 with dilations 1-3 and
+    C = 83 with 1-4 do) and raise ``ValueError`` on the others."""
     if not _dispatch(x, "cam_f3_bwd"):
         return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
     x, kr, kh, kt, g, bnr, bnh, bnt, gate = _check(
         x, kr, kh, kt, dils, (bnr, bnh, bnt, gate), bf16_args=(g,))
     if g.shape != x.shape:
         raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    b, h, w, c = x.shape
+    plan = f3b_plan(b, h, w, c, dils, kh.shape[4])
+    if max(plan["smem0"], plan["smem1"]) > SMEM_MAX:
+        raise ValueError(f"cam_f3_bwd: the tile kernels need "
+                         f"{plan['smem0']} / {plan['smem1']} bytes of shared "
+                         f"memory at C={c}, dils {tuple(dils)}, over "
+                         f"{SMEM_MAX}")
     geo = _geo(x, kh, dils)
     lib = _lib("cam_f3")
     ws = _workspace(lib, "cam_f3b_workspace", geo, x.device)
+    w0, w1 = _f3b_weights(kr, kh, kt)
+    for what, t in ((2, w0), (3, w1)):
+        if lib.cam_f3b_plan(ctypes.addressof(geo), what) != t.numel():
+            raise RuntimeError("cam_f3_bwd: the re-laid weights and the "
+                               "kernels' layout disagree")
+    xpad = F.pad(x, (0, plan["kc"] - c))
     f32 = dict(dtype=torch.float32, device=x.device)
-    c = x.shape[3]
     dx = torch.empty_like(x)
     dkr, dkh, dkt = (torch.empty(kr.shape, **f32),
                      torch.empty(kh.shape, **f32),
@@ -460,7 +564,7 @@ def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
     dgate = torch.empty(gate.shape, **f32)
     err = lib.cam_f3b_launch(
         ctypes.addressof(geo),
-        *_ptrs(x, kr, kh, kt, bnr, bnh, bnt, gate, g, ws, dx, dkr, dkh, dkt,
+        *_ptrs(xpad, w0, w1, bnr, bnh, bnt, gate, g, ws, dx, dkr, dkh, dkt,
                dsr, dsh, dst, dgate), _stream(x))
     _build.check(err, "cam_f3_bwd")
     cam_f3_bwd.launches += 1

@@ -232,20 +232,54 @@ def test_from_artifact_serves_the_jax_artifact(weights, tmp_path):
     (dict(format="other"), ValueError),
 ])
 def test_artifact_refusals(weights, tmp_path, edit, exc):
+    """Every artifact loads; serving it as recorded refuses what the port
+    has not yet (int8, flip) in the constructor, and a foreign format in
+    the loader."""
     jcfg, _, variables = weights
+    int8 = dict(int8=True, act_scales={"stem/conv1": 1.0}) \
+        if "int8" in edit else {}
     d = export_serving_artifact(str(tmp_path / "art"), variables, jcfg,
-                                num_joints=jcfg.num_joints, packed=True)
-    mpath = os.path.join(d, "meta.json")
-    with open(mpath) as f:
-        meta = json.load(f)
-    if "format" in edit:
-        meta.update(edit)
+                                num_joints=jcfg.num_joints, packed=True,
+                                **int8)
+    if not int8:
+        mpath = os.path.join(d, "meta.json")
+        with open(mpath) as f:
+            meta = json.load(f)
+        if "format" in edit:
+            meta.update(edit)
+        else:
+            meta["predictor"].update(edit)
+        with open(mpath, "w") as f:
+            json.dump(meta, f)
     else:
-        meta["predictor"].update(edit)
-    with open(mpath, "w") as f:
-        json.dump(meta, f)
+        assert load_serving_artifact(d).predictor_kwargs["act_scales"] == \
+            {"stem/conv1": 1.0}
     with pytest.raises(exc, match="later slice|format"):
-        load_serving_artifact(d)
+        PosePredictor.from_artifact(d, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["int8", "with_flip"])
+def test_artifact_override_serves_like_jax(mode, tmp_path, monkeypatch):
+    """An artifact recorded with int8 (its scales shipped) or with flip
+    TTA, served by both packages with that mode overridden off: the
+    same people (JAX's ``from_artifact(d, int8=False)`` drops the
+    scales; the port's does too)."""
+    monkeypatch.setattr(j_fused, "_resolve_auto_lap",
+                        lambda *a, **k: "lockstep_interpret")
+    jcfg, _ = small_cfgs(NUM_JOINTS)
+    variables = seeded_variables(jcfg, seed=22, gain=0.8)
+    kw = (dict(packed=True, int8=True, act_scales={"stem/conv1": 1.0})
+          if mode == "int8" else dict(with_flip=True))
+    d = export_serving_artifact(str(tmp_path / "art"), variables, jcfg,
+                                num_joints=NUM_JOINTS, input_size=128, **kw)
+    off = {mode: False, "packed": False}
+    jp = JaxPredictor.from_artifact(d, dtype=jnp.float32, fused_decode=True,
+                                    **off)
+    tp = PosePredictor.from_artifact(d, device="cpu", **off)
+    assert jp.act_scales is None and not tp.packed
+    img = (np.random.default_rng(3).random((100, 90, 3)) * 255).astype(
+        np.uint8)
+    _assert_same_people(tp.predict(img), jp.predict(img))
 
 
 def test_artifact_with_corrupt_weights_is_refused(weights, tmp_path):
