@@ -76,8 +76,9 @@ Phases, each of which fails the run:
 17. the six fused-CAM kernels against their plain versions (float32
     convs, TF32 off) at the train step's two CAM shapes, B=16, 113 x 113
     x 163 (dilations 1-3) and x 83 (1-4), and a ragged (3, 29, 21, 83)
-    case with per-image gates of both signs (F3b on the 8 x 8 tiles of
-    ``csrc/cam_tile.cuh``, the others on 64-pixel tiles): forward
+    case with per-image gates of both signs (the backwards F1b, F2b and
+    F3b on the 8 x 8 tiles of ``csrc/cam_tile.cuh``, the forwards on
+    64-pixel tiles): forward
     statistics within 2^-8 of their largest magnitude, every other
     output within the ``CAM_*`` limits (worst element, mean, share off);
     bitwise equal on exact-sum inputs;
@@ -94,9 +95,9 @@ Phases, each of which fails the run:
     ``torch.profiler`` view of one fused step;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
     CAM's train-mode forward (or forward + backward) at both shapes, and
-    F3b's per-launch breakdown (phase 0, dx, the ``dkh`` and
-    ``dkr``/``dkt`` weight gradients, the reductions, the wrapper's
-    padding and weight re-layout) under ``torch.profiler``.
+    the per-launch breakdown of F1b, F2b and F3b (phase 0, dx, the
+    ``dkh`` and ``dkr``/``dkt`` weight gradients, the reductions, the
+    wrapper's padding and weight re-layout) under ``torch.profiler``.
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
 after 10, 16 with 11, and 17-19 after 15.
@@ -144,9 +145,15 @@ TRAIN_LOSS_TOL = 1e-3
 STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
 PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
-# F3b's kernels, for its per-launch breakdown under torch.profiler
-F3B_PARTS = ("f3b_tile_kernel", "f3b_dx_kernel", "wgrad_kernel<5>",
-             "wgrad_kernel<7>", "reduce_rows_kernel")
+# the backwards' kernels (phase 0, dx, the dkh and dkr / dkt weight
+# gradients, the reductions), for their per-launch breakdown under
+# torch.profiler; "other" is the wrapper's padded x and re-laid weights
+BWD_PARTS = {name: (phase0, dx, "wgrad_kernel<5>", "wgrad_kernel<7>",
+                    "reduce_rows_kernel")
+             for name, phase0, dx in (
+                 ("cam_f1_bwd", "f1b_tile_kernel", "dx_kernel<true, true>"),
+                 ("cam_f2_bwd", "f2b_tile_kernel", "dx_kernel<false, false>"),
+                 ("cam_f3_bwd", "f3b_tile_kernel", "dx_kernel<true, false>"))}
 CAM_REPLACES = {"cam_f1_fwd": 558, "cam_f1_bwd": 580, "cam_f2_fwd": 609,
                 "cam_f2_bwd": 627, "cam_f3_fwd": 655, "cam_f3_bwd": 675}
 
@@ -1273,12 +1280,18 @@ def device_profile(fn, ours=()) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a profile can miss the kernels of its first moments (seen on
+        # the H100: a backward's first two kernels): let those be a spin
+        # kernel, finished before fn starts and left out of every figure
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
     if not kernels:
         return {"wall_ms": wall_ms, "device_busy": None, "top": None}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -1463,21 +1476,29 @@ def cam_yardstick(students_mod, shape, dev) -> dict:
 
 def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
     """One row per CAM kernel: at the steps' shape, and at the pyramid's
-    full-resolution shape under ``at_pyramid_hi``; F3b's row also carries
-    its per-launch breakdown at both shapes (ms by kernel)."""
+    full-resolution shape under ``at_pyramid_hi``; the backwards' rows
+    also carry their per-launch breakdown at both shapes (ms by
+    kernel)."""
     per_shape, breakdown = {}, {}
     for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM)):
         yard = cam_yardstick(students_mod, shape, dev)
         k = cam_case(cam_mod, shape, SEED + 10, dev)
         for name, kernel, plain, args in cam_calls(cam_mod, k):
             fwd = name.endswith("fwd")
-            if name == "cam_f3_bwd":
-                prof = device_profile(lambda: kernel(*args), F3B_PARTS)
-                part = dict(prof.get("ours_ms") or {})
+            if name in BWD_PARTS:
+                # the profiler can drop a kernel's events (seen on the
+                # H100: a backward's phase-0 and wgrad kernels in one of
+                # six profiles): profile again until each part shows
+                for _ in range(3):
+                    prof = device_profile(lambda: kernel(*args),
+                                          BWD_PARTS[name])
+                    part = dict(prof.get("ours_ms") or {})
+                    if all(part.get(p_, 0.0) > 0 for p_ in BWD_PARTS[name]):
+                        break
                 if prof["device_busy"] is not None:
                     part["other"] = prof["kernel_ms"] - sum(part.values())
                     part["all_kernels"] = prof["kernel_ms"]
-                breakdown[key] = part
+                breakdown.setdefault(name, {})[key] = part
             per_shape.setdefault(name, {})[key] = {
                 "ms": device_ms(lambda: kernel(*args), 5),
                 "plain_ms": device_ms(lambda: plain(*args), 2, warmup=1),
@@ -1502,11 +1523,11 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
                      "steps' shape, 3 in the pyramid (113, 57, 29)",
                      "max_abs_err": errs[name], **by["steps"],
                      "at_pyramid_hi": by["pyramid_hi"]})
-        if name == "cam_f3_bwd":
-            rows[-1]["breakdown_ms"] = breakdown
+        if name in breakdown:
+            rows[-1]["breakdown_ms"] = breakdown[name]
     ms = {r["name"]: [r["ms"], r["at_pyramid_hi"]["ms"]] for r in rows}
-    print(f"cam kernel ms (steps / pyramid hi): {ms}; F3b by kernel: "
-          f"{breakdown}", flush=True)
+    print(f"cam kernel ms (steps / pyramid hi): {ms}; the backwards by "
+          f"kernel: {breakdown}", flush=True)
     return rows
 
 

@@ -1,15 +1,17 @@
 // Shared core of the fused ContextAwareModule (CAM) kernels, CUDA C++ for
-// sm_90a: cam_f1.cu, cam_f2.cu and cam_f3.cu include it.
+// sm_90a: cam_f1.cu, cam_f2.cu and cam_f3.cu include it (through
+// cam_tile.cuh, the backwards' 2-D tile kernels, which builds on it).
 //
 // The TPU kernels (rtpe_tpu/ops/pallas_cam.py) keep one zero-padded image
 // in VMEM and walk it in 16-row bands, grid (B, bands) or (B, phase,
 // bands), carrying every reduction in an output block across grid steps.
 // One 113 x 113 x 163 bf16 image is 4.2 MB, far above the 227 KB of shared
 // memory a block has, and grid steps here run in parallel and in no order.
-// So the port tiles the pixels instead:
+// So the port tiles the pixels instead.  The forwards F1, F2 and F3 keep
+// the first design, here:
 //   - a tile is 64 consecutive pixels of one image (the last tile of an
 //     image is ragged and masked), so a per-tile partial is also a
-//     per-image partial (the GAP and the SE gate's gradient need that);
+//     per-image partial (the GAP needs that);
 //   - a conv tap stages the tile's 64 shifted pixel rows (zero outside the
 //     image, any dilation) and the tap's weights in shared memory and runs
 //     one implicit-GEMM step on the tensor cores (mma.sync m16n8k16,
@@ -17,7 +19,8 @@
 //   - odd channel counts (C = 83 / 163, hc = 20 / 40) are padded inside
 //     the kernel: K to a multiple of 16 and N to whole n8 tiles, with zeros
 //     in shared memory, never in the tensors;
-//   - the output channels of a 1x1 conv go in chunks of NC = 56;
+//   - the output channels of a 1x1 conv go in chunks of NC = 56.
+// Shared by the forwards and the backwards:
 //   - every reduction over pixels (batch statistics, the BN parameters'
 //     gradients, the gate's gradient) is a per-tile partial written to
 //     global memory and summed over tiles in a fixed order by
@@ -29,15 +32,15 @@
 //     (dc of every branch, the residual path's dr, the top conv's dt and
 //     the branch activations) to global bf16 scratch; phase 1, the
 //     transposed dilated convs that read dc with its halo, is a second
-//     launch (dx_kernel), since the dependency crosses blocks.
+//     launch, since the dependency crosses blocks (cam_tile.cuh).
 // Rounding points are the TPU kernels': bf16(conv) before the statistics
 // and BN, bf16(a) before the top conv, bf16(t) before the top BN, bf16 of
 // dc, dr and dt before the weight-gradient products, dx in bf16.  The
 // elementwise BN and cotangent arithmetic uses the _rn intrinsics in the
 // JAX order, so the compiler contracts nothing into an FMA.
 //
-// Later work: stage a tile's halo once per branch instead of once per tap,
-// pipeline the staging with cp.async, and feed wgmma from TMA.
+// Later work: move the forwards onto cam_tile.cuh's tiles, and feed wgmma
+// from TMA.
 
 #pragma once
 
@@ -70,7 +73,7 @@ struct Geo {
   int HW, M, NH;
   int tpi, n_tiles;   // tiles per image, tiles
   int kc, knh, khc;   // C, NH, hc padded to 16
-  int xp, nhp, dp;    // shared pitches (bf16): kc + 8, knh + 8, dx kernel's
+  int xp, nhp;        // shared pitches (bf16): kc + 8, knh + 8
   int dil[NB_MAX];
 };
 
@@ -96,7 +99,6 @@ inline bool make_geo(const int *g, Geo *o) {
   r.khc = up16(r.hc);
   r.xp = r.kc + 8;
   r.nhp = r.knh + 8;
-  r.dp = (r.kc > r.khc ? r.kc : r.khc) + 8;
   *o = r;
   return true;
 }
@@ -217,26 +219,17 @@ __device__ __forceinline__ void stage_rows(bf16 *dst, int pitch,
   }
 }
 
-// dst[n][k] = Wt(k, n0 + n) for n < npad, k < kpad, zero outside K x N,
-// where Wt(k, n) is w[k * ld + n] (kn) or w[n * ld + k] (!kn).
+// dst[n][k] = w[k * ld + n0 + n] for n < npad, k < kpad, zero outside
+// K x N.
 __device__ __forceinline__ void stage_w(bf16 *dst, int pitch, const bf16 *w,
-                                        int ld, bool kn, int K, int N, int n0,
+                                        int ld, int K, int N, int n0,
                                         int kpad, int npad) {
   const int total = kpad * npad;
-  if (kn) {
-    for (int i = threadIdx.x; i < total; i += THREADS) {
-      const int k = i / npad, n = i - k * npad;
-      const bool ok = k < K && n0 + n < N;
-      dst[n * pitch + k] = ok ? w[static_cast<int64_t>(k) * ld + n0 + n]
-                              : bzero();
-    }
-  } else {
-    for (int i = threadIdx.x; i < total; i += THREADS) {
-      const int n = i / kpad, k = i - n * kpad;
-      const bool ok = k < K && n0 + n < N;
-      dst[n * pitch + k] =
-          ok ? w[static_cast<int64_t>(n0 + n) * ld + k] : bzero();
-    }
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const int k = i / npad, n = i - k * npad;
+    const bool ok = k < K && n0 + n < N;
+    dst[n * pitch + k] = ok ? w[static_cast<int64_t>(k) * ld + n0 + n]
+                            : bzero();
   }
 }
 
@@ -281,7 +274,7 @@ __device__ __forceinline__ void branch_conv(float (&acc)[NTB][4],
     stage_rows(sX, g.xp, x, g.C, 0, g.C, g.kc, g, b, p0, (tap / 3 - 1) * d,
                (tap % 3 - 1) * d);
     stage_w(sW, g.xp, kh + static_cast<int64_t>(i * 9 + tap) * g.C * g.hc,
-            g.hc, true, g.C, g.hc, 0, g.kc, HC_MAX);
+            g.hc, g.C, g.hc, 0, g.kc, HC_MAX);
     __syncthreads();
     warp_mma<NTB>(acc, sX + warp * 16 * g.xp, g.xp, sW, g.xp, g.kc / 16,
                   lane);
@@ -361,54 +354,6 @@ __device__ __forceinline__ void zero_pads(const Geo &g, const PixSmem &s) {
     s.sA[(i / pa) * g.nhp + g.NH + i % pa] = bzero();
   for (int i = threadIdx.x; i < TP * pd; i += THREADS)
     s.sD[(i / pd) * g.xp + g.C + i % pd] = bzero();
-}
-
-// The branch part of a backward phase 0, given sD = bf16(dt) (TP x C) and
-// sCb: da = dt . kt[i]^T, dz = (z > 0) da, dS sums, dc = dz (scale inv)
-// -> dc_out (M x NH) bf16; dS partials to prow[2 i hc + n] (sum dz) and
-// prow[(2 i + 1) hc + n] (sum dz (c - mean)).  Starts with a barrier.
-__device__ __forceinline__ void branch_backward(const Geo &g, const bf16 *kt,
-                                                const float *bnh, int b,
-                                                int p0, const PixSmem &s,
-                                                bf16 *dc_out, float *prow) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  for (int i = 0; i < g.nb; ++i) {
-    __syncthreads();
-    stage_w(s.sW, g.xp, kt + static_cast<int64_t>(i) * g.hc * g.C, g.C,
-            false, g.C, g.hc, 0, g.kc, HC_MAX);
-    __syncthreads();
-    float acc[NTB][4];
-    zero_acc(acc);
-    warp_mma<NTB>(acc, s.sD + warp * 16 * g.xp, g.xp, s.sW, g.xp, g.kc / 16,
-                  lane);
-    float v1[NTB][4], v2[NTB][4];
-#pragma unroll
-    for (int j = 0; j < NTB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), n = frag_col(lane, j, e);
-        v1[j][e] = 0.0f;
-        v2[j][e] = 0.0f;
-        if (n >= g.hc || r >= nvalid) continue;
-        const float cb = bf2f(s.sCb[r * g.nhp + i * g.hc + n]);
-        const float *bn = bnh + 4 * i * g.hc + n;
-        const float mean = bn[0], inv = bn[g.hc], scale = bn[2 * g.hc];
-        const float z = bn_apply(cb, mean, inv, scale, bn[3 * g.hc]);
-        const float dz = z > 0.0f ? acc[j][e] : 0.0f;
-        v1[j][e] = dz;
-        v2[j][e] = __fmul_rn(dz, __fsub_rn(cb, mean));
-        dc_out[static_cast<int64_t>(b * g.HW + p0 + r) * g.NH + i * g.hc +
-               n] = f2bf(__fmul_rn(dz, __fmul_rn(scale, inv)));
-      }
-    warp_colsum<NTB>(v1, s.red + warp * NRED * NC, lane);
-    warp_colsum<NTB>(v2, s.red + warp * NRED * NC + NC, lane);
-    __syncthreads();
-    for (int c = threadIdx.x; c < g.hc; c += THREADS) {
-      prow[2 * i * g.hc + c] = block_col(s.red, 0, c);
-      prow[(2 * i + 1) * g.hc + c] = block_col(s.red, 1, c);
-    }
-  }
 }
 
 // ------------------------------------------------------------ kernels
@@ -538,94 +483,12 @@ inline int64_t wgrad_part_floats(const Geo &g, int64_t total) {
   return static_cast<int64_t>(wg_splits(g)) * total;
 }
 
-// The dkh jobs: x shifted by each tap of each branch against dc's columns
-// of that branch; out laid out as kh, (nb, 3, 3, C, hc).
-inline WJobs dkh_jobs(const Geo &g, const bf16 *x, const bf16 *dc) {
-  WJobs J;
-  J.n = g.nb * 9;
-  for (int i = 0; i < g.nb; ++i)
-    for (int tap = 0; tap < 9; ++tap) {
-      WJob &w = J.j[i * 9 + tap];
-      w.u = x; w.ldu = g.C; w.u0 = 0; w.K = g.C;
-      w.dy = (tap / 3 - 1) * g.dil[i];
-      w.dx = (tap % 3 - 1) * g.dil[i];
-      w.v = dc; w.ldv = g.NH; w.v0 = i * g.hc; w.N = g.hc;
-      w.out_off = static_cast<int64_t>(i * 9 + tap) * g.C * g.hc;
-    }
-  return J;
-}
-
 inline WJob plain_job(const bf16 *u, int ldu, int K, const bf16 *v, int ldv,
                       int N, int64_t out_off) {
   WJob w;
   w.u = u; w.ldu = ldu; w.u0 = 0; w.K = K; w.dy = 0; w.dx = 0;
   w.v = v; w.ldv = ldv; w.v0 = 0; w.N = N; w.out_off = out_off;
   return w;
-}
-
-// Phase 1 of a backward: dx = dr . kr^T (HAS_DR) + sum over branches and
-// taps of dc_i(p - tap offset) . kh[i, tap]^T (+ dgap[b] inv_n, HAS_GAP),
-// rounded once to bf16.  grid (n_tiles, ceil(C / NC)).
-template <bool HAS_DR, bool HAS_GAP>
-__global__ void __launch_bounds__(THREADS)
-dx_kernel(Geo g, const bf16 *__restrict__ dr, const bf16 *__restrict__ kr,
-          const bf16 *__restrict__ dc, const bf16 *__restrict__ kh,
-          const float *__restrict__ dgap, float inv_n,
-          bf16 *__restrict__ dx) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16 *sA = reinterpret_cast<bf16 *>(smem);
-  bf16 *sW = sA + TP * g.dp;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int n0 = blockIdx.y * NC;
-  float acc[NTC][4];
-  zero_acc(acc);
-  if (HAS_DR) {
-    stage_rows(sA, g.dp, dr, g.C, 0, g.C, g.kc, g, b, p0, 0, 0);
-    stage_w(sW, g.dp, kr, g.C, false, g.C, g.C, n0, g.kc, NC);
-    __syncthreads();
-    warp_mma<NTC>(acc, sA + warp * 16 * g.dp, g.dp, sW, g.dp, g.kc / 16,
-                  lane);
-  }
-  for (int i = 0; i < g.nb; ++i) {
-    const int d = g.dil[i];
-    for (int tap = 0; tap < 9; ++tap) {
-      __syncthreads();
-      stage_rows(sA, g.dp, dc, g.NH, i * g.hc, g.hc, g.khc, g, b, p0,
-                 -(tap / 3 - 1) * d, -(tap % 3 - 1) * d);
-      stage_w(sW, g.dp, kh + static_cast<int64_t>(i * 9 + tap) * g.C * g.hc,
-              g.hc, false, g.hc, g.C, n0, g.khc, NC);
-      __syncthreads();
-      warp_mma<NTC>(acc, sA + warp * 16 * g.dp, g.dp, sW, g.dp, g.khc / 16,
-                    lane);
-    }
-  }
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-#pragma unroll
-  for (int j = 0; j < NTC; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = frag_row(warp, lane, e), c = n0 + frag_col(lane, j, e);
-      if (r >= nvalid || c >= g.C) continue;
-      float v = acc[j][e];
-      if (HAS_GAP) v = __fadd_rn(v, __fmul_rn(dgap[b * g.C + c], inv_n));
-      dx[static_cast<int64_t>(b * g.HW + p0 + r) * g.C + c] = f2bf(v);
-    }
-}
-
-template <bool HAS_DR, bool HAS_GAP>
-cudaError_t launch_dx(const Geo &g, const bf16 *dr, const bf16 *kr,
-                      const bf16 *dc, const bf16 *kh, const float *dgap,
-                      float inv_n, bf16 *dx, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(TP + NC) * g.dp * 2;
-  auto kern = dx_kernel<HAS_DR, HAS_GAP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(g.n_tiles, (g.C + NC - 1) / NC);
-  kern<<<grid, THREADS, smem, st>>>(g, dr, kr, dc, kh, dgap, inv_n, dx);
-  return cudaGetLastError();
 }
 
 template <typename K>

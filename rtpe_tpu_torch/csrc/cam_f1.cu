@@ -12,7 +12,10 @@
 //       dx = bf16(dr) . kr^T + sum_i convT_i(bf16(dc_i)) + dgap[b] / (H W)
 //       (phase 1).
 // x (B, H, W, C) bf16 NHWC, kr (C, C) bf16 [in, out], kh (nb, 3, 3, C, hc)
-// bf16 HWIO: the JAX layout, read as it is.  Design in cam_core.cuh.
+// bf16 HWIO: the JAX layout, read as it is by F1, whose design is in
+// cam_core.cuh.  F1b (2-D tiles, one halo per tile, 16-byte async copies;
+// cam_tile.cuh) reads x padded to kc channels and the weights re-laid by
+// ops/cam.py:_tile_weights.
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F1 does C^2 + 9 nb C hc = 202.6 K multiply-adds a pixel,
@@ -21,7 +24,66 @@
 // adds the same count of weight-gradient products and as many transposed
 // products: about 3x F1.
 
-#include "cam_core.cuh"
+#include "cam_tile.cuh"
+
+namespace cam {
+namespace tile {
+
+// Phase 0 of F1b on one 8 x 8 tile: dc (M, nb khc) and dr (M, kc) in
+// bf16 with zero padding columns, dc_i = bf16(dsh[2i] + 2 c_i dsh[2i+1]),
+// dr = bf16(dsr[0] + 2 bf16(x . kr) dsr[1]).  No per-tile sums.
+__global__ void __launch_bounds__(TT, 1)
+f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
+                const bf16 *__restrict__ w0, const float *__restrict__ dsr,
+                const float *__restrict__ dsh, bf16 *__restrict__ dr_out,
+                bf16 *__restrict__ dc_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xp = g.kc + 8, C = g.C;
+  const int wbuf = WROWS * (t.kw0 + 8);
+  bf16 *sH = reinterpret_cast<bf16 *>(smem);
+  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
+  float *sDr = reinterpret_cast<float *>(sW + NBUF * wbuf);
+  float *sDh = sDr + 2 * C;
+  const Lane L = lane_of(t);
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  Ring ring{w0, sW, wbuf, L.lane, 0};
+
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 2 * C; i += TT) sDr[i] = dsr[i];
+  for (int i = threadIdx.x; i < 2 * g.NH; i += TT) sDh[i] = dsh[i];
+
+  branch_convs(g, t, ring, aH, L, [&](int i, int r, int n, float v) {
+    const int64_t p = tile_pix(g, L.pos, r);
+    if (p < 0) return;
+    const float cb = bfr(v);
+    const float dc = __fadd_rn(
+        sDh[2 * i * g.hc + n],
+        __fmul_rn(__fmul_rn(2.0f, cb), sDh[(2 * i + 1) * g.hc + n]));
+    dc_out[p * t.ldc + i * g.khc + n] = f2bf(dc);
+  });
+  constexpr int GC = (NTC + 1) / 2;
+  conv1x1_chunks<true, false>(
+      g, t, ring, aH, 0, L,
+      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&)[GC][4]) {
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+            const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+            if (p < 0 || c >= C || j >= sc.cnt) continue;
+            const float rb = bfr(acr[j][e]);
+            dr_out[p * g.kc + c] = f2bf(
+                __fadd_rn(sDr[c], __fmul_rn(__fmul_rn(2.0f, rb), sDr[C + c])));
+          }
+      });
+  zero_pad_cols(dr_out, g.kc, 1, g.kc, C, g, L.pos);
+  zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
+}
+
+}  // namespace tile
+}  // namespace cam
 
 namespace cam {
 namespace {
@@ -46,7 +108,7 @@ f1_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
   }
   for (int n0 = 0; n0 < g.C; n0 += NC) {
     __syncthreads();
-    stage_w(s.sW, g.xp, kr, g.C, true, g.C, g.C, n0, g.kc, NC);
+    stage_w(s.sW, g.xp, kr, g.C, g.C, g.C, n0, g.kc, NC);
     __syncthreads();
     float acc[NTC][4];
     zero_acc(acc);
@@ -91,68 +153,19 @@ f1_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
   }
 }
 
-// Phase 0 of F1b: dr (M, C) and dc (M, NH) in bf16.
-__global__ void __launch_bounds__(THREADS)
-f1b_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
-           const bf16 *__restrict__ kh, const float *__restrict__ dsr,
-           const float *__restrict__ dsh, bf16 *__restrict__ dr_out,
-           bf16 *__restrict__ dc_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PixSmem s = pix_smem(g, smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  const int64_t pix0 = static_cast<int64_t>(b) * g.HW + p0;
-
-  stage_rows(s.sX, g.xp, x, g.C, 0, g.C, g.kc, g, b, p0, 0, 0);
-  for (int n0 = 0; n0 < g.C; n0 += NC) {
-    __syncthreads();
-    stage_w(s.sW, g.xp, kr, g.C, true, g.C, g.C, n0, g.kc, NC);
-    __syncthreads();
-    float acc[NTC][4];
-    zero_acc(acc);
-    warp_mma<NTC>(acc, s.sX + warp * 16 * g.xp, g.xp, s.sW, g.xp, g.kc / 16,
-                  lane);
-#pragma unroll
-    for (int j = 0; j < NTC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = n0 + frag_col(lane, j, e);
-        if (r >= nvalid || c >= g.C) continue;
-        const float rb = bfr(acc[j][e]);
-        const float dr =
-            __fadd_rn(dsr[c], __fmul_rn(__fmul_rn(2.0f, rb), dsr[g.C + c]));
-        dr_out[(pix0 + r) * g.C + c] = f2bf(dr);
-      }
-  }
-  for (int i = 0; i < g.nb; ++i) {
-    float acc[NTB][4];
-    branch_conv(acc, g, x, kh, i, b, p0, s.sX, s.sW);
-#pragma unroll
-    for (int j = 0; j < NTB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), n = frag_col(lane, j, e);
-        if (r >= nvalid || n >= g.hc) continue;
-        const float cb = bfr(acc[j][e]);
-        const float dc = __fadd_rn(
-            dsh[2 * i * g.hc + n],
-            __fmul_rn(__fmul_rn(2.0f, cb), dsh[(2 * i + 1) * g.hc + n]));
-        dc_out[(pix0 + r) * g.NH + i * g.hc + n] = f2bf(dc);
-      }
-  }
-}
-
 struct F1bWs {
   bf16 *dr, *dc;
   float *part_h, *part_r;
 };
 
-F1bWs carve_f1b(const Geo &g, void *base, int64_t *bytes) {
+// dr (M, kc) and dc (M, nb khc) keep the zero padding the tile kernels
+// stage.
+F1bWs carve_f1b(const Geo &g, const tile::TGeo &t, void *base,
+                int64_t *bytes) {
   Carve cv(base);
   F1bWs w;
-  w.dr = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
-  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
+  w.dr = cv.take<bf16>(static_cast<int64_t>(g.M) * g.kc);
+  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * t.ldc);
   w.part_h = cv.take<float>(
       wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
   w.part_r = cv.take<float>(
@@ -200,42 +213,50 @@ extern "C" int cam_f1_launch(const int *geo, const void *x, const void *kr,
 
 extern "C" long long cam_f1b_workspace(const int *geo) {
   Geo g;
-  if (!make_geo(geo, &g)) return -1;
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F1B, &g, &t)) return -1;
   int64_t bytes = 0;
-  carve_f1b(g, nullptr, &bytes);
+  carve_f1b(g, t, nullptr, &bytes);
   return bytes;
 }
 
-// dx (B, H, W, C) bf16, dkr (C, C) f32, dkh (nb, 3, 3, C, hc) f32.
-extern "C" int cam_f1b_launch(const int *geo, const void *x, const void *kr,
-                              const void *kh, const void *dsr,
-                              const void *dsh, const void *dgap, void *ws,
-                              void *dx, void *dkr, void *dkh, void *stream) {
+// F1b's tile plan (cam_tile.cuh:tile_plan).
+extern "C" long long cam_f1b_plan(const int *geo, int what) {
+  return tile::tile_plan(geo, tile::F1B, what);
+}
+
+// xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
+// re-laid by ops/cam.py:_tile_weights("f1b", ...).  dx (B, H, W, C) bf16,
+// dkr (C, C) f32, dkh (nb, 3, 3, C, hc) f32.
+extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
+                              const void *w0, const void *w1,
+                              const void *dsr, const void *dsh,
+                              const void *dgap, void *ws, void *dx,
+                              void *dkr, void *dkh, void *stream) {
   Geo g;
-  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F1B, &g, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
-  const F1bWs w = carve_f1b(g, ws, &bytes);
-  const auto *xx = static_cast<const bf16 *>(x);
-  const auto *krr = static_cast<const bf16 *>(kr);
-  const auto *khh = static_cast<const bf16 *>(kh);
-  CAM_TRY(set_pix_smem(f1b_kernel, g));
-  f1b_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
-      g, xx, krr, khh, static_cast<const float *>(dsr),
-      static_cast<const float *>(dsh), w.dr, w.dc);
-  CAM_TRY(cudaGetLastError());
-  CAM_TRY(wgrad<NTB>(dkh_jobs(g, xx, w.dc), g, g.C, g.hc, w.part_h,
+  const F1bWs w = carve_f1b(g, t, ws, &bytes);
+  const auto *xx = static_cast<const bf16 *>(xpad);
+  CAM_TRY(tile::launch(tile::f1b_tile_kernel, dim3(t.n_tiles),
+                       tile::smem0_bytes(g, t), st, g, t, xx,
+                       static_cast<const bf16 *>(w0),
+                       static_cast<const float *>(dsr),
+                       static_cast<const float *>(dsh), w.dr, w.dc));
+  CAM_TRY(wgrad<NTB>(tile::dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
                      static_cast<int64_t>(9) * g.NH * g.C,
                      static_cast<float *>(dkh), st));
   WJobs jr;
   jr.n = 1;
-  jr.j[0] = plain_job(xx, g.C, g.C, w.dr, g.C, g.C, 0);
+  jr.j[0] = plain_job(xx, g.kc, g.C, w.dr, g.kc, g.C, 0);
   CAM_TRY(wgrad<NTC>(jr, g, g.C, g.C, w.part_r,
                      static_cast<int64_t>(g.C) * g.C,
                      static_cast<float *>(dkr), st));
   const float inv_n = static_cast<float>(1.0 / g.HW);
-  CAM_TRY((launch_dx<true, true>(g, w.dr, krr, w.dc, khh,
-                                 static_cast<const float *>(dgap), inv_n,
-                                 static_cast<bf16 *>(dx), st)));
-  return 0;
+  return static_cast<int>(tile::launch_dx<true, true>(
+      g, t, w.dr, w.dc, static_cast<const bf16 *>(w1),
+      static_cast<const float *>(dgap), inv_n, static_cast<bf16 *>(dx), st));
 }

@@ -10,14 +10,80 @@
 //       dc = dz scale inv, dkh = sum x_tap^T bf16(dc) (phase 0), then
 //       dx = sum_i convT_i(bf16(dc_i)) (phase 1).
 // x (B, H, W, C) bf16, kh (nb, 3, 3, C, hc) bf16, kt (nb, hc, C) bf16,
-// bnh (4 nb, hc) f32 rows [mean, inv, scale, bias] per branch.  Design in
-// cam_core.cuh.
+// bnh (4 nb, hc) f32 rows [mean, inv, scale, bias] per branch.  F2's
+// design is in cam_core.cuh; F2b (2-D tiles, one halo per tile, 16-byte
+// async copies; cam_tile.cuh) reads x padded to kc channels and the
+// weights re-laid by ops/cam.py:_tile_weights.
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F2 does 9 nb C hc + nb hc C = 195.6 K multiply-adds a
 // pixel: 0.081 ms at 989 TFLOP/s (bf16 dense); F2b about 3x.
 
-#include "cam_core.cuh"
+#include "cam_tile.cuh"
+
+namespace cam {
+namespace tile {
+
+// Phase 0 of F2b on one 8 x 8 tile: a (M, NH), dt (M, C) and dc
+// (M, nb khc, zero padding columns) in bf16, dt = bf16(dst[0] + 2 t
+// dst[1]); per-tile partial row dS_h (2 NH).
+__global__ void __launch_bounds__(TT, 1)
+f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
+                const bf16 *__restrict__ w0, const float *__restrict__ bnh,
+                const float *__restrict__ dst, bf16 *__restrict__ a_out,
+                bf16 *__restrict__ dt_out, bf16 *__restrict__ dc_out,
+                float *__restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xp = g.kc + 8, C = g.C;
+  const int wbuf = WROWS * (t.kw0 + 8);
+  bf16 *sH = reinterpret_cast<bf16 *>(smem);
+  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
+  bf16 *sCb = sW + NBUF * wbuf;
+  bf16 *sA = sCb + TP * g.nhp;
+  bf16 *sD = sA + TP * g.nhp;
+  float *red = reinterpret_cast<float *>(sD + TP * xp);
+  float *sDt = red + NWARPS * NRED * NC;    // dst rows, then bnh
+  float *sBh = sDt + 2 * C;
+  const Lane L = lane_of(t);
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  Ring ring{w0, sW, wbuf, L.lane, 0};
+
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 2 * C; i += TT) sDt[i] = dst[i];
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, sD);
+
+  branch_convs(g, t, ring, aH, L, ToActivations{g, L, sBh, sCb, sA, a_out});
+  constexpr int GC = (NTC + 1) / 2;
+  conv1x1_chunks<false, true>(
+      g, t, ring, 0, tile_row(sA, g.nhp, L), L,
+      [&](int n0, const Split &sc, float (&)[GC][4], float (&at)[GC][4]) {
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = frag_row(L.wm, L.lane, e);
+            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+            if (c >= C || j >= sc.cnt) continue;
+            const int64_t p = tile_pix(g, L.pos, r);
+            bf16 dtb = bzero();
+            if (p >= 0) {
+              const float tb = bfr(at[j][e]);
+              dtb = f2bf(__fadd_rn(
+                  sDt[c], __fmul_rn(__fmul_rn(2.0f, tb), sDt[C + c])));
+              dt_out[p * C + c] = dtb;
+            }
+            sD[r * xp + c] = dtb;
+          }
+      });
+  branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L, dc_out,
+                  part + static_cast<int64_t>(blockIdx.x) * 2 * g.NH);
+  zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
+}
+
+}  // namespace tile
+}  // namespace cam
 
 namespace cam {
 namespace {
@@ -38,7 +104,7 @@ f2_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
   branches_to_smem(g, x, kh, bnh, b, p0, s, nullptr);
   for (int n0 = 0; n0 < g.C; n0 += NC) {
     __syncthreads();
-    stage_w(s.sW, g.nhp, kt, g.C, true, g.NH, g.C, n0, g.knh, NC);
+    stage_w(s.sW, g.nhp, kt, g.C, g.NH, g.C, n0, g.knh, NC);
     __syncthreads();
     float acc[NTC][4];
     zero_acc(acc);
@@ -63,63 +129,21 @@ f2_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
   }
 }
 
-// Phase 0 of F2b: a (M, NH), dt (M, C), dc (M, NH) in bf16; per-tile
-// partial row dS (2 NH).
-__global__ void __launch_bounds__(THREADS)
-f2b_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
-           const bf16 *__restrict__ kt, const float *__restrict__ bnh,
-           const float *__restrict__ dst, bf16 *__restrict__ a_out,
-           bf16 *__restrict__ dt_out, bf16 *__restrict__ dc_out,
-           float *__restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PixSmem s = pix_smem(g, smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  const int64_t pix0 = static_cast<int64_t>(b) * g.HW + p0;
-
-  zero_pads(g, s);
-  branches_to_smem(g, x, kh, bnh, b, p0, s, a_out);
-  for (int n0 = 0; n0 < g.C; n0 += NC) {
-    __syncthreads();
-    stage_w(s.sW, g.nhp, kt, g.C, true, g.NH, g.C, n0, g.knh, NC);
-    __syncthreads();
-    float acc[NTC][4];
-    zero_acc(acc);
-    warp_mma<NTC>(acc, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
-                  g.knh / 16, lane);
-#pragma unroll
-    for (int j = 0; j < NTC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = n0 + frag_col(lane, j, e);
-        if (c >= g.C) continue;
-        bf16 dtb = bzero();
-        if (r < nvalid) {
-          const float tb = bfr(acc[j][e]);
-          dtb = f2bf(__fadd_rn(dst[c],
-                               __fmul_rn(__fmul_rn(2.0f, tb), dst[g.C + c])));
-          dt_out[(pix0 + r) * g.C + c] = dtb;
-        }
-        s.sD[r * g.xp + c] = dtb;
-      }
-  }
-  branch_backward(g, kt, bnh, b, p0, s, dc_out,
-                  part + static_cast<int64_t>(T) * 2 * g.NH);
-}
-
 struct F2bWs {
   bf16 *a, *dt, *dc;
   float *part, *part_h, *part_t;
 };
 
-F2bWs carve_f2b(const Geo &g, void *base, int64_t *bytes) {
+// dc (M, nb khc) keeps the zero padding the tile kernels stage; a (M, NH)
+// and dt (M, C) are dense.
+F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
+                int64_t *bytes) {
   Carve cv(base);
   F2bWs w;
   w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
   w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
-  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
-  w.part = cv.take<float>(static_cast<int64_t>(g.n_tiles) * 2 * g.NH);
+  w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * t.ldc);
+  w.part = cv.take<float>(static_cast<int64_t>(t.n_tiles) * 2 * g.NH);
   w.part_h = cv.take<float>(
       wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
   w.part_t = cv.take<float>(
@@ -161,34 +185,43 @@ extern "C" int cam_f2_launch(const int *geo, const void *x, const void *kh,
 
 extern "C" long long cam_f2b_workspace(const int *geo) {
   Geo g;
-  if (!make_geo(geo, &g)) return -1;
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F2B, &g, &t)) return -1;
   int64_t bytes = 0;
-  carve_f2b(g, nullptr, &bytes);
+  carve_f2b(g, t, nullptr, &bytes);
   return bytes;
 }
 
-// dx (B, H, W, C) bf16, dkh (nb, 3, 3, C, hc), dkt (nb, hc, C) and
-// dS (2 nb, hc) f32.
-extern "C" int cam_f2b_launch(const int *geo, const void *x, const void *kh,
-                              const void *kt, const void *bnh,
-                              const void *dst, void *ws, void *dx, void *dkh,
-                              void *dkt, void *dS, void *stream) {
+// F2b's tile plan (cam_tile.cuh:tile_plan).
+extern "C" long long cam_f2b_plan(const int *geo, int what) {
+  return tile::tile_plan(geo, tile::F2B, what);
+}
+
+// xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
+// re-laid by ops/cam.py:_tile_weights("f2b", ...).  dx (B, H, W, C) bf16,
+// dkh (nb, 3, 3, C, hc), dkt (nb, hc, C) and dS (2 nb, hc) f32.
+extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
+                              const void *w0, const void *w1,
+                              const void *bnh, const void *dst, void *ws,
+                              void *dx, void *dkh, void *dkt, void *dS,
+                              void *stream) {
   Geo g;
-  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F2B, &g, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
-  const F2bWs w = carve_f2b(g, ws, &bytes);
-  const auto *xx = static_cast<const bf16 *>(x);
-  const auto *khh = static_cast<const bf16 *>(kh);
-  CAM_TRY(set_pix_smem(f2b_kernel, g));
-  f2b_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
-      g, xx, khh, static_cast<const bf16 *>(kt),
-      static_cast<const float *>(bnh), static_cast<const float *>(dst), w.a,
-      w.dt, w.dc, w.part);
-  CAM_TRY(cudaGetLastError());
-  CAM_TRY(reduce_rows(w.part, 2 * g.NH, 0, 2 * g.NH, g.n_tiles, 1,
+  const F2bWs w = carve_f2b(g, t, ws, &bytes);
+  const auto *xx = static_cast<const bf16 *>(xpad);
+  CAM_TRY(tile::launch(tile::f2b_tile_kernel, dim3(t.n_tiles),
+                       tile::smem0_bytes(g, t), st, g, t, xx,
+                       static_cast<const bf16 *>(w0),
+                       static_cast<const float *>(bnh),
+                       static_cast<const float *>(dst), w.a, w.dt, w.dc,
+                       w.part));
+  CAM_TRY(reduce_rows(w.part, 2 * g.NH, 0, 2 * g.NH, t.n_tiles, 1,
                       static_cast<float *>(dS), 0, st));
-  CAM_TRY(wgrad<NTB>(dkh_jobs(g, xx, w.dc), g, g.C, g.hc, w.part_h,
+  CAM_TRY(wgrad<NTB>(tile::dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
                      static_cast<int64_t>(9) * g.NH * g.C,
                      static_cast<float *>(dkh), st));
   WJobs jt;
@@ -197,7 +230,7 @@ extern "C" int cam_f2b_launch(const int *geo, const void *x, const void *kh,
   CAM_TRY(wgrad<NTC>(jt, g, g.NH, g.C, w.part_t,
                      static_cast<int64_t>(g.NH) * g.C,
                      static_cast<float *>(dkt), st));
-  CAM_TRY((launch_dx<false, false>(g, nullptr, nullptr, w.dc, khh, nullptr,
-                                   0.0f, static_cast<bf16 *>(dx), st)));
-  return 0;
+  return static_cast<int>(tile::launch_dx<false, false>(
+      g, t, nullptr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
+      static_cast<bf16 *>(dx), st));
 }

@@ -28,6 +28,118 @@
 #include "cam_tile.cuh"
 
 namespace cam {
+namespace tile {
+
+// Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, NH), dt (M, C),
+// dc (M, nb khc) in bf16 (dr and dc with zero padding columns); per-tile
+// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].
+__global__ void __launch_bounds__(TT, 1)
+f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
+                const bf16 *__restrict__ w0, const float *__restrict__ bnr,
+                const float *__restrict__ bnh, const float *__restrict__ bnt,
+                const float *__restrict__ gate,
+                const bf16 *__restrict__ gout, bf16 *__restrict__ dr_out,
+                bf16 *__restrict__ a_out, bf16 *__restrict__ dt_out,
+                bf16 *__restrict__ dc_out, float *__restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xp = g.kc + 8, C = g.C;
+  const int wbuf = WROWS * (t.kw0 + 8);
+  bf16 *sH = reinterpret_cast<bf16 *>(smem);
+  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
+  bf16 *sCb = sW + NBUF * wbuf;
+  bf16 *sA = sCb + TP * g.nhp;
+  bf16 *sD = sA + TP * g.nhp;
+  float *red = reinterpret_cast<float *>(sD + TP * xp);
+  float *sBr = red + NWARPS * NRED * NC;    // bnr rows, then bnt, gate, bnh
+  float *sBt = sBr + 4 * C;
+  float *sG = sBt + 4 * C;
+  float *sBh = sG + C;
+  const Lane L = lane_of(t);
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  float *prow = part + static_cast<int64_t>(blockIdx.x) * (5 * C + 2 * g.NH);
+  float *red_w = red + L.wm * NRED * NC;
+  Ring ring{w0, sW, wbuf, L.lane, 0};
+
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 4 * C; i += TT) {
+    sBr[i] = bnr[i];
+    sBt[i] = bnt[i];
+  }
+  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, sD);
+
+  branch_convs(g, t, ring, aH, L, ToActivations{g, L, sBh, sCb, sA, a_out});
+
+  // the residual and top convs: their BN backward, dr, dt (-> sD), and
+  // the five per-tile column sums
+  constexpr int GC = (NTC + 1) / 2;
+  conv1x1_chunks<true, true>(
+      g, t, ring, aH, tile_row(sA, g.nhp, L), L,
+      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&at)[GC][4]) {
+        float vg[GC][4], vt1[GC][4], vt2[GC][4];
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = frag_row(L.wm, L.lane, e);
+            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+            const int64_t p = tile_pix(g, L.pos, r);
+            float dzr = 0.0f, rmm = 0.0f, dzt = 0.0f, tmm = 0.0f, dgy = 0.0f;
+            bf16 dtb = bzero();
+            if (p >= 0 && c < C && j < sc.cnt) {
+              const float rb = bfr(acr[j][e]), tb = bfr(at[j][e]);
+              const float mr = sBr[c], ir = sBr[C + c], sr = sBr[2 * C + c];
+              const float mt = sBt[c], it = sBt[C + c], stt = sBt[2 * C + c];
+              const float zr = bn_apply(rb, mr, ir, sr, sBr[3 * C + c]);
+              const float zt = bn_apply(tb, mt, it, stt, sBt[3 * C + c]);
+              const float y = relu(zt);
+              const float gt = sG[c];
+              const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
+              const float d_o = pre > 0.0f ? bf2f(gout[p * C + c]) : 0.0f;
+              dgy = __fmul_rn(d_o, y);
+              dzr = zr > 0.0f ? d_o : 0.0f;
+              rmm = __fsub_rn(rb, mr);
+              dr_out[p * g.kc + c] = f2bf(__fmul_rn(dzr, __fmul_rn(sr, ir)));
+              const float dy = __fmul_rn(d_o, gt);
+              dzt = zt > 0.0f ? dy : 0.0f;
+              tmm = __fsub_rn(tb, mt);
+              dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
+              dt_out[p * C + c] = dtb;
+            }
+            if (c < C && j < sc.cnt) sD[r * xp + c] = dtb;
+            vg[j][e] = dgy;
+            acr[j][e] = dzr;
+            at[j][e] = __fmul_rn(dzr, rmm);
+            vt1[j][e] = dzt;
+            vt2[j][e] = __fmul_rn(dzt, tmm);
+          }
+        const int c0 = sc.j0 * 8, jn = L.wn ? NTC - GC : GC;  // its columns
+        group_colsum<GC>(acr, red_w + c0, L.lane, jn);
+        group_colsum<GC>(at, red_w + NC + c0, L.lane, jn);
+        group_colsum<GC>(vt1, red_w + 2 * NC + c0, L.lane, jn);
+        group_colsum<GC>(vt2, red_w + 3 * NC + c0, L.lane, jn);
+        group_colsum<GC>(vg, red_w + 4 * NC + c0, L.lane, jn);
+        __syncthreads();
+        for (int c = threadIdx.x; c < NC && n0 + c < C; c += TT) {
+          prow[n0 + c] = block_col(red, 0, c);
+          prow[C + n0 + c] = block_col(red, 1, c);
+          prow[2 * C + n0 + c] = block_col(red, 2, c);
+          prow[3 * C + n0 + c] = block_col(red, 3, c);
+          prow[4 * C + 2 * g.NH + n0 + c] = block_col(red, 4, c);
+        }
+      });
+  branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L, dc_out,
+                  prow + 4 * C);
+  zero_pad_cols(dr_out, g.kc, 1, g.kc, C, g, L.pos);
+  zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
+}
+
+}  // namespace tile
+}  // namespace cam
+
+namespace cam {
 namespace {
 
 __global__ void __launch_bounds__(THREADS)
@@ -51,13 +163,13 @@ f3_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
   for (int n0 = 0; n0 < C; n0 += NC) {
     float ar[NTC][4], at[NTC][4];
     __syncthreads();
-    stage_w(s.sW, g.xp, kr, C, true, C, C, n0, g.kc, NC);
+    stage_w(s.sW, g.xp, kr, C, C, C, n0, g.kc, NC);
     __syncthreads();
     zero_acc(ar);
     warp_mma<NTC>(ar, s.sX + warp * 16 * g.xp, g.xp, s.sW, g.xp, g.kc / 16,
                   lane);
     __syncthreads();
-    stage_w(s.sW, g.nhp, kt, C, true, g.NH, C, n0, g.knh, NC);
+    stage_w(s.sW, g.nhp, kt, C, g.NH, C, n0, g.knh, NC);
     __syncthreads();
     zero_acc(at);
     warp_mma<NTC>(at, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
@@ -103,28 +215,6 @@ F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
   return w;
 }
 
-// The dkh jobs of F3b: x (padded, pitch kc) shifted by each tap of each
-// branch against that branch's dc columns (pitch nb khc); out laid out as
-// kh, (nb, 3, 3, C, hc).
-WJobs f3b_dkh_jobs(const Geo &g, const tile::TGeo &t, const bf16 *xpad,
-                   const bf16 *dc) {
-  WJobs J = dkh_jobs(g, xpad, dc);
-  for (int k = 0; k < J.n; ++k) {
-    J.j[k].ldu = g.kc;
-    J.j[k].ldv = t.ldc;
-    J.j[k].v0 = (k / 9) * g.khc;
-  }
-  return J;
-}
-
-// A geometry both tile kernels take, or false.
-bool f3b_geo(const int *geo, Geo *g, tile::TGeo *t) {
-  if (!make_geo(geo, g)) return false;
-  *t = tile::make_tgeo(*g);
-  return tile::smem0_bytes(*g, *t) <= tile::SMEM_MAX &&
-         tile::smem1_bytes(*g, *t) <= tile::SMEM_MAX;
-}
-
 }  // namespace
 }  // namespace cam
 
@@ -151,32 +241,21 @@ extern "C" int cam_f3_launch(const int *geo, const void *x, const void *kr,
 extern "C" long long cam_f3b_workspace(const int *geo) {
   Geo g;
   tile::TGeo t;
-  if (!f3b_geo(geo, &g, &t)) return -1;
+  if (!tile::tile_geo(geo, tile::F3B, &g, &t)) return -1;
   int64_t bytes = 0;
   carve_f3b(g, t, nullptr, &bytes);
   return bytes;
 }
 
-// The tile kernels' shared memory (what = 0: phase 0, 1: phase 1) and the
-// bf16 elements of the re-laid weights (2: w0, 3: w1), as ops/cam.py:
-// f3b_plan computes them; -1 for a geometry the kernels refuse.
+// F3b's tile plan (cam_tile.cuh:tile_plan).
 extern "C" long long cam_f3b_plan(const int *geo, int what) {
-  Geo g;
-  if (!make_geo(geo, &g)) return -1;
-  const tile::TGeo t = tile::make_tgeo(g);
-  switch (what) {
-    case 0: return tile::smem0_bytes(g, t);
-    case 1: return tile::smem1_bytes(g, t);
-    case 2: return tile::w0_elems(g, t);
-    case 3: return tile::w1_elems(g, t);
-    default: return -1;
-  }
+  return tile::tile_plan(geo, tile::F3B, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
-// re-laid by ops/cam.py:_f3b_weights.  dx (B, H, W, C) bf16; dkr (C, C),
-// dkh (nb, 3, 3, C, hc), dkt (nb, hc, C), dSr (2, C), dSh (2 nb, hc),
-// dSt (2, C), dgate (B, C) f32.
+// re-laid by ops/cam.py:_tile_weights("f3b", ...).  dx (B, H, W, C) bf16;
+// dkr (C, C), dkh (nb, 3, 3, C, hc), dkt (nb, hc, C), dSr (2, C),
+// dSh (2 nb, hc), dSt (2, C), dgate (B, C) f32.
 extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
                               const void *w0, const void *w1,
                               const void *bnr, const void *bnh,
@@ -187,22 +266,21 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
                               void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!f3b_geo(geo, &g, &t)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tile::tile_geo(geo, tile::F3B, &g, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
   const F3bWs w = carve_f3b(g, t, ws, &bytes);
   const auto *xx = static_cast<const bf16 *>(xpad);
-  const int s0 = static_cast<int>(tile::smem0_bytes(g, t));
-  const int s1 = static_cast<int>(tile::smem1_bytes(g, t));
-  CAM_TRY(cudaFuncSetAttribute(tile::f3b_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               s0));
-  tile::f3b_tile_kernel<<<t.n_tiles, tile::TT, s0, st>>>(
-      g, t, xx, static_cast<const bf16 *>(w0),
-      static_cast<const float *>(bnr), static_cast<const float *>(bnh),
-      static_cast<const float *>(bnt), static_cast<const float *>(gate),
-      static_cast<const bf16 *>(gout), w.dr, w.a, w.dt, w.dc, w.part);
-  CAM_TRY(cudaGetLastError());
+  CAM_TRY(tile::launch(tile::f3b_tile_kernel, dim3(t.n_tiles),
+                       tile::smem0_bytes(g, t), st, g, t, xx,
+                       static_cast<const bf16 *>(w0),
+                       static_cast<const float *>(bnr),
+                       static_cast<const float *>(bnh),
+                       static_cast<const float *>(bnt),
+                       static_cast<const float *>(gate),
+                       static_cast<const bf16 *>(gout), w.dr, w.a, w.dt, w.dc,
+                       w.part));
   const int64_t ld = 5 * g.C + 2 * g.NH;
   CAM_TRY(reduce_rows(w.part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(dSr), 0, st));
@@ -213,7 +291,7 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
   // tiles are numbered image-major: image b's tpi rows are contiguous
   CAM_TRY(reduce_rows(w.part, ld, 4 * g.C + 2 * g.NH, g.C, t.tpi, g.B,
                       static_cast<float *>(dgate), g.C, st));
-  CAM_TRY(wgrad<NTB>(f3b_dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
+  CAM_TRY(wgrad<NTB>(tile::dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
                      static_cast<int64_t>(9) * g.NH * g.C,
                      static_cast<float *>(dkh), st));
   // dkr and dkt in one launch, their partials end to end; each range is
@@ -231,11 +309,7 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
                       static_cast<float *>(dkr), 0, st));
   CAM_TRY(reduce_rows(w.part_rt, total, n_rr, total - n_rr, splits, 1,
                       static_cast<float *>(dkt), 0, st));
-  CAM_TRY(cudaFuncSetAttribute(tile::f3b_dx_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               s1));
-  tile::f3b_dx_kernel<<<dim3(t.n_tiles, t.nchx), tile::TT, s1, st>>>(
-      g, t, w.dr, w.dc, static_cast<const bf16 *>(w1),
-      static_cast<bf16 *>(dx));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(tile::launch_dx<true, false>(
+      g, t, w.dr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
+      static_cast<bf16 *>(dx), st));
 }

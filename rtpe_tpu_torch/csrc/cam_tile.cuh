@@ -1,19 +1,23 @@
-// The 2-D tile kernels of F3b (the backward of the fused CAM op F3),
-// CUDA C++ for sm_90a; only cam_f3.cu includes this header.
+// The 2-D tile kernels of the three fused-CAM backwards F1b, F2b and F3b,
+// CUDA C++ for sm_90a; cam_f1.cu, cam_f2.cu and cam_f3.cu include this
+// header.
 //
-// Replaces, with cam_f3.cu, the TPU kernel _f3b_call / _f3b_kernel of
-// rtpe_tpu/ops/pallas_cam.py (lines 675 and 388): phase 0, the full
-// recompute of the CAM with the per-pixel cotangents and the per-tile
-// sums (f3b_tile_kernel), and phase 1, dx (f3b_dx_kernel).
+// Replaces, with those files, the TPU kernels _f1b_call / _f1b_kernel,
+// _f2b_call / _f2b_kernel and _f3b_call / _f3b_kernel of
+// rtpe_tpu/ops/pallas_cam.py: phase 0 of each, the recompute of the convs
+// it needs with the per-pixel cotangents (f1b_tile_kernel,
+// f2b_tile_kernel, f3b_tile_kernel, each with its per-tile sums), and
+// phase 1, dx (dx_kernel, one template for all three).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
-// 989 TFLOP/s (bf16 dense tensor cores).  The first design (cam_core.cuh,
-// kept by F1, F1b, F2, F2b and F3) staged each tap's 64 shifted pixel rows
-// and its weights one bf16 per lane, with a divide per row and element,
-// 27 times per branch set: ~600 KB of x moved per 64-pixel tile, loads and
-// MMAs never overlapped, and the dx kernel restaged the dc halo 27 times
-// in each of 3 channel chunks.  What this design does about it:
+// 989 TFLOP/s (bf16 dense tensor cores); F1b 3 x 202.6 K, F2b 3 x 195.6 K.
+// The first design (cam_core.cuh, kept by the forwards F1, F2 and F3)
+// staged each tap's 64 shifted pixel rows and its weights one bf16 per
+// lane, with a divide per row and element, 27 times per branch set:
+// ~600 KB of x moved per 64-pixel tile, loads and MMAs never overlapped,
+// and its dx kernel restaged the dc halo 27 times in each of 3 channel
+// chunks.  What this design does about it:
 //
 //   - a tile is 8 x 8 pixels of one image (tiles numbered image-major, so
 //     a per-tile partial is a per-image partial); its halo at the largest
@@ -24,32 +28,44 @@
 //     per tile at C = 163 instead of ~600 KB, in 16-byte copies;
 //   - the wrapper lays every weight out once per call in the order the
 //     kernel walks it, [n][k] with k padded to 16 (ops/cam.py:
-//     _f3b_weights), so each stage's B tile is one contiguous cp.async
+//     _tile_weights), so each stage's B tile is one contiguous cp.async
 //     copy, in a ring of three buffers: stages s + 1 and s + 2 load while
 //     stage s multiplies; the copy loops keep their row and chunk indices
 //     without a divide per chunk;
 //   - 8 warps a block, 2 on each of the SM's 4 schedulers: one block fits
-//     an SM (205 KB of shared memory at C = 163, 133 KB at 83), and a
-//     single warp per scheduler exposed every latency of the MMA loop and
-//     the epilogues (on one H100 at 700 W, phase 0 at the steps' shape
-//     took 3.6 ms with 4 warps, 2.7 ms with 8).  The 4 row warps (16
-//     pixel rows each) of each of 2 column groups split every product's
-//     n8 tiles between the groups;
-//   - the epilogues read the BN rows and image b's gate from shared
-//     memory, staged once per tile;
-//   - it reads a channel-padded copy of x (C -> kc, zeros) and writes dr
+//     an SM (205 KB of shared memory at C = 163, 133 KB at 83, for F3b),
+//     and a single warp per scheduler exposed every latency of the MMA
+//     loop and the epilogues (on one H100 at 700 W, F3b's phase 0 at the
+//     steps' shape took 3.6 ms with 4 warps, 2.7 ms with 8).  The 4 row
+//     warps (16 pixel rows each) of each of 2 column groups split every
+//     product's n8 tiles between the groups;
+//   - the epilogues read the BN rows, the statistics' cotangents and
+//     image b's gate from shared memory, staged once per tile;
+//   - they read a channel-padded copy of x (C -> kc, zeros) and write dr
 //     with pitch kc and dc with each branch padded to khc zero columns, so
 //     every staged row is 16-byte aligned and its k padding is zero;
-//   - phase 1 stages the tile's dr rows and one dc halo (all branches) and
-//     computes up to 168 output channels per block (all of them at C = 163
-//     and 83), so dc is staged once per tile;
+//   - phase 1 stages the tile's dr rows (F1b, F3b) and one dc halo (all
+//     branches) and computes up to 168 output channels per block (all of
+//     them at C = 163 and 83), so dc is staged once per tile;
 //   - each output keeps the first design's accumulation order (branch
 //     conv: taps 0..8, k-steps ascending; 1x1 convs: k-steps ascending;
-//     dx: dr kr^T, then branch i, taps 0..8, k-steps over khc) on the same
-//     mma.sync m16n8k16 bf16 -> f32 with the same zero padding, so every
-//     per-pixel output (dr, a, dt, dc, dx) and the weight gradients built
-//     from them are bitwise those of the first design; only the per-tile
-//     sums (dS_r, dS_h, dS_t, dgate) add their pixels in another order.
+//     dx: dr kr^T, then branch i, taps 0..8, k-steps over khc, then
+//     F1b's dgap / (H W)) on the same mma.sync m16n8k16 bf16 -> f32 with
+//     the same zero padding, so every per-pixel output (dr, a, dt, dc, dx)
+//     and the weight gradients built from them are bitwise those of the
+//     first design; only the per-tile sums (dS_r, dS_h, dS_t, dgate) add
+//     their pixels in another order.
+//
+// The three phase-0 kernels (f1b_tile_kernel in cam_f1.cu,
+// f2b_tile_kernel in cam_f2.cu, f3b_tile_kernel in cam_f3.cu) share the
+// sections here (branch_convs, conv1x1_chunks, branch_backward,
+// zero_pad_cols) and differ in their epilogues and in which sections they
+// run:
+//
+//   F1b: branch convs -> dc = dsh[2i] + 2 c dsh[2i+1]; kr^T chunks -> dr
+//   F2b: branch convs -> a; kt^T chunks -> dt; branch backward -> dc, dS_h
+//   F3b: branch convs -> a; kr^T and kt^T chunks -> dr, dt, dS_r, dS_t,
+//        dgate; branch backward -> dc, dS_h
 //
 // Ragged tiles: 113 = 14 x 8 + 1, so 15 x 15 tiles cover a 113 x 113
 // image, 12.8 % more pixels than it has (57^2: 26 %, 29^2: 22 %); a pixel
@@ -72,23 +88,32 @@ constexpr int NTX = 21;           // n8 tiles of a dx block
 constexpr int NX = NTX * 8;       // output channels of a dx block
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block
 
+// The backwards.
+enum Op { F1B = 1, F2B = 2, F3B = 3 };
+
 inline int up8(int v) { return (v + 7) / 8 * 8; }
 
-// The tiling of one F3b call; ops/cam.py:f3b_plan computes the same.
+// The tiling of one backward call; ops/cam.py:tile_plan computes the same.
 struct TGeo {
+  int op;                     // F1B, F2B or F3B
+  int res, top;               // phase 0 runs kr^T chunks (dr), kt^T chunks
+                              // (dt) and then the branch backward
   int tiles_x, tpi, n_tiles;  // tiles per image row, per image, in all
   int dmax, hs, hr;           // largest dilation, halo side, halo rows
   int brows;                  // rows of a branch weight stage: hc to 8
   int nchr;                   // phase 0's 1x1-conv chunks of NC channels
-  int kw0;                    // widest phase-0 stage: max(kc, knh)
+  int kw0;                    // widest phase-0 stage: kc, or max(kc, knh)
   int ldc;                    // dc row pitch: nb khc
   int nst0;                   // phase-0 weight stages
   int nxr, nchx;              // dx stage rows, dx channel chunks
   int nksr, nst1;             // dx stages of dr kr^T, dx stages per chunk
 };
 
-inline TGeo make_tgeo(const Geo &g) {
+inline TGeo make_tgeo(const Geo &g, int op) {
   TGeo t;
+  t.op = op;
+  t.res = op != F2B;
+  t.top = op != F1B;
   t.tiles_x = (g.W + TS - 1) / TS;
   t.tpi = t.tiles_x * ((g.H + TS - 1) / TS);
   t.n_tiles = g.B * t.tpi;
@@ -99,53 +124,86 @@ inline TGeo make_tgeo(const Geo &g) {
   t.hr = t.hs * t.hs;
   t.brows = up8(g.hc);
   t.nchr = (g.C + NC - 1) / NC;
-  t.kw0 = g.kc > g.knh ? g.kc : g.knh;
+  t.kw0 = t.top && g.knh > g.kc ? g.knh : g.kc;
   t.ldc = g.nb * g.khc;
-  t.nst0 = 9 * g.nb + 2 * t.nchr + g.nb;
+  t.nst0 = 9 * g.nb + (t.res + t.top) * t.nchr + t.top * g.nb;
   t.nxr = up8(g.C) < NX ? up8(g.C) : NX;
   t.nchx = (g.C + NX - 1) / NX;
-  t.nksr = (g.kc + g.khc - 1) / g.khc;
+  t.nksr = t.res ? (g.kc + g.khc - 1) / g.khc : 0;
   t.nst1 = t.nksr + 9 * g.nb;
   return t;
 }
 
-// Shared memory of phase 0: the x halo (hr x (kc + 8)), NBUF weight
-// buffers (WROWS x (kw0 + 8)), sCb and sA (TP x nhp), sD (TP x (kc + 8))
-// in bf16, then in f32 the column-sum scratch (NWARPS row warps) and the
-// epilogues' BN rows and gate (bnr, bnt: 4C each; image b's gate: C;
-// bnh: 4 NH).
+// Shared memory of phase 0: the x halo (hr x (kc + 8)) and NBUF weight
+// buffers (WROWS x (kw0 + 8)) in bf16; with the top conv (F2b, F3b) also
+// sCb and sA (TP x nhp) and sD (TP x (kc + 8)) in bf16 and the column-sum
+// scratch (NWARPS row warps) in f32; then the epilogues' rows in f32:
+// F1b dsr (2C) and dsh (2 NH); F2b dst (2C) and bnh (4 NH); F3b bnr and
+// bnt (4C each), image b's gate (C) and bnh (4 NH).
 inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
   const int64_t xp = g.kc + 8;
-  const int64_t el = t.hr * xp + 1LL * NBUF * WROWS * (t.kw0 + 8) +
-                     2LL * TP * g.nhp + TP * xp;
-  return el * 2 + 4LL * (NWARPS * NRED * NC + 9LL * g.C + 4LL * g.NH);
+  int64_t el = t.hr * xp + 1LL * NBUF * WROWS * (t.kw0 + 8);
+  int64_t f = t.op == F3B ? 9LL * g.C + 4LL * g.NH
+              : t.op == F2B ? 2LL * g.C + 4LL * g.NH
+                            : 2LL * g.C + 2LL * g.NH;
+  if (t.top) {
+    el += 2LL * TP * g.nhp + TP * xp;
+    f += 1LL * NWARPS * NRED * NC;
+  }
+  return el * 2 + 4 * f;
 }
 
-// Shared memory of phase 1: the tile's dr rows (TP x (kc + 8)), the dc
-// halo (hr x (ldc + 8)), NBUF weight buffers (nxr x (khc + 8)), bf16.
+// Shared memory of phase 1: the tile's dr rows (TP x (kc + 8), F1b and
+// F3b), the dc halo (hr x (ldc + 8)), NBUF weight buffers
+// (nxr x (khc + 8)), bf16.
 inline int64_t smem1_bytes(const Geo &g, const TGeo &t) {
-  return 2LL * (TP * (g.kc + 8LL) + t.hr * (t.ldc + 8LL) +
+  return 2LL * ((t.res ? TP * (g.kc + 8LL) : 0) + t.hr * (t.ldc + 8LL) +
                 1LL * NBUF * t.nxr * (g.khc + 8));
 }
 
 // bf16 elements of the two re-laid weight buffers.
 inline int64_t w0_elems(const Geo &g, const TGeo &t) {
-  return 10LL * g.nb * t.brows * g.kc +
-         static_cast<int64_t>(t.nchr) * NC * (g.kc + g.knh);
+  return (9LL + t.top) * g.nb * t.brows * g.kc +
+         static_cast<int64_t>(t.nchr) * NC *
+             (t.res * g.kc + t.top * g.knh);
 }
 inline int64_t w1_elems(const Geo &g, const TGeo &t) {
   return static_cast<int64_t>(t.nchx) * t.nst1 * t.nxr * g.khc;
 }
 
+// A geometry the op's two tile kernels take, or false.
+inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
+  if (op < F1B || op > F3B || !make_geo(geo, g)) return false;
+  *t = make_tgeo(*g, op);
+  return smem0_bytes(*g, *t) <= SMEM_MAX && smem1_bytes(*g, *t) <= SMEM_MAX;
+}
+
+// The op's tile kernels' shared memory (what = 0: phase 0, 1: phase 1)
+// and the bf16 elements of its re-laid weights (2: w0, 3: w1), as
+// ops/cam.py:tile_plan computes them; -1 for an invalid geometry.
+inline long long tile_plan(const int *geo, int op, int what) {
+  Geo g;
+  if (op < F1B || op > F3B || !make_geo(geo, &g)) return -1;
+  const TGeo t = make_tgeo(g, op);
+  switch (what) {
+    case 0: return smem0_bytes(g, t);
+    case 1: return smem1_bytes(g, t);
+    case 2: return w0_elems(g, t);
+    case 3: return w1_elems(g, t);
+    default: return -1;
+  }
+}
+
 // Phase-0 weight stage s: its offset in w0, its rows and its k width.
 // Order: the branch taps (nb x 9 of [brows][kc], kh^T), then per chunk of
-// NC output channels kr^T [NC][kc] and kt^T [NC][knh], then per branch
-// kt[i] [brows][kc].
+// NC output channels kr^T [NC][kc] (F1b, F3b) and kt^T [NC][knh] (F2b,
+// F3b), then per branch kt[i] [brows][kc] (F2b, F3b).
 __device__ __forceinline__ void stage0(const Geo &g, const TGeo &t, int s,
                                        int64_t *off, int *rows, int *kw) {
-  const int nbr = 9 * g.nb;
+  const int nbr = 9 * g.nb, per = t.res + t.top;
   const int64_t wb = static_cast<int64_t>(t.brows) * g.kc;
-  const int64_t pair = static_cast<int64_t>(NC) * (g.kc + g.knh);
+  const int64_t pair = static_cast<int64_t>(NC) *
+                       (t.res * g.kc + t.top * g.knh);
   *rows = t.brows;
   *kw = g.kc;
   if (s < nbr) {
@@ -153,13 +211,15 @@ __device__ __forceinline__ void stage0(const Geo &g, const TGeo &t, int s,
     return;
   }
   s -= nbr;
-  if (s < 2 * t.nchr) {
-    *off = nbr * wb + (s >> 1) * pair + ((s & 1) ? NC * g.kc : 0);
+  if (s < per * t.nchr) {
+    // u: 0 for kr^T, 1 for kt^T
+    const int q = per == 2 ? s >> 1 : s, u = per == 2 ? s & 1 : t.top;
+    *off = nbr * wb + q * pair + (u ? t.res * NC * g.kc : 0);
     *rows = NC;
-    *kw = (s & 1) ? g.knh : g.kc;
+    *kw = u ? g.knh : g.kc;
     return;
   }
-  *off = nbr * wb + t.nchr * pair + (s - 2 * t.nchr) * wb;
+  *off = nbr * wb + t.nchr * pair + (s - per * t.nchr) * wb;
 }
 
 // ------------------------------------------------------------ primitives
@@ -351,187 +411,161 @@ __device__ __forceinline__ void next_stage(bf16 *dst, const bf16 *src,
 
 // ------------------------------------------------------------ phase 0
 
-// Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, NH), dt (M, C),
-// dc (M, nb khc) in bf16 (dr and dc with zero padding columns); per-tile
-// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].
-__global__ void __launch_bounds__(TT, 1)
-f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
-                const bf16 *__restrict__ w0, const float *__restrict__ bnr,
-                const float *__restrict__ bnh, const float *__restrict__ bnt,
-                const float *__restrict__ gate,
-                const bf16 *__restrict__ gout, bf16 *__restrict__ dr_out,
-                bf16 *__restrict__ a_out, bf16 *__restrict__ dt_out,
-                bf16 *__restrict__ dc_out, float *__restrict__ part) {
-  constexpr int GB = (NTB + 1) / 2, GC = (NTC + 1) / 2;  // tiles per group
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int xp = g.kc + 8;
-  const int wbuf = WROWS * (t.kw0 + 8);      // one weight buffer
-  bf16 *sH = reinterpret_cast<bf16 *>(smem);
-  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
-  bf16 *sCb = sW + NBUF * wbuf;
-  bf16 *sA = sCb + TP * g.nhp;
-  bf16 *sD = sA + TP * g.nhp;
-  float *red = reinterpret_cast<float *>(sD + TP * xp);
-  float *sBr = red + NWARPS * NRED * NC;    // bnr rows, then bnt, gate, bnh
-  float *sBt = sBr + 4 * g.C;
-  float *sG = sBt + 4 * g.C;
-  float *sBh = sG + g.C;
+// Phase 0's weight stages in the ring: stage s sits in buffer s % NBUF
+// with pitch kw + 8.
+struct Ring {
+  const bf16 *w0;
+  bf16 *sW;
+  int wbuf, lane, s;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int T = blockIdx.x;
-  const TilePos pos = tile_pos(t, T);
-  const int C = g.C, ntb = t.brows / 8;
-  const Split sb = split<NTB>(wn, ntb);
-  float *prow = part + static_cast<int64_t>(T) * (5 * C + 2 * g.NH);
-  float *red_w = red + wm * NRED * NC;
-
-  // this lane's ldmatrix addresses: the halo at the pixel of its A row,
-  // sA and sD at that row, and its B row in a weight tile
-  const int lr = wm * 16 + lm_row(lane), ak = (lane >> 4) * 8;
-  const uint32_t aH = saddr(sH + (((lr >> 3) + t.dmax) * t.hs +
-                                  (lr & 7) + t.dmax) * xp + ak);
-  const uint32_t aA = saddr(sA + lr * g.nhp + ak);
-  const uint32_t aD = saddr(sD + lr * xp + ak);
-  int64_t off;
-  int rows, kw;
-
-  stage_halo(sH, xpad, g.kc, g, t, pos);
-  stage0(g, t, 0, &off, &rows, &kw);
-  copy_stage(sW, w0 + off, rows, kw);
-  cp_commit();
-  stage0(g, t, 1, &off, &rows, &kw);     // nst0 >= 12
-  copy_stage(sW + wbuf, w0 + off, rows, kw);
-  cp_commit();
-  for (int i = threadIdx.x; i < 4 * C; i += TT) {
-    sBr[i] = bnr[i];
-    sBt[i] = bnt[i];
+  // Start stages 0 and 1 (every op has nst0 >= 10), each its own group.
+  __device__ __forceinline__ void start(const Geo &g, const TGeo &t) {
+    int64_t o;
+    int r, k;
+    for (int u = 0; u < 2; ++u) {
+      stage0(g, t, u, &o, &r, &k);
+      copy_stage(sW + u * wbuf, w0 + o, r, k);
+      cp_commit();
+    }
   }
-  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[pos.b * C + i];
-  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-  // the K padding of sA (NH..knh) and sD (C..kc)
-  const int pa = g.knh - g.NH, pd = g.kc - C;
-  for (int i = threadIdx.x; i < TP * pa; i += TT)
-    sA[(i / pa) * g.nhp + g.NH + i % pa] = bzero();
-  for (int i = threadIdx.x; i < TP * pd; i += TT)
-    sD[(i / pd) * xp + C + i % pd] = bzero();
 
-  // stage s sits in buffer s % NBUF with pitch kw + 8: wait for it,
-  // start stage s + 2, return this lane's B address in stage s
-  int s = 0;
-  auto advance = [&]() -> uint32_t {
+  // Wait for stage s, start stage s + 2, return this lane's B address
+  // in stage s.
+  __device__ __forceinline__ uint32_t next(const Geo &g, const TGeo &t) {
     int64_t o = 0;
     int r = 0, k = 0;
     const bool more = s + 2 < t.nst0;
     if (more) stage0(g, t, s + 2, &o, &r, &k);
     next_stage(sW + ((s + 2) % NBUF) * wbuf, w0 + o, r, k, more);
-    stage0(g, t, s, &off, &rows, &kw);
+    stage0(g, t, s, &o, &r, &k);
     const uint32_t b = saddr(sW + (s % NBUF) * wbuf +
-                             lm_brow(lane) * (kw + 8) + lm_bk(lane));
+                             lm_brow(lane) * (k + 8) + lm_bk(lane));
     ++s;
     return b;
-  };
+  }
+};
 
-  // the branch convs -> sCb = bf16(c), sA = bf16(relu(BN(c))), a_out
+// A lane's place in the block and in its tile.
+struct Lane {
+  int lane, wm, wn;   // lane, row warp, column group
+  TilePos pos;
+};
+
+__device__ __forceinline__ Lane lane_of(const TGeo &t) {
+  const int warp = threadIdx.x >> 5;
+  return {static_cast<int>(threadIdx.x & 31), warp & 3, warp >> 2,
+          tile_pos(t, blockIdx.x)};
+}
+
+// This lane's ldmatrix address of its A row (pixel 16 wm + lm_row) in
+// the halo's centre, whose rows have pitch ld (bf16).
+__device__ __forceinline__ uint32_t halo_row(const bf16 *sH, int ld,
+                                             const TGeo &t, const Lane &L) {
+  const int lr = L.wm * 16 + lm_row(L.lane), ak = (L.lane >> 4) * 8;
+  return saddr(sH + (((lr >> 3) + t.dmax) * t.hs + (lr & 7) + t.dmax) * ld +
+               ak);
+}
+
+// ... and of its A row in a tile-sized buffer of pitch ld.
+__device__ __forceinline__ uint32_t tile_row(const bf16 *s, int ld,
+                                             const Lane &L) {
+  return saddr(s + (L.wm * 16 + lm_row(L.lane)) * ld + (L.lane >> 4) * 8);
+}
+
+// The branch convs: for each branch i, acc = the sum over taps 0..8 of
+// the halo rows shifted by the tap's offset . kh[i, tap] (k-steps
+// ascending), then epi(i, r, n, acc) for each of the lane's fragment
+// elements (row r, branch channel n < hc).  Stages: the nb x 9 taps.
+template <typename Epi>
+__device__ __forceinline__ void branch_convs(const Geo &g, const TGeo &t,
+                                             Ring &ring, uint32_t aH,
+                                             const Lane &L, Epi epi) {
+  constexpr int GB = (NTB + 1) / 2;   // n8 tiles per column group
+  const int xp = g.kc + 8;
+  const Split sb = split<NTB>(L.wn, t.brows / 8);
   for (int i = 0; i < g.nb; ++i) {
     const int d = g.dil[i];
     float acc[GB][4];
     zero_acc(acc);
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
-      const uint32_t b = advance() + sb.j0 * 8 * (g.kc + 8) * 2;
+      const uint32_t b = ring.next(g, t) + sb.j0 * 8 * xp * 2;
       const int sh = ((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
-      mma_rows<GB>(acc, aH + sh * xp * 2, b, (g.kc + 8) * 2, g.kc / 16,
-                   sb.cnt);
+      mma_rows<GB>(acc, aH + sh * xp * 2, b, xp * 2, g.kc / 16, sb.cnt);
     }
 #pragma unroll
     for (int j = 0; j < GB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(wm, lane, e);
-        const int n = frag_col(lane, sb.j0 + j, e);
-        if (n >= g.hc) continue;
-        const float cb = bfr(acc[j][e]);
-        const float *bn = sBh + 4 * i * g.hc + n;
-        const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
-                                 bn[3 * g.hc]);
-        const bf16 ab = f2bf(relu(z));
-        sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
-        sA[r * g.nhp + i * g.hc + n] = ab;
-        const int64_t p = tile_pix(g, pos, r);
-        if (p >= 0) a_out[p * g.NH + i * g.hc + n] = ab;
+        const int n = frag_col(L.lane, sb.j0 + j, e);
+        if (n < g.hc) epi(i, frag_row(L.wm, L.lane, e), n, acc[j][e]);
       }
   }
+}
 
-  // the residual and top convs in chunks of NC channels: their BN
-  // backward, dr, dt (-> sD), and the five per-tile column sums
-  for (int n0 = 0; n0 < C; n0 += NC) {
-    const int ntc = (C - n0 + 7) / 8 < NTC ? (C - n0 + 7) / 8 : NTC;
-    const Split sc = split<NTC>(wn, ntc);
+// The 1x1 convs in chunks of NC output channels from n0: per chunk, with
+// RES acr = the halo's centre rows (aH) . kr^T (kc), with TOP at = sA
+// (aA) . kt^T (knh), k-steps ascending, then epi(n0, split, acr, at).
+// Stages: per chunk kr^T, then kt^T.
+template <bool RES, bool TOP, typename Epi>
+__device__ __forceinline__ void conv1x1_chunks(const Geo &g, const TGeo &t,
+                                               Ring &ring, uint32_t aH,
+                                               uint32_t aA, const Lane &L,
+                                               Epi epi) {
+  constexpr int GC = (NTC + 1) / 2;   // n8 tiles per column group
+  for (int n0 = 0; n0 < g.C; n0 += NC) {
+    const int ntc = (g.C - n0 + 7) / 8 < NTC ? (g.C - n0 + 7) / 8 : NTC;
+    const Split sc = split<NTC>(L.wn, ntc);
     float acr[GC][4], at[GC][4];
     zero_acc(acr);
     zero_acc(at);
-    uint32_t b = advance() + sc.j0 * 8 * (g.kc + 8) * 2;
-    mma_rows<GC>(acr, aH, b, (g.kc + 8) * 2, g.kc / 16, sc.cnt);
-    b = advance() + sc.j0 * 8 * (g.knh + 8) * 2;
-    mma_rows<GC>(at, aA, b, (g.knh + 8) * 2, g.knh / 16, sc.cnt);
-    float vg[GC][4], vt1[GC][4], vt2[GC][4];
-#pragma unroll
-    for (int j = 0; j < GC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(wm, lane, e);
-        const int c = n0 + frag_col(lane, sc.j0 + j, e);
-        const int64_t p = tile_pix(g, pos, r);
-        float dzr = 0.0f, rmm = 0.0f, dzt = 0.0f, tmm = 0.0f, dgy = 0.0f;
-        bf16 dtb = bzero();
-        if (p >= 0 && c < C && j < sc.cnt) {
-          const float rb = bfr(acr[j][e]), tb = bfr(at[j][e]);
-          const float mr = sBr[c], ir = sBr[C + c], sr = sBr[2 * C + c];
-          const float mt = sBt[c], it = sBt[C + c], stt = sBt[2 * C + c];
-          const float zr = bn_apply(rb, mr, ir, sr, sBr[3 * C + c]);
-          const float zt = bn_apply(tb, mt, it, stt, sBt[3 * C + c]);
-          const float y = relu(zt);
-          const float gt = sG[c];
-          const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
-          const float d_o = pre > 0.0f ? bf2f(gout[p * C + c]) : 0.0f;
-          dgy = __fmul_rn(d_o, y);
-          dzr = zr > 0.0f ? d_o : 0.0f;
-          rmm = __fsub_rn(rb, mr);
-          dr_out[p * g.kc + c] = f2bf(__fmul_rn(dzr, __fmul_rn(sr, ir)));
-          const float dy = __fmul_rn(d_o, gt);
-          dzt = zt > 0.0f ? dy : 0.0f;
-          tmm = __fsub_rn(tb, mt);
-          dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
-          dt_out[p * C + c] = dtb;
-        }
-        if (c < C && j < sc.cnt) sD[r * xp + c] = dtb;
-        vg[j][e] = dgy;
-        acr[j][e] = dzr;
-        at[j][e] = __fmul_rn(dzr, rmm);
-        vt1[j][e] = dzt;
-        vt2[j][e] = __fmul_rn(dzt, tmm);
-      }
-    const int c0 = sc.j0 * 8, jn = wn ? NTC - GC : GC;   // its columns
-    group_colsum<GC>(acr, red_w + c0, lane, jn);
-    group_colsum<GC>(at, red_w + NC + c0, lane, jn);
-    group_colsum<GC>(vt1, red_w + 2 * NC + c0, lane, jn);
-    group_colsum<GC>(vt2, red_w + 3 * NC + c0, lane, jn);
-    group_colsum<GC>(vg, red_w + 4 * NC + c0, lane, jn);
-    __syncthreads();
-    for (int c = threadIdx.x; c < NC && n0 + c < C; c += TT) {
-      prow[n0 + c] = block_col(red, 0, c);
-      prow[C + n0 + c] = block_col(red, 1, c);
-      prow[2 * C + n0 + c] = block_col(red, 2, c);
-      prow[3 * C + n0 + c] = block_col(red, 3, c);
-      prow[4 * C + 2 * g.NH + n0 + c] = block_col(red, 4, c);
+    if (RES) {
+      const uint32_t b = ring.next(g, t) + sc.j0 * 8 * (g.kc + 8) * 2;
+      mma_rows<GC>(acr, aH, b, (g.kc + 8) * 2, g.kc / 16, sc.cnt);
     }
+    if (TOP) {
+      const uint32_t b = ring.next(g, t) + sc.j0 * 8 * (g.knh + 8) * 2;
+      mma_rows<GC>(at, aA, b, (g.knh + 8) * 2, g.knh / 16, sc.cnt);
+    }
+    epi(n0, sc, acr, at);
   }
+}
 
-  // the branch backward: da = dt . kt[i]^T, dz, dS_h sums, dc
-  float *prow_h = prow + 4 * C;
+// The branch convs' epilogue of F2b and F3b: sCb = bf16(c),
+// sA = bf16(relu(BN(c))) and the same to a_out, from the BN rows sBh.
+struct ToActivations {
+  const Geo &g;
+  const Lane &L;
+  const float *sBh;
+  bf16 *sCb, *sA, *a_out;
+  __device__ __forceinline__ void operator()(int i, int r, int n,
+                                             float v) const {
+    const float cb = bfr(v);
+    const float *bn = sBh + 4 * i * g.hc + n;
+    const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
+                             bn[3 * g.hc]);
+    const bf16 ab = f2bf(relu(z));
+    sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
+    sA[r * g.nhp + i * g.hc + n] = ab;
+    const int64_t p = tile_pix(g, L.pos, r);
+    if (p >= 0) a_out[p * g.NH + i * g.hc + n] = ab;
+  }
+};
+
+// The branch backward, given sD = bf16(dt) (k padding zero) and sCb: per
+// branch da = dt . kt[i]^T, dz = (z > 0) da, dc = dz scale inv -> dc_out
+// (pitch ldc, branch i at i khc), and the tile's column sums of dz and
+// dz (c - mean) -> prow_h[2 i hc + n], prow_h[(2 i + 1) hc + n].  Stages:
+// the nb kt[i].
+__device__ __forceinline__ void branch_backward(
+    const Geo &g, const TGeo &t, Ring &ring, uint32_t aD, const bf16 *sCb,
+    const float *sBh, float *red, const Lane &L, bf16 *dc_out,
+    float *prow_h) {
+  constexpr int GB = (NTB + 1) / 2;
+  const Split sb = split<NTB>(L.wn, t.brows / 8);
+  float *red_w = red + L.wm * NRED * NC;
   for (int i = 0; i < g.nb; ++i) {
-    const uint32_t b = advance() + sb.j0 * 8 * (g.kc + 8) * 2;
+    const uint32_t b = ring.next(g, t) + sb.j0 * 8 * (g.kc + 8) * 2;
     float acc[GB][4];
     zero_acc(acc);
     mma_rows<GB>(acc, aD, b, (g.kc + 8) * 2, g.kc / 16, sb.cnt);
@@ -540,9 +574,9 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
     for (int j = 0; j < GB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(wm, lane, e);
-        const int n = frag_col(lane, sb.j0 + j, e);
-        const int64_t p = tile_pix(g, pos, r);
+        const int r = frag_row(L.wm, L.lane, e);
+        const int n = frag_col(L.lane, sb.j0 + j, e);
+        const int64_t p = tile_pix(g, L.pos, r);
         v1[j][e] = 0.0f;
         v2[j][e] = 0.0f;
         if (n >= g.hc || p < 0) continue;
@@ -556,74 +590,86 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
         dc_out[p * t.ldc + i * g.khc + n] =
             f2bf(__fmul_rn(dz, __fmul_rn(scale, inv)));
       }
-    const int jn = wn ? NTB - GB : GB;
-    group_colsum<GB>(v1, red_w + sb.j0 * 8, lane, jn);
-    group_colsum<GB>(v2, red_w + NC + sb.j0 * 8, lane, jn);
+    const int jn = L.wn ? NTB - GB : GB;
+    group_colsum<GB>(v1, red_w + sb.j0 * 8, L.lane, jn);
+    group_colsum<GB>(v2, red_w + NC + sb.j0 * 8, L.lane, jn);
     __syncthreads();
     for (int c = threadIdx.x; c < g.hc; c += TT) {
       prow_h[2 * i * g.hc + c] = block_col(red, 0, c);
       prow_h[(2 * i + 1) * g.hc + c] = block_col(red, 1, c);
     }
   }
+}
 
-  // the zero padding columns of dr (C..kc) and dc (hc..khc per branch)
-  const int pc = g.khc - g.hc;
-  for (int k = threadIdx.x; k < TP * pd; k += TT) {
-    const int64_t p = tile_pix(g, pos, k / pd);
-    if (p >= 0) dr_out[p * g.kc + C + k % pd] = bzero();
+// Zero the padding columns of the tile's rows of out (pitch ld): in each
+// of n groups of pitch gp, the columns w..gp (dr: one group of kc with C
+// written; dc: nb groups of khc with hc written).
+__device__ __forceinline__ void zero_pad_cols(bf16 *out, int ld, int n,
+                                              int gp, int w, const Geo &g,
+                                              const TilePos &pos) {
+  const int pw = gp - w, row = n * pw;
+  for (int k = threadIdx.x; k < TP * row; k += TT) {
+    const int64_t p = tile_pix(g, pos, k / row);
+    const int u = k % row;
+    if (p >= 0) out[p * ld + (u / pw) * gp + w + u % pw] = bzero();
   }
-  for (int k = threadIdx.x; k < TP * g.nb * pc; k += TT) {
-    const int r = k / (g.nb * pc), u = k % (g.nb * pc);
-    const int64_t p = tile_pix(g, pos, r);
-    if (p >= 0) dc_out[p * t.ldc + (u / pc) * g.khc + g.hc + u % pc] = bzero();
-  }
+}
+
+// Zero the K padding of sA (columns NH..knh) and sD (C..kc).
+__device__ __forceinline__ void zero_top_pads(const Geo &g, bf16 *sA,
+                                              bf16 *sD) {
+  const int pa = g.knh - g.NH, pd = g.kc - g.C;
+  for (int i = threadIdx.x; i < TP * pa; i += TT)
+    sA[(i / pa) * g.nhp + g.NH + i % pa] = bzero();
+  for (int i = threadIdx.x; i < TP * pd; i += TT)
+    sD[(i / pd) * (g.kc + 8) + g.C + i % pd] = bzero();
 }
 
 // ------------------------------------------------------------ phase 1
 
-// dx = bf16(dr . kr^T + sum over branches i and taps of dc_i(p - tap
-// offset) . kh[i, tap]^T) for up to NX output channels of one tile.
-// grid (n_tiles, nchx).  w1 holds, per chunk of NX channels, nksr stages
-// of kr [n][khc-wide k slice] and then nb x 9 stages of kh[i, tap]
-// [n][khc], each nxr x khc.
+// dx = bf16(dr . kr^T (HAS_DR) + the sum over branches i and taps of
+// dc_i(p - tap offset) . kh[i, tap]^T (+ dgap[b] inv_n, HAS_GAP, added
+// to the f32 sum before its one rounding)) for up to NX output channels
+// of one tile.  grid (n_tiles, nchx).  w1 holds, per chunk of NX
+// channels, nksr stages of kr [n][khc-wide k slice] (none without
+// HAS_DR) and then nb x 9 stages of kh[i, tap] [n][khc], each nxr x khc.
+template <bool HAS_DR, bool HAS_GAP>
 __global__ void __launch_bounds__(TT, 1)
-f3b_dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
-              const bf16 *__restrict__ dc, const bf16 *__restrict__ w1,
-              bf16 *__restrict__ dx) {
+dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
+          const bf16 *__restrict__ dc, const bf16 *__restrict__ w1,
+          const float *__restrict__ dgap, float inv_n,
+          bf16 *__restrict__ dx) {
   constexpr int GX = (NTX + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, cp = t.ldc + 8, wp = g.khc + 8;
-  bf16 *sR = reinterpret_cast<bf16 *>(smem);
-  bf16 *sC = sR + TP * xp;
+  bf16 *sR = reinterpret_cast<bf16 *>(smem);   // HAS_DR only
+  bf16 *sC = sR + (HAS_DR ? TP * xp : 0);
   bf16 *sW = sC + t.hr * cp;                // NBUF buffers of nxr x wp
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const TilePos pos = tile_pos(t, blockIdx.x);
+  const Lane L = lane_of(t);
   const int n0 = blockIdx.y * NX;
   const int nt = (g.C - n0 + 7) / 8 < NTX ? (g.C - n0 + 7) / 8 : NTX;
-  const Split sx = split<NTX>(wn, nt);
+  const Split sx = split<NTX>(L.wn, nt);
   const int64_t wst = static_cast<int64_t>(t.nxr) * g.khc;
   const bf16 *wch = w1 + static_cast<int64_t>(blockIdx.y) * t.nst1 * wst;
 
   // the tile's dr rows, zero for pixels outside the image
-  const uint32_t dR = saddr(sR);
-  for_chunks(TP, g.kc / 8, [&](int r, int c) {
-    const int64_t p = tile_pix(g, pos, r);
-    cp16(dR + (r * xp + c * 8) * 2, dr + (p < 0 ? 0 : p) * g.kc + c * 8,
-         p >= 0);
-  });
-  stage_halo(sC, dc, t.ldc, g, t, pos);
+  if (HAS_DR) {
+    const uint32_t dR = saddr(sR);
+    for_chunks(TP, g.kc / 8, [&](int r, int c) {
+      const int64_t p = tile_pix(g, L.pos, r);
+      cp16(dR + (r * xp + c * 8) * 2, dr + (p < 0 ? 0 : p) * g.kc + c * 8,
+           p >= 0);
+    });
+  }
+  stage_halo(sC, dc, t.ldc, g, t, L.pos);
   copy_stage(sW, wch, t.nxr, g.khc);
   cp_commit();
-  copy_stage(sW + t.nxr * wp, wch + wst, t.nxr, g.khc);   // nst1 >= 10
+  copy_stage(sW + t.nxr * wp, wch + wst, t.nxr, g.khc);   // nst1 >= 9
   cp_commit();
 
-  const int lr = wm * 16 + lm_row(lane), ak = (lane >> 4) * 8;
-  const uint32_t aR = saddr(sR + lr * xp + ak);
-  const uint32_t aC = saddr(sC + (((lr >> 3) + t.dmax) * t.hs + (lr & 7) +
-                                  t.dmax) * cp + ak);
-  const int bofs = ((sx.j0 * 8 + lm_brow(lane)) * wp + lm_bk(lane)) * 2;
+  const uint32_t aR = tile_row(sR, xp, L);
+  const uint32_t aC = halo_row(sC, cp, t, L);
+  const int bofs = ((sx.j0 * 8 + lm_brow(L.lane)) * wp + lm_bk(L.lane)) * 2;
 
   float acc[GX][4];
   zero_acc(acc);
@@ -633,7 +679,7 @@ f3b_dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
     next_stage(sW + ((s + 2) % NBUF) * t.nxr * wp,
                wch + (more ? (s + 2) * wst : 0), t.nxr, g.khc, more);
     const uint32_t b = saddr(sW + (s % NBUF) * t.nxr * wp) + bofs;
-    if (s < t.nksr) {
+    if (HAS_DR && s < t.nksr) {
       const int k0 = s * g.khc;
       const int kw = g.kc - k0 < g.khc ? g.kc - k0 : g.khc;
       mma_rows<GX>(acc, aR + k0 * 2, b, wp * 2, kw / 16, sx.cnt);
@@ -648,11 +694,56 @@ f3b_dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
   for (int j = 0; j < GX; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = frag_row(wm, lane, e);
-      const int c = n0 + frag_col(lane, sx.j0 + j, e);
-      const int64_t p = tile_pix(g, pos, r);
-      if (p >= 0 && c < g.C && j < sx.cnt) dx[p * g.C + c] = f2bf(acc[j][e]);
+      const int c = n0 + frag_col(L.lane, sx.j0 + j, e);
+      const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+      if (p < 0 || c >= g.C || j >= sx.cnt) continue;
+      float v = acc[j][e];
+      if (HAS_GAP)
+        v = __fadd_rn(v, __fmul_rn(dgap[L.pos.b * g.C + c], inv_n));
+      dx[p * g.C + c] = f2bf(v);
     }
+}
+
+// ------------------------------------------------------------ host side
+
+// Launch a tile kernel (TT threads, smem bytes of dynamic shared memory).
+template <typename... P, typename... A>
+cudaError_t launch(void (*kern)(P...), dim3 grid, int64_t smem,
+                   cudaStream_t st, A... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<grid, TT, static_cast<size_t>(smem), st>>>(args...);
+  return cudaGetLastError();
+}
+
+// Phase 1: dx from dr (pitch kc; HAS_DR) and dc (pitch ldc).
+template <bool HAS_DR, bool HAS_GAP>
+cudaError_t launch_dx(const Geo &g, const TGeo &t, const bf16 *dr,
+                      const bf16 *dc, const bf16 *w1, const float *dgap,
+                      float inv_n, bf16 *dx, cudaStream_t st) {
+  return launch(dx_kernel<HAS_DR, HAS_GAP>, dim3(t.n_tiles, t.nchx),
+                smem1_bytes(g, t), st, g, t, dr, dc, w1, dgap, inv_n, dx);
+}
+
+// The dkh jobs: x (padded, pitch kc) shifted by each tap of each branch
+// against that branch's dc columns (pitch ldc, branch i at i khc); out
+// laid out as kh, (nb, 3, 3, C, hc).
+inline WJobs dkh_jobs(const Geo &g, const TGeo &t, const bf16 *xpad,
+                      const bf16 *dc) {
+  WJobs J;
+  J.n = g.nb * 9;
+  for (int i = 0; i < g.nb; ++i)
+    for (int tap = 0; tap < 9; ++tap) {
+      WJob &w = J.j[i * 9 + tap];
+      w.u = xpad; w.ldu = g.kc; w.u0 = 0; w.K = g.C;
+      w.dy = (tap / 3 - 1) * g.dil[i];
+      w.dx = (tap % 3 - 1) * g.dil[i];
+      w.v = dc; w.ldv = t.ldc; w.v0 = i * g.khc; w.N = g.hc;
+      w.out_off = static_cast<int64_t>(i * 9 + tap) * g.C * g.hc;
+    }
+  return J;
 }
 
 }  // namespace tile

@@ -315,9 +315,9 @@ def _lib(name: str) -> ctypes.CDLL:
     for fn in _WORKSPACE[name]:
         getattr(lib, fn).argtypes = [_P]
         getattr(lib, fn).restype = ctypes.c_longlong
-    if name == "cam_f3":
-        lib.cam_f3b_plan.argtypes = [_P, ctypes.c_int]
-        lib.cam_f3b_plan.restype = ctypes.c_longlong
+    plan = getattr(lib, f"{name}b_plan")
+    plan.argtypes = [_P, ctypes.c_int]
+    plan.restype = ctypes.c_longlong
     return lib
 
 
@@ -366,26 +366,6 @@ def cam_f1_fwd(x, kr, kh, dils):
     return s_r, s_h, gap
 
 
-def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
-    """F1b (replaces ``pallas_cam.py:_f1b_call``): (dx, dkr, dkh)."""
-    if not _dispatch(x, "cam_f1_bwd"):
-        return cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils)
-    x, kr, kh, dsr, dsh, dgap = _check(x, kr, kh, None, dils,
-                                       (dsr, dsh, dgap))
-    geo = _geo(x, kh, dils)
-    lib = _lib("cam_f1")
-    ws = _workspace(lib, "cam_f1b_workspace", geo, x.device)
-    dx = torch.empty_like(x)
-    dkr = torch.empty(kr.shape, dtype=torch.float32, device=x.device)
-    dkh = torch.empty(kh.shape, dtype=torch.float32, device=x.device)
-    err = lib.cam_f1b_launch(
-        ctypes.addressof(geo),
-        *_ptrs(x, kr, kh, dsr, dsh, dgap, ws, dx, dkr, dkh), _stream(x))
-    _build.check(err, "cam_f1_bwd")
-    cam_f1_bwd.launches += 1
-    return dx, dkr, dkh
-
-
 def cam_f2_fwd(x, kh, kt, bnh, dils):
     """F2 (replaces ``pallas_cam.py:_f2_call``): s_t (2, C) float32."""
     if not _dispatch(x, "cam_f2_fwd"):
@@ -400,26 +380,6 @@ def cam_f2_fwd(x, kh, kt, bnh, dils):
     _build.check(err, "cam_f2_fwd")
     cam_f2_fwd.launches += 1
     return s_t
-
-
-def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
-    """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS)."""
-    if not _dispatch(x, "cam_f2_bwd"):
-        return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
-    x, kh, kt, bnh, dst = _check(x, None, kh, kt, dils, (bnh, dst))
-    geo = _geo(x, kh, dils)
-    lib = _lib("cam_f2")
-    ws = _workspace(lib, "cam_f2b_workspace", geo, x.device)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    dkh, dkt = torch.empty(kh.shape, **f32), torch.empty(kt.shape, **f32)
-    ds = torch.empty((2 * kh.shape[0], kh.shape[4]), **f32)
-    err = lib.cam_f2b_launch(
-        ctypes.addressof(geo),
-        *_ptrs(x, kh, kt, bnh, dst, ws, dx, dkh, dkt, ds), _stream(x))
-    _build.check(err, "cam_f2_bwd")
-    cam_f2_bwd.launches += 1
-    return dx, dkh, dkt, ds
 
 
 def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
@@ -440,89 +400,171 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
     return out
 
 
-# ------------------------------------------------------------ F3b's tiles
+# ------------------------------------------------------------ the tiles
 #
-# F3b's kernels (csrc/cam_tile.cuh) walk 8 x 8 pixel tiles of one image,
-# stage each tile's halo once at full channel depth, and read every
+# The backwards' kernels (csrc/cam_tile.cuh) walk 8 x 8 pixel tiles of one
+# image, stage each tile's halo once at full channel depth, and read every
 # weight in the order and layout the wrapper gives it once per call.
-# f3b_plan and _f3b_weights are that contract's Python side; the C side
-# (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0)
-# computes the same, and the wrapper checks the weight counts against it
-# on every call.
+# tile_plan and _tile_weights are that contract's Python side, per op
+# ("f1b", "f2b", "f3b"); the C side (make_tgeo, smem0_bytes, smem1_bytes,
+# w0_elems, w1_elems, stage0) computes the same, and each wrapper checks
+# the weight counts against it (cam_f{1,2,3}b_plan) on every call.
 
-F3B_TS = 8           # tile side (cam_tile.cuh:TS)
-F3B_NC = 56          # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
-F3B_NX = 168         # output channels of a dx block (cam_tile.cuh:NX)
-F3B_ROW_WARPS = 4    # warps of 16 pixel rows (times 2 column groups)
-F3B_NBUF = 3         # weight stages in shared memory (cam_tile.cuh:NBUF)
+TILE_TS = 8          # tile side (cam_tile.cuh:TS)
+TILE_NC = 56         # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
+TILE_NX = 168        # output channels of a dx block (cam_tile.cuh:NX)
+TILE_ROW_WARPS = 4   # warps of 16 pixel rows (times 2 column groups)
+TILE_NBUF = 3        # weight stages in shared memory (cam_tile.cuh:NBUF)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
+# op -> (its phase 0 runs kr^T chunks (dr), it runs kt^T chunks (dt) and
+# the branch backward), as cam_tile.cuh:make_tgeo sets res and top
+TILE_OPS = {"f1b": (True, False), "f2b": (False, True), "f3b": (True, True)}
 
 
 def _up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
-def f3b_plan(b: int, h: int, w: int, c: int, dils: Sequence[int],
-             hc: int) -> Dict[str, int]:
+def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
+              hc: int) -> Dict[str, int]:
     """Tiles, padded widths and pitches (bf16 elements), stage counts,
     shared memory (bytes) and re-laid weight sizes (bf16 elements) of
-    F3b's tile kernels at x (b, h, w, c), ``dils``, branch width hc."""
+    backward ``op``'s tile kernels at x (b, h, w, c), ``dils``, branch
+    width hc."""
+    res, top = TILE_OPS[op]
     nb = len(dils)
     nh = nb * hc
     kc, khc, knh = _up(c, 16), _up(hc, 16), _up(nh, 16)
-    tiles_x, tiles_y = -(-w // F3B_TS), -(-h // F3B_TS)
+    tiles_x, tiles_y = -(-w // TILE_TS), -(-h // TILE_TS)
     dmax = max(dils)
-    hs = F3B_TS + 2 * dmax
+    hs = TILE_TS + 2 * dmax
     p = dict(tiles_x=tiles_x, tiles_y=tiles_y, tpi=tiles_x * tiles_y,
              n_tiles=b * tiles_x * tiles_y, dmax=dmax, hs=hs, hr=hs * hs,
              kc=kc, khc=khc, knh=knh, brows=_up(hc, 8),
-             nchr=-(-c // F3B_NC), kw0=max(kc, knh), ldc=nb * khc,
-             xp=kc + 8, nhp=knh + 8, nxr=min(F3B_NX, _up(c, 8)),
-             nchx=-(-c // F3B_NX), nksr=-(-kc // khc))
+             nchr=-(-c // TILE_NC), kw0=max(kc, knh) if top else kc,
+             ldc=nb * khc, xp=kc + 8, nhp=knh + 8,
+             nxr=min(TILE_NX, _up(c, 8)), nchx=-(-c // TILE_NX),
+             nksr=-(-kc // khc) if res else 0)
     p["cp"] = p["ldc"] + 8
-    p["nst0"] = 10 * nb + 2 * p["nchr"]
+    p["nst0"] = (9 + top) * nb + (res + top) * p["nchr"]
     p["nst1"] = p["nksr"] + 9 * nb
-    tp, nwarps, nred = F3B_TS * F3B_TS, F3B_ROW_WARPS, 5
-    p["smem0"] = 2 * (p["hr"] * p["xp"] + F3B_NBUF * F3B_NC * (p["kw0"] + 8)
-                      + 2 * tp * p["nhp"] + tp * p["xp"]) \
-        + 4 * (nwarps * nred * F3B_NC + 9 * c + 4 * nh)
-    p["smem1"] = 2 * (tp * p["xp"] + p["hr"] * p["cp"]
-                      + F3B_NBUF * p["nxr"] * (khc + 8))
-    p["w0_elems"] = 10 * nb * p["brows"] * kc \
-        + p["nchr"] * F3B_NC * (kc + knh)
+    tp, nwarps, nred = TILE_TS * TILE_TS, TILE_ROW_WARPS, 5
+    rows = {"f1b": 2 * c + 2 * nh, "f2b": 2 * c + 4 * nh,
+            "f3b": 9 * c + 4 * nh}[op]
+    el = p["hr"] * p["xp"] + TILE_NBUF * TILE_NC * (p["kw0"] + 8)
+    if top:
+        el += 2 * tp * p["nhp"] + tp * p["xp"]
+        rows += nwarps * nred * TILE_NC
+    p["smem0"] = 2 * el + 4 * rows
+    p["smem1"] = 2 * (tp * p["xp"] * res + p["hr"] * p["cp"]
+                      + TILE_NBUF * p["nxr"] * (khc + 8))
+    p["w0_elems"] = (9 + top) * nb * p["brows"] * kc \
+        + p["nchr"] * TILE_NC * (kc * res + knh * top)
     p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc
     return p
 
 
-def _f3b_weights(kr, kh, kt) -> Tuple[torch.Tensor, torch.Tensor]:
-    """kr, kh, kt re-laid for F3b's tile kernels, [n][k] with zeros
-    padding n and k: w0, phase 0's stages in walking order (the branch
-    taps, nb x 9 of kh[i, tap]^T [brows][kc]; then per chunk of F3B_NC
-    output channels kr^T [NC][kc] and kt^T [NC][knh]; then per branch
-    kt[i] [brows][kc], as ``cam_tile.cuh:stage0`` walks them); w1, per
-    chunk of F3B_NX output channels (nxr rows), nksr stages of kr's k
-    slices [nxr][khc] and then nb x 9 stages of kh[i, tap] [nxr][khc]."""
+def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kr, kh, kt (those ``op`` reads; None for the others) re-laid for
+    its tile kernels, [n][k] with zeros padding n and k: w0, phase 0's
+    stages in walking order (the branch taps, nb x 9 of kh[i, tap]^T
+    [brows][kc]; then per chunk of TILE_NC output channels kr^T [NC][kc]
+    (f1b, f3b) and kt^T [NC][knh] (f2b, f3b); then per branch kt[i]
+    [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks them); w1,
+    per chunk of TILE_NX output channels (nxr rows), nksr stages of kr's
+    k slices [nxr][khc] (f1b, f3b) and then nb x 9 stages of kh[i, tap]
+    [nxr][khc]."""
+    res, top = TILE_OPS[op]
     nb, _, _, c, hc = kh.shape
-    p = f3b_plan(1, 1, 1, c, [1] * nb, hc)
+    p = tile_plan(op, 1, 1, 1, c, [1] * nb, hc)
     kc, khc, knh, br = p["kc"], p["khc"], p["knh"], p["brows"]
     nchr, nh = p["nchr"], nb * hc
     taps = kh.reshape(nb * 9, c, hc)
-    wh = F.pad(taps.transpose(1, 2), (0, kc - c, 0, br - hc))
-    cpad = nchr * F3B_NC
-    krn = F.pad(kr.t(), (0, kc - c, 0, cpad - c)).reshape(nchr, -1)
-    ktn = F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c))
-    ktt = F.pad(kt, (0, kc - c, 0, br - hc))
-    w0 = torch.cat([wh.reshape(-1),
-                    torch.cat([krn, ktn.reshape(nchr, -1)], 1).reshape(-1),
-                    ktt.reshape(-1)])
+    cpad = nchr * TILE_NC
+    w0 = [F.pad(taps.transpose(1, 2), (0, kc - c, 0, br - hc)).reshape(-1)]
+    chunk = []
+    if res:
+        chunk.append(F.pad(kr.t(), (0, kc - c, 0, cpad - c)))
+    if top:
+        chunk.append(F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c)))
+    w0.append(torch.cat([t.reshape(nchr, -1) for t in chunk], 1).reshape(-1))
+    if top:
+        w0.append(F.pad(kt, (0, kc - c, 0, br - hc)).reshape(-1))
     nxr, nchx, nksr = p["nxr"], p["nchx"], p["nksr"]
     npad = nchx * nxr
-    krt = F.pad(kr, (0, nksr * khc - c, 0, npad - c))
-    krt = krt.reshape(nchx, nxr, nksr, khc).transpose(1, 2)
     kht = F.pad(taps, (0, khc - hc, 0, npad - c))
-    kht = kht.reshape(nb * 9, nchx, nxr, khc).transpose(0, 1)
-    w1 = torch.cat([krt, kht], 1).reshape(-1)
-    return w0.contiguous(), w1.contiguous()
+    w1 = kht.reshape(nb * 9, nchx, nxr, khc).transpose(0, 1)
+    if res:
+        krt = F.pad(kr, (0, nksr * khc - c, 0, npad - c))
+        krt = krt.reshape(nchx, nxr, nksr, khc).transpose(1, 2)
+        w1 = torch.cat([krt, w1], 1)
+    return torch.cat(w0).contiguous(), w1.reshape(-1).contiguous()
+
+
+def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
+    """The plan, the library, the geometry, the workspace, the re-laid
+    weights and the channel-padded x of a tile-kernel call of ``op``;
+    ``ValueError`` when its halo and weight stages do not fit a block's
+    shared memory."""
+    b, h, w, c = x.shape
+    plan = tile_plan(op, b, h, w, c, dils, kh.shape[4])
+    if max(plan["smem0"], plan["smem1"]) > SMEM_MAX:
+        raise ValueError(f"{name}: the tile kernels need {plan['smem0']} / "
+                         f"{plan['smem1']} bytes of shared memory at C={c}, "
+                         f"dils {tuple(dils)}, over {SMEM_MAX}")
+    geo = _geo(x, kh, dils)
+    lib = _lib(f"cam_{op[:2]}")
+    ws = _workspace(lib, f"cam_{op}_workspace", geo, x.device)
+    w0, w1 = _tile_weights(op, kr, kh, kt)
+    plan_fn = getattr(lib, f"cam_{op}_plan")
+    for what, t in ((2, w0), (3, w1)):
+        if plan_fn(ctypes.addressof(geo), what) != t.numel():
+            raise RuntimeError(f"{name}: the re-laid weights and the "
+                               "kernels' layout disagree")
+    xpad = F.pad(x, (0, plan["kc"] - c))
+    return lib, geo, ws, w0, w1, xpad
+
+
+def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
+    """F1b (replaces ``pallas_cam.py:_f1b_call``): (dx, dkr, dkh).  On
+    the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
+    for a geometry whose halo does not fit (:func:`tile_plan`)."""
+    if not _dispatch(x, "cam_f1_bwd"):
+        return cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils)
+    x, kr, kh, dsr, dsh, dgap = _check(x, kr, kh, None, dils,
+                                       (dsr, dsh, dgap))
+    lib, geo, ws, w0, w1, xpad = _tile_call("f1b", "cam_f1_bwd", x, kr, kh,
+                                            None, dils)
+    dx = torch.empty_like(x)
+    dkr = torch.empty(kr.shape, dtype=torch.float32, device=x.device)
+    dkh = torch.empty(kh.shape, dtype=torch.float32, device=x.device)
+    err = lib.cam_f1b_launch(
+        ctypes.addressof(geo),
+        *_ptrs(xpad, w0, w1, dsr, dsh, dgap, ws, dx, dkr, dkh), _stream(x))
+    _build.check(err, "cam_f1_bwd")
+    cam_f1_bwd.launches += 1
+    return dx, dkr, dkh
+
+
+def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
+    """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
+    the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
+    for a geometry whose halo does not fit (:func:`tile_plan`)."""
+    if not _dispatch(x, "cam_f2_bwd"):
+        return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
+    x, kh, kt, bnh, dst = _check(x, None, kh, kt, dils, (bnh, dst))
+    lib, geo, ws, w0, w1, xpad = _tile_call("f2b", "cam_f2_bwd", x, None, kh,
+                                            kt, dils)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dkh, dkt = torch.empty(kh.shape, **f32), torch.empty(kt.shape, **f32)
+    ds = torch.empty((2 * kh.shape[0], kh.shape[4]), **f32)
+    err = lib.cam_f2b_launch(
+        ctypes.addressof(geo),
+        *_ptrs(xpad, w0, w1, bnh, dst, ws, dx, dkh, dkt, ds), _stream(x))
+    _build.check(err, "cam_f2_bwd")
+    cam_f2_bwd.launches += 1
+    return dx, dkh, dkt, ds
 
 
 def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
@@ -530,7 +572,7 @@ def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
     dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
     the tile kernels of ``csrc/cam_tile.cuh``; they take the geometries
     whose halo and weight stages fit a block's shared memory
-    (:func:`f3b_plan`; the train step's C = 163 with dilations 1-3 and
+    (:func:`tile_plan`; the train step's C = 163 with dilations 1-3 and
     C = 83 with 1-4 do) and raise ``ValueError`` on the others."""
     if not _dispatch(x, "cam_f3_bwd"):
         return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
@@ -538,22 +580,9 @@ def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
         x, kr, kh, kt, dils, (bnr, bnh, bnt, gate), bf16_args=(g,))
     if g.shape != x.shape:
         raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
-    b, h, w, c = x.shape
-    plan = f3b_plan(b, h, w, c, dils, kh.shape[4])
-    if max(plan["smem0"], plan["smem1"]) > SMEM_MAX:
-        raise ValueError(f"cam_f3_bwd: the tile kernels need "
-                         f"{plan['smem0']} / {plan['smem1']} bytes of shared "
-                         f"memory at C={c}, dils {tuple(dils)}, over "
-                         f"{SMEM_MAX}")
-    geo = _geo(x, kh, dils)
-    lib = _lib("cam_f3")
-    ws = _workspace(lib, "cam_f3b_workspace", geo, x.device)
-    w0, w1 = _f3b_weights(kr, kh, kt)
-    for what, t in ((2, w0), (3, w1)):
-        if lib.cam_f3b_plan(ctypes.addressof(geo), what) != t.numel():
-            raise RuntimeError("cam_f3_bwd: the re-laid weights and the "
-                               "kernels' layout disagree")
-    xpad = F.pad(x, (0, plan["kc"] - c))
+    lib, geo, ws, w0, w1, xpad = _tile_call("f3b", "cam_f3_bwd", x, kr, kh,
+                                            kt, dils)
+    c = x.shape[3]
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dkr, dkh, dkt = (torch.empty(kr.shape, **f32),

@@ -1,17 +1,23 @@
-"""The Python side of F3b's tile kernels (``csrc/cam_tile.cuh``), on the
-CPU: the plan (tiles, padded widths, pitches, shared memory), the tile
-order, and the weights re-laid once per call.
+"""The Python side of the fused-CAM backwards' tile kernels
+(``csrc/cam_tile.cuh``: F1b, F2b and F3b), on the CPU: the plan (tiles,
+padded widths, pitches, shared memory), the tile order, and the weights
+re-laid once per call.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``
-holds them against the plain version there).  Here the layout contract
-they rely on is checked: every staged row is 16-byte aligned, both
-kernels fit a block's shared memory at the train step's CAM shapes and
-the card tests' shapes, the tiles cover each pixel once with each
-image's tiles contiguous, the re-laid weights give back kr, kh and kt
-with zero padding, and a walk over the tiles that multiplies exactly
-what the kernels stage (each tap's rows gathered from one halo, each
-stage's weights sliced out of the re-laid buffers at the stage's offset)
-gives the plain version's products bitwise on exact-sum inputs.
+holds them against the plain versions there).  Here the layout contract
+they rely on is checked for each op: every staged row is 16-byte
+aligned, both kernels fit a block's shared memory at the train step's
+CAM shapes and the card tests' shapes, the tiles cover each pixel once
+with each image's tiles contiguous, the re-laid weights give back kr, kh
+and kt with zero padding, and a walk over the tiles that multiplies
+exactly what the kernels stage (each tap's rows gathered from one halo,
+each stage's weights sliced out of the re-laid buffers at the stage's
+offset) gives the plain version's products bitwise on exact-sum inputs;
+for F1b and F2b the walk through both phases, with the kernels' epilogues,
+gives the plain version's dx bitwise.
+
+The parametrised tests keep F3b's cases under their first ids (shape0,
+...) and add F1b's and F2b's as f1b-shape0, ..., f2b-shape0, ....
 """
 
 import numpy as np
@@ -31,8 +37,19 @@ SHAPES = [STEPS_CAM, PYRAMID_CAM,
           (2, 17, 23, 163, (1, 2, 3), 40), (2, 9, 13, 83, (1, 2, 3, 4), 20),
           (1, 5, 30, 163, (1, 2, 3), 40), (1, 30, 5, 83, (1, 2, 3, 4), 20),
           (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8)]
-NC = cam.F3B_NC
-TS = cam.F3B_TS
+WALK_SHAPES = [(2, 9, 13, 12, (1, 2, 3, 4), 3), (1, 5, 30, 70, (1, 2, 3), 20),
+               (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8)]
+OPS = ("f3b", "f1b", "f2b")
+NC = cam.TILE_NC
+TS = cam.TILE_TS
+
+
+def by_op(shapes, ops=OPS):
+    """(op, shape) cases, F3b's with the ids its cases had before the
+    other ops shared these tests."""
+    return [pytest.param(op, s, id=f"shape{k}" if op == "f3b"
+                         else f"{op}-shape{k}")
+            for op in ops for k, s in enumerate(shapes)]
 
 
 def f3b_tiles(b, h, w):
@@ -43,29 +60,39 @@ def f3b_tiles(b, h, w):
             for t in range(b * tpi)]
 
 
-def stage0(p, nb, s):
-    """(offset in w0, rows, k width) of phase-0 weight stage s, as
-    ``cam_tile.cuh:stage0`` computes it: the branch taps (nb x 9 of
-    [brows][kc]), then per chunk of NC output channels [NC][kc] and
-    [NC][knh], then per branch [brows][kc]."""
-    wb, pair = p["brows"] * p["kc"], NC * (p["kc"] + p["knh"])
+def stage0(p, nb, s, op="f3b"):
+    """(offset in w0, rows, k width) of phase-0 weight stage s of ``op``,
+    as ``cam_tile.cuh:stage0`` computes it: the branch taps (nb x 9 of
+    [brows][kc]), then per chunk of NC output channels [NC][kc] (f1b,
+    f3b) and [NC][knh] (f2b, f3b), then per branch [brows][kc] (f2b,
+    f3b)."""
+    res, top = cam.TILE_OPS[op]
+    per = res + top
+    wb = p["brows"] * p["kc"]
+    pair = NC * (p["kc"] * res + p["knh"] * top)
     if s < 9 * nb:
         return s * wb, p["brows"], p["kc"]
     s -= 9 * nb
-    if s < 2 * p["nchr"]:
-        return (9 * nb * wb + s // 2 * pair + (s % 2) * NC * p["kc"], NC,
-                p["knh"] if s % 2 else p["kc"])
-    return (9 * nb * wb + p["nchr"] * pair + (s - 2 * p["nchr"]) * wb,
+    if s < per * p["nchr"]:
+        q, u = divmod(s, 2) if per == 2 else (s, int(top))
+        return (9 * nb * wb + q * pair + u * res * NC * p["kc"], NC,
+                p["knh"] if u else p["kc"])
+    return (9 * nb * wb + p["nchr"] * pair + (s - per * p["nchr"]) * wb,
             p["brows"], p["kc"])
 
 
 # the kernels' shared memory at the train step's shapes, bytes
-SMEM = {STEPS_CAM: (204588, 139584), PYRAMID_CAM: (132780, 104064)}
+SMEM = {("f3b", STEPS_CAM): (204588, 139584),
+        ("f3b", PYRAMID_CAM): (132780, 104064),
+        ("f1b", STEPS_CAM): (136216, 139584),
+        ("f1b", PYRAMID_CAM): (89496, 104064),
+        ("f2b", STEPS_CAM): (200024, 116032),
+        ("f2b", PYRAMID_CAM): (130456, 90752)}
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_f3b_plan_rows_are_16_byte_aligned(shape):
-    p = cam.f3b_plan(*shape)
+@pytest.mark.parametrize("op,shape", by_op(SHAPES))
+def test_f3b_plan_rows_are_16_byte_aligned(op, shape):
+    p = cam.tile_plan(op, *shape)
     nb, hc = len(shape[4]), shape[5]
     # shared pitches: the x and dr rows, sA/sCb, the dc halo, the weights
     pitches = [p["xp"], p["nhp"], p["cp"], p["khc"] + 8, p["kw0"] + 8]
@@ -80,22 +107,32 @@ def test_f3b_plan_rows_are_16_byte_aligned(shape):
     assert p["kc"] >= shape[3] and p["khc"] >= hc and p["brows"] >= hc
     assert p["knh"] >= nb * hc and p["nxr"] % 8 == 0
     for s in range(p["nst0"]):
-        off, rows_, kw = stage0(p, nb, s)
+        off, rows_, kw = stage0(p, nb, s, op)
         assert (2 * off) % 16 == 0 and kw % 16 == 0 and rows_ % 8 == 0
+        assert kw <= p["kw0"] and rows_ <= NC
+    assert off + rows_ * kw == p["w0_elems"]      # the last stage ends w0
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_f3b_shared_memory_fits(shape):
-    p = cam.f3b_plan(*shape)
+@pytest.mark.parametrize("op,shape", by_op(SHAPES))
+def test_f3b_shared_memory_fits(op, shape):
+    p = cam.tile_plan(op, *shape)
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX == 232448
-    if shape in SMEM:
-        assert (p["smem0"], p["smem1"]) == SMEM[shape]
+    if (op, shape) in SMEM:
+        assert (p["smem0"], p["smem1"]) == SMEM[op, shape]
 
 
 def test_f3b_refuses_what_does_not_fit():
     """Six dilations up to 6 at C = 163: the halo alone is 147 KB."""
-    p = cam.f3b_plan(1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40)
+    p = cam.tile_plan("f3b", 1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40)
     assert p["smem0"] > cam.SMEM_MAX
+
+
+@pytest.mark.parametrize("op", ["f1b", "f2b"])
+def test_tile_refuses_what_does_not_fit(op):
+    """The same geometry for F1b (its dx kernel's dr rows and dc halo,
+    231 KB, do not fit) and F2b (its phase 0 does not)."""
+    p = cam.tile_plan(op, 1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40)
+    assert max(p["smem0"], p["smem1"]) > cam.SMEM_MAX
 
 
 @pytest.mark.parametrize("bhw", [(16, 113, 113), (16, 57, 57),
@@ -104,7 +141,7 @@ def test_f3b_refuses_what_does_not_fit():
 def test_f3b_tiles_cover_each_pixel_once(bhw):
     b, h, w = bhw
     tiles = f3b_tiles(b, h, w)
-    p = cam.f3b_plan(b, h, w, 8, (1,), 8)
+    p = cam.tile_plan("f3b", b, h, w, 8, (1,), 8)
     assert len(tiles) == p["n_tiles"] == b * p["tpi"]
     seen = np.zeros((b, h, w), np.int64)
     for t, (img, y0, x0) in enumerate(tiles):
@@ -128,18 +165,25 @@ def _weights(shape, seed, exact=True):
     return draw(c, c), draw(nb, 3, 3, c, hc), draw(nb, hc, c)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_f3b_weights_unpad_to_the_inputs(shape):
+def _op_weights(op, kr, kh, kt):
+    """The weights ``op`` takes (the wrappers pass None for the others)."""
+    res, top = cam.TILE_OPS[op]
+    return kr if res else None, kh, kt if top else None
+
+
+@pytest.mark.parametrize("op,shape", by_op(SHAPES))
+def test_f3b_weights_unpad_to_the_inputs(op, shape):
     _, _, _, c, dils, hc = shape
     nb, nh = len(dils), len(dils) * hc
+    res, top = cam.TILE_OPS[op]
     kr, kh, kt = _weights(shape, 3, exact=False)
-    w0, w1 = cam._f3b_weights(kr, kh, kt)
-    p = cam.f3b_plan(*shape)
+    w0, w1 = cam._tile_weights(op, *_op_weights(op, kr, kh, kt))
+    p = cam.tile_plan(op, *shape)
     assert w0.dtype == w1.dtype == torch.bfloat16
     assert w0.numel() == p["w0_elems"] and w1.numel() == p["w1_elems"]
 
     def stage(s):
-        off, rows, kw = stage0(p, nb, s)
+        off, rows, kw = stage0(p, nb, s, op)
         return w0[off:off + rows * kw].reshape(rows, kw), rows, kw
 
     def check(block, want):
@@ -147,23 +191,30 @@ def test_f3b_weights_unpad_to_the_inputs(shape):
         assert torch.equal(block[:n, :k], want)
         assert not block[n:].any() and not block[:, k:].any()
 
+    per = res + top
     for i in range(nb):
         for tap in range(9):
             block, _, _ = stage(9 * i + tap)
             check(block, kh[i, tap // 3, tap % 3].t())
-        block, _, _ = stage(10 * nb - nb + 2 * p["nchr"] + i)
-        check(block, kt[i])
+        if top:
+            block, _, _ = stage(9 * nb + per * p["nchr"] + i)
+            check(block, kt[i])
     ktf = kt.reshape(nh, c)
     for ch in range(p["nchr"]):
         n0, n1 = ch * NC, min(c, (ch + 1) * NC)
-        check(stage(9 * nb + 2 * ch)[0], kr[:, n0:n1].t())
-        check(stage(9 * nb + 2 * ch + 1)[0], ktf[:, n0:n1].t())
+        s = 9 * nb + per * ch
+        if res:
+            check(stage(s)[0], kr[:, n0:n1].t())
+        if top:
+            check(stage(s + res)[0], ktf[:, n0:n1].t())
     nxr, khc = p["nxr"], p["khc"]
     st = w1.reshape(p["nchx"], p["nst1"], nxr, khc)
+    assert p["nksr"] == (-(-p["kc"] // khc) if res else 0)
     for ch in range(p["nchx"]):
         n0, n1 = ch * nxr, min(c, (ch + 1) * nxr)
-        krs = torch.cat(list(st[ch, :p["nksr"]]), 1)
-        check(krs, kr[n0:n1])
+        if res:
+            krs = torch.cat(list(st[ch, :p["nksr"]]), 1)
+            check(krs, kr[n0:n1])
         for i in range(nb):
             for tap in range(9):
                 check(st[ch, p["nksr"] + 9 * i + tap],
@@ -177,95 +228,226 @@ def _halo(img, y0, x0, dm, hs):
     return pad[y0:y0 + hs, x0:x0 + hs]
 
 
-def _tile_walk(shape, x, dr, dcp, w0, w1):
-    """The products F3b's tile kernels take, walked tile by tile as they
-    stage them: per tile one halo of x (padded to kc) and of dc (each
-    branch padded to khc), each tap's 8 x 8 rows gathered from it, each
-    stage's weights sliced from w0 / w1.  float32; returns the branch
-    convs c (B, H, W, nb, hc), x kr and dx (B, H, W, C)."""
+def _tile_rows(t, y0, x0):
+    """The tile's 64 pixel rows of t (H, W, width), zero outside it."""
+    hy, hx = t.shape[0] - y0, t.shape[1] - x0
+    return F.pad(t[y0:y0 + 8, x0:x0 + 8],
+                 (0, 0, 0, max(0, 8 - hx), 0, max(0, 8 - hy))).reshape(64, -1)
+
+
+def _put(out, img, y0, x0, rows):
+    """Write a tile's 64 rows of a product back into out (B, H, W, n)."""
+    hy, hx = min(8, out.shape[1] - y0), min(8, out.shape[2] - x0)
+    n = out.shape[3]
+    out[img, y0:y0 + hy, x0:x0 + hx] = rows.reshape(8, 8, -1)[:hy, :hx, :n]
+
+
+def _phase0_walk(op, shape, x, w0, a=None, acts=None):
+    """The products ``op``'s phase-0 kernel takes before its branch
+    backward, tile by tile as it stages them: one halo of x (padded to
+    kc) per tile, each tap's 8 x 8 rows gathered from it, each stage's
+    weights sliced from w0 at its offset.  float32: the branch convs "c"
+    (B, H, W, nb, hc); x kr "res" (f1b, f3b); a kt "top" (f2b, f3b; a
+    (B, H, W, NH) given, or acts(c))."""
     b, h, w, c, dils, hc = shape
     nb = len(dils)
-    p = cam.f3b_plan(*shape)
-    kc, khc, dm, hs = p["kc"], p["khc"], p["dmax"], p["hs"]
+    res, top = cam.TILE_OPS[op]
+    p = cam.tile_plan(op, *shape)
+    kc, dm, hs, per = p["kc"], p["dmax"], p["hs"], res + top
     xpad = F.pad(x, (0, kc - c))
+
+    def weight(s):
+        off, n, kw = stage0(p, nb, s, op)
+        return w0[off:off + n * kw].float().reshape(n, kw)
+
     conv = torch.zeros(b, h, w, nb, hc)
-    res = torch.zeros(b, h, w, c)
-    dx = torch.zeros(b, h, w, c)
-    w1s = w1.float().reshape(p["nchx"], p["nst1"], p["nxr"], khc)
-    for img, y0, x0 in f3b_tiles(b, h, w):
-        hy, hx = min(8, h - y0), min(8, w - x0)
+    out = {"c": conv}
+    tiles = f3b_tiles(b, h, w)
+    for img, y0, x0 in tiles:
         hx_ = _halo(xpad[img], y0, x0, dm, hs)
-        hc_ = _halo(dcp[img], y0, x0, dm, hs)
-
-        def rows(halo, dy, dxx):
-            return halo[dm + dy:dm + dy + 8,
-                        dm + dxx:dm + dxx + 8].reshape(64, -1)
-
         for i, d in enumerate(dils):
             acc = torch.zeros(64, p["brows"])
             for tap in range(9):
-                off, n, kw = stage0(p, nb, 9 * i + tap)
-                wt = w0[off:off + n * kw].float().reshape(n, kw)
-                a = rows(hx_, (tap // 3 - 1) * d, (tap % 3 - 1) * d)
-                acc = acc + a @ wt.t()
-            conv[img, y0:y0 + hy, x0:x0 + hx, i] = \
-                acc.reshape(8, 8, -1)[:hy, :hx, :hc]
-        for ch in range(p["nchr"]):
-            off, n, kw = stage0(p, nb, 9 * nb + 2 * ch)
+                dy, dx = (tap // 3 - 1) * d, (tap % 3 - 1) * d
+                rows = hx_[dm + dy:dm + dy + 8, dm + dx:dm + dx + 8]
+                acc = acc + rows.reshape(64, -1) @ weight(9 * i + tap).t()
+            _put(conv[..., i, :], img, y0, x0, acc[:, :hc])
+    if top and a is None:
+        a = acts(conv)
+    for name, on, src, k in (("res", res, xpad, 0),
+                             ("top", top, a, 1)):
+        if not on:
+            continue
+        srcp = F.pad(src, (0, (kc if k == 0 else p["knh"]) - src.shape[3]))
+        prod = torch.zeros(b, h, w, c)
+        for img, y0, x0 in tiles:
+            rows = _tile_rows(srcp[img], y0, x0)
+            for ch in range(p["nchr"]):
+                s = 9 * nb + per * ch + (k if res else 0)
+                n0 = ch * NC
+                part = rows @ weight(s).t()
+                n1 = min(c, n0 + NC)
+                _put(prod[..., n0:n1], img, y0, x0, part[:, :n1 - n0])
+        out[name] = prod
+    return out, p
+
+
+def _branch_backward_walk(op, shape, p, dt, w0):
+    """da (B, H, W, nb, hc): dt (padded to kc) . kt[i] from the branch
+    backward's stages, tile by tile."""
+    b, h, w, c, dils, hc = shape
+    nb = len(dils)
+    dtp = F.pad(dt, (0, p["kc"] - c))
+    da = torch.zeros(b, h, w, nb, hc)
+    for img, y0, x0 in f3b_tiles(b, h, w):
+        rows = _tile_rows(dtp[img], y0, x0)
+        for i in range(nb):
+            off, n, kw = stage0(p, nb, p["nst0"] - nb + i, op)
             wt = w0[off:off + n * kw].float().reshape(n, kw)
-            n0 = ch * NC
-            n1 = min(c, n0 + NC)
-            out = (rows(hx_, 0, 0) @ wt.t()).reshape(8, 8, -1)
-            res[img, y0:y0 + hy, x0:x0 + hx, n0:n1] = \
-                out[:hy, :hx, :n1 - n0]
+            _put(da[..., i, :], img, y0, x0, (rows @ wt.t())[:, :hc])
+    return da
+
+
+def _dx_walk(op, shape, dr, dcp, w1):
+    """The dx kernel's sum, tile by tile: the tile's dr rows (f1b, f3b;
+    padded to kc) against the nksr kr slices, then one halo of dc (each
+    branch padded to khc) per tile, each transposed tap's rows gathered
+    from it against kh[i, tap].  float32 (B, H, W, C), before rounding."""
+    b, h, w, c, dils, hc = shape
+    res, _ = cam.TILE_OPS[op]
+    p = cam.tile_plan(op, *shape)
+    kc, khc, dm, hs = p["kc"], p["khc"], p["dmax"], p["hs"]
+    dx = torch.zeros(b, h, w, c)
+    w1s = w1.float().reshape(p["nchx"], p["nst1"], p["nxr"], khc)
+    for img, y0, x0 in f3b_tiles(b, h, w):
+        hc_ = _halo(dcp[img], y0, x0, dm, hs)
         for ch in range(p["nchx"]):
             acc = torch.zeros(64, p["nxr"])
-            r = F.pad(dr[img, y0:y0 + 8, x0:x0 + 8],
-                      (0, 0, 0, 8 - hx, 0, 8 - hy)).reshape(64, kc)
-            for s in range(p["nksr"]):
-                k0 = s * khc
-                kw = min(khc, kc - k0)
-                acc = acc + r[:, k0:k0 + kw] @ w1s[ch, s, :, :kw].t()
+            if res:
+                r = _tile_rows(F.pad(dr[img], (0, kc - c)), y0, x0)
+                for s in range(p["nksr"]):
+                    k0 = s * khc
+                    kw = min(khc, kc - k0)
+                    acc = acc + r[:, k0:k0 + kw] @ w1s[ch, s, :, :kw].t()
             for i, d in enumerate(dils):
                 for tap in range(9):
-                    a = rows(hc_, -(tap // 3 - 1) * d, -(tap % 3 - 1) * d)
+                    dy, dxx = -(tap // 3 - 1) * d, -(tap % 3 - 1) * d
+                    a = hc_[dm + dy:dm + dy + 8,
+                            dm + dxx:dm + dxx + 8].reshape(64, -1)
                     acc = acc + a[:, i * khc:(i + 1) * khc] \
                         @ w1s[ch, p["nksr"] + 9 * i + tap].t()
             n0 = ch * p["nxr"]
             n1 = min(c, n0 + p["nxr"])
-            dx[img, y0:y0 + hy, x0:x0 + hx, n0:n1] = \
-                acc.reshape(8, 8, -1)[:hy, :hx, :n1 - n0]
-    return conv, res, dx
+            _put(dx[..., n0:n1], img, y0, x0, acc[:, :n1 - n0])
+    return dx
 
 
-@pytest.mark.parametrize("shape", [(2, 9, 13, 12, (1, 2, 3, 4), 3),
-                                   (1, 5, 30, 70, (1, 2, 3), 20),
-                                   (1, 11, 19, 12, (1, 9), 3),
-                                   (1, 9, 10, 170, (1, 2), 8)])
-def test_f3b_tile_walk_matches_plain_on_exact_sums(shape):
+def _pad_dc(dc, p):
+    """dc (B, H, W, nb, hc) -> (B, H, W, nb khc), each branch padded."""
+    b, h, w = dc.shape[:3]
+    return F.pad(dc, (0, p["khc"] - dc.shape[4])).reshape(b, h, w, p["ldc"])
+
+
+def _ints(rng, lo, hi, *shape):
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES))
+def test_f3b_tile_walk_matches_plain_on_exact_sums(op, shape):
     """Exact-sum inputs: the walk's float32 products equal the plain
     convolutions bitwise, so the halo gathers, the tap shifts (forward
     and transposed), the stage order and the padding are the plain
-    version's."""
+    version's: the branch convs (dc of F1b, a of F2b and F3b), x kr (dr
+    of F1b and F3b), a kt (dt of F2b and F3b), dt kt[i]^T (dc of F2b and
+    F3b) and dx."""
     b, h, w, c, dils, hc = shape
     nb = len(dils)
+    res, top = cam.TILE_OPS[op]
     kr, kh, kt = _weights(shape, 5)
     rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.integers(-1, 2, (b, h, w, c)).astype(
-        np.float32))
-    dr = torch.from_numpy(rng.integers(-2, 3, (b, h, w, c)).astype(
-        np.float32))
-    dc = torch.from_numpy(rng.integers(-2, 3, (b, h, w, nb, hc)).astype(
-        np.float32))
-    p = cam.f3b_plan(*shape)
-    drp = F.pad(dr, (0, p["kc"] - c))
-    dcp = F.pad(dc, (0, p["khc"] - hc)).reshape(b, h, w, p["ldc"])
-    w0, w1 = cam._f3b_weights(kr, kh, kt)
-    conv, res, dx = _tile_walk(shape, x, drp, dcp, w0, w1)
+    x = _ints(rng, -1, 2, b, h, w, c)
+    a = _ints(rng, -2, 3, b, h, w, nb * hc)
+    dt = _ints(rng, -2, 3, b, h, w, c)
+    dr = _ints(rng, -2, 3, b, h, w, c)
+    dc = _ints(rng, -2, 3, b, h, w, nb, hc)
+    w0, w1 = cam._tile_weights(op, *_op_weights(op, kr, kh, kt))
+    out, p = _phase0_walk(op, shape, x, w0, a=a)
     for i, d in enumerate(dils):
-        assert torch.equal(conv[..., i, :], cam._conv(x, kh[i], d)), i
-    assert torch.equal(res, x @ kr.float())
-    want = dr @ kr.float().t()
+        assert torch.equal(out["c"][..., i, :], cam._conv(x, kh[i], d)), i
+    if res:
+        assert torch.equal(out["res"], x @ kr.float())
+    if top:
+        assert torch.equal(out["top"], a @ kt.float().reshape(nb * hc, c))
+        da = _branch_backward_walk(op, shape, p, dt, w0)
+        for i in range(nb):
+            assert torch.equal(da[..., i, :], dt @ kt[i].float().t()), i
+    got = _dx_walk(op, shape, dr, _pad_dc(dc, p), w1)
+    want = dr @ kr.float().t() if res else torch.zeros(b, h, w, c)
     for i, d in enumerate(dils):
         want = want + cam._conv_t(dc[..., i, :].contiguous(), kh[i], d)
-    assert torch.equal(dx, want)
+    assert torch.equal(got, want)
+
+
+def _dyadic(rng, *shape):
+    return torch.from_numpy((rng.integers(-4, 5, shape) / 8.0).astype(
+        np.float32))
+
+
+def _bn_rows_exact(rng, nb, hc):
+    """BN rows [mean, inv, scale, bias] per branch, each exact in bf16 and
+    every product with them exact in float32."""
+    rows = []
+    for _ in range(nb):
+        rows += [torch.from_numpy(rng.integers(-2, 3, hc).astype(np.float32)),
+                 torch.full((hc,), 0.25),
+                 torch.from_numpy(0.5 * rng.integers(1, 3, hc).astype(
+                     np.float32)),
+                 _dyadic(rng, hc)]
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES, ("f1b", "f2b")))
+def test_tile_dx_walk_matches_the_plain_backwards(op, shape):
+    """Both phases of F1b (dx kernel with HAS_DR and HAS_GAP) and F2b
+    (without HAS_DR) walked on exact-sum inputs, each phase-0 epilogue as
+    the kernel writes it (bf16 roundings, the _rn order): the dx rounded
+    once to bf16 equals ``cam_f1_bwd_plain``'s / ``cam_f2_bwd_plain``'s
+    bitwise."""
+    b, h, w, c, dils, hc = shape
+    nb = len(dils)
+    kr, kh, kt = _weights(shape, 8)
+    rng = np.random.default_rng(9)
+    xb = _ints(rng, -1, 2, b, h, w, c).to(torch.bfloat16)
+    x = xb.float()
+    w0, w1 = cam._tile_weights(op, *_op_weights(op, kr, kh, kt))
+    bf = cam._bf
+    if op == "f1b":
+        dsr, dsh, dgap = (_dyadic(rng, 2, c), _dyadic(rng, 2 * nb, hc),
+                          _dyadic(rng, b, c))
+        out, p = _phase0_walk(op, shape, x, w0)
+        cb = bf(out["c"])
+        dc = bf(dsh[0::2] + 2.0 * cb * dsh[1::2])
+        dr = bf(dsr[0] + 2.0 * bf(out["res"]) * dsr[1])
+        acc = _dx_walk(op, shape, dr, _pad_dc(dc, p), w1)
+        got = (acc + dgap[:, None, None, :] * (1.0 / (h * w))).to(
+            torch.bfloat16)
+        want = cam.cam_f1_bwd_plain(xb, kr, kh, dsr, dsh, dgap, dils)[0]
+    else:
+        bnh, dst = _bn_rows_exact(rng, nb, hc), _dyadic(rng, 2, c)
+        mean, inv, scale, bias = (bnh[k::4] for k in range(4))
+
+        def acts(conv):
+            z = (bf(conv) - mean) * inv * scale + bias
+            return bf(torch.relu(z)).reshape(b, h, w, nb * hc)
+
+        out, p = _phase0_walk(op, shape, x, w0, acts=acts)
+        z = (bf(out["c"]) - mean) * inv * scale + bias
+        dt = bf(dst[0] + 2.0 * bf(out["top"]) * dst[1])
+        da = _branch_backward_walk(op, shape, p, dt, w0)
+        dc = bf(torch.where(z > 0.0, da, torch.zeros_like(da))
+                * (scale * inv))
+        got = _dx_walk(op, shape, None, _pad_dc(dc, p), w1).to(
+            torch.bfloat16)
+        want = cam.cam_f2_bwd_plain(xb, kh, kt, bnh, dst, dils)[0]
+    assert bool((want != 0).any())
+    assert torch.equal(got, want)

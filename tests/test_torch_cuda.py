@@ -13,10 +13,10 @@ than one tag dimension, LAP matrices of every size the kernel takes,
 NaN tags in the grouping kernels, BasicBlock chains at ragged and
 narrow shapes, a small packed forward with its chains on the kernel,
 the six fused-CAM kernels at small and ragged shapes (random inputs,
-exact-sum inputs, per-image gates of both signs), F3b's 2-D tiles at
-ragged shapes (a side smaller than a tile, a dilation larger than a
-tile side) and its plan against the C formulas, and the checks the
-wrappers make.
+exact-sum inputs, per-image gates of both signs), the 2-D tiles of F1b,
+F2b and F3b at ragged shapes (a side smaller than a tile, a dilation
+larger than a tile side) and their plans against the C formulas, and the
+checks the wrappers make.
 
 Chain tolerance: the kernel and its plain version (float32 convolutions,
 TF32 off) differ only in the order of each conv's float32 sum.  On
@@ -518,41 +518,52 @@ def test_cam_f3b_uses_each_images_gate(no_tf32):
             <= CAM_TOL * scale, b
 
 
-# F3b's 2-D tiles (csrc/cam_tile.cuh) at shapes the train step does not
-# give: H and W not multiples of the 8-pixel tile side, a side smaller
-# than a tile, a dilation larger than a tile side, two dx channel chunks
+# The backwards' 2-D tiles (csrc/cam_tile.cuh) at shapes the train step
+# does not give: H and W not multiples of the 8-pixel tile side, a side
+# smaller than a tile, a dilation larger than a tile side, two dx channel
+# chunks
 F3B_SHAPES = [(2, 9, 13, 83, (1, 2, 3, 4), 20),
               (1, 5, 30, 163, (1, 2, 3), 40),
               (1, 30, 5, 83, (1, 2, 3, 4), 20),
               (1, 11, 19, 12, (1, 9), 3),
               (1, 9, 10, 170, (1, 2), 8)]
+# op -> its index in cam_calls; F3b's cases keep their first ids
+TILE_CALLS = {"f3b": 5, "f1b": 1, "f2b": 3}
 
 
-@pytest.mark.parametrize("shape", F3B_SHAPES)
-def test_cam_f3b_ragged_tiles_match_plain(no_tf32, shape):
-    """Exact-sum inputs with gates of both signs: every output bitwise
-    the plain version's, so each ragged tile's halo, masks and per-image
-    sums are right.  Random inputs with signed gates: finite, and within
-    the card check's limits for ReLU-mask flips (``chip_smoke.py``
-    CAM_WORST, CAM_MEAN).  Where the kernel's and the plain version's
-    float32 sums round a conv output to bf16 on either side of a tie and
-    that moves a pre-activation across zero, the cotangent behind it
-    changes by its own size; at these sizes one such flip moves a whole
-    pixel row of dx (3.8 % of max |dx| at (1, 5, 30, 163) on an H100), so
-    the worst element is held to 2^-2 and the mean to 2^-8 of max
-    |plain|."""
+def by_op(shapes):
+    return [pytest.param(op, s, id=f"shape{k}" if op == "f3b"
+                         else f"{op}-shape{k}")
+            for op in TILE_CALLS for k, s in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("op,shape", by_op(F3B_SHAPES))
+def test_cam_f3b_ragged_tiles_match_plain(no_tf32, op, shape):
+    """F3b, F1b and F2b on ragged tiles.  Exact-sum inputs with gates of
+    both signs: every output bitwise the plain version's, so each ragged
+    tile's halo, masks and per-image sums are right.  Random inputs with
+    signed gates: finite, and within the card check's limits for
+    ReLU-mask flips (``chip_smoke.py`` CAM_WORST, CAM_MEAN).  Where the
+    kernel's and the plain version's float32 sums round a conv output to
+    bf16 on either side of a tie and that moves a pre-activation across
+    zero, the cotangent behind it changes by its own size; at these sizes
+    one such flip moves a whole pixel row of dx (3.8 % of max |dx| at
+    (1, 5, 30, 163) on an H100), so the worst element is held to 2^-2
+    and the mean to 2^-8 of max |plain|."""
     exact = cam_case(*shape, seed=7, device=no_tf32, exact=True)
-    name, kernel, plain, args = cam_calls(exact)[5]
+    name, kernel, plain, args = cam_calls(exact)[TILE_CALLS[op]]
+    before = kernel.launches
     got = kernel(*args)
     with torch.backends.cudnn.flags(enabled=False):
         want = plain(*args)
     torch.cuda.synchronize()
+    assert kernel.launches == before + 1
     assert bool((exact["gate"] < 0).any() and (exact["gate"] > 0).any())
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), i
     case = cam_case(*shape, seed=sum(shape[:4]), device=no_tf32,
                     signed_gates=True)
-    name, kernel, plain, args = cam_calls(case)[5]
+    name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(got, want)):
@@ -564,31 +575,43 @@ def test_cam_f3b_ragged_tiles_match_plain(no_tf32, shape):
         assert float(d.mean()) <= CAM_MEAN * scale, i
 
 
-@pytest.mark.parametrize("shape", CAM_SHAPES + F3B_SHAPES
-                         + [(16, 113, 113, 163, (1, 2, 3), 40),
-                            (16, 113, 113, 83, (1, 2, 3, 4), 20)])
-def test_cam_f3b_plan_matches_the_kernels(cuda, shape):
+@pytest.mark.parametrize("op,shape", by_op(
+    CAM_SHAPES + F3B_SHAPES + [(16, 113, 113, 163, (1, 2, 3), 40),
+                               (16, 113, 113, 83, (1, 2, 3, 4), 20)]))
+def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     """Shared memory and re-laid weight sizes: the C formulas
-    (cam_tile.cuh) and the Python ones (ops/cam.py:f3b_plan) agree."""
+    (cam_tile.cuh:tile_plan, exported as cam_f{1,2,3}b_plan) and the
+    Python ones (ops/cam.py:tile_plan) agree, for each backward."""
     b, h, w, c, dils, hc = shape
     x = torch.empty((b, h, w, c), dtype=torch.bfloat16)
     kh = torch.empty((len(dils), 3, 3, c, hc), dtype=torch.bfloat16)
     geo = cam._geo(x, kh, dils)
-    lib = cam._lib("cam_f3")
-    p = cam.f3b_plan(*shape)
-    got = [lib.cam_f3b_plan(cam.ctypes.addressof(geo), k) for k in range(4)]
+    lib = cam._lib(f"cam_{op[:2]}")
+    p = cam.tile_plan(op, *shape)
+    plan = getattr(lib, f"cam_{op}_plan")
+    got = [plan(cam.ctypes.addressof(geo), k) for k in range(4)]
     assert got == [p["smem0"], p["smem1"], p["w0_elems"], p["w1_elems"]]
-    assert lib.cam_f3b_workspace(cam.ctypes.addressof(geo)) > 0
+    assert getattr(lib, f"cam_{op}_workspace")(
+        cam.ctypes.addressof(geo)) > 0
 
 
-def test_cam_f3b_refuses_a_halo_that_does_not_fit(cuda):
+def _refuses_a_halo_that_does_not_fit(device, op):
     case = cam_case(1, 16, 16, 163, (1, 2, 3, 4, 5, 6), 40, seed=2,
-                    device=cuda)
-    name, kernel, plain, args = cam_calls(case)[5]
+                    device=device)
+    name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
     before = kernel.launches
     with pytest.raises(ValueError, match="shared memory"):
         kernel(*args)
     assert kernel.launches == before
+
+
+def test_cam_f3b_refuses_a_halo_that_does_not_fit(cuda):
+    _refuses_a_halo_that_does_not_fit(cuda, "f3b")
+
+
+@pytest.mark.parametrize("op", ["f1b", "f2b"])
+def test_cam_tile_refuses_a_halo_that_does_not_fit(cuda, op):
+    _refuses_a_halo_that_does_not_fit(cuda, op)
 
 
 def test_cam_wrappers_refuse(cuda):
