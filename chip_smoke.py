@@ -6,7 +6,9 @@ Phases, each of which fails the run:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of ``rtpe_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and print the build seconds and ``ptxas`` report;
+   source, all at once) and print the build seconds and the ``ptxas``
+   report, one line per kernel (its name, registers, spills, shared
+   memory);
 3. the NMS + top-k kernel against its plain PyTorch version on the card,
    B in {1, 8} x 17 x 320 x 320 with planted ties and sparse planes:
    exactly equal;
@@ -76,12 +78,11 @@ Phases, each of which fails the run:
 17. the six fused-CAM kernels against their plain versions (float32
     convs, TF32 off) at the train step's two CAM shapes, B=16, 113 x 113
     x 163 (dilations 1-3) and x 83 (1-4), and a ragged (3, 29, 21, 83)
-    case with per-image gates of both signs (the backwards F1b, F2b and
-    F3b on the 8 x 8 tiles of ``csrc/cam_tile.cuh``, the forwards on
-    64-pixel tiles): forward
-    statistics within 2^-8 of their largest magnitude, every other
-    output within the ``CAM_*`` limits (worst element, mean, share off);
-    bitwise equal on exact-sum inputs;
+    case with per-image gates of both signs (F1, F3 and the backwards
+    F1b, F2b and F3b on the 8 x 8 tiles of ``csrc/cam_tile.cuh``, F2 on
+    64-pixel tiles): forward statistics within 2^-8 of their largest
+    magnitude, every other output within the ``CAM_*`` limits (worst
+    element, mean, share off); bitwise equal on exact-sum inputs;
 18. the slice's main path: 5 train steps of
     ``make_distill_train_step`` at the reference configuration
     (``AttentionStudentSteps(inplanes=80, fused_cam=True)``, bf16, B=16,
@@ -95,9 +96,10 @@ Phases, each of which fails the run:
     ``torch.profiler`` view of one fused step;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
     CAM's train-mode forward (or forward + backward) at both shapes, and
-    the per-launch breakdown of F1b, F2b and F3b (phase 0, dx, the
-    ``dkh`` and ``dkr``/``dkt`` weight gradients, the reductions, the
-    wrapper's padding and weight re-layout) under ``torch.profiler``.
+    the per-launch breakdown under ``torch.profiler`` of F1 and F3 (the
+    tile kernel, F1's reductions, the wrapper's padding and weight
+    re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
+    ``dkr``/``dkt`` weight gradients, the reductions, the wrapper).
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
 after 10, 16 with 11, and 17-19 after 15.
@@ -110,6 +112,7 @@ prints no result.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -145,15 +148,19 @@ TRAIN_LOSS_TOL = 1e-3
 STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
 PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
-# the backwards' kernels (phase 0, dx, the dkh and dkr / dkt weight
-# gradients, the reductions), for their per-launch breakdown under
+# the kernels of the tiled ops (the forwards F1 and F3: the tile kernel and
+# F1's reductions; the backwards: phase 0, dx, the dkh and dkr / dkt
+# weight gradients, the reductions), for their per-launch breakdown under
 # torch.profiler; "other" is the wrapper's padded x and re-laid weights
-BWD_PARTS = {name: (phase0, dx, "wgrad_kernel<5>", "wgrad_kernel<7>",
-                    "reduce_rows_kernel")
-             for name, phase0, dx in (
-                 ("cam_f1_bwd", "f1b_tile_kernel", "dx_kernel<true, true>"),
-                 ("cam_f2_bwd", "f2b_tile_kernel", "dx_kernel<false, false>"),
-                 ("cam_f3_bwd", "f3b_tile_kernel", "dx_kernel<true, false>"))}
+TILE_PARTS = {name: (phase0, dx, "wgrad_kernel<5>", "wgrad_kernel<7>",
+                     "reduce_rows_kernel")
+              for name, phase0, dx in (
+                  ("cam_f1_bwd", "f1b_tile_kernel", "dx_kernel<true, true>"),
+                  ("cam_f2_bwd", "f2b_tile_kernel",
+                   "dx_kernel<false, false>"),
+                  ("cam_f3_bwd", "f3b_tile_kernel", "dx_kernel<true, false>"))}
+TILE_PARTS["cam_f1_fwd"] = ("f1_tile_kernel", "reduce_rows_kernel")
+TILE_PARTS["cam_f3_fwd"] = ("f3_tile_kernel",)
 CAM_REPLACES = {"cam_f1_fwd": 558, "cam_f1_bwd": 580, "cam_f2_fwd": 609,
                 "cam_f2_bwd": 627, "cam_f3_fwd": 655, "cam_f3_bwd": 675}
 
@@ -285,17 +292,72 @@ def phase_card() -> str:
     return line
 
 
-def phase_build(build) -> float:
+def entry_name(mangled: str) -> str:
+    """A kernel's name from its Itanium-mangled symbol: the nested names
+    joined by ``::`` (``cam::tile::f3_tile_kernel``) and its bool or int
+    template arguments (``dx_kernel<true, false>``); the symbol as it is
+    where it does not parse."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos = 3 if mangled.startswith("_ZN") else 2
+    parts = []
+    while pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group(0))
+        pos += len(m.group(0))
+        parts.append(mangled[pos:pos + n].replace("_GLOBAL__N_1",
+                                                  "(anonymous)"))
+        pos += n
+    if not parts:
+        return mangled
+    name = "::".join(parts)
+    if mangled[pos:pos + 1] == "I":
+        args = re.match(r"I((?:L[bi]n?\d+E)+)E", mangled[pos:])
+        if not args:
+            return mangled
+        vals = [{"b1": "true", "b0": "false"}.get(t + v, v.replace("n", "-"))
+                for t, v in re.findall(r"L([bi])(n?\d+)E", args.group(1))]
+        name += f"<{', '.join(vals)}>"
+    return name
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel of one ``nvcc -Xptxas=-v`` log: registers, spill stores
+    and loads (bytes), stack frame and static shared memory (bytes)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = entry_name(m.group(1))
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return out
+
+
+def phase_build(build) -> dict:
     t0 = time.perf_counter()
     logs = build.build_all(verbose=True, force=True)
     secs = time.perf_counter() - t0
     check(sorted(logs) == build.sources(), f"built {sorted(logs)}")
     print(f"build: {len(logs)} kernels in {secs:.2f} s", flush=True)
-    for name, log in logs.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                print(f"  {name}: {ln.strip()}")
-    return secs
+    report = {}
+    for name, log in sorted(logs.items()):
+        for kern, r in ptxas_report(log).items():
+            report[f"{name}: {kern}"] = r
+            print(f"  {name}: {kern}: {r.get('registers')} registers, "
+                  f"spills {r.get('spill_stores')} / {r.get('spill_loads')} "
+                  f"bytes, stack {r.get('stack')}, smem {r.get('smem', 0)}")
+    return {"seconds": secs, "ptxas": report}
 
 
 def phase_nms(nms_mod, dev) -> dict:
@@ -1476,24 +1538,25 @@ def cam_yardstick(students_mod, shape, dev) -> dict:
 
 def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
     """One row per CAM kernel: at the steps' shape, and at the pyramid's
-    full-resolution shape under ``at_pyramid_hi``; the backwards' rows
-    also carry their per-launch breakdown at both shapes (ms by
-    kernel)."""
+    full-resolution shape under ``at_pyramid_hi``; the rows of the tiled
+    ops (all but F2) also carry their per-launch breakdown at both shapes
+    (ms by kernel)."""
     per_shape, breakdown = {}, {}
     for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM)):
         yard = cam_yardstick(students_mod, shape, dev)
         k = cam_case(cam_mod, shape, SEED + 10, dev)
         for name, kernel, plain, args in cam_calls(cam_mod, k):
             fwd = name.endswith("fwd")
-            if name in BWD_PARTS:
+            if name in TILE_PARTS:
                 # the profiler can drop a kernel's events (seen on the
                 # H100: a backward's phase-0 and wgrad kernels in one of
                 # six profiles): profile again until each part shows
                 for _ in range(3):
                     prof = device_profile(lambda: kernel(*args),
-                                          BWD_PARTS[name])
+                                          TILE_PARTS[name])
                     part = dict(prof.get("ours_ms") or {})
-                    if all(part.get(p_, 0.0) > 0 for p_ in BWD_PARTS[name]):
+                    if all(part.get(p_, 0.0) > 0
+                           for p_ in TILE_PARTS[name]):
                         break
                 if prof["device_busy"] is not None:
                     part["other"] = prof["kernel_ms"] - sum(part.values())
@@ -1526,7 +1589,7 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
         if name in breakdown:
             rows[-1]["breakdown_ms"] = breakdown[name]
     ms = {r["name"]: [r["ms"], r["at_pyramid_hi"]["ms"]] for r in rows}
-    print(f"cam kernel ms (steps / pyramid hi): {ms}; the backwards by "
+    print(f"cam kernel ms (steps / pyramid hi): {ms}; the tiled ops by "
           f"kernel: {breakdown}", flush=True)
     return rows
 
@@ -1557,7 +1620,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = phase_card()
-    build_s = phase_build(_build)
+    build = phase_build(_build)
     errs = {"nms_topk": phase_nms(nms_mod, dev)["max_abs_err"],
             "group_lockstep": phase_lockstep(grp_mod, dev)["max_abs_err"],
             "lap_rect": phase_lap(lap_mod, dev)["max_abs_err"],
@@ -1596,7 +1659,8 @@ def main() -> None:
     e2e_packed = phase_end_to_end(pred_p)
     prof_packed = phase_profile(pred_p)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"card": card, "build_s": build_s,
+    print(json.dumps({"card": card, "build_s": build["seconds"],
+                      "ptxas": build["ptxas"],
                       "main_path_launches": launches,
                       "other_path_launches": path_launches,
                       "decode_paths_ms": paths_ms,

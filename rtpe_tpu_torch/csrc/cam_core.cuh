@@ -1,14 +1,16 @@
 // Shared core of the fused ContextAwareModule (CAM) kernels, CUDA C++ for
 // sm_90a: cam_f1.cu, cam_f2.cu and cam_f3.cu include it (through
-// cam_tile.cuh, the backwards' 2-D tile kernels, which builds on it).
+// cam_tile.cuh, the 2-D tile kernels of F1, F3 and the three backwards,
+// which builds on it).
 //
 // The TPU kernels (rtpe_tpu/ops/pallas_cam.py) keep one zero-padded image
 // in VMEM and walk it in 16-row bands, grid (B, bands) or (B, phase,
 // bands), carrying every reduction in an output block across grid steps.
 // One 113 x 113 x 163 bf16 image is 4.2 MB, far above the 227 KB of shared
 // memory a block has, and grid steps here run in parallel and in no order.
-// So the port tiles the pixels instead.  The forwards F1, F2 and F3 keep
-// the first design, here:
+// So the port tiles the pixels instead.  The forward F2 keeps the first
+// design, here (F1, F3 and the backwards moved onto cam_tile.cuh's 8 x 8
+// tiles):
 //   - a tile is 64 consecutive pixels of one image (the last tile of an
 //     image is ragged and masked), so a per-tile partial is also a
 //     per-image partial (the GAP needs that);
@@ -20,7 +22,7 @@
 //     the kernel: K to a multiple of 16 and N to whole n8 tiles, with zeros
 //     in shared memory, never in the tensors;
 //   - the output channels of a 1x1 conv go in chunks of NC = 56.
-// Shared by the forwards and the backwards:
+// Shared by every op:
 //   - every reduction over pixels (batch statistics, the BN parameters'
 //     gradients, the gate's gradient) is a per-tile partial written to
 //     global memory and summed over tiles in a fixed order by
@@ -39,8 +41,7 @@
 // elementwise BN and cotangent arithmetic uses the _rn intrinsics in the
 // JAX order, so the compiler contracts nothing into an FMA.
 //
-// Later work: move the forwards onto cam_tile.cuh's tiles, and feed wgmma
-// from TMA.
+// Later work: move F2 onto cam_tile.cuh's tiles, and feed wgmma from TMA.
 
 #pragma once
 
@@ -251,10 +252,11 @@ __device__ __forceinline__ void warp_colsum(const float (&v)[NT][4],
 }
 
 // After a __syncthreads: the four warps' column sums of slot `slot`, in
-// warp order.  red is laid out [warp][NRED][NC].
+// warp order.  red is laid out [warp][SLOTS][NC].
+template <int SLOTS = NRED>
 __device__ __forceinline__ float block_col(const float *red, int slot,
                                            int c) {
-  const int s = NRED * NC;
+  const int s = SLOTS * NC;
   return ((red[slot * NC + c] + red[s + slot * NC + c]) +
           red[2 * s + slot * NC + c]) +
          red[3 * s + slot * NC + c];
@@ -314,16 +316,13 @@ __device__ __forceinline__ PixSmem pix_smem(const Geo &g, unsigned char *m) {
 }
 
 // Branch convs -> sCb = bf16(c), sA = bf16(relu(BN(c))) for all branches
-// (rows past the image hold finite junk that every consumer masks), and
-// the same bf16(a) to a_out (M x NH) when given.  bnh is (4 nb, hc) f32,
-// rows [mean, inv, scale, bias] per branch.
+// (rows past the image hold finite junk that every consumer masks).  bnh
+// is (4 nb, hc) f32, rows [mean, inv, scale, bias] per branch.
 __device__ __forceinline__ void branches_to_smem(const Geo &g, const bf16 *x,
                                                  const bf16 *kh,
                                                  const float *bnh, int b,
-                                                 int p0, const PixSmem &s,
-                                                 bf16 *a_out) {
+                                                 int p0, const PixSmem &s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
   for (int i = 0; i < g.nb; ++i) {
     float acc[NTB][4];
     branch_conv(acc, g, x, kh, i, b, p0, s.sX, s.sW);
@@ -340,9 +339,6 @@ __device__ __forceinline__ void branches_to_smem(const Geo &g, const bf16 *x,
         const bf16 ab = f2bf(relu(z));
         s.sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
         s.sA[r * g.nhp + i * g.hc + n] = ab;
-        if (a_out && r < nvalid)
-          a_out[static_cast<int64_t>(b * g.HW + p0 + r) * g.NH + i * g.hc +
-                n] = ab;
       }
   }
 }

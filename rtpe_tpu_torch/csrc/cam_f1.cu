@@ -12,10 +12,9 @@
 //       dx = bf16(dr) . kr^T + sum_i convT_i(bf16(dc_i)) + dgap[b] / (H W)
 //       (phase 1).
 // x (B, H, W, C) bf16 NHWC, kr (C, C) bf16 [in, out], kh (nb, 3, 3, C, hc)
-// bf16 HWIO: the JAX layout, read as it is by F1, whose design is in
-// cam_core.cuh.  F1b (2-D tiles, one halo per tile, 16-byte async copies;
-// cam_tile.cuh) reads x padded to kc channels and the weights re-laid by
-// ops/cam.py:_tile_weights.
+// bf16 HWIO (the JAX layout).  Both (2-D tiles, one halo per tile, 16-byte
+// async copies; cam_tile.cuh) read x padded to kc channels and the
+// weights re-laid by ops/cam.py:_tile_weights, the same w0 for both.
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F1 does C^2 + 9 nb C hc = 202.6 K multiply-adds a pixel,
@@ -28,6 +27,96 @@
 
 namespace cam {
 namespace tile {
+
+// F1's column sums of one epilogue: the masked values v and their squares
+// (NT n8 tiles from the column group's first, jn of them its own) summed
+// over the tile's rows into out[c] and out[c + sq] for c < n, through
+// red ([row warp][2][NC] f32 in the ring buffer of the stage just
+// multiplied, Ring::spent): free from the first barrier (every warp past
+// its MMA) until the next stage starts loading there, after the next
+// stage's barrier.
+constexpr int F1_SLOTS = 2;
+static_assert(NWARPS * F1_SLOTS * NC * 4 <= WROWS * (16 + 8) * 2,
+              "F1's column sums fit the smallest weight buffer");
+
+template <int NT>
+__device__ __forceinline__ void f1_colsums(const float (&v)[NT][4],
+                                           const Lane &L, int j0, int jn,
+                                           float *red, float *out, int sq,
+                                           int n) {
+  float v2[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v2[j][e] = v[j][e] * v[j][e];
+  float *red_w = red + L.wm * F1_SLOTS * NC + j0 * 8;
+  __syncthreads();
+  group_colsum<NT>(v, red_w, L.lane, jn);
+  group_colsum<NT>(v2, red_w + NC, L.lane, jn);
+  __syncthreads();
+  for (int c = threadIdx.x; c < n; c += TT) {
+    out[c] = block_col<F1_SLOTS>(red, 0, c);
+    out[c + sq] = block_col<F1_SLOTS>(red, 1, c);
+  }
+}
+
+// F1 on one 8 x 8 tile: the per-tile partial row [S_r (2C) | S_h (2 NH) |
+// the sum of x (C)], the first two the column sums of bf16(x . kr) and
+// of each branch's bf16(c) and their squares over the tile's pixels in the
+// image (a pixel outside it is masked: its taps can reach into the image).
+__global__ void __launch_bounds__(TT, 1)
+f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
+               const bf16 *__restrict__ w0, float *__restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xp = g.kc + 8, C = g.C;
+  const int wbuf = WROWS * (t.kw0 + 8);
+  bf16 *sH = reinterpret_cast<bf16 *>(smem);
+  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
+  const Lane L = lane_of(t);
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  float *prow = part + static_cast<int64_t>(blockIdx.x) * (3 * C + 2 * g.NH);
+  Ring ring{w0, sW, wbuf, L.lane, 0};
+
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+
+  // the lane's fragment rows in the image (e < 2: row r, else r + 8)
+  const bool in0 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 0)) >= 0;
+  const bool in1 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 2)) >= 0;
+  constexpr int GB = (NTB + 1) / 2;
+  branch_convs(g, t, ring, aH, L,
+               [&](int i, const Split &sb, const float (&acc)[GB][4]) {
+    float v[GB][4];
+#pragma unroll
+    for (int j = 0; j < GB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[j][e] = (e < 2 ? in0 : in1) ? bfr(acc[j][e]) : 0.0f;
+    f1_colsums<GB>(v, L, sb.j0, L.wn ? NTB - GB : GB, ring.spent(),
+                   prow + 2 * C + 2 * i * g.hc, g.hc, g.hc);
+  });
+  constexpr int GC = (NTC + 1) / 2;
+  conv1x1_chunks<true, false>(
+      g, t, ring, aH, 0, L,
+      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&)[GC][4]) {
+        float v[GC][4];
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
+        f1_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
+                       prow + n0, C, C - n0 < NC ? C - n0 : NC);
+      });
+  // the sum of x over the halo's 64 centre rows (zero outside the image)
+  const bf16 *centre = sH + (t.dmax * t.hs + t.dmax) * xp;
+  for (int c = threadIdx.x; c < C; c += TT) {
+    float acc = 0.0f;
+    for (int r = 0; r < TP; ++r)
+      acc += bf2f(centre[((r >> 3) * t.hs + (r & 7)) * xp + c]);
+    prow[2 * C + 2 * g.NH + c] = acc;
+  }
+}
 
 // Phase 0 of F1b on one 8 x 8 tile: dc (M, nb khc) and dr (M, kc) in
 // bf16 with zero padding columns, dc_i = bf16(dsh[2i] + 2 c_i dsh[2i+1]),
@@ -53,14 +142,22 @@ f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   for (int i = threadIdx.x; i < 2 * C; i += TT) sDr[i] = dsr[i];
   for (int i = threadIdx.x; i < 2 * g.NH; i += TT) sDh[i] = dsh[i];
 
-  branch_convs(g, t, ring, aH, L, [&](int i, int r, int n, float v) {
-    const int64_t p = tile_pix(g, L.pos, r);
-    if (p < 0) return;
-    const float cb = bfr(v);
-    const float dc = __fadd_rn(
-        sDh[2 * i * g.hc + n],
-        __fmul_rn(__fmul_rn(2.0f, cb), sDh[(2 * i + 1) * g.hc + n]));
-    dc_out[p * t.ldc + i * g.khc + n] = f2bf(dc);
+  constexpr int GB = (NTB + 1) / 2;
+  branch_convs(g, t, ring, aH, L,
+               [&](int i, const Split &sb, const float (&acc)[GB][4]) {
+#pragma unroll
+    for (int j = 0; j < GB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = frag_col(L.lane, sb.j0 + j, e);
+        const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+        if (n >= g.hc || p < 0) continue;
+        const float cb = bfr(acc[j][e]);
+        const float dc = __fadd_rn(
+            sDh[2 * i * g.hc + n],
+            __fmul_rn(__fmul_rn(2.0f, cb), sDh[(2 * i + 1) * g.hc + n]));
+        dc_out[p * t.ldc + i * g.khc + n] = f2bf(dc);
+      }
   });
   constexpr int GC = (NTC + 1) / 2;
   conv1x1_chunks<true, false>(
@@ -88,71 +185,6 @@ f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 namespace cam {
 namespace {
 
-// Per-tile partial row: [s_r (2C) | s_h (2 NH) | sum of x (C)].
-__global__ void __launch_bounds__(THREADS)
-f1_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
-          const bf16 *__restrict__ kh, float *__restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PixSmem s = pix_smem(g, smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  float *prow = part + static_cast<int64_t>(T) * (3 * g.C + 2 * g.NH);
-
-  stage_rows(s.sX, g.xp, x, g.C, 0, g.C, g.kc, g, b, p0, 0, 0);
-  __syncthreads();
-  for (int c = threadIdx.x; c < g.C; c += THREADS) {
-    float acc = 0.0f;
-    for (int r = 0; r < TP; ++r) acc += bf2f(s.sX[r * g.xp + c]);
-    prow[2 * g.C + 2 * g.NH + c] = acc;
-  }
-  for (int n0 = 0; n0 < g.C; n0 += NC) {
-    __syncthreads();
-    stage_w(s.sW, g.xp, kr, g.C, g.C, g.C, n0, g.kc, NC);
-    __syncthreads();
-    float acc[NTC][4];
-    zero_acc(acc);
-    warp_mma<NTC>(acc, s.sX + warp * 16 * g.xp, g.xp, s.sW, g.xp, g.kc / 16,
-                  lane);
-    float v1[NTC][4], v2[NTC][4];
-#pragma unroll
-    for (int j = 0; j < NTC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = frag_row(warp, lane, e) < nvalid;
-        v1[j][e] = ok ? bfr(acc[j][e]) : 0.0f;
-        v2[j][e] = v1[j][e] * v1[j][e];
-      }
-    warp_colsum<NTC>(v1, s.red + warp * NRED * NC, lane);
-    warp_colsum<NTC>(v2, s.red + warp * NRED * NC + NC, lane);
-    __syncthreads();
-    for (int c = threadIdx.x; c < NC && n0 + c < g.C; c += THREADS) {
-      prow[n0 + c] = block_col(s.red, 0, c);
-      prow[g.C + n0 + c] = block_col(s.red, 1, c);
-    }
-  }
-  for (int i = 0; i < g.nb; ++i) {
-    float acc[NTB][4];
-    branch_conv(acc, g, x, kh, i, b, p0, s.sX, s.sW);
-    float v1[NTB][4], v2[NTB][4];
-#pragma unroll
-    for (int j = 0; j < NTB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = frag_row(warp, lane, e) < nvalid;
-        v1[j][e] = ok ? bfr(acc[j][e]) : 0.0f;
-        v2[j][e] = v1[j][e] * v1[j][e];
-      }
-    warp_colsum<NTB>(v1, s.red + warp * NRED * NC, lane);
-    warp_colsum<NTB>(v2, s.red + warp * NRED * NC + NC, lane);
-    __syncthreads();
-    for (int c = threadIdx.x; c < g.hc; c += THREADS) {
-      prow[2 * g.C + 2 * i * g.hc + c] = block_col(s.red, 0, c);
-      prow[2 * g.C + (2 * i + 1) * g.hc + c] = block_col(s.red, 1, c);
-    }
-  }
-}
-
 struct F1bWs {
   bf16 *dr, *dc;
   float *part_h, *part_r;
@@ -179,34 +211,45 @@ F1bWs carve_f1b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
+// F1's per-tile partial rows, bytes.
 extern "C" long long cam_f1_workspace(const int *geo) {
   Geo g;
-  if (!make_geo(geo, &g)) return -1;
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F1, &g, &t)) return -1;
   Carve cv(nullptr);
-  cv.take<float>(static_cast<int64_t>(g.n_tiles) * (3 * g.C + 2 * g.NH));
+  cv.take<float>(static_cast<int64_t>(t.n_tiles) * (3 * g.C + 2 * g.NH));
   return cv.off;
 }
 
-// s_r (2, C), s_h (2 nb, hc), gap (B, C) f32: the sums (gap not yet
-// divided by H W).  ws: cam_f1_workspace(geo) bytes.
-extern "C" int cam_f1_launch(const int *geo, const void *x, const void *kr,
-                             const void *kh, void *ws, void *s_r, void *s_h,
+// F1's tile plan (cam_tile.cuh:tile_plan).
+extern "C" long long cam_f1_plan(const int *geo, int what) {
+  return tile::tile_plan(geo, tile::F1, what);
+}
+
+// xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
+// re-laid by ops/cam.py:_tile_weights("f1", ...).  s_r (2, C), s_h
+// (2 nb, hc), gap (B, C) f32: the sums (gap not yet divided by H W).
+// ws: cam_f1_workspace(geo) bytes.
+extern "C" int cam_f1_launch(const int *geo, const void *xpad,
+                             const void *w0, void *ws, void *s_r, void *s_h,
                              void *gap, void *stream) {
   Geo g;
-  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F1, &g, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto *part = static_cast<float *>(ws);
-  CAM_TRY(set_pix_smem(f1_kernel, g));
-  f1_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
-      g, static_cast<const bf16 *>(x), static_cast<const bf16 *>(kr),
-      static_cast<const bf16 *>(kh), part);
-  CAM_TRY(cudaGetLastError());
+  CAM_TRY(tile::launch(tile::f1_tile_kernel, dim3(t.n_tiles),
+                       tile::smem0_bytes(g, t), st, g, t,
+                       static_cast<const bf16 *>(xpad),
+                       static_cast<const bf16 *>(w0), part));
   const int64_t ld = 3 * g.C + 2 * g.NH;
-  CAM_TRY(reduce_rows(part, ld, 0, 2 * g.C, g.n_tiles, 1,
+  CAM_TRY(reduce_rows(part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(s_r), 0, st));
-  CAM_TRY(reduce_rows(part, ld, 2 * g.C, 2 * g.NH, g.n_tiles, 1,
+  CAM_TRY(reduce_rows(part, ld, 2 * g.C, 2 * g.NH, t.n_tiles, 1,
                       static_cast<float *>(s_h), 0, st));
-  CAM_TRY(reduce_rows(part, ld, 2 * g.C + 2 * g.NH, g.C, g.tpi, g.B,
+  // tiles are numbered image-major: image b's tpi rows are contiguous
+  CAM_TRY(reduce_rows(part, ld, 2 * g.C + 2 * g.NH, g.C, t.tpi, g.B,
                       static_cast<float *>(gap), g.C, st));
   return 0;
 }

@@ -54,7 +54,8 @@ f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
   zero_top_pads(g, sA, sD);
 
-  branch_convs(g, t, ring, aH, L, ToActivations{g, L, sBh, sCb, sA, a_out});
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<true>{g, L, sBh, sCb, sA, a_out});
   constexpr int GC = (NTC + 1) / 2;
   conv1x1_chunks<false, true>(
       g, t, ring, 0, tile_row(sA, g.nhp, L), L,
@@ -101,7 +102,7 @@ f2_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
   float *prow = part + static_cast<int64_t>(T) * 2 * g.C;
 
   zero_pads(g, s);
-  branches_to_smem(g, x, kh, bnh, b, p0, s, nullptr);
+  branches_to_smem(g, x, kh, bnh, b, p0, s);
   for (int n0 = 0; n0 < g.C; n0 += NC) {
     __syncthreads();
     stage_w(s.sW, g.nhp, kt, g.C, g.NH, g.C, n0, g.knh, NC);

@@ -13,8 +13,10 @@
 //       (phase 1).
 // x (B, H, W, C) bf16, kr (C, C), kh (nb, 3, 3, C, hc), kt (nb, hc, C)
 // bf16; bnr, bnt (4, C) and bnh (4 nb, hc) f32 rows [mean, inv, scale,
-// bias]; gate (B, C) f32.  F3's design is in cam_core.cuh, F3b's (2-D
-// tiles, one halo per tile, 16-byte async copies) in cam_tile.cuh.
+// bias]; gate (B, C) f32.  Both (2-D tiles, one halo per tile, 16-byte
+// async copies; cam_tile.cuh) read x padded to kc channels and the
+// weights re-laid by ops/cam.py:_tile_weights; F3's w0 is the prefix of
+// F3b's before its kt[i] stages.
 //
 // Fault of the TPU kernel not copied: _f3b_kernel's phase 1 reads image
 // 0's gate for every image (pallas_cam.py:507, gate_ref[0:1, :]), so its
@@ -29,6 +31,62 @@
 
 namespace cam {
 namespace tile {
+
+// F3 on one 8 x 8 tile: out (M, C) bf16 = relu(relu(BN_r(bf16(x . kr))) +
+// relu(BN_t(bf16(a . kt))) gate[b]), a = bf16(relu(BN_h(bf16(c)))) kept
+// in shared memory only; the _rn operations in the first design's order.
+__global__ void __launch_bounds__(TT, 1)
+f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
+               const bf16 *__restrict__ w0, const float *__restrict__ bnr,
+               const float *__restrict__ bnh, const float *__restrict__ bnt,
+               const float *__restrict__ gate, bf16 *__restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xp = g.kc + 8, C = g.C;
+  const int wbuf = WROWS * (t.kw0 + 8);
+  bf16 *sH = reinterpret_cast<bf16 *>(smem);
+  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
+  bf16 *sA = sW + NBUF * wbuf;
+  float *sBr = reinterpret_cast<float *>(sA + TP * g.nhp);
+  float *sBt = sBr + 4 * C;                 // then image b's gate, bnh
+  float *sG = sBt + 4 * C;
+  float *sBh = sG + C;
+  const Lane L = lane_of(t);
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  Ring ring{w0, sW, wbuf, L.lane, 0};
+
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 4 * C; i += TT) {
+    sBr[i] = bnr[i];
+    sBt[i] = bnt[i];
+  }
+  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, nullptr);
+
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
+  constexpr int GC = (NTC + 1) / 2;
+  conv1x1_chunks<true, true>(
+      g, t, ring, aH, tile_row(sA, g.nhp, L), L,
+      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&at)[GC][4]) {
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+            const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+            if (p < 0 || c >= C || j >= sc.cnt) continue;
+            const float res = relu(bn_apply(bfr(acr[j][e]), sBr[c],
+                                            sBr[C + c], sBr[2 * C + c],
+                                            sBr[3 * C + c]));
+            const float y = relu(bn_apply(bfr(at[j][e]), sBt[c], sBt[C + c],
+                                          sBt[2 * C + c], sBt[3 * C + c]));
+            const float pre = __fadd_rn(res, __fmul_rn(y, sG[c]));
+            out[p * C + c] = f2bf(relu(pre));
+          }
+      });
+}
 
 // Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, NH), dt (M, C),
 // dc (M, nb khc) in bf16 (dr and dc with zero padding columns); per-tile
@@ -70,7 +128,8 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
   zero_top_pads(g, sA, sD);
 
-  branch_convs(g, t, ring, aH, L, ToActivations{g, L, sBh, sCb, sA, a_out});
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<true>{g, L, sBh, sCb, sA, a_out});
 
   // the residual and top convs: their BN backward, dr, dt (-> sD), and
   // the five per-tile column sums
@@ -142,54 +201,6 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 namespace cam {
 namespace {
 
-__global__ void __launch_bounds__(THREADS)
-f3_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kr,
-          const bf16 *__restrict__ kh, const bf16 *__restrict__ kt,
-          const float *__restrict__ bnr, const float *__restrict__ bnh,
-          const float *__restrict__ bnt, const float *__restrict__ gate,
-          bf16 *__restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PixSmem s = pix_smem(g, smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  const int64_t pix0 = static_cast<int64_t>(b) * g.HW + p0;
-  const int C = g.C;
-
-  zero_pads(g, s);
-  branches_to_smem(g, x, kh, bnh, b, p0, s, nullptr);
-  __syncthreads();
-  stage_rows(s.sX, g.xp, x, C, 0, C, g.kc, g, b, p0, 0, 0);
-  for (int n0 = 0; n0 < C; n0 += NC) {
-    float ar[NTC][4], at[NTC][4];
-    __syncthreads();
-    stage_w(s.sW, g.xp, kr, C, C, C, n0, g.kc, NC);
-    __syncthreads();
-    zero_acc(ar);
-    warp_mma<NTC>(ar, s.sX + warp * 16 * g.xp, g.xp, s.sW, g.xp, g.kc / 16,
-                  lane);
-    __syncthreads();
-    stage_w(s.sW, g.nhp, kt, C, g.NH, C, n0, g.knh, NC);
-    __syncthreads();
-    zero_acc(at);
-    warp_mma<NTC>(at, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
-                  g.knh / 16, lane);
-#pragma unroll
-    for (int j = 0; j < NTC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), c = n0 + frag_col(lane, j, e);
-        if (r >= nvalid || c >= C) continue;
-        const float res = relu(bn_apply(bfr(ar[j][e]), bnr[c], bnr[C + c],
-                                        bnr[2 * C + c], bnr[3 * C + c]));
-        const float y = relu(bn_apply(bfr(at[j][e]), bnt[c], bnt[C + c],
-                                      bnt[2 * C + c], bnt[3 * C + c]));
-        const float pre = __fadd_rn(res, __fmul_rn(y, gate[b * C + c]));
-        out[(pix0 + r) * C + c] = f2bf(relu(pre));
-      }
-  }
-}
-
 struct F3bWs {
   bf16 *dr, *a, *dt, *dc;
   float *part, *part_h, *part_rt;
@@ -220,22 +231,28 @@ F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
-// out (B, H, W, C) bf16.
-extern "C" int cam_f3_launch(const int *geo, const void *x, const void *kr,
-                             const void *kh, const void *kt, const void *bnr,
+// F3's tile plan (cam_tile.cuh:tile_plan).
+extern "C" long long cam_f3_plan(const int *geo, int what) {
+  return tile::tile_plan(geo, tile::F3, what);
+}
+
+// xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
+// re-laid by ops/cam.py:_tile_weights("f3", ...).  out (B, H, W, C) bf16.
+extern "C" int cam_f3_launch(const int *geo, const void *xpad,
+                             const void *w0, const void *bnr,
                              const void *bnh, const void *bnt,
                              const void *gate, void *out, void *stream) {
   Geo g;
-  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  CAM_TRY(set_pix_smem(f3_kernel, g));
-  f3_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
-      g, static_cast<const bf16 *>(x), static_cast<const bf16 *>(kr),
-      static_cast<const bf16 *>(kh), static_cast<const bf16 *>(kt),
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F3, &g, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tile::launch(
+      tile::f3_tile_kernel, dim3(t.n_tiles), tile::smem0_bytes(g, t),
+      static_cast<cudaStream_t>(stream), g, t,
+      static_cast<const bf16 *>(xpad), static_cast<const bf16 *>(w0),
       static_cast<const float *>(bnr), static_cast<const float *>(bnh),
       static_cast<const float *>(bnt), static_cast<const float *>(gate),
-      static_cast<bf16 *>(out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<bf16 *>(out)));
 }
 
 extern "C" long long cam_f3b_workspace(const int *geo) {

@@ -1,24 +1,26 @@
-// The 2-D tile kernels of the three fused-CAM backwards F1b, F2b and F3b,
-// CUDA C++ for sm_90a; cam_f1.cu, cam_f2.cu and cam_f3.cu include this
-// header.
+// The 2-D tile kernels of the fused-CAM ops: the three backwards F1b, F2b
+// and F3b and the forwards F1 and F3, CUDA C++ for sm_90a; cam_f1.cu,
+// cam_f2.cu and cam_f3.cu include this header.
 //
-// Replaces, with those files, the TPU kernels _f1b_call / _f1b_kernel,
-// _f2b_call / _f2b_kernel and _f3b_call / _f3b_kernel of
-// rtpe_tpu/ops/pallas_cam.py: phase 0 of each, the recompute of the convs
-// it needs with the per-pixel cotangents (f1b_tile_kernel,
-// f2b_tile_kernel, f3b_tile_kernel, each with its per-tile sums), and
-// phase 1, dx (dx_kernel, one template for all three).
+// Replaces, with those files, the TPU kernels _f1_call / _f1_kernel,
+// _f3_call / _f3_kernel, _f1b_call / _f1b_kernel, _f2b_call / _f2b_kernel
+// and _f3b_call / _f3b_kernel of rtpe_tpu/ops/pallas_cam.py: each forward
+// in one tile kernel (f1_tile_kernel with its per-tile sums,
+// f3_tile_kernel), each backward in phase 0, the recompute of the convs it
+// needs with the per-pixel cotangents (f1b_tile_kernel, f2b_tile_kernel,
+// f3b_tile_kernel, each with its per-tile sums), and phase 1, dx
+// (dx_kernel, one template for all three).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
-// 989 TFLOP/s (bf16 dense tensor cores); F1b 3 x 202.6 K, F2b 3 x 195.6 K.
-// The first design (cam_core.cuh, kept by the forwards F1, F2 and F3)
-// staged each tap's 64 shifted pixel rows and its weights one bf16 per
-// lane, with a divide per row and element, 27 times per branch set:
-// ~600 KB of x moved per 64-pixel tile, loads and MMAs never overlapped,
-// and its dx kernel restaged the dc halo 27 times in each of 3 channel
-// chunks.  What this design does about it:
-//
+// 989 TFLOP/s (bf16 dense tensor cores); F1b 3 x 202.6 K, F2b 3 x 195.6 K;
+// F3 222.2 K (0.092 ms), F1 202.6 K (0.084 ms).
+// The first design (cam_core.cuh, kept by the forward F2) stages each
+// tap's 64 shifted pixel rows and its weights one bf16 per lane, with a
+// divide per row and element, 27 times per branch set: ~600 KB of x moved
+// per 64-pixel tile, loads and MMAs never overlapped, and its dx kernel
+// restaged the dc halo 27 times in each of 3 channel chunks.  What this
+// design does about it:
 //   - a tile is 8 x 8 pixels of one image (tiles numbered image-major, so
 //     a per-tile partial is a per-image partial); its halo at the largest
 //     dilation, (8 + 2 dmax)^2 pixel rows at full channel depth, is staged
@@ -51,26 +53,37 @@
 //     conv: taps 0..8, k-steps ascending; 1x1 convs: k-steps ascending;
 //     dx: dr kr^T, then branch i, taps 0..8, k-steps over khc, then
 //     F1b's dgap / (H W)) on the same mma.sync m16n8k16 bf16 -> f32 with
-//     the same zero padding, so every per-pixel output (dr, a, dt, dc, dx)
-//     and the weight gradients built from them are bitwise those of the
-//     first design; only the per-tile sums (dS_r, dS_h, dS_t, dgate) add
-//     their pixels in another order.
+//     the same zero padding, so every per-pixel output (F3's out; dr, a,
+//     dt, dc, dx) and the weight gradients built from them are bitwise
+//     those of the first design; only the per-tile sums (F1's S_r, S_h
+//     and GAP; dS_r, dS_h, dS_t, dgate) add their pixels in another order.
 //
-// The three phase-0 kernels (f1b_tile_kernel in cam_f1.cu,
-// f2b_tile_kernel in cam_f2.cu, f3b_tile_kernel in cam_f3.cu) share the
-// sections here (branch_convs, conv1x1_chunks, branch_backward,
-// zero_pad_cols) and differ in their epilogues and in which sections they
-// run:
+// The five phase-0 kernels (f1_tile_kernel and f1b_tile_kernel in
+// cam_f1.cu, f2b_tile_kernel in cam_f2.cu, f3_tile_kernel and
+// f3b_tile_kernel in cam_f3.cu) share the sections here (branch_convs,
+// conv1x1_chunks, branch_backward, zero_pad_cols) and differ in their
+// epilogues and in which sections they run:
 //
+//   F1:  branch convs -> S_h; kr^T chunks -> S_r; the tile's sum of x
+//   F3:  branch convs -> a (shared memory only); kr^T and kt^T chunks ->
+//        out = relu(res + y gate[b])
 //   F1b: branch convs -> dc = dsh[2i] + 2 c dsh[2i+1]; kr^T chunks -> dr
 //   F2b: branch convs -> a; kt^T chunks -> dt; branch backward -> dc, dS_h
 //   F3b: branch convs -> a; kr^T and kt^T chunks -> dr, dt, dS_r, dS_t,
 //        dgate; branch backward -> dc, dS_h
 //
+// A forward is a phase 0 without the branch backward and has no phase 1,
+// so F1's weight stages are F1b's and F3's are F3b's without the last nb
+// (kt[i]); its shared memory is its backward's phase 0 less what it does
+// not run (F1: F1b's cotangent rows, its column sums going through a
+// spent weight buffer; F3: sCb, sD and the column-sum scratch), so a
+// forward takes every geometry its backward takes.
+//
 // Ragged tiles: 113 = 14 x 8 + 1, so 15 x 15 tiles cover a 113 x 113
 // image, 12.8 % more pixels than it has (57^2: 26 %, 29^2: 22 %); a pixel
-// outside the image has zero rows, its outputs are not written and it adds
-// 0 to every per-tile sum.
+// outside the image has zero rows, its outputs are not written and every
+// per-tile sum masks it (its dilated taps can reach into the image, so its
+// convs are not zero).
 
 #pragma once
 
@@ -88,16 +101,17 @@ constexpr int NTX = 21;           // n8 tiles of a dx block
 constexpr int NX = NTX * 8;       // output channels of a dx block
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block
 
-// The backwards.
-enum Op { F1B = 1, F2B = 2, F3B = 3 };
+// The backwards, then the forwards.
+enum Op { F1B = 1, F2B = 2, F3B = 3, F1 = 4, F3 = 5 };
 
 inline int up8(int v) { return (v + 7) / 8 * 8; }
 
-// The tiling of one backward call; ops/cam.py:tile_plan computes the same.
+// The tiling of one call; ops/cam.py:tile_plan computes the same.
 struct TGeo {
-  int op;                     // F1B, F2B or F3B
-  int res, top;               // phase 0 runs kr^T chunks (dr), kt^T chunks
-                              // (dt) and then the branch backward
+  int op;                     // F1B, F2B, F3B, F1 or F3
+  int res, top, bb;           // phase 0 runs kr^T chunks, kt^T chunks and
+                              // the branch backward
+  int bwd;                    // a backward: it has a phase 1 (dx)
   int tiles_x, tpi, n_tiles;  // tiles per image row, per image, in all
   int dmax, hs, hr;           // largest dilation, halo side, halo rows
   int brows;                  // rows of a branch weight stage: hc to 8
@@ -113,7 +127,9 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   TGeo t;
   t.op = op;
   t.res = op != F2B;
-  t.top = op != F1B;
+  t.top = op == F2B || op == F3B || op == F3;
+  t.bb = op == F2B || op == F3B;
+  t.bwd = op <= F3B;
   t.tiles_x = (g.W + TS - 1) / TS;
   t.tpi = t.tiles_x * ((g.H + TS - 1) / TS);
   t.n_tiles = g.B * t.tpi;
@@ -126,7 +142,7 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.nchr = (g.C + NC - 1) / NC;
   t.kw0 = t.top && g.knh > g.kc ? g.knh : g.kc;
   t.ldc = g.nb * g.khc;
-  t.nst0 = 9 * g.nb + (t.res + t.top) * t.nchr + t.top * g.nb;
+  t.nst0 = 9 * g.nb + (t.res + t.top) * t.nchr + t.bb * g.nb;
   t.nxr = up8(g.C) < NX ? up8(g.C) : NX;
   t.nchx = (g.C + NX - 1) / NX;
   t.nksr = t.res ? (g.kc + g.khc - 1) / g.khc : 0;
@@ -135,45 +151,51 @@ inline TGeo make_tgeo(const Geo &g, int op) {
 }
 
 // Shared memory of phase 0: the x halo (hr x (kc + 8)) and NBUF weight
-// buffers (WROWS x (kw0 + 8)) in bf16; with the top conv (F2b, F3b) also
-// sCb and sA (TP x nhp) and sD (TP x (kc + 8)) in bf16 and the column-sum
-// scratch (NWARPS row warps) in f32; then the epilogues' rows in f32:
-// F1b dsr (2C) and dsh (2 NH); F2b dst (2C) and bnh (4 NH); F3b bnr and
-// bnt (4C each), image b's gate (C) and bnh (4 NH).
+// buffers (WROWS x (kw0 + 8)) in bf16; with the top conv (F2b, F3b, F3)
+// also sA (TP x nhp), with the branch backward (F2b, F3b) sCb (TP x nhp)
+// and sD (TP x (kc + 8)); then in f32 the column-sum scratch (NWARPS row
+// warps; F2b, F3b) and the epilogues' rows: F1b dsr (2C) and dsh (2 NH);
+// F2b dst (2C) and bnh (4 NH); F3b and F3 bnr and bnt (4C each), image
+// b's gate (C) and bnh (4 NH).  F1's column sums go through a weight
+// buffer (Ring::spent), so F1 needs F1b's phase 0 less its rows and fits
+// wherever F1b does.
 inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
   const int64_t xp = g.kc + 8;
   int64_t el = t.hr * xp + 1LL * NBUF * WROWS * (t.kw0 + 8);
-  int64_t f = t.op == F3B ? 9LL * g.C + 4LL * g.NH
-              : t.op == F2B ? 2LL * g.C + 4LL * g.NH
-                            : 2LL * g.C + 2LL * g.NH;
-  if (t.top) {
-    el += 2LL * TP * g.nhp + TP * xp;
+  int64_t f = t.op == F3B || t.op == F3 ? 9LL * g.C + 4LL * g.NH
+              : t.op == F2B             ? 2LL * g.C + 4LL * g.NH
+              : t.op == F1B             ? 2LL * g.C + 2LL * g.NH
+                                        : 0;
+  if (t.top) el += 1LL * TP * g.nhp;
+  if (t.bb) {
+    el += 1LL * TP * g.nhp + TP * xp;
     f += 1LL * NWARPS * NRED * NC;
   }
   return el * 2 + 4 * f;
 }
 
-// Shared memory of phase 1: the tile's dr rows (TP x (kc + 8), F1b and
-// F3b), the dc halo (hr x (ldc + 8)), NBUF weight buffers
-// (nxr x (khc + 8)), bf16.
+// Shared memory of phase 1 (a backward's; 0 for a forward): the tile's dr
+// rows (TP x (kc + 8), F1b and F3b), the dc halo (hr x (ldc + 8)), NBUF
+// weight buffers (nxr x (khc + 8)), bf16.
 inline int64_t smem1_bytes(const Geo &g, const TGeo &t) {
+  if (!t.bwd) return 0;
   return 2LL * ((t.res ? TP * (g.kc + 8LL) : 0) + t.hr * (t.ldc + 8LL) +
                 1LL * NBUF * t.nxr * (g.khc + 8));
 }
 
-// bf16 elements of the two re-laid weight buffers.
+// bf16 elements of the two re-laid weight buffers (w1: a backward's).
 inline int64_t w0_elems(const Geo &g, const TGeo &t) {
-  return (9LL + t.top) * g.nb * t.brows * g.kc +
+  return (9LL + t.bb) * g.nb * t.brows * g.kc +
          static_cast<int64_t>(t.nchr) * NC *
              (t.res * g.kc + t.top * g.knh);
 }
 inline int64_t w1_elems(const Geo &g, const TGeo &t) {
-  return static_cast<int64_t>(t.nchx) * t.nst1 * t.nxr * g.khc;
+  return t.bwd ? static_cast<int64_t>(t.nchx) * t.nst1 * t.nxr * g.khc : 0;
 }
 
-// A geometry the op's two tile kernels take, or false.
+// A geometry the op's tile kernels take, or false.
 inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
-  if (op < F1B || op > F3B || !make_geo(geo, g)) return false;
+  if (op < F1B || op > F3 || !make_geo(geo, g)) return false;
   *t = make_tgeo(*g, op);
   return smem0_bytes(*g, *t) <= SMEM_MAX && smem1_bytes(*g, *t) <= SMEM_MAX;
 }
@@ -183,7 +205,7 @@ inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
 // ops/cam.py:tile_plan computes them; -1 for an invalid geometry.
 inline long long tile_plan(const int *geo, int op, int what) {
   Geo g;
-  if (op < F1B || op > F3B || !make_geo(geo, &g)) return -1;
+  if (op < F1B || op > F3 || !make_geo(geo, &g)) return -1;
   const TGeo t = make_tgeo(g, op);
   switch (what) {
     case 0: return smem0_bytes(g, t);
@@ -196,8 +218,9 @@ inline long long tile_plan(const int *geo, int op, int what) {
 
 // Phase-0 weight stage s: its offset in w0, its rows and its k width.
 // Order: the branch taps (nb x 9 of [brows][kc], kh^T), then per chunk of
-// NC output channels kr^T [NC][kc] (F1b, F3b) and kt^T [NC][knh] (F2b,
-// F3b), then per branch kt[i] [brows][kc] (F2b, F3b).
+// NC output channels kr^T [NC][kc] (res: F1, F3, F1b, F3b) and kt^T
+// [NC][knh] (top: F3, F2b, F3b), then per branch kt[i] [brows][kc] (bb:
+// F2b, F3b).
 __device__ __forceinline__ void stage0(const Geo &g, const TGeo &t, int s,
                                        int64_t *off, int *rows, int *kw) {
   const int nbr = 9 * g.nb, per = t.res + t.top;
@@ -443,6 +466,13 @@ struct Ring {
     ++s;
     return b;
   }
+
+  // The buffer of the stage next() returned last: free once every warp
+  // has multiplied it (a barrier), until the following next() starts
+  // loading stage s + 2 there (after its own barrier).
+  __device__ __forceinline__ float *spent() const {
+    return reinterpret_cast<float *>(sW + ((s + NBUF - 1) % NBUF) * wbuf);
+  }
 };
 
 // A lane's place in the block and in its tile.
@@ -474,8 +504,8 @@ __device__ __forceinline__ uint32_t tile_row(const bf16 *s, int ld,
 
 // The branch convs: for each branch i, acc = the sum over taps 0..8 of
 // the halo rows shifted by the tap's offset . kh[i, tap] (k-steps
-// ascending), then epi(i, r, n, acc) for each of the lane's fragment
-// elements (row r, branch channel n < hc).  Stages: the nb x 9 taps.
+// ascending), then epi(i, split, acc) on the column group's GB n8 tiles.
+// Stages: the nb x 9 taps.
 template <typename Epi>
 __device__ __forceinline__ void branch_convs(const Geo &g, const TGeo &t,
                                              Ring &ring, uint32_t aH,
@@ -493,13 +523,7 @@ __device__ __forceinline__ void branch_convs(const Geo &g, const TGeo &t,
       const int sh = ((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
       mma_rows<GB>(acc, aH + sh * xp * 2, b, xp * 2, g.kc / 16, sb.cnt);
     }
-#pragma unroll
-    for (int j = 0; j < GB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = frag_col(L.lane, sb.j0 + j, e);
-        if (n < g.hc) epi(i, frag_row(L.wm, L.lane, e), n, acc[j][e]);
-      }
+    epi(i, sb, acc);
   }
 }
 
@@ -531,24 +555,37 @@ __device__ __forceinline__ void conv1x1_chunks(const Geo &g, const TGeo &t,
   }
 }
 
-// The branch convs' epilogue of F2b and F3b: sCb = bf16(c),
-// sA = bf16(relu(BN(c))) and the same to a_out, from the BN rows sBh.
+// The branch convs' epilogue of F3, F2b and F3b: sA = bf16(relu(BN(c)))
+// from the BN rows sBh; with BWD (F2b, F3b) also sCb = bf16(c) and
+// a_out = the same a.
+template <bool BWD>
 struct ToActivations {
   const Geo &g;
   const Lane &L;
   const float *sBh;
   bf16 *sCb, *sA, *a_out;
-  __device__ __forceinline__ void operator()(int i, int r, int n,
-                                             float v) const {
-    const float cb = bfr(v);
-    const float *bn = sBh + 4 * i * g.hc + n;
-    const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
-                             bn[3 * g.hc]);
-    const bf16 ab = f2bf(relu(z));
-    sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
-    sA[r * g.nhp + i * g.hc + n] = ab;
-    const int64_t p = tile_pix(g, L.pos, r);
-    if (p >= 0) a_out[p * g.NH + i * g.hc + n] = ab;
+  template <int GB>
+  __device__ __forceinline__ void operator()(int i, const Split &sb,
+                                             const float (&acc)[GB][4]) const {
+#pragma unroll
+    for (int j = 0; j < GB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = frag_col(L.lane, sb.j0 + j, e);
+        if (n >= g.hc) continue;
+        const int r = frag_row(L.wm, L.lane, e);
+        const float cb = bfr(acc[j][e]);
+        const float *bn = sBh + 4 * i * g.hc + n;
+        const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
+                                 bn[3 * g.hc]);
+        const bf16 ab = f2bf(relu(z));
+        if (BWD) sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
+        sA[r * g.nhp + i * g.hc + n] = ab;
+        if (BWD) {
+          const int64_t p = tile_pix(g, L.pos, r);
+          if (p >= 0) a_out[p * g.NH + i * g.hc + n] = ab;
+        }
+      }
   }
 };
 
@@ -615,14 +652,15 @@ __device__ __forceinline__ void zero_pad_cols(bf16 *out, int ld, int n,
   }
 }
 
-// Zero the K padding of sA (columns NH..knh) and sD (C..kc).
+// Zero the K padding of sA (columns NH..knh) and, given, sD (C..kc).
 __device__ __forceinline__ void zero_top_pads(const Geo &g, bf16 *sA,
                                               bf16 *sD) {
   const int pa = g.knh - g.NH, pd = g.kc - g.C;
   for (int i = threadIdx.x; i < TP * pa; i += TT)
     sA[(i / pa) * g.nhp + g.NH + i % pa] = bzero();
-  for (int i = threadIdx.x; i < TP * pd; i += TT)
-    sD[(i / pd) * (g.kc + 8) + g.C + i % pd] = bzero();
+  if (sD)
+    for (int i = threadIdx.x; i < TP * pd; i += TT)
+      sD[(i / pd) * (g.kc + 8) + g.C + i % pd] = bzero();
 }
 
 // ------------------------------------------------------------ phase 1

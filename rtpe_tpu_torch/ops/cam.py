@@ -19,7 +19,8 @@ MLP) is left to plain autograd:
 
 Six kernels: each op's forward and its backward (``cam_f1_fwd``,
 ``cam_f1_bwd``, ``cam_f2_fwd``, ``cam_f2_bwd``, ``cam_f3_fwd``,
-``cam_f3_bwd``).  Each runs its plain version for CPU tensors and its
+``cam_f3_bwd``); all but ``cam_f2_fwd`` on the 2-D tiles of
+``csrc/cam_tile.cuh``.  Each runs its plain version for CPU tensors and its
 kernel for CUDA tensors, with no fallback from one to the other; each
 counts its kernel launches in ``.launches``, and each plain version its
 calls in ``.calls``.  Layout is the JAX one: x (B, H, W, C) NHWC bf16,
@@ -53,9 +54,9 @@ NB_MAX = 6       # and most dilations
 
 _P = ctypes.c_void_p
 _SIGS = {
-    "cam_f1": {"cam_f1_launch": [_P] * 9, "cam_f1b_launch": [_P] * 12},
+    "cam_f1": {"cam_f1_launch": [_P] * 8, "cam_f1b_launch": [_P] * 12},
     "cam_f2": {"cam_f2_launch": [_P] * 8, "cam_f2b_launch": [_P] * 12},
-    "cam_f3": {"cam_f3_launch": [_P] * 11, "cam_f3b_launch": [_P] * 19},
+    "cam_f3": {"cam_f3_launch": [_P] * 9, "cam_f3b_launch": [_P] * 19},
 }
 _WORKSPACE = {"cam_f1": ("cam_f1_workspace", "cam_f1b_workspace"),
               "cam_f2": ("cam_f2_workspace", "cam_f2b_workspace"),
@@ -315,9 +316,11 @@ def _lib(name: str) -> ctypes.CDLL:
     for fn in _WORKSPACE[name]:
         getattr(lib, fn).argtypes = [_P]
         getattr(lib, fn).restype = ctypes.c_longlong
-    plan = getattr(lib, f"{name}b_plan")
-    plan.argtypes = [_P, ctypes.c_int]
-    plan.restype = ctypes.c_longlong
+    for op in TILE_OPS:                    # cam_tile.cuh:tile_plan per op
+        if f"cam_{op[:2]}" == name:
+            plan = getattr(lib, f"cam_{op}_plan")
+            plan.argtypes = [_P, ctypes.c_int]
+            plan.restype = ctypes.c_longlong
     return lib
 
 
@@ -346,21 +349,22 @@ def _dispatch(x, name):
 
 def cam_f1_fwd(x, kr, kh, dils):
     """F1 (replaces ``pallas_cam.py:_f1_call``): (s_r, s_h, sums of x per
-    image), float32."""
+    image), float32.  On the card the tile kernel of
+    ``csrc/cam_tile.cuh``; ``ValueError`` for a geometry whose halo does
+    not fit (:func:`tile_plan`; only where F1b's does not either)."""
     if not _dispatch(x, "cam_f1_fwd"):
         return cam_f1_fwd_plain(x, kr, kh, dils)
     x, kr, kh = _check(x, kr, kh, None, dils, ())
     b, _, _, c = x.shape
     nb, hc = kh.shape[0], kh.shape[4]
-    geo = _geo(x, kh, dils)
-    lib = _lib("cam_f1")
-    ws = _workspace(lib, "cam_f1_workspace", geo, x.device)
+    lib, geo, ws, w0, _, xpad = _tile_call("f1", "cam_f1_fwd", x, kr, kh,
+                                           None, dils)
     f32 = dict(dtype=torch.float32, device=x.device)
     s_r, s_h, gap = (torch.empty((2, c), **f32),
                      torch.empty((2 * nb, hc), **f32),
                      torch.empty((b, c), **f32))
     err = lib.cam_f1_launch(ctypes.addressof(geo),
-                            *_ptrs(x, kr, kh, ws, s_r, s_h, gap), _stream(x))
+                            *_ptrs(xpad, w0, ws, s_r, s_h, gap), _stream(x))
     _build.check(err, "cam_f1_fwd")
     cam_f1_fwd.launches += 1
     return s_r, s_h, gap
@@ -384,17 +388,19 @@ def cam_f2_fwd(x, kh, kt, bnh, dils):
 
 def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
     """F3 (replaces ``pallas_cam.py:_f3_call``): the CAM output,
-    (B, H, W, C) bf16."""
+    (B, H, W, C) bf16.  On the card the tile kernel of
+    ``csrc/cam_tile.cuh``; ``ValueError`` for a geometry whose halo does
+    not fit (:func:`tile_plan`; only where F3b's does not either)."""
     if not _dispatch(x, "cam_f3_fwd"):
         return cam_f3_fwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, dils)
     x, kr, kh, kt, bnr, bnh, bnt, gate = _check(
         x, kr, kh, kt, dils, (bnr, bnh, bnt, gate))
-    geo = _geo(x, kh, dils)
-    lib = _lib("cam_f3")
+    lib, geo, _, w0, _, xpad = _tile_call("f3", "cam_f3_fwd", x, kr, kh, kt,
+                                          dils)
     out = torch.empty_like(x)
     err = lib.cam_f3_launch(
         ctypes.addressof(geo),
-        *_ptrs(x, kr, kh, kt, bnr, bnh, bnt, gate, out), _stream(x))
+        *_ptrs(xpad, w0, bnr, bnh, bnt, gate, out), _stream(x))
     _build.check(err, "cam_f3_fwd")
     cam_f3_fwd.launches += 1
     return out
@@ -402,13 +408,14 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 
 # ------------------------------------------------------------ the tiles
 #
-# The backwards' kernels (csrc/cam_tile.cuh) walk 8 x 8 pixel tiles of one
-# image, stage each tile's halo once at full channel depth, and read every
-# weight in the order and layout the wrapper gives it once per call.
-# tile_plan and _tile_weights are that contract's Python side, per op
-# ("f1b", "f2b", "f3b"); the C side (make_tgeo, smem0_bytes, smem1_bytes,
-# w0_elems, w1_elems, stage0) computes the same, and each wrapper checks
-# the weight counts against it (cam_f{1,2,3}b_plan) on every call.
+# The tile kernels (csrc/cam_tile.cuh) of F1, F3 and the three backwards
+# walk 8 x 8 pixel tiles of one image, stage each tile's halo once at full
+# channel depth, and read every weight in the order and layout the
+# wrapper gives it once per call.  tile_plan and _tile_weights are that
+# contract's Python side, per op ("f1", "f3", "f1b", "f2b", "f3b"); the C
+# side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0)
+# computes the same, and each wrapper checks the weight counts against it
+# (cam_f{1,3}_plan, cam_f{1,2,3}b_plan) on every call.
 
 TILE_TS = 8          # tile side (cam_tile.cuh:TS)
 TILE_NC = 56         # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
@@ -416,9 +423,12 @@ TILE_NX = 168        # output channels of a dx block (cam_tile.cuh:NX)
 TILE_ROW_WARPS = 4   # warps of 16 pixel rows (times 2 column groups)
 TILE_NBUF = 3        # weight stages in shared memory (cam_tile.cuh:NBUF)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
-# op -> (its phase 0 runs kr^T chunks (dr), it runs kt^T chunks (dt) and
-# the branch backward), as cam_tile.cuh:make_tgeo sets res and top
-TILE_OPS = {"f1b": (True, False), "f2b": (False, True), "f3b": (True, True)}
+# op -> (its phase 0 runs kr^T chunks, kt^T chunks, the branch backward),
+# as cam_tile.cuh:make_tgeo sets res, top and bb; a backward ("...b") also
+# has a phase 1 (dx), a forward none
+TILE_OPS = {"f1b": (True, False, False), "f2b": (False, True, True),
+            "f3b": (True, True, True), "f1": (True, False, False),
+            "f3": (True, True, False)}
 
 
 def _up(v: int, m: int) -> int:
@@ -428,10 +438,11 @@ def _up(v: int, m: int) -> int:
 def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
               hc: int) -> Dict[str, int]:
     """Tiles, padded widths and pitches (bf16 elements), stage counts,
-    shared memory (bytes) and re-laid weight sizes (bf16 elements) of
-    backward ``op``'s tile kernels at x (b, h, w, c), ``dils``, branch
-    width hc."""
-    res, top = TILE_OPS[op]
+    shared memory (bytes; smem1 0 for a forward) and re-laid weight sizes
+    (bf16 elements; w1_elems 0 for a forward) of ``op``'s tile kernels at
+    x (b, h, w, c), ``dils``, branch width hc."""
+    res, top, bb = TILE_OPS[op]
+    bwd = op.endswith("b")
     nb = len(dils)
     nh = nb * hc
     kc, khc, knh = _up(c, 16), _up(hc, 16), _up(nh, 16)
@@ -446,35 +457,38 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
              nxr=min(TILE_NX, _up(c, 8)), nchx=-(-c // TILE_NX),
              nksr=-(-kc // khc) if res else 0)
     p["cp"] = p["ldc"] + 8
-    p["nst0"] = (9 + top) * nb + (res + top) * p["nchr"]
+    p["nst0"] = (9 + bb) * nb + (res + top) * p["nchr"]
     p["nst1"] = p["nksr"] + 9 * nb
     tp, nwarps, nred = TILE_TS * TILE_TS, TILE_ROW_WARPS, 5
     rows = {"f1b": 2 * c + 2 * nh, "f2b": 2 * c + 4 * nh,
-            "f3b": 9 * c + 4 * nh}[op]
+            "f3b": 9 * c + 4 * nh, "f1": 0, "f3": 9 * c + 4 * nh}[op]
     el = p["hr"] * p["xp"] + TILE_NBUF * TILE_NC * (p["kw0"] + 8)
-    if top:
-        el += 2 * tp * p["nhp"] + tp * p["xp"]
+    if top:                                # sA
+        el += tp * p["nhp"]
+    if bb:                                 # sCb, sD
+        el += tp * p["nhp"] + tp * p["xp"]
+    if bb:                                 # the column-sum scratch
         rows += nwarps * nred * TILE_NC
     p["smem0"] = 2 * el + 4 * rows
     p["smem1"] = 2 * (tp * p["xp"] * res + p["hr"] * p["cp"]
-                      + TILE_NBUF * p["nxr"] * (khc + 8))
-    p["w0_elems"] = (9 + top) * nb * p["brows"] * kc \
+                      + TILE_NBUF * p["nxr"] * (khc + 8)) if bwd else 0
+    p["w0_elems"] = (9 + bb) * nb * p["brows"] * kc \
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
-    p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc
+    p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc if bwd else 0
     return p
 
 
-def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, torch.Tensor]:
+def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, ...]:
     """kr, kh, kt (those ``op`` reads; None for the others) re-laid for
     its tile kernels, [n][k] with zeros padding n and k: w0, phase 0's
     stages in walking order (the branch taps, nb x 9 of kh[i, tap]^T
     [brows][kc]; then per chunk of TILE_NC output channels kr^T [NC][kc]
-    (f1b, f3b) and kt^T [NC][knh] (f2b, f3b); then per branch kt[i]
-    [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks them); w1,
-    per chunk of TILE_NX output channels (nxr rows), nksr stages of kr's
-    k slices [nxr][khc] (f1b, f3b) and then nb x 9 stages of kh[i, tap]
-    [nxr][khc]."""
-    res, top = TILE_OPS[op]
+    (f1, f3, f1b, f3b) and kt^T [NC][knh] (f3, f2b, f3b); then per branch
+    kt[i] [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks them);
+    w1 (None for a forward), per chunk of TILE_NX output channels (nxr
+    rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
+    nb x 9 stages of kh[i, tap] [nxr][khc]."""
+    res, top, bb = TILE_OPS[op]
     nb, _, _, c, hc = kh.shape
     p = tile_plan(op, 1, 1, 1, c, [1] * nb, hc)
     kc, khc, knh, br = p["kc"], p["khc"], p["knh"], p["brows"]
@@ -488,8 +502,11 @@ def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, torch.Tensor]:
     if top:
         chunk.append(F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c)))
     w0.append(torch.cat([t.reshape(nchr, -1) for t in chunk], 1).reshape(-1))
-    if top:
+    if bb:
         w0.append(F.pad(kt, (0, kc - c, 0, br - hc)).reshape(-1))
+    w0 = torch.cat(w0).contiguous()
+    if not op.endswith("b"):
+        return w0, None
     nxr, nchx, nksr = p["nxr"], p["nchx"], p["nksr"]
     npad = nchx * nxr
     kht = F.pad(taps, (0, khc - hc, 0, npad - c))
@@ -498,14 +515,14 @@ def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, torch.Tensor]:
         krt = F.pad(kr, (0, nksr * khc - c, 0, npad - c))
         krt = krt.reshape(nchx, nxr, nksr, khc).transpose(1, 2)
         w1 = torch.cat([krt, w1], 1)
-    return torch.cat(w0).contiguous(), w1.reshape(-1).contiguous()
+    return w0, w1.reshape(-1).contiguous()
 
 
 def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
-    """The plan, the library, the geometry, the workspace, the re-laid
-    weights and the channel-padded x of a tile-kernel call of ``op``;
-    ``ValueError`` when its halo and weight stages do not fit a block's
-    shared memory."""
+    """The plan, the library, the geometry, the workspace (None where
+    ``op`` takes none), the re-laid weights (w1 None for a forward) and
+    the channel-padded x of a tile-kernel call of ``op``; ``ValueError``
+    when its halo and weight stages do not fit a block's shared memory."""
     b, h, w, c = x.shape
     plan = tile_plan(op, b, h, w, c, dils, kh.shape[4])
     if max(plan["smem0"], plan["smem1"]) > SMEM_MAX:
@@ -513,12 +530,16 @@ def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
                          f"{plan['smem1']} bytes of shared memory at C={c}, "
                          f"dils {tuple(dils)}, over {SMEM_MAX}")
     geo = _geo(x, kh, dils)
-    lib = _lib(f"cam_{op[:2]}")
-    ws = _workspace(lib, f"cam_{op}_workspace", geo, x.device)
+    lname = f"cam_{op[:2]}"
+    lib = _lib(lname)
+    ws_fn = f"cam_{op}_workspace"
+    ws = (_workspace(lib, ws_fn, geo, x.device)
+          if ws_fn in _WORKSPACE[lname] else None)
     w0, w1 = _tile_weights(op, kr, kh, kt)
     plan_fn = getattr(lib, f"cam_{op}_plan")
     for what, t in ((2, w0), (3, w1)):
-        if plan_fn(ctypes.addressof(geo), what) != t.numel():
+        n = 0 if t is None else t.numel()
+        if plan_fn(ctypes.addressof(geo), what) != n:
             raise RuntimeError(f"{name}: the re-laid weights and the "
                                "kernels' layout disagree")
     xpad = F.pad(x, (0, plan["kc"] - c))

@@ -1,7 +1,7 @@
-"""The Python side of the fused-CAM backwards' tile kernels
-(``csrc/cam_tile.cuh``: F1b, F2b and F3b), on the CPU: the plan (tiles,
-padded widths, pitches, shared memory), the tile order, and the weights
-re-laid once per call.
+"""The Python side of the fused-CAM tile kernels (``csrc/cam_tile.cuh``:
+the backwards F1b, F2b and F3b and the forwards F1 and F3), on the CPU:
+the plan (tiles, padded widths, pitches, shared memory), the tile order,
+and the weights re-laid once per call.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``
 holds them against the plain versions there).  Here the layout contract
@@ -14,17 +14,26 @@ exactly what the kernels stage (each tap's rows gathered from one halo,
 each stage's weights sliced out of the re-laid buffers at the stage's
 offset) gives the plain version's products bitwise on exact-sum inputs;
 for F1b and F2b the walk through both phases, with the kernels' epilogues,
-gives the plain version's dx bitwise.
+gives the plain version's dx bitwise, and for F1 and F3 the walk with
+their epilogues (F1's masked per-tile sums, F3's output) gives the plain
+version's outputs and the interpret-mode Pallas kernel's bitwise.  A
+forward's plan is its backward's phase 0 without the branch backward: F1's
+re-laid weights are F1b's, F3's a prefix of F3b's, and a forward needs no
+more shared memory than its backward, so it refuses only where its
+backward refuses too.
 
 The parametrised tests keep F3b's cases under their first ids (shape0,
-...) and add F1b's and F2b's as f1b-shape0, ..., f2b-shape0, ....
+...) and add the other ops' as f1b-shape0, ..., f2b-shape0, ...,
+f1-shape0, ..., f3-shape0, ....
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from rtpe_tpu.ops import pallas_cam as pc
 from rtpe_tpu_torch.ops import cam
 
 # (B, H, W, C, dilations, hc): the train step's two CAM shapes, the card
@@ -39,7 +48,8 @@ SHAPES = [STEPS_CAM, PYRAMID_CAM,
           (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8)]
 WALK_SHAPES = [(2, 9, 13, 12, (1, 2, 3, 4), 3), (1, 5, 30, 70, (1, 2, 3), 20),
                (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8)]
-OPS = ("f3b", "f1b", "f2b")
+BWD_OPS = ("f3b", "f1b", "f2b")
+OPS = BWD_OPS + ("f1", "f3")
 NC = cam.TILE_NC
 TS = cam.TILE_TS
 
@@ -63,10 +73,10 @@ def f3b_tiles(b, h, w):
 def stage0(p, nb, s, op="f3b"):
     """(offset in w0, rows, k width) of phase-0 weight stage s of ``op``,
     as ``cam_tile.cuh:stage0`` computes it: the branch taps (nb x 9 of
-    [brows][kc]), then per chunk of NC output channels [NC][kc] (f1b,
-    f3b) and [NC][knh] (f2b, f3b), then per branch [brows][kc] (f2b,
-    f3b)."""
-    res, top = cam.TILE_OPS[op]
+    [brows][kc]), then per chunk of NC output channels [NC][kc] (f1, f3,
+    f1b, f3b) and [NC][knh] (f3, f2b, f3b), then per branch [brows][kc]
+    (f2b, f3b)."""
+    res, top, _ = cam.TILE_OPS[op]
     per = res + top
     wb = p["brows"] * p["kc"]
     pair = NC * (p["kc"] * res + p["knh"] * top)
@@ -87,7 +97,11 @@ SMEM = {("f3b", STEPS_CAM): (204588, 139584),
         ("f1b", STEPS_CAM): (136216, 139584),
         ("f1b", PYRAMID_CAM): (89496, 104064),
         ("f2b", STEPS_CAM): (200024, 116032),
-        ("f2b", PYRAMID_CAM): (130456, 90752)}
+        ("f2b", PYRAMID_CAM): (130456, 90752),
+        ("f1", STEPS_CAM): (133952, 0),
+        ("f1", PYRAMID_CAM): (88192, 0),
+        ("f3", STEPS_CAM): (159148, 0),
+        ("f3", PYRAMID_CAM): (103724, 0)}
 
 
 @pytest.mark.parametrize("op,shape", by_op(SHAPES))
@@ -127,21 +141,47 @@ def test_f3b_refuses_what_does_not_fit():
     assert p["smem0"] > cam.SMEM_MAX
 
 
-@pytest.mark.parametrize("op", ["f1b", "f2b"])
+@pytest.mark.parametrize("op", ["f1b", "f2b", "f1", "f3"])
 def test_tile_refuses_what_does_not_fit(op):
     """The same geometry for F1b (its dx kernel's dr rows and dc halo,
-    231 KB, do not fit) and F2b (its phase 0 does not)."""
-    p = cam.tile_plan(op, 1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40)
+    231 KB, do not fit), F2b and F3 (their phase 0 does not); F1 (its
+    halo and weight ring, 209 KB, fit) takes it, and refuses the halo at
+    a largest dilation of 8 (212 KB of halo), as F1b does."""
+    dils = (1, 2, 3, 4, 5, 8) if op == "f1" else (1, 2, 3, 4, 5, 6)
+    p = cam.tile_plan(op, 1, 32, 32, 163, dils, 40)
     assert max(p["smem0"], p["smem1"]) > cam.SMEM_MAX
+    if op == "f1":
+        assert cam.tile_plan(op, 1, 32, 32, 163, (1, 2, 3, 4, 5, 6),
+                             40)["smem0"] <= cam.SMEM_MAX
 
 
-@pytest.mark.parametrize("bhw", [(16, 113, 113), (16, 57, 57),
-                                 (16, 29, 29), (3, 29, 21), (1, 5, 30),
-                                 (2, 9, 13), (1, 8, 8)])
-def test_f3b_tiles_cover_each_pixel_once(bhw):
+REFUSED = [(1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40),
+           (1, 32, 32, 163, (1, 2, 3, 4, 5, 8), 40)]
+
+
+@pytest.mark.parametrize("op,shape", by_op(SHAPES + REFUSED, ("f1", "f3")))
+def test_forward_fits_where_its_backward_does(op, shape):
+    """A forward's shared memory is at most its backward's (the larger of
+    its two phases), so the forward refuses only where the backward
+    refuses too: the training path needs both."""
+    fwd, bwd = cam.tile_plan(op, *shape), cam.tile_plan(op + "b", *shape)
+    assert fwd["smem1"] == fwd["w1_elems"] == 0
+    assert fwd["smem0"] <= max(bwd["smem0"], bwd["smem1"])
+    if fwd["smem0"] > cam.SMEM_MAX:
+        assert max(bwd["smem0"], bwd["smem1"]) > cam.SMEM_MAX
+
+
+BHW = [(16, 113, 113), (16, 57, 57), (16, 29, 29), (3, 29, 21), (1, 5, 30),
+       (2, 9, 13), (1, 8, 8)]
+
+
+@pytest.mark.parametrize("op,bhw", [
+    pytest.param(op, bhw, id=f"bhw{k}" if op == "f3b" else f"{op}-bhw{k}")
+    for op in ("f3b", "f1", "f3") for k, bhw in enumerate(BHW)])
+def test_f3b_tiles_cover_each_pixel_once(op, bhw):
     b, h, w = bhw
     tiles = f3b_tiles(b, h, w)
-    p = cam.tile_plan("f3b", b, h, w, 8, (1,), 8)
+    p = cam.tile_plan(op, b, h, w, 8, (1,), 8)
     assert len(tiles) == p["n_tiles"] == b * p["tpi"]
     seen = np.zeros((b, h, w), np.int64)
     for t, (img, y0, x0) in enumerate(tiles):
@@ -167,7 +207,7 @@ def _weights(shape, seed, exact=True):
 
 def _op_weights(op, kr, kh, kt):
     """The weights ``op`` takes (the wrappers pass None for the others)."""
-    res, top = cam.TILE_OPS[op]
+    res, top, _ = cam.TILE_OPS[op]
     return kr if res else None, kh, kt if top else None
 
 
@@ -175,12 +215,11 @@ def _op_weights(op, kr, kh, kt):
 def test_f3b_weights_unpad_to_the_inputs(op, shape):
     _, _, _, c, dils, hc = shape
     nb, nh = len(dils), len(dils) * hc
-    res, top = cam.TILE_OPS[op]
+    res, top, bb = cam.TILE_OPS[op]
     kr, kh, kt = _weights(shape, 3, exact=False)
     w0, w1 = cam._tile_weights(op, *_op_weights(op, kr, kh, kt))
     p = cam.tile_plan(op, *shape)
-    assert w0.dtype == w1.dtype == torch.bfloat16
-    assert w0.numel() == p["w0_elems"] and w1.numel() == p["w1_elems"]
+    assert w0.dtype == torch.bfloat16 and w0.numel() == p["w0_elems"]
 
     def stage(s):
         off, rows, kw = stage0(p, nb, s, op)
@@ -196,7 +235,7 @@ def test_f3b_weights_unpad_to_the_inputs(op, shape):
         for tap in range(9):
             block, _, _ = stage(9 * i + tap)
             check(block, kh[i, tap // 3, tap % 3].t())
-        if top:
+        if bb:
             block, _, _ = stage(9 * nb + per * p["nchr"] + i)
             check(block, kt[i])
     ktf = kt.reshape(nh, c)
@@ -207,6 +246,10 @@ def test_f3b_weights_unpad_to_the_inputs(op, shape):
             check(stage(s)[0], kr[:, n0:n1].t())
         if top:
             check(stage(s + res)[0], ktf[:, n0:n1].t())
+    if not op.endswith("b"):
+        assert w1 is None and p["w1_elems"] == 0
+        return
+    assert w1.dtype == torch.bfloat16 and w1.numel() == p["w1_elems"]
     nxr, khc = p["nxr"], p["khc"]
     st = w1.reshape(p["nchx"], p["nst1"], nxr, khc)
     assert p["nksr"] == (-(-p["kc"] // khc) if res else 0)
@@ -247,23 +290,38 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
     backward, tile by tile as it stages them: one halo of x (padded to
     kc) per tile, each tap's 8 x 8 rows gathered from it, each stage's
     weights sliced from w0 at its offset.  float32: the branch convs "c"
-    (B, H, W, nb, hc); x kr "res" (f1b, f3b); a kt "top" (f2b, f3b; a
-    (B, H, W, NH) given, or acts(c))."""
+    (B, H, W, nb, hc); x kr "res" (f1, f3, f1b, f3b); a kt "top" (f3,
+    f2b, f3b; a (B, H, W, NH) given, or acts(c)).  For f1 also "part",
+    F1's epilogue: per tile the row [S_r (2C) | S_h (2 NH) | sum of x
+    (C)], the sums of bf16(x kr) and of each bf16(c) and their squares
+    over the tile's rows in the image (a row outside it is masked: its
+    taps can reach into the image), and x summed over the halo's 64
+    centre rows."""
     b, h, w, c, dils, hc = shape
     nb = len(dils)
-    res, top = cam.TILE_OPS[op]
+    res, top, _ = cam.TILE_OPS[op]
     p = cam.tile_plan(op, *shape)
     kc, dm, hs, per = p["kc"], p["dmax"], p["hs"], res + top
     xpad = F.pad(x, (0, kc - c))
+    sums = op == "f1"
+    nh = nb * hc
 
     def weight(s):
         off, n, kw = stage0(p, nb, s, op)
         return w0[off:off + n * kw].float().reshape(n, kw)
 
+    def colsums(t, col_sum, col_sq, rows, y0, x0):
+        inside = torch.tensor([y0 + r // 8 < h and x0 + r % 8 < w
+                               for r in range(64)])
+        v = torch.where(inside[:, None], cam._bf(rows), torch.zeros(()))
+        part[t, col_sum:col_sum + v.shape[1]] = v.sum(0)
+        part[t, col_sq:col_sq + v.shape[1]] = (v * v).sum(0)
+
     conv = torch.zeros(b, h, w, nb, hc)
     out = {"c": conv}
     tiles = f3b_tiles(b, h, w)
-    for img, y0, x0 in tiles:
+    part = torch.zeros(len(tiles), 3 * c + 2 * nh)
+    for t, (img, y0, x0) in enumerate(tiles):
         hx_ = _halo(xpad[img], y0, x0, dm, hs)
         for i, d in enumerate(dils):
             acc = torch.zeros(64, p["brows"])
@@ -272,6 +330,12 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
                 rows = hx_[dm + dy:dm + dy + 8, dm + dx:dm + dx + 8]
                 acc = acc + rows.reshape(64, -1) @ weight(9 * i + tap).t()
             _put(conv[..., i, :], img, y0, x0, acc[:, :hc])
+            if sums:
+                colsums(t, 2 * c + 2 * i * hc, 2 * c + (2 * i + 1) * hc,
+                        acc[:, :hc], y0, x0)
+        if sums:
+            centre = hx_[dm:dm + 8, dm:dm + 8].reshape(64, -1)
+            part[t, 2 * c + 2 * nh:] = centre[:, :c].sum(0)
     if top and a is None:
         a = acts(conv)
     for name, on, src, k in (("res", res, xpad, 0),
@@ -280,15 +344,19 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
             continue
         srcp = F.pad(src, (0, (kc if k == 0 else p["knh"]) - src.shape[3]))
         prod = torch.zeros(b, h, w, c)
-        for img, y0, x0 in tiles:
+        for t, (img, y0, x0) in enumerate(tiles):
             rows = _tile_rows(srcp[img], y0, x0)
             for ch in range(p["nchr"]):
                 s = 9 * nb + per * ch + (k if res else 0)
                 n0 = ch * NC
-                part = rows @ weight(s).t()
+                prod_rows = rows @ weight(s).t()
                 n1 = min(c, n0 + NC)
-                _put(prod[..., n0:n1], img, y0, x0, part[:, :n1 - n0])
+                _put(prod[..., n0:n1], img, y0, x0, prod_rows[:, :n1 - n0])
+                if sums:
+                    colsums(t, n0, c + n0, prod_rows[:, :n1 - n0], y0, x0)
         out[name] = prod
+    if sums:
+        out["part"] = part
     return out, p
 
 
@@ -314,7 +382,7 @@ def _dx_walk(op, shape, dr, dcp, w1):
     branch padded to khc) per tile, each transposed tap's rows gathered
     from it against kh[i, tap].  float32 (B, H, W, C), before rounding."""
     b, h, w, c, dils, hc = shape
-    res, _ = cam.TILE_OPS[op]
+    res = cam.TILE_OPS[op][0]
     p = cam.tile_plan(op, *shape)
     kc, khc, dm, hs = p["kc"], p["khc"], p["dmax"], p["hs"]
     dx = torch.zeros(b, h, w, c)
@@ -352,7 +420,7 @@ def _ints(rng, lo, hi, *shape):
     return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES))
+@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES, BWD_OPS))
 def test_f3b_tile_walk_matches_plain_on_exact_sums(op, shape):
     """Exact-sum inputs: the walk's float32 products equal the plain
     convolutions bitwise, so the halo gathers, the tap shifts (forward
@@ -362,7 +430,7 @@ def test_f3b_tile_walk_matches_plain_on_exact_sums(op, shape):
     F3b) and dx."""
     b, h, w, c, dils, hc = shape
     nb = len(dils)
-    res, top = cam.TILE_OPS[op]
+    res, top, _ = cam.TILE_OPS[op]
     kr, kh, kt = _weights(shape, 5)
     rng = np.random.default_rng(6)
     x = _ints(rng, -1, 2, b, h, w, c)
@@ -451,3 +519,119 @@ def test_tile_dx_walk_matches_the_plain_backwards(op, shape):
         want = cam.cam_f2_bwd_plain(xb, kh, kt, bnh, dst, dils)[0]
     assert bool((want != 0).any())
     assert torch.equal(got, want)
+
+
+def _forward_case(shape, seed):
+    """Exact-sum inputs of F1 and F3: x and the weights in {-1, 0, 1},
+    BN rows exact in bf16 with exact products, dyadic gates of both
+    signs."""
+    b, h, w, c, dils, hc = shape
+    kr, kh, kt = _weights(shape, seed)
+    rng = np.random.default_rng(seed + 1)
+    return {"x": _ints(rng, -1, 2, b, h, w, c).to(torch.bfloat16),
+            "kr": kr, "kh": kh, "kt": kt,
+            "bnr": _bn_rows_exact(rng, 1, c),
+            "bnh": _bn_rows_exact(rng, len(dils), hc),
+            "bnt": _bn_rows_exact(rng, 1, c), "gate": _dyadic(rng, b, c)}
+
+
+def _forward_walk(op, shape, k):
+    """F1's (s_r, s_h, gap) from its per-tile rows summed over the tiles
+    (gap per image: its tiles are contiguous), or F3's (out,) from the
+    products with the kernel's epilogue, bf16(relu(relu(BN_r(bf16 res)) +
+    relu(BN_t(bf16 top)) gate[b]))."""
+    b, h, w, c, dils, hc = shape
+    nb = len(dils)
+    w0, w1 = cam._tile_weights(op, *_op_weights(op, k["kr"], k["kh"],
+                                                k["kt"]))
+    assert w1 is None
+    x = k["x"].float()
+    bf = cam._bf
+    if op == "f1":
+        out, p = _phase0_walk(op, shape, x, w0)
+        part = out["part"]
+        return (part[:, :2 * c].sum(0).reshape(2, c),
+                part[:, 2 * c:2 * c + 2 * nb * hc].sum(0).reshape(2 * nb, hc),
+                part[:, 2 * c + 2 * nb * hc:].reshape(b, p["tpi"], c).sum(1))
+    mean, inv, scale, bias = (k["bnh"][j::4] for j in range(4))
+
+    def acts(conv):
+        z = (bf(conv) - mean) * inv * scale + bias
+        return bf(torch.relu(z)).reshape(b, h, w, nb * hc)
+
+    def bn_relu(v, rows):
+        return torch.relu((bf(v) - rows[0]) * rows[1] * rows[2] + rows[3])
+
+    out, _ = _phase0_walk(op, shape, x, w0, acts=acts)
+    pre = bn_relu(out["res"], k["bnr"]) \
+        + bn_relu(out["top"], k["bnt"]) * k["gate"][:, None, None, :]
+    return (torch.relu(pre).to(torch.bfloat16),)
+
+
+def _forward_args(op, k, dils):
+    names = {"f1": ("x", "kr", "kh"),
+             "f3": ("x", "kr", "kh", "kt", "bnr", "bnh", "bnt", "gate")}[op]
+    return [k[n] for n in names] + [dils]
+
+
+@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES, ("f1", "f3")))
+def test_tile_forward_walk_matches_the_plain_forwards(op, shape):
+    """F1 and F3 walked tile by tile on exact-sum inputs, each with its
+    kernel's epilogue (F1's per-tile sums masked to the image's rows and
+    reduced over the tiles, F3's output with the bf16 roundings and the
+    BN and gate order): equal to ``cam_f1_fwd_plain``'s (s_r, s_h, gap)
+    and ``cam_f3_fwd_plain``'s out bitwise."""
+    k = _forward_case(shape, 12)
+    got = _forward_walk(op, shape, k)
+    plain = {"f1": cam.cam_f1_fwd_plain, "f3": cam.cam_f3_fwd_plain}[op]
+    want = plain(*_forward_args(op, k, shape[4]))
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape, i
+        assert bool((w_ != 0).any()), i
+        assert torch.equal(g_, w_), i
+
+
+@pytest.mark.parametrize("op", ["f1", "f3"])
+def test_tile_forward_walk_matches_pallas_interpret(op):
+    """The same walks against the TPU kernels they replace
+    (``pallas_cam.py:_f1_call`` / ``_f3_call``, interpret mode) on a
+    ragged exact-sum shape whose largest dilation (9) is larger than a
+    tile side: bitwise."""
+    shape = (1, 11, 19, 12, (1, 9), 3)
+    k = _forward_case(shape, 21)
+    got = _forward_walk(op, shape, k)
+
+    def jx(t):
+        dt = jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32
+        return jnp.asarray(t.float().numpy()).astype(dt)
+
+    fn = {"f1": pc._f1_call, "f3": pc._f3_call}[op]
+    args = _forward_args(op, k, shape[4])
+    want = fn(*[jx(t) for t in args[:-1]], shape[4])
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        w_ = torch.from_numpy(np.array(w_.astype(jnp.float32)))
+        assert g_.shape == w_.shape, i
+        assert bool((w_ != 0).any()), i
+        assert torch.equal(g_.float(), w_), i
+
+
+@pytest.mark.parametrize("op,shape", by_op(SHAPES, ("f1", "f3")))
+def test_forward_weights_are_the_backwards_phase0_weights(op, shape):
+    """F1's re-laid w0 is F1b's; F3's is F3b's before its last nb stages
+    (kt[i], the branch backward's), so its stage offsets are F3b's."""
+    kr, kh, kt = _weights(shape, 4, exact=False)
+    w0, w1 = cam._tile_weights(op, *_op_weights(op, kr, kh, kt))
+    wb0, _ = cam._tile_weights(op + "b", *_op_weights(op + "b", kr, kh, kt))
+    assert w1 is None
+    nb = len(shape[4])
+    pf, pb = cam.tile_plan(op, *shape), cam.tile_plan(op + "b", *shape)
+    assert pf["nst0"] == pb["nst0"] - nb * cam.TILE_OPS[op + "b"][2]
+    assert torch.equal(w0, wb0[:w0.numel()])
+    assert w0.numel() == (wb0.numel() if op == "f1"
+                          else stage0(pb, nb, pb["nst0"] - nb, op + "b")[0])
+    for s_ in range(pf["nst0"]):
+        assert stage0(pf, nb, s_, op) == stage0(pb, nb, s_, op + "b")
