@@ -56,7 +56,10 @@ Phases, each of which fails the run:
     2^-5 of the output's largest magnitude (sum-order flips of bf16
     roundings compound along the chain; the worst relative error and
     the share of elements that differ are printed); bitwise equal on
-    inputs whose every conv sum is exact in float32;
+    inputs whose every conv sum is exact in float32 (with and without
+    K splits) and from one run to the next; the kernel's plan
+    (``basicblock_chain_plan``) equal to ``ops/blocks.py:chain_plan`` at
+    the six B x shape cases;
 14. the full-width W48 packed (BN-folded) forward on the card: float32
     with the chains on cuDNN against the canonical float32 forward
     (TF32 off) within 1e-3, as phase 8; bf16 with ``pallas_chains=True``
@@ -72,15 +75,15 @@ Phases, each of which fails the run:
     ``stream``, the same way;
 16. timings: the chain kernel, its plain version and one cuDNN bf16
     conv (the library yardstick, x 2n per chain) at B = 8 and 1 for each
-    branch shape; the forward at batch 1 and 8 for the canonical, the
+    branch shape, each with its TFLOP/s, and the chain kernels' ``ptxas``
+    lines; the forward at batch 1 and 8 for the canonical, the
     packed and the packed + chains forwards; the packed predictor's
     end-to-end rates and its ``torch.profiler`` view;
 17. the six fused-CAM kernels against their plain versions (float32
     convs, TF32 off) at the train step's two CAM shapes, B=16, 113 x 113
     x 163 (dilations 1-3) and x 83 (1-4), and a ragged (3, 29, 21, 83)
-    case with per-image gates of both signs (F1, F3 and the backwards
-    F1b, F2b and F3b on the 8 x 8 tiles of ``csrc/cam_tile.cuh``, F2 on
-    64-pixel tiles): forward statistics within 2^-8 of their largest
+    case with per-image gates of both signs (all six on the 8 x 8 tiles
+    of ``csrc/cam_tile.cuh``): forward statistics within 2^-8 of their largest
     magnitude, every other output within the ``CAM_*`` limits (worst
     element, mean, share off); bitwise equal on exact-sum inputs;
 18. the slice's main path: 5 train steps of
@@ -96,9 +99,9 @@ Phases, each of which fails the run:
     ``torch.profiler`` view of one fused step;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
     CAM's train-mode forward (or forward + backward) at both shapes, and
-    the per-launch breakdown under ``torch.profiler`` of F1 and F3 (the
-    tile kernel, F1's reductions, the wrapper's padding and weight
-    re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
+    the per-launch breakdown under ``torch.profiler`` of F1, F2 and F3
+    (the tile kernel, F1's and F2's reductions, the wrapper's padding and
+    weight re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper).
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
@@ -148,8 +151,8 @@ TRAIN_LOSS_TOL = 1e-3
 STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
 PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
-# the kernels of the tiled ops (the forwards F1 and F3: the tile kernel and
-# F1's reductions; the backwards: phase 0, dx, the dkh and dkr / dkt
+# the kernels of the tiled ops (the forwards: the tile kernel and F1's and
+# F2's reductions; the backwards: phase 0, dx, the dkh and dkr / dkt
 # weight gradients, the reductions), for their per-launch breakdown under
 # torch.profiler; "other" is the wrapper's padded x and re-laid weights
 TILE_PARTS = {name: (phase0, dx, "wgrad_kernel<5>", "wgrad_kernel<7>",
@@ -160,6 +163,7 @@ TILE_PARTS = {name: (phase0, dx, "wgrad_kernel<5>", "wgrad_kernel<7>",
                    "dx_kernel<false, false>"),
                   ("cam_f3_bwd", "f3b_tile_kernel", "dx_kernel<true, false>"))}
 TILE_PARTS["cam_f1_fwd"] = ("f1_tile_kernel", "reduce_rows_kernel")
+TILE_PARTS["cam_f2_fwd"] = ("f2_tile_kernel", "reduce_rows_kernel")
 TILE_PARTS["cam_f3_fwd"] = ("f3_tile_kernel",)
 CAM_REPLACES = {"cam_f1_fwd": 558, "cam_f1_bwd": 580, "cam_f2_fwd": 609,
                 "cam_f2_bwd": 627, "cam_f3_fwd": 655, "cam_f3_bwd": 675}
@@ -305,8 +309,9 @@ def entry_name(mangled: str) -> str:
         m = re.match(r"\d+", mangled[pos:])
         n = int(m.group(0))
         pos += len(m.group(0))
-        parts.append(mangled[pos:pos + n].replace("_GLOBAL__N_1",
-                                                  "(anonymous)"))
+        part = mangled[pos:pos + n]
+        parts.append("(anonymous)" if part.startswith("_GLOBAL__N_")
+                     else part)
         pos += n
     if not parts:
         return mangled
@@ -956,19 +961,33 @@ def phase_chain(blk_mod, set_tf32, dev) -> dict:
         share = max(share, float((diff > 0).float().mean()))
         if shape[0] == 8 and n == 4:
             errs[shape[3]] = float(diff.max())
-    for shape, n in (((2, 12, 20, 96), 4), ((1, 20, 20, 384), 2)):
+    for shape, n in (((2, 12, 20, 96), 4), ((1, 20, 20, 384), 2),
+                     ((1, 40, 40, 192), 2), ((8, 80, 80, 96), 1)):
         x, w, b = chain_inputs(shape, n, SEED + n, dev, exact=True)
         got = blk_mod.basicblock_chain(x, w, b)
+        again = blk_mod.basicblock_chain(x, w, b)
         with torch.backends.cudnn.flags(enabled=False):
             want = blk_mod.basicblock_chain_plain(x, w, b)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"chain {shape} n={n} differs from "
               "plain on exact sums")
+        check(torch.equal(got, again), f"chain {shape} n={n}: two runs "
+              "differ")
+    plans = {}
+    for shape in [(b_, *hwc) for hwc in BRANCHES for b_ in (1, 8)]:
+        want = blk_mod.chain_plan(*shape)
+        got = blk_mod.chain_plan_c(*shape)
+        check(got == {k: want[k] for k in got}, f"chain plan at {shape}: C "
+              f"{got}, Python {want}")
+        plans["x".join(map(str, shape))] = {
+            k: want[k] for k in ("bn", "tiles_m", "tiles_n", "splits",
+                                 "blocks", "smem")}
     print(f"basicblock_chain: {len(cases)} cases within {CHAIN_TOL} of max "
           f"|plain|, worst {worst:.4g}, at most {share:.3f} of elements "
-          f"differ; bitwise equal on exact sums", flush=True)
+          f"differ; bitwise equal on exact sums and run to run; C and "
+          f"Python plans agree: {plans}", flush=True)
     return {"worst_rel": worst, "max_share_differing": share,
-            "max_abs_err_b8_n4": errs}
+            "max_abs_err_b8_n4": errs, "plans": plans}
 
 
 def phase_packed_forward(hrnet, packed, blk_mod, state, dev):
@@ -1104,16 +1123,23 @@ def chain_times(blk_mod, hwc, b: int, dev) -> dict:
     conv_ms = device_ms(lambda: F.conv2d(xc, w1, b1, padding=1), 50)
     n_ops = 2 * b * h * w * 9 * c * c * 2 * n
     n_bytes = 2 * b * h * w * c * 2 + wt.numel() * 2 + bs.numel() * 4
-    return {"ms": device_ms(lambda: blk_mod.basicblock_chain(x, wt, bs), 20),
-            "plain_ms": device_ms(
-                lambda: blk_mod.basicblock_chain_plain(x, wt, bs), 5),
-            "library_ms": conv_ms * 2 * n, "library": "cuDNN F.conv2d bf16 "
-            "channels_last with bias, one conv x 2n", "library_conv_ms":
-            conv_ms, **bound(n_bytes, n_ops, BF16_OPS_PER_S),
-            "shape": [b, h, w, c, n]}
+    ms = device_ms(lambda: blk_mod.basicblock_chain(x, wt, bs), 20)
+    plain_ms = device_ms(lambda: blk_mod.basicblock_chain_plain(x, wt, bs),
+                         5)
+    times = {"ms": ms, "plain_ms": plain_ms, "library_ms": conv_ms * 2 * n}
+    return {**times, "library": "cuDNN F.conv2d bf16 channels_last with "
+            "bias, one conv x 2n", "library_conv_ms": conv_ms,
+            "tflops": {k: n_ops / (v * 1e9) for k, v in times.items()},
+            **bound(n_bytes, n_ops, BF16_OPS_PER_S),
+            "plan": blk_mod.chain_plan(b, h, w, c), "shape": [b, h, w, c, n]}
 
 
-def chain_rows(blk_mod, by_shape, chain_errs, dev) -> list:
+def chain_rows(blk_mod, by_shape, chain_errs, ptxas, dev) -> list:
+    """One row per branch shape: times at B=8 (and B=1 under ``at_b1``)
+    with TFLOP/s beside each, and the ``ptxas`` report of the chain's
+    kernels."""
+    kern = {k.split(": ", 1)[1]: v for k, v in ptxas.items()
+            if k.startswith("basicblock_chain: ")}
     rows = []
     for hwc in BRANCHES:
         key = "x".join(map(str, hwc))
@@ -1124,7 +1150,13 @@ def chain_rows(blk_mod, by_shape, chain_errs, dev) -> list:
                      "path": "packed_forward(pallas_chains=True)",
                      "max_abs_err": chain_errs["max_abs_err_b8_n4"][hwc[2]],
                      **chain_times(blk_mod, hwc, 8, dev),
-                     "at_b1": chain_times(blk_mod, hwc, 1, dev)})
+                     "at_b1": chain_times(blk_mod, hwc, 1, dev),
+                     "ptxas": kern})
+    print("chain ms / TFLOP/s (B=8; B=1): " + "; ".join(
+        f"{r['name']}: {r['ms']:.4f} / {r['tflops']['ms']:.1f} "
+        f"(cuDNN {r['library_ms']:.4f}); {r['at_b1']['ms']:.4f} / "
+        f"{r['at_b1']['tflops']['ms']:.1f} (cuDNN "
+        f"{r['at_b1']['library_ms']:.4f})" for r in rows), flush=True)
     return rows
 
 
@@ -1423,8 +1455,13 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
            "plain_calls": plain_calls, "peak_bytes": peak,
            "labels": train_mod.label_params(model.named_parameters())}
     if profile:
-        out["profile"] = device_profile(lambda: step(state, batch),
-                                        ("cam::",))
+        # the CAM kernels together, then each tile kernel and the weight
+        # gradients by name
+        out["profile"] = device_profile(
+            lambda: step(state, batch),
+            ("cam::", "f1_tile", "f2_tile", "f3_tile", "f1b_tile",
+             "f2b_tile", "f3b_tile", "dx_kernel", "wgrad_kernel<5>",
+             "wgrad_kernel<7>", "reduce_rows"))
     return out
 
 
@@ -1538,9 +1575,8 @@ def cam_yardstick(students_mod, shape, dev) -> dict:
 
 def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
     """One row per CAM kernel: at the steps' shape, and at the pyramid's
-    full-resolution shape under ``at_pyramid_hi``; the rows of the tiled
-    ops (all but F2) also carry their per-launch breakdown at both shapes
-    (ms by kernel)."""
+    full-resolution shape under ``at_pyramid_hi``; each row also carries
+    its per-launch breakdown at both shapes (ms by kernel)."""
     per_shape, breakdown = {}, {}
     for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM)):
         yard = cam_yardstick(students_mod, shape, dev)
@@ -1646,7 +1682,7 @@ def main() -> None:
                                costs, errs, top_k)
     pred_p, packed_launches, by_shape, served = phase_packed_path(
         PosePredictor, hrnet, packed_mod, state, counters, dev)
-    kernels += chain_rows(blk_mod, by_shape, chain_errs, dev)
+    kernels += chain_rows(blk_mod, by_shape, chain_errs, build["ptxas"], dev)
     cam_errs = phase_cam(cam_mod, set_tf32, dev)
     train = phase_train((factory_mod, students_mod), train_mod, cam_mod,
                         state, dev)

@@ -1,28 +1,21 @@
 // Shared core of the fused ContextAwareModule (CAM) kernels, CUDA C++ for
-// sm_90a: cam_f1.cu, cam_f2.cu and cam_f3.cu include it (through
-// cam_tile.cuh, the 2-D tile kernels of F1, F3 and the three backwards,
-// which builds on it).
+// sm_90a: cam_f1.cu, cam_f2.cu and cam_f3.cu include it through
+// cam_tile.cuh, the 2-D tile kernels of the six ops, which build on it.
 //
 // The TPU kernels (rtpe_tpu/ops/pallas_cam.py) keep one zero-padded image
 // in VMEM and walk it in 16-row bands, grid (B, bands) or (B, phase,
 // bands), carrying every reduction in an output block across grid steps.
 // One 113 x 113 x 163 bf16 image is 4.2 MB, far above the 227 KB of shared
 // memory a block has, and grid steps here run in parallel and in no order.
-// So the port tiles the pixels instead.  The forward F2 keeps the first
-// design, here (F1, F3 and the backwards moved onto cam_tile.cuh's 8 x 8
-// tiles):
-//   - a tile is 64 consecutive pixels of one image (the last tile of an
-//     image is ragged and masked), so a per-tile partial is also a
-//     per-image partial (the GAP needs that);
-//   - a conv tap stages the tile's 64 shifted pixel rows (zero outside the
-//     image, any dilation) and the tap's weights in shared memory and runs
-//     one implicit-GEMM step on the tensor cores (mma.sync m16n8k16,
-//     bf16 in, f32 accumulators), 4 warps x 16 pixel rows;
-//   - odd channel counts (C = 83 / 163, hc = 20 / 40) are padded inside
-//     the kernel: K to a multiple of 16 and N to whole n8 tiles, with zeros
-//     in shared memory, never in the tensors;
-//   - the output channels of a 1x1 conv go in chunks of NC = 56.
-// Shared by every op:
+// So the port tiles the pixels instead (cam_tile.cuh: 8 x 8 pixels of one
+// image a block, so a per-tile partial is also a per-image partial, as the
+// GAP needs).  Here, what every op shares:
+//   - the geometry of a call (Geo): odd channel counts (C = 83 / 163,
+//     hc = 20 / 40) are padded to multiples of 16 for K, and N to whole n8
+//     tiles, with zeros the wrapper and the kernels stage, never changing
+//     the caller's tensors; the output channels of a 1x1 conv go in
+//     chunks of NC = 56;
+//   - the mma.sync m16n8k16 bf16 -> f32 step and its fragment layout;
 //   - every reduction over pixels (batch statistics, the BN parameters'
 //     gradients, the gate's gradient) is a per-tile partial written to
 //     global memory and summed over tiles in a fixed order by
@@ -41,7 +34,8 @@
 // elementwise BN and cotangent arithmetic uses the _rn intrinsics in the
 // JAX order, so the compiler contracts nothing into an FMA.
 //
-// Later work: move F2 onto cam_tile.cuh's tiles, and feed wgmma from TMA.
+// Later work: wgrad_kernel's pixel rows staged one bf16 per lane, and
+// wgmma in place of mma.sync.
 
 #pragma once
 
@@ -72,9 +66,8 @@ constexpr int NRED = 5;           // column sums per chunk at most
 struct Geo {
   int B, H, W, C, nb, hc;
   int HW, M, NH;
-  int tpi, n_tiles;   // tiles per image, tiles
   int kc, knh, khc;   // C, NH, hc padded to 16
-  int xp, nhp;        // shared pitches (bf16): kc + 8, knh + 8
+  int nhp;            // shared pitch (bf16) of sA: knh + 8
   int dil[NB_MAX];
 };
 
@@ -93,12 +86,9 @@ inline bool make_geo(const int *g, Geo *o) {
   r.HW = r.H * r.W;
   r.M = r.B * r.HW;
   r.NH = r.nb * r.hc;
-  r.tpi = (r.HW + TP - 1) / TP;
-  r.n_tiles = r.B * r.tpi;
   r.kc = up16(r.C);
   r.knh = up16(r.NH);
   r.khc = up16(r.hc);
-  r.xp = r.kc + 8;
   r.nhp = r.knh + 8;
   *o = r;
   return true;
@@ -205,52 +195,6 @@ __device__ __forceinline__ int src_row(const Geo &g, int b, int q, int dy,
   return b * g.HW + y * g.W + x;
 }
 
-// dst[r][k] = src[pixel (b, p0 + r) shifted][c0 + k] for k < ncols, zero
-// for ncols <= k < kpad and outside the image.
-__device__ __forceinline__ void stage_rows(bf16 *dst, int pitch,
-                                           const bf16 *src, int ld, int c0,
-                                           int ncols, int kpad, const Geo &g,
-                                           int b, int p0, int dy, int dx) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < TP; r += NWARPS) {
-    const int row = src_row(g, b, p0 + r, dy, dx);
-    const bf16 *s = src + static_cast<int64_t>(row < 0 ? 0 : row) * ld + c0;
-    for (int k = lane; k < kpad; k += 32)
-      dst[r * pitch + k] = (row >= 0 && k < ncols) ? s[k] : bzero();
-  }
-}
-
-// dst[n][k] = w[k * ld + n0 + n] for n < npad, k < kpad, zero outside
-// K x N.
-__device__ __forceinline__ void stage_w(bf16 *dst, int pitch, const bf16 *w,
-                                        int ld, int K, int N, int n0,
-                                        int kpad, int npad) {
-  const int total = kpad * npad;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int k = i / npad, n = i - k * npad;
-    const bool ok = k < K && n0 + n < N;
-    dst[n * pitch + k] = ok ? w[static_cast<int64_t>(k) * ld + n0 + n]
-                            : bzero();
-  }
-}
-
-// Column sums of one warp's 16 x (8 NT) fragment tile (rows already masked
-// to 0), in a fixed order, into red_w[col].
-template <int NT>
-__device__ __forceinline__ void warp_colsum(const float (&v)[NT][4],
-                                            float *red_w, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float s = v[j][h] + v[j][2 + h];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (lane < 4) red_w[j * 8 + lane * 2 + h] = s;
-    }
-}
-
 // After a __syncthreads: the four warps' column sums of slot `slot`, in
 // warp order.  red is laid out [warp][SLOTS][NC].
 template <int SLOTS = NRED>
@@ -260,96 +204,6 @@ __device__ __forceinline__ float block_col(const float *red, int slot,
   return ((red[slot * NC + c] + red[s + slot * NC + c]) +
           red[2 * s + slot * NC + c]) +
          red[3 * s + slot * NC + c];
-}
-
-// One dilated 3x3 branch conv of the tile: acc (64 x 40) = sum over taps
-// of shifted x (64 x C) . kh[i, tap] (C x hc).  Starts with a barrier.
-__device__ __forceinline__ void branch_conv(float (&acc)[NTB][4],
-                                            const Geo &g, const bf16 *x,
-                                            const bf16 *kh, int i, int b,
-                                            int p0, bf16 *sX, bf16 *sW) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d = g.dil[i];
-  zero_acc(acc);
-  for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();
-    stage_rows(sX, g.xp, x, g.C, 0, g.C, g.kc, g, b, p0, (tap / 3 - 1) * d,
-               (tap % 3 - 1) * d);
-    stage_w(sW, g.xp, kh + static_cast<int64_t>(i * 9 + tap) * g.C * g.hc,
-            g.hc, g.C, g.hc, 0, g.kc, HC_MAX);
-    __syncthreads();
-    warp_mma<NTB>(acc, sX + warp * 16 * g.xp, g.xp, sW, g.xp, g.kc / 16,
-                  lane);
-  }
-}
-
-// Shared memory of the pixel kernels: sX (TP x xp), sW, sCb and sA
-// (TP x nhp), sD (TP x xp) in bf16, then the column-sum scratch.
-struct PixSmem {
-  bf16 *sX, *sW, *sCb, *sA, *sD;
-  float *red;
-};
-
-__host__ __device__ inline int64_t pix_w_elems(const Geo &g) {
-  const int64_t a = static_cast<int64_t>(HC_MAX) * g.xp;
-  const int64_t b = static_cast<int64_t>(NC) * g.xp;
-  const int64_t c = static_cast<int64_t>(NC) * g.nhp;
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
-}
-
-inline size_t pix_smem_bytes(const Geo &g) {
-  const int64_t el = 2LL * TP * g.xp + 2LL * TP * g.nhp + pix_w_elems(g);
-  return static_cast<size_t>(el * 2 + NWARPS * NRED * NC * 4);
-}
-
-// Element counts are even, so every region stays 4-byte aligned.
-__device__ __forceinline__ PixSmem pix_smem(const Geo &g, unsigned char *m) {
-  PixSmem s;
-  bf16 *w = reinterpret_cast<bf16 *>(m);
-  s.sX = w; w += TP * g.xp;
-  s.sD = w; w += TP * g.xp;
-  s.sCb = w; w += TP * g.nhp;
-  s.sA = w; w += TP * g.nhp;
-  s.sW = w; w += pix_w_elems(g);
-  s.red = reinterpret_cast<float *>(w);
-  return s;
-}
-
-// Branch convs -> sCb = bf16(c), sA = bf16(relu(BN(c))) for all branches
-// (rows past the image hold finite junk that every consumer masks).  bnh
-// is (4 nb, hc) f32, rows [mean, inv, scale, bias] per branch.
-__device__ __forceinline__ void branches_to_smem(const Geo &g, const bf16 *x,
-                                                 const bf16 *kh,
-                                                 const float *bnh, int b,
-                                                 int p0, const PixSmem &s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = 0; i < g.nb; ++i) {
-    float acc[NTB][4];
-    branch_conv(acc, g, x, kh, i, b, p0, s.sX, s.sW);
-#pragma unroll
-    for (int j = 0; j < NTB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = frag_row(warp, lane, e), n = frag_col(lane, j, e);
-        if (n >= g.hc) continue;
-        const float cb = bfr(acc[j][e]);
-        const float *bn = bnh + 4 * i * g.hc + n;
-        const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
-                                 bn[3 * g.hc]);
-        const bf16 ab = f2bf(relu(z));
-        s.sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
-        s.sA[r * g.nhp + i * g.hc + n] = ab;
-      }
-  }
-}
-
-// Zero the K padding of sA (columns NH..knh) and sD (C..kc).
-__device__ __forceinline__ void zero_pads(const Geo &g, const PixSmem &s) {
-  const int pa = g.knh - g.NH, pd = g.kc - g.C;
-  for (int i = threadIdx.x; i < TP * pa; i += THREADS)
-    s.sA[(i / pa) * g.nhp + g.NH + i % pa] = bzero();
-  for (int i = threadIdx.x; i < TP * pd; i += THREADS)
-    s.sD[(i / pd) * g.xp + g.C + i % pd] = bzero();
 }
 
 // ------------------------------------------------------------ kernels
@@ -485,13 +339,6 @@ inline WJob plain_job(const bf16 *u, int ldu, int K, const bf16 *v, int ldv,
   w.u = u; w.ldu = ldu; w.u0 = 0; w.K = K; w.dy = 0; w.dx = 0;
   w.v = v; w.ldv = ldv; w.v0 = 0; w.N = N; w.out_off = out_off;
   return w;
-}
-
-template <typename K>
-cudaError_t set_pix_smem(K kern, const Geo &g) {
-  return cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(pix_smem_bytes(g)));
 }
 
 #define CAM_TRY(expr)                         \

@@ -28,38 +28,6 @@
 namespace cam {
 namespace tile {
 
-// F1's column sums of one epilogue: the masked values v and their squares
-// (NT n8 tiles from the column group's first, jn of them its own) summed
-// over the tile's rows into out[c] and out[c + sq] for c < n, through
-// red ([row warp][2][NC] f32 in the ring buffer of the stage just
-// multiplied, Ring::spent): free from the first barrier (every warp past
-// its MMA) until the next stage starts loading there, after the next
-// stage's barrier.
-constexpr int F1_SLOTS = 2;
-static_assert(NWARPS * F1_SLOTS * NC * 4 <= WROWS * (16 + 8) * 2,
-              "F1's column sums fit the smallest weight buffer");
-
-template <int NT>
-__device__ __forceinline__ void f1_colsums(const float (&v)[NT][4],
-                                           const Lane &L, int j0, int jn,
-                                           float *red, float *out, int sq,
-                                           int n) {
-  float v2[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v2[j][e] = v[j][e] * v[j][e];
-  float *red_w = red + L.wm * F1_SLOTS * NC + j0 * 8;
-  __syncthreads();
-  group_colsum<NT>(v, red_w, L.lane, jn);
-  group_colsum<NT>(v2, red_w + NC, L.lane, jn);
-  __syncthreads();
-  for (int c = threadIdx.x; c < n; c += TT) {
-    out[c] = block_col<F1_SLOTS>(red, 0, c);
-    out[c + sq] = block_col<F1_SLOTS>(red, 1, c);
-  }
-}
-
 // F1 on one 8 x 8 tile: the per-tile partial row [S_r (2C) | S_h (2 NH) |
 // the sum of x (C)], the first two the column sums of bf16(x . kr) and
 // of each branch's bf16(c) and their squares over the tile's pixels in the
@@ -92,8 +60,8 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         v[j][e] = (e < 2 ? in0 : in1) ? bfr(acc[j][e]) : 0.0f;
-    f1_colsums<GB>(v, L, sb.j0, L.wn ? NTB - GB : GB, ring.spent(),
-                   prow + 2 * C + 2 * i * g.hc, g.hc, g.hc);
+    ring_colsums<GB>(v, L, sb.j0, L.wn ? NTB - GB : GB, ring.spent(),
+                     prow + 2 * C + 2 * i * g.hc, g.hc, g.hc);
   });
   constexpr int GC = (NTC + 1) / 2;
   conv1x1_chunks<true, false>(
@@ -105,8 +73,8 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             v[j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
-        f1_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
-                       prow + n0, C, C - n0 < NC ? C - n0 : NC);
+        ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
+                         prow + n0, C, C - n0 < NC ? C - n0 : NC);
       });
   // the sum of x over the halo's 64 centre rows (zero outside the image)
   const bf16 *centre = sH + (t.dmax * t.hs + t.dmax) * xp;

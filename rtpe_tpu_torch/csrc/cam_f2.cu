@@ -10,10 +10,16 @@
 //       dc = dz scale inv, dkh = sum x_tap^T bf16(dc) (phase 0), then
 //       dx = sum_i convT_i(bf16(dc_i)) (phase 1).
 // x (B, H, W, C) bf16, kh (nb, 3, 3, C, hc) bf16, kt (nb, hc, C) bf16,
-// bnh (4 nb, hc) f32 rows [mean, inv, scale, bias] per branch.  F2's
-// design is in cam_core.cuh; F2b (2-D tiles, one halo per tile, 16-byte
-// async copies; cam_tile.cuh) reads x padded to kc channels and the
-// weights re-laid by ops/cam.py:_tile_weights.
+// bnh (4 nb, hc) f32 rows [mean, inv, scale, bias] per branch.  Both (2-D
+// tiles, one halo per tile, 16-byte async copies; cam_tile.cuh) read x
+// padded to kc channels and the weights re-laid by
+// ops/cam.py:_tile_weights; F2's w0 is the prefix of F2b's before its
+// kt[i] stages.  F2 is F2b's phase 0 without the branch backward: the
+// branch convs into sA (shared memory only), the kt^T chunks, and an
+// epilogue that rounds t to bf16 and sums t and t^2 per column over the
+// tile's pixels in the image, through a spent ring buffer
+// (cam_tile.cuh:ring_colsums); the per-tile rows are summed in tile order
+// (reduce_rows), no float atomics.
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F2 does 9 nb C hc + nb hc C = 195.6 K multiply-adds a
@@ -23,6 +29,51 @@
 
 namespace cam {
 namespace tile {
+
+// F2 on one 8 x 8 tile: the per-tile partial row [S_t sums (C) | S_t
+// sums of squares (C)] of t = bf16(a . kt) over the tile's pixels in the
+// image (a pixel outside it is masked: its BN bias and dilated taps make
+// its t nonzero), a = bf16(relu(BN_h(bf16(c)))) kept in shared memory only.
+__global__ void __launch_bounds__(TT, 1)
+f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
+               const bf16 *__restrict__ w0, const float *__restrict__ bnh,
+               float *__restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xp = g.kc + 8, C = g.C;
+  const int wbuf = WROWS * (t.kw0 + 8);
+  bf16 *sH = reinterpret_cast<bf16 *>(smem);
+  bf16 *sW = sH + t.hr * xp;                // NBUF buffers
+  bf16 *sA = sW + NBUF * wbuf;
+  float *sBh = reinterpret_cast<float *>(sA + TP * g.nhp);
+  const Lane L = lane_of(t);
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  float *prow = part + static_cast<int64_t>(blockIdx.x) * 2 * C;
+  Ring ring{w0, sW, wbuf, L.lane, 0};
+
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, nullptr);
+
+  // the lane's fragment rows in the image (e < 2: row r, else r + 8)
+  const bool in0 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 0)) >= 0;
+  const bool in1 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 2)) >= 0;
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
+  constexpr int GC = (NTC + 1) / 2;
+  conv1x1_chunks<false, true>(
+      g, t, ring, 0, tile_row(sA, g.nhp, L), L,
+      [&](int n0, const Split &sc, float (&)[GC][4], float (&at)[GC][4]) {
+        float v[GC][4];
+#pragma unroll
+        for (int j = 0; j < GC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[j][e] = (e < 2 ? in0 : in1) ? bfr(at[j][e]) : 0.0f;
+        ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
+                         prow + n0, C, C - n0 < NC ? C - n0 : NC);
+      });
+}
 
 // Phase 0 of F2b on one 8 x 8 tile: a (M, NH), dt (M, C) and dc
 // (M, nb khc, zero padding columns) in bf16, dt = bf16(dst[0] + 2 t
@@ -89,47 +140,6 @@ f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 namespace cam {
 namespace {
 
-// Per-tile partial row: s_t (2C).
-__global__ void __launch_bounds__(THREADS)
-f2_kernel(Geo g, const bf16 *__restrict__ x, const bf16 *__restrict__ kh,
-          const bf16 *__restrict__ kt, const float *__restrict__ bnh,
-          float *__restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PixSmem s = pix_smem(g, smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = blockIdx.x, b = T / g.tpi, p0 = (T % g.tpi) * TP;
-  const int nvalid = g.HW - p0 < TP ? g.HW - p0 : TP;
-  float *prow = part + static_cast<int64_t>(T) * 2 * g.C;
-
-  zero_pads(g, s);
-  branches_to_smem(g, x, kh, bnh, b, p0, s);
-  for (int n0 = 0; n0 < g.C; n0 += NC) {
-    __syncthreads();
-    stage_w(s.sW, g.nhp, kt, g.C, g.NH, g.C, n0, g.knh, NC);
-    __syncthreads();
-    float acc[NTC][4];
-    zero_acc(acc);
-    warp_mma<NTC>(acc, s.sA + warp * 16 * g.nhp, g.nhp, s.sW, g.nhp,
-                  g.knh / 16, lane);
-    float v1[NTC][4], v2[NTC][4];
-#pragma unroll
-    for (int j = 0; j < NTC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = frag_row(warp, lane, e) < nvalid;
-        v1[j][e] = ok ? bfr(acc[j][e]) : 0.0f;
-        v2[j][e] = v1[j][e] * v1[j][e];
-      }
-    warp_colsum<NTC>(v1, s.red + warp * NRED * NC, lane);
-    warp_colsum<NTC>(v2, s.red + warp * NRED * NC + NC, lane);
-    __syncthreads();
-    for (int c = threadIdx.x; c < NC && n0 + c < g.C; c += THREADS) {
-      prow[n0 + c] = block_col(s.red, 0, c);
-      prow[g.C + n0 + c] = block_col(s.red, 1, c);
-    }
-  }
-}
-
 struct F2bWs {
   bf16 *a, *dt, *dc;
   float *part, *part_h, *part_t;
@@ -158,28 +168,39 @@ F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
+// F2's per-tile partial rows, bytes.
 extern "C" long long cam_f2_workspace(const int *geo) {
   Geo g;
-  if (!make_geo(geo, &g)) return -1;
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F2, &g, &t)) return -1;
   Carve cv(nullptr);
-  cv.take<float>(static_cast<int64_t>(g.n_tiles) * 2 * g.C);
+  cv.take<float>(static_cast<int64_t>(t.n_tiles) * 2 * g.C);
   return cv.off;
 }
 
-// s_t (2, C) f32.
-extern "C" int cam_f2_launch(const int *geo, const void *x, const void *kh,
-                             const void *kt, const void *bnh, void *ws,
+// F2's tile plan (cam_tile.cuh:tile_plan).
+extern "C" long long cam_f2_plan(const int *geo, int what) {
+  return tile::tile_plan(geo, tile::F2, what);
+}
+
+// xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
+// re-laid by ops/cam.py:_tile_weights("f2", ...).  s_t (2, C) f32.
+// ws: cam_f2_workspace(geo) bytes.
+extern "C" int cam_f2_launch(const int *geo, const void *xpad,
+                             const void *w0, const void *bnh, void *ws,
                              void *s_t, void *stream) {
   Geo g;
-  if (!make_geo(geo, &g)) return static_cast<int>(cudaErrorInvalidValue);
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F2, &g, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto *part = static_cast<float *>(ws);
-  CAM_TRY(set_pix_smem(f2_kernel, g));
-  f2_kernel<<<g.n_tiles, THREADS, pix_smem_bytes(g), st>>>(
-      g, static_cast<const bf16 *>(x), static_cast<const bf16 *>(kh),
-      static_cast<const bf16 *>(kt), static_cast<const float *>(bnh), part);
-  CAM_TRY(cudaGetLastError());
-  CAM_TRY(reduce_rows(part, 2 * g.C, 0, 2 * g.C, g.n_tiles, 1,
+  CAM_TRY(tile::launch(tile::f2_tile_kernel, dim3(t.n_tiles),
+                       tile::smem0_bytes(g, t), st, g, t,
+                       static_cast<const bf16 *>(xpad),
+                       static_cast<const bf16 *>(w0),
+                       static_cast<const float *>(bnh), part));
+  CAM_TRY(reduce_rows(part, 2 * g.C, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(s_t), 0, st));
   return 0;
 }

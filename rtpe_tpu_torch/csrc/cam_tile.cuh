@@ -1,11 +1,12 @@
 // The 2-D tile kernels of the fused-CAM ops: the three backwards F1b, F2b
-// and F3b and the forwards F1 and F3, CUDA C++ for sm_90a; cam_f1.cu,
-// cam_f2.cu and cam_f3.cu include this header.
+// and F3b and the three forwards F1, F2 and F3, CUDA C++ for sm_90a;
+// cam_f1.cu, cam_f2.cu and cam_f3.cu include this header.
 //
 // Replaces, with those files, the TPU kernels _f1_call / _f1_kernel,
-// _f3_call / _f3_kernel, _f1b_call / _f1b_kernel, _f2b_call / _f2b_kernel
-// and _f3b_call / _f3b_kernel of rtpe_tpu/ops/pallas_cam.py: each forward
-// in one tile kernel (f1_tile_kernel with its per-tile sums,
+// _f2_call / _f2_kernel, _f3_call / _f3_kernel, _f1b_call / _f1b_kernel,
+// _f2b_call / _f2b_kernel and _f3b_call / _f3b_kernel of
+// rtpe_tpu/ops/pallas_cam.py: each forward in one tile kernel
+// (f1_tile_kernel and f2_tile_kernel with their per-tile sums,
 // f3_tile_kernel), each backward in phase 0, the recompute of the convs it
 // needs with the per-pixel cotangents (f1b_tile_kernel, f2b_tile_kernel,
 // f3b_tile_kernel, each with its per-tile sums), and phase 1, dx
@@ -14,11 +15,11 @@
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
 // 989 TFLOP/s (bf16 dense tensor cores); F1b 3 x 202.6 K, F2b 3 x 195.6 K;
-// F3 222.2 K (0.092 ms), F1 202.6 K (0.084 ms).
-// The first design (cam_core.cuh, kept by the forward F2) stages each
-// tap's 64 shifted pixel rows and its weights one bf16 per lane, with a
-// divide per row and element, 27 times per branch set: ~600 KB of x moved
-// per 64-pixel tile, loads and MMAs never overlapped, and its dx kernel
+// F3 222.2 K (0.092 ms), F1 202.6 K (0.084 ms), F2 195.6 K (0.081 ms).
+// The first design (64 consecutive pixels a block) staged each tap's 64
+// shifted pixel rows and its weights one bf16 per lane, with a divide per
+// row and element, 27 times per branch set: ~600 KB of x moved per
+// 64-pixel tile, loads and MMAs never overlapped, and its dx kernel
 // restaged the dc halo 27 times in each of 3 channel chunks.  What this
 // design does about it:
 //   - a tile is 8 x 8 pixels of one image (tiles numbered image-major, so
@@ -54,17 +55,20 @@
 //     dx: dr kr^T, then branch i, taps 0..8, k-steps over khc, then
 //     F1b's dgap / (H W)) on the same mma.sync m16n8k16 bf16 -> f32 with
 //     the same zero padding, so every per-pixel output (F3's out; dr, a,
-//     dt, dc, dx) and the weight gradients built from them are bitwise
-//     those of the first design; only the per-tile sums (F1's S_r, S_h
-//     and GAP; dS_r, dS_h, dS_t, dgate) add their pixels in another order.
+//     dt, dc, dx; F2's t) and the weight gradients built from them are
+//     bitwise those of the first design; only the per-tile sums (F1's S_r,
+//     S_h and GAP; F2's S_t; dS_r, dS_h, dS_t, dgate) add their pixels in
+//     another order.
 //
-// The five phase-0 kernels (f1_tile_kernel and f1b_tile_kernel in
-// cam_f1.cu, f2b_tile_kernel in cam_f2.cu, f3_tile_kernel and
-// f3b_tile_kernel in cam_f3.cu) share the sections here (branch_convs,
-// conv1x1_chunks, branch_backward, zero_pad_cols) and differ in their
-// epilogues and in which sections they run:
+// The six phase-0 kernels (f1_tile_kernel and f1b_tile_kernel in
+// cam_f1.cu, f2_tile_kernel and f2b_tile_kernel in cam_f2.cu,
+// f3_tile_kernel and f3b_tile_kernel in cam_f3.cu) share the sections here
+// (branch_convs, conv1x1_chunks, branch_backward, ring_colsums,
+// zero_pad_cols) and differ in their epilogues and in which sections they
+// run:
 //
 //   F1:  branch convs -> S_h; kr^T chunks -> S_r; the tile's sum of x
+//   F2:  branch convs -> a (shared memory only); kt^T chunks -> S_t
 //   F3:  branch convs -> a (shared memory only); kr^T and kt^T chunks ->
 //        out = relu(res + y gate[b])
 //   F1b: branch convs -> dc = dsh[2i] + 2 c dsh[2i+1]; kr^T chunks -> dr
@@ -73,17 +77,20 @@
 //        dgate; branch backward -> dc, dS_h
 //
 // A forward is a phase 0 without the branch backward and has no phase 1,
-// so F1's weight stages are F1b's and F3's are F3b's without the last nb
-// (kt[i]); its shared memory is its backward's phase 0 less what it does
-// not run (F1: F1b's cotangent rows, its column sums going through a
-// spent weight buffer; F3: sCb, sD and the column-sum scratch), so a
-// forward takes every geometry its backward takes.
+// so F1's weight stages are F1b's and F2's and F3's are F2b's and F3b's
+// without the last nb (kt[i]); its shared memory is its backward's phase 0
+// less what it does not run (F1: F1b's cotangent rows; F2: sCb, sD, the
+// dst rows and the column-sum scratch; F3: sCb, sD and the column-sum
+// scratch), and F1's and F2's column sums go through a spent weight
+// buffer (Ring::spent, ring_colsums), so a forward takes every geometry
+// its backward takes.
 //
 // Ragged tiles: 113 = 14 x 8 + 1, so 15 x 15 tiles cover a 113 x 113
 // image, 12.8 % more pixels than it has (57^2: 26 %, 29^2: 22 %); a pixel
 // outside the image has zero rows, its outputs are not written and every
-// per-tile sum masks it (its dilated taps can reach into the image, so its
-// convs are not zero).
+// per-tile sum masks it (its dilated taps can reach into the image, and
+// its BN bias alone makes its activations nonzero, so its convs are not
+// zero).
 
 #pragma once
 
@@ -102,13 +109,13 @@ constexpr int NX = NTX * 8;       // output channels of a dx block
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block
 
 // The backwards, then the forwards.
-enum Op { F1B = 1, F2B = 2, F3B = 3, F1 = 4, F3 = 5 };
+enum Op { F1B = 1, F2B = 2, F3B = 3, F1 = 4, F3 = 5, F2 = 6 };
 
 inline int up8(int v) { return (v + 7) / 8 * 8; }
 
 // The tiling of one call; ops/cam.py:tile_plan computes the same.
 struct TGeo {
-  int op;                     // F1B, F2B, F3B, F1 or F3
+  int op;                     // F1B, F2B, F3B, F1, F3 or F2
   int res, top, bb;           // phase 0 runs kr^T chunks, kt^T chunks and
                               // the branch backward
   int bwd;                    // a backward: it has a phase 1 (dx)
@@ -126,8 +133,8 @@ struct TGeo {
 inline TGeo make_tgeo(const Geo &g, int op) {
   TGeo t;
   t.op = op;
-  t.res = op != F2B;
-  t.top = op == F2B || op == F3B || op == F3;
+  t.res = op != F2B && op != F2;
+  t.top = op == F2B || op == F3B || op == F3 || op == F2;
   t.bb = op == F2B || op == F3B;
   t.bwd = op <= F3B;
   t.tiles_x = (g.W + TS - 1) / TS;
@@ -151,20 +158,22 @@ inline TGeo make_tgeo(const Geo &g, int op) {
 }
 
 // Shared memory of phase 0: the x halo (hr x (kc + 8)) and NBUF weight
-// buffers (WROWS x (kw0 + 8)) in bf16; with the top conv (F2b, F3b, F3)
-// also sA (TP x nhp), with the branch backward (F2b, F3b) sCb (TP x nhp)
-// and sD (TP x (kc + 8)); then in f32 the column-sum scratch (NWARPS row
-// warps; F2b, F3b) and the epilogues' rows: F1b dsr (2C) and dsh (2 NH);
-// F2b dst (2C) and bnh (4 NH); F3b and F3 bnr and bnt (4C each), image
-// b's gate (C) and bnh (4 NH).  F1's column sums go through a weight
-// buffer (Ring::spent), so F1 needs F1b's phase 0 less its rows and fits
-// wherever F1b does.
+// buffers (WROWS x (kw0 + 8)) in bf16; with the top conv (F2b, F3b, F3,
+// F2) also sA (TP x nhp), with the branch backward (F2b, F3b) sCb
+// (TP x nhp) and sD (TP x (kc + 8)); then in f32 the column-sum scratch
+// (NWARPS row warps; F2b, F3b) and the epilogues' rows: F1b dsr (2C) and
+// dsh (2 NH); F2b dst (2C) and bnh (4 NH); F2 bnh (4 NH); F3b and F3 bnr
+// and bnt (4C each), image b's gate (C) and bnh (4 NH).  F1's and F2's
+// column sums go through a weight buffer (Ring::spent), so F1 needs F1b's
+// phase 0 less its rows and F2 F2b's less sCb, sD, the dst rows and the
+// scratch: each fits wherever its backward does.
 inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
   const int64_t xp = g.kc + 8;
   int64_t el = t.hr * xp + 1LL * NBUF * WROWS * (t.kw0 + 8);
   int64_t f = t.op == F3B || t.op == F3 ? 9LL * g.C + 4LL * g.NH
               : t.op == F2B             ? 2LL * g.C + 4LL * g.NH
               : t.op == F1B             ? 2LL * g.C + 2LL * g.NH
+              : t.op == F2              ? 4LL * g.NH
                                         : 0;
   if (t.top) el += 1LL * TP * g.nhp;
   if (t.bb) {
@@ -195,7 +204,7 @@ inline int64_t w1_elems(const Geo &g, const TGeo &t) {
 
 // A geometry the op's tile kernels take, or false.
 inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
-  if (op < F1B || op > F3 || !make_geo(geo, g)) return false;
+  if (op < F1B || op > F2 || !make_geo(geo, g)) return false;
   *t = make_tgeo(*g, op);
   return smem0_bytes(*g, *t) <= SMEM_MAX && smem1_bytes(*g, *t) <= SMEM_MAX;
 }
@@ -205,7 +214,7 @@ inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
 // ops/cam.py:tile_plan computes them; -1 for an invalid geometry.
 inline long long tile_plan(const int *geo, int op, int what) {
   Geo g;
-  if (op < F1B || op > F3 || !make_geo(geo, &g)) return -1;
+  if (op < F1B || op > F2 || !make_geo(geo, &g)) return -1;
   const TGeo t = make_tgeo(g, op);
   switch (what) {
     case 0: return smem0_bytes(g, t);
@@ -219,8 +228,8 @@ inline long long tile_plan(const int *geo, int op, int what) {
 // Phase-0 weight stage s: its offset in w0, its rows and its k width.
 // Order: the branch taps (nb x 9 of [brows][kc], kh^T), then per chunk of
 // NC output channels kr^T [NC][kc] (res: F1, F3, F1b, F3b) and kt^T
-// [NC][knh] (top: F3, F2b, F3b), then per branch kt[i] [brows][kc] (bb:
-// F2b, F3b).
+// [NC][knh] (top: F2, F3, F2b, F3b), then per branch kt[i] [brows][kc]
+// (bb: F2b, F3b).
 __device__ __forceinline__ void stage0(const Geo &g, const TGeo &t, int s,
                                        int64_t *off, int *rows, int *kw) {
   const int nbr = 9 * g.nb, per = t.res + t.top;
@@ -339,8 +348,8 @@ __device__ __forceinline__ Split split(int wn, int nt) {
   return {j0, c < 0 ? 0 : c};
 }
 
-// warp_colsum for a column group: the column sums of its first jn n8
-// tiles (rows already masked to 0), in the same fixed order, into
+// The column sums of a column group's warp over its 16 rows: its first jn
+// n8 tiles (rows already masked to 0), in a fixed order, into
 // red_w[j * 8 + col]; the group's other tiles write nothing, so that the
 // two groups never write each other's columns.
 template <int NT>
@@ -635,6 +644,38 @@ __device__ __forceinline__ void branch_backward(
       prow_h[2 * i * g.hc + c] = block_col(red, 0, c);
       prow_h[(2 * i + 1) * g.hc + c] = block_col(red, 1, c);
     }
+  }
+}
+
+// The column sums of one forward epilogue (F1's, F2's): the masked
+// values v and their squares (NT n8 tiles from the column group's first,
+// jn of them its own) summed over the tile's rows into out[c] and
+// out[c + sq] for c < n, through red ([row warp][2][NC] f32 in the ring
+// buffer of the stage just multiplied, Ring::spent): free from the first
+// barrier (every warp past its MMA) until the next stage starts loading
+// there, after the next stage's barrier.
+constexpr int RING_SLOTS = 2;
+static_assert(NWARPS * RING_SLOTS * NC * 4 <= WROWS * (16 + 8) * 2,
+              "the column sums fit the smallest weight buffer");
+
+template <int NT>
+__device__ __forceinline__ void ring_colsums(const float (&v)[NT][4],
+                                             const Lane &L, int j0, int jn,
+                                             float *red, float *out, int sq,
+                                             int n) {
+  float v2[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v2[j][e] = v[j][e] * v[j][e];
+  float *red_w = red + L.wm * RING_SLOTS * NC + j0 * 8;
+  __syncthreads();
+  group_colsum<NT>(v, red_w, L.lane, jn);
+  group_colsum<NT>(v2, red_w + NC, L.lane, jn);
+  __syncthreads();
+  for (int c = threadIdx.x; c < n; c += TT) {
+    out[c] = block_col<RING_SLOTS>(red, 0, c);
+    out[c + sq] = block_col<RING_SLOTS>(red, 1, c);
   }
 }
 

@@ -19,11 +19,10 @@ MLP) is left to plain autograd:
 
 Six kernels: each op's forward and its backward (``cam_f1_fwd``,
 ``cam_f1_bwd``, ``cam_f2_fwd``, ``cam_f2_bwd``, ``cam_f3_fwd``,
-``cam_f3_bwd``); all but ``cam_f2_fwd`` on the 2-D tiles of
-``csrc/cam_tile.cuh``.  Each runs its plain version for CPU tensors and its
-kernel for CUDA tensors, with no fallback from one to the other; each
-counts its kernel launches in ``.launches``, and each plain version its
-calls in ``.calls``.  Layout is the JAX one: x (B, H, W, C) NHWC bf16,
+``cam_f3_bwd``), all on the 2-D tiles of ``csrc/cam_tile.cuh``.  Each
+runs its plain version for CPU tensors and its kernel for CUDA tensors,
+with no fallback from one to the other; each counts its kernel launches
+in ``.launches``, and each plain version its calls in ``.calls``.  Layout is the JAX one: x (B, H, W, C) NHWC bf16,
 kr (C, C) [in, out], kh (nb, 3, 3, C, hc) HWIO, kt (nb, hc, C), BN rows
 [mean, inv, scale, bias] stacked as (4, C) or (4 nb, hc) float32.
 
@@ -55,7 +54,7 @@ NB_MAX = 6       # and most dilations
 _P = ctypes.c_void_p
 _SIGS = {
     "cam_f1": {"cam_f1_launch": [_P] * 8, "cam_f1b_launch": [_P] * 12},
-    "cam_f2": {"cam_f2_launch": [_P] * 8, "cam_f2b_launch": [_P] * 12},
+    "cam_f2": {"cam_f2_launch": [_P] * 7, "cam_f2b_launch": [_P] * 12},
     "cam_f3": {"cam_f3_launch": [_P] * 9, "cam_f3b_launch": [_P] * 19},
 }
 _WORKSPACE = {"cam_f1": ("cam_f1_workspace", "cam_f1b_workspace"),
@@ -371,16 +370,18 @@ def cam_f1_fwd(x, kr, kh, dils):
 
 
 def cam_f2_fwd(x, kh, kt, bnh, dils):
-    """F2 (replaces ``pallas_cam.py:_f2_call``): s_t (2, C) float32."""
+    """F2 (replaces ``pallas_cam.py:_f2_call``): s_t (2, C) float32.  On
+    the card the tile kernel of ``csrc/cam_tile.cuh``; ``ValueError`` for
+    a geometry whose halo does not fit (:func:`tile_plan`; only where
+    F2b's does not either)."""
     if not _dispatch(x, "cam_f2_fwd"):
         return cam_f2_fwd_plain(x, kh, kt, bnh, dils)
     x, kh, kt, bnh = _check(x, None, kh, kt, dils, (bnh,))
-    geo = _geo(x, kh, dils)
-    lib = _lib("cam_f2")
-    ws = _workspace(lib, "cam_f2_workspace", geo, x.device)
+    lib, geo, ws, w0, _, xpad = _tile_call("f2", "cam_f2_fwd", x, None, kh,
+                                           kt, dils)
     s_t = torch.empty((2, x.shape[3]), dtype=torch.float32, device=x.device)
     err = lib.cam_f2_launch(ctypes.addressof(geo),
-                            *_ptrs(x, kh, kt, bnh, ws, s_t), _stream(x))
+                            *_ptrs(xpad, w0, bnh, ws, s_t), _stream(x))
     _build.check(err, "cam_f2_fwd")
     cam_f2_fwd.launches += 1
     return s_t
@@ -408,14 +409,14 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 
 # ------------------------------------------------------------ the tiles
 #
-# The tile kernels (csrc/cam_tile.cuh) of F1, F3 and the three backwards
-# walk 8 x 8 pixel tiles of one image, stage each tile's halo once at full
+# The tile kernels (csrc/cam_tile.cuh) of the six ops walk 8 x 8 pixel
+# tiles of one image, stage each tile's halo once at full
 # channel depth, and read every weight in the order and layout the
 # wrapper gives it once per call.  tile_plan and _tile_weights are that
-# contract's Python side, per op ("f1", "f3", "f1b", "f2b", "f3b"); the C
-# side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0)
-# computes the same, and each wrapper checks the weight counts against it
-# (cam_f{1,3}_plan, cam_f{1,2,3}b_plan) on every call.
+# contract's Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b");
+# the C side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems,
+# stage0) computes the same, and each wrapper checks the weight counts
+# against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on every call.
 
 TILE_TS = 8          # tile side (cam_tile.cuh:TS)
 TILE_NC = 56         # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
@@ -428,7 +429,7 @@ SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
 # has a phase 1 (dx), a forward none
 TILE_OPS = {"f1b": (True, False, False), "f2b": (False, True, True),
             "f3b": (True, True, True), "f1": (True, False, False),
-            "f3": (True, True, False)}
+            "f3": (True, True, False), "f2": (False, True, False)}
 
 
 def _up(v: int, m: int) -> int:
@@ -461,7 +462,8 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     p["nst1"] = p["nksr"] + 9 * nb
     tp, nwarps, nred = TILE_TS * TILE_TS, TILE_ROW_WARPS, 5
     rows = {"f1b": 2 * c + 2 * nh, "f2b": 2 * c + 4 * nh,
-            "f3b": 9 * c + 4 * nh, "f1": 0, "f3": 9 * c + 4 * nh}[op]
+            "f3b": 9 * c + 4 * nh, "f1": 0, "f3": 9 * c + 4 * nh,
+            "f2": 4 * nh}[op]
     el = p["hr"] * p["xp"] + TILE_NBUF * TILE_NC * (p["kw0"] + 8)
     if top:                                # sA
         el += tp * p["nhp"]
@@ -483,9 +485,9 @@ def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, ...]:
     its tile kernels, [n][k] with zeros padding n and k: w0, phase 0's
     stages in walking order (the branch taps, nb x 9 of kh[i, tap]^T
     [brows][kc]; then per chunk of TILE_NC output channels kr^T [NC][kc]
-    (f1, f3, f1b, f3b) and kt^T [NC][knh] (f3, f2b, f3b); then per branch
-    kt[i] [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks them);
-    w1 (None for a forward), per chunk of TILE_NX output channels (nxr
+    (f1, f3, f1b, f3b) and kt^T [NC][knh] (f2, f3, f2b, f3b); then per
+    branch kt[i] [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks
+    them); w1 (None for a forward), per chunk of TILE_NX output channels (nxr
     rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
     nb x 9 stages of kh[i, tap] [nxr][khc]."""
     res, top, bb = TILE_OPS[op]

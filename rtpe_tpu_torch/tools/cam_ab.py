@@ -1,7 +1,9 @@
-"""The fused-CAM kernels of two checkouts of this repository on the same
-inputs, on one card: outputs compared, per-launch times side by side.
+"""The fused-CAM kernels and the BasicBlock-chain kernel of two checkouts
+of this repository on the same inputs, on one card: outputs compared,
+per-launch times side by side.
 
     python -m rtpe_tpu_torch.tools.cam_ab --parent <checkout> [--out DIR]
+        [--only cam|chain]
 
 run from the root of the checkout under test (beside ``chip_smoke.py``,
 whose seeded inputs it uses). ``<checkout>`` is another tree of the
@@ -20,9 +22,15 @@ case, whether each output is ``torch.equal`` to the parent's (else its
 largest difference of max |parent|), whether each tree repeats itself
 bitwise, and each turn's times.
 
+The chain (``blocks.basicblock_chain``) runs on ``chip_smoke.chain_inputs``:
+4-block chains at the three branch shapes of a 640 x 640 forward at B=8
+and B=1 (timed), and exact-sum cases (``chain_exact*``).
+
 An output counts as bad where it differs from the parent's, except a
 pixel sum (``SUMS``, whose order a redesign may change) within
-``SUM_TOL`` of max |parent| on a case that is not an exact-sum one.
+``SUM_TOL`` of max |parent|, or a chain output within ``CHAIN_TOL`` of
+max |parent| (a redesign may reorder its sums), on a case that is not an
+exact-sum one.
 """
 
 import argparse
@@ -44,11 +52,14 @@ OUT_NAMES = {"cam_f1_fwd": ("s_r", "s_h", "gap"),
              "cam_f1_bwd": ("dx", "dkr", "dkh"),
              "cam_f2_bwd": ("dx", "dkh", "dkt", "dS"),
              "cam_f3_bwd": ("dx", "dkr", "dkh", "dkt", "dSr", "dSh", "dSt",
-                            "dgate")}
+                            "dgate"),
+             "basicblock_chain": ("out",)}
 # pixel sums whose order a redesign may change: held to 2^-8 of max |parent|
-SUMS = {"s_r", "s_h", "gap", "dS", "dSr", "dSh", "dSt", "dgate"}
+SUMS = {"s_r", "s_h", "gap", "s_t", "dS", "dSr", "dSh", "dSt", "dgate"}
 SUM_TOL = 2.0 ** -8
+CHAIN_TOL = 2.0 ** -5
 TIMED = ("steps", "pyramid_hi")
+CHAIN_N = 4
 
 
 def kernel_part(name: str) -> str:
@@ -59,14 +70,43 @@ def kernel_part(name: str) -> str:
         return "wgrad7"
     if "reduce_rows" in name:
         return "reductions"
+    if "conv3x3_kernel" in name:
+        return "chain_conv"
+    if "split_epilogue" in name:
+        return "chain_split_epilogue"
     if "dx_kernel" in name:
         return "dx"
     if any(k in name for k in ("f1b_", "f2b_", "f3b_")):
         return "phase0"
-    if any(k in name for k in ("f1_tile", "f3_tile", "f1_kernel",
+    if any(k in name for k in ("f1_tile", "f2_tile", "f3_tile", "f1_kernel",
                                "f2_kernel", "f3_kernel")):
         return "forward"
     return "wrapper"
+
+
+def chain_cases() -> list:
+    """(name, shape, n, exact, timed) of the chain's cases."""
+    import chip_smoke as cs
+    out = [(f"chain_b{b}_{h}x{w}x{c}", (b, h, w, c), CHAIN_N, False, True)
+           for h, w, c in cs.BRANCHES for b in (8, 1)]
+    out += [(f"chain_exact{k}", shape, n, True, False) for k, (shape, n) in
+            enumerate([((2, 12, 20, 96), 4), ((1, 20, 20, 384), 2),
+                       ((1, 40, 40, 192), 2), ((8, 80, 80, 96), 1)])]
+    return out
+
+
+def make_chain_inputs(path: str) -> list:
+    import torch
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    saved = []
+    for name, shape, n, exact, timed in chain_cases():
+        x, w, b = cs.chain_inputs(shape, n, cs.SEED + 11 if timed
+                                  else cs.SEED + n, dev, exact=exact)
+        saved.append({"name": name, "timed": timed,
+                      "t": {"x": x.cpu(), "w": w.cpu(), "b": b.cpu()}})
+    torch.save(saved, path)
+    return [c["name"] for c in saved]
 
 
 def make_inputs(path: str) -> list:
@@ -143,7 +183,24 @@ def breakdown(fn) -> dict:
     return {"parts": parts, "kernels": names}
 
 
-def worker(root: str, inputs: str, save: str) -> None:
+def chain_worker(chain_inputs: str, outs: dict, times: dict) -> None:
+    import torch
+    from rtpe_tpu_torch.ops import blocks
+    dev = torch.device("cuda", 0)
+    for case in torch.load(chain_inputs):
+        x, w, b = (case["t"][k].to(dev) for k in ("x", "w", "b"))
+        got = blocks.basicblock_chain(x, w, b)
+        torch.cuda.synchronize()
+        outs["basicblock_chain", case["name"]] = [got.cpu()]
+        if case["timed"]:
+            fn = lambda: blocks.basicblock_chain(x, w, b)    # noqa: E731
+            times["basicblock_chain", case["name"]] = {
+                "ms": device_ms(fn, reps=20), **breakdown(fn)}
+        del x, w, b, got
+    torch.cuda.empty_cache()
+
+
+def worker(root: str, inputs, chain_inputs, save: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from rtpe_tpu_torch.ops import cam
@@ -152,8 +209,10 @@ def worker(root: str, inputs: str, save: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cases = torch.load(inputs)
+    cases = torch.load(inputs) if inputs else []
     outs, times = {}, {}
+    if chain_inputs:
+        chain_worker(chain_inputs, outs, times)
     for case in cases:
         t = {n: v.to(dev) for n, v in case["t"].items()}
         dils = tuple(case["dils"])
@@ -193,14 +252,23 @@ def main() -> None:
     ap.add_argument("--root")
     ap.add_argument("--inputs")
     ap.add_argument("--save")
+    ap.add_argument("--chain-inputs")
+    ap.add_argument("--only", choices=("cam", "chain"))
     a = ap.parse_args()
     if a.worker:
-        worker(a.root, a.inputs, a.save)
+        worker(a.root, a.inputs, a.chain_inputs, a.save)
         return
     import torch
     os.makedirs(a.out, exist_ok=True)
     inputs = os.path.join(a.out, "inputs.pt")
-    make_inputs(inputs)
+    chain_inputs = os.path.join(a.out, "chain_inputs.pt")
+    args = []
+    if a.only != "chain":
+        make_inputs(inputs)
+        args += ["--inputs", inputs]
+    if a.only != "cam":
+        make_chain_inputs(chain_inputs)
+        args += ["--chain-inputs", chain_inputs]
     turns = [("parent", a.parent), ("new", "."), ("new", "."),
              ("parent", a.parent)]
     runs = []
@@ -208,7 +276,7 @@ def main() -> None:
         save = os.path.join(a.out, f"{k}_{label}.pt")
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--parent", a.parent, "--worker", "--root", root,
-                        "--inputs", inputs, "--save", save], check=True)
+                        *args, "--save", save], check=True)
         runs.append(torch.load(save))
     par, new = runs[0], runs[1]
     report = {"files": [r["file"] for r in runs], "ops": {}}
@@ -220,10 +288,14 @@ def main() -> None:
                       zip(got, runs[2]["outs"][op, case]))
         rep_par = all(torch.equal(x, y) for x, y in
                       zip(want, runs[3]["outs"][op, case]))
+        exact = "exact" in case
         for n, v in cmp.items():
-            if v != "equal" and (n not in SUMS or v > SUM_TOL
-                                 or case.startswith("exact")):
+            tol = CHAIN_TOL if op == "basicblock_chain" else (
+                SUM_TOL if n in SUMS else None)
+            if v != "equal" and (tol is None or v > tol or exact):
                 bad.append(f"{op} {case} {n}: {v}")
+        if not (rep_new and rep_par):
+            bad.append(f"{op} {case}: a tree does not repeat itself")
         report["ops"].setdefault(op, {})[case] = {
             "vs_parent": cmp, "new_repeats": rep_new,
             "parent_repeats": rep_par}

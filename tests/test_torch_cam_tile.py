@@ -1,5 +1,6 @@
 """The Python side of the fused-CAM tile kernels (``csrc/cam_tile.cuh``:
-the backwards F1b, F2b and F3b and the forwards F1 and F3), on the CPU:
+the backwards F1b, F2b and F3b and the forwards F1, F2 and F3), on the
+CPU:
 the plan (tiles, padded widths, pitches, shared memory), the tile order,
 and the weights re-laid once per call.
 
@@ -14,13 +15,15 @@ exactly what the kernels stage (each tap's rows gathered from one halo,
 each stage's weights sliced out of the re-laid buffers at the stage's
 offset) gives the plain version's products bitwise on exact-sum inputs;
 for F1b and F2b the walk through both phases, with the kernels' epilogues,
-gives the plain version's dx bitwise, and for F1 and F3 the walk with
-their epilogues (F1's masked per-tile sums, F3's output) gives the plain
-version's outputs and the interpret-mode Pallas kernel's bitwise.  A
-forward's plan is its backward's phase 0 without the branch backward: F1's
-re-laid weights are F1b's, F3's a prefix of F3b's, and a forward needs no
-more shared memory than its backward, so it refuses only where its
-backward refuses too.
+gives the plain version's dx bitwise, and for F1, F2 and F3 the walk with
+their epilogues (F1's and F2's masked per-tile sums, F3's output) gives
+the plain version's outputs and the interpret-mode Pallas kernel's
+bitwise (F2 on random inputs within 2^-8, and only with its ragged
+tile's padding pixels masked).  A forward's plan is its backward's phase
+0 without the branch backward: F1's re-laid weights are F1b's, F2's and
+F3's a prefix of F2b's and F3b's, and a forward needs no more shared
+memory than its backward, so it refuses only where its backward refuses
+too.
 
 The parametrised tests keep F3b's cases under their first ids (shape0,
 ...) and add the other ops' as f1b-shape0, ..., f2b-shape0, ...,
@@ -49,7 +52,8 @@ SHAPES = [STEPS_CAM, PYRAMID_CAM,
 WALK_SHAPES = [(2, 9, 13, 12, (1, 2, 3, 4), 3), (1, 5, 30, 70, (1, 2, 3), 20),
                (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8)]
 BWD_OPS = ("f3b", "f1b", "f2b")
-OPS = BWD_OPS + ("f1", "f3")
+OPS = BWD_OPS + ("f1", "f3", "f2")
+FWD_OPS = ("f1", "f3", "f2")
 NC = cam.TILE_NC
 TS = cam.TILE_TS
 
@@ -74,7 +78,7 @@ def stage0(p, nb, s, op="f3b"):
     """(offset in w0, rows, k width) of phase-0 weight stage s of ``op``,
     as ``cam_tile.cuh:stage0`` computes it: the branch taps (nb x 9 of
     [brows][kc]), then per chunk of NC output channels [NC][kc] (f1, f3,
-    f1b, f3b) and [NC][knh] (f3, f2b, f3b), then per branch [brows][kc]
+    f1b, f3b) and [NC][knh] (f2, f3, f2b, f3b), then per branch [brows][kc]
     (f2b, f3b)."""
     res, top, _ = cam.TILE_OPS[op]
     per = res + top
@@ -101,7 +105,9 @@ SMEM = {("f3b", STEPS_CAM): (204588, 139584),
         ("f1", STEPS_CAM): (133952, 0),
         ("f1", PYRAMID_CAM): (88192, 0),
         ("f3", STEPS_CAM): (159148, 0),
-        ("f3", PYRAMID_CAM): (103724, 0)}
+        ("f3", PYRAMID_CAM): (103724, 0),
+        ("f2", STEPS_CAM): (153280, 0),
+        ("f2", PYRAMID_CAM): (100736, 0)}
 
 
 @pytest.mark.parametrize("op,shape", by_op(SHAPES))
@@ -141,10 +147,10 @@ def test_f3b_refuses_what_does_not_fit():
     assert p["smem0"] > cam.SMEM_MAX
 
 
-@pytest.mark.parametrize("op", ["f1b", "f2b", "f1", "f3"])
+@pytest.mark.parametrize("op", ["f1b", "f2b", "f1", "f3", "f2"])
 def test_tile_refuses_what_does_not_fit(op):
     """The same geometry for F1b (its dx kernel's dr rows and dc halo,
-    231 KB, do not fit), F2b and F3 (their phase 0 does not); F1 (its
+    231 KB, do not fit), F2b, F3 and F2 (their phase 0 does not); F1 (its
     halo and weight ring, 209 KB, fit) takes it, and refuses the halo at
     a largest dilation of 8 (212 KB of halo), as F1b does."""
     dils = (1, 2, 3, 4, 5, 8) if op == "f1" else (1, 2, 3, 4, 5, 6)
@@ -159,7 +165,7 @@ REFUSED = [(1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40),
            (1, 32, 32, 163, (1, 2, 3, 4, 5, 8), 40)]
 
 
-@pytest.mark.parametrize("op,shape", by_op(SHAPES + REFUSED, ("f1", "f3")))
+@pytest.mark.parametrize("op,shape", by_op(SHAPES + REFUSED, FWD_OPS))
 def test_forward_fits_where_its_backward_does(op, shape):
     """A forward's shared memory is at most its backward's (the larger of
     its two phases), so the forward refuses only where the backward
@@ -177,7 +183,7 @@ BHW = [(16, 113, 113), (16, 57, 57), (16, 29, 29), (3, 29, 21), (1, 5, 30),
 
 @pytest.mark.parametrize("op,bhw", [
     pytest.param(op, bhw, id=f"bhw{k}" if op == "f3b" else f"{op}-bhw{k}")
-    for op in ("f3b", "f1", "f3") for k, bhw in enumerate(BHW)])
+    for op in ("f3b",) + FWD_OPS for k, bhw in enumerate(BHW)])
 def test_f3b_tiles_cover_each_pixel_once(op, bhw):
     b, h, w = bhw
     tiles = f3b_tiles(b, h, w)
@@ -296,14 +302,16 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
     (C)], the sums of bf16(x kr) and of each bf16(c) and their squares
     over the tile's rows in the image (a row outside it is masked: its
     taps can reach into the image), and x summed over the halo's 64
-    centre rows."""
+    centre rows; for f2 "part" is F2's epilogue, per tile the row [S_t
+    (2C)] of bf16(a kt), masked the same way."""
     b, h, w, c, dils, hc = shape
     nb = len(dils)
     res, top, _ = cam.TILE_OPS[op]
     p = cam.tile_plan(op, *shape)
     kc, dm, hs, per = p["kc"], p["dmax"], p["hs"], res + top
     xpad = F.pad(x, (0, kc - c))
-    sums = op == "f1"
+    sums = op in ("f1", "f2")
+    sum_of = {"f1": "res", "f2": "top"}.get(op)     # the 1x1 conv summed
     nh = nb * hc
 
     def weight(s):
@@ -320,7 +328,7 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
     conv = torch.zeros(b, h, w, nb, hc)
     out = {"c": conv}
     tiles = f3b_tiles(b, h, w)
-    part = torch.zeros(len(tiles), 3 * c + 2 * nh)
+    part = torch.zeros(len(tiles), 3 * c + 2 * nh if op == "f1" else 2 * c)
     for t, (img, y0, x0) in enumerate(tiles):
         hx_ = _halo(xpad[img], y0, x0, dm, hs)
         for i, d in enumerate(dils):
@@ -330,10 +338,10 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
                 rows = hx_[dm + dy:dm + dy + 8, dm + dx:dm + dx + 8]
                 acc = acc + rows.reshape(64, -1) @ weight(9 * i + tap).t()
             _put(conv[..., i, :], img, y0, x0, acc[:, :hc])
-            if sums:
+            if op == "f1":
                 colsums(t, 2 * c + 2 * i * hc, 2 * c + (2 * i + 1) * hc,
                         acc[:, :hc], y0, x0)
-        if sums:
+        if op == "f1":
             centre = hx_[dm:dm + 8, dm:dm + 8].reshape(64, -1)
             part[t, 2 * c + 2 * nh:] = centre[:, :c].sum(0)
     if top and a is None:
@@ -352,7 +360,7 @@ def _phase0_walk(op, shape, x, w0, a=None, acts=None):
                 prod_rows = rows @ weight(s).t()
                 n1 = min(c, n0 + NC)
                 _put(prod[..., n0:n1], img, y0, x0, prod_rows[:, :n1 - n0])
-                if sums:
+                if name == sum_of:
                     colsums(t, n0, c + n0, prod_rows[:, :n1 - n0], y0, x0)
         out[name] = prod
     if sums:
@@ -537,12 +545,12 @@ def _forward_case(shape, seed):
 
 def _forward_walk(op, shape, k):
     """F1's (s_r, s_h, gap) from its per-tile rows summed over the tiles
-    (gap per image: its tiles are contiguous), or F3's (out,) from the
-    products with the kernel's epilogue, bf16(relu(relu(BN_r(bf16 res)) +
-    relu(BN_t(bf16 top)) gate[b]))."""
+    (gap per image: its tiles are contiguous), F2's (s_t,) the same way,
+    or F3's (out,) from the products with the kernel's epilogue,
+    bf16(relu(relu(BN_r(bf16 res)) + relu(BN_t(bf16 top)) gate[b]))."""
     b, h, w, c, dils, hc = shape
     nb = len(dils)
-    w0, w1 = cam._tile_weights(op, *_op_weights(op, k["kr"], k["kh"],
+    w0, w1 = cam._tile_weights(op, *_op_weights(op, k.get("kr"), k["kh"],
                                                 k["kt"]))
     assert w1 is None
     x = k["x"].float()
@@ -563,27 +571,34 @@ def _forward_walk(op, shape, k):
         return torch.relu((bf(v) - rows[0]) * rows[1] * rows[2] + rows[3])
 
     out, _ = _phase0_walk(op, shape, x, w0, acts=acts)
+    if op == "f2":
+        return (out["part"].sum(0).reshape(2, c),)
     pre = bn_relu(out["res"], k["bnr"]) \
         + bn_relu(out["top"], k["bnt"]) * k["gate"][:, None, None, :]
     return (torch.relu(pre).to(torch.bfloat16),)
 
 
 def _forward_args(op, k, dils):
-    names = {"f1": ("x", "kr", "kh"),
+    names = {"f1": ("x", "kr", "kh"), "f2": ("x", "kh", "kt", "bnh"),
              "f3": ("x", "kr", "kh", "kt", "bnr", "bnh", "bnt", "gate")}[op]
     return [k[n] for n in names] + [dils]
 
 
-@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES, ("f1", "f3")))
+PLAIN_FWD = {"f1": cam.cam_f1_fwd_plain, "f3": cam.cam_f3_fwd_plain,
+             "f2": cam.cam_f2_fwd_plain}
+
+
+@pytest.mark.parametrize("op,shape", by_op(WALK_SHAPES, FWD_OPS))
 def test_tile_forward_walk_matches_the_plain_forwards(op, shape):
-    """F1 and F3 walked tile by tile on exact-sum inputs, each with its
-    kernel's epilogue (F1's per-tile sums masked to the image's rows and
-    reduced over the tiles, F3's output with the bf16 roundings and the
-    BN and gate order): equal to ``cam_f1_fwd_plain``'s (s_r, s_h, gap)
-    and ``cam_f3_fwd_plain``'s out bitwise."""
+    """F1, F2 and F3 walked tile by tile on exact-sum inputs, each with its
+    kernel's epilogue (F1's and F2's per-tile sums masked to the image's
+    rows and reduced over the tiles, F3's output with the bf16 roundings
+    and the BN and gate order): equal to ``cam_f1_fwd_plain``'s (s_r,
+    s_h, gap), ``cam_f2_fwd_plain``'s s_t and ``cam_f3_fwd_plain``'s out
+    bitwise."""
     k = _forward_case(shape, 12)
     got = _forward_walk(op, shape, k)
-    plain = {"f1": cam.cam_f1_fwd_plain, "f3": cam.cam_f3_fwd_plain}[op]
+    plain = PLAIN_FWD[op]
     want = plain(*_forward_args(op, k, shape[4]))
     want = want if isinstance(want, tuple) else (want,)
     assert len(got) == len(want)
@@ -593,23 +608,24 @@ def test_tile_forward_walk_matches_the_plain_forwards(op, shape):
         assert torch.equal(g_, w_), i
 
 
-@pytest.mark.parametrize("op", ["f1", "f3"])
+def _jx(t):
+    dt = jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32
+    return jnp.asarray(t.float().numpy()).astype(dt)
+
+
+@pytest.mark.parametrize("op", ["f1", "f3", "f2"])
 def test_tile_forward_walk_matches_pallas_interpret(op):
     """The same walks against the TPU kernels they replace
-    (``pallas_cam.py:_f1_call`` / ``_f3_call``, interpret mode) on a
+    (``pallas_cam.py:_f1_call`` / ``_f3_call`` / ``_f2_call``, interpret
+    mode) on a
     ragged exact-sum shape whose largest dilation (9) is larger than a
     tile side: bitwise."""
     shape = (1, 11, 19, 12, (1, 9), 3)
     k = _forward_case(shape, 21)
     got = _forward_walk(op, shape, k)
-
-    def jx(t):
-        dt = jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32
-        return jnp.asarray(t.float().numpy()).astype(dt)
-
-    fn = {"f1": pc._f1_call, "f3": pc._f3_call}[op]
+    fn = {"f1": pc._f1_call, "f3": pc._f3_call, "f2": pc._f2_call}[op]
     args = _forward_args(op, k, shape[4])
-    want = fn(*[jx(t) for t in args[:-1]], shape[4])
+    want = fn(*[_jx(t) for t in args[:-1]], shape[4])
     want = want if isinstance(want, (tuple, list)) else (want,)
     assert len(got) == len(want)
     for i, (g_, w_) in enumerate(zip(got, want)):
@@ -619,10 +635,11 @@ def test_tile_forward_walk_matches_pallas_interpret(op):
         assert torch.equal(g_.float(), w_), i
 
 
-@pytest.mark.parametrize("op,shape", by_op(SHAPES, ("f1", "f3")))
+@pytest.mark.parametrize("op,shape", by_op(SHAPES, FWD_OPS))
 def test_forward_weights_are_the_backwards_phase0_weights(op, shape):
-    """F1's re-laid w0 is F1b's; F3's is F3b's before its last nb stages
-    (kt[i], the branch backward's), so its stage offsets are F3b's."""
+    """F1's re-laid w0 is F1b's; F2's and F3's are F2b's and F3b's before
+    their last nb stages (kt[i], the branch backward's), so their stage
+    offsets are their backwards'."""
     kr, kh, kt = _weights(shape, 4, exact=False)
     w0, w1 = cam._tile_weights(op, *_op_weights(op, kr, kh, kt))
     wb0, _ = cam._tile_weights(op + "b", *_op_weights(op + "b", kr, kh, kt))
@@ -635,3 +652,54 @@ def test_forward_weights_are_the_backwards_phase0_weights(op, shape):
                           else stage0(pb, nb, pb["nst0"] - nb, op + "b")[0])
     for s_ in range(pf["nst0"]):
         assert stage0(pf, nb, s_, op) == stage0(pb, nb, s_, op + "b")
+
+
+def _f2_random_case(shape, seed):
+    """Random F2 inputs made with numpy: x in [0, 1), weights N(0,
+    1/fan_in), BN rows from the batch statistics of the branch convs (as
+    the train step's F1 gives them), scale near 1, bias N(0, 0.1)."""
+    b, h, w, c, dils, hc = shape
+    nb = len(dils)
+    rng = np.random.default_rng(seed)
+
+    def bf(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+    x = bf(rng.random((b, h, w, c)))
+    kh = bf(rng.normal(size=(nb, 3, 3, c, hc)) / np.sqrt(9 * c))
+    kt = bf(rng.normal(size=(nb, hc, c)) / np.sqrt(nb * hc))
+    s_h = cam.cam_f1_fwd_plain(x, torch.zeros(c, c, dtype=torch.bfloat16),
+                               kh, dils)[1]
+    n = b * h * w
+    mean = s_h[0::2] / n
+    var = (s_h[1::2] / n - mean * mean).clamp(min=0)
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=mean.shape))
+    bias = torch.from_numpy(0.1 * rng.normal(size=mean.shape))
+    bnh = torch.stack([mean, torch.rsqrt(var + 1e-5), scale.float(),
+                       bias.float()], 1).reshape(4 * nb, hc)
+    return {"x": x, "kh": kh, "kt": kt, "bnh": bnh.contiguous()}
+
+
+def test_f2_tile_walk_masks_the_ragged_tiles():
+    """F2 walked on random inputs at a ragged shape (29 x 21: 22 % of the
+    tile grid's pixels lie outside the image): s_t within 2^-8 of max
+    |plain| of ``cam_f2_fwd_plain`` and of the interpret-mode
+    ``_f2_call``.  A padding pixel's t is not zero (its BN bias and its
+    dilated taps reach into the image): the same walk over the tile
+    grid's pixels, none masked (the image zero-extended to whole tiles),
+    is off by more than that."""
+    shape = (3, 29, 21, 83, (1, 2, 3, 4), 20)
+    k = _f2_random_case(shape, 31)
+    dils = shape[4]
+    got = _forward_walk("f2", shape, k)[0]
+    want = cam.cam_f2_fwd_plain(k["x"], k["kh"], k["kt"], k["bnh"], dils)
+    jwant = torch.from_numpy(np.array(pc._f2_call(
+        *[_jx(k[n]) for n in ("x", "kh", "kt", "bnh")], dils)))
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2.0 ** -8 * scale
+    assert float((got - jwant).abs().max()) <= 2.0 ** -8 * scale
+    b, h, w = shape[:3]
+    ext = dict(k, x=F.pad(k["x"], (0, 0, 0, -w % TS, 0, -h % TS)))
+    unmasked = _forward_walk("f2", (b, h + -h % TS, w + -w % TS,
+                                    *shape[3:]), ext)[0]
+    assert float((unmasked - want).abs().max()) > 2.0 ** -8 * scale

@@ -13,8 +13,8 @@ than one tag dimension, LAP matrices of every size the kernel takes,
 NaN tags in the grouping kernels, BasicBlock chains at ragged and
 narrow shapes, a small packed forward with its chains on the kernel,
 the six fused-CAM kernels at small and ragged shapes (random inputs,
-exact-sum inputs, per-image gates of both signs), the 2-D tiles of F1,
-F3, F1b, F2b and F3b at ragged shapes (a side smaller than a tile, a
+exact-sum inputs, per-image gates of both signs), the 2-D tiles of the
+six ops at ragged shapes (a side smaller than a tile, a
 dilation larger than a tile side) and their plans against the C
 formulas, and the checks the wrappers make.
 
@@ -46,7 +46,9 @@ from rtpe_tpu_torch.models.hrnet import (HRNetConfig, PoseHigherHRNet,
                                          StageCfg, init_random_)
 from rtpe_tpu_torch.models.hrnet_packed import pack_w48_params, packed_forward
 from rtpe_tpu_torch.ops import cam
-from rtpe_tpu_torch.ops.blocks import basicblock_chain, basicblock_chain_plain
+from rtpe_tpu_torch.ops.blocks import (basicblock_chain,
+                                       basicblock_chain_plain, chain_plan,
+                                       chain_plan_c)
 from rtpe_tpu_torch.ops.group import (match_by_tag_kernel,
                                       match_by_tag_kernel_plain)
 from rtpe_tpu_torch.ops.group_lockstep import (match_by_tag_lockstep,
@@ -276,6 +278,13 @@ def _chain_inputs(shape, n, seed, device, exact=False):
     ((1, 20, 20, 384), 1),
     ((2, 7, 9, 64), 2),           # the 64-channel tile, odd H and W
     ((1, 3, 5, 32), 3),           # fewer pixels than one tile
+    ((1, 40, 40, 192), 4),        # B=1: the K steps split 10 ways
+    ((1, 20, 20, 384), 4),        # ... 16 ways, two N tiles
+    ((1, 80, 80, 96), 3),         # ... 2 ways, K padded 864 -> 896
+    ((8, 80, 80, 96), 1),         # no split: 200 tiles of 256 pixels
+    ((2, 13, 11, 32), 4),         # ragged, the 32-channel tile
+    ((2, 128, 132, 32), 2),       # 256-pixel tiles: 132 of them
+    ((1, 200, 181, 64), 1),       # ... 142, the last one ragged
 ])
 def test_basicblock_chain_kernel_equals_plain(no_tf32, shape, n):
     x, w, b = _chain_inputs(shape, n, seed=sum(shape) + n, device=no_tf32)
@@ -296,7 +305,11 @@ def test_basicblock_chain_kernel_equals_plain(no_tf32, shape, n):
 
 @pytest.mark.parametrize("shape,n", [((2, 12, 20, 96), 4),
                                      ((1, 20, 20, 384), 2),
-                                     ((2, 7, 9, 64), 2)])
+                                     ((2, 7, 9, 64), 2),
+                                     ((1, 80, 80, 96), 1),
+                                     ((1, 40, 40, 192), 2),
+                                     ((8, 40, 40, 192), 1),
+                                     ((3, 5, 7, 32), 4)])
 def test_basicblock_chain_kernel_is_exact_on_exact_sums(cuda, shape, n):
     """cuDNN is off for the plain version here: it may pick Winograd or
     FFT algorithms, which round inside their transforms; PyTorch's own
@@ -308,6 +321,30 @@ def test_basicblock_chain_kernel_is_exact_on_exact_sums(cuda, shape, n):
     torch.cuda.synchronize()
     assert float(want.float().abs().max()) > 2       # the chain did work
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 80, 80, 96), (1, 40, 40, 192),
+                                   (1, 20, 20, 384), (8, 40, 40, 192)])
+def test_basicblock_chain_kernel_repeats_itself(cuda, shape):
+    """The K splits' partials are summed in a fixed order (no float
+    atomics): two runs are bitwise equal."""
+    x, w, b = _chain_inputs(shape, 2, seed=5, device=cuda)
+    first = basicblock_chain(x, w, b)
+    second = basicblock_chain(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("shape", [
+    (b, *hwc) for hwc in ((80, 80, 96), (40, 40, 192), (20, 20, 384))
+    for b in (1, 2, 8)] + [(2, 12, 20, 96), (1, 3, 5, 32), (2, 7, 9, 64),
+                           (3, 33, 17, 160), (1, 20, 20, 288)])
+def test_basicblock_chain_plan_matches_the_kernel(cuda, shape):
+    """The C plan (basicblock_chain_plan) and the Python one
+    (ops/blocks.py:chain_plan) agree."""
+    want = chain_plan(*shape)
+    got = chain_plan_c(*shape)
+    assert got == {k: want[k] for k in got}
 
 
 def test_basicblock_chain_wrapper_refuses(cuda):
@@ -518,7 +555,7 @@ def test_cam_f3b_uses_each_images_gate(no_tf32):
             <= CAM_TOL * scale, b
 
 
-# The 2-D tiles (csrc/cam_tile.cuh) of the backwards and of F1 and F3 at
+# The 2-D tiles (csrc/cam_tile.cuh) of the backwards and of the forwards at
 # shapes the train step does not give: H and W not multiples of the
 # 8-pixel tile side, a side smaller than a tile, a dilation larger than a
 # tile side, two dx channel chunks
@@ -528,7 +565,7 @@ F3B_SHAPES = [(2, 9, 13, 83, (1, 2, 3, 4), 20),
               (1, 11, 19, 12, (1, 9), 3),
               (1, 9, 10, 170, (1, 2), 8)]
 # op -> its index in cam_calls; F3b's cases keep their first ids
-TILE_CALLS = {"f3b": 5, "f1b": 1, "f2b": 3, "f1": 0, "f3": 4}
+TILE_CALLS = {"f3b": 5, "f1b": 1, "f2b": 3, "f1": 0, "f3": 4, "f2": 2}
 
 
 def by_op(shapes):
@@ -539,19 +576,18 @@ def by_op(shapes):
 
 @pytest.mark.parametrize("op,shape", by_op(F3B_SHAPES))
 def test_cam_f3b_ragged_tiles_match_plain(no_tf32, op, shape):
-    """F3b, F1b, F2b, F1 and F3 on ragged tiles.  Exact-sum inputs with
+    """F3b, F1b, F2b, F1, F3 and F2 on ragged tiles.  Exact-sum inputs with
     gates of both signs: every output bitwise the plain version's, so each
     ragged tile's halo, masks and per-image sums are right.  Random inputs
-    with signed gates: finite, F1's statistics within CAM_STAT_TOL of
-    their largest magnitude, every other output within the card check's
-    limits for ReLU-mask flips (``chip_smoke.py`` CAM_WORST, CAM_MEAN).
-    Where the
-    kernel's and the plain version's float32 sums round a conv output to
-    bf16 on either side of a tie and that moves a pre-activation across
-    zero, the cotangent behind it changes by its own size; at these sizes
-    one such flip moves a whole pixel row of dx (3.8 % of max |dx| at
-    (1, 5, 30, 163) on an H100), so the worst element is held to 2^-2
-    and the mean to 2^-8 of max |plain|."""
+    with signed gates: finite, F1's and F2's statistics within
+    CAM_STAT_TOL of their largest magnitude, every other output within the
+    card check's limits for ReLU-mask flips (``chip_smoke.py`` CAM_WORST,
+    CAM_MEAN).  Where the kernel's and the plain version's float32 sums
+    round a conv output to bf16 on either side of a tie and that moves a
+    pre-activation across zero, the cotangent behind it changes by its own
+    size; at these sizes one such flip moves a whole pixel row of dx
+    (3.8 % of max |dx| at (1, 5, 30, 163) on an H100), so the worst
+    element is held to 2^-2 and the mean to 2^-8 of max |plain|."""
     exact = cam_case(*shape, seed=7, device=no_tf32, exact=True)
     name, kernel, plain, args = cam_calls(exact)[TILE_CALLS[op]]
     before = kernel.launches
@@ -573,7 +609,7 @@ def test_cam_f3b_ragged_tiles_match_plain(no_tf32, op, shape):
         assert bool(torch.isfinite(a.float()).all()), i
         d = (a.float() - b.float()).abs()
         scale = float(b.float().abs().max())
-        if op == "f1":                          # batch statistics
+        if op in ("f1", "f2"):                  # batch statistics
             assert float(d.max()) <= CAM_STAT_TOL * scale, i
             continue
         assert float(d.max()) <= CAM_WORST * scale, i
@@ -585,7 +621,7 @@ def test_cam_f3b_ragged_tiles_match_plain(no_tf32, op, shape):
                                (16, 113, 113, 83, (1, 2, 3, 4), 20)]))
 def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     """Shared memory and re-laid weight sizes: the C formulas
-    (cam_tile.cuh:tile_plan, exported as cam_f{1,3}_plan and
+    (cam_tile.cuh:tile_plan, exported as cam_f{1,2,3}_plan and
     cam_f{1,2,3}b_plan) and the Python ones (ops/cam.py:tile_plan)
     agree, for each tile op."""
     b, h, w, c, dils, hc = shape
@@ -616,7 +652,7 @@ def test_cam_f3b_refuses_a_halo_that_does_not_fit(cuda):
     _refuses_a_halo_that_does_not_fit(cuda, "f3b")
 
 
-@pytest.mark.parametrize("op", ["f1b", "f2b", "f3", "f1"])
+@pytest.mark.parametrize("op", ["f1b", "f2b", "f3", "f1", "f2"])
 def test_cam_tile_refuses_a_halo_that_does_not_fit(cuda, op):
     """F1 takes six dilations up to 6 at C = 163 (as F1b's phase 0
     does; F1b's dx kernel does not fit there) and refuses a largest
