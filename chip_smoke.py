@@ -8,7 +8,9 @@ Phases, each of which fails the run:
 2. build every kernel of ``rtpe_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build seconds and the ``ptxas``
    report, one line per kernel (its name, registers, spills, shared
-   memory);
+   memory); then time one warp's chain of 1,024 dependent
+   (``__reduce_min_sync``, ballot) steps (``csrc/warp_step_probe.cu``),
+   the step that prices the grouping kernels' latency bound;
 3. the NMS + top-k kernel against its plain PyTorch version on the card,
    B in {1, 8} x 17 x 320 x 320 with planted ties and sparse planes:
    exactly equal;
@@ -43,7 +45,8 @@ Phases, each of which fails the run:
     for one image;
 11. timings (CUDA events after a warm-up): each kernel, its plain version
     and its library yardstick at the main path's batch-8 shape and at
-    batch 1, each decode path's host-clock time on the heatmaps of
+    batch 1 (the grouping and LAP kernels also with a latency bound: the
+    longest image's chain of dependent steps, each at the probe's time), each decode path's host-clock time on the heatmaps of
     phase 10, the forward, decode and end-to-end rates at batch 1 and 8,
     and a ``torch.profiler`` view of one batch-8 ``predict_batch``;
 12. the grouping kernels (lockstep, and the mega-kernel with both
@@ -708,9 +711,49 @@ def nms_times(nms_mod, b: int, dev) -> dict:
             **bound(n_bytes, n_ops), "shape": [b, h, w, j, k]}
 
 
-def lockstep_times(grp_mod, b: int, dev) -> dict:
-    """Kernel and plain times and the bound of lockstep grouping at
-    (B, J=17, K=30, D=1), p_max=90."""
+def phase_step_probe(build, dev) -> float:
+    """Nanoseconds of one dependent (``__reduce_min_sync``, ballot) step
+    of one warp: ``csrc/warp_step_probe.cu`` runs a chain of 1,024 such
+    steps, timed with ``clock64`` and the global timer; the fastest of
+    five runs."""
+    import ctypes
+    lib = build.load("warp_step_probe", {"warp_step_probe_launch": [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]})
+    steps = 1024
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    runs = []
+    for _ in range(6):
+        err = lib.warp_step_probe_launch(
+            steps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"warp_step_probe launch failed with {err}")
+        torch.cuda.synchronize()
+        runs.append(out[:2].tolist())
+    cycles, ns = min(runs[1:], key=lambda r: r[1])
+    check(cycles > 0 and ns > 0, f"warp_step_probe read {cycles}, {ns}")
+    print(f"warp step probe: {cycles / steps:.2f} cycles, "
+          f"{ns / steps:.2f} ns per dependent (min, ballot) step", flush=True)
+    return {"ns_per_step": ns / steps, "cycles_per_step": cycles / steps}
+
+
+def greedy_steps(val_k, det_thr: float = 0.1) -> int:
+    """The greedy grouping's dependent steps on the longest image: one
+    argmin per active row of every joint after the first (the first has
+    no one to match), and one update step per active row."""
+    active = (val_k > det_thr).sum(dim=2)                       # (B, J)
+    return int((active[:, 1:].sum(dim=1) + active.sum(dim=1)).max())
+
+
+def latency_bound(steps: int, step_ns: float) -> dict:
+    """The least time of a chain of ``steps`` dependent warp steps, each
+    at the probe's (min, ballot) time: the kernel cannot be faster than
+    its longest image's chain.  The bytes bound stays beside it."""
+    return {"latency_bound_ms": steps * step_ns * 1e-6,
+            "latency_steps": steps}
+
+
+def lockstep_times(grp_mod, b: int, dev, step_ns: float) -> dict:
+    """Kernel and plain times, the bound and the latency bound of
+    lockstep grouping at (B, J=17, K=30, D=1), p_max=90."""
     j, k, d, p_max = 17, 30, 1, 90
     inputs = lockstep_input(b, np.random.default_rng(SEED + 1), dev)
     kw = dict(max_num_people=30, p_max=p_max)
@@ -730,13 +773,26 @@ def lockstep_times(grp_mod, b: int, dev) -> dict:
                 lambda: grp_mod.match_by_tag_lockstep_plain(*inputs, **kw),
                 2),
             "library_ms": None,
-            **bound(n_bytes, n_ops), "shape": [b, j, k, d, p_max]}
+            **bound(n_bytes, n_ops),
+            **latency_bound(greedy_steps(inputs[2]), step_ns),
+            "shape": [b, j, k, d, p_max]}
 
 
-def lap_times(lap_mod, costs, b: int) -> dict:
-    """Kernel and plain times and the bound of one LAP launch, averaged
-    over the per-joint cost matrices the decode gave the kernel
-    (``decode_full_batch(lap="pallas")``), first ``b`` images."""
+def lap_steps(lap_mod, cost) -> int:
+    """Dijkstra steps of the plain LAP on the image of ``cost`` (B, n, m)
+    that needs the most."""
+    most = 0
+    for i in range(cost.shape[0]):
+        lap_mod.lap_columns.passes = 0
+        lap_mod.lap_rect_plain(cost[i:i + 1])
+        most = max(most, lap_mod.lap_columns.passes)
+    return most
+
+
+def lap_times(lap_mod, costs, b: int, step_ns: float) -> dict:
+    """Kernel and plain times, the bound and the latency bound of one LAP
+    launch, averaged over the per-joint cost matrices the decode gave the
+    kernel (``decode_full_batch(lap="pallas")``), first ``b`` images."""
     costs = [c[:b].contiguous() for c in costs]
     _, n, m = costs[0].shape
     per = len(costs)
@@ -744,6 +800,7 @@ def lap_times(lap_mod, costs, b: int) -> dict:
     for c in costs:
         lap_mod.lap_rect_plain(c)
     passes = lap_mod.lap_columns.passes
+    steps = sum(lap_steps(lap_mod, c) for c in costs)
     # each Dijkstra step touches the m + 1 columns: ~10 float ops each
     # (two subtractions, compare, two selects, masked min, three
     # potential updates); the bytes are the matrices in, columns out
@@ -754,12 +811,17 @@ def lap_times(lap_mod, costs, b: int) -> dict:
                                          for c in costs], 1) / per,
             "library_ms": None,
             **bound(n_bytes // per, passes * (m + 1) * 10 // per),
+            **latency_bound(round(steps / per), step_ns),
             "dijkstra_steps": passes / per, "shape": [b, n, m]}
 
 
-def mega_times(mega_mod, lap_mod, topk, solver: str, b: int) -> dict:
-    """Kernel and plain times and the bound of the grouping mega-kernel
-    on the main path's own top-k (B=8 or 1, J=17, K=30, D=1), p_max=90."""
+def mega_times(mega_mod, lap_mod, topk, solver: str, b: int,
+               step_ns: float) -> dict:
+    """Kernel and plain times, the bound and the latency bound of the
+    grouping mega-kernel on the main path's own top-k (B=8 or 1, J=17,
+    K=30, D=1), p_max=90.  The exact solver's chain is its longest
+    image's Dijkstra steps (from the plain version, image by image) and
+    one update step per active row."""
     val_k, loc_k, tag_k = (t[:b].float().contiguous() for t in topk)
     _, j, k, d = tag_k.shape
     m, p_max = 30, 90
@@ -779,10 +841,21 @@ def mega_times(mega_mod, lap_mod, topk, solver: str, b: int) -> dict:
         n_ops += lap_mod.lap_columns.passes * (2 * m + 1) * 10
     n_bytes = b * j * k * (d + 2 + 1) * 4 + b * p_max * j * (3 + d) * 4 \
         + b * 4
+    if solver == "greedy":
+        steps = greedy_steps(val_k)
+    else:
+        steps = 0
+        for i in range(b):
+            lap_mod.lap_columns.passes = 0
+            mega_mod.match_by_tag_kernel_plain(
+                tag_k[i:i + 1], loc_k[i:i + 1], val_k[i:i + 1], **kw)
+            steps = max(steps, lap_mod.lap_columns.passes
+                        + int((val_k[i] > 0.1).sum()))
     return {"ms": device_ms(lambda: mega_mod.match_by_tag_kernel(
                 tag_k, loc_k, val_k, **kw), 20),
             "plain_ms": plain_ms, "library_ms": None,
-            **bound(n_bytes, n_ops), "shape": [b, j, k, d, p_max]}
+            **bound(n_bytes, n_ops), **latency_bound(steps, step_ns),
+            "shape": [b, j, k, d, p_max]}
 
 
 def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S
@@ -796,7 +869,7 @@ def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S
 
 
 def new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps, costs,
-                    errs, top_k) -> list:
+                    errs, top_k, step_ns: float) -> list:
     """Rows of the grouping mega-kernel (each solver) and the LAP kernel,
     at batch 8 and batch 1, with the launches of the path that runs
     them."""
@@ -810,26 +883,31 @@ def new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps, costs,
                      "replaces": "rtpe_tpu/ops/pallas_group.py:348",
                      "launches": path_launches[path]["match_by_tag_kernel"],
                      "path": path, "max_abs_err": errs["group_mega"],
-                     **mega_times(mega_mod, lap_mod, topk, solver, 8),
-                     "at_b1": mega_times(mega_mod, lap_mod, topk, solver, 1)})
+                     **mega_times(mega_mod, lap_mod, topk, solver, 8,
+                                  step_ns),
+                     "at_b1": mega_times(mega_mod, lap_mod, topk, solver, 1,
+                                         step_ns)})
     path = "decode_full_batch_pallas"
     rows.append({"name": "lap_rect", "route": "cuda",
                  "source": "rtpe_tpu_torch/csrc/lap_rect.cu",
                  "replaces": "rtpe_tpu/ops/pallas_lap.py:125",
                  "launches": path_launches[path]["lap_rect"], "path": path,
                  "max_abs_err": errs["lap_rect"],
-                 **lap_times(lap_mod, costs, 8),
-                 "at_b1": lap_times(lap_mod, costs, 1)})
+                 **lap_times(lap_mod, costs, 8, step_ns),
+                 "at_b1": lap_times(lap_mod, costs, 1, step_ns)})
     return rows
 
 
-def phase_kernel_times(nms_mod, grp_mod, launches, errs, dev) -> list:
+def phase_kernel_times(nms_mod, grp_mod, launches, errs, dev,
+                       step_ns: float) -> list:
     """Times at the main path's batch-8 shape, and at batch 1."""
     rows = []
     for name, times, counter, source, replaces in (
             ("nms_topk", nms_times, "nms_topk", "nms_topk.cu",
              "rtpe_tpu/ops/pallas_decode.py:89"),
-            ("group_lockstep", lockstep_times, "match_by_tag_lockstep",
+            ("group_lockstep",
+             lambda mod, b, dev: lockstep_times(mod, b, dev, step_ns),
+             "match_by_tag_lockstep",
              "group_lockstep.cu",
              "rtpe_tpu/ops/pallas_group_lockstep.py:161")):
         mod = nms_mod if name == "nms_topk" else grp_mod
@@ -882,11 +960,10 @@ def phase_end_to_end(pred) -> dict:
 
 # ------------------------------------------- the packed serving path
 
-def phase_nan_tags(grp_mod, mega_mod, dev) -> None:
-    """The grouping kernels against their plain versions on tags with
-    planted NaNs: a whole tag at the first joint (a person whose mean
-    stays NaN), one dimension of a later row; B=8, J=17, K=30, D=2."""
-    rng = np.random.default_rng(SEED + 6)
+def nan_scene(rng: np.random.Generator):
+    """(tags, locs, vals) with planted NaN tags: a whole tag at the first
+    joint (a person whose mean stays NaN), one dimension of a later row;
+    B=8, J=17, K=30, D=2."""
     b, j, k, d = 8, 17, 30, 2
     tags = rng.normal(size=(b, j, k, d)).astype(np.float32) * 2
     tags[..., 0] = np.round(tags[..., 0] * 2) / 2
@@ -898,7 +975,14 @@ def phase_nan_tags(grp_mod, mega_mod, dev) -> None:
     tags[1, 2, 0, 1] = np.nan
     tags[2, 5, 2] = np.nan
     tags[3, 16, 0] = np.nan
-    args = [torch.from_numpy(a).to(dev) for a in (tags, locs, vals)]
+    return tags, locs, vals
+
+
+def phase_nan_tags(grp_mod, mega_mod, dev) -> None:
+    """The grouping kernels against their plain versions on tags with
+    planted NaNs (:func:`nan_scene`)."""
+    args = [torch.from_numpy(a).to(dev)
+            for a in nan_scene(np.random.default_rng(SEED + 6))]
     kw = dict(max_num_people=30, p_max=90)
     runs = {"lockstep": (grp_mod.match_by_tag_lockstep,
                          grp_mod.match_by_tag_lockstep_plain, {})}
@@ -1657,6 +1741,7 @@ def main() -> None:
     torch.cuda.set_device(dev)
     card = phase_card()
     build = phase_build(_build)
+    probe = phase_step_probe(_build, dev)
     errs = {"nms_topk": phase_nms(nms_mod, dev)["max_abs_err"],
             "group_lockstep": phase_lockstep(grp_mod, dev)["max_abs_err"],
             "lap_rect": phase_lap(lap_mod, dev)["max_abs_err"],
@@ -1677,9 +1762,10 @@ def main() -> None:
     path_launches, heatmaps, costs = phase_other_paths(
         pred, PosePredictor, (fused, group_jit, parser._unpack), counters,
         dev)
-    kernels = phase_kernel_times(nms_mod, grp_mod, launches, errs, dev)
+    kernels = phase_kernel_times(nms_mod, grp_mod, launches, errs, dev,
+                                 probe["ns_per_step"])
     kernels += new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps,
-                               costs, errs, top_k)
+                               costs, errs, top_k, probe["ns_per_step"])
     pred_p, packed_launches, by_shape, served = phase_packed_path(
         PosePredictor, hrnet, packed_mod, state, counters, dev)
     kernels += chain_rows(blk_mod, by_shape, chain_errs, build["ptxas"], dev)
@@ -1696,7 +1782,7 @@ def main() -> None:
     prof_packed = phase_profile(pred_p)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
-                      "ptxas": build["ptxas"],
+                      "ptxas": build["ptxas"], "warp_step_probe": probe,
                       "main_path_launches": launches,
                       "other_path_launches": path_launches,
                       "decode_paths_ms": paths_ms,

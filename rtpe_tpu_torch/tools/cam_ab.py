@@ -1,9 +1,9 @@
-"""The fused-CAM kernels and the BasicBlock-chain kernel of two checkouts
-of this repository on the same inputs, on one card: outputs compared,
-per-launch times side by side.
+"""The fused-CAM kernels, the BasicBlock-chain kernel and the grouping
+kernels of two checkouts of this repository on the same inputs, on one
+card: outputs compared, per-launch times side by side.
 
     python -m rtpe_tpu_torch.tools.cam_ab --parent <checkout> [--out DIR]
-        [--only cam|chain]
+        [--only cam|chain|group]
 
 run from the root of the checkout under test (beside ``chip_smoke.py``,
 whose seeded inputs it uses). ``<checkout>`` is another tree of the
@@ -25,6 +25,16 @@ bitwise, and each turn's times.
 The chain (``blocks.basicblock_chain``) runs on ``chip_smoke.chain_inputs``:
 4-block chains at the three branch shapes of a 640 x 640 forward at B=8
 and B=1 (timed), and exact-sum cases (``chain_exact*``).
+
+The grouping kernels (``group_lockstep``, and ``group_mega`` with each
+solver) run on ``chip_smoke.lockstep_input``, on the top-k of the main
+path's own heatmaps (``main_path_topk``: eight 640 x 640 images through
+the seeded full-width W48 predictor) and on ``chip_smoke``'s NaN scene,
+at B=8 and B=1 (timed), and on small cases that reach the kernels'
+other instances (D of 2, 3 and 8, more than 32 candidate people,
+saturation, exact cost ties, costs at -0 and +0).  Their outputs
+(``people``, ``n_people``) must be ``torch.equal`` to the parent's, NaN
+for NaN.
 
 An output counts as bad where it differs from the parent's, except a
 pixel sum (``SUMS``, whose order a redesign may change) within
@@ -53,7 +63,10 @@ OUT_NAMES = {"cam_f1_fwd": ("s_r", "s_h", "gap"),
              "cam_f2_bwd": ("dx", "dkh", "dkt", "dS"),
              "cam_f3_bwd": ("dx", "dkr", "dkh", "dkt", "dSr", "dSh", "dSt",
                             "dgate"),
-             "basicblock_chain": ("out",)}
+             "basicblock_chain": ("out",),
+             "group_lockstep": ("people", "n_people"),
+             "group_mega_greedy": ("people", "n_people"),
+             "group_mega_lap": ("people", "n_people")}
 # pixel sums whose order a redesign may change: held to 2^-8 of max |parent|
 SUMS = {"s_r", "s_h", "gap", "s_t", "dS", "dSr", "dSh", "dSt", "dgate"}
 SUM_TOL = 2.0 ** -8
@@ -105,6 +118,95 @@ def make_chain_inputs(path: str) -> list:
                                   else cs.SEED + n, dev, exact=exact)
         saved.append({"name": name, "timed": timed,
                       "t": {"x": x.cpu(), "w": w.cpu(), "b": b.cpu()}})
+    torch.save(saved, path)
+    return [c["name"] for c in saved]
+
+
+def main_path_topk(dev) -> tuple:
+    """(val_k, loc_k, tag_k) of eight 640 x 640 images through the bf16
+    serving predictor with the seeded W48 weights, as float32: the
+    grouping kernels' inputs on the main path."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from rtpe_tpu_torch.decode.nms import top_k
+    from rtpe_tpu_torch.eval import PosePredictor
+    from rtpe_tpu_torch.models import hrnet
+    model = hrnet.init_random_(hrnet.PoseHigherHRNet(hrnet.w48_config()),
+                               seed=cs.SEED)
+    pred = PosePredictor(hrnet.PoseHigherHRNet(hrnet.w48_config()),
+                         model.state_dict(), device=dev)
+    rng = np.random.default_rng(cs.SEED + 4)
+    square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+    with torch.inference_mode():
+        x = torch.stack([pred._preprocess(im)[0] for im in square])
+        hms, tags = pred._decode_outputs(*pred._forward(x))
+        return tuple(t.float().contiguous() for t in top_k(hms, tags))
+
+
+def group_scene(b, j, k, d, seed, spread=2.0, zeros=False):
+    """Tags with key ties (setdefault merges) and sorted detection values.
+    A large ``spread`` clamps most costs at 1000, where the tie bias is
+    below half an ulp: exact cost ties.  ``zeros``: half the tags -0.0
+    or +0.0, so that many distances are 0 and, without the detection
+    value in the cost, a row's cost at slot 0 is 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tags = rng.normal(size=(b, j, k, d)).astype(np.float32) * spread
+    tags[..., 0] = np.round(tags[..., 0] * 2) / 2
+    if zeros:
+        sign = np.where(rng.random(tags.shape) < 0.5, np.float32(-0.0),
+                        np.float32(0.0))
+        tags = np.where(rng.random(tags.shape) < 0.5, sign, tags)
+    locs = rng.integers(0, 320, size=(b, j, k, 2)).astype(np.float32)
+    vals = np.sort(rng.uniform(-0.3, 1.0, size=(b, j, k)).astype(
+        np.float32), axis=-1)[..., ::-1].copy()
+    return tags, locs, vals
+
+
+def group_cases(dev) -> list:
+    """(name, (tag, loc, val), keyword arguments, timed) of the grouping
+    cases."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    out = []
+    main = dict(max_num_people=30, p_max=90)
+    for b in (8, 1):
+        arrs = cs.lockstep_input(b, np.random.default_rng(cs.SEED + 1), dev)
+        out.append((f"lockstep_input_b{b}", arrs, main, True))
+    val, loc, tag = main_path_topk(dev)
+    for b in (8, 1):
+        out.append((f"topk_b{b}", (tag[:b], loc[:b], val[:b]), main, True))
+    nan = cs.nan_scene(np.random.default_rng(cs.SEED + 6))
+    for b in (8, 1):
+        out.append((f"nan_b{b}", tuple(torch.from_numpy(a[:b]).to(dev)
+                                       for a in nan), main, True))
+    small = [("d2", (3, 6, 12, 2), 20, 24, {}, {}),
+             ("d3", (3, 17, 30, 3), 30, 90, {}, {}),
+             ("d8", (2, 5, 8, 8), 8, 16, {}, {}),
+             ("m63", (3, 9, 32, 1), 63, 96, {"spread": 20.0}, {}),
+             ("saturate", (4, 9, 12, 1), 20, 6, {}, {}),
+             ("ties", (4, 17, 30, 1), 30, 90, {"spread": 300.0}, {}),
+             ("zeros", (4, 9, 16, 1), 16, 40, {"zeros": True},
+              {"use_detection_val": False}),
+             ("skip", (3, 17, 30, 1), 30, 90, {},
+              {"ignore_too_much": True})]
+    for name, shape, m, p_max, scene_kw, kw in small:
+        arrs = group_scene(*shape, seed=sum(shape) + m, **scene_kw)
+        out.append((name, tuple(torch.from_numpy(a).to(dev) for a in arrs),
+                    dict(max_num_people=m, p_max=p_max, **kw), False))
+    return out
+
+
+def make_group_inputs(path: str) -> list:
+    import torch
+    dev = torch.device("cuda", 0)
+    saved = [{"name": name, "kw": kw, "timed": timed,
+              "t": dict(zip(("tag", "loc", "val"),
+                            (a.cpu() for a in arrs)))}
+             for name, arrs, kw, timed in group_cases(dev)]
     torch.save(saved, path)
     return [c["name"] for c in saved]
 
@@ -200,7 +302,31 @@ def chain_worker(chain_inputs: str, outs: dict, times: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def worker(root: str, inputs, chain_inputs, save: str) -> None:
+def group_worker(group_inputs: str, outs: dict, times: dict) -> None:
+    import torch
+    from rtpe_tpu_torch.ops import group, group_lockstep
+    dev = torch.device("cuda", 0)
+    kernels = {
+        "group_lockstep": group_lockstep.match_by_tag_lockstep,
+        "group_mega_greedy": lambda *a, **kw: group.match_by_tag_kernel(
+            *a, solver="greedy", **kw),
+        "group_mega_lap": lambda *a, **kw: group.match_by_tag_kernel(
+            *a, solver="lap", **kw)}
+    for case in torch.load(group_inputs):
+        args = [case["t"][k].to(dev) for k in ("tag", "loc", "val")]
+        kw = case["kw"]
+        for op, fn in kernels.items():
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            outs[op, case["name"]] = [v.cpu() for v in got]
+            if case["timed"]:
+                times[op, case["name"]] = {
+                    "ms": device_ms(lambda: fn(*args, **kw), reps=20),
+                    "parts": {}, "kernels": {}}
+
+
+def worker(root: str, inputs, chain_inputs, group_inputs,
+           save: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from rtpe_tpu_torch.ops import cam
@@ -213,6 +339,8 @@ def worker(root: str, inputs, chain_inputs, save: str) -> None:
     outs, times = {}, {}
     if chain_inputs:
         chain_worker(chain_inputs, outs, times)
+    if group_inputs:
+        group_worker(group_inputs, outs, times)
     for case in cases:
         t = {n: v.to(dev) for n, v in case["t"].items()}
         dils = tuple(case["dils"])
@@ -232,11 +360,21 @@ def worker(root: str, inputs, chain_inputs, save: str) -> None:
     torch.save({"outs": outs, "times": times, "file": cam.__file__}, save)
 
 
-def compare(a, b, names) -> dict:
+def same(x, y) -> bool:
+    """``torch.equal``, with a NaN equal to a NaN at the same place."""
     import torch
+    if x.is_floating_point() and x.shape == y.shape:
+        nan = torch.isnan(x)
+        if bool(nan.any()):
+            return torch.equal(nan, torch.isnan(y)) and torch.equal(
+                x[~nan], y[~nan])
+    return torch.equal(x, y)
+
+
+def compare(a, b, names) -> dict:
     res = {}
     for n, x, y in zip(names, a, b):
-        if torch.equal(x, y):
+        if same(x, y):
             res[n] = "equal"
             continue
         scale = max(float(y.float().abs().max()), 1e-30)
@@ -253,22 +391,27 @@ def main() -> None:
     ap.add_argument("--inputs")
     ap.add_argument("--save")
     ap.add_argument("--chain-inputs")
-    ap.add_argument("--only", choices=("cam", "chain"))
+    ap.add_argument("--group-inputs")
+    ap.add_argument("--only", choices=("cam", "chain", "group"))
     a = ap.parse_args()
     if a.worker:
-        worker(a.root, a.inputs, a.chain_inputs, a.save)
+        worker(a.root, a.inputs, a.chain_inputs, a.group_inputs, a.save)
         return
     import torch
     os.makedirs(a.out, exist_ok=True)
     inputs = os.path.join(a.out, "inputs.pt")
     chain_inputs = os.path.join(a.out, "chain_inputs.pt")
+    group_inputs = os.path.join(a.out, "group_inputs.pt")
     args = []
-    if a.only != "chain":
+    if a.only in (None, "cam"):
         make_inputs(inputs)
         args += ["--inputs", inputs]
-    if a.only != "cam":
+    if a.only in (None, "chain"):
         make_chain_inputs(chain_inputs)
         args += ["--chain-inputs", chain_inputs]
+    if a.only in (None, "group"):
+        make_group_inputs(group_inputs)
+        args += ["--group-inputs", group_inputs]
     turns = [("parent", a.parent), ("new", "."), ("new", "."),
              ("parent", a.parent)]
     runs = []
@@ -284,9 +427,9 @@ def main() -> None:
     for (op, case), want in par["outs"].items():
         got = new["outs"][op, case]
         cmp = compare(got, want, OUT_NAMES[op])
-        rep_new = all(torch.equal(x, y) for x, y in
+        rep_new = all(same(x, y) for x, y in
                       zip(got, runs[2]["outs"][op, case]))
-        rep_par = all(torch.equal(x, y) for x, y in
+        rep_par = all(same(x, y) for x, y in
                       zip(want, runs[3]["outs"][op, case]))
         exact = "exact" in case
         for n, v in cmp.items():

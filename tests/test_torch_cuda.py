@@ -116,12 +116,20 @@ def test_nms_topk_wrapper_refuses(cuda):
         nms_topk(det[:, :2, :2], 5, 5)
 
 
-@pytest.mark.parametrize("ignore_too_much", [False, True])
-@pytest.mark.parametrize("b,j,k,d,m,p_max", [
+GROUP_CASES = [
     (5, 4, 8, 2, 8, 12),
     (3, 17, 30, 3, 30, 90),
     (2, 6, 12, 1, 20, 6),         # people beyond p_max fold onto the last
-])
+    (3, 17, 30, 1, 30, 90),       # the main path's shape
+    (3, 17, 30, 1, 30, 20),       # saturation at the main path's K
+    (2, 9, 32, 2, 63, 96),        # two candidate slots a lane
+    (2, 9, 32, 8, 63, 96),
+    (2, 6, 12, 3, 40, 48),
+]
+
+
+@pytest.mark.parametrize("ignore_too_much", [False, True])
+@pytest.mark.parametrize("b,j,k,d,m,p_max", GROUP_CASES)
 def test_lockstep_kernel_equals_plain(cuda, b, j, k, d, m, p_max,
                                       ignore_too_much):
     rng = np.random.default_rng(b * 31 + j)
@@ -184,11 +192,7 @@ def test_lap_rect_wrapper_refuses(cuda):
 
 @pytest.mark.parametrize("solver", ["lap", "greedy"])
 @pytest.mark.parametrize("ignore_too_much", [False, True])
-@pytest.mark.parametrize("b,j,k,d,m,p_max", [
-    (5, 4, 8, 2, 8, 12),
-    (3, 17, 30, 3, 30, 90),
-    (2, 6, 12, 1, 20, 6),         # people beyond p_max fold onto the last
-])
+@pytest.mark.parametrize("b,j,k,d,m,p_max", GROUP_CASES)
 def test_group_mega_kernel_equals_plain(cuda, solver, b, j, k, d, m, p_max,
                                         ignore_too_much):
     rng = np.random.default_rng(b * 31 + j)
@@ -232,7 +236,11 @@ def _nan_scene(b, j, k, d, seed):
 
 @pytest.mark.parametrize("grouping", ["lockstep", "greedy", "lap"])
 @pytest.mark.parametrize("b,j,k,d,m,p_max", [(3, 5, 8, 1, 8, 24),
-                                             (3, 17, 30, 2, 30, 90)])
+                                             (3, 17, 30, 2, 30, 90),
+                                             (3, 17, 30, 1, 30, 90),
+                                             (3, 9, 12, 3, 40, 48),
+                                             (3, 6, 8, 8, 8, 16),
+                                             (3, 17, 30, 1, 30, 20)])
 def test_grouping_kernels_keep_nan_costs(cuda, grouping, b, j, k, d, m,
                                          p_max):
     """A NaN cost survives the clamp and matches no one, in the kernels
@@ -251,6 +259,58 @@ def test_grouping_kernels_keep_nan_costs(cuda, grouping, b, j, k, d, m,
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
                                equal_nan=True)
     assert torch.equal(got[1], want[1])
+
+
+def _spread_scene(b, j, k, d, seed, spread, zeros=False):
+    """Tags with many distinct keys (``spread`` wide: more people than 32
+    candidate slots, or costs clamped at 1000 where the tie bias is below
+    half an ulp: exact cost ties), or with ``zeros`` half the tags at
+    -0.0 and +0.0 (distances of 0, costs of 0 at slot 0)."""
+    rng = np.random.default_rng(seed)
+    tags = rng.normal(size=(b, j, k, d)).astype(np.float32) * spread
+    tags[..., 0] = np.round(tags[..., 0] * 2) / 2
+    if zeros:
+        sign = np.where(rng.random(tags.shape) < 0.5, np.float32(-0.0),
+                        np.float32(0.0))
+        tags = np.where(rng.random(tags.shape) < 0.5, sign, tags)
+    locs = rng.integers(0, 64, size=(b, j, k, 2)).astype(np.float32)
+    vals = np.sort(rng.uniform(-0.3, 1.0, size=(b, j, k)).astype(
+        np.float32), axis=-1)[..., ::-1].copy()
+    return tags, locs, vals
+
+
+@pytest.mark.parametrize("grouping", ["lockstep", "greedy", "lap"])
+@pytest.mark.parametrize("case", [
+    # (b, j, k, d), m, p_max, spread, zeros, use_detection_val
+    ((3, 9, 32, 1), 63, 96, 20.0, False, True),    # > 32 candidates
+    ((3, 9, 32, 3), 63, 96, 20.0, False, True),
+    ((3, 17, 30, 1), 30, 90, 300.0, False, True),  # exact cost ties
+    ((3, 9, 16, 1), 16, 40, 2.0, True, False),     # costs at -0 / +0
+    ((3, 9, 16, 2), 16, 40, 2.0, True, True),
+    ((4, 9, 12, 1), 20, 6, 20.0, False, True),     # saturation at p_max
+])
+def test_grouping_kernels_on_spread_scenes(cuda, grouping, case):
+    """The paths the main path's scenes seldom take: more people than 32
+    candidate slots (two a lane), exact cost ties, zero costs, and new
+    people past p_max folding onto the last slot; equal to the plain
+    version, and the greedy kernels to each other."""
+    shape, m, p_max, spread, zeros, use_val = case
+    args = [torch.from_numpy(a).to(cuda) for a in _spread_scene(
+        *shape, seed=sum(shape) + m, spread=spread, zeros=zeros)]
+    kw = dict(max_num_people=m, p_max=p_max, use_detection_val=use_val)
+    if grouping == "lockstep":
+        got = match_by_tag_lockstep(*args, **kw)
+        want = match_by_tag_lockstep_plain(*args, **kw)
+    else:
+        got = match_by_tag_kernel(*args, solver=grouping, **kw)
+        want = match_by_tag_kernel_plain(*args, solver=grouping, **kw)
+        if grouping == "greedy":
+            lock = match_by_tag_lockstep(*args, **kw)
+            assert torch.equal(got[0], lock[0])
+            assert torch.equal(got[1], lock[1])
+    torch.cuda.synchronize()
+    assert int(want[1].min()) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _chain_inputs(shape, n, seed, device, exact=False):
