@@ -12,14 +12,17 @@ Phases, each of which fails the run:
    (``__reduce_min_sync``, ballot) steps (``csrc/warp_step_probe.cu``),
    the step that prices the grouping kernels' latency bound;
 3. the NMS + top-k kernel against its plain PyTorch version on the card,
-   B in {1, 8} x 17 x 320 x 320 with planted ties and sparse planes:
-   exactly equal;
+   B in {1, 8} x 17 x 320 x 320 with planted ties and sparse planes, and
+   planes with NaNs (a peak beside a NaN, a NaN on a tile border), a
+   ragged 333 x 250 plane and a wider 320 x 480 one: exactly equal;
 4. the lockstep grouping kernel against its plain version, B in
    {1, 8, 32}, J=17, K=30, D=1, p_max=90, ``ignore_too_much`` both ways:
    exactly equal;
 5. the per-joint LAP kernel against its plain version: batches of
-   cost matrices, n in {1, 8, 30, 32} x m in {30, 60, 127}, with the
-   decode's sentinel costs and planted ties: exactly equal;
+   cost matrices, n in {1, 8, 30, 32} x m in {30, 60, 63, 64, 127} (63
+   and 64 straddle the solver's two column layouts), with the decode's
+   sentinel costs and planted ties, and costs of -0.0 and +0.0: exactly
+   equal;
 6. the grouping mega-kernel against its plain version, both solvers,
    B in {1, 8}, J=17, K=30, D=1, p_max=90, ``ignore_too_much`` both
    ways: exactly equal; its greedy solver equal to the lockstep kernel
@@ -249,6 +252,31 @@ def nms_input(b: int, gen: torch.Generator, dev) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def nms_extra_inputs(gen: torch.Generator, dev) -> list:
+    """(name, det) beyond the main path's shape: NaNs (a peak beside a
+    NaN, NaNs on tile borders beside peaks, scattered NaNs),
+    a ragged plane and a wider one (a non-square image), each NHWC over
+    NCHW storage."""
+    nan = nms_input(2, gen, dev).permute(0, 3, 1, 2).contiguous()
+    nan[0, 0] = 0.0
+    nan[0, 0, 10, 11] = 1.0
+    nan[0, 0, 10, 10] = float("nan")
+    nan[0, 0, 30, 40] = 0.5
+    nan[0, 1, 31, 63] = float("nan")
+    nan[0, 1, 32, 64] = 9.0
+    nan[0, 2, 63, 63] = float("nan")                  # a tile corner
+    nan[0, 2, 64, 64] = 9.0
+    nan[1][torch.rand(nan[1].shape, generator=gen, device=dev) < 0.01] = \
+        float("nan")
+    out = [("nan", nan.permute(0, 2, 3, 1))]
+    for name, (h, w) in (("ragged", (333, 250)), ("wide", (320, 480))):
+        x = torch.randn((2, 17, h // 8, w // 8), generator=gen, device=dev)
+        x = F.interpolate(x, size=(h, w), mode="bilinear",
+                          align_corners=False)
+        out.append((name, (torch.round(x * 64) / 64).permute(0, 2, 3, 1)))
+    return out
+
+
 def lockstep_input(b: int, rng: np.random.Generator, dev):
     j, k, d = 17, 30, 1
     tags = rng.normal(size=(b, j, k, d)).astype(np.float32) * 2
@@ -386,8 +414,19 @@ def phase_nms(nms_mod, dev) -> dict:
         # the sparse plane's zero fill, in flat-index order
         v, x, y = got
         check(bool((v[:, 3, -1] == 0).all()), "sparse plane fill")
-    print(f"nms_topk: equal to plain at B in (1, 8), max_abs_err {err}",
-          flush=True)
+    for name, det in nms_extra_inputs(gen, dev):
+        got = nms_mod.nms_topk(det, 30, 5)
+        want = nms_mod.nms_topk_plain(det, 30, 5)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"nms_topk differs from its plain version on the {name} "
+              "planes")
+        if name == "nan":   # (10, 11) has a NaN in its window: no peak
+            check(got[0][0, 0, :2].tolist() == [0.5, 0.0]
+                  and got[1][0, 0, 0].item() == 40,
+                  "nms_topk: a peak beside a NaN was kept")
+    print(f"nms_topk: equal to plain at B in (1, 8), on NaN planes, a "
+          f"ragged and a wide plane, max_abs_err {err}", flush=True)
     return {"max_abs_err": err}
 
 
@@ -417,10 +456,15 @@ def phase_lockstep(grp_mod, dev) -> dict:
 
 def phase_lap(lap_mod, dev) -> dict:
     rng = np.random.default_rng(SEED)
-    shapes = [(n, m) for n in (1, 8, 30, 32) for m in (30, 60, 127)
+    shapes = [(n, m) for n in (1, 8, 30, 32) for m in (30, 60, 63, 64, 127)
               if n <= m]
-    for n, m in shapes:
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n, m in shapes + [(30, m) for m in (60, 63, 64)]:
         cost = torch.from_numpy(decode_costs(8, n, m, rng)).to(dev)
+        if (n, m) not in shapes:    # signed zeros: -0 and +0 tie
+            cost = torch.where(cost == 0, torch.where(torch.rand(
+                cost.shape, generator=gen, device=dev) < 0.5, -0.0, 0.0),
+                cost.round())
         got = lap_mod.lap_rect(cost)
         want = lap_mod.lap_rect_plain(cost)
         torch.cuda.synchronize()
@@ -430,8 +474,8 @@ def phase_lap(lap_mod, dev) -> dict:
               f"lap_rect differs from its plain version at n={n}, m={m}")
         check(all(len(set(r)) == n for r in got.tolist()),
               "lap_rect: a column assigned twice")
-    print(f"lap_rect: equal to plain at (n, m) in {shapes}, B=8",
-          flush=True)
+    print(f"lap_rect: equal to plain at (n, m) in {shapes}, B=8, and on "
+          "signed zero costs", flush=True)
     return {"max_abs_err": 0.0}
 
 

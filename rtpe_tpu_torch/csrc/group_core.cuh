@@ -29,7 +29,8 @@
 //      __reduce_min_sync over an order-preserving uint32 image of the cost
 //      (order_key) and one ballot for the smallest slot at that minimum;
 //      the row's match test was made in the build.  LAP: lapcore::lap_warp
-//      on the 32 x 128 cost, column 0 for the entering row.  Then the
+//      on the 32 x 128 cost, column 0 for the entering row, two columns a
+//      lane up to 2m = 63 and four beyond.  Then the
 //      update's slot of every row: matched rows take their column, new
 //      rows their stable key match, and the rest in one or two warp
 //      operations (fresh slots, or the last slot once there are p_max
@@ -64,7 +65,7 @@ constexpr int NT = 256;                  // threads a block (one image)
 constexpr int NW = NT / 32;
 constexpr int SLOTS = 128;               // person slots of the state
 constexpr int ROWS = 32;                 // detection rows a joint
-constexpr int LANES = 128;               // the LAP's columns, lap_core's
+constexpr int LANES = 128;               // the LAP cost's row stride
 constexpr int DMAX = 8;
 constexpr int HIT_SPAN = SLOTS / NW;     // slots a warp searches for keys
 constexpr float COST_CLAMP = 1000.0f;
@@ -360,6 +361,25 @@ __device__ __forceinline__ void greedy_chain(const unsigned *ckey,
     }
 }
 
+// Phase B, LAP: lapcore::lap_warp<QL> (QL columns a lane) on the joint's
+// cost (column 0 for the entering row, stride LANES), then col[r] = the
+// slot of row r (0 for a row left out).
+template <int QL>
+__device__ __forceinline__ bool lap_columns(const float *cost, int *col,
+                                            int n_rows, int m2, int lane) {
+  int p[QL];
+  const bool ok = lapcore::lap_warp<QL>(cost, LANES, n_rows, m2, lane, p);
+  col[lane] = 0;  // ROWS == 32: one row per lane
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < QL; ++q) {
+    const int l = QL * lane + q;
+    if (l >= 1 && l <= m2 && p[q] >= 1) col[p[q] - 1] = l - 1;
+  }
+  __syncwarp();
+  return ok;
+}
+
 // Phase B: the slot each row writes, handed to the slots as row masks,
 // and the people count after the joint.  Lane r is row r.  A matched row
 // writes its column; a new row its stable key match.  The rest (the
@@ -507,17 +527,11 @@ __device__ __forceinline__ void group_image(
         // rows up to the last valid detection; none when there is no one
         // to match or the joint is skipped
         const int n_rows = solve ? 32 - __clz(valid) : 0;
-        int p[lapcore::Q];
-        ok = lapcore::lap_warp(sh.s.cost, LANES, n_rows, 2 * m, lane, p) &&
+        ok = (lapcore::lanes_q(2 * m) == 2
+                  ? lap_columns<2>(sh.s.cost, sh.col, n_rows, 2 * m, lane)
+                  : lap_columns<4>(sh.s.cost, sh.col, n_rows, 2 * m,
+                                   lane)) &&
              ok;
-        sh.col[lane] = 0;  // ROWS == 32: one row per lane
-        __syncwarp();
-#pragma unroll
-        for (int q = 0; q < lapcore::Q; ++q) {
-          const int l = lane + 32 * q;
-          if (l >= 1 && l <= 2 * m && p[q] >= 1) sh.col[p[q] - 1] = l - 1;
-        }
-        __syncwarp();
         col = sh.col[lane];
         const float d_at = sh.s.diff[lane * LANES + min(max(col, 0), m - 1)];
         matched = ((act >> lane) & 1u) && col < p_cur && d_at < tag_thr;

@@ -1,9 +1,10 @@
-"""The fused-CAM kernels, the BasicBlock-chain kernel and the grouping
-kernels of two checkouts of this repository on the same inputs, on one
-card: outputs compared, per-launch times side by side.
+"""The fused-CAM kernels, the BasicBlock-chain kernel, the grouping
+kernels, the NMS + top-k kernel and the LAP kernel of two checkouts of
+this repository on the same inputs, on one card: outputs compared,
+per-launch times side by side.
 
     python -m rtpe_tpu_torch.tools.cam_ab --parent <checkout> [--out DIR]
-        [--only cam|chain|group]
+        [--only cam|chain|group|nms|lap]
 
 run from the root of the checkout under test (beside ``chip_smoke.py``,
 whose seeded inputs it uses). ``<checkout>`` is another tree of the
@@ -36,6 +37,18 @@ saturation, exact cost ties, costs at -0 and +0).  Their outputs
 (``people``, ``n_people``) must be ``torch.equal`` to the parent's, NaN
 for NaN.
 
+The NMS + top-k kernel (``nms_topk``) runs on ``chip_smoke.nms_input``
+and on the main path's own heatmaps (``main_path_heatmaps``) at B=8 and
+B=1 (timed), on ``chip_smoke.nms_extra_inputs`` (a ragged and a wide
+plane, and NaN planes) and at ksize 3 and 9.  The LAP kernel
+(``lap_rect``) runs on the 17 cost matrices the main path's heatmaps give
+it under ``decode_full_batch(lap="pallas")``, at B=8 and B=1 (timed, ms a
+launch), and on ``chip_smoke.decode_costs`` at m in {30, 60, 63, 64, 127}
+and with signed zero costs.  Each tree also runs the plain version of
+both on the card, and the change must equal it everywhere.  Outputs must
+be ``torch.equal`` to the parent's, except on the NaN planes, where the
+parent's pool dropped the NaN (``nan`` cases: compared, not held).
+
 An output counts as bad where it differs from the parent's, except a
 pixel sum (``SUMS``, whose order a redesign may change) within
 ``SUM_TOL`` of max |parent|, or a chain output within ``CHAIN_TOL`` of
@@ -66,7 +79,9 @@ OUT_NAMES = {"cam_f1_fwd": ("s_r", "s_h", "gap"),
              "basicblock_chain": ("out",),
              "group_lockstep": ("people", "n_people"),
              "group_mega_greedy": ("people", "n_people"),
-             "group_mega_lap": ("people", "n_people")}
+             "group_mega_lap": ("people", "n_people"),
+             "nms_topk": ("val", "x", "y"),
+             "lap_rect": ("cols",)}
 # pixel sums whose order a redesign may change: held to 2^-8 of max |parent|
 SUMS = {"s_r", "s_h", "gap", "s_t", "dS", "dSr", "dSh", "dSt", "dgate"}
 SUM_TOL = 2.0 ** -8
@@ -87,6 +102,12 @@ def kernel_part(name: str) -> str:
         return "chain_conv"
     if "split_epilogue" in name:
         return "chain_split_epilogue"
+    if "nms_tile_kernel" in name:
+        return "nms_tile"
+    if "nms_merge_kernel" in name:
+        return "nms_merge"
+    if "lap_rect_kernel" in name:
+        return "lap"
     if "dx_kernel" in name:
         return "dx"
     if any(k in name for k in ("f1b_", "f2b_", "f3b_")):
@@ -122,14 +143,13 @@ def make_chain_inputs(path: str) -> list:
     return [c["name"] for c in saved]
 
 
-def main_path_topk(dev) -> tuple:
-    """(val_k, loc_k, tag_k) of eight 640 x 640 images through the bf16
-    serving predictor with the seeded W48 weights, as float32: the
-    grouping kernels' inputs on the main path."""
+def main_path_heatmaps(dev) -> tuple:
+    """(heatmaps, tags, predictor) of eight 640 x 640 images through the
+    bf16 serving predictor with the seeded W48 weights: the decode's
+    inputs on the main path."""
     import numpy as np
     import torch
     import chip_smoke as cs
-    from rtpe_tpu_torch.decode.nms import top_k
     from rtpe_tpu_torch.eval import PosePredictor
     from rtpe_tpu_torch.models import hrnet
     model = hrnet.init_random_(hrnet.PoseHigherHRNet(hrnet.w48_config()),
@@ -142,7 +162,85 @@ def main_path_topk(dev) -> tuple:
     with torch.inference_mode():
         x = torch.stack([pred._preprocess(im)[0] for im in square])
         hms, tags = pred._decode_outputs(*pred._forward(x))
+    return hms, tags, pred
+
+
+def main_path_topk(dev) -> tuple:
+    """(val_k, loc_k, tag_k) of :func:`main_path_heatmaps`, as float32:
+    the grouping kernels' inputs on the main path."""
+    import torch
+    from rtpe_tpu_torch.decode.nms import top_k
+    hms, tags, _ = main_path_heatmaps(dev)
+    with torch.inference_mode():
         return tuple(t.float().contiguous() for t in top_k(hms, tags))
+
+
+def main_path_lap_costs(hms, tags, pred) -> list:
+    """The (8, n, m) cost matrices ``decode_full_batch(lap="pallas")``
+    gives the LAP kernel on the main path's heatmaps, one a joint."""
+    import torch
+    from rtpe_tpu_torch.decode import fused, group_jit
+    costs = []
+    lap_rect = group_jit.lap_rect
+
+    def capture(cost):
+        costs.append(cost.clone())
+        return lap_rect(cost)
+
+    group_jit.lap_rect = capture
+    try:
+        with torch.inference_mode():
+            fused.decode_full_batch(hms, tags, lap="pallas",
+                                    **pred.parser._fused_kwargs())
+    finally:
+        group_jit.lap_rect = lap_rect
+    return costs
+
+
+def make_decode_inputs(path: str, only=None) -> list:
+    """The NMS and LAP cases (see the module's docstring), or only those
+    of ``only`` ("nms" or "lap"), saved."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    hms, tags, pred = main_path_heatmaps(dev)
+    saved = []
+    for b in (8, 1):
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+        saved.append({"op": "nms_topk", "name": f"synthetic_b{b}",
+                      "timed": True, "k": 30, "ksize": 5,
+                      "t": cs.nms_input(b, gen, dev).cpu()})
+        saved.append({"op": "nms_topk", "name": f"main_b{b}", "timed": True,
+                      "k": 30, "ksize": 5, "t": hms[:b].float().cpu()})
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 2)
+    for name, det in cs.nms_extra_inputs(gen, dev):
+        saved.append({"op": "nms_topk", "name": name, "timed": False,
+                      "k": 30, "ksize": 5, "t": det.cpu()})
+    for ksize in (3, 9):
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + ksize)
+        saved.append({"op": "nms_topk", "name": f"k{ksize}", "timed": False,
+                      "k": 20, "ksize": ksize,
+                      "t": cs.nms_input(2, gen, dev).cpu()})
+    costs = main_path_lap_costs(hms, tags, pred)
+    for b in (8, 1):
+        saved.append({"op": "lap_rect", "name": f"decode_b{b}",
+                      "timed": True, "t": [c[:b].cpu() for c in costs]})
+    rng = np.random.default_rng(cs.SEED + 9)
+    for m in (30, 60, 63, 64, 127):
+        c = torch.from_numpy(cs.decode_costs(8, 30, m, rng))
+        saved.append({"op": "lap_rect", "name": f"costs_m{m}",
+                      "timed": False, "t": [c]})
+        zero = torch.where(c == 0, torch.where(
+            torch.from_numpy(rng.random(c.shape)) < 0.5, -0.0, 0.0),
+            c.round()).float()
+        saved.append({"op": "lap_rect", "name": f"zeros_m{m}",
+                      "timed": False, "t": [zero]})
+    if only:
+        op = {"nms": "nms_topk", "lap": "lap_rect"}[only]
+        saved = [c for c in saved if c["op"] == op]
+    torch.save(saved, path)
+    return [c["name"] for c in saved]
 
 
 def group_scene(b, j, k, d, seed, spread=2.0, zeros=False):
@@ -325,7 +423,36 @@ def group_worker(group_inputs: str, outs: dict, times: dict) -> None:
                     "parts": {}, "kernels": {}}
 
 
-def worker(root: str, inputs, chain_inputs, group_inputs,
+def decode_worker(decode_inputs: str, outs: dict, times: dict) -> None:
+    """The NMS and LAP cases: each kernel, and its plain version on the
+    card (``<op>_plain``)."""
+    import torch
+    from rtpe_tpu_torch.ops import lap, nms_topk
+    dev = torch.device("cuda", 0)
+    for case in torch.load(decode_inputs):
+        if case["op"] == "nms_topk":
+            det = case["t"].to(dev)
+            k, ksize = case["k"], case["ksize"]
+            fn = lambda: nms_topk.nms_topk(det, k, ksize)     # noqa: E731
+            plain = lambda: nms_topk.nms_topk_plain(det, k, ksize)  # noqa
+            per = 1
+        else:
+            costs = [c.to(dev) for c in case["t"]]
+            fn = lambda: (torch.cat([lap.lap_rect(c)          # noqa: E731
+                                     for c in costs]),)
+            plain = lambda: (torch.cat([lap.lap_rect_plain(c)  # noqa: E731
+                                        for c in costs]),)
+            per = len(costs)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        outs[case["op"], case["name"]] = [v.cpu() for v in got]
+        outs[case["op"] + "_plain", case["name"]] = [v.cpu() for v in want]
+        if case["timed"]:
+            times[case["op"], case["name"]] = {
+                "ms": device_ms(fn, reps=20) / per, **breakdown(fn)}
+
+
+def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
            save: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -341,6 +468,8 @@ def worker(root: str, inputs, chain_inputs, group_inputs,
         chain_worker(chain_inputs, outs, times)
     if group_inputs:
         group_worker(group_inputs, outs, times)
+    if decode_inputs:
+        decode_worker(decode_inputs, outs, times)
     for case in cases:
         t = {n: v.to(dev) for n, v in case["t"].items()}
         dils = tuple(case["dils"])
@@ -392,16 +521,20 @@ def main() -> None:
     ap.add_argument("--save")
     ap.add_argument("--chain-inputs")
     ap.add_argument("--group-inputs")
-    ap.add_argument("--only", choices=("cam", "chain", "group"))
+    ap.add_argument("--decode-inputs")
+    ap.add_argument("--only", choices=("cam", "chain", "group", "nms",
+                                       "lap"))
     a = ap.parse_args()
     if a.worker:
-        worker(a.root, a.inputs, a.chain_inputs, a.group_inputs, a.save)
+        worker(a.root, a.inputs, a.chain_inputs, a.group_inputs,
+               a.decode_inputs, a.save)
         return
     import torch
     os.makedirs(a.out, exist_ok=True)
     inputs = os.path.join(a.out, "inputs.pt")
     chain_inputs = os.path.join(a.out, "chain_inputs.pt")
     group_inputs = os.path.join(a.out, "group_inputs.pt")
+    decode_inputs = os.path.join(a.out, "decode_inputs.pt")
     args = []
     if a.only in (None, "cam"):
         make_inputs(inputs)
@@ -412,6 +545,9 @@ def main() -> None:
     if a.only in (None, "group"):
         make_group_inputs(group_inputs)
         args += ["--group-inputs", group_inputs]
+    if a.only in (None, "nms", "lap"):
+        make_decode_inputs(decode_inputs, a.only)
+        args += ["--decode-inputs", decode_inputs]
     turns = [("parent", a.parent), ("new", "."), ("new", "."),
              ("parent", a.parent)]
     runs = []
@@ -424,7 +560,16 @@ def main() -> None:
     par, new = runs[0], runs[1]
     report = {"files": [r["file"] for r in runs], "ops": {}}
     bad = []
+    for (op, case), got in new["outs"].items():
+        if op.endswith("_plain"):   # the change against its plain version
+            if not all(same(x, y) for x, y in
+                       zip(new["outs"][op[:-6], case], got)):
+                bad.append(f"{op[:-6]} {case}: differs from its plain "
+                           "version")
+            continue
     for (op, case), want in par["outs"].items():
+        if op.endswith("_plain"):
+            continue
         got = new["outs"][op, case]
         cmp = compare(got, want, OUT_NAMES[op])
         rep_new = all(same(x, y) for x, y in
@@ -435,6 +580,8 @@ def main() -> None:
         for n, v in cmp.items():
             tol = CHAIN_TOL if op == "basicblock_chain" else (
                 SUM_TOL if n in SUMS else None)
+            if op == "nms_topk" and case.startswith("nan"):
+                continue            # the parent's pool dropped the NaN
             if v != "equal" and (tol is None or v > tol or exact):
                 bad.append(f"{op} {case} {n}: {v}")
         if not (rep_new and rep_par):

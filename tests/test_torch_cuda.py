@@ -8,7 +8,9 @@ machine with the card, run them without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 They cover what ``chip_smoke.py``'s main-path shapes do not: planes whose
-size is not a multiple of the NMS tile, other pooling windows, more
+size is not a multiple of the NMS tile, wider planes, NaN heatmaps, other
+pooling windows, LAP matrices on both sides of the solver's column
+layouts (m = 63 / 64) and with signed zero costs, more
 than one tag dimension, LAP matrices of every size the kernel takes,
 NaN tags in the grouping kernels, BasicBlock chains at ragged and
 narrow shapes, a small packed forward with its chains on the kernel,
@@ -92,6 +94,9 @@ def _heatmaps(shape, seed):
     ((2, 70, 130, 4), 3, 17),     # several tiles, 3x3 window
     ((3, 33, 65, 2), 9, 30),      # widest window the kernel takes
     ((1, 6, 5, 2), 5, 30),        # a plane of exactly K pixels
+    ((2, 64, 480, 2), 5, 30),     # a wider plane (a non-square image)
+    ((1, 29, 150, 3), 5, 30),     # ragged on both axes, 3 tiles wide
+    ((1, 40, 70, 2), 5, 1),       # K = 1
 ])
 def test_nms_topk_kernel_equals_plain(cuda, shape, ksize, k):
     det = _heatmaps(shape, seed=sum(shape)).to(cuda)
@@ -104,6 +109,39 @@ def test_nms_topk_kernel_equals_plain(cuda, shape, ksize, k):
         assert nms_topk.launches == before + 1
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g, w)
+
+
+def _nan_heatmaps():
+    """A peak beside a NaN, NaNs on tile borders beside peaks, NaNs
+    among random planes."""
+    rng = np.random.default_rng(11)
+    det = np.round(rng.normal(size=(2, 70, 130, 3)) * 4) / 4
+    det[rng.random(det.shape) < 0.01] = np.nan
+    det[0, :, :, 0] = 0.0
+    det[0, 10, 11, 0] = 1.0
+    det[0, 10, 10, 0] = np.nan
+    det[0, 30, 40, 0] = 0.5
+    det[0, 31, 63, 1] = np.nan
+    det[0, 32, 64, 1] = 9.0
+    det[1, 63, 63, 2] = np.nan                           # a tile corner
+    det[1, 64, 64, 2] = 9.0
+    return torch.from_numpy(det.astype(np.float32))
+
+
+def test_nms_topk_kernel_keeps_nan_windows(cuda):
+    """A NaN pixel, and every pixel whose window holds one, is no peak:
+    the kernel pools as max_pool2d and jnp.maximum do (NaN propagates)."""
+    det = _nan_heatmaps()
+    for ksize in (3, 5, 9):
+        want = nms_topk_plain(det, 30, ksize)
+        got = nms_topk(det.to(cuda), 30, ksize)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+    v, x, y = nms_topk(det.to(cuda), 4, 5)
+    assert v[0, 0].tolist() == [0.5, 0.0, 0.0, 0.0]
+    assert x[0, 0].tolist() == [40, 0, 1, 2]
+    assert y[0, 0].tolist() == [30, 0, 0, 0]
 
 
 def test_nms_topk_wrapper_refuses(cuda):
@@ -152,8 +190,11 @@ def test_lockstep_kernel_equals_plain(cuda, b, j, k, d, m, p_max,
 
 
 @pytest.mark.parametrize("b,n,m", [(3, 1, 1), (2, 32, 32), (4, 30, 127),
-                                   (5, 17, 60), (1, 8, 9)])
+                                   (5, 17, 60), (1, 8, 9), (4, 30, 63),
+                                   (4, 30, 64), (3, 32, 63), (3, 32, 64)])
 def test_lap_rect_kernel_equals_plain(cuda, b, n, m):
+    """m = 63 and 64 straddle the kernel's two column layouts (two
+    columns a lane up to 63, four beyond)."""
     rng = np.random.default_rng(n * 7 + m)
     cost = rng.integers(0, 4, size=(b, n, m)).astype(np.float32)  # ties
     cost[0] = (rng.integers(0, 11, (n, m)) * 100.0
@@ -166,6 +207,23 @@ def test_lap_rect_kernel_equals_plain(cuda, b, n, m):
     torch.cuda.synchronize()
     assert lap_rect.launches == before + 1
     assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [30, 60, 63, 64, 127])
+def test_lap_rect_kernel_on_signed_zero_costs(cuda, m):
+    """Costs of -0.0 and +0.0 tie (the argmin's order key makes them
+    equal, the smallest column wins) and the potentials keep the sign of
+    the winning zero, as in the plain version."""
+    rng = np.random.default_rng(m)
+    cost = rng.integers(-1, 2, size=(4, 30, m)).astype(np.float32)
+    cost = np.where(cost == 0, np.where(rng.random(cost.shape) < 0.5,
+                                        np.float32(-0.0), np.float32(0.0)),
+                    cost)
+    c = torch.from_numpy(cost.astype(np.float32)).to(cuda)
+    got = lap_rect(c)
+    want = lap_rect_plain(c)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
@@ -216,6 +274,27 @@ def test_group_mega_kernel_equals_plain(cuda, solver, b, j, k, d, m, p_max,
         kw.pop("solver")
         lock = match_by_tag_lockstep(*args, **kw)
         assert torch.equal(got[0], lock[0]) and torch.equal(got[1], lock[1])
+
+
+@pytest.mark.parametrize("m", [31, 32])
+@pytest.mark.parametrize("spread", [2.0, 20.0])
+def test_group_mega_lap_at_the_column_boundary(cuda, m, spread):
+    """The exact solver's 2m cost columns: 62 take two columns a lane,
+    64 four; each equal to the plain version."""
+    rng = np.random.default_rng(m)
+    b, j, k, d = 3, 9, 30, 1
+    tags = rng.normal(size=(b, j, k, d)).astype(np.float32) * spread
+    tags[..., 0] = np.round(tags[..., 0] * 2) / 2
+    locs = rng.integers(0, 64, size=(b, j, k, 2)).astype(np.float32)
+    vals = np.sort(rng.uniform(-0.3, 1.0, size=(b, j, k)).astype(
+        np.float32), axis=-1)[..., ::-1].copy()
+    args = [torch.from_numpy(a).to(cuda) for a in (tags, locs, vals)]
+    kw = dict(max_num_people=m, p_max=96, solver="lap")
+    got = match_by_tag_kernel(*args, **kw)
+    want = match_by_tag_kernel_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(want[1].min()) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _nan_scene(b, j, k, d, seed):
