@@ -110,20 +110,48 @@ Phases, each of which fails the run:
     weight re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper).
 
-Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, 16 with 11, and 17-19 after 15.
+20. flip and multi-scale (0.5, 1, 2) TTA at full W48 width on 640 x 640
+    images: the grouping self-checks at D=2 (the solver ``lap="auto"``
+    then serves is printed); float32 ``tta_forward`` (TF32 off) against
+    the same aggregate from separate forwards of B, within 1e-4 of the
+    largest magnitude; four bf16 predictors (canonical and packed, flip
+    and flip at three scales), each ``predict_batch`` of 8 with the
+    counters set to 0 just before and read just after, equal to 8
+    ``predict`` calls; the D=2 decode on the card against the plain
+    decode on the CPU (n_people exact, 1e-5); the lockstep kernel at D=2
+    on the TTA top-k of 8 images, equal to its plain version and timed;
+21. ``validate_hhrnet``'s core on an in-memory COCO fixture (six 480 x
+    640 and two 640 x 427 images, two or three people each, RLE
+    segmentations, served by a dataset subclass): packed, flip, twice,
+    the ten stats printed and finite, the NMS + top-k kernel launched
+    once a chunk, the forward's img/s beside the card; the evaluator on
+    the fixture's ground truth: AP = AR = 1.0 exactly;
+22. ``teacher_inference``'s core on 4 of those images through the
+    packed forward: each ``.npz`` read back through the port's loader
+    bitwise equal to the forward's outputs pulled to the host, with the
+    four keys in order and the joint names;
+23. ``realtime_demo``'s core: 16 frames through the packed predictor's
+    ``stream`` with and without flip, the counters set to 0 just before
+    and read just after, every frame's people equal to ``predict``'s,
+    and the frames per second.
 
-Output: the ``nvidia-smi`` line, then one JSON line ``{"kernels": ...}``,
-one JSON line of end-to-end and train-step numbers, and last
+Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
+after 10, 16 with 11, and 17-19 after 15; 20-23 run last.
+
+Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
+line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA
+and CLI numbers, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
 prints no result.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -566,11 +594,13 @@ def synthetic_images(rng: np.random.Generator):
             for h, w in shapes]
 
 
-def check_people(res, num_joints: int, what: str) -> int:
+def check_people(res, num_joints: int, what: str, d: int = 1) -> int:
+    """Finite people of (J, 3 + D) (D tag dimensions) and scores."""
     people, scores = res
     check(len(people) == len(scores), f"{what}: people/scores")
     for p in people:
-        check(p.shape == (num_joints, 4), f"{what}: person shape {p.shape}")
+        check(p.shape == (num_joints, 3 + d),
+              f"{what}: person shape {p.shape}")
         check(bool(np.isfinite(p).all()), f"{what}: non-finite person")
     check(bool(np.isfinite(np.asarray(scores)).all()),
           f"{what}: non-finite score")
@@ -1758,6 +1788,358 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
     return rows
 
 
+# ------------------- test-time augmentation, COCO evaluation, the CLIs
+
+TTA_TOL = 1e-4                # tta_forward vs by hand, float32 (TF32 off),
+                              # of the largest magnitude: cuDNN sums a
+                              # batch of 2B in another order than one of B
+TTA_SCALES = (0.5, 1.0, 2.0)  # HigherHRNet's multi-scale test set
+DECODE_TOL = 1e-5             # card decode vs the plain decode on the CPU
+
+
+def tta_by_hand(fwd, x, scales, flip_back, resize):
+    """:func:`tta_forward`'s aggregate with one forward of B per view
+    (the original and its mirror) instead of one of 2B per scale."""
+    b, h, w = x.shape[:3]
+    j = 17
+    base, acc, tags = None, None, None
+    for s in scales:
+        xs = x if s == 1.0 else resize(
+            x, (int(round(h * s / 64)) * 64, int(round(w * s / 64)) * 64),
+            align_corners=False)
+        views = []
+        for v in (xs, xs.flip(2)):
+            coarse, refined = fwd(v)
+            views.append((refined[..., :j].float(), coarse[..., j:].float()))
+        if base is None:
+            base = tuple(views[0][0].shape[1:3])
+
+        def to_base(t):
+            return t if tuple(t.shape[1:3]) == base else resize(
+                t, base, align_corners=True)
+
+        hm = to_base(views[0][0]) + flip_back(to_base(views[1][0]))
+        acc = hm if acc is None else acc + hm
+        if s == 1.0:
+            tags = [to_base(views[0][1]), flip_back(to_base(views[1][1]))]
+    return acc / float(2 * len(scales)), torch.stack(tags, dim=-1).reshape(
+        b, *base, 2 * j)
+
+
+def same_people(got, want, what: str) -> None:
+    """Two lists of one image's (people, scores): n_people exact, people
+    and scores within DECODE_TOL."""
+    check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check_same_decode(g, w, f"{what}[{i}]")
+
+
+def phase_tta(mods, state, counters, dev, step_ns: float) -> dict:
+    """Flip and multi-scale TTA at full W48 width on 640 x 640 images:
+    the self-checks at D=2 and the solver they leave ``auto``; float32
+    ``tta_forward`` against :func:`tta_by_hand`; the bf16 predictors,
+    canonical and packed, with each path's counters set to 0 just before
+    and read just after (``predict_batch`` of 8 against 8 ``predict``);
+    the D=2 decode on the card against the plain decode on the CPU; the
+    lockstep kernel at D=2 on the TTA top-k of 8 images, timed."""
+    (PosePredictor, hrnet, tta_mod, fused, decode_full_batch, top_k,
+     grp_mod, nms_mod, resize_bilinear, set_tf32) = mods
+    cfg = hrnet.w48_config()
+    verdicts = {s: fused.kernel_selfcheck(30, 90, 17, 2, solver=s,
+                                          device=dev)
+                for s in ("greedy", "lap", "lockstep")}
+    served = fused._resolve_auto_lap(30, 90, 17, 2, device=dev)
+    print(f"tta: kernel_selfcheck at D=2 {verdicts}; lap='auto' serves "
+          f"{served!r} on a batch", flush=True)
+    rng = np.random.default_rng(SEED + 9)
+    square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+
+    set_tf32(False)
+    pred32 = PosePredictor(hrnet.PoseHigherHRNet(cfg), state, device=dev,
+                           dtype=torch.float32, with_flip=True,
+                           scales=TTA_SCALES)
+    hand = {}
+    with torch.inference_mode():
+        x = torch.stack([pred32._preprocess(im)[0] for im in square[:2]])
+        for scales in ((1.0,), TTA_SCALES):
+            got = tta_mod.tta_forward(pred32._forward_nhwc, x, 17, True,
+                                      scales)
+            want = tta_by_hand(pred32._forward_nhwc, x, scales,
+                               tta_mod.flip_back, resize_bilinear)
+            errs = []
+            for g, w in zip(got, want):
+                check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                      f"tta_forward {scales}: shape or non-finite")
+                err = (g - w).abs().max().item()
+                rel = err / w.abs().max().item()
+                check(rel <= TTA_TOL, f"tta_forward {scales} differs from "
+                      f"the separate forwards by {err} ({rel:.3g} of the "
+                      f"largest magnitude)")
+                errs.append((err, rel))
+            hand[",".join(map(str, scales))] = {
+                "max_abs_err_hms": errs[0][0], "rel_err_hms": errs[0][1],
+                "max_abs_err_tags": errs[1][0], "rel_err_tags": errs[1][1],
+                "hms_shape": list(got[0].shape),
+                "tags_shape": list(got[1].shape)}
+    del pred32
+    torch.cuda.empty_cache()
+
+    paths, times = {}, {}
+    for packed in (False, True):
+        for scales in ((1.0,), TTA_SCALES):
+            name = (f"{'packed' if packed else 'canonical'}_flip"
+                    + ("_multiscale" if len(scales) > 1 else ""))
+            pred = PosePredictor(hrnet.PoseHigherHRNet(cfg), state,
+                                 device=dev, packed=packed, with_flip=True,
+                                 scales=scales)
+            check(pred.tta and pred.dtype == torch.bfloat16, name)
+            reset(counters)
+            batch = pred.predict_batch(square)
+            launches = read(counters)
+            singles = [pred.predict(im) for im in square]
+            same_people(batch, singles, f"{name} predict_batch vs predict")
+            n = [check_people(r, 17, name, d=2) for r in batch]
+            check(sum(n) > 0, f"{name}: no people")
+            check(launches["nms_topk"] == 8,
+                  f"{name}: {launches['nms_topk']} nms_topk launches")
+            kernel = ("match_by_tag_lockstep" if served == "lockstep"
+                      else "lap_rect")
+            check(launches[kernel] > 0, f"{name}: {kernel} not launched")
+            times[name] = {"predict_ms": host_ms(
+                lambda: pred.predict(square[0]), 3)}
+            if packed and len(scales) == 1:
+                times[name]["profile"] = device_profile(
+                    lambda: pred.predict(square[0]),
+                    ("nms_tile_kernel", "nms_merge_kernel",
+                     "lockstep_kernel"))
+            paths[name] = {"people": n, "launches": launches}
+            if packed or len(scales) > 1:
+                del pred
+                torch.cuda.empty_cache()
+            else:
+                flip_pred = pred
+
+    with torch.inference_mode():
+        x = torch.stack([flip_pred._preprocess(im)[0] for im in square])
+        hms, tags = flip_pred._maps(x)
+        check(tags.shape[-1] == 34, f"tags {tuple(tags.shape)}: D != 2")
+        reset(counters)
+        got = decode_full_batch(hms[:2], tags[:2])
+        decode_launches = read(counters)
+        want = decode_full_batch(hms[:2].cpu(), tags[:2].cpu())
+        check(torch.equal(got[1].cpu(), want[1]),
+              f"D=2 n_people card {got[1].tolist()} vs CPU "
+              f"{want[1].tolist()}")
+        for g, w in zip((got[0], got[2]), (want[0], want[2])):
+            check(torch.allclose(g.cpu(), w, rtol=DECODE_TOL,
+                                 atol=DECODE_TOL),
+                  "D=2 card decode differs from the CPU decode")
+        val_k, loc_k, tag_k = top_k(hms, tags, 30, 5, 2, True)
+        kw = dict(max_num_people=30, p_max=90)
+        d2 = {"ms": device_ms(lambda: grp_mod.match_by_tag_lockstep(
+                  tag_k, loc_k, val_k, **kw), 50),
+              "plain_ms": host_ms(lambda: grp_mod.match_by_tag_lockstep_plain(
+                  tag_k, loc_k, val_k, **kw), 2),
+              **latency_bound(greedy_steps(val_k), step_ns),
+              "shape": list(tag_k.shape),
+              "nms_topk_ms": device_ms(lambda: nms_mod.nms_topk(hms), 50)}
+        lock = grp_mod.match_by_tag_lockstep(tag_k, loc_k, val_k, **kw)
+        plain = grp_mod.match_by_tag_lockstep_plain(tag_k, loc_k, val_k,
+                                                    **kw)
+        check(torch.equal(lock[0], plain[0]) and torch.equal(lock[1],
+                                                              plain[1]),
+              "group_lockstep at D=2 differs from its plain version")
+    del flip_pred
+    torch.cuda.empty_cache()
+    print(f"tta: by hand {hand}; paths {paths}; D=2 decode of 2 images "
+          f"== CPU plain, n_people {got[1].tolist()}, launches "
+          f"{decode_launches}; lockstep D=2 B=8 {d2['ms']:.4f} ms; "
+          f"predict ms {({k: v['predict_ms'] for k, v in times.items()})}",
+          flush=True)
+    return {"selfcheck_d2": verdicts, "auto_serves": served,
+            "by_hand": hand, "paths": paths,
+            "decode_d2_launches": decode_launches,
+            "lockstep_d2_b8": d2, "times": times}
+
+
+def coco_fixture(rle_encode, rng):
+    """An in-memory COCO split: six 480 x 640 and two 640 x 427 RGB
+    images in [0, 1], two or three people each, 17 labelled keypoints in
+    a grid inside each person's box, uncompressed-RLE segmentations."""
+    shapes = [(480, 640)] * 6 + [(640, 427)] * 2
+    images, anns, pics = [], [], {}
+    aid = 1
+    for i, (h, w) in enumerate(shapes):
+        img_id = 2000 + i
+        pics[img_id] = rng.random((h, w, 3)).astype(np.float32)
+        images.append({"id": img_id, "file_name": f"{img_id:012d}.jpg",
+                       "height": h, "width": w})
+        for p in range(2 + i % 2):
+            x0, y0, bw, bh = 0.04 * w + p * 0.31 * w, 0.2 * h, 0.25 * w, \
+                0.5 * h
+            kps = []
+            for j in range(17):
+                kps += [x0 + (j % 4 + 0.5) * bw / 4,
+                        y0 + (j // 4 + 0.5) * bh / 5, 2]
+            mask = np.zeros((h, w), np.uint8)
+            mask[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = 1
+            anns.append({"id": aid, "image_id": img_id, "category_id": 1,
+                         "keypoints": kps, "num_keypoints": 17,
+                         "iscrowd": 0, "area": float(mask.sum()),
+                         "bbox": [x0, y0, bw, bh],
+                         "segmentation": rle_encode(mask, compress=False)})
+            aid += 1
+    data = {"images": images, "annotations": anns,
+            "categories": [{"id": 1, "name": "person",
+                            "keypoints": ["k"] * 17}]}
+    return data, pics
+
+
+def memory_dataset(base, pics):
+    """``base`` (the port's ``CocoDistillationDataset``) serving the
+    fixture's images from memory instead of reading files."""
+    class MemoryCoco(base):
+        def load_image(self, img_id):
+            return pics[img_id]
+    return MemoryCoco
+
+
+def phase_validate(mods, model, root, pics, counters, card, dev) -> dict:
+    """``validate_hhrnet``'s core on the fixture, packed, with flip, on
+    the card: twice (the second timed), the ten stats finite and equal
+    run to run; the NMS + top-k kernel launched; the evaluator on the
+    fixture's own ground truth gives AP = AR = 1 exactly."""
+    validate_mod, dataset_cls, stats_names = mods
+    ds = memory_dataset(dataset_cls, pics)(root, "val2017",
+                                           host_gt_heatmaps=False)
+    check(len(ds) == 8, f"fixture has {len(ds)} images")
+    args = validate_mod.build_parser().parse_args(
+        ["--coco_dir", root, "--flip", "--save_every", "0",
+         "--device", str(dev)])
+    validate_mod.validate(model, ds, args)
+    reset(counters)
+    res = validate_mod.validate(model, ds, args)
+    launches = read(counters)
+    check(list(res.stats) == stats_names, f"stats {list(res.stats)}")
+    check(all(np.isfinite(v) for v in res.stats.values()),
+          f"non-finite stats {res.stats}")
+    # one decode a chunk: the six 480 x 640 images in chunks of 4 and 2,
+    # the two 640 x 427 in one
+    check(launches["nms_topk"] == 3,
+          f"{launches['nms_topk']} nms_topk launches for three chunks")
+    n = [len(p) for p in res.preds]
+    for people in res.preds:
+        for p in people:
+            check(p.shape[0] == 17 and bool(np.isfinite(p).all()),
+                  "validate: bad person")
+    gt, scores = [], []
+    for img_id in ds.ids:
+        people = [np.asarray(a["keypoints"], np.float64).reshape(17, 3)
+                  for a in ds.coco.load_anns(ds.coco.get_ann_ids(img_id))]
+        gt.append(people)
+        scores.append([1.0] * len(people))
+    perfect = ds.evaluate(gt, scores)
+    check(perfect["AP"] == 1.0 and perfect["AR"] == 1.0,
+          f"ground truth scores {perfect}")
+    img_per_s = len(ds) / res.forward_s
+    print(json.dumps(res.stats))
+    print(f"validate: 8 images (flip, packed), people {n}, launches "
+          f"{launches}; forward {img_per_s:.2f} img/s ({card}); ground "
+          f"truth AP {perfect['AP']} AR {perfect['AR']}", flush=True)
+    return {"stats": res.stats, "people": n, "launches": launches,
+            "forward_img_per_s": img_per_s, "forward_s": res.forward_s,
+            "ground_truth_stats": perfect}
+
+
+def phase_corpus(mods, model, pics, card, dev) -> dict:
+    """``teacher_inference``'s core: 4 images through the packed forward
+    (once to warm up, once timed);
+    each ``.npz`` read back through the port's loader bitwise equal to
+    the forward's outputs pulled to the host (taken where the CLI hands
+    them to ``save_teacher_prediction``), with the four keys in order
+    and the joint names."""
+    ti_mod, cache_mod = mods
+    ids = sorted(pics)[:4]
+    names = [f"{i:012d}.jpg" for i in ids]
+    by_name = {n: pics[i] * 255.0 for n, i in zip(names, ids)}
+    captured = {}
+    save = ti_mod.save_teacher_prediction
+
+    def tap(out_dir, name, coarse, refined):
+        captured[name] = (coarse.copy(), refined.copy())
+        return save(out_dir, name, coarse, refined)
+
+    with tempfile.TemporaryDirectory() as out:
+        args = ti_mod.build_parser().parse_args(
+            ["-I", *names, "-o", out, "-m", "-", "--device", str(dev)])
+        ti_mod.save_teacher_prediction = tap
+        try:
+            sources = [(n, by_name[n].shape[:2]) for n in names]
+            ti_mod.write_corpus(model, sources, by_name.__getitem__, out,
+                                args)                        # warm-up
+            info = ti_mod.write_corpus(model, sources, by_name.__getitem__,
+                                       out, args)
+        finally:
+            ti_mod.save_teacher_prediction = save
+        check(sorted(captured) == names, f"npz written for {captured}")
+        for name in names:
+            coarse, refined = captured[name]
+            check(bool(np.isfinite(coarse).all()
+                       and np.isfinite(refined).all()), "non-finite maps")
+            npz = np.load(cache_mod.prediction_path(out, name))
+            check(list(npz.keys()) == ["pred_heatmaps", "embeddings",
+                                       "heatmaps_refined", "heatmaps_order"],
+                  f"npz keys {list(npz.keys())}")
+            check(list(npz["heatmaps_order"]) == cache_mod.HEATMAPS_ORDER,
+                  "joint names")
+            check(np.array_equal(npz["pred_heatmaps"], coarse[:17]),
+                  "pred_heatmaps")
+            t_hms, t_ae = cache_mod.load_teacher_prediction(out, name[:-4])
+            check(np.array_equal(t_hms, refined.transpose(1, 2, 0))
+                  and np.array_equal(t_ae, coarse[17:].transpose(1, 2, 0)),
+                  f"{name}: the loader's maps differ from the forward's")
+        shapes = {"coarse": list(coarse.shape), "refined": list(refined.shape)}
+    img_per_s = info["images"] / info["forward_s"]
+    print(f"corpus: 4 npz bitwise equal to the forward's outputs, "
+          f"{shapes}; forward + pull {img_per_s:.2f} img/s ({card})",
+          flush=True)
+    return {"images": info["images"], "shapes": shapes,
+            "forward_img_per_s": img_per_s}
+
+
+def phase_stream(mods, state, frames, counters, card, dev) -> dict:
+    """``realtime_demo``'s core: 8 frames x 2 loops through the packed
+    predictor's ``stream``, without and with flip, the counters set to 0
+    just before and read just after; every streamed frame's people equal
+    to ``predict`` of that frame."""
+    rt_mod, PosePredictor, hrnet = mods
+    args = rt_mod.build_parser().parse_args(["-I", "-", "-m", "-",
+                                             "--loops", "2"])
+    out = {}
+    for flip in (False, True):
+        pred = PosePredictor(hrnet.PoseHigherHRNet(hrnet.w48_config()),
+                             state, device=dev, packed=True, with_flip=flip)
+        pred.predict(frames[0])
+        reset(counters)
+        stats, results = rt_mod.run_stream(pred, frames, args)
+        launches = read(counters)
+        check(stats["frames"] == len(results) == 16, "16 streamed frames")
+        check(launches["nms_topk"] == 16
+              and launches["match_by_tag_lockstep"] == 16,
+              f"stream launches {launches}")
+        same_people(results, [pred.predict(frames[i % len(frames)])
+                              for i in range(16)], f"stream flip={flip}")
+        out["flip" if flip else "plain"] = {**stats, "launches": launches}
+        print(json.dumps(stats))
+        del pred
+        torch.cuda.empty_cache()
+    print(f"stream: 16 frames == predict, fps plain "
+          f"{out['plain']['fps_sustained']} flip "
+          f"{out['flip']['fps_sustained']} ({card})", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1779,6 +2161,15 @@ def main() -> None:
         from rtpe_tpu_torch.ops import group_lockstep as grp_mod
         from rtpe_tpu_torch.ops import lap as lap_mod
         from rtpe_tpu_torch.ops import nms_topk as nms_mod
+        from rtpe_tpu_torch.ops import resize as resize_mod
+        from rtpe_tpu_torch.cli import realtime_demo as rt_mod
+        from rtpe_tpu_torch.cli import teacher_inference as ti_mod
+        from rtpe_tpu_torch.cli import validate_hhrnet as validate_mod
+        from rtpe_tpu_torch.data import dataset as dataset_mod
+        from rtpe_tpu_torch.data import rle as rle_mod
+        from rtpe_tpu_torch.data import teacher_cache as cache_mod
+        from rtpe_tpu_torch.eval import cocoeval as cocoeval_mod
+        from rtpe_tpu_torch.eval import tta as tta_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
     dev = torch.device("cuda", 0)
@@ -1824,6 +2215,28 @@ def main() -> None:
     prof = phase_profile(pred)
     e2e_packed = phase_end_to_end(pred_p)
     prof_packed = phase_profile(pred_p)
+    del pred, pred_p
+    torch.cuda.empty_cache()
+    tta = phase_tta((PosePredictor, hrnet, tta_mod, fused, decode_full_batch,
+                     top_k, grp_mod, nms_mod, resize_mod.resize_bilinear,
+                     set_tf32), state, counters, dev, probe["ns_per_step"])
+    data, pics = coco_fixture(rle_mod.rle_encode,
+                              np.random.default_rng(SEED + 10))
+    model = hrnet.PoseHigherHRNet(hrnet.w48_config())
+    model.load_state_dict(state)
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "annotations"))
+        with open(os.path.join(root, "annotations",
+                               "person_keypoints_val2017.json"), "w") as f:
+            json.dump(data, f)
+        validate = phase_validate(
+            (validate_mod, dataset_mod.CocoDistillationDataset,
+             cocoeval_mod.STATS_NAMES), model, root, pics, counters, card,
+            dev)
+    corpus = phase_corpus((ti_mod, cache_mod), model, pics, card, dev)
+    frames = [(pics[i] * 255.0).astype(np.uint8) for i in sorted(pics)]
+    stream = phase_stream((rt_mod, PosePredictor, hrnet), state, frames,
+                          counters, card, dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
                       "ptxas": build["ptxas"], "warp_step_probe": probe,
@@ -1836,7 +2249,9 @@ def main() -> None:
                       "packed_predictor_launches": served,
                       "forward_ms": fwd_ms, "end_to_end_packed": e2e_packed,
                       "profile_bs8_packed": prof_packed,
-                      "cam_check": cam_errs, "train": train}))
+                      "cam_check": cam_errs, "train": train, "tta": tta,
+                      "validate": validate, "corpus": corpus,
+                      "stream": stream}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

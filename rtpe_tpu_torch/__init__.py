@@ -3,10 +3,14 @@
 A second package beside the JAX reference.  It imports ``torch``, numpy
 and scipy only: no JAX, and nothing of ``rtpe_tpu`` (it keeps its own
 copies of the numpy helpers it needs).  It covers the teacher's
-image -> people serving path and the attention student's distillation
-train step:
+image -> people serving path, its test-time augmentation, COCO
+evaluation and command-line entry points, and the attention student's
+distillation train step:
 
   data/preprocess.py   resize-align (on-device affine warp) + normalize
+  data/                COCO annotations and RLE masks, the evaluation /
+                       distillation dataset, heatmap targets, the
+                       teacher's .npz corpus, minival splits (numpy)
   models/              HigherHRNet-W48 (NCHW nn.Modules, reference keys),
                        the BN-folded serving forward (hrnet_packed.py),
                        the stem and AttentionStudentSteps (students.py,
@@ -14,7 +18,12 @@ train step:
   decode/              NMS + top-k -> grouping -> adjust/refine, every
                        decode path of the JAX package
   eval/predictor.py    PosePredictor: predict / predict_batch / stream,
-                       canonical or packed, from_jax / from_artifact
+                       canonical or packed, flip / multi-scale TTA
+                       (eval/tta.py), from_jax / from_artifact
+  eval/cocoeval.py     COCO keypoint AP / AR (numpy)
+  cli/                 validate_hhrnet, teacher_inference, realtime_demo
+                       (python -m rtpe_tpu_torch.cli.<name>)
+  obs/vis.py           skeleton and heatmap pictures (cv2 where used)
   train/               losses, SGDR, the dual-optimizer distillation step
   io/                  JAX variables (teacher, student), folded weights
                        and serving artifacts -> the port

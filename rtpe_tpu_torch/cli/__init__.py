@@ -1,0 +1,12 @@
+"""Command-line entry points of the port, run as modules:
+
+  python -m rtpe_tpu_torch.cli.validate_hhrnet    COCO keypoint AP
+  python -m rtpe_tpu_torch.cli.teacher_inference  the teacher's .npz corpus
+  python -m rtpe_tpu_torch.cli.realtime_demo      a pipelined frame stream
+
+Each takes the flags of its ``scripts/`` counterpart in the JAX package
+plus ``--device`` (default ``cuda``; without CUDA it raises unless given
+``--device cpu``).  Each is split into ``main(argv)``, which parses the
+flags and reads the files, and a function that takes the model and the
+data in memory, which tests and ``chip_smoke.py`` drive directly.
+"""

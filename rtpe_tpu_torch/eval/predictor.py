@@ -3,12 +3,13 @@
 Port of ``rtpe_tpu/eval/predictor.py``: resize-align + normalize on the
 device, the W48 forward (bf16 on CUDA; with ``packed=True`` the
 BN-folded serving forward of ``models/hrnet_packed.py``), the tag-map
-resize, the decode, then the inverse transform on the host.  The decode
-is the batched device decode (:meth:`HeatmapParser.parse_fused_batch`:
-the NMS + top-k and lockstep grouping kernels on CUDA) or, with
-``fused_decode=False``, the host-grouping decode
-(:meth:`HeatmapParser.parse_batch`: the NMS + top-k kernel, munkres
-grouping on the host, the refine on the device).
+resize (or, with ``with_flip`` / ``scales``, the test-time augmentation
+of :func:`~rtpe_tpu_torch.eval.tta.tta_forward`), the decode, then the
+inverse transform on the host.  The decode is the batched device
+decode (:meth:`HeatmapParser.parse_fused_batch`: the NMS + top-k and
+lockstep grouping kernels on CUDA) or, with ``fused_decode=False``, the
+host-grouping decode (:meth:`HeatmapParser.parse_batch`: the NMS +
+top-k kernel, munkres grouping on the host, the refine on the device).
 """
 
 from typing import List, Mapping, Optional, Sequence, Tuple
@@ -25,18 +26,18 @@ from ..io.serving import load_serving_artifact
 from ..models.hrnet import HRNetConfig, PoseHigherHRNet
 from ..models.hrnet_packed import pack_w48_params, packed_forward
 from ..ops.resize import resize_bilinear
+from .tta import tta_forward
 
 People = Tuple[List[np.ndarray], List[float]]
 
 # options of the JAX predictor that later slices of the port bring
 _LATER = {
-    "int8": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
-    "int8_act": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
-    "act_scales": "the int8 serving modes (ROADMAP.md Queue 1 item 5)",
-    "with_flip": "test-time augmentation (ROADMAP.md Queue 1 item 6)",
-    "mesh": "data-parallel serving (ROADMAP.md Queue 1 item 9)",
+    "int8": "the int8 serving modes (ROADMAP.md Queue 1 item 4)",
+    "int8_act": "the int8 serving modes (ROADMAP.md Queue 1 item 4)",
+    "act_scales": "the int8 serving modes (ROADMAP.md Queue 1 item 4)",
+    "mesh": "data-parallel serving (ROADMAP.md Queue 1 item 6)",
     "spatial_mesh": "spatially sharded serving (ROADMAP.md Queue 1 "
-                    "item 9)",
+                    "item 6)",
 }
 
 
@@ -66,6 +67,13 @@ class PosePredictor:
     :func:`~rtpe_tpu_torch.models.hrnet_packed.packed_forward`, with the
     block chains on cuDNN as the JAX predictor serves them (it never
     sets ``pallas_chains``); the module itself then stays where it was.
+
+    ``with_flip`` and ``scales`` (which must include 1.0) turn on the
+    test-time augmentation: :meth:`predict` and :meth:`stream` run
+    :func:`~rtpe_tpu_torch.eval.tta.tta_forward` (flip as a doubled
+    batch, one forward per scale), and :meth:`predict_batch` serves its
+    images one at a time through :meth:`predict`, as the JAX predictor
+    does.
     """
 
     def __init__(self, model: PoseHigherHRNet,
@@ -81,17 +89,15 @@ class PosePredictor:
                  act_scales: Optional[Mapping[str, float]] = None,
                  mesh=None, spatial_mesh=None):
         later = dict(int8=int8, int8_act=int8_act, act_scales=act_scales,
-                     with_flip=with_flip, mesh=mesh,
-                     spatial_mesh=spatial_mesh)
+                     mesh=mesh, spatial_mesh=spatial_mesh)
         for name, value in later.items():
             if value not in (False, None):
                 raise NotImplementedError(
                     f"{name} needs {_LATER[name]}, which a later slice of "
                     "the port brings")
-        if tuple(scales) != (1.0,):
-            raise NotImplementedError(
-                f"scales={tuple(scales)} needs {_LATER['with_flip']}, "
-                "which a later slice of the port brings")
+        self.with_flip = bool(with_flip)
+        self.scales = tuple(scales)
+        self.tta = self.with_flip or self.scales != (1.0,)
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device, dtype)
         self.num_joints = num_joints
@@ -156,6 +162,18 @@ class PosePredictor:
                                   self.dtype)
         return self.model(x)
 
+    def _forward_nhwc(self, batch_nhwc: torch.Tensor):
+        """The forward with NHWC heads (the TTA contract)."""
+        return tuple(t.permute(0, 2, 3, 1) for t in self._forward(batch_nhwc))
+
+    def _maps(self, batch_nhwc: torch.Tensor):
+        """Model inputs -> NHWC (hms, tags) for the decode: the head
+        outputs, or their TTA aggregate."""
+        if self.tta:
+            return tta_forward(self._forward_nhwc, batch_nhwc,
+                               self.num_joints, self.with_flip, self.scales)
+        return self._decode_outputs(*self._forward(batch_nhwc))
+
     def _parse(self, hms: torch.Tensor, tags: torch.Tensor):
         if self.fused_decode:
             return self.parser.parse_fused_batch(hms, tags)
@@ -194,6 +212,9 @@ class PosePredictor:
         """
         if not images_rgb:
             return []
+        if self.tta:
+            # TTA composes per image, as in JAX
+            return [self.predict(im) for im in images_rgb]
         pre = [self._preprocess(im) for im in images_rgb]
         groups = {}
         for i, (x, _, _) in enumerate(pre):
@@ -217,7 +238,7 @@ class PosePredictor:
         pending = None
         for im in images_rgb:
             x, center, scale = self._preprocess(im)
-            hms, tags = self._decode_outputs(*self._forward(x[None]))
+            hms, tags = self._maps(x[None])
             if pending is not None:
                 yield self._decode_one(*pending)
             pending = (hms, tags, center, scale)
@@ -236,5 +257,5 @@ class PosePredictor:
           x, y in ORIGINAL image coordinates plus the joint score.
         """
         x, center, scale = self._preprocess(image_rgb)
-        hms, tags = self._decode_outputs(*self._forward(x[None]))
+        hms, tags = self._maps(x[None])
         return self._decode_one(hms, tags, center, scale)

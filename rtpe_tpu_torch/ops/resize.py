@@ -4,8 +4,8 @@ Port of ``rtpe_tpu/ops/resize.py``: bilinear resize for both
 ``align_corners`` values as two separable interpolation matmuls
 (H-contraction then W-contraction, float32 accumulation) — the same
 formulation as the JAX version, so the two agree to float32 rounding —
-nearest x2^k upsampling, and nearest resizing to any size with torch's
-``mode='nearest'`` indices.
+its numpy two-tap form for host arrays, nearest x2^k upsampling, and
+nearest resizing to any size with torch's ``mode='nearest'`` indices.
 """
 
 from typing import Tuple
@@ -60,6 +60,31 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
     y = torch.einsum("oh,bhwc->bowc", wh, x.float())
     y = torch.einsum("pw,bowc->bopc", ww, y)
     return y.to(x.dtype)
+
+
+def resize_bilinear_np(x_hwc: np.ndarray, out_hw: Tuple[int, int],
+                       align_corners: bool = True) -> np.ndarray:
+    """Numpy :func:`resize_bilinear` of one (H, W, C) host array, as
+    two-tap gather-lerps (the dataset's upsampling of the teacher maps
+    to image size).
+
+    The JAX package runs its host C++ resize
+    (``rtpe_tpu/native/resize.cpp``) when that library is built.  That
+    is host code, not a TPU kernel, and this numpy function is the JAX
+    package's own fallback, so the port keeps only it.
+    """
+    out_h, out_w = out_hw
+    in_h, in_w = x_hwc.shape[:2]
+    x = np.asarray(x_hwc, dtype=np.float32)
+    if (out_h, out_w) == (in_h, in_w):
+        return x
+    lo, f = _bilinear_taps(in_h, out_h, align_corners)
+    f = f.astype(np.float32)[:, None, None]
+    x = x[lo] * (1.0 - f) + x[np.minimum(lo + 1, in_h - 1)] * f
+    lo, f = _bilinear_taps(in_w, out_w, align_corners)
+    f = f.astype(np.float32)[None, :, None]
+    x = x[:, lo] * (1.0 - f) + x[:, np.minimum(lo + 1, in_w - 1)] * f
+    return x
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -10,9 +10,10 @@ machine with the card, run them without the JAX test configuration:
 They cover what ``chip_smoke.py``'s main-path shapes do not: planes whose
 size is not a multiple of the NMS tile, wider planes, NaN heatmaps, other
 pooling windows, LAP matrices on both sides of the solver's column
-layouts (m = 63 / 64) and with signed zero costs, more
-than one tag dimension, LAP matrices of every size the kernel takes,
-NaN tags in the grouping kernels, BasicBlock chains at ragged and
+layouts (m = 63 / 64) and with signed zero costs, more than one tag
+dimension (D=2, flip TTA's, at the main path's shape), flip and
+multi-scale TTA decoded on the card, LAP matrices of every size the
+kernel takes, NaN tags in the grouping kernels, BasicBlock chains at ragged and
 narrow shapes, a small packed forward with its chains on the kernel,
 the six fused-CAM kernels at small and ragged shapes (random inputs,
 exact-sum inputs, per-image gates of both signs), the 2-D tiles of the
@@ -43,7 +44,9 @@ import numpy as np
 import pytest
 import torch
 
+from rtpe_tpu_torch.decode.fused import kernel_selfcheck
 from rtpe_tpu_torch.device import set_tf32
+from rtpe_tpu_torch.eval import PosePredictor
 from rtpe_tpu_torch.models.hrnet import (HRNetConfig, PoseHigherHRNet,
                                          StageCfg, init_random_)
 from rtpe_tpu_torch.models.hrnet_packed import pack_w48_params, packed_forward
@@ -163,6 +166,7 @@ GROUP_CASES = [
     (2, 9, 32, 2, 63, 96),        # two candidate slots a lane
     (2, 9, 32, 8, 63, 96),
     (2, 6, 12, 3, 40, 48),
+    (8, 17, 30, 2, 30, 90),       # flip TTA: D=2 at the main path's shape
 ]
 
 
@@ -809,3 +813,46 @@ def test_cam_wrappers_refuse(cuda):
     wide = torch.zeros((1, 3, 3, 12, 41), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         cam.cam_f1_fwd(case["x"], case["kr"], wide, (1,))
+
+
+def _tta_cfg():
+    """A narrow 17-joint teacher (the flip swaps COCO's joint pairs)."""
+    return HRNetConfig(num_joints=17,
+                       stage2=StageCfg(1, 2, "BASIC", (1, 1), (8, 16)),
+                       stage3=StageCfg(1, 3, "BASIC", (1, 1, 1), (8, 16, 32)),
+                       stage4=StageCfg(1, 4, "BASIC", (1, 1, 1, 1),
+                                       (8, 16, 32, 64)),
+                       deconv_chans=(8,), deconv_num_blocks=1)
+
+
+@pytest.mark.parametrize("scales", [(1.0,), (0.5, 1.0, 2.0)])
+def test_tta_decode_on_the_card_equals_plain(cuda, scales):
+    """Flip TTA's D=2 maps decoded on the card (the NMS + top-k and
+    lockstep kernels) against the plain decode of the same maps on the
+    CPU: the same people within 1e-5; ``predict`` finds as many.  The
+    lockstep kernel's self-check at D=2 runs first, so that the launch
+    counts hold the decode alone."""
+    assert kernel_selfcheck(30, 90, 17, 2, solver="lockstep", device=cuda)
+    model = init_random_(PoseHigherHRNet(_tta_cfg()), seed=6).eval()
+    pred = PosePredictor(model, device=cuda, input_size=256,
+                         dtype=torch.float32, with_flip=True, scales=scales)
+    image = (np.random.default_rng(8).random((240, 320, 3)) * 255).astype(
+        np.uint8)
+    with torch.inference_mode():
+        x, _, _ = pred._preprocess(image)
+        hms, tags = pred._maps(x[None])
+        assert hms.is_cuda and tags.shape[-1] == 34
+        before = (nms_topk.launches, match_by_tag_lockstep.launches)
+        got = pred.parser.parse_fused_batch(hms, tags)
+        torch.cuda.synchronize()
+        assert (nms_topk.launches, match_by_tag_lockstep.launches) == (
+            before[0] + 1, before[1] + 1)
+        want = pred.parser.parse_fused_batch(hms.cpu(), tags.cpu())
+    (p_g,), (s_g,) = got
+    (p_w,), (s_w,) = want
+    assert len(p_g) == len(p_w) > 0
+    for a, b in zip(p_g, p_w):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s_g, s_w, rtol=1e-5, atol=1e-5)
+    people, scores = pred.predict(image)
+    assert len(people) == len(scores) == len(p_g)

@@ -1,8 +1,10 @@
 """Package rules of the PyTorch port, on the CPU.
 
 * Import hygiene: importing every ``rtpe_tpu_torch`` module pulls in
-  neither JAX nor any module of the JAX package (checked in a fresh
-  interpreter, so this test process's own JAX import does not count).
+  neither JAX nor any module of the JAX package, nor ``cv2`` or ``PIL``
+  (the card's machine has neither: the modules that draw or read image
+  files import them where they use them).  Checked in a fresh
+  interpreter, so this test process's own imports do not count.
 * Device resolution: ``device=None`` means CUDA and raises where there
   is none; the CPU is used only when the caller asks for it.
 """
@@ -30,8 +32,15 @@ names = [m.name for m in pkgutil.walk_packages(rtpe_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "cv2", "PIL")
              or m == "rtpe_tpu" or m.startswith("rtpe_tpu."))
+for name in ("rtpe_tpu_torch.cli.validate_hhrnet",
+             "rtpe_tpu_torch.cli.teacher_inference",
+             "rtpe_tpu_torch.cli.realtime_demo", "rtpe_tpu_torch.eval.tta",
+             "rtpe_tpu_torch.eval.cocoeval", "rtpe_tpu_torch.data.dataset",
+             "rtpe_tpu_torch.data.rle", "rtpe_tpu_torch.obs.vis"):
+    assert name in names, name
 print(len(names), "modules")
 assert not bad, bad
 """
@@ -82,12 +91,33 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    for kw in (dict(int8=True), dict(packed=True, int8=True),
-               dict(packed=True, int8_act=True), dict(with_flip=True),
-               dict(scales=(1.0, 0.5)), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for kw, item in ((dict(int8=True), "Queue 1 item 4"),
+                     (dict(packed=True, int8=True), "Queue 1 item 4"),
+                     (dict(packed=True, int8_act=True), "Queue 1 item 4"),
+                     (dict(act_scales={"conv1": 1.0}), "Queue 1 item 4"),
+                     (dict(mesh=object()), "Queue 1 item 6"),
+                     (dict(spatial_mesh=object()), "Queue 1 item 6")):
+        with pytest.raises(NotImplementedError, match="later slice") as exc:
             PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
                           num_joints=3, **kw)
+        assert item in str(exc.value)
+
+
+def test_tta_options_are_served_on_the_cpu():
+    """``with_flip`` and ``scales`` are this slice's: the flip doubles
+    the tag dimension, and the scales must include 1.0."""
+    image = torch.zeros((40, 30, 3)).numpy()
+    for kw in (dict(with_flip=True), dict(scales=(1.0, 0.5)),
+               dict(with_flip=True, scales=(0.5, 1.0), packed=True)):
+        pred = PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                             num_joints=3, input_size=128, **kw)
+        assert pred.tta
+        people, scores = pred.predict(image)
+        assert len(people) == len(scores)
+    pred = PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                         num_joints=3, input_size=64, scales=(0.5, 2.0))
+    with pytest.raises(ValueError, match="must include 1.0"):
+        pred.predict(image)
 
 
 def test_packed_predictor_serves_on_the_cpu():

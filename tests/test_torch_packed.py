@@ -228,13 +228,14 @@ def test_from_artifact_serves_the_jax_artifact(weights, tmp_path):
 
 @pytest.mark.parametrize("edit,exc", [
     (dict(int8=True), NotImplementedError),
-    (dict(with_flip=True), NotImplementedError),
+    (dict(int8_act=True), NotImplementedError),
     (dict(format="other"), ValueError),
 ])
 def test_artifact_refusals(weights, tmp_path, edit, exc):
     """Every artifact loads; serving it as recorded refuses what the port
-    has not yet (int8, flip) in the constructor, and a foreign format in
-    the loader."""
+    has not yet (the int8 modes) in the constructor, and a foreign format
+    in the loader.  (Flip TTA, refused here until the port served it, is
+    ``test_artifact_recorded_with_flip_serves_like_jax``.)"""
     jcfg, _, variables = weights
     int8 = dict(int8=True, act_scales={"stem/conv1": 1.0}) \
         if "int8" in edit else {}
@@ -277,6 +278,25 @@ def test_artifact_override_serves_like_jax(mode, tmp_path, monkeypatch):
                                     **off)
     tp = PosePredictor.from_artifact(d, device="cpu", **off)
     assert jp.act_scales is None and not tp.packed
+    img = (np.random.default_rng(3).random((100, 90, 3)) * 255).astype(
+        np.uint8)
+    _assert_same_people(tp.predict(img), jp.predict(img))
+
+
+def test_artifact_recorded_with_flip_serves_like_jax(tmp_path, monkeypatch):
+    """An artifact recorded with flip TTA serves as recorded in both
+    packages (the canonical float32 forward): the same people."""
+    monkeypatch.setattr(j_fused, "_resolve_auto_lap",
+                        lambda *a, **k: "lockstep_interpret")
+    jcfg, _ = small_cfgs(NUM_JOINTS)
+    variables = seeded_variables(jcfg, seed=22, gain=0.8)
+    d = export_serving_artifact(str(tmp_path / "art"), variables, jcfg,
+                                num_joints=NUM_JOINTS, input_size=128,
+                                with_flip=True)
+    jp = JaxPredictor.from_artifact(d, dtype=jnp.float32, fused_decode=True,
+                                    packed=False)
+    tp = PosePredictor.from_artifact(d, device="cpu", packed=False)
+    assert jp.with_flip and tp.with_flip and tp.tta
     img = (np.random.default_rng(3).random((100, 90, 3)) * 255).astype(
         np.uint8)
     _assert_same_people(tp.predict(img), jp.predict(img))
