@@ -133,14 +133,38 @@ Phases, each of which fails the run:
 23. ``realtime_demo``'s core: 16 frames through the packed predictor's
     ``stream`` with and without flip, the counters set to 0 just before
     and read just after, every frame's people equal to ``predict``'s,
-    and the frames per second.
+    and the frames per second;
+24. int8 serving at full W48 width on 640 x 640 inputs: the scales
+    calibrated on the 8 synthetic images of phase 9; ``qconv``
+    (``csrc/qconv.cu``) ``torch.equal`` to its plain version at every
+    distinct call of the int8 forward (26 weight shapes, the transposed
+    conv's included; B = 1, and B = 8 for the one with the most work)
+    on random int8 inputs with +-127 in every row, its C plan equal to
+    ``ops/quant.py:qconv_plan``; the int8 and int8-act forwards at B = 8 bitwise equal to the same
+    forwards with the plain ``qconv`` patched in, finite, correlated >
+    0.99 with the bf16 packed forward (the worst relative error
+    printed); ``PosePredictor(packed=True, int8=True)`` and
+    ``int8_act=True``, the counters set to 0 just before each call and
+    read just after: ``predict_batch`` of 8 launches ``qconv`` once a
+    quantized conv and the decode kernels once, ``predict`` of one image
+    is routed to bf16 (no ``qconv``), and with ``int8_min_batch=0``
+    quantized again; ``export_serving_artifact`` and ``from_artifact``
+    forwards bitwise equal; ``validate_hhrnet``'s core with ``--int8``
+    and ``--int8_act`` (ten finite stats; run inside phase 21's
+    fixture); ``realtime_demo``'s core with ``--int8`` (16 frames equal
+    to ``predict``, ``routed_bf16``); then times: ``qconv`` per call
+    geometry at B = 8 and 1 beside its bound, its plain version, cuDNN's
+    bf16 conv and ``torch._int_mm`` over an im2col (yardsticks the port
+    never calls), the bf16, int8 and int8-act forwards at B = 1 and 8,
+    and ``predict_batch`` img/s for each.
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, 16 with 11, and 17-19 after 15; 20-23 run last.
+after 10, 16 with 11, and 17-19 after 15; 20-24 run last (24's
+validation inside 21's fixture).
 
 Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
-line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA
-and CLI numbers, and last
+line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA,
+CLI and int8 numbers, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
 prints no result.
@@ -2140,6 +2164,422 @@ def phase_stream(mods, state, frames, counters, card, dev) -> dict:
     return out
 
 
+# ----------------------------------------------- phase 24: int8 serving
+
+INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
+INT8_CORR = 0.99              # int8 forward vs bf16: correlation, as
+#                               tests/test_rowpack.py holds JAX's
+
+
+def qconv_calls(packed, quant_mod, pk_q, x, cfg, dtype, int8_act=False):
+    """The qconv calls of one forward, in order: (QConv, x shape, stride,
+    padding), by a patch on ``packed.qconv`` that calls the real one."""
+    calls = []
+    real = packed.qconv
+
+    def tap(xin, q, stride=1, padding=None):
+        calls.append((q, tuple(xin.shape), stride, padding))
+        return real(xin, q, stride, padding)
+
+    packed.qconv = tap
+    try:
+        with torch.inference_mode():
+            packed.packed_forward(pk_q, x, cfg, dtype, int8_act=int8_act)
+    finally:
+        packed.qconv = real
+    return calls
+
+
+def geometry_key(q, xshape, stride) -> tuple:
+    """(cout, cin, kh, kw, transposed, H, W, stride): one distinct call."""
+    cout, kh, kw, _ = q.kernel.shape
+    return (cout, q.cin, kh, kw, q.transposed, xshape[2], xshape[3], stride)
+
+
+def qconv_case(quant_mod, key, b: int, gen, dev):
+    """Random int8 x (B, Cin, H, W) channels_last and a random QConv at
+    ``key``, +-127 planted in every row of both."""
+    cout, cin, kh, kw, tr, h, w, _ = key
+
+    def int8(shape):
+        t = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        flat = t.view(-1, shape[-1])
+        flat[::2, 0] = 127
+        flat[1::2, -1] = -127
+        return t
+
+    x = int8((b, h, w, cin)).permute(0, 3, 1, 2)
+    wq = int8((cin, cout, kh, kw) if tr else (cout, cin, kh, kw))
+    kernel, c = quant_mod.kernel_layout(wq, tr)
+    alpha = (torch.rand((2, cout) if tr else (cout,), generator=gen,
+                        device=dev) * 1e-3)
+    bias = torch.randn((cout,), generator=gen, device=dev)
+    q = quant_mod.QConv(kernel, bias, alpha,
+                        torch.tensor(1.0, device=dev), c, tr)
+    return x, q, wq
+
+
+def qconv_work(key, b: int, ho: int, wo: int):
+    """Bytes (x and w read once, alpha and bias, the f32 output written
+    once) and operations (2 per multiply-add this input needs: the
+    transposed conv's output reads 2 x 2 of its 4 x 4 taps)."""
+    cout, cin, kh, kw, tr, h, w, _ = key
+    taps = (kh // 2) * (kw // 2) if tr else kh * kw
+    n_ops = 2 * b * ho * wo * cout * taps * cin
+    n_bytes = (b * h * w * cin + cout * kh * kw * cin
+               + 4 * (2 if tr else 1) * cout + 4 * cout
+               + 4 * b * ho * wo * cout)
+    return n_bytes, n_ops
+
+
+def im2col_int8(x, kh: int, kw: int, stride: int, pad: int):
+    """(B*Ho*Wo, kh*kw*Cin) int8 column matrix of an NCHW int8 x (the
+    ``torch._int_mm`` yardstick's input; not the port's path)."""
+    xp = F.pad(x, (pad, pad, pad, pad))
+    b, c, h, w = xp.shape
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    cols = [xp[:, :, i:i + stride * ho:stride, j:j + stride * wo:stride]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(cols, 1).permute(0, 2, 3, 1).reshape(b * ho * wo, -1) \
+        .contiguous()
+
+
+def qconv_times(quant_mod, key, b: int, gen, dev) -> dict:
+    """The kernel, its plain version, and the yardsticks the port never
+    calls (cuDNN's bf16 conv of the same shape on the int8 values;
+    ``torch._int_mm`` over an im2col, where it runs), device ms."""
+    cout, cin, kh, kw, tr, h, w, s = key
+    x, q, wq = qconv_case(quant_mod, key, b, gen, dev)
+    stride, pad = (2, 1) if tr else (s, (kh - 1) // 2)
+    with torch.inference_mode():
+        out = quant_mod.qconv(x, q, stride, pad)
+        ho, wo = out.shape[2], out.shape[3]
+        ms = device_ms(lambda: quant_mod.qconv(x, q, stride, pad), 20)
+        plain_ms = device_ms(lambda: quant_mod.qconv_plain(x, q, stride,
+                                                           pad), 3, 1)
+        xb = x.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wb = wq.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = q.bias.to(torch.bfloat16)
+        if tr:
+            conv = lambda: F.conv_transpose2d(xb, wb, bb, 2, 1)  # noqa: E731
+        else:
+            conv = lambda: F.conv2d(xb, wb, bb, s, pad)  # noqa: E731
+        library_ms = device_ms(conv, 20)
+        int_mm_ms = None
+        if not tr:
+            try:
+                cols = im2col_int8(x, kh, kw, s, pad)
+                wm = wq.permute(0, 2, 3, 1).reshape(cout, -1).T
+                int_mm_ms = device_ms(lambda: torch._int_mm(cols, wm), 20)
+            except RuntimeError as exc:       # shapes _int_mm refuses
+                int_mm_ms = f"refused: {str(exc).splitlines()[0][:80]}"
+    n_bytes, n_ops = qconv_work(key, b, ho, wo)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "int_mm_im2col_ms": int_mm_ms,
+            **bound(n_bytes, n_ops, INT8_OPS_PER_S),
+            "tops": n_ops / (ms * 1e9), "shape": list(key[:5]) +
+            [b, h, w, s], "plan": quant_mod.qconv_plan(cin, cout, kh, kw)}
+
+
+def phase_qconv(quant_mod, packed, pk_q, cfg, dtype, dev) -> dict:
+    """``qconv`` against its plain version at every distinct call of the
+    640 x 640 int8 forward (B = 1, and B = 8 for the one with the most
+    work): ``torch.equal``, and its C plan equal to ``qconv_plan``."""
+    x = torch.randn((1, 3, 640, 640), generator=torch.Generator()
+                    .manual_seed(SEED)).to(dev)
+    calls = qconv_calls(packed, quant_mod, pk_q, x, cfg, dtype)
+    keys = {}
+    for q, xshape, stride, _ in calls:
+        k = geometry_key(q, xshape, stride)
+        keys[k] = keys.get(k, 0) + 1
+    shapes = {k[:5] for k in keys}
+    check(len(calls) == len(pk_q), f"{len(calls)} qconv calls for "
+          f"{len(pk_q)} quantized convs")
+    # 25 conv weight shapes and the transposed conv's
+    check(len(shapes) == 26, f"{len(shapes)} distinct weight shapes")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    largest = max(keys, key=lambda k: k[0] * k[1] * k[2] * k[3] * k[5]
+                  * k[6] // k[7] ** 2)
+    cases = [(k, 1) for k in sorted(keys)] + [(largest, 8)]
+    for key, b in cases:
+        cout, cin, kh, kw, tr, h, w, s = key
+        x, q, _ = qconv_case(quant_mod, key, b, gen, dev)
+        stride, pad = (2, 1) if tr else (s, (kh - 1) // 2)
+        with torch.inference_mode():
+            got = quant_mod.qconv(x, q, stride, pad)
+            torch.cuda.synchronize()
+            want = quant_mod.qconv_plain(x, q, stride, pad)
+        check(torch.equal(got, want), f"qconv differs from plain at {key} "
+              f"B={b}: max {(got - want).abs().max().item()}")
+        check(quant_mod.qconv_plan_c(cin, cout, kh, kw)
+              == quant_mod.qconv_plan(cin, cout, kh, kw),
+              f"qconv plan at {key}")
+    print(f"qconv: torch.equal to plain at {len(keys)} call geometries "
+          f"({len(shapes)} weight shapes) at B=1 and at B=8 for {largest}; "
+          f"{len(calls)} calls a forward", flush=True)
+    return {"geometries": len(keys), "shapes": len(shapes),
+            "calls": len(calls), "by_key": keys, "max_abs_err": 0.0}
+
+
+def patched_plain(packed, quant_mod, fn):
+    """``fn()`` with the graph's ``qconv`` replaced by its plain version
+    (on the card, float64 convolutions of the int8 values)."""
+    real = packed.qconv
+    packed.qconv = quant_mod.qconv_plain
+    try:
+        return fn()
+    finally:
+        packed.qconv = real
+
+
+def phase_int8_forwards(packed, quant_mod, pred8, pk_bf16, cfg, dev) -> dict:
+    """The int8 and int8-act forwards at B = 8 on 640 x 640 inputs:
+    bitwise equal to the same forward with the plain ``qconv`` patched
+    in; finite and correlated > 0.99 with the bf16 packed forward (the
+    worst relative error printed, as JAX's test does)."""
+    x = torch.randn((8, 3, 640, 640), generator=torch.Generator()
+                    .manual_seed(SEED + 1)).to(dev)
+    out = {}
+    dtype = pred8.dtype
+    with torch.inference_mode():
+        ref = packed.packed_forward(pk_bf16, x, cfg, dtype)
+        for ia in (False, True):
+            name = "int8_act" if ia else "int8"
+
+            def fwd():
+                return packed.packed_forward(pred8.int8_params, x, cfg,
+                                             dtype, int8_act=ia)
+
+            got = fwd()
+            want = patched_plain(packed, quant_mod, fwd)
+            worst, corr = 0.0, 1.0
+            for g, w, r in zip(got, want, ref):
+                check(torch.equal(g, w), f"{name} forward differs from the "
+                      f"plain-qconv forward by "
+                      f"{(g.float() - w.float()).abs().max().item()}")
+                g, r = g.float(), r.float()
+                check(bool(torch.isfinite(g).all()), f"{name}: non-finite")
+                worst = max(worst, ((g - r).abs().max()
+                                    / r.abs().max().clamp_min(1e-6)).item())
+                c = torch.corrcoef(torch.stack([g.flatten(),
+                                                r.flatten()]))[0, 1].item()
+                corr = min(corr, c)
+            check(corr > INT8_CORR, f"{name}: correlation {corr} with bf16")
+            out[name] = {"worst_rel_err": worst, "min_corr": corr}
+    print(f"int8 forwards B=8: == plain-qconv forwards bitwise; vs bf16 "
+          f"{out}", flush=True)
+    return out
+
+
+def phase_int8_predictors(PosePredictor, hrnet, quant_mod, state, scales,
+                          counters, n_q: int, dev) -> dict:
+    """``PosePredictor(packed=True, int8=True)`` and ``int8_act=True``
+    from the calibrated scales, the counters set to 0 just before each
+    call and read just after: ``predict_batch`` of 8 launches ``qconv``
+    once a quantized conv, ``nms_topk`` and ``group_lockstep`` once;
+    ``predict`` of one image is routed to bf16 (no ``qconv``); with
+    ``int8_min_batch=0`` it is quantized again."""
+    rng = np.random.default_rng(SEED + 24)
+    square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+    out = {}
+    for ia in (False, True):
+        name = "int8_act" if ia else "int8"
+        pred = PosePredictor(hrnet.PoseHigherHRNet(hrnet.w48_config()),
+                             state, device=dev, packed=True, int8=True,
+                             int8_act=ia, act_scales=scales)
+        pred.predict_batch(square)
+        calls = {}
+        for what, fn in (("predict_batch_8", lambda: pred.predict_batch(
+                square)), ("predict_1", lambda: pred.predict(square[0]))):
+            reset(counters)
+            res = fn()
+            calls[what] = read(counters)
+            for r in (res if what.startswith("predict_batch") else [res]):
+                check_people(r, 17, f"{name} {what}")
+        pred.int8_min_batch = 0
+        reset(counters)
+        check_people(pred.predict(square[0]), 17, f"{name} unrouted")
+        calls["predict_1_min_batch_0"] = read(counters)
+        b8, p1, p0 = (calls["predict_batch_8"], calls["predict_1"],
+                      calls["predict_1_min_batch_0"])
+        check(b8["qconv"] == n_q and b8["nms_topk"] == 1
+              and b8["match_by_tag_lockstep"] == 1,
+              f"{name} predict_batch launches {b8}")
+        check(p1["qconv"] == 0 and p1["nms_topk"] == 1,
+              f"{name} predict routed to bf16: launches {p1}")
+        check(p0["qconv"] == n_q, f"{name} min_batch 0: launches {p0}")
+        out[name] = calls
+        del pred
+        torch.cuda.empty_cache()
+    print(f"int8 predictors: launches {out}", flush=True)
+    return out
+
+
+def phase_int8_export(PosePredictor, hrnet, io_mods, state, scales,
+                      dev) -> dict:
+    """``export_serving_artifact`` of the int8 predictor's weights and
+    scales, then ``from_artifact``: its int8-act forward bitwise equal to
+    the exporting predictor's."""
+    jax_variables_from_state_dict, export, load = io_mods
+    model = hrnet.PoseHigherHRNet(hrnet.w48_config())
+    model.load_state_dict(state)
+    kw = dict(device=dev, int8_min_batch=0)
+    ref = PosePredictor(model, packed=True, int8=True, int8_act=True,
+                        act_scales=scales, **kw)
+    x = torch.randn((1, 640, 640, 3), generator=torch.Generator()
+                    .manual_seed(SEED + 5)).to(dev)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        export(d, jax_variables_from_state_dict(state, model.cfg), model.cfg,
+               packed=True, int8=True, int8_act=True, act_scales=scales)
+        export_s = time.perf_counter() - t0
+        got = PosePredictor.from_artifact(d, **kw)
+        meta = load(d).meta
+        with torch.inference_mode():
+            for a, b in zip(ref._forward(x), got._forward(x)):
+                check(torch.equal(a, b), "the reloaded artifact's forward "
+                      "differs from the exporting predictor's")
+    check(got.int8_act and got.act_scales == scales, "artifact int8 mode")
+    mb = meta["weights"]["total_bytes"] / 1e6
+    print(f"export: {meta['weights']['num_arrays']} arrays, {mb:.1f} MB, "
+          f"{export_s:.2f} s; from_artifact forward bitwise equal", flush=True)
+    return {"export_s": export_s, "weights_mb": mb}
+
+
+def phase_int8_validate(mods, model, root, pics, counters, card,
+                        dev) -> dict:
+    """``validate_hhrnet``'s core on the in-memory fixture with ``--int8``
+    and with ``--int8_act``: scales calibrated on its first 4 images,
+    ten finite stats, ``qconv`` launched."""
+    validate_mod, dataset_cls = mods
+    ds = memory_dataset(dataset_cls, pics)(root, "val2017",
+                                           host_gt_heatmaps=False)
+    out = {}
+    for flags in (["--int8"], ["--int8", "--int8_act"]):
+        args = validate_mod.build_parser().parse_args(
+            ["--coco_dir", root, "--save_every", "0", "--device", str(dev),
+             *flags])
+        reset(counters)
+        res = validate_mod.validate(model, ds, args)
+        launches = read(counters)
+        check(len(res.stats) == 10 and all(np.isfinite(v) for v in
+                                           res.stats.values()),
+              f"validate {flags}: stats {res.stats}")
+        check(launches["qconv"] > 0, f"validate {flags}: no qconv launch")
+        print(json.dumps(res.stats))
+        out[" ".join(flags)] = {"stats": res.stats, "launches": launches,
+                                "forward_img_per_s": len(ds) / res.forward_s}
+    print(f"validate int8: ten finite stats each, forwards "
+          f"{[round(v['forward_img_per_s'], 2) for v in out.values()]} "
+          f"img/s ({card})", flush=True)
+    return out
+
+
+def phase_int8_stream(rt_mod, model, frames, counters, card, dev) -> dict:
+    """``realtime_demo``'s core with ``--int8``: scales calibrated on the
+    first 8 frames, 16 streamed frames equal to ``predict``'s, every one
+    routed to bf16 (``routed_bf16``, no ``qconv`` launch)."""
+    args = rt_mod.build_parser().parse_args(
+        ["-I", "-", "-m", "-", "--loops", "2", "--int8", "--device",
+         str(dev)])
+    pred = rt_mod.make_predictor(model, frames, args)
+    pred.predict(frames[0])
+    reset(counters)
+    stats, results = rt_mod.run_stream(pred, frames, args)
+    launches = read(counters)
+    check(stats["routed_bf16"] is True and stats["path"] == "int8",
+          f"stream stats {stats}")
+    check(launches["qconv"] == 0 and launches["nms_topk"] == 16,
+          f"int8 stream launches {launches}")
+    same_people(results, [pred.predict(frames[i % len(frames)])
+                          for i in range(16)], "int8 stream")
+    print(json.dumps(stats))
+    print(f"stream int8: 16 frames == predict, routed to bf16, "
+          f"{stats['fps_sustained']} fps ({card})", flush=True)
+    return {**stats, "launches": launches}
+
+
+def int8_times(packed, quant_mod, pred8, pk_bf16, cfg, by_key, dev) -> dict:
+    """Device ms of the int8, int8-act and bf16 packed forwards at B = 1
+    and 8, and ``qconv`` per call geometry at B = 8 and 1 (summed over a
+    forward's calls)."""
+    out = {}
+    for bs in (1, 8):
+        x = torch.randn((bs, 3, 640, 640), generator=torch.Generator()
+                        .manual_seed(bs)).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        dt = pred8.dtype
+        runs = {"bf16": lambda: packed.packed_forward(pk_bf16, x, cfg, dt),
+                "int8": lambda: packed.packed_forward(pred8.int8_params, x,
+                                                      cfg, dt),
+                "int8_act": lambda: packed.packed_forward(
+                    pred8.int8_params, x, cfg, dt, int8_act=True)}
+        with torch.inference_mode():
+            for name, fn in runs.items():
+                out[f"{name}_bs{bs}"] = {"device_ms": device_ms(fn, 5),
+                                         "host_ms": host_ms(fn, 3)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    per = {}
+    for b in (8, 1):
+        rows = []
+        for key, n in sorted(by_key.items()):
+            t = qconv_times(quant_mod, key, b, gen, dev)
+            rows.append({**t, "calls": n})
+        per[b] = rows
+    print(f"int8 forward ms: {out}", flush=True)
+    return {"forward": out, "per_shape": per}
+
+
+def qconv_row(times, n_launches: int, err: float, ptxas) -> dict:
+    """The ``kernels`` row of ``qconv``: each time summed over one 640 x
+    640 forward's calls (a geometry's time x its calls) at B = 8, and at
+    B = 1 under ``at_b1``; the rows per geometry under ``per_shape``."""
+    def total(rows):
+        agg = {k: sum(r[k] * r["calls"] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_ops = sum(r["calls"] for r in rows
+                     if r["bound_by"] == "operations")
+        return {**agg, "bound_by": "operations" if by_ops * 2 > sum(
+            r["calls"] for r in rows) else "bytes"}
+    kern = {k.split(": ", 1)[1]: v for k, v in ptxas.items()
+            if k.startswith("qconv: ")}
+    return {"name": "qconv", "route": "cuda",
+            "source": "rtpe_tpu_torch/csrc/qconv.cu",
+            "replaces": "rtpe_tpu/ops/quant.py:68 (qconv: XLA's s8 "
+                        "conv_general_dilated, not a Pallas kernel)",
+            "launches": n_launches, "path": "PosePredictor(int8=True)"
+            ".predict_batch(8 images)", "max_abs_err": err,
+            **total(times["per_shape"][8]),
+            "library": "cuDNN bf16 conv of the same shape, one a call",
+            "at_b1": total(times["per_shape"][1]),
+            "per_shape": times["per_shape"], "ptxas": kern}
+
+
+def int8_end_to_end(PosePredictor, hrnet, state, scales, dev) -> dict:
+    """``predict_batch`` of 8 square 640 x 640 images, host clock, img/s:
+    bf16 packed, int8 and int8-act."""
+    rng = np.random.default_rng(SEED + 2)
+    square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+    out = {}
+    for name, kw in (("bf16", {}), ("int8", dict(int8=True)),
+                     ("int8_act", dict(int8=True, int8_act=True))):
+        if kw:
+            kw["act_scales"] = scales
+        pred = PosePredictor(hrnet.PoseHigherHRNet(hrnet.w48_config()),
+                             state, device=dev, packed=True, **kw)
+        ms = host_ms(lambda: pred.predict_batch(square), 3)
+        out[name] = {"e2e_ms": ms, "img_per_s": 8e3 / ms}
+        del pred
+        torch.cuda.empty_cache()
+    print(f"int8 predict_batch of 8: {out}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2170,6 +2610,10 @@ def main() -> None:
         from rtpe_tpu_torch.data import teacher_cache as cache_mod
         from rtpe_tpu_torch.eval import cocoeval as cocoeval_mod
         from rtpe_tpu_torch.eval import tta as tta_mod
+        from rtpe_tpu_torch.io import (export_serving_artifact,
+                                       jax_variables_from_state_dict,
+                                       load_serving_artifact)
+        from rtpe_tpu_torch.ops import quant as quant_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
     dev = torch.device("cuda", 0)
@@ -2189,7 +2633,7 @@ def main() -> None:
                                            dev)
     counters = (nms_mod.nms_topk, grp_mod.match_by_tag_lockstep,
                 mega_mod.match_by_tag_kernel, lap_mod.lap_rect,
-                blk_mod.basicblock_chain)
+                blk_mod.basicblock_chain, quant_mod.qconv)
     pred, images, launches = phase_main_path(
         PosePredictor, hrnet.PoseHigherHRNet, hrnet.w48_config, state,
         counters, dev)
@@ -2233,10 +2677,50 @@ def main() -> None:
             (validate_mod, dataset_mod.CocoDistillationDataset,
              cocoeval_mod.STATS_NAMES), model, root, pics, counters, card,
             dev)
+        validate_int8 = phase_int8_validate(
+            (validate_mod, dataset_mod.CocoDistillationDataset), model,
+            root, pics, counters, card, dev)
     corpus = phase_corpus((ti_mod, cache_mod), model, pics, card, dev)
     frames = [(pics[i] * 255.0).astype(np.uint8) for i in sorted(pics)]
     stream = phase_stream((rt_mod, PosePredictor, hrnet), state, frames,
                           counters, card, dev)
+    # phase 24: int8 serving
+    w48 = hrnet.w48_config()
+    t0 = time.perf_counter()
+    pred8 = PosePredictor(hrnet.PoseHigherHRNet(w48), state, device=dev,
+                          packed=True, int8=True, calibration_images=(
+                              synthetic_images(np.random.default_rng(SEED))))
+    calib_s = time.perf_counter() - t0
+    scales = pred8.act_scales
+    n_q = len(pred8.int8_params)
+    qinfo = phase_qconv(quant_mod, packed_mod, pred8.int8_params, w48,
+                        pred8.dtype, dev)
+    int8_fwd = phase_int8_forwards(packed_mod, quant_mod, pred8,
+                                   pred8.packed_params, w48, dev)
+    int8_served = phase_int8_predictors(PosePredictor, hrnet, quant_mod,
+                                        state, scales, counters, n_q, dev)
+    exported = phase_int8_export(
+        PosePredictor, hrnet, (jax_variables_from_state_dict,
+                               export_serving_artifact,
+                               load_serving_artifact), state, scales, dev)
+    stream_int8 = phase_int8_stream(rt_mod, model, frames, counters, card,
+                                    dev)
+    times8 = int8_times(packed_mod, quant_mod, pred8, pred8.packed_params,
+                        w48, qinfo["by_key"], dev)
+    del pred8
+    torch.cuda.empty_cache()
+    kernels.append(qconv_row(times8,
+                             int8_served["int8"]["predict_batch_8"]["qconv"],
+                             qinfo["max_abs_err"], build["ptxas"]))
+    e2e_int8 = int8_end_to_end(PosePredictor, hrnet, state, scales, dev)
+    int8 = {"calibration_s": calib_s, "n_scales": len(scales),
+            "quantized_convs": n_q,
+            "qconv_check": {**qinfo, "by_key": [
+                [*k, n] for k, n in sorted(qinfo["by_key"].items())]},
+            "forwards_b8": int8_fwd, "predictor_launches": int8_served,
+            "export": exported, "validate": validate_int8,
+            "stream": stream_int8, "forward_ms": times8["forward"],
+            "predict_batch_8": e2e_int8}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
                       "ptxas": build["ptxas"], "warp_step_probe": probe,
@@ -2251,7 +2735,7 @@ def main() -> None:
                       "profile_bs8_packed": prof_packed,
                       "cam_check": cam_errs, "train": train, "tta": tta,
                       "validate": validate, "corpus": corpus,
-                      "stream": stream}))
+                      "stream": stream, "int8": int8}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """What the port's command-line entry points share: the teacher's
-weights with the missing-file refusal, the refusal of the int8 flags,
-the model input of a 0-255 image, and the log."""
+weights with the missing-file refusal, the int8 flags' checks and the
+scripts' calibration, the model input of a 0-255 image, and the log."""
 
 import argparse
 import logging
@@ -12,19 +12,18 @@ import numpy as np
 import torch
 
 from ..data.preprocess import normalize_image, resize_align_multi_scale
-from ..device import DeviceLike
+from ..device import DeviceLike, default_dtype, resolve_device
 from ..models.factory import get_hrnet_w48_teacher
+from ..models.hrnet_packed import calibrate_act_scales, pack_w48_params
 
-INT8_LATER = ("the int8 serving modes (ROADMAP.md Queue 1 item 4) come "
-              "with a later slice of the port")
-
-
-def refuse_int8(parser: argparse.ArgumentParser,
-                args: argparse.Namespace) -> None:
-    """Exit with the parser's error (status 2) on any int8 flag."""
-    for flag in ("int8", "int8_act", "act_scales"):
-        if getattr(args, flag, None) not in (None, False):
-            parser.error(f"--{flag}: {INT8_LATER}")
+def check_int8_flags(parser: argparse.ArgumentParser,
+                     args: argparse.Namespace) -> None:
+    """The JAX scripts' parser errors (status 2): ``--int8`` needs
+    ``--packed``, ``--int8_act`` needs ``--int8``."""
+    if getattr(args, "int8", False) and not args.packed:
+        parser.error("--int8 requires --packed")
+    if getattr(args, "int8_act", False) and not args.int8:
+        parser.error("--int8_act requires --int8")
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -63,3 +62,16 @@ def model_input(img_255: np.ndarray, input_size: int,
     resized, _, _ = resize_align_multi_scale(img_255, input_size, 1, 1,
                                              device=device)
     return normalize_image(resized / 255.0)
+
+
+def calibrate(model: torch.nn.Module, images_255, input_size: int,
+              device: DeviceLike) -> dict:
+    """int8 activation scales as the JAX scripts calibrate them: each
+    0-255 image a batch of 1 at the input size, through the packed
+    forward in the dtype the predictor serves on ``device``."""
+    dev = resolve_device(device)
+    dtype = default_dtype(dev)
+    pk = pack_w48_params(model.state_dict(), model.cfg, dtype, dev)
+    calib = [model_input(im, input_size, dev)[None].permute(0, 3, 1, 2)
+             for im in images_255]
+    return calibrate_act_scales(pk, calib, model.cfg, dtype)

@@ -9,7 +9,12 @@ Port of ``scripts/realtime_demo.py`` with the same flags, plus
 N+1's forward on the card (CUDA launches are asynchronous) before frame
 N is decoded.  Prints one JSON line of stats with the JAX script's keys
 (p50/p90 frame latency and the sustained frames per second, the first
-frame excluded) and, with ``-o``, writes annotated frames.
+frame excluded) and, with ``-o``, writes annotated frames.  With
+``--int8`` the scales come from ``--act_scales`` where that file
+exists; otherwise they are calibrated on the first 8 frames and, with
+``--act_scales``, written there (the JAX script passes
+``save_act_scales`` its arguments in the wrong order and raises
+instead; ROADMAP.md Queue 3).
 """
 
 import argparse
@@ -21,7 +26,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..eval.predictor import PosePredictor
-from .common import get_logger, load_teacher, refuse_int8
+from ..models.hrnet_packed import save_act_scales
+from .common import check_int8_flags, get_logger, load_teacher
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,11 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="BN-folded serving forward (default; "
                         "--no-packed = the canonical forward)")
     p.add_argument("--int8", action="store_true",
-                   help="not in this slice of the port")
+                   help="int8 weights (requires --packed); activation "
+                        "scales calibrate on the first frames unless "
+                        "--act_scales points at an existing file")
     p.add_argument("--int8_act", action="store_true",
-                   help="not in this slice of the port")
+                   help="additionally store inter-layer activations "
+                        "int8 (requires --int8)")
     p.add_argument("--act_scales", default=None,
-                   help="not in this slice of the port")
+                   help="Activation-scale JSON (save_act_scales): used "
+                        "if it exists, else written after calibration")
     p.add_argument("--flip", action="store_true",
                    help="Flip-TTA on the streamed forward (a doubled "
                         "batch, still pipelined)")
@@ -61,6 +71,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p
+
+
+def make_predictor(model, frames: Sequence[np.ndarray],
+                   args: argparse.Namespace, log=None) -> PosePredictor:
+    """The stream's predictor from the flags: with ``--int8`` the scales
+    of an existing ``--act_scales`` file, else calibrated on the first 8
+    frames and written to ``--act_scales`` when it is given."""
+    log = log or get_logger("realtime_demo")
+    kw = {}
+    if args.int8:
+        if args.act_scales and os.path.exists(args.act_scales):
+            kw["act_scales"] = args.act_scales
+            log.info(f"int8 scales loaded from {args.act_scales}")
+        else:
+            # the stream's own frames are the calibration corpus
+            kw["calibration_images"] = list(frames[:8])
+    pred = PosePredictor(model, device=args.device,
+                         input_size=args.input_size, packed=args.packed,
+                         int8=args.int8, int8_act=args.int8_act,
+                         with_flip=args.flip, **kw)
+    if args.int8 and args.act_scales \
+            and not os.path.exists(args.act_scales):
+        save_act_scales(args.act_scales, pred.act_scales)
+        log.info(f"int8 scales calibrated on {min(8, len(frames))} "
+                 f"frames -> {args.act_scales}")
+    return pred
 
 
 def run_stream(pred: PosePredictor, frames: Sequence[np.ndarray],
@@ -114,12 +150,14 @@ def run_stream(pred: PosePredictor, frames: Sequence[np.ndarray],
         "first_frame_ms": round(lat_ms[0], 1),
         "people_total": people_total,
         "backend": pred.device.type,
-        "path": "packed" if pred.packed else "canonical",
+        "path": ("int8_act" if pred.int8_act else
+                 "int8" if pred.int8_params is not None else
+                 "packed" if pred.packed else "canonical"),
         # a --flip run's rate is not comparable to a plain run's
         "flip": pred.with_flip,
-        # the int8 serving modes, which route small batches through the
-        # bf16 program, are not in this slice: no frame is ever routed
-        "routed_bf16": False,
+        # int8 streams a batch of 1 a frame, which the predictor serves
+        # by its bf16 params below int8_min_batch: which params served
+        "routed_bf16": pred.routes_to_bf16(1),
     }
     log.info(f"sustained {stats['fps_sustained']} FPS, "
              f"p50 {stats['lat_p50_ms']} ms")
@@ -129,7 +167,7 @@ def run_stream(pred: PosePredictor, frames: Sequence[np.ndarray],
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_int8(parser, args)
+    check_int8_flags(parser, args)
     if args.force_cpu:
         args.device = "cpu"
     log = get_logger("realtime_demo")
@@ -141,9 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     for fp in args.input_paths:
         with Image.open(fp) as im:
             frames.append(np.asarray(im.convert("RGB")))
-    pred = PosePredictor(model, device=args.device,
-                         input_size=args.input_size, packed=args.packed,
-                         with_flip=args.flip)
+    pred = make_predictor(model, frames, args, log)
     log.info(f"{len(frames)} frames x {args.loops} loops, "
              f"input_size={args.input_size}, device={pred.device}")
     stats, _ = run_stream(pred, frames, args, log)

@@ -10,7 +10,11 @@ images, ``-o`` out dir, ``-m`` state dict, ``-C`` the CPU), plus
 ``{img}.jpg_w48_predictions.npz`` with ``pred_heatmaps``,
 ``embeddings``, ``heatmaps_refined`` and ``heatmaps_order``).  Images
 are bucketed by their size, read from the file's header, and each
-chunk of a bucket runs one batched forward.
+chunk of a bucket runs one batched forward.  ``--int8`` serves the
+quantized forward, every chunk (no bf16 route, as the JAX script's int8
+program), with the scales of an existing ``--act_scales`` file, or
+calibrated on the first 4 inputs and then written to ``--act_scales``
+when it is given.
 """
 
 import argparse
@@ -24,7 +28,9 @@ import torch
 
 from ..data.teacher_cache import save_teacher_prediction
 from ..eval.predictor import PosePredictor
-from .common import get_logger, load_teacher, model_input, refuse_int8
+from ..models.hrnet_packed import load_act_scales, save_act_scales
+from .common import (calibrate, check_int8_flags, get_logger, load_teacher,
+                     model_input)
 
 INPUT_SIZE = 640
 
@@ -54,12 +60,37 @@ def build_parser() -> argparse.ArgumentParser:
                              "corpus jobs); --no-packed runs the "
                              "canonical forward")
     parser.add_argument("--int8", action="store_true",
-                        help="not in this slice of the port")
+                        help="Quantize the packed weights to int8 with "
+                             "activation scales calibrated on the first "
+                             "input images (requires --packed)")
     parser.add_argument("--act_scales", default=None,
-                        help="not in this slice of the port")
+                        help="Activation-scale JSON for --int8: used "
+                             "instead of calibrating if it exists, else "
+                             "the scales calibrated here are saved there")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser
+
+
+def corpus_scales(model: torch.nn.Module,
+                  sources: Sequence[Tuple[str, Tuple[int, int]]],
+                  load: Callable[[str], np.ndarray],
+                  args: argparse.Namespace, log) -> dict:
+    """The int8 activation scales: an existing ``--act_scales`` file, or
+    calibrated on the first 4 inputs (each a batch of 1 at the input
+    size) and saved to ``--act_scales`` when it is given."""
+    if args.act_scales and os.path.exists(args.act_scales):
+        scales = load_act_scales(args.act_scales)
+        log.info(f"int8 scales loaded from {args.act_scales} "
+                 f"({len(scales)} entries; calibration skipped)")
+        return scales
+    first = [load(p) for p, _ in sources[:4]]
+    scales = calibrate(model, first, args.input_size, args.device)
+    log.info(f"int8 calibration on {len(first)} corpus images")
+    if args.act_scales:
+        save_act_scales(args.act_scales, scales)
+        log.info(f"int8 scales saved to {args.act_scales}")
+    return scales
 
 
 def write_corpus(model: torch.nn.Module,
@@ -76,10 +107,16 @@ def write_corpus(model: torch.nn.Module,
       forwards and their pulls to the host.
     """
     log = log or get_logger("teacher_inference")
+    kw = {}
+    if args.int8:
+        kw = dict(int8=True, int8_min_batch=0,
+                  act_scales=corpus_scales(model, sources, load, args, log))
     pred = PosePredictor(model, device=args.device,
-                         input_size=args.input_size, packed=args.packed)
-    log.info(f"serving path: {'packed' if args.packed else 'canonical'} "
-             f"{pred.dtype} on {pred.device}")
+                         input_size=args.input_size, packed=args.packed,
+                         **kw)
+    path = ("packed + int8" if args.int8 else "packed" if args.packed
+            else "canonical")
+    log.info(f"serving path: {path} {pred.dtype} on {pred.device}")
     os.makedirs(out_dir, exist_ok=True)
     buckets = defaultdict(list)
     for path, hw in sources:
@@ -111,7 +148,7 @@ def write_corpus(model: torch.nn.Module,
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_int8(parser, args)
+    check_int8_flags(parser, args)
     if args.force_cpu:
         args.device = "cpu"
     log = get_logger("teacher_inference")

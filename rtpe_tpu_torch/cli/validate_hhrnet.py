@@ -8,7 +8,11 @@ Port of ``scripts/validate_hhrnet.py`` with the same flags, plus
 heatmaps and tags to image size, decode with
 :meth:`~rtpe_tpu_torch.decode.HeatmapParser.parse_batch` (the NMS +
 top-k kernel, grouping on the host, adjust and refine), and print the
-ten keypoint AP/AR stats as one JSON line.  Images are bucketed by
+ten keypoint AP/AR stats as one JSON line.  ``--int8`` (and
+``--int8_act``) serve the quantized forward with scales calibrated on
+the first 4 images at the input size, as the JAX script does, and
+route no chunk to bf16 (the JAX script calls its int8 program
+directly).  Images are bucketed by
 their original (h, w), and each chunk of a bucket runs one batched
 forward (or :func:`~rtpe_tpu_torch.eval.tta.tta_forward`), one resize
 of the maps and one decode.
@@ -35,7 +39,8 @@ from ..decode import HeatmapParser
 from ..eval.predictor import PosePredictor
 from ..eval.tta import tta_forward
 from ..ops.resize import resize_bilinear
-from .common import get_logger, load_teacher, model_input, refuse_int8
+from .common import (calibrate, check_int8_flags, get_logger, load_teacher,
+                     model_input)
 
 NUM_JOINTS = 17
 
@@ -75,9 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "(models/hrnet_packed.py); --no-packed "
                              "runs the canonical forward.")
     parser.add_argument("--int8", action="store_true",
-                        help="not in this slice of the port")
+                        help="int8-quantized packed forward, activation "
+                             "scales calibrated on the first val images "
+                             "(requires --packed)")
     parser.add_argument("--int8_act", action="store_true",
-                        help="not in this slice of the port")
+                        help="additionally store inter-layer activations "
+                             "int8 (requires --int8)")
     parser.add_argument("--ae_mode", default="full",
                         choices=["full", "first", "mean"],
                         help="associative-embedding ablations: 'first' "
@@ -113,10 +121,19 @@ def validate(model: torch.nn.Module, ds: CocoDistillationDataset,
     """Validate ``model`` (the W48 teacher's module, with its weights)
     on ``ds`` with the options of :func:`build_parser`."""
     log = log or get_logger("validate_hhrnet")
+    kw = {}
+    if args.int8:
+        # the first 4 images (scripts/validate_hhrnet.py:118-133)
+        first = [ds[i]["img"] * 255.0 for i in range(min(4, len(ds)))]
+        kw = dict(int8=True, int8_act=args.int8_act, int8_min_batch=0,
+                  act_scales=calibrate(model, first, args.input_size,
+                                       args.device))
     pred = PosePredictor(model, device=args.device,
-                         input_size=args.input_size, packed=args.packed)
-    log.info(f"forward path: {'packed' if args.packed else 'canonical'} "
-             f"{pred.dtype} on {pred.device}")
+                         input_size=args.input_size, packed=args.packed,
+                         **kw)
+    path = ("packed + int8_act" if args.int8_act else "packed + int8"
+            if args.int8 else "packed" if args.packed else "canonical")
+    log.info(f"forward path: {path} {pred.dtype} on {pred.device}")
     # the reference's parser settings (validate_hhrnet.py:78); 'first'
     # and 'mean' reduce the tags to one channel shared by the joints
     hm_parser = HeatmapParser(num_joints=NUM_JOINTS, max_num_people=30,
@@ -194,7 +211,7 @@ def validate(model: torch.nn.Module, ds: CocoDistillationDataset,
 def main(argv: Optional[Sequence[str]] = None) -> Validation:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_int8(parser, args)
+    check_int8_flags(parser, args)
     log = get_logger("validate_hhrnet")
     whitelist = read_whitelist(args.whitelist) if args.whitelist else None
     ds = CocoDistillationDataset(args.coco_dir, args.dataset,

@@ -2,7 +2,8 @@
 
 Port of ``rtpe_tpu/eval/predictor.py``: resize-align + normalize on the
 device, the W48 forward (bf16 on CUDA; with ``packed=True`` the
-BN-folded serving forward of ``models/hrnet_packed.py``), the tag-map
+BN-folded serving forward of ``models/hrnet_packed.py``, with
+``int8=True`` its int8 convs on ``csrc/qconv.cu``), the tag-map
 resize (or, with ``with_flip`` / ``scales``, the test-time augmentation
 of :func:`~rtpe_tpu_torch.eval.tta.tta_forward`), the decode, then the
 inverse transform on the host.  The decode is the batched device
@@ -12,7 +13,7 @@ host-grouping decode (:meth:`HeatmapParser.parse_batch`: the NMS +
 top-k kernel, munkres grouping on the host, the refine on the device).
 """
 
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,7 +25,9 @@ from ..device import DeviceLike, default_dtype, resolve_device
 from ..io.jax_import import state_dict_from_jax, strip_fp16_prefix
 from ..io.serving import load_serving_artifact
 from ..models.hrnet import HRNetConfig, PoseHigherHRNet
-from ..models.hrnet_packed import pack_w48_params, packed_forward
+from ..models.hrnet_packed import (calibrate_act_scales, conv_names,
+                                   load_act_scales, pack_w48_params,
+                                   packed_forward, quantize_packed)
 from ..ops.resize import resize_bilinear
 from .tta import tta_forward
 
@@ -32,13 +35,17 @@ People = Tuple[List[np.ndarray], List[float]]
 
 # options of the JAX predictor that later slices of the port bring
 _LATER = {
-    "int8": "the int8 serving modes (ROADMAP.md Queue 1 item 4)",
-    "int8_act": "the int8 serving modes (ROADMAP.md Queue 1 item 4)",
-    "act_scales": "the int8 serving modes (ROADMAP.md Queue 1 item 4)",
     "mesh": "data-parallel serving (ROADMAP.md Queue 1 item 6)",
     "spatial_mesh": "spatially sharded serving (ROADMAP.md Queue 1 "
                     "item 6)",
 }
+
+# Batches smaller than this are served through the bf16 packed params
+# when int8 is on: the JAX predictor's default, the crossover measured on
+# its TPU (rtpe_tpu/eval/predictor.py:40-47).  Kept so that both packages
+# route alike; on the H100 int8 is slower than bf16 at batch 1 and 8 too
+# (PERF.md).
+INT8_MIN_BATCH_DEFAULT = 8
 
 
 def _to_unit_rgb(image) -> np.ndarray:
@@ -68,6 +75,26 @@ class PosePredictor:
     block chains on cuDNN as the JAX predictor serves them (it never
     sets ``pallas_chains``); the module itself then stays where it was.
 
+    ``int8=True`` (with ``packed``) also quantizes the folded weights per
+    channel to int8 with static activation scales
+    (:func:`~rtpe_tpu_torch.models.hrnet_packed.quantize_packed`), and
+    every quantized conv runs on the s8 kernel ``csrc/qconv.cu`` (its
+    plain version on the CPU).  The scales come from ``act_scales`` (the
+    dict of ``calibrate_act_scales``, or a path to a file of
+    ``save_act_scales``; it must hold every conv), or are calibrated here
+    on ``calibration_images`` (RGB in any range :meth:`predict` takes,
+    normalized and resized to ``max(64, min(input_size, 320))`` squared)
+    on the predictor's device and dtype; without either,
+    ``allow_synthetic_calibration=True`` calibrates on one random
+    normal batch (a ``torch.Generator`` seeded 0, which cannot draw
+    JAX's ``PRNGKey(0)`` numbers).  ``self.act_scales`` is the set used.
+    ``int8_act=True`` also stores the inter-layer activations int8.
+    Shape groups of fewer than ``int8_min_batch`` images (default
+    :data:`INT8_MIN_BATCH_DEFAULT`; 0 routes nothing) are served by the
+    bf16 packed params kept beside the quantized ones; :meth:`predict`
+    and :meth:`stream` count as batches of 1.  The JAX predictor's
+    refusals and their exception types are kept.
+
     ``with_flip`` and ``scales`` (which must include 1.0) turn on the
     test-time augmentation: :meth:`predict` and :meth:`stream` run
     :func:`~rtpe_tpu_torch.eval.tta.tta_forward` (flip as a doubled
@@ -86,12 +113,30 @@ class PosePredictor:
                  fused_decode: Optional[bool] = None,
                  with_flip: bool = False, packed: bool = False,
                  int8: bool = False, int8_act: bool = False,
-                 act_scales: Optional[Mapping[str, float]] = None,
-                 mesh=None, spatial_mesh=None):
-        later = dict(int8=int8, int8_act=int8_act, act_scales=act_scales,
-                     mesh=mesh, spatial_mesh=spatial_mesh)
+                 calibration_images: Optional[Sequence] = None,
+                 allow_synthetic_calibration: bool = False,
+                 act_scales: Union[Mapping[str, float], str, None] = None,
+                 mesh=None, spatial_mesh=None,
+                 int8_min_batch: Optional[int] = None):
+        if int8 and not packed:
+            raise ValueError("int8=True requires packed=True")
+        if int8_act and not int8:
+            raise ValueError("int8_act=True requires int8=True")
+        if act_scales is not None and calibration_images is not None:
+            raise ValueError(
+                "act_scales and calibration_images are mutually "
+                "exclusive: precomputed scales skip calibration")
+        if int8 and calibration_images is None and act_scales is None \
+                and not allow_synthetic_calibration:
+            raise ValueError(
+                "int8=True without calibration_images uses synthetic "
+                "random-batch activation scales — unvalidated numerics."
+                " Pass real calibration_images (or precomputed "
+                "act_scales), or opt in explicitly with "
+                "allow_synthetic_calibration=True")
+        later = dict(mesh=mesh, spatial_mesh=spatial_mesh)
         for name, value in later.items():
-            if value not in (False, None):
+            if value is not None:
                 raise NotImplementedError(
                     f"{name} needs {_LATER[name]}, which a later slice of "
                     "the port brings")
@@ -110,15 +155,55 @@ class PosePredictor:
             model.load_state_dict(strip_fp16_prefix(state_dict))
         self.packed = bool(packed)
         self.packed_params = None
+        self.int8_params = None
+        self.int8_act = bool(int8_act)
+        self.act_scales = None
+        self.int8_min_batch = int(INT8_MIN_BATCH_DEFAULT
+                                  if int8_min_batch is None
+                                  else int8_min_batch)
         if self.packed:
             self.packed_params = pack_w48_params(
                 model.state_dict(), model.cfg, self.dtype, self.device)
             self.model = model.eval()
+            if int8:
+                scales_d = self._int8_scales(act_scales, calibration_images)
+                self.act_scales = dict(scales_d)
+                self.int8_params = quantize_packed(self.packed_params,
+                                                   scales_d)
             return
         model = model.to(self.device).eval().set_compute_dtype(self.dtype)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model
+
+    def _int8_scales(self, act_scales, calibration_images
+                     ) -> Mapping[str, float]:
+        """The activation scales: given (a dict or a file, checked for
+        every conv), or calibrated here."""
+        names = conv_names(self.packed_params)
+        if act_scales is not None:
+            if not isinstance(act_scales, Mapping):
+                act_scales = load_act_scales(act_scales)
+            missing = [k for k in names if k not in act_scales]
+            if missing:
+                raise ValueError(
+                    f"act_scales is missing {len(missing)} of {len(names)} "
+                    f"conv entries (e.g. {missing[:3]}): scale file from a "
+                    "different config or percentile run?")
+            return act_scales
+        hw = max(64, min(self.input_size, 320))
+        if calibration_images is not None:
+            calib = [resize_bilinear(
+                normalize_image(torch.from_numpy(_to_unit_rgb(im)).to(
+                    self.device))[None], (hw, hw), align_corners=False)
+                for im in calibration_images]
+        else:
+            gen = torch.Generator().manual_seed(0)
+            calib = [torch.randn((1, hw, hw, 3), generator=gen).to(
+                self.device)]
+        return calibrate_act_scales(
+            self.packed_params, [x.permute(0, 3, 1, 2) for x in calib],
+            self.model.cfg, self.dtype)
 
     @classmethod
     def from_jax(cls, variables_np: Mapping, cfg: HRNetConfig,
@@ -155,16 +240,29 @@ class PosePredictor:
             img * 255.0, self.input_size, 1, 1, device=self.device)
         return normalize_image(resized / 255.0), center, scale
 
-    def _forward(self, batch_nhwc: torch.Tensor):
+    def routes_to_bf16(self, n: int) -> bool:
+        """Whether a call of ``n`` images is served by the bf16 packed
+        params although int8 is on (JAX's ``_route_fwd``)."""
+        return self.int8_params is not None and n < self.int8_min_batch
+
+    def _forward(self, batch_nhwc: torch.Tensor, n: Optional[int] = None):
+        """The forward of a batch for a call of ``n`` user images (default
+        the batch's size), which picks int8 or the bf16 route."""
         x = batch_nhwc.permute(0, 3, 1, 2)
-        if self.packed:
+        if not self.packed:
+            return self.model(x)
+        n = x.shape[0] if n is None else n
+        if self.int8_params is None or self.routes_to_bf16(n):
             return packed_forward(self.packed_params, x, self.model.cfg,
                                   self.dtype)
-        return self.model(x)
+        return packed_forward(self.int8_params, x, self.model.cfg,
+                              self.dtype, int8_act=self.int8_act)
 
-    def _forward_nhwc(self, batch_nhwc: torch.Tensor):
-        """The forward with NHWC heads (the TTA contract)."""
-        return tuple(t.permute(0, 2, 3, 1) for t in self._forward(batch_nhwc))
+    def _forward_nhwc(self, batch_nhwc: torch.Tensor, n: int = 1):
+        """The forward with NHWC heads (the TTA contract); a TTA batch
+        serves one image, so it routes as a call of 1."""
+        return tuple(t.permute(0, 2, 3, 1)
+                     for t in self._forward(batch_nhwc, n))
 
     def _maps(self, batch_nhwc: torch.Tensor):
         """Model inputs -> NHWC (hms, tags) for the decode: the head

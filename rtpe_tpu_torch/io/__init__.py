@@ -1,11 +1,17 @@
-"""Weight import: the JAX package's variables -> the port's state dict
-(teacher or student), JAX's BN-folded dict -> the port's serving dict,
-and the JAX package's serving artifact directory."""
+"""Weight import and export: the JAX package's variables <-> the port's
+state dict (teacher; a student one way), JAX's BN-folded dict -> the
+port's serving dict, and the serving artifact directory, written and
+read."""
 
 from .jax_import import (  # noqa: F401
     folded_params_from_jax,
+    jax_variables_from_state_dict,
     state_dict_from_jax,
     strip_fp16_prefix,
     student_state_dict_from_jax,
 )
-from .serving import ServingArtifact, load_serving_artifact  # noqa: F401
+from .serving import (  # noqa: F401
+    ServingArtifact,
+    export_serving_artifact,
+    load_serving_artifact,
+)

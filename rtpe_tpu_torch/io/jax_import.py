@@ -19,6 +19,11 @@ student (``AttentionStudentSteps``): its module names follow the JAX
 tree, the stem takes the teacher's names, and a Dense kernel ``(in,
 out)`` becomes a Linear weight ``(out, in)``.
 
+``jax_variables_from_state_dict(state_dict, cfg)`` is the inverse of
+``state_dict_from_jax``: the port's teacher state dict back to the JAX
+package's ``{"params": ..., "batch_stats": ...}`` tree of float32 numpy
+leaves (what the serving artifact stores).
+
 ``folded_params_from_jax(folded_np, cfg)`` turns the JAX package's
 BN-folded dict (``rtpe_tpu.models.hrnet_packed.fold_w48_params``: numpy,
 HWIO kernels, ``(kh, kw, in, out)`` for the transposed conv) into the
@@ -153,6 +158,90 @@ def state_dict_from_jax(variables_np: Mapping,
     for k in template:
         if k.endswith("num_batches_tracked"):
             out[k] = torch.zeros((), dtype=torch.long)
+    return out
+
+
+def _block_module(inner: str) -> str:
+    return {"downsample.0": "downsample_conv",
+            "downsample.1": "downsample_bn"}.get(inner, inner)
+
+
+def _teacher_module_path(prefix: str) -> Tuple[str, ...]:
+    """The flax module path of a torch module prefix: the inverse of
+    :func:`_teacher_prefix`."""
+    p = prefix.split(".")
+    head = p[0]
+    if head in ("conv1", "bn1", "conv2", "bn2"):
+        return (head,)
+    if head == "layer1":
+        return (f"layer1_{p[1]}", _block_module(".".join(p[2:])))
+    if head.startswith("transition"):
+        kind = "conv" if p[-1] == "0" else "bn"
+        return ("_".join([head] + p[1:-1] + [kind]),)
+    if head.startswith("stage"):
+        stage = f"{head}_{p[1]}"
+        if p[2] == "branches":
+            return (stage, f"branch{p[3]}_{p[4]}",
+                    _block_module(".".join(p[5:])))
+        kind = "conv" if p[-1] == "0" else "bn"
+        return (stage, "_".join(["fuse" + p[3]] + p[4:-1] + [kind]))
+    if head == "final_layers":
+        return (f"final_{p[1]}",)
+    if head == "deconv_layers":
+        if p[2] == "0":
+            return (f"deconv{p[1]}_{'tconv' if p[3] == '0' else 'bn'}",)
+        return (f"deconv{p[1]}_block{int(p[2]) - 1}",
+                _block_module(".".join(p[4:])))
+    raise KeyError(f"unknown teacher module {prefix}")
+
+
+_LEAVES = {"running_mean": ("batch_stats", "mean"),
+           "running_var": ("batch_stats", "var"),
+           "bias": ("params", "bias")}
+
+
+def jax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                  cfg: HRNetConfig) -> Dict[str, Dict]:
+    """The JAX package's variables of ``PoseHigherHRNet(cfg)`` (nested
+    dicts of float32 numpy leaves) from the port's state dict (the fp16
+    ``"1."`` prefix tolerated): conv kernels OIHW -> HWIO, the transposed
+    conv's (in, out, kh, kw) -> (kh, kw, in, out), BN weight / bias /
+    running statistics -> scale / bias / mean / var.  Every key is
+    checked against ``cfg``'s module and against the forward mapping of
+    :func:`state_dict_from_jax`."""
+    sd = strip_fp16_prefix(state_dict)
+    with torch.device("meta"):
+        template = PoseHigherHRNet(cfg).state_dict()
+    out: Dict[str, Dict] = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key not in template:
+            raise KeyError(f"{key} is not a key of PoseHigherHRNet(cfg)")
+        prefix, leaf = key.rsplit(".", 1)
+        mods = _teacher_module_path(prefix)
+        if _teacher_prefix(mods) != prefix:
+            raise KeyError(f"{key}: no JAX module maps back to {prefix}")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            collection, name = "params", ("kernel" if arr.ndim == 4
+                                          else "scale")
+            if arr.ndim == 4:
+                arr = np.transpose(arr, (2, 3, 0, 1) if "tconv" in mods[-1]
+                                   else (2, 3, 1, 0))
+        else:
+            collection, name = _LEAVES[leaf]
+        if tuple(value.shape) != tuple(template[key].shape):
+            raise ValueError(f"shape mismatch at {key}: {tuple(value.shape)}")
+        node = out.setdefault(collection, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    missing = [k for k in template
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"the state dict lacks {len(missing)} keys, e.g. "
+                       f"{missing[:5]}")
     return out
 
 

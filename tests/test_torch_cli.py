@@ -24,7 +24,9 @@ detection threshold (a few live peaks a plane).
   joint names byte-equal, the maps within OUT_TOL of their largest
   magnitude.
 * ``realtime_demo``: the stats line has the JAX script's keys.
-* The missing-model and int8 refusals exit with status 2, and the
+* The int8 flags run (``--int8`` / ``--int8_act`` / ``--act_scales``,
+  the scale files read by JAX's loader); the missing-model refusal and
+  the JAX scripts' int8 parser errors exit with status 2, and the
   default device is CUDA.
 """
 
@@ -261,21 +263,55 @@ def test_refusals_exit_with_status_2(coco_root, tmp_path, capsys, caplog):
         (teacher_inference.main, ["-I", img, "-o", str(tmp_path), "-m",
                                   missing, "-C"], "not found"),
         (realtime_demo.main, ["-I", img, "-m", missing, "-C"], "not found"),
-        (validate_hhrnet.main, ["--coco_dir", coco_root, "--int8"],
-         "Queue 1 item 4"),
+        (validate_hhrnet.main, ["--coco_dir", coco_root, "--int8",
+                                "--no-packed"], "--int8 requires --packed"),
         (validate_hhrnet.main, ["--coco_dir", coco_root, "--int8_act"],
-         "Queue 1 item 4"),
+         "--int8_act requires --int8"),
         (teacher_inference.main, ["-I", img, "-o", str(tmp_path), "-m",
-                                  missing, "--int8"], "Queue 1 item 4"),
-        (realtime_demo.main, ["-I", img, "-m", missing, "--act_scales",
-                              "s.json"], "Queue 1 item 4"),
+                                  missing, "--int8", "--no-packed"],
+         "--int8 requires --packed"),
+        (realtime_demo.main, ["-I", img, "-m", missing, "--int8_act"],
+         "--int8_act requires --int8"),
     ]
     for main, argv, msg in runs:
         with pytest.raises(SystemExit) as exc:
             main(argv)
         assert exc.value.code == 2, argv
-        # the missing-model refusal is logged, the int8 one the parser's
+        # the missing-model refusal is logged, the int8 ones the parser's
         assert msg in capsys.readouterr().err + caplog.text, argv
+
+
+@pytest.mark.parametrize("cli", ["validate_int8", "validate_int8_act",
+                                 "teacher_int8", "demo_int8"])
+def test_int8_flags_run(cli, coco_root, w48_path, tmp_path, capsys):
+    """The int8 flags of the three CLIs, run on the CPU: ten stats, the
+    ``.npz`` files with the scales written to ``--act_scales`` (and read
+    by JAX's loader), and a stream calibrated on its frames whose scale
+    file the JAX loader reads, with ``routed_bf16`` set."""
+    imgs = _images(coco_root)
+    scales = str(tmp_path / "scales.json")
+    if cli.startswith("validate"):
+        flags = ["--int8"] + (["--int8_act"] if cli.endswith("act") else [])
+        res = validate_hhrnet.main(["--coco_dir", coco_root, "--save_every",
+                                    "0", *flags, *_common(coco_root,
+                                                          w48_path)])
+        assert len(res.stats) == 10
+        assert all(np.isfinite(v) for v in res.stats.values())
+        return
+    if cli == "teacher_int8":
+        out = str(tmp_path / "npz")
+        teacher_inference.main(["-I", *imgs, "-o", out, "--int8",
+                                "--act_scales", scales,
+                                *_common(coco_root, w48_path)])
+        assert len(os.listdir(out)) == len(imgs)
+    else:
+        stats = realtime_demo.main(["-I", *imgs, "--int8", "--act_scales",
+                                    scales, *_common(coco_root, w48_path)])
+        printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert printed == stats and stats["routed_bf16"] is True
+        assert stats["path"] == "int8" and list(stats) == \
+            _jax_script_stats_keys()
+    assert len(j_packed.load_act_scales(scales)) == 303 + 65
 
 
 def test_the_default_device_is_cuda(coco_root, w48_path):

@@ -19,7 +19,10 @@ the six fused-CAM kernels at small and ragged shapes (random inputs,
 exact-sum inputs, per-image gates of both signs), the 2-D tiles of the
 six ops at ragged shapes (a side smaller than a tile, a
 dilation larger than a tile side) and their plans against the C
-formulas, and the checks the wrappers make.
+formulas, the s8 convolution ``qconv`` at ragged channels, Cout and
+pixel counts (bitwise, its plan against the C one) and a small int8 and
+int8-act forward bitwise against the plain ``qconv``, and the checks
+the wrappers make.
 
 Chain tolerance: the kernel and its plain version (float32 convolutions,
 TF32 off) differ only in the order of each conv's float32 sum.  On
@@ -856,3 +859,90 @@ def test_tta_decode_on_the_card_equals_plain(cuda, scales):
     np.testing.assert_allclose(s_g, s_w, rtol=1e-5, atol=1e-5)
     people, scores = pred.predict(image)
     assert len(people) == len(scores) == len(p_g)
+
+
+# ------------------------------------------------------------------ int8
+
+# (cout, cin, k, stride, h, w, transposed): ragged channels (3, 82),
+# ragged Cout (17, 34), a pixel count not a multiple of 128, each N tile
+QCONV_CASES = [(64, 3, 3, 2, 37, 29, False), (48, 48, 3, 1, 23, 19, False),
+               (96, 48, 3, 2, 30, 26, False), (17, 48, 1, 1, 11, 13, False),
+               (34, 48, 1, 1, 9, 7, False), (384, 192, 3, 2, 10, 12, False),
+               (256, 64, 1, 1, 5, 9, False), (48, 82, 4, 2, 13, 11, True)]
+
+
+def _qconv_case(key, b, dev, seed=0):
+    from rtpe_tpu_torch.ops import quant
+    cout, cin, k, _, h, w, tr = key
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    x[..., 0] = 127
+    wq = torch.randint(-127, 128, (cin, cout, k, k) if tr else
+                       (cout, cin, k, k), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    kernel, c = quant.kernel_layout(wq, tr)
+    alpha = torch.rand((2, cout) if tr else (cout,), generator=gen,
+                       device=dev) * 1e-3
+    q = quant.QConv(kernel, torch.randn(cout, generator=gen, device=dev),
+                    alpha, torch.tensor(1.0, device=dev), c, tr)
+    return x.permute(0, 3, 1, 2), q
+
+
+@pytest.mark.parametrize("key", QCONV_CASES)
+@pytest.mark.parametrize("b", [1, 3])
+def test_qconv_kernel_equals_plain(cuda, key, b):
+    from rtpe_tpu_torch.ops import quant
+    x, q = _qconv_case(key, b, cuda)
+    stride, pad = (2, 1) if key[6] else (key[3], (key[2] - 1) // 2)
+    before = quant.qconv.launches
+    got = quant.qconv(x, q, stride, pad)
+    torch.cuda.synchronize()
+    assert quant.qconv.launches == before + 1
+    assert torch.equal(got, quant.qconv_plain(x, q, stride, pad))
+    cout, cin, k = key[:3]
+    assert quant.qconv_plan_c(cin, cout, k, k) == \
+        quant.qconv_plan(cin, cout, k, k)
+
+
+def test_qconv_refuses_what_it_does_not_take(cuda):
+    from rtpe_tpu_torch.ops import quant
+    x, q = _qconv_case(QCONV_CASES[1], 1, cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        quant.qconv(x.contiguous(), q)
+    with pytest.raises(ValueError, match="takes x"):
+        quant.qconv(x[:, :40], q)
+    with pytest.raises(ValueError, match="kernel must be"):
+        quant.qconv(x, q._replace(kernel=q.kernel.cpu()))
+
+
+@pytest.mark.parametrize("int8_act", [False, True])
+def test_small_int8_forward_equals_plain_qconv(cuda, int8_act):
+    """A small packed int8 forward on the card: bitwise equal to the same
+    forward with the plain ``qconv``, every conv launched once."""
+    from rtpe_tpu_torch.models import hrnet_packed as packed
+    from rtpe_tpu_torch.ops import quant
+    cfg = HRNetConfig(num_joints=17,
+                      stage2=StageCfg(1, 2, "BASIC", (1, 1), (16, 32)),
+                      stage3=StageCfg(1, 3, "BASIC", (1, 1, 1), (16, 32, 64)),
+                      stage4=StageCfg(1, 4, "BASIC", (1, 1, 1, 1),
+                                      (16, 32, 64, 128)),
+                      deconv_chans=(16,), deconv_num_blocks=1)
+    state = init_random_(PoseHigherHRNet(cfg), seed=3).state_dict()
+    pk = pack_w48_params(state, cfg, torch.bfloat16, cuda)
+    x = torch.randn((2, 3, 96, 128), generator=torch.Generator()
+                    .manual_seed(1)).to(cuda)
+    scales = packed.calibrate_act_scales(pk, [x[:1]], cfg)
+    qp = packed.quantize_packed(pk, scales)
+    before = quant.qconv.launches
+    with torch.inference_mode():
+        got = packed.packed_forward(qp, x, cfg, int8_act=int8_act)
+        assert quant.qconv.launches == before + len(qp)
+        real = packed.qconv
+        packed.qconv = quant.qconv_plain
+        try:
+            want = packed.packed_forward(qp, x, cfg, int8_act=int8_act)
+        finally:
+            packed.qconv = real
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -37,6 +37,7 @@ bad = sorted(m for m in sys.modules
              or m == "rtpe_tpu" or m.startswith("rtpe_tpu."))
 for name in ("rtpe_tpu_torch.cli.validate_hhrnet",
              "rtpe_tpu_torch.cli.teacher_inference",
+             "rtpe_tpu_torch.cli.export_serving", "rtpe_tpu_torch.ops.quant",
              "rtpe_tpu_torch.cli.realtime_demo", "rtpe_tpu_torch.eval.tta",
              "rtpe_tpu_torch.eval.cocoeval", "rtpe_tpu_torch.data.dataset",
              "rtpe_tpu_torch.data.rle", "rtpe_tpu_torch.obs.vis"):
@@ -91,16 +92,23 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    for kw, item in ((dict(int8=True), "Queue 1 item 4"),
-                     (dict(packed=True, int8=True), "Queue 1 item 4"),
-                     (dict(packed=True, int8_act=True), "Queue 1 item 4"),
-                     (dict(act_scales={"conv1": 1.0}), "Queue 1 item 4"),
-                     (dict(mesh=object()), "Queue 1 item 6"),
+    """Data-parallel and spatially sharded serving wait for a later
+    slice; the int8 modes are served, with the JAX predictor's
+    refusals (``ValueError``)."""
+    for kw, item in ((dict(mesh=object()), "Queue 1 item 6"),
                      (dict(spatial_mesh=object()), "Queue 1 item 6")):
         with pytest.raises(NotImplementedError, match="later slice") as exc:
             PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
                           num_joints=3, **kw)
         assert item in str(exc.value)
+    for kw, msg in ((dict(int8=True), "requires packed=True"),
+                    (dict(packed=True, int8_act=True), "requires int8=True"),
+                    (dict(packed=True, int8=True), "synthetic"),
+                    (dict(act_scales={"conv1": 1.0},
+                          calibration_images=[]), "mutually exclusive")):
+        with pytest.raises(ValueError, match=msg):
+            PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                          num_joints=3, **kw)
 
 
 def test_tta_options_are_served_on_the_cpu():
@@ -153,6 +161,7 @@ def test_kernel_sources_and_build_command():
     route for sm_90a (compiled only where ``nvcc`` exists)."""
     assert _build.sources() == ["basicblock_chain", "cam_f1", "cam_f2",
                                 "cam_f3", "group_lockstep", "group_mega",
-                                "lap_rect", "nms_topk", "warp_step_probe"]
+                                "lap_rect", "nms_topk", "qconv",
+                                "warp_step_probe"]
     assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert os.path.basename(_build.BUILD_DIR) == "_build"

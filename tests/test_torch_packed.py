@@ -227,36 +227,43 @@ def test_from_artifact_serves_the_jax_artifact(weights, tmp_path):
 
 
 @pytest.mark.parametrize("edit,exc", [
-    (dict(int8=True), NotImplementedError),
-    (dict(int8_act=True), NotImplementedError),
+    (dict(int8=True), None),
+    (dict(int8_act=True), None),
     (dict(format="other"), ValueError),
 ])
 def test_artifact_refusals(weights, tmp_path, edit, exc):
-    """Every artifact loads; serving it as recorded refuses what the port
-    has not yet (the int8 modes) in the constructor, and a foreign format
-    in the loader.  (Flip TTA, refused here until the port served it, is
+    """Every artifact loads; one recorded with int8 (or int8_act) ships
+    its calibrated scales and is served as recorded, quantized, and a
+    foreign format is refused by the loader.  (Flip TTA, refused here
+    until the port served it, is
     ``test_artifact_recorded_with_flip_serves_like_jax``.)"""
     jcfg, _, variables = weights
-    int8 = dict(int8=True, act_scales={"stem/conv1": 1.0}) \
-        if "int8" in edit else {}
+    int8 = {}
+    if exc is None:
+        x = np.random.default_rng(5).normal(size=(1, 64, 96, 3))
+        scales = j_packed.calibrate_act_scales(
+            j_packed.pack_w48_params(variables, jcfg, dtype=jnp.float32),
+            [jnp.asarray(x, jnp.float32)], jcfg, dtype=jnp.float32)
+        int8 = dict(act_scales=scales, **{"int8": True, **edit})
     d = export_serving_artifact(str(tmp_path / "art"), variables, jcfg,
                                 num_joints=jcfg.num_joints, packed=True,
                                 **int8)
-    if not int8:
+    if exc is not None:
         mpath = os.path.join(d, "meta.json")
         with open(mpath) as f:
             meta = json.load(f)
-        if "format" in edit:
-            meta.update(edit)
-        else:
-            meta["predictor"].update(edit)
+        meta.update(edit)
         with open(mpath, "w") as f:
             json.dump(meta, f)
-    else:
-        assert load_serving_artifact(d).predictor_kwargs["act_scales"] == \
-            {"stem/conv1": 1.0}
-    with pytest.raises(exc, match="later slice|format"):
-        PosePredictor.from_artifact(d, device="cpu")
+        with pytest.raises(exc, match="format"):
+            PosePredictor.from_artifact(d, device="cpu")
+        return
+    assert load_serving_artifact(d).predictor_kwargs["act_scales"] == scales
+    pred = PosePredictor.from_artifact(d, device="cpu")
+    assert pred.int8_params is not None and pred.act_scales == scales
+    assert pred.int8_act == bool(edit.get("int8_act"))
+    people, scores = pred.predict_batch([np.zeros((64, 96, 3), np.uint8)])[0]
+    assert len(people) == len(scores)
 
 
 @pytest.mark.parametrize("mode", ["int8", "with_flip"])
