@@ -136,27 +136,39 @@ Phases, each of which fails the run:
     and the frames per second;
 24. int8 serving at full W48 width on 640 x 640 inputs: the scales
     calibrated on the 8 synthetic images of phase 9; ``qconv``
-    (``csrc/qconv.cu``) ``torch.equal`` to its plain version at every
-    distinct call of the int8 forward (26 weight shapes, the transposed
-    conv's included; B = 1, and B = 8 for the one with the most work)
-    on random int8 inputs with +-127 in every row, its C plan equal to
-    ``ops/quant.py:qconv_plan``; the int8 and int8-act forwards at B = 8 bitwise equal to the same
-    forwards with the plain ``qconv`` patched in, finite, correlated >
-    0.99 with the bf16 packed forward (the worst relative error
-    printed); ``PosePredictor(packed=True, int8=True)`` and
-    ``int8_act=True``, the counters set to 0 just before each call and
-    read just after: ``predict_batch`` of 8 launches ``qconv`` once a
-    quantized conv and the decode kernels once, ``predict`` of one image
-    is routed to bf16 (no ``qconv``), and with ``int8_min_batch=0``
-    quantized again; ``export_serving_artifact`` and ``from_artifact``
-    forwards bitwise equal; ``validate_hhrnet``'s core with ``--int8``
-    and ``--int8_act`` (ten finite stats; run inside phase 21's
-    fixture); ``realtime_demo``'s core with ``--int8`` (16 frames equal
-    to ``predict``, ``routed_bf16``); then times: ``qconv`` per call
-    geometry at B = 8 and 1 beside its bound, its plain version, cuDNN's
-    bf16 conv and ``torch._int_mm`` over an im2col (yardsticks the port
-    never calls), the bf16, int8 and int8-act forwards at B = 1 and 8,
-    and ``predict_batch`` img/s for each.
+    (``csrc/qconv.cu``: s8 ``wgmma``, split K, the transposed conv as
+    four sub-pixel phases, the graph's epilogue) and ``qfuse``
+    (``csrc/qfuse.cu``: the fuse sums and the one-pass quantize) held
+    ``torch.equal`` to their plain versions at every call of the int8
+    and int8-act forwards at B = 1 and 8, on the forwards' own inputs,
+    in the epilogue mode the graph uses at each call (26 weight shapes,
+    the transposed conv's included); ``qconv`` also at each (call
+    geometry, mode) on random int8 inputs with +-127 in every row and
+    random residuals, in its float32 contract at each geometry, and on
+    values placed on bf16 ties and at +-126.5 / +-127.5 before the
+    clamp; its C plan equal to ``ops/quant.py:qconv_plan`` at every
+    geometry at B = 1 and 8; the int8 and int8-act forwards at B = 1 and
+    8 bitwise equal to the same forwards on the plain composition (the
+    graph's ``qconv`` and ``fuse_sum`` patched to their plain versions),
+    finite, correlated > 0.99 with the bf16 packed forward (the worst
+    relative error printed); ``PosePredictor(packed=True, int8=True)``
+    and ``int8_act=True``, the counters set to 0 just before each call
+    and read just after: ``predict_batch`` of 8 launches ``qconv`` once
+    a quantized conv (303), ``fuse_sum`` as often as one forward does
+    and the decode kernels once, ``predict`` of one image is routed to
+    bf16 (neither int8 kernel), and with ``int8_min_batch=0`` quantized
+    again; ``export_serving_artifact`` and ``from_artifact`` forwards
+    bitwise equal; ``validate_hhrnet``'s core with ``--int8`` and
+    ``--int8_act`` (ten finite stats; run inside phase 21's fixture);
+    ``realtime_demo``'s core with ``--int8`` (16 frames equal to
+    ``predict``, ``routed_bf16``); then times: the bf16, int8 and
+    int8-act forwards at B = 1 and 8, the kernels ``torch.profiler``
+    sees in one int8 and one int8-act forward that are not the port's,
+    ``qconv`` per (call geometry, mode) at B = 8 and 1 on the forwards'
+    own inputs beside its bound, its plain version, cuDNN's bf16 conv
+    and ``torch._int_mm`` over an im2col (yardsticks the port never
+    calls), ``fuse_sum`` per call beside its bytes bound, and
+    ``predict_batch`` img/s for each.
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
 after 10, 16 with 11, and 17-19 after 15; 20-24 run last (24's
@@ -237,27 +249,38 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Device milliseconds per call of ``fn``: CUDA events around
-    ``reps`` calls queued behind a sleep kernel, so that the host's
-    launch overhead is hidden where the device is the slower side.
-    Fails without ``torch.cuda._sleep``: the times would then include
-    the host's launches."""
-    sleep = getattr(torch.cuda, "_sleep", None)
-    check(sleep is not None, "torch.cuda._sleep is missing: device times "
-          "would include host launch overhead")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _window(fn, reps: int, sleep_cycles: int) -> tuple:
+    """Device ms per call of ``fn`` over ``reps`` calls queued behind a
+    sleep kernel of ``sleep_cycles``, and whether the host had queued
+    them all before the sleep ended (else the host's launches paced a
+    part of the window)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    sleep(50_000_000)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(reps):
         fn()
+    queued = not start.query()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, queued
+
+
+def device_ms(fn, reps: int, warmup: int = 2,
+              sleep_cycles: int = 50_000_000) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around
+    ``reps`` calls queued behind a sleep kernel of ``sleep_cycles``, so
+    that the host's launch overhead is hidden where the device is the
+    slower side (as long as the host queues the calls within the
+    sleep).  Fails without ``torch.cuda._sleep``: the times would then
+    include the host's launches."""
+    check(getattr(torch.cuda, "_sleep", None) is not None,
+          "torch.cuda._sleep is missing: device times would include host "
+          "launch overhead")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _window(fn, reps, sleep_cycles)[0]
 
 
 def host_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -2169,31 +2192,112 @@ def phase_stream(mods, state, frames, counters, card, dev) -> dict:
 INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
 INT8_CORR = 0.99              # int8 forward vs bf16: correlation, as
 #                               tests/test_rowpack.py holds JAX's
+PORT_KERNELS = ("qconv_kernel", "qfuse_kernel")
 
 
-def qconv_calls(packed, quant_mod, pk_q, x, cfg, dtype, int8_act=False):
-    """The qconv calls of one forward, in order: (QConv, x shape, stride,
-    padding), by a patch on ``packed.qconv`` that calls the real one."""
-    calls = []
-    real = packed.qconv
-
-    def tap(xin, q, stride=1, padding=None):
-        calls.append((q, tuple(xin.shape), stride, padding))
-        return real(xin, q, stride, padding)
-
-    packed.qconv = tap
-    try:
-        with torch.inference_mode():
-            packed.packed_forward(pk_q, x, cfg, dtype, int8_act=int8_act)
-    finally:
-        packed.qconv = real
-    return calls
+def mode_name(e) -> str:
+    """An epilogue's mode: dtype, ReLU, residual kind, ReLU, stores."""
+    if e is None:
+        return "f32-contract"
+    parts = ["bf16" if e.dtype == torch.bfloat16 else "f32"]
+    if e.relu:
+        parts.append("relu")
+    if e.res is not None:
+        parts.append("res-" + ("int8" if e.res.dtype == torch.int8
+                               else "dtype"))
+    if e.relu_after:
+        parts.append("relu")
+    stores = (["store"] if e.store else []) + (
+        [("q" if e.q_rounded else "q-of-f32")] if e.q_inv is not None
+        else [])
+    return "+".join(parts) + ":" + ",".join(stores)
 
 
 def geometry_key(q, xshape, stride) -> tuple:
     """(cout, cin, kh, kw, transposed, H, W, stride): one distinct call."""
     cout, kh, kw, _ = q.kernel.shape
     return (cout, q.cin, kh, kw, q.transposed, xshape[2], xshape[3], stride)
+
+
+def fuse_key(ops, dtype, kw) -> tuple:
+    """One fuse_sum call: shape, dtype, (operand dtype, factor)s, ReLU,
+    stores, and the padded buffer's channels."""
+    t0 = ops[0]
+    b, c = t0.t.shape[:2]
+    h, w = t0.t.shape[2] * t0.factor, t0.t.shape[3] * t0.factor
+    out_q = kw.get("out_q")
+    return ((c, h, w), str(dtype).replace("torch.", ""),
+            tuple((str(o.t.dtype).replace("torch.", ""), o.factor)
+                  for o in ops), bool(kw.get("relu")),
+            bool(kw.get("store", True)), kw.get("q_inv") is not None,
+            None if out_q is None else (out_q.shape[1], kw.get("q_off", 0),
+                                        kw.get("q_zero", 0)))
+
+
+def same_outputs(got, want, what: str) -> None:
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), f"{what}: outputs differ")
+        if g is not None:
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"{what}: differs from plain by "
+                  f"{(g.float() - w.float()).abs().max().item()}")
+
+
+def graph_taps(packed, quant_mod, qfuse_mod, fn, compare: bool,
+               keep: bool = False):
+    """``fn()`` with taps on the graph's ``qconv`` and ``fuse_sum`` that
+    call the kernels and record each call: ``{(geometry, mode): [count,
+    args]}``, ``{fuse key: [count, args]}`` (args of the first call with
+    ``keep``) and the kernels' launches (``fuse_sum``'s include the
+    quantize passes inside ``qconv``).  With ``compare`` every call is
+    also held ``torch.equal`` to its plain version on the same
+    inputs."""
+    qcalls, fcalls = {}, {}
+    real_q, real_f = packed.qconv, packed.fuse_sum
+
+    def tap_q(xin, q, stride=1, padding=None, epilogue=None):
+        got = real_q(xin, q, stride, padding, epilogue=epilogue)
+        key = (geometry_key(q, xin.shape, stride), mode_name(epilogue))
+        ent = qcalls.setdefault(key, [0, None])
+        ent[0] += 1
+        if keep and ent[1] is None:
+            ent[1] = (xin, q, stride, padding, epilogue)
+        if compare:
+            want = quant_mod.qconv_plain(xin, q, stride, padding,
+                                         epilogue=epilogue)
+            same_outputs(got if epilogue else (got,),
+                         want if epilogue else (want,), f"qconv {key}")
+        return got
+
+    def tap_f(ops, dtype, **kw):
+        before = kw["out_q"].clone() if kw.get("out_q") is not None else None
+        got = real_f(ops, dtype, **kw)
+        key = fuse_key(ops, dtype, kw)
+        ent = fcalls.setdefault(key, [0, None])
+        ent[0] += 1
+        if keep and ent[1] is None:
+            ent[1] = (ops, dtype, kw)
+        if compare:
+            want = qfuse_mod.fuse_sum_plain(
+                ops, dtype, **(kw if before is None else
+                               {**kw, "out_q": before}))
+            same_outputs(got, want, f"fuse_sum {key}")
+            if before is not None:
+                check(torch.equal(kw["out_q"], before),
+                      f"fuse_sum {key}: the padded buffer differs")
+        return got
+
+    packed.qconv, packed.fuse_sum = tap_q, tap_f
+    before = quant_mod.qconv.launches, qfuse_mod.fuse_sum.launches
+    try:
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        packed.qconv, packed.fuse_sum = real_q, real_f
+    launches = {"qconv": quant_mod.qconv.launches - before[0],
+                "fuse_sum": qfuse_mod.fuse_sum.launches - before[1]}
+    return qcalls, fcalls, launches
 
 
 def qconv_case(quant_mod, key, b: int, gen, dev):
@@ -2220,167 +2324,222 @@ def qconv_case(quant_mod, key, b: int, gen, dev):
     return x, q, wq
 
 
-def qconv_work(key, b: int, ho: int, wo: int):
-    """Bytes (x and w read once, alpha and bias, the f32 output written
-    once) and operations (2 per multiply-add this input needs: the
-    transposed conv's output reads 2 x 2 of its 4 x 4 taps)."""
-    cout, cin, kh, kw, tr, h, w, _ = key
-    taps = (kh // 2) * (kw // 2) if tr else kh * kw
-    n_ops = 2 * b * ho * wo * cout * taps * cin
-    n_bytes = (b * h * w * cin + cout * kh * kw * cin
-               + 4 * (2 if tr else 1) * cout + 4 * cout
-               + 4 * b * ho * wo * cout)
-    return n_bytes, n_ops
-
-
-def im2col_int8(x, kh: int, kw: int, stride: int, pad: int):
-    """(B*Ho*Wo, kh*kw*Cin) int8 column matrix of an NCHW int8 x (the
-    ``torch._int_mm`` yardstick's input; not the port's path)."""
-    xp = F.pad(x, (pad, pad, pad, pad))
-    b, c, h, w = xp.shape
-    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
-    cols = [xp[:, :, i:i + stride * ho:stride, j:j + stride * wo:stride]
-            for i in range(kh) for j in range(kw)]
-    return torch.cat(cols, 1).permute(0, 2, 3, 1).reshape(b * ho * wo, -1) \
-        .contiguous()
-
-
-def qconv_times(quant_mod, key, b: int, gen, dev) -> dict:
-    """The kernel, its plain version, and the yardsticks the port never
-    calls (cuDNN's bf16 conv of the same shape on the int8 values;
-    ``torch._int_mm`` over an im2col, where it runs), device ms."""
-    cout, cin, kh, kw, tr, h, w, s = key
-    x, q, wq = qconv_case(quant_mod, key, b, gen, dev)
-    stride, pad = (2, 1) if tr else (s, (kh - 1) // 2)
-    with torch.inference_mode():
-        out = quant_mod.qconv(x, q, stride, pad)
-        ho, wo = out.shape[2], out.shape[3]
-        ms = device_ms(lambda: quant_mod.qconv(x, q, stride, pad), 20)
-        plain_ms = device_ms(lambda: quant_mod.qconv_plain(x, q, stride,
-                                                           pad), 3, 1)
-        xb = x.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        wb = wq.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        bb = q.bias.to(torch.bfloat16)
-        if tr:
-            conv = lambda: F.conv_transpose2d(xb, wb, bb, 2, 1)  # noqa: E731
+def random_epilogue(quant_mod, e, y, gen, dev):
+    """An epilogue of ``e``'s mode for a conv whose float32 output is
+    ``y``: random residual (+-127 planted in an int8 one) and scales at
+    which a part of the values clamp."""
+    if e is None:
+        return None
+    cl = torch.channels_last
+    amax = y.abs().amax().clamp_min(1e-3)
+    q_inv = (254.0 / amax).reshape(()) if e.q_inv is not None else None
+    res = res_inv = None
+    if e.res is not None:
+        if e.res.dtype == torch.int8:
+            res = torch.randint(-127, 128, y.shape, generator=gen,
+                                device=dev, dtype=torch.int32).to(torch.int8)
+            res.view(-1)[::7] = 127
+            res.view(-1)[3::7] = -127
+            res_inv = torch.rand((), generator=gen, device=dev) + 0.1
         else:
-            conv = lambda: F.conv2d(xb, wb, bb, s, pad)  # noqa: E731
-        library_ms = device_ms(conv, 20)
-        int_mm_ms = None
-        if not tr:
-            try:
-                cols = im2col_int8(x, kh, kw, s, pad)
-                wm = wq.permute(0, 2, 3, 1).reshape(cout, -1).T
-                int_mm_ms = device_ms(lambda: torch._int_mm(cols, wm), 20)
-            except RuntimeError as exc:       # shapes _int_mm refuses
-                int_mm_ms = f"refused: {str(exc).splitlines()[0][:80]}"
-    n_bytes, n_ops = qconv_work(key, b, ho, wo)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "int_mm_im2col_ms": int_mm_ms,
-            **bound(n_bytes, n_ops, INT8_OPS_PER_S),
-            "tops": n_ops / (ms * 1e9), "shape": list(key[:5]) +
-            [b, h, w, s], "plan": quant_mod.qconv_plan(cin, cout, kh, kw)}
+            res = (torch.randn(y.shape, generator=gen, device=dev) * amax
+                   / 2).to(e.dtype)
+        res = res.contiguous(memory_format=cl)
+    return e._replace(res=res, res_inv=res_inv, q_inv=q_inv)
 
 
-def phase_qconv(quant_mod, packed, pk_q, cfg, dtype, dev) -> dict:
-    """``qconv`` against its plain version at every distinct call of the
-    640 x 640 int8 forward (B = 1, and B = 8 for the one with the most
-    work): ``torch.equal``, and its C plan equal to ``qconv_plan``."""
-    x = torch.randn((1, 3, 640, 640), generator=torch.Generator()
-                    .manual_seed(SEED)).to(dev)
-    calls = qconv_calls(packed, quant_mod, pk_q, x, cfg, dtype)
-    keys = {}
-    for q, xshape, stride, _ in calls:
-        k = geometry_key(q, xshape, stride)
-        keys[k] = keys.get(k, 0) + 1
-    shapes = {k[:5] for k in keys}
-    check(len(calls) == len(pk_q), f"{len(calls)} qconv calls for "
-          f"{len(pk_q)} quantized convs")
+def tie_case(quant_mod, dev):
+    """A 1 x 1 conv whose outputs are the input's channel 0 exactly, or
+    channel 1 minus channel 0 (alpha 1, bias 0, weights +-1), over every
+    int8 value, with an int8
+    residual at res_inv 0.5 (sums on bf16 ties: odd integers past 256)
+    and int8 stores at q_inv 0.5 (on +-126.5, +-127.5 and every other
+    half-integer before the clamp)."""
+    v = torch.arange(-128, 128, device=dev).clamp_min(-127).to(torch.int8)
+    x = torch.zeros((1, 16, 16, 16), dtype=torch.int8, device=dev)
+    x[..., 0] = v.view(16, 16)
+    x[..., 1] = v.flip(0).view(16, 16)
+    w = torch.zeros((48, 16, 1, 1), dtype=torch.int8, device=dev)
+    w[0::2, 0] = 1
+    w[1::2, 0] = -1
+    w[5, 1] = 1
+    kernel, c = quant_mod.kernel_layout(w)
+    q = quant_mod.QConv(kernel, torch.zeros(48, device=dev),
+                        torch.ones(48, device=dev),
+                        torch.tensor(1.0, device=dev), c, False)
+    res = x.permute(0, 3, 1, 2)[:, :1].repeat(1, 48, 1, 1).flip(2) \
+        .contiguous(memory_format=torch.channels_last)
+    half = torch.tensor(0.5, device=dev)
+    E = quant_mod.Epilogue
+    modes = [E(res=res, res_inv=half, q_inv=half),
+             E(res=res, res_inv=half, relu_after=True, q_inv=half),
+             E(res=res.to(torch.bfloat16).mul(2).add(1).contiguous(
+                 memory_format=torch.channels_last), q_inv=half),
+             E(q_inv=half, q_rounded=False), E(relu=True, q_inv=half),
+             E(torch.float32, res=res, res_inv=half, q_inv=half)]
+    return x.permute(0, 3, 1, 2), q, modes
+
+
+def phase_qconv(quant_mod, qfuse_mod, packed, pk_q, cfg, dtype, dev) -> dict:
+    """Both kernels against their plain versions: every ``qconv`` and
+    ``fuse_sum`` call of the 640 x 640 int8 and int8-act forwards at B = 1
+    and 8, in the mode the graph uses there, on the forward's own inputs;
+    each (geometry, mode) on random int8 inputs with +-127 in every row
+    and random residuals, and the f32 contract at each geometry at B = 1
+    and 8; values
+    on bf16 ties and the clamp's edges; the C plan of every geometry
+    equal to ``qconv_plan``.  All ``torch.equal``."""
+    keys, fkeys, per_forward = {}, {}, {}
+    for b in (1, 8):
+        x = torch.randn((b, 3, 640, 640), generator=torch.Generator()
+                        .manual_seed(SEED + b)).to(dev)
+        for ia in (False, True):
+            name = "int8_act" if ia else "int8"
+            qc, fc, launches = graph_taps(
+                packed, quant_mod, qfuse_mod, lambda: packed.packed_forward(
+                    pk_q, x, cfg, dtype, int8_act=ia), compare=True)
+            nq = sum(v[0] for v in qc.values())
+            check(nq == len(pk_q) == launches["qconv"],
+                  f"{name}: {nq} qconv calls, {launches} launches for "
+                  f"{len(pk_q)} quantized convs")
+            per_forward[f"{name}_b{b}"] = {
+                **launches, "fuse_sum_calls": sum(v[0] for v in fc.values())}
+            if b == 1:
+                for k, v in qc.items():
+                    keys.setdefault(k, {})[name] = v[0]
+                for k, v in fc.items():
+                    fkeys.setdefault(k, {})[name] = v[0]
+    geos = sorted({k[0] for k in keys})
+    shapes = {g[:5] for g in geos}
     # 25 conv weight shapes and the transposed conv's
     check(len(shapes) == 26, f"{len(shapes)} distinct weight shapes")
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
-    largest = max(keys, key=lambda k: k[0] * k[1] * k[2] * k[3] * k[5]
-                  * k[6] // k[7] ** 2)
-    cases = [(k, 1) for k in sorted(keys)] + [(largest, 8)]
-    for key, b in cases:
-        cout, cin, kh, kw, tr, h, w, s = key
-        x, q, _ = qconv_case(quant_mod, key, b, gen, dev)
-        stride, pad = (2, 1) if tr else (s, (kh - 1) // 2)
-        with torch.inference_mode():
-            got = quant_mod.qconv(x, q, stride, pad)
-            torch.cuda.synchronize()
-            want = quant_mod.qconv_plain(x, q, stride, pad)
-        check(torch.equal(got, want), f"qconv differs from plain at {key} "
-              f"B={b}: max {(got - want).abs().max().item()}")
-        check(quant_mod.qconv_plan_c(cin, cout, kh, kw)
-              == quant_mod.qconv_plan(cin, cout, kh, kw),
-              f"qconv plan at {key}")
-    print(f"qconv: torch.equal to plain at {len(keys)} call geometries "
-          f"({len(shapes)} weight shapes) at B=1 and at B=8 for {largest}; "
-          f"{len(calls)} calls a forward", flush=True)
-    return {"geometries": len(keys), "shapes": len(shapes),
-            "calls": len(calls), "by_key": keys, "max_abs_err": 0.0}
+    n_random = 0
+    with torch.inference_mode():
+        for geo in geos:
+            cout, cin, kh, kw, tr, h, w, s = geo
+            stride, pad = (2, 1) if tr else (s, (kh - 1) // 2)
+            for b in (1, 8):
+                x, q, _ = qconv_case(quant_mod, geo, b, gen, dev)
+                same_outputs((quant_mod.qconv(x, q, stride, pad),),
+                             (quant_mod.qconv_plain(x, q, stride, pad),),
+                             f"qconv {geo} B={b} f32 contract")
+                del x
+                plan = quant_mod.qconv_plan(b, h, w, cin, cout, kh, kw,
+                                            stride, pad, tr)
+                check(plan is not None and quant_mod.qconv_plan_c(
+                    b, h, w, cin, cout, kh, kw, stride, pad, tr) == plan,
+                    f"qconv plan at {geo} B={b}")
+        modes = {}
+        for (geo, mode), _ in sorted(keys.items()):
+            modes.setdefault(mode, []).append(geo)
+        # each mode at every geometry the graph runs it at, random inputs
+        eps = {}
+        qc, _, _ = graph_taps(packed, quant_mod, qfuse_mod, lambda: [
+            packed.packed_forward(pk_q, torch.zeros(
+                (1, 3, 64, 64), device=dev), cfg, dtype, int8_act=ia)
+            for ia in (False, True)], compare=False, keep=True)
+        for (_, mode), (_, args) in qc.items():
+            eps.setdefault(mode, args[4])
+        for mode, geo_list in sorted(modes.items()):
+            for geo in geo_list:
+                cout, cin, kh, kw, tr, h, w, s = geo
+                x, q, _ = qconv_case(quant_mod, geo, 1, gen, dev)
+                stride, pad = (2, 1) if tr else (s, (kh - 1) // 2)
+                y = quant_mod.qconv_plain(x, q, stride, pad)
+                e = random_epilogue(quant_mod, eps[mode], y, gen, dev)
+                same_outputs(quant_mod.qconv(x, q, stride, pad, epilogue=e),
+                             quant_mod.qconv_plain(x, q, stride, pad,
+                                                   epilogue=e),
+                             f"qconv {geo} {mode} on random inputs")
+                n_random += 1
+        x, q, tie_modes = tie_case(quant_mod, dev)
+        seen = set()
+        for e in tie_modes:
+            want = quant_mod.qconv_plain(x, q, 1, 0, epilogue=e)
+            same_outputs(quant_mod.qconv(x, q, 1, 0, epilogue=e), want,
+                         f"qconv ties {mode_name(e)}")
+            seen |= set(want[1].unique().tolist())
+        check({-127, -126, 126, 127} <= seen, f"tie case int8 {seen}")
+    print(f"qconv: torch.equal to plain at every call of both forwards at "
+          f"B=1 and 8 ({per_forward}), {len(geos)} call geometries "
+          f"({len(shapes)} weight shapes) x {len(modes)} modes, {n_random} "
+          f"random-input cases, the f32 contract at each geometry at B=1 "
+          f"and 8, ties; "
+          f"C plans equal; fuse_sum: every call of both forwards "
+          f"({len(fkeys)} distinct) equal to plain", flush=True)
+    return {"geometries": len(geos), "shapes": len(shapes),
+            "modes": sorted(modes), "random_cases": n_random,
+            "per_forward": per_forward, "by_key": keys, "fuse_keys": fkeys,
+            "max_abs_err": 0.0}
 
 
-def patched_plain(packed, quant_mod, fn):
-    """``fn()`` with the graph's ``qconv`` replaced by its plain version
-    (on the card, float64 convolutions of the int8 values)."""
-    real = packed.qconv
-    packed.qconv = quant_mod.qconv_plain
+def patched_plain(packed, quant_mod, qfuse_mod, fn):
+    """``fn()`` with the graph's kernels replaced by their plain
+    versions: the composition of PyTorch ops the CPU runs (float64
+    cuDNN convs of the int8 values, then the epilogues' and fuse sums'
+    ops)."""
+    real = packed.qconv, packed.fuse_sum
+    packed.qconv, packed.fuse_sum = (quant_mod.qconv_plain,
+                                     qfuse_mod.fuse_sum_plain)
     try:
         return fn()
     finally:
-        packed.qconv = real
+        packed.qconv, packed.fuse_sum = real
 
 
-def phase_int8_forwards(packed, quant_mod, pred8, pk_bf16, cfg, dev) -> dict:
-    """The int8 and int8-act forwards at B = 8 on 640 x 640 inputs:
-    bitwise equal to the same forward with the plain ``qconv`` patched
-    in; finite and correlated > 0.99 with the bf16 packed forward (the
-    worst relative error printed, as JAX's test does)."""
-    x = torch.randn((8, 3, 640, 640), generator=torch.Generator()
-                    .manual_seed(SEED + 1)).to(dev)
+def phase_int8_forwards(packed, quant_mod, qfuse_mod, pred8, pk_bf16, cfg,
+                        dev) -> dict:
+    """The int8 and int8-act forwards at B = 1 and 8 on 640 x 640 inputs:
+    bitwise equal to the same forwards on the plain composition; finite
+    and correlated > 0.99 with the bf16 packed forward (the worst
+    relative error printed, as JAX's test does)."""
     out = {}
     dtype = pred8.dtype
-    with torch.inference_mode():
-        ref = packed.packed_forward(pk_bf16, x, cfg, dtype)
-        for ia in (False, True):
-            name = "int8_act" if ia else "int8"
+    for bs in (1, 8):
+        x = torch.randn((bs, 3, 640, 640), generator=torch.Generator()
+                        .manual_seed(SEED + 1)).to(dev)
+        with torch.inference_mode():
+            ref = packed.packed_forward(pk_bf16, x, cfg, dtype)
+            for ia in (False, True):
+                name = f"{'int8_act' if ia else 'int8'}_b{bs}"
 
-            def fwd():
-                return packed.packed_forward(pred8.int8_params, x, cfg,
-                                             dtype, int8_act=ia)
+                def fwd():
+                    return packed.packed_forward(pred8.int8_params, x, cfg,
+                                                 dtype, int8_act=ia)
 
-            got = fwd()
-            want = patched_plain(packed, quant_mod, fwd)
-            worst, corr = 0.0, 1.0
-            for g, w, r in zip(got, want, ref):
-                check(torch.equal(g, w), f"{name} forward differs from the "
-                      f"plain-qconv forward by "
-                      f"{(g.float() - w.float()).abs().max().item()}")
-                g, r = g.float(), r.float()
-                check(bool(torch.isfinite(g).all()), f"{name}: non-finite")
-                worst = max(worst, ((g - r).abs().max()
-                                    / r.abs().max().clamp_min(1e-6)).item())
-                c = torch.corrcoef(torch.stack([g.flatten(),
-                                                r.flatten()]))[0, 1].item()
-                corr = min(corr, c)
-            check(corr > INT8_CORR, f"{name}: correlation {corr} with bf16")
-            out[name] = {"worst_rel_err": worst, "min_corr": corr}
-    print(f"int8 forwards B=8: == plain-qconv forwards bitwise; vs bf16 "
-          f"{out}", flush=True)
+                got = fwd()
+                want = patched_plain(packed, quant_mod, qfuse_mod, fwd)
+                worst, corr = 0.0, 1.0
+                for g, w, r in zip(got, want, ref):
+                    check(torch.equal(g, w), f"{name} forward differs from "
+                          f"the plain composition by "
+                          f"{(g.float() - w.float()).abs().max().item()}")
+                    g, r = g.float(), r.float()
+                    check(bool(torch.isfinite(g).all()),
+                          f"{name}: non-finite")
+                    worst = max(worst, ((g - r).abs().max()
+                                        / r.abs().max().clamp_min(1e-6))
+                                .item())
+                    c = torch.corrcoef(torch.stack([g.flatten(),
+                                                    r.flatten()]))[0, 1]
+                    corr = min(corr, c.item())
+                check(corr > INT8_CORR,
+                      f"{name}: correlation {corr} with bf16")
+                out[name] = {"worst_rel_err": worst, "min_corr": corr}
+    print(f"int8 forwards B=1 and 8: == the plain compositions bitwise; vs "
+          f"bf16 {out}", flush=True)
     return out
 
 
 def phase_int8_predictors(PosePredictor, hrnet, quant_mod, state, scales,
-                          counters, n_q: int, dev) -> dict:
+                          counters, n_q: int, n_f: dict, dev) -> dict:
     """``PosePredictor(packed=True, int8=True)`` and ``int8_act=True``
     from the calibrated scales, the counters set to 0 just before each
     call and read just after: ``predict_batch`` of 8 launches ``qconv``
-    once a quantized conv, ``nms_topk`` and ``group_lockstep`` once;
-    ``predict`` of one image is routed to bf16 (no ``qconv``); with
+    once a quantized conv, ``fuse_sum`` as often as in one forward of the
+    mode (``n_f``), ``nms_topk`` and ``group_lockstep`` once; ``predict`` of
+    one image is routed to bf16 (neither int8 kernel); with
     ``int8_min_batch=0`` it is quantized again."""
     rng = np.random.default_rng(SEED + 24)
     square = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
@@ -2406,12 +2565,14 @@ def phase_int8_predictors(PosePredictor, hrnet, quant_mod, state, scales,
         calls["predict_1_min_batch_0"] = read(counters)
         b8, p1, p0 = (calls["predict_batch_8"], calls["predict_1"],
                       calls["predict_1_min_batch_0"])
-        check(b8["qconv"] == n_q and b8["nms_topk"] == 1
-              and b8["match_by_tag_lockstep"] == 1,
+        check(b8["qconv"] == n_q and b8["fuse_sum"] == n_f[name]
+              and b8["nms_topk"] == 1 and b8["match_by_tag_lockstep"] == 1,
               f"{name} predict_batch launches {b8}")
-        check(p1["qconv"] == 0 and p1["nms_topk"] == 1,
+        check(p1["qconv"] == 0 and p1["fuse_sum"] == 0
+              and p1["nms_topk"] == 1,
               f"{name} predict routed to bf16: launches {p1}")
-        check(p0["qconv"] == n_q, f"{name} min_batch 0: launches {p0}")
+        check(p0["qconv"] == n_q and p0["fuse_sum"] == n_f[name],
+              f"{name} min_batch 0: launches {p0}")
         out[name] = calls
         del pred
         torch.cuda.empty_cache()
@@ -2493,8 +2654,8 @@ def phase_int8_stream(rt_mod, model, frames, counters, card, dev) -> dict:
     launches = read(counters)
     check(stats["routed_bf16"] is True and stats["path"] == "int8",
           f"stream stats {stats}")
-    check(launches["qconv"] == 0 and launches["nms_topk"] == 16,
-          f"int8 stream launches {launches}")
+    check(launches["qconv"] == 0 and launches["fuse_sum"] == 0
+          and launches["nms_topk"] == 16, f"int8 stream launches {launches}")
     same_people(results, [pred.predict(frames[i % len(frames)])
                           for i in range(16)], "int8 stream")
     print(json.dumps(stats))
@@ -2503,16 +2664,199 @@ def phase_int8_stream(rt_mod, model, frames, counters, card, dev) -> dict:
     return {**stats, "launches": launches}
 
 
-def int8_times(packed, quant_mod, pred8, pk_bf16, cfg, by_key, dev) -> dict:
-    """Device ms of the int8, int8-act and bf16 packed forwards at B = 1
-    and 8, and ``qconv`` per call geometry at B = 8 and 1 (summed over a
-    forward's calls)."""
+def im2col_int8(x, kh: int, kw: int, stride: int, pad: int):
+    """(B*Ho*Wo, kh*kw*Cin) int8 column matrix of an NCHW int8 x (the
+    ``torch._int_mm`` yardstick's input; not the port's path)."""
+    xp = F.pad(x, (pad, pad, pad, pad))
+    b, c, h, w = xp.shape
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    cols = [xp[:, :, i:i + stride * ho:stride, j:j + stride * wo:stride]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(cols, 1).permute(0, 2, 3, 1).reshape(b * ho * wo, -1) \
+        .contiguous()
+
+
+def qconv_work(geo, b: int, ho: int, wo: int, e) -> tuple:
+    """Bytes (x and w read once, alpha and bias, the residual read once,
+    each output written once in its type) and operations (2 per
+    multiply-add this input needs: the transposed conv's output reads
+    2 x 2 of its 4 x 4 taps)."""
+    cout, cin, kh, kw, tr, h, w, _ = geo
+    taps = (kh // 2) * (kw // 2) if tr else kh * kw
+    n_out = b * ho * wo * cout
+    n_ops = 2 * n_out * taps * cin
+    n_bytes = (b * h * w * cin + cout * kh * kw * cin
+               + 4 * (2 if tr else 1) * cout + 4 * cout)
+    if e is None:
+        n_bytes += 4 * n_out
+    else:
+        dsz = 2 if e.dtype == torch.bfloat16 else 4
+        if e.res is not None:
+            n_bytes += n_out * (1 if e.res.dtype == torch.int8 else dsz)
+        n_bytes += n_out * ((dsz if e.store else 0)
+                            + (1 if e.q_inv is not None else 0))
+    return n_bytes, n_ops
+
+
+def qconv_times(quant_mod, geo, args, b: int, yardsticks: bool) -> dict:
+    """The kernel on a forward's own inputs in the graph's mode, its
+    plain version, and (``yardsticks``) the calls the port never makes:
+    cuDNN's bf16 conv of the same shape on the int8 values and
+    ``torch._int_mm`` over an im2col where it runs; device ms."""
+    xin, q, stride, pad, e = args
+    cout, cin, kh, kw, tr, h, w, s = geo
+    pad = (kh - 1) // 2 if pad is None else pad
     out = {}
+    with torch.inference_mode():
+        y = quant_mod.qconv(xin, q, stride, pad, epilogue=e)
+        if e is not None:
+            y = y[0] if y[0] is not None else y[1]
+        ho, wo = y.shape[2], y.shape[3]
+        out["ms"] = device_ms(lambda: quant_mod.qconv(
+            xin, q, stride, pad, epilogue=e), 20)
+        out["plain_ms"] = device_ms(lambda: quant_mod.qconv_plain(
+            xin, q, stride, pad, epilogue=e), 3, 1)
+        if yardsticks:
+            x8 = xin if xin.dtype == torch.int8 else \
+                quant_mod.quantize_act(xin, q.inv_sx)
+            wq = q.kernel[..., :q.cin].permute(0, 3, 1, 2)
+            xb = x8.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            bb = q.bias.to(torch.bfloat16)
+            if tr:
+                wb = wq.flip(2, 3).permute(1, 0, 2, 3).to(
+                    torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+                conv = lambda: F.conv_transpose2d(  # noqa: E731
+                    xb, wb, bb, 2, 1)
+            else:
+                wb = wq.to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+                conv = lambda: F.conv2d(xb, wb, bb, s, pad)  # noqa: E731
+            out["library_ms"] = device_ms(conv, 20)
+            out["int_mm_im2col_ms"] = None
+            if not tr:
+                try:
+                    cols = im2col_int8(x8, kh, kw, s, pad)
+                    wm = wq.permute(0, 2, 3, 1).reshape(cout, -1).T
+                    out["int_mm_im2col_ms"] = device_ms(
+                        lambda: torch._int_mm(cols, wm), 20)
+                except RuntimeError as exc:     # shapes _int_mm refuses
+                    out["int_mm_im2col_ms"] = \
+                        f"refused: {str(exc).splitlines()[0][:80]}"
+    n_bytes, n_ops = qconv_work(geo, b, ho, wo, e)
+    plan = quant_mod.qconv_plan(b, h, w, cin, cout, kh, kw, stride, pad, tr)
+    return {**out, **bound(n_bytes, n_ops, INT8_OPS_PER_S),
+            "tops": n_ops / (out["ms"] * 1e9),
+            "gb_per_s": n_bytes / (out["ms"] * 1e6),
+            "shape": list(geo[:5]) + [b, h, w, s],
+            "plan": {k: plan[k] for k in ("bn", "tiles_m", "tiles_n",
+                                          "phases", "nsteps", "splits")}}
+
+
+def fuse_times(qfuse_mod, args) -> dict:
+    """One fuse_sum call on a forward's own inputs: device ms against
+    its bytes bound (each operand read once at its own size, the outputs
+    written once)."""
+    ops, dtype, kw = args
+    b, c = ops[0].t.shape[:2]
+    h, w = ops[0].t.shape[2] * ops[0].factor, \
+        ops[0].t.shape[3] * ops[0].factor
+    n = b * c * h * w
+    n_bytes = sum(o.t.numel() * o.t.element_size() for o in ops)
+    n_bytes += n * (dtype.itemsize if kw.get("store", True) else 0)
+    if kw.get("q_inv") is not None:
+        n_bytes += b * h * w * (c + kw.get("q_zero", 0))
+    with torch.inference_mode():
+        ms = device_ms(lambda: qfuse_mod.fuse_sum(ops, dtype, **kw), 20)
+        plain_ms = device_ms(lambda: qfuse_mod.fuse_sum_plain(
+            ops, dtype, **kw), 3, 1)
+    return {"ms": ms, "plain_ms": plain_ms, **bound(n_bytes, 0),
+            "gb_per_s": n_bytes / (ms * 1e6)}
+
+
+def nonport_kernels(fn, quant_mod, qfuse_mod) -> dict:
+    """The CUDA kernels of one ``fn()`` under ``torch.profiler`` that are
+    not the port's two int8 kernels, by name.  A profile can miss the
+    kernels of its first moments (seen on the H100: the input's cast
+    and six port kernels), so ``fn`` runs once in a warm-up cycle
+    and is read in the one active cycle after it.  Fails unless the
+    profile holds exactly the port kernels that the launch counters
+    count in that cycle and, beside them, only ``fn``'s input cast."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            before = quant_mod.qconv.launches + qfuse_mod.fuse_sum.launches
+            fn()
+            torch.cuda.synchronize()
+            counted = (quant_mod.qconv.launches
+                       + qfuse_mod.fuse_sum.launches - before)
+            prof.step()
+    names = {}
+    n_port = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith("ProfilerStep"):
+            continue
+        if any(k in e.name for k in PORT_KERNELS):
+            n_port += 1
+        else:
+            names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+    check(n_port == counted, f"the profile holds {n_port} port kernels, "
+          f"the counters {counted}: an incomplete profile")
+    check(sum(names.values()) == 1 and all("copy" in k for k in names),
+          f"non-port kernels besides the input's cast: {names}")
+    return {"port_kernels": n_port, "counted": counted,
+            "other_kernels": sum(names.values()), "other": names}
+
+
+def forward_ms(fn, windows: int = 3) -> dict:
+    """A forward's device ms, the median of ``windows`` windows of one
+    call behind a sleep of ~0.2 s (``window_ms``).  A window is the
+    device's own time where the host had queued it whole before the
+    sleep ended (``queued``); where it had not, the host blocked on a
+    full launch queue (the bf16 forwards: cuDNN's and PyTorch's
+    launches) and may have paced the rest, so ``device_ms`` is then the
+    median replay of the forward captured in a CUDA graph (``graph_ms``,
+    one launch: the same kernels with shorter gaps between them)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    runs = [_window(fn, 1, 4 * 10 ** 8) for _ in range(windows)]
+    out = {"window_ms": sorted(r[0] for r in runs)[windows // 2],
+           "queued": all(r[1] for r in runs)}
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm the side stream
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    reps = [_window(graph.replay, 1, 4 * 10 ** 8)[0]
+            for _ in range(windows)]
+    out["graph_ms"] = sorted(reps)[windows // 2]
+    del graph
+    out["device_ms"] = out["window_ms"] if out["queued"] \
+        else out["graph_ms"]
+    return out
+
+
+def int8_times(packed, quant_mod, qfuse_mod, pred8, pk_bf16, cfg,
+               dev) -> dict:
+    """Device ms of the int8, int8-act and bf16 packed forwards at B = 1
+    and 8; the non-port kernels in one int8 and int8-act forward; then
+    ``qconv`` per (call geometry, mode) and ``fuse_sum`` per distinct
+    call at B = 8 and 1 on the forwards' own inputs (each summed over a
+    forward's calls in the rows)."""
+    out, prof, per, fper = {}, {}, {}, {}
+    dt = pred8.dtype
     for bs in (1, 8):
         x = torch.randn((bs, 3, 640, 640), generator=torch.Generator()
                         .manual_seed(bs)).to(dev).contiguous(
             memory_format=torch.channels_last)
-        dt = pred8.dtype
         runs = {"bf16": lambda: packed.packed_forward(pk_bf16, x, cfg, dt),
                 "int8": lambda: packed.packed_forward(pred8.int8_params, x,
                                                       cfg, dt),
@@ -2520,43 +2864,95 @@ def int8_times(packed, quant_mod, pred8, pk_bf16, cfg, by_key, dev) -> dict:
                     pred8.int8_params, x, cfg, dt, int8_act=True)}
         with torch.inference_mode():
             for name, fn in runs.items():
-                out[f"{name}_bs{bs}"] = {"device_ms": device_ms(fn, 5),
+                out[f"{name}_bs{bs}"] = {**forward_ms(fn),
                                          "host_ms": host_ms(fn, 3)}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
-    per = {}
-    for b in (8, 1):
-        rows = []
-        for key, n in sorted(by_key.items()):
-            t = qconv_times(quant_mod, key, b, gen, dev)
-            rows.append({**t, "calls": n})
-        per[b] = rows
-    print(f"int8 forward ms: {out}", flush=True)
-    return {"forward": out, "per_shape": per}
+            if bs == 8:
+                for name in ("int8", "int8_act"):
+                    prof[name] = nonport_kernels(runs[name], quant_mod,
+                                                 qfuse_mod)
+        rows, frows = [], []
+        for ia in (False, True):
+            qc, fc, _ = graph_taps(packed, quant_mod, qfuse_mod, lambda: (
+                packed.packed_forward(pred8.int8_params, x, cfg, dt,
+                                      int8_act=ia)), compare=False,
+                keep=True)
+            for (geo, mode), (n, args) in sorted(qc.items()):
+                rows.append({**qconv_times(quant_mod, geo, args, bs,
+                                           yardsticks=not ia),
+                             "mode": mode, "forward": "int8_act" if ia
+                             else "int8", "calls": n})
+            for key, (n, args) in sorted(fc.items(), key=str):
+                frows.append({**fuse_times(qfuse_mod, args),
+                              "key": str(key), "forward": "int8_act" if ia
+                              else "int8", "calls": n})
+            del qc, fc
+            torch.cuda.empty_cache()
+        per[bs], fper[bs] = rows, frows
+    print(f"int8 forward ms: {out}; non-port kernels a forward: "
+          f"{ {k: v['other_kernels'] for k, v in prof.items()} }",
+          flush=True)
+    return {"forward": out, "nonport": prof, "per_shape": per,
+            "per_fuse": fper}
+
+
+def _total(rows, forward: str, keys=("ms", "plain_ms", "bound_ms")) -> dict:
+    """A forward's sum of (time x calls) over its rows, and what bounds
+    most of its calls."""
+    rows = [r for r in rows if r["forward"] == forward]
+    agg = {k: sum(r[k] * r["calls"] for r in rows) for k in keys}
+    by_ops = sum(r["calls"] for r in rows if r["bound_by"] == "operations")
+    return {**agg, "bound_by": "operations" if by_ops * 2 > sum(
+        r["calls"] for r in rows) else "bytes"}
 
 
 def qconv_row(times, n_launches: int, err: float, ptxas) -> dict:
     """The ``kernels`` row of ``qconv``: each time summed over one 640 x
-    640 forward's calls (a geometry's time x its calls) at B = 8, and at
-    B = 1 under ``at_b1``; the rows per geometry under ``per_shape``."""
-    def total(rows):
-        agg = {k: sum(r[k] * r["calls"] for r in rows)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        by_ops = sum(r["calls"] for r in rows
-                     if r["bound_by"] == "operations")
-        return {**agg, "bound_by": "operations" if by_ops * 2 > sum(
-            r["calls"] for r in rows) else "bytes"}
+    640 int8 forward's calls (a (geometry, mode)'s time x its calls) at
+    B = 8, at B = 1 under ``at_b1`` and int8-act's under ``int8_act``;
+    the rows per (geometry, mode) under ``per_shape``.  ``library_ms``:
+    one cuDNN bf16 conv of each call's shape, summed the same way."""
+    b8, b1 = times["per_shape"][8], times["per_shape"][1]
+    lib = {b: sum(r["library_ms"] * r["calls"] for r in rows
+                  if r["forward"] == "int8")
+           for b, rows in ((8, b8), (1, b1))}
     kern = {k.split(": ", 1)[1]: v for k, v in ptxas.items()
             if k.startswith("qconv: ")}
     return {"name": "qconv", "route": "cuda",
             "source": "rtpe_tpu_torch/csrc/qconv.cu",
             "replaces": "rtpe_tpu/ops/quant.py:68 (qconv: XLA's s8 "
-                        "conv_general_dilated, not a Pallas kernel)",
+                        "conv_general_dilated and the fused epilogue of "
+                        "rtpe_tpu/models/hrnet_packed.py; not a Pallas "
+                        "kernel)",
             "launches": n_launches, "path": "PosePredictor(int8=True)"
             ".predict_batch(8 images)", "max_abs_err": err,
-            **total(times["per_shape"][8]),
+            **_total(b8, "int8"), "library_ms": lib[8],
             "library": "cuDNN bf16 conv of the same shape, one a call",
-            "at_b1": total(times["per_shape"][1]),
+            "at_b1": {**_total(b1, "int8"), "library_ms": lib[1]},
+            "int8_act": {"b8": _total(b8, "int8_act"),
+                         "b1": _total(b1, "int8_act")},
             "per_shape": times["per_shape"], "ptxas": kern}
+
+
+def qfuse_row(times, n_launches: int, ptxas) -> dict:
+    """The ``kernels`` row of ``qfuse``: each time summed over one int8
+    forward's calls at B = 8 (B = 1 under ``at_b1``, int8-act's under
+    ``int8_act``); no one PyTorch call computes it."""
+    b8, b1 = times["per_fuse"][8], times["per_fuse"][1]
+    kern = {k.split(": ", 1)[1]: v for k, v in ptxas.items()
+            if k.startswith("qfuse: ")}
+    return {"name": "qfuse", "route": "cuda",
+            "source": "rtpe_tpu_torch/csrc/qfuse.cu",
+            "replaces": "rtpe_tpu/models/hrnet_packed.py:525 (_module's "
+                        "fuse sum, an XLA fusion) and "
+                        "rtpe_tpu/ops/quant.py:61 (quantize_act); not "
+                        "Pallas kernels",
+            "launches": n_launches, "path": "PosePredictor(int8=True)"
+            ".predict_batch(8 images)", "max_abs_err": 0.0,
+            **_total(b8, "int8"), "library_ms": None,
+            "at_b1": _total(b1, "int8"),
+            "int8_act": {"b8": _total(b8, "int8_act"),
+                         "b1": _total(b1, "int8_act")},
+            "per_call": times["per_fuse"], "ptxas": kern}
 
 
 def int8_end_to_end(PosePredictor, hrnet, state, scales, dev) -> dict:
@@ -2613,6 +3009,7 @@ def main() -> None:
         from rtpe_tpu_torch.io import (export_serving_artifact,
                                        jax_variables_from_state_dict,
                                        load_serving_artifact)
+        from rtpe_tpu_torch.ops import qfuse as qfuse_mod
         from rtpe_tpu_torch.ops import quant as quant_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
@@ -2633,7 +3030,8 @@ def main() -> None:
                                            dev)
     counters = (nms_mod.nms_topk, grp_mod.match_by_tag_lockstep,
                 mega_mod.match_by_tag_kernel, lap_mod.lap_rect,
-                blk_mod.basicblock_chain, quant_mod.qconv)
+                blk_mod.basicblock_chain, quant_mod.qconv,
+                qfuse_mod.fuse_sum)
     pred, images, launches = phase_main_path(
         PosePredictor, hrnet.PoseHigherHRNet, hrnet.w48_config, state,
         counters, dev)
@@ -2693,33 +3091,40 @@ def main() -> None:
     calib_s = time.perf_counter() - t0
     scales = pred8.act_scales
     n_q = len(pred8.int8_params)
-    qinfo = phase_qconv(quant_mod, packed_mod, pred8.int8_params, w48,
-                        pred8.dtype, dev)
-    int8_fwd = phase_int8_forwards(packed_mod, quant_mod, pred8,
+    qinfo = phase_qconv(quant_mod, qfuse_mod, packed_mod, pred8.int8_params,
+                        w48, pred8.dtype, dev)
+    n_f = {m: qinfo["per_forward"][f"{m}_b8"]["fuse_sum"]
+           for m in ("int8", "int8_act")}
+    int8_fwd = phase_int8_forwards(packed_mod, quant_mod, qfuse_mod, pred8,
                                    pred8.packed_params, w48, dev)
     int8_served = phase_int8_predictors(PosePredictor, hrnet, quant_mod,
-                                        state, scales, counters, n_q, dev)
+                                        state, scales, counters, n_q, n_f,
+                                        dev)
     exported = phase_int8_export(
         PosePredictor, hrnet, (jax_variables_from_state_dict,
                                export_serving_artifact,
                                load_serving_artifact), state, scales, dev)
     stream_int8 = phase_int8_stream(rt_mod, model, frames, counters, card,
                                     dev)
-    times8 = int8_times(packed_mod, quant_mod, pred8, pred8.packed_params,
-                        w48, qinfo["by_key"], dev)
+    times8 = int8_times(packed_mod, quant_mod, qfuse_mod, pred8,
+                        pred8.packed_params, w48, dev)
     del pred8
     torch.cuda.empty_cache()
-    kernels.append(qconv_row(times8,
-                             int8_served["int8"]["predict_batch_8"]["qconv"],
-                             qinfo["max_abs_err"], build["ptxas"]))
+    served8 = int8_served["int8"]["predict_batch_8"]
+    kernels.append(qconv_row(times8, served8["qconv"], qinfo["max_abs_err"],
+                             build["ptxas"]))
+    kernels.append(qfuse_row(times8, served8["fuse_sum"], build["ptxas"]))
     e2e_int8 = int8_end_to_end(PosePredictor, hrnet, state, scales, dev)
     int8 = {"calibration_s": calib_s, "n_scales": len(scales),
-            "quantized_convs": n_q,
+            "quantized_convs": n_q, "fuse_sum_launches_a_forward": n_f,
             "qconv_check": {**qinfo, "by_key": [
-                [*k, n] for k, n in sorted(qinfo["by_key"].items())]},
-            "forwards_b8": int8_fwd, "predictor_launches": int8_served,
+                [*k[0], k[1], n] for k, n in sorted(qinfo["by_key"].items())],
+                "fuse_keys": [[str(k), n] for k, n in
+                              qinfo["fuse_keys"].items()]},
+            "forwards": int8_fwd, "predictor_launches": int8_served,
             "export": exported, "validate": validate_int8,
             "stream": stream_int8, "forward_ms": times8["forward"],
+            "nonport_kernels": times8["nonport"],
             "predict_batch_8": e2e_int8}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],

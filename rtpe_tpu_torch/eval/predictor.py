@@ -43,8 +43,9 @@ _LATER = {
 # Batches smaller than this are served through the bf16 packed params
 # when int8 is on: the JAX predictor's default, the crossover measured on
 # its TPU (rtpe_tpu/eval/predictor.py:40-47).  Kept so that both packages
-# route alike; on the H100 int8 is slower than bf16 at batch 1 and 8 too
-# (PERF.md).
+# route alike; it suits the H100 too: there the int8 forward beats the
+# bf16 one on the device at batch 8, while at batch 1 both are bound by
+# their kernel launches on the host (PERF.md).
 INT8_MIN_BATCH_DEFAULT = 8
 
 

@@ -24,14 +24,16 @@ states the tolerance this costs against the kernel path.
 
 import json
 import os
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.blocks import basicblock_chain
-from ..ops.quant import (QConv, kernel_layout, qconv, quantize_act,
-                         quantize_tconv_weight, quantize_weight)
+from ..ops.qfuse import Operand, fuse_sum, int8_buffer
+from ..ops.quant import (Epilogue, QConv, epilogue_plain, kernel_layout,
+                         qconv, quantize_tconv_weight, quantize_weight)
 from ..ops.fold import fold_bn
 from .hrnet import HRNetConfig, w48_config
 
@@ -296,10 +298,12 @@ def quantize_packed(pk: PackedParams, act_scales: Mapping[str, float]
         if out_amax is not None:
             inv_sy = torch.tensor(127.0 / max(float(out_amax), 1e-6), **f32)
         kernel, cin = kernel_layout(w_q, transposed)
+        inv_sx = torch.tensor(127.0 / amax, **f32)
         out[name] = QConv(kernel=kernel, bias=b.float().contiguous(),
                           alpha=s_w * torch.tensor(amax / 127.0, **f32),
-                          inv_sx=torch.tensor(127.0 / amax, **f32),
-                          cin=cin, transposed=transposed, inv_sy=inv_sy)
+                          inv_sx=inv_sx, cin=cin, transposed=transposed,
+                          inv_sy=inv_sy,
+                          inv_sx_value=float(inv_sx.cpu()))
     return out
 
 
@@ -335,23 +339,42 @@ def load_act_scales(path: str) -> Dict[str, float]:
 
 # ---------------------------------------------------------------- forward
 #
-# Every conv of the graph goes through _conv, which dispatches on its
-# entry, as JAX's _apply does: a (weight, bias) pair runs in the
-# activation dtype on cuDNN, a QConv on the int8 kernel (float32 out), a
-# _CalibEntry records its ranges around the float conv.  With int8_act
-# every stored inter-layer tensor is int8 at its consumer conv's scale
-# (consumers of one tensor calibrate the same scale: they see the same
-# values), and the residual and fuse sums read it back dequantized.
+# One walk of the graph over _Act records; each conv is one _step that
+# dispatches on its entry, as JAX's _apply does.  A (weight, bias) pair
+# runs in the activation dtype on cuDNN (the chain kernel for branches
+# 1..3 with pallas_chains), then PyTorch's bias, ReLU, cast and residual
+# ops; a _CalibEntry records its ranges around the float conv.  A QConv
+# (the entries of quantize_packed cover every conv) fuses what JAX's XLA
+# fuses: the conv and the ops after it are one qconv launch whose
+# epilogue stores the activation as its consumers read it, and each fuse
+# sum (and the quantize of the head's concat) one fuse_sum launch; on the
+# CPU the same steps run as their plain PyTorch compositions.  With
+# int8_act every stored inter-layer tensor is int8 at its consumer conv's
+# scale (consumers of one tensor calibrate the same scale: they see the
+# same values), the residual and fuse sums read it back dequantized;
+# without, the activations are stored in the dtype with an int8 copy at
+# the consumer's scale, which a second consumer reads where its scale is
+# the same and otherwise quantizes for itself.
 
 
 class _Graph:
     """What the convs of one forward share: the params, the activation
-    dtype, int8-act storage, and the census of stored activations."""
+    dtype, whether they are int8 and int8-act storage, and the census of
+    stored activations."""
 
-    __slots__ = ("pk", "dtype", "ia", "census")
+    __slots__ = ("pk", "dtype", "quantized", "ia", "census")
 
-    def __init__(self, pk, dtype, ia, census):
-        self.pk, self.dtype, self.ia, self.census = pk, dtype, ia, census
+    def __init__(self, pk, dtype, quantized, ia, census):
+        self.pk, self.dtype, self.census = pk, dtype, census
+        self.quantized, self.ia = quantized, ia
+
+
+class _Act(NamedTuple):
+    """An activation: in the dtype (``t``) and / or, in the int8 graph,
+    int8 (``q``) at the input scale of conv ``key``."""
+    t: Optional[torch.Tensor]
+    q: Optional[torch.Tensor] = None
+    key: Optional[str] = None
 
 
 def _float_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -367,14 +390,12 @@ def _float_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _conv(g: _Graph, x: torch.Tensor, name: str, stride: int = 1,
           relu: bool = False, upsample: int = 1) -> torch.Tensor:
-    """One conv of the graph (the transposed one is ``*tconv``), then
-    the nearest ``upsample`` of a fuse conv at the low resolution, then
-    the optional ReLU."""
+    """One float conv (the transposed one is ``*tconv``), then the
+    nearest ``upsample`` of a fuse conv at the low resolution, then the
+    optional ReLU."""
     wb = g.pk[name]
     transposed = name.endswith("tconv")
-    if isinstance(wb, QConv):
-        y = (qconv(x, wb, 2, 1) if transposed else qconv(x, wb, stride))
-    elif isinstance(wb, _CalibEntry):
+    if isinstance(wb, _CalibEntry):
         wb.record(name, x)
         y = _float_conv(x, wb.w, wb.b, stride, transposed)
     else:
@@ -388,70 +409,105 @@ def _conv(g: _Graph, x: torch.Tensor, name: str, stride: int = 1,
     return y.relu_() if relu else y
 
 
-def _store(g: _Graph, y: torch.Tensor, consumer: Optional[str]
-           ) -> torch.Tensor:
-    """Materialize an activation: int8 at its consumer conv's scale when
-    int8_act is on and the consumer is quantized, else in the dtype."""
-    out = None
-    if g.ia and consumer is not None:
-        wb = g.pk.get(consumer)
-        if isinstance(wb, QConv):
-            out = quantize_act(y, wb.inv_sx)
-    if out is None:
-        out = y.to(g.dtype)
+def _qconv(xin: torch.Tensor, q: QConv, stride: int,
+           padding: Optional[int], epi: Epilogue):
+    """One int8 conv and the ops after it: on CUDA one launch of the
+    kernel with ``epi`` as its epilogue; elsewhere ``qconv`` (the plain
+    version) and then the same ops in PyTorch."""
+    if xin.is_cuda:
+        return qconv(xin, q, stride, padding, epilogue=epi)
+    return epilogue_plain(qconv(xin, q, stride, padding), epi)
+
+
+def _qin(g: _Graph, a: _Act, name: str) -> torch.Tensor:
+    """Int8 conv ``name``'s input: the int8 copy where it was made at
+    this conv's scale (with int8_act always: JAX takes a stored int8
+    tensor as quantized at its reader's scale), else the tensor in the
+    dtype, which ``qconv`` quantizes."""
+    if a.q is not None:
+        mine, theirs = g.pk[name].inv_sx_value, g.pk[a.key].inv_sx_value
+        if g.ia or a.t is None or a.key == name \
+                or (mine is not None and mine == theirs):
+            return a.q
+    return a.t
+
+
+def _record(g: _Graph, consumer, shape, dtype) -> None:
     if g.census is not None:
-        g.census.append((consumer, tuple(y.shape), out.dtype))
-    return out
+        g.census.append((consumer, tuple(shape), dtype))
 
 
-def _loadf(g: _Graph, x: torch.Tensor, consumer: str) -> torch.Tensor:
-    """Float32 view of a stored activation for a residual or fuse sum:
-    an int8 one is divided by its scale, as in JAX."""
-    if x.dtype == torch.int8:
-        return x.float() / g.pk[consumer].inv_sx
-    return x
+def _step(g: _Graph, x: _Act, name: str, stride: int = 1, *,
+          consumer: Optional[str] = None, relu: bool = False,
+          res: Optional[torch.Tensor] = None,
+          res_inv: Optional[torch.Tensor] = None, relu_after: bool = False,
+          keep: bool = True, rounded: Optional[bool] = None,
+          census: bool = False) -> _Act:
+    """Conv ``name``, the ReLU, the residual ``res`` added in the dtype
+    (an int8 one read at ``res_inv``), ``relu_after``, and the store for
+    ``consumer`` (a conv, or None), counted in the census where
+    ``census``.  A float entry stores the dtype.  A QConv stores, with
+    int8_act, int8 at the consumer's scale (the dtype where it has none),
+    else the dtype (unless not ``keep``) and an int8 copy at the
+    consumer's scale, made from the value in the dtype or
+    (``rounded=False``, int8_act's default, as JAX stores a conv's
+    float32 output) from the float32."""
+    q = g.pk[name]
+    if not isinstance(q, QConv):
+        y = _conv(g, x.t, name, stride, relu=relu).to(g.dtype)
+        if res is not None:
+            y = y.add_(res)                         # the add in the dtype
+        if relu_after:
+            y = y.relu_()
+        if census:
+            _record(g, consumer, y.shape, y.dtype)
+        return _Act(y)
+    cq = g.pk.get(consumer) if consumer is not None else None
+    q_inv = cq.inv_sx if isinstance(cq, QConv) else None
+    store = q_inv is None or (keep and not g.ia)
+    epi = Epilogue(g.dtype, relu, res, res_inv, relu_after, store, q_inv,
+                   not g.ia if rounded is None else rounded)
+    stride, padding = (2, 1) if q.transposed else (stride, None)
+    t, yq = _qconv(_qin(g, x, name), q, stride, padding, epi)
+    if census:
+        stored = yq if g.ia and yq is not None else t
+        _record(g, consumer, stored.shape, stored.dtype)
+    return _Act(t, yq, consumer)
 
 
-def _operand(g: _Graph, y: torch.Tensor, name: str) -> torch.Tensor:
-    """A fuse conv's result, consumed by the fuse sum: with int8_act and
-    an output scale, stored int8 at it and read back dequantized."""
-    if g.ia:
-        wb = g.pk.get(name)
-        if isinstance(wb, QConv) and wb.inv_sy is not None:
-            q = quantize_act(y, wb.inv_sy)
-            if g.census is not None:
-                g.census.append((name + ":out", tuple(y.shape), q.dtype))
-            return (q.float() / wb.inv_sy).to(g.dtype)
-    return y.to(g.dtype)
+def _residual(g: _Graph, a: _Act, reader: str):
+    """A block's input as its residual: int8 (int8_act) read at the
+    scale of ``reader``, the block's first conv, as JAX's ``_loadf``;
+    else in the dtype."""
+    if g.ia and a.q is not None:
+        return a.q, g.pk[reader].inv_sx
+    return a.t, None
 
 
-def _basic_block(g: _Graph, name: str, x: torch.Tensor,
-                 out_consumer: Optional[str] = None) -> torch.Tensor:
-    out = _conv(g, x, f"{name}/conv1", relu=True)
-    out = _store(g, out, f"{name}/conv2")
-    out = _conv(g, out, f"{name}/conv2")
-    if g.ia:
-        res = _loadf(g, x, f"{name}/conv1").to(g.dtype)
-        return _store(g, torch.relu(out.to(g.dtype) + res), out_consumer)
-    return out.to(g.dtype).add_(x).relu_()          # the add in the dtype
+def _basic_block(g: _Graph, name: str, x: _Act,
+                 out_consumer: Optional[str]) -> _Act:
+    out = _step(g, x, f"{name}/conv1", consumer=f"{name}/conv2", relu=True,
+                census=True)
+    res, res_inv = _residual(g, x, f"{name}/conv1")
+    return _step(g, out, f"{name}/conv2", consumer=out_consumer, res=res,
+                 res_inv=res_inv, relu_after=True, census=g.ia)
 
 
-def _bottleneck(g: _Graph, name: str, x: torch.Tensor,
-                out_consumer: Optional[str] = None) -> torch.Tensor:
-    out = _conv(g, x, f"{name}/conv1", relu=True)
-    out = _store(g, out, f"{name}/conv2")
-    out = _conv(g, out, f"{name}/conv2", relu=True)
-    out = _store(g, out, f"{name}/conv3")
-    out = _conv(g, out, f"{name}/conv3")
+def _bottleneck(g: _Graph, name: str, x: _Act,
+                out_consumer: Optional[str]) -> _Act:
+    out = _step(g, x, f"{name}/conv1", consumer=f"{name}/conv2", relu=True,
+                census=True)
+    out = _step(g, out, f"{name}/conv2", consumer=f"{name}/conv3",
+                relu=True, census=True)
     ds = f"{name}/downsample"
-    if g.ia:
-        # an int8 x feeds the downsample directly: its scale is conv1's
-        residual = (_conv(g, x, ds) if ds in g.pk
-                    else _loadf(g, x, f"{name}/conv1")).to(g.dtype)
-        return _store(g, torch.relu(out.to(g.dtype) + residual),
-                      out_consumer)
-    residual = _conv(g, x, ds).to(g.dtype) if ds in g.pk else x
-    return out.to(g.dtype).add_(residual).relu_()
+    if ds in g.pk:
+        # int8_act: an int8 x feeds the downsample directly (its scale is
+        # conv1's); the residual is the downsample's output in the dtype
+        res, res_inv = _step(g, x, ds).t, None
+    else:
+        res, res_inv = _residual(g, x, f"{name}/conv1")
+    return _step(g, out, f"{name}/conv3", consumer=out_consumer, res=res,
+                 res_inv=res_inv, relu_after=True, census=g.ia)
 
 
 def _chain(pk: PackedParams, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -475,15 +531,55 @@ def _ys_consumer(pfx: str, scfg, j: int, mso: bool) -> Optional[str]:
     return None
 
 
-def _module(g: _Graph, pfx: str, scfg, xs: List[torch.Tensor], mso: bool,
+def _operand(g: _Graph, x: _Act, name: str, stride: int,
+             up: int) -> Operand:
+    """A fuse conv's result as an operand of the fuse sum, which reads it
+    nearest-upsampled by ``up``.  A float entry's is upsampled in PyTorch
+    (where calibration records its range).  A QConv's stays at its low
+    resolution: with int8_act and an output scale int8 at it (of the
+    float32, as JAX stores it), else in the dtype."""
+    q = g.pk[name]
+    if not isinstance(q, QConv):
+        return Operand(_conv(g, x.t, name, stride, upsample=up)
+                       .to(g.dtype))
+    if g.ia and q.inv_sy is not None:
+        _, yq = _qconv(_qin(g, x, name), q, stride, None,
+                       Epilogue(g.dtype, store=False, q_inv=q.inv_sy,
+                                q_rounded=False))
+        b, c, h, w = yq.shape
+        _record(g, name + ":out", (b, c, h * up, w * up), yq.dtype)
+        return Operand(yq, q.inv_sy, up)
+    t, _ = _qconv(_qin(g, x, name), q, stride, None, Epilogue(g.dtype))
+    return Operand(t, None, up)
+
+
+def _sum(g: _Graph, ops: Sequence[Operand], consumer: str) -> _Act:
+    """A fuse sum, its ReLU and its store for ``consumer``: in the int8
+    graph one ``fuse_sum``, else PyTorch's adds in the dtype."""
+    if not g.quantized:
+        acc = None
+        for t, _, _ in ops:
+            acc = t if acc is None else acc + t     # the sum in the dtype
+        return _Act(torch.relu(acc))
+    cq = g.pk.get(consumer)
+    q_inv = cq.inv_sx if isinstance(cq, QConv) else None
+    t, yq = fuse_sum(ops, g.dtype, relu=True,
+                     store=q_inv is None or not g.ia, q_inv=q_inv)
+    if g.ia:
+        stored = yq if yq is not None else t
+        _record(g, consumer, stored.shape, stored.dtype)
+    return _Act(t, yq, consumer)
+
+
+def _module(g: _Graph, pfx: str, scfg, xs: List[_Act], mso: bool,
             pallas_chains: bool, out_consumers: Sequence[str]
-            ) -> List[torch.Tensor]:
+            ) -> List[_Act]:
     nb = scfg.num_branches
     ys = []
     for i in range(nb):
         x = xs[i]
         if pallas_chains and i > 0:
-            x = _chain(g.pk, chain_key(pfx, i), x)
+            x = _Act(_chain(g.pk, chain_key(pfx, i), x.t))
         else:
             for j in range(scfg.num_blocks[i]):
                 last = j == scfg.num_blocks[i] - 1
@@ -495,33 +591,97 @@ def _module(g: _Graph, pfx: str, scfg, xs: List[torch.Tensor], mso: bool,
         return ys
     fused = []
     for i in range(nb if mso else 1):
-        acc = None
+        ops = []
         for j in range(nb):
             if j == i:
-                y = (_loadf(g, ys[j], _ys_consumer(pfx, scfg, j, mso)
-                            ).to(g.dtype) if g.ia else ys[j])
+                a = ys[j]
+                ops.append(Operand(a.q, g.pk[a.key].inv_sx)
+                           if g.ia and a.q is not None else Operand(a.t))
             elif j > i:
                 # 1x1 conv at the low resolution, then nearest upsampling
-                name = f"{pfx}/fuse{i}_{j}"
-                y = _operand(g, _conv(g, ys[j], name, upsample=2 ** (j - i)),
-                             name)
+                ops.append(_operand(g, ys[j], f"{pfx}/fuse{i}_{j}", 1,
+                                    2 ** (j - i)))
             else:
                 y = ys[j]
                 for k in range(i - j):
                     name = f"{pfx}/fuse{i}_{j}_{k}"
-                    y = _conv(g, y, name, stride=2)
                     if k == i - j - 1:
-                        y = _operand(g, y, name)
-                    else:
-                        y = torch.relu(y.to(g.dtype))
-                        if g.ia:
-                            y = _store(g, y, f"{pfx}/fuse{i}_{j}_{k + 1}")
-            acc = y if acc is None else acc + y     # the sum in the dtype
-        if g.ia:
-            fused.append(_store(g, torch.relu(acc), out_consumers[i]))
-        else:
-            fused.append(torch.relu(acc))
+                        ops.append(_operand(g, y, name, 2, 1))
+                    else:    # relu(y in the dtype), read by the next conv
+                        y = _step(g, y, name, 2,
+                                  consumer=f"{pfx}/fuse{i}_{j}_{k + 1}",
+                                  relu=True, keep=False, rounded=True,
+                                  census=g.ia)
+        fused.append(_sum(g, ops, out_consumers[i]))
     return fused
+
+
+def _stage_consumers(s: int, m: int, scfg) -> Tuple[bool, List[str]]:
+    """Whether stage ``s``'s module ``m`` has several outputs, and the
+    first conv that reads each of them."""
+    last = m == scfg.num_modules - 1
+    mso = s < 4 or not last
+    nxt = f"stage{s + 1}_0" if last else f"stage{s}_{m + 1}"
+    return mso, ([f"{nxt}/branch{i}_0/conv1"
+                  for i in range(scfg.num_branches)] if mso else ["final_0"])
+
+
+def _head_input(g: _Graph, x0: _Act, y0: torch.Tensor) -> _Act:
+    """The concat [x0, y0] that the transposed conv reads.  In the int8
+    graph it is quantized at that conv's scale, each half by one
+    fuse_sum into its channel range of a buffer padded (with zeros) to
+    the kernel's Cpad."""
+    tq = g.pk["deconv0_tconv"]
+    if not g.quantized:
+        xh = torch.cat([x0.t, y0], dim=1)
+        if xh.is_cuda:
+            xh = xh.contiguous(memory_format=torch.channels_last)
+        return _Act(xh)
+    b, c1, h, w = y0.shape
+    c0 = tq.cin - c1
+    cat = int8_buffer(b, tq.kernel.shape[-1], h, w, y0.device)
+    first = (Operand(x0.q, g.pk["final_0"].inv_sx)
+             if g.ia and x0.q is not None else Operand(x0.t))
+    fuse_sum([first], torch.float32, store=False, q_inv=tq.inv_sx,
+             out_q=cat)
+    fuse_sum([Operand(y0)], torch.float32, store=False, q_inv=tq.inv_sx,
+             out_q=cat, q_off=c0, q_zero=cat.shape[1] - tq.cin)
+    return _Act(None, cat[:, :tq.cin], "deconv0_tconv")
+
+
+def _forward(g: _Graph, x: torch.Tensor, cfg: HRNetConfig,
+             pallas_chains: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    a = _step(g, _Act(x), "conv1", 2, consumer="conv2", relu=True,
+              census=True)
+    a = _step(g, a, "conv2", 2, consumer="layer1_0/conv1", relu=True,
+              census=True)
+    for i in range(4):
+        oc = f"layer1_{i + 1}/conv1" if i < 3 else "transition1_0"
+        a = _bottleneck(g, f"layer1_{i}", a, oc)
+    xs = [_step(g, a, "transition1_0", consumer="stage2_0/branch0_0/conv1",
+                relu=True, census=True),
+          _step(g, a, "transition1_1_0", 2,
+                consumer="stage2_0/branch1_0/conv1", relu=True, census=True)]
+    for s, attr in STAGES:
+        scfg = getattr(cfg, attr)
+        if s > 2:
+            xs.append(_step(g, xs[-1], f"transition{s - 1}_{s - 1}_0", 2,
+                            consumer=f"stage{s}_0/branch{s - 1}_0/conv1",
+                            relu=True, census=True))
+        for m in range(scfg.num_modules):
+            mso, ocs = _stage_consumers(s, m, scfg)
+            xs = _module(g, f"stage{s}_{m}", scfg, xs, mso, pallas_chains,
+                         ocs)
+
+    y0 = _step(g, xs[0], "final_0").t
+    xh = _step(g, _head_input(g, xs[0], y0), "deconv0_tconv",
+               consumer="deconv0_block0/conv1", relu=True, census=True)
+    for blk in range(cfg.deconv_num_blocks):
+        oc = (f"deconv0_block{blk + 1}/conv1"
+              if blk < cfg.deconv_num_blocks - 1 else "final_1")
+        xh = _basic_block(g, f"deconv0_block{blk}", xh, oc)
+    y1 = _step(g, xh, "final_1").t
+    return y0, y1
 
 
 def packed_forward(pk: Mapping, x: torch.Tensor,
@@ -560,55 +720,12 @@ def packed_forward(pk: Mapping, x: torch.Tensor,
     if pallas_chains and x.is_cuda and dtype != torch.bfloat16:
         raise TypeError(f"pallas_chains=True on CUDA takes bf16: the chain "
                         f"kernel is bf16-only, got {dtype}")
-    g = _Graph(pk, dtype, bool(int8_act), census)
     x = x.to(dtype)
     if x.is_cuda:
         x = x.contiguous(memory_format=torch.channels_last)
-
-    x = _store(g, _conv(g, x, "conv1", stride=2, relu=True), "conv2")
-    x = _store(g, _conv(g, x, "conv2", stride=2, relu=True),
-               "layer1_0/conv1")
-    for i in range(4):
-        oc = f"layer1_{i + 1}/conv1" if i < 3 else "transition1_0"
-        x = _bottleneck(g, f"layer1_{i}", x, oc)
-
-    xs = [_store(g, _conv(g, x, "transition1_0", relu=True),
-                 "stage2_0/branch0_0/conv1"),
-          _store(g, _conv(g, x, "transition1_1_0", stride=2, relu=True),
-                 "stage2_0/branch1_0/conv1")]
-    for s, attr in STAGES:
-        scfg = getattr(cfg, attr)
-        if s > 2:
-            xs.append(_store(
-                g, _conv(g, xs[-1], f"transition{s - 1}_{s - 1}_0",
-                         stride=2, relu=True),
-                f"stage{s}_0/branch{s - 1}_0/conv1"))
-        for m in range(scfg.num_modules):
-            last = m == scfg.num_modules - 1
-            mso = s < 4 or not last
-            nxt = f"stage{s + 1}_0" if last else f"stage{s}_{m + 1}"
-            ocs = ([f"{nxt}/branch{i}_0/conv1"
-                    for i in range(scfg.num_branches)] if mso
-                   else ["final_0"])
-            xs = _module(g, f"stage{s}_{m}", scfg, xs, mso, pallas_chains,
-                         ocs)
-
-    x0 = xs[0]
-    y0 = _conv(g, x0, "final_0").to(dtype)
-    if g.ia:
-        # dequantize x0, widen y0, concat, requantize at the transposed
-        # conv's own (concat) scale
-        cat = torch.cat([_loadf(g, x0, "final_0"), y0.float()], dim=1)
-        xh = quantize_act(cat, pk["deconv0_tconv"].inv_sx)
-    else:
-        xh = torch.cat([x0, y0], dim=1)
-    if xh.is_cuda:
-        xh = xh.contiguous(memory_format=torch.channels_last)
-    xh = _store(g, _conv(g, xh, "deconv0_tconv", relu=True),
-                "deconv0_block0/conv1")
-    for blk in range(cfg.deconv_num_blocks):
-        oc = (f"deconv0_block{blk + 1}/conv1"
-              if blk < cfg.deconv_num_blocks - 1 else "final_1")
-        xh = _basic_block(g, f"deconv0_block{blk}", xh, oc)
-    y1 = _conv(g, xh, "final_1").to(dtype)
-    return y0, y1
+    if quantized and not all(isinstance(pk[k], QConv)
+                             for k in conv_names(pk)):
+        raise ValueError("int8 entries must cover every conv: the QConv "
+                         "dict of quantize_packed")
+    return _forward(_Graph(pk, dtype, quantized, bool(int8_act), census),
+                    x, cfg, pallas_chains)

@@ -4,7 +4,7 @@ this repository on the same inputs, on one card: outputs compared,
 per-launch times side by side.
 
     python -m rtpe_tpu_torch.tools.cam_ab --parent <checkout> [--out DIR]
-        [--only cam|chain|group|nms|lap]
+        [--only cam|chain|group|nms|lap|qconv]
 
 run from the root of the checkout under test (beside ``chip_smoke.py``,
 whose seeded inputs it uses). ``<checkout>`` is another tree of the
@@ -49,6 +49,16 @@ both on the card, and the change must equal it everywhere.  Outputs must
 be ``torch.equal`` to the parent's, except on the NaN planes, where the
 parent's pool dropped the NaN (``nan`` cases: compared, not held).
 
+The int8 conv (``--only qconv``) runs ``quant.qconv`` (its float32
+contract, which both trees keep) at every call geometry of a 640 x 640
+int8 forward of the seeded full-width W48, at B = 8 and B = 1, on
+``chip_smoke.qconv_case``'s random int8 inputs (+-127 in every row),
+timed; then the bf16, int8 and int8-act packed forwards at B = 8 and 1
+(the int8 params quantized by each tree from the same state and the
+same calibrated scales), timed, with a ``torch.profiler`` breakdown by
+part (``qconv``, ``qfuse``, and everything else: PyTorch's glue).  Every
+output must be ``torch.equal`` to the parent's.
+
 An output counts as bad where it differs from the parent's, except a
 pixel sum (``SUMS``, whose order a redesign may change) within
 ``SUM_TOL`` of max |parent|, or a chain output within ``CHAIN_TOL`` of
@@ -81,7 +91,11 @@ OUT_NAMES = {"cam_f1_fwd": ("s_r", "s_h", "gap"),
              "group_mega_greedy": ("people", "n_people"),
              "group_mega_lap": ("people", "n_people"),
              "nms_topk": ("val", "x", "y"),
-             "lap_rect": ("cols",)}
+             "lap_rect": ("cols",),
+             "qconv": ("out",),
+             "forward_bf16": ("coarse", "refined"),
+             "forward_int8": ("coarse", "refined"),
+             "forward_int8_act": ("coarse", "refined")}
 # pixel sums whose order a redesign may change: held to 2^-8 of max |parent|
 SUMS = {"s_r", "s_h", "gap", "s_t", "dS", "dSr", "dSh", "dSt", "dgate"}
 SUM_TOL = 2.0 ** -8
@@ -108,6 +122,10 @@ def kernel_part(name: str) -> str:
         return "nms_merge"
     if "lap_rect_kernel" in name:
         return "lap"
+    if "qconv_kernel" in name:
+        return "qconv"
+    if "qfuse_kernel" in name:
+        return "qfuse"
     if "dx_kernel" in name:
         return "dx"
     if any(k in name for k in ("f1b_", "f2b_", "f3b_")):
@@ -309,6 +327,45 @@ def make_group_inputs(path: str) -> list:
     return [c["name"] for c in saved]
 
 
+def make_qconv_inputs(path: str) -> list:
+    """The int8 forward's call geometries (from a tapped B = 1 forward of
+    the seeded W48, scales calibrated on two random 640 x 640 images),
+    one random case of each at B = 8 and 1, the scales, and the forwards'
+    inputs."""
+    import torch
+    import chip_smoke as cs
+    from rtpe_tpu_torch.models import hrnet, hrnet_packed as packed
+    from rtpe_tpu_torch.ops import qfuse, quant
+    dev = torch.device("cuda", 0)
+    w48 = hrnet.w48_config()
+    state = hrnet.init_random_(hrnet.PoseHigherHRNet(w48),
+                               seed=cs.SEED).state_dict()
+    pk = packed.pack_w48_params(state, w48, torch.bfloat16, dev)
+    gen = torch.Generator().manual_seed(cs.SEED + 14)
+    calib = [torch.randn((1, 3, 640, 640), generator=gen).to(dev)
+             for _ in range(2)]
+    scales = packed.calibrate_act_scales(pk, calib, w48)
+    qp = packed.quantize_packed(pk, scales)
+    qc, _, _ = cs.graph_taps(packed, quant, qfuse, lambda: (
+        packed.packed_forward(qp, calib[0], w48)), compare=False)
+    geos = sorted({k[0] for k in qc})
+    dgen = torch.Generator(device=dev).manual_seed(cs.SEED + 15)
+    cases = []
+    for b in (8, 1):
+        for geo in geos:
+            x, q, _ = cs.qconv_case(quant, geo, b, dgen, dev)
+            cout, cin, kh, kw, tr, h, w, st = geo
+            cases.append({"name": f"{list(geo)} b{b}", "cin": q.cin,
+                          "tr": tr, "stride": 2 if tr else st,
+                          "pad": 1 if tr else (kh - 1) // 2,
+                          "t": {"x": x.cpu(), "kernel": q.kernel.cpu(),
+                                "bias": q.bias.cpu(), "alpha": q.alpha.cpu(),
+                                "inv_sx": q.inv_sx.cpu()}})
+    xs = {b: torch.randn((b, 3, 640, 640), generator=gen) for b in (8, 1)}
+    torch.save({"cases": cases, "scales": scales, "x": xs}, path)
+    return [c["name"] for c in cases]
+
+
 def make_inputs(path: str) -> list:
     import torch
     import chip_smoke as cs
@@ -355,25 +412,48 @@ def device_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def forward_ms(fn, windows: int = 3) -> dict:
+    """Device ms of one forward: the median of ``windows`` windows of
+    one call each behind a sleep of ~0.2 s, and whether the host had
+    queued every window whole before its sleep ended (where it had not,
+    the host blocked on a full launch queue and may have paced the rest
+    of the window: five int8 forwards a window overfill it)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ms, queued = [], True
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4 * 10 ** 8)
+        start.record()
+        fn()
+        queued = queued and not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return {"ms": statistics.median(ms), "queued": queued}
+
+
 def breakdown(fn) -> dict:
     """ms of one call by part, and the kernels' names, under
     torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # a profile can miss the kernels of its first moments: let those
-        # be a spin kernel, finished before fn starts
-        torch.cuda._sleep(1_000_000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # a profile can miss the kernels of its first moments: fn runs once
+    # in a warm-up cycle and is read in the active cycle after it
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     parts, names = {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or "spin_kernel" in e.name:
+                or e.name.startswith("ProfilerStep"):
             continue
         ms = (e.time_range.end - e.time_range.start) / 1e3
         part = kernel_part(e.name)
@@ -452,8 +532,43 @@ def decode_worker(decode_inputs: str, outs: dict, times: dict) -> None:
                 "ms": device_ms(fn, reps=20) / per, **breakdown(fn)}
 
 
+def qconv_worker(qconv_inputs: str, outs: dict, times: dict) -> None:
+    import torch
+    import chip_smoke as cs
+    from rtpe_tpu_torch.models import hrnet, hrnet_packed as packed
+    from rtpe_tpu_torch.ops import quant
+    dev = torch.device("cuda", 0)
+    d = torch.load(qconv_inputs)
+    with torch.inference_mode():
+        for case in d["cases"]:
+            t = {k: v.to(dev) for k, v in case["t"].items()}
+            q = quant.QConv(t["kernel"], t["bias"], t["alpha"], t["inv_sx"],
+                            case["cin"], case["tr"])
+            x, st, pad = t["x"], case["stride"], case["pad"]
+            fn = lambda: quant.qconv(x, q, st, pad)    # noqa: E731
+            outs["qconv", case["name"]] = [fn().cpu()]
+            times["qconv", case["name"]] = {
+                "ms": device_ms(fn, reps=20), "parts": {}, "kernels": {}}
+            del t, x, q
+        w48 = hrnet.w48_config()
+        state = hrnet.init_random_(hrnet.PoseHigherHRNet(w48),
+                                   seed=cs.SEED).state_dict()
+        pk = packed.pack_w48_params(state, w48, torch.bfloat16, dev)
+        qp = packed.quantize_packed(pk, d["scales"])
+        for b, xc in d["x"].items():
+            x = xc.to(dev)
+            runs = {"forward_bf16": lambda: packed.packed_forward(pk, x, w48),
+                    "forward_int8": lambda: packed.packed_forward(qp, x, w48),
+                    "forward_int8_act": lambda: packed.packed_forward(
+                        qp, x, w48, int8_act=True)}
+            for name, fn in runs.items():
+                outs[name, f"b{b}"] = [v.cpu() for v in fn()]
+                times[name, f"b{b}"] = {**forward_ms(fn), **breakdown(fn)}
+    torch.cuda.empty_cache()
+
+
 def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
-           save: str) -> None:
+           qconv_inputs, save: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from rtpe_tpu_torch.ops import cam
@@ -470,6 +585,8 @@ def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
         group_worker(group_inputs, outs, times)
     if decode_inputs:
         decode_worker(decode_inputs, outs, times)
+    if qconv_inputs:
+        qconv_worker(qconv_inputs, outs, times)
     for case in cases:
         t = {n: v.to(dev) for n, v in case["t"].items()}
         dils = tuple(case["dils"])
@@ -522,12 +639,13 @@ def main() -> None:
     ap.add_argument("--chain-inputs")
     ap.add_argument("--group-inputs")
     ap.add_argument("--decode-inputs")
+    ap.add_argument("--qconv-inputs")
     ap.add_argument("--only", choices=("cam", "chain", "group", "nms",
-                                       "lap"))
+                                       "lap", "qconv"))
     a = ap.parse_args()
     if a.worker:
         worker(a.root, a.inputs, a.chain_inputs, a.group_inputs,
-               a.decode_inputs, a.save)
+               a.decode_inputs, a.qconv_inputs, a.save)
         return
     import torch
     os.makedirs(a.out, exist_ok=True)
@@ -535,6 +653,7 @@ def main() -> None:
     chain_inputs = os.path.join(a.out, "chain_inputs.pt")
     group_inputs = os.path.join(a.out, "group_inputs.pt")
     decode_inputs = os.path.join(a.out, "decode_inputs.pt")
+    qconv_inputs = os.path.join(a.out, "qconv_inputs.pt")
     args = []
     if a.only in (None, "cam"):
         make_inputs(inputs)
@@ -548,6 +667,9 @@ def main() -> None:
     if a.only in (None, "nms", "lap"):
         make_decode_inputs(decode_inputs, a.only)
         args += ["--decode-inputs", decode_inputs]
+    if a.only == "qconv":
+        make_qconv_inputs(qconv_inputs)
+        args += ["--qconv-inputs", qconv_inputs]
     turns = [("parent", a.parent), ("new", "."), ("new", "."),
              ("parent", a.parent)]
     runs = []
@@ -593,6 +715,7 @@ def main() -> None:
         f"{op} {case}": {
             "ms": [r["times"][op, case]["ms"] for r in runs],
             "ms_by_part": [r["times"][op, case]["parts"] for r in runs],
+            "queued": [r["times"][op, case].get("queued") for r in runs],
             "kernels": {lab: runs[i]["times"][op, case]["kernels"]
                         for i, lab in ((0, "parent"), (1, "new"))}}
         for (op, case) in par["times"]}
@@ -600,7 +723,9 @@ def main() -> None:
     with open(os.path.join(a.out, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     short = {k: {"ms": [round(x, 3) for x in v["ms"]],
-                 "median_new": statistics.median(v["ms"][1:3])}
+                 "median_new": statistics.median(v["ms"][1:3]),
+                 **({"not_queued_whole": True} if False in v["queued"]
+                    else {})}
              for k, v in report["times"].items()}
     print(json.dumps({"bad": bad, "times": short}))
     print(json.dumps(report))

@@ -864,11 +864,13 @@ def test_tta_decode_on_the_card_equals_plain(cuda, scales):
 # ------------------------------------------------------------------ int8
 
 # (cout, cin, k, stride, h, w, transposed): ragged channels (3, 82),
-# ragged Cout (17, 34), a pixel count not a multiple of 128, each N tile
+# ragged Cout (17, 34), a pixel count not a multiple of 128, each N tile;
+# at B = 1 most of them split K (the tiles alone give < 132 blocks)
 QCONV_CASES = [(64, 3, 3, 2, 37, 29, False), (48, 48, 3, 1, 23, 19, False),
                (96, 48, 3, 2, 30, 26, False), (17, 48, 1, 1, 11, 13, False),
                (34, 48, 1, 1, 9, 7, False), (384, 192, 3, 2, 10, 12, False),
-               (256, 64, 1, 1, 5, 9, False), (48, 82, 4, 2, 13, 11, True)]
+               (256, 64, 1, 1, 5, 9, False), (48, 82, 4, 2, 13, 11, True),
+               (192, 192, 3, 1, 40, 40, False), (16, 32, 3, 1, 9, 9, False)]
 
 
 def _qconv_case(key, b, dev, seed=0):
@@ -889,24 +891,209 @@ def _qconv_case(key, b, dev, seed=0):
     return x.permute(0, 3, 1, 2), q
 
 
+def _stride_pad(key):
+    return (2, 1) if key[6] else (key[3], (key[2] - 1) // 2)
+
+
 @pytest.mark.parametrize("key", QCONV_CASES)
 @pytest.mark.parametrize("b", [1, 3])
 def test_qconv_kernel_equals_plain(cuda, key, b):
     from rtpe_tpu_torch.ops import quant
     x, q = _qconv_case(key, b, cuda)
-    stride, pad = (2, 1) if key[6] else (key[3], (key[2] - 1) // 2)
+    stride, pad = _stride_pad(key)
     before = quant.qconv.launches
     got = quant.qconv(x, q, stride, pad)
     torch.cuda.synchronize()
     assert quant.qconv.launches == before + 1
     assert torch.equal(got, quant.qconv_plain(x, q, stride, pad))
     cout, cin, k = key[:3]
-    assert quant.qconv_plan_c(cin, cout, k, k) == \
-        quant.qconv_plan(cin, cout, k, k)
+    geo = (b, key[4], key[5], cin, cout, k, k, stride, pad, key[6])
+    assert quant.qconv_plan_c(*geo) == quant.qconv_plan(*geo)
+
+
+def _epilogues(y, dev, seed=0):
+    """Every epilogue mode the int8 graph uses, for a conv whose float32
+    output is ``y``: (name, Epilogue), the int8 scales set so that part
+    of the values clamp."""
+    from rtpe_tpu_torch.ops.quant import Epilogue
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    amax = y.abs().amax().clamp_min(1e-3)
+    q_inv = (254.0 / amax).to(torch.float32).reshape(())
+    r_inv = torch.tensor(0.37, device=dev)
+    res_bf = (torch.randn(y.shape, generator=gen, device=dev) * amax / 2) \
+        .to(torch.bfloat16).contiguous(memory_format=cl)
+    res_f32 = res_bf.float().contiguous(memory_format=cl)
+    res_i8 = torch.randint(-127, 128, y.shape, generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8) \
+        .contiguous(memory_format=cl)
+    bf = torch.bfloat16
+    return [
+        ("bf16", Epilogue(bf)),
+        ("f32", Epilogue(torch.float32)),
+        ("relu-bf16+q", Epilogue(bf, relu=True, q_inv=q_inv)),
+        ("relu-q-of-f32", Epilogue(bf, relu=True, store=False, q_inv=q_inv,
+                                   q_rounded=False)),
+        ("relu-q-of-bf16", Epilogue(bf, relu=True, store=False,
+                                    q_inv=q_inv)),
+        ("res-bf16", Epilogue(bf, res=res_bf, relu_after=True, q_inv=q_inv)),
+        ("res-int8", Epilogue(bf, res=res_i8, res_inv=r_inv,
+                              relu_after=True, store=False, q_inv=q_inv)),
+        ("res-int8-both", Epilogue(bf, res=res_i8, res_inv=r_inv,
+                                   relu_after=True, q_inv=q_inv)),
+        ("res-f32", Epilogue(torch.float32, res=res_f32, relu_after=True,
+                             q_inv=q_inv)),
+        ("res-int8-f32", Epilogue(torch.float32, res=res_i8, res_inv=r_inv,
+                                  relu_after=True, q_inv=q_inv)),
+    ]
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w), \
+                (g.float() - w.float()).abs().max()
+
+
+@pytest.mark.parametrize("key", [QCONV_CASES[i] for i in (1, 3, 5, 7, 8)])
+@pytest.mark.parametrize("b", [1, 2])
+def test_qconv_epilogue_modes_equal_plain(cuda, key, b):
+    """Each epilogue mode, at an unsplit and a split K (B = 1), Cout 17
+    (odd: the scalar stores), the transposed conv's four phases."""
+    from rtpe_tpu_torch.ops import quant
+    x, q = _qconv_case(key, b, cuda, seed=1)
+    stride, pad = _stride_pad(key)
+    y = quant.qconv_plain(x, q, stride, pad)
+    for name, e in _epilogues(y, cuda):
+        got = quant.qconv(x, q, stride, pad, epilogue=e)
+        torch.cuda.synchronize()
+        _same(got, quant.qconv_plain(x, q, stride, pad, epilogue=e))
+
+
+def _tie_case(dev):
+    """A 1 x 1 conv whose output is the input's channel 0 exactly
+    (alpha 1, bias 0, weights +-1 on channel 0), over every int8 value:
+    with an int8 residual at res_inv 0.5 the sums land on bf16 ties (odd
+    integers past 256), and at q_inv 0.5 the stores on +-126.5 and
+    +-127.5 and every other half-integer before the clamp."""
+    from rtpe_tpu_torch.ops import quant
+    v = torch.arange(-128, 128, device=dev).clamp_min(-127).to(torch.int8)
+    x = torch.zeros((1, 16, 16, 16), dtype=torch.int8, device=dev)
+    x[..., 0] = v.view(16, 16)
+    x[..., 1] = v.flip(0).view(16, 16)
+    w = torch.zeros((48, 16, 1, 1), dtype=torch.int8, device=dev)
+    w[0::2, 0] = 1
+    w[1::2, 0] = -1
+    w[5, 1] = 1
+    kernel, c = quant.kernel_layout(w)
+    q = quant.QConv(kernel, torch.zeros(48, device=dev),
+                    torch.ones(48, device=dev), torch.tensor(1.0, device=dev),
+                    c, False)
+    res = x.permute(0, 3, 1, 2)[:, :1].repeat(1, 48, 1, 1).flip(2) \
+        .contiguous(memory_format=torch.channels_last)
+    return x.permute(0, 3, 1, 2), q, res
+
+
+def test_qconv_epilogue_on_ties_and_clamp_edges(cuda):
+    from rtpe_tpu_torch.ops import quant
+    from rtpe_tpu_torch.ops.quant import Epilogue
+    x, q, res = _tie_case(cuda)
+    half = torch.tensor(0.5, device=cuda)
+    seen = set()
+    for e in (Epilogue(res=res, res_inv=half, q_inv=half),
+              Epilogue(res=res, res_inv=half, relu_after=True, q_inv=half),
+              Epilogue(q_inv=half, q_rounded=False),
+              Epilogue(relu=True, q_inv=half),
+              Epilogue(torch.float32, res=res, res_inv=half, q_inv=half)):
+        got = quant.qconv(x, q, 1, 0, epilogue=e)
+        torch.cuda.synchronize()
+        want = quant.qconv_plain(x, q, 1, 0, epilogue=e)
+        _same(got, want)
+        seen |= set(want[1].unique().tolist())
+    assert {-127, -126, 126, 127} <= seen
+
+
+def test_qconv_split_repeats_itself(cuda):
+    """A split K (its counters left at 0 by every launch) gives the same
+    bits launch after launch, and the unsplit sums."""
+    from rtpe_tpu_torch.ops import quant
+    key = (384, 384, 3, 1, 20, 20, False)
+    x, q = _qconv_case(key, 1, cuda, seed=2)
+    plan = quant.qconv_plan(1, 20, 20, 384, 384, 3, 3, 1, 1)
+    assert plan["splits"] > 1
+    runs = [quant.qconv(x, q, 1, 1) for _ in range(3)]
+    torch.cuda.synchronize()
+    want = quant.qconv_plain(x, q, 1, 1)
+    assert all(torch.equal(r, want) for r in runs)
+
+
+# (dtype, operands as (kind, factor), relu, store, q, q_off, q_zero):
+# the fuse sums of both int8 forwards, the one-pass quantize into a
+# padded buffer, ragged channels (the element path)
+QFUSE_CASES = [
+    ("bf16", (("bf16", 1), ("bf16", 2), ("bf16", 4), ("bf16", 8)), True,
+     True, True, 0, 0),
+    ("bf16", (("int8", 1), ("int8", 2), ("int8", 4), ("int8", 8)), True,
+     False, True, 0, 0),
+    ("bf16", (("bf16", 1), ("int8", 1)), True, True, False, 0, 0),
+    ("f32", (("f32", 1), ("f32", 2)), True, True, True, 0, 0),
+    ("f32", (("int8", 1),), False, False, True, 0, 16),
+    ("f32", (("bf16", 1),), False, False, True, 48, 14),
+    ("f32", (("bf16", 1),), False, False, True, 0, 13),
+]
+
+
+def _qfuse_inputs(case, dev, c, seed=0):
+    from rtpe_tpu_torch.ops.qfuse import Operand
+    dtype, ops, relu, store, want_q, q_off, q_zero = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w = 2, 16, 24
+    cl = torch.channels_last
+    operands = []
+    for kind, f in ops:
+        shape = (b, c, h // f, w // f)
+        if kind == "int8":
+            t = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+            inv = torch.tensor(0.3 + 0.1 * len(operands), device=dev)
+        else:
+            t = (torch.randn(shape, generator=gen, device=dev) * 40).to(
+                torch.bfloat16 if kind == "bf16" else torch.float32)
+            inv = None
+        operands.append(Operand(t.contiguous(memory_format=cl), inv, f))
+    out_q = None
+    if q_off or q_zero:
+        out_q = torch.full((b, q_off + c + q_zero, h, w), 99,
+                           dtype=torch.int8, device=dev) \
+            .contiguous(memory_format=cl)
+    q_inv = torch.tensor(2.1, device=dev) if want_q else None
+    kw = dict(relu=relu, store=store, q_inv=q_inv, out_q=out_q, q_off=q_off,
+              q_zero=q_zero)
+    return operands, {"bf16": torch.bfloat16, "f32": torch.float32}[dtype], kw
+
+
+@pytest.mark.parametrize("case", QFUSE_CASES)
+@pytest.mark.parametrize("c", [48, 34])
+def test_qfuse_kernel_equals_plain(cuda, case, c):
+    from rtpe_tpu_torch.ops import qfuse
+    ops, dtype, kw = _qfuse_inputs(case, cuda, c)
+    before = qfuse.fuse_sum.launches
+    got = qfuse.fuse_sum(ops, dtype, **kw)
+    torch.cuda.synchronize()
+    assert qfuse.fuse_sum.launches == before + 1
+    if kw["out_q"] is not None:
+        got_buf = kw["out_q"].clone()
+        kw["out_q"].fill_(99)
+    want = qfuse.fuse_sum_plain(ops, dtype, **kw)
+    _same(got, want)
+    if kw["out_q"] is not None:
+        assert torch.equal(got_buf, kw["out_q"])
 
 
 def test_qconv_refuses_what_it_does_not_take(cuda):
-    from rtpe_tpu_torch.ops import quant
+    from rtpe_tpu_torch.ops import qfuse, quant
+    from rtpe_tpu_torch.ops.quant import Epilogue
     x, q = _qconv_case(QCONV_CASES[1], 1, cuda)
     with pytest.raises(ValueError, match="channels_last"):
         quant.qconv(x.contiguous(), q)
@@ -914,14 +1101,37 @@ def test_qconv_refuses_what_it_does_not_take(cuda):
         quant.qconv(x[:, :40], q)
     with pytest.raises(ValueError, match="kernel must be"):
         quant.qconv(x, q._replace(kernel=q.kernel.cpu()))
+    y = quant.qconv_plain(x, q)
+    res = torch.zeros_like(y, dtype=torch.bfloat16)
+    one = torch.tensor(1.0, device=cuda)
+    for e, match in ((Epilogue(torch.float16), "bf16 or float32"),
+                     (Epilogue(store=False), "stores nothing"),
+                     (Epilogue(res=res[:, :, 1:]), "residual"),
+                     (Epilogue(res=res.contiguous()), "residual"),
+                     (Epilogue(res=res.to(torch.int8).contiguous(
+                         memory_format=torch.channels_last)), "res_inv"),
+                     (Epilogue(q_inv=one.cpu()), "q_inv")):
+        with pytest.raises(ValueError, match=match):
+            quant.qconv(x, q, epilogue=e)
+    with pytest.raises(ValueError, match="refuses"):
+        quant.qconv(x, q._replace(transposed=True), 1, 0)
+    a = qfuse.Operand(res.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="1 to 4 operands"):
+        qfuse.fuse_sum([a] * 5, torch.bfloat16)
+    with pytest.raises(ValueError, match="channels_last"):
+        qfuse.fuse_sum([qfuse.Operand(res.contiguous())], torch.bfloat16)
+    with pytest.raises(ValueError, match="operand 1"):
+        qfuse.fuse_sum([a, qfuse.Operand(res[:, 1:])], torch.bfloat16)
+    with pytest.raises(ValueError, match="scale"):
+        qfuse.fuse_sum([qfuse.Operand(a.t.to(torch.int8))], torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        qfuse.fuse_sum([a], torch.float16)
+    with pytest.raises(ValueError, match="out_q"):
+        qfuse.fuse_sum([a], torch.bfloat16, q_inv=one, q_zero=3)
 
 
-@pytest.mark.parametrize("int8_act", [False, True])
-def test_small_int8_forward_equals_plain_qconv(cuda, int8_act):
-    """A small packed int8 forward on the card: bitwise equal to the same
-    forward with the plain ``qconv``, every conv launched once."""
+def _small_int8(cuda):
     from rtpe_tpu_torch.models import hrnet_packed as packed
-    from rtpe_tpu_torch.ops import quant
     cfg = HRNetConfig(num_joints=17,
                       stage2=StageCfg(1, 2, "BASIC", (1, 1), (16, 32)),
                       stage3=StageCfg(1, 3, "BASIC", (1, 1, 1), (16, 32, 64)),
@@ -933,16 +1143,57 @@ def test_small_int8_forward_equals_plain_qconv(cuda, int8_act):
     x = torch.randn((2, 3, 96, 128), generator=torch.Generator()
                     .manual_seed(1)).to(cuda)
     scales = packed.calibrate_act_scales(pk, [x[:1]], cfg)
+    return cfg, pk, x, scales
+
+
+def _plain_forward(packed, quant, qfuse, fn):
+    """``fn()`` with the graph's kernels replaced by their plain
+    versions (the same ops the CPU runs)."""
+    real = packed.qconv, packed.fuse_sum
+    packed.qconv, packed.fuse_sum = quant.qconv_plain, qfuse.fuse_sum_plain
+    try:
+        return fn()
+    finally:
+        packed.qconv, packed.fuse_sum = real
+
+
+@pytest.mark.parametrize("int8_act", [False, True])
+def test_small_int8_forward_equals_plain_qconv(cuda, int8_act):
+    """A small packed int8 forward on the card: bitwise equal to the same
+    forward on the plain versions, every conv one ``qconv`` launch and
+    every fuse sum, the input and the two halves of the head's concat
+    one ``fuse_sum`` launch."""
+    from rtpe_tpu_torch.models import hrnet_packed as packed
+    from rtpe_tpu_torch.ops import qfuse, quant
+    cfg, pk, x, scales = _small_int8(cuda)
     qp = packed.quantize_packed(pk, scales)
-    before = quant.qconv.launches
+    n_sums = 2 + 3 + 1               # fuse outputs of stages 2 / 3 / 4
+    before = quant.qconv.launches, qfuse.fuse_sum.launches
     with torch.inference_mode():
         got = packed.packed_forward(qp, x, cfg, int8_act=int8_act)
-        assert quant.qconv.launches == before + len(qp)
-        real = packed.qconv
-        packed.qconv = quant.qconv_plain
-        try:
-            want = packed.packed_forward(qp, x, cfg, int8_act=int8_act)
-        finally:
-            packed.qconv = real
+        assert quant.qconv.launches == before[0] + len(qp)
+        assert qfuse.fuse_sum.launches == before[1] + n_sums + 3
+        want = _plain_forward(packed, quant, qfuse, lambda: (
+            packed.packed_forward(qp, x, cfg, int8_act=int8_act)))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_small_int8_forward_with_consumers_apart(cuda):
+    """A scale set where the consumers of one tensor differ (a scale
+    file can set them apart): the int8 forward quantizes for the other
+    consumer itself, still bitwise the plain forward."""
+    from rtpe_tpu_torch.models import hrnet_packed as packed
+    from rtpe_tpu_torch.ops import qfuse, quant
+    cfg, pk, x, scales = _small_int8(cuda)
+    scales = dict(scales)
+    scales["layer1_0/downsample"] *= 1.5
+    scales["transition2_2_0"] *= 0.75
+    qp = packed.quantize_packed(pk, scales)
+    for ia in (False, True):
+        with torch.inference_mode():
+            got = packed.packed_forward(qp, x, cfg, int8_act=ia)
+            want = _plain_forward(packed, quant, qfuse, lambda: (
+                packed.packed_forward(qp, x, cfg, int8_act=ia)))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -193,6 +193,33 @@ def test_int8_forward_matches_jax(model, monkeypatch, int8_act):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
+@pytest.mark.parametrize("int8_act", [False, True])
+def test_int8_forward_with_consumers_apart_matches_jax(model, int8_act):
+    """A scale set (as a scale file can hold) where two consumers of one
+    tensor quantize it at different scales: the port's graph, which
+    stores an int8 copy at one consumer's scale, makes the other's
+    itself, and stays bitwise JAX's forward."""
+    m = model
+    scales = dict(m["scales"])
+    for name, f in (("layer1_0/downsample", 1.5), ("transition2_2_0", 0.75)):
+        assert name in scales
+        scales[name] *= f
+    x = np.random.default_rng(5).normal(size=(1, 64, 96, 3)).astype(
+        np.float32)
+    want = j_packed.packed_forward(
+        j_packed.quantize_packed(m["pk_j"], scales), jnp.asarray(x),
+        m["jcfg"], dtype=jnp.float32, int8_act=int8_act)
+    qp = packed.quantize_packed(m["pk_t"], scales)
+    assert qp["layer1_0/downsample"].inv_sx_value \
+        != qp["layer1_0/conv1"].inv_sx_value
+    with torch.inference_mode():
+        got = packed.packed_forward(qp, _nchw(x), m["tcfg"], torch.float32,
+                                    int8_act=int8_act)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.permute(0, 2, 3, 1).numpy(),
+                                      np.asarray(w))
+
+
 @pytest.mark.parametrize("mode", ["float", "int8", "int8_act"])
 def test_store_census_matches_jax(model, mode):
     m = model

@@ -161,7 +161,7 @@ def test_kernel_sources_and_build_command():
     route for sm_90a (compiled only where ``nvcc`` exists)."""
     assert _build.sources() == ["basicblock_chain", "cam_f1", "cam_f2",
                                 "cam_f3", "group_lockstep", "group_mega",
-                                "lap_rect", "nms_topk", "qconv",
+                                "lap_rect", "nms_topk", "qconv", "qfuse",
                                 "warp_step_probe"]
     assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert os.path.basename(_build.BUILD_DIR) == "_build"
