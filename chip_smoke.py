@@ -170,13 +170,38 @@ Phases, each of which fails the run:
     calls), ``fuse_sum`` per call beside its bytes bound, and
     ``predict_batch`` img/s for each.
 
+25. the distillation trainer on the data pipeline: an in-memory COCO
+    fixture of 32 images (24 of 480 x 640, 6 of 640 x 427, 2 of 360 x
+    400, smaller than the crop), its teacher corpus written by
+    ``teacher_inference``'s core through the packed seeded W48, and that
+    W48 as the ``--model_path`` file; the pipeline alone (B=16, 450 x 450
+    crops of a 640 x 640 canvas, sigma 7, 8 workers, compact upload): an
+    epoch's shapes and finite planes, one batch on the card against the
+    plain composition on the CPU from the same host batch (the CPU
+    test's tolerances: each plane's own plus 8 ulps of a coordinate times
+    its largest step between pixels), the host ms a batch, the device
+    augment's ms and peak memory, batches/s uncached and cached; then
+    ``cli.distillation.train`` at the script's defaults with
+    ``--fused_cam`` for 5 steps over 3 epochs, the minival and the
+    diagnostics every 2 steps, the CAM counters set to 0 just before and
+    read just after (30 launches of each kernel, no plain call), finite
+    losses, the frozen stem and ``mid_stem`` unchanged, checkpoints at 2,
+    4 and 5, 7 part files an epoch, the step scalars in
+    ``metrics.jsonl``; the checkpoint restored bitwise and the resume to
+    step 7; ``eval_attention``'s core on the last parts; 4 pipeline-fed
+    steps profiled apart from the trainer's per-epoch work; the
+    detection minival of an ``ae_dims=1`` student with the trained
+    weights (``nms_topk`` once a chunk); the trainer's img/s, busy share
+    and peak memory beside phase 18's synthetic-batch step.
+
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, 16 with 11, and 17-19 after 15; 20-24 run last (24's
+after 10, 16 with 11, and 17-19 after 15; 20-25 run last (24's
 validation inside 21's fixture).
 
 Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
 line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA,
-CLI and int8 numbers, and last
+CLI, int8 and trainer numbers, the ``nvidia-smi`` line again (so the
+end of the output names the card), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
 prints no result.
@@ -1588,6 +1613,12 @@ def device_profile(fn, ours=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return kernel_summary(prof, wall_ms, ours)
+
+
+def kernel_summary(prof, wall_ms: float, ours=()) -> dict:
+    """:func:`device_profile`'s figures from a finished profile and the
+    wall time of its window."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and "spin_kernel" not in e.name]
@@ -2010,11 +2041,12 @@ def phase_tta(mods, state, counters, dev, step_ns: float) -> dict:
             "lockstep_d2_b8": d2, "times": times}
 
 
-def coco_fixture(rle_encode, rng):
-    """An in-memory COCO split: six 480 x 640 and two 640 x 427 RGB
-    images in [0, 1], two or three people each, 17 labelled keypoints in
-    a grid inside each person's box, uncompressed-RLE segmentations."""
-    shapes = [(480, 640)] * 6 + [(640, 427)] * 2
+def coco_fixture(rle_encode, rng, shapes=((480, 640),) * 6
+                 + ((640, 427),) * 2):
+    """An in-memory COCO split: by default six 480 x 640 and two 640 x
+    427 RGB images in [0, 1], two or three people each, 17 labelled
+    keypoints in a grid inside each person's box, uncompressed-RLE
+    segmentations."""
     images, anns, pics = [], [], {}
     aid = 1
     for i, (h, w) in enumerate(shapes):
@@ -2976,6 +3008,450 @@ def int8_end_to_end(PosePredictor, hrnet, state, scales, dev) -> dict:
     return out
 
 
+# ------------------------------------- phase 25: the distillation trainer
+# the trainer's fixture: 24 images of 480 x 640, 6 of 640 x 427 and 2 of
+# 360 x 400 (smaller than the 450 x 450 crop: the padded crop)
+TRAINER_SHAPES = ((480, 640),) * 24 + ((640, 427),) * 6 + ((360, 400),) * 2
+TRAINER_BATCH, TRAINER_OUT, TRAINER_CANVAS = 16, (450, 450), (640, 640)
+TRAINER_SIGMA, TRAINER_WORKERS, CORPUS_INPUT = 7.0, 8, 640
+# the minival whitelist: 6 images of 480 x 640 and 2 of 640 x 427, two
+# chunks of the detection minival
+MINIVAL_IDX = (0, 3, 5, 8, 13, 21, 24, 29)
+# the device augment vs its plain composition on the CPU, the CPU test's
+# rule (tests/test_torch_pipeline.py): each plane within its tolerance
+# plus 8 ulps of a coordinate below 1024 times its largest step between
+# neighbouring pixels
+PIPE_TOL = {"img": 1e-5, "img_alt": 1e-3, "mask": 1e-5, "segm_mask": 1e-5,
+            "gt_hms": 1e-5, "teacher_hms": 1e-5, "teacher_ae": 1e-5}
+PIPE_COORD_TOL = 8 * 2.0 ** -14
+PIPE_PLANES = {"img": 3, "img_alt": 3, "mask": 1, "segm_mask": 1,
+               "gt_hms": 17, "teacher_hms": 17, "teacher_ae": 17}
+
+
+def phase_trainer_data(mods, model, state, root, card, dev) -> dict:
+    """The trainer's fixture in ``root``: the annotations, the teacher
+    corpus written by ``teacher_inference``'s core through the packed
+    seeded W48, the seeded W48 state as a ``.pth.tar``; the train and
+    minival datasets serving the pictures from memory."""
+    rle_mod, ti_mod, dataset_cls = mods
+    data, pics = coco_fixture(rle_mod.rle_encode,
+                              np.random.default_rng(SEED + 25),
+                              TRAINER_SHAPES)
+    os.makedirs(os.path.join(root, "annotations"))
+    with open(os.path.join(root, "annotations",
+                           "person_keypoints_val2017.json"), "w") as f:
+        json.dump(data, f)
+    teacher = os.path.join(root, "teacher")
+    names = [f"{i:012d}.jpg" for i in sorted(pics)]
+    by_name = {n: pics[int(n[:-4])] * 255.0 for n in names}
+    args = ti_mod.build_parser().parse_args(
+        ["-I", *names, "-o", teacher, "-m", "-", "--device", str(dev),
+         "--input_size", str(CORPUS_INPUT)])
+    t0 = time.perf_counter()
+    ti_mod.write_corpus(model, [(n, by_name[n].shape[:2]) for n in names],
+                        by_name.__getitem__, teacher, args)
+    corpus_s = time.perf_counter() - t0
+    check(len(os.listdir(teacher)) == len(names), "teacher corpus")
+    w48_path = os.path.join(root, "w48.pth.tar")
+    torch.save(state, w48_path)
+    mem = memory_dataset(dataset_cls, pics)
+    train_ds = mem(root, "val2017", teacher,
+                   remove_images_without_annotations=True,
+                   gt_stddevs_pix=[TRAINER_SIGMA], host_gt_heatmaps=False)
+    ids = sorted(pics)
+    minival_ds = mem(root, "val2017", remove_images_without_annotations=False,
+                     gt_stddevs_pix=[2.0],
+                     whitelist_ids=[ids[i] for i in MINIVAL_IDX],
+                     alt_colorspace="LAB", host_gt_heatmaps=False)
+    check(len(train_ds) == 32 and len(minival_ds) == 8,
+          f"{len(train_ds)} train, {len(minival_ds)} minival images")
+    print(f"trainer data: 32 images, teacher corpus in {corpus_s:.1f} s "
+          f"({card})", flush=True)
+    return {"train_ds": train_ds, "minival_ds": minival_ds,
+            "w48_path": w48_path, "corpus_s": corpus_s}
+
+
+def plane_steps(planes: torch.Tensor) -> torch.Tensor:
+    """Largest step between neighbouring pixels of each channel of an
+    NHWC stack, the warp's zero border included."""
+    p = F.pad(planes, (0, 0, 1, 1, 1, 1))
+    gx = (p[:, :, 1:] - p[:, :, :-1]).abs().amax(dim=(0, 1, 2))
+    gy = (p[:, 1:] - p[:, :-1]).abs().amax(dim=(0, 1, 2))
+    return gx + gy
+
+
+def augment_on(pipe_mod, host, dev) -> tuple:
+    """One host batch's planes before the warp and its augmented batch,
+    on ``dev``."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host[:7]]
+    planes = pipe_mod._augment_planes(*t[:6], (TRAINER_SIGMA,), "LAB")
+    out = pipe_mod._augment_batch_device(*t, TRAINER_OUT, (TRAINER_SIGMA,),
+                                         17, "LAB")
+    return planes, out
+
+
+def batches_per_s(pipe, epochs: int) -> float:
+    """Batches a second over ``epochs`` epochs of ``pipe``, host clock,
+    the last batch done on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(epochs):
+        for batch in pipe:
+            n += 1
+    torch.cuda.synchronize()
+    check(n == epochs * len(pipe), f"{n} batches of {epochs * len(pipe)}")
+    return n / (time.perf_counter() - t0)
+
+
+def repeated(ds, times: int):
+    """``ds`` with its id list repeated: a longer epoch of its images."""
+    import copy
+    out = copy.copy(ds)
+    out.ids = list(ds.ids) * times
+    return out
+
+
+def host_sample_ms(ds, dataset_mod, resize_mod, n: int = 4) -> dict:
+    """Host ms of one sample of ``ds`` (the mean of its first ``n``),
+    and of its two teacher parts: the ``.npz`` read and inflate, and the
+    resizes of the maps to image size."""
+    tot = npz = rsz = 0.0
+    for i in range(n):
+        t0 = time.perf_counter()
+        ds[i]
+        t1 = time.perf_counter()
+        t_hms, t_ae = dataset_mod.load_teacher_prediction(
+            ds.teacher_dir, f"{ds.ids[i]:012d}")
+        t2 = time.perf_counter()
+        im = ds.coco.imgs[ds.ids[i]]
+        hw = (im["height"], im["width"])
+        resize_mod.resize_bilinear_np(t_hms, hw)
+        resize_mod.resize_bilinear_np(t_ae, hw)
+        t3 = time.perf_counter()
+        tot, npz, rsz = tot + t1 - t0, npz + t2 - t1, rsz + t3 - t2
+    return {"sample": tot * 1e3 / n, "teacher_npz": npz * 1e3 / n,
+            "teacher_resize": rsz * 1e3 / n}
+
+
+def phase_pipeline(mods, ds, cache_root, card, dev) -> dict:
+    """The pipeline alone at the trainer's settings (B=16, 450 x 450 on a
+    640 x 640 canvas, sigma 7, 8 workers, compact): an epoch's batches
+    of the specified shapes and finite; one batch on the card against
+    the plain composition on the CPU from the same host batch; the host
+    ms a batch and a sample, the device augment's ms and peak memory,
+    and batches/s of uncached epochs and of cached ones."""
+    pipe_mod, dataset_mod, resize_mod = mods
+    kw = dict(batch_size=TRAINER_BATCH, out_hw=TRAINER_OUT,
+              sigma=TRAINER_SIGMA, canvas_hw=TRAINER_CANVAS,
+              num_workers=TRAINER_WORKERS, device=dev)
+    pipe = pipe_mod.TrainPipeline(ds, **kw)
+    n_batches = 0
+    for batch in pipe:
+        n_batches += 1
+        check(sorted(batch) == sorted([*PIPE_PLANES, "img_id"]),
+              f"batch keys {sorted(batch)}")
+        for name, c in PIPE_PLANES.items():
+            t = batch[name]
+            check(tuple(t.shape) == (TRAINER_BATCH, *TRAINER_OUT, c)
+                  and t.dtype == torch.float32
+                  and t.device.type == dev.type,
+                  f"{name}: {tuple(t.shape)} {t.dtype}")
+            check(bool(torch.isfinite(t).all()), f"{name}: non-finite")
+        check(batch["img_id"].shape == (TRAINER_BATCH,), "img_id")
+    check(n_batches == 2, f"{n_batches} batches an epoch")
+    del batch
+
+    host = next(pipe_mod.TrainPipeline(ds, **kw).host_batches())
+    planes_c, card_out = augment_on(pipe_mod, host, dev)
+    planes_p, plain_out = augment_on(pipe_mod, host, torch.device("cpu"))
+    steps = plane_steps(planes_p)
+    worst, c0 = {}, 0
+    for name, c in PIPE_PLANES.items():
+        pre = float((planes_c[..., c0:c0 + c].cpu()
+                     - planes_p[..., c0:c0 + c]).abs().max())
+        bound = PIPE_TOL[name] + PIPE_COORD_TOL * float(
+            steps[c0:c0 + c].max())
+        err = float((card_out[name].cpu() - plain_out[name]).abs().max())
+        worst[name] = {"max_abs_err": err, "bound": bound,
+                       "before_warp": pre}
+        check(pre <= PIPE_TOL[name], f"{name} before the warp: {pre:.3g}")
+        check(err <= bound, f"{name}: card vs CPU {err:.3g} > {bound:.3g}")
+        c0 += c
+    del planes_c, card_out, planes_p, plain_out, steps
+
+    idx = np.arange(TRAINER_BATCH)
+    t0 = time.perf_counter()
+    pipe._host_batch(idx, np.random.RandomState(0))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    sample_ms = host_sample_ms(ds, dataset_mod, resize_mod)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+         for a in host[:7]]
+    upload_ms = device_ms(lambda: [a.to(dev, non_blocking=True) for a in t],
+                          3)
+    on_card = [a.to(dev) for a in t]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pipe_mod._augment_batch_device(*on_card, TRAINER_OUT, (TRAINER_SIGMA,),
+                                   17, "LAB")
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    aug_ms = device_ms(lambda: pipe_mod._augment_batch_device(
+        *on_card, TRAINER_OUT, (TRAINER_SIGMA,), 17, "LAB"), 3)
+    del on_card, t
+
+    # an epoch of 32 images is 2 batches, built at once by 2 workers:
+    # its rate is one batch's latency; 4 times the ids give 8 batches,
+    # one a worker, which is the pool's rate
+    rates = {"uncached_2_batch_epochs": batches_per_s(
+                 pipe_mod.TrainPipeline(ds, **kw), 4),
+             "uncached_8_batch_epoch": batches_per_s(
+                 pipe_mod.TrainPipeline(repeated(ds, 4), **kw), 1)}
+    cache_dir = os.path.join(cache_root, "canvas_cache")
+    cached_pipe = pipe_mod.TrainPipeline(ds, cache_dir=cache_dir, **kw)
+    rates["cache_fill_epoch"] = batches_per_s(cached_pipe, 1)
+    rates["cached_2_batch_epochs"] = batches_per_s(cached_pipe, 4)
+    cache_gb = sum(os.path.getsize(os.path.join(cache_dir, f))
+                   for f in os.listdir(cache_dir)) / 1e9
+    out = {"vs_plain": worst, "host_ms_a_batch_one_thread": host_ms,
+           "host_ms_a_sample": sample_ms,
+           "upload_ms_pinned": upload_ms, "augment_ms": aug_ms,
+           "augment_peak_gb": peak_gb, "batches_per_s": rates,
+           "cache_gb": cache_gb}
+    print(f"pipeline: 2 batches an epoch, shapes and finite; card vs CPU "
+          f"worst {({k: v['max_abs_err'] for k, v in worst.items()})}; host "
+          f"{host_ms:.1f} ms a batch (one thread; a sample {sample_ms}), "
+          f"upload {upload_ms:.2f} "
+          f"ms, augment {aug_ms:.2f} ms, peak {peak_gb:.2f} GB; batches/s "
+          f"{rates} ({card})", flush=True)
+    return out
+
+
+class StepClock:
+    """The trainer's ``on_step``: each step's losses and host time after
+    a synchronise, and a ``torch.profiler`` window from step
+    ``profile[0]`` to step ``profile[1]``."""
+
+    def __init__(self, profile=None):
+        self.t, self.losses, self.window = {}, {}, profile
+        self.prof = self.profile = None
+
+    def __call__(self, step, state, metrics):
+        torch.cuda.synchronize()
+        self.t[step] = time.perf_counter()
+        self.losses[step] = [float(metrics["attention_loss"]),
+                             float(metrics["keypoints_loss"])]
+        if self.window and step == self.window[1] and self.prof is not None:
+            wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+            self.profile = kernel_summary(self.prof, wall_ms)
+            self.prof = None
+        if self.window and step == self.window[0]:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+
+@torch.no_grad()
+def ae_student(factory_mod, trained, dev):
+    """An ``ae_dims=1`` student with ``trained``'s weights: all of them,
+    and det_top's 17 heatmap rows beside its seeded AE row."""
+    out = factory_mod.get_attention_student(ae_dims=1, device=dev, seed=2)
+    own = out.state_dict()
+    for k, v in trained.state_dict().items():
+        if k.startswith("det_top."):
+            own[k][:v.shape[0]] = v
+        else:
+            own[k] = v
+    out.load_state_dict(own)
+    return out
+
+
+def run_trainer(dist_mod, args, train_ds, minival_ds, clock, log_path,
+                dev):
+    """``cli.distillation.train`` with its log lines in ``log_path``."""
+    import contextlib
+    with open(log_path, "a") as f, contextlib.redirect_stdout(f):
+        return dist_mod.train(args, train_ds, minival_ds, device=dev,
+                              on_step=clock)
+
+
+def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
+    """``cli.distillation.train`` at the script's defaults with
+    ``--fused_cam`` for 5 steps over 3 epochs (2 steps each), the
+    minival and the diagnostics every 2 steps; then the resume to step
+    7, ``eval_attention``'s core on the last parts, a pipeline-fed loop
+    of steps without the trainer's per-epoch work, and the detection
+    minival of an ``ae_dims=1`` student with the trained weights."""
+    (dist_mod, eval_mod, ckpt_mod, minival_mod, factory_mod, train_mod,
+     cam_mod, nms_mod, pipe_mod) = mods
+    train_ds, minival_ds = data["train_ds"], data["minival_ds"]
+    snaps = os.path.join(out, "snaps")
+    log_path = os.path.join(out, "trainer.log")
+
+    def args(*extra):
+        return dist_mod.build_parser().parse_args([
+            "--fused_cam", "--max_steps", "5", "--diagnose_every", "2",
+            "--minival_every", "2", "--num_epochs", "3",
+            "--model_path", data["w48_path"], "--snapshot_dir", snaps,
+            "--log_dir", os.path.join(out, "log"),
+            "--tb_dir", os.path.join(out, "tb"),
+            "--num_workers", str(TRAINER_WORKERS), "--device", str(dev),
+            *extra])
+
+    clock = StepClock(profile=(3, 5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(cam_mod.KERNELS)
+    for f in cam_mod.PLAIN:
+        f.calls = 0
+    res = run_trainer(dist_mod, args(), train_ds, minival_ds, clock,
+                      log_path, dev)
+    launches = read(cam_mod.KERNELS)
+    plain_calls = sum(f.calls for f in cam_mod.PLAIN)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(res.start_step == 0 and res.step == 5, f"steps {res.step}")
+    for name, n in launches.items():
+        check(n == 30, f"{name}: {n} launches in the trainer's 5 steps")
+    check(plain_calls == 0, "a plain CAM version ran in the trainer")
+    losses = [clock.losses[s] for s in sorted(clock.losses)]
+    check(len(losses) == 5 and all(np.isfinite(v) for r in losses
+                                   for v in r), f"losses {losses}")
+    model = res.state.model
+    for k, p in model.stem.named_parameters():
+        check(torch.equal(p.detach(), w48_state[k].to(dev)),
+              f"frozen stem {k} moved")
+    fresh = factory_mod.get_attention_student(device=dev, seed=0)
+    for k, p in fresh.named_parameters():
+        if k.startswith("mid_stem"):
+            check(torch.equal(p.detach(), dict(model.named_parameters())[k]),
+                  f"frozen {k} moved")
+    del fresh
+    check([s for s, _, _ in res.minival] == [2, 4]
+          and all(np.isfinite(v) for _, v, _ in res.minival),
+          f"minival {res.minival}")
+    ck_dir = os.path.join(snaps, "train_state")
+    check(sorted(os.listdir(ck_dir)) == ["step_2.pt", "step_4.pt",
+                                         "step_5.pt"],
+          f"checkpoints {sorted(os.listdir(ck_dir))}")
+    check(len(res.parts) == 21 and all(
+        os.path.basename(p).startswith(f"{res.timestamp}_epoch{e}_step{s}")
+        for p, (e, s) in zip(res.parts, [(0, 2)] * 7 + [(1, 4)] * 7
+                             + [(2, 5)] * 7)), "7 part files an epoch")
+    jsonl = os.path.join(out, "tb", f"[distillation.py]_{res.timestamp}",
+                         "metrics.jsonl")
+    with open(jsonl) as f:
+        tags = {(r.get("tag"), r.get("step")) for r in map(json.loads, f)}
+    check(all(("attention_loss", s) in tags and ("keypoints_loss", s) in tags
+              for s in (1, 2, 3, 4)), "metrics.jsonl lacks step scalars")
+    minival = [[s, v] for s, v, _ in res.minival]
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    momentum = [res.state.optimizer.state[p]["momentum_buffer"].clone()
+                for g in res.state.optimizer.param_groups
+                for p in g["params"]]
+    del res, model
+
+    # resume: the latest checkpoint restores bitwise, then to step 7
+    cfg = train_mod.DistillConfig(distillation_alpha=0.8)
+    fresh = train_mod.DistillTrainState.create(
+        factory_mod.get_attention_student(fused_cam=True, device=dev,
+                                          seed=1), cfg)
+    fresh, step = ckpt_mod.TrainCheckpointer(ck_dir).restore(fresh)
+    check(step == 5 and fresh.step == 5, f"restored step {step}")
+    for k, v in fresh.model.state_dict().items():
+        check(torch.equal(v, saved[k]), f"restored {k} differs")
+    for a, b in zip([fresh.optimizer.state[p]["momentum_buffer"]
+                     for g in fresh.optimizer.param_groups
+                     for p in g["params"]], momentum):
+        check(torch.equal(a, b), "restored momentum differs")
+    del fresh, saved, momentum
+    res2 = run_trainer(dist_mod, args("--max_steps", "7"), train_ds,
+                       minival_ds, StepClock(), log_path, dev)
+    with open(log_path) as f:
+        check("resumed from checkpoint step 5" in f.read(), "no resume line")
+    check(res2.start_step == 5 and res2.step == 7,
+          f"resumed run {res2.start_step} -> {res2.step}")
+    check(sorted(os.listdir(ck_dir)) == ["step_4.pt", "step_5.pt",
+                                         "step_7.pt"], "checkpoints")
+
+    # eval_attention's core on the last parts
+    import logging
+    quiet = logging.getLogger("chip_smoke.eval_attention")
+    ev_args = eval_mod.build_parser().parse_args([
+        "--snapshot_dir", snaps, "--load_timestamp", res2.timestamp,
+        "--load_epoch", "0", "--load_step", "7",
+        "--model_path", data["w48_path"], "--save_every", "0",
+        "--device", str(dev)])
+    ev = eval_mod.evaluate(eval_mod.load_student(ev_args, quiet),
+                           minival_ds, ev_args, quiet)
+    check(len(ev.losses) == 8 and np.isfinite(ev.mean),
+          f"eval_attention mean {ev.mean}")
+
+    # pipeline-fed steps without the trainer's per-epoch work: the
+    # resumed state on an epoch of 8 batches (4 times the ids, which 8
+    # workers build at once), 2 steps to warm up, then 4 profiled
+    state = res2.state
+    step_fn = train_mod.make_distill_train_step(state.model, cfg,
+                                                bn_dtype=torch.bfloat16)
+    it = iter(pipe_mod.TrainPipeline(
+        repeated(train_ds, 4), batch_size=TRAINER_BATCH, out_hw=TRAINER_OUT,
+        sigma=TRAINER_SIGMA, canvas_hw=TRAINER_CANVAS,
+        num_workers=TRAINER_WORKERS, device=dev))
+
+    def fed_step():
+        batch = next(it)
+        batch.pop("img_id")
+        step_fn(state, batch)
+
+    fed_step()
+    fed_step()
+    fed = device_profile(lambda: [fed_step() for _ in range(4)])
+    trained = state.model
+    del it, state, res2
+
+    # the detection side: the distillation step trains no AE channel (its
+    # keypoint loss takes the 17 heatmaps; JAX's raises on an ae_dims=1
+    # student as the port's does), so the trained weights go into an
+    # ae_dims=1 student, its AE row of det_top seeded, for the minival
+    det_model = ae_student(factory_mod, trained, dev)
+    del trained
+    nms_mod.nms_topk.launches = 0
+    stats = minival_mod.detection_minival(det_model, minival_ds)
+    nms_launches = read((nms_mod.nms_topk,))["nms_topk"]
+    check(nms_launches == 2, f"{nms_launches} nms_topk launches, 2 chunks")
+    check(len(stats) == 10 and all(np.isfinite(v) for v in stats.values()),
+          f"detection minival {stats}")
+    del det_model
+
+    ts = [clock.t[s] for s in range(1, 6)]
+    img_per_s = TRAINER_BATCH * 4 / (ts[-1] - ts[0])
+    out = {"launches": launches, "plain_calls": plain_calls,
+           "losses": losses, "minival_att_loss": minival,
+           "img_per_s_after_first_step": img_per_s,
+           "step_intervals_ms": [(b - a) * 1e3 for a, b in zip(ts, ts[1:])],
+           "profile_steps_4_5": clock.profile, "peak_gb": peak_gb,
+           "eval_attention_mean": ev.mean,
+           "fed_steps": {"img_per_s": 4 * TRAINER_BATCH * 1e3
+                         / fed["wall_ms"], "profile_4_steps": fed},
+           "synthetic_step_img_per_s": synthetic,
+           "detection_minival": {"stats": stats,
+                                 "nms_topk_launches": nms_launches}}
+    print(f"trainer: 5 fused steps over 3 epochs, launches {launches}, "
+          f"losses {losses}, resumed 5 -> 7 bitwise, eval_attention "
+          f"{ev.mean:.5f}, detection minival nms_topk x{nms_launches}; "
+          f"{img_per_s:.1f} img/s after the first step (busy "
+          f"{(clock.profile or {}).get('device_busy')}), a pipeline-fed "
+          f"step {out['fed_steps']['img_per_s']:.1f} img/s (busy "
+          f"{fed.get('device_busy')}), the synthetic step "
+          f"{synthetic:.1f}; peak {peak_gb:.2f} GB ({card})", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3011,6 +3487,11 @@ def main() -> None:
                                        load_serving_artifact)
         from rtpe_tpu_torch.ops import qfuse as qfuse_mod
         from rtpe_tpu_torch.ops import quant as quant_mod
+        from rtpe_tpu_torch.cli import distillation as dist_mod
+        from rtpe_tpu_torch.cli import eval_attention as eval_attn_mod
+        from rtpe_tpu_torch.data import pipeline as pipe_mod
+        from rtpe_tpu_torch.eval import minival as minival_mod
+        from rtpe_tpu_torch.io import checkpoint as ckpt_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
     dev = torch.device("cuda", 0)
@@ -3126,6 +3607,20 @@ def main() -> None:
             "stream": stream_int8, "forward_ms": times8["forward"],
             "nonport_kernels": times8["nonport"],
             "predict_batch_8": e2e_int8}
+    # phase 25: the distillation trainer on the pipeline
+    with tempfile.TemporaryDirectory() as root:
+        tdata = phase_trainer_data(
+            (rle_mod, ti_mod, dataset_mod.CocoDistillationDataset), model,
+            state, root, card, dev)
+        pipeline = phase_pipeline((pipe_mod, dataset_mod, resize_mod),
+                                  tdata["train_ds"], root, card, dev)
+        trainer = phase_trainer(
+            (dist_mod, eval_attn_mod, ckpt_mod, minival_mod, factory_mod,
+             train_mod, cam_mod, nms_mod, pipe_mod), tdata, root, state,
+            train["fused"]["img_per_s"], card, dev)
+        trainer = {"corpus_s": tdata["corpus_s"], "pipeline": pipeline,
+                   **trainer}
+        del tdata
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
                       "ptxas": build["ptxas"], "warp_step_probe": probe,
@@ -3140,7 +3635,8 @@ def main() -> None:
                       "profile_bs8_packed": prof_packed,
                       "cam_check": cam_errs, "train": train, "tta": tta,
                       "validate": validate, "corpus": corpus,
-                      "stream": stream, "int8": int8}))
+                      "stream": stream, "int8": int8, "trainer": trainer}))
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

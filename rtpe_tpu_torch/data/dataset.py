@@ -6,17 +6,20 @@ A sample is a dict of numpy arrays (HWC layout) instead of a torch
 tuple:
 
 ``img_id, img (H,W,3 in [0,1]), mask (H,W), hms (list of (H,W,J)),
-teacher_hms (H,W,17), teacher_ae (H,W,D), segm_mask (H,W), joints``
+teacher_hms (H,W,17), teacher_ae (H,W,D), segm_mask (H,W), joints``,
+and ``img_alt`` (H,W,3) with ``alt_colorspace`` ``"LAB"`` or ``"HSV"``
+(:mod:`rtpe_tpu_torch.ops.color` on a CPU tensor).
 
-``alt_colorspace`` (the ``img_alt`` planes) needs ``ops/color.py``,
-which comes with the data pipeline in a later slice of the port; until
-then the constructor refuses it.
+The batched, augmented path on the device is ``pipeline.py``; this
+class keeps the reference's per-sample semantics for the evaluation
+loops and the minival.
 """
 
 import os
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .coco import (
     CocoAnnotations,
@@ -24,13 +27,12 @@ from .coco import (
     get_ignore_mask,
     get_joints,
 )
+from ..ops.color import rgb_to_hsv, rgb_to_lab
 from ..ops.resize import resize_bilinear_np
 from .targets import HeatmapGenerator
 from .teacher_cache import load_teacher_prediction
 
-ALT_COLORSPACE_LATER = ("alt_colorspace needs ops/color.py, which comes "
-                        "with the data pipeline (ROADMAP.md Queue 5 item 1) "
-                        "in a later slice of the port")
+ALT_COLORSPACES = {"LAB": rgb_to_lab, "HSV": rgb_to_hsv}
 
 
 class CocoDistillationDataset:
@@ -46,8 +48,10 @@ class CocoDistillationDataset:
                  whitelist_ids: Optional[Sequence[int]] = None,
                  alt_colorspace: Optional[str] = None,
                  host_gt_heatmaps: bool = True):
-        if alt_colorspace is not None:
-            raise NotImplementedError(ALT_COLORSPACE_LATER)
+        if alt_colorspace is not None and \
+                alt_colorspace not in ALT_COLORSPACES:
+            raise ValueError(f"alt_colorspace {alt_colorspace!r} is not one "
+                             f"of {sorted(ALT_COLORSPACES)}")
         self.root = coco_root_path
         self.dataset = coco_dataset_name
         self.coco = CocoAnnotations.from_root(coco_root_path,
@@ -56,6 +60,7 @@ class CocoDistillationDataset:
         self.heatmap_generators = [HeatmapGenerator(num_joints, s)
                                    for s in gt_stddevs_pix]
         self.teacher_dir = teacher_output_dir
+        self.alt_colorspace = alt_colorspace
         # the device pipeline renders targets from joints on device;
         # setting this False skips the (unused) host gaussian blits
         self.host_gt_heatmaps = host_gt_heatmaps
@@ -120,6 +125,9 @@ class CocoDistillationDataset:
             "segm_mask": segm_mask,
             "joints": joints,
         }
+        if self.alt_colorspace is not None:
+            fn = ALT_COLORSPACES[self.alt_colorspace]
+            sample["img_alt"] = fn(torch.from_numpy(img)).numpy()
         return sample
 
     # ------------------------------------------------------------------

@@ -5,10 +5,11 @@ reference ``HWHeatmapGenerator`` (``rtpe/dataloaders.py:30-79``):
 
 * :class:`HeatmapGenerator`: host numpy, blit for blit the reference's
   (int-truncated centres, 6 sigma + 3 window, max-combine);
-* :func:`render_heatmaps`: torch on the joints' device, vectorized over
-  a fixed (P, J) joint tensor; the same values for integer sigma (the
-  only ones the reference uses: 2.0 and 7.0), because the window
-  condition reduces to ``|p - x| <= 3 sigma + 1`` on the integer grid.
+* :func:`render_heatmaps`: torch on the joints' device over a fixed
+  (P, J) joint tensor, JAX's values; the same values as the host blits
+  for integer sigma (the only ones the reference uses: 2.0 and 7.0),
+  because the window condition reduces to ``|p - x| <= 3 sigma + 1`` on
+  the integer grid.
 
 PROVENANCE / LICENSE: :class:`HeatmapGenerator` is a blit-for-blit port
 of the reference's ``HWHeatmapGenerator`` (itself derived from the
@@ -17,6 +18,7 @@ HigherHRNet data loader, Copyright (c) Microsoft, MIT License; see
 :func:`render_heatmaps` and the dataset's target renderer.
 """
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -63,27 +65,45 @@ class HeatmapGenerator:
 
 def render_heatmaps(joints: torch.Tensor, out_hw: Tuple[int, int],
                     sigma: float = 2.0) -> torch.Tensor:
-    """Vectorized renderer on ``joints``' device.
+    """Renderer on ``joints``' device: the values of JAX's broadcast
+    renderer (``rtpe_tpu/data/targets.py:render_heatmaps``).
+
+    JAX broadcasts a (B, P, J, H, W) Gaussian and takes its max over
+    people, which XLA fuses; eager, that is ~13 GB a float32 temporary at
+    B=16, P=30, J=17 on a 640 x 640 canvas.  Here the Gaussian is
+    evaluated once on the integer offsets of its window with the same
+    expression, and each visible joint's window is scattered into the
+    output with ``amax``: a max is exact and order-free, so the result is
+    bitwise the broadcast renderer's, for B * P * J * (2r + 1)^2 values
+    instead of B * P * J * H * W.
 
     :param joints: (B, P, J, 3) fixed-shape keypoints (x, y, vis); pad
       absent people with vis=0.
-    :returns: (B, H, W, J) float32 heatmaps (NHWC).
+    :returns: (B, H, W, J) float32 heatmaps (NHWC), contiguous.
     """
     h, w = out_hw
+    b, p, j, _ = joints.shape
+    dev = joints.device
     # the reference casts with int(), which truncates toward zero: a
     # visible keypoint at x in (-1, 0) lands on column 0 and is rendered
     # (a floor would send it to -1 and drop it)
-    x = joints[..., 0].to(torch.int32)
-    y = joints[..., 1].to(torch.int32)
+    x = joints[..., 0].to(torch.int32).long()
+    y = joints[..., 1].to(torch.int32).long()
     vis = ((joints[..., 2] > 0)
            & (x >= 0) & (y >= 0) & (x < w) & (y < h))
-    px = torch.arange(w, dtype=torch.int32, device=joints.device)
-    py = torch.arange(h, dtype=torch.int32, device=joints.device)
-    dx = px[None, None, None, None, :] - x[..., None, None]  # (B,P,J,1,W)
-    dy = py[None, None, None, :, None] - y[..., None, None]  # (B,P,J,H,1)
-    win = 3 * sigma + 1
-    inside = ((dx.abs() <= win) & (dy.abs() <= win)
-              & vis[..., None, None])
-    g = torch.exp(-(dx.float() ** 2 + dy.float() ** 2) / (2.0 * sigma ** 2))
-    g = torch.where(inside, g, torch.zeros((), device=joints.device))
-    return g.amax(dim=1).permute(0, 2, 3, 1)  # max over people
+    # |d| <= 3 sigma + 1 on the integer grid is |d| <= r
+    r = int(math.floor(3 * sigma + 1))
+    off = torch.arange(-r, r + 1, device=dev)
+    d2 = off.float() ** 2
+    g = torch.exp(-(d2[None, :] + d2[:, None]) / (2.0 * sigma ** 2))  # [dy, dx]
+    py = y[..., None, None] + off[:, None]          # (B, P, J, 2r+1, 1)
+    px = x[..., None, None] + off[None, :]          # (B, P, J, 1, 2r+1)
+    valid = (vis[..., None, None] & (py >= 0) & (py < h)
+             & (px >= 0) & (px < w))
+    bi = torch.arange(b, device=dev)[:, None, None, None, None]
+    ji = torch.arange(j, device=dev)[None, None, :, None, None]
+    idx = torch.where(valid, ((bi * h + py) * w + px) * j + ji, 0)
+    val = torch.where(valid, g, torch.zeros((), device=dev))
+    out = torch.zeros(b * h * w * j, dtype=torch.float32, device=dev)
+    out.scatter_reduce_(0, idx.flatten(), val.flatten(), "amax")
+    return out.view(b, h, w, j)

@@ -1,11 +1,12 @@
 """Weight import and export: the JAX package's variables <-> the port's
-state dict (teacher; a student one way), JAX's BN-folded dict -> the
-port's serving dict, and the serving artifact directory, written and
-read."""
+state dict (teacher and student), JAX's BN-folded dict -> the port's
+serving dict, the serving artifact directory, written and read, and
+the trainer's checkpoints and part snapshots (``checkpoint.py``)."""
 
 from .jax_import import (  # noqa: F401
     folded_params_from_jax,
     jax_variables_from_state_dict,
+    jax_variables_from_student_state_dict,
     state_dict_from_jax,
     strip_fp16_prefix,
     student_state_dict_from_jax,

@@ -19,6 +19,9 @@ student (``AttentionStudentSteps``): its module names follow the JAX
 tree, the stem takes the teacher's names, and a Dense kernel ``(in,
 out)`` becomes a Linear weight ``(out, in)``.
 
+``jax_variables_from_student_state_dict(state_dict)`` is the inverse of
+``student_state_dict_from_jax`` (what the part snapshots store).
+
 ``jax_variables_from_state_dict(state_dict, cfg)`` is the inverse of
 ``state_dict_from_jax``: the port's teacher state dict back to the JAX
 package's ``{"params": ..., "batch_stats": ...}`` tree of float32 numpy
@@ -275,6 +278,43 @@ def student_state_dict_from_jax(variables_np: Mapping
         if leaf == "mean":
             out[f"{prefix}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long)
+    return out
+
+
+def jax_variables_from_student_state_dict(
+        state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The JAX package's variables of a student (nested dicts of float32
+    numpy leaves) from the port's state dict: the inverse of
+    :func:`student_state_dict_from_jax`.  Conv kernels OIHW -> HWIO,
+    Linear weights ``(out, in)`` -> Dense kernels ``(in, out)``, BN
+    weight / bias / running statistics -> scale / bias / mean / var; the
+    ``num_batches_tracked`` counters have no JAX counterpart."""
+    out: Dict[str, Dict] = {}
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        prefix, leaf = key.rsplit(".", 1)
+        parts = prefix.split(".")
+        mods = (("stem",) + _teacher_module_path(".".join(parts[1:]))
+                if parts[0] == "stem" else tuple(parts))
+        if _student_prefix(mods) != prefix:
+            raise KeyError(f"{key}: no JAX module maps back to {prefix}")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            collection, name = "params", ("scale" if arr.ndim == 1
+                                          else "kernel")
+            if arr.ndim == 4:
+                arr = np.transpose(arr, (2, 3, 1, 0))
+            elif arr.ndim == 2:
+                arr = arr.T
+        elif leaf in _LEAVES:
+            collection, name = _LEAVES[leaf]
+        else:
+            raise KeyError(f"unknown leaf {key}")
+        node = out.setdefault(collection, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
     return out
 
 

@@ -66,7 +66,7 @@ def get_packed_teacher(w48_statedict_path: Optional[str] = None,
 def get_attention_student(inplanes: int = 80, num_heatmaps: int = 17,
                           ae_dims: int = 0, alt_planes: int = 50,
                           detach_att_for_det: bool = True,
-                          fused_cam: bool = False,
+                          fused_cam: bool = False, remat: bool = False,
                           dtype: Optional[torch.dtype] = None,
                           device: DeviceLike = None, seed: int = 0
                           ) -> AttentionStudentSteps:
@@ -80,7 +80,7 @@ def get_attention_student(inplanes: int = 80, num_heatmaps: int = 17,
     model = AttentionStudentSteps(
         inplanes=inplanes, num_heatmaps=num_heatmaps, ae_dims=ae_dims,
         alt_planes=alt_planes, detach_att_for_det=detach_att_for_det,
-        dtype=default_dtype(dev, dtype), fused_cam=fused_cam)
+        dtype=default_dtype(dev, dtype), fused_cam=fused_cam, remat=remat)
     init_student_(model, seed=seed)
     return model.to(dev, memory_format=torch.channels_last).train()
 

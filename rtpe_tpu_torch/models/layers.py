@@ -61,11 +61,39 @@ class bn_compute_dtype:
         return False
 
 
+def bn_dtype_now() -> torch.dtype:
+    """The train-mode BN output dtype in force."""
+    return _BN_COMPUTE_DTYPE
+
+
+class frozen_running_stats:
+    """Context manager: with ``frozen`` true, the BN layers inside
+    ``module`` leave their running statistics as they are (a remat
+    block's recompute, which flax does not count as a second update)."""
+
+    def __init__(self, module: nn.Module, frozen: bool = True):
+        self.bns = [m for m in module.modules()
+                    if isinstance(m, nn.BatchNorm2d)] if frozen else []
+
+    def __enter__(self):
+        for bn in self.bns:
+            bn.stats_frozen = True
+        return self
+
+    def __exit__(self, *exc):
+        for bn in self.bns:
+            bn.stats_frozen = False
+        return False
+
+
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
                          var: torch.Tensor) -> None:
     """flax's running-statistic update, ``mom * running + (1 - mom) *
-    batch`` with the biased batch variance."""
+    batch`` with the biased batch variance; none inside
+    :class:`frozen_running_stats`."""
+    if getattr(bn, "stats_frozen", False):
+        return
     mom = torch_bn_momentum()
     bn.running_mean.copy_(mom * bn.running_mean + (1 - mom) * mean.float())
     bn.running_var.copy_(mom * bn.running_var + (1 - mom) * var.float())

@@ -24,11 +24,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cam import fused_cam
 from ..ops.pooling import avg_pool, global_avg_pool
 from ..ops.resize import resize_bilinear, resize_nearest
-from .layers import BatchNorm2d, conv, update_running_stats
+from . import layers
+from .layers import BatchNorm2d, conv, frozen_running_stats, update_running_stats
 from .stem import STEM_OUT_CHANS, StemHRNet
 
 
@@ -79,18 +81,27 @@ class ContextAwareModule(nn.Module):
     kernels (:func:`rtpe_tpu_torch.ops.cam.fused_cam`) with the same
     parameters and flax's running-statistic update; eval mode always runs
     the unfused path.
+
+    ``remat=True`` (flax ``nn.remat``, ``rtpe_tpu/models/students.py:
+    243-264``) saves only the block's input when gradients are recorded
+    and recomputes its internals in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  The recompute runs
+    with the forward's BN output dtype and updates no running
+    statistic: each step moves them once, as flax does.
     """
 
     def __init__(self, chans: int, hdc_dilations: Sequence[int] = (1, 2, 3, 4),
                  se_chans: Optional[int] = None,
                  hdc_chans: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, fused: bool = False):
+                 dtype: torch.dtype = torch.float32, fused: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.chans = chans
         self.dils = tuple(hdc_dilations)
         self.hdc_ch = hdc_chans or chans // 4
         self.dtype = dtype
         self.fused = fused
+        self.remat = remat
         self.residual_conv = conv(chans, chans, 1)
         self.residual_bn = BatchNorm2d(chans)
         self.se = SELayer(chans, se_chans, dtype)
@@ -105,8 +116,26 @@ class ContextAwareModule(nn.Module):
         return getattr(self, f"hdc{i}_conv"), getattr(self, f"hdc{i}_bn")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return self._remat_forward(x)
         if self.fused and self.training:
             return self._fused_forward(x)
+        return self._forward(x)
+
+    def _remat_forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn_dtype = layers.bn_dtype_now()
+        calls = []
+
+        def run(x):
+            # the first call is the forward, a later one the recompute
+            with layers.bn_compute_dtype(bn_dtype), \
+                    frozen_running_stats(self, bool(calls)):
+                calls.append(None)
+                return self._forward(x)
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype
         x = x.to(dtype)
         residual = _conv_bn_relu(self.residual_conv, self.residual_bn, x,
@@ -158,11 +187,12 @@ class _CamPyramid(nn.Module):
     """
 
     def __init__(self, chans: int, hdc_dilations: Sequence[int],
-                 dtype: torch.dtype = torch.float32, fused: bool = False):
+                 dtype: torch.dtype = torch.float32, fused: bool = False,
+                 remat: bool = False):
         super().__init__()
         for name in ("hi", "mid", "lo"):
-            setattr(self, name, ContextAwareModule(chans, hdc_dilations,
-                                                   dtype=dtype, fused=fused))
+            setattr(self, name, ContextAwareModule(
+                chans, hdc_dilations, dtype=dtype, fused=fused, remat=remat))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hw = tuple(x.shape[2:])
@@ -178,6 +208,9 @@ class _CamPyramid(nn.Module):
 class AttentionStudentSteps(nn.Module):
     """The student trained by distillation (reference :786-1073).
 
+    ``remat`` recomputes every CAM block in the backward (see
+    :class:`ContextAwareModule`) and turns ``fused_cam`` off.
+
     ``forward(x, alt, att_divisor=None)``: ``x`` the normalised RGB image
     and ``alt`` its LAB/HSV version, both (B, 3, H, W).  Returns
     ``(att, det)``: the sigmoided attention map (B, 1, H/4, W/4) in
@@ -190,13 +223,17 @@ class AttentionStudentSteps(nn.Module):
                  trainable_stem: bool = False,
                  detach_att_for_det: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_cam: bool = False):
+                 fused_cam: bool = False, remat: bool = False):
         super().__init__()
         self.inplanes = inplanes
         self.trainable_stem = trainable_stem
         self.detach_att_for_det = detach_att_for_det
         self.dtype = dtype
+        # the fused kernels recompute internally; remat turns them off
+        # (rtpe_tpu/models/students.py:539-540)
+        fused_cam = fused_cam and not remat
         self.fused_cam = fused_cam
+        self.remat = remat
         mid_ch = (STEM_OUT_CHANS + inplanes) // 2
         self.stem = StemHRNet()
         self.mid_stem_conv0 = conv(STEM_OUT_CHANS, mid_ch, 3, 1, 1)
@@ -207,11 +244,13 @@ class AttentionStudentSteps(nn.Module):
         self.alt_stem_bn0 = BatchNorm2d(alt_planes)
         self.alt_stem_conv1 = conv(alt_planes, inplanes, 5, 2, 2)
         self.alt_stem_bn1 = BatchNorm2d(inplanes)
-        self.att = _CamPyramid(inplanes + 3, (1, 2, 3, 4), dtype, fused_cam)
+        self.att = _CamPyramid(inplanes + 3, (1, 2, 3, 4), dtype, fused_cam,
+                               remat)
         self.att_top = conv(inplanes + 3, 1, 3, 1, 1, bias=True)
         for i in range(3):
             setattr(self, f"step{i}", ContextAwareModule(
-                2 * inplanes + 3, (1, 2, 3), dtype=dtype, fused=fused_cam))
+                2 * inplanes + 3, (1, 2, 3), dtype=dtype, fused=fused_cam,
+                remat=remat))
         self.det_top = conv(2 * inplanes + 3, num_heatmaps + ae_dims, 3, 1, 1,
                             bias=True)
 

@@ -6,7 +6,8 @@
   masks, uncompressed counts and a polygon.
 * ``CocoDistillationDataset`` on ``_make_coco_fixture``: every key of
   every sample equal to JAX's (with and without teacher maps), the
-  ``alt_colorspace`` refusal, and the evaluation cases of
+  ``img_alt`` planes (LAB, HSV) and the refusal of another colorspace,
+  and the evaluation cases of
   ``tests/test_data_eval.py`` (perfect, a missing person, crowds, jitter,
   mismatched ids) with the same stats as JAX on the same predictions.
 * ``HeatmapGenerator`` / ``render_heatmaps``, ``resize_bilinear_np``,
@@ -186,10 +187,19 @@ def test_dataset_teacher_maps_equal_jax(fixture_root, tmp_path):
 
 
 def test_dataset_refuses_alt_colorspace(fixture_root):
+    """A colorspace other than LAB or HSV is refused; those two are
+    served as JAX's ``img_alt`` (``ops/color.py``'s tolerances)."""
     root, _ = fixture_root
-    for space in ("LAB", "HSV"):
-        with pytest.raises(NotImplementedError, match="Queue 5 item 1"):
-            CocoDistillationDataset(root, "val2017", alt_colorspace=space)
+    with pytest.raises(ValueError, match="YUV"):
+        CocoDistillationDataset(root, "val2017", alt_colorspace="YUV")
+    for space, atol in (("LAB", 1e-3), ("HSV", 1e-6)):
+        ds, ds_j = _both(root, alt_colorspace=space, host_gt_heatmaps=False)
+        got, want = ds[0], ds_j[0]
+        assert got["img_alt"].dtype == np.float32
+        np.testing.assert_allclose(got["img_alt"], want["img_alt"], rtol=0,
+                                   atol=atol)
+        got["img_alt"] = want["img_alt"]
+        _assert_same_sample(got, want)
 
 
 def _perfect(truth, ids, n_people=2, jitter=None):

@@ -1,9 +1,10 @@
 """Package rules of the PyTorch port, on the CPU.
 
 * Import hygiene: importing every ``rtpe_tpu_torch`` module pulls in
-  neither JAX nor any module of the JAX package, nor ``cv2`` or ``PIL``
-  (the card's machine has neither: the modules that draw or read image
-  files import them where they use them).  Checked in a fresh
+  neither JAX nor any module of the JAX package, nor ``cv2``, ``PIL``,
+  ``yaml`` or ``tensorboardX`` (the card's machine has none of them: the
+  modules that draw or read image files, configs or TensorBoard events
+  import them where they use them).  Checked in a fresh
   interpreter, so this test process's own imports do not count.
 * Device resolution: ``device=None`` means CUDA and raises where there
   is none; the CPU is used only when the caller asks for it.
@@ -33,14 +34,22 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "cv2", "PIL")
+                                    "cv2", "PIL", "yaml", "tensorboardX")
              or m == "rtpe_tpu" or m.startswith("rtpe_tpu."))
 for name in ("rtpe_tpu_torch.cli.validate_hhrnet",
              "rtpe_tpu_torch.cli.teacher_inference",
              "rtpe_tpu_torch.cli.export_serving", "rtpe_tpu_torch.ops.quant",
              "rtpe_tpu_torch.cli.realtime_demo", "rtpe_tpu_torch.eval.tta",
              "rtpe_tpu_torch.eval.cocoeval", "rtpe_tpu_torch.data.dataset",
-             "rtpe_tpu_torch.data.rle", "rtpe_tpu_torch.obs.vis"):
+             "rtpe_tpu_torch.data.rle", "rtpe_tpu_torch.obs.vis",
+             "rtpe_tpu_torch.ops.color", "rtpe_tpu_torch.data.augment",
+             "rtpe_tpu_torch.data.pipeline", "rtpe_tpu_torch.configs",
+             "rtpe_tpu_torch.io.checkpoint", "rtpe_tpu_torch.obs.tb",
+             "rtpe_tpu_torch.utils.logging", "rtpe_tpu_torch.utils.summary",
+             "rtpe_tpu_torch.utils.meters", "rtpe_tpu_torch.eval.minival",
+             "rtpe_tpu_torch.eval.engine", "rtpe_tpu_torch.cli.distillation",
+             "rtpe_tpu_torch.cli.eval_attention",
+             "rtpe_tpu_torch.cli.dataloader_demo"):
     assert name in names, name
 print(len(names), "modules")
 assert not bad, bad
