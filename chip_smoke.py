@@ -192,16 +192,32 @@ Phases, each of which fails the run:
     steps profiled apart from the trainer's per-epoch work; the
     detection minival of an ``ae_dims=1`` student with the trained
     weights (``nms_topk`` once a chunk); the trainer's img/s, busy share
-    and peak memory beside phase 18's synthetic-batch step.
+    and peak memory beside phase 18's synthetic-batch step;
+26. the host's native helpers and the legacy students, in phase 25's
+    fixture: ``rtpe_tpu_torch.native`` built with ``g++`` and loaded (the
+    run fails without it), the native resize of a 34-channel teacher map
+    to its image size within 1e-6 of numpy, both timed; phase 25's host
+    figures (ms a sample, ms a batch on one thread, batches/s of 8
+    workers) with the native resize and, in the same run, with numpy,
+    beside the recorded numpy-only ones; ``cli.distillation.train``
+    with ``--student cam`` at the script's defaults (B=16, 450 x 450,
+    bf16, inplanes 48, the W48 stem) for 5 steps over 3 epochs (finite
+    losses, the stem unchanged, checkpoints 2 / 4 / 5, 6 part files an
+    epoch, img/s, busy share, peak memory), the checkpoint restored
+    bitwise and the resume to 7, one
+    step each of ``refiner`` and ``multistage``; a ``dynamic_loss_scale``
+    step pair whose second batch holds an ``inf`` (parameters and
+    momentum bitwise unchanged, the scale halved); ``visualize_stem``'s
+    core on a 640 x 640 image (256 planes).
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, 16 with 11, and 17-19 after 15; 20-25 run last (24's
-validation inside 21's fixture).
+after 10, 16 with 11, and 17-19 after 15; 20-26 run last (24's
+validation inside 21's fixture, 26 inside 25's).
 
 Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
 line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA,
-CLI, int8 and trainer numbers, the ``nvidia-smi`` line again (so the
-end of the output names the card), and last
+CLI, int8, trainer and legacy-student numbers, the ``nvidia-smi`` line
+again (so the end of the output names the card), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
 prints no result.
@@ -3229,8 +3245,8 @@ def phase_pipeline(mods, ds, cache_root, card, dev) -> dict:
 
 
 class StepClock:
-    """The trainer's ``on_step``: each step's losses and host time after
-    a synchronise, and a ``torch.profiler`` window from step
+    """The trainer's ``on_step``: each step's losses (its metrics named
+    ``*loss``, in name order) and host time after a synchronise, and a ``torch.profiler`` window from step
     ``profile[0]`` to step ``profile[1]``."""
 
     def __init__(self, profile=None):
@@ -3240,8 +3256,8 @@ class StepClock:
     def __call__(self, step, state, metrics):
         torch.cuda.synchronize()
         self.t[step] = time.perf_counter()
-        self.losses[step] = [float(metrics["attention_loss"]),
-                             float(metrics["keypoints_loss"])]
+        self.losses[step] = [float(v) for k, v in sorted(metrics.items())
+                             if k.endswith("loss")]
         if self.window and step == self.window[1] and self.prof is not None:
             wall_ms = (time.perf_counter() - self.t0) * 1e3
             self.prof.__exit__(None, None, None)
@@ -3452,6 +3468,293 @@ def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
     return out
 
 
+# ------------------------------------------- phase 26: the legacy students
+# phase 25's host figures when the dataset resized with numpy alone,
+# recorded on H100 80GB HBM3 at 700 W (PERF.md): a sample, a batch on
+# one thread, batches/s of 8 workers
+NUMPY_ONLY_HOST = {"host_ms_a_sample": 177.0,
+                   "host_ms_a_batch_one_thread": 3890.0,
+                   "batches_per_s": 1.50}
+NATIVE_TOL = 1e-6             # native resize vs numpy (JAX's tolerance)
+LEGACY_STEPS = 5
+
+
+def teacher_map34(ds, cache_mod, i: int = 0):
+    """A seeded 34-channel map at the size of sample ``i``'s stored
+    teacher heatmaps (the corpus's model resolution), and its image
+    size."""
+    t_hms, _ = cache_mod.load_teacher_prediction(ds.teacher_dir,
+                                                 f"{ds.ids[i]:012d}")
+    im = ds.coco.imgs[ds.ids[i]]
+    x = np.random.default_rng(SEED + 26).normal(
+        size=(*t_hms.shape[:2], 34)).astype(np.float32)
+    return x, (im["height"], im["width"])
+
+
+def host_figures(mods, ds, dev, n_samples: int = 4,
+                 rate_only: bool = False) -> dict:
+    """Phase 25's host figures: ms a sample (the mean of the first
+    ``n_samples``), ms of one batch on one thread, batches/s of one
+    8-batch epoch by 8 workers (only the last with ``rate_only``)."""
+    pipe_mod, dataset_mod = mods
+    kw = dict(batch_size=TRAINER_BATCH, out_hw=TRAINER_OUT,
+              sigma=TRAINER_SIGMA, canvas_hw=TRAINER_CANVAS,
+              num_workers=TRAINER_WORKERS, device=dev)
+    out = {}
+    if not rate_only:
+        t0 = time.perf_counter()
+        for i in range(n_samples):
+            ds[i]
+        out["host_ms_a_sample"] = (time.perf_counter() - t0) * 1e3 \
+            / n_samples
+        pipe = pipe_mod.TrainPipeline(ds, **kw)
+        t0 = time.perf_counter()
+        pipe._host_batch(np.arange(TRAINER_BATCH), np.random.RandomState(0))
+        out["host_ms_a_batch_one_thread"] = (time.perf_counter() - t0) * 1e3
+    out["batches_per_s"] = batches_per_s(
+        pipe_mod.TrainPipeline(repeated(ds, 4), **kw), 1)
+    return out
+
+
+def phase_native(mods, ds, card, dev) -> dict:
+    """The host's native helpers on the card's machine: built and loaded
+    (``g++``), the resize of a 34-channel teacher map to its image size
+    against numpy within 1e-6, both timed; then phase 25's host figures
+    with the native resize and, in the same run, with numpy."""
+    native_mod, resize_mod, cache_mod, pipe_mod, dataset_mod = mods
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    check(native_mod.available(),
+          "the native library did not build or load on this machine")
+    build_s = time.perf_counter() - t0
+    x, hw = teacher_map34(ds, cache_mod)
+    got = native_mod.native_bilinear_resize(x, hw)
+    want = resize_mod.resize_bilinear_np(x, hw)
+    err = float(np.abs(got - want).max())
+    check(got.shape == (*hw, 34) and err <= NATIVE_TOL,
+          f"native resize vs numpy: {err:.3g}")
+    resize = {"shape_in": list(x.shape), "shape_out": list(got.shape),
+              "max_abs_err": err,
+              "native_ms": host_ms(lambda: native_mod.native_bilinear_resize(
+                  x, hw), 10),
+              "numpy_ms": host_ms(lambda: resize_mod.resize_bilinear_np(
+                  x, hw), 5)}
+    real = dataset_mod.native_bilinear_resize
+
+    def figures(use_native: bool, rate_only: bool = False) -> dict:
+        dataset_mod.native_bilinear_resize = real if use_native else (
+            lambda *a, **k: None)
+        try:
+            return host_figures((pipe_mod, dataset_mod), ds, dev,
+                                rate_only=rate_only)
+        finally:
+            dataset_mod.native_bilinear_resize = real
+
+    # in turns: native, numpy, numpy, native (the pool's rate each time)
+    with_native, with_numpy = figures(True), figures(False)
+    rates = [with_native["batches_per_s"], with_numpy["batches_per_s"],
+             figures(False, True)["batches_per_s"],
+             figures(True, True)["batches_per_s"]]
+    with_native["batches_per_s_turns"] = [rates[0], rates[3]]
+    with_numpy["batches_per_s_turns"] = [rates[1], rates[2]]
+    # each epoch of the pipeline page-locks its slots anew: their cost
+    pipe = pipe_mod.TrainPipeline(ds, batch_size=TRAINER_BATCH,
+                                  out_hw=TRAINER_OUT, canvas_hw=TRAINER_CANVAS,
+                                  num_workers=TRAINER_WORKERS, device=dev)
+    n_slots = pipe.num_workers + pipe.prefetch + 2
+    t0 = time.perf_counter()
+    slots = pipe_mod._HostSlots(n_slots, pipe._specs(),
+                                pin=dev.type == "cuda")
+    slots_ms = (time.perf_counter() - t0) * 1e3
+    slots_gb = sum(t.numel() * t.element_size()
+                   for t in slots.free.get()) * n_slots / 1e9
+    del slots, pipe
+    out = {"build_or_load_s": build_s, "resize_34ch": resize,
+           "host_native": with_native, "host_numpy_same_run": with_numpy,
+           "host_numpy_only_recorded": NUMPY_ONLY_HOST,
+           "pinned_slots": {"n": n_slots, "gb": slots_gb, "ms": slots_ms},
+           "cuda_allocated_gb_at_start": allocated_gb}
+    print(f"native: built/loaded in {build_s:.1f} s; 34-channel resize "
+          f"{x.shape[:2]} -> {hw}: native {resize['native_ms']:.2f} ms, "
+          f"numpy {resize['numpy_ms']:.2f} ms, max err {err:.3g}; host "
+          f"figures native {with_native}, numpy {with_numpy}, recorded "
+          f"numpy-only {NUMPY_ONLY_HOST}; an epoch's {n_slots} pinned slots ({slots_gb:.2f} "
+          f"GB) {slots_ms:.0f} ms ({card})", flush=True)
+    return out
+
+
+def legacy_args(dist_mod, data, out, student, dev, *extra):
+    """The trainer's flags: the script's defaults (B=16, 450 x 450 on a
+    640 x 640 canvas), spelled out."""
+    return dist_mod.build_parser().parse_args([
+        "--student", student, "--diagnose_every", "0",
+        "--batch_size", str(TRAINER_BATCH),
+        "--train_hw", *map(str, TRAINER_OUT),
+        "--canvas_hw", *map(str, TRAINER_CANVAS),
+        "--model_path", data["w48_path"],
+        "--snapshot_dir", os.path.join(out, student, "snaps"),
+        "--log_dir", os.path.join(out, student, "log"),
+        "--tb_dir", os.path.join(out, student, "tb"),
+        "--num_workers", str(TRAINER_WORKERS), "--device", str(dev), *extra])
+
+
+def phase_legacy_trainer(mods, data, out, card, dev) -> dict:
+    """``cli.distillation.train`` with ``--student cam`` at the script's
+    defaults (B=16, 450 x 450, bf16, inplanes 48, the W48 stem) for 5
+    steps over 3 epochs: finite losses, the frozen stem unchanged, the
+    checkpoints and the parts, img/s, busy share and peak memory; the
+    bitwise restore and the resume to step 7; one step each of
+    ``refiner`` and ``multistage``."""
+    dist_mod, ckpt_mod, factory_mod, train_mod = mods
+    train_ds = data["train_ds"]
+    log_path = os.path.join(out, "legacy.log")
+    clock = StepClock(profile=(3, 5))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_trainer(dist_mod, legacy_args(
+        dist_mod, data, out, "cam", dev, "--max_steps", str(LEGACY_STEPS),
+        "--num_epochs", "3"), train_ds, None, clock, log_path, dev)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = res.state.model
+    check(type(model).__name__ == "CamStudent"
+          and model.mid_stem_conv.out_channels == 48
+          and model.dtype == (torch.bfloat16 if dev.type == "cuda"
+                              else torch.float32),
+          "the cam student's build")
+    check(res.start_step == 0 and res.step == LEGACY_STEPS,
+          f"cam steps {res.step}")
+    losses = [clock.losses[s] for s in sorted(clock.losses)]
+    check(len(losses) == LEGACY_STEPS and all(
+        np.isfinite(v) for r in losses for v in r), f"cam losses {losses}")
+    w48 = torch.load(data["w48_path"], map_location=dev, weights_only=True)
+    for k, p in model.stem.named_parameters():
+        check(torch.equal(p.detach(), w48[k]), f"frozen stem {k} moved")
+    ck_dir = os.path.join(out, "cam", "snaps", "train_state")
+    check(sorted(os.listdir(ck_dir)) == ["step_2.pt", "step_4.pt",
+                                         "step_5.pt"],
+          f"cam checkpoints {sorted(os.listdir(ck_dir))}")
+    check(len(res.parts) == 18, f"{len(res.parts)} part files, not 6 x 3")
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = res.state.optimizer
+    momentum = [opt.state[p]["momentum_buffer"].clone()
+                for p in opt.param_groups[0]["params"]]
+    ts = [clock.t[s] for s in range(1, LEGACY_STEPS + 1)]
+    img_per_s = TRAINER_BATCH * (LEGACY_STEPS - 1) / (ts[-1] - ts[0])
+    del res, model, opt
+
+    fresh = train_mod.StudentTrainState.create(
+        factory_mod.get_legacy_student("cam", device=dev, seed=1),
+        train_mod.StudentDistillConfig(distillation_alpha=0.8,
+                                       background_factor=0.01))
+    fresh, step = ckpt_mod.TrainCheckpointer(ck_dir).restore(fresh)
+    check(step == LEGACY_STEPS and fresh.step == LEGACY_STEPS,
+          f"restored step {step}")
+    for k, v in fresh.model.state_dict().items():
+        check(torch.equal(v, saved[k]), f"restored {k} differs")
+    for a, b in zip([fresh.optimizer.state[p]["momentum_buffer"]
+                     for p in fresh.optimizer.param_groups[0]["params"]],
+                    momentum):
+        check(torch.equal(a, b), "restored momentum differs")
+    del fresh, saved, momentum
+    res2 = run_trainer(dist_mod, legacy_args(
+        dist_mod, data, out, "cam", dev, "--max_steps", "7",
+        "--num_epochs", "3"),
+        train_ds, None, StepClock(), log_path, dev)
+    with open(log_path) as f:
+        check("resumed from checkpoint step 5" in f.read(), "no resume line")
+    check(res2.start_step == LEGACY_STEPS and res2.step == 7,
+          f"resumed run {res2.start_step} -> {res2.step}")
+    del res2
+
+    others = {}
+    for student in ("refiner", "multistage"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c = StepClock()
+        r = run_trainer(dist_mod, legacy_args(
+            dist_mod, data, out, student, dev, "--max_steps", "1",
+            "--num_epochs", "1"), train_ds, None, c, log_path, dev)
+        loss = c.losses.get(1)
+        check(r.step == 1 and loss and all(np.isfinite(v) for v in loss),
+              f"{student}: losses {c.losses}")
+        others[student] = {"loss": loss, "peak_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}
+        del r
+    out_d = {"cam": {"losses": losses, "img_per_s_after_first_step":
+                     img_per_s, "step_intervals_ms":
+                     [(b - a) * 1e3 for a, b in zip(ts, ts[1:])],
+                     "profile_steps_4_5": clock.profile, "peak_gb": peak_gb},
+             **others}
+    print(f"legacy trainer: cam 5 steps over 3 epochs, losses {losses}, "
+          f"restored and resumed 5 -> 7 bitwise; {img_per_s:.1f} img/s "
+          f"after the first step (busy "
+          f"{(clock.profile or {}).get('device_busy')}), peak "
+          f"{peak_gb:.2f} GB; refiner / multistage one step each {others} "
+          f"({card})", flush=True)
+    return out_d
+
+
+def phase_loss_scale(mods, data, dev) -> dict:
+    """A step pair of the cam student with ``dynamic_loss_scale``: a
+    clean batch, then the same batch with an ``inf`` pixel; the second
+    step keeps the parameters and the momentum bitwise and halves the
+    scale."""
+    factory_mod, train_mod, pipe_mod = mods
+    model = factory_mod.get_legacy_student("cam", device=dev, seed=4)
+    cfg = train_mod.StudentDistillConfig(background_factor=0.01)
+    state = train_mod.StudentTrainState.create(model, cfg,
+                                               dynamic_loss_scale=True)
+    step = train_mod.make_student_train_step(model, cfg, TRAINER_OUT,
+                                             dynamic_loss_scale=True)
+    batch = next(iter(pipe_mod.TrainPipeline(
+        data["train_ds"], batch_size=TRAINER_BATCH, out_hw=TRAINER_OUT,
+        sigma=TRAINER_SIGMA, canvas_hw=TRAINER_CANVAS,
+        num_workers=TRAINER_WORKERS, device=dev)))
+    batch = {k: batch[k] for k in ("img", "gt_hms", "teacher_hms", "mask")}
+    state, m1 = step(state, batch)
+    check(float(m1["overflow"]) == 0.0 and np.isfinite(float(m1["loss"])),
+          f"clean scaled step {m1}")
+    params = [p.detach().clone() for p in model.parameters()]
+    opt = state.optimizer
+    momentum = [opt.state[p]["momentum_buffer"].clone()
+                for p in opt.param_groups[0]["params"]]
+    scale = float(state.scaler.scale)
+    bad = dict(batch, img=batch["img"].clone())
+    bad["img"][0, 0, 0, 0] = float("inf")
+    state, m2 = step(state, bad)
+    check(float(m2["overflow"]) == 1.0, "the inf batch did not overflow")
+    check(float(state.scaler.scale) == scale / 2,
+          f"scale {scale} -> {float(state.scaler.scale)}")
+    check(state.step == 2, f"step count {state.step}")
+    for a, b in zip(model.parameters(), params):
+        check(torch.equal(a.detach(), b), "a parameter moved on overflow")
+    for p, b in zip(opt.param_groups[0]["params"], momentum):
+        check(torch.equal(opt.state[p]["momentum_buffer"], b),
+              "the momentum moved on overflow")
+    return {"scale_before": scale, "scale_after": float(state.scaler.scale),
+            "loss_clean": float(m1["loss"])}
+
+
+def phase_visualize_stem(vis_mod, data, dev) -> dict:
+    """``visualize_stem``'s core on one 640 x 640 image: 256 planes of
+    160 x 160 from finite features."""
+    holder = vis_mod.load_stem(data["w48_path"], dev)
+    img = (np.random.default_rng(SEED + 26).random((640, 640, 3))
+           * 255).astype(np.uint8)
+    planes = vis_mod.stem_planes(holder, img, 640, dev)
+    check(planes.shape == (256, 160, 160) and planes.dtype == np.uint8,
+          f"stem planes {planes.shape} {planes.dtype}")
+    with torch.no_grad():
+        feats = holder.stem(vis_mod.model_input(
+            img.astype(np.float32), 640, dev)[None].permute(0, 3, 1, 2),
+            torch.bfloat16)
+    check(bool(torch.isfinite(feats).all()), "non-finite stem features")
+    return {"planes": list(planes.shape),
+            "non_constant_planes": int((planes.max((1, 2))
+                                        > planes.min((1, 2))).sum())}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3492,6 +3795,8 @@ def main() -> None:
         from rtpe_tpu_torch.data import pipeline as pipe_mod
         from rtpe_tpu_torch.eval import minival as minival_mod
         from rtpe_tpu_torch.io import checkpoint as ckpt_mod
+        from rtpe_tpu_torch import native as native_mod
+        from rtpe_tpu_torch.cli import visualize_stem as vis_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
     dev = torch.device("cuda", 0)
@@ -3620,6 +3925,19 @@ def main() -> None:
             train["fused"]["img_per_s"], card, dev)
         trainer = {"corpus_s": tdata["corpus_s"], "pipeline": pipeline,
                    **trainer}
+        # phase 26: the native helpers and the legacy students
+        torch.cuda.empty_cache()
+        t26 = time.perf_counter()
+        legacy = {"native": phase_native(
+            (native_mod, resize_mod, cache_mod, pipe_mod, dataset_mod),
+            tdata["train_ds"], card, dev)}
+        legacy["trainer"] = phase_legacy_trainer(
+            (dist_mod, ckpt_mod, factory_mod, train_mod), tdata, root, card,
+            dev)
+        legacy["loss_scale"] = phase_loss_scale(
+            (factory_mod, train_mod, pipe_mod), tdata, dev)
+        legacy["visualize_stem"] = phase_visualize_stem(vis_mod, tdata, dev)
+        legacy["phase_s"] = time.perf_counter() - t26
         del tdata
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
@@ -3635,7 +3953,8 @@ def main() -> None:
                       "profile_bs8_packed": prof_packed,
                       "cam_check": cam_errs, "train": train, "tta": tta,
                       "validate": validate, "corpus": corpus,
-                      "stream": stream, "int8": int8, "trainer": trainer}))
+                      "stream": stream, "int8": int8, "trainer": trainer,
+                      "legacy": legacy}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

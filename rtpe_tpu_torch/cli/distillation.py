@@ -1,12 +1,13 @@
-"""Distillation training of the ``AttentionStudentSteps`` student.
+"""Distillation training of the students.
 
     python -m rtpe_tpu_torch.cli.distillation --coco_dir <root> \\
         --teacher_dir <npz corpus> --model_path <w48.pth.tar> [--device cpu]
 
 Port of ``scripts/distillation.py`` with the same flags and defaults,
 plus ``--device`` (``cuda`` by default; raises without CUDA): the same
-model (inplanes 80, 17 heatmaps, 0 AE dims, bf16 on CUDA), the same
-dual attention/detection objective and SGDR hyperparameters, with
+model (``AttentionStudentSteps``, inplanes 80, 17 heatmaps, 0 AE dims,
+bf16 on CUDA), the same dual attention/detection objective and SGDR
+hyperparameters, with
 
 * the data path of :class:`~rtpe_tpu_torch.data.pipeline.TrainPipeline`
   (a thread pool builds host canvases, one upload, then colorspace,
@@ -22,9 +23,16 @@ dual attention/detection objective and SGDR hyperparameters, with
 * metrics to ``metrics.jsonl`` (and TensorBoard where tensorboardX is
   installed).
 
+``--student cam|refiner|multistage`` trains a legacy student as the JAX
+script does (``scripts/distillation.py:158-245``): built in bf16 on
+CUDA (``inplanes=48`` for ``cam``), the keypoint-mining MSE step of
+:func:`~rtpe_tpu_torch.train.legacy_steps.make_student_train_step` at
+``background_factor`` 0.01 for ``cam`` and 0 otherwise, on the batch's
+``img``, ``gt_hms``, ``teacher_hms`` and ``mask``, the same checkpoints,
+one part file per top-level module, and no minival.
+
 :func:`train` is the core on datasets the caller builds; :func:`main`
-builds them from ``--coco_dir``.  The JAX script's other students
-(``--student cam|refiner|multistage``) and its data-parallel flags
+builds them from ``--coco_dir``.  The JAX script's data-parallel flags
 (``--zero1``, ``--mesh_data`` above 1) are refused with a parser error
 naming the ``ROADMAP.md`` item that brings them.  Its
 ``CompileWatchdog`` guards the TPU's remote compile service and is not
@@ -36,7 +44,7 @@ import dataclasses
 import os
 import signal
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,13 +54,16 @@ from ..data.dataset import CocoDistillationDataset
 from ..data.pipeline import TrainPipeline
 from ..device import resolve_device
 from ..eval.minival import attention_minival, detection_minival
-from ..io.checkpoint import TrainCheckpointer, save_student_parts
-from ..models.factory import get_attention_student, load_pretrained_stem
+from ..io.checkpoint import (TrainCheckpointer, save_parts_by_toplevel,
+                             save_student_parts)
+from ..models.factory import (get_attention_student, get_legacy_student,
+                              load_pretrained_stem)
 from ..obs.tb import MetricWriter
-from ..train import DistillConfig, DistillTrainState, make_distill_train_step
+from ..train import (DistillConfig, DistillTrainState, StudentDistillConfig,
+                     StudentTrainState, make_distill_train_step,
+                     make_student_train_step)
 from ..utils import ColorLogger, make_timestamp, model_summary
 
-LATER_STUDENTS = "ROADMAP.md Queue 1 item 5.6"
 LATER_PARALLEL = "ROADMAP.md Queue 1 item 6"
 
 
@@ -71,8 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--student", default="attention_steps",
                    choices=["attention_steps", "cam", "refiner",
                             "multistage"],
-                   help="attention_steps = the live reference config; "
-                        f"the others come with {LATER_STUDENTS}")
+                   help="attention_steps = the live reference config")
     p.add_argument("--num_heatmaps", type=int, default=17)
     p.add_argument("--ae_dims", type=int, default=0)
     p.add_argument("--inplanes", type=int, default=80)
@@ -128,8 +138,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_flags(parser: argparse.ArgumentParser,
                 args: argparse.Namespace) -> None:
     """Parser errors (status 2) for what a later slice brings."""
-    if args.student != "attention_steps":
-        parser.error(f"--student {args.student} comes with {LATER_STUDENTS}")
     if args.zero1:
         parser.error(f"--zero1 comes with {LATER_PARALLEL}")
     if args.mesh_data not in (None, 1):
@@ -143,7 +151,7 @@ class Training:
     from (after any resume) and ended at, the last step's metrics, the
     minival results ``(step, att_loss, det_stats or None)``, the part
     files written and the timestamp that names them."""
-    state: DistillTrainState
+    state: Union[DistillTrainState, StudentTrainState]
     start_step: int
     step: int
     metrics: dict
@@ -202,17 +210,38 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
     tb = MetricWriter(os.path.join(args.tb_dir,
                                    f"[distillation.py]_{timestamp}"))
 
-    model = get_attention_student(
-        inplanes=args.inplanes, num_heatmaps=args.num_heatmaps,
-        ae_dims=args.ae_dims, detach_att_for_det=True,
-        fused_cam=args.fused_cam and not args.remat, remat=args.remat,
-        device=dev, seed=0)
+    attention = args.student == "attention_steps"
+    if attention:
+        model = get_attention_student(
+            inplanes=args.inplanes, num_heatmaps=args.num_heatmaps,
+            ae_dims=args.ae_dims, detach_att_for_det=True,
+            fused_cam=args.fused_cam and not args.remat, remat=args.remat,
+            device=dev, seed=0)
+        cfg = DistillConfig(distillation_alpha=args.alpha)
+        state = DistillTrainState.create(model, cfg)
+        step_fn = make_distill_train_step(
+            model, cfg, grad_accum=args.grad_accum,
+            bn_dtype=None if args.bn_f32 else torch.bfloat16)
+    else:
+        model = get_legacy_student(args.student,
+                                   num_heatmaps=args.num_heatmaps,
+                                   ae_dims=args.ae_dims, device=dev, seed=0)
+        # legacy/distillation_pcr.py:278 uses background_factor 0.01
+        cfg = StudentDistillConfig(
+            distillation_alpha=args.alpha,
+            background_factor=0.01 if args.student == "cam" else 0.0)
+        state = StudentTrainState.create(model, cfg)
+        raw_step = make_student_train_step(model, cfg,
+                                           out_hw=tuple(args.train_hw))
+
+        def step_fn(state, batch):
+            return raw_step(state, {k: batch[k] for k in (
+                "img", "gt_hms", "teacher_hms", "mask")})
+
+        minival_ds = None  # no minival for these (distillation.py:203)
     load_stem(model, args.model_path, log)
     log.info(model_summary(model))
     tb.hparams(vars(args))
-
-    cfg = DistillConfig(distillation_alpha=args.alpha)
-    state = DistillTrainState.create(model, cfg)
 
     ckpt = TrainCheckpointer(os.path.join(args.snapshot_dir, "train_state"))
     if args.resume:
@@ -229,10 +258,6 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
                              num_workers=args.num_workers, device=dev)
     log.info(f"train dataset: {len(train_ds)} images, "
              f"{len(pipeline)} steps/epoch on {dev}")
-    step_fn = make_distill_train_step(
-        model, cfg, grad_accum=args.grad_accum,
-        bn_dtype=None if args.bn_f32 else torch.bfloat16)
-
     global_step = start_step = state.step
     metrics: dict = {}
     minival: List[tuple] = []
@@ -279,7 +304,9 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
             # per-epoch snapshots (reference distillation.py:422-431)
             ckpt.save(global_step, state)
             prefix = f"{timestamp}_epoch{epoch}_step{global_step}"
-            written = save_student_parts(model, args.snapshot_dir, prefix)
+            save = save_student_parts if attention else \
+                save_parts_by_toplevel
+            written = save(model, args.snapshot_dir, prefix)
             parts += written
             log.info(f"saved snapshot parts to {args.snapshot_dir} "
                      f"({len(written)} files)")
@@ -301,7 +328,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Training:
     whitelist = (read_whitelist(args.minival_file)
                  if args.minival_file else None)
     minival_ds = None
-    if whitelist:
+    if whitelist and args.student == "attention_steps":
         minival_ds = CocoDistillationDataset(
             args.coco_dir, args.train_dataset,
             remove_images_without_annotations=False,

@@ -27,12 +27,25 @@ from .coco import (
     get_ignore_mask,
     get_joints,
 )
+from ..native import native_bilinear_resize
 from ..ops.color import rgb_to_hsv, rgb_to_lab
 from ..ops.resize import resize_bilinear_np
 from .targets import HeatmapGenerator
 from .teacher_cache import load_teacher_prediction
 
 ALT_COLORSPACES = {"LAB": rgb_to_lab, "HSV": rgb_to_hsv}
+
+
+def _resize_bilinear_host(arr_hwc: np.ndarray, out_hw) -> np.ndarray:
+    """Host bilinear resize with torch ``align_corners=True`` semantics
+    (the teacher maps are stored at model resolution and upsampled to
+    image size, ``dataloaders.py:157-164``): the native loop
+    (:mod:`rtpe_tpu_torch.native`), even at equal shapes, as the JAX
+    package's ``_resize_bilinear_host``; numpy without it."""
+    out = native_bilinear_resize(arr_hwc, tuple(out_hw), align_corners=True)
+    if out is not None:
+        return out
+    return resize_bilinear_np(arr_hwc, tuple(out_hw), align_corners=True)
 
 
 class CocoDistillationDataset:
@@ -106,8 +119,8 @@ class CocoDistillationDataset:
             t_hms, t_ae = load_teacher_prediction(self.teacher_dir, img_num)
             # the maps are stored at model resolution and upsampled to
             # image size (dataloaders.py:157-164)
-            t_hms = resize_bilinear_np(t_hms, mask.shape)
-            t_ae = resize_bilinear_np(t_ae, mask.shape)
+            t_hms = _resize_bilinear_host(t_hms, mask.shape)
+            t_ae = _resize_bilinear_host(t_ae, mask.shape)
         else:
             t_hms = np.zeros((0,), np.float32)
             t_ae = np.zeros((0,), np.float32)

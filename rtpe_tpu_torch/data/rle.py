@@ -13,16 +13,17 @@ mask formats are implemented here:
 
 Masks are column-major (Fortran) order like COCO's.
 
-The JAX package decodes compressed counts with its host C++ codec
-(``rtpe_tpu/native/rle.cpp``) when that library is built.  That is host
-code, not a TPU kernel, and the numpy decode below is the JAX package's
-own fallback, so the port keeps only the numpy path (as the port's host
-grouping keeps scipy in place of the native solver).
+Compressed counts are decoded by the host C++ codec
+(:mod:`rtpe_tpu_torch.native`, ``rle.cpp``) as in the JAX package, and
+by the Python decode below where that library is unavailable.
+:func:`rle_encode` stays in numpy, as JAX's does.
 """
 
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
+
+from ..native import native_rle_decode
 
 
 def decode_rle_counts(s: Union[str, bytes]) -> List[int]:
@@ -71,10 +72,15 @@ def encode_rle_counts(counts: Sequence[int]) -> str:
 
 
 def rle_decode(rle: Dict) -> np.ndarray:
-    """RLE dict -> (h, w) uint8 mask.  Accepts compressed or raw counts."""
+    """RLE dict -> (h, w) uint8 mask.  Accepts compressed or raw counts;
+    compressed ones go through the C++ codec where it is built."""
     h, w = rle["size"]
     counts = rle["counts"]
     if isinstance(counts, (str, bytes)):
+        raw = counts.encode("ascii") if isinstance(counts, str) else counts
+        native = native_rle_decode(raw, h, w)
+        if native is not None:
+            return native
         counts = decode_rle_counts(counts)
     flat = np.zeros(h * w, dtype=np.uint8)
     pos = 0

@@ -9,18 +9,20 @@ to existing people by L2 tag distance through a Hungarian assignment
 their first tag value.
 
 :func:`munkres_assign` solves the zero-padded square assignment with
-``scipy.optimize.linear_sum_assignment``, the JAX package's documented
-fallback when its native solver (``rtpe_tpu/native/lap.cpp``) is not
-built.  On exact cost ties it may pair differently from that solver
-and from munkres (the total cost is the same), the caveat the JAX
-package states.
+the host's native solver (:func:`rtpe_tpu_torch.native.lap_solve`,
+``lap.cpp``), as the JAX package does, and with scipy's
+``linear_sum_assignment`` where that library is unavailable.  On exact
+cost ties the two solvers may pair differently, and either may differ
+from munkres (the total cost is the same), the caveat the JAX package
+states.
 """
 
 import dataclasses
 from typing import List
 
 import numpy as np
-from scipy.optimize import linear_sum_assignment
+
+from ..native import lap_solve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +49,7 @@ def munkres_assign(cost: np.ndarray) -> np.ndarray:
     k = max(n, m)
     sq = np.zeros((k, k), dtype=np.float64)
     sq[:n, :m] = cost
-    rows, cols = linear_sum_assignment(sq)
+    rows, cols = lap_solve(sq)
     return np.stack([rows, cols], axis=1).astype(np.int32)
 
 

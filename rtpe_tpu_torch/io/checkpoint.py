@@ -11,8 +11,9 @@ The reference saves 7 per-submodule torch statedicts per epoch named
   retention and latest-step discovery, so a run resumes by itself.  The
   JAX package stores it with orbax; orbax is not on the card's machine,
   so here each step is one ``torch.save`` file of ``{"step",
-  "model", "optimizer"}`` state dicts, written under a temporary name,
-  synced and renamed into place.  Like JAX, it does not store the data
+  "model", "optimizer"}`` state dicts (and a legacy student's dynamic
+  loss scaler, ``"scaler"``), written under a temporary name, synced
+  and renamed into place.  Like JAX, it does not store the data
   pipeline's RNG.
 * :func:`save_student_parts` / :func:`load_student_parts` keep the
   reference's part granularity, one ``.npz`` a part, with the JAX
@@ -153,8 +154,10 @@ class TrainCheckpointer:
     """Train-state checkpoints in ``directory`` with latest-step resume,
     retention of the newest ``max_to_keep`` and a SIGTERM save hook
     (preemption tolerance).  The state is a
-    :class:`~rtpe_tpu_torch.train.step.DistillTrainState`: ``step``,
-    ``model``, ``optimizer``."""
+    :class:`~rtpe_tpu_torch.train.step.DistillTrainState` (``step``,
+    ``model``, ``optimizer``) or a
+    :class:`~rtpe_tpu_torch.train.legacy_steps.StudentTrainState`, whose
+    dynamic loss scaler's state is kept too."""
 
     _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -176,6 +179,8 @@ class TrainCheckpointer:
         tmp = f"{path}.tmp-{os.getpid()}"
         blob = {"step": int(step), "model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict()}
+        if getattr(state, "scaler", None) is not None:
+            blob["scaler"] = [t.detach().clone() for t in state.scaler]
         with open(tmp, "wb") as f:
             torch.save(blob, f)
             f.flush()
@@ -201,6 +206,8 @@ class TrainCheckpointer:
                           weights_only=True)
         state.model.load_state_dict(blob["model"])
         state.optimizer.load_state_dict(blob["optimizer"])
+        if getattr(state, "scaler", None) is not None and "scaler" in blob:
+            state.scaler = type(state.scaler)(*blob["scaler"])
         state.step = int(blob["step"])
         return state, step
 

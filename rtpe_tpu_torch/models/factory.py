@@ -9,7 +9,11 @@ from ..device import DeviceLike, default_dtype, resolve_device
 from ..io.jax_import import strip_fp16_prefix
 from .hrnet import PoseHigherHRNet, init_random_, w48_config
 from .hrnet_packed import PackedParams, pack_w48_params, packed_forward
-from .students import AttentionStudentSteps, init_student_
+from .students import (AttentionStudentSteps, CamStudent, MultistageStudent,
+                       RefinerStudent, init_student_)
+
+LEGACY_STUDENTS = {"cam": CamStudent, "refiner": RefinerStudent,
+                   "multistage": MultistageStudent}
 
 
 def get_hrnet_w48_teacher(w48_statedict_path: Optional[str] = None,
@@ -82,6 +86,25 @@ def get_attention_student(inplanes: int = 80, num_heatmaps: int = 17,
         alt_planes=alt_planes, detach_att_for_det=detach_att_for_det,
         dtype=default_dtype(dev, dtype), fused_cam=fused_cam, remat=remat)
     init_student_(model, seed=seed)
+    return model.to(dev, memory_format=torch.channels_last).train()
+
+
+def get_legacy_student(kind: str, num_heatmaps: int = 17, ae_dims: int = 0,
+                       dtype: Optional[torch.dtype] = None,
+                       device: DeviceLike = None, seed: int = 0
+                       ) -> torch.nn.Module:
+    """A legacy student (``kind`` ``"cam"``, ``"refiner"`` or
+    ``"multistage"``) as the distillation script builds it
+    (``scripts/distillation.py:158-170``: ``inplanes=48`` for ``cam``),
+    with seeded random weights, computing in ``dtype`` (bf16 on CUDA,
+    float32 on the CPU), in train mode and ``channels_last`` memory on
+    ``device``."""
+    dev = resolve_device(device)
+    kw = dict(num_heatmaps=num_heatmaps, ae_dims=ae_dims,
+              dtype=default_dtype(dev, dtype))
+    if kind == "cam":
+        kw["inplanes"] = 48
+    model = init_student_(LEGACY_STUDENTS[kind](**kw), seed=seed)
     return model.to(dev, memory_format=torch.channels_last).train()
 
 

@@ -1,6 +1,9 @@
-"""The attention student and its building blocks (port of
-``rtpe_tpu/models/students.py``: ``SELayer``, ``ContextAwareModule``,
-``_CamPyramid``, ``AttentionStudentSteps``).
+"""The student family and its building blocks (port of
+``rtpe_tpu/models/students.py``): ``SkipConv`` and
+``straight_skip_conv``, ``SELayer``, ``ContextAwareModule``,
+``_CamPyramid``, the legacy students ``RefinerStudent``,
+``MultistageStudent``, ``CamStudent`` and ``AttentionStudent``, and the
+distillation script's ``AttentionStudentSteps``.
 
 NCHW ``nn.Module``s on cuDNN; the fused CAM kernels read NHWC, which an
 NCHW activation in ``channels_last`` memory is without a copy.
@@ -16,7 +19,13 @@ The JAX module's quirks and cast points are kept: the pyramid returns
 in float32 and multiplies the features; the resized alt image and (with
 ``detach_att_for_det``) the attention map on the detection path carry
 no gradient; the stem and ``mid_stem`` are frozen (no gradient, but
-their BN runs train-mode and updates its running statistics).
+their BN runs train-mode and updates its running statistics);
+``AttentionStudent``'s detection pyramid runs ``det_hi`` and never
+``det_mid``.
+
+The legacy students take NCHW input and ``out_hw``; each returns what
+its JAX module returns (one tensor, or a tuple of stage outputs), NCHW
+in ``dtype``.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -50,6 +59,53 @@ def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype):
 
 def _conv_bn_relu(conv_m, bn, x, dtype):
     return torch.relu(bn(conv_m(x)).to(dtype))
+
+
+def _resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """NCHW bilinear resize, ``align_corners=True`` (the students'
+    ``out_hw``)."""
+    return _nchw(resize_bilinear(_nhwc(x), tuple(out_hw),
+                                 align_corners=True))
+
+
+class SkipConv(nn.Module):
+    """N conv-BN-ReLU chain plus a projected residual (reference
+    :37-90): ``relu(chain(x) + bn(conv1x1(x)))``."""
+
+    def __init__(self, in_ch: int, out_chans: Sequence[int],
+                 ksizes: Sequence[int], strides: Sequence[int],
+                 dilations: Sequence[int], paddings: Sequence[int],
+                 downsample_chans: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.n = len(out_chans)
+        self.downsample_conv = conv(in_ch, downsample_chans, 1)
+        self.downsample_bn = BatchNorm2d(downsample_chans)
+        c = in_ch
+        for i, (ch, k, st, d, p) in enumerate(zip(
+                out_chans, ksizes, strides, dilations, paddings)):
+            setattr(self, f"conv{i}", conv(c, ch, k, st, p, dilation=d))
+            setattr(self, f"bn{i}", BatchNorm2d(ch))
+            c = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        # the projection's BN output stays float32, as in JAX
+        residual = self.downsample_bn(self.downsample_conv(x))
+        for i in range(self.n):
+            x = _conv_bn_relu(getattr(self, f"conv{i}"),
+                              getattr(self, f"bn{i}"), x, self.dtype)
+        return torch.relu(x.float() + residual.float()).to(self.dtype)
+
+
+def straight_skip_conv(num_layers: int, in_ch: int, chans: int,
+                       out_last: int,
+                       dtype: torch.dtype = torch.float32) -> SkipConv:
+    """Reference ``get_straight_skip_conv`` (:93-112): an all-3x3 chain
+    of ``chans`` ending in ``out_last``."""
+    out_chans = [chans] * (num_layers - 1) + [out_last]
+    return SkipConv(in_ch, out_chans, (3,) * num_layers, (1,) * num_layers,
+                    (1,) * num_layers, (1,) * num_layers, out_last, dtype)
 
 
 class SELayer(nn.Module):
@@ -203,6 +259,170 @@ class _CamPyramid(nn.Module):
                                     count_include_pad=False)))
         lo_up = _nchw(resize_nearest(_nhwc(lo), hw))
         return hi + lo_up + lo_up
+
+
+class _FrozenStem(nn.Module):
+    """Shared by the legacy students: the stem (and the layers the
+    reference runs inside its ``no_grad`` block) without gradient unless
+    ``trainable_stem``; its BNs still run in the module's mode."""
+
+    def _frozen(self, fn, x: torch.Tensor) -> torch.Tensor:
+        with torch.set_grad_enabled(self.trainable_stem
+                                    and torch.is_grad_enabled()):
+            s = fn(x)
+        return s if self.trainable_stem else s.detach()
+
+
+class RefinerStudent(_FrozenStem):
+    """Progressive refinement over straight skip-convs (reference
+    :302-386): stage 0 on the stem's output, stage i on ``stem + stage
+    i-1``; the last stage gives ``num_heatmaps + ae_dims`` channels."""
+
+    def __init__(self, layers_per_stage: Sequence[int] = (3, 3, 3),
+                 num_heatmaps: int = 17, ae_dims: int = 1,
+                 trainable_stem: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.trainable_stem = trainable_stem
+        self.n_stages = len(layers_per_stage)
+        self.stem = StemHRNet()
+        ch, out_ch = STEM_OUT_CHANS, num_heatmaps + ae_dims
+        for i, n in enumerate(layers_per_stage):
+            last = i == len(layers_per_stage) - 1
+            setattr(self, f"stage{i}", straight_skip_conv(
+                n, ch, ch, out_ch if last else ch, dtype))
+
+    def forward(self, x: torch.Tensor, out_hw=None) -> torch.Tensor:
+        stem_out = self._frozen(lambda t: self.stem(t, self.dtype), x)
+        y = self.stage0(stem_out)
+        for i in range(1, self.n_stages):
+            y = getattr(self, f"stage{i}")(stem_out + y)
+        return y if out_hw is None else _resize(y, out_hw)
+
+
+class MultistageStudent(_FrozenStem):
+    """Intermediate-supervision student (reference :389-498): stage i >
+    0 sees ``cat(stem, stage i-1)``; returns the tuple of the stages'
+    outputs (each resized to ``out_hw``, as is the stem's output before
+    the stages)."""
+
+    def __init__(self, layers_per_stage: Sequence[int] = (3, 3, 3),
+                 num_heatmaps: int = 17, ae_dims: int = 1,
+                 trainable_stem: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.trainable_stem = trainable_stem
+        self.n_stages = len(layers_per_stage)
+        self.stem = StemHRNet()
+        out_ch = num_heatmaps + ae_dims
+        cat_ch = out_ch + STEM_OUT_CHANS
+        for i, n in enumerate(layers_per_stage):
+            out_chans = [cat_ch] * (n - 1) + [out_ch]
+            setattr(self, f"stage{i}", SkipConv(
+                STEM_OUT_CHANS if i == 0 else cat_ch, out_chans, (3,) * n,
+                (1,) * n, (1,) * n, (1,) * n, out_ch, dtype))
+
+    def forward(self, x: torch.Tensor, out_hw=None
+                ) -> Tuple[torch.Tensor, ...]:
+        stem_out = self._frozen(lambda t: self.stem(t, self.dtype), x)
+        if out_hw is not None:
+            stem_out = _resize(stem_out, out_hw)
+        outs = []
+        for i in range(self.n_stages):
+            stage = getattr(self, f"stage{i}")
+            y = stage(stem_out if i == 0 else torch.cat([stem_out, outs[-1]],
+                                                        1))
+            outs.append(y if out_hw is None else _resize(y, out_hw))
+        return tuple(outs)
+
+
+class CamStudent(_FrozenStem):
+    """Parallel CAM accumulation student (reference :502-592): the sum
+    of ``num_stages`` CAMs (dilations 1, 2, 3, 5, 8, 12) of ``mid_stem``'s
+    output, then a 3x3 head; returns a 1-tuple."""
+
+    def __init__(self, inplanes: int = 48, num_stages: int = 3,
+                 num_heatmaps: int = 17, ae_dims: int = 1,
+                 trainable_stem: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.trainable_stem = trainable_stem
+        self.num_stages = num_stages
+        self.stem = StemHRNet()
+        self.mid_stem_conv = conv(STEM_OUT_CHANS, inplanes, 3, 1, 1)
+        self.mid_stem_bn = BatchNorm2d(inplanes)
+        for i in range(num_stages):
+            setattr(self, f"cam{i}", ContextAwareModule(
+                inplanes, (1, 2, 3, 5, 8, 12), dtype=dtype))
+        setattr(self, f"hm_conv{num_stages - 1}",
+                conv(inplanes, num_heatmaps + ae_dims, 3, 1, 1, bias=True))
+
+    def _mid_stem(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.stem(x, self.dtype)
+        return _conv_bn_relu(self.mid_stem_conv, self.mid_stem_bn, s,
+                             self.dtype)
+
+    def forward(self, x: torch.Tensor, out_hw=None
+                ) -> Tuple[torch.Tensor]:
+        # quirk: reference runs mid_stem inside the same no_grad block as
+        # the stem (students.py:576-578), so it never receives gradients
+        s = self._frozen(self._mid_stem, x)
+        y = self.cam0(s)
+        for i in range(1, self.num_stages):
+            y = y + getattr(self, f"cam{i}")(s)
+        out = getattr(self, f"hm_conv{self.num_stages - 1}")(y)
+        return (out if out_hw is None else _resize(out, out_hw),)
+
+
+class AttentionStudent(_FrozenStem):
+    """Attention + detection dual-head student (reference :595-781):
+    ``(att, det)``, the attention map ``sigmoid(att_top / 20)`` added to
+    the features before the detection pyramid."""
+
+    def __init__(self, inplanes: int = 48, num_heatmaps: int = 17,
+                 ae_dims: int = 1, trainable_stem: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.trainable_stem = trainable_stem
+        mid_ch = (STEM_OUT_CHANS + inplanes) // 2
+        self.stem = StemHRNet()
+        self.mid_stem_conv0 = conv(STEM_OUT_CHANS, mid_ch, 3, 1, 1)
+        self.mid_stem_bn0 = BatchNorm2d(mid_ch)
+        self.mid_stem_conv1 = conv(mid_ch, inplanes, 3, 1, 1)
+        self.mid_stem_bn1 = BatchNorm2d(inplanes)
+        self.att = _CamPyramid(inplanes, (1, 2, 3, 4, 5), dtype)
+        self.att_top = conv(inplanes, 1, 3, 1, 1, bias=True)
+        self.det_hi = ContextAwareModule(inplanes, (1, 2, 3, 4), dtype=dtype)
+        self.det_lo = ContextAwareModule(inplanes, (1, 2, 3, 4), dtype=dtype)
+        self.det_top = conv(inplanes, num_heatmaps + ae_dims, 3, 1, 1,
+                            bias=True)
+
+    def _mid_stem(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype
+        s = self.stem(x, dtype)
+        s = _conv_bn_relu(self.mid_stem_conv0, self.mid_stem_bn0, s, dtype)
+        return _conv_bn_relu(self.mid_stem_conv1, self.mid_stem_bn1, s,
+                             dtype)
+
+    def forward(self, x: torch.Tensor, out_hw=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dtype = self.dtype
+        s = self._frozen(self._mid_stem, x)
+        att = self.att_top(self.att(s))
+        att = torch.sigmoid(att.float() / 20.0).to(dtype)
+        s = s + att  # broadcast add (reference :756)
+        # quirk: the reference's detection pyramid ignores det_mid and
+        # runs det_hi twice (students.py:759-760); the same sum:
+        hw = tuple(s.shape[2:])
+        hi = self.det_hi(s)
+        lo = self.det_lo(_nchw(avg_pool(_nhwc(hi), 3, 2, 1,
+                                        count_include_pad=False)))
+        lo_up = _nchw(resize_nearest(_nhwc(lo), hw))
+        return att, self.det_top(hi + lo_up + lo_up)
 
 
 class AttentionStudentSteps(nn.Module):

@@ -66,12 +66,11 @@ def resize_bilinear_np(x_hwc: np.ndarray, out_hw: Tuple[int, int],
                        align_corners: bool = True) -> np.ndarray:
     """Numpy :func:`resize_bilinear` of one (H, W, C) host array, as
     two-tap gather-lerps (the dataset's upsampling of the teacher maps
-    to image size).
+    to image size where the native loop is unavailable).
 
-    The JAX package runs its host C++ resize
-    (``rtpe_tpu/native/resize.cpp``) when that library is built.  That
-    is host code, not a TPU kernel, and this numpy function is the JAX
-    package's own fallback, so the port keeps only it.
+    The dataset calls the host C++ resize first
+    (:func:`rtpe_tpu_torch.native.native_bilinear_resize`, as the JAX
+    package does); this is its fallback and the reference it is held to.
     """
     out_h, out_w = out_hw
     in_h, in_w = x_hwc.shape[:2]

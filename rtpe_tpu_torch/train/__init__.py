@@ -1,5 +1,21 @@
-"""Training: the losses, the SGDR schedule and the distillation step."""
+"""Training: the losses, the SGDR schedule, the distillation step, and
+the legacy students' step with its loss scaling."""
 
+from .legacy_steps import (  # noqa: F401
+    StudentDistillConfig,
+    StudentTrainState,
+    make_student_optimizer,
+    make_student_train_step,
+    student_labels,
+)
+from .loss_scaling import (  # noqa: F401
+    DynamicScalerState,
+    StaticScaler,
+    has_overflow,
+    init_dynamic_scaler,
+    scaled_grads_or_skip,
+    update_scaler,
+)
 from .losses import (  # noqa: F401
     bce_with_logits,
     distillation_bce_loss_keypoint_mining,

@@ -10,8 +10,9 @@ detection threshold (a few live peaks a plane).
 
 * ``validate_hhrnet``: the port's people against the same library calls
   of ``rtpe_tpu`` that ``scripts/validate_hhrnet.py`` makes, in float32
-  (the JAX script itself forwards in bf16), with the JAX host grouping
-  pinned to scipy.  As in ``tests/test_torch_slice.py``, the test first
+  (the JAX script itself forwards in bf16), with both host groupings on
+  the same assignment solver (native where both libraries load, else
+  scipy).  As in ``tests/test_torch_slice.py``, the test first
   asserts that the two forwards' maps agree within HM_TOL / TAG_TOL and
   that every decision the decode takes on them has a margin of more
   than 10 x HM_TOL; the people must then agree within 1e-3.  W48 is
@@ -39,7 +40,6 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from scipy.optimize import linear_sum_assignment
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +50,6 @@ from rtpe_tpu.data import dataset as j_dataset
 from rtpe_tpu.data import preprocess as j_pre
 from rtpe_tpu.data import teacher_cache as j_cache
 from rtpe_tpu.decode import HeatmapParser as JaxParser
-from rtpe_tpu.decode import group as j_group
 from rtpe_tpu.models import hrnet_packed as j_packed
 from rtpe_tpu.models.factory import get_hrnet_w48_teacher as jax_teacher
 from rtpe_tpu.ops.resize import resize_bilinear as j_resize
@@ -60,6 +59,7 @@ from rtpe_tpu_torch.cli.common import model_input
 from rtpe_tpu_torch.eval import PosePredictor
 from rtpe_tpu_torch.models import PoseHigherHRNet, init_random_, w48_config
 from rtpe_tpu_torch.ops.resize import resize_bilinear
+from test_torch_native import same_solver  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HM_TOL = 1.5e-5
@@ -125,7 +125,8 @@ def _assert_margins(hms: np.ndarray, det_thr: float = 0.1, k: int = 30):
 
 
 def test_validate_matches_jax_library_calls(coco_root, w48_path, jax_forward,
-                                           monkeypatch, capsys):
+                                           monkeypatch, capsys,
+                                           same_solver):  # noqa: F811
     argv = ["--coco_dir", coco_root, "--save_every", "0",
             *_common(coco_root, w48_path)]
     res = validate_hhrnet.main(argv)
@@ -133,8 +134,6 @@ def test_validate_matches_jax_library_calls(coco_root, w48_path, jax_forward,
     assert printed == res.stats and len(printed) == 10
 
     # the JAX script's calls (validate_hhrnet.py:178-227), float32
-    monkeypatch.setattr(j_group, "lap_solve",
-                        lambda cost: linear_sum_assignment(cost))
     ds_j = j_dataset.CocoDistillationDataset(coco_root, "val2017",
                                              host_gt_heatmaps=False)
     samples = [ds_j[i] for i in range(len(ds_j))]

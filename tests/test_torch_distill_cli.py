@@ -16,6 +16,8 @@ state dict, behind its fp16 ``"1."`` prefix):
 * ``cli.eval_attention.main`` on those parts logs a finite ``mean
   attention loss``; ``cli.dataloader_demo.main`` runs two batches and
   decodes the teacher corpus.
+* ``--student cam|multistage`` build the JAX script's models, and two
+  CPU steps of ``--student cam`` checkpoint, restore bitwise and resume.
 * The flags a later slice brings exit with status 2, and the default
   device is CUDA.
 * Known behaviour kept (``ROADMAP.md`` Queue 3): ``--ae_dims 1`` fails
@@ -40,7 +42,11 @@ from rtpe_tpu.data.teacher_cache import save_teacher_prediction
 from rtpe_tpu.models.students import AttentionStudentSteps as JaxStudent
 from rtpe_tpu.train import step as jstep
 from rtpe_tpu_torch.cli import dataloader_demo, distillation, eval_attention
+from rtpe_tpu_torch.io.checkpoint import TrainCheckpointer
+from rtpe_tpu_torch.models import CamStudent, MultistageStudent
+from rtpe_tpu_torch.models.factory import get_legacy_student
 from rtpe_tpu_torch.models.stem import StemHRNet
+from rtpe_tpu_torch.train import StudentDistillConfig, StudentTrainState
 
 N_IMGS = 8
 
@@ -168,8 +174,6 @@ def test_dataloader_demo_runs_two_batches(coco, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--student", "cam"], "Queue 1 item 5.6"),
-    (["--student", "multistage"], "Queue 1 item 5.6"),
     (["--zero1"], "Queue 1 item 6"),
     (["--mesh_data", "2"], "Queue 1 item 6"),
 ])
@@ -178,6 +182,58 @@ def test_refused_flags_exit_2(flags, item, capsys):
         distillation.main(["--device", "cpu", *flags])
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kind,cls", [("cam", CamStudent),
+                                      ("multistage", MultistageStudent)])
+def test_legacy_students_parse_and_build(kind, cls):
+    """``--student cam|multistage`` parse without a refusal and build the
+    JAX script's model (``scripts/distillation.py:158-170``)."""
+    parser = distillation.build_parser()
+    args = parser.parse_args(["--student", kind, "--device", "cpu"])
+    distillation.check_flags(parser, args)
+    model = get_legacy_student(kind, num_heatmaps=args.num_heatmaps,
+                               ae_dims=args.ae_dims, device="cpu")
+    assert type(model) is cls and model.training
+    assert model.dtype == torch.float32
+    if kind == "cam":
+        assert model.mid_stem_conv.out_channels == 48
+        assert model.hm_conv2.out_channels == 17
+    else:
+        assert [getattr(model, f"stage{i}").n for i in range(3)] == [3] * 3
+
+
+def test_cam_student_trains_and_resumes_bitwise(coco, tmp_path):
+    """Two CPU steps of ``--student cam``: the checkpoint of step 2
+    restores the model, the momentum and the step bitwise, and a second
+    run resumes from it to step 3; one part file a top-level module."""
+    out = str(tmp_path)
+    argv = [a for a in _args(coco, out, "--student", "cam")
+            if a not in ("--minival_file", coco[2])]
+    first = distillation.main(argv + ["--max_steps", "2"])
+    assert first.start_step == 0 and first.step == first.state.step == 2
+    assert first.minival == []
+    assert all(np.isfinite(float(first.metrics[k])) for k in ("loss", "lr"))
+    tops = sorted(os.path.basename(p)[len(first.timestamp) + len(
+        "_epoch0_step2"):-len(".statedict.npz")] for p in first.parts)
+    assert tops == ["cam0", "cam1", "cam2", "hm_conv2", "mid_stem_bn",
+                    "mid_stem_conv"]
+    fresh = StudentTrainState.create(
+        get_legacy_student("cam", device="cpu", seed=3),
+        StudentDistillConfig())
+    fresh, step = TrainCheckpointer(os.path.join(
+        out, "snaps", "train_state")).restore(fresh)
+    assert step == 2 and fresh.step == 2
+    for k, v in first.state.model.state_dict().items():
+        assert torch.equal(fresh.model.state_dict()[k], v), k
+    opt_a, opt_b = first.state.optimizer, fresh.optimizer
+    for pa, pb in zip(opt_a.param_groups[0]["params"],
+                      opt_b.param_groups[0]["params"]):
+        assert torch.equal(opt_a.state[pa]["momentum_buffer"],
+                           opt_b.state[pb]["momentum_buffer"])
+    second = distillation.main(argv + ["--max_steps", "3"])
+    assert "resumed from checkpoint step 2" in _log(out)
+    assert second.start_step == 2 and second.step == 3
 
 
 def test_default_device_is_cuda(coco, tmp_path):

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from test_cocoeval_differential import _random_scene
 from test_data_eval import _make_coco_fixture
+from test_torch_native import jax_native_lib
 
 from rtpe_tpu.data import coco as j_coco
 from rtpe_tpu.data import dataset as j_dataset
@@ -35,8 +36,10 @@ from rtpe_tpu.data import rle as j_rle
 from rtpe_tpu.data import targets as j_targets
 from rtpe_tpu.data import teacher_cache as j_cache
 from rtpe_tpu.eval import cocoeval as j_cocoeval
+import rtpe_tpu.native as j_native
 from rtpe_tpu.obs import vis as j_vis
 from rtpe_tpu.ops import resize as j_resize
+from rtpe_tpu_torch import native
 from rtpe_tpu_torch.data import coco, minival, rle, targets, teacher_cache
 from rtpe_tpu_torch.data.dataset import CocoDistillationDataset
 from rtpe_tpu_torch.eval import cocoeval
@@ -161,11 +164,18 @@ def test_dataset_samples_equal_jax(fixture_root):
     _assert_same_sample(ds_w[0], ds_jw[0])
 
 
-def test_dataset_teacher_maps_equal_jax(fixture_root, tmp_path):
+def test_dataset_teacher_maps_equal_jax(fixture_root, tmp_path, monkeypatch):
     """Teacher maps written by the port, read by both datasets and
-    upsampled to image size.  The JAX side may take its host C++ resize,
-    so the maps are held within float32 rounding, the rest exactly."""
+    upsampled to image size.  Where both packages' native resizes load
+    (the same source, the same flags) the maps are held bitwise; else
+    one side may run numpy, so within float32 rounding.  The rest
+    exactly."""
     root, _ = fixture_root
+    lib = jax_native_lib()
+    both = lib is not None and native.available()
+    if both:
+        monkeypatch.setattr(j_native, "_LIB", lib)
+        monkeypatch.setattr(j_native, "_LIB_TRIED", True)
     rng = np.random.default_rng(5)
     ds = CocoDistillationDataset(root, "val2017", teacher_output_dir=str(
         tmp_path))
@@ -181,7 +191,7 @@ def test_dataset_teacher_maps_equal_jax(fixture_root, tmp_path):
         for key in ("teacher_hms", "teacher_ae"):
             assert got[key].shape == want[key].shape == (96, 128, 17)
             np.testing.assert_allclose(got[key], want[key], rtol=0,
-                                       atol=1e-6)
+                                       atol=0 if both else 1e-6)
             got[key] = want[key]
         _assert_same_sample(got, want)
 

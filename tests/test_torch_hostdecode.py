@@ -15,21 +15,19 @@ the JAX package's, on the CPU.
   means).
 
 The rounded tag distances of the grouping cost tie often, and an exact
-tie may be broken differently by two assignment solvers.  The JAX side
-therefore solves with scipy here, the fallback its ``decode/group.py``
-documents for when its native library is not built, as the port does.
+tie may be broken differently by two assignment solvers.  Both packages
+therefore solve on the same one here (``tests/test_torch_native.py::
+same_solver``): their native libraries, built from the same source,
+where both load, and scipy otherwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from scipy.optimize import linear_sum_assignment
-
 import jax.numpy as jnp
 
 from rtpe_tpu.decode import HeatmapParser as JaxParser
-from rtpe_tpu.decode import group as j_group
 from rtpe_tpu.decode import fused as j_fused
 from rtpe_tpu.decode import munkres_assign as j_munkres_assign
 from rtpe_tpu.decode.group import match_by_tag as j_match_by_tag
@@ -42,17 +40,14 @@ from rtpe_tpu_torch.decode.group_fast import match_by_tag_fast
 from rtpe_tpu_torch.decode import refine_device
 from rtpe_tpu_torch.decode.parser import GroupingParams as ParserParams
 from test_torch_decode import make_scene
+from test_torch_native import same_solver  # noqa: F401
 
 TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def jax_grouping_on_scipy(monkeypatch):
-    monkeypatch.setattr(j_group, "lap_solve", scipy_lap_solve)
-
-
-def scipy_lap_solve(cost):
-    return linear_sum_assignment(cost)
+def grouping_on_the_same_solver(same_solver):  # noqa: F811
+    return same_solver
 
 
 def noisy_scene(seed, b=1, hw=64, j=17, blobs=6, tag_sd=0.3):

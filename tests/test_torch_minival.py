@@ -8,8 +8,9 @@ float32) carried to the port through ``student_state_dict_from_jax``:
 * ``attention_minival``: JAX's within rtol 1e-5; batched equals bs=1;
   the model's train/eval mode is restored.
 * ``detection_minival`` (``ae_dims=1``) and ``eval_student``: the ten
-  stats equal to JAX's within 1e-6, JAX's host grouping pinned to scipy
-  (its native JV solver breaks exact ties differently); batched equals
+  stats equal to JAX's within 1e-6, both host groupings on the same
+  assignment solver (native where both libraries load, else scipy: the
+  two break exact ties differently); batched equals
   bs=1; an oracle student emitting the ideal maps reaches AP@.5 = 1
   (``tests/test_minival.py``'s engine-isolation strategy).
 """
@@ -17,7 +18,6 @@ float32) carried to the port through ``student_state_dict_from_jax``:
 import numpy as np
 import pytest
 import torch
-from scipy.optimize import linear_sum_assignment
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +27,6 @@ from test_e2e_ap import _render_ideal
 
 from rtpe_tpu.data import dataset as j_dataset
 from rtpe_tpu.decode import HeatmapParser as JaxParser
-from rtpe_tpu.decode import group as j_group
 from rtpe_tpu.eval import engine as j_engine
 from rtpe_tpu.eval import minival as j_minival
 from rtpe_tpu.models.students import AttentionStudentSteps as JaxStudent
@@ -40,6 +39,7 @@ from rtpe_tpu_torch.eval.minival import attention_minival, detection_minival
 from rtpe_tpu_torch.io.jax_import import student_state_dict_from_jax
 from rtpe_tpu_torch.models.students import AttentionStudentSteps
 from rtpe_tpu_torch.ops.resize import resize_bilinear
+from test_torch_native import same_solver  # noqa: F401
 
 INPLANES, ALT = 8, 6
 
@@ -69,9 +69,10 @@ def students(request):
 
 
 @pytest.fixture
-def scipy_grouping(monkeypatch):
-    monkeypatch.setattr(j_group, "lap_solve",
-                        lambda cost: linear_sum_assignment(cost))
+def scipy_grouping(same_solver):  # noqa: F811
+    """Both host groupings on the same solver (the fixture keeps its
+    name; native where both libraries load)."""
+    return same_solver
 
 
 @pytest.mark.parametrize("students", [0], indirect=True, ids=["ae0"])

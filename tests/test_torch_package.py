@@ -49,7 +49,11 @@ for name in ("rtpe_tpu_torch.cli.validate_hhrnet",
              "rtpe_tpu_torch.utils.meters", "rtpe_tpu_torch.eval.minival",
              "rtpe_tpu_torch.eval.engine", "rtpe_tpu_torch.cli.distillation",
              "rtpe_tpu_torch.cli.eval_attention",
-             "rtpe_tpu_torch.cli.dataloader_demo"):
+             "rtpe_tpu_torch.cli.dataloader_demo", "rtpe_tpu_torch.native",
+             "rtpe_tpu_torch.io.torch_import", "rtpe_tpu_torch.models.rsb",
+             "rtpe_tpu_torch.train.legacy_steps",
+             "rtpe_tpu_torch.train.loss_scaling",
+             "rtpe_tpu_torch.cli.visualize_stem"):
     assert name in names, name
 print(len(names), "modules")
 assert not bad, bad

@@ -25,17 +25,16 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from scipy.optimize import linear_sum_assignment
 
 import jax.numpy as jnp
 
 from rtpe_tpu.decode import fused as j_fused
-from rtpe_tpu.decode import group as j_group
 from rtpe_tpu.eval.predictor import PosePredictor as JaxPredictor
 from rtpe_tpu.models import PoseHigherHRNet as JaxHRNet
 from rtpe_tpu_torch.decode import HeatmapParser
 from rtpe_tpu_torch.eval import PosePredictor
 from test_torch_model import seeded_variables, small_cfgs
+from test_torch_native import same_solver  # noqa: F401
 
 HM_TOL = 1e-6
 TAG_TOL = 5e-6
@@ -131,14 +130,14 @@ def test_predict_and_stream_match_jax(predictors, lockstep_auto):
         _assert_same_people(rt, rj)
 
 
-def test_host_grouping_predict_batch_matches_jax(predictors, monkeypatch):
+def test_host_grouping_predict_batch_matches_jax(predictors, monkeypatch,
+                                                same_solver):  # noqa: F811
     """``fused_decode=False`` on both sides: NMS + top-k with the adjust,
-    host grouping, the refine of the people that miss a joint.  The JAX
-    side solves its assignments with scipy, its documented fallback,
-    so that both break exact cost ties alike."""
+    host grouping, the refine of the people that miss a joint.  Both
+    sides solve their assignments on the same solver (native where both
+    libraries load, else scipy), so that both break exact cost ties
+    alike."""
     jp, tp, images = predictors
-    monkeypatch.setattr(j_group, "lap_solve",
-                        lambda cost: linear_sum_assignment(cost))
     monkeypatch.setattr(jp, "fused_decode", False)
     host = PosePredictor(tp.model, device="cpu", num_joints=NUM_JOINTS,
                          input_size=128, fused_decode=False)
