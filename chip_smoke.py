@@ -208,15 +208,35 @@ Phases, each of which fails the run:
     step each of ``refiner`` and ``multistage``; a ``dynamic_loss_scale``
     step pair whose second batch holds an ``inf`` (parameters and
     momentum bitwise unchanged, the scale halved); ``visualize_stem``'s
-    core on a 640 x 640 image (256 planes).
+    core on a 640 x 640 image (256 planes);
+27. parallelism: in phase 25's fixture, ``cli.distillation.train`` with
+    ``--fused_cam`` at its defaults (B=16, 450 x 450) for 3 steps in this
+    process, then in ranks started as torchrun starts them (this script
+    with ``--dp-rank``): one rank over NCCL, and two ranks over gloo on
+    this one card (NCCL refuses two ranks on one device), each
+    replicated and with ``--zero1``: losses and every update against
+    the one-process run, the ranks' states equal, ZeRO-1 bitwise the
+    replicated run, step ms, img/s and each rank's momentum bytes; the
+    gloo pair once more with each rank's batch statistics its own, a
+    control the same checks must refuse; then ``spatial_forward_w48`` at
+    full width on 1280^2 and 640^2 with 2 and 4 H-shards on this card
+    against the unsharded folded float32 forward (TF32 off), timed, and
+    its halo steps replayed alone, ``PosePredictor(spatial_mesh=4
+    shards)`` against the dense float32 predictor on a 960 x 1280 image,
+    and ``PosePredictor(mesh=2 shards of this card)``'s ``predict_batch``
+    of 8 and of 7 (padded) 640 x 640 images, canonical and packed: its
+    gathered heatmaps and tags against the forward of the whole batch of
+    8, its people against the unsharded predictor's; each path's kernel
+    launches counted.
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, 16 with 11, and 17-19 after 15; 20-26 run last (24's
-validation inside 21's fixture, 26 inside 25's).
+after 10, 16 with 11, and 17-19 after 15; 20-27 run last (24's
+validation inside 21's fixture, 26 and 27's trainer inside 25's).
 
 Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
 line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA,
-CLI, int8, trainer and legacy-student numbers, the ``nvidia-smi`` line
+CLI, int8, trainer, legacy-student and parallel numbers, the
+``nvidia-smi`` line
 again (so the end of the output names the card), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
@@ -3084,7 +3104,7 @@ def phase_trainer_data(mods, model, state, root, card, dev) -> dict:
     print(f"trainer data: 32 images, teacher corpus in {corpus_s:.1f} s "
           f"({card})", flush=True)
     return {"train_ds": train_ds, "minival_ds": minival_ds,
-            "w48_path": w48_path, "corpus_s": corpus_s}
+            "w48_path": w48_path, "corpus_s": corpus_s, "pics": pics}
 
 
 def plane_steps(planes: torch.Tensor) -> torch.Tensor:
@@ -3755,6 +3775,498 @@ def phase_visualize_stem(vis_mod, data, dev) -> dict:
                                         > planes.min((1, 2))).sum())}
 
 
+# ------------------------------------------------- phase 27: parallelism
+# spatial serving: the unsharded folded float32 forward against the same
+# forward with its activations H-sharded over 2 and 4 shards of one card,
+# TF32 off; the worst element relative to max |unsharded| (halo rows
+# make the sums of each output element the same products in the same
+# order: the cuDNN algorithm, which may differ with the shard's height,
+# is all that can move a result)
+SPATIAL_SIZES, SPATIAL_SHARDS, SPATIAL_TOL = (1280, 640), (2, 4), 1e-4
+SPATIAL_INPUT = 1280          # the spatial predictor's input size
+# the data-parallel trainer against the single-process trainer, 3 steps:
+# each step's losses within DP_LOSS_RTOL; each parameter's and running
+# statistic's change within DP_UPDATE_TOL of its largest magnitude and the
+# whole change aligned (cosine > DP_COS).  Each bound sits between the
+# sound runs' readings and the control's (the gloo pair with each rank's
+# batch statistics its own), which every one of them must refuse: sound
+# 1.5e-4 / 0.044 / 0.99996, control 8.1e-3 / 0.47 / 0.9940 on an H100
+# 80GB HBM3 at 700 W (the sound runs' error is mostly the one-process
+# run's other cuDNN algorithms, the ranks running deterministic ones)
+DP_STEPS, DP_LOSS_RTOL, DP_UPDATE_TOL, DP_COS = 3, 1e-3, 0.15, 0.9995
+# the data mesh's gathered heatmaps and tags against the forward of the
+# whole batch, the worst element relative to max |whole|: the bf16
+# forward of a batch of 4 rounds otherwise than that of 8 (0.020 / 0.023
+# canonical / packed on an H100 80GB HBM3, the mesh bitwise the unsharded
+# forwards of its halves)
+MESH_MAP_TOL = 2.0 ** -5
+
+
+class HaloRecorder:
+    """Patches ``spatial._haloed`` to record the shards and halo of each
+    call, so that one forward's halo steps can be replayed alone."""
+
+    def __init__(self, spatial_mod):
+        self.mod, self.calls = spatial_mod, []
+        self.orig = spatial_mod._haloed
+
+    def __enter__(self):
+        def recorded(xs, halo):
+            if halo:
+                self.calls.append((xs, halo))
+            return self.orig(xs, halo)
+        self.mod._haloed = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._haloed = self.orig
+        return False
+
+    def replay(self) -> None:
+        for xs, halo in self.calls:
+            self.orig(xs, halo)
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def phase_spatial(mods, state, counters, card, dev) -> dict:
+    """``spatial_forward_w48`` at full W48 width on 1280^2 and 640^2 with
+    2 and 4 shards on this card against the unsharded folded float32
+    forward (TF32 off), timed by :func:`forward_ms`, and its halo steps
+    (each shard's input with its neighbours' rows and zero rows at the
+    edges) replayed alone: on one card they copy nothing between
+    devices, only build each haloed input; then
+    ``PosePredictor(spatial_mesh=4 shards)`` against the dense float32
+    predictor on one image."""
+    (PosePredictor, hrnet, packed_mod, spatial_mod, mesh_mod,
+     set_tf32) = mods
+    set_tf32(False)
+    w48 = hrnet.w48_config()
+    fw = packed_mod.fold_w48_params(state, w48, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 27)
+    out = {"tf32": False, "forward": {}}
+    with torch.inference_mode():
+        for size in SPATIAL_SIZES:
+            x = torch.randn((1, 3, size, size), generator=gen).to(dev)
+            want = packed_mod.packed_forward(fw, x, w48, torch.float32)
+            row = {"unsharded": forward_ms(
+                lambda: packed_mod.packed_forward(fw, x, w48,
+                                                  torch.float32))}
+            for n in SPATIAL_SHARDS:
+                mesh = mesh_mod.make_mesh(n_data=1, n_model=n,
+                                          devices=[dev] * n)
+                got = spatial_mod.spatial_forward_w48(fw, x, mesh, w48)
+                errs = [rel_err(g, w) for g, w in zip(got, want)]
+                check(all(e <= SPATIAL_TOL for e in errs),
+                      f"spatial {size}^2 x {n}: rel err {errs}")
+
+                def fwd():
+                    return spatial_mod.spatial_forward_w48(fw, x, mesh, w48)
+                t = forward_ms(fwd)
+                with HaloRecorder(spatial_mod) as hr:
+                    fwd()
+                row[f"shards_{n}"] = {
+                    **t, "ms_per_shard": t["device_ms"] / n,
+                    "halo_steps": forward_ms(hr.replay),
+                    "halo_calls": len(hr.calls), "rel_err": errs}
+                del hr
+            out["forward"][size] = row
+            del x, want
+            torch.cuda.empty_cache()
+    mesh4 = mesh_mod.make_mesh(n_data=1, n_model=4, devices=[dev] * 4)
+    kw = dict(device=dev, dtype=torch.float32, input_size=SPATIAL_INPUT)
+    dense = PosePredictor(hrnet.PoseHigherHRNet(w48), state, **kw)
+    spatial = PosePredictor(hrnet.PoseHigherHRNet(w48), state,
+                            spatial_mesh=mesh4, **kw)
+    img = (np.random.default_rng(SEED + 27).random((960, 1280, 3))
+           * 255).astype(np.uint8)
+    want = dense.predict(img)
+    reset(counters)
+    got = spatial.predict(img)
+    launches = read(counters)
+    n = check_people(got, 17, "spatial predict")
+    (p_g, s_g), (p_w, s_w) = got, want
+    check(len(p_g) == len(p_w) > 0, f"spatial predict: {len(p_g)} people, "
+          f"dense {len(p_w)}")
+    for a, b in zip(p_g, p_w):
+        check(np.allclose(a, b, rtol=1e-3, atol=1e-3),
+              "spatial predict: people differ from the dense predictor's")
+    check(np.allclose(s_g, s_w, rtol=1e-3, atol=1e-4),
+          "spatial predict: scores differ")
+    check(launches["nms_topk"] > 0 and launches["match_by_tag_lockstep"]
+          + launches["match_by_tag_kernel"] > 0,
+          f"the spatial predictor's decode kernels: {launches}")
+    out["predictor"] = {
+        "people": n, "launches": launches,
+        "predict_ms": host_ms(lambda: spatial.predict(img), 2),
+        "dense_predict_ms": host_ms(lambda: dense.predict(img), 2)}
+    del dense, spatial, fw
+    torch.cuda.empty_cache()
+    print(f"spatial: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def same_people_exactly(got, want, what: str) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(len(g[0]) == len(w[0]) and all(
+            np.array_equal(a, c) for a, c in zip(g[0], w[0]))
+            and np.array_equal(g[1], w[1]), f"{what}[{i}]: people differ")
+
+
+def people_match(got, want, px: float = 1.0) -> dict:
+    """The people of each image matched across the two results whatever
+    their order (an assignment minimising the largest joint-coordinate
+    difference of a pair): how many there are, how many pairs lie within
+    ``px`` pixels, and the median and largest difference of a pair."""
+    from scipy.optimize import linear_sum_assignment
+
+    diffs, n_got, n_want = [], 0, 0
+    for (g, _), (w, _) in zip(got, want):
+        n_got, n_want = n_got + len(g), n_want + len(w)
+        if not len(g) or not len(w):
+            continue
+        a = np.stack([p[:, :2] for p in g])[:, None]
+        b = np.stack([p[:, :2] for p in w])[None]
+        cost = np.abs(a - b).max(axis=(2, 3))
+        rows, cols = linear_sum_assignment(cost)
+        diffs += [float(cost[r, c]) for r, c in zip(rows, cols)]
+    return {"people": n_got, "people_want": n_want, "pairs": len(diffs),
+            "within_px": sum(d <= px for d in diffs), "px": px,
+            "median_diff": float(np.median(diffs)) if diffs else None,
+            "max_diff": max(diffs, default=None)}
+
+
+def mesh_maps(pred, batch, sharded: bool):
+    """The decode's (heatmaps, tags) of a preprocessed batch: the data
+    mesh's gathered forward, or one forward of the whole batch."""
+    with torch.inference_mode():
+        outs = pred._sharded_forward(batch) if sharded else \
+            pred._forward(batch)
+        return pred._decode_outputs(*outs)
+
+
+def phase_data_mesh(mods, state, counters, card, dev) -> dict:
+    """``PosePredictor(mesh=2 shards of this card)``'s ``predict_batch``
+    of 8 and of 7 (padded to 8) 640 x 640 images, canonical and packed.
+    The mesh's gathered heatmaps and tags are held to the forward of the
+    whole batch of 8 (MESH_MAP_TOL), and are bitwise the unsharded
+    forwards of its two halves; the two halves' forwards against the
+    whole batch's show how far the batch size alone moves the maps.  The
+    8 are exactly the unsharded predictor's people on the same halves,
+    the 7 exactly the first 7 of the 8 (the padding row changes
+    nothing); against the unsharded predictor's people on the whole
+    batch, matched whatever their order, they are reported."""
+    PosePredictor, hrnet, mesh_mod = mods
+    w48 = hrnet.w48_config()
+    mesh = mesh_mod.make_mesh(devices=[dev] * 2)
+    rng = np.random.default_rng(SEED + 28)
+    images = [(rng.random((640, 640, 3)) * 255).astype(np.uint8)
+              for _ in range(8)]
+    out = {}
+    for packed in (False, True):
+        what = "packed" if packed else "canonical"
+        plain = PosePredictor(hrnet.PoseHigherHRNet(w48), state, device=dev,
+                              packed=packed)
+        sharded = PosePredictor(hrnet.PoseHigherHRNet(w48), state,
+                                device=dev, packed=packed, mesh=mesh)
+        row = {}
+        got = {}
+        for b in (8, 7):
+            reset(counters)
+            got[b] = sharded.predict_batch(images[:b])
+            launches = read(counters)
+            check(len(got[b]) == b, "one result per image")
+            for i, r in enumerate(got[b]):
+                check_people(r, 17, f"mesh {what} predict_batch {b}[{i}]")
+            for name in ("nms_topk", "match_by_tag_lockstep"):
+                check(launches[name] > 0, f"{name} not launched on the mesh")
+            row[f"b{b}"] = {
+                "launches": launches,
+                "ms": host_ms(lambda: sharded.predict_batch(images[:b]), 3),
+                "unsharded_ms": host_ms(
+                    lambda: plain.predict_batch(images[:b]), 3)}
+        per_shard = plain.predict_batch(images[:4]) + plain.predict_batch(
+            images[4:])
+        same_people_exactly(got[8], per_shard, f"mesh {what} b8")
+        same_people_exactly(got[7], got[8][:7], f"mesh {what} b7")
+        batch = torch.stack([plain._preprocess(im)[0] for im in images])
+        on_mesh = mesh_maps(sharded, batch, True)
+        whole = mesh_maps(plain, batch, False)
+        halves = [torch.cat(t) for t in zip(
+            mesh_maps(plain, batch[:4], False),
+            mesh_maps(plain, batch[4:], False))]
+        row["maps_vs_whole_8"] = [rel_err(g, w)
+                                  for g, w in zip(on_mesh, whole)]
+        row["halves_vs_whole_8"] = [rel_err(g, w)
+                                    for g, w in zip(halves, whole)]
+        row["maps_equal_halves"] = all(torch.equal(g, h)
+                                       for g, h in zip(on_mesh, halves))
+        check(max(row["maps_vs_whole_8"]) <= MESH_MAP_TOL,
+              f"mesh {what}: maps off the whole batch's by "
+              f"{row['maps_vs_whole_8']}")
+        check(row["maps_equal_halves"],
+              f"mesh {what}: maps differ from the halves' forwards")
+        row["people_vs_whole_8"] = people_match(got[8],
+                                                plain.predict_batch(images))
+        out[what] = row
+        del plain, sharded
+    torch.cuda.empty_cache()
+    print(f"data mesh: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def dp_args(dist_mod, root, tag, *extra):
+    out = os.path.join(root, "p27", tag)
+    return dist_mod.build_parser().parse_args([
+        "--fused_cam", "--max_steps", str(DP_STEPS), "--num_epochs", "2",
+        "--no_resume", "--diagnose_every", "0",
+        "--model_path", os.path.join(root, "w48.pth.tar"),
+        "--snapshot_dir", os.path.join(out, "snaps"),
+        "--log_dir", os.path.join(out, "log"),
+        "--tb_dir", os.path.join(out, "tb"),
+        "--num_workers", str(TRAINER_WORKERS), "--device", "cuda:0",
+        *extra])
+
+
+def dp_run(dist_mod, zero_mod, cam_mod, args, train_ds, dev) -> dict:
+    """One ``cli.distillation.train`` run: each step's losses and host
+    time, the final state on the host, this process's momentum bytes and
+    the CAM kernels' launches."""
+    clock = StepClock()
+    reset(cam_mod.KERNELS)
+    res = dist_mod.train(args, train_ds, None, device=dev, on_step=clock)
+    launches = read(cam_mod.KERNELS)
+    if res is None:
+        return None
+    steps = sorted(clock.t)
+    dt = [clock.t[b] - clock.t[a] for a, b in zip(steps, steps[1:])]
+    opt = res.state.optimizer
+    return {"step": res.step, "losses": [clock.losses[s] for s in steps],
+            "step_ms": 1e3 * float(np.mean(dt)),
+            "sd": {k: v.detach().cpu() for k, v in
+                   res.state.model.state_dict().items()},
+            "momentum_bytes": zero_mod.momentum_bytes(opt),
+            "launches": launches}
+
+
+def dp_child(root: str, tag: str, backend: str) -> None:
+    """A data-parallel rank as torchrun starts one (its environment names
+    the group): the trainer's core on phase 25's fixture, replicated then
+    ZeRO-1 (over gloo also the control: each rank's batch statistics its
+    own, the gradients still averaged), the results to
+    ``root/p27/<tag>_rank<r>.pt``."""
+    from rtpe_tpu_torch.cli import distillation as dist_mod
+    from rtpe_tpu_torch.data import dataset as dataset_mod
+    from rtpe_tpu_torch.ops import cam as cam_mod
+    from rtpe_tpu_torch.parallel import dist as pdist
+    from rtpe_tpu_torch.parallel import zero as zero_mod
+    from rtpe_tpu_torch.train import step as step_mod
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    deterministic()
+    check(pdist.initialize(backend=backend), "no process group")
+    with np.load(os.path.join(root, "pics.npz")) as f:
+        pics = {int(k): f[k] for k in f.files}
+    train_ds = memory_dataset(dataset_mod.CocoDistillationDataset, pics)(
+        root, "val2017", os.path.join(root, "teacher"),
+        remove_images_without_annotations=True,
+        gt_stddevs_pix=[TRAINER_SIGMA], host_gt_heatmaps=False)
+    r = pdist.rank()
+    out = {"world": pdist.world_size(), "backend": backend}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        # over NCCL the replicated run twice: two runs of the same steps
+        # are bitwise alike, so ZeRO-1's bitwise check means something
+        modes = ("replicated", "repeat", "zero") if backend == "nccl" \
+            else ("replicated", "zero", "control")
+        global_stats = step_mod.global_batch_stats
+        for mode in modes:
+            args = dp_args(dist_mod, root, f"{tag}_{mode}",
+                           *(["--zero1"] if mode == "zero" else []))
+            dist_mod.check_flags(dist_mod.build_parser(), args)
+            if mode == "control":
+                step_mod.global_batch_stats = \
+                    lambda group: global_stats(None)
+            out[mode] = dp_run(dist_mod, zero_mod, cam_mod, args, train_ds,
+                               dev)
+            step_mod.global_batch_stats = global_stats
+    out["nondeterministic"] = sorted({str(w.message)[:160] for w in caught
+                                      if "deterministic" in str(w.message)})
+    torch.save(out, os.path.join(root, "p27", f"{tag}_rank{r}.pt"))
+    pdist.dist.destroy_process_group()
+
+
+def deterministic() -> None:
+    """Deterministic cuDNN and PyTorch kernels (a warning names any op
+    without one), so that two runs of the same steps can be compared
+    bitwise."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def spawn_ranks(root: str, tag: str, backend: str, world: int) -> list:
+    """Start ``world`` ranks of :func:`dp_child` with torchrun's
+    variables, wait for them (their output in ``root/p27``) and read
+    their results."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    logs, procs = [], []
+    for r in range(world):
+        log = open(os.path.join(root, "p27", f"{tag}_rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", root,
+             tag, backend], env={**env, "RANK": str(r),
+                                 "LOCAL_RANK": str(r)},
+            stdout=log, stderr=subprocess.STDOUT))
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, c in enumerate(codes):
+        if c != 0:
+            with open(os.path.join(root, "p27", f"{tag}_rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(c == 0, f"{tag} rank {r} exited with {c}")
+    return [torch.load(os.path.join(root, "p27", f"{tag}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def dp_errors(got: dict, want: dict, init: dict) -> dict:
+    """A trainer run against another: the worst loss's relative error,
+    the worst leaf's update error over its scale (the largest magnitude
+    of the other run's change) and which leaf, and the cosine of the
+    whole change, each leaf over its scale."""
+    loss_err = max((abs(a - b) - 1e-7) / max(abs(b), 1e-30)
+                   for g, w in zip(got["losses"], want["losses"])
+                   for a, b in zip(g, w))
+    worst, leaf, ga, wa = 0.0, None, [], []
+    for k, v in want["sd"].items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        moved, wm = got["sd"][k] - init[k], v - init[k]
+        scale = max(float(wm.abs().max()), 1e-3 * float(init[k].abs().max()),
+                    1e-12)
+        err = float((moved - wm).abs().max()) / scale
+        if err >= worst:
+            worst, leaf = err, k
+        ga.append(moved.flatten().double() / scale)
+        wa.append(wm.flatten().double() / scale)
+    a, b = torch.cat(ga), torch.cat(wa)
+    return {"loss_rel_err": loss_err, "worst_update_err": worst,
+            "worst_leaf": leaf,
+            "update_cos": float(a @ b / (a.norm() * b.norm()))}
+
+
+def dp_checks(e: dict) -> dict:
+    """Which of the module's DP_* bounds :func:`dp_errors`' readings
+    pass."""
+    return {"losses": e["loss_rel_err"] <= DP_LOSS_RTOL,
+            "updates": e["worst_update_err"] <= DP_UPDATE_TOL,
+            "cosine": e["update_cos"] > DP_COS}
+
+
+def check_dp_run(got: dict, want: dict, init: dict, what: str) -> dict:
+    """A data-parallel run against the single-process one (module
+    constants DP_*)."""
+    check(got["step"] == want["step"] == DP_STEPS, f"{what}: steps")
+    e = dp_errors(got, want, init)
+    check(all(dp_checks(e).values()), f"{what}: against one process {e}")
+    for name, n in got["launches"].items():
+        check(n > 0, f"{what}: {name} not launched")
+    return e
+
+
+def phase_data_parallel(mods, tdata, root, pics, card, dev) -> dict:
+    """The trainer's data parallelism on phase 25's fixture at its
+    defaults with ``--fused_cam`` (B = 16, 450^2), 3 steps: one process
+    without a group, then ranks started as torchrun starts them — one
+    rank over NCCL, and two ranks over gloo both on this card — each
+    replicated and with ``--zero1``."""
+    dist_mod, zero_mod, cam_mod, factory_mod = mods
+    os.makedirs(os.path.join(root, "p27"), exist_ok=True)
+    np.savez(os.path.join(root, "pics.npz"),
+             **{str(k): v for k, v in pics.items()})
+    import logging
+    init_model = factory_mod.get_attention_student(fused_cam=True,
+                                                   device=dev, seed=0)
+    dist_mod.load_stem(init_model, os.path.join(root, "w48.pth.tar"),
+                       logging.getLogger("chip_smoke.p27"))
+    init = {k: v.detach().cpu() for k, v in init_model.state_dict().items()}
+    del init_model
+    import contextlib
+    with open(os.path.join(root, "p27_single.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        single = dp_run(dist_mod, zero_mod, cam_mod,
+                        dp_args(dist_mod, root, "single"), tdata["train_ds"],
+                        dev)
+    torch.cuda.empty_cache()
+    out = {"single": {k: single[k] for k in ("losses", "step_ms",
+                                             "momentum_bytes")}}
+    out["single"]["img_per_s"] = TRAINER_BATCH / single["step_ms"] * 1e3
+    for tag, backend, world in (("nccl1", "nccl", 1), ("gloo2", "gloo", 2)):
+        ranks = spawn_ranks(root, tag, backend, world)
+        row = {}
+        for mode in ("replicated", "zero"):
+            runs = [rk[mode] for rk in ranks]
+            for r in range(1, world):
+                check(same_state(runs[r]["sd"], runs[0]["sd"]),
+                      f"{tag} {mode}: rank {r}'s state differs from rank 0's")
+            cmp = check_dp_run(runs[0], single, init, f"{tag} {mode}")
+            row[mode] = {"losses": runs[0]["losses"],
+                         "step_ms": runs[0]["step_ms"],
+                         "img_per_s": TRAINER_BATCH / runs[0]["step_ms"]
+                         * 1e3,
+                         "momentum_bytes_per_rank": [
+                             rk[mode]["momentum_bytes"] for rk in ranks],
+                         "launches_rank0": runs[0]["launches"], **cmp}
+        z, rep = ranks[0]["zero"], ranks[0]["replicated"]
+        if "repeat" in ranks[0]:
+            row["repeat_bitwise"] = same_state(ranks[0]["repeat"]["sd"],
+                                               rep["sd"])
+            check(row["repeat_bitwise"], f"{tag}: two replicated runs differ")
+        row["zero_bitwise"] = same_state(z["sd"], rep["sd"])
+        row["nondeterministic_ops"] = ranks[0]["nondeterministic"]
+        check(row["zero_bitwise"] and z["losses"] == rep["losses"],
+              f"{tag}: ZeRO-1 is not bitwise the replicated run")
+        if "control" in ranks[0]:
+            # per-rank batch statistics: the checks above must refuse it
+            row["control"] = dp_errors(ranks[0]["control"], single, init)
+            check(not any(dp_checks(row["control"]).values()),
+                  f"{tag}: the per-rank-statistics control passes a "
+                  f"check: {row['control']}")
+            # the reduction's own effect: the pair against one rank in a
+            # child as deterministic as they are
+            row["replicated_vs_nccl1"] = dp_errors(
+                rep, out["nccl1_runs"]["replicated"], init)
+        out[tag] = row
+        if tag == "nccl1":
+            out["nccl1_runs"] = ranks[0]
+    del out["nccl1_runs"]
+    print(f"data-parallel trainer: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3797,6 +4309,9 @@ def main() -> None:
         from rtpe_tpu_torch.io import checkpoint as ckpt_mod
         from rtpe_tpu_torch import native as native_mod
         from rtpe_tpu_torch.cli import visualize_stem as vis_mod
+        from rtpe_tpu_torch.parallel import mesh as mesh_mod
+        from rtpe_tpu_torch.parallel import spatial as spatial_mod
+        from rtpe_tpu_torch.parallel import zero as zero_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
     dev = torch.device("cuda", 0)
@@ -3938,7 +4453,20 @@ def main() -> None:
             (factory_mod, train_mod, pipe_mod), tdata, dev)
         legacy["visualize_stem"] = phase_visualize_stem(vis_mod, tdata, dev)
         legacy["phase_s"] = time.perf_counter() - t26
+        # phase 27: parallelism (the data-parallel trainer in phase 25's
+        # fixture, then the serving meshes)
+        torch.cuda.empty_cache()
+        t27 = time.perf_counter()
+        parallel = {"trainer": phase_data_parallel(
+            (dist_mod, zero_mod, cam_mod, factory_mod), tdata, root,
+            tdata["pics"], card, dev)}
         del tdata
+    parallel["spatial"] = phase_spatial(
+        (PosePredictor, hrnet, packed_mod, spatial_mod, mesh_mod, set_tf32),
+        state, counters, card, dev)
+    parallel["data_mesh"] = phase_data_mesh(
+        (PosePredictor, hrnet, mesh_mod), state, counters, card, dev)
+    parallel["phase_s"] = time.perf_counter() - t27
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
                       "ptxas": build["ptxas"], "warp_step_probe": probe,
@@ -3954,7 +4482,7 @@ def main() -> None:
                       "cam_check": cam_errs, "train": train, "tta": tta,
                       "validate": validate, "corpus": corpus,
                       "stream": stream, "int8": int8, "trainer": trainer,
-                      "legacy": legacy}))
+                      "legacy": legacy, "parallel": parallel}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3962,4 +4490,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_child(*sys.argv[2:5])
+    else:
+        main()

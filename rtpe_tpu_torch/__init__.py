@@ -35,6 +35,10 @@ distillation training:
   native/              the host's C++ helpers (bilinear resize, RLE
                        codec, assignment solver), built with g++ at
                        first use, numpy / scipy without it
+  parallel/            serving meshes (data-sharded batches, the
+                       H-sharded spatial W48 with halo exchange) and
+                       multi-process training over torch.distributed
+                       (global batch statistics, ZeRO-1)
   ops/                 resize, pooling, affine, the BN fold and the
                        wrappers of the CUDA kernels in csrc/ (NMS + top-k,
                        two groupings, LAP, BasicBlock chain, the six

@@ -32,11 +32,29 @@ CUDA (``inplanes=48`` for ``cam``), the keypoint-mining MSE step of
 one part file per top-level module, and no minival.
 
 :func:`train` is the core on datasets the caller builds; :func:`main`
-builds them from ``--coco_dir``.  The JAX script's data-parallel flags
-(``--zero1``, ``--mesh_data`` above 1) are refused with a parser error
-naming the ``ROADMAP.md`` item that brings them.  Its
-``CompileWatchdog`` guards the TPU's remote compile service and is not
-carried over.
+builds them from ``--coco_dir``.  The JAX script's ``CompileWatchdog``
+guards the TPU's remote compile service and is not carried over.
+
+Data parallelism runs one process per device, as torchrun starts them::
+
+    torchrun --nproc_per_node N -m rtpe_tpu_torch.cli.distillation \
+        ... [--mesh_data N] [--zero1]
+
+:func:`main` starts the process group from the environment
+(:func:`rtpe_tpu_torch.parallel.dist.initialize`: torchrun's variables or
+JAX's ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``; NCCL
+on cards, gloo with ``--device cpu``), and each process trains on
+``cuda:{LOCAL_RANK}``.  ``--mesh_data`` (default: every process) is the
+data-parallel size; above the number of processes it exits with status
+2, below it the other processes warn and stay idle, as JAX's
+``make_mesh`` leaves devices.  Each process feeds its
+``batch_size / mesh_data`` rows of every global batch (the rows one
+process would build: ``TrainPipeline(shard=...)``), the step reduces its
+batch statistics over the group and averages the gradients
+(``train/step.py``), and ``--zero1`` shards the momentum
+(:class:`~rtpe_tpu_torch.parallel.zero.Zero1SGD`).  The log, metrics,
+TensorBoard, checkpoints, part files and minival are rank 0's; a
+checkpoint holds the whole momentum, gathered from every process.
 """
 
 import argparse
@@ -59,12 +77,12 @@ from ..io.checkpoint import (TrainCheckpointer, save_parts_by_toplevel,
 from ..models.factory import (get_attention_student, get_legacy_student,
                               load_pretrained_stem)
 from ..obs.tb import MetricWriter
+from ..parallel import dist as pdist
+from ..parallel.zero import Zero1SGD
 from ..train import (DistillConfig, DistillTrainState, StudentDistillConfig,
                      StudentTrainState, make_distill_train_step,
                      make_student_train_step)
 from ..utils import ColorLogger, make_timestamp, model_summary
-
-LATER_PARALLEL = "ROADMAP.md Queue 1 item 6"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,10 +144,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host loader threads (JPEG/RLE/npz all release "
                         "the GIL)")
     p.add_argument("--zero1", action="store_true",
-                   help=f"ZeRO-1 optimizer sharding ({LATER_PARALLEL})")
+                   help="ZeRO-1: shard the optimizer's momentum over the "
+                        "data-parallel processes")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help=f"data-parallel size; one device until "
-                        f"{LATER_PARALLEL}")
+                   help="data-parallel size (default: every process)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p
@@ -137,12 +155,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_flags(parser: argparse.ArgumentParser,
                 args: argparse.Namespace) -> None:
-    """Parser errors (status 2) for what a later slice brings."""
-    if args.zero1:
-        parser.error(f"--zero1 comes with {LATER_PARALLEL}")
-    if args.mesh_data not in (None, 1):
-        parser.error(f"--mesh_data {args.mesh_data} comes with "
-                     f"{LATER_PARALLEL}")
+    """Parser errors (status 2): a ``--mesh_data`` the processes cannot
+    hold, a batch that does not split over it."""
+    world = pdist.world_size()
+    n = world if args.mesh_data is None else args.mesh_data
+    if not 1 <= n <= world:
+        parser.error(f"--mesh_data {args.mesh_data} needs as many "
+                     f"processes; {world} running")
+    if args.batch_size % n:
+        parser.error(f"--batch_size {args.batch_size} does not split over "
+                     f"--mesh_data {n}")
+
+
+class _Silent:
+    """The log and metric writer of a rank other than 0: every call a
+    no-op."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def data_parallel_group(args: argparse.Namespace):
+    """``(group, active)``: the data-parallel group of ``--mesh_data``
+    processes (None without a process group), and whether this process
+    is one of them.  Every process must call it."""
+    if not pdist.dist.is_initialized():
+        return None, True
+    world = pdist.world_size()
+    n = world if args.mesh_data is None else args.mesh_data
+    if n == world:
+        return pdist.dist.group.WORLD, True
+    group = pdist.dist.new_group(list(range(n)))
+    return group, pdist.rank() < n
 
 
 @dataclasses.dataclass
@@ -195,20 +239,42 @@ def _diagnose(tb: MetricWriter, batch: dict, model, step: int) -> None:
 def train(args: argparse.Namespace, train_ds, minival_ds=None,
           device=None,
           on_step: Optional[Callable[[int, DistillTrainState, dict],
-                                     None]] = None) -> Training:
+                                     None]] = None) -> Optional[Training]:
     """Train on ``train_ds`` (a ``CocoDistillationDataset`` with teacher
     maps) with the options of :func:`build_parser`; ``minival_ds`` (with
     ``alt_colorspace="LAB"``) is evaluated every ``--minival_every``
     steps.  ``device`` overrides ``--device``; ``on_step(step, state,
-    metrics)`` is called after each step is queued."""
-    dev = resolve_device(device if device is not None else args.device)
+    metrics)`` is called after each step is queued.
+
+    Under a process group every process calls it: the data-parallel ones
+    train (module docstring), the idle ones return None."""
+    group, active = data_parallel_group(args)
+    rank = pdist.rank()
+    if not active:
+        ColorLogger("distillation").warning(
+            f"rank {rank} idle: --mesh_data {args.mesh_data} of "
+            f"{pdist.world_size()} processes")
+        return None
+    if group is not None:
+        dev = pdist.rank_device(device if device is not None
+                                else args.device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    else:
+        dev = resolve_device(device if device is not None else args.device)
+    world = pdist.world_size(group)
+    lead = rank == 0
     timestamp = make_timestamp(with_tz_output=False)
-    os.makedirs(args.log_dir, exist_ok=True)
-    os.makedirs(args.snapshot_dir, exist_ok=True)
-    log = ColorLogger("distillation", os.path.join(
-        args.log_dir, f"[distillation.py]_{timestamp}.log"), filemode="w")
-    tb = MetricWriter(os.path.join(args.tb_dir,
-                                   f"[distillation.py]_{timestamp}"))
+    if lead:
+        os.makedirs(args.log_dir, exist_ok=True)
+        os.makedirs(args.snapshot_dir, exist_ok=True)
+        log = ColorLogger("distillation", os.path.join(
+            args.log_dir, f"[distillation.py]_{timestamp}.log"),
+            filemode="w")
+        tb = MetricWriter(os.path.join(args.tb_dir,
+                                       f"[distillation.py]_{timestamp}"))
+    else:
+        log = tb = _Silent()
 
     attention = args.student == "attention_steps"
     if attention:
@@ -221,7 +287,7 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
         state = DistillTrainState.create(model, cfg)
         step_fn = make_distill_train_step(
             model, cfg, grad_accum=args.grad_accum,
-            bn_dtype=None if args.bn_f32 else torch.bfloat16)
+            bn_dtype=None if args.bn_f32 else torch.bfloat16, group=group)
     else:
         model = get_legacy_student(args.student,
                                    num_heatmaps=args.num_heatmaps,
@@ -232,7 +298,8 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
             background_factor=0.01 if args.student == "cam" else 0.0)
         state = StudentTrainState.create(model, cfg)
         raw_step = make_student_train_step(model, cfg,
-                                           out_hw=tuple(args.train_hw))
+                                           out_hw=tuple(args.train_hw),
+                                           group=group)
 
         def step_fn(state, batch):
             return raw_step(state, {k: batch[k] for k in (
@@ -242,6 +309,8 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
     load_stem(model, args.model_path, log)
     log.info(model_summary(model))
     tb.hparams(vars(args))
+    if args.zero1 and group is not None:
+        state.optimizer = Zero1SGD(state.optimizer, group)
 
     ckpt = TrainCheckpointer(os.path.join(args.snapshot_dir, "train_state"))
     if args.resume:
@@ -249,15 +318,24 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
         if step is not None:
             log.info(f"resumed from checkpoint step {step}")
     old_handler = signal.getsignal(signal.SIGTERM)
-    ckpt.install_sigterm_save(lambda: state)
+    sharded = isinstance(state.optimizer, Zero1SGD) and world > 1
+    if lead and not sharded:
+        # a ZeRO-1 state's momentum lies on every process: no lone save
+        ckpt.install_sigterm_save(lambda: state)
 
     pipeline = TrainPipeline(train_ds, batch_size=args.batch_size,
                              out_hw=tuple(args.train_hw),
                              sigma=args.train_gt_stddev,
                              canvas_hw=tuple(args.canvas_hw),
-                             num_workers=args.num_workers, device=dev)
+                             num_workers=args.num_workers, device=dev,
+                             shard=None if group is None else
+                             pdist.process_local_batch_slice(
+                                 args.batch_size, group))
     log.info(f"train dataset: {len(train_ds)} images, "
-             f"{len(pipeline)} steps/epoch on {dev}")
+             f"{len(pipeline)} steps/epoch on {dev}"
+             + (f", data-parallel over {world} processes"
+                f"{' with ZeRO-1' if args.zero1 else ''}"
+                if group is not None else ""))
     global_step = start_step = state.step
     metrics: dict = {}
     minival: List[tuple] = []
@@ -278,10 +356,10 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
                     log.info(f"epoch {epoch} step {global_step}: {m} "
                              f"({rate:.1f} img/s)")
                     tb.scalars(m, global_step)
-                if (args.diagnose_every
+                if (lead and args.diagnose_every
                         and global_step % args.diagnose_every == 0):
                     _diagnose(tb, batch, model, global_step)
-                if (minival_ds is not None and args.minival_every
+                if (lead and minival_ds is not None and args.minival_every
                         and global_step % args.minival_every == 0):
                     t0 = time.time()
                     mv = attention_minival(model, minival_ds)
@@ -302,14 +380,17 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
                 if args.max_steps and global_step >= args.max_steps:
                     break
             # per-epoch snapshots (reference distillation.py:422-431)
-            ckpt.save(global_step, state)
-            prefix = f"{timestamp}_epoch{epoch}_step{global_step}"
-            save = save_student_parts if attention else \
-                save_parts_by_toplevel
-            written = save(model, args.snapshot_dir, prefix)
-            parts += written
-            log.info(f"saved snapshot parts to {args.snapshot_dir} "
-                     f"({len(written)} files)")
+            if isinstance(state.optimizer, Zero1SGD):
+                state.optimizer.gather()   # every process
+            if lead:
+                ckpt.save(global_step, state)
+                prefix = f"{timestamp}_epoch{epoch}_step{global_step}"
+                save = save_student_parts if attention else \
+                    save_parts_by_toplevel
+                written = save(model, args.snapshot_dir, prefix)
+                parts += written
+                log.info(f"saved snapshot parts to {args.snapshot_dir} "
+                         f"({len(written)} files)")
             if args.max_steps and global_step >= args.max_steps:
                 break
     finally:
@@ -320,9 +401,11 @@ def train(args: argparse.Namespace, train_ds, minival_ds=None,
                     timestamp)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Training:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[Training]:
     parser = build_parser()
     args = parser.parse_args(argv)
+    pdist.initialize(backend="gloo" if torch.device(args.device).type
+                     == "cpu" else None)
     check_flags(parser, args)
     resolve_device(args.device)
     whitelist = (read_whitelist(args.minival_file)

@@ -270,7 +270,14 @@ class TrainPipeline:
     and ``img_id``, a host array.
 
     The arguments and defaults are the JAX pipeline's, plus ``device``
-    (``"cuda"`` by default; raises without CUDA unless ``"cpu"``)."""
+    (``"cuda"`` by default; raises without CUDA unless ``"cpu"``) and
+    ``shard``: a slice of each global batch of ``batch_size``
+    (:func:`~rtpe_tpu_torch.parallel.dist.process_local_batch_slice`)
+    makes this pipeline one process's feed of a data-parallel run.  Its
+    rows are the ones the one-process pipeline builds: every process
+    shuffles and seeds alike, and draws the augmentation of the rows it
+    skips too, with the image size the annotations record (which must
+    be the image's)."""
 
     def __init__(self, dataset, batch_size: int = 16,
                  out_hw: Tuple[int, int] = (450, 450),
@@ -285,9 +292,13 @@ class TrainPipeline:
                  num_workers: int = 1,
                  compact_transfer: bool = True,
                  cache_dir: Optional[str] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 shard: Optional[slice] = None):
         self.ds = dataset
         self.batch_size = batch_size
+        rows = shard or slice(0, batch_size)
+        self.row0, self.rows = rows.start, rows.stop - rows.start
+        self.sharded = self.rows < batch_size
         self.out_hw = tuple(out_hw)
         self.sigmas = tuple(float(s) for s in (
             sigma if isinstance(sigma, (tuple, list)) else (sigma,)))
@@ -319,7 +330,7 @@ class TrainPipeline:
     def _specs(self):
         """(shape, dtype) of each host array of a batch, in order."""
         ch, cw = self.canvas_hw
-        b, j = self.batch_size, self.num_joints
+        b, j = self.rows, self.num_joints
         img_dt = np.uint8 if self.compact else np.float32
         map_dt = np.float16 if self.compact else np.float32
         return [((b, ch, cw, 3), img_dt), ((b, ch, cw), img_dt),
@@ -341,7 +352,13 @@ class TrainPipeline:
                 a[...] = 0
         imgs, masks, segms, t_hms, t_ae, joints, mats, img_ids = out
 
-        for k, idx in enumerate(indices):
+        for kk, idx in enumerate(indices):
+            k = kk - self.row0
+            if not 0 <= k < self.rows:
+                # another process's row: its draws, so that ours follow
+                sample_affine_matrices(rng, 1, self._recorded_hw(idx),
+                                       self.augment)
+                continue
             if self.cache is not None:
                 (img_u8, mask_u8, segm_u8, th, ta, jt, (h, w),
                  iid) = self.cache.get(idx, self.ds)
@@ -356,6 +373,7 @@ class TrainPipeline:
                 masks[k] = mask_u8
                 segms[k] = segm_u8
                 joints[k] = jt
+                self._check_hw(idx, (h, w))
                 mats[k] = sample_affine_matrices(rng, 1, (h, w),
                                                  self.augment)[0]
                 img_ids[k] = iid
@@ -390,10 +408,23 @@ class TrainPipeline:
                 t_ae[k, :h, :w, :d] = s["teacher_ae"][:h, :w, :d]
             p = min(MAX_PEOPLE, s["joints"].shape[0])
             joints[k, :p] = s["joints"][:p]
+            self._check_hw(idx, (h, w))
             mats[k] = sample_affine_matrices(rng, 1, (h, w),
                                              self.augment)[0]
             img_ids[k] = s["img_id"]
         return out
+
+    def _recorded_hw(self, idx: int) -> Tuple[int, int]:
+        """Sample ``idx``'s image size as its annotations record it."""
+        info = self.ds.coco.img_info(self.ds.ids[idx])
+        return int(info["height"]), int(info["width"])
+
+    def _check_hw(self, idx: int, hw) -> None:
+        if self.sharded and tuple(hw) != self._recorded_hw(idx):
+            raise ValueError(
+                f"sample {idx}: image {hw} differs from the annotations' "
+                f"{self._recorded_hw(idx)}; a sharded pipeline draws the "
+                "augmentation of other processes' rows from that size")
 
     def _epoch_indices(self):
         idx = np.arange(len(self.ds))

@@ -11,6 +11,12 @@ decode (:meth:`HeatmapParser.parse_fused_batch`: the NMS + top-k and
 lockstep grouping kernels on CUDA) or, with ``fused_decode=False``, the
 host-grouping decode (:meth:`HeatmapParser.parse_batch`: the NMS +
 top-k kernel, munkres grouping on the host, the refine on the device).
+
+Two meshes (``parallel/mesh.py``), driven from this one process as in
+JAX: ``mesh`` shards :meth:`predict_batch`'s images over its ``data``
+devices, and ``spatial_mesh`` runs the float32 forward with every
+activation H-sharded over its ``model`` devices
+(``parallel/spatial.py``).
 """
 
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
@@ -26,19 +32,15 @@ from ..io.jax_import import state_dict_from_jax, strip_fp16_prefix
 from ..io.serving import load_serving_artifact
 from ..models.hrnet import HRNetConfig, PoseHigherHRNet
 from ..models.hrnet_packed import (calibrate_act_scales, conv_names,
-                                   load_act_scales, pack_w48_params,
-                                   packed_forward, quantize_packed)
+                                   fold_w48_params, load_act_scales,
+                                   pack_w48_params, packed_forward,
+                                   quantize_packed)
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import gather_rows, replicate
+from ..parallel.spatial import spatial_forward_w48
 from .tta import tta_forward
 
 People = Tuple[List[np.ndarray], List[float]]
-
-# options of the JAX predictor that later slices of the port bring
-_LATER = {
-    "mesh": "data-parallel serving (ROADMAP.md Queue 1 item 6)",
-    "spatial_mesh": "spatially sharded serving (ROADMAP.md Queue 1 "
-                    "item 6)",
-}
 
 # Batches smaller than this are served through the bf16 packed params
 # when int8 is on: the JAX predictor's default, the crossover measured on
@@ -102,6 +104,22 @@ class PosePredictor:
     batch, one forward per scale), and :meth:`predict_batch` serves its
     images one at a time through :meth:`predict`, as the JAX predictor
     does.
+
+    ``mesh`` (a :class:`~rtpe_tpu_torch.parallel.mesh.Mesh` with a
+    ``data`` axis): :meth:`predict_batch` pads each shape group to a
+    multiple of the axis size, runs each shard's forward on its device
+    with the weights replicated there, gathers the outputs on ``device``
+    and decodes the real images only.  As in JAX the sharded forward is
+    the predictor's own (int8 with ``int8``) at every batch size: the
+    int8 route to bf16 applies to the unsharded calls only
+    (:meth:`predict`, :meth:`stream`).
+
+    ``spatial_mesh`` (a mesh with a ``model`` axis of n devices): every
+    forward is :func:`~rtpe_tpu_torch.parallel.spatial.
+    spatial_forward_w48`, the float32 BN-folded W48 with its activations
+    H-sharded n ways; the post-resize height must divide by ``32 * n``.
+    It composes with neither ``packed`` / int8 nor ``mesh`` (JAX's
+    ``ValueError``).
     """
 
     def __init__(self, model: PoseHigherHRNet,
@@ -135,12 +153,10 @@ class PosePredictor:
                 " Pass real calibration_images (or precomputed "
                 "act_scales), or opt in explicitly with "
                 "allow_synthetic_calibration=True")
-        later = dict(mesh=mesh, spatial_mesh=spatial_mesh)
-        for name, value in later.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} needs {_LATER[name]}, which a later slice of "
-                    "the port brings")
+        if spatial_mesh is not None and (packed or mesh is not None):
+            raise ValueError(
+                "spatial_mesh is the dense fp32 halo-exchange path; it "
+                "composes with neither packed/int8 nor a data mesh")
         self.with_flip = bool(with_flip)
         self.scales = tuple(scales)
         self.tta = self.with_flip or self.scales != (1.0,)
@@ -154,6 +170,9 @@ class PosePredictor:
         self.fused_decode = fused_decode is not False
         if state_dict is not None:
             model.load_state_dict(strip_fp16_prefix(state_dict))
+        self.mesh = mesh
+        self.spatial_mesh = spatial_mesh
+        self._replicas = None
         self.packed = bool(packed)
         self.packed_params = None
         self.int8_params = None
@@ -162,6 +181,14 @@ class PosePredictor:
         self.int8_min_batch = int(INT8_MIN_BATCH_DEFAULT
                                   if int8_min_batch is None
                                   else int8_min_batch)
+        if spatial_mesh is not None:
+            self.dtype = torch.float32
+            self.model = model.eval()
+            self.spatial_params = replicate(
+                fold_w48_params(model.state_dict(), model.cfg,
+                                device=self.device),
+                spatial_mesh, "model")
+            return
         if self.packed:
             self.packed_params = pack_w48_params(
                 model.state_dict(), model.cfg, self.dtype, self.device)
@@ -171,11 +198,17 @@ class PosePredictor:
                 self.act_scales = dict(scales_d)
                 self.int8_params = quantize_packed(self.packed_params,
                                                    scales_d)
-            return
-        model = model.to(self.device).eval().set_compute_dtype(self.dtype)
-        if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        self.model = model
+        else:
+            model = model.to(self.device).eval().set_compute_dtype(
+                self.dtype)
+            if self.device.type == "cuda":
+                model = model.to(memory_format=torch.channels_last)
+            self.model = model
+        if mesh is not None:
+            self._replicas = replicate(
+                self.int8_params if self.int8_params is not None else
+                self.packed_params if self.packed else self.model,
+                mesh, "data")
 
     def _int8_scales(self, act_scales, calibration_images
                      ) -> Mapping[str, float]:
@@ -250,6 +283,14 @@ class PosePredictor:
         """The forward of a batch for a call of ``n`` user images (default
         the batch's size), which picks int8 or the bf16 route."""
         x = batch_nhwc.permute(0, 3, 1, 2)
+        if self.spatial_mesh is not None:
+            n_sp = self.spatial_mesh.shape["model"]
+            if x.shape[2] % (32 * n_sp):
+                raise ValueError(
+                    f"spatial_mesh: post-resize height {x.shape[2]} must "
+                    f"divide by 32*{n_sp}; adjust input_size")
+            return tuple(t.to(self.device) for t in spatial_forward_w48(
+                self.spatial_params, x, self.spatial_mesh, self.model.cfg))
         if not self.packed:
             return self.model(x)
         n = x.shape[0] if n is None else n
@@ -258,6 +299,33 @@ class PosePredictor:
                                   self.dtype)
         return packed_forward(self.int8_params, x, self.model.cfg,
                               self.dtype, int8_act=self.int8_act)
+
+    def _replica_forward(self, i: int, x: torch.Tensor):
+        """The unrouted forward of NCHW ``x`` with the weights of data
+        shard ``i``."""
+        w = self._replicas[i]
+        if not self.packed:
+            return w(x)
+        return packed_forward(w, x, self.model.cfg, self.dtype,
+                              int8_act=self.int8_params is not None
+                              and self.int8_act)
+
+    def _sharded_forward(self, batch_nhwc: torch.Tensor):
+        """The forward of a batch over the data mesh: padded to a multiple
+        of the axis size, a chunk on each device, the outputs gathered on
+        ``self.device`` (padding rows included)."""
+        devs = self.mesh.axis_devices("data")
+        d = len(devs)
+        pad = -batch_nhwc.shape[0] % d
+        if pad:
+            batch_nhwc = torch.cat([batch_nhwc, batch_nhwc.new_zeros(
+                (pad,) + tuple(batch_nhwc.shape[1:]))])
+        m = batch_nhwc.shape[0] // d
+        outs = [self._replica_forward(
+            i, batch_nhwc[i * m:(i + 1) * m].to(dev, non_blocking=True)
+            .permute(0, 3, 1, 2)) for i, dev in enumerate(devs)]
+        return tuple(gather_rows([o[k] for o in outs], self.device)
+                     for k in range(len(outs[0])))
 
     def _forward_nhwc(self, batch_nhwc: torch.Tensor, n: int = 1):
         """The forward with NHWC heads (the TTA contract); a TTA batch
@@ -321,8 +389,11 @@ class PosePredictor:
         out: List = [None] * len(pre)
         for idxs in groups.values():
             batch = torch.stack([pre[i][0] for i in idxs])
-            hms, tags = self._decode_outputs(*self._forward(batch))
-            grouped, scores = self._parse(hms, tags)
+            n = len(idxs)
+            outs = (self._sharded_forward(batch) if self.mesh is not None
+                    else self._forward(batch))
+            hms, tags = self._decode_outputs(*outs)
+            grouped, scores = self._parse(hms[:n], tags[:n])
             hm_hw = (int(hms.shape[1]), int(hms.shape[2]))
             for k, i in enumerate(idxs):
                 out[i] = self._finalize(grouped[k], scores[k],

@@ -20,6 +20,11 @@ BatchNorm keeps float32 parameters and statistics:
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, and the
   result in the BN compute dtype (:class:`bn_compute_dtype`: float32, or
   bf16 under the train step's ``bn_dtype``).
+
+Inside :class:`~rtpe_tpu_torch.parallel.dist.global_batch_stats` the
+train-mode statistics are those of the global batch: the per-channel
+sums, sums of squares and counts all-reduced over the data-parallel
+group (their gradients too).
 """
 
 from typing import Optional
@@ -27,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.dist import all_reduce_sum, stats_group
 
 BN_MOMENTUM = 0.1  # torch convention (reference pose_higher_hrnet.py:36)
 BN_EPS = 1e-5
@@ -110,8 +117,19 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x.float())
         x32 = x.float()
-        mean = x32.mean((0, 2, 3))
-        var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
+        group = stats_group()
+        if group is None:
+            mean = x32.mean((0, 2, 3))
+            sq = (x32 * x32).mean((0, 2, 3))
+        else:
+            # the global batch's statistics: the sums and the count over
+            # the data-parallel group, differentiably
+            count = x32.new_full((x32.shape[1],), x32.numel() // x32.shape[1])
+            sums = all_reduce_sum(torch.stack(
+                [x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)), count]),
+                group)
+            mean, sq = sums[0] / sums[2], sums[1] / sums[2]
+        var = torch.clamp(sq - mean * mean, min=0.0)
         update_running_stats(self, mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean[:, None, None]) * mul[:, None, None] \

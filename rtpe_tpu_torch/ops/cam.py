@@ -37,6 +37,12 @@ One deliberate difference from the TPU kernels: ``_f3b_kernel``'s
 phase 1 reads image 0's SE gate for every image
 (``pallas_cam.py:507``), which makes its ``dx`` wrong for images
 b >= 1; here both phases use image b's gate (ROADMAP.md Queue 3).
+
+Under data parallelism (:class:`~rtpe_tpu_torch.parallel.dist.
+global_batch_stats`) :func:`fused_cam` all-reduces F1's and F2's sums
+and the pixel count over the group between the launches, as JAX's
+one-program step reduces them over the global batch; the kernels are
+the same.
 """
 
 import ctypes
@@ -45,6 +51,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import all_reduce_sum, stats_group
 from . import _build
 
 BN_EPS = 1e-5
@@ -716,6 +723,21 @@ def cam_f3(dils, x, kr, kh, kt, bnr, bnh, bnt, gate):
     return CamF3.apply(x, kr, kh, kt, bnr, bnh, bnt, gate, tuple(dils))
 
 
+def _global_sums(group, *args):
+    """The statistic sums in ``args`` (tensors) and the local pixel count
+    (the last argument) all-reduced over ``group`` in one collective;
+    differentiable, so the backward's sums come out global too."""
+    *sums, n = args
+    flat = torch.cat([t.reshape(-1) for t in sums]
+                     + [sums[0].new_full((1,), float(n))])
+    flat = all_reduce_sum(flat, group)
+    out, k = [], 0
+    for t in sums:
+        out.append(flat[k:k + t.numel()].reshape(t.shape))
+        k += t.numel()
+    return (*out, flat[k])
+
+
 def fused_cam(x: torch.Tensor, kr: torch.Tensor, kh: torch.Tensor,
               kt: torch.Tensor, scales: Dict[str, torch.Tensor],
               biases: Dict[str, torch.Tensor],
@@ -732,14 +754,19 @@ def fused_cam(x: torch.Tensor, kr: torch.Tensor, kh: torch.Tensor,
       differentiated by autograd.
     :returns: (out, stats): out (B, H, W, C) bf16; stats maps 'r' / 't'
       -> (mean, var) and 'h' -> ((nb, hc) means, (nb, hc) vars), the
-      biased batch statistics for the running-stat update.
+      biased batch statistics for the running-stat update, those of the
+      global batch inside ``global_batch_stats``.
     """
     dils = tuple(dils)
     b, h, w, _ = x.shape
     nb = kh.shape[0]
     n = b * h * w
 
+    group = stats_group()
     s_r, s_h, gap = cam_f1(dils, x, kr, kh)
+    if group is not None:
+        # the global batch's sums and count, between the launches
+        s_r, s_h, n = _global_sums(group, s_r, s_h, n)
     mean_r = s_r[0] / n
     var_r = s_r[1] / n - torch.square(mean_r)
     inv_r = torch.rsqrt(var_r + BN_EPS)
@@ -752,6 +779,8 @@ def fused_cam(x: torch.Tensor, kr: torch.Tensor, kh: torch.Tensor,
     bnh = torch.cat([torch.stack([mean_h[i], inv_h[i], scales["h"][i],
                                   biases["h"][i]]) for i in range(nb)])
     s_t = cam_f2(dils, x, kh, kt, bnh)
+    if group is not None:
+        s_t, _ = _global_sums(group, s_t, b * h * w)
     mean_t = s_t[0] / n
     var_t = s_t[1] / n - torch.square(mean_t)
     inv_t = torch.rsqrt(var_t + BN_EPS)

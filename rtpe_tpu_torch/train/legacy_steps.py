@@ -24,6 +24,10 @@ scale before the backward, the gradients are divided by it, and on a
 non-finite gradient the parameters and the momentum keep their values
 while the scale halves; the schedule's step still advances and the BN
 running statistics keep the forward's update, as in JAX.
+
+With a ``group`` the step is data-parallel as the distillation step's
+(``train/step.py``): the batch reductions over the group, the
+gradients averaged over it, the loss the group's mean.
 """
 
 import dataclasses
@@ -33,6 +37,8 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear
+from ..parallel.dist import (average_gradients, check_equal_shards,
+                             global_batch_stats, mean_over_group)
 from .loss_scaling import (DynamicScalerState, has_overflow,
                            init_dynamic_scaler, update_scaler)
 from .losses import distillation_loss_keypoint_mining
@@ -101,7 +107,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def make_student_train_step(model: nn.Module, cfg: StudentDistillConfig,
                             out_hw: Optional[Tuple[int, int]] = None,
-                            dynamic_loss_scale: bool = False):
+                            dynamic_loss_scale: bool = False, group=None):
     """Build ``train_step(state, batch) -> (state, metrics)`` for the
     Refiner / Multistage / Cam students (eager: nothing is compiled).
 
@@ -113,8 +119,11 @@ def make_student_train_step(model: nn.Module, cfg: StudentDistillConfig,
     ``dynamic_loss_scale`` (the state made with
     ``StudentTrainState.create(..., dynamic_loss_scale=True)``) the new
     ``loss_scale`` and ``overflow`` (1.0 when the update was skipped).
+    ``group``: the data-parallel process group (None: this process
+    alone), ``batch`` this process's equal share of the global batch.
     """
     _, sched = make_student_optimizer(model, cfg)
+    checked = set()
 
     def loss_of(out, batch):
         outs = out if isinstance(out, (tuple, list)) else (out,)
@@ -141,20 +150,30 @@ def make_student_train_step(model: nn.Module, cfg: StudentDistillConfig,
         net.train()
         opt.zero_grad(set_to_none=True)
         kw = {} if out_hw is None else {"out_hw": tuple(out_hw)}
-        loss = loss_of(net(_nchw(batch["img"]), **kw), batch)
-        params = opt.param_groups[0]["params"]
+        b = batch["img"].shape[0]
+        if group is not None and b not in checked:
+            check_equal_shards(b, group, batch["img"].device)
+            checked.add(b)
+        with global_batch_stats(group):
+            loss = loss_of(net(_nchw(batch["img"]), **kw), batch)
+        base = getattr(opt, "base", opt)
+        params = base.param_groups[0]["params"]
         if dynamic_loss_scale:
             scale = state.scaler.scale
             (loss * scale).backward()
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(scale)
-            overflow = has_overflow([p.grad for p in params])
         else:
             loss.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            average_gradients(params, group)
+            loss = mean_over_group((loss,), group)[0]
+        if dynamic_loss_scale:
+            overflow = has_overflow([p.grad for p in params])
         lr = sched(state.step)
         opt.param_groups[0]["lr"] = float(lr)
         metrics = {"loss": loss.detach(), "lr": float(lr)}

@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import all_reduce_extreme, stats_group
+
 
 def masked_mse(pred: torch.Tensor, gt: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -71,11 +73,19 @@ def distillation_loss_keypoint_mining(student_pred, teacher_pred, gt,
 
 
 def _minmax_normalize(x: torch.Tensor) -> torch.Tensor:
-    """Sequential shift-then-scale of ``optimization.py:238-246``."""
+    """Sequential shift-then-scale of ``optimization.py:238-246``; the
+    minimum and maximum are the global batch's inside
+    :class:`~rtpe_tpu_torch.parallel.dist.global_batch_stats` (the
+    callers detach the result)."""
     x = x.float()
+    group = stats_group()
     xmin = torch.min(x)
+    if group is not None:
+        xmin = all_reduce_extreme(xmin, group, "min")
     x = torch.where(xmin < 0, x - xmin, x)
     xmax = torch.max(x)
+    if group is not None:
+        xmax = all_reduce_extreme(xmax, group, "max")
     return torch.where(xmax > 1, x / xmax, x)
 
 

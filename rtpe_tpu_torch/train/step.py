@@ -17,6 +17,14 @@
 One backward computes both gradient sets: the model's
 ``detach_att_for_det`` blocks the detection loss's gradient into the
 attention branch, which the reference computes but never applies.
+
+With a ``group`` (``torch.distributed``), each process steps on its
+equal share of the global batch as JAX's data-sharded step does: the
+forward's batch reductions run over the group
+(:class:`~rtpe_tpu_torch.parallel.dist.global_batch_stats`), the
+gradients are averaged over it before the update, and the metrics are
+the group's means.  The optimizer may be a
+:class:`~rtpe_tpu_torch.parallel.zero.Zero1SGD`.
 """
 
 import dataclasses
@@ -26,6 +34,8 @@ import torch
 from torch import nn
 
 from ..models.layers import bn_compute_dtype
+from ..parallel.dist import (average_gradients, check_equal_shards,
+                             global_batch_stats, mean_over_group)
 from ..ops.resize import resize_bilinear
 from .losses import bce_with_logits, distillation_bce_loss_keypoint_mining
 from .schedules import SgdrConfig, sgdr_schedule
@@ -93,6 +103,14 @@ class DistillTrainState:
         return cls(step=0, model=model, optimizer=opt)
 
 
+def _grad_params(net: nn.Module, opt) -> list:
+    """The parameters the optimizer steps, as the model names them (a
+    ZeRO-1 optimizer's groups hold slices)."""
+    base = getattr(opt, "base", opt)
+    ids = {id(p) for g in base.param_groups for p in g["params"]}
+    return [p for p in net.parameters() if id(p) in ids]
+
+
 def att_divisor_at(step: int, cfg: DistillConfig) -> torch.Tensor:
     """1 + v0 * exp(-decay * step) in float32 (``distillation.py:116-121``)."""
     t = torch.tensor(float(step), dtype=torch.float32)
@@ -108,7 +126,8 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_distill_train_step(model: nn.Module, cfg: DistillConfig,
-                            grad_accum: int = 1, bn_dtype=None):
+                            grad_accum: int = 1, bn_dtype=None,
+                            group=None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` (NHWC, on the model's device): ``img`` (B,H,W,3) normalised,
@@ -124,8 +143,13 @@ def make_distill_train_step(model: nn.Module, cfg: DistillConfig,
     :param bn_dtype: the train-mode BN output dtype inside the step
       (:class:`rtpe_tpu_torch.models.layers.bn_compute_dtype`); the
       statistics stay float32.
+    :param group: the data-parallel process group (None: this process
+      alone); ``batch`` is then this process's rows of the global batch,
+      the same number on every process.  Under ``grad_accum`` each
+      micro-batch is every process's k-th slice of its rows.
     """
     _, att_sched, det_sched = make_distill_optimizer(model, cfg)
+    checked = set()
 
     def losses(outputs, mb):
         att, det = (_nhwc(t) for t in outputs)
@@ -156,28 +180,34 @@ def make_distill_train_step(model: nn.Module, cfg: DistillConfig,
             raise ValueError(f"batch {b} does not split into {grad_accum} "
                              "micro-batches")
         m = b // grad_accum
+        if group is not None and b not in checked:
+            check_equal_shards(b, group, batch["img"].device)
+            checked.add(b)
         divisor = att_divisor_at(state.step, cfg).to(batch["img"].device)
         segs, dets = [], []
         for k in range(grad_accum):
             mb = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
-            with bn_compute_dtype(bn_dtype):
+            with bn_compute_dtype(bn_dtype), global_batch_stats(group):
                 out = net(_nchw(mb["img"]), _nchw(mb["img_alt"]),
                           att_divisor=divisor)
-            seg, det = losses(out, mb)
+                seg, det = losses(out, mb)
             (seg + det).backward()
             segs.append(seg.detach())
             dets.append(det.detach())
+        params = _grad_params(net, opt)
         if grad_accum > 1:
-            for group in opt.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(grad_accum)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(grad_accum)
         att_lr, det_lr = att_sched(state.step), det_sched(state.step)
         opt.param_groups[0]["lr"] = float(att_lr)
         opt.param_groups[1]["lr"] = float(det_lr)
+        seg, det = torch.stack(segs).mean(), torch.stack(dets).mean()
+        if group is not None:
+            average_gradients(params, group)
+            seg, det = mean_over_group((seg, det), group)
         opt.step()
-        metrics = {"attention_loss": torch.stack(segs).mean(),
-                   "keypoints_loss": torch.stack(dets).mean(),
+        metrics = {"attention_loss": seg, "keypoints_loss": det,
                    "att_lr": float(att_lr), "det_lr": float(det_lr)}
         state.step += 1
         return state, metrics

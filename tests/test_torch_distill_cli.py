@@ -18,8 +18,8 @@ state dict, behind its fp16 ``"1."`` prefix):
   decodes the teacher corpus.
 * ``--student cam|multistage`` build the JAX script's models, and two
   CPU steps of ``--student cam`` checkpoint, restore bitwise and resume.
-* The flags a later slice brings exit with status 2, and the default
-  device is CUDA.
+* The data-parallel flags parse and pass ``check_flags``, and the
+  default device is CUDA.
 * Known behaviour kept (``ROADMAP.md`` Queue 3): ``--ae_dims 1`` fails
   at its first step, in the port as in JAX, because the distillation
   step's keypoint loss takes the teacher's 17 heatmaps.
@@ -177,11 +177,20 @@ def test_dataloader_demo_runs_two_batches(coco, tmp_path, capsys):
     (["--zero1"], "Queue 1 item 6"),
     (["--mesh_data", "2"], "Queue 1 item 6"),
 ])
-def test_refused_flags_exit_2(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        distillation.main(["--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert item in capsys.readouterr().err
+def test_refused_flags_exit_2(flags, item, capsys, monkeypatch):
+    """The data-parallel flags the port once refused (naming ``item``)
+    parse, pass ``check_flags`` and build the data-parallel setting: here
+    a process of a group of 2 (``test_torch_parallel_dp.py`` trains under
+    two real ranks)."""
+    monkeypatch.setattr(distillation.pdist, "world_size", lambda: 2)
+    parser = distillation.build_parser()
+    args = parser.parse_args(["--device", "cpu", *flags])
+    distillation.check_flags(parser, args)
+    assert item not in capsys.readouterr().err
+    assert args.zero1 == ("--zero1" in flags)
+    assert args.mesh_data in (None, 2)
+    # without a process group: one process, no group to shard over
+    assert distillation.data_parallel_group(args) == (None, True)
 
 
 @pytest.mark.parametrize("kind,cls", [("cam", CamStudent),

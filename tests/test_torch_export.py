@@ -10,9 +10,14 @@ CPU.
 * an int8 artifact JAX writes is served by the port's ``from_artifact``
   as int8, with JAX's scales, bitwise as the port's own int8 predictor;
 * ``python -m rtpe_tpu_torch.cli.export_serving`` (``main(argv)``) on the
-  full-width W48 at ``--device cpu``: int8 with ``--calib`` images, then
+  W48's layout at ``--device cpu``: int8 with ``--calib`` images, then
   with the scale file it shipped, each reloaded and verified bitwise;
-  its refusals, and ``export_serving_artifact``'s.
+  its refusals, and ``export_serving_artifact``'s.  The CLI builds the
+  teacher from ``w48_config()``, which the test points at ``NARROW_W48``:
+  every module, branch, block and conv of the W48 (so the 303 conv and
+  65 fuse-output scales), at an eighth of its branch widths.  What the
+  CLI checks (the calibration's coverage, the reload's bitwise forward,
+  the reshipped scales) does not depend on the widths.
 """
 
 import json
@@ -38,7 +43,9 @@ from rtpe_tpu_torch.io import (export_serving_artifact,
                                jax_variables_from_state_dict,
                                load_serving_artifact, state_dict_from_jax)
 from rtpe_tpu_torch.io.jax_import import _flatten
-from rtpe_tpu_torch.models import PoseHigherHRNet, init_random_, w48_config
+from rtpe_tpu_torch.models import (HRNetConfig, PoseHigherHRNet, StageCfg,
+                                   init_random_)
+from rtpe_tpu_torch.models import factory as t_factory
 from test_torch_model import seeded_variables, small_cfgs
 from test_torch_slice import NUM_JOINTS, _assert_same_people
 
@@ -142,13 +149,22 @@ def test_export_refusals(tmp_path, kw, match):
                                 tcfg)
 
 
+# the W48's layout (modules, branches, blocks, the 4-block head) at an
+# eighth of its branch widths
+NARROW_W48 = HRNetConfig(
+    stage2=StageCfg(1, 2, "BASIC", (4, 4), (6, 12)),
+    stage3=StageCfg(4, 3, "BASIC", (4, 4, 4), (6, 12, 24)),
+    stage4=StageCfg(3, 4, "BASIC", (4, 4, 4, 4), (6, 12, 24, 48)),
+    deconv_chans=(6,))
+
+
 @pytest.fixture(scope="module")
 def w48(tmp_path_factory):
-    """A seeded full-width W48 state dict file and two calibration
+    """A seeded ``NARROW_W48`` state dict file and two calibration
     images."""
     root = str(tmp_path_factory.mktemp("export"))
     path = os.path.join(root, "w48.pth.tar")
-    torch.save(init_random_(PoseHigherHRNet(w48_config()), seed=2)
+    torch.save(init_random_(PoseHigherHRNet(NARROW_W48), seed=2)
                .state_dict(), path)
     _make_coco_fixture(root, n_imgs=2, hw=(96, 128))
     imgs = sorted(os.path.join(root, "images", "val2017", f)
@@ -157,8 +173,10 @@ def w48(tmp_path_factory):
     return root, path, imgs
 
 
-def test_export_cli_int8_calibrates_verifies_and_reships(w48, capsys):
+def test_export_cli_int8_calibrates_verifies_and_reships(w48, capsys,
+                                                        monkeypatch):
     root, path, imgs = w48
+    monkeypatch.setattr(t_factory, "w48_config", lambda: NARROW_W48)
     out = os.path.join(root, "art")
     common = ["-m", path, "--device", "cpu", "--input_size", "128"]
     res = export_serving.main(common + ["-o", out, "--int8", "--int8_act",

@@ -378,7 +378,10 @@ def _tiny(**kw):
      "allow_synthetic_calibration=True"),
     (dict(packed=True, int8=True, act_scales={"conv1": 1.0}), ValueError,
      "act_scales is missing"),
-    (dict(packed=True, mesh=object()), NotImplementedError, "later slice"),
+    # the data and spatial meshes are served; the packed path with a
+    # spatial mesh keeps JAX's refusal
+    (dict(packed=True, spatial_mesh=object()), ValueError,
+     "composes with neither packed"),
 ])
 def test_int8_refusals(kw, exc, match):
     with pytest.raises(exc, match=match):

@@ -21,6 +21,14 @@ from rtpe_tpu_torch.io import state_dict_from_jax, strip_fp16_prefix
 from rtpe_tpu_torch.models import (HRNetConfig, PoseHigherHRNet, StageCfg,
                                    w48_config)
 
+# Every pytest-xdist worker imports this module (each collects every test
+# file).  PyTorch's intra-op pool starts one OpenMP thread per core in each
+# worker process, and the threads spin while they wait, so six workers ran
+# several times as many busy threads as there are cores: the port's heavy
+# files took up to 30x their one-process time.  One thread a worker keeps
+# them within the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

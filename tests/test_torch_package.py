@@ -22,6 +22,7 @@ from rtpe_tpu_torch.device import default_dtype, resolve_device, set_tf32
 from rtpe_tpu_torch.eval import PosePredictor
 from rtpe_tpu_torch.models import HRNetConfig, PoseHigherHRNet, StageCfg
 from rtpe_tpu_torch.ops import _build
+from rtpe_tpu_torch.parallel import make_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,7 +54,10 @@ for name in ("rtpe_tpu_torch.cli.validate_hhrnet",
              "rtpe_tpu_torch.io.torch_import", "rtpe_tpu_torch.models.rsb",
              "rtpe_tpu_torch.train.legacy_steps",
              "rtpe_tpu_torch.train.loss_scaling",
-             "rtpe_tpu_torch.cli.visualize_stem"):
+             "rtpe_tpu_torch.cli.visualize_stem", "rtpe_tpu_torch.parallel",
+             "rtpe_tpu_torch.parallel.dist", "rtpe_tpu_torch.parallel.mesh",
+             "rtpe_tpu_torch.parallel.spatial",
+             "rtpe_tpu_torch.parallel.zero"):
     assert name in names, name
 print(len(names), "modules")
 assert not bad, bad
@@ -105,15 +109,18 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """Data-parallel and spatially sharded serving wait for a later
-    slice; the int8 modes are served, with the JAX predictor's
-    refusals (``ValueError``)."""
-    for kw, item in ((dict(mesh=object()), "Queue 1 item 6"),
-                     (dict(spatial_mesh=object()), "Queue 1 item 6")):
-        with pytest.raises(NotImplementedError, match="later slice") as exc:
-            PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
-                          num_joints=3, **kw)
-        assert item in str(exc.value)
+    """Data-parallel and spatially sharded serving are served now
+    (``parallel/``): a predictor builds with ``mesh`` and with
+    ``spatial_mesh`` on CPU devices; the int8 modes keep the JAX
+    predictor's refusals (``ValueError``)."""
+    cpu = [torch.device("cpu")] * 2
+    for kw in (dict(mesh=make_mesh(devices=cpu)),
+               dict(spatial_mesh=make_mesh(n_data=1, n_model=2,
+                                           devices=cpu))):
+        pred = PosePredictor(PoseHigherHRNet(_tiny_cfg()), device="cpu",
+                             num_joints=3, **kw)
+        assert pred.mesh is kw.get("mesh")
+        assert pred.spatial_mesh is kw.get("spatial_mesh")
     for kw, msg in ((dict(int8=True), "requires packed=True"),
                     (dict(packed=True, int8_act=True), "requires int8=True"),
                     (dict(packed=True, int8=True), "synthetic"),
