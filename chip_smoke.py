@@ -227,17 +227,40 @@ Phases, each of which fails the run:
     of 8 and of 7 (padded) 640 x 640 images, canonical and packed: its
     gathered heatmaps and tags against the forward of the whole batch of
     8, its people against the unsharded predictor's; each path's kernel
-    launches counted.
+    launches counted;
+28. the last modules: ``cli/validate_assets.py``'s seven steps in this
+    process on a seeded full-width W48 ``.pth.tar`` and two seeded
+    480 x 640 images, the counters set to 0 just before and read just
+    after (the records that hold on any weights must pass:
+    ``teacher_param_count``, ``teacher_forward_finite``,
+    ``packed_fp32_parity``, ``act_scales_file_roundtrip``,
+    ``stream_matches_predict``, ``artifact_roundtrip_real_weights``; the
+    gates on the weights' numerics are printed with their values), its
+    seven children (``dataloader_demo``, ``validate_hhrnet`` six ways) on
+    phase 21's fixture written to disk (its images read through a cv2
+    stand-in, the card's machine having no cv2) with ``--minival_images
+    8``, each exiting 0 with a stats line that parses; then
+    ``obs.profiling``: ``trace`` around a bf16 ``predict_batch`` of 8
+    (the trace names the NMS and lockstep kernels), ``flops_of`` of the
+    packed forward at B = 1, 640^2 with the chains on and off and as
+    its int8 and int8-act graphs (one count), of the six CAM ops and a
+    chain on the card and on the CPU (one count each), ``memory_analysis``
+    of a 4096^2 bf16 matmul (exact argument and output bytes),
+    ``timeit`` of the packed bf16 forward at B = 8 beside phase 11's
+    figure; and ``utils.debug.nan_debugging`` over a packed forward and
+    a decode (no alarm), then ``nms_topk`` on phase 3's NaN planes (an
+    error naming the kernel); phase 28's seconds and the whole run's.
 
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
-after 10, 16 with 11, and 17-19 after 15; 20-27 run last (24's
-validation inside 21's fixture, 26 and 27's trainer inside 25's).
+after 10, 16 with 11, and 17-19 after 15; 20-28 run last (24's
+validation inside 21's fixture, 26 and 27's trainer inside 25's, 28's
+children on 21's fixture).
 
 Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
 line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA,
-CLI, int8, trainer, legacy-student and parallel numbers, the
-``nvidia-smi`` line
-again (so the end of the output names the card), and last
+CLI, int8, trainer, legacy-student, parallel and last-module numbers,
+the ``nvidia-smi`` line again (so the end of the output names the
+card), and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``rtpe_tpu_torch`` package beside it, the script exits non-zero and
 prints no result.
@@ -4267,7 +4290,311 @@ def phase_data_parallel(mods, tdata, root, pics, card, dev) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 28: the last modules
+
+RUNBOOK_REQUIRED = ("teacher_param_count", "teacher_forward_finite",
+                    "packed_fp32_parity", "act_scales_file_roundtrip",
+                    "stream_matches_predict",
+                    "artifact_roundtrip_real_weights")
+RUNBOOK_WEIGHTS = ("packed_bf16_parity", "int8_forward_drift",
+                   "int8_act_forward_drift", "greedy_decode_parity")
+RUNBOOK_SHAPES = ((480, 640), (480, 640))
+RUNBOOK_MINIVAL = 8
+TRACE_KERNELS = ("nms_tile_kernel", "lockstep_kernel")
+CAM_FLOPS_SHAPE = (2, 24, 24, 83, (1, 2, 3, 4), 20)
+CHAIN_FLOPS_SHAPE = (2, 20, 20, 96)
+MATMUL_N = 4096
+# The card's machine has no cv2: the runbook's child processes read the
+# fixture's images, numpy files under their .jpg names, through this
+# stand-in, which phase 28 puts on their PYTHONPATH.
+CV2_STAND_IN = '''"""Stand-in for the cv2 calls the COCO dataset makes: the fixture's
+images are numpy files (BGR uint8) under their .jpg names."""
+import numpy as np
+IMREAD_COLOR, IMREAD_IGNORE_ORIENTATION, COLOR_BGR2RGB = 1, 128, 4
+
+
+def imread(path, flags=IMREAD_COLOR):
+    try:
+        return np.load(path)
+    except (OSError, ValueError):
+        return None
+
+
+def cvtColor(img, code):
+    return np.ascontiguousarray(img[..., ::-1])
+'''
+
+
+def runbook_fixture(ti_mod, model, data, pics, root, dev) -> dict:
+    """Phase 21's COCO fixture on disk for the runbook's children: the
+    annotations, the images (numpy files read by :data:`CV2_STAND_IN`),
+    the teacher corpus written by ``teacher_inference``'s core, the
+    stand-in's directory; and the seeded W48 as a ``.pth.tar``."""
+    os.makedirs(os.path.join(root, "annotations"))
+    with open(os.path.join(root, "annotations",
+                           "person_keypoints_val2017.json"), "w") as f:
+        json.dump(data, f)
+    img_dir = os.path.join(root, "images", "val2017")
+    os.makedirs(img_dir)
+    names = [f"{i:012d}.jpg" for i in sorted(pics)]
+    by_name = {}
+    for n in names:
+        img = np.round(pics[int(n[:-4])] * 255.0).astype(np.uint8)
+        by_name[n] = img.astype(np.float32)
+        with open(os.path.join(img_dir, n), "wb") as f:
+            np.save(f, np.ascontiguousarray(img[..., ::-1]))
+    teacher = os.path.join(root, "teacher")
+    args = ti_mod.build_parser().parse_args(
+        ["-I", *names, "-o", teacher, "-m", "-", "--device", str(dev)])
+    ti_mod.write_corpus(model, [(n, by_name[n].shape[:2]) for n in names],
+                        by_name.__getitem__, teacher, args)
+    check(len(os.listdir(teacher)) == len(names), "runbook teacher corpus")
+    shim = os.path.join(root, "shim")
+    os.makedirs(shim)
+    with open(os.path.join(shim, "cv2.py"), "w") as f:
+        f.write(CV2_STAND_IN)
+    w48 = os.path.join(root, "w48.pth.tar")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, w48)
+    return {"teacher": teacher, "shim": shim, "w48": w48}
+
+
+def child_stats(r) -> dict:
+    """The stats of a runbook child: its last line of standard output,
+    a JSON object (``validate_hhrnet``) or a dict's repr
+    (``dataloader_demo``, as JAX's script prints it)."""
+    import ast
+    last = r.stdout.strip().splitlines()[-1]
+    return json.loads(last) if last.startswith('{"') \
+        else ast.literal_eval(last)
+
+
+def phase_runbook(va_mod, ti_mod, model, data, pics, counters, card,
+                  dev) -> dict:
+    """``cli/validate_assets.py``'s seven steps in this process on a
+    seeded full-width W48 ``.pth.tar`` and two seeded 480 x 640 images,
+    the COCO steps' children on phase 21's fixture with
+    ``--minival_images 8``; the counters set to 0 just before and read
+    just after."""
+    rng = np.random.default_rng(SEED + 28)
+    images = [(rng.random((h, w, 3)) * 255).astype(np.uint8)
+              for h, w in RUNBOOK_SHAPES]
+    children = []
+    run = subprocess.run
+
+    def tap(cmd, **kw):
+        r = run(cmd, **kw)
+        children.append(r)
+        return r
+
+    with tempfile.TemporaryDirectory() as root:
+        fx = runbook_fixture(ti_mod, model, data, pics, root, dev)
+        args = va_mod.build_parser().parse_args(
+            ["-m", fx["w48"], "--coco_dir", root, "--teacher_dir",
+             fx["teacher"], "--data_dir", os.path.join(root, "absent"),
+             "--minival_images", str(RUNBOOK_MINIVAL),
+             "--device", str(dev)])
+        env_path = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = fx["shim"]
+        subprocess.run = tap
+        try:
+            reset(counters)
+            t0 = time.perf_counter()
+            res = va_mod.run(args, images)
+            seconds = time.perf_counter() - t0
+            launches = read(counters)
+        finally:
+            subprocess.run = run
+            if env_path is None:
+                os.environ.pop("PYTHONPATH")
+            else:
+                os.environ["PYTHONPATH"] = env_path
+    records = {n: {"ok": True, "detail": d} for n, d in res.passed}
+    records.update({n: {"ok": False, "detail": d} for n, d in res.failed})
+    check(not res.skipped, f"runbook skipped {res.skipped}")
+    for name in RUNBOOK_REQUIRED:
+        check(records.get(name, {}).get("ok"),
+              f"runbook: {name} failed: {records.get(name)}")
+    for name in RUNBOOK_WEIGHTS:
+        check(name in records, f"runbook: no {name} record")
+    check(len(children) == 7, f"{len(children)} runbook children")
+    aps = []
+    for r in children:
+        check(r.returncode == 0, f"runbook child {r.args[1:3]} exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        stats = child_stats(r)
+        check(np.isfinite(stats["AP"]), f"child AP {stats}")
+        aps.append([r.args[2].rsplit(".", 1)[1], stats["AP"]])
+    for name in ("nms_topk", "match_by_tag_lockstep", "match_by_tag_kernel",
+                 "qconv", "fuse_sum"):
+        check(launches[name] > 0, f"runbook: {name} was not launched")
+    print(f"runbook: {len(res.passed)} passed, {len(res.failed)} failed "
+          f"(the weight-dependent gates on seeded weights), in "
+          f"{seconds:.1f} s; launches {launches}; children AP {aps}; "
+          f"{json.dumps(records)} ({card})", flush=True)
+    return {"records": records, "seconds": seconds, "launches": launches,
+            "children_ap": aps}
+
+
+def phase_trace(prof_mod, PosePredictor, hrnet, state, card, dev) -> dict:
+    """``obs.profiling.trace`` around one bf16 ``predict_batch`` of 8 (the
+    main path's predictor, warmed up): the trace file names the NMS and
+    lockstep grouping kernels."""
+    import glob
+    pred = PosePredictor(hrnet.PoseHigherHRNet(hrnet.w48_config()), state,
+                         device=dev)
+    images = synthetic_images(np.random.default_rng(SEED))
+    pred.predict_batch(images)
+    with tempfile.TemporaryDirectory() as d:
+        with prof_mod.trace(d):
+            torch.cuda._sleep(1_000_000)        # see device_profile
+            pred.predict_batch(images)
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        check(len(files) == 1, f"trace files {files}")
+        with open(files[0]) as f:
+            text = f.read()
+    found = {k: text.count(k) for k in TRACE_KERNELS}
+    check(all(found.values()), f"the trace lacks a kernel: {found}")
+    print(f"trace: {len(text)} bytes, kernel names {found} ({card})",
+          flush=True)
+    return {"trace_bytes": len(text), "kernel_mentions": found}
+
+
+def phase_flops(prof_mod, packed_mod, blk_mod, cam_mod, pk, scales,
+                counters, card, dev) -> dict:
+    """``obs.profiling.flops_of``: the packed W48 forward at B=1, 640^2
+    with the chains on and off and as its int8 and int8-act graphs, all
+    equal; the six CAM ops and a chain at a small shape on the card
+    (their kernels launched) and on the CPU (their plain versions),
+    equal."""
+    cfg = packed_mod.w48_config()
+    x = torch.randn((1, 3, 640, 640), generator=torch.Generator()
+                    .manual_seed(SEED + 28)).to(dev)
+    pq = packed_mod.quantize_packed(pk, scales)
+    out = {}
+    with torch.inference_mode():
+        for name, p, kw in (("bf16", pk, {}),
+                            ("bf16_chains", pk, {"pallas_chains": True}),
+                            ("int8", pq, {}),
+                            ("int8_act", pq, {"int8_act": True})):
+            reset(counters)
+            out[name] = prof_mod.flops_of(
+                lambda: packed_mod.packed_forward(p, x, cfg, **kw))
+            out[f"{name}_launches"] = read(counters)
+    check(out["bf16"] and out["bf16"] > 0, f"flops_of {out}")
+    for name in ("bf16_chains", "int8", "int8_act"):
+        check(out[name] == out["bf16"],
+              f"flops_of: {name} {out[name]} != bf16 {out['bf16']}")
+    check(out["bf16_chains_launches"]["basicblock_chain"] == 18
+          and out["int8_launches"]["qconv"] == 303,
+          f"flops_of launches {out}")
+    k = cam_case(cam_mod, CAM_FLOPS_SHAPE, SEED + 28, dev)
+    calls = [(n, kern, args) for n, kern, _, args in cam_calls(cam_mod, k)]
+    calls.append(("basicblock_chain", blk_mod.basicblock_chain,
+                  chain_inputs(CHAIN_FLOPS_SHAPE, 2, SEED + 28, dev)))
+    for name, kern, args in calls:
+        before = kern.launches
+        card_flops = prof_mod.flops_of(kern, *args)
+        check(kern.launches == before + 1, f"{name}: no kernel launch")
+        cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                         for a in args)
+        cpu_flops = prof_mod.flops_of(kern, *cpu_args)
+        check(kern.launches == before + 1 and card_flops
+              and card_flops == cpu_flops,
+              f"flops_of {name}: card {card_flops}, CPU {cpu_flops}")
+        out[name] = card_flops
+    print(f"flops_of: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def phase_memory_and_time(prof_mod, packed_mod, pk, fwd_ms, card,
+                          dev) -> dict:
+    """``memory_analysis`` of a 4096^2 bf16 matmul (exact argument and
+    output bytes) and ``timeit`` of the packed bf16 forward at B=8,
+    640^2, beside phase 11's CUDA-event figure."""
+    n = MATMUL_N
+    gen = torch.Generator().manual_seed(SEED + 28)
+    a, b = (torch.randn((n, n), generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    mem = prof_mod.memory_analysis(torch.matmul, a, b)
+    check(mem is not None and mem["argument_bytes"] == 2 * n * n * 2
+          and mem["output_bytes"] == n * n * 2, f"memory_analysis {mem}")
+    cfg = packed_mod.w48_config()
+    x = torch.randn((8, 3, 640, 640), generator=torch.Generator()
+                    .manual_seed(8)).to(dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        t = prof_mod.timeit(lambda: packed_mod.packed_forward(pk, x, cfg),
+                            warmup=2, iters=10)
+    out = {"matmul_memory": mem, "packed_bf16_b8_timeit_s": t,
+           "packed_bf16_b8_phase11_device_ms":
+               fwd_ms["packed_bs8"]["device_ms"]}
+    print(f"memory_analysis / timeit: {json.dumps(out)} ({card})",
+          flush=True)
+    return out
+
+
+def phase_nan_debugging(debug_mod, packed_mod, nms_mod, decode_full_batch,
+                        resize_mod, pk, card, dev) -> dict:
+    """``utils.debug.nan_debugging`` over one packed bf16 forward and one
+    batch decode of its maps: no alarm; then ``nms_topk`` on phase 3's
+    NaN planes: a ``FloatingPointError`` that names the kernel, raised
+    after its launch."""
+    cfg = packed_mod.w48_config()
+    x = torch.randn((1, 3, 640, 640), generator=torch.Generator()
+                    .manual_seed(SEED + 29)).to(dev)
+    nan = nms_extra_inputs(torch.Generator(device=dev).manual_seed(SEED),
+                           dev)[0][1]
+    t0 = time.perf_counter()
+    with torch.inference_mode(), debug_mod.nan_debugging():
+        coarse, refined = packed_mod.packed_forward(pk, x, cfg)
+        hms = refined[:, :17].float().permute(0, 2, 3, 1)
+        tags = resize_mod.resize_bilinear(
+            coarse[:, 17:].float().permute(0, 2, 3, 1),
+            tuple(hms.shape[1:3]), align_corners=True)
+        _, n, _ = decode_full_batch(hms, tags)
+        clean_s = time.perf_counter() - t0
+        before = nms_mod.nms_topk.launches
+        try:
+            nms_mod.nms_topk(nan)
+            msg = None
+        except FloatingPointError as exc:
+            msg = str(exc)
+    check(msg is not None and "nms_topk kernel" in msg
+          and nms_mod.nms_topk.launches == before + 1,
+          f"nan_debugging on NaN planes: {msg}")
+    print(f"nan_debugging: a checked forward + decode ({int(n[0])} people) "
+          f"in {clean_s:.2f} s, no alarm; NaN planes: {msg!r} ({card})",
+          flush=True)
+    return {"checked_forward_decode_s": clean_s, "people": int(n[0]),
+            "nan_planes_error": msg}
+
+
+def phase_last_modules(mods, model, state, data, pics, pk, scales, fwd_ms,
+                       counters, card, dev) -> dict:
+    """Phase 28: the runbook, then the profiling and NaN-debugging
+    modules on the card."""
+    (va_mod, ti_mod, prof_mod, debug_mod, PosePredictor, hrnet, packed_mod,
+     blk_mod, cam_mod, nms_mod, decode_full_batch, resize_mod) = mods
+    t28 = time.perf_counter()
+    out = {"runbook": phase_runbook(va_mod, ti_mod, model, data, pics,
+                                    counters, card, dev)}
+    torch.cuda.empty_cache()
+    out["trace"] = phase_trace(prof_mod, PosePredictor, hrnet, state, card,
+                               dev)
+    out["flops"] = phase_flops(prof_mod, packed_mod, blk_mod, cam_mod, pk,
+                               scales, counters, card, dev)
+    out.update(phase_memory_and_time(prof_mod, packed_mod, pk, fwd_ms, card,
+                                     dev))
+    out["nan_debugging"] = phase_nan_debugging(
+        debug_mod, packed_mod, nms_mod, decode_full_batch, resize_mod, pk,
+        card, dev)
+    out["phase_s"] = time.perf_counter() - t28
+    print(f"phase 28: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
@@ -4312,6 +4639,9 @@ def main() -> None:
         from rtpe_tpu_torch.parallel import mesh as mesh_mod
         from rtpe_tpu_torch.parallel import spatial as spatial_mod
         from rtpe_tpu_torch.parallel import zero as zero_mod
+        from rtpe_tpu_torch.cli import validate_assets as va_mod
+        from rtpe_tpu_torch.obs import profiling as prof_mod
+        from rtpe_tpu_torch.utils import debug as debug_mod
     except ImportError as exc:
         fail(f"the rtpe_tpu_torch package is missing: {exc}")
     dev = torch.device("cuda", 0)
@@ -4467,6 +4797,15 @@ def main() -> None:
     parallel["data_mesh"] = phase_data_mesh(
         (PosePredictor, hrnet, mesh_mod), state, counters, card, dev)
     parallel["phase_s"] = time.perf_counter() - t27
+    # phase 28: the runbook, profiling and NaN debugging
+    torch.cuda.empty_cache()
+    last = phase_last_modules(
+        (va_mod, ti_mod, prof_mod, debug_mod, PosePredictor, hrnet,
+         packed_mod, blk_mod, cam_mod, nms_mod, decode_full_batch,
+         resize_mod), model, state, data, pics, pk, scales, fwd_ms, counters,
+        card, dev)
+    last["run_s"] = time.perf_counter() - t_run
+    print(f"chip_smoke: phases 1-28 in {last['run_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
                       "ptxas": build["ptxas"], "warp_step_probe": probe,
@@ -4482,7 +4821,8 @@ def main() -> None:
                       "cam_check": cam_errs, "train": train, "tta": tta,
                       "validate": validate, "corpus": corpus,
                       "stream": stream, "int8": int8, "trainer": trainer,
-                      "legacy": legacy, "parallel": parallel}))
+                      "legacy": legacy, "parallel": parallel,
+                      "last_modules": last}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -189,6 +189,9 @@ class PosePredictor:
                                 device=self.device),
                 spatial_mesh, "model")
             return
+        # JAX jits each forward here with serving_compiler_options
+        # (rtpe_tpu/utils/compile.py: XLA:TPU's scoped-VMEM budget); the
+        # port compiles no forward, so that module is not carried over
         if self.packed:
             self.packed_params = pack_w48_params(
                 model.state_dict(), model.cfg, self.dtype, self.device)

@@ -30,7 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _observe
 
 _SIGS = {"basicblock_chain_launch": [ctypes.c_void_p] * 6
          + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
@@ -167,6 +167,9 @@ def _chain_cuda(x, weights, biases) -> torch.Tensor:
         weights.shape[0], stream)
     _build.check(err, "basicblock_chain")
     basicblock_chain.launches += 1
+    if _observe.active:
+        _observe.launched("basicblock_chain", (x, weights, biases), (out,),
+                          basicblock_chain_plain)
     return out
 
 

@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.dist import all_reduce_sum, stats_group
-from . import _build
+from . import _build, _observe
 
 BN_EPS = 1e-5
 HC_MAX = 40      # the kernels' widest branch
@@ -373,6 +373,9 @@ def cam_f1_fwd(x, kr, kh, dils):
                             *_ptrs(xpad, w0, ws, s_r, s_h, gap), _stream(x))
     _build.check(err, "cam_f1_fwd")
     cam_f1_fwd.launches += 1
+    if _observe.active:
+        _observe.launched("cam_f1_fwd", (x, kr, kh, dils), (s_r, s_h, gap),
+                          cam_f1_fwd_plain)
     return s_r, s_h, gap
 
 
@@ -391,6 +394,9 @@ def cam_f2_fwd(x, kh, kt, bnh, dils):
                             *_ptrs(xpad, w0, bnh, ws, s_t), _stream(x))
     _build.check(err, "cam_f2_fwd")
     cam_f2_fwd.launches += 1
+    if _observe.active:
+        _observe.launched("cam_f2_fwd", (x, kh, kt, bnh, dils), (s_t,),
+                          cam_f2_fwd_plain)
     return s_t
 
 
@@ -411,6 +417,10 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
         *_ptrs(xpad, w0, bnr, bnh, bnt, gate, out), _stream(x))
     _build.check(err, "cam_f3_fwd")
     cam_f3_fwd.launches += 1
+    if _observe.active:
+        _observe.launched("cam_f3_fwd",
+                          (x, kr, kh, kt, bnr, bnh, bnt, gate, dils), (out,),
+                          cam_f3_fwd_plain)
     return out
 
 
@@ -573,6 +583,9 @@ def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
         *_ptrs(xpad, w0, w1, dsr, dsh, dgap, ws, dx, dkr, dkh), _stream(x))
     _build.check(err, "cam_f1_bwd")
     cam_f1_bwd.launches += 1
+    if _observe.active:
+        _observe.launched("cam_f1_bwd", (x, kr, kh, dsr, dsh, dgap, dils),
+                          (dx, dkr, dkh), cam_f1_bwd_plain)
     return dx, dkr, dkh
 
 
@@ -594,6 +607,9 @@ def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
         *_ptrs(xpad, w0, w1, bnh, dst, ws, dx, dkh, dkt, ds), _stream(x))
     _build.check(err, "cam_f2_bwd")
     cam_f2_bwd.launches += 1
+    if _observe.active:
+        _observe.launched("cam_f2_bwd", (x, kh, kt, bnh, dst, dils),
+                          (dx, dkh, dkt, ds), cam_f2_bwd_plain)
     return dx, dkh, dkt, ds
 
 
@@ -627,7 +643,12 @@ def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
                dsr, dsh, dst, dgate), _stream(x))
     _build.check(err, "cam_f3_bwd")
     cam_f3_bwd.launches += 1
-    return dx, dkr, dkh, dkt, dsr, dsh, dst, dgate
+    out = (dx, dkr, dkh, dkt, dsr, dsh, dst, dgate)
+    if _observe.active:
+        _observe.launched("cam_f3_bwd",
+                          (x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils), out,
+                          cam_f3_bwd_plain)
+    return out
 
 
 KERNELS = (cam_f1_fwd, cam_f1_bwd, cam_f2_fwd, cam_f2_bwd, cam_f3_fwd,

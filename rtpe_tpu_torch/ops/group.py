@@ -28,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _observe
 from .lap import lap_columns, rows_to_columns
 
 MAX_ROWS = 32     # detection rows per joint
@@ -275,6 +275,8 @@ def _kernel_cuda(tag_k, loc_k, val_k, max_num_people, detection_threshold,
         people.data_ptr(), n.data_ptr(), stream)
     _build.check(err, "group_mega")
     match_by_tag_kernel.launches += 1
+    if _observe.active:
+        _observe.launched("group_mega", (tag, loc, val), (people,))
     return people, n
 
 

@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _observe
 
 SLOTS = 128       # people slots of the state (the TPU kernel's lanes)
 MAX_ROWS = 32     # detection rows per joint
@@ -177,6 +177,8 @@ def _lockstep_cuda(tag_k, loc_k, val_k, max_num_people, detection_threshold,
         n.data_ptr(), stream)
     _build.check(err, "group_lockstep")
     match_by_tag_lockstep.launches += 1
+    if _observe.active:
+        _observe.launched("group_lockstep", (tag, loc, val), (people,))
     return people, n
 
 

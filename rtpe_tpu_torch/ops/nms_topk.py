@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _observe
 
 _SIGS = {
     "nms_topk_tiles": [ctypes.c_int, ctypes.c_int],
@@ -71,6 +71,8 @@ def _nms_topk_cuda(det: torch.Tensor, max_people: int, ksize: int) -> Result:
         x.data_ptr(), y.data_ptr(), stream)
     _build.check(err, "nms_topk")
     nms_topk.launches += 1
+    if _observe.active:
+        _observe.launched("nms_topk", (det,), (val,))
     return val, x, y
 
 

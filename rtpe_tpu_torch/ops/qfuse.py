@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _observe
 
 __all__ = ["Operand", "fuse_sum", "fuse_sum_plain", "quantize",
            "int8_buffer", "LAUNCH_FIELDS"]
@@ -173,6 +173,8 @@ def fuse_sum(ops: Sequence[Operand], dtype: torch.dtype, relu: bool = False,
                            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "qfuse")
     fuse_sum.launches += 1
+    if _observe.active:
+        _observe.launched("qfuse", ops, (out,))
     return out, q
 
 

@@ -41,7 +41,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _observe
 
 __all__ = ["QConv", "Epilogue", "quantize_weight", "quantize_tconv_weight",
            "quantize_act", "qconv", "qconv_plain", "qconv_int32_plain",
@@ -423,6 +423,11 @@ def _qconv_cuda(x: torch.Tensor, q: QConv, stride: int, padding: int,
                            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "qconv")
     qconv.launches += 1
+    if _observe.active:
+        # the plain version's one counted op: the conv at the unpadded Cin
+        xq = torch.empty(x.shape, dtype=torch.int8, device="meta")
+        _observe.launched("qconv", (x, q, res), (out_f32, out_bf16),
+                          qconv_int32_plain, (xq, q, stride, padding))
     if e is None:
         return out_f32
     return (out_bf16 if bf16 else out_f32), out_q

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 
 class DynamicScalerState(NamedTuple):
     scale: torch.Tensor       # float32: the current loss scale
@@ -23,7 +25,10 @@ class DynamicScalerState(NamedTuple):
 
 
 def init_dynamic_scaler(init_scale: float = 2.0 ** 32,
-                        device="cpu") -> DynamicScalerState:
+                        device: DeviceLike = None) -> DynamicScalerState:
+    """The dynamic state on ``device`` (``None``: CUDA, raising without
+    it; the CPU only when asked for)."""
+    device = resolve_device(device)
     return DynamicScalerState(
         scale=torch.tensor(init_scale, dtype=torch.float32, device=device),
         good_steps=torch.tensor(0, dtype=torch.int32, device=device))

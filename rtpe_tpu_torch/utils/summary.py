@@ -1,12 +1,12 @@
 """Model summaries over ``named_parameters()`` (port of
 ``rtpe_tpu/utils/summary.py``; replaces the reference's hook-based
 summarizers, ``rtpe/helpers.py:76-180`` and
-``rtpe/third_party/utils.py:112-227``).
-
-JAX's ``compiled_flops`` (XLA's cost analysis of a compiled function)
-waits for ``obs/profiling.py``, which comes with the observability
-slice (``ROADMAP.md`` Queue 1 item 7).
+``rtpe/third_party/utils.py:112-227``).  FLOPs come from one call under
+``FlopCounterMode`` (``obs/profiling.py:flops_of``) instead of
+per-layer hooks.
 """
+
+from typing import Optional
 
 from torch import nn
 
@@ -33,3 +33,10 @@ def model_summary(model: nn.Module, as_string: bool = True,
     lines.append("=" * (col_sep + 30))
     lines.append(f"TOTAL PARAMS: {total}")
     return "\n".join(lines)
+
+
+def compiled_flops(fn, *args) -> Optional[float]:
+    """FLOPs of one call of ``fn(*args)`` (one shared implementation in
+    obs/profiling.py)."""
+    from ..obs.profiling import flops_of
+    return flops_of(fn, *args)

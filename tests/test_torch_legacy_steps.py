@@ -212,7 +212,7 @@ def test_dynamic_loss_scale_skips_an_overflow_as_jax():
 
 
 def test_scaler_halves_and_doubles_as_jax():
-    state = scale_mod.init_dynamic_scaler(init_scale=16.0)
+    state = scale_mod.init_dynamic_scaler(init_scale=16.0, device="cpu")
     jstate = jscale.init_dynamic_scaler(init_scale=16.0)
     good = {"w": torch.ones(3) * 32.0}
     bad = {"w": torch.tensor([1.0, float("inf"), 0.0])}
@@ -229,7 +229,7 @@ def test_scaler_halves_and_doubles_as_jax():
     assert float(state.scale) == 8.0 and int(state.good_steps) == 999
     state = scale_mod.update_scaler(state, torch.tensor(False))
     assert float(state.scale) == 16.0 and int(state.good_steps) == 0
-    floor = scale_mod.init_dynamic_scaler(init_scale=1.0)
+    floor = scale_mod.init_dynamic_scaler(init_scale=1.0, device="cpu")
     assert float(scale_mod.update_scaler(floor, torch.tensor(True)).scale) \
         == 1.0
     assert not bool(scale_mod.has_overflow([torch.ones(2), None]))

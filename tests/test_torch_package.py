@@ -8,6 +8,10 @@
   interpreter, so this test process's own imports do not count.
 * Device resolution: ``device=None`` means CUDA and raises where there
   is none; the CPU is used only when the caller asks for it.
+* Coverage: every module of ``rtpe_tpu/`` has its counterpart in the
+  port (the same relative path, or a named port), or is listed as not
+  carried over with its reason; every script of ``scripts/`` has a
+  ``rtpe_tpu_torch/cli/`` module.
 """
 
 import os
@@ -57,7 +61,9 @@ for name in ("rtpe_tpu_torch.cli.validate_hhrnet",
              "rtpe_tpu_torch.cli.visualize_stem", "rtpe_tpu_torch.parallel",
              "rtpe_tpu_torch.parallel.dist", "rtpe_tpu_torch.parallel.mesh",
              "rtpe_tpu_torch.parallel.spatial",
-             "rtpe_tpu_torch.parallel.zero"):
+             "rtpe_tpu_torch.parallel.zero", "rtpe_tpu_torch.obs.profiling",
+             "rtpe_tpu_torch.utils.debug", "rtpe_tpu_torch.ops._observe",
+             "rtpe_tpu_torch.cli.validate_assets"):
     assert name in names, name
 print(len(names), "modules")
 assert not bad, bad
@@ -185,3 +191,41 @@ def test_kernel_sources_and_build_command():
                                 "warp_step_probe"]
     assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert os.path.basename(_build.BUILD_DIR) == "_build"
+
+
+# JAX modules ported under another name (the TPU kernels' modules)
+PORTED_AS = {"ops/pallas_decode.py": "ops/nms_topk.py",
+             "ops/pallas_group_lockstep.py": "ops/group_lockstep.py",
+             "ops/pallas_group.py": "ops/group.py",
+             "ops/pallas_lap.py": "ops/lap.py",
+             "ops/pallas_blocks.py": "ops/blocks.py",
+             "ops/pallas_cam.py": "ops/cam.py"}
+# and not carried over, each with its reason
+NOT_CARRIED_OVER = {
+    "ops/rowpack.py": "the row-pack layout answers the TPU's 128-lane "
+                      "padding; the port folds BN without it (ops/fold.py)",
+    "utils/compile.py": "XLA:TPU's scoped-VMEM option for the serving jits",
+    "utils/watchdog.py": "pokes the TPU's remote compile service",
+}
+
+
+def _modules(root):
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".py")}
+
+
+def test_every_jax_module_and_script_has_a_counterpart():
+    jax_mods = _modules(os.path.join(REPO, "rtpe_tpu"))
+    port = _modules(os.path.join(REPO, "rtpe_tpu_torch"))
+    missing = sorted(m for m in jax_mods
+                     if PORTED_AS.get(m, m) not in port
+                     and m not in NOT_CARRIED_OVER)
+    assert not missing, missing
+    assert set(PORTED_AS) | set(NOT_CARRIED_OVER) <= jax_mods
+    assert not set(NOT_CARRIED_OVER) & port
+    scripts = sorted(f for f in os.listdir(os.path.join(REPO, "scripts"))
+                     if f.endswith(".py"))
+    assert len(scripts) == 9
+    for f in scripts:
+        assert os.path.join("cli", f) in port, f
