@@ -91,7 +91,12 @@ Phases, each of which fails the run:
     case with per-image gates of both signs (all six on the 8 x 8 tiles
     of ``csrc/cam_tile.cuh``): forward statistics within 2^-8 of their largest
     magnitude, every other output within the ``CAM_*`` limits (worst
-    element, mean, share off); bitwise equal on exact-sum inputs;
+    element, mean, share off); bitwise equal on exact-sum inputs; then
+    the backwards' weight-gradient kernels alone (``cam.cam_wgrad``: dkh
+    at each dilation, dkr, dkt) against a float64 product of the same
+    bf16 operands at both train shapes, the ragged shape and C = 12 /
+    hc = 3, each element within ``WGRAD_TOL`` of its sum of |u v|,
+    repeating bitwise, bitwise on exact sums, and timed alone;
 18. the slice's main path: 5 train steps of
     ``make_distill_train_step`` at the reference configuration
     (``AttentionStudentSteps(inplanes=80, fused_cam=True)``, bf16, B=16,
@@ -306,11 +311,13 @@ STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
 PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
 # the kernels of the tiled ops (the forwards: the tile kernel and F1's and
-# F2's reductions; the backwards: phase 0, dx, the dkh and dkr / dkt
-# weight gradients, the reductions), for their per-launch breakdown under
+# F2's reductions; the backwards: phase 0, dx, the weight gradients'
+# kernels, wgrad_taps_kernel for dkh and wgrad_plain_kernel for dkr /
+# dkt, the reductions), for their
+# per-launch breakdown under
 # torch.profiler; "other" is the wrapper's padded x and re-laid weights
-TILE_PARTS = {name: (phase0, dx, "wgrad_kernel<5>", "wgrad_kernel<7>",
-                     "reduce_rows_kernel")
+TILE_PARTS = {name: (phase0, dx, "wgrad_taps_kernel",
+                     "wgrad_plain_kernel", "reduce_rows_kernel")
               for name, phase0, dx in (
                   ("cam_f1_bwd", "f1b_tile_kernel", "dx_kernel<true, true>"),
                   ("cam_f2_bwd", "f2b_tile_kernel",
@@ -1570,13 +1577,156 @@ def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+# The backwards' weight-gradient kernel alone (cam.cam_wgrad, csrc/
+# cam_core.cuh:wgrad_taps_kernel / wgrad_plain_kernel) against a float64
+# product of the same
+# bf16 operands: per element |kernel - f64| <= WGRAD_TOL sum_p |u v|
+# (float32 sums, 2^-24 each, of ~10^3 partials a block and ~10^2 partial
+# rows); no ReLU mask can flip here, so this bound is tight where the six
+# ops' CAM_WORST is not.
+WGRAD_TOL = 2.0 ** -14
+WGRAD_SHAPES = (STEPS_CAM, PYRAMID_CAM, (3, 29, 21, 83, (1, 2, 3, 4), 20),
+                (2, 21, 21, 12, (1, 2, 3), 3))
+
+
+def wgrad_operands(shape, seed, dev, exact=False):
+    """(x, dc of one branch, dr, a, dt) as the backwards hand them to the
+    kernel: x in [0, 1), cotangents N(0, 1e-3), a = relu of N(0, 1); or
+    small integers (every sum exact in float32)."""
+    b, h, w, c, dils, hc = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(k, kind):
+        shp = (b, h, w, k)
+        if exact:
+            v = torch.randint(-3, 4, shp, generator=gen).float()
+        elif kind == "x":
+            v = torch.rand(shp, generator=gen)
+        elif kind == "a":
+            v = torch.randn(shp, generator=gen).clamp(min=0)
+        else:
+            v = torch.randn(shp, generator=gen) * 1e-3
+        return v.to(dtype=torch.bfloat16, device=dev)
+
+    return (t(c, "x"), t(hc, "d"), t(c, "d"), t(len(dils) * hc, "a"),
+            t(c, "d"))
+
+
+def wgrad_f64(cam_mod, u, v, d):
+    """The float64 product of the same bf16 operands and its sum of
+    |u v| per element."""
+    def prod(a, b):
+        return cam_mod._wgrad(a, b, d) if d else torch.einsum(
+            "bhwk,bhwn->kn", a, b)
+
+    u64, v64 = u.double(), v.double()
+    return prod(u64, v64), prod(u64.abs(), v64.abs())
+
+
+def wgrad_calls(shape, ops):
+    """(name, u, v, d) of the kernel's products at ``shape``: dkh at each
+    dilation (one branch's taps), dkr and dkt."""
+    x, dc, dr, a, dt = ops
+    return ([(f"dkh_d{d}", x, dc, d) for d in shape[4]]
+            + [("dkr", x, dr, 0), ("dkt", a, dt, 0)])
+
+
+def wgrad_bound(shape) -> dict:
+    """The least time of each weight-gradient launch as the backwards make
+    it (dkh: every branch in one; dkr; dkt; F3b's dkr and dkt in one):
+    multiply-adds at the bf16 tensor-core rate against its operands read
+    once (x and dr padded to kc, a to knh, dc of nb khc) and its float32
+    output written once."""
+    b, h, w, c, dils, hc = shape
+    nb, m = len(dils), b * h * w
+    nh, kc = nb * hc, -(-c // 16) * 16
+    ldc, knh = nb * (-(-hc // 16) * 16), -(-nh // 16) * 16
+    work = {"dkh": (9 * nb * c * hc, m * (kc + ldc) * 2 + 9 * nh * c * 4),
+            "dkr": (c * c, m * 2 * kc * 2 + c * c * 4),
+            "dkt": (nh * c, m * (knh + kc) * 2 + nh * c * 4)}
+    work["dkr_dkt"] = (work["dkr"][0] + work["dkt"][0],
+                       work["dkr"][1] + work["dkt"][1] - m * kc * 2)
+    return {k: bound(n_bytes, 2 * macs * m, BF16_OPS_PER_S)
+            for k, (macs, n_bytes) in work.items()}
+
+
+def wgrad_library_ms(u, v, d) -> float:
+    """Device ms of one PyTorch call that computes the same product, a
+    yardstick the port never calls: cuDNN's weight-only
+    convolution_backward at dilation d (bf16 in and out, channels_last)
+    for the 9 taps; torch.mm of float32 copies of the operands (made
+    before the timing, TF32 off) for a plain product."""
+    if d:
+        x, g = u.permute(0, 3, 1, 2), v.permute(0, 3, 1, 2)
+        wt = torch.empty((v.shape[3], u.shape[3], 3, 3), dtype=u.dtype,
+                         device=u.device).to(
+                             memory_format=torch.channels_last)
+        return device_ms(lambda: torch.ops.aten.convolution_backward(
+            g, x, wt, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
+            [False, True, False]), 5)
+    a = u.reshape(-1, u.shape[3]).float()
+    b = v.reshape(-1, v.shape[3]).float()
+    return device_ms(lambda: torch.mm(a.t(), b), 5)
+
+
+def phase_wgrad(cam_mod, dev) -> dict:
+    """The weight-gradient kernels alone: at WGRAD_SHAPES each product
+    within WGRAD_TOL of its float64 sum of |u v| per element, repeating
+    itself bitwise; bitwise the float64 product on exact sums; and their
+    ms per launch at the train shapes beside one library call's
+    (:func:`wgrad_library_ms`).  Returns the worst |kernel - f64| / sum
+    |u v| per shape and product, and the times."""
+    worst, ms, lib_ms = {}, {}, {}
+    for shape in WGRAD_SHAPES:
+        key = "x".join(map(str, shape[:4]))
+        ops = wgrad_operands(shape, SEED + 20 + sum(shape[:4]), dev)
+        for name, u, v, d in wgrad_calls(shape, ops):
+            got = cam_mod.cam_wgrad(u, v, d)
+            ref, den = wgrad_f64(cam_mod, u, v, d)
+            check(got.is_cuda and got.dtype == torch.float32
+                  and got.shape == ref.shape, f"cam_wgrad {name} layout")
+            err = (got.double() - ref).abs()
+            check(bool((err <= WGRAD_TOL * den).all()),
+                  f"cam_wgrad {name} at {shape}: off the float64 product "
+                  f"by more than {WGRAD_TOL} of sum |u v|")
+            worst.setdefault(key, {})[name] = float(
+                (err / den.clamp(min=1e-300)).max())
+            check(torch.equal(got, cam_mod.cam_wgrad(u, v, d)),
+                  f"cam_wgrad {name} at {shape} does not repeat itself")
+            if shape in (STEPS_CAM, PYRAMID_CAM):
+                ms.setdefault(key, {})[name] = device_ms(
+                    lambda: cam_mod.cam_wgrad(u, v, d), 5)
+                lib_ms.setdefault(key, {})[name] = wgrad_library_ms(u, v, d)
+            del got, ref, den, err
+        del ops
+        torch.cuda.empty_cache()
+    for shape in ((2, 12, 20, 163, (1, 2, 3), 40),
+                  (3, 9, 14, 83, (1, 2, 3, 4), 20),
+                  (1, 11, 19, 12, (1, 9), 3), (1, 5, 7, 200, (2,), 8)):
+        ops = wgrad_operands(shape, SEED + 21, dev, exact=True)
+        for name, u, v, d in wgrad_calls(shape, ops):
+            check(torch.equal(cam_mod.cam_wgrad(u, v, d),
+                              wgrad_f64(cam_mod, u, v, d)[0].float()),
+                  f"cam_wgrad {name} at {shape} differs from the float64 "
+                  "product on exact sums")
+    print(f"cam_wgrad vs float64 (worst |kernel - f64| / sum |u v|, limit "
+          f"{WGRAD_TOL}): {worst}; bitwise on exact sums; ms a launch "
+          f"alone: {ms}; library ms: {lib_ms}", flush=True)
+    return {"worst_ratio": worst, "tol": WGRAD_TOL, "ms_alone": ms,
+            "library_ms": lib_ms,
+            "library": "cuDNN convolution_backward, weight only, bf16 "
+                       "channels_last (dkh_d*); torch.mm of float32 "
+                       "copies, TF32 off (dkr, dkt)"}
+
+
 def phase_cam(cam_mod, set_tf32, dev) -> dict:
     """The six CAM kernels against their plain versions (float32 convs,
     TF32 off): both CAM shapes of the train step at B=16, and a ragged
     (3, 29, 21, 83) case with per-image gates of both signs; bitwise on
-    exact-sum inputs.  Returns the max abs error of each kernel's outputs
-    at the steps' shape, and the worst and mean error (of max |plain|)
-    and the share of elements off by more than CAM_TOL of each."""
+    exact-sum inputs; then :func:`phase_wgrad`.  Returns the max abs
+    error of each kernel's outputs at the steps' shape, the worst and
+    mean error (of max |plain|) and the share of elements off by more
+    than CAM_TOL of each, and the weight-gradient kernels' figures."""
     set_tf32(False)
     cases = [(STEPS_CAM, False), (PYRAMID_CAM, False),
              ((3, 29, 21, 83, (1, 2, 3, 4), 20), True)]
@@ -1632,7 +1782,7 @@ def phase_cam(cam_mod, set_tf32, dev) -> dict:
           f"(of max |plain|) {worst}, mean {mean}, share off by > {CAM_TOL} "
           f"{share}; bitwise equal on exact sums", flush=True)
     return {"max_abs_err": errs, "worst_rel": worst, "mean_rel": mean,
-            "share_off": share}
+            "share_off": share, "wgrad": phase_wgrad(cam_mod, dev)}
 
 
 def train_batch(dev) -> dict:
@@ -1711,8 +1861,9 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
     ``detach_att_for_det``, BN output bf16) from the seeded student with
     the W48 stem, each step's parameters kept in ``params``; or, given
     ``params``, each step from those parameters (loaded outside the timed
-    step).  The CAM kernels' counters are set to 0 just before the steps
-    and read just after."""
+    step).  The CAM kernels' counters, and the weight-gradient kernels'
+    (``cam.wgrad_counts``), are set to 0 just before the steps and read
+    just after."""
     factory, _ = students
     model = factory.get_attention_student(fused_cam=fused, device=dev,
                                           seed=SEED)
@@ -1727,6 +1878,7 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset(cam_mod.KERNELS)
+    cam_mod.wgrad_counts(reset=True)
     for f in cam_mod.PLAIN:
         f.calls = 0
     losses, step_ms = [], []
@@ -1743,11 +1895,13 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
         losses.append([float(m["attention_loss"]),
                        float(m["keypoints_loss"])])
     launches = read(cam_mod.KERNELS)
+    wgrad_launches = cam_mod.wgrad_counts()
     plain_calls = sum(f.calls for f in cam_mod.PLAIN)
     peak = torch.cuda.max_memory_allocated()
     out = {"model": model, "init": init, "params": params, "losses": losses,
            "step_ms": step_ms, "launches": launches,
-           "plain_calls": plain_calls, "peak_bytes": peak,
+           "wgrad_launches": wgrad_launches, "plain_calls": plain_calls,
+           "peak_bytes": peak,
            "labels": train_mod.label_params(model.named_parameters())}
     if profile:
         # the CAM kernels together, then each tile kernel and the weight
@@ -1755,9 +1909,20 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
         out["profile"] = device_profile(
             lambda: step(state, batch),
             ("cam::", "f1_tile", "f2_tile", "f3_tile", "f1b_tile",
-             "f2b_tile", "f3b_tile", "dx_kernel", "wgrad_kernel<5>",
-             "wgrad_kernel<7>", "reduce_rows"))
+             "f2b_tile", "f3b_tile", "dx_kernel", "wgrad_taps_kernel",
+             "wgrad_plain_kernel", "reduce_rows"))
     return out
+
+
+def check_wgrad_launches(run) -> None:
+    """Each backward of ``run`` launched wgrad_taps_kernel and
+    wgrad_plain_kernel once a call of its own, as counted where the C
+    side launches them."""
+    for name, (taps, plain) in run["wgrad_launches"].items():
+        n = run["launches"][name]
+        check(n > 0 and taps == n and plain == n,
+              f"{name}: {n} launches, {taps} of wgrad_taps_kernel and "
+              f"{plain} of wgrad_plain_kernel")
 
 
 def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
@@ -1772,6 +1937,7 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
     for name, count in fused["launches"].items():
         check(count == n, f"{name}: {count} launches in {TRAIN_STEPS} steps, "
               f"not {n}")
+    check_wgrad_launches(fused)
     check(fused["plain_calls"] == 0, "a plain CAM version ran on the card")
     check(all(np.isfinite(v) for row in fused["losses"] for v in row),
           f"non-finite losses {fused['losses']}")
@@ -1795,7 +1961,8 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
                         fused.pop("params"), batch, dev)
     unfused.pop("model")
     unfused.pop("params")
-    check(sum(unfused["launches"].values()) == 0,
+    check(sum(unfused["launches"].values()) == 0
+          and sum(map(sum, unfused["wgrad_launches"].values())) == 0,
           "the cuDNN path launched a CAM kernel")
     rel = 0.0
     for (a1, d1), (a2, d2) in zip(fused["losses"], unfused["losses"]):
@@ -1809,7 +1976,8 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
                      "mean_step_ms_after_first": ms,
                      "img_per_s": TRAIN_BATCH * 1e3 / ms,
                      "peak_gb": run["peak_bytes"] / 1e9,
-                     "launches": run["launches"]}
+                     "launches": run["launches"],
+                     "wgrad_launches": run["wgrad_launches"]}
     out["fused"]["profile"] = fused["profile"]
     out["loss_worst_rel_fused_vs_unfused"] = rel
     print(f"train step: {TRAIN_STEPS} fused steps, B={TRAIN_BATCH} "
@@ -1868,10 +2036,15 @@ def cam_yardstick(students_mod, shape, dev) -> dict:
     return {"fwd_ms": fwd, "fwd_bwd_ms": fwd_bwd}
 
 
-def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
+def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev,
+                    wgrad, wgrad_launches) -> list:
     """One row per CAM kernel: at the steps' shape, and at the pyramid's
     full-resolution shape under ``at_pyramid_hi``; each row also carries
-    its per-launch breakdown at both shapes (ms by kernel)."""
+    its per-launch breakdown at both shapes (ms by kernel), and each
+    backward its weight-gradient launches (``wgrad``: their launches in
+    the train steps, ``wgrad_launches`` from :func:`run_train`; ms each
+    from the breakdown, their bounds, the kernels alone against float64
+    and a library call from :func:`phase_wgrad`)."""
     per_shape, breakdown = {}, {}
     for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM)):
         yard = cam_yardstick(students_mod, shape, dev)
@@ -1912,13 +2085,38 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev) -> list:
                      "replaces": "rtpe_tpu/ops/pallas_cam.py:"
                                  f"{CAM_REPLACES[name]}",
                      "launches": launches[name],
-                     "launches_per_step": 6, "path": "train step "
+                     "launches_per_step": launches[name] / TRAIN_STEPS,
+                     "path": "train step "
                      "(AttentionStudentSteps(fused_cam=True)): 3 at the "
                      "steps' shape, 3 in the pyramid (113, 57, 29)",
                      "max_abs_err": errs[name], **by["steps"],
                      "at_pyramid_hi": by["pyramid_hi"]})
         if name in breakdown:
             rows[-1]["breakdown_ms"] = breakdown[name]
+        if name.endswith("bwd"):
+            plain = {"cam_f1_bwd": "dkr", "cam_f2_bwd": "dkt",
+                     "cam_f3_bwd": "dkr_dkt"}[name]
+            n_taps, n_plain = wgrad_launches[name]
+            rows[-1]["wgrad"] = {
+                "kernel": "wgrad_taps_kernel (dkh), wgrad_plain_kernel ("
+                          + plain + ")",
+                "source": "rtpe_tpu_torch/csrc/cam_core.cuh",
+                "launches": {"wgrad_taps_kernel": n_taps,
+                             "wgrad_plain_kernel": n_plain},
+                "launches_per_step": (n_taps + n_plain) / TRAIN_STEPS,
+                "dkh_ms": {k: breakdown[name][k].get("wgrad_taps_kernel")
+                           for k in breakdown.get(name, {})},
+                plain + "_ms": {
+                    k: breakdown[name][k].get("wgrad_plain_kernel")
+                    for k in breakdown.get(name, {})},
+                "bound": {k: {p_: wgrad_bound(shape)[p_]
+                              for p_ in ("dkh", plain)}
+                          for k, shape in (("steps", STEPS_CAM),
+                                           ("pyramid_hi", PYRAMID_CAM))},
+                "library_ms": wgrad["library_ms"],
+                "library": wgrad["library"],
+                "alone_vs_f64": {k: wgrad[k] for k in ("worst_ratio", "tol",
+                                                       "ms_alone")}}
     ms = {r["name"]: [r["ms"], r["at_pyramid_hi"]["ms"]] for r in rows}
     print(f"cam kernel ms (steps / pyramid hi): {ms}; the tiled ops by "
           f"kernel: {breakdown}", flush=True)
@@ -3367,11 +3565,14 @@ def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset(cam_mod.KERNELS)
+    cam_mod.wgrad_counts(reset=True)
     for f in cam_mod.PLAIN:
         f.calls = 0
     res = run_trainer(dist_mod, args(), train_ds, minival_ds, clock,
                       log_path, dev)
     launches = read(cam_mod.KERNELS)
+    check_wgrad_launches({"launches": launches,
+                          "wgrad_launches": cam_mod.wgrad_counts()})
     plain_calls = sum(f.calls for f in cam_mod.PLAIN)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(res.start_step == 0 and res.step == 5, f"steps {res.step}")
@@ -4681,7 +4882,9 @@ def main() -> None:
     train = phase_train((factory_mod, students_mod), train_mod, cam_mod,
                         state, dev)
     kernels += cam_kernel_rows(cam_mod, students_mod, cam_errs["max_abs_err"],
-                               train["fused"]["launches"], dev)
+                               train["fused"]["launches"], dev,
+                               cam_errs["wgrad"],
+                               train["fused"]["wgrad_launches"])
     paths_ms = decode_path_times(pred.parser, fused, heatmaps)
     fwd_ms = forward_times(packed_mod, pred.model, pk, dev)
     e2e = phase_end_to_end(pred)

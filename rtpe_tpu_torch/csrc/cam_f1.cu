@@ -22,6 +22,10 @@
 // against 0.02 ms for the bytes (x read once).  F1b recomputes the convs,
 // adds the same count of weight-gradient products and as many transposed
 // products: about 3x F1.
+//
+// This file also exports the weight-gradient kernels alone
+// (cam_wgrad_workspace, cam_wgrad_plan, cam_wgrad_launch; ops/cam.py:
+// cam_wgrad), which the card checks hold to a float64 product.
 
 #include "cam_tile.cuh"
 
@@ -156,20 +160,26 @@ namespace {
 struct F1bWs {
   bf16 *dr, *dc;
   float *part_h, *part_r;
+  WgPlan ph, pr;   // dkh; dkr
+  bool ok;
 };
 
 // dr (M, kc) and dc (M, nb khc) keep the zero padding the tile kernels
-// stage.
+// stage; then the weight gradients' partial rows.  xpad may be null for
+// sizing.
 F1bWs carve_f1b(const Geo &g, const tile::TGeo &t, void *base,
-                int64_t *bytes) {
+                const bf16 *xpad, int64_t *bytes) {
   Carve cv(base);
   F1bWs w;
   w.dr = cv.take<bf16>(static_cast<int64_t>(g.M) * g.kc);
   w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * t.ldc);
-  w.part_h = cv.take<float>(
-      wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
-  w.part_r = cv.take<float>(
-      wgrad_part_floats(g, static_cast<int64_t>(g.C) * g.C));
+  const WgJob jr = plain_job(xpad, g.kc, g.C, w.dr, g.kc, g.C, 0);
+  w.ok = tile::dkh_plan(g, t, xpad, w.dc, &w.ph) &&
+         plain_plan(&jr, 1, static_cast<int64_t>(g.C) * g.C, g, &w.pr);
+  if (w.ok) {
+    w.part_h = cv.take<float>(wg_part_floats(w.ph));
+    w.part_r = cv.take<float>(wg_part_floats(w.pr));
+  }
   *bytes = cv.off;
   return w;
 }
@@ -227,8 +237,7 @@ extern "C" long long cam_f1b_workspace(const int *geo) {
   tile::TGeo t;
   if (!tile::tile_geo(geo, tile::F1B, &g, &t)) return -1;
   int64_t bytes = 0;
-  carve_f1b(g, t, nullptr, &bytes);
-  return bytes;
+  return carve_f1b(g, t, nullptr, nullptr, &bytes).ok ? bytes : -1;
 }
 
 // F1b's tile plan (cam_tile.cuh:tile_plan).
@@ -250,24 +259,75 @@ extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
-  const F1bWs w = carve_f1b(g, t, ws, &bytes);
   const auto *xx = static_cast<const bf16 *>(xpad);
+  const F1bWs w = carve_f1b(g, t, ws, xx, &bytes);
+  if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
   CAM_TRY(tile::launch(tile::f1b_tile_kernel, dim3(t.n_tiles),
                        tile::smem0_bytes(g, t), st, g, t, xx,
                        static_cast<const bf16 *>(w0),
                        static_cast<const float *>(dsr),
                        static_cast<const float *>(dsh), w.dr, w.dc));
-  CAM_TRY(wgrad<NTB>(tile::dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
-                     static_cast<int64_t>(9) * g.NH * g.C,
-                     static_cast<float *>(dkh), st));
-  WJobs jr;
-  jr.n = 1;
-  jr.j[0] = plain_job(xx, g.kc, g.C, w.dr, g.kc, g.C, 0);
-  CAM_TRY(wgrad<NTC>(jr, g, g.C, g.C, w.part_r,
-                     static_cast<int64_t>(g.C) * g.C,
-                     static_cast<float *>(dkr), st));
+  CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
+  CAM_TRY(wgrad(w.pr, w.part_r, static_cast<float *>(dkr), st));
   const float inv_n = static_cast<float>(1.0 / g.HW);
   return static_cast<int>(tile::launch_dx<true, true>(
       g, t, w.dr, w.dc, static_cast<const bf16 *>(w1),
       static_cast<const float *>(dgap), inv_n, static_cast<bf16 *>(dx), st));
+}
+
+// ------------------------------------------------------------ wgrad alone
+
+namespace {
+
+// p = {B, H, W, K, N, d, ldu, ldv}: u (B, H, W, ldu) and v (B, H, W, ldv)
+// bf16, channels from 0; d >= 1: the 9 taps at dilation d, out
+// (3, 3, K, N); d = 0: one unshifted product, out (K, N); float32.
+bool wgrad_alone(const int *p, const void *u, const void *v, WgPlan *P) {
+  if (p[5] < 0) return false;
+  WgPlan q{};
+  q.njobs = 1;
+  q.job[0] = plain_job(static_cast<const bf16 *>(u), p[6], p[3],
+                       static_cast<const bf16 *>(v), p[7], p[4], 0);
+  q.job[0].d = p[5];
+  const int taps = p[5] > 0 ? 9 : 1;
+  q.total = static_cast<int64_t>(taps) * p[3] * p[4];
+  if (!wg_plan(q, taps, p[0], p[1], p[2])) return false;
+  *P = q;
+  return true;
+}
+
+}  // namespace
+
+// Bytes of cam_wgrad_launch's workspace (its partial rows), or -1.
+extern "C" long long cam_wgrad_workspace(const int *p) {
+  WgPlan P;
+  if (!wgrad_alone(p, nullptr, nullptr, &P)) return -1;
+  Carve cv(nullptr);
+  cv.take<float>(wg_part_floats(P));
+  return cv.off;
+}
+
+// cam_wgrad_launch's plan: what = 0 shared memory bytes, 1 partial rows,
+// 2 m16 tiles a K slice, 3 tile rows, 4 ring stages, 5 tiles, 6 combos,
+// 7 the wgmma's n8 tiles, 8 rows of a V plane, 9 blocks; -1 for an
+// invalid call.
+extern "C" long long cam_wgrad_plan(const int *p, int what) {
+  WgPlan P;
+  if (!wgrad_alone(p, nullptr, nullptr, &P)) return -1;
+  const long long v[] = {wg_smem_bytes(P), P.slots, P.mt, P.ty, P.ns,
+                         P.n_tiles, P.ncombo, P.nt, P.vrows, P.blocks};
+  return what >= 0 && what < 10 ? v[what] : -1;
+}
+
+// The weight-gradient kernel alone (ops/cam.py:cam_wgrad) and its
+// reduction into out; ws: cam_wgrad_workspace(p) bytes.
+extern "C" int cam_wgrad_launch(const int *p, const void *u, const void *v,
+                                void *ws, void *out, void *stream) {
+  WgPlan P;
+  if (!wgrad_alone(p, u, v, &P))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto *part = static_cast<float *>(ws);
+  auto *o = static_cast<float *>(out);
+  return static_cast<int>(wgrad(P, part, o, st));
 }

@@ -75,7 +75,7 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
       });
 }
 
-// Phase 0 of F2b on one 8 x 8 tile: a (M, NH), dt (M, C) and dc
+// Phase 0 of F2b on one 8 x 8 tile: a (M, knh), dt (M, kc) and dc
 // (M, nb khc, zero padding columns) in bf16, dt = bf16(dst[0] + 2 t
 // dst[1]); per-tile partial row dS_h (2 NH).
 __global__ void __launch_bounds__(TT, 1)
@@ -124,7 +124,7 @@ f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
               const float tb = bfr(at[j][e]);
               dtb = f2bf(__fadd_rn(
                   sDt[c], __fmul_rn(__fmul_rn(2.0f, tb), sDt[C + c])));
-              dt_out[p * C + c] = dtb;
+              dt_out[p * g.kc + c] = dtb;
             }
             sD[r * xp + c] = dtb;
           }
@@ -143,22 +143,29 @@ namespace {
 struct F2bWs {
   bf16 *a, *dt, *dc;
   float *part, *part_h, *part_t;
+  WgPlan ph, pt;   // dkh; dkt
+  bool ok;
 };
 
-// dc (M, nb khc) keeps the zero padding the tile kernels stage; a (M, NH)
-// and dt (M, C) are dense.
+// dc (M, nb khc) keeps the zero padding the tile kernels stage; a
+// (M, knh) and dt (M, kc) have 16-byte rows (their padding columns are
+// not written: only outputs k < NH, n < C are kept).  xpad may be null
+// for sizing.
 F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
-                int64_t *bytes) {
+                const bf16 *xpad, int64_t *bytes) {
   Carve cv(base);
   F2bWs w;
-  w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
-  w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
+  w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.knh);
+  w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.kc);
   w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * t.ldc);
   w.part = cv.take<float>(static_cast<int64_t>(t.n_tiles) * 2 * g.NH);
-  w.part_h = cv.take<float>(
-      wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
-  w.part_t = cv.take<float>(
-      wgrad_part_floats(g, static_cast<int64_t>(g.NH) * g.C));
+  const WgJob jt = plain_job(w.a, g.knh, g.NH, w.dt, g.kc, g.C, 0);
+  w.ok = tile::dkh_plan(g, t, xpad, w.dc, &w.ph) &&
+         plain_plan(&jt, 1, static_cast<int64_t>(g.NH) * g.C, g, &w.pt);
+  if (w.ok) {
+    w.part_h = cv.take<float>(wg_part_floats(w.ph));
+    w.part_t = cv.take<float>(wg_part_floats(w.pt));
+  }
   *bytes = cv.off;
   return w;
 }
@@ -210,8 +217,7 @@ extern "C" long long cam_f2b_workspace(const int *geo) {
   tile::TGeo t;
   if (!tile::tile_geo(geo, tile::F2B, &g, &t)) return -1;
   int64_t bytes = 0;
-  carve_f2b(g, t, nullptr, &bytes);
-  return bytes;
+  return carve_f2b(g, t, nullptr, nullptr, &bytes).ok ? bytes : -1;
 }
 
 // F2b's tile plan (cam_tile.cuh:tile_plan).
@@ -233,8 +239,9 @@ extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
-  const F2bWs w = carve_f2b(g, t, ws, &bytes);
   const auto *xx = static_cast<const bf16 *>(xpad);
+  const F2bWs w = carve_f2b(g, t, ws, xx, &bytes);
+  if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
   CAM_TRY(tile::launch(tile::f2b_tile_kernel, dim3(t.n_tiles),
                        tile::smem0_bytes(g, t), st, g, t, xx,
                        static_cast<const bf16 *>(w0),
@@ -243,15 +250,8 @@ extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
                        w.part));
   CAM_TRY(reduce_rows(w.part, 2 * g.NH, 0, 2 * g.NH, t.n_tiles, 1,
                       static_cast<float *>(dS), 0, st));
-  CAM_TRY(wgrad<NTB>(tile::dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
-                     static_cast<int64_t>(9) * g.NH * g.C,
-                     static_cast<float *>(dkh), st));
-  WJobs jt;
-  jt.n = 1;
-  jt.j[0] = plain_job(w.a, g.NH, g.NH, w.dt, g.C, g.C, 0);
-  CAM_TRY(wgrad<NTC>(jt, g, g.NH, g.C, w.part_t,
-                     static_cast<int64_t>(g.NH) * g.C,
-                     static_cast<float *>(dkt), st));
+  CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
+  CAM_TRY(wgrad(w.pt, w.part_t, static_cast<float *>(dkt), st));
   return static_cast<int>(tile::launch_dx<false, false>(
       g, t, nullptr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
       static_cast<bf16 *>(dx), st));

@@ -88,7 +88,7 @@ f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
       });
 }
 
-// Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, NH), dt (M, C),
+// Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, knh), dt (M, kc),
 // dc (M, nb khc) in bf16 (dr and dc with zero padding columns); per-tile
 // partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].
 __global__ void __launch_bounds__(TT, 1)
@@ -165,7 +165,7 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
               dzt = zt > 0.0f ? dy : 0.0f;
               tmm = __fsub_rn(tb, mt);
               dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
-              dt_out[p * C + c] = dtb;
+              dt_out[p * g.kc + c] = dtb;
             }
             if (c < C && j < sc.cnt) sD[r * xp + c] = dtb;
             vg[j][e] = dgy;
@@ -204,24 +204,35 @@ namespace {
 struct F3bWs {
   bf16 *dr, *a, *dt, *dc;
   float *part, *part_h, *part_rt;
+  WgPlan ph, prt;   // dkh; dkr and dkt in one launch
+  bool ok;
 };
 
 // dr (M, kc) and dc (M, nb khc) keep the zero padding the tile kernels
-// stage; a (M, NH) and dt (M, C) are dense.
+// stage; a (M, knh) and dt (M, kc) have 16-byte rows (their padding
+// columns are not written: only outputs k < NH, n < C are kept).  xpad
+// may be null for sizing.
 F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
-                int64_t *bytes) {
+                const bf16 *xpad, int64_t *bytes) {
   Carve cv(base);
   F3bWs w;
   w.dr = cv.take<bf16>(static_cast<int64_t>(g.M) * g.kc);
-  w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.NH);
-  w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.C);
+  w.a = cv.take<bf16>(static_cast<int64_t>(g.M) * g.knh);
+  w.dt = cv.take<bf16>(static_cast<int64_t>(g.M) * g.kc);
   w.dc = cv.take<bf16>(static_cast<int64_t>(g.M) * t.ldc);
   w.part = cv.take<float>(static_cast<int64_t>(t.n_tiles) *
                           (5 * g.C + 2 * g.NH));
-  w.part_h = cv.take<float>(
-      wgrad_part_floats(g, static_cast<int64_t>(9) * g.NH * g.C));
-  w.part_rt = cv.take<float>(wgrad_part_floats(
-      g, static_cast<int64_t>(g.C) * g.C + static_cast<int64_t>(g.NH) * g.C));
+  // dkr and dkt end to end: dkr (C, C), then dkt (NH, C)
+  const int64_t n_rr = static_cast<int64_t>(g.C) * g.C;
+  const WgJob jrt[2] = {plain_job(xpad, g.kc, g.C, w.dr, g.kc, g.C, 0),
+                        plain_job(w.a, g.knh, g.NH, w.dt, g.kc, g.C, n_rr)};
+  w.ok = tile::dkh_plan(g, t, xpad, w.dc, &w.ph) &&
+         plain_plan(jrt, 2, n_rr + static_cast<int64_t>(g.NH) * g.C, g,
+                    &w.prt);
+  if (w.ok) {
+    w.part_h = cv.take<float>(wg_part_floats(w.ph));
+    w.part_rt = cv.take<float>(wg_part_floats(w.prt));
+  }
   *bytes = cv.off;
   return w;
 }
@@ -260,8 +271,7 @@ extern "C" long long cam_f3b_workspace(const int *geo) {
   tile::TGeo t;
   if (!tile::tile_geo(geo, tile::F3B, &g, &t)) return -1;
   int64_t bytes = 0;
-  carve_f3b(g, t, nullptr, &bytes);
-  return bytes;
+  return carve_f3b(g, t, nullptr, nullptr, &bytes).ok ? bytes : -1;
 }
 
 // F3b's tile plan (cam_tile.cuh:tile_plan).
@@ -287,8 +297,9 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
-  const F3bWs w = carve_f3b(g, t, ws, &bytes);
   const auto *xx = static_cast<const bf16 *>(xpad);
+  const F3bWs w = carve_f3b(g, t, ws, xx, &bytes);
+  if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
   CAM_TRY(tile::launch(tile::f3b_tile_kernel, dim3(t.n_tiles),
                        tile::smem0_bytes(g, t), st, g, t, xx,
                        static_cast<const bf16 *>(w0),
@@ -308,24 +319,15 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
   // tiles are numbered image-major: image b's tpi rows are contiguous
   CAM_TRY(reduce_rows(w.part, ld, 4 * g.C + 2 * g.NH, g.C, t.tpi, g.B,
                       static_cast<float *>(dgate), g.C, st));
-  CAM_TRY(wgrad<NTB>(tile::dkh_jobs(g, t, xx, w.dc), g, g.C, g.hc, w.part_h,
-                     static_cast<int64_t>(9) * g.NH * g.C,
-                     static_cast<float *>(dkh), st));
-  // dkr and dkt in one launch, their partials end to end; each range is
-  // reduced straight into its output
+  CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
+  // dkr and dkt in one walk; each range is reduced straight into its
+  // output
   const int64_t n_rr = static_cast<int64_t>(g.C) * g.C;
-  const int64_t total = n_rr + static_cast<int64_t>(g.NH) * g.C;
-  WJobs jrt;
-  jrt.n = 2;
-  jrt.j[0] = plain_job(xx, g.kc, g.C, w.dr, g.kc, g.C, 0);
-  jrt.j[1] = plain_job(w.a, g.NH, g.NH, w.dt, g.C, g.C, n_rr);
-  const int kmax = g.C > g.NH ? g.C : g.NH;
-  CAM_TRY(wgrad_launch<NTC>(jrt, g, kmax, g.C, w.part_rt, total, st));
-  const int splits = wg_splits(g);
-  CAM_TRY(reduce_rows(w.part_rt, total, 0, n_rr, splits, 1,
+  CAM_TRY(wgrad(w.prt, w.part_rt, nullptr, st));
+  CAM_TRY(reduce_rows(w.part_rt, w.prt.total, 0, n_rr, w.prt.slots, 1,
                       static_cast<float *>(dkr), 0, st));
-  CAM_TRY(reduce_rows(w.part_rt, total, n_rr, total - n_rr, splits, 1,
-                      static_cast<float *>(dkt), 0, st));
+  CAM_TRY(reduce_rows(w.part_rt, w.prt.total, n_rr, w.prt.total - n_rr,
+                      w.prt.slots, 1, static_cast<float *>(dkt), 0, st));
   return static_cast<int>(tile::launch_dx<true, false>(
       g, t, w.dr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
       static_cast<bf16 *>(dx), st));

@@ -55,10 +55,9 @@
 //     dx: dr kr^T, then branch i, taps 0..8, k-steps over khc, then
 //     F1b's dgap / (H W)) on the same mma.sync m16n8k16 bf16 -> f32 with
 //     the same zero padding, so every per-pixel output (F3's out; dr, a,
-//     dt, dc, dx; F2's t) and the weight gradients built from them are
-//     bitwise those of the first design; only the per-tile sums (F1's S_r,
-//     S_h and GAP; F2's S_t; dS_r, dS_h, dS_t, dgate) add their pixels in
-//     another order.
+//     dt, dc, dx; F2's t) is bitwise the first design's; the per-tile sums
+//     (F1's S_r, S_h and GAP; F2's S_t; dS_r, dS_h, dS_t, dgate) and the
+//     weight gradients (cam_core.cuh) add their pixels in another order.
 //
 // The six phase-0 kernels (f1_tile_kernel and f1b_tile_kernel in
 // cam_f1.cu, f2_tile_kernel and f2b_tile_kernel in cam_f2.cu,
@@ -256,10 +255,6 @@ __device__ __forceinline__ void stage0(const Geo &g, const TGeo &t, int s,
 
 // ------------------------------------------------------------ primitives
 
-__device__ __forceinline__ uint32_t saddr(const void *p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared, zero-filled (nothing read) when !valid.
 __device__ __forceinline__ void cp16(uint32_t dst, const void *src,
                                      bool valid) {
@@ -307,8 +302,7 @@ __device__ __forceinline__ int lm_bk(int lane) {
 // acc[j] += A (16 x 16 ksteps) . B^T for the first nt of its n8 tiles; a
 // is this lane's A row address (lm_row, k half (lane >> 4) * 8), b its B
 // address (lm_brow, lm_bk) at the group's first n8 tile of a [n][k] tile
-// of pitch bp bytes.  Each acc[j] adds its k-steps in ascending order, as
-// warp_mma does.
+// of pitch bp bytes.  Each acc[j] adds its k-steps in ascending order.
 template <int NT>
 __device__ __forceinline__ void mma_rows(float (&acc)[NT][4], uint32_t a,
                                          uint32_t b, int bp, int ksteps,
@@ -592,7 +586,7 @@ struct ToActivations {
         sA[r * g.nhp + i * g.hc + n] = ab;
         if (BWD) {
           const int64_t p = tile_pix(g, L.pos, r);
-          if (p >= 0) a_out[p * g.NH + i * g.hc + n] = ab;
+          if (p >= 0) a_out[p * g.knh + i * g.hc + n] = ab;
         }
       }
   }
@@ -806,23 +800,24 @@ cudaError_t launch_dx(const Geo &g, const TGeo &t, const bf16 *dr,
                 smem1_bytes(g, t), st, g, t, dr, dc, w1, dgap, inv_n, dx);
 }
 
-// The dkh jobs: x (padded, pitch kc) shifted by each tap of each branch
-// against that branch's dc columns (pitch ldc, branch i at i khc); out
-// laid out as kh, (nb, 3, 3, C, hc).
-inline WJobs dkh_jobs(const Geo &g, const TGeo &t, const bf16 *xpad,
-                      const bf16 *dc) {
-  WJobs J;
-  J.n = g.nb * 9;
-  for (int i = 0; i < g.nb; ++i)
-    for (int tap = 0; tap < 9; ++tap) {
-      WJob &w = J.j[i * 9 + tap];
-      w.u = xpad; w.ldu = g.kc; w.u0 = 0; w.K = g.C;
-      w.dy = (tap / 3 - 1) * g.dil[i];
-      w.dx = (tap % 3 - 1) * g.dil[i];
-      w.v = dc; w.ldv = t.ldc; w.v0 = i * g.khc; w.N = g.hc;
-      w.out_off = static_cast<int64_t>(i * 9 + tap) * g.C * g.hc;
-    }
-  return J;
+// The dkh product: x (padded, pitch kc) at each branch's 9 taps against
+// that branch's dc columns (pitch ldc, branch i at i khc); out laid out as
+// kh, (nb, 3, 3, C, hc).  Pointers may be null for sizing.
+inline bool dkh_plan(const Geo &g, const TGeo &t, const bf16 *xpad,
+                     const bf16 *dc, WgPlan *P) {
+  WgPlan p{};
+  p.njobs = g.nb;
+  for (int i = 0; i < g.nb; ++i) {
+    WgJob &w = p.job[i];
+    w.u = xpad; w.ldu = g.kc; w.u0 = 0; w.K = g.C;
+    w.v = dc; w.ldv = t.ldc; w.v0 = i * g.khc; w.N = g.hc;
+    w.d = g.dil[i];
+    w.out_off = static_cast<int64_t>(i) * 9 * g.C * g.hc;
+  }
+  p.total = 9LL * g.NH * g.C;
+  if (!wg_plan(p, 9, g.B, g.H, g.W)) return false;
+  *P = p;
+  return true;
 }
 
 }  // namespace tile

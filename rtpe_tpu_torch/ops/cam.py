@@ -59,10 +59,14 @@ HC_MAX = 40      # the kernels' widest branch
 NB_MAX = 6       # and most dilations
 
 _P = ctypes.c_void_p
+_CNT = [_P, ctypes.c_int]   # cam_wgrad_counts, in every CAM library
 _SIGS = {
-    "cam_f1": {"cam_f1_launch": [_P] * 8, "cam_f1b_launch": [_P] * 12},
-    "cam_f2": {"cam_f2_launch": [_P] * 7, "cam_f2b_launch": [_P] * 12},
-    "cam_f3": {"cam_f3_launch": [_P] * 9, "cam_f3b_launch": [_P] * 19},
+    "cam_f1": {"cam_f1_launch": [_P] * 8, "cam_f1b_launch": [_P] * 12,
+               "cam_wgrad_launch": [_P] * 6, "cam_wgrad_counts": _CNT},
+    "cam_f2": {"cam_f2_launch": [_P] * 7, "cam_f2b_launch": [_P] * 12,
+               "cam_wgrad_counts": _CNT},
+    "cam_f3": {"cam_f3_launch": [_P] * 9, "cam_f3b_launch": [_P] * 19,
+               "cam_wgrad_counts": _CNT},
 }
 _WORKSPACE = {"cam_f1": ("cam_f1_workspace", "cam_f1b_workspace"),
               "cam_f2": ("cam_f2_workspace", "cam_f2b_workspace"),
@@ -322,11 +326,15 @@ def _lib(name: str) -> ctypes.CDLL:
     for fn in _WORKSPACE[name]:
         getattr(lib, fn).argtypes = [_P]
         getattr(lib, fn).restype = ctypes.c_longlong
-    for op in TILE_OPS:                    # cam_tile.cuh:tile_plan per op
-        if f"cam_{op[:2]}" == name:
-            plan = getattr(lib, f"cam_{op}_plan")
-            plan.argtypes = [_P, ctypes.c_int]
-            plan.restype = ctypes.c_longlong
+    plans = [f"cam_{op}_plan" for op in TILE_OPS   # cam_tile.cuh:tile_plan
+             if f"cam_{op[:2]}" == name]
+    if name == "cam_f1":
+        lib.cam_wgrad_workspace.argtypes = [_P]
+        lib.cam_wgrad_workspace.restype = ctypes.c_longlong
+        plans.append("cam_wgrad_plan")
+    for fn in plans:
+        getattr(lib, fn).argtypes = [_P, ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_longlong
     return lib
 
 
@@ -649,6 +657,89 @@ def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
                           (x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils), out,
                           cam_f3_bwd_plain)
     return out
+
+
+# ------------------------------------------------------------ weight grads
+#
+# The backwards' weight gradients (csrc/cam_core.cuh: wgrad_taps_kernel for
+# dkh, wgrad_plain_kernel for dkr and dkt) run inside cam_f1b / cam_f2b /
+# cam_f3b's launches; cam_wgrad runs them alone.  Their plan lives in
+# cam_core.cuh:wg_plan only (cam_wgrad_plan exports it).
+
+
+def wgrad_counts(reset: bool = False) -> Dict[str, Tuple[int, int]]:
+    """The weight-gradient kernels' launches by each backward since the
+    last reset, counted where the C side launches them: {"cam_f1_bwd":
+    (wgrad_taps_kernel, wgrad_plain_kernel), "cam_f2_bwd": ...,
+    "cam_f3_bwd": ...}; cam_f1_bwd's library also counts cam_wgrad's.
+    ``reset`` sets them to 0 after reading.  Builds the libraries where
+    they are not loaded yet."""
+    out = {}
+    for name in ("cam_f1", "cam_f2", "cam_f3"):
+        n = (ctypes.c_longlong * 2)()
+        _lib(name).cam_wgrad_counts(n, int(reset))
+        out[f"{name}_bwd"] = (int(n[0]), int(n[1]))
+    return out
+
+
+def cam_wgrad_plain(u, v, d: int) -> torch.Tensor:
+    """``cam_wgrad``'s plain version: the same sums in float32 through
+    :func:`_wgrad` (d >= 1) or one einsum (d = 0)."""
+    cam_wgrad_plain.calls += 1
+    u32, v32 = u.float(), v.float()
+    if d:
+        return _wgrad(u32, v32, d)
+    return torch.einsum("bhwk,bhwn->kn", u32, v32)
+
+
+def cam_wgrad(u: torch.Tensor, v: torch.Tensor, d: int) -> torch.Tensor:
+    """The backwards' weight-gradient kernels alone
+    (``cam_core.cuh:wgrad_taps_kernel`` / ``wgrad_plain_kernel``; they
+    stand for the weight-gradient sums of ``pallas_cam.py:_f1b_call`` /
+    ``_f2b_call`` / ``_f3b_call``):
+    u (B, H, W, K), v (B, H, W, N) bf16.  ``d`` >= 1: the 9 taps of a 3x3
+    conv at dilation d, out[ti, tj] = sum over pixels of u shifted by
+    ((ti - 1) d, (tj - 1) d) (zero outside the image) times v, (3, 3, K,
+    N) float32, N <= 40; ``d`` = 0: the plain product u^T v, (K, N).  On
+    the CPU its plain version; on the card the kernel and its fixed-order
+    reduction."""
+    if not _dispatch(u, "cam_wgrad"):
+        return cam_wgrad_plain(u, v, d)
+    if u.dim() != 4 or v.dim() != 4 or u.shape[:3] != v.shape[:3]:
+        raise ValueError(f"cam_wgrad: u (B, H, W, K) and v (B, H, W, N) "
+                         f"over the same pixels, got {tuple(u.shape)}, "
+                         f"{tuple(v.shape)}")
+    if u.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError(f"cam_wgrad takes bf16 operands, got {u.dtype}, "
+                        f"{v.dtype}")
+    if v.device != u.device:
+        raise ValueError(f"cam_wgrad: v is on {v.device}, u on {u.device}")
+    if int(d) < 0 or (d and v.shape[3] > HC_MAX):
+        raise ValueError(f"cam_wgrad takes d >= 0 and, with taps, N <= "
+                         f"{HC_MAX}; got d {d}, N {v.shape[3]}")
+    b, h, w, k = u.shape
+    n = v.shape[3]
+    up = F.pad(u, (0, _up(k, 8) - k)).contiguous()
+    vp = F.pad(v, (0, _up(n, 8) - n)).contiguous()
+    prm = (ctypes.c_int * 8)(b, h, w, k, n, int(d), up.shape[3], vp.shape[3])
+    lib = _lib("cam_f1")
+    nbytes = lib.cam_wgrad_workspace(ctypes.addressof(prm))
+    if nbytes < 0:
+        raise ValueError("cam_wgrad: the kernel refuses this geometry")
+    ws = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=u.device)
+    out = torch.empty((3, 3, k, n) if d else (k, n), dtype=torch.float32,
+                      device=u.device)
+    err = lib.cam_wgrad_launch(ctypes.addressof(prm),
+                               *_ptrs(up, vp, ws, out), _stream(u))
+    _build.check(err, "cam_wgrad")
+    cam_wgrad.launches += 1
+    if _observe.active:
+        _observe.launched("cam_wgrad", (u, v, d), (out,), cam_wgrad_plain)
+    return out
+
+
+cam_wgrad.launches = 0
+cam_wgrad_plain.calls = 0
 
 
 KERNELS = (cam_f1_fwd, cam_f1_bwd, cam_f2_fwd, cam_f2_bwd, cam_f3_fwd,

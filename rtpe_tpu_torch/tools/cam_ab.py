@@ -60,10 +60,17 @@ part (``qconv``, ``qfuse``, and everything else: PyTorch's glue).  Every
 output must be ``torch.equal`` to the parent's.
 
 An output counts as bad where it differs from the parent's, except a
-pixel sum (``SUMS``, whose order a redesign may change) within
-``SUM_TOL`` of max |parent|, or a chain output within ``CHAIN_TOL`` of
-max |parent| (a redesign may reorder its sums), on a case that is not an
-exact-sum one.
+pixel sum (``SUMS``, and the weight gradients ``WGRADS``, whose order a
+redesign may change) within ``SUM_TOL`` of max |parent|, or a chain
+output within ``CHAIN_TOL`` of max |parent| (a redesign may reorder its
+sums), on a case that is not an exact-sum one.  For the CAM ops the
+first line also says whether every per-pixel output and statistic is
+``torch.equal`` to the parent's (``cam_per_pixel_and_stats_equal``),
+the largest weight-gradient difference of max |parent|, and each tree's
+F1b dkh (per dilation) and dkr against a float64 product of x and the
+cotangents phase 0 makes (``WGRAD_CASES``: exact-sum x and weights, so
+those cotangents are the same in every tree), as the worst |kernel -
+f64| / sum_p |u v|.
 """
 
 import argparse
@@ -98,18 +105,32 @@ OUT_NAMES = {"cam_f1_fwd": ("s_r", "s_h", "gap"),
              "forward_int8_act": ("coarse", "refined")}
 # pixel sums whose order a redesign may change: held to 2^-8 of max |parent|
 SUMS = {"s_r", "s_h", "gap", "s_t", "dS", "dSr", "dSh", "dSt", "dgate"}
+# the weight gradients, pixel sums of another kernel; held the same way,
+# and reported apart from the per-pixel outputs and statistics
+WGRADS = {"dkr", "dkh", "dkt"}
 SUM_TOL = 2.0 ** -8
 CHAIN_TOL = 2.0 ** -5
 TIMED = ("steps", "pyramid_hi")
+# Exact-sum x and weights with random F1b cotangents dsr / dsh: the conv
+# outputs are exact, so dc = bf16(dsh[0] + 2 c dsh[1]) and dr are the
+# same in every tree and in a float64 reference; each tree's dkh and dkr
+# are then held to the float64 product of x and dc / dr, as the worst
+# |kernel - f64| / sum_p |u v| (chip_smoke.WGRAD_TOL is the new kernel's
+# limit).
+WGRAD_CASES = {"wgrad_steps": (16, 113, 113, 163, (1, 2, 3), 40),
+               "wgrad_pyramid_hi": (16, 113, 113, 83, (1, 2, 3, 4), 20)}
 CHAIN_N = 4
 
 
 def kernel_part(name: str) -> str:
     """The part of an op a kernel belongs to, by its name."""
-    if "wgrad_kernel<5>" in name:
-        return "dkh_wgrad5"
-    if "wgrad_kernel<7>" in name:
-        return "wgrad7"
+    # the weight gradients: the first design's wgrad_kernel<5> / <7> and
+    # their redesign, wgrad_taps_kernel / wgrad_plain_kernel (dkh; dkr /
+    # dkt)
+    if "wgrad_kernel<5>" in name or "wgrad_taps_kernel" in name:
+        return "dkh_wgrad"
+    if "wgrad_kernel<7>" in name or "wgrad_plain_kernel" in name:
+        return "wgrad_plain"
     if "reduce_rows" in name:
         return "reductions"
     if "conv3x3_kernel" in name:
@@ -384,10 +405,18 @@ def make_inputs(path: str) -> list:
     cases += [(f"card{k}", s, False, True) for k, s in enumerate(card)]
     cases += [("exact163", (2, 12, 20, 163, (1, 2, 3), 40), True, True),
               ("exact83", (3, 9, 14, 83, (1, 2, 3, 4), 20), True, True)]
+    # F1b's weight gradients against float64 (WGRAD_CASES)
+    cases += [(name, shape, "mixed", False)
+              for name, shape in WGRAD_CASES.items()]
     saved = []
     for name, shape, exact, signed in cases:
         k = cs.cam_case(cam, shape, cs.SEED + sum(shape[:4]), dev,
-                        exact=exact, signed_gates=signed)
+                        exact=bool(exact), signed_gates=signed)
+        if exact == "mixed":
+            gen = torch.Generator().manual_seed(cs.SEED + 30)
+            for n in ("dsr", "dsh"):
+                k[n] = (torch.randn(k[n].shape, generator=gen)
+                        * 1e-3).to(dev)
         saved.append({"name": name, "shape": [*shape[:4], list(shape[4]),
                                               shape[5]],
                       "dils": list(k.pop("dils")),
@@ -590,6 +619,11 @@ def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
     for case in cases:
         t = {n: v.to(dev) for n, v in case["t"].items()}
         dils = tuple(case["dils"])
+        if case["name"] in WGRAD_CASES:
+            outs["f64", case["name"]] = wgrad_vs_f64(cam, t, dils)
+            del t
+            torch.cuda.empty_cache()
+            continue
         for op, keys in OPS.items():
             fn = getattr(cam, op)
             args = [t[k] for k in keys] + [dils]
@@ -604,6 +638,36 @@ def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
         del t
         torch.cuda.empty_cache()
     torch.save({"outs": outs, "times": times, "file": cam.__file__}, save)
+
+
+def wgrad_vs_f64(cam, t, dils) -> dict:
+    """F1b's dkh and dkr on a WGRAD_CASES case against the float64
+    products of x and the cotangents phase 0 makes (recomputed: exact
+    convs, the same float32 expression, bf16): the worst |kernel - f64|
+    / sum_p |u v| of each."""
+    import torch
+    x, kr, kh, dsr, dsh = t["x"], t["kr"], t["kh"], t["dsr"], t["dsh"]
+    _, dkr, dkh = cam.cam_f1_bwd(x, kr, kh, dsr, dsh, t["dgap"], dils)
+    x32, x64 = x.float(), x.double()
+
+    def ratio(got, u64, v64, d):
+        def prod(a, b):
+            return cam._wgrad(a, b, d) if d else torch.einsum(
+                "bhwk,bhwn->kn", a, b)
+        ref, den = prod(u64, v64), prod(u64.abs(), v64.abs())
+        return float(((got.double() - ref).abs()
+                      / den.clamp(min=1e-300)).max())
+
+    res = {}
+    with torch.backends.cudnn.flags(enabled=False):
+        for i, d in enumerate(dils):
+            c = cam._bf(cam._conv(x32, kh[i], d))
+            dc = cam._bf(dsh[2 * i] + 2.0 * c * dsh[2 * i + 1])
+            res[f"dkh_d{d}"] = ratio(dkh[i], x64, dc.double(), d)
+    rc = cam._bf(x32 @ kr.float())
+    dr = cam._bf(dsr[0] + 2.0 * rc * dsr[1])
+    res["dkr"] = ratio(dkr, x64, dr.double(), 0)
+    return res
 
 
 def same(x, y) -> bool:
@@ -689,8 +753,14 @@ def main() -> None:
                 bad.append(f"{op[:-6]} {case}: differs from its plain "
                            "version")
             continue
+    per_pixel_equal = True
     for (op, case), want in par["outs"].items():
         if op.endswith("_plain"):
+            continue
+        if op == "f64":
+            report.setdefault("wgrad_vs_f64", {})[case] = {
+                lab: runs[i]["outs"][op, case]
+                for i, lab in ((0, "parent"), (1, "new"))}
             continue
         got = new["outs"][op, case]
         cmp = compare(got, want, OUT_NAMES[op])
@@ -700,8 +770,10 @@ def main() -> None:
                       zip(want, runs[3]["outs"][op, case]))
         exact = "exact" in case
         for n, v in cmp.items():
+            if op in OPS and n not in WGRADS and v != "equal":
+                per_pixel_equal = False
             tol = CHAIN_TOL if op == "basicblock_chain" else (
-                SUM_TOL if n in SUMS else None)
+                SUM_TOL if n in SUMS | WGRADS else None)
             if op == "nms_topk" and case.startswith("nan"):
                 continue            # the parent's pool dropped the NaN
             if v != "equal" and (tol is None or v > tol or exact):
@@ -719,6 +791,14 @@ def main() -> None:
             "kernels": {lab: runs[i]["times"][op, case]["kernels"]
                         for i, lab in ((0, "parent"), (1, "new"))}}
         for (op, case) in par["times"]}
+    if any(op in OPS for op, _ in par["outs"]):
+        # the per-pixel outputs and statistics against the parent's, and
+        # the largest weight-gradient difference of max |parent|
+        report["cam_per_pixel_and_stats_equal"] = per_pixel_equal
+        report["cam_wgrad_worst_vs_parent"] = max(
+            [v for o in report["ops"].values() for c in o.values()
+             for n, v in c["vs_parent"].items()
+             if n in WGRADS and v != "equal"] or [0.0])
     report["bad"] = bad
     with open(os.path.join(a.out, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -727,7 +807,10 @@ def main() -> None:
                  **({"not_queued_whole": True} if False in v["queued"]
                     else {})}
              for k, v in report["times"].items()}
-    print(json.dumps({"bad": bad, "times": short}))
+    print(json.dumps({"bad": bad, "times": short, **{
+        k: report[k] for k in ("cam_per_pixel_and_stats_equal",
+                               "cam_wgrad_worst_vs_parent", "wgrad_vs_f64")
+        if k in report}}))
     print(json.dumps(report))
     sys.exit(1 if bad else 0)
 

@@ -16,7 +16,9 @@ multi-scale TTA decoded on the card, LAP matrices of every size the
 kernel takes, NaN tags in the grouping kernels, BasicBlock chains at ragged and
 narrow shapes, a small packed forward with its chains on the kernel,
 the six fused-CAM kernels at small and ragged shapes (random inputs,
-exact-sum inputs, per-image gates of both signs), the 2-D tiles of the
+exact-sum inputs, per-image gates of both signs), their weight-gradient
+kernel alone against a float64 product (train shapes included), the 2-D
+tiles of the
 six ops at ragged shapes (a side smaller than a tile, a
 dilation larger than a tile side) and their plans against the C
 formulas, the s8 convolution ``qconv`` at ragged channels, Cout and
@@ -63,6 +65,7 @@ from rtpe_tpu_torch.ops.group_lockstep import (match_by_tag_lockstep,
                                                match_by_tag_lockstep_plain)
 from rtpe_tpu_torch.ops.lap import lap_rect, lap_rect_plain
 from rtpe_tpu_torch.ops.nms_topk import nms_topk, nms_topk_plain
+from test_torch_cam_wgrad import bwd_workspace_bytes, wgrad_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -816,6 +819,136 @@ def test_cam_wrappers_refuse(cuda):
     wide = torch.zeros((1, 3, 3, 12, 41), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         cam.cam_f1_fwd(case["x"], case["kr"], wide, (1,))
+
+
+# The backwards' weight-gradient kernels alone (cam.cam_wgrad, csrc/
+# cam_core.cuh:wgrad_taps_kernel / wgrad_plain_kernel), held to a float64
+# product of the same bf16 operands: per element |kernel - f64| <= 2^-14 sum_p |u v| (float32
+# sums of ~10^3 partials a block and ~10^2 partial rows, 2^-24 each); no
+# ReLU mask can flip here.  Train shapes, a ragged shape, C = 12 / hc = 3.
+WGRAD_SHAPES = [(16, 113, 113, 163, (1, 2, 3), 40),
+                (16, 113, 113, 83, (1, 2, 3, 4), 20),
+                (3, 29, 21, 83, (1, 2, 3, 4), 20),
+                (2, 21, 21, 12, (1, 2, 3), 3)]
+WGRAD_TOL = 2.0 ** -14
+
+
+def wgrad_operands(shape, seed, device, exact=False):
+    """(x, dc of one branch, dr, a, dt) as the backwards hand them to the
+    kernel: x in [0, 1), cotangents N(0, 1e-3), a = relu of N(0, 1); or
+    small integers (every sum exact in float32)."""
+    b, h, w, c, dils, hc = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(k, kind):
+        shp = (b, h, w, k)
+        if exact:
+            v = torch.randint(-3, 4, shp, generator=gen).float()
+        elif kind == "x":
+            v = torch.rand(shp, generator=gen)
+        elif kind == "a":
+            v = torch.randn(shp, generator=gen).clamp(min=0)
+        else:
+            v = torch.randn(shp, generator=gen) * 1e-3
+        return v.to(dtype=torch.bfloat16, device=device)
+
+    return (t(c, "x"), t(hc, "d"), t(c, "d"), t(len(dils) * hc, "a"),
+            t(c, "d"))
+
+
+def wgrad_f64(u, v, d):
+    """The float64 product of the same bf16 operands and its sum of
+    |u v| per element."""
+    def prod(a, b):
+        return cam._wgrad(a, b, d) if d else torch.einsum(
+            "bhwk,bhwn->kn", a, b)
+
+    u64, v64 = u.double(), v.double()
+    return prod(u64, v64), prod(u64.abs(), v64.abs())
+
+
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_cam_wgrad_matches_float64(no_tf32, shape):
+    x, dc, dr, a, dt = wgrad_operands(shape, sum(shape[:4]), no_tf32)
+    calls = [(x, dc, d) for d in shape[4]] + [(x, dr, 0), (a, dt, 0)]
+    for u, v, d in calls:
+        before = cam.cam_wgrad.launches
+        got = cam.cam_wgrad(u, v, d)
+        torch.cuda.synchronize()
+        assert cam.cam_wgrad.launches == before + 1
+        ref, den = wgrad_f64(u, v, d)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        err = (got.double() - ref).abs()
+        assert bool((err <= WGRAD_TOL * den).all()), \
+            (d, float((err / den.clamp(min=1e-300)).max()))
+        assert torch.equal(got, cam.cam_wgrad(u, v, d))   # run to run
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 20, 163, (1, 2, 3), 40),
+                                   (3, 9, 14, 83, (1, 2, 3, 4), 20),
+                                   (1, 11, 19, 12, (1, 9), 3),
+                                   (1, 5, 7, 200, (2,), 8)])
+def test_cam_wgrad_is_exact_on_exact_sums(cuda, shape):
+    x, dc, dr, a, dt = wgrad_operands(shape, 5, cuda, exact=True)
+    for u, v, d in [(x, dc, d) for d in shape[4]] + [(x, dr, 0),
+                                                     (a, dt, 0)]:
+        got = cam.cam_wgrad(u, v, d)
+        assert torch.equal(got, wgrad_f64(u, v, d)[0].float()), d
+
+
+@pytest.mark.parametrize("shape", WGRAD_SHAPES + F3B_SHAPES)
+def test_cam_wgrad_plan_matches_the_kernel(cuda, shape):
+    """The C plan (cam_core.cuh:wg_plan, exported as cam_wgrad_plan and
+    inside cam_f{1,2,3}b_workspace) and the CPU tests' model of it
+    (test_torch_cam_wgrad.py: wgrad_plan, bwd_workspace_bytes) agree."""
+    b, h, w, c, dils, hc = shape
+    x = torch.empty((b, h, w, c), dtype=torch.bfloat16)
+    kh = torch.empty((len(dils), 3, 3, c, hc), dtype=torch.bfloat16)
+    geo = cam._geo(x, kh, dils)
+    for op in ("f1b", "f2b", "f3b"):
+        lib = cam._lib(f"cam_{op[:2]}")
+        assert getattr(lib, f"cam_{op}_workspace")(
+            cam.ctypes.addressof(geo)) == bwd_workspace_bytes(op, *shape)
+    lib = cam._lib("cam_f1")
+    for d, k, n in [(d, c, hc) for d in dils] + [(0, c, c)]:
+        ldu, ldv = -(-k // 8) * 8, -(-n // 8) * 8
+        prm = (cam.ctypes.c_int * 8)(b, h, w, k, n, d, ldu, ldv)
+        p = wgrad_plan(b, h, w, [dict(K=k, N=n, d=d, ldu=ldu, u0=0,
+                                      ldv=ldv, v0=0)], 9 if d else 1)
+        want = [p["smem"], p["slots"], p["mt"], p["ty"], p["ns"],
+                p["n_tiles"], len(p["combos"]), p["nt"], p["vrows"],
+                p["blocks"]]
+        assert [lib.cam_wgrad_plan(cam.ctypes.addressof(prm), i)
+                for i in range(10)] == want
+
+
+def test_cam_backwards_count_their_weight_gradient_launches(cuda):
+    """Each backward launches wgrad_taps_kernel and wgrad_plain_kernel
+    once a call, and its library counts them (cam.wgrad_counts)."""
+    case = cam_case(1, 9, 13, 83, (1, 2, 3, 4), 20, seed=3, device=cuda)
+    calls = {name: (kernel, args)
+             for name, kernel, _, args in cam_calls(case)}
+    cam.wgrad_counts(reset=True)
+    for name in ("cam_f1_bwd", "cam_f2_bwd", "cam_f3_bwd"):
+        kernel, args = calls[name]
+        kernel(*args)
+        kernel(*args)
+    torch.cuda.synchronize()
+    assert cam.wgrad_counts(reset=True) == {
+        name: (2, 2) for name in ("cam_f1_bwd", "cam_f2_bwd", "cam_f3_bwd")}
+    assert cam.wgrad_counts() == {
+        name: (0, 0) for name in ("cam_f1_bwd", "cam_f2_bwd", "cam_f3_bwd")}
+
+
+def test_cam_wgrad_refuses(cuda):
+    u = torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        cam.cam_wgrad(u.float(), u, 1)
+    with pytest.raises(ValueError):         # taps of more than 40 columns
+        cam.cam_wgrad(u, torch.zeros((1, 4, 4, 41), dtype=torch.bfloat16,
+                                     device=cuda), 1)
+    with pytest.raises(ValueError):
+        cam.cam_wgrad(u, u[:, :3], 0)
 
 
 def _tta_cfg():
