@@ -85,17 +85,23 @@ Phases, each of which fails the run:
     lines; the forward at batch 1 and 8 for the canonical, the
     packed and the packed + chains forwards; the packed predictor's
     end-to-end rates and its ``torch.profiler`` view;
-17. the six fused-CAM kernels against their plain versions (float32
-    convs, TF32 off) at the train step's two CAM shapes, B=16, 113 x 113
-    x 163 (dilations 1-3) and x 83 (1-4), and a ragged (3, 29, 21, 83)
-    case with per-image gates of both signs (all six on the 8 x 8 tiles
-    of ``csrc/cam_tile.cuh``): forward statistics within 2^-8 of their largest
-    magnitude, every other output within the ``CAM_*`` limits (worst
-    element, mean, share off); bitwise equal on exact-sum inputs; then
-    the backwards' weight-gradient kernels alone (``cam.cam_wgrad``: dkh
-    at each dilation, dkr, dkt) against a float64 product of the same
-    bf16 operands at both train shapes, the ragged shape and C = 12 /
-    hc = 3, each element within ``WGRAD_TOL`` of its sum of |u v|,
+17. the six fused-CAM kernels against a float64 evaluation of their
+    plain versions (``rtpe_tpu_torch/tools/cam_check.py``) at the train
+    step's two CAM shapes, B=16, 113 x 113 x 163 (dilations 1-3) and x 83
+    (1-4), and a ragged (3, 29, 21, 83) case with per-image gates of both
+    signs (all six on the 8 x 8 tiles of ``csrc/cam_tile.cuh``): on
+    random inputs each output within the limits two float32 controls
+    (TF32 off and on) set, F2b's and F3b's also with each one's own
+    masks pinned (the kernels' read from their scratch) and by their
+    count of mask flips, and at the steps' shape every far element of
+    F2b and F3b shown downstream of a flipped mask, for the kernels and
+    both controls; on exact-sum inputs at those shapes and two small
+    ones every per-pixel output bitwise the float32 plain version's and
+    every pixel reduction within 2^-14 of its float64 sum of |terms|;
+    then the backwards' weight-gradient kernels alone (``cam.cam_wgrad``:
+    dkh at each dilation, dkr, dkt) against a float64 product of the
+    same bf16 operands at both train shapes, the ragged shape and C = 12
+    / hc = 3, each element within ``WGRAD_TOL`` of its sum of |u v|,
     repeating bitwise, bitwise on exact sums, and timed alone;
 18. the slice's main path: 5 train steps of
     ``make_distill_train_step`` at the reference configuration
@@ -291,24 +297,16 @@ CHAIN_TOL = 2.0 ** -5         # chain kernel vs plain, of max |plain|
 PACKED_BF16_TOL = 2.0 ** -4   # chains on vs off, of max |off|
 BRANCHES = [(80, 80, 96), (40, 40, 192), (20, 20, 384)]   # at 640 x 640
 SEED = 0
-CAM_STAT_TOL = 2.0 ** -8      # CAM kernels vs plain: forward statistics
-# CAM kernels vs plain, activations and gradients (the backward sums over
-# pixels included): a conv output whose
-# bf16 rounding lands on the other side of a tie can move a ReLU mask
-# (z within a rounding of 0), and the one cotangent behind it moves by
-# its own size; at B=16 a few such flips happen per call.  So: the worst
-# element within CAM_WORST of max |plain|, the mean within CAM_MEAN, and
-# at most CAM_SHARE of the elements off by more than CAM_TOL of it.
-CAM_TOL = 2.0 ** -5
-CAM_WORST = 2.0 ** -2
-CAM_MEAN = 2.0 ** -8
-CAM_SHARE = 1e-4
 # fused vs cuDNN CAMs, each step's losses from the same parameters
 # (measured worst 3.4e-5 on the H100; 30x that)
 TRAIN_LOSS_TOL = 1e-3
 # (B, H, W, C, dilations, hc) of the train step's CAMs at B=16, 450 x 450
 STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
 PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
+# a ragged CAM shape (H, W not multiples of the 8-pixel tile), and the
+# two small ones the exact-sum check has run at since PR 4
+RAGGED_CAM = (3, 29, 21, 83, (1, 2, 3, 4), 20)
+TOY_CAMS = ((2, 12, 20, 163, (1, 2, 3), 40), (3, 9, 14, 83, (1, 2, 3, 4), 20))
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
 # the kernels of the tiled ops (the forwards: the tile kernel and F1's and
 # F2's reductions; the backwards: phase 0, dx, the weight gradients'
@@ -1568,24 +1566,16 @@ def cam_calls(cam_mod, k):
     ]
 
 
-# the outputs of each CAM kernel that are forward batch statistics (held
-# to CAM_STAT_TOL); the rest are activations and gradients
-CAM_STATS = {"cam_f1_fwd": (0, 1, 2), "cam_f2_fwd": (0,)}
-
-
-def as_tuple(out):
-    return out if isinstance(out, tuple) else (out,)
-
-
 # The backwards' weight-gradient kernel alone (cam.cam_wgrad, csrc/
 # cam_core.cuh:wgrad_taps_kernel / wgrad_plain_kernel) against a float64
 # product of the same
 # bf16 operands: per element |kernel - f64| <= WGRAD_TOL sum_p |u v|
 # (float32 sums, 2^-24 each, of ~10^3 partials a block and ~10^2 partial
-# rows); no ReLU mask can flip here, so this bound is tight where the six
-# ops' CAM_WORST is not.
+# rows); no ReLU mask can flip here.  The six ops' own reductions are held
+# to the same fraction of their sums of |terms| on exact sums
+# (tools/cam_check.py:SUM_TOL).
 WGRAD_TOL = 2.0 ** -14
-WGRAD_SHAPES = (STEPS_CAM, PYRAMID_CAM, (3, 29, 21, 83, (1, 2, 3, 4), 20),
+WGRAD_SHAPES = (STEPS_CAM, PYRAMID_CAM, RAGGED_CAM,
                 (2, 21, 21, 12, (1, 2, 3), 3))
 
 
@@ -1719,70 +1709,161 @@ def phase_wgrad(cam_mod, dev) -> dict:
                        "copies, TF32 off (dkr, dkt)"}
 
 
-def phase_cam(cam_mod, set_tf32, dev) -> dict:
-    """The six CAM kernels against their plain versions (float32 convs,
-    TF32 off): both CAM shapes of the train step at B=16, and a ragged
-    (3, 29, 21, 83) case with per-image gates of both signs; bitwise on
-    exact-sum inputs; then :func:`phase_wgrad`.  Returns the max abs
-    error of each kernel's outputs at the steps' shape, the worst and
-    mean error (of max |plain|) and the share of elements off by more
-    than CAM_TOL of each, and the weight-gradient kernels' figures."""
+def cam_random(cc, cam_mod, shape, signed: bool, mechanism: bool, dev):
+    """The six CAM kernels on random inputs at ``shape`` against the
+    float64 evaluation of their plain versions, beside the controls (the
+    float32 plain version with TF32 off and on): the figures and limits
+    per output of ``cc`` (``tools/cam_check.py``), F2b's and F3b's with
+    the masks their kernels used, read from their scratch; with
+    ``mechanism``, F2b's and F3b's mask flips shown element by element
+    for the kernel and both controls (``tools/cam_check.py:mechanism``).
+    Returns (figures by op, mechanism by op and evaluation, max |kernel -
+    plain32| by op, faults)."""
+    k = cam_case(cam_mod, shape, SEED + sum(shape[:4]), dev,
+                 signed_gates=signed)
+    rows, mech, errs, faults = {}, {}, {}, []
+    for name, kernel, _, args in cam_calls(cam_mod, k):
+        got = cc.run_kernel(name, kernel, args)
+        ctl, ev64 = cc.evaluations(name, args)
+        torch.cuda.synchronize()
+        want = ctl[0][0]
+        check(len(got[0]) == len(want), f"{name} output count")
+        for i, (a, b) in enumerate(zip(got[0], want)):
+            check(a.is_cuda and a.dtype == b.dtype and a.shape == b.shape,
+                  f"{name}[{i}] output layout")
+        rows[name], bad = cc.random_check(name, args, got, ctl, ev64)
+        faults += [f"{f} at {shape}" for f in bad]
+        errs[name] = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(got[0], want))
+        if mechanism and name in cc.SCRATCH:
+            for ev, on in ((got, None), (ctl[0], False), (ctl[1], True)):
+                what = "kernel" if on is None else cc.CONTROLS[on]
+                fig, bad = cc.mechanism(name, args, ev, ev64, cc.aligned(
+                    name, args, ev, ev64, on))
+                mech.setdefault(name, {})[what] = fig
+                faults += [f"{f} ({what}) at {shape}" for f in bad]
+        del got, ctl, ev64, want
+    del k
+    torch.cuda.empty_cache()
+    return rows, mech, errs, faults
+
+
+def cam_exact(cc, cam_mod, shape, every_output_bitwise: bool, dev):
+    """The six CAM kernels on exact-sum inputs at ``shape``: per-pixel
+    outputs ``torch.equal`` to the float32 plain version's, reductions
+    within ``cc.SUM_TOL`` of their float64 sums of |terms|
+    (``tools/cam_check.py:exact_check``), F2b's and F3b's masks read from
+    their scratch equal to the plain version's; the plain versions with
+    cuDNN off.  Returns (worst |kernel - f64| / sum |terms| by op and
+    reduction, seconds of the float32 plain versions, seconds of the
+    float64 ones with their sums of |terms|, faults)."""
+    k = cam_case(cam_mod, shape, SEED + 7, dev, exact=True)
+    ratios, faults, s32, s64 = {}, [], 0.0, 0.0
+    for name, kernel, plain, args in cam_calls(cam_mod, k):
+        got, masks = cc.run_kernel(name, kernel, args)
+        with torch.backends.cudnn.flags(enabled=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, want_masks = cc.evaluate(name, args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            f64, terms = plain(*args, dtype=torch.float64, terms=True)
+            torch.cuda.synchronize()
+        s32 += t1 - t0
+        s64 += time.perf_counter() - t1
+        ratios[name], bad = cc.exact_check(
+            name, got, want, cc.as_tuple(f64), cc.as_tuple(terms),
+            every_output_bitwise)
+        if masks is not None and cc.n_differ(
+                cc.gated(name, args, masks),
+                cc.gated(name, args, want_masks)):
+            bad.append(f"{name}: the masks in the kernel's scratch differ "
+                       "from the plain version's on exact sums")
+        faults += [f"{f} at {shape}" for f in bad]
+        del got, want, f64, terms, masks, want_masks
+    del k
+    torch.cuda.empty_cache()
+    return ratios, s32, s64, faults
+
+
+def cam_figures(cc, res) -> dict:
+    """One op's figures from ``cc.random_check`` as lists: per output
+    [kernel, control TF32 off, control TF32 on, limit], each [worst,
+    mean, share] (and "own_masks" the same); "masks_differ" [kernel,
+    controls..., limit]."""
+    def four(r):
+        return [[f[q] for q in cc.FIGURES]
+                for f in (r["kernel"], *r["controls"], r["limit"])]
+
+    out = {o: four(r) for o, r in res["outputs"].items()}
+    for o, r in res["outputs"].items():
+        if "own_masks" in r:
+            out[o + " own_masks"] = four(r["own_masks"])
+    if "masks_differ" in res:
+        d = res["masks_differ"]
+        out["masks_differ"] = [d["kernel"], *d["controls"], d["limit"]]
+    return out
+
+
+def phase_cam(cam_mod, cc, set_tf32, dev) -> dict:
+    """The six CAM kernels held to the float64 evaluation of their plain
+    versions (``rtpe_tpu_torch/tools/cam_check.py``).  Random inputs at
+    both CAM shapes of the train step (B=16) and the ragged shape with
+    per-image gates of both signs: each output's worst and mean error
+    and share off by more than ``cc.OFF``, kernel - f64 within the
+    limits the controls (float32 plain - f64, TF32 off and on) give,
+    F2b's and F3b's also with each one's own masks pinned and by the
+    count of mask elements that differ from float64's; their mask flips
+    shown element by element at the steps' shape, for the kernels and
+    both controls.  Exact-sum inputs at those three
+    shapes and two small ones: per-pixel outputs bitwise the float32
+    plain version's, reductions within ``cc.SUM_TOL`` of their sums of
+    |terms| (every output bitwise at the small shapes).  Then
+    :func:`phase_wgrad`.  Returns the max abs error of each kernel's
+    outputs against its float32 plain version at the steps' shape, the
+    figures, the mechanism, the exact-sum ratios and times, and the
+    weight-gradient kernels' figures."""
     set_tf32(False)
-    cases = [(STEPS_CAM, False), (PYRAMID_CAM, False),
-             ((3, 29, 21, 83, (1, 2, 3, 4), 20), True)]
-    errs, worst, mean, share, bad = {}, {}, {}, {}, []
-    for shape, signed in cases:
-        k = cam_case(cam_mod, shape, SEED + sum(shape[:4]), dev,
-                     signed_gates=signed)
-        for name, kernel, plain, args in cam_calls(cam_mod, k):
-            got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
-            torch.cuda.synchronize()
-            check(len(got) == len(want), f"{name} output count")
-            for i, (a, b) in enumerate(zip(got, want)):
-                check(a.is_cuda and a.dtype == b.dtype
-                      and a.shape == b.shape, f"{name}[{i}] output layout")
-                check(bool(torch.isfinite(a.float()).all()),
-                      f"{name}[{i}] not finite at {shape}")
-                d = (a.float() - b.float()).abs()
-                scale = max(float(b.float().abs().max()), 1e-30)
-                rel, avg = float(d.max()) / scale, float(d.mean()) / scale
-                off = float((d > CAM_TOL * scale).float().mean())
-                what = f"{name}[{i}] at {shape}"
-                if i in CAM_STATS.get(name, ()):
-                    ok = rel <= CAM_STAT_TOL
-                else:
-                    ok = (rel <= CAM_WORST and avg <= CAM_MEAN
-                          and off <= CAM_SHARE)
-                if not ok:
-                    bad.append(f"{what}: worst {rel:.4g}, mean {avg:.4g} of "
-                               f"max |plain|, {off:.3g} of the elements off "
-                               f"by > {CAM_TOL}")
-                worst[name] = max(worst.get(name, 0.0), rel)
-                mean[name] = max(mean.get(name, 0.0), avg)
-                share[name] = max(share.get(name, 0.0), off)
-                if shape == STEPS_CAM:
-                    errs[name] = max(errs.get(name, 0.0), float(d.max()))
-        del k, got, want
-        torch.cuda.empty_cache()
-    check(not bad, "CAM kernels differ from plain beyond the limits "
-          f"(statistics {CAM_STAT_TOL}; else worst {CAM_WORST}, mean "
-          f"{CAM_MEAN}, share {CAM_SHARE}): {bad}")
-    for shape in ((2, 12, 20, 163, (1, 2, 3), 40),
-                  (3, 9, 14, 83, (1, 2, 3, 4), 20)):
-        k = cam_case(cam_mod, shape, SEED + 7, dev, exact=True)
-        for name, kernel, plain, args in cam_calls(cam_mod, k):
-            got = as_tuple(kernel(*args))
-            with torch.backends.cudnn.flags(enabled=False):
-                want = as_tuple(plain(*args))
-            torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(got, want)):
-                check(torch.equal(a, b), f"{name}[{i}] at {shape} differs "
-                      "from plain on exact sums")
-    print(f"cam kernels vs plain at {[c[0][:4] for c in cases]}: worst "
-          f"(of max |plain|) {worst}, mean {mean}, share off by > {CAM_TOL} "
-          f"{share}; bitwise equal on exact sums", flush=True)
-    return {"max_abs_err": errs, "worst_rel": worst, "mean_rel": mean,
-            "share_off": share, "wgrad": phase_wgrad(cam_mod, dev)}
+    t0 = time.perf_counter()
+    figs, mech, faults = {}, {}, []
+    for shape, signed in ((STEPS_CAM, False), (PYRAMID_CAM, False),
+                          (RAGGED_CAM, True)):
+        key = "x".join(map(str, shape[:4]))
+        figs[key], m, e, bad = cam_random(cc, cam_mod, shape, signed,
+                                          shape == STEPS_CAM, dev)
+        faults += bad
+        if shape == STEPS_CAM:
+            errs, mech = e, m
+    t1 = time.perf_counter()
+    exact, exact_s = {}, {}
+    for shape in (STEPS_CAM, PYRAMID_CAM, RAGGED_CAM) + TOY_CAMS:
+        key = "x".join(map(str, shape[:4]))
+        exact[key], s32, s64, bad = cam_exact(cc, cam_mod, shape,
+                                              shape in TOY_CAMS, dev)
+        exact_s[key] = {"plain32_s": s32, "f64_and_terms_s": s64}
+        faults += bad
+    t2 = time.perf_counter()
+    print("cam kernels vs float64, per output [worst, mean, share off by > "
+          f"{cc.OFF}] of max |f64|: kernel, control float32 TF32 off, "
+          "control float32 TF32 on, limit (F2b, F3b: the caps; then the "
+          "same with each one's own masks pinned into float64, and the "
+          "mask elements that differ from float64's): " + json.dumps(
+              {key: {name: cam_figures(cc, res)
+                     for name, res in by_op.items()}
+               for key, by_op in figs.items()}), flush=True)
+    print(f"cam mask flips at {STEPS_CAM[:4]} (kernel, float32 controls vs "
+          "float64): "
+          f"{json.dumps(mech)}", flush=True)
+    print(f"cam kernels on exact sums (per-pixel outputs bitwise; "
+          f"reductions' worst |kernel - f64| / sum |terms|, limit "
+          f"{cc.SUM_TOL}): {json.dumps(exact)}; plain versions with "
+          f"cuDNN off, s: {json.dumps(exact_s)}; random {t1 - t0:.1f} s, "
+          f"exact {t2 - t1:.1f} s", flush=True)
+    check(not faults, f"CAM kernels fail the float64 check: {faults}")
+    return {"max_abs_err": errs, "vs_f64": figs, "mechanism": mech,
+            "exact_ratio": exact, "exact_s": exact_s,
+            "seconds": {"random": t1 - t0, "exact": t2 - t1},
+            "wgrad": phase_wgrad(cam_mod, dev)}
 
 
 def train_batch(dev) -> dict:
@@ -4812,6 +4893,7 @@ def main() -> None:
         from rtpe_tpu_torch.ops import _build
         from rtpe_tpu_torch.ops import blocks as blk_mod
         from rtpe_tpu_torch.ops import cam as cam_mod
+        from rtpe_tpu_torch.tools import cam_check
         from rtpe_tpu_torch.ops import group as mega_mod
         from rtpe_tpu_torch.ops import group_lockstep as grp_mod
         from rtpe_tpu_torch.ops import lap as lap_mod
@@ -4878,7 +4960,7 @@ def main() -> None:
     pred_p, packed_launches, by_shape, served = phase_packed_path(
         PosePredictor, hrnet, packed_mod, state, counters, dev)
     kernels += chain_rows(blk_mod, by_shape, chain_errs, build["ptxas"], dev)
-    cam_errs = phase_cam(cam_mod, set_tf32, dev)
+    cam_errs = phase_cam(cam_mod, cam_check, set_tf32, dev)
     train = phase_train((factory_mod, students_mod), train_mod, cam_mod,
                         state, dev)
     kernels += cam_kernel_rows(cam_mod, students_mod, cam_errs["max_abs_err"],

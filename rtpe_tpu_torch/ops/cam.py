@@ -74,10 +74,47 @@ _WORKSPACE = {"cam_f1": ("cam_f1_workspace", "cam_f1b_workspace"),
 
 
 # ------------------------------------------------------------ plain versions
+#
+# The plain versions evaluate in float32 on every path of the port.  For
+# the card check (``tools/cam_check.py``) they also evaluate in float64,
+# with the same bf16 rounding points, and give each output element's sum
+# of |terms|: the same evaluation on absolute inputs (a BN row's mean as
+# -|mean|, so c - mean sums |c| + |mean|), with no rounding and every
+# ReLU mask taken from the signed evaluation.
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
-    """Round a float32 tensor to bf16 and back."""
-    return t.to(torch.bfloat16).float()
+    """Round to bf16 and back to t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _Eval:
+    """How a plain version evaluates: in ``dtype``; each ReLU mask by the
+    name of its pre-activation ("z0".."z5" the branches', "zr", "zt",
+    "pre") taken from ``masks`` where it is there, else made (z > 0) and
+    kept there; with ``absolute`` the sums of |terms| (no bf16 rounding,
+    every mask given)."""
+
+    def __init__(self, dtype=torch.float32, masks=None, absolute=False):
+        self.dtype = dtype
+        self.masks = {} if masks is None else dict(masks)
+        self.absolute = absolute
+
+    def bf(self, t):
+        return t if self.absolute else _bf(t)
+
+    def mask(self, key, z):
+        if key not in self.masks:
+            if self.absolute:
+                raise KeyError(f"the sums of |terms| need the mask of {key}")
+            self.masks[key] = z > 0.0
+        return self.masks[key]
+
+    def relu(self, key, z):
+        return torch.where(self.mask(key, z), z, torch.zeros_like(z))
+
+    def out(self, t, dtype):
+        """A per-pixel output, in the kernel's dtype (not the sums)."""
+        return t if self.absolute else t.to(dtype)
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -89,16 +126,16 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(x32, k, d):
-    """Dilated 3x3 conv, zero "same" padding: (B,H,W,C) f32, (3,3,C,hc)
-    -> (B,H,W,hc) f32."""
-    w = k.float().permute(3, 2, 0, 1)
+    """Dilated 3x3 conv, zero "same" padding: (B,H,W,C), (3,3,C,hc)
+    -> (B,H,W,hc) in x32's dtype."""
+    w = k.to(x32.dtype).permute(3, 2, 0, 1)
     return _nhwc(F.conv2d(_nchw(x32), w, padding=d, dilation=d))
 
 
 def _conv_t(dc32, k, d):
     """Its input-transpose: (B,H,W,hc) -> (B,H,W,C), the sum over taps of
     dc shifted by minus the tap offset times the tap's kernel^T."""
-    w = k.float().permute(3, 2, 0, 1)
+    w = k.to(dc32.dtype).permute(3, 2, 0, 1)
     return _nhwc(F.conv_transpose2d(_nchw(dc32), w, padding=d, dilation=d))
 
 
@@ -118,153 +155,231 @@ def _bn_rows(bn, i, width):
     return tuple(bn[4 * i + k].reshape(1, 1, 1, width) for k in range(4))
 
 
-def _bn_fwd(c, mean, inv, scale, bias):
-    z = (c - mean) * inv * scale + bias
-    return torch.relu(z), z
+def _bn(c, mean, inv, scale, bias):
+    return (c - mean) * inv * scale + bias
 
 
 def _sums(t):
     return torch.stack([t.sum((0, 1, 2)), (t * t).sum((0, 1, 2))])
 
 
-def _branches(x32, kh, bnh, dils):
-    """Recompute every branch: bf16(c_i), z_i, and t (the top conv's
-    float32 input rows, pre-rounding, once kt is applied)."""
+def _branches(ev, x32, kh, bnh, dils):
+    """Recompute every branch: bf16(c_i) and its pre-activation z_i."""
     hc = kh.shape[-1]
     cs, zs = [], []
     for i, d in enumerate(dils):
-        c = _bf(_conv(x32, kh[i], d))
-        _, z = _bn_fwd(c, *_bn_rows(bnh, i, hc))
+        c = ev.bf(_conv(x32, kh[i], d))
         cs.append(c)
-        zs.append(z)
+        zs.append(_bn(c, *_bn_rows(bnh, i, hc)))
     return cs, zs
 
 
-def _top(zs, kt):
+def _top(ev, zs, kt):
+    """The top conv's float32 rows, pre-rounding, over bf16(relu(z_i))."""
     t = None
     for i, z in enumerate(zs):
-        p = _bf(torch.relu(z)) @ kt[i].float()
+        p = ev.bf(ev.relu(f"z{i}", z)) @ kt[i].to(z.dtype)
         t = p if t is None else t + p
     return t
 
 
-def cam_f1_fwd_plain(x, kr, kh, dils) -> Tuple[torch.Tensor, ...]:
-    """F1: s_r (2, C), s_h (2 nb, hc) and per-image sums of x (B, C)."""
-    cam_f1_fwd_plain.calls += 1
-    x32 = x.float()
-    s_r = _sums(_bf(x32 @ kr.float()))
-    s_h = torch.cat([_sums(_bf(_conv(x32, kh[i], d)))
+def _f1(ev, x, kr, kh, dils):
+    x32 = x.to(ev.dtype)
+    s_r = _sums(ev.bf(x32 @ kr.to(ev.dtype)))
+    s_h = torch.cat([_sums(ev.bf(_conv(x32, kh[i], d)))
                      for i, d in enumerate(dils)])
     return s_r, s_h, x32.sum((1, 2))
 
 
-def cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils):
-    """F1b: dx (x.dtype), dkr (C, C), dkh (nb, 3, 3, C, hc) float32;
-    ``dgap`` is the cotangent of the mean gap (the 1/(H W) is applied
-    here, as the kernel does)."""
-    cam_f1_bwd_plain.calls += 1
-    x32 = x.float()
+def _f1b(ev, x, kr, kh, dsr, dsh, dgap, dils):
+    x32 = x.to(ev.dtype)
     h, w = x.shape[1:3]
     dcs, dkh = [], []
     for i, d in enumerate(dils):
-        c = _bf(_conv(x32, kh[i], d))
-        dc = _bf(dsh[2 * i] + 2.0 * c * dsh[2 * i + 1])
+        c = ev.bf(_conv(x32, kh[i], d))
+        dc = ev.bf(dsh[2 * i] + 2.0 * c * dsh[2 * i + 1])
         dcs.append(dc)
         dkh.append(_wgrad(x32, dc, d))
-    rc = _bf(x32 @ kr.float())
-    dr = _bf(dsr[0] + 2.0 * rc * dsr[1])
+    krf = kr.to(ev.dtype)
+    rc = ev.bf(x32 @ krf)
+    dr = ev.bf(dsr[0] + 2.0 * rc * dsr[1])
     dkr = torch.einsum("bhwc,bhwn->cn", x32, dr)
-    dx = dr @ kr.float().t()
+    dx = dr @ krf.t()
     for i, d in enumerate(dils):
         dx = dx + _conv_t(dcs[i], kh[i], d)
     dx = dx + dgap[:, None, None, :] * (1.0 / (h * w))
-    return dx.to(x.dtype), dkr, torch.stack(dkh)
+    return ev.out(dx, x.dtype), dkr, torch.stack(dkh)
 
 
-def cam_f2_fwd_plain(x, kh, kt, bnh, dils) -> torch.Tensor:
-    """F2: s_t (2, C) of t = bf16(top conv of the normalised branches)."""
-    cam_f2_fwd_plain.calls += 1
-    _, zs = _branches(x.float(), kh, bnh, dils)
-    return _sums(_bf(_top(zs, kt)))
+def _f2(ev, x, kh, kt, bnh, dils):
+    _, zs = _branches(ev, x.to(ev.dtype), kh, bnh, dils)
+    return _sums(ev.bf(_top(ev, zs, kt)))
 
 
-def _branch_backward(x32, kh, kt, bnh, dils, cs, zs, dt_bf):
+def _branch_backward(ev, x32, kh, kt, bnh, dils, cs, zs, dt_bf):
     """dkt, dS, dkh and the transposed-conv dx of the branches, given
     bf16(dt)."""
     hc = kh.shape[-1]
     dkt, ds, dkh, dx = [], [], [], None
     for i, d in enumerate(dils):
-        a = torch.relu(zs[i])
-        dkt.append(torch.einsum("bhwj,bhwc->jc", _bf(a), dt_bf))
-        da = dt_bf @ kt[i].float().t()
-        dz = torch.where(zs[i] > 0.0, da, torch.zeros_like(da))
+        m = ev.mask(f"z{i}", zs[i])
+        a = torch.where(m, zs[i], torch.zeros_like(zs[i]))
+        dkt.append(torch.einsum("bhwj,bhwc->jc", ev.bf(a), dt_bf))
+        da = dt_bf @ kt[i].to(ev.dtype).t()
+        dz = torch.where(m, da, torch.zeros_like(da))
         mean, inv, scale, _ = _bn_rows(bnh, i, hc)
         ds += [dz.sum((0, 1, 2)), (dz * (cs[i] - mean)).sum((0, 1, 2))]
-        dc = _bf(dz * (scale * inv))
+        dc = ev.bf(dz * (scale * inv))
         dkh.append(_wgrad(x32, dc, d))
         p = _conv_t(dc, kh[i], d)
         dx = p if dx is None else dx + p
     return torch.stack(dkt), torch.stack(ds), torch.stack(dkh), dx
 
 
-def cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils):
-    """F2b: dx (x.dtype), dkh, dkt (nb, hc, C), dS (2 nb, hc) float32."""
-    cam_f2_bwd_plain.calls += 1
-    x32 = x.float()
-    cs, zs = _branches(x32, kh, bnh, dils)
-    t = _bf(_top(zs, kt))
-    dt_bf = _bf(dst[0] + 2.0 * t * dst[1])
-    dkt, ds, dkh, dx = _branch_backward(x32, kh, kt, bnh, dils, cs, zs,
+def _f2b(ev, x, kh, kt, bnh, dst, dils):
+    x32 = x.to(ev.dtype)
+    cs, zs = _branches(ev, x32, kh, bnh, dils)
+    t = ev.bf(_top(ev, zs, kt))
+    dt_bf = ev.bf(dst[0] + 2.0 * t * dst[1])
+    dkt, ds, dkh, dx = _branch_backward(ev, x32, kh, kt, bnh, dils, cs, zs,
                                         dt_bf)
-    return dx.to(x.dtype), dkh, dkt, ds
+    return ev.out(dx, x.dtype), dkh, dkt, ds
 
 
-def _f3_recompute(x32, kr, kh, kt, bnr, bnh, bnt, dils):
+def _f3_recompute(ev, x32, kr, kh, kt, bnr, bnh, bnt, dils):
     c = x32.shape[-1]
-    rc = _bf(x32 @ kr.float())
-    res, zr = _bn_fwd(rc, *_bn_rows(bnr, 0, c))
-    cs, zs = _branches(x32, kh, bnh, dils)
-    t_bf = _bf(_top(zs, kt))
-    y, zt = _bn_fwd(t_bf, *_bn_rows(bnt, 0, c))
-    return rc, res, zr, cs, zs, t_bf, y, zt
+    rc = ev.bf(x32 @ kr.to(ev.dtype))
+    zr = _bn(rc, *_bn_rows(bnr, 0, c))
+    cs, zs = _branches(ev, x32, kh, bnh, dils)
+    t_bf = ev.bf(_top(ev, zs, kt))
+    zt = _bn(t_bf, *_bn_rows(bnt, 0, c))
+    return rc, ev.relu("zr", zr), zr, cs, zs, t_bf, ev.relu("zt", zt), zt
 
 
-def cam_f3_fwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
-    """F3: the CAM output relu(res + y * gate), (B, H, W, C) in x.dtype."""
-    cam_f3_fwd_plain.calls += 1
-    _, res, _, _, _, _, y, _ = _f3_recompute(x.float(), kr, kh, kt, bnr,
-                                             bnh, bnt, dils)
-    return torch.relu(res + y * gate[:, None, None, :]).to(x.dtype)
+def _f3(ev, x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
+    _, res, _, _, _, _, y, _ = _f3_recompute(ev, x.to(ev.dtype), kr, kh, kt,
+                                             bnr, bnh, bnt, dils)
+    return ev.out(ev.relu("pre", res + y * gate[:, None, None, :]), x.dtype)
 
 
-def cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
-    """F3b: dx (x.dtype), dkr, dkh, dkt, dSr (2, C), dSh (2 nb, hc),
-    dSt (2, C), dgate (B, C) float32.  Image b's gate throughout."""
-    cam_f3_bwd_plain.calls += 1
-    x32 = x.float()
+def _f3b(ev, x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
+    x32 = x.to(ev.dtype)
     c = x.shape[-1]
     rc, res, zr, cs, zs, t_bf, y, zt = _f3_recompute(
-        x32, kr, kh, kt, bnr, bnh, bnt, dils)
+        ev, x32, kr, kh, kt, bnr, bnh, bnt, dils)
     gt = gate[:, None, None, :]
     pre = res + y * gt
     zero = torch.zeros_like(pre)
-    d_o = torch.where(pre > 0.0, g.float(), zero)
+    d_o = torch.where(ev.mask("pre", pre), g.to(ev.dtype), zero)
     dgate = (d_o * y).sum((1, 2))
     mean_r, inv_r, scale_r, _ = _bn_rows(bnr, 0, c)
-    dzr = torch.where(zr > 0.0, d_o, zero)
+    dzr = torch.where(ev.mask("zr", zr), d_o, zero)
     dsr = torch.stack([dzr.sum((0, 1, 2)),
                        (dzr * (rc - mean_r)).sum((0, 1, 2))])
-    drc = _bf(dzr * (scale_r * inv_r))
+    drc = ev.bf(dzr * (scale_r * inv_r))
+    krf = kr.to(ev.dtype)
     dkr = torch.einsum("bhwc,bhwn->cn", x32, drc)
     mean_t, inv_t, scale_t, _ = _bn_rows(bnt, 0, c)
-    dzt = torch.where(zt > 0.0, d_o * gt, zero)
+    dzt = torch.where(ev.mask("zt", zt), d_o * gt, zero)
     dst = torch.stack([dzt.sum((0, 1, 2)),
                        (dzt * (t_bf - mean_t)).sum((0, 1, 2))])
-    dt_bf = _bf(dzt * (scale_t * inv_t))
-    dkt, dsh, dkh, dx_h = _branch_backward(x32, kh, kt, bnh, dils, cs, zs,
-                                           dt_bf)
-    dx = drc @ kr.float().t() + dx_h
-    return dx.to(x.dtype), dkr, dkh, dkt, dsr, dsh, dst, dgate
+    dt_bf = ev.bf(dzt * (scale_t * inv_t))
+    dkt, dsh, dkh, dx_h = _branch_backward(ev, x32, kh, kt, bnh, dils, cs,
+                                           zs, dt_bf)
+    dx = drc @ krf.t() + dx_h
+    return ev.out(dx, x.dtype), dkr, dkh, dkt, dsr, dsh, dst, dgate
+
+
+# each op's body and the positions of its BN row stacks among its
+# arguments
+_BODIES = {"cam_f1_fwd": (_f1, ()), "cam_f1_bwd": (_f1b, ()),
+           "cam_f2_fwd": (_f2, (3,)), "cam_f2_bwd": (_f2b, (3,)),
+           "cam_f3_fwd": (_f3, (4, 5, 6)), "cam_f3_bwd": (_f3b, (4, 5, 6))}
+
+
+def _absolute(args, bn):
+    """``args`` (tensors, then dils) made absolute for the sums of
+    |terms|: every tensor |t|, a BN stack's mean rows -|mean|."""
+    out = []
+    for i, a in enumerate(args[:-1]):
+        a = a.abs()
+        if i in bn:
+            a = a.clone()
+            a[0::4] = -a[0::4]
+        out.append(a)
+    return (*out, args[-1])
+
+
+def _evaluate(name, args, dtype=torch.float32, masks=None, absolute=False):
+    """Plain version ``name`` on ``args`` (its arguments, dils last) in
+    ``dtype``, with the ReLU masks in ``masks`` pinned (name -> bool
+    tensor) and, with ``absolute``, as the sums of |terms| of the
+    evaluation that made ``masks``.  Returns (outputs, masks used)."""
+    body, bn = _BODIES[name]
+    ev = _Eval(dtype, masks, absolute)
+    if absolute:
+        args = _absolute(args, bn)
+    return body(ev, *args), ev.masks
+
+
+def _plain(name, args, dtype, terms):
+    out, masks = _evaluate(name, args, dtype)
+    if not terms:
+        return out
+    return out, _evaluate(name, args, dtype, masks, absolute=True)[0]
+
+
+def cam_f1_fwd_plain(x, kr, kh, dils, dtype=torch.float32, terms=False):
+    """F1: s_r (2, C), s_h (2 nb, hc) and per-image sums of x (B, C), in
+    ``dtype``; with ``terms`` also each element's sum of |terms| (as
+    (outputs, sums))."""
+    cam_f1_fwd_plain.calls += 1
+    return _plain("cam_f1_fwd", (x, kr, kh, dils), dtype, terms)
+
+
+def cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils, dtype=torch.float32,
+                     terms=False):
+    """F1b: dx (x.dtype), dkr (C, C), dkh (nb, 3, 3, C, hc) in ``dtype``;
+    ``dgap`` is the cotangent of the mean gap (the 1/(H W) is applied
+    here, as the kernel does).  ``terms`` as :func:`cam_f1_fwd_plain`."""
+    cam_f1_bwd_plain.calls += 1
+    return _plain("cam_f1_bwd", (x, kr, kh, dsr, dsh, dgap, dils), dtype,
+                  terms)
+
+
+def cam_f2_fwd_plain(x, kh, kt, bnh, dils, dtype=torch.float32,
+                     terms=False) -> torch.Tensor:
+    """F2: s_t (2, C) of t = bf16(top conv of the normalised branches).
+    ``dtype``, ``terms`` as :func:`cam_f1_fwd_plain`."""
+    cam_f2_fwd_plain.calls += 1
+    return _plain("cam_f2_fwd", (x, kh, kt, bnh, dils), dtype, terms)
+
+
+def cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils, dtype=torch.float32,
+                     terms=False):
+    """F2b: dx (x.dtype), dkh, dkt (nb, hc, C), dS (2 nb, hc) in
+    ``dtype``.  ``terms`` as :func:`cam_f1_fwd_plain`."""
+    cam_f2_bwd_plain.calls += 1
+    return _plain("cam_f2_bwd", (x, kh, kt, bnh, dst, dils), dtype, terms)
+
+
+def cam_f3_fwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, dils,
+                     dtype=torch.float32, terms=False):
+    """F3: the CAM output relu(res + y * gate), (B, H, W, C) in x.dtype.
+    ``dtype``, ``terms`` as :func:`cam_f1_fwd_plain`."""
+    cam_f3_fwd_plain.calls += 1
+    return _plain("cam_f3_fwd", (x, kr, kh, kt, bnr, bnh, bnt, gate, dils),
+                  dtype, terms)
+
+
+def cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils,
+                     dtype=torch.float32, terms=False):
+    """F3b: dx (x.dtype), dkr, dkh, dkt, dSr (2, C), dSh (2 nb, hc),
+    dSt (2, C), dgate (B, C) in ``dtype``.  Image b's gate throughout.
+    ``terms`` as :func:`cam_f1_fwd_plain`."""
+    cam_f3_bwd_plain.calls += 1
+    return _plain("cam_f3_bwd",
+                  (x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils), dtype, terms)
 
 
 for _fn in (cam_f1_fwd_plain, cam_f1_bwd_plain, cam_f2_fwd_plain,
@@ -597,12 +712,8 @@ def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
     return dx, dkr, dkh
 
 
-def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
-    """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
-    for a geometry whose halo does not fit (:func:`tile_plan`)."""
-    if not _dispatch(x, "cam_f2_bwd"):
-        return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
+def _f2b_launch(x, kh, kt, bnh, dst, dils):
+    """F2b's tile kernels on the card: ((dx, dkh, dkt, dS), workspace)."""
     x, kh, kt, bnh, dst = _check(x, None, kh, kt, dils, (bnh, dst))
     lib, geo, ws, w0, w1, xpad = _tile_call("f2b", "cam_f2_bwd", x, None, kh,
                                             kt, dils)
@@ -614,22 +725,26 @@ def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
         ctypes.addressof(geo),
         *_ptrs(xpad, w0, w1, bnh, dst, ws, dx, dkh, dkt, ds), _stream(x))
     _build.check(err, "cam_f2_bwd")
+    return (dx, dkh, dkt, ds), ws
+
+
+def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
+    """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
+    the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
+    for a geometry whose halo does not fit (:func:`tile_plan`)."""
+    if not _dispatch(x, "cam_f2_bwd"):
+        return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
+    out, _ = _f2b_launch(x, kh, kt, bnh, dst, dils)
     cam_f2_bwd.launches += 1
     if _observe.active:
-        _observe.launched("cam_f2_bwd", (x, kh, kt, bnh, dst, dils),
-                          (dx, dkh, dkt, ds), cam_f2_bwd_plain)
-    return dx, dkh, dkt, ds
+        _observe.launched("cam_f2_bwd", (x, kh, kt, bnh, dst, dils), out,
+                          cam_f2_bwd_plain)
+    return out
 
 
-def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
-    """F3b (replaces ``pallas_cam.py:_f3b_call``): (dx, dkr, dkh, dkt,
-    dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
-    the tile kernels of ``csrc/cam_tile.cuh``; they take the geometries
-    whose halo and weight stages fit a block's shared memory
-    (:func:`tile_plan`; the train step's C = 163 with dilations 1-3 and
-    C = 83 with 1-4 do) and raise ``ValueError`` on the others."""
-    if not _dispatch(x, "cam_f3_bwd"):
-        return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
+def _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
+    """F3b's tile kernels on the card: ((dx, dkr, dkh, dkt, dSr, dSh, dSt,
+    dgate), workspace)."""
     x, kr, kh, kt, g, bnr, bnh, bnt, gate = _check(
         x, kr, kh, kt, dils, (bnr, bnh, bnt, gate), bf16_args=(g,))
     if g.shape != x.shape:
@@ -650,13 +765,55 @@ def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
         *_ptrs(xpad, w0, w1, bnr, bnh, bnt, gate, g, ws, dx, dkr, dkh, dkt,
                dsr, dsh, dst, dgate), _stream(x))
     _build.check(err, "cam_f3_bwd")
+    return (dx, dkr, dkh, dkt, dsr, dsh, dst, dgate), ws
+
+
+def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
+    """F3b (replaces ``pallas_cam.py:_f3b_call``): (dx, dkr, dkh, dkt,
+    dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
+    the tile kernels of ``csrc/cam_tile.cuh``; they take the geometries
+    whose halo and weight stages fit a block's shared memory
+    (:func:`tile_plan`; the train step's C = 163 with dilations 1-3 and
+    C = 83 with 1-4 do) and raise ``ValueError`` on the others."""
+    if not _dispatch(x, "cam_f3_bwd"):
+        return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
+    out, _ = _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
     cam_f3_bwd.launches += 1
-    out = (dx, dkr, dkh, dkt, dsr, dsh, dst, dgate)
     if _observe.active:
         _observe.launched("cam_f3_bwd",
                           (x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils), out,
                           cam_f3_bwd_plain)
     return out
+
+
+# The per-pixel bf16 scratch that F2b's and F3b's phase 0 leaves in the
+# workspace for phase 1 and the weight gradients, in carve order
+# (csrc/cam_f2.cu:carve_f2b, csrc/cam_f3.cu:carve_f3b; each region
+# 256-byte aligned), as (name, tile_plan key of its pitch): a =
+# bf16(relu(z_i)) in column i hc + j, dt = bf16(dzt scale inv), dr =
+# bf16(dzr scale inv), dc of branch i in columns i khc + j.
+_SCRATCH = {"cam_f2_bwd": (_f2b_launch, (("a", "knh"), ("dt", "kc"),
+                                         ("dc", "ldc"))),
+            "cam_f3_bwd": (_f3b_launch, (("dr", "kc"), ("a", "knh"),
+                                         ("dt", "kc"), ("dc", "ldc")))}
+
+
+def _scratch(name, args):
+    """Op ``name`` (F2b or F3b) on the card, launched as its wrapper
+    launches it (uncounted): (outputs, {scratch name: (B, H, W, pitch)
+    bf16 view of the workspace})."""
+    launch, regions = _SCRATCH[name]
+    out, ws = launch(*args)
+    x, kh, dils = args[0], args[2 if name == "cam_f3_bwd" else 1], args[-1]
+    b, h, w, c = x.shape
+    p = tile_plan(name[4:6] + "b", b, h, w, c, dils, kh.shape[4])
+    views, off = {}, 0
+    for key, pitch in regions:
+        n = b * h * w * p[pitch]
+        views[key] = ws[off:off + 2 * n].view(torch.bfloat16).view(
+            b, h, w, p[pitch])
+        off += _up(2 * n, 256)
+    return out, views
 
 
 # ------------------------------------------------------------ weight grads
