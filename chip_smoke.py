@@ -98,11 +98,16 @@ Phases, each of which fails the run:
     both controls; on exact-sum inputs at those shapes and two small
     ones every per-pixel output bitwise the float32 plain version's and
     every pixel reduction within 2^-14 of its float64 sum of |terms|;
+    the same two checks at the width grid (``WIDE_CAMS``: the student's
+    CAMs at ``--inplanes`` 96, 128 and 256 and six dilations up to 6 and
+    8 at C = 163, B = 2, 21 x 19, on the kernels' wide plan: K-chunked
+    halos and stages, branches in slices of at most 40 columns);
     then the backwards' weight-gradient kernels alone (``cam.cam_wgrad``:
     dkh at each dilation, dkr, dkt) against a float64 product of the
     same bf16 operands at both train shapes, the ragged shape and C = 12
     / hc = 3, each element within ``WGRAD_TOL`` of its sum of |u v|,
-    repeating bitwise, bitwise on exact sums, and timed alone;
+    repeating bitwise, bitwise on exact sums, and timed alone, also at
+    the step CAMs of ``--inplanes`` 128 and 256 (dkh at hc = 64 and 128);
 18. the slice's main path: 5 train steps of
     ``make_distill_train_step`` at the reference configuration
     (``AttentionStudentSteps(inplanes=80, fused_cam=True)``, bf16, B=16,
@@ -113,9 +118,12 @@ Phases, each of which fails the run:
     running statistic moved; then 5 steps with the CAMs on cuDNN, each
     from the fused run's parameters of that step: each step's losses
     within 1e-3 of each other; step times, peak memory and a
-    ``torch.profiler`` view of one fused step;
+    ``torch.profiler`` view of one fused step; then the same fused and
+    cuDNN pair at ``--inplanes 128`` (its step CAMs, C = 259, hc = 64,
+    on the wide plan): launches, losses within 1e-3, ms, img/s, peak GB;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
-    CAM's train-mode forward (or forward + backward) at both shapes, and
+    CAM's train-mode forward (or forward + backward) at both shapes and
+    at ``--inplanes 128``'s step CAM (``at_step128``), and
     the per-launch breakdown under ``torch.profiler`` of F1, F2 and F3
     (the tile kernel, F1's and F2's reductions, the wrapper's padding and
     weight re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
@@ -307,6 +315,23 @@ PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
 # two small ones the exact-sum check has run at since PR 4
 RAGGED_CAM = (3, 29, 21, 83, (1, 2, 3, 4), 20)
 TOY_CAMS = ((2, 12, 20, 163, (1, 2, 3), 40), (3, 9, 14, 83, (1, 2, 3, 4), 20))
+# the width grid: the student's CAMs at --inplanes 96, 128 and 256 (step:
+# C = 2 inplanes + 3 with dilations 1-3; pyramid: C = inplanes + 3 with
+# 1-4; hc = C // 4) and six dilations up to 6 and 8 at C = 163, checked at
+# B = 2, 21 x 19 (the tile plan depends on C, hc and the dilations only)
+WIDE_CAMS = tuple((2, 21, 19) + s for s in (
+    (195, (1, 2, 3), 48), (259, (1, 2, 3), 64), (515, (1, 2, 3), 128),
+    (99, (1, 2, 3, 4), 24), (131, (1, 2, 3, 4), 32), (259, (1, 2, 3, 4), 64),
+    (163, (1, 2, 3, 4, 5, 6), 40), (163, (1, 2, 3, 4, 5, 8), 40)))
+# the train step's step CAM at --inplanes 128 and 256 (B=16, 450 x 450)
+WIDE_INPLANES = 128
+# the trainer CLI at --inplanes 128, --fused_cam against --no_fused_cam
+# after 2 steps from one seeded student: the whole update of the trainable
+# parameters within this of each other (relative L2; the two CAM paths
+# round at different points, the cuDNN one its BN outputs to bf16)
+WIDE_UPDATE_TOL = 0.05
+STEP128_CAM = (16, 113, 113, 259, (1, 2, 3), 64)
+STEP256_CAM = (16, 113, 113, 515, (1, 2, 3), 128)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
 # the kernels of the tiled ops (the forwards: the tile kernel and F1's and
 # F2's reductions; the backwards: phase 0, dx, the weight gradients'
@@ -1699,6 +1724,29 @@ def phase_wgrad(cam_mod, dev) -> dict:
                               wgrad_f64(cam_mod, u, v, d)[0].float()),
                   f"cam_wgrad {name} at {shape} differs from the float64 "
                   "product on exact sums")
+    # the wide students' step CAMs (--inplanes 128: dkh in 2 N slices of
+    # 32, dkr, dkt; 256: dkh in 4 of 32), timed, and dkh at the widest
+    # dilation at 128 against float64
+    for shape in (STEP128_CAM, STEP256_CAM):
+        key = "x".join(map(str, shape[:4])) + f"_hc{shape[5]}"
+        ops = wgrad_operands(shape, SEED + 22, dev)
+        for name, u, v, d in wgrad_calls(shape, ops):
+            if shape == STEP256_CAM and not d:
+                continue
+            ms.setdefault(key, {})[name] = device_ms(
+                lambda: cam_mod.cam_wgrad(u, v, d), 5)
+            lib_ms.setdefault(key, {})[name] = wgrad_library_ms(u, v, d)
+            if shape == STEP128_CAM and d == max(shape[4]):
+                ref, den = wgrad_f64(cam_mod, u, v, d)
+                err = (cam_mod.cam_wgrad(u, v, d).double() - ref).abs()
+                check(bool((err <= WGRAD_TOL * den).all()),
+                      f"cam_wgrad {name} at {shape}: off the float64 "
+                      f"product by more than {WGRAD_TOL} of sum |u v|")
+                worst.setdefault(key, {})[name] = float(
+                    (err / den.clamp(min=1e-300)).max())
+                del ref, den, err
+        del ops
+        torch.cuda.empty_cache()
     print(f"cam_wgrad vs float64 (worst |kernel - f64| / sum |u v|, limit "
           f"{WGRAD_TOL}): {worst}; bitwise on exact sums; ms a launch "
           f"alone: {ms}; library ms: {lib_ms}", flush=True)
@@ -1709,16 +1757,18 @@ def phase_wgrad(cam_mod, dev) -> dict:
                        "copies, TF32 off (dkr, dkt)"}
 
 
-def cam_random(cc, cam_mod, shape, signed: bool, mechanism: bool, dev):
+def cam_random(cc, cam_mod, shape, signed: bool, mechanism: bool, dev,
+               caps=None):
     """The six CAM kernels on random inputs at ``shape`` against the
     float64 evaluation of their plain versions, beside the controls (the
     float32 plain version with TF32 off and on): the figures and limits
-    per output of ``cc`` (``tools/cam_check.py``), F2b's and F3b's with
-    the masks their kernels used, read from their scratch; with
-    ``mechanism``, F2b's and F3b's mask flips shown element by element
-    for the kernel and both controls (``tools/cam_check.py:mechanism``).
-    Returns (figures by op, mechanism by op and evaluation, max |kernel -
-    plain32| by op, faults)."""
+    per output of ``cc`` (``tools/cam_check.py``; ``caps`` for its
+    ``CAPS``), F2b's and F3b's with the masks their kernels used, read
+    from their scratch; with ``mechanism``, F2b's and F3b's mask flips
+    shown element by element for the kernel and both controls
+    (``tools/cam_check.py:mechanism``).  Returns (figures by op,
+    mechanism by op and evaluation, max |kernel - plain32| by op,
+    faults)."""
     k = cam_case(cam_mod, shape, SEED + sum(shape[:4]), dev,
                  signed_gates=signed)
     rows, mech, errs, faults = {}, {}, {}, []
@@ -1731,7 +1781,8 @@ def cam_random(cc, cam_mod, shape, signed: bool, mechanism: bool, dev):
         for i, (a, b) in enumerate(zip(got[0], want)):
             check(a.is_cuda and a.dtype == b.dtype and a.shape == b.shape,
                   f"{name}[{i}] output layout")
-        rows[name], bad = cc.random_check(name, args, got, ctl, ev64)
+        rows[name], bad = cc.random_check(name, args, got, ctl, ev64,
+                                          caps or cc.CAPS)
         faults += [f"{f} at {shape}" for f in bad]
         errs[name] = max(float((a.float() - b.float()).abs().max())
                          for a, b in zip(got[0], want))
@@ -1818,10 +1869,14 @@ def phase_cam(cam_mod, cc, set_tf32, dev) -> dict:
     both controls.  Exact-sum inputs at those three
     shapes and two small ones: per-pixel outputs bitwise the float32
     plain version's, reductions within ``cc.SUM_TOL`` of their sums of
-    |terms| (every output bitwise at the small shapes).  Then
-    :func:`phase_wgrad`.  Returns the max abs error of each kernel's
-    outputs against its float32 plain version at the steps' shape, the
-    figures, the mechanism, the exact-sum ratios and times, and the
+    |terms| (every output bitwise at the small shapes).  The same two
+    checks at the width grid (``WIDE_CAMS``: the wide plan's slices and K
+    chunks; the random inputs' share of elements off uncapped, as the
+    card tests' small caps: one mask flip covers more than 1e-4 of an
+    output this small).  Then :func:`phase_wgrad`.  Returns the max abs
+    error of each kernel's outputs against its float32 plain version at
+    the steps' shape, the figures, the mechanism, the exact-sum ratios
+    and times, the width grid's ratios and errors, and the
     weight-gradient kernels' figures."""
     set_tf32(False)
     t0 = time.perf_counter()
@@ -1843,6 +1898,18 @@ def phase_cam(cam_mod, cc, set_tf32, dev) -> dict:
         exact_s[key] = {"plain32_s": s32, "f64_and_terms_s": s64}
         faults += bad
     t2 = time.perf_counter()
+    wide = {}
+    small_caps = dict(cc.CAPS, share=1.0)
+    for shape in WIDE_CAMS:
+        key = "x".join(map(str, shape[:4])) + "_d" + "".join(
+            map(str, shape[4])) + f"_hc{shape[5]}"
+        ratios, _, _, bad = cam_exact(cc, cam_mod, shape, False, dev)
+        faults += bad
+        _, _, e, bad = cam_random(cc, cam_mod, shape, False, False, dev,
+                                  small_caps)
+        faults += bad
+        wide[key] = {"exact_ratio": ratios, "max_abs_err": e}
+    t3 = time.perf_counter()
     print("cam kernels vs float64, per output [worst, mean, share off by > "
           f"{cc.OFF}] of max |f64|: kernel, control float32 TF32 off, "
           "control float32 TF32 on, limit (F2b, F3b: the caps; then the "
@@ -1859,10 +1926,15 @@ def phase_cam(cam_mod, cc, set_tf32, dev) -> dict:
           f"{cc.SUM_TOL}): {json.dumps(exact)}; plain versions with "
           f"cuDNN off, s: {json.dumps(exact_s)}; random {t1 - t0:.1f} s, "
           f"exact {t2 - t1:.1f} s", flush=True)
+    print("cam kernels at the width grid (exact sums: per-pixel outputs "
+          "bitwise, reductions' worst |kernel - f64| / sum |terms|; random: "
+          "max |kernel - plain32|, the float64 rule with small caps): "
+          f"{json.dumps(wide)}; {t3 - t2:.1f} s", flush=True)
     check(not faults, f"CAM kernels fail the float64 check: {faults}")
     return {"max_abs_err": errs, "vs_f64": figs, "mechanism": mech,
-            "exact_ratio": exact, "exact_s": exact_s,
-            "seconds": {"random": t1 - t0, "exact": t2 - t1},
+            "exact_ratio": exact, "exact_s": exact_s, "wide": wide,
+            "seconds": {"random": t1 - t0, "exact": t2 - t1,
+                        "wide": t3 - t2},
             "wgrad": phase_wgrad(cam_mod, dev)}
 
 
@@ -1936,9 +2008,10 @@ def kernel_summary(prof, wall_ms: float, ours=()) -> dict:
 
 
 def run_train(students, train_mod, cam_mod, fused, w48_state, params,
-              batch, dev, profile=False) -> dict:
+              batch, dev, profile=False, inplanes=80) -> dict:
     """TRAIN_STEPS steps of ``make_distill_train_step`` at the reference
-    configuration (``AttentionStudentSteps(inplanes=80)``, bf16,
+    configuration (``AttentionStudentSteps(inplanes=80)``, or
+    ``inplanes``, bf16,
     ``detach_att_for_det``, BN output bf16) from the seeded student with
     the W48 stem, each step's parameters kept in ``params``; or, given
     ``params``, each step from those parameters (loaded outside the timed
@@ -1946,7 +2019,8 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
     (``cam.wgrad_counts``), are set to 0 just before the steps and read
     just after."""
     factory, _ = students
-    model = factory.get_attention_student(fused_cam=fused, device=dev,
+    model = factory.get_attention_student(inplanes=inplanes,
+                                          fused_cam=fused, device=dev,
                                           seed=SEED)
     factory.load_pretrained_stem(model, w48_state)
     init = {k: v.clone() for k, v in model.state_dict().items()}
@@ -2010,7 +2084,9 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
     """The slice's main path: TRAIN_STEPS fused train steps at full width
     (B=16, 450 x 450, inplanes=80), then the same steps with the CAMs on
     cuDNN on the same batch, each from the fused run's parameters of that
-    step (so each step's losses differ by the CAM implementation alone)."""
+    step (so each step's losses differ by the CAM implementation alone);
+    then the same pair at ``--inplanes`` WIDE_INPLANES (its step CAMs on
+    the kernels' wide plan, C = 259, hc = 64) without the profile."""
     batch = train_batch(dev)
     fused = run_train(students, train_mod, cam_mod, True, w48_state, None,
                       batch, dev, profile=True)
@@ -2050,15 +2126,8 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
         rel = max(rel, abs(a1 - a2) / abs(a2), abs(d1 - d2) / abs(d2))
     check(rel <= TRAIN_LOSS_TOL, f"fused vs cuDNN losses differ by {rel:.4g} "
           f"> {TRAIN_LOSS_TOL}: {fused['losses']} vs {unfused['losses']}")
-    out = {}
-    for name, run in (("fused", fused), ("unfused", unfused)):
-        ms = sum(run["step_ms"][1:]) / (TRAIN_STEPS - 1)
-        out[name] = {"losses": run["losses"], "step_ms": run["step_ms"],
-                     "mean_step_ms_after_first": ms,
-                     "img_per_s": TRAIN_BATCH * 1e3 / ms,
-                     "peak_gb": run["peak_bytes"] / 1e9,
-                     "launches": run["launches"],
-                     "wgrad_launches": run["wgrad_launches"]}
+    out = {name: train_summary(run)
+           for name, run in (("fused", fused), ("unfused", unfused))}
     out["fused"]["profile"] = fused["profile"]
     out["loss_worst_rel_fused_vs_unfused"] = rel
     print(f"train step: {TRAIN_STEPS} fused steps, B={TRAIN_BATCH} "
@@ -2069,7 +2138,56 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
           f"{out['unfused']['mean_step_ms_after_first']:.1f}; peak GB "
           f"{out['fused']['peak_gb']:.2f} / {out['unfused']['peak_gb']:.2f}",
           flush=True)
+    wide = run_train(students, train_mod, cam_mod, True, w48_state, None,
+                     batch, dev, inplanes=WIDE_INPLANES)
+    for name, count in wide["launches"].items():
+        check(count == n, f"{name}: {count} launches in {TRAIN_STEPS} steps "
+              f"at inplanes {WIDE_INPLANES}, not {n}")
+    check_wgrad_launches(wide)
+    check(wide["plain_calls"] == 0, "a plain CAM version ran on the card")
+    check(all(np.isfinite(v) for row in wide["losses"] for v in row),
+          f"non-finite losses at inplanes {WIDE_INPLANES}: {wide['losses']}")
+    wide.pop("model")
+    wide_cudnn = run_train(students, train_mod, cam_mod, False, w48_state,
+                           wide.pop("params"), batch, dev,
+                           inplanes=WIDE_INPLANES)
+    wide_cudnn.pop("model")
+    wide_cudnn.pop("params")
+    check(sum(wide_cudnn["launches"].values()) == 0,
+          "the cuDNN path launched a CAM kernel")
+    rel_w = max(max(abs(a1 - a2) / abs(a2), abs(d1 - d2) / abs(d2))
+                for (a1, d1), (a2, d2) in zip(wide["losses"],
+                                              wide_cudnn["losses"]))
+    check(rel_w <= TRAIN_LOSS_TOL, f"fused vs cuDNN losses at inplanes "
+          f"{WIDE_INPLANES} differ by {rel_w:.4g} > {TRAIN_LOSS_TOL}: "
+          f"{wide['losses']} vs {wide_cudnn['losses']}")
+    out["inplanes"] = {"inplanes": WIDE_INPLANES,
+                       "fused": train_summary(wide),
+                       "unfused": train_summary(wide_cudnn),
+                       "loss_worst_rel_fused_vs_unfused": rel_w}
+    w = out["inplanes"]
+    print(f"train step at inplanes {WIDE_INPLANES}: {TRAIN_STEPS} fused "
+          f"steps, launches {wide['launches']}; losses fused "
+          f"{wide['losses']} vs cuDNN {wide_cudnn['losses']} (worst "
+          f"{rel_w:.4g}); ms/step fused "
+          f"{w['fused']['mean_step_ms_after_first']:.1f}, cuDNN "
+          f"{w['unfused']['mean_step_ms_after_first']:.1f}; img/s "
+          f"{w['fused']['img_per_s']:.2f} / {w['unfused']['img_per_s']:.2f}; "
+          f"peak GB {w['fused']['peak_gb']:.2f} / "
+          f"{w['unfused']['peak_gb']:.2f}", flush=True)
     return out
+
+
+def train_summary(run) -> dict:
+    """A :func:`run_train` run's losses, step times (the mean after the
+    first), img/s, peak GB and launches."""
+    ms = sum(run["step_ms"][1:]) / (TRAIN_STEPS - 1)
+    return {"losses": run["losses"], "step_ms": run["step_ms"],
+            "mean_step_ms_after_first": ms,
+            "img_per_s": TRAIN_BATCH * 1e3 / ms,
+            "peak_gb": run["peak_bytes"] / 1e9,
+            "launches": run["launches"],
+            "wgrad_launches": run["wgrad_launches"]}
 
 
 def cam_bound(name: str, shape) -> dict:
@@ -2118,16 +2236,19 @@ def cam_yardstick(students_mod, shape, dev) -> dict:
 
 
 def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev,
-                    wgrad, wgrad_launches) -> list:
-    """One row per CAM kernel: at the steps' shape, and at the pyramid's
-    full-resolution shape under ``at_pyramid_hi``; each row also carries
+                    wgrad, wgrad_launches, wide_launches) -> list:
+    """One row per CAM kernel: at the steps' shape, at the pyramid's
+    full-resolution shape under ``at_pyramid_hi``, and at the step CAM of
+    ``--inplanes`` WIDE_INPLANES under ``at_step128`` (the wide plan; its
+    launches a step from ``wide_launches``); each row also carries
     its per-launch breakdown at both shapes (ms by kernel), and each
     backward its weight-gradient launches (``wgrad``: their launches in
     the train steps, ``wgrad_launches`` from :func:`run_train`; ms each
     from the breakdown, their bounds, the kernels alone against float64
     and a library call from :func:`phase_wgrad`)."""
     per_shape, breakdown = {}, {}
-    for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM)):
+    for key, shape in (("steps", STEPS_CAM), ("pyramid_hi", PYRAMID_CAM),
+                       ("step128", STEP128_CAM)):
         yard = cam_yardstick(students_mod, shape, dev)
         k = cam_case(cam_mod, shape, SEED + 10, dev)
         for name, kernel, plain, args in cam_calls(cam_mod, k):
@@ -2171,7 +2292,10 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev,
                      "(AttentionStudentSteps(fused_cam=True)): 3 at the "
                      "steps' shape, 3 in the pyramid (113, 57, 29)",
                      "max_abs_err": errs[name], **by["steps"],
-                     "at_pyramid_hi": by["pyramid_hi"]})
+                     "at_pyramid_hi": by["pyramid_hi"],
+                     "at_step128": dict(
+                         by["step128"], launches_per_step=wide_launches[
+                             name] / TRAIN_STEPS)})
         if name in breakdown:
             rows[-1]["breakdown_ms"] = breakdown[name]
         if name.endswith("bwd"):
@@ -2198,9 +2322,11 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev,
                 "library": wgrad["library"],
                 "alone_vs_f64": {k: wgrad[k] for k in ("worst_ratio", "tol",
                                                        "ms_alone")}}
-    ms = {r["name"]: [r["ms"], r["at_pyramid_hi"]["ms"]] for r in rows}
-    print(f"cam kernel ms (steps / pyramid hi): {ms}; the tiled ops by "
-          f"kernel: {breakdown}", flush=True)
+    ms = {r["name"]: [r["ms"], r["at_pyramid_hi"]["ms"],
+                      r["at_step128"]["ms"]] for r in rows}
+    print(f"cam kernel ms (steps / pyramid hi / step at inplanes "
+          f"{WIDE_INPLANES}): {ms}; the tiled ops by kernel: {breakdown}",
+          flush=True)
     return rows
 
 
@@ -3624,8 +3750,12 @@ def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
     ``--fused_cam`` for 5 steps over 3 epochs (2 steps each), the
     minival and the diagnostics every 2 steps; then the resume to step
     7, ``eval_attention``'s core on the last parts, a pipeline-fed loop
-    of steps without the trainer's per-epoch work, and the detection
-    minival of an ``ae_dims=1`` student with the trained weights."""
+    of steps without the trainer's per-epoch work, the detection
+    minival of an ``ae_dims=1`` student with the trained weights, and
+    ``--inplanes`` WIDE_INPLANES (the step CAMs on the kernels' wide
+    plan) with ``--fused_cam`` against ``--no_fused_cam``, 2 steps each:
+    the same losses within ``TRAIN_LOSS_TOL``, the updates within
+    ``WIDE_UPDATE_TOL``."""
     (dist_mod, eval_mod, ckpt_mod, minival_mod, factory_mod, train_mod,
      cam_mod, nms_mod, pipe_mod) = mods
     train_ds, minival_ds = data["train_ds"], data["minival_ds"]
@@ -3768,6 +3898,7 @@ def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
     check(len(stats) == 10 and all(np.isfinite(v) for v in stats.values()),
           f"detection minival {stats}")
     del det_model
+    wide = trainer_wide(mods, data, out, log_path, dev)
 
     ts = [clock.t[s] for s in range(1, 6)]
     img_per_s = TRAINER_BATCH * 4 / (ts[-1] - ts[0])
@@ -3781,7 +3912,8 @@ def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
                          / fed["wall_ms"], "profile_4_steps": fed},
            "synthetic_step_img_per_s": synthetic,
            "detection_minival": {"stats": stats,
-                                 "nms_topk_launches": nms_launches}}
+                                 "nms_topk_launches": nms_launches},
+           "inplanes": wide}
     print(f"trainer: 5 fused steps over 3 epochs, launches {launches}, "
           f"losses {losses}, resumed 5 -> 7 bitwise, eval_attention "
           f"{ev.mean:.5f}, detection minival nms_topk x{nms_launches}; "
@@ -3790,6 +3922,82 @@ def phase_trainer(mods, data, out, w48_state, synthetic, card, dev) -> dict:
           f"step {out['fed_steps']['img_per_s']:.1f} img/s (busy "
           f"{fed.get('device_busy')}), the synthetic step "
           f"{synthetic:.1f}; peak {peak_gb:.2f} GB ({card})", flush=True)
+    return out
+
+
+def trainer_wide(mods, data, out, log_path, dev) -> dict:
+    """``cli.distillation.train --inplanes WIDE_INPLANES`` with
+    ``--fused_cam`` and with ``--no_fused_cam``, 2 steps each from the
+    same seeded student on the same batches: the CAM kernels launched in
+    the first alone (12 each), each step's losses within
+    ``TRAIN_LOSS_TOL`` of each other, the trainable parameters' updates
+    (from the seeded student, the same under both flags) within
+    ``WIDE_UPDATE_TOL`` of each other in relative L2."""
+    (dist_mod, _, _, _, factory_mod, train_mod, cam_mod, _, _) = mods
+    runs = {}
+    for flag in ("--fused_cam", "--no_fused_cam"):
+        clock = StepClock()
+        reset(cam_mod.KERNELS)
+        for f in cam_mod.PLAIN:
+            f.calls = 0
+        t0 = time.perf_counter()
+        res = run_trainer(dist_mod, dist_mod.build_parser().parse_args([
+            flag, "--inplanes", str(WIDE_INPLANES), "--max_steps", "2",
+            "--num_epochs", "1", "--diagnose_every", "100",
+            "--minival_every", "100", "--no_resume",
+            "--model_path", data["w48_path"],
+            "--snapshot_dir", os.path.join(out, "wide_snaps" + flag),
+            "--log_dir", os.path.join(out, "wide_log"),
+            "--tb_dir", os.path.join(out, "wide_tb"),
+            "--num_workers", str(TRAINER_WORKERS), "--device", str(dev)]),
+            data["train_ds"], data["minival_ds"], clock, log_path, dev)
+        seconds = time.perf_counter() - t0
+        labels = train_mod.label_params(res.state.model.named_parameters())
+        fresh = factory_mod.get_attention_student(
+            inplanes=WIDE_INPLANES, detach_att_for_det=True,
+            fused_cam=flag == "--fused_cam", device=dev, seed=0)
+        init = dict(fresh.named_parameters())
+        runs[flag] = {
+            "losses": [clock.losses[s] for s in sorted(clock.losses)],
+            "launches": read(cam_mod.KERNELS),
+            "plain_calls": sum(f.calls for f in cam_mod.PLAIN),
+            "seconds": seconds,
+            "init": {k: init[k].detach().clone() for k in labels
+                     if labels[k] != "frozen"},
+            "update": {k: (p.detach() - init[k].detach()).double()
+                       for k, p in res.state.model.named_parameters()
+                       if labels[k] != "frozen"}}
+        del res, fresh, init
+    fu, cu = runs["--fused_cam"], runs["--no_fused_cam"]
+    check(all(n == 12 for n in fu["launches"].values())
+          and fu["plain_calls"] == 0,
+          f"--fused_cam --inplanes {WIDE_INPLANES}: launches "
+          f"{fu['launches']}, {fu['plain_calls']} plain calls")
+    check(sum(cu["launches"].values()) == 0,
+          "--no_fused_cam launched a CAM kernel")
+    check(all(torch.equal(fu["init"][k], cu["init"][k]) for k in cu["init"]),
+          "the seeded student differs between the two flags")
+    check(len(fu["losses"]) == len(cu["losses"]) == 2,
+          f"losses {fu['losses']} / {cu['losses']}")
+    rel = max(abs(a - b) / abs(b) for ra, rb in zip(fu["losses"],
+                                                    cu["losses"])
+              for a, b in zip(ra, rb))
+    check(rel <= TRAIN_LOSS_TOL, f"--inplanes {WIDE_INPLANES}: fused vs "
+          f"cuDNN losses differ by {rel:.4g}: {fu['losses']} vs "
+          f"{cu['losses']}")
+    uf = torch.cat([fu["update"][k].flatten() for k in cu["update"]])
+    uc = torch.cat([cu["update"][k].flatten() for k in cu["update"]])
+    upd = float((uf - uc).norm() / uc.norm())
+    check(upd <= WIDE_UPDATE_TOL, f"--inplanes {WIDE_INPLANES}: fused vs "
+          f"cuDNN updates differ by {upd:.4g} (relative L2)")
+    out = {"losses": {k: r["losses"] for k, r in runs.items()},
+           "launches": fu["launches"],
+           "seconds": {k: r["seconds"] for k, r in runs.items()},
+           "loss_worst_rel": rel, "update_rel_l2": upd}
+    print(f"trainer CLI --inplanes {WIDE_INPLANES}: 2 steps --fused_cam "
+          f"(launches {fu['launches']}) vs --no_fused_cam, losses "
+          f"{fu['losses']} vs {cu['losses']} (worst {rel:.4g}), updates "
+          f"{upd:.4g} apart (relative L2)", flush=True)
     return out
 
 
@@ -4966,7 +5174,8 @@ def main() -> None:
     kernels += cam_kernel_rows(cam_mod, students_mod, cam_errs["max_abs_err"],
                                train["fused"]["launches"], dev,
                                cam_errs["wgrad"],
-                               train["fused"]["wgrad_launches"])
+                               train["fused"]["wgrad_launches"],
+                               train["inplanes"]["fused"]["launches"])
     paths_ms = decode_path_times(pred.parser, fused, heatmaps)
     fwd_ms = forward_times(packed_mod, pred.model, pk, dev)
     e2e = phase_end_to_end(pred)

@@ -10,11 +10,12 @@
 // So the port tiles the pixels instead (cam_tile.cuh: 8 x 8 pixels of one
 // image a block, so a per-tile partial is also a per-image partial, as the
 // GAP needs).  Here, what every op shares:
-//   - the geometry of a call (Geo): odd channel counts (C = 83 / 163,
-//     hc = 20 / 40) are padded to multiples of 16 for K, and N to whole n8
-//     tiles, with zeros the wrapper and the kernels stage, never changing
-//     the caller's tensors; the output channels of a 1x1 conv go in
-//     chunks of NC = 56;
+//   - the geometry of a call (Geo): any C and branch width hc, 1..6
+//     dilations; odd channel counts (C = 83 / 163, hc = 20 / 40) are padded
+//     to multiples of 16 for K, and N to whole n8 tiles, with zeros the
+//     wrapper and the kernels stage, never changing the caller's tensors;
+//     the output channels of a 1x1 conv go in chunks of NC = 56, a branch's
+//     in slices of at most NTB n8 tiles (cam_tile.cuh's wide plan);
 //   - the mma.sync m16n8k16 bf16 -> f32 step and its fragment layout, the
 //     16-byte cp.async and the ldmatrix loads (the weight gradients: TMA
 //     and wgmma);
@@ -64,9 +65,10 @@
 //     where a wide dilation does not fit) of x once, and dc's window
 //     around it at the branch's dilation, (16 + 2d) x (8 + 2d) pixels,
 //     once; all 9 taps share x's fragments and read their shifted dc out
-//     of the one window.  dc has hc <= 40 columns, so its window (308
-//     pixel rows of 80 bytes at d = 3) costs less than x's (128 bytes a
-//     row, 64 channels);
+//     of the one window.  A job's dc columns go in N slices of at most 40
+//     (WG_NT_TAPS n8 tiles; hc = 64 is 2 of 32, hc = 128 4 of 32), so a
+//     window (308 pixel rows of 80 bytes at d = 3, 40 columns) costs less
+//     than x's (128 bytes a row, 64 channels);
 //   - TMA copies (one thread issues a tile's boxes, an mbarrier a stage
 //     counts their bytes) into a ring of up to 6 stages: tile i + ns - 1
 //     loads while tile i multiplies.  TMA's out-of-bounds zero fill is
@@ -80,7 +82,8 @@
 //     starting at the tap's shift in the window;
 //   - wgmma m64 x 8NT x 16 (bf16 -> f32): dkh's 3 warpgroups share the K
 //     slice's 64 channels and take 3 taps each (60 accumulators a thread
-//     at hc = 40); a plain product's take one m64 each against the whole
+//     at an N slice of 40 columns); a plain product's take one m64 each
+//     against the whole
 //     N slice (up to 192 columns, 96 accumulators); k-step ks + 1's A
 //     fragments load while ks's wgmmas run;
 //   - the walk: 132 blocks, one an SM (384 threads; dkh's ring of 5 takes
@@ -110,8 +113,8 @@ constexpr int THREADS = 128;      // 4 warps x 16 pixel rows
 constexpr int NWARPS = THREADS / 32;
 constexpr int NC = 56;            // output channels per 1x1-conv chunk
 constexpr int NTC = NC / 8;       // its n8 tiles
-constexpr int NTB = 5;            // n8 tiles of one branch
-constexpr int HC_MAX = NTB * 8;   // 40 branch channels at most
+constexpr int NTB = 5;            // n8 tiles of a branch (slice)
+constexpr int SW_MAX = NTB * 8;   // 40 columns: wider branches go in slices
 constexpr int NB_MAX = 6;         // dilations at most
 constexpr int NRED = 5;           // column sums per chunk at most
 
@@ -131,7 +134,7 @@ inline bool make_geo(const int *g, Geo *o) {
   Geo r;
   r.B = g[0]; r.H = g[1]; r.W = g[2]; r.C = g[3]; r.nb = g[4]; r.hc = g[5];
   if (r.B <= 0 || r.H <= 0 || r.W <= 0 || r.C <= 0 || r.nb < 1 ||
-      r.nb > NB_MAX || r.hc < 1 || r.hc > HC_MAX)
+      r.nb > NB_MAX || r.hc < 1)
     return false;
   for (int i = 0; i < NB_MAX; ++i) {
     r.dil[i] = i < r.nb ? g[6 + i] : 1;
@@ -278,7 +281,7 @@ __device__ __forceinline__ void ldsm4t(uint32_t a, uint32_t &r0, uint32_t &r1,
 constexpr int WG_THREADS = 384;            // 3 warpgroups
 constexpr int WG_TX = 8;                   // tile width (pixels)
 constexpr int WG_KS = 8;                   // k-steps of a 16-row tile
-constexpr int WG_NT_TAPS = 5;              // taps: n8 tiles at most (hc 40)
+constexpr int WG_NT_TAPS = 5;              // taps: n8 tiles of an N slice
 constexpr int WG_NSW = 24;                 // plain: n8 tiles of an N slice
 constexpr int WG_NS_MAX = 6;               // ring stages at most
 constexpr int WG_BLOCKS = 132;             // one block an SM
@@ -311,8 +314,11 @@ struct WgPlan {
   int njobs, taps;
   int B, H, W;
   int mt;                  // m16 tiles of a K slice: 4 (taps), 12 (plain)
-  int nt;                  // n8 tiles of the wgmma: the jobs' (taps), or
-                           // an N slice's rounded up to 8, 16 or 24
+  int nt;                  // n8 tiles of the wgmma: an N slice's (taps:
+                           // the widest job's n8s in even slices of at
+                           // most WG_NT_TAPS; plain: rounded up to 8, 16
+                           // or 24)
+  int nsw;                 // n8 tiles of an N slice: nt (taps), WG_NSW
   int ty;                  // tile rows (16 or 8); tiles are WG_TX wide
   int ns;                  // ring stages
   int tiles_x, tpi, n_tiles;
@@ -352,7 +358,9 @@ inline int64_t wg_part_floats(const WgPlan &P) {
 
 // Fill the tiling, ring and walk of P (jobs' shapes, offsets and pitches
 // set; pointers may be null for sizing).  False where a job's rows are not
-// 16-byte aligned, a tap job is wider than 40 columns, or nothing fits.
+// 16-byte aligned or nothing fits.  A tap job wider than 40 columns is
+// walked in N slices of at most 40 (its combos), each slice the same
+// wgmma as a job of that width.
 inline bool wg_plan(WgPlan &P, int taps, int B, int H, int W) {
   if (P.njobs < 1 || P.njobs > NB_MAX || (taps != 1 && taps != 9) ||
       B < 1 || H < 1 || W < 1)
@@ -364,17 +372,24 @@ inline bool wg_plan(WgPlan &P, int taps, int B, int H, int W) {
     const int n8 = (J.N + 7) / 8;
     if (J.K < 1 || J.N < 1 || J.ldu % 8 || J.u0 % 8 || J.ldv % 8 ||
         J.v0 % 8 || J.u0 + (J.K + 7) / 8 * 8 > J.ldu ||
-        J.v0 + n8 * 8 > J.ldv || (taps == 9) != (J.d > 0) ||
-        (taps == 9 && n8 > WG_NT_TAPS))
+        J.v0 + n8 * 8 > J.ldv || (taps == 9) != (J.d > 0))
       return false;
-    const int w8 = n8 < WG_NSW ? n8 : WG_NSW;
+    const int w8 = taps == 9 || n8 < WG_NSW ? n8 : WG_NSW;
     n8max = w8 > n8max ? w8 : n8max;
     dmax = J.d > dmax ? J.d : dmax;
   }
-  // taps: one m64 (the warpgroups take 3 taps each); plain: one m64 a
-  // warpgroup, the N slice in one wgmma
+  // taps: one m64 (the warpgroups take 3 taps each), the widest job's n8
+  // tiles in even N slices of at most WG_NT_TAPS (5 stays one slice of 5,
+  // 8 two of 4, 16 four of 4); plain: one m64 a warpgroup, the N slice in
+  // one wgmma
   P.mt = taps == 9 ? 4 : 12;
-  P.nt = taps == 9 ? n8max : (n8max + 7) / 8 * 8;
+  if (taps == 9) {
+    const int nsl = (n8max + WG_NT_TAPS - 1) / WG_NT_TAPS;
+    P.nt = (n8max + nsl - 1) / nsl;
+  } else {
+    P.nt = (n8max + 7) / 8 * 8;
+  }
+  P.nsw = taps == 9 ? P.nt : WG_NSW;
   P.ns = 0;
   // the tallest tile and deepest ring that fit (TMA boxes of <= 256 rows)
   for (int ty = 16; ty >= 8 && !P.ns; ty -= 8)
@@ -401,7 +416,7 @@ inline bool wg_plan(WgPlan &P, int taps, int B, int H, int W) {
     WgJob &J = P.job[i];
     J.c0 = c;
     J.nks = ((J.K + 15) / 16 + P.mt - 1) / P.mt;
-    J.nns = ((J.N + 7) / 8 + WG_NSW - 1) / WG_NSW;
+    J.nns = ((J.N + 7) / 8 + P.nsw - 1) / P.nsw;
     c += J.nks * J.nns;
   }
   P.ncombo = c;
@@ -453,7 +468,7 @@ __device__ __forceinline__ WgCombo wg_combo(const WgPlan &P, int combo) {
   const int r = combo - P.job[q.jj].c0, nns = P.job[q.jj].nns;
   const int ks = r / nns;
   q.k0 = ks * 16 * P.mt;
-  q.n8 = (r - ks * nns) * WG_NSW;
+  q.n8 = (r - ks * nns) * P.nsw;
   return q;
 }
 
@@ -757,7 +772,7 @@ __device__ __forceinline__ void wg_tma(const WgPlan &P, const WgMaps &M,
   const WgJob &J = P.job[q.jj];
   const int d = J.d, mu = P.mt / 4, box = P.ty * WG_TX * 128;
   int n8 = (J.N + 7) / 8 - q.n8;
-  n8 = n8 < WG_NSW ? n8 : WG_NSW;
+  n8 = n8 < P.nsw ? n8 : P.nsw;
   mbar_expect_tx(bar, mu * box +
                           n8 * (P.ty + 2 * d) * (WG_TX + 2 * d) * 16);
   for (int j = 0; j < mu; ++j)
@@ -900,7 +915,8 @@ __device__ __forceinline__ void wg_body(const WgPlan &P, const WgMaps &M,
   }
 }
 
-// dkh: the 9 taps of each branch against its dc columns (NT: hc's n8s).
+// dkh: the 9 taps of each branch against its dc columns (NT: the n8s of
+// an N slice of them).
 template <int NT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgrad_taps_kernel(const WgPlan P, const __grid_constant__ WgMaps M,

@@ -36,6 +36,8 @@ namespace tile {
 // the sum of x (C)], the first two the column sums of bf16(x . kr) and
 // of each branch's bf16(c) and their squares over the tile's pixels in the
 // image (a pixel outside it is masked: its taps can reach into the image).
+// WIDE: the wide plan (cam_tile.cuh), the sum of x read from xpad.
+template <bool WIDE>
 __global__ void __launch_bounds__(TT, 1)
 f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                const bf16 *__restrict__ w0, float *__restrict__ part) {
@@ -45,19 +47,32 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   bf16 *sH = reinterpret_cast<bf16 *>(smem);
   bf16 *sW = sH + t.hr * xp;                // NBUF buffers
   const Lane L = lane_of(t);
-  const uint32_t aH = halo_row(sH, xp, t, L);
+  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
   float *prow = part + static_cast<int64_t>(blockIdx.x) * (3 * C + 2 * g.NH);
-  Ring ring{w0, sW, wbuf, L.lane, 0};
+  auto ring = [&]() {
+    if constexpr (WIDE) {
+      bf16 *wH;
+      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
+      return WRing<WStage0>{WStage0{g, t, xpad, nullptr, nullptr}, w0, wW,
+                            wH, t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
+    } else {
+      return Ring{w0, sW, wbuf, L.lane, 0};
+    }
+  }();
 
-  stage_halo(sH, xpad, g.kc, g, t, L.pos);
-  ring.start(g, t);
+  if constexpr (WIDE) {
+    ring.start();
+  } else {
+    stage_halo(sH, xpad, g.kc, g, t, L.pos);
+    ring.start(g, t);
+  }
 
   // the lane's fragment rows in the image (e < 2: row r, else r + 8)
   const bool in0 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 0)) >= 0;
   const bool in1 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 2)) >= 0;
   constexpr int GB = (NTB + 1) / 2;
-  branch_convs(g, t, ring, aH, L,
-               [&](int i, const Split &sb, const float (&acc)[GB][4]) {
+  auto epi_h = [&](const Slice &sl, const Split &sb,
+                   const float (&acc)[GB][4]) {
     float v[GB][4];
 #pragma unroll
     for (int j = 0; j < GB; ++j)
@@ -65,34 +80,51 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
       for (int e = 0; e < 4; ++e)
         v[j][e] = (e < 2 ? in0 : in1) ? bfr(acc[j][e]) : 0.0f;
     ring_colsums<GB>(v, L, sb.j0, L.wn ? NTB - GB : GB, ring.spent(),
-                     prow + 2 * C + 2 * i * g.hc, g.hc, g.hc);
-  });
+                     prow + 2 * C + 2 * sl.i * g.hc + sl.s0, g.hc, sl.w);
+  };
   constexpr int GC = (NTC + 1) / 2;
-  conv1x1_chunks<true, false>(
-      g, t, ring, aH, 0, L,
-      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&)[GC][4]) {
-        float v[GC][4];
+  auto epi_r = [&](int n0, const Split &sc, float (&acr)[GC][4],
+                   float (&)[GC][4]) {
+    float v[GC][4];
 #pragma unroll
-        for (int j = 0; j < GC; ++j)
+    for (int j = 0; j < GC; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
-        ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
-                         prow + n0, C, C - n0 < NC ? C - n0 : NC);
-      });
-  // the sum of x over the halo's 64 centre rows (zero outside the image)
-  const bf16 *centre = sH + (t.dmax * t.hs + t.dmax) * xp;
-  for (int c = threadIdx.x; c < C; c += TT) {
-    float acc = 0.0f;
-    for (int r = 0; r < TP; ++r)
-      acc += bf2f(centre[((r >> 3) * t.hs + (r & 7)) * xp + c]);
-    prow[2 * C + 2 * g.NH + c] = acc;
+      for (int e = 0; e < 4; ++e)
+        v[j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
+    ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
+                     prow + n0, C, C - n0 < NC ? C - n0 : NC);
+  };
+  if constexpr (WIDE) {
+    wbranch_convs(g, t, ring, L, epi_h);
+    wconv1x1_chunks<true, false>(g, t, ring, L, epi_r);
+    // the sum of x over the tile's pixels in the image
+    for (int c = threadIdx.x; c < C; c += TT) {
+      float acc = 0.0f;
+      for (int r = 0; r < TP; ++r) {
+        const int64_t p = tile_pix(g, L.pos, r);
+        if (p >= 0) acc += bf2f(xpad[p * g.kc + c]);
+      }
+      prow[2 * C + 2 * g.NH + c] = acc;
+    }
+  } else {
+    branch_convs(g, t, ring, aH, L, epi_h);
+    conv1x1_chunks<true, false>(g, t, ring, aH, 0, L, epi_r);
+    // the sum of x over the halo's 64 centre rows (zero outside the image)
+    const bf16 *centre = sH + (t.dmax * t.hs + t.dmax) * xp;
+    for (int c = threadIdx.x; c < C; c += TT) {
+      float acc = 0.0f;
+      for (int r = 0; r < TP; ++r)
+        acc += bf2f(centre[((r >> 3) * t.hs + (r & 7)) * xp + c]);
+      prow[2 * C + 2 * g.NH + c] = acc;
+    }
   }
 }
 
 // Phase 0 of F1b on one 8 x 8 tile: dc (M, nb khc) and dr (M, kc) in
 // bf16 with zero padding columns, dc_i = bf16(dsh[2i] + 2 c_i dsh[2i+1]),
-// dr = bf16(dsr[0] + 2 bf16(x . kr) dsr[1]).  No per-tile sums.
+// dr = bf16(dsr[0] + 2 bf16(x . kr) dsr[1]).  No per-tile sums.  WIDE:
+// the wide plan, dsr and dsh read from global memory.
+template <bool WIDE>
 __global__ void __launch_bounds__(TT, 1)
 f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const bf16 *__restrict__ w0, const float *__restrict__ dsr,
@@ -106,47 +138,71 @@ f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sDr = reinterpret_cast<float *>(sW + NBUF * wbuf);
   float *sDh = sDr + 2 * C;
   const Lane L = lane_of(t);
-  const uint32_t aH = halo_row(sH, xp, t, L);
-  Ring ring{w0, sW, wbuf, L.lane, 0};
+  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  auto ring = [&]() {
+    if constexpr (WIDE) {
+      bf16 *wH;
+      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
+      return WRing<WStage0>{WStage0{g, t, xpad, nullptr, nullptr}, w0, wW,
+                            wH, t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
+    } else {
+      return Ring{w0, sW, wbuf, L.lane, 0};
+    }
+  }();
 
-  stage_halo(sH, xpad, g.kc, g, t, L.pos);
-  ring.start(g, t);
-  for (int i = threadIdx.x; i < 2 * C; i += TT) sDr[i] = dsr[i];
-  for (int i = threadIdx.x; i < 2 * g.NH; i += TT) sDh[i] = dsh[i];
+  const float *rDr = dsr, *rDh = dsh;
+  if constexpr (WIDE) {
+    ring.start();
+  } else {
+    stage_halo(sH, xpad, g.kc, g, t, L.pos);
+    ring.start(g, t);
+    for (int i = threadIdx.x; i < 2 * C; i += TT) sDr[i] = dsr[i];
+    for (int i = threadIdx.x; i < 2 * g.NH; i += TT) sDh[i] = dsh[i];
+    rDr = sDr;
+    rDh = sDh;
+  }
 
   constexpr int GB = (NTB + 1) / 2;
-  branch_convs(g, t, ring, aH, L,
-               [&](int i, const Split &sb, const float (&acc)[GB][4]) {
+  auto epi_h = [&](const Slice &sl, const Split &sb,
+                   const float (&acc)[GB][4]) {
+    const int i = sl.i;
 #pragma unroll
     for (int j = 0; j < GB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int n = frag_col(L.lane, sb.j0 + j, e);
         const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
-        if (n >= g.hc || p < 0) continue;
+        if (n >= sl.w || p < 0) continue;
+        const int col = sl.s0 + n;
         const float cb = bfr(acc[j][e]);
         const float dc = __fadd_rn(
-            sDh[2 * i * g.hc + n],
-            __fmul_rn(__fmul_rn(2.0f, cb), sDh[(2 * i + 1) * g.hc + n]));
-        dc_out[p * t.ldc + i * g.khc + n] = f2bf(dc);
+            rDh[2 * i * g.hc + col],
+            __fmul_rn(__fmul_rn(2.0f, cb), rDh[(2 * i + 1) * g.hc + col]));
+        dc_out[p * t.ldc + i * g.khc + col] = f2bf(dc);
       }
-  });
+  };
   constexpr int GC = (NTC + 1) / 2;
-  conv1x1_chunks<true, false>(
-      g, t, ring, aH, 0, L,
-      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&)[GC][4]) {
+  auto epi_r = [&](int n0, const Split &sc, float (&acr)[GC][4],
+                   float (&)[GC][4]) {
 #pragma unroll
-        for (int j = 0; j < GC; ++j)
+    for (int j = 0; j < GC; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
-            const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
-            if (p < 0 || c >= C || j >= sc.cnt) continue;
-            const float rb = bfr(acr[j][e]);
-            dr_out[p * g.kc + c] = f2bf(
-                __fadd_rn(sDr[c], __fmul_rn(__fmul_rn(2.0f, rb), sDr[C + c])));
-          }
-      });
+      for (int e = 0; e < 4; ++e) {
+        const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+        const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+        if (p < 0 || c >= C || j >= sc.cnt) continue;
+        const float rb = bfr(acr[j][e]);
+        dr_out[p * g.kc + c] = f2bf(
+            __fadd_rn(rDr[c], __fmul_rn(__fmul_rn(2.0f, rb), rDr[C + c])));
+      }
+  };
+  if constexpr (WIDE) {
+    wbranch_convs(g, t, ring, L, epi_h);
+    wconv1x1_chunks<true, false>(g, t, ring, L, epi_r);
+  } else {
+    branch_convs(g, t, ring, aH, L, epi_h);
+    conv1x1_chunks<true, false>(g, t, ring, aH, 0, L, epi_r);
+  }
   zero_pad_cols(dr_out, g.kc, 1, g.kc, C, g, L.pos);
   zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
 }
@@ -217,10 +273,9 @@ extern "C" int cam_f1_launch(const int *geo, const void *xpad,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto *part = static_cast<float *>(ws);
-  CAM_TRY(tile::launch(tile::f1_tile_kernel, dim3(t.n_tiles),
-                       tile::smem0_bytes(g, t), st, g, t,
-                       static_cast<const bf16 *>(xpad),
-                       static_cast<const bf16 *>(w0), part));
+  CAM_TRY(CAM_TILE_LAUNCH(tile::f1_tile_kernel, g, t, st,
+                          static_cast<const bf16 *>(xpad),
+                          static_cast<const bf16 *>(w0), part));
   const int64_t ld = 3 * g.C + 2 * g.NH;
   CAM_TRY(reduce_rows(part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(s_r), 0, st));
@@ -262,11 +317,10 @@ extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
   const auto *xx = static_cast<const bf16 *>(xpad);
   const F1bWs w = carve_f1b(g, t, ws, xx, &bytes);
   if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
-  CAM_TRY(tile::launch(tile::f1b_tile_kernel, dim3(t.n_tiles),
-                       tile::smem0_bytes(g, t), st, g, t, xx,
-                       static_cast<const bf16 *>(w0),
-                       static_cast<const float *>(dsr),
-                       static_cast<const float *>(dsh), w.dr, w.dc));
+  CAM_TRY(CAM_TILE_LAUNCH(tile::f1b_tile_kernel, g, t, st, xx,
+                          static_cast<const bf16 *>(w0),
+                          static_cast<const float *>(dsr),
+                          static_cast<const float *>(dsh), w.dr, w.dc));
   CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
   CAM_TRY(wgrad(w.pr, w.part_r, static_cast<float *>(dkr), st));
   const float inv_n = static_cast<float>(1.0 / g.HW);

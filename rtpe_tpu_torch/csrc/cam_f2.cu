@@ -34,10 +34,13 @@ namespace tile {
 // sums of squares (C)] of t = bf16(a . kt) over the tile's pixels in the
 // image (a pixel outside it is masked: its BN bias and dilated taps make
 // its t nonzero), a = bf16(relu(BN_h(bf16(c)))) kept in shared memory only.
+// WIDE: the wide plan (cam_tile.cuh), a through its rows in `a` (pitch
+// knh, by pixel), bnh read from global memory.
+template <bool WIDE>
 __global__ void __launch_bounds__(TT, 1)
 f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                const bf16 *__restrict__ w0, const float *__restrict__ bnh,
-               float *__restrict__ part) {
+               float *__restrict__ part, bf16 *__restrict__ a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -46,44 +49,68 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   bf16 *sA = sW + NBUF * wbuf;
   float *sBh = reinterpret_cast<float *>(sA + TP * g.nhp);
   const Lane L = lane_of(t);
-  const uint32_t aH = halo_row(sH, xp, t, L);
+  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
   float *prow = part + static_cast<int64_t>(blockIdx.x) * 2 * C;
-  Ring ring{w0, sW, wbuf, L.lane, 0};
+  auto ring = [&]() {
+    if constexpr (WIDE) {
+      bf16 *wH;
+      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
+      return WRing<WStage0>{WStage0{g, t, xpad, a, nullptr}, w0, wW, wH,
+                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
+    } else {
+      return Ring{w0, sW, wbuf, L.lane, 0};
+    }
+  }();
 
-  stage_halo(sH, xpad, g.kc, g, t, L.pos);
-  ring.start(g, t);
-  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-  zero_top_pads(g, sA, nullptr);
+  if constexpr (WIDE) {
+    zero_pad_cols(a, g.knh, 1, g.knh, g.NH, g, L.pos);
+    ring.start();
+  } else {
+    stage_halo(sH, xpad, g.kc, g, t, L.pos);
+    ring.start(g, t);
+    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+    zero_top_pads(g, sA, nullptr);
+  }
 
   // the lane's fragment rows in the image (e < 2: row r, else r + 8)
   const bool in0 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 0)) >= 0;
   const bool in1 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 2)) >= 0;
-  branch_convs(g, t, ring, aH, L,
-               ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
   constexpr int GC = (NTC + 1) / 2;
-  conv1x1_chunks<false, true>(
-      g, t, ring, 0, tile_row(sA, g.nhp, L), L,
-      [&](int n0, const Split &sc, float (&)[GC][4], float (&at)[GC][4]) {
-        float v[GC][4];
+  auto epi_t = [&](int n0, const Split &sc, float (&)[GC][4],
+                   float (&at)[GC][4]) {
+    float v[GC][4];
 #pragma unroll
-        for (int j = 0; j < GC; ++j)
+    for (int j = 0; j < GC; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[j][e] = (e < 2 ? in0 : in1) ? bfr(at[j][e]) : 0.0f;
-        ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
-                         prow + n0, C, C - n0 < NC ? C - n0 : NC);
-      });
+      for (int e = 0; e < 4; ++e)
+        v[j][e] = (e < 2 ? in0 : in1) ? bfr(at[j][e]) : 0.0f;
+    ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
+                     prow + n0, C, C - n0 < NC ? C - n0 : NC);
+  };
+  if constexpr (WIDE) {
+    wbranch_convs(g, t, ring, L,
+                  ToActivations<false, true>{g, L, bnh, nullptr, nullptr, a});
+    wconv1x1_chunks<false, true>(g, t, ring, L, epi_t);
+  } else {
+    branch_convs(g, t, ring, aH, L,
+                 ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
+    conv1x1_chunks<false, true>(g, t, ring, 0, tile_row(sA, g.nhp, L), L,
+                                epi_t);
+  }
 }
 
 // Phase 0 of F2b on one 8 x 8 tile: a (M, knh), dt (M, kc) and dc
 // (M, nb khc, zero padding columns) in bf16, dt = bf16(dst[0] + 2 t
-// dst[1]); per-tile partial row dS_h (2 NH).
+// dst[1]); per-tile partial row dS_h (2 NH).  WIDE: the wide plan, a and
+// dt read back from a_out and dt_out (their K padding zeroed), c through
+// cb (pitch knh, by pixel), dst and bnh read from global memory.
+template <bool WIDE>
 __global__ void __launch_bounds__(TT, 1)
 f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const bf16 *__restrict__ w0, const float *__restrict__ bnh,
                 const float *__restrict__ dst, bf16 *__restrict__ a_out,
                 bf16 *__restrict__ dt_out, bf16 *__restrict__ dc_out,
-                float *__restrict__ part) {
+                float *__restrict__ part, bf16 *__restrict__ cb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -96,41 +123,68 @@ f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sDt = red + NWARPS * NRED * NC;    // dst rows, then bnh
   float *sBh = sDt + 2 * C;
   const Lane L = lane_of(t);
-  const uint32_t aH = halo_row(sH, xp, t, L);
-  Ring ring{w0, sW, wbuf, L.lane, 0};
+  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  float *prow_h = part + static_cast<int64_t>(blockIdx.x) * 2 * g.NH;
+  auto ring = [&]() {
+    if constexpr (WIDE) {
+      bf16 *wH;
+      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
+      return WRing<WStage0>{WStage0{g, t, xpad, a_out, dt_out}, w0, wW, wH,
+                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
+    } else {
+      return Ring{w0, sW, wbuf, L.lane, 0};
+    }
+  }();
 
-  stage_halo(sH, xpad, g.kc, g, t, L.pos);
-  ring.start(g, t);
-  for (int i = threadIdx.x; i < 2 * C; i += TT) sDt[i] = dst[i];
-  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-  zero_top_pads(g, sA, sD);
+  const float *rDt = dst;
+  if constexpr (WIDE) {
+    red = reinterpret_cast<float *>(ring.end());
+    zero_pad_cols(a_out, g.knh, 1, g.knh, g.NH, g, L.pos);
+    zero_pad_cols(dt_out, g.kc, 1, g.kc, C, g, L.pos);
+    ring.start();
+  } else {
+    stage_halo(sH, xpad, g.kc, g, t, L.pos);
+    ring.start(g, t);
+    for (int i = threadIdx.x; i < 2 * C; i += TT) sDt[i] = dst[i];
+    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+    zero_top_pads(g, sA, sD);
+    rDt = sDt;
+  }
 
-  branch_convs(g, t, ring, aH, L,
-               ToActivations<true>{g, L, sBh, sCb, sA, a_out});
   constexpr int GC = (NTC + 1) / 2;
-  conv1x1_chunks<false, true>(
-      g, t, ring, 0, tile_row(sA, g.nhp, L), L,
-      [&](int n0, const Split &sc, float (&)[GC][4], float (&at)[GC][4]) {
+  auto epi_t = [&](int n0, const Split &sc, float (&)[GC][4],
+                   float (&at)[GC][4]) {
 #pragma unroll
-        for (int j = 0; j < GC; ++j)
+    for (int j = 0; j < GC; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = frag_row(L.wm, L.lane, e);
-            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
-            if (c >= C || j >= sc.cnt) continue;
-            const int64_t p = tile_pix(g, L.pos, r);
-            bf16 dtb = bzero();
-            if (p >= 0) {
-              const float tb = bfr(at[j][e]);
-              dtb = f2bf(__fadd_rn(
-                  sDt[c], __fmul_rn(__fmul_rn(2.0f, tb), sDt[C + c])));
-              dt_out[p * g.kc + c] = dtb;
-            }
-            sD[r * xp + c] = dtb;
-          }
-      });
-  branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L, dc_out,
-                  part + static_cast<int64_t>(blockIdx.x) * 2 * g.NH);
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(L.wm, L.lane, e);
+        const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+        if (c >= C || j >= sc.cnt) continue;
+        const int64_t p = tile_pix(g, L.pos, r);
+        bf16 dtb = bzero();
+        if (p >= 0) {
+          const float tb = bfr(at[j][e]);
+          dtb = f2bf(__fadd_rn(
+              rDt[c], __fmul_rn(__fmul_rn(2.0f, tb), rDt[C + c])));
+          dt_out[p * g.kc + c] = dtb;
+        }
+        if (!WIDE) sD[r * xp + c] = dtb;
+      }
+  };
+  if constexpr (WIDE) {
+    wbranch_convs(g, t, ring, L,
+                  ToActivations<true, true>{g, L, bnh, cb, nullptr, a_out});
+    wconv1x1_chunks<false, true>(g, t, ring, L, epi_t);
+    wbranch_backward(g, t, ring, cb, bnh, red, L, dc_out, prow_h);
+  } else {
+    branch_convs(g, t, ring, aH, L,
+                 ToActivations<true>{g, L, sBh, sCb, sA, a_out});
+    conv1x1_chunks<false, true>(g, t, ring, 0, tile_row(sA, g.nhp, L), L,
+                                epi_t);
+    branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L,
+                    dc_out, prow_h);
+  }
   zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
 }
 
@@ -141,7 +195,7 @@ namespace cam {
 namespace {
 
 struct F2bWs {
-  bf16 *a, *dt, *dc;
+  bf16 *a, *dt, *dc, *cb;
   float *part, *part_h, *part_t;
   WgPlan ph, pt;   // dkh; dkt
   bool ok;
@@ -149,8 +203,9 @@ struct F2bWs {
 
 // dc (M, nb khc) keeps the zero padding the tile kernels stage; a
 // (M, knh) and dt (M, kc) have 16-byte rows (their padding columns are
-// not written: only outputs k < NH, n < C are kept).  xpad may be null
-// for sizing.
+// written only by the wide plan, which reads them back: only outputs
+// k < NH, n < C of the weight gradients are kept); the wide plan's c
+// (M, knh) last.  xpad may be null for sizing.
 F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
                 const bf16 *xpad, int64_t *bytes) {
   Carve cv(base);
@@ -166,6 +221,7 @@ F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
     w.part_h = cv.take<float>(wg_part_floats(w.ph));
     w.part_t = cv.take<float>(wg_part_floats(w.pt));
   }
+  w.cb = cv.take<bf16>(t.wide ? static_cast<int64_t>(g.M) * g.knh : 0);
   *bytes = cv.off;
   return w;
 }
@@ -175,14 +231,23 @@ F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
-// F2's per-tile partial rows, bytes.
+// F2's per-tile partial rows, then (the wide plan) a (M, knh), bf16.
+static int64_t carve_f2(const Geo &g, const tile::TGeo &t, void *base,
+                        float **part, bf16 **a) {
+  Carve cv(base);
+  *part = cv.take<float>(static_cast<int64_t>(t.n_tiles) * 2 * g.C);
+  *a = cv.take<bf16>(t.wide ? static_cast<int64_t>(g.M) * g.knh : 0);
+  return cv.off;
+}
+
+// F2's workspace, bytes.
 extern "C" long long cam_f2_workspace(const int *geo) {
   Geo g;
   tile::TGeo t;
   if (!tile::tile_geo(geo, tile::F2, &g, &t)) return -1;
-  Carve cv(nullptr);
-  cv.take<float>(static_cast<int64_t>(t.n_tiles) * 2 * g.C);
-  return cv.off;
+  float *part;
+  bf16 *a;
+  return carve_f2(g, t, nullptr, &part, &a);
 }
 
 // F2's tile plan (cam_tile.cuh:tile_plan).
@@ -201,12 +266,13 @@ extern "C" int cam_f2_launch(const int *geo, const void *xpad,
   if (!tile::tile_geo(geo, tile::F2, &g, &t))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  auto *part = static_cast<float *>(ws);
-  CAM_TRY(tile::launch(tile::f2_tile_kernel, dim3(t.n_tiles),
-                       tile::smem0_bytes(g, t), st, g, t,
-                       static_cast<const bf16 *>(xpad),
-                       static_cast<const bf16 *>(w0),
-                       static_cast<const float *>(bnh), part));
+  float *part;
+  bf16 *a;
+  carve_f2(g, t, ws, &part, &a);
+  CAM_TRY(CAM_TILE_LAUNCH(tile::f2_tile_kernel, g, t, st,
+                          static_cast<const bf16 *>(xpad),
+                          static_cast<const bf16 *>(w0),
+                          static_cast<const float *>(bnh), part, a));
   CAM_TRY(reduce_rows(part, 2 * g.C, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(s_t), 0, st));
   return 0;
@@ -242,12 +308,11 @@ extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
   const auto *xx = static_cast<const bf16 *>(xpad);
   const F2bWs w = carve_f2b(g, t, ws, xx, &bytes);
   if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
-  CAM_TRY(tile::launch(tile::f2b_tile_kernel, dim3(t.n_tiles),
-                       tile::smem0_bytes(g, t), st, g, t, xx,
-                       static_cast<const bf16 *>(w0),
-                       static_cast<const float *>(bnh),
-                       static_cast<const float *>(dst), w.a, w.dt, w.dc,
-                       w.part));
+  CAM_TRY(CAM_TILE_LAUNCH(tile::f2b_tile_kernel, g, t, st, xx,
+                          static_cast<const bf16 *>(w0),
+                          static_cast<const float *>(bnh),
+                          static_cast<const float *>(dst), w.a, w.dt, w.dc,
+                          w.part, w.cb));
   CAM_TRY(reduce_rows(w.part, 2 * g.NH, 0, 2 * g.NH, t.n_tiles, 1,
                       static_cast<float *>(dS), 0, st));
   CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));

@@ -35,11 +35,15 @@ namespace tile {
 // F3 on one 8 x 8 tile: out (M, C) bf16 = relu(relu(BN_r(bf16(x . kr))) +
 // relu(BN_t(bf16(a . kt))) gate[b]), a = bf16(relu(BN_h(bf16(c)))) kept
 // in shared memory only; the _rn operations in the first design's order.
+// WIDE: the wide plan (cam_tile.cuh), a through its rows in `a` (pitch
+// knh, by pixel), the BN rows and the gate read from global memory.
+template <bool WIDE>
 __global__ void __launch_bounds__(TT, 1)
 f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                const bf16 *__restrict__ w0, const float *__restrict__ bnr,
                const float *__restrict__ bnh, const float *__restrict__ bnt,
-               const float *__restrict__ gate, bf16 *__restrict__ out) {
+               const float *__restrict__ gate, bf16 *__restrict__ out,
+               bf16 *__restrict__ a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -51,46 +55,75 @@ f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sG = sBt + 4 * C;
   float *sBh = sG + C;
   const Lane L = lane_of(t);
-  const uint32_t aH = halo_row(sH, xp, t, L);
-  Ring ring{w0, sW, wbuf, L.lane, 0};
+  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  auto ring = [&]() {
+    if constexpr (WIDE) {
+      bf16 *wH;
+      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
+      return WRing<WStage0>{WStage0{g, t, xpad, a, nullptr}, w0, wW, wH,
+                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
+    } else {
+      return Ring{w0, sW, wbuf, L.lane, 0};
+    }
+  }();
 
-  stage_halo(sH, xpad, g.kc, g, t, L.pos);
-  ring.start(g, t);
-  for (int i = threadIdx.x; i < 4 * C; i += TT) {
-    sBr[i] = bnr[i];
-    sBt[i] = bnt[i];
+  const float *rBr = bnr, *rBt = bnt, *rG = gate + L.pos.b * C;
+  if constexpr (WIDE) {
+    zero_pad_cols(a, g.knh, 1, g.knh, g.NH, g, L.pos);
+    ring.start();
+  } else {
+    stage_halo(sH, xpad, g.kc, g, t, L.pos);
+    ring.start(g, t);
+    for (int i = threadIdx.x; i < 4 * C; i += TT) {
+      sBr[i] = bnr[i];
+      sBt[i] = bnt[i];
+    }
+    for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
+    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+    zero_top_pads(g, sA, nullptr);
+    rBr = sBr;
+    rBt = sBt;
+    rG = sG;
   }
-  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
-  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-  zero_top_pads(g, sA, nullptr);
 
-  branch_convs(g, t, ring, aH, L,
-               ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
   constexpr int GC = (NTC + 1) / 2;
-  conv1x1_chunks<true, true>(
-      g, t, ring, aH, tile_row(sA, g.nhp, L), L,
-      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&at)[GC][4]) {
+  auto epi = [&](int n0, const Split &sc, float (&acr)[GC][4],
+                 float (&at)[GC][4]) {
 #pragma unroll
-        for (int j = 0; j < GC; ++j)
+    for (int j = 0; j < GC; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
-            const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
-            if (p < 0 || c >= C || j >= sc.cnt) continue;
-            const float res = relu(bn_apply(bfr(acr[j][e]), sBr[c],
-                                            sBr[C + c], sBr[2 * C + c],
-                                            sBr[3 * C + c]));
-            const float y = relu(bn_apply(bfr(at[j][e]), sBt[c], sBt[C + c],
-                                          sBt[2 * C + c], sBt[3 * C + c]));
-            const float pre = __fadd_rn(res, __fmul_rn(y, sG[c]));
-            out[p * C + c] = f2bf(relu(pre));
-          }
-      });
+      for (int e = 0; e < 4; ++e) {
+        const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+        const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+        if (p < 0 || c >= C || j >= sc.cnt) continue;
+        const float res = relu(bn_apply(bfr(acr[j][e]), rBr[c],
+                                        rBr[C + c], rBr[2 * C + c],
+                                        rBr[3 * C + c]));
+        const float y = relu(bn_apply(bfr(at[j][e]), rBt[c], rBt[C + c],
+                                      rBt[2 * C + c], rBt[3 * C + c]));
+        const float pre = __fadd_rn(res, __fmul_rn(y, rG[c]));
+        out[p * C + c] = f2bf(relu(pre));
+      }
+  };
+  if constexpr (WIDE) {
+    wbranch_convs(g, t, ring, L,
+                  ToActivations<false, true>{g, L, bnh, nullptr, nullptr, a});
+    wconv1x1_chunks<true, true>(g, t, ring, L, epi);
+  } else {
+    branch_convs(g, t, ring, aH, L,
+                 ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
+    conv1x1_chunks<true, true>(g, t, ring, aH, tile_row(sA, g.nhp, L), L,
+                               epi);
+  }
 }
 
 // Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, knh), dt (M, kc),
 // dc (M, nb khc) in bf16 (dr and dc with zero padding columns); per-tile
-// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].
+// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].  WIDE: the
+// wide plan, a and dt read back from a_out and dt_out (their K padding
+// zeroed), c through cb (pitch knh, by pixel), the BN rows and the gate
+// read from global memory.
+template <bool WIDE>
 __global__ void __launch_bounds__(TT, 1)
 f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const bf16 *__restrict__ w0, const float *__restrict__ bnr,
@@ -98,7 +131,8 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const float *__restrict__ gate,
                 const bf16 *__restrict__ gout, bf16 *__restrict__ dr_out,
                 bf16 *__restrict__ a_out, bf16 *__restrict__ dt_out,
-                bf16 *__restrict__ dc_out, float *__restrict__ part) {
+                bf16 *__restrict__ dc_out, float *__restrict__ part,
+                bf16 *__restrict__ cb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -113,84 +147,111 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sG = sBt + 4 * C;
   float *sBh = sG + C;
   const Lane L = lane_of(t);
-  const uint32_t aH = halo_row(sH, xp, t, L);
+  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
   float *prow = part + static_cast<int64_t>(blockIdx.x) * (5 * C + 2 * g.NH);
-  float *red_w = red + L.wm * NRED * NC;
-  Ring ring{w0, sW, wbuf, L.lane, 0};
+  auto ring = [&]() {
+    if constexpr (WIDE) {
+      bf16 *wH;
+      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
+      return WRing<WStage0>{WStage0{g, t, xpad, a_out, dt_out}, w0, wW, wH,
+                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
+    } else {
+      return Ring{w0, sW, wbuf, L.lane, 0};
+    }
+  }();
 
-  stage_halo(sH, xpad, g.kc, g, t, L.pos);
-  ring.start(g, t);
-  for (int i = threadIdx.x; i < 4 * C; i += TT) {
-    sBr[i] = bnr[i];
-    sBt[i] = bnt[i];
+  const float *rBr = bnr, *rBt = bnt, *rG = gate + L.pos.b * C;
+  if constexpr (WIDE) {
+    red = reinterpret_cast<float *>(ring.end());
+    zero_pad_cols(a_out, g.knh, 1, g.knh, g.NH, g, L.pos);
+    zero_pad_cols(dt_out, g.kc, 1, g.kc, C, g, L.pos);
+    ring.start();
+  } else {
+    stage_halo(sH, xpad, g.kc, g, t, L.pos);
+    ring.start(g, t);
+    for (int i = threadIdx.x; i < 4 * C; i += TT) {
+      sBr[i] = bnr[i];
+      sBt[i] = bnt[i];
+    }
+    for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
+    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+    zero_top_pads(g, sA, sD);
+    rBr = sBr;
+    rBt = sBt;
+    rG = sG;
   }
-  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
-  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-  zero_top_pads(g, sA, sD);
-
-  branch_convs(g, t, ring, aH, L,
-               ToActivations<true>{g, L, sBh, sCb, sA, a_out});
+  float *red_w = red + L.wm * NRED * NC;
 
   // the residual and top convs: their BN backward, dr, dt (-> sD), and
   // the five per-tile column sums
   constexpr int GC = (NTC + 1) / 2;
-  conv1x1_chunks<true, true>(
-      g, t, ring, aH, tile_row(sA, g.nhp, L), L,
-      [&](int n0, const Split &sc, float (&acr)[GC][4], float (&at)[GC][4]) {
-        float vg[GC][4], vt1[GC][4], vt2[GC][4];
+  auto epi = [&](int n0, const Split &sc, float (&acr)[GC][4],
+                 float (&at)[GC][4]) {
+    float vg[GC][4], vt1[GC][4], vt2[GC][4];
 #pragma unroll
-        for (int j = 0; j < GC; ++j)
+    for (int j = 0; j < GC; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = frag_row(L.wm, L.lane, e);
-            const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
-            const int64_t p = tile_pix(g, L.pos, r);
-            float dzr = 0.0f, rmm = 0.0f, dzt = 0.0f, tmm = 0.0f, dgy = 0.0f;
-            bf16 dtb = bzero();
-            if (p >= 0 && c < C && j < sc.cnt) {
-              const float rb = bfr(acr[j][e]), tb = bfr(at[j][e]);
-              const float mr = sBr[c], ir = sBr[C + c], sr = sBr[2 * C + c];
-              const float mt = sBt[c], it = sBt[C + c], stt = sBt[2 * C + c];
-              const float zr = bn_apply(rb, mr, ir, sr, sBr[3 * C + c]);
-              const float zt = bn_apply(tb, mt, it, stt, sBt[3 * C + c]);
-              const float y = relu(zt);
-              const float gt = sG[c];
-              const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
-              const float d_o = pre > 0.0f ? bf2f(gout[p * C + c]) : 0.0f;
-              dgy = __fmul_rn(d_o, y);
-              dzr = zr > 0.0f ? d_o : 0.0f;
-              rmm = __fsub_rn(rb, mr);
-              dr_out[p * g.kc + c] = f2bf(__fmul_rn(dzr, __fmul_rn(sr, ir)));
-              const float dy = __fmul_rn(d_o, gt);
-              dzt = zt > 0.0f ? dy : 0.0f;
-              tmm = __fsub_rn(tb, mt);
-              dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
-              dt_out[p * g.kc + c] = dtb;
-            }
-            if (c < C && j < sc.cnt) sD[r * xp + c] = dtb;
-            vg[j][e] = dgy;
-            acr[j][e] = dzr;
-            at[j][e] = __fmul_rn(dzr, rmm);
-            vt1[j][e] = dzt;
-            vt2[j][e] = __fmul_rn(dzt, tmm);
-          }
-        const int c0 = sc.j0 * 8, jn = L.wn ? NTC - GC : GC;  // its columns
-        group_colsum<GC>(acr, red_w + c0, L.lane, jn);
-        group_colsum<GC>(at, red_w + NC + c0, L.lane, jn);
-        group_colsum<GC>(vt1, red_w + 2 * NC + c0, L.lane, jn);
-        group_colsum<GC>(vt2, red_w + 3 * NC + c0, L.lane, jn);
-        group_colsum<GC>(vg, red_w + 4 * NC + c0, L.lane, jn);
-        __syncthreads();
-        for (int c = threadIdx.x; c < NC && n0 + c < C; c += TT) {
-          prow[n0 + c] = block_col(red, 0, c);
-          prow[C + n0 + c] = block_col(red, 1, c);
-          prow[2 * C + n0 + c] = block_col(red, 2, c);
-          prow[3 * C + n0 + c] = block_col(red, 3, c);
-          prow[4 * C + 2 * g.NH + n0 + c] = block_col(red, 4, c);
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(L.wm, L.lane, e);
+        const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
+        const int64_t p = tile_pix(g, L.pos, r);
+        float dzr = 0.0f, rmm = 0.0f, dzt = 0.0f, tmm = 0.0f, dgy = 0.0f;
+        bf16 dtb = bzero();
+        if (p >= 0 && c < C && j < sc.cnt) {
+          const float rb = bfr(acr[j][e]), tb = bfr(at[j][e]);
+          const float mr = rBr[c], ir = rBr[C + c], sr = rBr[2 * C + c];
+          const float mt = rBt[c], it = rBt[C + c], stt = rBt[2 * C + c];
+          const float zr = bn_apply(rb, mr, ir, sr, rBr[3 * C + c]);
+          const float zt = bn_apply(tb, mt, it, stt, rBt[3 * C + c]);
+          const float y = relu(zt);
+          const float gt = rG[c];
+          const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
+          const float d_o = pre > 0.0f ? bf2f(gout[p * C + c]) : 0.0f;
+          dgy = __fmul_rn(d_o, y);
+          dzr = zr > 0.0f ? d_o : 0.0f;
+          rmm = __fsub_rn(rb, mr);
+          dr_out[p * g.kc + c] = f2bf(__fmul_rn(dzr, __fmul_rn(sr, ir)));
+          const float dy = __fmul_rn(d_o, gt);
+          dzt = zt > 0.0f ? dy : 0.0f;
+          tmm = __fsub_rn(tb, mt);
+          dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
+          dt_out[p * g.kc + c] = dtb;
         }
-      });
-  branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L, dc_out,
-                  prow + 4 * C);
+        if (!WIDE && c < C && j < sc.cnt) sD[r * xp + c] = dtb;
+        vg[j][e] = dgy;
+        acr[j][e] = dzr;
+        at[j][e] = __fmul_rn(dzr, rmm);
+        vt1[j][e] = dzt;
+        vt2[j][e] = __fmul_rn(dzt, tmm);
+      }
+    const int c0 = sc.j0 * 8, jn = L.wn ? NTC - GC : GC;  // its columns
+    group_colsum<GC>(acr, red_w + c0, L.lane, jn);
+    group_colsum<GC>(at, red_w + NC + c0, L.lane, jn);
+    group_colsum<GC>(vt1, red_w + 2 * NC + c0, L.lane, jn);
+    group_colsum<GC>(vt2, red_w + 3 * NC + c0, L.lane, jn);
+    group_colsum<GC>(vg, red_w + 4 * NC + c0, L.lane, jn);
+    __syncthreads();
+    for (int c = threadIdx.x; c < NC && n0 + c < C; c += TT) {
+      prow[n0 + c] = block_col(red, 0, c);
+      prow[C + n0 + c] = block_col(red, 1, c);
+      prow[2 * C + n0 + c] = block_col(red, 2, c);
+      prow[3 * C + n0 + c] = block_col(red, 3, c);
+      prow[4 * C + 2 * g.NH + n0 + c] = block_col(red, 4, c);
+    }
+  };
+  if constexpr (WIDE) {
+    wbranch_convs(g, t, ring, L,
+                  ToActivations<true, true>{g, L, bnh, cb, nullptr, a_out});
+    wconv1x1_chunks<true, true>(g, t, ring, L, epi);
+    wbranch_backward(g, t, ring, cb, bnh, red, L, dc_out, prow + 4 * C);
+  } else {
+    branch_convs(g, t, ring, aH, L,
+                 ToActivations<true>{g, L, sBh, sCb, sA, a_out});
+    conv1x1_chunks<true, true>(g, t, ring, aH, tile_row(sA, g.nhp, L), L,
+                               epi);
+    branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L,
+                    dc_out, prow + 4 * C);
+  }
   zero_pad_cols(dr_out, g.kc, 1, g.kc, C, g, L.pos);
   zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
 }
@@ -202,7 +263,7 @@ namespace cam {
 namespace {
 
 struct F3bWs {
-  bf16 *dr, *a, *dt, *dc;
+  bf16 *dr, *a, *dt, *dc, *cb;
   float *part, *part_h, *part_rt;
   WgPlan ph, prt;   // dkh; dkr and dkt in one launch
   bool ok;
@@ -210,8 +271,9 @@ struct F3bWs {
 
 // dr (M, kc) and dc (M, nb khc) keep the zero padding the tile kernels
 // stage; a (M, knh) and dt (M, kc) have 16-byte rows (their padding
-// columns are not written: only outputs k < NH, n < C are kept).  xpad
-// may be null for sizing.
+// columns are written only by the wide plan, which reads them back: only
+// outputs k < NH, n < C of the weight gradients are kept); the wide
+// plan's c (M, knh) last.  xpad may be null for sizing.
 F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
                 const bf16 *xpad, int64_t *bytes) {
   Carve cv(base);
@@ -233,6 +295,7 @@ F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
     w.part_h = cv.take<float>(wg_part_floats(w.ph));
     w.part_rt = cv.take<float>(wg_part_floats(w.prt));
   }
+  w.cb = cv.take<bf16>(t.wide ? static_cast<int64_t>(g.M) * g.knh : 0);
   *bytes = cv.off;
   return w;
 }
@@ -247,23 +310,34 @@ extern "C" long long cam_f3_plan(const int *geo, int what) {
   return tile::tile_plan(geo, tile::F3, what);
 }
 
+// F3's workspace, bytes: the wide plan's a (M, knh) bf16, else none.
+extern "C" long long cam_f3_workspace(const int *geo) {
+  Geo g;
+  tile::TGeo t;
+  if (!tile::tile_geo(geo, tile::F3, &g, &t)) return -1;
+  Carve cv(nullptr);
+  cv.take<bf16>(t.wide ? static_cast<int64_t>(g.M) * g.knh : 0);
+  return cv.off;
+}
+
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
 // re-laid by ops/cam.py:_tile_weights("f3", ...).  out (B, H, W, C) bf16.
+// ws: cam_f3_workspace(geo) bytes.
 extern "C" int cam_f3_launch(const int *geo, const void *xpad,
                              const void *w0, const void *bnr,
                              const void *bnh, const void *bnt,
-                             const void *gate, void *out, void *stream) {
+                             const void *gate, void *ws, void *out,
+                             void *stream) {
   Geo g;
   tile::TGeo t;
   if (!tile::tile_geo(geo, tile::F3, &g, &t))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(tile::launch(
-      tile::f3_tile_kernel, dim3(t.n_tiles), tile::smem0_bytes(g, t),
-      static_cast<cudaStream_t>(stream), g, t,
+  return static_cast<int>(CAM_TILE_LAUNCH(
+      tile::f3_tile_kernel, g, t, static_cast<cudaStream_t>(stream),
       static_cast<const bf16 *>(xpad), static_cast<const bf16 *>(w0),
       static_cast<const float *>(bnr), static_cast<const float *>(bnh),
       static_cast<const float *>(bnt), static_cast<const float *>(gate),
-      static_cast<bf16 *>(out)));
+      static_cast<bf16 *>(out), static_cast<bf16 *>(ws)));
 }
 
 extern "C" long long cam_f3b_workspace(const int *geo) {
@@ -300,15 +374,14 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
   const auto *xx = static_cast<const bf16 *>(xpad);
   const F3bWs w = carve_f3b(g, t, ws, xx, &bytes);
   if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
-  CAM_TRY(tile::launch(tile::f3b_tile_kernel, dim3(t.n_tiles),
-                       tile::smem0_bytes(g, t), st, g, t, xx,
-                       static_cast<const bf16 *>(w0),
-                       static_cast<const float *>(bnr),
-                       static_cast<const float *>(bnh),
-                       static_cast<const float *>(bnt),
-                       static_cast<const float *>(gate),
-                       static_cast<const bf16 *>(gout), w.dr, w.a, w.dt, w.dc,
-                       w.part));
+  CAM_TRY(CAM_TILE_LAUNCH(tile::f3b_tile_kernel, g, t, st, xx,
+                          static_cast<const bf16 *>(w0),
+                          static_cast<const float *>(bnr),
+                          static_cast<const float *>(bnh),
+                          static_cast<const float *>(bnt),
+                          static_cast<const float *>(gate),
+                          static_cast<const bf16 *>(gout), w.dr, w.a, w.dt,
+                          w.dc, w.part, w.cb));
   const int64_t ld = 5 * g.C + 2 * g.NH;
   CAM_TRY(reduce_rows(w.part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(dSr), 0, st));

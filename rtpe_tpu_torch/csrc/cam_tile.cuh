@@ -10,7 +10,14 @@
 // f3_tile_kernel), each backward in phase 0, the recompute of the convs it
 // needs with the per-pixel cotangents (f1b_tile_kernel, f2b_tile_kernel,
 // f3b_tile_kernel, each with its per-tile sums), and phase 1, dx
-// (dx_kernel, one template for all three).
+// (dx_kernel, one template for all three).  Each op takes any C, branch
+// width and 1..6 dilations: where a branch has at most 40 columns and the
+// tile's halo at full channel depth fits a block's shared memory (the
+// train step's CAMs at the default --inplanes 80) the kernels below run
+// as described here; elsewhere their wide plan ("wide plan" below:
+// K-chunked halos and stages, branches in slices; wide_dx_kernel for phase 1),
+// which refuses only a largest dilation whose halo of one 16-channel
+// chunk does not fit (19 and up at C = 163).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
@@ -127,7 +134,39 @@ struct TGeo {
   int nst0;                   // phase-0 weight stages
   int nxr, nchx;              // dx stage rows, dx channel chunks
   int nksr, nst1;             // dx stages of dr kr^T, dx stages per chunk
+  // The wide plan (wide = 1), for a branch wider than SW_MAX or a
+  // geometry whose whole-depth halo and stages do not fit: every operand
+  // K-chunked through shared memory (wide_kernels below); else 0 and the
+  // fields below describe the one chunk of the plan above.
+  int wide;
+  int nsl, sw;                // branch slices, their width (brows)
+  int kq, nq, kqa, nqa;       // phase-0 K chunks of kc (x, dt) and of knh
+                              // (a): width, count
+  int kqm;                    // widest phase-0 chunk (the buffers' pitch - 8)
+  int nbr, n11;               // phase-0 stages of the branch convs, 1x1s
+  int safe_a, safe_d;         // first stages that may read a, dt
+  int kq1r, nq1r, kq1c, nq1c; // phase-1 K chunks of kc (dr), khc (dc)
+  int kq1m;                   // widest phase-1 chunk
 };
+
+// The wide plan's chunks of K (a multiple of 16) at most kmax wide: as
+// few as fit, of even width (to 16), the last one what is left.
+inline void k_chunks(int K, int kmax, int *w, int *n) {
+  *n = (K + kmax - 1) / kmax;
+  *w = ((K + *n - 1) / *n + 15) / 16 * 16;
+}
+
+// The widest chunk (a multiple of 16, -1 if none) whose buffers fit
+// SMEM_MAX: two halo buffers of hr rows, NBUF ring slots of `slot` rows,
+// each of pitch chunk + 8 bf16, and `fixed` bytes more.
+inline int k_fit(int hr, int slot, int64_t fixed) {
+  const int64_t per = 2LL * (2LL * hr + 1LL * NBUF * slot);
+  const int64_t k = (SMEM_MAX - fixed) / per - 8;
+  return k < 16 ? -1 : static_cast<int>(k / 16 * 16);
+}
+
+inline int64_t smem0_bytes(const Geo &g, const TGeo &t);
+inline int64_t smem1_bytes(const Geo &g, const TGeo &t);
 
 inline TGeo make_tgeo(const Geo &g, int op) {
   TGeo t;
@@ -153,6 +192,49 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.nchx = (g.C + NX - 1) / NX;
   t.nksr = t.res ? (g.kc + g.khc - 1) / g.khc : 0;
   t.nst1 = t.nksr + 9 * g.nb;
+  t.wide = 0;
+  t.nsl = 1;
+  t.sw = t.brows;
+  t.kq = t.kqm = g.kc;
+  t.nq = 1;
+  t.kqa = g.knh;
+  t.nqa = 1;
+  t.nbr = 9 * g.nb;
+  t.n11 = (t.res + t.top) * t.nchr;
+  t.safe_a = t.safe_d = -1;
+  t.kq1r = t.kq1c = t.kq1m = g.khc;
+  t.nq1r = t.nksr;
+  t.nq1c = 1;
+  if (g.hc <= SW_MAX && smem0_bytes(g, t) <= SMEM_MAX &&
+      smem1_bytes(g, t) <= SMEM_MAX)
+    return t;
+  // the wide plan: branch slices of at most SW_MAX columns, K chunks as
+  // wide as shared memory takes (kq = -1: it takes none)
+  t.wide = 1;
+  t.nsl = (g.hc + SW_MAX - 1) / SW_MAX;
+  t.sw = up8((g.hc + t.nsl - 1) / t.nsl);
+  t.brows = t.sw;
+  const int k0 = k_fit(t.hr, WROWS + TP, t.bb ? 4LL * NWARPS * NRED * NC : 0);
+  const int k1 = t.bwd ? k_fit(t.hr, t.nxr + t.res * TP, 0) : 16;
+  if (k0 < 0 || k1 < 0) {
+    t.kq = -1;
+    return t;
+  }
+  k_chunks(g.kc, k0, &t.kq, &t.nq);
+  k_chunks(g.knh, k0, &t.kqa, &t.nqa);
+  t.kqm = t.top && t.kqa > t.kq ? t.kqa : t.kq;
+  t.kw0 = t.kqm;
+  t.nbr = 9 * g.nb * t.nsl * t.nq;
+  t.n11 = t.nchr * (t.res * t.nq + t.top * t.nqa);
+  t.nst0 = t.nbr + t.n11 + t.bb * g.nb * t.nsl * t.nq;
+  t.safe_a = t.top ? t.nbr : -1;
+  t.safe_d = t.bb ? t.nbr + t.n11 : -1;
+  k_chunks(g.kc, k1, &t.kq1r, &t.nq1r);
+  k_chunks(g.khc, k1, &t.kq1c, &t.nq1c);
+  t.kq1m = t.res && t.kq1r > t.kq1c ? t.kq1r : t.kq1c;
+  t.nq1r = t.res ? t.nq1r : 0;
+  t.nksr = t.nq1r;
+  t.nst1 = t.nq1r + 9 * g.nb * t.nq1c;
   return t;
 }
 
@@ -165,8 +247,13 @@ inline TGeo make_tgeo(const Geo &g, int op) {
 // and bnt (4C each), image b's gate (C) and bnh (4 NH).  F1's and F2's
 // column sums go through a weight buffer (Ring::spent), so F1 needs F1b's
 // phase 0 less its rows and F2 F2b's less sCb, sD, the dst rows and the
-// scratch: each fits wherever its backward does.
+// scratch: each fits wherever its backward does.  The wide plan: two
+// halo buffers of hr x (kqm + 8) and NBUF slots of WROWS weight rows and
+// TP A rows of pitch kqm + 8, then the column-sum scratch (F2b, F3b).
 inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
+  if (t.wide)
+    return 2LL * (2LL * t.hr + 1LL * NBUF * (WROWS + TP)) * (t.kqm + 8) +
+           (t.bb ? 4LL * NWARPS * NRED * NC : 0);
   const int64_t xp = g.kc + 8;
   int64_t el = t.hr * xp + 1LL * NBUF * WROWS * (t.kw0 + 8);
   int64_t f = t.op == F3B || t.op == F3 ? 9LL * g.C + 4LL * g.NH
@@ -184,42 +271,64 @@ inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
 
 // Shared memory of phase 1 (a backward's; 0 for a forward): the tile's dr
 // rows (TP x (kc + 8), F1b and F3b), the dc halo (hr x (ldc + 8)), NBUF
-// weight buffers (nxr x (khc + 8)), bf16.
+// weight buffers (nxr x (khc + 8)), bf16.  The wide plan: two halo
+// buffers of hr x (kq1m + 8) and NBUF slots of nxr weight rows (and TP dr
+// rows, F1b and F3b) of pitch kq1m + 8.
 inline int64_t smem1_bytes(const Geo &g, const TGeo &t) {
   if (!t.bwd) return 0;
+  if (t.wide)
+    return 2LL * (2LL * t.hr + 1LL * NBUF * (t.nxr + t.res * TP)) *
+           (t.kq1m + 8);
   return 2LL * ((t.res ? TP * (g.kc + 8LL) : 0) + t.hr * (t.ldc + 8LL) +
                 1LL * NBUF * t.nxr * (g.khc + 8));
 }
 
 // bf16 elements of the two re-laid weight buffers (w1: a backward's).
 inline int64_t w0_elems(const Geo &g, const TGeo &t) {
+  if (t.wide)
+    return (9LL + t.bb) * g.nb * t.nsl * t.sw * g.kc +
+           static_cast<int64_t>(t.nchr) * NC *
+               (t.res * g.kc + t.top * g.knh);
   return (9LL + t.bb) * g.nb * t.brows * g.kc +
          static_cast<int64_t>(t.nchr) * NC *
              (t.res * g.kc + t.top * g.knh);
 }
 inline int64_t w1_elems(const Geo &g, const TGeo &t) {
-  return t.bwd ? static_cast<int64_t>(t.nchx) * t.nst1 * t.nxr * g.khc : 0;
+  if (!t.bwd) return 0;
+  if (t.wide)
+    return static_cast<int64_t>(t.nchx) * t.nxr *
+           (t.res * g.kc + 9LL * g.nb * g.khc);
+  return static_cast<int64_t>(t.nchx) * t.nst1 * t.nxr * g.khc;
 }
 
-// A geometry the op's tile kernels take, or false.
+// A geometry the op's tile kernels take, or false: one whose largest
+// dilation's halo, in 16-channel chunks, does not fit is refused.
 inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
   if (op < F1B || op > F2 || !make_geo(geo, g)) return false;
   *t = make_tgeo(*g, op);
-  return smem0_bytes(*g, *t) <= SMEM_MAX && smem1_bytes(*g, *t) <= SMEM_MAX;
+  return t->kq > 0 && smem0_bytes(*g, *t) <= SMEM_MAX &&
+         smem1_bytes(*g, *t) <= SMEM_MAX;
 }
 
-// The op's tile kernels' shared memory (what = 0: phase 0, 1: phase 1)
-// and the bf16 elements of its re-laid weights (2: w0, 3: w1), as
+// The op's tile kernels' shared memory (what = 0: phase 0, 1: phase 1),
+// the bf16 elements of its re-laid weights (2: w0, 3: w1) and its wide
+// plan (4: wide, 5: kq, 6: kqa, 7: kq1r, 8: kq1c, 9: nsl), as
 // ops/cam.py:tile_plan computes them; -1 for an invalid geometry.
 inline long long tile_plan(const int *geo, int op, int what) {
   Geo g;
-  if (op < F1B || op > F2 || !make_geo(geo, &g)) return -1;
-  const TGeo t = make_tgeo(g, op);
+  TGeo t;
+  if (!tile_geo(geo, op, &g, &t)) return -1;
   switch (what) {
     case 0: return smem0_bytes(g, t);
     case 1: return smem1_bytes(g, t);
     case 2: return w0_elems(g, t);
     case 3: return w1_elems(g, t);
+    case 4: return t.wide;
+    case 5: return t.kq;
+    case 6: return t.kqa;
+    case 7: return t.kq1r;
+    case 8: return t.kq1c;
+    case 9: return t.nsl;
     default: return -1;
   }
 }
@@ -406,19 +515,41 @@ __device__ __forceinline__ int64_t tile_pix(const Geo &g, const TilePos &p,
   return (static_cast<int64_t>(p.b) * g.H + y) * g.W + x;
 }
 
-// Stage the tile's halo of src (flat pixel rows of pitch ld, ld / 8 16-byte
-// chunks each) into shared rows of pitch ld + 8, zero outside the image.
-__device__ __forceinline__ void stage_halo(bf16 *dst, const bf16 *src, int ld,
-                                           const Geo &g, const TGeo &t,
-                                           const TilePos &p) {
+// Stage columns c0 .. c0 + kw of the tile's halo of src (pixel rows of
+// pitch ld) into shared rows of pitch kw + 8, zero outside the image.
+__device__ __forceinline__ void stage_halo_cols(bf16 *dst, const bf16 *src,
+                                                int ld, int c0, int kw,
+                                                const Geo &g, const TGeo &t,
+                                                const TilePos &p) {
   const uint32_t d = saddr(dst);
-  for_chunks(t.hr, ld / 8, [&](int h, int c) {
+  for_chunks(t.hr, kw / 8, [&](int h, int c) {
     const int hy = h / t.hs;
     const int y = p.y0 - t.dmax + hy, x = p.x0 - t.dmax + h - hy * t.hs;
     const bool ok = y >= 0 && y < g.H && x >= 0 && x < g.W;
     const int64_t row = ok ? (static_cast<int64_t>(p.b) * g.H + y) * g.W + x
                            : 0;
-    cp16(d + (h * (ld + 8) + c * 8) * 2, src + row * ld + c * 8, ok);
+    cp16(d + (h * (kw + 8) + c * 8) * 2, src + row * ld + c0 + c * 8, ok);
+  });
+}
+
+// ... its whole rows (ld / 8 16-byte chunks each), pitch ld + 8.
+__device__ __forceinline__ void stage_halo(bf16 *dst, const bf16 *src, int ld,
+                                           const Geo &g, const TGeo &t,
+                                           const TilePos &p) {
+  stage_halo_cols(dst, src, ld, 0, ld, g, t, p);
+}
+
+// Columns c0 .. c0 + kw of the tile's 64 pixel rows of src (pitch ld),
+// zero for pixels outside the image, into shared rows of pitch kw + 8.
+__device__ __forceinline__ void stage_rows_cols(bf16 *dst, const bf16 *src,
+                                                int ld, int c0, int kw,
+                                                const Geo &g,
+                                                const TilePos &p) {
+  const uint32_t d = saddr(dst);
+  for_chunks(TP, kw / 8, [&](int r, int c) {
+    const int64_t q = tile_pix(g, p, r);
+    cp16(d + (r * (kw + 8) + c * 8) * 2,
+         src + (q < 0 ? 0 : q) * ld + c0 + c * 8, q >= 0);
   });
 }
 
@@ -505,10 +636,16 @@ __device__ __forceinline__ uint32_t tile_row(const bf16 *s, int ld,
   return saddr(s + (L.wm * 16 + lm_row(L.lane)) * ld + (L.lane >> 4) * 8);
 }
 
+// A branch's columns s0 .. s0 + w of branch i (the whole branch, s0 = 0
+// and w = hc, but in the wide plan's slices).
+struct Slice {
+  int i, s0, w;
+};
+
 // The branch convs: for each branch i, acc = the sum over taps 0..8 of
 // the halo rows shifted by the tap's offset . kh[i, tap] (k-steps
-// ascending), then epi(i, split, acc) on the column group's GB n8 tiles.
-// Stages: the nb x 9 taps.
+// ascending), then epi(slice, split, acc) on the column group's GB n8
+// tiles.  Stages: the nb x 9 taps.
 template <typename Epi>
 __device__ __forceinline__ void branch_convs(const Geo &g, const TGeo &t,
                                              Ring &ring, uint32_t aH,
@@ -526,7 +663,7 @@ __device__ __forceinline__ void branch_convs(const Geo &g, const TGeo &t,
       const int sh = ((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
       mma_rows<GB>(acc, aH + sh * xp * 2, b, xp * 2, g.kc / 16, sb.cnt);
     }
-    epi(i, sb, acc);
+    epi(Slice{i, 0, g.hc}, sb, acc);
   }
 }
 
@@ -560,33 +697,42 @@ __device__ __forceinline__ void conv1x1_chunks(const Geo &g, const TGeo &t,
 
 // The branch convs' epilogue of F3, F2b and F3b: sA = bf16(relu(BN(c)))
 // from the BN rows sBh; with BWD (F2b, F3b) also sCb = bf16(c) and
-// a_out = the same a.
-template <bool BWD>
+// a_out = the same a.  WIDE: a goes to a_out only (the 1x1 stages read it
+// back) and c to sCb in global memory, both rows of pitch knh by pixel.
+template <bool BWD, bool WIDE = false>
 struct ToActivations {
   const Geo &g;
   const Lane &L;
   const float *sBh;
   bf16 *sCb, *sA, *a_out;
   template <int GB>
-  __device__ __forceinline__ void operator()(int i, const Split &sb,
+  __device__ __forceinline__ void operator()(const Slice &sl, const Split &sb,
                                              const float (&acc)[GB][4]) const {
+    const int i = sl.i;
 #pragma unroll
     for (int j = 0; j < GB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int n = frag_col(L.lane, sb.j0 + j, e);
-        if (n >= g.hc) continue;
-        const int r = frag_row(L.wm, L.lane, e);
+        if (n >= sl.w) continue;
+        const int r = frag_row(L.wm, L.lane, e), col = sl.s0 + n;
         const float cb = bfr(acc[j][e]);
-        const float *bn = sBh + 4 * i * g.hc + n;
+        const float *bn = sBh + 4 * i * g.hc + col;
         const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
                                  bn[3 * g.hc]);
         const bf16 ab = f2bf(relu(z));
-        if (BWD) sCb[r * g.nhp + i * g.hc + n] = f2bf(cb);
-        sA[r * g.nhp + i * g.hc + n] = ab;
+        if (WIDE) {
+          const int64_t p = tile_pix(g, L.pos, r);
+          if (p < 0) continue;
+          if (BWD) sCb[p * g.knh + i * g.hc + col] = f2bf(cb);
+          a_out[p * g.knh + i * g.hc + col] = ab;
+          continue;
+        }
+        if (BWD) sCb[r * g.nhp + i * g.hc + col] = f2bf(cb);
+        sA[r * g.nhp + i * g.hc + col] = ab;
         if (BWD) {
           const int64_t p = tile_pix(g, L.pos, r);
-          if (p >= 0) a_out[p * g.knh + i * g.hc + n] = ab;
+          if (p >= 0) a_out[p * g.knh + i * g.hc + col] = ab;
         }
       }
   }
@@ -726,14 +872,7 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
   const bf16 *wch = w1 + static_cast<int64_t>(blockIdx.y) * t.nst1 * wst;
 
   // the tile's dr rows, zero for pixels outside the image
-  if (HAS_DR) {
-    const uint32_t dR = saddr(sR);
-    for_chunks(TP, g.kc / 8, [&](int r, int c) {
-      const int64_t p = tile_pix(g, L.pos, r);
-      cp16(dR + (r * xp + c * 8) * 2, dr + (p < 0 ? 0 : p) * g.kc + c * 8,
-           p >= 0);
-    });
-  }
+  if (HAS_DR) stage_rows_cols(sR, dr, g.kc, 0, g.kc, g, L.pos);
   stage_halo(sC, dc, t.ldc, g, t, L.pos);
   copy_stage(sW, wch, t.nxr, g.khc);
   cp_commit();
@@ -777,6 +916,443 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
     }
 }
 
+// ------------------------------------------------------------ wide plan
+//
+// The wide plan (TGeo::wide) takes any branch width and any C: shared
+// memory depends on the chunk widths and the largest dilation, not on C.
+//   - every K dimension goes in chunks (k_chunks, as wide as SMEM_MAX
+//     takes: x's and dt's kc in kq chunks, a's knh in kqa, phase 1's dr
+//     kc in kq1r and dc's khc in kq1c); a halo (x in phase 0, dc in phase
+//     1) is staged one chunk at a time, double-buffered, and every stage
+//     of the ring carries its B weights and, for a 1x1 product, its A
+//     chunk of the tile's 64 rows (x, a, dt or dr), so a 1x1 product's
+//     partial sums stay in registers across its K chunks, a branch conv's
+//     across its chunks and taps (order: chunks, then taps, k-steps
+//     ascending);
+//   - branches go in slices of at most SW_MAX columns (sw: 48 as 2 x 24,
+//     64 as 2 x 32, 128 as 4 x 32), each a branch of the plan above;
+//   - a, dt and c are not kept in shared memory: a and dt are written to
+//     their scratch rows in global memory (a_out / dt_out, or F2's and
+//     F3's own) and read back as the A chunks of the 1x1 and the branch
+//     backward stages; the first stages that read them may start only
+//     after every warp has written its rows (TGeo::safe_a, safe_d: their
+//     A chunks are not prefetched past that point but copied there, and
+//     waited for); c is read back by the thread that wrote it;
+//   - the BN rows, the gate and the statistics' cotangents are read from
+//     global memory (a few KB, cached).
+// The per-pixel outputs keep their rounding points; the products add
+// their chunks in another order than the plan above, which a geometry
+// takes only where it fits (a branch of at most SW_MAX columns and a
+// whole-depth halo and stages within SMEM_MAX).
+
+enum AKind { A_NONE = 0, A_HALO = 1, A_ROWS = 2 };
+
+// A wide-plan stage: B (brows x kw at boff of the re-laid weights); its A
+// (A_HALO: a halo chunk into halo buffer hb, read by this and the next 8
+// stages; A_ROWS: the tile's rows into the stage's slot) from asrc
+// (pitch ald, columns ac0 ..); dep: the first stage at whose barrier
+// the A rows may be read (they are made in this launch), or -1; halo: the
+// stage reads a halo buffer (a branch stage), with its branch and tap.
+struct WSt {
+  int64_t boff;
+  int brows, kw, akind;
+  const bf16 *asrc;
+  int ald, ac0, hb, dep, i, tap, halo;
+};
+
+// Phase-0 stage s of the wide plan, in w0 as ops/cam.py:_wide_weights
+// lays it out: the branch
+// convs per (branch, slice, chunk, tap), [sw][kw] of kh[i, tap]^T, the
+// halo chunk staged at tap 0 (once in all if there is one chunk); per 1x1
+// chunk of NC channels its kr^T chunks [NC][kw] with x's rows (res), then
+// its kt^T chunks with a's rows (top); the branch backward per (branch,
+// slice, chunk), [sw][kw] of kt[i], with dt's rows.
+struct WStage0 {
+  const Geo &g;
+  const TGeo &t;
+  const bf16 *xpad, *a, *dt;
+  __device__ __forceinline__ WSt operator()(int s) const {
+    WSt r;
+    r.akind = A_NONE;
+    r.asrc = xpad;
+    r.ald = g.kc;
+    r.hb = 0;
+    r.dep = -1;
+    r.i = 0;
+    r.tap = 0;
+    r.halo = 0;
+    const int64_t blk = 9LL * t.sw * g.kc;
+    if (s < t.nbr) {
+      const int tap = s % 9, u = s / 9, q = u % t.nq, isl = u / t.nq;
+      const int k0 = q * t.kq;
+      r.kw = g.kc - k0 < t.kq ? g.kc - k0 : t.kq;
+      r.boff = isl * blk + 9LL * q * t.sw * t.kq +
+               static_cast<int64_t>(tap) * t.sw * r.kw;
+      r.brows = t.sw;
+      r.halo = 1;
+      if (tap == 0 && (t.nq > 1 || isl == 0)) r.akind = A_HALO;
+      r.ac0 = k0;
+      r.hb = t.nq > 1 ? (u & 1) : 0;
+      r.i = isl / t.nsl;
+      r.tap = tap;
+      return r;
+    }
+    s -= t.nbr;
+    const int64_t base1 = static_cast<int64_t>(g.nb) * t.nsl * blk;
+    const int per = t.res * t.nq + t.top * t.nqa;
+    const int64_t pair = static_cast<int64_t>(NC) *
+                         (t.res * g.kc + t.top * g.knh);
+    r.akind = A_ROWS;
+    if (s < t.nchr * per) {
+      const int ch = s / per, v = s - ch * per;
+      r.brows = NC;
+      if (t.res && v < t.nq) {
+        r.ac0 = v * t.kq;
+        r.kw = g.kc - r.ac0 < t.kq ? g.kc - r.ac0 : t.kq;
+        r.boff = base1 + ch * pair + static_cast<int64_t>(v) * NC * t.kq;
+        return r;
+      }
+      const int q = v - t.res * t.nq;
+      r.ac0 = q * t.kqa;
+      r.kw = g.knh - r.ac0 < t.kqa ? g.knh - r.ac0 : t.kqa;
+      r.boff = base1 + ch * pair + t.res * static_cast<int64_t>(NC) * g.kc +
+               static_cast<int64_t>(q) * NC * t.kqa;
+      r.asrc = a;
+      r.ald = g.knh;
+      r.dep = t.safe_a;
+      return r;
+    }
+    s -= t.nchr * per;
+    const int q = s % t.nq, isl = s / t.nq;
+    r.ac0 = q * t.kq;
+    r.kw = g.kc - r.ac0 < t.kq ? g.kc - r.ac0 : t.kq;
+    r.boff = base1 + t.nchr * pair + isl * t.sw * static_cast<int64_t>(g.kc) +
+             static_cast<int64_t>(q) * t.sw * t.kq;
+    r.brows = t.sw;
+    r.asrc = dt;
+    r.dep = t.safe_d;
+    r.i = isl / t.nsl;
+    return r;
+  }
+};
+
+// Phase-1 stage s of one chunk of nxr output channels (w1, as
+// ops/cam.py:_wide_weights lays it out): dr's chunks, [nxr][kw] of kr
+// with dr's rows (F1b, F3b); then per (branch, chunk of khc, tap)
+// [nxr][kw] of kh[i, tap], dc's halo chunk (branch i's columns) staged
+// at tap 0.
+struct WStage1 {
+  const Geo &g;
+  const TGeo &t;
+  const bf16 *dr, *dc;
+  __device__ __forceinline__ WSt operator()(int s) const {
+    WSt r;
+    r.brows = t.nxr;
+    r.hb = 0;
+    r.dep = -1;
+    r.i = 0;
+    r.tap = 0;
+    r.halo = 0;
+    if (s < t.nq1r) {
+      r.ac0 = s * t.kq1r;
+      r.kw = g.kc - r.ac0 < t.kq1r ? g.kc - r.ac0 : t.kq1r;
+      r.boff = static_cast<int64_t>(s) * t.nxr * t.kq1r;
+      r.akind = A_ROWS;
+      r.asrc = dr;
+      r.ald = g.kc;
+      return r;
+    }
+    const int u = s - t.nq1r, tap = u % 9, v = u / 9, q = v % t.nq1c,
+              i = v / t.nq1c;
+    const int k0 = q * t.kq1c;
+    r.kw = g.khc - k0 < t.kq1c ? g.khc - k0 : t.kq1c;
+    r.boff = t.res * static_cast<int64_t>(t.nxr) * g.kc +
+             9LL * i * t.nxr * g.khc + 9LL * q * t.nxr * t.kq1c +
+             static_cast<int64_t>(tap) * t.nxr * r.kw;
+    r.akind = tap == 0 ? A_HALO : A_NONE;
+    r.asrc = dc;
+    r.ald = t.ldc;
+    r.ac0 = i * g.khc + k0;
+    r.hb = v & 1;
+    r.i = i;
+    r.tap = tap;
+    r.halo = 1;
+    return r;
+  }
+};
+
+// The addresses of a stage for this lane: b its B row (lm_brow, lm_bk) at
+// the first n8 tile, a its A row (the halo's centre row or the slot's
+// tile row), pitch (kw + 8) * 2 bytes, and the stage.
+struct WCur {
+  uint32_t b, a;
+  int pitch;
+  WSt st;
+};
+
+// The wide plan's ring: NBUF slots of wrows weight rows and trows A rows
+// (TP, or 0 where no stage has A rows) of pitch kqm + 8, two halo buffers
+// of hr rows; two stages in flight, as
+// Ring, one group committed a step.  A stage's A rows made in this launch
+// (dep >= 0) go with its weights only if they are issued at or after
+// stage dep's barrier; else stage dep's step copies them after its
+// barrier (stages dep and dep + 1 at most) and waits for them.
+template <typename SD>
+struct WRing {
+  SD sd;
+  const bf16 *w;
+  bf16 *sW, *sH;
+  int kqm, wrows, trows, nst;
+  const Geo &g;
+  const TGeo &t;
+  const Lane &L;
+  int s;
+
+  __device__ __forceinline__ bf16 *slot(int x) const {
+    return sW + (x % NBUF) * (wrows + trows) * (kqm + 8);
+  }
+  __device__ __forceinline__ bf16 *arows(int x) const {
+    return slot(x) + wrows * (kqm + 8);
+  }
+  // the shared memory past the slots
+  __device__ __forceinline__ bf16 *end() const {
+    return sW + NBUF * (wrows + trows) * (kqm + 8);
+  }
+  __device__ __forceinline__ bf16 *halo(int hb) const {
+    return sH + hb * t.hr * (kqm + 8);
+  }
+
+  // Issue stage x's copies from the step of stage `at`.
+  __device__ __forceinline__ void copy(int x, int at) const {
+    const WSt st = sd(x);
+    copy_stage(slot(x), w + st.boff, st.brows, st.kw);
+    if (st.akind == A_HALO)
+      stage_halo_cols(halo(st.hb), st.asrc, st.ald, st.ac0, st.kw, g, t,
+                      L.pos);
+    else if (st.akind == A_ROWS && (st.dep < 0 || at >= st.dep))
+      stage_rows_cols(arows(x), st.asrc, st.ald, st.ac0, st.kw, g, L.pos);
+  }
+
+  __device__ __forceinline__ void start() {
+    for (int u = 0; u < 2; ++u) {
+      if (u < nst) copy(u, u - 2);
+      cp_commit();
+    }
+  }
+
+  __device__ __forceinline__ WCur next() {
+    cp_wait_one();
+    __syncthreads();
+    bool late = false;
+    if (s == t.safe_a || s == t.safe_d)   // (phase 1's stages: dep -1)
+      for (int x = s; x < s + 2 && x < nst; ++x) {
+        const WSt st = sd(x);
+        if (st.akind == A_ROWS && st.dep == s) {
+          stage_rows_cols(arows(x), st.asrc, st.ald, st.ac0, st.kw, g,
+                          L.pos);
+          late = true;
+        }
+      }
+    if (late) cp_commit();
+    if (s + 2 < nst) copy(s + 2, s);
+    cp_commit();
+    if (late) {
+      cp_wait_one();
+      __syncthreads();
+    }
+    WCur c;
+    c.st = sd(s);
+    c.pitch = (c.st.kw + 8) * 2;
+    c.b = saddr(slot(s) + lm_brow(L.lane) * (c.st.kw + 8) + lm_bk(L.lane));
+    const int lr = L.wm * 16 + lm_row(L.lane), ak = (L.lane >> 4) * 8;
+    c.a = c.st.halo
+              ? saddr(halo(c.st.hb) +
+                      (((lr >> 3) + t.dmax) * t.hs + (lr & 7) + t.dmax) *
+                          (c.st.kw + 8) +
+                      ak)
+              : saddr(arows(s) + lr * (c.st.kw + 8) + ak);
+    ++s;
+    return c;
+  }
+
+  // As Ring::spent: the slot of the stage next() returned last.
+  __device__ __forceinline__ float *spent() const {
+    return reinterpret_cast<float *>(slot(s - 1));
+  }
+};
+
+// The wide plan's branch convs: per branch slice acc = the sum over its
+// chunks and taps of the halo chunk's rows shifted by the tap's offset .
+// kh[i, tap]'s chunk, then epi(slice, split, acc).
+template <typename R, typename Epi>
+__device__ __forceinline__ void wbranch_convs(const Geo &g, const TGeo &t,
+                                              R &ring, const Lane &L,
+                                              Epi epi) {
+  constexpr int GB = (NTB + 1) / 2;
+  const Split sb = split<NTB>(L.wn, t.sw / 8);
+  for (int i = 0; i < g.nb; ++i)
+    for (int sl = 0; sl < t.nsl; ++sl) {
+      const int d = g.dil[i];
+      float acc[GB][4];
+      zero_acc(acc);
+#pragma unroll 1
+      for (int u = 0; u < 9 * t.nq; ++u) {
+        const WCur c = ring.next();
+        const int tap = c.st.tap;
+        const int sh = ((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
+        mma_rows<GB>(acc, c.a + sh * c.pitch, c.b + sb.j0 * 8 * c.pitch,
+                     c.pitch, c.st.kw / 16, sb.cnt);
+      }
+      const int s0 = sl * t.sw;
+      epi(Slice{i, s0, g.hc - s0 < t.sw ? g.hc - s0 : t.sw}, sb, acc);
+    }
+}
+
+// The wide plan's 1x1 convs in chunks of NC output channels: per chunk
+// acr = the sum over x's K chunks (RES), at over a's (TOP), then
+// epi(n0, split, acr, at).
+template <bool RES, bool TOP, typename R, typename Epi>
+__device__ __forceinline__ void wconv1x1_chunks(const Geo &g, const TGeo &t,
+                                                R &ring, const Lane &L,
+                                                Epi epi) {
+  constexpr int GC = (NTC + 1) / 2;
+  for (int n0 = 0; n0 < g.C; n0 += NC) {
+    const int ntc = (g.C - n0 + 7) / 8 < NTC ? (g.C - n0 + 7) / 8 : NTC;
+    const Split sc = split<NTC>(L.wn, ntc);
+    float acr[GC][4], at[GC][4];
+    zero_acc(acr);
+    zero_acc(at);
+    if (RES)
+#pragma unroll 1
+      for (int q = 0; q < t.nq; ++q) {
+        const WCur c = ring.next();
+        mma_rows<GC>(acr, c.a, c.b + sc.j0 * 8 * c.pitch, c.pitch,
+                     c.st.kw / 16, sc.cnt);
+      }
+    if (TOP)
+#pragma unroll 1
+      for (int q = 0; q < t.nqa; ++q) {
+        const WCur c = ring.next();
+        mma_rows<GC>(at, c.a, c.b + sc.j0 * 8 * c.pitch, c.pitch,
+                     c.st.kw / 16, sc.cnt);
+      }
+    epi(n0, sc, acr, at);
+  }
+}
+
+// The wide plan's branch backward (F2b, F3b), as branch_backward per
+// branch slice: da = the sum over dt's K chunks . kt[i]'s, c read back
+// from its global rows (pitch knh, by pixel).
+template <typename R>
+__device__ __forceinline__ void wbranch_backward(
+    const Geo &g, const TGeo &t, R &ring, const bf16 *cb, const float *bnh,
+    float *red, const Lane &L, bf16 *dc_out, float *prow_h) {
+  constexpr int GB = (NTB + 1) / 2;
+  const Split sb = split<NTB>(L.wn, t.sw / 8);
+  float *red_w = red + L.wm * NRED * NC;
+  for (int i = 0; i < g.nb; ++i)
+    for (int sl = 0; sl < t.nsl; ++sl) {
+      float acc[GB][4];
+      zero_acc(acc);
+#pragma unroll 1
+      for (int q = 0; q < t.nq; ++q) {
+        const WCur c = ring.next();
+        mma_rows<GB>(acc, c.a, c.b + sb.j0 * 8 * c.pitch, c.pitch,
+                     c.st.kw / 16, sb.cnt);
+      }
+      const int s0 = sl * t.sw, w = g.hc - s0 < t.sw ? g.hc - s0 : t.sw;
+      float v1[GB][4], v2[GB][4];
+#pragma unroll
+      for (int j = 0; j < GB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = frag_row(L.wm, L.lane, e);
+          const int n = frag_col(L.lane, sb.j0 + j, e);
+          const int64_t p = tile_pix(g, L.pos, r);
+          v1[j][e] = 0.0f;
+          v2[j][e] = 0.0f;
+          if (n >= w || p < 0) continue;
+          const int col = s0 + n;
+          const float cv = bf2f(cb[p * g.knh + i * g.hc + col]);
+          const float *bn = bnh + 4 * i * g.hc + col;
+          const float mean = bn[0], inv = bn[g.hc], scale = bn[2 * g.hc];
+          const float z = bn_apply(cv, mean, inv, scale, bn[3 * g.hc]);
+          const float dz = z > 0.0f ? acc[j][e] : 0.0f;
+          v1[j][e] = dz;
+          v2[j][e] = __fmul_rn(dz, __fsub_rn(cv, mean));
+          dc_out[p * t.ldc + i * g.khc + col] =
+              f2bf(__fmul_rn(dz, __fmul_rn(scale, inv)));
+        }
+      const int jn = L.wn ? NTB - GB : GB;
+      group_colsum<GB>(v1, red_w + sb.j0 * 8, L.lane, jn);
+      group_colsum<GB>(v2, red_w + NC + sb.j0 * 8, L.lane, jn);
+      __syncthreads();
+      for (int c = threadIdx.x; c < w; c += TT) {
+        prow_h[2 * i * g.hc + s0 + c] = block_col(red, 0, c);
+        prow_h[(2 * i + 1) * g.hc + s0 + c] = block_col(red, 1, c);
+      }
+    }
+}
+
+// The wide plan's shared memory: two halo buffers, then NBUF slots of
+// WRing rows, all of pitch kqm + 8; returns the slots.
+__device__ __forceinline__ bf16 *wide_carve(unsigned char *smem,
+                                            const TGeo &t, int kqm,
+                                            bf16 **sH) {
+  *sH = reinterpret_cast<bf16 *>(smem);
+  return *sH + 2 * t.hr * (kqm + 8);
+}
+
+// Phase 1 of the wide plan: dx as dx_kernel, K-chunked (dr's chunks,
+// then per branch dc's halo chunks and their taps).
+template <bool HAS_DR, bool HAS_GAP>
+__global__ void __launch_bounds__(TT, 1)
+wide_dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
+           const bf16 *__restrict__ dc, const bf16 *__restrict__ w1,
+           const float *__restrict__ dgap, float inv_n,
+           bf16 *__restrict__ dx) {
+  constexpr int GX = (NTX + 1) / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Lane L = lane_of(t);
+  const int n0 = blockIdx.y * NX;
+  const int nt = (g.C - n0 + 7) / 8 < NTX ? (g.C - n0 + 7) / 8 : NTX;
+  const Split sx = split<NTX>(L.wn, nt);
+  const bf16 *wch = w1 + static_cast<int64_t>(blockIdx.y) * t.nxr *
+                             (t.res * g.kc + 9LL * g.nb * g.khc);
+  bf16 *sH;
+  bf16 *sW = wide_carve(smem, t, t.kq1m, &sH);
+  WRing<WStage1> ring{WStage1{g, t, dr, dc}, wch, sW, sH, t.kq1m, t.nxr,
+                      HAS_DR ? TP : 0, t.nst1, g, t, L, 0};
+  ring.start();
+  float acc[GX][4];
+  zero_acc(acc);
+#pragma unroll 1
+  for (int s = 0; s < t.nst1; ++s) {
+    const WCur c = ring.next();
+    const uint32_t b = c.b + sx.j0 * 8 * c.pitch;
+    if (!c.st.halo) {
+      mma_rows<GX>(acc, c.a, b, c.pitch, c.st.kw / 16, sx.cnt);
+    } else {
+      const int tap = c.st.tap, d = g.dil[c.st.i];
+      const int sh = -((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
+      mma_rows<GX>(acc, c.a + sh * c.pitch, b, c.pitch, c.st.kw / 16,
+                   sx.cnt);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < GX; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = n0 + frag_col(L.lane, sx.j0 + j, e);
+      const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
+      if (p < 0 || c >= g.C || j >= sx.cnt) continue;
+      float v = acc[j][e];
+      if (HAS_GAP)
+        v = __fadd_rn(v, __fmul_rn(dgap[L.pos.b * g.C + c], inv_n));
+      dx[p * g.C + c] = f2bf(v);
+    }
+}
+
 // ------------------------------------------------------------ host side
 
 // Launch a tile kernel (TT threads, smem bytes of dynamic shared memory).
@@ -796,9 +1372,18 @@ template <bool HAS_DR, bool HAS_GAP>
 cudaError_t launch_dx(const Geo &g, const TGeo &t, const bf16 *dr,
                       const bf16 *dc, const bf16 *w1, const float *dgap,
                       float inv_n, bf16 *dx, cudaStream_t st) {
-  return launch(dx_kernel<HAS_DR, HAS_GAP>, dim3(t.n_tiles, t.nchx),
-                smem1_bytes(g, t), st, g, t, dr, dc, w1, dgap, inv_n, dx);
+  return launch(t.wide ? wide_dx_kernel<HAS_DR, HAS_GAP>
+                       : dx_kernel<HAS_DR, HAS_GAP>,
+                dim3(t.n_tiles, t.nchx), smem1_bytes(g, t), st, g, t, dr, dc,
+                w1, dgap, inv_n, dx);
 }
+
+// Launch op kernel K<false> (the plan above) or K<true> (the wide plan).
+#define CAM_TILE_LAUNCH(K, g, t, st, ...)                                  \
+  ((t).wide ? tile::launch(K<true>, dim3((t).n_tiles),                     \
+                           tile::smem0_bytes(g, t), st, g, t, __VA_ARGS__) \
+            : tile::launch(K<false>, dim3((t).n_tiles),                    \
+                           tile::smem0_bytes(g, t), st, g, t, __VA_ARGS__))
 
 // The dkh product: x (padded, pitch kc) at each branch's 9 taps against
 // that branch's dc columns (pitch ldc, branch i at i khc); out laid out as

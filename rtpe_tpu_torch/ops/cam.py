@@ -55,8 +55,7 @@ from ..parallel.dist import all_reduce_sum, stats_group
 from . import _build, _observe
 
 BN_EPS = 1e-5
-HC_MAX = 40      # the kernels' widest branch
-NB_MAX = 6       # and most dilations
+NB_MAX = 6       # the kernels' most dilations
 
 _P = ctypes.c_void_p
 _CNT = [_P, ctypes.c_int]   # cam_wgrad_counts, in every CAM library
@@ -65,12 +64,12 @@ _SIGS = {
                "cam_wgrad_launch": [_P] * 6, "cam_wgrad_counts": _CNT},
     "cam_f2": {"cam_f2_launch": [_P] * 7, "cam_f2b_launch": [_P] * 12,
                "cam_wgrad_counts": _CNT},
-    "cam_f3": {"cam_f3_launch": [_P] * 9, "cam_f3b_launch": [_P] * 19,
+    "cam_f3": {"cam_f3_launch": [_P] * 10, "cam_f3b_launch": [_P] * 19,
                "cam_wgrad_counts": _CNT},
 }
 _WORKSPACE = {"cam_f1": ("cam_f1_workspace", "cam_f1b_workspace"),
               "cam_f2": ("cam_f2_workspace", "cam_f2b_workspace"),
-              "cam_f3": ("cam_f3b_workspace",)}
+              "cam_f3": ("cam_f3_workspace", "cam_f3b_workspace")}
 
 
 # ------------------------------------------------------------ plain versions
@@ -406,11 +405,10 @@ def _check(x, kr, kh, kt, dils, f32_args, bf16_args=()):
         raise ValueError(f"kh must be (nb, 3, 3, {c}, hc), got "
                          f"{tuple(kh.shape)}")
     nb, hc = kh.shape[0], kh.shape[4]
-    if len(dils) != nb or not 1 <= nb <= NB_MAX or hc > HC_MAX \
-            or min(dils) < 1:
+    if len(dils) != nb or not 1 <= nb <= NB_MAX or min(dils) < 1:
         raise ValueError(f"the CAM kernels take 1..{NB_MAX} dilations >= 1 "
-                         f"(one per branch) and hc <= {HC_MAX}; got dils "
-                         f"{tuple(dils)}, kh {tuple(kh.shape)}")
+                         f"(one per branch); got dils {tuple(dils)}, kh "
+                         f"{tuple(kh.shape)}")
     if kr is not None and tuple(kr.shape) != (c, c):
         raise ValueError(f"kr must be ({c}, {c}), got {tuple(kr.shape)}")
     if kt is not None and tuple(kt.shape) != (nb, hc, c):
@@ -479,8 +477,8 @@ def _dispatch(x, name):
 def cam_f1_fwd(x, kr, kh, dils):
     """F1 (replaces ``pallas_cam.py:_f1_call``): (s_r, s_h, sums of x per
     image), float32.  On the card the tile kernel of
-    ``csrc/cam_tile.cuh``; ``ValueError`` for a geometry whose halo does
-    not fit (:func:`tile_plan`; only where F1b's does not either)."""
+    ``csrc/cam_tile.cuh``; ``ValueError`` only for a largest dilation
+    whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_fwd"):
         return cam_f1_fwd_plain(x, kr, kh, dils)
     x, kr, kh = _check(x, kr, kh, None, dils, ())
@@ -504,9 +502,9 @@ def cam_f1_fwd(x, kr, kh, dils):
 
 def cam_f2_fwd(x, kh, kt, bnh, dils):
     """F2 (replaces ``pallas_cam.py:_f2_call``): s_t (2, C) float32.  On
-    the card the tile kernel of ``csrc/cam_tile.cuh``; ``ValueError`` for
-    a geometry whose halo does not fit (:func:`tile_plan`; only where
-    F2b's does not either)."""
+    the card the tile kernel of ``csrc/cam_tile.cuh``; ``ValueError``
+    only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_fwd"):
         return cam_f2_fwd_plain(x, kh, kt, bnh, dils)
     x, kh, kt, bnh = _check(x, None, kh, kt, dils, (bnh,))
@@ -526,18 +524,18 @@ def cam_f2_fwd(x, kh, kt, bnh, dils):
 def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
     """F3 (replaces ``pallas_cam.py:_f3_call``): the CAM output,
     (B, H, W, C) bf16.  On the card the tile kernel of
-    ``csrc/cam_tile.cuh``; ``ValueError`` for a geometry whose halo does
-    not fit (:func:`tile_plan`; only where F3b's does not either)."""
+    ``csrc/cam_tile.cuh``; ``ValueError`` only for a largest dilation
+    whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f3_fwd"):
         return cam_f3_fwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, dils)
     x, kr, kh, kt, bnr, bnh, bnt, gate = _check(
         x, kr, kh, kt, dils, (bnr, bnh, bnt, gate))
-    lib, geo, _, w0, _, xpad = _tile_call("f3", "cam_f3_fwd", x, kr, kh, kt,
-                                          dils)
+    lib, geo, ws, w0, _, xpad = _tile_call("f3", "cam_f3_fwd", x, kr, kh,
+                                           kt, dils)
     out = torch.empty_like(x)
     err = lib.cam_f3_launch(
         ctypes.addressof(geo),
-        *_ptrs(xpad, w0, bnr, bnh, bnt, gate, out), _stream(x))
+        *_ptrs(xpad, w0, bnr, bnh, bnt, gate, ws, out), _stream(x))
     _build.check(err, "cam_f3_fwd")
     cam_f3_fwd.launches += 1
     if _observe.active:
@@ -550,19 +548,27 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 # ------------------------------------------------------------ the tiles
 #
 # The tile kernels (csrc/cam_tile.cuh) of the six ops walk 8 x 8 pixel
-# tiles of one image, stage each tile's halo once at full
-# channel depth, and read every weight in the order and layout the
-# wrapper gives it once per call.  tile_plan and _tile_weights are that
+# tiles of one image and read every weight in the order and layout the
+# wrapper gives it once per call.  Where a branch has at most TILE_SW_MAX
+# columns and the tile's halo at full channel depth and the weight stages
+# fit a block's shared memory (the train step's CAMs), each tile's halo is
+# staged once at full depth; elsewhere the wide plan stages every operand
+# in chunks of input channels and walks a branch in slices (cam_tile.cuh:
+# "wide plan"), and refuses only a largest dilation whose halo of one
+# 16-channel chunk does not fit.  tile_plan and _tile_weights are that
 # contract's Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b");
 # the C side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems,
-# stage0) computes the same, and each wrapper checks the weight counts
-# against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on every call.
+# stage0, WStage0, WStage1) computes the same, and each wrapper checks the
+# weight counts against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on
+# every call.
 
 TILE_TS = 8          # tile side (cam_tile.cuh:TS)
+TILE_TP = 64         # pixels of a tile (cam_core.cuh:TP)
 TILE_NC = 56         # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
 TILE_NX = 168        # output channels of a dx block (cam_tile.cuh:NX)
 TILE_ROW_WARPS = 4   # warps of 16 pixel rows (times 2 column groups)
 TILE_NBUF = 3        # weight stages in shared memory (cam_tile.cuh:NBUF)
+TILE_SW_MAX = 40     # columns of a branch (slice) (cam_core.cuh:SW_MAX)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
 # op -> (its phase 0 runs kr^T chunks, kt^T chunks, the branch backward),
 # as cam_tile.cuh:make_tgeo sets res, top and bb; a backward ("...b") also
@@ -576,12 +582,31 @@ def _up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+def _k_chunks(k: int, kmax: int) -> Tuple[int, int]:
+    """(width, count) of the wide plan's chunks of K (cam_tile.cuh:
+    k_chunks): as few as fit in kmax, of even width to 16."""
+    n = -(-k // kmax)
+    return _up(-(-k // n), 16), n
+
+
+def _k_fit(hr: int, slot: int, fixed: int) -> int:
+    """The widest chunk (a multiple of 16; -1 if none) whose two halo
+    buffers of hr rows and TILE_NBUF ring slots of ``slot`` rows, pitch
+    chunk + 8 bf16, and ``fixed`` bytes fit SMEM_MAX (cam_tile.cuh:
+    k_fit)."""
+    k = (SMEM_MAX - fixed) // (2 * (2 * hr + TILE_NBUF * slot)) - 8
+    return -1 if k < 16 else k // 16 * 16
+
+
 def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
               hc: int) -> Dict[str, int]:
     """Tiles, padded widths and pitches (bf16 elements), stage counts,
     shared memory (bytes; smem1 0 for a forward) and re-laid weight sizes
     (bf16 elements; w1_elems 0 for a forward) of ``op``'s tile kernels at
-    x (b, h, w, c), ``dils``, branch width hc."""
+    x (b, h, w, c), ``dils``, branch width hc; "wide" 1 for the wide plan,
+    with its slices (nsl of sw columns) and chunks (phase 0: kq / nq of
+    kc, kqa / nqa of knh; phase 1: kq1r / nq1r of kc, kq1c / nq1c of khc);
+    "ok" 0 where the largest dilation's halo does not fit even so."""
     res, top, bb = TILE_OPS[op]
     bwd = op.endswith("b")
     nb = len(dils)
@@ -600,7 +625,7 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     p["cp"] = p["ldc"] + 8
     p["nst0"] = (9 + bb) * nb + (res + top) * p["nchr"]
     p["nst1"] = p["nksr"] + 9 * nb
-    tp, nwarps, nred = TILE_TS * TILE_TS, TILE_ROW_WARPS, 5
+    tp, nwarps, nred = TILE_TP, TILE_ROW_WARPS, 5
     rows = {"f1b": 2 * c + 2 * nh, "f2b": 2 * c + 4 * nh,
             "f3b": 9 * c + 4 * nh, "f1": 0, "f3": 9 * c + 4 * nh,
             "f2": 4 * nh}[op]
@@ -609,18 +634,52 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
         el += tp * p["nhp"]
     if bb:                                 # sCb, sD
         el += tp * p["nhp"] + tp * p["xp"]
-    if bb:                                 # the column-sum scratch
-        rows += nwarps * nred * TILE_NC
-    p["smem0"] = 2 * el + 4 * rows
+    red = nwarps * nred * TILE_NC if bb else 0   # the column-sum scratch
+    p["smem0"] = 2 * el + 4 * (rows + red)
     p["smem1"] = 2 * (tp * p["xp"] * res + p["hr"] * p["cp"]
                       + TILE_NBUF * p["nxr"] * (khc + 8)) if bwd else 0
     p["w0_elems"] = (9 + bb) * nb * p["brows"] * kc \
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
     p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc if bwd else 0
+    p.update(wide=0, ok=1, nsl=1, sw=p["brows"], kq=kc, nq=1, kqa=knh,
+             nqa=1, kqm=kc, kq1r=khc, nq1r=p["nksr"], kq1c=khc, nq1c=1)
+    if hc <= TILE_SW_MAX and max(p["smem0"], p["smem1"]) <= SMEM_MAX:
+        return p
+    # the wide plan
+    nsl = -(-hc // TILE_SW_MAX)
+    sw = _up(-(-hc // nsl), 8)
+    k0 = _k_fit(p["hr"], TILE_NC + tp, 4 * red)
+    k1 = _k_fit(p["hr"], p["nxr"] + res * tp, 0) if bwd else 16
+    p.update(wide=1, nsl=nsl, sw=sw, brows=sw)
+    if k0 < 0 or k1 < 0:
+        p["ok"] = 0
+        return p
+    kq, nq = _k_chunks(kc, k0)
+    kqa, nqa = _k_chunks(knh, k0)
+    kqm = max(kq, kqa) if top else kq
+    kq1r, nq1r = _k_chunks(kc, k1)
+    kq1c, nq1c = _k_chunks(khc, k1)
+    nq1r = nq1r if res else 0
+    kq1m = max(kq1r, kq1c) if res else kq1c
+    nbr = 9 * nb * nsl * nq
+    n11 = p["nchr"] * (res * nq + top * nqa)
+    p.update(kq=kq, nq=nq, kqa=kqa, nqa=nqa, kqm=kqm, kw0=kqm, nbr=nbr,
+             n11=n11, nst0=nbr + n11 + bb * nb * nsl * nq, kq1r=kq1r,
+             nq1r=nq1r, nksr=nq1r, kq1c=kq1c, nq1c=nq1c, kq1m=kq1m,
+             nst1=nq1r + 9 * nb * nq1c)
+    p["smem0"] = 2 * (2 * p["hr"] + TILE_NBUF * (TILE_NC + tp)) * (kqm + 8) \
+        + 4 * red
+    p["smem1"] = 2 * (2 * p["hr"] + TILE_NBUF * (p["nxr"] + res * tp)) \
+        * (kq1m + 8) if bwd else 0
+    p["w0_elems"] = (9 + bb) * nb * nsl * sw * kc \
+        + p["nchr"] * TILE_NC * (kc * res + knh * top)
+    p["w1_elems"] = p["nchx"] * p["nxr"] * (res * kc + 9 * nb * khc) \
+        if bwd else 0
     return p
 
 
-def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, ...]:
+def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
+                                                          ...]:
     """kr, kh, kt (those ``op`` reads; None for the others) re-laid for
     its tile kernels, [n][k] with zeros padding n and k: w0, phase 0's
     stages in walking order (the branch taps, nb x 9 of kh[i, tap]^T
@@ -629,9 +688,13 @@ def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, ...]:
     branch kt[i] [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks
     them); w1 (None for a forward), per chunk of TILE_NX output channels (nxr
     rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
-    nb x 9 stages of kh[i, tap] [nxr][khc]."""
-    res, top, bb = TILE_OPS[op]
+    nb x 9 stages of kh[i, tap] [nxr][khc].  Where ``plan`` (the call's
+    :func:`tile_plan`) is the wide one, its layout instead
+    (:func:`_wide_weights`)."""
+    if plan is not None and plan["wide"]:
+        return _wide_weights(op, plan, kr, kh, kt)
     nb, _, _, c, hc = kh.shape
+    res, top, bb = TILE_OPS[op]
     p = tile_plan(op, 1, 1, 1, c, [1] * nb, hc)
     kc, khc, knh, br = p["kc"], p["khc"], p["knh"], p["brows"]
     nchr, nh = p["nchr"], nb * hc
@@ -660,24 +723,87 @@ def _tile_weights(op: str, kr, kh, kt) -> Tuple[torch.Tensor, ...]:
     return w0, w1.reshape(-1).contiguous()
 
 
+def _k_split(t: torch.Tensor, width: int) -> list:
+    """t's last dimension in chunks of ``width`` (the last what is
+    left)."""
+    return list(torch.split(t, width, dim=-1))
+
+
+def _wide_weights(op: str, p: Dict[str, int], kr, kh, kt):
+    """The wide plan's re-laid weights (``cam_tile.cuh:WStage0`` /
+    ``WStage1`` walk them), [n][k] with zeros padding n and k.  w0: per
+    (branch, slice, chunk of kc, tap) [sw][kw] of kh[i, tap]^T; per 1x1
+    chunk of TILE_NC output channels its kr^T chunks [NC][kw] (f1, f3,
+    f1b, f3b), then its kt^T chunks of knh [NC][kw] (f2, f3, f2b, f3b);
+    per (branch, slice, chunk of kc) [sw][kw] of kt[i] (f2b, f3b).  w1
+    (None for a forward), per chunk of nxr output channels: kr's chunks of
+    kc [nxr][kw] (f1b, f3b), then per (branch, chunk of khc, tap) [nxr][kw]
+    of kh[i, tap]."""
+    res, top, bb = TILE_OPS[op]
+    nb, _, _, c, hc = kh.shape
+    nh = nb * hc
+    kc, khc, knh, nsl, sw = p["kc"], p["khc"], p["knh"], p["nsl"], p["sw"]
+    nchr, kq = p["nchr"], p["kq"]
+    cpad = nchr * TILE_NC
+    # (nb, 9, kc, nsl, sw) -> per chunk (nb, nsl, 9, sw, kw)
+    taps = F.pad(kh.reshape(nb, 9, c, hc), (0, nsl * sw - hc, 0, kc - c))
+    taps = taps.reshape(nb, 9, kc, nsl, sw).permute(0, 3, 1, 4, 2)
+    w0 = [torch.cat([q.reshape(nb, nsl, -1) for q in _k_split(taps, kq)],
+                    2).reshape(-1)]
+    chunk = []
+    if res:
+        krt = F.pad(kr.t(), (0, kc - c, 0, cpad - c)).reshape(nchr, TILE_NC,
+                                                              kc)
+        chunk += [q.reshape(nchr, -1) for q in _k_split(krt, kq)]
+    if top:
+        ktt = F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c))
+        ktt = ktt.reshape(nchr, TILE_NC, knh)
+        chunk += [q.reshape(nchr, -1) for q in _k_split(ktt, p["kqa"])]
+    w0.append(torch.cat(chunk, 1).reshape(-1))
+    if bb:
+        ktb = F.pad(kt, (0, kc - c, 0, nsl * sw - hc))
+        ktb = ktb.reshape(nb, nsl, sw, kc)
+        w0.append(torch.cat([q.reshape(nb, nsl, -1)
+                             for q in _k_split(ktb, kq)], 2).reshape(-1))
+    w0 = torch.cat(w0).contiguous()
+    if not op.endswith("b"):
+        return w0, None
+    nxr, nchx = p["nxr"], p["nchx"]
+    npad = nchx * nxr
+    parts = []
+    if res:
+        krn = F.pad(kr, (0, kc - c, 0, npad - c)).reshape(nchx, nxr, kc)
+        parts += [q.reshape(nchx, -1) for q in _k_split(krn, p["kq1r"])]
+    # (nb, 9, C, hc) -> (nchx, nb, 9, nxr, khc) -> per chunk of khc
+    kht = F.pad(kh.reshape(nb, 9, c, hc), (0, khc - hc, 0, npad - c))
+    kht = kht.reshape(nb, 9, nchx, nxr, khc).permute(2, 0, 1, 3, 4)
+    parts.append(torch.cat([q.reshape(nchx, nb, -1)
+                            for q in _k_split(kht, p["kq1c"])],
+                           2).reshape(nchx, -1))
+    return w0, torch.cat(parts, 1).reshape(-1).contiguous()
+
+
 def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
     """The plan, the library, the geometry, the workspace (None where
     ``op`` takes none), the re-laid weights (w1 None for a forward) and
     the channel-padded x of a tile-kernel call of ``op``; ``ValueError``
-    when its halo and weight stages do not fit a block's shared memory."""
+    where the largest dilation's halo, in chunks of 16 channels, does not
+    fit a block's shared memory (the wide plan takes every other
+    geometry)."""
     b, h, w, c = x.shape
     plan = tile_plan(op, b, h, w, c, dils, kh.shape[4])
-    if max(plan["smem0"], plan["smem1"]) > SMEM_MAX:
-        raise ValueError(f"{name}: the tile kernels need {plan['smem0']} / "
-                         f"{plan['smem1']} bytes of shared memory at C={c}, "
-                         f"dils {tuple(dils)}, over {SMEM_MAX}")
+    if not plan["ok"]:
+        raise ValueError(
+            f"{name}: the largest dilation {max(dils)} is too large: its "
+            f"tile halo ({plan['hs']} x {plan['hs']} pixels) in chunks of "
+            f"16 channels does not fit {SMEM_MAX} bytes of shared memory")
     geo = _geo(x, kh, dils)
     lname = f"cam_{op[:2]}"
     lib = _lib(lname)
     ws_fn = f"cam_{op}_workspace"
     ws = (_workspace(lib, ws_fn, geo, x.device)
           if ws_fn in _WORKSPACE[lname] else None)
-    w0, w1 = _tile_weights(op, kr, kh, kt)
+    w0, w1 = _tile_weights(op, kr, kh, kt, plan)
     plan_fn = getattr(lib, f"cam_{op}_plan")
     for what, t in ((2, w0), (3, w1)):
         n = 0 if t is None else t.numel()
@@ -691,7 +817,8 @@ def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
 def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
     """F1b (replaces ``pallas_cam.py:_f1b_call``): (dx, dkr, dkh).  On
     the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
-    for a geometry whose halo does not fit (:func:`tile_plan`)."""
+    only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_bwd"):
         return cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils)
     x, kr, kh, dsr, dsh, dgap = _check(x, kr, kh, None, dils,
@@ -731,7 +858,8 @@ def _f2b_launch(x, kh, kt, bnh, dst, dils):
 def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
     """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
     the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
-    for a geometry whose halo does not fit (:func:`tile_plan`)."""
+    only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_bwd"):
         return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
     out, _ = _f2b_launch(x, kh, kt, bnh, dst, dils)
@@ -771,10 +899,13 @@ def _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
 def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
     """F3b (replaces ``pallas_cam.py:_f3b_call``): (dx, dkr, dkh, dkt,
     dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
-    the tile kernels of ``csrc/cam_tile.cuh``; they take the geometries
-    whose halo and weight stages fit a block's shared memory
-    (:func:`tile_plan`; the train step's C = 163 with dilations 1-3 and
-    C = 83 with 1-4 do) and raise ``ValueError`` on the others."""
+    the tile kernels of ``csrc/cam_tile.cuh``: at any C and branch width,
+    staging the halo at full channel depth where it and the weight stages
+    fit a block's shared memory (the train step's C = 163 with dilations
+    1-3 and C = 83 with 1-4 do), else in chunks of input channels (the
+    wide plan, :func:`tile_plan`); ``ValueError`` only for a largest
+    dilation whose halo does not fit even in 16-channel chunks (19 and
+    up)."""
     if not _dispatch(x, "cam_f3_bwd"):
         return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
     out, _ = _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
@@ -857,7 +988,8 @@ def cam_wgrad(u: torch.Tensor, v: torch.Tensor, d: int) -> torch.Tensor:
     u (B, H, W, K), v (B, H, W, N) bf16.  ``d`` >= 1: the 9 taps of a 3x3
     conv at dilation d, out[ti, tj] = sum over pixels of u shifted by
     ((ti - 1) d, (tj - 1) d) (zero outside the image) times v, (3, 3, K,
-    N) float32, N <= 40; ``d`` = 0: the plain product u^T v, (K, N).  On
+    N) float32 (N in slices of at most 40 columns); ``d`` = 0: the plain
+    product u^T v, (K, N).  On
     the CPU its plain version; on the card the kernel and its fixed-order
     reduction."""
     if not _dispatch(u, "cam_wgrad"):
@@ -871,9 +1003,8 @@ def cam_wgrad(u: torch.Tensor, v: torch.Tensor, d: int) -> torch.Tensor:
                         f"{v.dtype}")
     if v.device != u.device:
         raise ValueError(f"cam_wgrad: v is on {v.device}, u on {u.device}")
-    if int(d) < 0 or (d and v.shape[3] > HC_MAX):
-        raise ValueError(f"cam_wgrad takes d >= 0 and, with taps, N <= "
-                         f"{HC_MAX}; got d {d}, N {v.shape[3]}")
+    if int(d) < 0:
+        raise ValueError(f"cam_wgrad takes d >= 0; got d {d}")
     b, h, w, k = u.shape
     n = v.shape[3]
     up = F.pad(u, (0, _up(k, 8) - k)).contiguous()

@@ -21,9 +21,12 @@ the plain version's outputs and the interpret-mode Pallas kernel's
 bitwise (F2 on random inputs within 2^-8, and only with its ragged
 tile's padding pixels masked).  A forward's plan is its backward's phase
 0 without the branch backward: F1's re-laid weights are F1b's, F2's and
-F3's a prefix of F2b's and F3b's, and a forward needs no more shared
-memory than its backward, so it refuses only where its backward refuses
-too.
+F3's a prefix of F2b's and F3b's, and in the whole-depth plan a forward
+needs no more shared memory than its backward.  Geometries whose
+whole-depth halo does not fit (six dilations up to 6 or 8 at C = 163)
+take the wide plan (``tests/test_torch_cam_wide.py``), within shared
+memory; every op refuses only a largest dilation past the wide plan's
+(20 at C = 163), by name.
 
 The parametrised tests keep F3b's cases under their first ids (shape0,
 ...) and add the other ops' as f1b-shape0, ..., f2b-shape0, ...,
@@ -142,39 +145,66 @@ def test_f3b_shared_memory_fits(op, shape):
 
 
 def test_f3b_refuses_what_does_not_fit():
-    """Six dilations up to 6 at C = 163: the halo alone is 147 KB."""
+    """Six dilations up to 6 at C = 163, which F3b once refused (its
+    whole-depth halo alone is 147 KB): the wide plan takes them, in three
+    K chunks of x, within a block's shared memory."""
     p = cam.tile_plan("f3b", 1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40)
-    assert p["smem0"] > cam.SMEM_MAX
+    assert p["ok"] and p["wide"] and p["nq"] == 3
+    assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
 
 
 @pytest.mark.parametrize("op", ["f1b", "f2b", "f1", "f3", "f2"])
 def test_tile_refuses_what_does_not_fit(op):
-    """The same geometry for F1b (its dx kernel's dr rows and dc halo,
-    231 KB, do not fit), F2b, F3 and F2 (their phase 0 does not); F1 (its
-    halo and weight ring, 209 KB, fit) takes it, and refuses the halo at
-    a largest dilation of 8 (212 KB of halo), as F1b does."""
+    """The same geometry for F1b (its dx kernel's whole-depth dr rows and
+    dc halo, 231 KB, once did not fit), F2b, F3 and F2 (their whole-depth
+    phase 0), and a largest dilation of 8 for F1 (212 KB of halo): the
+    wide plan takes them all; F1 keeps the whole-depth plan at dilations
+    up to 6 (its halo and weight ring, 209 KB, fit)."""
     dils = (1, 2, 3, 4, 5, 8) if op == "f1" else (1, 2, 3, 4, 5, 6)
     p = cam.tile_plan(op, 1, 32, 32, 163, dils, 40)
-    assert max(p["smem0"], p["smem1"]) > cam.SMEM_MAX
+    assert p["ok"] and p["wide"]
+    assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
     if op == "f1":
-        assert cam.tile_plan(op, 1, 32, 32, 163, (1, 2, 3, 4, 5, 6),
-                             40)["smem0"] <= cam.SMEM_MAX
+        assert not cam.tile_plan(op, 1, 32, 32, 163, (1, 2, 3, 4, 5, 6),
+                                 40)["wide"]
 
 
+# the largest dilation every op takes at every width (the wide plan's
+# halo of one 16-channel chunk, double-buffered, and its ring), and one
+# past it that none takes at C = 163
+DIL_TAKEN, DIL_REFUSED = 18, 20
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_tile_refuses_a_dilation_past_the_limit(op):
+    for c, hc, nb in ((163, 40, 2), (515, 128, 3), (83, 20, 4)):
+        dils = (1,) * (nb - 1) + (DIL_TAKEN,)
+        p = cam.tile_plan(op, 1, 32, 32, c, dils, hc)
+        assert p["ok"] and max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
+    p = cam.tile_plan(op, 1, 32, 32, 163, (1, DIL_REFUSED), 40)
+    assert not p["ok"]
+    x = torch.zeros((1, 32, 32, 163), dtype=torch.bfloat16)
+    kh = torch.zeros((2, 3, 3, 163, 40), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"largest dilation {DIL_REFUSED}"):
+        cam._tile_call(op, op, x, None, kh, None, (1, DIL_REFUSED))
+
+
+# once refused (the whole-depth halo did not fit); the wide plan takes them
 REFUSED = [(1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40),
            (1, 32, 32, 163, (1, 2, 3, 4, 5, 8), 40)]
 
 
 @pytest.mark.parametrize("op,shape", by_op(SHAPES + REFUSED, FWD_OPS))
 def test_forward_fits_where_its_backward_does(op, shape):
-    """A forward's shared memory is at most its backward's (the larger of
-    its two phases), so the forward refuses only where the backward
-    refuses too: the training path needs both."""
+    """A forward and its backward both fit a block's shared memory (the
+    training path needs both); in the whole-depth plan a forward needs at
+    most its backward's (the larger of its two phases)."""
     fwd, bwd = cam.tile_plan(op, *shape), cam.tile_plan(op + "b", *shape)
     assert fwd["smem1"] == fwd["w1_elems"] == 0
-    assert fwd["smem0"] <= max(bwd["smem0"], bwd["smem1"])
-    if fwd["smem0"] > cam.SMEM_MAX:
-        assert max(bwd["smem0"], bwd["smem1"]) > cam.SMEM_MAX
+    assert fwd["ok"] and bwd["ok"]
+    assert max(fwd["smem0"], bwd["smem0"], bwd["smem1"]) <= cam.SMEM_MAX
+    if not (fwd["wide"] or bwd["wide"]):
+        assert fwd["smem0"] <= max(bwd["smem0"], bwd["smem1"])
 
 
 BHW = [(16, 113, 113), (16, 57, 57), (16, 29, 29), (3, 29, 21), (1, 5, 30),

@@ -29,17 +29,23 @@ from rtpe_tpu_torch.ops import cam
 
 STEPS_CAM = (16, 113, 113, 163, (1, 2, 3), 40)
 PYRAMID_CAM = (16, 113, 113, 83, (1, 2, 3, 4), 20)
-# the train step's shapes and the card tests' shapes
+# the train step's shapes, the card tests' shapes and the wide students'
+# step CAMs (inplanes 96, 128, 256: dkh in N slices of 24, 32, 32)
 SHAPES = [STEPS_CAM, PYRAMID_CAM,
           (2, 21, 21, 12, (1, 2, 3), 3), (3, 29, 21, 83, (1, 2, 3, 4), 20),
           (2, 17, 23, 163, (1, 2, 3), 40), (2, 9, 13, 83, (1, 2, 3, 4), 20),
           (1, 5, 30, 163, (1, 2, 3), 40), (1, 30, 5, 83, (1, 2, 3, 4), 20),
-          (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8)]
+          (1, 11, 19, 12, (1, 9), 3), (1, 9, 10, 170, (1, 2), 8),
+          (16, 113, 113, 195, (1, 2, 3), 48),
+          (16, 113, 113, 259, (1, 2, 3), 64),
+          (16, 113, 113, 515, (1, 2, 3), 128)]
 # small enough to walk: several K slices (C = 163), two N slices of a
-# plain product (C = 200), a dilation wider than a tile, ragged edges
+# plain product (C = 200), a dilation wider than a tile, ragged edges,
+# dkh in N slices (hc = 48: 2 x 24; 68: 40 and 28)
 WALK_SHAPES = [(1, 19, 13, 40, (1, 3), 12), (2, 9, 13, 12, (1, 2, 3, 4), 3),
                (1, 11, 19, 12, (1, 9), 3), (1, 6, 9, 163, (1, 2), 40),
-               (1, 5, 7, 200, (2,), 8)]
+               (1, 5, 7, 200, (2,), 8), (1, 6, 9, 40, (1, 2), 48),
+               (1, 5, 6, 24, (3,), 68)]
 # more items than WG_BLOCKS: blocks walk uneven shares of several tiles
 # (every launch at the first shape; dkh at the others)
 SPLIT_SHAPES = [(6, 64, 48, 12, (1,), 3), (1, 48, 64, 163, (1, 2), 40),
@@ -59,7 +65,7 @@ BWD = ("f1b", "f2b", "f3b")
 
 WG_BLOCKS = 132      # one block an SM
 WG_TX = 8            # tile width, pixels
-WG_NT_TAPS = 5       # taps: n8 tiles at most (hc <= 40)
+WG_NT_TAPS = 5       # taps: n8 tiles of an N slice at most
 WG_NSW = 24          # plain: n8 tiles of an N slice
 WG_NS_MAX = 6        # ring stages at most
 WG_SMEM_EXTRA = 1024 + 64   # 1024-byte alignment and the mbarriers
@@ -93,15 +99,17 @@ def wgrad_plan(b: int, h: int, w: int, jobs: Sequence[Dict], taps: int):
         if (j["K"] < 1 or j["N"] < 1 or j["ldu"] % 8 or j["u0"] % 8
                 or j["ldv"] % 8 or j["v0"] % 8
                 or j["u0"] + cam._up(j["K"], 8) > j["ldu"]
-                or j["v0"] + 8 * n8 > j["ldv"] or (taps == 9) != (j["d"] > 0)
-                or (taps == 9 and n8 > WG_NT_TAPS)):
+                or j["v0"] + 8 * n8 > j["ldv"] or (taps == 9) != (j["d"] > 0)):
             return None
-        n8max = max(n8max, min(n8, WG_NSW))
+        n8max = max(n8max, n8 if taps == 9 else min(n8, WG_NSW))
         dmax = max(dmax, j["d"])
-    # taps: one m64 (the warpgroups take 3 taps each); plain: one m64 a
+    # taps: one m64 (the warpgroups take 3 taps each), the widest job's n8
+    # tiles in even N slices of at most WG_NT_TAPS; plain: one m64 a
     # warpgroup, the N slice in one wgmma of 8, 16 or 24 n8 tiles
     mt = 4 if taps == 9 else 12
-    nt = n8max if taps == 9 else cam._up(n8max, 8)
+    nt = -(-n8max // -(-n8max // WG_NT_TAPS)) if taps == 9 \
+        else cam._up(n8max, 8)
+    nsw = nt if taps == 9 else WG_NSW
     found = None
     for ty in (16, 8):
         for ns in range(WG_NS_MAX, 0, -1):
@@ -124,7 +132,7 @@ def wgrad_plan(b: int, h: int, w: int, jobs: Sequence[Dict], taps: int):
     combos, out_jobs = [], []
     for k, j in enumerate(jobs):
         nks = -(-(-(-j["K"] // 16)) // mt)
-        nns = -(-(-(-j["N"] // 8)) // WG_NSW)
+        nns = -(-(-(-j["N"] // 8)) // nsw)
         out_jobs.append(dict(j, c0=len(combos), nks=nks, nns=nns))
         combos += [(k, ks, nsl) for ks in range(nks) for nsl in range(nns)]
     items = len(combos) * n_tiles
@@ -132,7 +140,7 @@ def wgrad_plan(b: int, h: int, w: int, jobs: Sequence[Dict], taps: int):
     blocks = min(max(WG_BLOCKS, len(combos)), items)
     slots = -(-blocks // len(combos))
     return dict(taps=taps, b=b, h=h, w=w, mt=mt, ty=ty, ns=ns, nt=nt,
-                vrows=vrows, ustage=us, vstage=vs,
+                nsw=nsw, vrows=vrows, ustage=us, vstage=vs,
                 smem=2 * ns * (us + vs) + WG_SMEM_EXTRA,
                 tiles_x=tiles_x, tpi=tpi,
                 n_tiles=n_tiles, combos=combos, items=items, blocks=blocks,
@@ -173,8 +181,11 @@ def bwd_workspace_bytes(op: str, b: int, h: int, w: int, c: int,
     cam_f2b_workspace, cam_f3b_workspace): its bf16 scratch rows (dr and
     dt of pitch kc, a of pitch knh, dc of pitch nb khc), the per-tile
     partial rows, then each weight-gradient launch's partial rows (slots
-    x total floats), each region 256-byte aligned; -1 where refused."""
+    x total floats), each region 256-byte aligned, and the wide plan's c
+    (F2b, F3b: pitch knh) last; -1 where refused."""
     p = cam.tile_plan(op, b, h, w, c, dils, hc)
+    if not p["ok"]:
+        return -1
     m, nh = b * h * w, len(dils) * hc
     bf = {"f1b": [p["kc"], p["ldc"]],
           "f2b": [p["knh"], p["kc"], p["ldc"]],
@@ -187,6 +198,8 @@ def bwd_workspace_bytes(op: str, b: int, h: int, w: int, c: int,
         if plan is None:
             return -1
         regions.append(4 * plan["slots"] * total)
+    if p["wide"] and op != "f1b":
+        regions.append(2 * m * p["knh"])
     return sum(cam._up(r, 256) for r in regions)
 
 
@@ -215,10 +228,13 @@ def test_wgrad_plan_rows_are_16_byte_aligned_and_fit(op, shape):
         assert p["vrows"] == -(-rows // 8) * 8
         assert p["ty"] + 2 * dmax <= 256
         assert p["vstage"] == p["nt"] * p["vrows"] * 8
-        # the wgmma's N: a tap job's n8 tiles (hc <= 40), a plain slice's
-        # rounded up to 8, 16 or 24
-        n8 = max(min(-(-j["N"] // 8), WG_NSW) for j in p["jobs"])
-        assert p["nt"] == (n8 if taps else -(-n8 // 8) * 8)
+        # the wgmma's N: a tap job's n8 tiles in even slices of at most 5
+        # (hc = 48: 2 x 3, 64: 2 x 4, 128: 4 x 4), a plain slice's rounded
+        # up to 8, 16 or 24
+        n8 = max(min(-(-j["N"] // 8), 1 << 30 if taps else WG_NSW)
+                 for j in p["jobs"])
+        assert p["nt"] == (-(-n8 // -(-n8 // 5)) if taps
+                           else -(-n8 // 8) * 8)
         assert p["nt"] in ((1, 2, 3, 4, 5) if taps else (8, 16, 24))
         for j in p["jobs"]:
             for v in (j["ldu"], j["u0"], j["ldv"], j["v0"]):
@@ -359,9 +375,9 @@ def walk(p, total, ops):
             img, u = divmod(t, p["tpi"])
             y0, x0 = u // p["tiles_x"] * ty, u % p["tiles_x"] * tx
             d = j["d"]
-            k0, n0 = 16 * mt * ks, 8 * WG_NSW * nsl
+            k0, n0 = 16 * mt * ks, 8 * p["nsw"] * nsl
             cpu = min(-(-(j["K"] - k0) // 8), 2 * mt)
-            cpv = min(-(-j["N"] // 8) - WG_NSW * nsl, WG_NSW)
+            cpv = min(-(-j["N"] // 8) - p["nsw"] * nsl, p["nsw"])
             ut = torch.full((ty, tx, 16 * mt), float("nan"))
             ut[..., :8 * cpu] = _rows(
                 ops[j["u"]][img, ..., j["u0"] + k0:j["u0"] + k0 + 8 * cpu],

@@ -797,14 +797,31 @@ def test_cam_f3b_ragged_tiles_match_plain(no_tf32, op, shape):
     assert not faults, faults
 
 
+# The width grid (B = 16, 113^2): AttentionStudentSteps' CAMs at
+# --inplanes 96, 128 and 256 (step: C = 2 inplanes + 3, dilations 1-3;
+# pyramid: C = inplanes + 3, 1-4; hc = C // 4) and six dilations up to 6
+# and 8 at C = 163; the kernels run them at WIDE_BATCH x WIDE_HW (the
+# plan's chunks and slices depend on C, hc and the dilations only)
+WIDTH_GRID = [(16, 113, 113, 195, (1, 2, 3), 48),
+              (16, 113, 113, 259, (1, 2, 3), 64),
+              (16, 113, 113, 515, (1, 2, 3), 128),
+              (16, 113, 113, 99, (1, 2, 3, 4), 24),
+              (16, 113, 113, 131, (1, 2, 3, 4), 32),
+              (16, 113, 113, 259, (1, 2, 3, 4), 64),
+              (16, 113, 113, 163, (1, 2, 3, 4, 5, 6), 40),
+              (16, 113, 113, 163, (1, 2, 3, 4, 5, 8), 40)]
+WIDE_BHW = (2, 21, 19)
+
+
 @pytest.mark.parametrize("op,shape", by_op(
     CAM_SHAPES + F3B_SHAPES + [(16, 113, 113, 163, (1, 2, 3), 40),
-                               (16, 113, 113, 83, (1, 2, 3, 4), 20)]))
+                               (16, 113, 113, 83, (1, 2, 3, 4), 20)]
+    + WIDTH_GRID))
 def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
-    """Shared memory and re-laid weight sizes: the C formulas
-    (cam_tile.cuh:tile_plan, exported as cam_f{1,2,3}_plan and
-    cam_f{1,2,3}b_plan) and the Python ones (ops/cam.py:tile_plan)
-    agree, for each tile op."""
+    """Shared memory, re-laid weight sizes and the wide plan (its flag,
+    K chunks and slices): the C formulas (cam_tile.cuh:tile_plan,
+    exported as cam_f{1,2,3}_plan and cam_f{1,2,3}b_plan) and the Python
+    ones (ops/cam.py:tile_plan) agree, for each tile op."""
     b, h, w, c, dils, hc = shape
     x = torch.empty((b, h, w, c), dtype=torch.bfloat16)
     kh = torch.empty((len(dils), 3, 3, c, hc), dtype=torch.bfloat16)
@@ -812,19 +829,23 @@ def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     lib = cam._lib(f"cam_{op[:2]}")
     p = cam.tile_plan(op, *shape)
     plan = getattr(lib, f"cam_{op}_plan")
-    got = [plan(cam.ctypes.addressof(geo), k) for k in range(4)]
-    assert got == [p["smem0"], p["smem1"], p["w0_elems"], p["w1_elems"]]
+    got = [plan(cam.ctypes.addressof(geo), k) for k in range(10)]
+    assert got == [p["smem0"], p["smem1"], p["w0_elems"], p["w1_elems"],
+                   p["wide"], p["kq"], p["kqa"], p["kq1r"], p["kq1c"],
+                   p["nsl"]]
     if f"cam_{op}_workspace" in cam._WORKSPACE[f"cam_{op[:2]}"]:
-        assert getattr(lib, f"cam_{op}_workspace")(
-            cam.ctypes.addressof(geo)) > 0
+        # F3's is the wide plan's a rows alone, none in the other plan
+        assert (getattr(lib, f"cam_{op}_workspace")(
+            cam.ctypes.addressof(geo)) > 0) == (op != "f3" or p["wide"])
 
 
-def _refuses_a_halo_that_does_not_fit(device, op,
-                                      dils=(1, 2, 3, 4, 5, 6)):
+def _refuses_a_halo_that_does_not_fit(device, op, dils=(1, 20)):
+    """A largest dilation whose halo does not fit even in 16-channel
+    chunks raises ``ValueError`` naming it, before any launch."""
     case = cam_case(1, 16, 16, 163, dils, 40, seed=2, device=device)
     name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
     before = kernel.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match=f"largest dilation {max(dils)}"):
         kernel(*args)
     assert kernel.launches == before
 
@@ -835,11 +856,35 @@ def test_cam_f3b_refuses_a_halo_that_does_not_fit(cuda):
 
 @pytest.mark.parametrize("op", ["f1b", "f2b", "f3", "f1", "f2"])
 def test_cam_tile_refuses_a_halo_that_does_not_fit(cuda, op):
-    """F1 takes six dilations up to 6 at C = 163 (as F1b's phase 0
-    does; F1b's dx kernel does not fit there) and refuses a largest
-    dilation of 8."""
-    _refuses_a_halo_that_does_not_fit(
-        cuda, op, (1, 2, 3, 4, 5, 8) if op == "f1" else (1, 2, 3, 4, 5, 6))
+    """Every op refuses a largest dilation of 20 at C = 163 (the wide
+    plan's halo of one 16-channel chunk, double-buffered, does not fit),
+    F1 (whose whole-depth plan takes six dilations up to 6) too."""
+    _refuses_a_halo_that_does_not_fit(cuda, op)
+
+
+@pytest.mark.parametrize("shape", WIDTH_GRID)
+def test_cam_kernels_match_plain_at_every_width(no_tf32, shape):
+    """The six kernels at the width grid (the wide plan, and the
+    whole-depth one at the pyramid's C = 99 and 131), at WIDE_BHW.
+    Exact-sum inputs: every per-pixel output bitwise the plain
+    version's, every reduction within ``cam_check.SUM_TOL`` of its
+    float64 sum of |terms|.  Random inputs: within the float64 check's
+    limits (small caps: one mask flip covers more than 1e-4 of an
+    output this small)."""
+    shape = WIDE_BHW + shape[3:]
+    case = cam_case(*shape, seed=7, device=no_tf32, exact=True)
+    for name, kernel, plain, args in cam_calls(case):
+        got, masks = cam_check.run_kernel(name, kernel, args)
+        with torch.backends.cudnn.flags(enabled=False):
+            want, want_masks = cam_check.evaluate(name, args)
+            f64, terms = plain(*args, dtype=torch.float64, terms=True)
+        _, faults = cam_check.exact_check(name, got, want, _as_tuple(f64),
+                                          _as_tuple(terms))
+        assert not faults, faults
+    case = cam_case(*shape, seed=sum(shape[:4]), device=no_tf32)
+    for name, kernel, plain, args in cam_calls(case):
+        _, _, faults = _vs_float64(name, kernel, args)
+        assert not faults, faults
 
 
 def test_cam_wrappers_refuse(cuda):
@@ -848,9 +893,9 @@ def test_cam_wrappers_refuse(cuda):
         cam.cam_f1_fwd(case["x"].float(), case["kr"], case["kh"], (1, 2))
     with pytest.raises(ValueError):
         cam.cam_f1_fwd(case["x"], case["kr"], case["kh"], (1, 2, 3))
-    wide = torch.zeros((1, 3, 3, 12, 41), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        cam.cam_f1_fwd(case["x"], case["kr"], wide, (1,))
+    seven = torch.zeros((7, 3, 3, 12, 3), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="1..6 dilations"):
+        cam.cam_f1_fwd(case["x"], case["kr"], seven, (1,) * 7)
 
 
 # The backwards' weight-gradient kernels alone (cam.cam_wgrad, csrc/
@@ -861,7 +906,10 @@ def test_cam_wrappers_refuse(cuda):
 WGRAD_SHAPES = [(16, 113, 113, 163, (1, 2, 3), 40),
                 (16, 113, 113, 83, (1, 2, 3, 4), 20),
                 (3, 29, 21, 83, (1, 2, 3, 4), 20),
-                (2, 21, 21, 12, (1, 2, 3), 3)]
+                (2, 21, 21, 12, (1, 2, 3), 3),
+                (2, 21, 19, 195, (1, 2, 3), 48),
+                (2, 21, 19, 259, (1, 2, 3, 4), 64),
+                (2, 21, 19, 515, (1, 2, 3), 128)]
 WGRAD_TOL = 2.0 ** -14
 
 
@@ -919,7 +967,8 @@ def test_cam_wgrad_matches_float64(no_tf32, shape):
 @pytest.mark.parametrize("shape", [(2, 12, 20, 163, (1, 2, 3), 40),
                                    (3, 9, 14, 83, (1, 2, 3, 4), 20),
                                    (1, 11, 19, 12, (1, 9), 3),
-                                   (1, 5, 7, 200, (2,), 8)])
+                                   (1, 5, 7, 200, (2,), 8),
+                                   (1, 9, 10, 515, (1, 2), 128)])
 def test_cam_wgrad_is_exact_on_exact_sums(cuda, shape):
     x, dc, dr, a, dt = wgrad_operands(shape, 5, cuda, exact=True)
     for u, v, d in [(x, dc, d) for d in shape[4]] + [(x, dr, 0),
@@ -976,9 +1025,8 @@ def test_cam_wgrad_refuses(cuda):
     u = torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(TypeError):
         cam.cam_wgrad(u.float(), u, 1)
-    with pytest.raises(ValueError):         # taps of more than 40 columns
-        cam.cam_wgrad(u, torch.zeros((1, 4, 4, 41), dtype=torch.bfloat16,
-                                     device=cuda), 1)
+    with pytest.raises(ValueError):         # a negative dilation
+        cam.cam_wgrad(u, u, -1)
     with pytest.raises(ValueError):
         cam.cam_wgrad(u, u[:, :3], 0)
 
