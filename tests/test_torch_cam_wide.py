@@ -18,15 +18,17 @@ student step at those widths against the JAX package.
   shapes, forward and gradients, with ``tests/test_torch_cam.py``'s
   tolerances.
 * One distillation step of ``AttentionStudentSteps(inplanes=96,
-  fused_cam=True)`` against JAX's, held to what JAX's own step moves
-  when its input images move by 1e-6 (relative): at this width the fused
-  CAMs' bf16 roundings turn such a change into updates up to ~30 % of
-  their size apart (cosine ~0.997), so a fixed bound would hold the
-  roundings' noise, not the port.
+  fused_cam=True)`` against JAX's: the whole update's cosine gap held to
+  what JAX's own step moves when its input images move by 1e-6
+  (relative; at this width the fused CAMs' bf16 roundings turn such a
+  change into updates up to ~30 % of their size apart, cosine ~0.996),
+  each tensor's update by its cosine.
 
 On the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 17)
 the kernels themselves are held to their plain versions at the grid.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -229,7 +231,11 @@ def test_wide_weights_unpad_to_the_inputs(op, name):
 
 # ------------------------------------------------------------ fused_cam
 
-BF16_TOL, BF16_GRAD = 2.0 ** -8, 2.0 ** -5
+BF16_GRAD = 2.0 ** -5
+# a batch statistic against JAX's: tests/test_torch_cam.py holds the
+# running statistics at rtol 1e-4, and they move by 0.1 (the momentum) of
+# the batch's
+STAT_RTOL = 1e-3
 FUSED_SHAPES = {"step96": (2, 9, 13, 195, (1, 2, 3), 48),
                 "pyramid256": (1, 8, 8, 259, (1, 2, 3, 4), 64)}
 
@@ -298,6 +304,18 @@ def _port_fused(inp, dils):
             {k: v.grad.float() for k, v in p.items()})
 
 
+def _stat_close(got, want, n, what):
+    """A batch statistic elementwise within ``STAT_RTOL`` and one bf16
+    step at its largest magnitude over the pixel count ``n``: a
+    conv output that the two sides round to neighbouring bf16 values (a
+    tie that float32 sums in another order put on the other side) moves
+    a mean over n pixels by one bf16 step over n."""
+    m = float(want.abs().max())
+    step = 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+    torch.testing.assert_close(got, want, rtol=STAT_RTOL, atol=step / n,
+                               msg=lambda e: f"{what}: {e}")
+
+
 def _grad_close(a, b, what):
     """Gradients through bf16 roundings (``tests/test_torch_cam.py``):
     within 2^-5 of the largest magnitude, and aligned (cosine > 0.999)."""
@@ -313,11 +331,10 @@ def test_fused_cam_matches_jax_at_wide_widths(name):
     """The output within 2^-6 of its largest magnitude and every gradient
     (x, the three kernels, the BN scales and biases, the gate's
     parameters) within 2^-5 and aligned: ``tests/test_torch_cam.py``'s
-    tolerances for the fused module; the batch statistics (means of
-    bf16-rounded conv outputs over 64 or 234 pixels, where one rounding
-    on the other side of a tie moves a mean by a bf16 step over the pixel
-    count) within 2^-8 of their largest magnitude, its tolerance for bf16
-    outputs.  The gates are sigmoids (positive), where F3b's gate fault
+    tolerances for the fused module; the batch statistics (means and
+    variances of bf16-rounded conv outputs over 64 or 234 pixels)
+    elementwise by :func:`_stat_close`.  The gates are sigmoids
+    (positive), where F3b's gate fault
     of the TPU kernel (``pallas_cam.py:507``) does not show, so dx is
     held on every image."""
     shape = FUSED_SHAPES[name]
@@ -328,11 +345,11 @@ def test_fused_cam_matches_jax_at_wide_widths(name):
     want = torch.from_numpy(jout)
     assert float((out - want).abs().max()) <= 2.0 ** -6 * float(
         want.abs().max())
+    n = shape[0] * shape[1] * shape[2]
     for k in ("r", "t", "h"):
-        for got_s, want_s in zip(stats[k], jstats[k]):
-            want_s = torch.from_numpy(np.array(want_s))
-            err = float((got_s.detach().float() - want_s).abs().max())
-            assert err <= BF16_TOL * float(want_s.abs().max()), (k, err)
+        for what, got_s, want_s in zip(("mean", "var"), stats[k], jstats[k]):
+            _stat_close(got_s.detach().float(),
+                        torch.from_numpy(np.array(want_s)), n, f"{k} {what}")
     for k in _DIFF:
         _grad_close(g[k], torch.from_numpy(jg[k]), k)
 
@@ -340,6 +357,8 @@ def test_fused_cam_matches_jax_at_wide_widths(name):
 # ------------------------------------------------------------ the student
 
 B, HW, INPLANES, ALT = 2, 32, 96, 6
+# a tensor's update against JAX's, 1 - cosine
+TENSOR_GAP = 0.25
 
 
 def _batch(seed=0):
@@ -363,20 +382,23 @@ def _updates(after, before):
             if not k.endswith("num_batches_tracked")}
 
 
-def _apart(got, want, before):
-    """(worst tensor's max |got - want| over its scale, the cosine of the
-    whole updates, each tensor over its scale): ``tests/test_torch_
-    train.py``'s figures, a tensor's scale its update's largest magnitude
-    or 1e-3 of its largest value."""
-    worst, ga, wa = 0.0, [], []
+def _gaps(got, want, before):
+    """(each tensor's 1 - cosine between its update and ``want``'s, over
+    the tensors ``want`` moves; 1 - the cosine of the whole updates, each
+    tensor over its scale: its update's largest magnitude or 1e-3 of its
+    largest value, as ``tests/test_torch_train.py`` scales them)."""
+    per, ga, wa = {}, [], []
     for k, w in want.items():
+        g, w = got[k].flatten().double(), w.flatten().double()
+        if float(w.norm()) > 0.0:
+            per[k] = 1.0 - float(g @ w / max(float(g.norm() * w.norm()),
+                                             1e-300))
         scale = max(float(w.abs().max()),
                     1e-3 * float(before[k].abs().max()), 1e-12)
-        worst = max(worst, float((got[k] - w).abs().max()) / scale)
-        ga.append(got[k].flatten().double() / scale)
-        wa.append(w.flatten().double() / scale)
+        ga.append(g / scale)
+        wa.append(w / scale)
     a, b = torch.cat(ga), torch.cat(wa)
-    return worst, float(a @ b / (a.norm() * b.norm()))
+    return per, 1.0 - float(a @ b / (a.norm() * b.norm()))
 
 
 def test_student_step_matches_jax_at_inplanes_96():
@@ -385,12 +407,15 @@ def test_student_step_matches_jax_at_inplanes_96():
     C = 99, hc = 24) against JAX's (float32 model, fused CAMs in
     interpret mode) from the same weights and batch: both losses within
     1e-3 (relative), as ``tests/test_torch_train.py`` holds its fused
-    steps; the updates against a control, JAX's same step on the images
-    moved by 1e-6 (relative): the port's worst tensor within twice the
-    control's worst (measured ~0.30 of the tensor's scale: a bf16
-    rounding that lands on the other side of a tie moves a ReLU mask or a
-    small batch's statistics) and the whole update's cosine gap (1 - cos,
-    ~3e-3 for the control) within three times the control's."""
+    steps; the whole update's cosine gap (1 - cos) within three times a
+    control's, JAX's same step on the images moved by 1e-6 (relative),
+    ~4e-3: a bf16 rounding that lands on the other side of a tie moves a
+    ReLU mask or a small batch's statistics; and each tensor's update
+    within ``TENSOR_GAP`` of JAX's in 1 - cos.  The port's worst tensor
+    reads 0.094 (a conv of ``att.lo``, the pyramid's lowest level, whose
+    batch statistics here are means over a few pixels); one branch of
+    the step CAMs' dkh zeroed in F3b, or half of its columns, reads
+    0.39-1.24 at the tensors it hits (1 - cos of the whole 0.39-0.57)."""
     model = JaxStudent(inplanes=INPLANES, alt_planes=ALT,
                        detach_att_for_det=True, dtype=jnp.float32,
                        fused_cam=True)
@@ -429,9 +454,10 @@ def test_student_step_matches_jax_at_inplanes_96():
     for k in ("attention_loss", "keypoints_loss"):
         assert float(pm[k]) == pytest.approx(want_metrics[k], rel=1e-3), k
     want = _updates(want_sd, before)
-    worst, cos = _apart(_updates(pstate.model.state_dict(), before), want,
-                        before)
-    ctl_worst, ctl_cos = _apart(_updates(runs[1][1], before), want, before)
-    assert ctl_worst > 0.0 and ctl_cos < 1.0     # the control moved
-    assert worst <= 2.0 * ctl_worst, (worst, ctl_worst)
-    assert 1.0 - cos <= 3.0 * (1.0 - ctl_cos), (cos, ctl_cos)
+    per, gap = _gaps(_updates(pstate.model.state_dict(), before), want,
+                     before)
+    _, ctl_gap = _gaps(_updates(runs[1][1], before), want, before)
+    assert ctl_gap > 0.0                          # the control moved
+    assert gap <= 3.0 * ctl_gap, (gap, ctl_gap)
+    worst = max(per, key=per.get)
+    assert per[worst] <= TENSOR_GAP, (worst, per[worst])

@@ -800,8 +800,9 @@ def test_cam_f3b_ragged_tiles_match_plain(no_tf32, op, shape):
 # The width grid (B = 16, 113^2): AttentionStudentSteps' CAMs at
 # --inplanes 96, 128 and 256 (step: C = 2 inplanes + 3, dilations 1-3;
 # pyramid: C = inplanes + 3, 1-4; hc = C // 4) and six dilations up to 6
-# and 8 at C = 163; the kernels run them at WIDE_BATCH x WIDE_HW (the
-# plan's chunks and slices depend on C, hc and the dilations only)
+# and 8 at C = 163; the kernels run them at WIDE_BHW (the plan's chunks
+# and slices depend on C, hc and the dilations only), and the step CAM
+# at --inplanes 128 at full size too
 WIDTH_GRID = [(16, 113, 113, 195, (1, 2, 3), 48),
               (16, 113, 113, 259, (1, 2, 3), 64),
               (16, 113, 113, 515, (1, 2, 3), 128),
@@ -862,16 +863,18 @@ def test_cam_tile_refuses_a_halo_that_does_not_fit(cuda, op):
     _refuses_a_halo_that_does_not_fit(cuda, op)
 
 
-@pytest.mark.parametrize("shape", WIDTH_GRID)
+@pytest.mark.parametrize("shape", [WIDE_BHW + s[3:] for s in WIDTH_GRID]
+                         + [WIDTH_GRID[1]])
 def test_cam_kernels_match_plain_at_every_width(no_tf32, shape):
     """The six kernels at the width grid (the wide plan, and the
-    whole-depth one at the pyramid's C = 99 and 131), at WIDE_BHW.
-    Exact-sum inputs: every per-pixel output bitwise the plain
+    whole-depth one at the pyramid's C = 99 and 131), at WIDE_BHW, and
+    the step CAM of --inplanes 128 at the train step's B=16, 113 x 113
+    (the wide plan's 16 x 15 x 15 tiles and its scratch at 204,304
+    pixels).  Exact-sum inputs: every per-pixel output bitwise the plain
     version's, every reduction within ``cam_check.SUM_TOL`` of its
     float64 sum of |terms|.  Random inputs: within the float64 check's
     limits (small caps: one mask flip covers more than 1e-4 of an
     output this small)."""
-    shape = WIDE_BHW + shape[3:]
     case = cam_case(*shape, seed=7, device=no_tf32, exact=True)
     for name, kernel, plain, args in cam_calls(case):
         got, masks = cam_check.run_kernel(name, kernel, args)
