@@ -103,7 +103,9 @@ Phases, each of which fails the run:
     the same two checks at the width grid (``WIDE_CAMS``: the student's
     CAMs at ``--inplanes`` 96, 128 and 256 and six dilations up to 6 and
     8 at C = 163, B = 2, 21 x 19, on the kernels' wide plan: K-chunked
-    halos and stages, branches in slices of at most 40 columns);
+    halos and stages, branches in slices of at most 40 columns; F1 and
+    F3 there on the wgmma kernels of ``csrc/cam_wg.cuh``, whole branches
+    of up to 128 columns);
     then the backwards' weight-gradient kernels alone (``cam.cam_wgrad``:
     dkh at each dilation, dkr, dkt) against a float64 product of the
     same bf16 operands at both train shapes, the ragged shape and C = 12
@@ -122,7 +124,8 @@ Phases, each of which fails the run:
     within 1e-3 of each other; step times, peak memory and a
     ``torch.profiler`` view of one fused step; then the same fused and
     cuDNN pair at ``--inplanes 128`` (its step CAMs, C = 259, hc = 64,
-    on the wide plan): launches, losses within 1e-3, ms, img/s, peak GB;
+    on the wide plan; F1 and F3 on ``cam_wg.cuh``'s kernels): launches,
+    losses within 1e-3, ms, img/s, peak GB;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
     CAM's train-mode forward (or forward + backward) at both shapes and
     at ``--inplanes 128``'s step CAM (``at_step128``), and
@@ -131,8 +134,9 @@ Phases, each of which fails the run:
     weight re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper), each
     kernel under its own name (``tile_parts``: the whole-depth plan's
-    ``<op>_tile_kernel<false>`` and ``dx_kernel``, at ``at_step128`` the
-    wide plan's ``<op>_tile_kernel<true>`` and ``wide_dx_kernel``).
+    ``<op>_tile_kernel`` and ``dx_kernel``, at ``at_step128`` the
+    wide plan's ``<op>_tile_kernel<true>`` and ``wide_dx_kernel``, and
+    F1's and F3's ``f1_wg_kernel`` / ``f3_wg_kernel``).
 
 20. flip and multi-scale (0.5, 1, 2) TTA at full W48 width on 640 x 640
     images: the grouping self-checks at D=2 (the solver ``lap="auto"``
@@ -364,11 +368,15 @@ TILE_OPS = {"cam_f1_fwd": ("f1", None), "cam_f2_fwd": ("f2", None),
 def tile_parts(name: str, wide: bool) -> tuple:
     """The kernels of tiled op ``name`` by the names the profiler gives
     them, those of the whole-depth plan or (``wide``) of the wide plan:
-    ``<op>_tile_kernel<false|true>``, ``dx_kernel`` or ``wide_dx_kernel``
-    (each matched after its namespace's ``::``)."""
+    ``<op>_tile_kernel<false|true>`` (F1's and F3's ``<op>_tile_kernel``,
+    and where the wide plan would run them ``<op>_wg_kernel``),
+    ``dx_kernel`` or ``wide_dx_kernel`` (each matched after its
+    namespace's ``::``)."""
     op, dx = TILE_OPS[name]
-    w = "true" if wide else "false"
-    parts = (f"::{op}_tile_kernel<{w}>",)
+    if op in ("f1", "f3"):
+        parts = (f"::{op}_{'wg' if wide else 'tile'}_kernel",)
+    else:
+        parts = (f"::{op}_tile_kernel<{'true' if wide else 'false'}>",)
     if dx is not None:
         parts += (f"::{'wide_' if wide else ''}dx_kernel<{dx}>",
                   "wgrad_taps_kernel", "wgrad_plain_kernel")
@@ -3299,41 +3307,50 @@ def fuse_times(qfuse_mod, args) -> dict:
             "gb_per_s": n_bytes / (ms * 1e6)}
 
 
-def nonport_kernels(fn, quant_mod, qfuse_mod) -> dict:
+def nonport_kernels(fn, quant_mod, qfuse_mod, tries: int = 3) -> dict:
     """The CUDA kernels of one ``fn()`` under ``torch.profiler`` that are
     not the port's two int8 kernels, by name.  A profile can miss the
     kernels of its first moments (seen on the H100: the input's cast
     and six port kernels), so ``fn`` runs once in a warm-up cycle
-    and is read in the one active cycle after it.  Fails unless the
+    and is read in the one active cycle after it; a profile still
+    missing kernels (fewer port kernels than the counters count, or no
+    cast) is taken again, up to ``tries`` profiles.  Fails unless a
     profile holds exactly the port kernels that the launch counters
     count in that cycle and, beside them, only ``fn``'s input cast."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            before = quant_mod.qconv.launches + qfuse_mod.fuse_sum.launches
-            fn()
-            torch.cuda.synchronize()
-            counted = (quant_mod.qconv.launches
-                       + qfuse_mod.fuse_sum.launches - before)
-            prof.step()
-    names = {}
-    n_port = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.name.startswith("ProfilerStep"):
-            continue
-        if any(k in e.name for k in PORT_KERNELS):
-            n_port += 1
-        else:
-            names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                before = (quant_mod.qconv.launches
+                          + qfuse_mod.fuse_sum.launches)
+                fn()
+                torch.cuda.synchronize()
+                counted = (quant_mod.qconv.launches
+                           + qfuse_mod.fuse_sum.launches - before)
+                prof.step()
+        names = {}
+        n_port = 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or e.name.startswith("ProfilerStep"):
+                continue
+            if any(k in e.name for k in PORT_KERNELS):
+                n_port += 1
+            else:
+                names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+        if (n_port < counted or not names) and attempt + 1 < tries:
+            continue   # events dropped: profile again
+        break
     check(n_port == counted, f"the profile holds {n_port} port kernels, "
           f"the counters {counted}: an incomplete profile")
     check(sum(names.values()) == 1 and all("copy" in k for k in names),
           f"non-port kernels besides the input's cast: {names}")
     return {"port_kernels": n_port, "counted": counted,
-            "other_kernels": sum(names.values()), "other": names}
+            "other_kernels": sum(names.values()), "other": names,
+            "profiles": attempt + 1}
 
 
 def forward_ms(fn, windows: int = 3) -> dict:

@@ -15,6 +15,8 @@
 // bf16 HWIO (the JAX layout).  Both (2-D tiles, one halo per tile, 16-byte
 // async copies; cam_tile.cuh) read x padded to kc channels and the
 // weights re-laid by ops/cam.py:_tile_weights, the same w0 for both.
+// Where make_tgeo takes the wide plan, F1 runs f1_wg_kernel (cam_wg.cuh:
+// wgmma, whole branches) on its own layout (_wg_weights).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F1 does C^2 + 9 nb C hc = 202.6 K multiply-adds a pixel,
@@ -27,7 +29,7 @@
 // (cam_wgrad_workspace, cam_wgrad_plan, cam_wgrad_launch; ops/cam.py:
 // cam_wgrad), which the card checks hold to a float64 product.
 
-#include "cam_tile.cuh"
+#include "cam_wg.cuh"
 
 namespace cam {
 namespace tile {
@@ -36,8 +38,8 @@ namespace tile {
 // the sum of x (C)], the first two the column sums of bf16(x . kr) and
 // of each branch's bf16(c) and their squares over the tile's pixels in the
 // image (a pixel outside it is masked: its taps can reach into the image).
-// WIDE: the wide plan (cam_tile.cuh), the sum of x read from xpad.
-template <bool WIDE>
+// Where make_tgeo takes the wide plan, f1_wg_kernel (cam_wg.cuh) runs
+// instead.
 __global__ void __launch_bounds__(TT, 1)
 f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                const bf16 *__restrict__ w0, float *__restrict__ part) {
@@ -47,25 +49,12 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   bf16 *sH = reinterpret_cast<bf16 *>(smem);
   bf16 *sW = sH + t.hr * xp;                // NBUF buffers
   const Lane L = lane_of(t);
-  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  const uint32_t aH = halo_row(sH, xp, t, L);
   float *prow = part + static_cast<int64_t>(blockIdx.x) * (3 * C + 2 * g.NH);
-  auto ring = [&]() {
-    if constexpr (WIDE) {
-      bf16 *wH;
-      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, nullptr, nullptr}, w0, wW,
-                            wH, t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
-    } else {
-      return Ring{w0, sW, wbuf, L.lane, 0};
-    }
-  }();
+  Ring ring{w0, sW, wbuf, L.lane, 0};
 
-  if constexpr (WIDE) {
-    ring.start();
-  } else {
-    stage_halo(sH, xpad, g.kc, g, t, L.pos);
-    ring.start(g, t);
-  }
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
 
   // the lane's fragment rows in the image (e < 2: row r, else r + 8)
   const bool in0 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 0)) >= 0;
@@ -94,29 +83,15 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
     ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
                      prow + n0, C, C - n0 < NC ? C - n0 : NC);
   };
-  if constexpr (WIDE) {
-    wbranch_convs(g, t, ring, L, epi_h);
-    wconv1x1_chunks<true, false>(g, t, ring, L, epi_r);
-    // the sum of x over the tile's pixels in the image
-    for (int c = threadIdx.x; c < C; c += TT) {
-      float acc = 0.0f;
-      for (int r = 0; r < TP; ++r) {
-        const int64_t p = tile_pix(g, L.pos, r);
-        if (p >= 0) acc += bf2f(xpad[p * g.kc + c]);
-      }
-      prow[2 * C + 2 * g.NH + c] = acc;
-    }
-  } else {
-    branch_convs(g, t, ring, aH, L, epi_h);
-    conv1x1_chunks<true, false>(g, t, ring, aH, 0, L, epi_r);
-    // the sum of x over the halo's 64 centre rows (zero outside the image)
-    const bf16 *centre = sH + (t.dmax * t.hs + t.dmax) * xp;
-    for (int c = threadIdx.x; c < C; c += TT) {
-      float acc = 0.0f;
-      for (int r = 0; r < TP; ++r)
-        acc += bf2f(centre[((r >> 3) * t.hs + (r & 7)) * xp + c]);
-      prow[2 * C + 2 * g.NH + c] = acc;
-    }
+  branch_convs(g, t, ring, aH, L, epi_h);
+  conv1x1_chunks<true, false>(g, t, ring, aH, 0, L, epi_r);
+  // the sum of x over the halo's 64 centre rows (zero outside the image)
+  const bf16 *centre = sH + (t.dmax * t.hs + t.dmax) * xp;
+  for (int c = threadIdx.x; c < C; c += TT) {
+    float acc = 0.0f;
+    for (int r = 0; r < TP; ++r)
+      acc += bf2f(centre[((r >> 3) * t.hs + (r & 7)) * xp + c]);
+    prow[2 * C + 2 * g.NH + c] = acc;
   }
 }
 
@@ -249,33 +224,39 @@ using namespace cam;
 extern "C" long long cam_f1_workspace(const int *geo) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F1, &g, &t)) return -1;
+  tile::FPlan P;
+  if (!tile::fwd_geo(geo, tile::F1, &g, &t, &P)) return -1;
   Carve cv(nullptr);
   cv.take<float>(static_cast<int64_t>(t.n_tiles) * (3 * g.C + 2 * g.NH));
   return cv.off;
 }
 
-// F1's tile plan (cam_tile.cuh:tile_plan).
+// F1's tile plan (cam_wg.cuh:fwd_plan).
 extern "C" long long cam_f1_plan(const int *geo, int what) {
-  return tile::tile_plan(geo, tile::F1, what);
+  return tile::fwd_plan(geo, tile::F1, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
-// re-laid by ops/cam.py:_tile_weights("f1", ...).  s_r (2, C), s_h
-// (2 nb, hc), gap (B, C) f32: the sums (gap not yet divided by H W).
-// ws: cam_f1_workspace(geo) bytes.
+// re-laid by ops/cam.py:_tile_weights("f1", ...) (_wg_weights where
+// f1_wg_kernel runs).  s_r (2, C), s_h (2 nb, hc), gap (B, C) f32: the
+// sums (gap not yet divided by H W).  ws: cam_f1_workspace(geo) bytes.
 extern "C" int cam_f1_launch(const int *geo, const void *xpad,
                              const void *w0, void *ws, void *s_r, void *s_h,
                              void *gap, void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F1, &g, &t))
+  tile::FPlan P;
+  if (!tile::fwd_geo(geo, tile::F1, &g, &t, &P))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto *part = static_cast<float *>(ws);
-  CAM_TRY(CAM_TILE_LAUNCH(tile::f1_tile_kernel, g, t, st,
-                          static_cast<const bf16 *>(xpad),
-                          static_cast<const bf16 *>(w0), part));
+  const auto *xx = static_cast<const bf16 *>(xpad);
+  const auto *w = static_cast<const bf16 *>(w0);
+  if (t.wide)
+    CAM_TRY(CAM_WG_LAUNCH(tile::f1_wg_kernel, g, t, P, st, xx, w, part));
+  else
+    CAM_TRY(tile::launch(tile::f1_tile_kernel, dim3(t.n_tiles),
+                         tile::smem0_bytes(g, t), st, g, t, xx, w, part));
   const int64_t ld = 3 * g.C + 2 * g.NH;
   CAM_TRY(reduce_rows(part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(s_r), 0, st));

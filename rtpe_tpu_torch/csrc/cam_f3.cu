@@ -16,7 +16,9 @@
 // bias]; gate (B, C) f32.  Both (2-D tiles, one halo per tile, 16-byte
 // async copies; cam_tile.cuh) read x padded to kc channels and the
 // weights re-laid by ops/cam.py:_tile_weights; F3's w0 is the prefix of
-// F3b's before its kt[i] stages.
+// F3b's before its kt[i] stages.  Where make_tgeo takes the wide plan, F3
+// runs f3_wg_kernel (cam_wg.cuh: wgmma, whole branches) on its own layout
+// (_wg_weights).
 //
 // Fault of the TPU kernel not copied: _f3b_kernel's phase 1 reads image
 // 0's gate for every image (pallas_cam.py:507, gate_ref[0:1, :]), so its
@@ -27,7 +29,7 @@
 // operations.  F3 does C^2 + 9 nb C hc + nb hc C = 222.2 K multiply-adds
 // a pixel: 0.092 ms at 989 TFLOP/s (bf16 dense); F3b 3x: 0.275 ms.
 
-#include "cam_tile.cuh"
+#include "cam_wg.cuh"
 
 namespace cam {
 namespace tile {
@@ -35,15 +37,13 @@ namespace tile {
 // F3 on one 8 x 8 tile: out (M, C) bf16 = relu(relu(BN_r(bf16(x . kr))) +
 // relu(BN_t(bf16(a . kt))) gate[b]), a = bf16(relu(BN_h(bf16(c)))) kept
 // in shared memory only; the _rn operations in the first design's order.
-// WIDE: the wide plan (cam_tile.cuh), a through its rows in `a` (pitch
-// knh, by pixel), the BN rows and the gate read from global memory.
-template <bool WIDE>
+// Where make_tgeo takes the wide plan, f3_wg_kernel (cam_wg.cuh) runs
+// instead.
 __global__ void __launch_bounds__(TT, 1)
 f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                const bf16 *__restrict__ w0, const float *__restrict__ bnr,
                const float *__restrict__ bnh, const float *__restrict__ bnt,
-               const float *__restrict__ gate, bf16 *__restrict__ out,
-               bf16 *__restrict__ a) {
+               const float *__restrict__ gate, bf16 *__restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -55,36 +55,18 @@ f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sG = sBt + 4 * C;
   float *sBh = sG + C;
   const Lane L = lane_of(t);
-  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
-  auto ring = [&]() {
-    if constexpr (WIDE) {
-      bf16 *wH;
-      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, a, nullptr}, w0, wW, wH,
-                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
-    } else {
-      return Ring{w0, sW, wbuf, L.lane, 0};
-    }
-  }();
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  Ring ring{w0, sW, wbuf, L.lane, 0};
 
-  const float *rBr = bnr, *rBt = bnt, *rG = gate + L.pos.b * C;
-  if constexpr (WIDE) {
-    zero_pad_cols(a, g.knh, 1, g.knh, g.NH, g, L.pos);
-    ring.start();
-  } else {
-    stage_halo(sH, xpad, g.kc, g, t, L.pos);
-    ring.start(g, t);
-    for (int i = threadIdx.x; i < 4 * C; i += TT) {
-      sBr[i] = bnr[i];
-      sBt[i] = bnt[i];
-    }
-    for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
-    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-    zero_top_pads(g, sA, nullptr);
-    rBr = sBr;
-    rBt = sBt;
-    rG = sG;
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 4 * C; i += TT) {
+    sBr[i] = bnr[i];
+    sBt[i] = bnt[i];
   }
+  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, nullptr);
 
   constexpr int GC = (NTC + 1) / 2;
   auto epi = [&](int n0, const Split &sc, float (&acr)[GC][4],
@@ -96,25 +78,19 @@ f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
         const int c = n0 + frag_col(L.lane, sc.j0 + j, e);
         const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
         if (p < 0 || c >= C || j >= sc.cnt) continue;
-        const float res = relu(bn_apply(bfr(acr[j][e]), rBr[c],
-                                        rBr[C + c], rBr[2 * C + c],
-                                        rBr[3 * C + c]));
-        const float y = relu(bn_apply(bfr(at[j][e]), rBt[c], rBt[C + c],
-                                      rBt[2 * C + c], rBt[3 * C + c]));
-        const float pre = __fadd_rn(res, __fmul_rn(y, rG[c]));
+        const float res = relu(bn_apply(bfr(acr[j][e]), sBr[c],
+                                        sBr[C + c], sBr[2 * C + c],
+                                        sBr[3 * C + c]));
+        const float y = relu(bn_apply(bfr(at[j][e]), sBt[c], sBt[C + c],
+                                      sBt[2 * C + c], sBt[3 * C + c]));
+        const float pre = __fadd_rn(res, __fmul_rn(y, sG[c]));
         out[p * C + c] = f2bf(relu(pre));
       }
   };
-  if constexpr (WIDE) {
-    wbranch_convs(g, t, ring, L,
-                  ToActivations<false, true>{g, L, bnh, nullptr, nullptr, a});
-    wconv1x1_chunks<true, true>(g, t, ring, L, epi);
-  } else {
-    branch_convs(g, t, ring, aH, L,
-                 ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
-    conv1x1_chunks<true, true>(g, t, ring, aH, tile_row(sA, g.nhp, L), L,
-                               epi);
-  }
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
+  conv1x1_chunks<true, true>(g, t, ring, aH, tile_row(sA, g.nhp, L), L,
+                             epi);
 }
 
 // Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, knh), dt (M, kc),
@@ -305,24 +281,27 @@ F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
-// F3's tile plan (cam_tile.cuh:tile_plan).
+// F3's tile plan (cam_wg.cuh:fwd_plan).
 extern "C" long long cam_f3_plan(const int *geo, int what) {
-  return tile::tile_plan(geo, tile::F3, what);
+  return tile::fwd_plan(geo, tile::F3, what);
 }
 
-// F3's workspace, bytes: the wide plan's a (M, knh) bf16, else none.
+// F3's workspace, bytes: a (M, knh) bf16 where f3_wg_kernel keeps it out
+// of shared memory, else none.
 extern "C" long long cam_f3_workspace(const int *geo) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F3, &g, &t)) return -1;
+  tile::FPlan P;
+  if (!tile::fwd_geo(geo, tile::F3, &g, &t, &P)) return -1;
   Carve cv(nullptr);
-  cv.take<bf16>(t.wide ? static_cast<int64_t>(g.M) * g.knh : 0);
+  cv.take<bf16>(t.wide && !P.a_res ? static_cast<int64_t>(g.M) * g.knh : 0);
   return cv.off;
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
-// re-laid by ops/cam.py:_tile_weights("f3", ...).  out (B, H, W, C) bf16.
-// ws: cam_f3_workspace(geo) bytes.
+// re-laid by ops/cam.py:_tile_weights("f3", ...) (_wg_weights where
+// f3_wg_kernel runs).  out (B, H, W, C) bf16.  ws: cam_f3_workspace(geo)
+// bytes.
 extern "C" int cam_f3_launch(const int *geo, const void *xpad,
                              const void *w0, const void *bnr,
                              const void *bnh, const void *bnt,
@@ -330,14 +309,25 @@ extern "C" int cam_f3_launch(const int *geo, const void *xpad,
                              void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F3, &g, &t))
+  tile::FPlan P;
+  if (!tile::fwd_geo(geo, tile::F3, &g, &t, &P))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(CAM_TILE_LAUNCH(
-      tile::f3_tile_kernel, g, t, static_cast<cudaStream_t>(stream),
-      static_cast<const bf16 *>(xpad), static_cast<const bf16 *>(w0),
-      static_cast<const float *>(bnr), static_cast<const float *>(bnh),
-      static_cast<const float *>(bnt), static_cast<const float *>(gate),
-      static_cast<bf16 *>(out), static_cast<bf16 *>(ws)));
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto *xx = static_cast<const bf16 *>(xpad);
+  const auto *w = static_cast<const bf16 *>(w0);
+  const auto *r = static_cast<const float *>(bnr);
+  const auto *h = static_cast<const float *>(bnh);
+  const auto *tt = static_cast<const float *>(bnt);
+  const auto *gt = static_cast<const float *>(gate);
+  auto *o = static_cast<bf16 *>(out);
+  if (t.wide)
+    return static_cast<int>(CAM_WG_LAUNCH(tile::f3_wg_kernel, g, t, P, st,
+                                          xx, w, r, h, tt, gt, o,
+                                          static_cast<bf16 *>(ws)));
+  return static_cast<int>(tile::launch(tile::f3_tile_kernel,
+                                       dim3(t.n_tiles),
+                                       tile::smem0_bytes(g, t), st, g, t, xx,
+                                       w, r, h, tt, gt, o));
 }
 
 extern "C" long long cam_f3b_workspace(const int *geo) {

@@ -1,6 +1,7 @@
 // The 2-D tile kernels of the fused-CAM ops: the three backwards F1b, F2b
 // and F3b and the three forwards F1, F2 and F3, CUDA C++ for sm_90a;
-// cam_f1.cu, cam_f2.cu and cam_f3.cu include this header.
+// cam_f1.cu, cam_f2.cu and cam_f3.cu include this header (cam_f1.cu and
+// cam_f3.cu through cam_wg.cuh).
 //
 // Replaces, with those files, the TPU kernels _f1_call / _f1_kernel,
 // _f2_call / _f2_kernel, _f3_call / _f3_kernel, _f1b_call / _f1b_kernel,
@@ -14,10 +15,11 @@
 // width and 1..6 dilations: where a branch has at most 40 columns and the
 // tile's halo at full channel depth fits a block's shared memory (the
 // train step's CAMs at the default --inplanes 80) the kernels below run
-// as described here; elsewhere their wide plan ("wide plan" below:
-// K-chunked halos and stages, branches in slices; wide_dx_kernel for phase 1),
-// which refuses only a largest dilation whose halo of one 16-channel
-// chunk does not fit (19 and up at C = 163).
+// as described here; elsewhere F2 and the backwards run their wide plan
+// ("wide plan" below: K-chunked halos and stages, branches in slices;
+// wide_dx_kernel for phase 1), and F1 and F3 the wgmma kernels of
+// cam_wg.cuh.  Every op refuses only a largest dilation whose halo of
+// one 16-channel chunk does not fit the wide plan (19 and up at C = 163).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
@@ -918,8 +920,10 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
 
 // ------------------------------------------------------------ wide plan
 //
-// The wide plan (TGeo::wide) takes any branch width and any C: shared
-// memory depends on the chunk widths and the largest dilation, not on C.
+// The wide plan (TGeo::wide) of F2 and the three backwards (F1 and F3
+// run cam_wg.cuh's kernels where make_tgeo picks it) takes any branch
+// width and any C: shared memory depends on the chunk widths and the
+// largest dilation, not on C.
 //   - every K dimension goes in chunks (k_chunks, as wide as SMEM_MAX
 //     takes: x's and dt's kc in kq chunks, a's knh in kqa, phase 1's dr
 //     kc in kq1r and dc's khc in kq1c); a halo (x in phase 0, dc in phase
@@ -932,14 +936,14 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
 //   - branches go in slices of at most SW_MAX columns (sw: 48 as 2 x 24,
 //     64 as 2 x 32, 128 as 4 x 32), each a branch of the plan above;
 //   - a, dt and c are not kept in shared memory: a and dt are written to
-//     their scratch rows in global memory (a_out / dt_out, or F2's and
-//     F3's own) and read back as the A chunks of the 1x1 and the branch
-//     backward stages; the first stages that read them may start only
-//     after every warp has written its rows (TGeo::safe_a, safe_d: their
-//     A chunks are not prefetched past that point but copied there, and
-//     waited for); c is read back by the thread that wrote it;
-//   - the BN rows, the gate and the statistics' cotangents are read from
-//     global memory (a few KB, cached).
+//     their scratch rows in global memory (a_out / dt_out, or F2's own)
+//     and read back as the A chunks of the 1x1 and the branch backward
+//     stages; the first stages that read them may start only after every
+//     warp has written its rows (TGeo::safe_a, safe_d: their A chunks are
+//     not prefetched past that point but copied there, and waited for); c
+//     is read back by the thread that wrote it;
+//   - the BN rows, the gate (F3b) and the statistics' cotangents are read
+//     from global memory (a few KB, cached).
 // The per-pixel outputs keep their rounding points; the products add
 // their chunks in another order than the plan above, which a geometry
 // takes only where it fits (a branch of at most SW_MAX columns and a

@@ -477,8 +477,9 @@ def _dispatch(x, name):
 def cam_f1_fwd(x, kr, kh, dils):
     """F1 (replaces ``pallas_cam.py:_f1_call``): (s_r, s_h, sums of x per
     image), float32.  On the card the tile kernel of
-    ``csrc/cam_tile.cuh``; ``ValueError`` only for a largest dilation
-    whose halo does not fit (:func:`tile_plan`)."""
+    ``csrc/cam_tile.cuh``, or ``csrc/cam_wg.cuh``'s where the wide plan
+    would run (``tile_plan``'s "wg"); ``ValueError`` only for a largest
+    dilation whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_fwd"):
         return cam_f1_fwd_plain(x, kr, kh, dils)
     x, kr, kh = _check(x, kr, kh, None, dils, ())
@@ -524,8 +525,9 @@ def cam_f2_fwd(x, kh, kt, bnh, dils):
 def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
     """F3 (replaces ``pallas_cam.py:_f3_call``): the CAM output,
     (B, H, W, C) bf16.  On the card the tile kernel of
-    ``csrc/cam_tile.cuh``; ``ValueError`` only for a largest dilation
-    whose halo does not fit (:func:`tile_plan`)."""
+    ``csrc/cam_tile.cuh``, or ``csrc/cam_wg.cuh``'s where the wide plan
+    would run (``tile_plan``'s "wg"); ``ValueError`` only for a largest
+    dilation whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f3_fwd"):
         return cam_f3_fwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, dils)
     x, kr, kh, kt, bnr, bnh, bnt, gate = _check(
@@ -555,12 +557,15 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 # staged once at full depth; elsewhere the wide plan stages every operand
 # in chunks of input channels and walks a branch in slices (cam_tile.cuh:
 # "wide plan"), and refuses only a largest dilation whose halo of one
-# 16-channel chunk does not fit.  tile_plan and _tile_weights are that
-# contract's Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b");
-# the C side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems,
-# stage0, WStage0, WStage1) computes the same, and each wrapper checks the
-# weight counts against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on
-# every call.
+# 16-channel chunk does not fit.  There F1 and F3 run the wgmma kernels of
+# csrc/cam_wg.cuh instead ("wg" in tile_plan: whole branches of up to 128
+# columns, the halo at full depth where it fits, _wg_weights), refusing
+# the same.  tile_plan and _tile_weights are that contract's Python side,
+# per op ("f1", "f2", "f3", "f1b", "f2b", "f3b"); the C side (make_tgeo,
+# smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0, WStage0, WStage1;
+# cam_wg.cuh:make_fplan, fwd_produce) computes the same, and each wrapper
+# checks the weight counts against it (cam_f{1,2,3}_plan,
+# cam_f{1,2,3}b_plan) on every call.
 
 TILE_TS = 8          # tile side (cam_tile.cuh:TS)
 TILE_TP = 64         # pixels of a tile (cam_core.cuh:TP)
@@ -570,6 +575,10 @@ TILE_ROW_WARPS = 4   # warps of 16 pixel rows (times 2 column groups)
 TILE_NBUF = 3        # weight stages in shared memory (cam_tile.cuh:NBUF)
 TILE_SW_MAX = 40     # columns of a branch (slice) (cam_core.cuh:SW_MAX)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
+# cam_wg.cuh's plan: ring slots, columns of a 1x1 chunk, n8 tiles of a
+# branch slice (the kernels' instances), bytes before the ring, F1's
+# column-sum scratch (f32)
+WG_NS, WG_N1, WG_NTB, WG_BAR, WG_RED = 4, 64, (2, 4, 6, 8, 12, 16), 128, 1024
 # op -> (its phase 0 runs kr^T chunks, kt^T chunks, the branch backward),
 # as cam_tile.cuh:make_tgeo sets res, top and bb; a backward ("...b") also
 # has a phase 1 (dx), a forward none
@@ -642,7 +651,8 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
     p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc if bwd else 0
     p.update(wide=0, ok=1, nsl=1, sw=p["brows"], kq=kc, nq=1, kqa=knh,
-             nqa=1, kqm=kc, kq1r=khc, nq1r=p["nksr"], kq1c=khc, nq1c=1)
+             nqa=1, kqm=kc, kq1r=khc, nq1r=p["nksr"], kq1c=khc, nq1c=1,
+             wg=0, ntb=0, kb=0, a_res=0, rows_smem=0, wg_nst=0)
     if hc <= TILE_SW_MAX and max(p["smem0"], p["smem1"]) <= SMEM_MAX:
         return p
     # the wide plan
@@ -675,7 +685,131 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
     p["w1_elems"] = p["nchx"] * p["nxr"] * (res * kc + 9 * nb * khc) \
         if bwd else 0
+    if op in ("f1", "f3"):
+        _wg_plan(p, op == "f3", c, nb, hc)
     return p
+
+
+def _wg_fixed(p, f3, c, nh, kq, a_res, rows):
+    """cam_wg.cuh:fplan_fixed: shared memory besides the ring."""
+    b = WG_BAR + 2 * p["hr"] * kq
+    if f3 and a_res:
+        b += 2 * TILE_TP * p["knh"]
+    if f3:
+        return b + (4 * (9 * c + 4 * nh) if rows else 0)
+    return b + 4 * WG_RED
+
+
+def _wg_plan(p, f3, c, nb, hc):
+    """F1's or F3's plan where the wide plan would run them
+    (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8 tiles
+    (sw columns, nsl slices), 1x1 chunks of WG_N1 columns (nch1), the x
+    halo in nq chunks of kq, x's stages kb wide at most, a's (F3) kqa
+    (nqa of them), a (a_res) and the BN rows (rows_smem) in shared memory
+    or not, wg_nst stages a tile; smem0 and w0_elems its own."""
+    kc, knh, hr, nh = p["kc"], p["knh"], p["hr"], nb * hc
+    n8 = -(-hc // 8)
+    nsl = -(-n8 // 16)
+    ntb = next(v for v in WG_NTB if v >= -(-n8 // nsl))
+    sw, nch1 = 8 * ntb, -(-c // WG_N1)
+    nw = max(sw, WG_N1)
+    found = None
+    for thr in (64, 16):
+        for m in range(3 if f3 else 1):
+            a_res, rows = int(f3 and m < 2), int(f3 and m < 1)
+            prev, nq = 0, 0
+            while found is None:
+                nq += 1
+                kq = _up(-(-kc // nq), 16)
+                if kq == prev:
+                    continue
+                prev = kq
+                avail = SMEM_MAX - _wg_fixed(p, f3, c, nh, kq, a_res, rows)
+                k = -1 if avail < 0 else avail // (2 * WG_NS * nw) // 16 * 16
+                if k >= min(thr, kq):
+                    found = (k, kq, a_res, rows)
+                elif kq <= 16:
+                    break
+            if found:
+                break
+        if found:
+            break
+    if found is None:
+        p["ok"] = 0
+        return
+    kb, kq, a_res, rows = found
+    nq = -(-kc // kq)
+    kbx = _k_chunks(kq, kb)[0]
+    kba, nba = 0, 0
+    if f3:
+        ka = kb if a_res else min(hr * kq // TILE_TP, kb) // 16 * 16
+        kba, nba = _k_chunks(knh, ka)
+    slot = max(kbx, kba) * nw
+    nu = sum(-(-min(kq, kc - q * kq) // kbx) for q in range(nq))
+    nbr = 9 * nb * nsl * nu
+    n11 = nch1 * (nu + f3 * nba)
+    p.update(wg=1, ntb=ntb, sw=sw, brows=sw, nsl=nsl, nch1=nch1, kq=kq,
+             nq=nq, kb=kbx, kqa=kba, nqa=nba, kqm=max(kbx, kba),
+             kw0=max(kbx, kba), a_res=a_res, rows_smem=rows, slot=slot,
+             nbr=nbr, n11=n11, nst0=nbr + n11, wg_nst=nbr + n11,
+             smem0=_wg_fixed(p, f3, c, nh, kq, a_res, rows)
+             + 2 * WG_NS * slot,
+             w0_elems=9 * nb * nsl * kc * sw + nch1 * WG_N1 * (
+                 kc + f3 * knh))
+
+
+def _wg_stages(k: int, width: int):
+    """(first k, width) of the K stages over ``k`` channels in chunks of
+    ``width`` (the last what is left)."""
+    return [(k0, min(width, k - k0)) for k0 in range(0, k, width)]
+
+
+def _wg_x_stages(p):
+    """x's K stages in walking order: per chunk of kq, its stages of kb
+    (cam_wg.cuh:fwd_produce)."""
+    kc, kq = p["kc"], p["kq"]
+    return [[(q * kq + k0, kw) for k0, kw in
+             _wg_stages(min(kq, kc - q * kq), p["kb"])]
+            for q in range(p["nq"])]
+
+
+def _wg_block(t: torch.Tensor, k0: int, kw: int) -> torch.Tensor:
+    """Rows k0 .. k0 + kw of t (..., K, N) as wgmma's N-major core
+    matrices: (..., N / 8, kw, 8)."""
+    blk = t[..., k0:k0 + kw, :]
+    blk = blk.reshape(*blk.shape[:-1], blk.shape[-1] // 8, 8)
+    return blk.transpose(-3, -2)
+
+
+def _wg_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
+    """cam_wg.cuh's re-laid weights, in the order fwd_produce copies them,
+    each stage [N / 8][kw][8] (N the stage's output columns) with zeros
+    padding K and N: per (branch, slice, chunk of x, tap, stage of kb)
+    kh[i, tap] [kw][sw]; then per 1x1 chunk of WG_N1 output columns kr's
+    x stages [kw][WG_N1] and (f3) kt's stages over knh."""
+    nb, _, _, c, hc = kh.shape
+    nh = nb * hc
+    kc, knh, nsl, sw, nch1 = p["kc"], p["knh"], p["nsl"], p["sw"], p["nch1"]
+    xst = _wg_x_stages(p)
+    khp = F.pad(kh.reshape(nb, 9, c, hc), (0, nsl * sw - hc, 0, kc - c))
+    khp = khp.reshape(nb, 9, kc, nsl, sw).permute(0, 3, 1, 2, 4)
+    branch = []
+    for chunk in xst:
+        # per tap, the chunk's stages: (nb, nsl, 9, ...)
+        branch.append(torch.cat(
+            [_wg_block(khp, k0, kw).reshape(nb, nsl, 9, -1)
+             for k0, kw in chunk], 3).reshape(nb, nsl, -1))
+    ncol = nch1 * WG_N1
+    krp = F.pad(kr, (0, ncol - c, 0, kc - c)).reshape(kc, nch1, WG_N1)
+    ones = [_wg_block(krp.transpose(0, 1), k0, kw).reshape(nch1, -1)
+            for chunk in xst for k0, kw in chunk]
+    if op == "f3":
+        ktp = F.pad(kt.reshape(nh, c), (0, ncol - c, 0, knh - nh))
+        ktp = ktp.reshape(knh, nch1, WG_N1).transpose(0, 1)
+        ones += [_wg_block(ktp, k0, kw).reshape(nch1, -1)
+                 for k0, kw in _wg_stages(knh, p["kqa"])]
+    return torch.cat([torch.cat(branch, 2).reshape(-1),
+                      torch.cat(ones, 1).reshape(-1)]).contiguous()
 
 
 def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
@@ -690,7 +824,10 @@ def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
     rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
     nb x 9 stages of kh[i, tap] [nxr][khc].  Where ``plan`` (the call's
     :func:`tile_plan`) is the wide one, its layout instead
-    (:func:`_wide_weights`)."""
+    (:func:`_wide_weights`); where F1 and F3 run cam_wg.cuh's kernels
+    (``plan["wg"]``), theirs (:func:`_wg_weights`)."""
+    if plan is not None and plan["wg"]:
+        return _wg_weights(op, plan, kr, kh, kt), None
     if plan is not None and plan["wide"]:
         return _wide_weights(op, plan, kr, kh, kt)
     nb, _, _, c, hc = kh.shape

@@ -9,10 +9,13 @@ student step at those widths against the JAX package.
   to 6 and 8, and the train step's two shapes.  ``tile_plan`` of all six
   ops fits a block's shared memory at each of them, keeps the
   whole-depth plan where it fits (the train step's shapes) and takes the
-  wide one elsewhere.
+  wide one elsewhere (F1 and F3 there the wgmma plan of
+  ``csrc/cam_wg.cuh``: whole branches of up to 128 columns; its own
+  tests are ``tests/test_torch_cam_wg.py``).
 * The wide plan's re-laid weights (``ops/cam.py:_wide_weights``), stage
   by stage as the kernels walk them (a model of ``cam_tile.cuh:WStage0``
-  and ``WStage1``), give back kr, kh and kt with zero padding.
+  and ``WStage1``), give back kr, kh and kt with zero padding, for the
+  four ops that run it.
 * ``fused_cam`` (the plain versions, on the CPU) against
   ``rtpe_tpu.ops.pallas_cam.fused_cam`` in interpret mode at two wide
   shapes, forward and gradients, with ``tests/test_torch_cam.py``'s
@@ -75,18 +78,24 @@ def by_op(names, ops=OPS):
 def test_tile_plan_fits_every_width(op, name):
     """Every op at every shape of the grid: a plan, within SMEM_MAX in
     both phases, whole-depth where that fits (one K chunk, one slice);
-    otherwise the wide plan: slices of at most 40 columns covering hc,
-    chunks of at most the widest that fits covering kc and knh."""
+    otherwise the wide plan: slices of at most 40 columns covering hc
+    (F1's and F3's wgmma plan: of at most 128), chunks of at most the
+    widest that fits covering kc and knh (F1's wgmma plan reads no
+    a)."""
     b, h, w, c, dils, hc = shape = GRID[name]
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
     assert p["wide"] == (name not in WHOLE_DEPTH
                          and (op, name) not in WHOLE_DEPTH_OPS)
+    assert p["wg"] == (p["wide"] and op in ("f1", "f3"))
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
-    assert p["sw"] <= cam.TILE_SW_MAX and p["sw"] % 8 == 0
-    for k, width, n in ((p["kc"], p["kq"], p["nq"]),
-                        (p["knh"], p["kqa"], p["nqa"])):
+    sw_max = 8 * max(cam.WG_NTB) if p["wg"] else cam.TILE_SW_MAX
+    assert p["sw"] <= sw_max and p["sw"] % 8 == 0
+    chunks = [(p["kc"], p["kq"], p["nq"])]
+    if not (p["wg"] and op == "f1"):
+        chunks.append((p["knh"], p["kqa"], p["nqa"]))
+    for k, width, n in chunks:
         assert width % 16 == 0 and 0 < k - (n - 1) * width <= width
     if not p["wide"]:
         assert (p["nsl"], p["nq"], p["nqa"]) == (1, 1, 1)
@@ -169,8 +178,14 @@ def _weights(c, nb, hc, seed):
     return draw(c, c), draw(nb, 3, 3, c, hc), draw(nb, hc, c)
 
 
+# F1 and F3 run cam_wg.cuh's kernels where the wide plan would run them;
+# their re-laid weights are tests/test_torch_cam_wg.py's
+WIDE_OPS = ("f3b", "f1b", "f2b", "f2")
+
+
 @pytest.mark.parametrize("op,name", [
-    c for c in by_op(WEIGHT_SHAPES) if tuple(c.values) not in WHOLE_DEPTH_OPS])
+    c for c in by_op(WEIGHT_SHAPES, WIDE_OPS)
+    if tuple(c.values) not in WHOLE_DEPTH_OPS])
 def test_wide_weights_unpad_to_the_inputs(op, name):
     b, h, w, c, dils, hc = shape = WEIGHT_SHAPES[name]
     nb, nh = len(dils), len(dils) * hc

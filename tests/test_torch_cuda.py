@@ -820,9 +820,12 @@ WIDE_BHW = (2, 21, 19)
     + WIDTH_GRID))
 def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     """Shared memory, re-laid weight sizes and the wide plan (its flag,
-    K chunks and slices): the C formulas (cam_tile.cuh:tile_plan,
-    exported as cam_f{1,2,3}_plan and cam_f{1,2,3}b_plan) and the Python
-    ones (ops/cam.py:tile_plan) agree, for each tile op."""
+    K chunks and slices), and where F1 and F3 run cam_wg.cuh's kernels
+    that plan's (its flag, n8 tiles of a slice, x's stage width, a and
+    the BN rows in shared memory, stages): the C formulas
+    (cam_tile.cuh:tile_plan, cam_wg.cuh:fwd_plan, exported as
+    cam_f{1,2,3}_plan and cam_f{1,2,3}b_plan) and the Python ones
+    (ops/cam.py:tile_plan) agree, for each tile op."""
     b, h, w, c, dils, hc = shape
     x = torch.empty((b, h, w, c), dtype=torch.bfloat16)
     kh = torch.empty((len(dils), 3, 3, c, hc), dtype=torch.bfloat16)
@@ -830,14 +833,18 @@ def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     lib = cam._lib(f"cam_{op[:2]}")
     p = cam.tile_plan(op, *shape)
     plan = getattr(lib, f"cam_{op}_plan")
-    got = [plan(cam.ctypes.addressof(geo), k) for k in range(10)]
-    assert got == [p["smem0"], p["smem1"], p["w0_elems"], p["w1_elems"],
-                   p["wide"], p["kq"], p["kqa"], p["kq1r"], p["kq1c"],
-                   p["nsl"]]
+    n = 16 if op in ("f1", "f3") else 10
+    got = [plan(cam.ctypes.addressof(geo), k) for k in range(n)]
+    assert got == [p[k] for k in (
+        "smem0", "smem1", "w0_elems", "w1_elems", "wide", "kq", "kqa",
+        "kq1r", "kq1c", "nsl", "wg", "ntb", "kb", "a_res", "rows_smem",
+        "wg_nst")[:n]]
     if f"cam_{op}_workspace" in cam._WORKSPACE[f"cam_{op[:2]}"]:
-        # F3's is the wide plan's a rows alone, none in the other plan
+        # F3's is the wgmma plan's a rows where it keeps a out of shared
+        # memory, none elsewhere
         assert (getattr(lib, f"cam_{op}_workspace")(
-            cam.ctypes.addressof(geo)) > 0) == (op != "f3" or p["wide"])
+            cam.ctypes.addressof(geo)) > 0) == (
+                op != "f3" or (p["wg"] and not p["a_res"]))
 
 
 def _refuses_a_halo_that_does_not_fit(device, op, dils=(1, 20)):
@@ -888,6 +895,41 @@ def test_cam_kernels_match_plain_at_every_width(no_tf32, shape):
     for name, kernel, plain, args in cam_calls(case):
         _, _, faults = _vs_float64(name, kernel, args)
         assert not faults, faults
+
+
+# F1 and F3 on cam_wg.cuh's kernels: the step CAM of --inplanes 128 at the
+# train step's size, ragged images at C = 259 and 515 (the halo at full
+# depth and in K chunks), and a plan with two branch slices that keeps
+# F3's a and BN rows out of shared memory
+WG_SHAPES = [(16, 113, 113, 259, (1, 2, 3), 64),
+             (2, 21, 19, 259, (1, 2, 3), 64),
+             (2, 21, 19, 515, (1, 2, 3), 128),
+             (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256)]
+
+
+@pytest.mark.parametrize("op", ["f1", "f3"])
+@pytest.mark.parametrize("shape", WG_SHAPES)
+def test_cam_wg_forwards_match_plain(no_tf32, op, shape):
+    """F1 and F3 where the wgmma plan runs them, counted launches:
+    exact-sum inputs with F3's out bitwise the plain version's and F1's
+    sums within ``cam_check.SUM_TOL`` of their float64 sums of |terms|;
+    random inputs within the float64 check's limits (small caps)."""
+    assert cam.tile_plan(op, *shape)["wg"]
+    case = cam_case(*shape, seed=11, device=no_tf32, exact=True)
+    name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
+    before = kernel.launches
+    got, _ = cam_check.run_kernel(name, kernel, args)
+    assert kernel.launches == before + 1
+    with torch.backends.cudnn.flags(enabled=False):
+        want, _ = cam_check.evaluate(name, args)
+        f64, terms = plain(*args, dtype=torch.float64, terms=True)
+    _, faults = cam_check.exact_check(name, got, want, _as_tuple(f64),
+                                      _as_tuple(terms))
+    assert not faults, faults
+    case = cam_case(*shape, seed=sum(shape[:4]), device=no_tf32)
+    name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
+    _, _, faults = _vs_float64(name, kernel, args)
+    assert not faults, faults
 
 
 def test_cam_wrappers_refuse(cuda):
