@@ -135,8 +135,9 @@ Phases, each of which fails the run:
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper), each
     kernel under its own name (``tile_parts``: the whole-depth plan's
     ``<op>_tile_kernel`` and ``dx_kernel``, at ``at_step128`` the
-    wide plan's ``<op>_tile_kernel<true>`` and ``wide_dx_kernel``, and
-    F1's and F3's ``f1_wg_kernel`` / ``f3_wg_kernel``).
+    wide plan's ``<op>_tile_kernel<true>`` (F2, F1b's and F2b's phase
+    0), F1's, F3's and F3b's ``f1_wg_kernel`` / ``f3_wg_kernel`` /
+    ``f3b_wg_kernel`` and the backwards' ``dx_wg_kernel``).
 
 20. flip and multi-scale (0.5, 1, 2) TTA at full W48 width on 640 x 640
     images: the grouping self-checks at D=2 (the solver ``lap="auto"``
@@ -368,17 +369,17 @@ TILE_OPS = {"cam_f1_fwd": ("f1", None), "cam_f2_fwd": ("f2", None),
 def tile_parts(name: str, wide: bool) -> tuple:
     """The kernels of tiled op ``name`` by the names the profiler gives
     them, those of the whole-depth plan or (``wide``) of the wide plan:
-    ``<op>_tile_kernel<false|true>`` (F1's and F3's ``<op>_tile_kernel``,
-    and where the wide plan would run them ``<op>_wg_kernel``),
-    ``dx_kernel`` or ``wide_dx_kernel`` (each matched after its
-    namespace's ``::``)."""
+    ``<op>_tile_kernel<false|true>`` (F1's, F3's and F3b's
+    ``<op>_tile_kernel``, and where the wide plan would run them
+    ``<op>_wg_kernel``), ``dx_kernel`` or ``dx_wg_kernel`` (each matched
+    after its namespace's ``::``; ``dx_wg_kernel<ntw, dr, gap>``)."""
     op, dx = TILE_OPS[name]
-    if op in ("f1", "f3"):
+    if op in ("f1", "f3", "f3b"):
         parts = (f"::{op}_{'wg' if wide else 'tile'}_kernel",)
     else:
         parts = (f"::{op}_tile_kernel<{'true' if wide else 'false'}>",)
     if dx is not None:
-        parts += (f"::{'wide_' if wide else ''}dx_kernel<{dx}>",
+        parts += (f"::dx_wg_kernel<" if wide else f"::dx_kernel<{dx}>",
                   "wgrad_taps_kernel", "wgrad_plain_kernel")
     return parts + (("reduce_rows_kernel",) if name != "cam_f3_fwd" else ())
 

@@ -16,7 +16,8 @@
 // async copies; cam_tile.cuh) read x padded to kc channels and the
 // weights re-laid by ops/cam.py:_tile_weights, the same w0 for both.
 // Where make_tgeo takes the wide plan, F1 runs f1_wg_kernel (cam_wg.cuh:
-// wgmma, whole branches) on its own layout (_wg_weights).
+// wgmma, whole branches) on its own layout (_wg_weights), and F1b's phase
+// 1 dx_wg_kernel (_dx_weights).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F1 does C^2 + 9 nb C hc = 202.6 K multiply-adds a pixel,
@@ -231,9 +232,9 @@ extern "C" long long cam_f1_workspace(const int *geo) {
   return cv.off;
 }
 
-// F1's tile plan (cam_wg.cuh:fwd_plan).
+// F1's tile plan (cam_wg.cuh:op_plan).
 extern "C" long long cam_f1_plan(const int *geo, int what) {
-  return tile::fwd_plan(geo, tile::F1, what);
+  return tile::op_plan(geo, tile::F1, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
@@ -276,14 +277,15 @@ extern "C" long long cam_f1b_workspace(const int *geo) {
   return carve_f1b(g, t, nullptr, nullptr, &bytes).ok ? bytes : -1;
 }
 
-// F1b's tile plan (cam_tile.cuh:tile_plan).
+// F1b's tile plan (cam_wg.cuh:op_plan).
 extern "C" long long cam_f1b_plan(const int *geo, int what) {
-  return tile::tile_plan(geo, tile::F1B, what);
+  return tile::op_plan(geo, tile::F1B, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
-// re-laid by ops/cam.py:_tile_weights("f1b", ...).  dx (B, H, W, C) bf16,
-// dkr (C, C) f32, dkh (nb, 3, 3, C, hc) f32.
+// re-laid by ops/cam.py:_tile_weights("f1b", ...) (w1 by _dx_weights on
+// the wide plan).  dx (B, H, W, C) bf16, dkr (C, C) f32, dkh
+// (nb, 3, 3, C, hc) f32.
 extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
                               const void *w0, const void *w1,
                               const void *dsr, const void *dsh,
@@ -291,7 +293,9 @@ extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
                               void *dkr, void *dkh, void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F1B, &g, &t))
+  tile::FPlan P;
+  tile::DPlan D;
+  if (!tile::bwd_geo(geo, tile::F1B, &g, &t, &P, &D))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
@@ -305,8 +309,8 @@ extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
   CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
   CAM_TRY(wgrad(w.pr, w.part_r, static_cast<float *>(dkr), st));
   const float inv_n = static_cast<float>(1.0 / g.HW);
-  return static_cast<int>(tile::launch_dx<true, true>(
-      g, t, w.dr, w.dc, static_cast<const bf16 *>(w1),
+  return static_cast<int>(tile::launch_phase1<true, true>(
+      g, t, D, w.dr, w.dc, static_cast<const bf16 *>(w1),
       static_cast<const float *>(dgap), inv_n, static_cast<bf16 *>(dx), st));
 }
 

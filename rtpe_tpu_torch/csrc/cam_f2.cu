@@ -14,18 +14,19 @@
 // tiles, one halo per tile, 16-byte async copies; cam_tile.cuh) read x
 // padded to kc channels and the weights re-laid by
 // ops/cam.py:_tile_weights; F2's w0 is the prefix of F2b's before its
-// kt[i] stages.  F2 is F2b's phase 0 without the branch backward: the
-// branch convs into sA (shared memory only), the kt^T chunks, and an
-// epilogue that rounds t to bf16 and sums t and t^2 per column over the
-// tile's pixels in the image, through a spent ring buffer
-// (cam_tile.cuh:ring_colsums); the per-tile rows are summed in tile order
-// (reduce_rows), no float atomics.
+// kt[i] stages; where make_tgeo takes the wide plan, F2b's phase 1 runs
+// cam_wg.cuh's dx_wg_kernel (_dx_weights).  F2 is F2b's phase 0 without
+// the branch backward: the branch convs into sA (shared memory only), the
+// kt^T chunks, and an epilogue that rounds t to bf16 and sums t and t^2
+// per column over the tile's pixels in the image, through a spent ring
+// buffer (cam_tile.cuh:ring_colsums); the per-tile rows are summed in tile
+// order (reduce_rows), no float atomics.
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F2 does 9 nb C hc + nb hc C = 195.6 K multiply-adds a
 // pixel: 0.081 ms at 989 TFLOP/s (bf16 dense); F2b about 3x.
 
-#include "cam_tile.cuh"
+#include "cam_wg.cuh"
 
 namespace cam {
 namespace tile {
@@ -250,9 +251,9 @@ extern "C" long long cam_f2_workspace(const int *geo) {
   return carve_f2(g, t, nullptr, &part, &a);
 }
 
-// F2's tile plan (cam_tile.cuh:tile_plan).
+// F2's tile plan (cam_wg.cuh:op_plan).
 extern "C" long long cam_f2_plan(const int *geo, int what) {
-  return tile::tile_plan(geo, tile::F2, what);
+  return tile::op_plan(geo, tile::F2, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
@@ -286,13 +287,14 @@ extern "C" long long cam_f2b_workspace(const int *geo) {
   return carve_f2b(g, t, nullptr, nullptr, &bytes).ok ? bytes : -1;
 }
 
-// F2b's tile plan (cam_tile.cuh:tile_plan).
+// F2b's tile plan (cam_wg.cuh:op_plan).
 extern "C" long long cam_f2b_plan(const int *geo, int what) {
-  return tile::tile_plan(geo, tile::F2B, what);
+  return tile::op_plan(geo, tile::F2B, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
-// re-laid by ops/cam.py:_tile_weights("f2b", ...).  dx (B, H, W, C) bf16,
+// re-laid by ops/cam.py:_tile_weights("f2b", ...) (w1 by _dx_weights on
+// the wide plan).  dx (B, H, W, C) bf16,
 // dkh (nb, 3, 3, C, hc), dkt (nb, hc, C) and dS (2 nb, hc) f32.
 extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
                               const void *w0, const void *w1,
@@ -301,7 +303,9 @@ extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
                               void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F2B, &g, &t))
+  tile::FPlan P;
+  tile::DPlan D;
+  if (!tile::bwd_geo(geo, tile::F2B, &g, &t, &P, &D))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
@@ -317,7 +321,7 @@ extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
                       static_cast<float *>(dS), 0, st));
   CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
   CAM_TRY(wgrad(w.pt, w.part_t, static_cast<float *>(dkt), st));
-  return static_cast<int>(tile::launch_dx<false, false>(
-      g, t, nullptr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
+  return static_cast<int>(tile::launch_phase1<false, false>(
+      g, t, D, nullptr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
       static_cast<bf16 *>(dx), st));
 }

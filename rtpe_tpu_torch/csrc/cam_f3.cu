@@ -17,8 +17,9 @@
 // async copies; cam_tile.cuh) read x padded to kc channels and the
 // weights re-laid by ops/cam.py:_tile_weights; F3's w0 is the prefix of
 // F3b's before its kt[i] stages.  Where make_tgeo takes the wide plan, F3
-// runs f3_wg_kernel (cam_wg.cuh: wgmma, whole branches) on its own layout
-// (_wg_weights).
+// runs f3_wg_kernel and F3b's phase 0 f3b_wg_kernel (cam_wg.cuh: wgmma,
+// whole branches) on their own layout (_wg_weights), and F3b's phase 1
+// dx_wg_kernel (_dx_weights).
 //
 // Fault of the TPU kernel not copied: _f3b_kernel's phase 1 reads image
 // 0's gate for every image (pallas_cam.py:507, gate_ref[0:1, :]), so its
@@ -95,11 +96,8 @@ f3_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 
 // Phase 0 of F3b on one 8 x 8 tile: dr (M, kc), a (M, knh), dt (M, kc),
 // dc (M, nb khc) in bf16 (dr and dc with zero padding columns); per-tile
-// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].  WIDE: the
-// wide plan, a and dt read back from a_out and dt_out (their K padding
-// zeroed), c through cb (pitch knh, by pixel), the BN rows and the gate
-// read from global memory.
-template <bool WIDE>
+// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)].  Where
+// make_tgeo takes the wide plan, f3b_wg_kernel (cam_wg.cuh) runs instead.
 __global__ void __launch_bounds__(TT, 1)
 f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const bf16 *__restrict__ w0, const float *__restrict__ bnr,
@@ -107,8 +105,7 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const float *__restrict__ gate,
                 const bf16 *__restrict__ gout, bf16 *__restrict__ dr_out,
                 bf16 *__restrict__ a_out, bf16 *__restrict__ dt_out,
-                bf16 *__restrict__ dc_out, float *__restrict__ part,
-                bf16 *__restrict__ cb) {
+                bf16 *__restrict__ dc_out, float *__restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -123,39 +120,19 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sG = sBt + 4 * C;
   float *sBh = sG + C;
   const Lane L = lane_of(t);
-  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  const uint32_t aH = halo_row(sH, xp, t, L);
   float *prow = part + static_cast<int64_t>(blockIdx.x) * (5 * C + 2 * g.NH);
-  auto ring = [&]() {
-    if constexpr (WIDE) {
-      bf16 *wH;
-      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, a_out, dt_out}, w0, wW, wH,
-                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
-    } else {
-      return Ring{w0, sW, wbuf, L.lane, 0};
-    }
-  }();
+  Ring ring{w0, sW, wbuf, L.lane, 0};
 
-  const float *rBr = bnr, *rBt = bnt, *rG = gate + L.pos.b * C;
-  if constexpr (WIDE) {
-    red = reinterpret_cast<float *>(ring.end());
-    zero_pad_cols(a_out, g.knh, 1, g.knh, g.NH, g, L.pos);
-    zero_pad_cols(dt_out, g.kc, 1, g.kc, C, g, L.pos);
-    ring.start();
-  } else {
-    stage_halo(sH, xpad, g.kc, g, t, L.pos);
-    ring.start(g, t);
-    for (int i = threadIdx.x; i < 4 * C; i += TT) {
-      sBr[i] = bnr[i];
-      sBt[i] = bnt[i];
-    }
-    for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
-    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-    zero_top_pads(g, sA, sD);
-    rBr = sBr;
-    rBt = sBt;
-    rG = sG;
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 4 * C; i += TT) {
+    sBr[i] = bnr[i];
+    sBt[i] = bnt[i];
   }
+  for (int i = threadIdx.x; i < C; i += TT) sG[i] = gate[L.pos.b * C + i];
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, sD);
   float *red_w = red + L.wm * NRED * NC;
 
   // the residual and top convs: their BN backward, dr, dt (-> sD), and
@@ -175,12 +152,12 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
         bf16 dtb = bzero();
         if (p >= 0 && c < C && j < sc.cnt) {
           const float rb = bfr(acr[j][e]), tb = bfr(at[j][e]);
-          const float mr = rBr[c], ir = rBr[C + c], sr = rBr[2 * C + c];
-          const float mt = rBt[c], it = rBt[C + c], stt = rBt[2 * C + c];
-          const float zr = bn_apply(rb, mr, ir, sr, rBr[3 * C + c]);
-          const float zt = bn_apply(tb, mt, it, stt, rBt[3 * C + c]);
+          const float mr = sBr[c], ir = sBr[C + c], sr = sBr[2 * C + c];
+          const float mt = sBt[c], it = sBt[C + c], stt = sBt[2 * C + c];
+          const float zr = bn_apply(rb, mr, ir, sr, sBr[3 * C + c]);
+          const float zt = bn_apply(tb, mt, it, stt, sBt[3 * C + c]);
           const float y = relu(zt);
-          const float gt = rG[c];
+          const float gt = sG[c];
           const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
           const float d_o = pre > 0.0f ? bf2f(gout[p * C + c]) : 0.0f;
           dgy = __fmul_rn(d_o, y);
@@ -193,7 +170,7 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
           dtb = f2bf(__fmul_rn(dzt, __fmul_rn(stt, it)));
           dt_out[p * g.kc + c] = dtb;
         }
-        if (!WIDE && c < C && j < sc.cnt) sD[r * xp + c] = dtb;
+        if (c < C && j < sc.cnt) sD[r * xp + c] = dtb;
         vg[j][e] = dgy;
         acr[j][e] = dzr;
         at[j][e] = __fmul_rn(dzr, rmm);
@@ -215,19 +192,12 @@ f3b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
       prow[4 * C + 2 * g.NH + n0 + c] = block_col(red, 4, c);
     }
   };
-  if constexpr (WIDE) {
-    wbranch_convs(g, t, ring, L,
-                  ToActivations<true, true>{g, L, bnh, cb, nullptr, a_out});
-    wconv1x1_chunks<true, true>(g, t, ring, L, epi);
-    wbranch_backward(g, t, ring, cb, bnh, red, L, dc_out, prow + 4 * C);
-  } else {
-    branch_convs(g, t, ring, aH, L,
-                 ToActivations<true>{g, L, sBh, sCb, sA, a_out});
-    conv1x1_chunks<true, true>(g, t, ring, aH, tile_row(sA, g.nhp, L), L,
-                               epi);
-    branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L,
-                    dc_out, prow + 4 * C);
-  }
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<true>{g, L, sBh, sCb, sA, a_out});
+  conv1x1_chunks<true, true>(g, t, ring, aH, tile_row(sA, g.nhp, L), L,
+                             epi);
+  branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L,
+                  dc_out, prow + 4 * C);
   zero_pad_cols(dr_out, g.kc, 1, g.kc, C, g, L.pos);
   zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
 }
@@ -247,9 +217,9 @@ struct F3bWs {
 
 // dr (M, kc) and dc (M, nb khc) keep the zero padding the tile kernels
 // stage; a (M, knh) and dt (M, kc) have 16-byte rows (their padding
-// columns are written only by the wide plan, which reads them back: only
-// outputs k < NH, n < C of the weight gradients are kept); the wide
-// plan's c (M, knh) last.  xpad may be null for sizing.
+// columns are written only where f3b_wg_kernel reads them back: only
+// outputs k < NH, n < C of the weight gradients are kept); its c
+// (M, knh) last.  xpad may be null for sizing.
 F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
                 const bf16 *xpad, int64_t *bytes) {
   Carve cv(base);
@@ -281,9 +251,9 @@ F3bWs carve_f3b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
-// F3's tile plan (cam_wg.cuh:fwd_plan).
+// F3's tile plan (cam_wg.cuh:op_plan).
 extern "C" long long cam_f3_plan(const int *geo, int what) {
-  return tile::fwd_plan(geo, tile::F3, what);
+  return tile::op_plan(geo, tile::F3, what);
 }
 
 // F3's workspace, bytes: a (M, knh) bf16 where f3_wg_kernel keeps it out
@@ -333,18 +303,21 @@ extern "C" int cam_f3_launch(const int *geo, const void *xpad,
 extern "C" long long cam_f3b_workspace(const int *geo) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F3B, &g, &t)) return -1;
+  tile::FPlan P;
+  tile::DPlan D;
+  if (!tile::bwd_geo(geo, tile::F3B, &g, &t, &P, &D)) return -1;
   int64_t bytes = 0;
   return carve_f3b(g, t, nullptr, nullptr, &bytes).ok ? bytes : -1;
 }
 
-// F3b's tile plan (cam_tile.cuh:tile_plan).
+// F3b's tile plan (cam_wg.cuh:op_plan).
 extern "C" long long cam_f3b_plan(const int *geo, int what) {
-  return tile::tile_plan(geo, tile::F3B, what);
+  return tile::op_plan(geo, tile::F3B, what);
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
-// re-laid by ops/cam.py:_tile_weights("f3b", ...).  dx (B, H, W, C) bf16;
+// re-laid by ops/cam.py:_tile_weights("f3b", ...) (_wg_weights and
+// _dx_weights on the wide plan).  dx (B, H, W, C) bf16;
 // dkr (C, C), dkh (nb, 3, 3, C, hc), dkt (nb, hc, C), dSr (2, C),
 // dSh (2 nb, hc), dSt (2, C), dgate (B, C) f32.
 extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
@@ -357,21 +330,28 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
                               void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F3B, &g, &t))
+  tile::FPlan P;
+  tile::DPlan D;
+  if (!tile::bwd_geo(geo, tile::F3B, &g, &t, &P, &D))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   int64_t bytes = 0;
   const auto *xx = static_cast<const bf16 *>(xpad);
   const F3bWs w = carve_f3b(g, t, ws, xx, &bytes);
   if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
-  CAM_TRY(CAM_TILE_LAUNCH(tile::f3b_tile_kernel, g, t, st, xx,
-                          static_cast<const bf16 *>(w0),
-                          static_cast<const float *>(bnr),
-                          static_cast<const float *>(bnh),
-                          static_cast<const float *>(bnt),
-                          static_cast<const float *>(gate),
-                          static_cast<const bf16 *>(gout), w.dr, w.a, w.dt,
-                          w.dc, w.part, w.cb));
+  const auto *w_ = static_cast<const bf16 *>(w0);
+  const auto *r = static_cast<const float *>(bnr);
+  const auto *h = static_cast<const float *>(bnh);
+  const auto *tt = static_cast<const float *>(bnt);
+  const auto *gt = static_cast<const float *>(gate);
+  const auto *go = static_cast<const bf16 *>(gout);
+  if (t.wide)
+    CAM_TRY(CAM_WG_LAUNCH(tile::f3b_wg_kernel, g, t, P, st, xx, w_, r, h, tt,
+                          gt, go, w.dr, w.a, w.dt, w.dc, w.part, w.cb));
+  else
+    CAM_TRY(tile::launch(tile::f3b_tile_kernel, dim3(t.n_tiles),
+                         tile::smem0_bytes(g, t), st, g, t, xx, w_, r, h, tt,
+                         gt, go, w.dr, w.a, w.dt, w.dc, w.part));
   const int64_t ld = 5 * g.C + 2 * g.NH;
   CAM_TRY(reduce_rows(w.part, ld, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(dSr), 0, st));
@@ -391,7 +371,7 @@ extern "C" int cam_f3b_launch(const int *geo, const void *xpad,
                       static_cast<float *>(dkr), 0, st));
   CAM_TRY(reduce_rows(w.part_rt, w.prt.total, n_rr, w.prt.total - n_rr,
                       w.prt.slots, 1, static_cast<float *>(dkt), 0, st));
-  return static_cast<int>(tile::launch_dx<true, false>(
-      g, t, w.dr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
+  return static_cast<int>(tile::launch_phase1<true, false>(
+      g, t, D, w.dr, w.dc, static_cast<const bf16 *>(w1), nullptr, 0.0f,
       static_cast<bf16 *>(dx), st));
 }

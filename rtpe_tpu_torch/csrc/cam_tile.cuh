@@ -15,11 +15,12 @@
 // width and 1..6 dilations: where a branch has at most 40 columns and the
 // tile's halo at full channel depth fits a block's shared memory (the
 // train step's CAMs at the default --inplanes 80) the kernels below run
-// as described here; elsewhere F2 and the backwards run their wide plan
-// ("wide plan" below: K-chunked halos and stages, branches in slices;
-// wide_dx_kernel for phase 1), and F1 and F3 the wgmma kernels of
-// cam_wg.cuh.  Every op refuses only a largest dilation whose halo of
-// one 16-channel chunk does not fit the wide plan (19 and up at C = 163).
+// as described here; elsewhere F2, F1b's and F2b's phase 0 run their wide
+// plan ("wide plan" below: K-chunked halos and stages, branches in
+// slices), and F1, F3, F3b's phase 0 and every backward's phase 1 the
+// wgmma kernels of cam_wg.cuh.  Every op refuses only a largest dilation
+// whose halo of one 16-channel chunk does not fit the wide plan (19 and
+// up at C = 163).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
@@ -138,8 +139,9 @@ struct TGeo {
   int nksr, nst1;             // dx stages of dr kr^T, dx stages per chunk
   // The wide plan (wide = 1), for a branch wider than SW_MAX or a
   // geometry whose whole-depth halo and stages do not fit: every operand
-  // K-chunked through shared memory (wide_kernels below); else 0 and the
-  // fields below describe the one chunk of the plan above.
+  // K-chunked through shared memory (wide_kernels below; phase 1 runs
+  // cam_wg.cuh:dx_wg_kernel); else 0 and the fields below describe the
+  // one chunk of the plan above.
   int wide;
   int nsl, sw;                // branch slices, their width (brows)
   int kq, nq, kqa, nqa;       // phase-0 K chunks of kc (x, dt) and of knh
@@ -147,8 +149,6 @@ struct TGeo {
   int kqm;                    // widest phase-0 chunk (the buffers' pitch - 8)
   int nbr, n11;               // phase-0 stages of the branch convs, 1x1s
   int safe_a, safe_d;         // first stages that may read a, dt
-  int kq1r, nq1r, kq1c, nq1c; // phase-1 K chunks of kc (dr), khc (dc)
-  int kq1m;                   // widest phase-1 chunk
 };
 
 // The wide plan's chunks of K (a multiple of 16) at most kmax wide: as
@@ -204,14 +204,15 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.nbr = 9 * g.nb;
   t.n11 = (t.res + t.top) * t.nchr;
   t.safe_a = t.safe_d = -1;
-  t.kq1r = t.kq1c = t.kq1m = g.khc;
-  t.nq1r = t.nksr;
-  t.nq1c = 1;
   if (g.hc <= SW_MAX && smem0_bytes(g, t) <= SMEM_MAX &&
       smem1_bytes(g, t) <= SMEM_MAX)
     return t;
   // the wide plan: branch slices of at most SW_MAX columns, K chunks as
-  // wide as shared memory takes (kq = -1: it takes none)
+  // wide as shared memory takes (kq = -1: it takes none).  A backward is
+  // also refused where a K-chunked phase 1 of mma.sync stages (two halo
+  // buffers of a 16-channel chunk and NBUF slots of nxr weight and TP dr
+  // rows) would not fit: the limit the ops have always had;
+  // dx_wg_kernel, which runs phase 1 there, needs less
   t.wide = 1;
   t.nsl = (g.hc + SW_MAX - 1) / SW_MAX;
   t.sw = up8((g.hc + t.nsl - 1) / t.nsl);
@@ -231,12 +232,6 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.nst0 = t.nbr + t.n11 + t.bb * g.nb * t.nsl * t.nq;
   t.safe_a = t.top ? t.nbr : -1;
   t.safe_d = t.bb ? t.nbr + t.n11 : -1;
-  k_chunks(g.kc, k1, &t.kq1r, &t.nq1r);
-  k_chunks(g.khc, k1, &t.kq1c, &t.nq1c);
-  t.kq1m = t.res && t.kq1r > t.kq1c ? t.kq1r : t.kq1c;
-  t.nq1r = t.res ? t.nq1r : 0;
-  t.nksr = t.nq1r;
-  t.nst1 = t.nq1r + 9 * g.nb * t.nq1c;
   return t;
 }
 
@@ -273,19 +268,16 @@ inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
 
 // Shared memory of phase 1 (a backward's; 0 for a forward): the tile's dr
 // rows (TP x (kc + 8), F1b and F3b), the dc halo (hr x (ldc + 8)), NBUF
-// weight buffers (nxr x (khc + 8)), bf16.  The wide plan: two halo
-// buffers of hr x (kq1m + 8) and NBUF slots of nxr weight rows (and TP dr
-// rows, F1b and F3b) of pitch kq1m + 8.
+// weight buffers (nxr x (khc + 8)), bf16.  0 for the wide plan (its
+// phase 1 is cam_wg.cuh:dx_wg_kernel, with a plan of its own).
 inline int64_t smem1_bytes(const Geo &g, const TGeo &t) {
-  if (!t.bwd) return 0;
-  if (t.wide)
-    return 2LL * (2LL * t.hr + 1LL * NBUF * (t.nxr + t.res * TP)) *
-           (t.kq1m + 8);
+  if (!t.bwd || t.wide) return 0;
   return 2LL * ((t.res ? TP * (g.kc + 8LL) : 0) + t.hr * (t.ldc + 8LL) +
                 1LL * NBUF * t.nxr * (g.khc + 8));
 }
 
-// bf16 elements of the two re-laid weight buffers (w1: a backward's).
+// bf16 elements of the two re-laid weight buffers (w1: a backward's
+// whole-depth phase 1; the wide plan's is cam_wg.cuh:make_dplan's).
 inline int64_t w0_elems(const Geo &g, const TGeo &t) {
   if (t.wide)
     return (9LL + t.bb) * g.nb * t.nsl * t.sw * g.kc +
@@ -296,10 +288,7 @@ inline int64_t w0_elems(const Geo &g, const TGeo &t) {
              (t.res * g.kc + t.top * g.knh);
 }
 inline int64_t w1_elems(const Geo &g, const TGeo &t) {
-  if (!t.bwd) return 0;
-  if (t.wide)
-    return static_cast<int64_t>(t.nchx) * t.nxr *
-           (t.res * g.kc + 9LL * g.nb * g.khc);
+  if (!t.bwd || t.wide) return 0;
   return static_cast<int64_t>(t.nchx) * t.nst1 * t.nxr * g.khc;
 }
 
@@ -310,29 +299,6 @@ inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
   *t = make_tgeo(*g, op);
   return t->kq > 0 && smem0_bytes(*g, *t) <= SMEM_MAX &&
          smem1_bytes(*g, *t) <= SMEM_MAX;
-}
-
-// The op's tile kernels' shared memory (what = 0: phase 0, 1: phase 1),
-// the bf16 elements of its re-laid weights (2: w0, 3: w1) and its wide
-// plan (4: wide, 5: kq, 6: kqa, 7: kq1r, 8: kq1c, 9: nsl), as
-// ops/cam.py:tile_plan computes them; -1 for an invalid geometry.
-inline long long tile_plan(const int *geo, int op, int what) {
-  Geo g;
-  TGeo t;
-  if (!tile_geo(geo, op, &g, &t)) return -1;
-  switch (what) {
-    case 0: return smem0_bytes(g, t);
-    case 1: return smem1_bytes(g, t);
-    case 2: return w0_elems(g, t);
-    case 3: return w1_elems(g, t);
-    case 4: return t.wide;
-    case 5: return t.kq;
-    case 6: return t.kqa;
-    case 7: return t.kq1r;
-    case 8: return t.kq1c;
-    case 9: return t.nsl;
-    default: return -1;
-  }
 }
 
 // Phase-0 weight stage s: its offset in w0, its rows and its k width.
@@ -920,16 +886,15 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
 
 // ------------------------------------------------------------ wide plan
 //
-// The wide plan (TGeo::wide) of F2 and the three backwards (F1 and F3
-// run cam_wg.cuh's kernels where make_tgeo picks it) takes any branch
-// width and any C: shared memory depends on the chunk widths and the
-// largest dilation, not on C.
+// The wide plan (TGeo::wide) of F2 and of F1b's and F2b's phase 0 (F1,
+// F3, F3b's phase 0 and every backward's phase 1 run cam_wg.cuh's kernels
+// where make_tgeo picks it) takes any branch width and any C: shared
+// memory depends on the chunk widths and the largest dilation, not on C.
 //   - every K dimension goes in chunks (k_chunks, as wide as SMEM_MAX
-//     takes: x's and dt's kc in kq chunks, a's knh in kqa, phase 1's dr
-//     kc in kq1r and dc's khc in kq1c); a halo (x in phase 0, dc in phase
-//     1) is staged one chunk at a time, double-buffered, and every stage
+//     takes: x's and dt's kc in kq chunks, a's knh in kqa); the x halo is
+//     staged one chunk at a time, double-buffered, and every stage
 //     of the ring carries its B weights and, for a 1x1 product, its A
-//     chunk of the tile's 64 rows (x, a, dt or dr), so a 1x1 product's
+//     chunk of the tile's 64 rows (x, a or dt), so a 1x1 product's
 //     partial sums stay in registers across its K chunks, a branch conv's
 //     across its chunks and taps (order: chunks, then taps, k-steps
 //     ascending);
@@ -942,8 +907,8 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
 //     warp has written its rows (TGeo::safe_a, safe_d: their A chunks are
 //     not prefetched past that point but copied there, and waited for); c
 //     is read back by the thread that wrote it;
-//   - the BN rows, the gate (F3b) and the statistics' cotangents are read
-//     from global memory (a few KB, cached).
+//   - the BN rows and the statistics' cotangents are read from global
+//     memory (a few KB, cached).
 // The per-pixel outputs keep their rounding points; the products add
 // their chunks in another order than the plan above, which a geometry
 // takes only where it fits (a branch of at most SW_MAX columns and a
@@ -1040,51 +1005,6 @@ struct WStage0 {
   }
 };
 
-// Phase-1 stage s of one chunk of nxr output channels (w1, as
-// ops/cam.py:_wide_weights lays it out): dr's chunks, [nxr][kw] of kr
-// with dr's rows (F1b, F3b); then per (branch, chunk of khc, tap)
-// [nxr][kw] of kh[i, tap], dc's halo chunk (branch i's columns) staged
-// at tap 0.
-struct WStage1 {
-  const Geo &g;
-  const TGeo &t;
-  const bf16 *dr, *dc;
-  __device__ __forceinline__ WSt operator()(int s) const {
-    WSt r;
-    r.brows = t.nxr;
-    r.hb = 0;
-    r.dep = -1;
-    r.i = 0;
-    r.tap = 0;
-    r.halo = 0;
-    if (s < t.nq1r) {
-      r.ac0 = s * t.kq1r;
-      r.kw = g.kc - r.ac0 < t.kq1r ? g.kc - r.ac0 : t.kq1r;
-      r.boff = static_cast<int64_t>(s) * t.nxr * t.kq1r;
-      r.akind = A_ROWS;
-      r.asrc = dr;
-      r.ald = g.kc;
-      return r;
-    }
-    const int u = s - t.nq1r, tap = u % 9, v = u / 9, q = v % t.nq1c,
-              i = v / t.nq1c;
-    const int k0 = q * t.kq1c;
-    r.kw = g.khc - k0 < t.kq1c ? g.khc - k0 : t.kq1c;
-    r.boff = t.res * static_cast<int64_t>(t.nxr) * g.kc +
-             9LL * i * t.nxr * g.khc + 9LL * q * t.nxr * t.kq1c +
-             static_cast<int64_t>(tap) * t.nxr * r.kw;
-    r.akind = tap == 0 ? A_HALO : A_NONE;
-    r.asrc = dc;
-    r.ald = t.ldc;
-    r.ac0 = i * g.khc + k0;
-    r.hb = v & 1;
-    r.i = i;
-    r.tap = tap;
-    r.halo = 1;
-    return r;
-  }
-};
-
 // The addresses of a stage for this lane: b its B row (lm_brow, lm_bk) at
 // the first n8 tile, a its A row (the halo's centre row or the slot's
 // tile row), pitch (kw + 8) * 2 bytes, and the stage.
@@ -1148,7 +1068,7 @@ struct WRing {
     cp_wait_one();
     __syncthreads();
     bool late = false;
-    if (s == t.safe_a || s == t.safe_d)   // (phase 1's stages: dep -1)
+    if (s == t.safe_a || s == t.safe_d)
       for (int x = s; x < s + 2 && x < nst; ++x) {
         const WSt st = sd(x);
         if (st.akind == A_ROWS && st.dep == s) {
@@ -1307,56 +1227,6 @@ __device__ __forceinline__ bf16 *wide_carve(unsigned char *smem,
   return *sH + 2 * t.hr * (kqm + 8);
 }
 
-// Phase 1 of the wide plan: dx as dx_kernel, K-chunked (dr's chunks,
-// then per branch dc's halo chunks and their taps).
-template <bool HAS_DR, bool HAS_GAP>
-__global__ void __launch_bounds__(TT, 1)
-wide_dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
-           const bf16 *__restrict__ dc, const bf16 *__restrict__ w1,
-           const float *__restrict__ dgap, float inv_n,
-           bf16 *__restrict__ dx) {
-  constexpr int GX = (NTX + 1) / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Lane L = lane_of(t);
-  const int n0 = blockIdx.y * NX;
-  const int nt = (g.C - n0 + 7) / 8 < NTX ? (g.C - n0 + 7) / 8 : NTX;
-  const Split sx = split<NTX>(L.wn, nt);
-  const bf16 *wch = w1 + static_cast<int64_t>(blockIdx.y) * t.nxr *
-                             (t.res * g.kc + 9LL * g.nb * g.khc);
-  bf16 *sH;
-  bf16 *sW = wide_carve(smem, t, t.kq1m, &sH);
-  WRing<WStage1> ring{WStage1{g, t, dr, dc}, wch, sW, sH, t.kq1m, t.nxr,
-                      HAS_DR ? TP : 0, t.nst1, g, t, L, 0};
-  ring.start();
-  float acc[GX][4];
-  zero_acc(acc);
-#pragma unroll 1
-  for (int s = 0; s < t.nst1; ++s) {
-    const WCur c = ring.next();
-    const uint32_t b = c.b + sx.j0 * 8 * c.pitch;
-    if (!c.st.halo) {
-      mma_rows<GX>(acc, c.a, b, c.pitch, c.st.kw / 16, sx.cnt);
-    } else {
-      const int tap = c.st.tap, d = g.dil[c.st.i];
-      const int sh = -((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
-      mma_rows<GX>(acc, c.a + sh * c.pitch, b, c.pitch, c.st.kw / 16,
-                   sx.cnt);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < GX; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = n0 + frag_col(L.lane, sx.j0 + j, e);
-      const int64_t p = tile_pix(g, L.pos, frag_row(L.wm, L.lane, e));
-      if (p < 0 || c >= g.C || j >= sx.cnt) continue;
-      float v = acc[j][e];
-      if (HAS_GAP)
-        v = __fadd_rn(v, __fmul_rn(dgap[L.pos.b * g.C + c], inv_n));
-      dx[p * g.C + c] = f2bf(v);
-    }
-}
-
 // ------------------------------------------------------------ host side
 
 // Launch a tile kernel (TT threads, smem bytes of dynamic shared memory).
@@ -1371,15 +1241,14 @@ cudaError_t launch(void (*kern)(P...), dim3 grid, int64_t smem,
   return cudaGetLastError();
 }
 
-// Phase 1: dx from dr (pitch kc; HAS_DR) and dc (pitch ldc).
+// Phase 1 of the plan above: dx from dr (pitch kc; HAS_DR) and dc (pitch
+// ldc); cam_wg.cuh:launch_phase1 picks it or dx_wg_kernel.
 template <bool HAS_DR, bool HAS_GAP>
 cudaError_t launch_dx(const Geo &g, const TGeo &t, const bf16 *dr,
                       const bf16 *dc, const bf16 *w1, const float *dgap,
                       float inv_n, bf16 *dx, cudaStream_t st) {
-  return launch(t.wide ? wide_dx_kernel<HAS_DR, HAS_GAP>
-                       : dx_kernel<HAS_DR, HAS_GAP>,
-                dim3(t.n_tiles, t.nchx), smem1_bytes(g, t), st, g, t, dr, dc,
-                w1, dgap, inv_n, dx);
+  return launch(dx_kernel<HAS_DR, HAS_GAP>, dim3(t.n_tiles, t.nchx),
+                smem1_bytes(g, t), st, g, t, dr, dc, w1, dgap, inv_n, dx);
 }
 
 // Launch op kernel K<false> (the plan above) or K<true> (the wide plan).

@@ -1,61 +1,84 @@
-// The fused-CAM forwards F1 and F3 at the student's wider geometries,
-// CUDA C++ for sm_90a (cam_f1.cu and cam_f3.cu include this header):
-// f1_wg_kernel and f3_wg_kernel, one tile kernel each, for every geometry
-// where cam_tile.cuh:make_tgeo does not take the whole-depth plan (a
-// branch wider than SW_MAX = 40 columns, or a whole-depth halo and stages
-// that do not fit: every --inplanes above 80, six dilations up to 6 or 8
-// at C = 163).  The other four ops keep cam_tile.cuh's wide plan there.
+// The fused-CAM ops' wgmma kernels at the student's wider geometries,
+// CUDA C++ for sm_90a (cam_f1.cu, cam_f2.cu and cam_f3.cu include this
+// header): f1_wg_kernel, f3_wg_kernel and f3b_wg_kernel (F1, F3 and F3b's
+// phase 0, one body) and dx_wg_kernel (phase 1 of all three backwards),
+// for every geometry where cam_tile.cuh:make_tgeo does not take the
+// whole-depth plan (a branch wider than SW_MAX = 40 columns, or a
+// whole-depth halo and stages that do not fit: every --inplanes above 80,
+// six dilations up to 6 or 8 at C = 163).  F2 and F1b's and F2b's phase 0
+// keep cam_tile.cuh's wide plan there.
 //
 // Replaces, at those geometries, the TPU kernels _f1_call / _f1_kernel
-// (the batch statistics S_r, S_h and the per-image sum of x) and _f3_call
-// / _f3_kernel (out = relu(relu(BN_r(x kr)) + relu(BN_t(a kt)) gate[b]),
-// a = relu(BN_h(c)), c the three dilated 3x3 branch convs) of
-// rtpe_tpu/ops/pallas_cam.py, with the rounding points of the port's F1
-// and F3 (bf16 of every conv before its statistics and BN, bf16(a)).
+// (the batch statistics S_r, S_h and the per-image sum of x), _f3_call /
+// _f3_kernel (out = relu(relu(BN_r(x kr)) + relu(BN_t(a kt)) gate[b]),
+// a = relu(BN_h(c)), c the three dilated 3x3 branch convs), _f3b_call /
+// _f3b_kernel's phase 0 (F3's recompute, do, dgate, the residual and top
+// BN backward dr, dt, the branch backward dc, dS_h) and the phase 1 of
+// _f1b_call / _f1b_kernel, _f2b_call / _f2b_kernel and _f3b_call /
+// _f3b_kernel (dx = bf16(dr) kr^T + the transposed branch convs of dc,
+// F1b's + dgap / (H W)) of rtpe_tpu/ops/pallas_cam.py, with the rounding
+// points of the port's ops (bf16 of every conv before its statistics and
+// BN, bf16(a), bf16 of dr, dt and dc, dx rounded once).
 //
 // Bound at --inplanes 128's step CAM (B = 16, 113 x 113, C = 259,
 // hc = 64, dilations 1-3): operations.  F3 does C^2 + 9 nb C hc + nb hc C
 // = 564.4 K multiply-adds a pixel, 0.233 ms at 989 TFLOP/s (bf16 dense);
-// F1 C^2 + 9 nb C hc = 514.6 K, 0.213 ms.  x is read once in 0.03 ms.
+// F1 C^2 + 9 nb C hc = 514.6 K, 0.213 ms; F3b's phase 0 F3's plus the
+// branch backward's nb hc C = 614.1 K, 0.254 ms; dx C^2 + 9 nb hc C =
+// 514.6 K (F2b, without dr, 447.6 K), 0.213 / 0.185 ms.  x is read once
+// in 0.03 ms.
 //
-// cam_tile.cuh's wide plan ran F1 and F3 there as 128 stages a 64-pixel
-// tile (F3 at that shape): 108 of branch convs (9 taps x 3 branches x 2
-// slices of 32 columns x 2 K chunks of 144) and 20 of 1x1 convs, each
-// ~0.3 M multiply-adds of mma.sync m16n8k16 behind a __syncthreads, the
-// x halo staged again for every branch slice, a written to global memory
-// and read back, the BN rows and the gate read from global memory.  What
-// this design does about it:
+// cam_tile.cuh's wide plan ran these there as ~100 stages a 64-pixel
+// tile, each ~0.3 M multiply-adds of mma.sync m16n8k16 behind a
+// __syncthreads, branches in slices of at most 40 columns, K in chunks,
+// the x halo staged again for every branch slice, a, c and dt through
+// global memory and read back, the BN rows and the gate read from global
+// memory; its dx ran (tiles x 2) blocks of at most 168 output channels,
+// each staging the whole dc halo and dr's rows again.  What this design
+// does about it:
 //   - a product's N is the whole branch (up to 128 columns: hc = 48, 64,
 //     128 in one slice; wider branches in slices of at most 128), so a
 //     branch's accumulators stay in registers across its taps and K
-//     stages; the 1x1 convs go in chunks of 64 output columns.  Two
-//     consumer warpgroups (8 warps) multiply the tile's 64 pixels by
-//     wgmma m64 x N/2 x 16, each against half of every product's columns
-//     (its own accumulators and epilogue), so one's epilogue and waits
-//     overlap the other's wgmmas;
+//     stages; the 1x1 convs go in chunks of 64 output columns; dx takes
+//     every output column in one block (column passes of 16 NTW n8
+//     tiles, NTW <= 17: one pass up to C = 272).  Two consumer
+//     warpgroups (8 warps) multiply the tile's 64 pixels by wgmma
+//     m64 x N/2 x 16, each against half of every product's columns (its
+//     own accumulators and epilogue), so one's epilogue and waits overlap
+//     the other's wgmmas;
 //   - A and B both come from shared memory by descriptor, so a stage's
 //     k-steps issue back to back as one wgmma group, and the next stage's
 //     group issues while it runs (a product's first wgmma starts its
 //     accumulators: nothing else writes them, and the warp index is a
 //     broadcast, so ptxas sees uniform control flow and serialises no
-//     wgmma): the x halo is laid out as wgmma's K-major core matrices
-//     (planes of 8 channels, one 16-byte row a halo pixel), so a tap is
-//     the descriptor's start moved by the tap's shift and the tile's next
-//     row of 8 pixels is hs rows on (the stride offset); a, and rows
-//     staged for a stage, are planes of 64 rows;
+//     wgmma): a halo (x, or dx's dc) is laid out as wgmma's K-major core
+//     matrices (planes of 8 channels, one 16-byte row a halo pixel), so a
+//     tap is the descriptor's start moved by the tap's shift (dx's by
+//     minus it) and the tile's next row of 8 pixels is hs rows on (the
+//     stride offset); a, dr's and dt's rows, and rows staged for a stage,
+//     are planes of 64 rows;
 //   - B, the weights the wrapper re-lays once per call in walking order
-//     (ops/cam.py:_wg_weights; each stage a [N / 8][kw][8] block, the
-//     wgmma's N-major core matrices), arrives by one bulk copy a stage
-//     into a ring of 4 slots that one producer warp keeps full, each slot
-//     with a full and an empty mbarrier: no block-wide barrier a stage;
+//     (ops/cam.py:_wg_weights, _dx_weights; each stage a [N / 8][kw][8]
+//     block, the wgmma's N-major core matrices), arrives by one bulk copy
+//     a stage into a ring of 4 slots that one producer warp keeps full,
+//     each slot with a full and an empty mbarrier: no block-wide barrier
+//     a stage;
 //   - the x halo is staged once a tile at full depth where it fits (C =
 //     259: 196 rows x 272 channels, 107 KB), else in K chunks (C = 515),
-//     once per branch and chunk;
+//     once per branch and chunk; dx's dc halo once a tile, whole where it
+//     fits beside dr's rows and the ring, else a branch (or a K chunk of
+//     one) at a time in two buffers, the next chunk's copies in flight
+//     while this one multiplies (C = 259: 25 KB a branch);
 //   - a stays in shared memory (64 x 192 at C = 259) for the kt^T
 //     product; the BN rows and image b's gate are staged there once a
 //     tile.  Only a geometry where these do not fit reads its rows from
 //     global memory and takes a (and x's rows for kr^T) through rows
-//     staged a stage at a time.
+//     staged a stage at a time;
+//   - F3b keeps c out of shared memory (each thread writes its fragment
+//     of c to c's global rows and reads the same elements back for its
+//     branch backward) and dt too: its rows go to global memory for dkt
+//     and come back into the halo's buffer once x's last product has
+//     completed, whole where they fit (else in chunks).
 // The per-pixel rounding points are cam_tile.cuh's; the products add
 // their K stages, taps and k-steps in another order than the wide plan.
 
@@ -193,6 +216,105 @@ struct WgmmaSS<8> {
 };
 
 
+template <>
+struct WgmmaSS<12> {
+  __device__ __forceinline__ static void mma(float (&d)[12][4],
+                                             uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+        "%42, %43, %44, %45, %46, %47"
+        "}, "
+        "%48, %49, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<14> {
+  __device__ __forceinline__ static void mma(float (&d)[14][4],
+                                             uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+        "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55"
+        "}, "
+        "%56, %57, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<17> {
+  __device__ __forceinline__ static void mma(float (&d)[17][4],
+                                             uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+        "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67"
+        "}, "
+        "%68, %69, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+
 namespace tile {
 
 constexpr int FWG = 2;               // consumer warpgroups: N halves
@@ -205,11 +327,16 @@ constexpr int FNB_MAX = 16;          // n8 tiles of a branch slice at most
 constexpr int FBAR = 128;            // bytes before the ring: the mbarriers
 constexpr int FRED = 4 * 2 * FNB_MAX * 8;   // F1's column-sum scratch, f32
                                             // (a half each warpgroup)
+constexpr int FRED3 = 2 * 4 * 5 * FN1 / 2;  // F3b's: 4 warps x 5 sums x a
+                                            // warpgroup's 32 1x1 columns
+                                            // (or 2 sums x 64 columns of a
+                                            // branch slice) each
 
-// The plan of f1_wg_kernel / f3_wg_kernel at one geometry;
-// ops/cam.py:_wg_plan computes the same.
+// The plan of f1_wg_kernel / f3_wg_kernel / f3b_wg_kernel (F3b's phase
+// 0) at one geometry; ops/cam.py:_wg_plan computes the same.
 struct FPlan {
-  int f3;               // F3 (else F1)
+  int f3;               // F3 or F3b (else F1)
+  int bb;               // F3b: the branch backward follows
   int ntb, sw, nsl;     // a branch slice's n8 tiles and columns; slices
   int nch1;             // 1x1-conv chunks of FN1 output columns
   int kq, nq;           // the x halo's K chunks: width, count
@@ -218,6 +345,8 @@ struct FPlan {
   int a_res;            // F3: a kept in shared memory (else in global
                         // rows, restaged a stage at a time)
   int rows_smem;        // F3: BN rows and the gate in shared memory
+  int kdq, nd, kbd;     // F3b: dt's chunks of kc staged in the halo's
+                        // buffer (width, count) and their stages' width
   int slot;             // bf16 elements of a ring slot
   int nst;              // weight stages a tile; -1: nothing fits
   int64_t smem;         // dynamic shared memory, bytes
@@ -235,14 +364,15 @@ inline int fplan_ntb(int per) {
 // Shared memory besides the ring: the mbarriers, the x halo (chunk of kq
 // channels: kq / 8 planes of hr 16-byte rows), a (F3, a_res: knh / 8
 // planes of 64 rows), then in f32 the BN rows and the gate (F3,
-// rows_smem: bnr, bnt 4C each, gate C, bnh 4 NH) or F1's column-sum
-// scratch.
-inline int64_t fplan_fixed(const Geo &g, const TGeo &t, int f3, int kq,
-                           int a_res, int rows_smem) {
+// rows_smem: bnr, bnt 4C each, gate C, bnh 4 NH) and F3b's column-sum
+// scratch, or F1's.
+inline int64_t fplan_fixed(const Geo &g, const TGeo &t, int f3, int bb,
+                           int kq, int a_res, int rows_smem) {
   int64_t b = FBAR + 2LL * t.hr * kq;
   if (f3 && a_res) b += 2LL * TP * g.knh;
   if (f3)
-    b += rows_smem ? 4LL * (9LL * g.C + 4LL * g.NH) : 0;
+    b += (rows_smem ? 4LL * (9LL * g.C + 4LL * g.NH) : 0) +
+         (bb ? 4LL * FRED3 : 0);
   else
     b += 4LL * FRED;
   return b;
@@ -250,11 +380,16 @@ inline int64_t fplan_fixed(const Geo &g, const TGeo &t, int f3, int kq,
 
 // The plan: the first of these that fits SMEM_MAX with stages at least
 // min(64, kq) wide (else 16): a and the rows in shared memory, then the
-// rows in global memory, then a too (F3); within each, the x halo in as
-// few K chunks as leave that room for FNS ring slots.
+// rows in global memory, then a too (F3, F3b); within each, the x halo in
+// as few K chunks as leave that room for FNS ring slots.  F3b keeps no
+// more: c goes to its global rows (each thread reads back what it
+// wrote), dt to its global rows and back into the halo's buffer once the
+// last product that reads x has completed (whole where 64 kc fits the
+// buffer, else in chunks).
 inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
   FPlan p{};
-  p.f3 = op == F3;
+  p.f3 = op == F3 || op == F3B;
+  p.bb = op == F3B;
   const int n8 = (g.hc + 7) / 8;
   p.nsl = (n8 + FNB_MAX - 1) / FNB_MAX;
   p.ntb = fplan_ntb((n8 + p.nsl - 1) / p.nsl);
@@ -272,7 +407,7 @@ inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
         if (kq == prev) continue;
         prev = kq;
         const int64_t avail =
-            SMEM_MAX - fplan_fixed(g, t, p.f3, kq, a_res, rows);
+            SMEM_MAX - fplan_fixed(g, t, p.f3, p.bb, kq, a_res, rows);
         const int64_t k = avail < 0 ? -1 : avail / (2LL * FNS * nw) / 16 * 16;
         if (k >= (thr < kq ? thr : kq)) {
           kb = static_cast<int>(k);
@@ -289,26 +424,43 @@ inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
   int n;
   k_chunks(p.kq, kb, &p.kbx, &n);
   p.kba = p.nba = 0;
+  // rows restaged into the halo buffer (64 a plane): at most cap wide
+  const int64_t cap = 1LL * t.hr * p.kq / TP / 16 * 16;
   if (p.f3) {
-    // restaged a rows (64 a plane) share the halo buffer
     int ka = kb;
-    if (!p.a_res) {
-      const int64_t cap = 1LL * t.hr * p.kq / TP;
-      ka = static_cast<int>(cap < ka ? cap : ka) / 16 * 16;
-    }
+    if (!p.a_res) ka = static_cast<int>(cap < ka ? cap : ka);
     k_chunks(g.knh, ka, &p.kba, &p.nba);
   }
-  p.slot = (p.kbx > p.kba ? p.kbx : p.kba) * nw;
-  p.smem = fplan_fixed(g, t, p.f3, p.kq, p.a_res, p.rows_smem) +
+  p.kdq = p.nd = p.kbd = 0;
+  int nud = 0;   // F3b: dt's stages over its chunks
+  if (p.bb) {
+    if (g.kc <= cap) {
+      p.kdq = g.kc;
+      p.nd = 1;
+    } else {
+      k_chunks(g.kc, static_cast<int>(cap), &p.kdq, &p.nd);
+    }
+    k_chunks(p.kdq, kb, &p.kbd, &n);
+    for (int q = 0; q < p.nd; ++q) {
+      const int wd = g.kc - q * p.kdq < p.kdq ? g.kc - q * p.kdq : p.kdq;
+      nud += (wd + p.kbd - 1) / p.kbd;
+    }
+  }
+  int kmax = p.kbx > p.kba ? p.kbx : p.kba;
+  kmax = p.kbd > kmax ? p.kbd : kmax;
+  p.slot = kmax * nw;
+  p.smem = fplan_fixed(g, t, p.f3, p.bb, p.kq, p.a_res, p.rows_smem) +
            2LL * FNS * p.slot;
   int nu = 0;   // K stages over all of x's chunks
   for (int q = 0; q < p.nq; ++q) {
     const int wq = g.kc - q * p.kq < p.kq ? g.kc - q * p.kq : p.kq;
     nu += (wq + p.kbx - 1) / p.kbx;
   }
-  p.nst = 9 * g.nb * p.nsl * nu + p.nch1 * (nu + p.f3 * p.nba);
+  p.nst = 9 * g.nb * p.nsl * nu + p.nch1 * (nu + p.f3 * p.nba) +
+          p.bb * g.nb * p.nsl * nud;
   p.w_elems = 9LL * g.nb * p.nsl * g.kc * p.sw +
-              static_cast<int64_t>(p.nch1) * FN1 * (g.kc + p.f3 * g.knh);
+              static_cast<int64_t>(p.nch1) * FN1 * (g.kc + p.f3 * g.knh) +
+              1LL * p.bb * g.nb * p.nsl * g.kc * p.sw;
   return p;
 }
 
@@ -359,13 +511,14 @@ __device__ __forceinline__ void cons_chunks(int rows, int cpr, F f) {
   for (int r = warp * rpi + sub; r < rows; r += W * rpi) f(r, c);
 }
 
-// Columns c0 .. c0 + kw of the tile's halo of src (pixel rows of pitch
-// ld) as wgmma's K-major core matrices: kw / 8 planes of hr 16-byte rows
-// (8 channels of a halo pixel), zero outside the image; then the wait,
-// the proxy fence and the barrier.
-__device__ __forceinline__ void cons_halo(bf16 *dst, const bf16 *src, int ld,
-                                          int c0, int kw, const Geo &g,
-                                          const TGeo &t, const TilePos &p) {
+// The copies (one commit group) of columns c0 .. c0 + kw of the tile's
+// halo of src (pixel rows of pitch ld) as wgmma's K-major core matrices:
+// kw / 8 planes of hr 16-byte rows (8 channels of a halo pixel), zero
+// outside the image.
+__device__ __forceinline__ void halo_copies(bf16 *dst, const bf16 *src,
+                                            int ld, int c0, int kw,
+                                            const Geo &g, const TGeo &t,
+                                            const TilePos &p) {
   const uint32_t d = saddr(dst);
   cons_chunks(t.hr, kw / 8, [&](int h, int c) {
     const int hy = h / t.hs;
@@ -376,20 +529,13 @@ __device__ __forceinline__ void cons_halo(bf16 *dst, const bf16 *src, int ld,
     cp16(d + (c * t.hr + h) * 16, src + row * ld + c0 + c * 8, ok);
   });
   cp_commit();
-  cp_wait_all();
-  fence_proxy_async();
-  cons_sync();
 }
 
-// Columns c0 .. c0 + kw of the tile's 64 pixel rows of src (pitch ld,
-// global memory, possibly written by this block: the fence and barrier
-// come first) as kw / 8 planes of 64 16-byte rows, zero outside the
-// image.
-__device__ __forceinline__ void cons_rows(bf16 *dst, const bf16 *src, int ld,
-                                          int c0, int kw, const Geo &g,
-                                          const TilePos &p) {
-  __threadfence_block();
-  cons_sync();   // every warp is done with what dst held
+// ... and of columns c0 .. c0 + kw of the tile's 64 pixel rows of src as
+// kw / 8 planes of 64 16-byte rows, zero outside the image.
+__device__ __forceinline__ void rows_copies(bf16 *dst, const bf16 *src,
+                                            int ld, int c0, int kw,
+                                            const Geo &g, const TilePos &p) {
   const uint32_t d = saddr(dst);
   cons_chunks(TP, kw / 8, [&](int r, int c) {
     const int64_t q = tile_pix(g, p, r);
@@ -397,9 +543,32 @@ __device__ __forceinline__ void cons_rows(bf16 *dst, const bf16 *src, int ld,
          q >= 0);
   });
   cp_commit();
+}
+
+// The consumers' copies landed, seen by the async proxy and every warp.
+__device__ __forceinline__ void cons_landed() {
   cp_wait_all();
   fence_proxy_async();
   cons_sync();
+}
+
+// The tile's halo columns (halo_copies), landed.
+__device__ __forceinline__ void cons_halo(bf16 *dst, const bf16 *src, int ld,
+                                          int c0, int kw, const Geo &g,
+                                          const TGeo &t, const TilePos &p) {
+  halo_copies(dst, src, ld, c0, kw, g, t, p);
+  cons_landed();
+}
+
+// The tile's row columns (rows_copies) from global memory possibly
+// written by this block (the fence and barrier come first), landed.
+__device__ __forceinline__ void cons_rows(bf16 *dst, const bf16 *src, int ld,
+                                          int c0, int kw, const Geo &g,
+                                          const TilePos &p) {
+  __threadfence_block();
+  cons_sync();   // every warp is done with what dst held
+  rows_copies(dst, src, ld, c0, kw, g, p);
+  cons_landed();
 }
 
 // An A operand in shared memory: K-major core matrices at address a, K
@@ -480,56 +649,75 @@ __device__ __forceinline__ void fwd_produce(const Geo &g, const FPlan &P,
       for (int v = 0; v < g.knh; v += P.kba)
         issue(g.knh - v < P.kba ? g.knh - v : P.kba, FN1);
   }
+  // F3b's branch backward: per branch slice, dt's chunks and stages
+  if (P.bb)
+    for (int i = 0; i < g.nb * P.nsl; ++i)
+      for (int q = 0; q < g.kc; q += P.kdq) {
+        const int wd = g.kc - q < P.kdq ? g.kc - q : P.kdq;
+        for (int u = 0; u < wd; u += P.kbd)
+          issue(wd - u < P.kbd ? wd - u : P.kbd, P.sw);
+      }
 }
 
-// The column sums over the tile's 64 rows of v (masked) and of its
-// squares (a warpgroup's NT n8 tiles), in a fixed order: each warp's 16
-// rows by shuffles into red (the warpgroup's [warp][2][8 NT]), then the
-// four warps in order into out[c] and out[c + sq] for c < n.
-template <int NT>
-__device__ __forceinline__ void wg_colsums(const float (&v)[NT][4],
-                                           float *red, int wg, int wm,
-                                           int lane, float *out, int sq,
-                                           int n) {
+// The column sums over the tile's 64 rows of the K arrays v (masked; a
+// warpgroup's NT n8 tiles), in a fixed order: each warp's 16 rows by
+// shuffles into red (the warpgroup's [warp][K][8 NT]), then the four
+// warps in order into out[off[k] + c] for c < n.
+template <int NT, int K>
+__device__ __forceinline__ void wg_sums(const float (&v)[K][NT][4],
+                                        float *red, int wg, int wm,
+                                        int lane, float *out,
+                                        const int (&off)[K], int n) {
   constexpr int W = NT * 8;
   wg_sync(wg);   // the previous sums are read
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int k = 0; k < K; ++k)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float x = v[j][h] + v[j][2 + h];
-      float y = __fadd_rn(__fmul_rn(v[j][h], v[j][h]),
-                          __fmul_rn(v[j][2 + h], v[j][2 + h]));
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int m = 4; m < 32; m <<= 1) {
-        x += __shfl_xor_sync(0xffffffffu, x, m);
-        y += __shfl_xor_sync(0xffffffffu, y, m);
+      for (int h = 0; h < 2; ++h) {
+        float x = v[k][j][h] + v[k][j][2 + h];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, m);
+        if (lane < 4) red[(wm * K + k) * W + j * 8 + lane * 2 + h] = x;
       }
-      if (lane < 4) {
-        red[(2 * wm) * W + j * 8 + lane * 2 + h] = x;
-        red[(2 * wm + 1) * W + j * 8 + lane * 2 + h] = y;
-      }
-    }
   wg_sync(wg);
-  for (int c = threadIdx.x & 127; c < n; c += 128) {
-    out[c] = ((red[c] + red[2 * W + c]) + red[4 * W + c]) + red[6 * W + c];
-    out[c + sq] = ((red[W + c] + red[3 * W + c]) + red[5 * W + c]) +
-                  red[7 * W + c];
-  }
+  for (int c = threadIdx.x & 127; c < n; c += 128)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      out[off[k] + c] = ((red[k * W + c] + red[(K + k) * W + c]) +
+                         red[(2 * K + k) * W + c]) +
+                        red[(3 * K + k) * W + c];
 }
 
-// F1 (F3 = false) or F3 on one 8 x 8 tile of the plan P (see the note at
-// the top): threads 0..255 the two consumer warpgroups, each the tile's
-// 64 pixels against half of every product's columns, 256..287 the
+// F3b's phase-0 operands besides F3's: the output cotangent (M, C) and
+// the scratch rows it writes: dr and dt (pitch kc, zero past C), dc
+// (pitch ldc, branch i at i khc, zero past hc) and c (pitch knh).
+struct F3bRows {
+  const bf16 *gout;
+  bf16 *dr, *dt, *dc, *cb;
+};
+
+enum WgMode { WG_F1 = 0, WG_F3 = 1, WG_F3B = 2 };
+
+// F1, F3 or F3b's phase 0 (MODE) on one 8 x 8 tile of the plan P (see the
+// note at the top): threads 0..255 the two consumer warpgroups, each the
+// tile's 64 pixels against half of every product's columns, 256..287 the
 // producer warp.  F1 writes the tile's partial row [S_r (2C) | S_h
 // (2 NH) | the sum of x (C)] (pixels outside the image masked); F3 out
 // (M, C) bf16, with a in a_ws (pitch knh, by pixel) where P keeps it out
-// of shared memory.
-template <int NTB, bool F3>
+// of shared memory.  F3b recomputes F3's products and writes a to a_ws,
+// c, dr, dt and dc to R's rows and the partial row [dSr (2C) | dSt (2C) |
+// dS_h (2 NH) | dgate (C)], with cam_f3.cu:f3b_tile_kernel's arithmetic
+// and rounding points.
+template <int NTB, int MODE>
 __device__ __forceinline__ void fwd_wg_body(
     const Geo &g, const TGeo &t, const FPlan &P, const bf16 *xpad,
     const bf16 *w, const float *bnr, const float *bnh, const float *bnt,
-    const float *gate, bf16 *out, bf16 *a_ws, float *part) {
+    const float *gate, bf16 *out, bf16 *a_ws, float *part,
+    const F3bRows &R) {
+  constexpr bool F3 = MODE != WG_F1, BB = MODE == WG_F3B;
   constexpr int HB = NTB / 2, H1 = FNT1 / 2;   // a warpgroup's n8 tiles
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t bar0 = saddr(smem);   // full[FNS], then empty[FNS]
@@ -569,9 +757,13 @@ __device__ __forceinline__ void fwd_wg_body(
   // halo buffer carries restaged a rows (F3 without a_res)
   const bool xrows = P.nq > 1 || (F3 && !P.a_res);
   float *prow =
-      F3 ? nullptr
-         : part + static_cast<int64_t>(blockIdx.x) * (3 * C + 2 * g.NH);
-  float *red = sF + wg * (FRED / 2);   // F1: the warpgroup's sums
+      F3 && !BB ? nullptr
+                : part + static_cast<int64_t>(blockIdx.x) *
+                             ((BB ? 5 : 3) * C + 2 * g.NH);
+  // F1's and F3b's column sums: the warpgroup's scratch (F3b's after the
+  // rows)
+  float *red = BB ? sF + (P.rows_smem ? 9 * C + 4 * g.NH : 0) + wg * (FRED3 / 2)
+                  : sF + wg * (FRED / 2);
 
   const float *rBr = bnr, *rBt = bnt, *rBh = bnh;
   const float *rG = gate + static_cast<int64_t>(pos.b) * C;
@@ -650,27 +842,32 @@ __device__ __forceinline__ void fwd_wg_body(
 #pragma unroll
             for (int e2 = 0; e2 < 2; ++e2) {
               const int e = h + 2 * e2, r = frag_row(wm, lane, e);
-              const bf16 ab = f2bf(relu(bn_apply(bfr(acc[j][e]), mean, inv,
-                                                 scale, bias)));
+              const float cv = bfr(acc[j][e]);
+              const bf16 ab = f2bf(relu(bn_apply(cv, mean, inv, scale, bias)));
               if (n >= wsl) continue;
-              if (P.a_res) {
-                sA[((k >> 3) * TP + r) * 8 + (k & 7)] = ab;
-              } else {
+              if (P.a_res) sA[((k >> 3) * TP + r) * 8 + (k & 7)] = ab;
+              if (BB || !P.a_res) {   // F3b: a for dkt, c for its backward
                 const int64_t p = tile_pix(g, pos, r);
-                if (p >= 0) a_ws[p * g.knh + k] = ab;
+                if (p >= 0) {
+                  a_ws[p * g.knh + k] = ab;
+                  if (BB) R.cb[p * g.knh + k] = f2bf(cv);
+                }
               }
             }
           }
       } else {
-        float v[HB][4];
+        // F1: the column sums of bf16(c) and of its squares
+        float v[2][HB][4];
 #pragma unroll
         for (int j = 0; j < HB; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[j][e] = (e < 2 ? in0 : in1) ? bfr(acc[j][e]) : 0.0f;
-        if (wsl > 0)
-          wg_colsums<HB>(v, red, wg, wm, lane,
-                         prow + 2 * C + 2 * i * g.hc + s0, g.hc, wsl);
+          for (int e = 0; e < 4; ++e) {
+            v[0][j][e] = (e < 2 ? in0 : in1) ? bfr(acc[j][e]) : 0.0f;
+            v[1][j][e] = __fmul_rn(v[0][j][e], v[0][j][e]);
+          }
+        const int off[2] = {2 * C + 2 * i * g.hc + s0,
+                            2 * C + (2 * i + 1) * g.hc + s0};
+        if (wsl > 0) wg_sums<HB, 2>(v, red, wg, wm, lane, prow, off, wsl);
       }
     }
   }
@@ -731,7 +928,63 @@ __device__ __forceinline__ void fwd_wg_body(
     pipe.drain();
     fence_acc(acr);
     if (F3) fence_acc(at);
-    if (F3) {
+    if (BB) {
+      // F3b: do = (pre > 0) g, dgate, the residual and top BN backward:
+      // dr, dt (zero on the K padding C .. kc, which dt's restaging and
+      // dx read) and the five column sums, as f3b_tile_kernel's epilogue
+      // computes them; a column's rows and gate loaded once
+      const int64_t p0 = tile_pix(g, pos, frag_row(wm, lane, 0));
+      const int64_t p1 = tile_pix(g, pos, frag_row(wm, lane, 2));
+      float v[5][H1][4];
+#pragma unroll
+      for (int j = 0; j < H1; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = n0 + frag_col(lane, j, h);
+          const int cc = col < C ? col : C - 1;
+          const float mr = rBr[cc], ir = rBr[C + cc], sr = rBr[2 * C + cc],
+                      br = rBr[3 * C + cc];
+          const float mt = rBt[cc], it = rBt[C + cc], st = rBt[2 * C + cc],
+                      bt = rBt[3 * C + cc];
+          const float gt = rG[cc];
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int e = h + 2 * e2;
+            const int64_t p = e2 ? p1 : p0;
+            float dzr = 0.0f, rmm = 0.0f, dzt = 0.0f, tmm = 0.0f, dgy = 0.0f;
+            if (p >= 0 && col < C) {
+              const float rb = bfr(acr[j][e]), tb = bfr(at[j][e]);
+              const float zr = bn_apply(rb, mr, ir, sr, br);
+              const float zt = bn_apply(tb, mt, it, st, bt);
+              const float y = relu(zt);
+              const float pre = __fadd_rn(relu(zr), __fmul_rn(y, gt));
+              const float d_o = pre > 0.0f ? bf2f(R.gout[p * C + col]) : 0.0f;
+              dgy = __fmul_rn(d_o, y);
+              dzr = zr > 0.0f ? d_o : 0.0f;
+              rmm = __fsub_rn(rb, mr);
+              R.dr[p * g.kc + col] = f2bf(__fmul_rn(dzr, __fmul_rn(sr, ir)));
+              const float dy = __fmul_rn(d_o, gt);
+              dzt = zt > 0.0f ? dy : 0.0f;
+              tmm = __fsub_rn(tb, mt);
+              R.dt[p * g.kc + col] = f2bf(__fmul_rn(dzt, __fmul_rn(st, it)));
+            } else if (p >= 0 && col < g.kc) {
+              R.dr[p * g.kc + col] = bzero();
+              R.dt[p * g.kc + col] = bzero();
+            }
+            v[0][j][e] = dzr;
+            v[1][j][e] = __fmul_rn(dzr, rmm);
+            v[2][j][e] = dzt;
+            v[3][j][e] = __fmul_rn(dzt, tmm);
+            v[4][j][e] = dgy;
+          }
+        }
+      if (n0 < C) {
+        const int off[5] = {n0, C + n0, 2 * C + n0, 3 * C + n0,
+                            4 * C + 2 * g.NH + n0};
+        wg_sums<H1, 5>(v, red, wg, wm, lane, prow, off,
+                       C - n0 < H1 * 8 ? C - n0 : H1 * 8);
+      }
+    } else if (F3) {
       // out = bf16(relu(relu(BN_r(bf16(x kr))) + relu(BN_t(bf16(a kt)))
       // gate)): a column's rows and gate loaded once for the lane's two
       // fragment rows, only the stores masked
@@ -759,16 +1012,78 @@ __device__ __forceinline__ void fwd_wg_body(
           }
         }
     } else {
-      float v[H1][4];
+      // F1: the column sums of bf16(x kr) and of its squares
+      float v[2][H1][4];
 #pragma unroll
       for (int j = 0; j < H1; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          v[0][j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
+          v[1][j][e] = __fmul_rn(v[0][j][e], v[0][j][e]);
+        }
+      const int off[2] = {n0, C + n0};
       if (n0 < C)
-        wg_colsums<H1>(v, red, wg, wm, lane, prow + n0, C,
+        wg_sums<H1, 2>(v, red, wg, wm, lane, prow, off,
                        C - n0 < H1 * 8 ? C - n0 : H1 * 8);
     }
+  }
+  if constexpr (BB) {
+    // F3b's branch backward, per branch slice: da = dt . kt[i]^T with dt
+    // back from its global rows into the halo's buffer (x's last product
+    // has completed: every warp drained), whole or a chunk at a time; dz =
+    // (z > 0) da with z from c, which this thread wrote to its global rows
+    // for the same fragment elements; dc = bf16(dz scale inv) and the
+    // column sums of dz and dz (c - mean) into dS_h
+    for (int i = 0; i < g.nb; ++i)
+      for (int sl = 0; sl < P.nsl; ++sl) {
+        float acc[HB][4];
+        for (int q = 0; q < P.nd; ++q) {
+          const int k0 = q * P.kdq, wd = g.kc - k0 < P.kdq ? g.kc - k0 : P.kdq;
+          if (P.nd > 1 || (i == 0 && sl == 0)) {
+            pipe.drain();
+            cons_rows(sH, R.dt, g.kc, k0, wd, g, pos);
+          }
+          for (int u = 0; u < wd; u += P.kbd) {
+            const int kw = wd - u < P.kbd ? wd - u : P.kbd;
+            pipe.stage<HB>(acc, AOp{saddr(sH) + u / 8 * TP * 16, rlbo, rsbo},
+                           kw, wg * HB, q == 0 && u == 0);
+          }
+        }
+        pipe.drain();
+        fence_acc(acc);
+        const int s0 = sl * P.sw + wg * HB * 8;
+        const int wsl = g.hc - s0 < HB * 8 ? g.hc - s0 : HB * 8;
+        float v[2][HB][4];
+  #pragma unroll
+        for (int j = 0; j < HB; ++j)
+  #pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = frag_col(lane, j, h), col = s0 + n;
+            const float *bn = rBh + 4 * i * g.hc + (n < wsl ? col : 0);
+            const float mean = bn[0], inv = bn[g.hc], scale = bn[2 * g.hc],
+                        bias = bn[3 * g.hc];
+  #pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const int e = h + 2 * e2;
+              const int64_t p = tile_pix(g, pos, frag_row(wm, lane, e));
+              v[0][j][e] = 0.0f;
+              v[1][j][e] = 0.0f;
+              if (n >= wsl || p < 0) continue;
+              const float cv = bf2f(R.cb[p * g.knh + i * g.hc + col]);
+              const float z = bn_apply(cv, mean, inv, scale, bias);
+              const float dz = z > 0.0f ? acc[j][e] : 0.0f;
+              v[0][j][e] = dz;
+              v[1][j][e] = __fmul_rn(dz, __fsub_rn(cv, mean));
+              R.dc[p * t.ldc + i * g.khc + col] =
+                  f2bf(__fmul_rn(dz, __fmul_rn(scale, inv)));
+            }
+          }
+        if (wsl > 0) {
+          const int off[2] = {2 * i * g.hc + s0, (2 * i + 1) * g.hc + s0};
+          wg_sums<HB, 2>(v, red, wg, wm, lane, prow + 4 * C, off, wsl);
+        }
+      }
+    zero_pad_cols(R.dc, t.ldc, g.nb, g.khc, g.hc, g, pos);
   }
 }
 
@@ -777,8 +1092,8 @@ template <int NTB>
 __global__ void __launch_bounds__(FT, 1)
 f1_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
              const bf16 *__restrict__ w, float *__restrict__ part) {
-  fwd_wg_body<NTB, false>(g, t, P, xpad, w, nullptr, nullptr, nullptr,
-                          nullptr, nullptr, nullptr, part);
+  fwd_wg_body<NTB, WG_F1>(g, t, P, xpad, w, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, part, F3bRows{});
 }
 
 // F3's output (M, C) bf16 on the plan P; a_ws (M, knh) where P keeps a
@@ -790,8 +1105,291 @@ f3_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
              const float *__restrict__ bnh, const float *__restrict__ bnt,
              const float *__restrict__ gate, bf16 *__restrict__ out,
              bf16 *__restrict__ a_ws) {
-  fwd_wg_body<NTB, true>(g, t, P, xpad, w, bnr, bnh, bnt, gate, out, a_ws,
-                         nullptr);
+  fwd_wg_body<NTB, WG_F3>(g, t, P, xpad, w, bnr, bnh, bnt, gate, out, a_ws,
+                          nullptr, F3bRows{});
+}
+
+// F3b's phase 0 on the plan P: dr, a, dt, dc and c (M rows each, pitches
+// kc, knh, kc, ldc and knh) and the partial rows (n_tiles x (5C + 2 NH)
+// f32), the workspace of cam_f3.cu:carve_f3b.
+template <int NTB>
+__global__ void __launch_bounds__(FT, 1)
+f3b_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
+              const bf16 *__restrict__ w, const float *__restrict__ bnr,
+              const float *__restrict__ bnh, const float *__restrict__ bnt,
+              const float *__restrict__ gate, const bf16 *__restrict__ gout,
+              bf16 *__restrict__ dr, bf16 *__restrict__ a,
+              bf16 *__restrict__ dt, bf16 *__restrict__ dc,
+              float *__restrict__ part, bf16 *__restrict__ cb) {
+  fwd_wg_body<NTB, WG_F3B>(g, t, P, xpad, w, bnr, bnh, bnt, gate, nullptr,
+                           a, part, F3bRows{gout, dr, dt, dc, cb});
+}
+
+// ------------------------------------------------------------ dx
+//
+// dx_wg_kernel: phase 1 of F1b, F2b and F3b wherever make_tgeo takes the
+// wide plan, dx = bf16(dr . kr^T (HAS_DR) + the sum over branches i and
+// taps of dc_i(p - tap offset d_i) . kh[i, tap]^T (+ dgap[b] / (H W),
+// HAS_GAP, before the one rounding)), from the scratch phase 0 leaves (dr
+// of pitch kc, dc of pitch ldc, branch i at i khc).  One block a tile and
+// all C output columns in it: the column pass's 16 NTW n8 tiles (NTW a
+// consumer warpgroup's, one wgmma m64 x 8 NTW; wider C in passes), so the
+// dc halo is staged once a tile, as wgmma's K-major core matrices (a tap
+// moves the descriptor's start by minus its shift), whole where it fits,
+// else a branch (or a K chunk of one) at a time into two buffers, the
+// next chunk loading while this one multiplies; dr's 64 rows are an A
+// operand too (whole, or a stage at a time).  B, kr and kh[i, tap]
+// re-laid once a call in walking order (ops/cam.py:_dx_weights), arrives
+// by bulk copy into the FNS-slot ring the producer warp keeps full.
+
+// n8 tiles of a consumer warpgroup's columns in one pass: the kernel's
+// instances.
+inline int dplan_ntw(int per) {
+  const int set[] = {8, 12, 14, 17};
+  for (int v : set)
+    if (v >= per) return v;
+  return -1;
+}
+constexpr int DNTW_MAX = 17;
+
+// The plan of dx_wg_kernel at one geometry; ops/cam.py:_dx_plan computes
+// the same.
+struct DPlan {
+  int ntw, npass, np;   // n8 tiles a warpgroup, column passes, columns a pass
+  int hres;             // the whole dc halo in shared memory (else two
+                        // buffers of one chunk)
+  int kq, nq;           // a branch's halo chunks: width, count
+  int dr_res;           // dr's rows whole in shared memory (else a stage
+                        // at a time)
+  int kbr, kbc;         // stage widths over dr's kc and a halo chunk
+  int slot;             // bf16 elements of a ring slot
+  int nst;              // weight stages a tile; -1: nothing fits
+  int64_t smem;         // dynamic shared memory, bytes
+  int64_t w_elems;      // bf16 elements of the re-laid weights
+};
+
+// Shared memory besides the ring and the restaged dr rows: the
+// mbarriers, the dc halo (all nb khc channels, or two chunks of kq), dr's
+// rows (dr_res).
+inline int64_t dplan_fixed(const Geo &g, const TGeo &t, int hres, int kq,
+                           int dr_res) {
+  return FBAR + 2LL * t.hr * (hres ? t.ldc : 2 * kq) +
+         (t.res && dr_res ? 2LL * TP * g.kc : 0);
+}
+
+// The plan: the first of these with stages at least min(64, chunk) wide
+// (else 16): the halo whole and dr's rows whole, the halo in two branch
+// buffers, the halo whole with dr a stage at a time, two branch buffers
+// with that; then branches in K chunks of two buffers (as few as fit).
+inline DPlan make_dplan(const Geo &g, const TGeo &t) {
+  DPlan p{};
+  const int n8 = (g.C + 7) / 8;
+  p.npass = (n8 + 2 * DNTW_MAX - 1) / (2 * DNTW_MAX);
+  p.ntw = dplan_ntw((n8 + 2 * p.npass - 1) / (2 * p.npass));
+  p.np = 16 * p.ntw;
+  p.nst = -1;
+  int kb = -1;
+  const int modes[4][2] = {{1, 1}, {0, 1}, {1, 0}, {0, 0}};
+  for (int thr = 64; thr >= 16 && kb < 0; thr -= 48)
+    for (int m = 0; m < 4 && kb < 0; ++m) {
+      const int hres = modes[m][0], dr_res = modes[m][1];
+      if (!t.res && !dr_res) continue;
+      int prev = 0;
+      for (int nq = 1; kb < 0; ++nq) {
+        const int kq = up16((g.khc + nq - 1) / nq);
+        if (kq == prev) continue;
+        prev = kq;
+        const int64_t avail = SMEM_MAX - dplan_fixed(g, t, hres, kq, dr_res);
+        const int64_t per =
+            2LL * (FNS * p.np + (t.res && !dr_res ? TP : 0));
+        const int64_t k = avail < 0 ? -1 : avail / per / 16 * 16;
+        if (k >= (thr < kq ? thr : kq)) {
+          kb = static_cast<int>(k);
+          p.hres = hres;
+          p.kq = kq;
+          p.dr_res = dr_res;
+        }
+        if (hres || kq <= 16) break;
+      }
+    }
+  if (kb < 0) return p;
+  p.nq = (g.khc + p.kq - 1) / p.kq;
+  int n;
+  p.kbr = 0;
+  if (t.res) k_chunks(g.kc, kb, &p.kbr, &n);
+  k_chunks(p.kq, kb, &p.kbc, &n);
+  p.slot = (p.kbr > p.kbc ? p.kbr : p.kbc) * p.np;
+  p.smem = dplan_fixed(g, t, p.hres, p.kq, p.dr_res) + 2LL * FNS * p.slot +
+           (t.res && !p.dr_res ? 2LL * TP * p.kbr : 0);
+  int nu = 0;   // a tap's stages over a branch's chunks
+  for (int q = 0; q < p.nq; ++q) {
+    const int wq = g.khc - q * p.kq < p.kq ? g.khc - q * p.kq : p.kq;
+    nu += (wq + p.kbc - 1) / p.kbc;
+  }
+  p.nst = p.npass * ((t.res ? (g.kc + p.kbr - 1) / p.kbr : 0) + 9 * g.nb * nu);
+  p.w_elems = static_cast<int64_t>(p.npass) * p.np *
+              (t.res * g.kc + 9LL * g.nb * g.khc);
+  return p;
+}
+
+// The producer warp's lane 0: every weight stage of the tile in the
+// consumers' order (per pass: dr's stages, then per branch, chunk and tap
+// the chunk's stages), each [np / 8][kw][8], by one bulk copy into slot
+// s % FNS once the stage that held it has been released.
+__device__ __forceinline__ void dx_produce(const Geo &g, const TGeo &t,
+                                           const DPlan &D, const bf16 *w,
+                                           uint32_t ring, uint32_t bar0) {
+  int s = 0;
+  int64_t off = 0;
+  auto issue = [&](int kw) {
+    const int slot = s % FNS;
+    if (s >= FNS) mbar_wait(bar0 + 8 * (FNS + slot), ((s / FNS) - 1) & 1);
+    const uint32_t bytes = 2u * kw * D.np;
+    mbar_expect_tx(bar0 + 8 * slot, bytes);
+    bulk_load(ring + slot * 2 * D.slot, w + off, bytes, bar0 + 8 * slot);
+    off += static_cast<int64_t>(kw) * D.np;
+    ++s;
+  };
+  for (int pc = 0; pc < D.npass; ++pc) {
+    if (t.res)
+      for (int u = 0; u < g.kc; u += D.kbr)
+        issue(g.kc - u < D.kbr ? g.kc - u : D.kbr);
+    for (int z = 0; z < g.nb * D.nq; ++z) {
+      const int k0 = (z % D.nq) * D.kq;
+      const int wq = g.khc - k0 < D.kq ? g.khc - k0 : D.kq;
+      for (int tap = 0; tap < 9; ++tap)
+        for (int u = 0; u < wq; u += D.kbc)
+          issue(wq - u < D.kbc ? wq - u : D.kbc);
+    }
+  }
+}
+
+// The consumers' copies of dc's halo chunk z (branch z / nq, its
+// columns (z % nq) kq ..) into buf, one commit group.
+__device__ __forceinline__ void dx_halo_issue(bf16 *buf, const bf16 *dc,
+                                              int z, const Geo &g,
+                                              const TGeo &t, const DPlan &D,
+                                              const TilePos &pos) {
+  const int k0 = (z % D.nq) * D.kq;
+  halo_copies(buf, dc, t.ldc, (z / D.nq) * g.khc + k0,
+              g.khc - k0 < D.kq ? g.khc - k0 : D.kq, g, t, pos);
+}
+
+// dx (M, C) bf16 on the plan D: threads 0..255 the two consumer
+// warpgroups (warpgroup wg the pass's n8 tiles [wg NTW, (wg + 1) NTW)),
+// 256..287 the producer warp.
+template <int NTW, bool HAS_DR, bool HAS_GAP>
+__global__ void __launch_bounds__(FT, 1)
+dx_wg_kernel(Geo g, TGeo t, DPlan D, const bf16 *__restrict__ dr,
+             const bf16 *__restrict__ dc, const bf16 *__restrict__ w,
+             const float *__restrict__ dgap, float inv_n,
+             bf16 *__restrict__ dx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t bar0 = saddr(smem);   // full[FNS], then empty[FNS]
+  bf16 *sW = reinterpret_cast<bf16 *>(smem + FBAR);
+  bf16 *sH = sW + FNS * D.slot;        // the halo, or two chunk buffers
+  bf16 *sR = sH + t.hr * (D.hres ? t.ldc : 2 * D.kq);   // dr's rows
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FNS; ++s) {
+      mbar_init(bar0 + 8 * s, 1);
+      mbar_init(bar0 + 8 * (FNS + s), FC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == FC / 32) {
+    if (lane == 0) dx_produce(g, t, D, w, saddr(sW), bar0);
+    return;
+  }
+
+  const int wg = warp >> 2, wm = warp & 3, C = g.C;
+  const TilePos pos = tile_pos(t, blockIdx.x);
+  Pipe pipe{bar0, saddr(sW), 2 * D.slot, 0, -1};
+  const uint32_t hlbo = t.hr * 16, hsbo = t.hs * 16;
+  const uint32_t rlbo = TP * 16, rsbo = 8 * 16;
+  const uint32_t cen = (t.dmax * t.hs + t.dmax) * 16;
+  const int nz = g.nb * D.nq, nzt = D.npass * nz;
+  auto chunk_buf = [&](int zg) {   // chunk zg's buffer (two of them)
+    return sH + (zg & 1) * t.hr * D.kq;
+  };
+
+  // dr's rows and the halo (or its first chunk), then the second chunk
+  if (HAS_DR && D.dr_res) rows_copies(sR, dr, g.kc, 0, g.kc, g, pos);
+  if (D.hres)
+    halo_copies(sH, dc, t.ldc, 0, t.ldc, g, t, pos);
+  else
+    dx_halo_issue(chunk_buf(0), dc, 0, g, t, D, pos);
+  cons_landed();
+  if (!D.hres && nzt > 1) dx_halo_issue(chunk_buf(1), dc, 1 % nz, g, t, D, pos);
+
+  const int64_t p0 = tile_pix(g, pos, frag_row(wm, lane, 0));
+  const int64_t p1 = tile_pix(g, pos, frag_row(wm, lane, 2));
+  for (int pc = 0; pc < D.npass; ++pc) {
+    float acc[NTW][4];
+    bool first = true;
+    if (HAS_DR)
+      for (int u = 0; u < g.kc; u += D.kbr) {
+        const int kw = g.kc - u < D.kbr ? g.kc - u : D.kbr;
+        AOp A{saddr(sR) + u / 8 * TP * 16, rlbo, rsbo};
+        if (!D.dr_res) {
+          pipe.drain();
+          cons_rows(sR, dr, g.kc, u, kw, g, pos);
+          A = AOp{saddr(sR), rlbo, rsbo};
+        }
+        pipe.stage<NTW>(acc, A, kw, wg * NTW, first);
+        first = false;
+      }
+    for (int z = 0; z < nz; ++z) {
+      const int zg = pc * nz + z, i = z / D.nq, d = g.dil[i];
+      const int k0 = (z % D.nq) * D.kq;
+      const int wq = g.khc - k0 < D.kq ? g.khc - k0 : D.kq;
+      if (!D.hres && zg > 0) {
+        // chunk zg has landed; chunk zg - 1's wgmmas are done, so chunk
+        // zg + 1 may load into its buffer
+        pipe.drain();
+        cons_landed();
+        if (zg + 1 < nzt)
+          dx_halo_issue(chunk_buf(zg + 1), dc, (zg + 1) % nz, g, t, D, pos);
+      }
+      const uint32_t base =
+          (D.hres ? saddr(sH) + i * t.hr * g.khc * 2 : saddr(chunk_buf(zg))) +
+          cen;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int sh = -((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
+        for (int u = 0; u < wq; u += D.kbc) {
+          const int kw = wq - u < D.kbc ? wq - u : D.kbc;
+          pipe.stage<NTW>(acc, AOp{base + (u / 8 * t.hr + sh) * 16, hlbo,
+                                   hsbo}, kw, wg * NTW, first);
+          first = false;
+        }
+      }
+    }
+    pipe.drain();
+    fence_acc(acc);
+    // dx = bf16(acc (+ dgap[b] inv_n)): a column's gap term once for the
+    // lane's two fragment rows, only the stores masked
+    const int n0 = pc * D.np + wg * NTW * 8;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + frag_col(lane, j, h);
+        const float gap =
+            HAS_GAP && col < C
+                ? __fmul_rn(dgap[static_cast<int64_t>(pos.b) * C + col], inv_n)
+                : 0.0f;
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int64_t p = e2 ? p1 : p0;
+          float v = acc[j][h + 2 * e2];
+          if (HAS_GAP) v = __fadd_rn(v, gap);
+          if (p >= 0 && col < C) dx[p * C + col] = f2bf(v);
+        }
+      }
+  }
 }
 
 // ------------------------------------------------------------ host side
@@ -806,36 +1404,65 @@ inline bool fwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P) {
   return P->nst > 0 && P->smem <= SMEM_MAX;
 }
 
-// cam_f1_plan / cam_f3_plan: tile_plan's values (what 0..9), where the
-// plan here runs (wide) its shared memory (0), re-laid weights (2), x's
-// K chunk (5), a's stage width (6) and branch slices (9); then 10: the
-// plan here runs, 11: its n8 tiles of a slice, 12: its x stage width,
-// 13: a in shared memory, 14: the BN rows there, 15: its stages a tile
-// (0 for 10..15 where it does not run); -1 for an invalid geometry.
-inline long long fwd_plan(const int *geo, int op, int what) {
+// tile_geo for a backward (op), with the plans here where make_tgeo takes
+// the wide plan: F3b's phase 0 (P, F3B only) and dx (D).  They fit
+// wherever that plan's refusal (tile_geo) lets a geometry through.
+inline bool bwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P,
+                    DPlan *D) {
+  if (!tile_geo(geo, op, g, t)) return false;
+  *P = FPlan{};
+  *D = DPlan{};
+  if (!t->wide) return true;
+  if (op == F3B) {
+    *P = make_fplan(*g, *t, op);
+    if (P->nst <= 0 || P->smem > SMEM_MAX) return false;
+  }
+  *D = make_dplan(*g, *t);
+  return D->nst > 0 && D->smem <= SMEM_MAX;
+}
+
+// cam_<op>_plan of every op, as ops/cam.py:tile_plan computes them: 0
+// phase 0's shared memory, 1 phase 1's (0 for a forward), 2 and 3 the
+// re-laid weights of phase 0 and phase 1, 4 the wide plan, 5 x's K chunk,
+// 6 a's (the kt^T stages' width where phase 0 runs here), 7 and 8
+// dx_wg_kernel's stage width over a halo chunk and the chunk's width, 9
+// branch slices; where phase 0 runs here (F1, F3, F3b where the wide plan
+// would run them; else 0) 10: 1, 11: its n8 tiles of a slice, 12: x's
+// stage width, 13: a in shared memory, 14: the BN rows there, 15: its
+// stages a tile; where dx_wg_kernel runs (else 0) 16: 1, 17: n8 tiles a
+// warpgroup, 18: column passes, 19: the whole halo in shared memory, 20:
+// dr's rows there, 21: its stages a tile; -1 for an invalid geometry or
+// code.
+inline long long op_plan(const int *geo, int op, int what) {
   Geo g;
   TGeo t;
-  FPlan P;
-  if (!fwd_geo(geo, op, &g, &t, &P)) return -1;
-  if (!t.wide) return what < 10 ? tile_plan(geo, op, what) : 0;
+  FPlan P{};
+  DPlan D{};
+  const bool bwd = op >= F1B && op <= F3B;
+  const bool ok = bwd         ? bwd_geo(geo, op, &g, &t, &P, &D)
+                  : op == F2 ? tile_geo(geo, op, &g, &t)
+                             : fwd_geo(geo, op, &g, &t, &P);
+  if (!ok || what < 0 || what > 21) return -1;
+  const bool wg = t.wide && (op == F1 || op == F3 || op == F3B);
+  const bool dw = t.wide && bwd;
+  if (what >= 16) {
+    const long long v[] = {1, D.ntw, D.npass, D.hres, D.dr_res, D.nst};
+    return dw ? v[what - 16] : 0;
+  }
+  if (what >= 10) {
+    const long long v[] = {1, P.ntb, P.kbx, P.a_res, P.rows_smem, P.nst};
+    return wg ? v[what - 10] : 0;
+  }
   switch (what) {
-    case 0: return P.smem;
-    case 1: return 0;
-    case 2: return P.w_elems;
-    case 3: return 0;
-    case 4: return 1;
-    case 5: return P.kq;
-    case 6: return P.kba;
-    case 7: return t.kq1r;
-    case 8: return t.kq1c;
-    case 9: return P.nsl;
-    case 10: return 1;
-    case 11: return P.ntb;
-    case 12: return P.kbx;
-    case 13: return P.a_res;
-    case 14: return P.rows_smem;
-    case 15: return P.nst;
-    default: return -1;
+    case 0: return wg ? P.smem : smem0_bytes(g, t);
+    case 1: return dw ? D.smem : smem1_bytes(g, t);
+    case 2: return wg ? P.w_elems : w0_elems(g, t);
+    case 3: return dw ? D.w_elems : w1_elems(g, t);
+    case 4: return t.wide;
+    case 5: return wg ? P.kq : t.kq;
+    case 6: return wg ? P.kba : t.kqa;
+    case 7: return dw ? D.kbc : 0;
+    default: return what == 8 ? (dw ? D.kq : 0) : (wg ? P.nsl : t.nsl);
   }
 }
 
@@ -869,6 +1496,43 @@ cudaError_t launch_fwd(void (*kern)(P_...), int64_t smem, int n_tiles,
       default: return cudaErrorInvalidValue;                                \
     }                                                                       \
   }()
+
+
+// Phase 1 on the plan D: dx from dr (pitch kc; HAS_DR) and dc (pitch ldc).
+template <bool HAS_DR, bool HAS_GAP>
+cudaError_t launch_dx_wg(const Geo &g, const TGeo &t, const DPlan &D,
+                         const bf16 *dr, const bf16 *dc, const bf16 *w1,
+                         const float *dgap, float inv_n, bf16 *dx,
+                         cudaStream_t st) {
+  switch (D.ntw) {
+    case 8: return launch_fwd(dx_wg_kernel<8, HAS_DR, HAS_GAP>, D.smem,
+                              t.n_tiles, st, g, t, D, dr, dc, w1, dgap,
+                              inv_n, dx);
+    case 12: return launch_fwd(dx_wg_kernel<12, HAS_DR, HAS_GAP>, D.smem,
+                               t.n_tiles, st, g, t, D, dr, dc, w1, dgap,
+                               inv_n, dx);
+    case 14: return launch_fwd(dx_wg_kernel<14, HAS_DR, HAS_GAP>, D.smem,
+                               t.n_tiles, st, g, t, D, dr, dc, w1, dgap,
+                               inv_n, dx);
+    case 17: return launch_fwd(dx_wg_kernel<17, HAS_DR, HAS_GAP>, D.smem,
+                               t.n_tiles, st, g, t, D, dr, dc, w1, dgap,
+                               inv_n, dx);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Phase 1 of a backward: dx_wg_kernel where make_tgeo takes the wide plan,
+// else cam_tile.cuh's dx_kernel.
+template <bool HAS_DR, bool HAS_GAP>
+cudaError_t launch_phase1(const Geo &g, const TGeo &t, const DPlan &D,
+                          const bf16 *dr, const bf16 *dc, const bf16 *w1,
+                          const float *dgap, float inv_n, bf16 *dx,
+                          cudaStream_t st) {
+  if (t.wide)
+    return launch_dx_wg<HAS_DR, HAS_GAP>(g, t, D, dr, dc, w1, dgap, inv_n,
+                                         dx, st);
+  return launch_dx<HAS_DR, HAS_GAP>(g, t, dr, dc, w1, dgap, inv_n, dx, st);
+}
 
 }  // namespace tile
 }  // namespace cam

@@ -19,7 +19,8 @@ MLP) is left to plain autograd:
 
 Six kernels: each op's forward and its backward (``cam_f1_fwd``,
 ``cam_f1_bwd``, ``cam_f2_fwd``, ``cam_f2_bwd``, ``cam_f3_fwd``,
-``cam_f3_bwd``), all on the 2-D tiles of ``csrc/cam_tile.cuh``.  Each
+``cam_f3_bwd``), all on 8 x 8-pixel tiles: ``csrc/cam_tile.cuh``, and
+at the wider geometries ``csrc/cam_wg.cuh``'s ``wgmma`` kernels.  Each
 runs its plain version for CPU tensors and its kernel for CUDA tensors,
 with no fallback from one to the other; each counts its kernel launches
 in ``.launches``, and each plain version its calls in ``.calls``.  Layout is the JAX one: x (B, H, W, C) NHWC bf16,
@@ -439,7 +440,7 @@ def _lib(name: str) -> ctypes.CDLL:
     for fn in _WORKSPACE[name]:
         getattr(lib, fn).argtypes = [_P]
         getattr(lib, fn).restype = ctypes.c_longlong
-    plans = [f"cam_{op}_plan" for op in TILE_OPS   # cam_tile.cuh:tile_plan
+    plans = [f"cam_{op}_plan" for op in TILE_OPS   # cam_wg.cuh:op_plan
              if f"cam_{op[:2]}" == name]
     if name == "cam_f1":
         lib.cam_wgrad_workspace.argtypes = [_P]
@@ -557,15 +558,17 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 # staged once at full depth; elsewhere the wide plan stages every operand
 # in chunks of input channels and walks a branch in slices (cam_tile.cuh:
 # "wide plan"), and refuses only a largest dilation whose halo of one
-# 16-channel chunk does not fit.  There F1 and F3 run the wgmma kernels of
-# csrc/cam_wg.cuh instead ("wg" in tile_plan: whole branches of up to 128
-# columns, the halo at full depth where it fits, _wg_weights), refusing
-# the same.  tile_plan and _tile_weights are that contract's Python side,
-# per op ("f1", "f2", "f3", "f1b", "f2b", "f3b"); the C side (make_tgeo,
-# smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0, WStage0, WStage1;
-# cam_wg.cuh:make_fplan, fwd_produce) computes the same, and each wrapper
-# checks the weight counts against it (cam_f{1,2,3}_plan,
-# cam_f{1,2,3}b_plan) on every call.
+# 16-channel chunk does not fit.  There F1, F3 and F3b's phase 0 run the
+# wgmma kernels of csrc/cam_wg.cuh instead ("wg" in tile_plan: whole
+# branches of up to 128 columns, the halo at full depth where it fits,
+# _wg_weights), and every backward's phase 1 its dx_wg_kernel ("dx_wg":
+# all output columns in one block, the dc halo once a tile, _dx_weights),
+# refusing the same.  tile_plan and _tile_weights are that contract's
+# Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b"); the C side
+# (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0,
+# WStage0; cam_wg.cuh:make_fplan, fwd_produce, make_dplan, dx_produce,
+# op_plan) computes the same, and each wrapper checks the weight counts
+# against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on every call.
 
 TILE_TS = 8          # tile side (cam_tile.cuh:TS)
 TILE_TP = 64         # pixels of a tile (cam_core.cuh:TP)
@@ -576,9 +579,17 @@ TILE_NBUF = 3        # weight stages in shared memory (cam_tile.cuh:NBUF)
 TILE_SW_MAX = 40     # columns of a branch (slice) (cam_core.cuh:SW_MAX)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
 # cam_wg.cuh's plan: ring slots, columns of a 1x1 chunk, n8 tiles of a
-# branch slice (the kernels' instances), bytes before the ring, F1's
-# column-sum scratch (f32)
+# branch slice (the kernels' instances), bytes before the ring, F1's and
+# F3b's column-sum scratch (f32); dx_wg_kernel's n8 tiles a warpgroup (its
+# instances)
 WG_NS, WG_N1, WG_NTB, WG_BAR, WG_RED = 4, 64, (2, 4, 6, 8, 12, 16), 128, 1024
+WG_RED3 = 1280
+DX_NTW = (8, 12, 14, 17)
+# cam_<op>_plan's codes 0..21 (cam_wg.cuh:op_plan), as tile_plan's keys
+PLAN_CODES = ("smem0", "smem1", "w0_elems", "w1_elems", "wide", "kq", "kqa",
+              "dx_kb", "dx_kq", "nsl", "wg", "ntb", "kb", "a_res",
+              "rows_smem", "wg_nst", "dx_wg", "dx_ntw", "dx_npass",
+              "dx_hres", "dx_dr_res", "dx_nst")
 # op -> (its phase 0 runs kr^T chunks, kt^T chunks, the branch backward),
 # as cam_tile.cuh:make_tgeo sets res, top and bb; a backward ("...b") also
 # has a phase 1 (dx), a forward none
@@ -613,9 +624,11 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     shared memory (bytes; smem1 0 for a forward) and re-laid weight sizes
     (bf16 elements; w1_elems 0 for a forward) of ``op``'s tile kernels at
     x (b, h, w, c), ``dils``, branch width hc; "wide" 1 for the wide plan,
-    with its slices (nsl of sw columns) and chunks (phase 0: kq / nq of
-    kc, kqa / nqa of knh; phase 1: kq1r / nq1r of kc, kq1c / nq1c of khc);
-    "ok" 0 where the largest dilation's halo does not fit even so."""
+    with its slices (nsl of sw columns) and phase-0 chunks (kq / nq of kc,
+    kqa / nqa of knh), and there "wg" (F1, F3, F3b's phase 0 on cam_wg.cuh,
+    :func:`_wg_plan`) and "dx_wg" (a backward's phase 1 on dx_wg_kernel,
+    :func:`_dx_plan`); "ok" 0 where the largest dilation's halo does not
+    fit even so."""
     res, top, bb = TILE_OPS[op]
     bwd = op.endswith("b")
     nb = len(dils)
@@ -651,11 +664,15 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
     p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc if bwd else 0
     p.update(wide=0, ok=1, nsl=1, sw=p["brows"], kq=kc, nq=1, kqa=knh,
-             nqa=1, kqm=kc, kq1r=khc, nq1r=p["nksr"], kq1c=khc, nq1c=1,
-             wg=0, ntb=0, kb=0, a_res=0, rows_smem=0, wg_nst=0)
+             nqa=1, kqm=kc, wg=0, ntb=0, kb=0, a_res=0, rows_smem=0,
+             wg_nst=0, dx_wg=0, dx_ntw=0, dx_npass=0, dx_hres=0,
+             dx_dr_res=0, dx_nst=0, dx_kb=0, dx_kq=0)
     if hc <= TILE_SW_MAX and max(p["smem0"], p["smem1"]) <= SMEM_MAX:
         return p
-    # the wide plan
+    # the wide plan; a backward is also refused where a K-chunked phase 1
+    # of mma.sync stages (two halo buffers of a 16-channel chunk, three
+    # slots of nxr weight and 64 dr rows) would not fit: the limit the
+    # ops have always had (cam_tile.cuh:make_tgeo)
     nsl = -(-hc // TILE_SW_MAX)
     sw = _up(-(-hc // nsl), 8)
     k0 = _k_fit(p["hr"], TILE_NC + tp, 4 * red)
@@ -667,46 +684,43 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     kq, nq = _k_chunks(kc, k0)
     kqa, nqa = _k_chunks(knh, k0)
     kqm = max(kq, kqa) if top else kq
-    kq1r, nq1r = _k_chunks(kc, k1)
-    kq1c, nq1c = _k_chunks(khc, k1)
-    nq1r = nq1r if res else 0
-    kq1m = max(kq1r, kq1c) if res else kq1c
     nbr = 9 * nb * nsl * nq
     n11 = p["nchr"] * (res * nq + top * nqa)
     p.update(kq=kq, nq=nq, kqa=kqa, nqa=nqa, kqm=kqm, kw0=kqm, nbr=nbr,
-             n11=n11, nst0=nbr + n11 + bb * nb * nsl * nq, kq1r=kq1r,
-             nq1r=nq1r, nksr=nq1r, kq1c=kq1c, nq1c=nq1c, kq1m=kq1m,
-             nst1=nq1r + 9 * nb * nq1c)
+             n11=n11, nst0=nbr + n11 + bb * nb * nsl * nq)
     p["smem0"] = 2 * (2 * p["hr"] + TILE_NBUF * (TILE_NC + tp)) * (kqm + 8) \
         + 4 * red
-    p["smem1"] = 2 * (2 * p["hr"] + TILE_NBUF * (p["nxr"] + res * tp)) \
-        * (kq1m + 8) if bwd else 0
+    p["smem1"] = p["w1_elems"] = 0
     p["w0_elems"] = (9 + bb) * nb * nsl * sw * kc \
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
-    p["w1_elems"] = p["nchx"] * p["nxr"] * (res * kc + 9 * nb * khc) \
-        if bwd else 0
-    if op in ("f1", "f3"):
-        _wg_plan(p, op == "f3", c, nb, hc)
+    if op in ("f1", "f3", "f3b"):
+        _wg_plan(p, op, c, nb, hc)
+    if bwd and p["ok"]:
+        _dx_plan(p, res, c, nb)
     return p
 
 
-def _wg_fixed(p, f3, c, nh, kq, a_res, rows):
+def _wg_fixed(p, f3, bb, c, nh, kq, a_res, rows):
     """cam_wg.cuh:fplan_fixed: shared memory besides the ring."""
     b = WG_BAR + 2 * p["hr"] * kq
     if f3 and a_res:
         b += 2 * TILE_TP * p["knh"]
     if f3:
-        return b + (4 * (9 * c + 4 * nh) if rows else 0)
+        return b + (4 * (9 * c + 4 * nh) if rows else 0) \
+            + (4 * WG_RED3 if bb else 0)
     return b + 4 * WG_RED
 
 
-def _wg_plan(p, f3, c, nb, hc):
-    """F1's or F3's plan where the wide plan would run them
-    (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8 tiles
-    (sw columns, nsl slices), 1x1 chunks of WG_N1 columns (nch1), the x
-    halo in nq chunks of kq, x's stages kb wide at most, a's (F3) kqa
-    (nqa of them), a (a_res) and the BN rows (rows_smem) in shared memory
-    or not, wg_nst stages a tile; smem0 and w0_elems its own."""
+def _wg_plan(p, op, c, nb, hc):
+    """F1's, F3's or F3b's phase-0 plan where the wide plan would run
+    them (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8
+    tiles (sw columns, nsl slices), 1x1 chunks of WG_N1 columns (nch1),
+    the x halo in nq chunks of kq, x's stages kb wide at most, a's (F3,
+    F3b) kqa (nqa of them), a (a_res) and the BN rows (rows_smem) in
+    shared memory or not; F3b's dt restaged into the halo's buffer in nd
+    chunks of kdq, its stages kbd wide; wg_nst stages a tile; smem0 and
+    w0_elems its own."""
+    f3, bb = op in ("f3", "f3b"), op == "f3b"
     kc, knh, hr, nh = p["kc"], p["knh"], p["hr"], nb * hc
     n8 = -(-hc // 8)
     nsl = -(-n8 // 16)
@@ -724,7 +738,8 @@ def _wg_plan(p, f3, c, nb, hc):
                 if kq == prev:
                     continue
                 prev = kq
-                avail = SMEM_MAX - _wg_fixed(p, f3, c, nh, kq, a_res, rows)
+                avail = SMEM_MAX - _wg_fixed(p, f3, bb, c, nh, kq, a_res,
+                                             rows)
                 k = -1 if avail < 0 else avail // (2 * WG_NS * nw) // 16 * 16
                 if k >= min(thr, kq):
                     found = (k, kq, a_res, rows)
@@ -741,21 +756,91 @@ def _wg_plan(p, f3, c, nb, hc):
     nq = -(-kc // kq)
     kbx = _k_chunks(kq, kb)[0]
     kba, nba = 0, 0
-    if f3:
-        ka = kb if a_res else min(hr * kq // TILE_TP, kb) // 16 * 16
+    cap = hr * kq // TILE_TP // 16 * 16    # rows restaged into the halo's
+    if f3:                                 # buffer, 64 a plane
+        ka = kb if a_res else min(cap, kb)
         kba, nba = _k_chunks(knh, ka)
-    slot = max(kbx, kba) * nw
+    kdq, nd, kbd, nud = 0, 0, 0, 0
+    if bb:
+        kdq, nd = (kc, 1) if kc <= cap else _k_chunks(kc, cap)
+        kbd = _k_chunks(kdq, kb)[0]
+        nud = sum(-(-min(kdq, kc - q * kdq) // kbd) for q in range(nd))
+    slot = max(kbx, kba, kbd) * nw
     nu = sum(-(-min(kq, kc - q * kq) // kbx) for q in range(nq))
     nbr = 9 * nb * nsl * nu
     n11 = nch1 * (nu + f3 * nba)
+    nst = nbr + n11 + bb * nb * nsl * nud
     p.update(wg=1, ntb=ntb, sw=sw, brows=sw, nsl=nsl, nch1=nch1, kq=kq,
              nq=nq, kb=kbx, kqa=kba, nqa=nba, kqm=max(kbx, kba),
-             kw0=max(kbx, kba), a_res=a_res, rows_smem=rows, slot=slot,
-             nbr=nbr, n11=n11, nst0=nbr + n11, wg_nst=nbr + n11,
-             smem0=_wg_fixed(p, f3, c, nh, kq, a_res, rows)
+             kw0=max(kbx, kba), a_res=a_res, rows_smem=rows, kdq=kdq, nd=nd,
+             kbd=kbd, slot=slot, nbr=nbr, n11=n11, nst0=nst, wg_nst=nst,
+             smem0=_wg_fixed(p, f3, bb, c, nh, kq, a_res, rows)
              + 2 * WG_NS * slot,
              w0_elems=9 * nb * nsl * kc * sw + nch1 * WG_N1 * (
-                 kc + f3 * knh))
+                 kc + f3 * knh) + bb * nb * nsl * kc * sw)
+
+
+def _dx_fixed(p, res, hres, kq, dr_res):
+    """cam_wg.cuh:dplan_fixed: shared memory besides the ring and the
+    restaged dr rows."""
+    return WG_BAR + 2 * p["hr"] * (p["ldc"] if hres else 2 * kq) \
+        + (2 * TILE_TP * p["kc"] if res and dr_res else 0)
+
+
+def _dx_plan(p, res, c, nb):
+    """A backward's phase 1 on the wide plan, dx_wg_kernel's plan
+    (cam_wg.cuh:make_dplan), into ``p``: dx_ntw n8 tiles a consumer
+    warpgroup (one wgmma), dx_npass column passes of dx_np columns, the
+    dc halo whole (dx_hres) or a chunk of dx_kq channels of a branch at a
+    time in two buffers (dx_nq chunks a branch), dr's rows whole
+    (dx_dr_res) or a stage at a time, stages dx_kbr wide over dr's kc and
+    dx_kb over a chunk, dx_nst stages a tile; smem1 and w1_elems its
+    own."""
+    kc, khc, hr = p["kc"], p["khc"], p["hr"]
+    n8 = -(-c // 8)
+    npass = -(-n8 // (2 * max(DX_NTW)))
+    ntw = next(v for v in DX_NTW if v >= -(-n8 // (2 * npass)))
+    np_ = 16 * ntw
+    found = None
+    for thr in (64, 16):
+        for hres, dr_res in ((1, 1), (0, 1), (1, 0), (0, 0)):
+            if not res and not dr_res:
+                continue
+            prev, nq = 0, 0
+            while found is None:
+                nq += 1
+                kq = _up(-(-khc // nq), 16)
+                if kq == prev:
+                    continue
+                prev = kq
+                avail = SMEM_MAX - _dx_fixed(p, res, hres, kq, dr_res)
+                per = 2 * (WG_NS * np_ + (TILE_TP if res and not dr_res
+                                          else 0))
+                k = -1 if avail < 0 else avail // per // 16 * 16
+                if k >= min(thr, kq):
+                    found = (k, hres, kq, dr_res)
+                if hres or kq <= 16:
+                    break
+            if found:
+                break
+        if found:
+            break
+    if found is None:
+        p["ok"] = 0
+        return
+    kb, hres, kq, dr_res = found
+    nq = -(-khc // kq)
+    kbr = _k_chunks(kc, kb)[0] if res else 0
+    kbc = _k_chunks(kq, kb)[0]
+    slot = max(kbr, kbc) * np_
+    nu = sum(-(-min(kq, khc - q * kq) // kbc) for q in range(nq))
+    nst = npass * ((-(-kc // kbr) if res else 0) + 9 * nb * nu)
+    p.update(dx_wg=1, dx_ntw=ntw, dx_npass=npass, dx_np=np_, dx_hres=hres,
+             dx_kq=kq, dx_nq=nq, dx_dr_res=dr_res, dx_kbr=kbr, dx_kb=kbc,
+             dx_slot=slot, dx_nst=nst,
+             smem1=_dx_fixed(p, res, hres, kq, dr_res) + 2 * WG_NS * slot
+             + (2 * TILE_TP * kbr if res and not dr_res else 0),
+             w1_elems=npass * np_ * (res * kc + 9 * nb * khc))
 
 
 def _wg_stages(k: int, width: int):
@@ -786,7 +871,8 @@ def _wg_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
     each stage [N / 8][kw][8] (N the stage's output columns) with zeros
     padding K and N: per (branch, slice, chunk of x, tap, stage of kb)
     kh[i, tap] [kw][sw]; then per 1x1 chunk of WG_N1 output columns kr's
-    x stages [kw][WG_N1] and (f3) kt's stages over knh."""
+    x stages [kw][WG_N1] and (f3, f3b) kt's stages over knh; then (f3b)
+    per (branch, slice, chunk of dt, stage of kbd) kt[i]^T [kw][sw]."""
     nb, _, _, c, hc = kh.shape
     nh = nb * hc
     kc, knh, nsl, sw, nch1 = p["kc"], p["knh"], p["nsl"], p["sw"], p["nch1"]
@@ -803,13 +889,53 @@ def _wg_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
     krp = F.pad(kr, (0, ncol - c, 0, kc - c)).reshape(kc, nch1, WG_N1)
     ones = [_wg_block(krp.transpose(0, 1), k0, kw).reshape(nch1, -1)
             for chunk in xst for k0, kw in chunk]
-    if op == "f3":
+    if op in ("f3", "f3b"):
         ktp = F.pad(kt.reshape(nh, c), (0, ncol - c, 0, knh - nh))
         ktp = ktp.reshape(knh, nch1, WG_N1).transpose(0, 1)
         ones += [_wg_block(ktp, k0, kw).reshape(nch1, -1)
                  for k0, kw in _wg_stages(knh, p["kqa"])]
-    return torch.cat([torch.cat(branch, 2).reshape(-1),
-                      torch.cat(ones, 1).reshape(-1)]).contiguous()
+    out = [torch.cat(branch, 2).reshape(-1), torch.cat(ones, 1).reshape(-1)]
+    if op == "f3b":
+        # kt[i]^T (kc, nsl sw) per branch, a slice's columns a stage
+        ktb = F.pad(kt.transpose(1, 2), (0, nsl * sw - hc, 0, kc - c))
+        ktb = ktb.reshape(nb, kc, nsl, sw).transpose(1, 2)
+        out.append(torch.cat(
+            [_wg_block(ktb, q + k0, kw).reshape(nb, nsl, -1)
+             for q, wd in _wg_stages(kc, p["kdq"])
+             for k0, kw in _wg_stages(wd, p["kbd"])], 2).reshape(-1))
+    return torch.cat(out).contiguous()
+
+
+def _dx_weights(op: str, p: Dict[str, int], kr, kh) -> torch.Tensor:
+    """dx_wg_kernel's re-laid weights, in the order cam_wg.cuh:dx_produce
+    copies them, each stage [dx_np / 8][kw][8] with zeros padding K and N:
+    per column pass of dx_np output channels, kr's stages over dr's kc
+    (f1b, f3b: B[k][n] = kr[n][k]), then per (branch, chunk of khc, tap,
+    stage) kh[i, tap]^T [kw][dx_np]."""
+    res = TILE_OPS[op][0]
+    nb, _, _, c, hc = kh.shape
+    kc, khc, np_ = p["kc"], p["khc"], p["dx_np"]
+    ncol = p["dx_npass"] * np_
+    parts = []
+    if res:
+        krt = F.pad(kr.t(), (0, ncol - c, 0, kc - c))
+        parts += [_wg_block(krt, k0, kw).reshape(-1)
+                  for k0, kw in _wg_stages(kc, p["dx_kbr"])]
+    # (nb, 9, khc, ncol): kh[i, tap]^T
+    kht = F.pad(kh.reshape(nb, 9, c, hc).transpose(2, 3),
+                (0, ncol - c, 0, khc - hc))
+    for i in range(nb):
+        for q, wq in _wg_stages(khc, p["dx_kq"]):
+            for tap in range(9):
+                parts += [_wg_block(kht[i, tap], q + k0, kw).reshape(-1)
+                          for k0, kw in _wg_stages(wq, p["dx_kb"])]
+    # the passes: each stage's n8 groups split by pass, pass-major
+    out = []
+    for pc in range(p["dx_npass"]):
+        g0 = pc * np_ // 8
+        out += [t.reshape(ncol // 8, -1)[g0:g0 + np_ // 8].reshape(-1)
+                for t in parts]
+    return torch.cat(out).contiguous()
 
 
 def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
@@ -823,13 +949,15 @@ def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
     them); w1 (None for a forward), per chunk of TILE_NX output channels (nxr
     rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
     nb x 9 stages of kh[i, tap] [nxr][khc].  Where ``plan`` (the call's
-    :func:`tile_plan`) is the wide one, its layout instead
-    (:func:`_wide_weights`); where F1 and F3 run cam_wg.cuh's kernels
-    (``plan["wg"]``), theirs (:func:`_wg_weights`)."""
-    if plan is not None and plan["wg"]:
-        return _wg_weights(op, plan, kr, kh, kt), None
+    :func:`tile_plan`) is the wide one, its layout instead: w0 the wide
+    plan's (:func:`_wide_weights`) or, where phase 0 runs cam_wg.cuh's
+    kernels (``plan["wg"]``: F1, F3, F3b), theirs (:func:`_wg_weights`);
+    w1 dx_wg_kernel's (:func:`_dx_weights`)."""
     if plan is not None and plan["wide"]:
-        return _wide_weights(op, plan, kr, kh, kt)
+        w0 = (_wg_weights(op, plan, kr, kh, kt) if plan["wg"]
+              else _wide_weights(op, plan, kr, kh, kt))
+        w1 = _dx_weights(op, plan, kr, kh) if op.endswith("b") else None
+        return w0, w1
     nb, _, _, c, hc = kh.shape
     res, top, bb = TILE_OPS[op]
     p = tile_plan(op, 1, 1, 1, c, [1] * nb, hc)
@@ -866,16 +994,13 @@ def _k_split(t: torch.Tensor, width: int) -> list:
     return list(torch.split(t, width, dim=-1))
 
 
-def _wide_weights(op: str, p: Dict[str, int], kr, kh, kt):
-    """The wide plan's re-laid weights (``cam_tile.cuh:WStage0`` /
-    ``WStage1`` walk them), [n][k] with zeros padding n and k.  w0: per
-    (branch, slice, chunk of kc, tap) [sw][kw] of kh[i, tap]^T; per 1x1
-    chunk of TILE_NC output channels its kr^T chunks [NC][kw] (f1, f3,
-    f1b, f3b), then its kt^T chunks of knh [NC][kw] (f2, f3, f2b, f3b);
-    per (branch, slice, chunk of kc) [sw][kw] of kt[i] (f2b, f3b).  w1
-    (None for a forward), per chunk of nxr output channels: kr's chunks of
-    kc [nxr][kw] (f1b, f3b), then per (branch, chunk of khc, tap) [nxr][kw]
-    of kh[i, tap]."""
+def _wide_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
+    """The wide plan's phase-0 weights (``cam_tile.cuh:WStage0`` walks
+    them; F2, F1b, F2b), [n][k] with zeros padding n and k: per (branch,
+    slice, chunk of kc, tap) [sw][kw] of kh[i, tap]^T; per 1x1 chunk of
+    TILE_NC output channels its kr^T chunks [NC][kw] (f1b), then its kt^T
+    chunks of knh [NC][kw] (f2, f2b); per (branch, slice, chunk of kc)
+    [sw][kw] of kt[i] (f2b)."""
     res, top, bb = TILE_OPS[op]
     nb, _, _, c, hc = kh.shape
     nh = nb * hc
@@ -902,22 +1027,7 @@ def _wide_weights(op: str, p: Dict[str, int], kr, kh, kt):
         ktb = ktb.reshape(nb, nsl, sw, kc)
         w0.append(torch.cat([q.reshape(nb, nsl, -1)
                              for q in _k_split(ktb, kq)], 2).reshape(-1))
-    w0 = torch.cat(w0).contiguous()
-    if not op.endswith("b"):
-        return w0, None
-    nxr, nchx = p["nxr"], p["nchx"]
-    npad = nchx * nxr
-    parts = []
-    if res:
-        krn = F.pad(kr, (0, kc - c, 0, npad - c)).reshape(nchx, nxr, kc)
-        parts += [q.reshape(nchx, -1) for q in _k_split(krn, p["kq1r"])]
-    # (nb, 9, C, hc) -> (nchx, nb, 9, nxr, khc) -> per chunk of khc
-    kht = F.pad(kh.reshape(nb, 9, c, hc), (0, khc - hc, 0, npad - c))
-    kht = kht.reshape(nb, 9, nchx, nxr, khc).permute(2, 0, 1, 3, 4)
-    parts.append(torch.cat([q.reshape(nchx, nb, -1)
-                            for q in _k_split(kht, p["kq1c"])],
-                           2).reshape(nchx, -1))
-    return w0, torch.cat(parts, 1).reshape(-1).contiguous()
+    return torch.cat(w0).contiguous()
 
 
 def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
@@ -953,9 +1063,10 @@ def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
 
 def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
     """F1b (replaces ``pallas_cam.py:_f1b_call``): (dx, dkr, dkh).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
-    only for a largest dilation whose halo does not fit
-    (:func:`tile_plan`)."""
+    the card the tile kernels of ``csrc/cam_tile.cuh``, dx on
+    ``csrc/cam_wg.cuh``'s dx_wg_kernel where the wide plan would run it
+    (``tile_plan``'s "dx_wg"); ``ValueError`` only for a largest dilation
+    whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_bwd"):
         return cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils)
     x, kr, kh, dsr, dsh, dgap = _check(x, kr, kh, None, dils,
@@ -994,9 +1105,10 @@ def _f2b_launch(x, kh, kt, bnh, dst, dils):
 
 def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
     """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``; ``ValueError``
-    only for a largest dilation whose halo does not fit
-    (:func:`tile_plan`)."""
+    the card the tile kernels of ``csrc/cam_tile.cuh``, dx on
+    ``csrc/cam_wg.cuh``'s dx_wg_kernel where the wide plan would run it
+    (``tile_plan``'s "dx_wg"); ``ValueError`` only for a largest dilation
+    whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_bwd"):
         return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
     out, _ = _f2b_launch(x, kh, kt, bnh, dst, dils)
@@ -1036,13 +1148,13 @@ def _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
 def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
     """F3b (replaces ``pallas_cam.py:_f3b_call``): (dx, dkr, dkh, dkt,
     dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
-    the tile kernels of ``csrc/cam_tile.cuh``: at any C and branch width,
-    staging the halo at full channel depth where it and the weight stages
-    fit a block's shared memory (the train step's C = 163 with dilations
-    1-3 and C = 83 with 1-4 do), else in chunks of input channels (the
-    wide plan, :func:`tile_plan`); ``ValueError`` only for a largest
-    dilation whose halo does not fit even in 16-channel chunks (19 and
-    up)."""
+    the tile kernels of ``csrc/cam_tile.cuh`` where the halo at full
+    channel depth and the weight stages fit a block's shared memory (the
+    train step's C = 163 with dilations 1-3 and C = 83 with 1-4 do), else
+    (the wide plan, :func:`tile_plan`) ``csrc/cam_wg.cuh``'s
+    f3b_wg_kernel for phase 0 and dx_wg_kernel for dx; ``ValueError``
+    only for a largest dilation whose halo does not fit even in
+    16-channel chunks (19 and up)."""
     if not _dispatch(x, "cam_f3_bwd"):
         return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
     out, _ = _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)

@@ -68,8 +68,13 @@ redesign may change) within ``SUM_TOL`` of max |parent|, or a chain
 output within ``CHAIN_TOL`` of max |parent| (a redesign may reorder its
 sums), on a case that is not an exact-sum one; F1's and F3's outputs at
 the wider geometries (``REDESIGNED``: ``csrc/cam_wg.cuh`` reorders their
-products' sums) within ``REDESIGN_TOL`` there.  For the CAM ops the
-first line also says whether every per-pixel output and statistic is
+products' sums) within ``REDESIGN_TOL`` there, and the three backwards'
+there (``F64_HELD``) not against the parent but against float64: each
+tree's outputs through its own ``tools/cam_check.py`` (the CAM check's
+rule, its caps at the step CAM and the card tests' small caps on the
+width grid), the change showing no fault the parent does not.  For the
+CAM ops the first line also says whether every per-pixel output and
+statistic is
 ``torch.equal`` to the parent's (``cam_per_pixel_and_stats_equal``,
 leaving out those of ``REDESIGNED``, reported apart as
 ``redesigned_vs_parent``),
@@ -121,9 +126,18 @@ TIMED = ("steps", "pyramid_hi", "step128")
 # ops whose kernels at the wider geometries (the cases below whose names
 # start with "step128" or "wide") add their products in another order
 # than the parent's: a per-pixel bf16 output may round the other way
-# (F3's out: one bf16 step of an element near max |parent| is 2^-8)
-REDESIGNED = {"cam_f1_fwd", "cam_f3_fwd"}
+# (F3's out: one bf16 step of an element near max |parent| is 2^-8), a
+# backward's ReLU mask may flip where its recomputed conv rounds the
+# other way (F3b's phase 0 on f3b_wg_kernel; every dx on dx_wg_kernel)
+REDESIGNED = {"cam_f1_fwd", "cam_f3_fwd", "cam_f1_bwd", "cam_f2_bwd",
+              "cam_f3_bwd"}
 REDESIGN_TOL = 2.0 ** -6
+# ... of them the backwards, whose ReLU masks (F3b's recomputed convs) and
+# bf16 cotangents can flip where a product adds in another order: a flip
+# moves an output element by its whole size, so their random cases there
+# are held to the float64 check, each tree with its own masks, and their
+# difference of max |parent| is reported, not held
+F64_HELD = {"cam_f1_bwd", "cam_f2_bwd", "cam_f3_bwd"}
 # Exact-sum x and weights with random F1b cotangents dsr / dsh: the conv
 # outputs are exact, so dc = bf16(dsh[0] + 2 c dsh[1]) and dr are the
 # same in every tree and in a float64 reference; each tree's dkh and dkr
@@ -144,6 +158,10 @@ def kernel_part(name: str) -> str:
         return "dkh_wgrad"
     if "wgrad_kernel<7>" in name or "wgrad_plain_kernel" in name:
         return "wgrad_plain"
+    if "dx_kernel" in name or "dx_wg_kernel" in name:
+        return "dx"
+    if "f3b_wg_kernel" in name:
+        return "phase0"
     if "_wg_kernel" in name:
         return "forward"
     if "reduce_rows" in name:
@@ -162,8 +180,6 @@ def kernel_part(name: str) -> str:
         return "qconv"
     if "qfuse_kernel" in name:
         return "qfuse"
-    if "dx_kernel" in name:
-        return "dx"
     if any(k in name for k in ("f1b_", "f2b_", "f3b_")):
         return "phase0"
     if any(k in name for k in ("f1_tile", "f2_tile", "f3_tile", "f1_kernel",
@@ -618,8 +634,22 @@ def qconv_worker(qconv_inputs: str, outs: dict, times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def f64_faults(name: str, fn, args, case: str) -> list:
+    """The float64 check's faults (``tools/cam_check.py`` of the tree
+    that runs this) of op ``name`` on ``args``, by output: the CAM check's
+    caps at the step CAM, the card tests' small caps (one mask flip covers
+    more than 1e-4 of a small output) on the width grid."""
+    from rtpe_tpu_torch.tools import cam_check
+    caps = cam_check.CAPS if case == "step128" \
+        else dict(cam_check.CAPS, share=1.0)
+    got = cam_check.run_kernel(name, fn, args)
+    ctl, ev64 = cam_check.evaluations(name, args)
+    _, faults = cam_check.random_check(name, args, got, ctl, ev64, caps)
+    return sorted({f.split(":")[0] for f in faults})
+
+
 def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
-           qconv_inputs, save: str) -> None:
+           qconv_inputs, save: str, check: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from rtpe_tpu_torch.ops import cam
@@ -629,7 +659,7 @@ def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cases = torch.load(inputs) if inputs else []
-    outs, times = {}, {}
+    outs, times, checks = {}, {}, {}
     if chain_inputs:
         chain_worker(chain_inputs, outs, times)
     if group_inputs:
@@ -653,13 +683,18 @@ def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
             outs[op, case["name"]] = [v.cpu() for v in got]
+            if check and op in F64_HELD and case["name"].startswith(
+                    ("step128", "wide")):
+                checks[op, case["name"]] = f64_faults(op, fn, args,
+                                                      case["name"])
             if case["name"] in TIMED:
                 times[op, case["name"]] = {
                     "ms": device_ms(lambda: fn(*args)),
                     **breakdown(lambda: fn(*args))}
         del t
         torch.cuda.empty_cache()
-    torch.save({"outs": outs, "times": times, "file": cam.__file__}, save)
+    torch.save({"outs": outs, "times": times, "checks": checks,
+                "file": cam.__file__}, save)
 
 
 def wgrad_vs_f64(cam, t, dils) -> dict:
@@ -722,6 +757,7 @@ def main() -> None:
     ap.add_argument("--root")
     ap.add_argument("--inputs")
     ap.add_argument("--save")
+    ap.add_argument("--check", action="store_true")
     ap.add_argument("--chain-inputs")
     ap.add_argument("--group-inputs")
     ap.add_argument("--decode-inputs")
@@ -731,7 +767,7 @@ def main() -> None:
     a = ap.parse_args()
     if a.worker:
         worker(a.root, a.inputs, a.chain_inputs, a.group_inputs,
-               a.decode_inputs, a.qconv_inputs, a.save)
+               a.decode_inputs, a.qconv_inputs, a.save, a.check)
         return
     import torch
     os.makedirs(a.out, exist_ok=True)
@@ -763,7 +799,8 @@ def main() -> None:
         save = os.path.join(a.out, f"{k}_{label}.pt")
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--parent", a.parent, "--worker", "--root", root,
-                        *args, "--save", save], check=True)
+                        *args, "--save", save]
+                       + (["--check"] if k < 2 else []), check=True)
         runs.append(torch.load(save))
     par, new = runs[0], runs[1]
     report = {"files": [r["file"] for r in runs], "ops": {}}
@@ -793,10 +830,13 @@ def main() -> None:
         exact = "exact" in case
         redesigned = op in REDESIGNED and case.startswith(("step128",
                                                            "wide"))
+        held = redesigned and op in F64_HELD
         for n, v in cmp.items():
             if op in OPS and n not in WGRADS and v != "equal" \
                     and not redesigned:
                 per_pixel_equal = False
+            if held:
+                continue
             tol = CHAIN_TOL if op == "basicblock_chain" else (
                 SUM_TOL if n in SUMS | WGRADS else None)
             if redesigned:
@@ -810,6 +850,15 @@ def main() -> None:
         report["ops"].setdefault(op, {})[case] = {
             "vs_parent": cmp, "new_repeats": rep_new,
             "parent_repeats": rep_par}
+        if held:
+            f_new = runs[1]["checks"][op, case]
+            f_par = par.get("checks", {}).get((op, case), [])
+            report["ops"][op][case]["f64_faults"] = {"new": f_new,
+                                                     "parent": f_par}
+            extra = sorted(set(f_new) - set(f_par))
+            if extra:
+                bad.append(f"{op} {case}: float64 faults the parent does "
+                           f"not show: {extra}")
     report["times"] = {
         f"{op} {case}": {
             "ms": [r["times"][op, case]["ms"] for r in runs],

@@ -146,10 +146,13 @@ def test_f3b_shared_memory_fits(op, shape):
 
 def test_f3b_refuses_what_does_not_fit():
     """Six dilations up to 6 at C = 163, which F3b once refused (its
-    whole-depth halo alone is 147 KB): the wide plan takes them, in three
-    K chunks of x, within a block's shared memory."""
+    whole-depth halo alone is 147 KB, beside the whole-depth plan's
+    staged rows): the wide plan takes them, F3b's phase 0 on
+    ``cam_wg.cuh``'s f3b_wg_kernel with x's halo once a tile at full
+    depth (the mma.sync wide plan took three K chunks), within a block's
+    shared memory."""
     p = cam.tile_plan("f3b", 1, 32, 32, 163, (1, 2, 3, 4, 5, 6), 40)
-    assert p["ok"] and p["wide"] and p["nq"] == 3
+    assert p["ok"] and p["wide"] and p["wg"] and p["nq"] == 1
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
 
 

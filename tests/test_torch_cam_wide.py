@@ -9,13 +9,14 @@ student step at those widths against the JAX package.
   to 6 and 8, and the train step's two shapes.  ``tile_plan`` of all six
   ops fits a block's shared memory at each of them, keeps the
   whole-depth plan where it fits (the train step's shapes) and takes the
-  wide one elsewhere (F1 and F3 there the wgmma plan of
-  ``csrc/cam_wg.cuh``: whole branches of up to 128 columns; its own
-  tests are ``tests/test_torch_cam_wg.py``).
+  wide one elsewhere (F1, F3 and F3b's phase 0 there the wgmma plan of
+  ``csrc/cam_wg.cuh``: whole branches of up to 128 columns, and every
+  backward's phase 1 its ``dx_wg_kernel``; their own tests are
+  ``tests/test_torch_cam_wg.py`` and ``tests/test_torch_cam_wgb.py``).
 * The wide plan's re-laid weights (``ops/cam.py:_wide_weights``), stage
-  by stage as the kernels walk them (a model of ``cam_tile.cuh:WStage0``
-  and ``WStage1``), give back kr, kh and kt with zero padding, for the
-  four ops that run it.
+  by stage as the kernels walk them (a model of
+  ``cam_tile.cuh:WStage0``), give back kr, kh and kt with zero padding,
+  for the three ops whose phase 0 runs it.
 * ``fused_cam`` (the plain versions, on the CPU) against
   ``rtpe_tpu.ops.pallas_cam.fused_cam`` in interpret mode at two wide
   shapes, forward and gradients, with ``tests/test_torch_cam.py``'s
@@ -79,16 +80,17 @@ def test_tile_plan_fits_every_width(op, name):
     """Every op at every shape of the grid: a plan, within SMEM_MAX in
     both phases, whole-depth where that fits (one K chunk, one slice);
     otherwise the wide plan: slices of at most 40 columns covering hc
-    (F1's and F3's wgmma plan: of at most 128), chunks of at most the
-    widest that fits covering kc and knh (F1's wgmma plan reads no
-    a)."""
+    (F1's, F3's and F3b's wgmma plan: of at most 128), chunks of at most
+    the widest that fits covering kc and knh (F1's wgmma plan reads no
+    a), a backward's phase 1 on dx_wg_kernel."""
     b, h, w, c, dils, hc = shape = GRID[name]
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
     assert p["wide"] == (name not in WHOLE_DEPTH
                          and (op, name) not in WHOLE_DEPTH_OPS)
-    assert p["wg"] == (p["wide"] and op in ("f1", "f3"))
+    assert p["wg"] == (p["wide"] and op in ("f1", "f3", "f3b"))
+    assert p["dx_wg"] == (p["wide"] and op.endswith("b"))
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
     sw_max = 8 * max(cam.WG_NTB) if p["wg"] else cam.TILE_SW_MAX
     assert p["sw"] <= sw_max and p["sw"] % 8 == 0
@@ -140,26 +142,6 @@ def wide_stage0(p, nb, s, op):
             "bb", q * kq, isl // nsl, isl % nsl, None, None)
 
 
-def wide_stage1(p, nb, s, op):
-    """Phase-1 stage s of one chunk of nxr output channels
-    (``cam_tile.cuh:WStage1``): (offset in the chunk's w1, rows, k width,
-    kind, first k, branch, tap); kind "res" (dr's K chunks of kc, F1b and
-    F3b) or "br" (branch, K chunk of khc, tap)."""
-    kc, khc, nxr = p["kc"], p["khc"], p["nxr"]
-    res = cam.TILE_OPS[op][0]
-    if s < p["nq1r"]:
-        kw = min(p["kq1r"], kc - s * p["kq1r"])
-        return s * nxr * p["kq1r"], nxr, kw, "res", s * p["kq1r"], None, None
-    u = s - p["nq1r"]
-    tap, v = u % 9, u // 9
-    q, i = v % p["nq1c"], v // p["nq1c"]
-    kq = p["kq1c"]
-    kw = min(kq, khc - q * kq)
-    off = res * nxr * kc + 9 * i * nxr * khc + 9 * q * nxr * kq \
-        + tap * nxr * kw
-    return off, nxr, kw, "br", q * kq, i, tap
-
-
 # the wide grid's weight shapes (the layout depends on C, the
 # dilations' count and largest one, and hc), and two with narrow K
 # chunks forced by a wide dilation (several chunks of x, two slices)
@@ -178,9 +160,10 @@ def _weights(c, nb, hc, seed):
     return draw(c, c), draw(nb, 3, 3, c, hc), draw(nb, hc, c)
 
 
-# F1 and F3 run cam_wg.cuh's kernels where the wide plan would run them;
-# their re-laid weights are tests/test_torch_cam_wg.py's
-WIDE_OPS = ("f3b", "f1b", "f2b", "f2")
+# F1, F3 and F3b's phase 0 run cam_wg.cuh's kernels where the wide plan
+# would run them, and so does every backward's phase 1: their re-laid
+# weights are tests/test_torch_cam_wg.py's and test_torch_cam_wgb.py's
+WIDE_OPS = ("f1b", "f2b", "f2")
 
 
 @pytest.mark.parametrize("op,name", [
@@ -227,21 +210,7 @@ def test_wide_weights_unpad_to_the_inputs(op, name):
     if not op.endswith("b"):
         assert w1 is None and p["w1_elems"] == 0
         return
-    assert w1.numel() == p["w1_elems"]
-    nxr = p["nxr"]
-    per = w1.numel() // p["nchx"]
-    for chx in range(p["nchx"]):
-        n0 = chx * nxr
-        for s in range(p["nst1"]):
-            off, rows, kw, kind, k0, i, tap = wide_stage1(p, nb, s, op)
-            block = w1[chx * per + off:chx * per + off + rows * kw]
-            block = block.reshape(rows, kw)
-            if kind == "res":
-                check(block, kr[n0:n0 + nxr, k0:k0 + kw])
-            else:
-                check(block, kh[i, tap // 3, tap % 3, n0:n0 + nxr,
-                                k0:k0 + kw])
-        assert off + rows * kw == per
+    assert w1.numel() == p["w1_elems"]       # dx_wg_kernel's layout
 
 
 # ------------------------------------------------------------ fused_cam
