@@ -103,9 +103,9 @@ Phases, each of which fails the run:
     the same two checks at the width grid (``WIDE_CAMS``: the student's
     CAMs at ``--inplanes`` 96, 128 and 256 and six dilations up to 6 and
     8 at C = 163, B = 2, 21 x 19, on the kernels' wide plan: K-chunked
-    halos and stages, branches in slices of at most 40 columns; F1 and
-    F3 there on the wgmma kernels of ``csrc/cam_wg.cuh``, whole branches
-    of up to 128 columns);
+    halos and stages, branches in slices of at most 40 columns; F1, F3
+    and the three backwards there on the wgmma kernels of
+    ``csrc/cam_wg.cuh``, whole branches of up to 128 columns);
     then the backwards' weight-gradient kernels alone (``cam.cam_wgrad``:
     dkh at each dilation, dkr, dkt) against a float64 product of the
     same bf16 operands at both train shapes, the ragged shape and C = 12
@@ -124,8 +124,9 @@ Phases, each of which fails the run:
     within 1e-3 of each other; step times, peak memory and a
     ``torch.profiler`` view of one fused step; then the same fused and
     cuDNN pair at ``--inplanes 128`` (its step CAMs, C = 259, hc = 64,
-    on the wide plan; F1 and F3 on ``cam_wg.cuh``'s kernels): launches,
-    losses within 1e-3, ms, img/s, peak GB;
+    where the wide plan would run: F2 on it, the other five ops on
+    ``cam_wg.cuh``'s kernels): launches, losses within 1e-3, ms, img/s,
+    peak GB;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
     CAM's train-mode forward (or forward + backward) at both shapes and
     at ``--inplanes 128``'s step CAM (``at_step128``), and
@@ -135,9 +136,9 @@ Phases, each of which fails the run:
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper), each
     kernel under its own name (``tile_parts``: the whole-depth plan's
     ``<op>_tile_kernel`` and ``dx_kernel``, at ``at_step128`` the
-    wide plan's ``<op>_tile_kernel<true>`` (F2, F1b's and F2b's phase
-    0), F1's, F3's and F3b's ``f1_wg_kernel`` / ``f3_wg_kernel`` /
-    ``f3b_wg_kernel`` and the backwards' ``dx_wg_kernel``).
+    wide plan's ``f2_tile_kernel<true>``, ``f1_wg_kernel`` /
+    ``f3_wg_kernel``, the backwards' phase 0 ``f1b_wg_kernel`` /
+    ``f2b_wg_kernel`` / ``f3b_wg_kernel`` and their ``dx_wg_kernel``).
 
 20. flip and multi-scale (0.5, 1, 2) TTA at full W48 width on 640 x 640
     images: the grouping self-checks at D=2 (the solver ``lap="auto"``
@@ -287,7 +288,8 @@ Phases, each of which fails the run:
 Phases 12-19 run among the others: 12 after 6, 13 and 14 after 8, 15
 after 10, 16 with 11, and 17-19 after 15; 20-28 run last (24's
 validation inside 21's fixture, 26 and 27's trainer inside 25's, 28's
-children on 21's fixture).
+children on 21's fixture).  Each group's seconds are printed as it ends
+(``chip_smoke: phase <name> <s> s``) and kept under ``phase_s``.
 
 Output: the ``nvidia-smi`` line, the CLIs' stats lines, then one JSON
 line ``{"kernels": ...}``, one JSON line of end-to-end, train-step, TTA,
@@ -369,12 +371,12 @@ TILE_OPS = {"cam_f1_fwd": ("f1", None), "cam_f2_fwd": ("f2", None),
 def tile_parts(name: str, wide: bool) -> tuple:
     """The kernels of tiled op ``name`` by the names the profiler gives
     them, those of the whole-depth plan or (``wide``) of the wide plan:
-    ``<op>_tile_kernel<false|true>`` (F1's, F3's and F3b's
-    ``<op>_tile_kernel``, and where the wide plan would run them
-    ``<op>_wg_kernel``), ``dx_kernel`` or ``dx_wg_kernel`` (each matched
+    F2's ``f2_tile_kernel<false|true>``, every other op's
+    ``<op>_tile_kernel`` and where the wide plan would run it
+    ``<op>_wg_kernel``, ``dx_kernel`` or ``dx_wg_kernel`` (each matched
     after its namespace's ``::``; ``dx_wg_kernel<ntw, dr, gap>``)."""
     op, dx = TILE_OPS[name]
-    if op in ("f1", "f3", "f3b"):
+    if op != "f2":
         parts = (f"::{op}_{'wg' if wide else 'tile'}_kernel",)
     else:
         parts = (f"::{op}_tile_kernel<{'true' if wide else 'false'}>",)
@@ -617,7 +619,13 @@ def phase_build(build) -> dict:
             print(f"  {name}: {kern}: {r.get('registers')} registers, "
                   f"spills {r.get('spill_stores')} / {r.get('spill_loads')} "
                   f"bytes, stack {r.get('stack')}, smem {r.get('smem', 0)}")
-    return {"seconds": secs, "ptxas": report}
+    # ptxas's C7520 warning: wgmmas it serialised (none expected)
+    serial = [ln.strip() for log in logs.values() for ln in log.splitlines()
+              if "wgmma" in ln and "serializ" in ln]
+    print(f"build: {len(serial)} serialised-wgmma warnings", flush=True)
+    for ln in serial:
+        print(f"  {ln}", flush=True)
+    return {"seconds": secs, "ptxas": report, "wgmma_serialized": serial}
 
 
 def phase_nms(nms_mod, dev) -> dict:
@@ -1050,13 +1058,11 @@ def lockstep_times(grp_mod, b: int, dev, step_ns: float) -> dict:
 
 def lap_steps(lap_mod, cost) -> int:
     """Dijkstra steps of the plain LAP on the image of ``cost`` (B, n, m)
-    that needs the most."""
-    most = 0
-    for i in range(cost.shape[0]):
-        lap_mod.lap_columns.passes = 0
-        lap_mod.lap_rect_plain(cost[i:i + 1])
-        most = max(most, lap_mod.lap_columns.passes)
-    return most
+    that needs the most, from one batched solve (its images run in
+    lockstep, each counted apart: ``lap_columns.image_passes``)."""
+    lap_mod.lap_columns.image_passes = None
+    lap_mod.lap_rect_plain(cost)
+    return int(lap_mod.lap_columns.image_passes.max())
 
 
 def lap_times(lap_mod, costs, b: int, step_ns: float) -> dict:
@@ -1067,10 +1073,8 @@ def lap_times(lap_mod, costs, b: int, step_ns: float) -> dict:
     _, n, m = costs[0].shape
     per = len(costs)
     lap_mod.lap_columns.passes = 0
-    for c in costs:
-        lap_mod.lap_rect_plain(c)
-    passes = lap_mod.lap_columns.passes
     steps = sum(lap_steps(lap_mod, c) for c in costs)
+    passes = lap_mod.lap_columns.passes
     # each Dijkstra step touches the m + 1 columns: ~10 float ops each
     # (two subtractions, compare, two selects, masked min, three
     # potential updates); the bytes are the matrices in, columns out
@@ -1097,6 +1101,7 @@ def mega_times(mega_mod, lap_mod, topk, solver: str, b: int,
     m, p_max = 30, 90
     kw = dict(max_num_people=m, p_max=p_max, solver=solver)
     lap_mod.lap_columns.passes = 0
+    lap_mod.lap_columns.image_passes = None
     plain_ms = host_ms(lambda: mega_mod.match_by_tag_kernel_plain(
         tag_k, loc_k, val_k, **kw), 1, warmup=0)
     # per image and joint: the cost build over K x 2m cells (~12 ops:
@@ -1114,13 +1119,10 @@ def mega_times(mega_mod, lap_mod, topk, solver: str, b: int,
     if solver == "greedy":
         steps = greedy_steps(val_k)
     else:
-        steps = 0
-        for i in range(b):
-            lap_mod.lap_columns.passes = 0
-            mega_mod.match_by_tag_kernel_plain(
-                tag_k[i:i + 1], loc_k[i:i + 1], val_k[i:i + 1], **kw)
-            steps = max(steps, lap_mod.lap_columns.passes
-                        + int((val_k[i] > 0.1).sum()))
+        # each image's Dijkstra steps over its joints, from the one timed
+        # batched solve (``lap_columns.image_passes``)
+        steps = int((lap_mod.lap_columns.image_passes
+                     + (val_k > 0.1).flatten(1).sum(1)).max())
     return {"ms": device_ms(lambda: mega_mod.match_by_tag_kernel(
                 tag_k, loc_k, val_k, **kw), 20),
             "plain_ms": plain_ms, "library_ms": None,
@@ -5135,8 +5137,22 @@ def phase_last_modules(mods, model, state, data, pics, pk, scales, fwd_ms,
     return out
 
 
+class Laps:
+    """The seconds of each group of phases, printed as each ends."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = now - self.t
+        self.t = now
+        print(f"chip_smoke: phase {name} {self.s[name]:.1f} s", flush=True)
+
+
 def main() -> None:
     t_run = time.perf_counter()
+    lap = Laps()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
@@ -5191,6 +5207,7 @@ def main() -> None:
     torch.cuda.set_device(dev)
     card = phase_card()
     build = phase_build(_build)
+    lap("1-2 build")
     probe = phase_step_probe(_build, dev)
     errs = {"nms_topk": phase_nms(nms_mod, dev)["max_abs_err"],
             "group_lockstep": phase_lockstep(grp_mod, dev)["max_abs_err"],
@@ -5198,10 +5215,12 @@ def main() -> None:
             "group_mega": phase_mega(mega_mod, grp_mod, dev)["max_abs_err"]}
     phase_nan_tags(grp_mod, mega_mod, dev)
     phase_selfcheck(fused, dev)
+    lap("2-7,12 decode kernels")
     state = phase_forward(hrnet, set_tf32, dev)
     chain_errs = phase_chain(blk_mod, set_tf32, dev)
     packed_info, pk = phase_packed_forward(hrnet, packed_mod, blk_mod, state,
                                            dev)
+    lap("8,13-14 forwards")
     counters = (nms_mod.nms_topk, grp_mod.match_by_tag_lockstep,
                 mega_mod.match_by_tag_kernel, lap_mod.lap_rect,
                 blk_mod.basicblock_chain, quant_mod.qconv,
@@ -5217,17 +5236,22 @@ def main() -> None:
                                  probe["ns_per_step"])
     kernels += new_kernel_rows(mega_mod, lap_mod, path_launches, heatmaps,
                                costs, errs, top_k, probe["ns_per_step"])
+    lap("9-11 main path")
     pred_p, packed_launches, by_shape, served = phase_packed_path(
         PosePredictor, hrnet, packed_mod, state, counters, dev)
     kernels += chain_rows(blk_mod, by_shape, chain_errs, build["ptxas"], dev)
+    lap("15-16 packed path")
     cam_errs = phase_cam(cam_mod, cam_check, set_tf32, dev)
+    lap("17 cam check")
     train = phase_train((factory_mod, students_mod), train_mod, cam_mod,
                         state, dev)
+    lap("18 train step")
     kernels += cam_kernel_rows(cam_mod, students_mod, cam_errs["max_abs_err"],
                                train["fused"]["launches"], dev,
                                cam_errs["wgrad"],
                                train["fused"]["wgrad_launches"],
                                train["inplanes"]["fused"]["launches"])
+    lap("19 cam times")
     paths_ms = decode_path_times(pred.parser, fused, heatmaps)
     fwd_ms = forward_times(packed_mod, pred.model, pk, dev)
     e2e = phase_end_to_end(pred)
@@ -5236,9 +5260,11 @@ def main() -> None:
     prof_packed = phase_profile(pred_p)
     del pred, pred_p
     torch.cuda.empty_cache()
+    lap("11,16 serving times")
     tta = phase_tta((PosePredictor, hrnet, tta_mod, fused, decode_full_batch,
                      top_k, grp_mod, nms_mod, resize_mod.resize_bilinear,
                      set_tf32), state, counters, dev, probe["ns_per_step"])
+    lap("20 tta")
     data, pics = coco_fixture(rle_mod.rle_encode,
                               np.random.default_rng(SEED + 10))
     model = hrnet.PoseHigherHRNet(hrnet.w48_config())
@@ -5259,6 +5285,7 @@ def main() -> None:
     frames = [(pics[i] * 255.0).astype(np.uint8) for i in sorted(pics)]
     stream = phase_stream((rt_mod, PosePredictor, hrnet), state, frames,
                           counters, card, dev)
+    lap("21-23 clis")
     # phase 24: int8 serving
     w48 = hrnet.w48_config()
     t0 = time.perf_counter()
@@ -5303,6 +5330,7 @@ def main() -> None:
             "stream": stream_int8, "forward_ms": times8["forward"],
             "nonport_kernels": times8["nonport"],
             "predict_batch_8": e2e_int8}
+    lap("24 int8")
     # phase 25: the distillation trainer on the pipeline
     with tempfile.TemporaryDirectory() as root:
         tdata = phase_trainer_data(
@@ -5316,6 +5344,7 @@ def main() -> None:
             train["fused"]["img_per_s"], card, dev)
         trainer = {"corpus_s": tdata["corpus_s"], "pipeline": pipeline,
                    **trainer}
+        lap("25 trainer")
         # phase 26: the native helpers and the legacy students
         torch.cuda.empty_cache()
         t26 = time.perf_counter()
@@ -5329,6 +5358,7 @@ def main() -> None:
             (factory_mod, train_mod, pipe_mod), tdata, dev)
         legacy["visualize_stem"] = phase_visualize_stem(vis_mod, tdata, dev)
         legacy["phase_s"] = time.perf_counter() - t26
+        lap("26 legacy")
         # phase 27: parallelism (the data-parallel trainer in phase 25's
         # fixture, then the serving meshes)
         torch.cuda.empty_cache()
@@ -5343,6 +5373,7 @@ def main() -> None:
     parallel["data_mesh"] = phase_data_mesh(
         (PosePredictor, hrnet, mesh_mod), state, counters, card, dev)
     parallel["phase_s"] = time.perf_counter() - t27
+    lap("27 parallel")
     # phase 28: the runbook, profiling and NaN debugging
     torch.cuda.empty_cache()
     last = phase_last_modules(
@@ -5350,10 +5381,12 @@ def main() -> None:
          packed_mod, blk_mod, cam_mod, nms_mod, decode_full_batch,
          resize_mod), model, state, data, pics, pk, scales, fwd_ms, counters,
         card, dev)
+    lap("28 last modules")
     last["run_s"] = time.perf_counter() - t_run
     print(f"chip_smoke: phases 1-28 in {last['run_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"card": card, "build_s": build["seconds"],
+                      "phase_s": lap.s,
                       "ptxas": build["ptxas"], "warp_step_probe": probe,
                       "main_path_launches": launches,
                       "other_path_launches": path_launches,

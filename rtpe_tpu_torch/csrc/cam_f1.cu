@@ -15,9 +15,10 @@
 // bf16 HWIO (the JAX layout).  Both (2-D tiles, one halo per tile, 16-byte
 // async copies; cam_tile.cuh) read x padded to kc channels and the
 // weights re-laid by ops/cam.py:_tile_weights, the same w0 for both.
-// Where make_tgeo takes the wide plan, F1 runs f1_wg_kernel (cam_wg.cuh:
-// wgmma, whole branches) on its own layout (_wg_weights), and F1b's phase
-// 1 dx_wg_kernel (_dx_weights).
+// Where make_tgeo takes the wide plan, F1 runs f1_wg_kernel and F1b's
+// phase 0 f1b_wg_kernel (cam_wg.cuh: wgmma, whole branches, F1's products
+// in F1's order) on their own layout (_wg_weights), and F1b's phase 1
+// dx_wg_kernel (_dx_weights).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F1 does C^2 + 9 nb C hc = 202.6 K multiply-adds a pixel,
@@ -98,9 +99,8 @@ f1_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 
 // Phase 0 of F1b on one 8 x 8 tile: dc (M, nb khc) and dr (M, kc) in
 // bf16 with zero padding columns, dc_i = bf16(dsh[2i] + 2 c_i dsh[2i+1]),
-// dr = bf16(dsr[0] + 2 bf16(x . kr) dsr[1]).  No per-tile sums.  WIDE:
-// the wide plan, dsr and dsh read from global memory.
-template <bool WIDE>
+// dr = bf16(dsr[0] + 2 bf16(x . kr) dsr[1]).  No per-tile sums.  Where
+// make_tgeo takes the wide plan, f1b_wg_kernel (cam_wg.cuh) runs instead.
 __global__ void __launch_bounds__(TT, 1)
 f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const bf16 *__restrict__ w0, const float *__restrict__ dsr,
@@ -114,29 +114,13 @@ f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sDr = reinterpret_cast<float *>(sW + NBUF * wbuf);
   float *sDh = sDr + 2 * C;
   const Lane L = lane_of(t);
-  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
-  auto ring = [&]() {
-    if constexpr (WIDE) {
-      bf16 *wH;
-      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, nullptr, nullptr}, w0, wW,
-                            wH, t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
-    } else {
-      return Ring{w0, sW, wbuf, L.lane, 0};
-    }
-  }();
+  const uint32_t aH = halo_row(sH, xp, t, L);
+  Ring ring{w0, sW, wbuf, L.lane, 0};
 
-  const float *rDr = dsr, *rDh = dsh;
-  if constexpr (WIDE) {
-    ring.start();
-  } else {
-    stage_halo(sH, xpad, g.kc, g, t, L.pos);
-    ring.start(g, t);
-    for (int i = threadIdx.x; i < 2 * C; i += TT) sDr[i] = dsr[i];
-    for (int i = threadIdx.x; i < 2 * g.NH; i += TT) sDh[i] = dsh[i];
-    rDr = sDr;
-    rDh = sDh;
-  }
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 2 * C; i += TT) sDr[i] = dsr[i];
+  for (int i = threadIdx.x; i < 2 * g.NH; i += TT) sDh[i] = dsh[i];
 
   constexpr int GB = (NTB + 1) / 2;
   auto epi_h = [&](const Slice &sl, const Split &sb,
@@ -152,8 +136,8 @@ f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
         const int col = sl.s0 + n;
         const float cb = bfr(acc[j][e]);
         const float dc = __fadd_rn(
-            rDh[2 * i * g.hc + col],
-            __fmul_rn(__fmul_rn(2.0f, cb), rDh[(2 * i + 1) * g.hc + col]));
+            sDh[2 * i * g.hc + col],
+            __fmul_rn(__fmul_rn(2.0f, cb), sDh[(2 * i + 1) * g.hc + col]));
         dc_out[p * t.ldc + i * g.khc + col] = f2bf(dc);
       }
   };
@@ -169,16 +153,11 @@ f1b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
         if (p < 0 || c >= C || j >= sc.cnt) continue;
         const float rb = bfr(acr[j][e]);
         dr_out[p * g.kc + c] = f2bf(
-            __fadd_rn(rDr[c], __fmul_rn(__fmul_rn(2.0f, rb), rDr[C + c])));
+            __fadd_rn(sDr[c], __fmul_rn(__fmul_rn(2.0f, rb), sDr[C + c])));
       }
   };
-  if constexpr (WIDE) {
-    wbranch_convs(g, t, ring, L, epi_h);
-    wconv1x1_chunks<true, false>(g, t, ring, L, epi_r);
-  } else {
-    branch_convs(g, t, ring, aH, L, epi_h);
-    conv1x1_chunks<true, false>(g, t, ring, aH, 0, L, epi_r);
-  }
+  branch_convs(g, t, ring, aH, L, epi_h);
+  conv1x1_chunks<true, false>(g, t, ring, aH, 0, L, epi_r);
   zero_pad_cols(dr_out, g.kc, 1, g.kc, C, g, L.pos);
   zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
 }
@@ -283,8 +262,8 @@ extern "C" long long cam_f1b_plan(const int *geo, int what) {
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
-// re-laid by ops/cam.py:_tile_weights("f1b", ...) (w1 by _dx_weights on
-// the wide plan).  dx (B, H, W, C) bf16, dkr (C, C) f32, dkh
+// re-laid by ops/cam.py:_tile_weights("f1b", ...) (_wg_weights and
+// _dx_weights on the wide plan).  dx (B, H, W, C) bf16, dkr (C, C) f32, dkh
 // (nb, 3, 3, C, hc) f32.
 extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
                               const void *w0, const void *w1,
@@ -302,10 +281,16 @@ extern "C" int cam_f1b_launch(const int *geo, const void *xpad,
   const auto *xx = static_cast<const bf16 *>(xpad);
   const F1bWs w = carve_f1b(g, t, ws, xx, &bytes);
   if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
-  CAM_TRY(CAM_TILE_LAUNCH(tile::f1b_tile_kernel, g, t, st, xx,
-                          static_cast<const bf16 *>(w0),
-                          static_cast<const float *>(dsr),
-                          static_cast<const float *>(dsh), w.dr, w.dc));
+  const auto *w_ = static_cast<const bf16 *>(w0);
+  const auto *r = static_cast<const float *>(dsr);
+  const auto *h = static_cast<const float *>(dsh);
+  if (t.wide)
+    CAM_TRY(CAM_WG_LAUNCH(tile::f1b_wg_kernel, g, t, P, st, xx, w_, r, h,
+                          w.dr, w.dc));
+  else
+    CAM_TRY(tile::launch(tile::f1b_tile_kernel, dim3(t.n_tiles),
+                         tile::smem0_bytes(g, t), st, g, t, xx, w_, r, h,
+                         w.dr, w.dc));
   CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));
   CAM_TRY(wgrad(w.pr, w.part_r, static_cast<float *>(dkr), st));
   const float inv_n = static_cast<float>(1.0 / g.HW);

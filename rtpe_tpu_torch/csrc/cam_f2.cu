@@ -14,13 +14,15 @@
 // tiles, one halo per tile, 16-byte async copies; cam_tile.cuh) read x
 // padded to kc channels and the weights re-laid by
 // ops/cam.py:_tile_weights; F2's w0 is the prefix of F2b's before its
-// kt[i] stages; where make_tgeo takes the wide plan, F2b's phase 1 runs
-// cam_wg.cuh's dx_wg_kernel (_dx_weights).  F2 is F2b's phase 0 without
-// the branch backward: the branch convs into sA (shared memory only), the
-// kt^T chunks, and an epilogue that rounds t to bf16 and sums t and t^2
-// per column over the tile's pixels in the image, through a spent ring
-// buffer (cam_tile.cuh:ring_colsums); the per-tile rows are summed in tile
-// order (reduce_rows), no float atomics.
+// kt[i] stages; where make_tgeo takes the wide plan, F2 runs
+// cam_tile.cuh's wide plan, F2b's phase 0 cam_wg.cuh's f2b_wg_kernel
+// (wgmma, whole branches: F3b's body without x kr^T, its own layout,
+// _wg_weights) and its phase 1 dx_wg_kernel (_dx_weights).  F2 is F2b's
+// phase 0 without the branch backward: the branch convs into sA (shared
+// memory only), the kt^T chunks, and an epilogue that rounds t to bf16
+// and sums t and t^2 per column over the tile's pixels in the image,
+// through a spent ring buffer (cam_tile.cuh:ring_colsums); the per-tile
+// rows are summed in tile order (reduce_rows), no float atomics.
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F2 does 9 nb C hc + nb hc C = 195.6 K multiply-adds a
@@ -56,7 +58,7 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
     if constexpr (WIDE) {
       bf16 *wH;
       bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, a, nullptr}, w0, wW, wH,
+      return WRing<WStage0>{WStage0{g, t, xpad, a}, w0, wW, wH,
                             t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
     } else {
       return Ring{w0, sW, wbuf, L.lane, 0};
@@ -91,7 +93,7 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   if constexpr (WIDE) {
     wbranch_convs(g, t, ring, L,
                   ToActivations<false, true>{g, L, bnh, nullptr, nullptr, a});
-    wconv1x1_chunks<false, true>(g, t, ring, L, epi_t);
+    wconv1x1_chunks(g, t, ring, L, epi_t);
   } else {
     branch_convs(g, t, ring, aH, L,
                  ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
@@ -102,16 +104,14 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
 
 // Phase 0 of F2b on one 8 x 8 tile: a (M, knh), dt (M, kc) and dc
 // (M, nb khc, zero padding columns) in bf16, dt = bf16(dst[0] + 2 t
-// dst[1]); per-tile partial row dS_h (2 NH).  WIDE: the wide plan, a and
-// dt read back from a_out and dt_out (their K padding zeroed), c through
-// cb (pitch knh, by pixel), dst and bnh read from global memory.
-template <bool WIDE>
+// dst[1]); per-tile partial row dS_h (2 NH).  Where make_tgeo takes the
+// wide plan, f2b_wg_kernel (cam_wg.cuh) runs instead.
 __global__ void __launch_bounds__(TT, 1)
 f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                 const bf16 *__restrict__ w0, const float *__restrict__ bnh,
                 const float *__restrict__ dst, bf16 *__restrict__ a_out,
                 bf16 *__restrict__ dt_out, bf16 *__restrict__ dc_out,
-                float *__restrict__ part, bf16 *__restrict__ cb) {
+                float *__restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -124,33 +124,15 @@ f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   float *sDt = red + NWARPS * NRED * NC;    // dst rows, then bnh
   float *sBh = sDt + 2 * C;
   const Lane L = lane_of(t);
-  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  const uint32_t aH = halo_row(sH, xp, t, L);
   float *prow_h = part + static_cast<int64_t>(blockIdx.x) * 2 * g.NH;
-  auto ring = [&]() {
-    if constexpr (WIDE) {
-      bf16 *wH;
-      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, a_out, dt_out}, w0, wW, wH,
-                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
-    } else {
-      return Ring{w0, sW, wbuf, L.lane, 0};
-    }
-  }();
+  Ring ring{w0, sW, wbuf, L.lane, 0};
 
-  const float *rDt = dst;
-  if constexpr (WIDE) {
-    red = reinterpret_cast<float *>(ring.end());
-    zero_pad_cols(a_out, g.knh, 1, g.knh, g.NH, g, L.pos);
-    zero_pad_cols(dt_out, g.kc, 1, g.kc, C, g, L.pos);
-    ring.start();
-  } else {
-    stage_halo(sH, xpad, g.kc, g, t, L.pos);
-    ring.start(g, t);
-    for (int i = threadIdx.x; i < 2 * C; i += TT) sDt[i] = dst[i];
-    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-    zero_top_pads(g, sA, sD);
-    rDt = sDt;
-  }
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 2 * C; i += TT) sDt[i] = dst[i];
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, sD);
 
   constexpr int GC = (NTC + 1) / 2;
   auto epi_t = [&](int n0, const Split &sc, float (&)[GC][4],
@@ -167,25 +149,18 @@ f2b_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
         if (p >= 0) {
           const float tb = bfr(at[j][e]);
           dtb = f2bf(__fadd_rn(
-              rDt[c], __fmul_rn(__fmul_rn(2.0f, tb), rDt[C + c])));
+              sDt[c], __fmul_rn(__fmul_rn(2.0f, tb), sDt[C + c])));
           dt_out[p * g.kc + c] = dtb;
         }
-        if (!WIDE) sD[r * xp + c] = dtb;
+        sD[r * xp + c] = dtb;
       }
   };
-  if constexpr (WIDE) {
-    wbranch_convs(g, t, ring, L,
-                  ToActivations<true, true>{g, L, bnh, cb, nullptr, a_out});
-    wconv1x1_chunks<false, true>(g, t, ring, L, epi_t);
-    wbranch_backward(g, t, ring, cb, bnh, red, L, dc_out, prow_h);
-  } else {
-    branch_convs(g, t, ring, aH, L,
-                 ToActivations<true>{g, L, sBh, sCb, sA, a_out});
-    conv1x1_chunks<false, true>(g, t, ring, 0, tile_row(sA, g.nhp, L), L,
-                                epi_t);
-    branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L,
-                    dc_out, prow_h);
-  }
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<true>{g, L, sBh, sCb, sA, a_out});
+  conv1x1_chunks<false, true>(g, t, ring, 0, tile_row(sA, g.nhp, L), L,
+                              epi_t);
+  branch_backward(g, t, ring, tile_row(sD, xp, L), sCb, sBh, red, L,
+                  dc_out, prow_h);
   zero_pad_cols(dc_out, t.ldc, g.nb, g.khc, g.hc, g, L.pos);
 }
 
@@ -204,8 +179,8 @@ struct F2bWs {
 
 // dc (M, nb khc) keeps the zero padding the tile kernels stage; a
 // (M, knh) and dt (M, kc) have 16-byte rows (their padding columns are
-// written only by the wide plan, which reads them back: only outputs
-// k < NH, n < C of the weight gradients are kept); the wide plan's c
+// written only by f2b_wg_kernel, which reads them back: only outputs
+// k < NH, n < C of the weight gradients are kept); f2b_wg_kernel's c
 // (M, knh) last.  xpad may be null for sizing.
 F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
                 const bf16 *xpad, int64_t *bytes) {
@@ -293,8 +268,8 @@ extern "C" long long cam_f2b_plan(const int *geo, int what) {
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0, w1 the weights
-// re-laid by ops/cam.py:_tile_weights("f2b", ...) (w1 by _dx_weights on
-// the wide plan).  dx (B, H, W, C) bf16,
+// re-laid by ops/cam.py:_tile_weights("f2b", ...) (_wg_weights and
+// _dx_weights on the wide plan).  dx (B, H, W, C) bf16,
 // dkh (nb, 3, 3, C, hc), dkt (nb, hc, C) and dS (2 nb, hc) f32.
 extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
                               const void *w0, const void *w1,
@@ -312,11 +287,16 @@ extern "C" int cam_f2b_launch(const int *geo, const void *xpad,
   const auto *xx = static_cast<const bf16 *>(xpad);
   const F2bWs w = carve_f2b(g, t, ws, xx, &bytes);
   if (!w.ok) return static_cast<int>(cudaErrorInvalidValue);
-  CAM_TRY(CAM_TILE_LAUNCH(tile::f2b_tile_kernel, g, t, st, xx,
-                          static_cast<const bf16 *>(w0),
-                          static_cast<const float *>(bnh),
-                          static_cast<const float *>(dst), w.a, w.dt, w.dc,
-                          w.part, w.cb));
+  const auto *w_ = static_cast<const bf16 *>(w0);
+  const auto *h = static_cast<const float *>(bnh);
+  const auto *d = static_cast<const float *>(dst);
+  if (t.wide)
+    CAM_TRY(CAM_WG_LAUNCH(tile::f2b_wg_kernel, g, t, P, st, xx, w_, h, d,
+                          w.a, w.dt, w.dc, w.part, w.cb));
+  else
+    CAM_TRY(tile::launch(tile::f2b_tile_kernel, dim3(t.n_tiles),
+                         tile::smem0_bytes(g, t), st, g, t, xx, w_, h, d,
+                         w.a, w.dt, w.dc, w.part));
   CAM_TRY(reduce_rows(w.part, 2 * g.NH, 0, 2 * g.NH, t.n_tiles, 1,
                       static_cast<float *>(dS), 0, st));
   CAM_TRY(wgrad(w.ph, w.part_h, static_cast<float *>(dkh), st));

@@ -1,7 +1,7 @@
 // The 2-D tile kernels of the fused-CAM ops: the three backwards F1b, F2b
 // and F3b and the three forwards F1, F2 and F3, CUDA C++ for sm_90a;
-// cam_f1.cu, cam_f2.cu and cam_f3.cu include this header (cam_f1.cu and
-// cam_f3.cu through cam_wg.cuh).
+// cam_f1.cu, cam_f2.cu and cam_f3.cu include this header through
+// cam_wg.cuh.
 //
 // Replaces, with those files, the TPU kernels _f1_call / _f1_kernel,
 // _f2_call / _f2_kernel, _f3_call / _f3_kernel, _f1b_call / _f1b_kernel,
@@ -15,12 +15,10 @@
 // width and 1..6 dilations: where a branch has at most 40 columns and the
 // tile's halo at full channel depth fits a block's shared memory (the
 // train step's CAMs at the default --inplanes 80) the kernels below run
-// as described here; elsewhere F2, F1b's and F2b's phase 0 run their wide
-// plan ("wide plan" below: K-chunked halos and stages, branches in
-// slices), and F1, F3, F3b's phase 0 and every backward's phase 1 the
-// wgmma kernels of cam_wg.cuh.  Every op refuses only a largest dilation
-// whose halo of one 16-channel chunk does not fit the wide plan (19 and
-// up at C = 163).
+// as described here; elsewhere F2 runs its wide plan ("wide plan" below:
+// K-chunked halos and stages, branches in slices), and F1, F3 and both
+// phases of every backward the wgmma kernels of cam_wg.cuh.  Every op refuses only a largest dilation whose halo of one
+// 16-channel chunk does not fit the wide plan (19 and up at C = 163).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
@@ -148,7 +146,7 @@ struct TGeo {
                               // (a): width, count
   int kqm;                    // widest phase-0 chunk (the buffers' pitch - 8)
   int nbr, n11;               // phase-0 stages of the branch convs, 1x1s
-  int safe_a, safe_d;         // first stages that may read a, dt
+  int safe_a;                 // the first stage that may read a
 };
 
 // The wide plan's chunks of K (a multiple of 16) at most kmax wide: as
@@ -203,7 +201,7 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.nqa = 1;
   t.nbr = 9 * g.nb;
   t.n11 = (t.res + t.top) * t.nchr;
-  t.safe_a = t.safe_d = -1;
+  t.safe_a = -1;
   if (g.hc <= SW_MAX && smem0_bytes(g, t) <= SMEM_MAX &&
       smem1_bytes(g, t) <= SMEM_MAX)
     return t;
@@ -231,7 +229,6 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.n11 = t.nchr * (t.res * t.nq + t.top * t.nqa);
   t.nst0 = t.nbr + t.n11 + t.bb * g.nb * t.nsl * t.nq;
   t.safe_a = t.top ? t.nbr : -1;
-  t.safe_d = t.bb ? t.nbr + t.n11 : -1;
   return t;
 }
 
@@ -246,7 +243,8 @@ inline TGeo make_tgeo(const Geo &g, int op) {
 // phase 0 less its rows and F2 F2b's less sCb, sD, the dst rows and the
 // scratch: each fits wherever its backward does.  The wide plan: two
 // halo buffers of hr x (kqm + 8) and NBUF slots of WROWS weight rows and
-// TP A rows of pitch kqm + 8, then the column-sum scratch (F2b, F3b).
+// TP A rows of pitch kqm + 8, then the column-sum scratch (F2b, F3b):
+// the limit of every op's refusal (tile_geo), run by F2 alone.
 inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
   if (t.wide)
     return 2LL * (2LL * t.hr + 1LL * NBUF * (WROWS + TP)) * (t.kqm + 8) +
@@ -665,8 +663,8 @@ __device__ __forceinline__ void conv1x1_chunks(const Geo &g, const TGeo &t,
 
 // The branch convs' epilogue of F3, F2b and F3b: sA = bf16(relu(BN(c)))
 // from the BN rows sBh; with BWD (F2b, F3b) also sCb = bf16(c) and
-// a_out = the same a.  WIDE: a goes to a_out only (the 1x1 stages read it
-// back) and c to sCb in global memory, both rows of pitch knh by pixel.
+// a_out = the same a.  WIDE (F2's wide plan): a goes to a_out only (the
+// 1x1 stages read it back), rows of pitch knh by pixel.
 template <bool BWD, bool WIDE = false>
 struct ToActivations {
   const Geo &g;
@@ -691,9 +689,7 @@ struct ToActivations {
         const bf16 ab = f2bf(relu(z));
         if (WIDE) {
           const int64_t p = tile_pix(g, L.pos, r);
-          if (p < 0) continue;
-          if (BWD) sCb[p * g.knh + i * g.hc + col] = f2bf(cb);
-          a_out[p * g.knh + i * g.hc + col] = ab;
+          if (p >= 0) a_out[p * g.knh + i * g.hc + col] = ab;
           continue;
         }
         if (BWD) sCb[r * g.nhp + i * g.hc + col] = f2bf(cb);
@@ -886,29 +882,26 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
 
 // ------------------------------------------------------------ wide plan
 //
-// The wide plan (TGeo::wide) of F2 and of F1b's and F2b's phase 0 (F1,
-// F3, F3b's phase 0 and every backward's phase 1 run cam_wg.cuh's kernels
-// where make_tgeo picks it) takes any branch width and any C: shared
-// memory depends on the chunk widths and the largest dilation, not on C.
+// The wide plan (TGeo::wide) of F2 (F1, F3, every backward's phase 0 and
+// phase 1 run cam_wg.cuh's kernels where make_tgeo picks it; its limits,
+// tile_geo's, stay every op's refusal) takes any branch width and any C:
+// shared memory depends on the chunk widths and the largest dilation, not
+// on C.
 //   - every K dimension goes in chunks (k_chunks, as wide as SMEM_MAX
-//     takes: x's and dt's kc in kq chunks, a's knh in kqa); the x halo is
-//     staged one chunk at a time, double-buffered, and every stage
-//     of the ring carries its B weights and, for a 1x1 product, its A
-//     chunk of the tile's 64 rows (x, a or dt), so a 1x1 product's
-//     partial sums stay in registers across its K chunks, a branch conv's
-//     across its chunks and taps (order: chunks, then taps, k-steps
-//     ascending);
+//     takes: x's kc in kq chunks, a's knh in kqa); the x halo is staged
+//     one chunk at a time, double-buffered, and every stage of the ring
+//     carries its B weights and, for a 1x1 product, its A chunk of the
+//     tile's 64 rows of a, so a 1x1 product's partial sums stay in
+//     registers across its K chunks, a branch conv's across its chunks
+//     and taps (order: chunks, then taps, k-steps ascending);
 //   - branches go in slices of at most SW_MAX columns (sw: 48 as 2 x 24,
 //     64 as 2 x 32, 128 as 4 x 32), each a branch of the plan above;
-//   - a, dt and c are not kept in shared memory: a and dt are written to
-//     their scratch rows in global memory (a_out / dt_out, or F2's own)
-//     and read back as the A chunks of the 1x1 and the branch backward
-//     stages; the first stages that read them may start only after every
-//     warp has written its rows (TGeo::safe_a, safe_d: their A chunks are
-//     not prefetched past that point but copied there, and waited for); c
-//     is read back by the thread that wrote it;
-//   - the BN rows and the statistics' cotangents are read from global
-//     memory (a few KB, cached).
+//   - a is not kept in shared memory: it is written to its scratch rows
+//     in global memory and read back as the A chunks of the 1x1 stages;
+//     the first stage that reads them may start only after every warp has
+//     written its rows (TGeo::safe_a: their A chunks are not prefetched
+//     past that point but copied there, and waited for);
+//   - the BN rows are read from global memory (a few KB, cached).
 // The per-pixel outputs keep their rounding points; the products add
 // their chunks in another order than the plan above, which a geometry
 // takes only where it fits (a branch of at most SW_MAX columns and a
@@ -921,25 +914,23 @@ enum AKind { A_NONE = 0, A_HALO = 1, A_ROWS = 2 };
 // stages; A_ROWS: the tile's rows into the stage's slot) from asrc
 // (pitch ald, columns ac0 ..); dep: the first stage at whose barrier
 // the A rows may be read (they are made in this launch), or -1; halo: the
-// stage reads a halo buffer (a branch stage), with its branch and tap.
+// stage reads a halo buffer (a branch stage), with its tap.
 struct WSt {
   int64_t boff;
   int brows, kw, akind;
   const bf16 *asrc;
-  int ald, ac0, hb, dep, i, tap, halo;
+  int ald, ac0, hb, dep, tap, halo;
 };
 
-// Phase-0 stage s of the wide plan, in w0 as ops/cam.py:_wide_weights
-// lays it out: the branch
-// convs per (branch, slice, chunk, tap), [sw][kw] of kh[i, tap]^T, the
-// halo chunk staged at tap 0 (once in all if there is one chunk); per 1x1
-// chunk of NC channels its kr^T chunks [NC][kw] with x's rows (res), then
-// its kt^T chunks with a's rows (top); the branch backward per (branch,
-// slice, chunk), [sw][kw] of kt[i], with dt's rows.
+// Phase-0 stage s of the wide plan (F2), in w0 as ops/cam.py:_wide_weights
+// lays it out: the branch convs per (branch, slice, chunk, tap), [sw][kw]
+// of kh[i, tap]^T, the halo chunk staged at tap 0 (once in all if there is
+// one chunk); per 1x1 chunk of NC channels its kt^T chunks [NC][kw] with
+// a's rows.
 struct WStage0 {
   const Geo &g;
   const TGeo &t;
-  const bf16 *xpad, *a, *dt;
+  const bf16 *xpad, *a;
   __device__ __forceinline__ WSt operator()(int s) const {
     WSt r;
     r.akind = A_NONE;
@@ -947,7 +938,6 @@ struct WStage0 {
     r.ald = g.kc;
     r.hb = 0;
     r.dep = -1;
-    r.i = 0;
     r.tap = 0;
     r.halo = 0;
     const int64_t blk = 9LL * t.sw * g.kc;
@@ -962,45 +952,21 @@ struct WStage0 {
       if (tap == 0 && (t.nq > 1 || isl == 0)) r.akind = A_HALO;
       r.ac0 = k0;
       r.hb = t.nq > 1 ? (u & 1) : 0;
-      r.i = isl / t.nsl;
       r.tap = tap;
       return r;
     }
     s -= t.nbr;
-    const int64_t base1 = static_cast<int64_t>(g.nb) * t.nsl * blk;
-    const int per = t.res * t.nq + t.top * t.nqa;
-    const int64_t pair = static_cast<int64_t>(NC) *
-                         (t.res * g.kc + t.top * g.knh);
+    const int ch = s / t.nqa, q = s - ch * t.nqa;
     r.akind = A_ROWS;
-    if (s < t.nchr * per) {
-      const int ch = s / per, v = s - ch * per;
-      r.brows = NC;
-      if (t.res && v < t.nq) {
-        r.ac0 = v * t.kq;
-        r.kw = g.kc - r.ac0 < t.kq ? g.kc - r.ac0 : t.kq;
-        r.boff = base1 + ch * pair + static_cast<int64_t>(v) * NC * t.kq;
-        return r;
-      }
-      const int q = v - t.res * t.nq;
-      r.ac0 = q * t.kqa;
-      r.kw = g.knh - r.ac0 < t.kqa ? g.knh - r.ac0 : t.kqa;
-      r.boff = base1 + ch * pair + t.res * static_cast<int64_t>(NC) * g.kc +
-               static_cast<int64_t>(q) * NC * t.kqa;
-      r.asrc = a;
-      r.ald = g.knh;
-      r.dep = t.safe_a;
-      return r;
-    }
-    s -= t.nchr * per;
-    const int q = s % t.nq, isl = s / t.nq;
-    r.ac0 = q * t.kq;
-    r.kw = g.kc - r.ac0 < t.kq ? g.kc - r.ac0 : t.kq;
-    r.boff = base1 + t.nchr * pair + isl * t.sw * static_cast<int64_t>(g.kc) +
-             static_cast<int64_t>(q) * t.sw * t.kq;
-    r.brows = t.sw;
-    r.asrc = dt;
-    r.dep = t.safe_d;
-    r.i = isl / t.nsl;
+    r.brows = NC;
+    r.ac0 = q * t.kqa;
+    r.kw = g.knh - r.ac0 < t.kqa ? g.knh - r.ac0 : t.kqa;
+    r.boff = static_cast<int64_t>(g.nb) * t.nsl * blk +
+             static_cast<int64_t>(ch) * NC * g.knh +
+             static_cast<int64_t>(q) * NC * t.kqa;
+    r.asrc = a;
+    r.ald = g.knh;
+    r.dep = t.safe_a;
     return r;
   }
 };
@@ -1038,10 +1004,6 @@ struct WRing {
   __device__ __forceinline__ bf16 *arows(int x) const {
     return slot(x) + wrows * (kqm + 8);
   }
-  // the shared memory past the slots
-  __device__ __forceinline__ bf16 *end() const {
-    return sW + NBUF * (wrows + trows) * (kqm + 8);
-  }
   __device__ __forceinline__ bf16 *halo(int hb) const {
     return sH + hb * t.hr * (kqm + 8);
   }
@@ -1068,7 +1030,7 @@ struct WRing {
     cp_wait_one();
     __syncthreads();
     bool late = false;
-    if (s == t.safe_a || s == t.safe_d)
+    if (s == t.safe_a)
       for (int x = s; x < s + 2 && x < nst; ++x) {
         const WSt st = sd(x);
         if (st.akind == A_ROWS && st.dep == s) {
@@ -1132,10 +1094,10 @@ __device__ __forceinline__ void wbranch_convs(const Geo &g, const TGeo &t,
     }
 }
 
-// The wide plan's 1x1 convs in chunks of NC output channels: per chunk
-// acr = the sum over x's K chunks (RES), at over a's (TOP), then
-// epi(n0, split, acr, at).
-template <bool RES, bool TOP, typename R, typename Epi>
+// The wide plan's 1x1 convs (F2's kt^T) in chunks of NC output channels:
+// per chunk at = the sum over a's K chunks, then epi(n0, split, acr, at)
+// with acr zero (no kr^T).
+template <typename R, typename Epi>
 __device__ __forceinline__ void wconv1x1_chunks(const Geo &g, const TGeo &t,
                                                 R &ring, const Lane &L,
                                                 Epi epi) {
@@ -1146,76 +1108,14 @@ __device__ __forceinline__ void wconv1x1_chunks(const Geo &g, const TGeo &t,
     float acr[GC][4], at[GC][4];
     zero_acc(acr);
     zero_acc(at);
-    if (RES)
 #pragma unroll 1
-      for (int q = 0; q < t.nq; ++q) {
-        const WCur c = ring.next();
-        mma_rows<GC>(acr, c.a, c.b + sc.j0 * 8 * c.pitch, c.pitch,
-                     c.st.kw / 16, sc.cnt);
-      }
-    if (TOP)
-#pragma unroll 1
-      for (int q = 0; q < t.nqa; ++q) {
-        const WCur c = ring.next();
-        mma_rows<GC>(at, c.a, c.b + sc.j0 * 8 * c.pitch, c.pitch,
-                     c.st.kw / 16, sc.cnt);
-      }
+    for (int q = 0; q < t.nqa; ++q) {
+      const WCur c = ring.next();
+      mma_rows<GC>(at, c.a, c.b + sc.j0 * 8 * c.pitch, c.pitch,
+                   c.st.kw / 16, sc.cnt);
+    }
     epi(n0, sc, acr, at);
   }
-}
-
-// The wide plan's branch backward (F2b, F3b), as branch_backward per
-// branch slice: da = the sum over dt's K chunks . kt[i]'s, c read back
-// from its global rows (pitch knh, by pixel).
-template <typename R>
-__device__ __forceinline__ void wbranch_backward(
-    const Geo &g, const TGeo &t, R &ring, const bf16 *cb, const float *bnh,
-    float *red, const Lane &L, bf16 *dc_out, float *prow_h) {
-  constexpr int GB = (NTB + 1) / 2;
-  const Split sb = split<NTB>(L.wn, t.sw / 8);
-  float *red_w = red + L.wm * NRED * NC;
-  for (int i = 0; i < g.nb; ++i)
-    for (int sl = 0; sl < t.nsl; ++sl) {
-      float acc[GB][4];
-      zero_acc(acc);
-#pragma unroll 1
-      for (int q = 0; q < t.nq; ++q) {
-        const WCur c = ring.next();
-        mma_rows<GB>(acc, c.a, c.b + sb.j0 * 8 * c.pitch, c.pitch,
-                     c.st.kw / 16, sb.cnt);
-      }
-      const int s0 = sl * t.sw, w = g.hc - s0 < t.sw ? g.hc - s0 : t.sw;
-      float v1[GB][4], v2[GB][4];
-#pragma unroll
-      for (int j = 0; j < GB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = frag_row(L.wm, L.lane, e);
-          const int n = frag_col(L.lane, sb.j0 + j, e);
-          const int64_t p = tile_pix(g, L.pos, r);
-          v1[j][e] = 0.0f;
-          v2[j][e] = 0.0f;
-          if (n >= w || p < 0) continue;
-          const int col = s0 + n;
-          const float cv = bf2f(cb[p * g.knh + i * g.hc + col]);
-          const float *bn = bnh + 4 * i * g.hc + col;
-          const float mean = bn[0], inv = bn[g.hc], scale = bn[2 * g.hc];
-          const float z = bn_apply(cv, mean, inv, scale, bn[3 * g.hc]);
-          const float dz = z > 0.0f ? acc[j][e] : 0.0f;
-          v1[j][e] = dz;
-          v2[j][e] = __fmul_rn(dz, __fsub_rn(cv, mean));
-          dc_out[p * t.ldc + i * g.khc + col] =
-              f2bf(__fmul_rn(dz, __fmul_rn(scale, inv)));
-        }
-      const int jn = L.wn ? NTB - GB : GB;
-      group_colsum<GB>(v1, red_w + sb.j0 * 8, L.lane, jn);
-      group_colsum<GB>(v2, red_w + NC + sb.j0 * 8, L.lane, jn);
-      __syncthreads();
-      for (int c = threadIdx.x; c < w; c += TT) {
-        prow_h[2 * i * g.hc + s0 + c] = block_col(red, 0, c);
-        prow_h[(2 * i + 1) * g.hc + s0 + c] = block_col(red, 1, c);
-      }
-    }
 }
 
 // The wide plan's shared memory: two halo buffers, then NBUF slots of

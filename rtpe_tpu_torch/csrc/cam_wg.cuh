@@ -1,32 +1,37 @@
 // The fused-CAM ops' wgmma kernels at the student's wider geometries,
 // CUDA C++ for sm_90a (cam_f1.cu, cam_f2.cu and cam_f3.cu include this
-// header): f1_wg_kernel, f3_wg_kernel and f3b_wg_kernel (F1, F3 and F3b's
-// phase 0, one body) and dx_wg_kernel (phase 1 of all three backwards),
-// for every geometry where cam_tile.cuh:make_tgeo does not take the
+// header): f1_wg_kernel, f3_wg_kernel and the three backwards' phase 0,
+// f1b_wg_kernel, f2b_wg_kernel and f3b_wg_kernel (one body, fwd_wg_body,
+// in five modes), and dx_wg_kernel (phase 1 of all three backwards), for
+// every geometry where cam_tile.cuh:make_tgeo does not take the
 // whole-depth plan (a branch wider than SW_MAX = 40 columns, or a
 // whole-depth halo and stages that do not fit: every --inplanes above 80,
-// six dilations up to 6 or 8 at C = 163).  F2 and F1b's and F2b's phase 0
-// keep cam_tile.cuh's wide plan there.
+// six dilations up to 6 or 8 at C = 163).  F2 alone keeps cam_tile.cuh's
+// wide plan there.
 //
 // Replaces, at those geometries, the TPU kernels _f1_call / _f1_kernel
 // (the batch statistics S_r, S_h and the per-image sum of x), _f3_call /
 // _f3_kernel (out = relu(relu(BN_r(x kr)) + relu(BN_t(a kt)) gate[b]),
-// a = relu(BN_h(c)), c the three dilated 3x3 branch convs), _f3b_call /
-// _f3b_kernel's phase 0 (F3's recompute, do, dgate, the residual and top
-// BN backward dr, dt, the branch backward dc, dS_h) and the phase 1 of
-// _f1b_call / _f1b_kernel, _f2b_call / _f2b_kernel and _f3b_call /
-// _f3b_kernel (dx = bf16(dr) kr^T + the transposed branch convs of dc,
-// F1b's + dgap / (H W)) of rtpe_tpu/ops/pallas_cam.py, with the rounding
-// points of the port's ops (bf16 of every conv before its statistics and
-// BN, bf16(a), bf16 of dr, dt and dc, dx rounded once).
+// a = relu(BN_h(c)), c the three dilated 3x3 branch convs), the phase 0
+// of _f1b_call / _f1b_kernel (F1's recompute, dc_i = dsh[2i] + 2 c_i
+// dsh[2i+1], dr = dsr[0] + 2 bf16(x kr) dsr[1]), of _f2b_call /
+// _f2b_kernel (the branch convs and t = a kt, dt = dst[0] + 2 t dst[1],
+// the branch backward dc, dS_h) and of _f3b_call / _f3b_kernel (F3's
+// recompute, do, dgate, the residual and top BN backward dr, dt, the
+// branch backward dc, dS_h) and the phase 1 of all three (dx = bf16(dr)
+// kr^T + the transposed branch convs of dc, F1b's + dgap / (H W)) of
+// rtpe_tpu/ops/pallas_cam.py, with the rounding points of the port's ops
+// (bf16 of every conv before its statistics and BN, bf16(a), bf16 of dr,
+// dt and dc, dx rounded once).
 //
 // Bound at --inplanes 128's step CAM (B = 16, 113 x 113, C = 259,
 // hc = 64, dilations 1-3): operations.  F3 does C^2 + 9 nb C hc + nb hc C
 // = 564.4 K multiply-adds a pixel, 0.233 ms at 989 TFLOP/s (bf16 dense);
-// F1 C^2 + 9 nb C hc = 514.6 K, 0.213 ms; F3b's phase 0 F3's plus the
-// branch backward's nb hc C = 614.1 K, 0.254 ms; dx C^2 + 9 nb hc C =
-// 514.6 K (F2b, without dr, 447.6 K), 0.213 / 0.185 ms.  x is read once
-// in 0.03 ms.
+// F1 and F1b's phase 0 C^2 + 9 nb C hc = 514.6 K, 0.213 ms; F2b's phase 0
+// 9 nb C hc + 2 nb hc C (t, and the branch backward's da) = 547.0 K,
+// 0.226 ms; F3b's phase 0 F3's plus the branch backward's nb hc C =
+// 614.1 K, 0.254 ms; dx C^2 + 9 nb hc C = 514.6 K (F2b, without dr,
+// 447.6 K), 0.213 / 0.185 ms.  x is read once in 0.03 ms.
 //
 // cam_tile.cuh's wide plan ran these there as ~100 stages a 64-pixel
 // tile, each ~0.3 M multiply-adds of mma.sync m16n8k16 behind a
@@ -74,11 +79,16 @@
 //     tile.  Only a geometry where these do not fit reads its rows from
 //     global memory and takes a (and x's rows for kr^T) through rows
 //     staged a stage at a time;
-//   - F3b keeps c out of shared memory (each thread writes its fragment
-//     of c to c's global rows and reads the same elements back for its
-//     branch backward) and dt too: its rows go to global memory for dkt
+//   - the branch backward (F2b, F3b) keeps c out of shared memory (each
+//     thread writes its fragment of c to c's global rows and reads the
+//     same elements back) and dt too: its rows go to global memory for dkt
 //     and come back into the halo's buffer once x's last product has
-//     completed, whole where they fit (else in chunks).
+//     completed, whole where they fit (else in chunks);
+//   - F1b's and F2b's phase 0 are F1's and F3b's bodies with other
+//     epilogues: F1b stores dc after each branch slice and dr after each
+//     1x1 chunk (no column sums; dsr and dsh staged where F1 keeps its
+//     column-sum scratch), F2b runs no x kr^T and stores dt = dst[0] +
+//     2 t dst[1] where F3b runs F3's epilogue.
 // The per-pixel rounding points are cam_tile.cuh's; the products add
 // their K stages, taps and k-steps in another order than the wide plan.
 
@@ -327,25 +337,30 @@ constexpr int FNB_MAX = 16;          // n8 tiles of a branch slice at most
 constexpr int FBAR = 128;            // bytes before the ring: the mbarriers
 constexpr int FRED = 4 * 2 * FNB_MAX * 8;   // F1's column-sum scratch, f32
                                             // (a half each warpgroup)
-constexpr int FRED3 = 2 * 4 * 5 * FN1 / 2;  // F3b's: 4 warps x 5 sums x a
+constexpr int FRED3 = 2 * 4 * 5 * FN1 / 2;  // the branch backward's (F2b,
+                                            // F3b): 4 warps x 5 sums x a
                                             // warpgroup's 32 1x1 columns
-                                            // (or 2 sums x 64 columns of a
-                                            // branch slice) each
+                                            // (F3b), or 2 sums x 64
+                                            // columns of a branch slice
+                                            // each
 
-// The plan of f1_wg_kernel / f3_wg_kernel / f3b_wg_kernel (F3b's phase
-// 0) at one geometry; ops/cam.py:_wg_plan computes the same.
+// The plan of f1_wg_kernel, f3_wg_kernel and the backwards' phase-0
+// kernels (f1b_wg_kernel, f2b_wg_kernel, f3b_wg_kernel) at one geometry;
+// ops/cam.py:_wg_plan computes the same.
 struct FPlan {
-  int f3;               // F3 or F3b (else F1)
-  int bb;               // F3b: the branch backward follows
+  int res, top, bb;     // the products: x kr^T (F1, F3, F1b, F3b), a kt^T
+                        // (F3, F2b, F3b), the branch backward (F2b, F3b)
   int ntb, sw, nsl;     // a branch slice's n8 tiles and columns; slices
   int nch1;             // 1x1-conv chunks of FN1 output columns
   int kq, nq;           // the x halo's K chunks: width, count
   int kbx;              // a stage's K width within an x chunk (at most)
-  int kba, nba;         // F3: the kt^T stages' K width over knh, count
-  int a_res;            // F3: a kept in shared memory (else in global
+  int kba, nba;         // top: the kt^T stages' K width over knh, count
+  int a_res;            // top: a kept in shared memory (else in global
                         // rows, restaged a stage at a time)
-  int rows_smem;        // F3: BN rows and the gate in shared memory
-  int kdq, nd, kbd;     // F3b: dt's chunks of kc staged in the halo's
+  int rows_smem;        // the epilogues' rows in shared memory: F3's and
+                        // F3b's BN rows and gate, F2b's dst and bnh (else
+                        // read from global memory); F1b's dsr and dsh always
+  int kdq, nd, kbd;     // bb: dt's chunks of kc staged in the halo's
                         // buffer (width, count) and their stages' width
   int slot;             // bf16 elements of a ring slot
   int nst;              // weight stages a tile; -1: nothing fits
@@ -361,35 +376,43 @@ inline int fplan_ntb(int per) {
   return -1;
 }
 
+// f32 elements of the rows op's epilogues read: F1b dsr (2C) and dsh
+// (2 NH), F2b dst (2C) and bnh (4 NH), F3 and F3b bnr and bnt (4C each),
+// image b's gate (C) and bnh (4 NH).
+__host__ __device__ inline int64_t fplan_rows(const Geo &g, int op) {
+  return op == F1B   ? 2LL * g.C + 2LL * g.NH
+         : op == F2B ? 2LL * g.C + 4LL * g.NH
+         : op == F1  ? 0
+                     : 9LL * g.C + 4LL * g.NH;
+}
+
 // Shared memory besides the ring: the mbarriers, the x halo (chunk of kq
-// channels: kq / 8 planes of hr 16-byte rows), a (F3, a_res: knh / 8
-// planes of 64 rows), then in f32 the BN rows and the gate (F3,
-// rows_smem: bnr, bnt 4C each, gate C, bnh 4 NH) and F3b's column-sum
-// scratch, or F1's.
-inline int64_t fplan_fixed(const Geo &g, const TGeo &t, int f3, int bb,
-                           int kq, int a_res, int rows_smem) {
+// channels: kq / 8 planes of hr 16-byte rows), a (top, a_res: knh / 8
+// planes of 64 rows), then in f32 the epilogues' rows (rows_smem) and the
+// column-sum scratch (F1's, or the branch backward's).
+inline int64_t fplan_fixed(const Geo &g, const TGeo &t, int kq, int a_res,
+                           int rows_smem) {
   int64_t b = FBAR + 2LL * t.hr * kq;
-  if (f3 && a_res) b += 2LL * TP * g.knh;
-  if (f3)
-    b += (rows_smem ? 4LL * (9LL * g.C + 4LL * g.NH) : 0) +
-         (bb ? 4LL * FRED3 : 0);
-  else
-    b += 4LL * FRED;
+  if (t.top && a_res) b += 2LL * TP * g.knh;
+  if (rows_smem) b += 4LL * fplan_rows(g, t.op);
+  if (t.bb) b += 4LL * FRED3;
+  if (t.op == F1) b += 4LL * FRED;
   return b;
 }
 
 // The plan: the first of these that fits SMEM_MAX with stages at least
 // min(64, kq) wide (else 16): a and the rows in shared memory, then the
-// rows in global memory, then a too (F3, F3b); within each, the x halo in
-// as few K chunks as leave that room for FNS ring slots.  F3b keeps no
-// more: c goes to its global rows (each thread reads back what it
-// wrote), dt to its global rows and back into the halo's buffer once the
-// last product that reads x has completed (whole where 64 kc fits the
-// buffer, else in chunks).
-inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
+// rows in global memory, then a too (top); within each, the x halo in as
+// few K chunks as leave that room for FNS ring slots.  The branch
+// backward keeps no more: c goes to its global rows (each thread reads
+// back what it wrote), dt to its global rows and back into the halo's
+// buffer once the last product that reads x has completed (whole where
+// 64 kc fits the buffer, else in chunks).
+inline FPlan make_fplan(const Geo &g, const TGeo &t) {
   FPlan p{};
-  p.f3 = op == F3 || op == F3B;
-  p.bb = op == F3B;
+  p.res = t.res;
+  p.top = t.top;
+  p.bb = t.bb;
   const int n8 = (g.hc + 7) / 8;
   p.nsl = (n8 + FNB_MAX - 1) / FNB_MAX;
   p.ntb = fplan_ntb((n8 + p.nsl - 1) / p.nsl);
@@ -399,15 +422,15 @@ inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
   p.nst = -1;
   int kb = -1;
   for (int thr = 64; thr >= 16 && kb < 0; thr -= 48)
-    for (int m = 0; m < (p.f3 ? 3 : 1) && kb < 0; ++m) {
-      const int a_res = p.f3 && m < 2, rows = p.f3 && m < 1;
+    for (int m = 0; m < (p.top ? 3 : 1) && kb < 0; ++m) {
+      const int a_res = p.top && m < 2;
+      const int rows = p.top ? m < 1 : t.op == F1B;
       int prev = 0;
       for (int nq = 1;; ++nq) {
         const int kq = up16((g.kc + nq - 1) / nq);
         if (kq == prev) continue;
         prev = kq;
-        const int64_t avail =
-            SMEM_MAX - fplan_fixed(g, t, p.f3, p.bb, kq, a_res, rows);
+        const int64_t avail = SMEM_MAX - fplan_fixed(g, t, kq, a_res, rows);
         const int64_t k = avail < 0 ? -1 : avail / (2LL * FNS * nw) / 16 * 16;
         if (k >= (thr < kq ? thr : kq)) {
           kb = static_cast<int>(k);
@@ -426,13 +449,13 @@ inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
   p.kba = p.nba = 0;
   // rows restaged into the halo buffer (64 a plane): at most cap wide
   const int64_t cap = 1LL * t.hr * p.kq / TP / 16 * 16;
-  if (p.f3) {
+  if (p.top) {
     int ka = kb;
     if (!p.a_res) ka = static_cast<int>(cap < ka ? cap : ka);
     k_chunks(g.knh, ka, &p.kba, &p.nba);
   }
   p.kdq = p.nd = p.kbd = 0;
-  int nud = 0;   // F3b: dt's stages over its chunks
+  int nud = 0;   // bb: dt's stages over its chunks
   if (p.bb) {
     if (g.kc <= cap) {
       p.kdq = g.kc;
@@ -449,17 +472,17 @@ inline FPlan make_fplan(const Geo &g, const TGeo &t, int op) {
   int kmax = p.kbx > p.kba ? p.kbx : p.kba;
   kmax = p.kbd > kmax ? p.kbd : kmax;
   p.slot = kmax * nw;
-  p.smem = fplan_fixed(g, t, p.f3, p.bb, p.kq, p.a_res, p.rows_smem) +
-           2LL * FNS * p.slot;
+  p.smem = fplan_fixed(g, t, p.kq, p.a_res, p.rows_smem) + 2LL * FNS * p.slot;
   int nu = 0;   // K stages over all of x's chunks
   for (int q = 0; q < p.nq; ++q) {
     const int wq = g.kc - q * p.kq < p.kq ? g.kc - q * p.kq : p.kq;
     nu += (wq + p.kbx - 1) / p.kbx;
   }
-  p.nst = 9 * g.nb * p.nsl * nu + p.nch1 * (nu + p.f3 * p.nba) +
+  p.nst = 9 * g.nb * p.nsl * nu + p.nch1 * (p.res * nu + p.top * p.nba) +
           p.bb * g.nb * p.nsl * nud;
   p.w_elems = 9LL * g.nb * p.nsl * g.kc * p.sw +
-              static_cast<int64_t>(p.nch1) * FN1 * (g.kc + p.f3 * g.knh) +
+              static_cast<int64_t>(p.nch1) * FN1 *
+                  (p.res * g.kc + p.top * g.knh) +
               1LL * p.bb * g.nb * p.nsl * g.kc * p.sw;
   return p;
 }
@@ -644,12 +667,12 @@ __device__ __forceinline__ void fwd_produce(const Geo &g, const FPlan &P,
   for (int i = 0; i < g.nb; ++i)
     for (int sl = 0; sl < P.nsl; ++sl) xwalk(9, P.sw);
   for (int c = 0; c < P.nch1; ++c) {
-    xwalk(1, FN1);
-    if (P.f3)
+    if (P.res) xwalk(1, FN1);
+    if (P.top)
       for (int v = 0; v < g.knh; v += P.kba)
         issue(g.knh - v < P.kba ? g.knh - v : P.kba, FN1);
   }
-  // F3b's branch backward: per branch slice, dt's chunks and stages
+  // the branch backward: per branch slice, dt's chunks and stages
   if (P.bb)
     for (int i = 0; i < g.nb * P.nsl; ++i)
       for (int q = 0; q < g.kc; q += P.kdq) {
@@ -691,40 +714,49 @@ __device__ __forceinline__ void wg_sums(const float (&v)[K][NT][4],
                         red[(3 * K + k) * W + c];
 }
 
-// F3b's phase-0 operands besides F3's: the output cotangent (M, C) and
-// the scratch rows it writes: dr and dt (pitch kc, zero past C), dc
-// (pitch ldc, branch i at i khc, zero past hc) and c (pitch knh).
-struct F3bRows {
+// A backward's phase-0 operands besides the forwards': the output
+// cotangent (M, C; F3b), the statistics' cotangents (F1b dsr (2, C) and
+// dsh (2 nb, hc); F2b dst (2, C)) and the scratch rows it writes: dr and
+// dt (pitch kc, zero past C), dc (pitch ldc, branch i at i khc, zero past
+// hc) and c (pitch knh).
+struct BwdRows {
   const bf16 *gout;
+  const float *dsr, *dsh, *dst;
   bf16 *dr, *dt, *dc, *cb;
 };
 
-enum WgMode { WG_F1 = 0, WG_F3 = 1, WG_F3B = 2 };
+enum WgMode { WG_F1 = 0, WG_F3 = 1, WG_F3B = 2, WG_F1B = 3, WG_F2B = 4 };
 
-// F1, F3 or F3b's phase 0 (MODE) on one 8 x 8 tile of the plan P (see the
-// note at the top): threads 0..255 the two consumer warpgroups, each the
-// tile's 64 pixels against half of every product's columns, 256..287 the
-// producer warp.  F1 writes the tile's partial row [S_r (2C) | S_h
-// (2 NH) | the sum of x (C)] (pixels outside the image masked); F3 out
-// (M, C) bf16, with a in a_ws (pitch knh, by pixel) where P keeps it out
-// of shared memory.  F3b recomputes F3's products and writes a to a_ws,
-// c, dr, dt and dc to R's rows and the partial row [dSr (2C) | dSt (2C) |
-// dS_h (2 NH) | dgate (C)], with cam_f3.cu:f3b_tile_kernel's arithmetic
-// and rounding points.
+// F1, F3 or a backward's phase 0 (MODE) on one 8 x 8 tile of the plan P
+// (see the note at the top): threads 0..255 the two consumer warpgroups,
+// each the tile's 64 pixels against half of every product's columns,
+// 256..287 the producer warp.  F1 writes the tile's partial row [S_r (2C)
+// | S_h (2 NH) | the sum of x (C)] (pixels outside the image masked); F3
+// out (M, C) bf16, with a in a_ws (pitch knh, by pixel) where P keeps it
+// out of shared memory.  F1b runs F1's products and writes dc and dr to
+// R's rows; F2b runs the branch convs and a kt^T, writes a to a_ws, c, dt
+// and dc to R's rows and the partial row dS_h (2 NH); F3b recomputes F3's
+// products and writes a to a_ws, c, dr, dt and dc to R's rows and the
+// partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)]; each with
+// cam_f1.cu:f1b_tile_kernel's, cam_f2.cu:f2b_tile_kernel's and
+// cam_f3.cu:f3b_tile_kernel's arithmetic and rounding points.
 template <int NTB, int MODE>
 __device__ __forceinline__ void fwd_wg_body(
     const Geo &g, const TGeo &t, const FPlan &P, const bf16 *xpad,
     const bf16 *w, const float *bnr, const float *bnh, const float *bnt,
     const float *gate, bf16 *out, bf16 *a_ws, float *part,
-    const F3bRows &R) {
-  constexpr bool F3 = MODE != WG_F1, BB = MODE == WG_F3B;
+    const BwdRows &R) {
+  constexpr bool F3 = MODE == WG_F3 || MODE == WG_F3B;
+  constexpr bool RES = MODE != WG_F2B;              // x kr^T
+  constexpr bool TOP = F3 || MODE == WG_F2B;        // a, a kt^T
+  constexpr bool BB = MODE == WG_F3B || MODE == WG_F2B;
   constexpr int HB = NTB / 2, H1 = FNT1 / 2;   // a warpgroup's n8 tiles
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t bar0 = saddr(smem);   // full[FNS], then empty[FNS]
   bf16 *sW = reinterpret_cast<bf16 *>(smem + FBAR);
   bf16 *sH = sW + FNS * P.slot;        // kq / 8 planes of hr rows
   bf16 *sA = sH + t.hr * P.kq;         // knh / 8 planes of 64 rows
-  float *sF = reinterpret_cast<float *>(sA + (F3 && P.a_res ? TP * g.knh : 0));
+  float *sF = reinterpret_cast<float *>(sA + (TOP && P.a_res ? TP * g.knh : 0));
   // the warp's index, warp-uniform to the compiler (a broadcast): the
   // roles' branches and the wgmmas' control flow are not divergent
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
@@ -754,19 +786,26 @@ __device__ __forceinline__ void fwd_wg_body(
   const uint32_t hlbo = t.hr * 16, hsbo = t.hs * 16;
   const uint32_t rlbo = TP * 16, rsbo = 8 * 16;
   // x's rows for kr^T come from the halo unless it is chunked or the
-  // halo buffer carries restaged a rows (F3 without a_res)
-  const bool xrows = P.nq > 1 || (F3 && !P.a_res);
-  float *prow =
-      F3 && !BB ? nullptr
-                : part + static_cast<int64_t>(blockIdx.x) *
-                             ((BB ? 5 : 3) * C + 2 * g.NH);
-  // F1's and F3b's column sums: the warpgroup's scratch (F3b's after the
-  // rows)
-  float *red = BB ? sF + (P.rows_smem ? 9 * C + 4 * g.NH : 0) + wg * (FRED3 / 2)
+  // halo buffer carries restaged a rows (without a_res)
+  const bool xrows = P.nq > 1 || (TOP && !P.a_res);
+  // the partial row: F1's, F3b's or F2b's (dS_h only)
+  const int64_t pld = MODE == WG_F1    ? 3 * C + 2 * g.NH
+                      : MODE == WG_F3B ? 5 * C + 2 * g.NH
+                                       : 2 * g.NH;
+  float *prow = MODE == WG_F1 || BB
+                    ? part + static_cast<int64_t>(blockIdx.x) * pld
+                    : nullptr;
+  // F1's and the branch backward's column sums: the warpgroup's scratch
+  // (the branch backward's after the rows)
+  float *red = BB ? sF + (P.rows_smem ? fplan_rows(g, t.op) : 0) +
+                        wg * (FRED3 / 2)
                   : sF + wg * (FRED / 2);
 
+  // the epilogues' rows: BN (F3, F3b: bnr, bnt, gate[b]; bnh), F2b's
+  // dst, F1b's dsr and dsh, staged once a tile where P.rows_smem
   const float *rBr = bnr, *rBt = bnt, *rBh = bnh;
-  const float *rG = gate + static_cast<int64_t>(pos.b) * C;
+  const float *rG = F3 ? gate + static_cast<int64_t>(pos.b) * C : nullptr;
+  const float *rD0 = MODE == WG_F1B ? R.dsr : R.dst, *rDh = R.dsh;
   if (F3 && P.rows_smem) {
     float *sBr = sF, *sBt = sBr + 4 * C, *sG = sBt + 4 * C, *sBh = sG + C;
     for (int i = threadIdx.x; i < 4 * C; i += FC) {
@@ -780,7 +819,20 @@ __device__ __forceinline__ void fwd_wg_body(
     rG = sG;
     rBh = sBh;
   }
-  if (F3) {
+  if ((MODE == WG_F2B && P.rows_smem) || MODE == WG_F1B) {
+    // [d0 (2C) | F2b: bnh (4 NH), F1b: dsh (2 NH)]
+    float *sD0 = sF, *sD1 = sF + 2 * C;
+    const float *d1 = MODE == WG_F2B ? bnh : R.dsh;
+    for (int i = threadIdx.x; i < 2 * C; i += FC) sD0[i] = rD0[i];
+    for (int i = threadIdx.x; i < (MODE == WG_F2B ? 4 : 2) * g.NH; i += FC)
+      sD1[i] = d1[i];
+    rD0 = sD0;
+    if (MODE == WG_F2B)
+      rBh = sD1;
+    else
+      rDh = sD1;
+  }
+  if (TOP) {
     // a's K padding (columns NH .. knh) is zero
     const int pa = g.knh - g.NH;
     for (int i = threadIdx.x; i < TP * pa; i += FC) {
@@ -796,6 +848,8 @@ __device__ __forceinline__ void fwd_wg_body(
   // the lane's fragment rows in the image (e < 2: row r, else r + 8)
   const bool in0 = tile_pix(g, pos, frag_row(wm, lane, 0)) >= 0;
   const bool in1 = tile_pix(g, pos, frag_row(wm, lane, 2)) >= 0;
+  const int64_t p0 = tile_pix(g, pos, frag_row(wm, lane, 0));
+  const int64_t p1 = tile_pix(g, pos, frag_row(wm, lane, 2));
 
   // the branch convs: per branch slice, its chunks, taps and stages
   for (int i = 0; i < g.nb; ++i) {
@@ -827,7 +881,7 @@ __device__ __forceinline__ void fwd_wg_body(
       // the warpgroup's columns of the slice: s0 + n, n < wsl
       const int s0 = sl * P.sw + wg * HB * 8;
       const int wsl = g.hc - s0 < HB * 8 ? g.hc - s0 : HB * 8;
-      if (F3) {
+      if (TOP) {
         // a = bf16(relu(BN_h(bf16(c)))): a column's BN row loaded once for
         // the lane's two fragment rows
 #pragma unroll
@@ -846,13 +900,32 @@ __device__ __forceinline__ void fwd_wg_body(
               const bf16 ab = f2bf(relu(bn_apply(cv, mean, inv, scale, bias)));
               if (n >= wsl) continue;
               if (P.a_res) sA[((k >> 3) * TP + r) * 8 + (k & 7)] = ab;
-              if (BB || !P.a_res) {   // F3b: a for dkt, c for its backward
-                const int64_t p = tile_pix(g, pos, r);
+              if (BB || !P.a_res) {   // a for dkt, c for the backward
+                const int64_t p = e2 ? p1 : p0;
                 if (p >= 0) {
                   a_ws[p * g.knh + k] = ab;
                   if (BB) R.cb[p * g.knh + k] = f2bf(cv);
                 }
               }
+            }
+          }
+      } else if (MODE == WG_F1B) {
+        // dc_i = bf16(dsh[2i] + 2 bf16(c) dsh[2i + 1]): a column's rows
+        // loaded once for the lane's two fragment rows
+#pragma unroll
+        for (int j = 0; j < HB; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = frag_col(lane, j, h), col = s0 + n;
+            const float *ds = rDh + 2 * i * g.hc + (n < wsl ? col : 0);
+            const float d0 = ds[0], d1 = ds[g.hc];
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const int64_t p = e2 ? p1 : p0;
+              if (n >= wsl || p < 0) continue;
+              const float cb = bfr(acc[j][h + 2 * e2]);
+              R.dc[p * t.ldc + i * g.khc + col] =
+                  f2bf(__fadd_rn(d0, __fmul_rn(__fmul_rn(2.0f, cb), d1)));
             }
           }
       } else {
@@ -871,7 +944,7 @@ __device__ __forceinline__ void fwd_wg_body(
       }
     }
   }
-  if (!F3) {
+  if (MODE == WG_F1) {
     // the sum of x over the tile's pixels in the image: the halo's
     // centre rows (zero outside the image), or x's rows where the halo
     // went in chunks
@@ -890,30 +963,31 @@ __device__ __forceinline__ void fwd_wg_body(
       prow[2 * C + 2 * g.NH + c] = sum;
     }
   }
-  if (F3 && P.a_res) {   // a is whole in sA for every warp's wgmmas
+  if (TOP && P.a_res) {   // a is whole in sA for every warp's wgmmas
     fence_proxy_async();
     cons_sync();
   }
 
   // the 1x1 convs in chunks of FN1 output columns: kr^T over x's K
-  // stages, then (F3) kt^T over a's
+  // stages (RES), then kt^T over a's (TOP)
   for (int c = 0; c < P.nch1; ++c) {
     const int n0 = c * FN1 + wg * H1 * 8;   // the warpgroup's columns
     float acr[H1][4], at[H1][4];
-    for (int q = 0; q < P.nq; ++q) {
-      const int k0 = q * P.kq, wq = g.kc - k0 < P.kq ? g.kc - k0 : P.kq;
-      for (int u = 0; u < wq; u += P.kbx) {
-        const int kw = wq - u < P.kbx ? wq - u : P.kbx;
-        AOp A{cen + u / 8 * t.hr * 16, hlbo, hsbo};
-        if (xrows) {
-          pipe.drain();
-          cons_rows(sH, xpad, g.kc, k0 + u, kw, g, pos);
-          A = AOp{saddr(sH), rlbo, rsbo};
+    if (RES)
+      for (int q = 0; q < P.nq; ++q) {
+        const int k0 = q * P.kq, wq = g.kc - k0 < P.kq ? g.kc - k0 : P.kq;
+        for (int u = 0; u < wq; u += P.kbx) {
+          const int kw = wq - u < P.kbx ? wq - u : P.kbx;
+          AOp A{cen + u / 8 * t.hr * 16, hlbo, hsbo};
+          if (xrows) {
+            pipe.drain();
+            cons_rows(sH, xpad, g.kc, k0 + u, kw, g, pos);
+            A = AOp{saddr(sH), rlbo, rsbo};
+          }
+          pipe.stage<H1>(acr, A, kw, wg * H1, q == 0 && u == 0);
         }
-        pipe.stage<H1>(acr, A, kw, wg * H1, q == 0 && u == 0);
       }
-    }
-    if (F3) {
+    if (TOP) {
       for (int v = 0; v < g.knh; v += P.kba) {
         const int kw = g.knh - v < P.kba ? g.knh - v : P.kba;
         AOp A{saddr(sA) + v / 8 * TP * 16, rlbo, rsbo};
@@ -926,15 +1000,13 @@ __device__ __forceinline__ void fwd_wg_body(
       }
     }
     pipe.drain();
-    fence_acc(acr);
-    if (F3) fence_acc(at);
-    if (BB) {
+    if (RES) fence_acc(acr);
+    if (TOP) fence_acc(at);
+    if (MODE == WG_F3B) {
       // F3b: do = (pre > 0) g, dgate, the residual and top BN backward:
       // dr, dt (zero on the K padding C .. kc, which dt's restaging and
       // dx read) and the five column sums, as f3b_tile_kernel's epilogue
       // computes them; a column's rows and gate loaded once
-      const int64_t p0 = tile_pix(g, pos, frag_row(wm, lane, 0));
-      const int64_t p1 = tile_pix(g, pos, frag_row(wm, lane, 2));
       float v[5][H1][4];
 #pragma unroll
       for (int j = 0; j < H1; ++j)
@@ -984,12 +1056,34 @@ __device__ __forceinline__ void fwd_wg_body(
         wg_sums<H1, 5>(v, red, wg, wm, lane, prow, off,
                        C - n0 < H1 * 8 ? C - n0 : H1 * 8);
       }
+    } else if (MODE == WG_F1B || MODE == WG_F2B) {
+      // F1b: dr = bf16(dsr[0] + 2 bf16(x kr) dsr[1]); F2b: dt =
+      // bf16(dst[0] + 2 bf16(a kt) dst[1]); zero on the K padding
+      // C .. kc (dx, and F2b's restaging of dt, read it); a column's rows
+      // loaded once for the lane's two fragment rows
+      bf16 *o = MODE == WG_F1B ? R.dr : R.dt;
+#pragma unroll
+      for (int j = 0; j < H1; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = n0 + frag_col(lane, j, h);
+          const int cc = col < C ? col : C - 1;
+          const float d0 = rD0[cc], d1 = rD0[C + cc];
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int64_t p = e2 ? p1 : p0;
+            if (p < 0 || col >= g.kc) continue;
+            const float v = bfr(MODE == WG_F1B ? acr[j][h + 2 * e2]
+                                               : at[j][h + 2 * e2]);
+            o[p * g.kc + col] =
+                col < C ? f2bf(__fadd_rn(d0, __fmul_rn(__fmul_rn(2.0f, v), d1)))
+                        : bzero();
+          }
+        }
     } else if (F3) {
       // out = bf16(relu(relu(BN_r(bf16(x kr))) + relu(BN_t(bf16(a kt)))
       // gate)): a column's rows and gate loaded once for the lane's two
       // fragment rows, only the stores masked
-      const int64_t p0 = tile_pix(g, pos, frag_row(wm, lane, 0));
-      const int64_t p1 = tile_pix(g, pos, frag_row(wm, lane, 2));
 #pragma unroll
       for (int j = 0; j < H1; ++j)
 #pragma unroll
@@ -1028,12 +1122,13 @@ __device__ __forceinline__ void fwd_wg_body(
     }
   }
   if constexpr (BB) {
-    // F3b's branch backward, per branch slice: da = dt . kt[i]^T with dt
+    // the branch backward, per branch slice: da = dt . kt[i]^T with dt
     // back from its global rows into the halo's buffer (x's last product
     // has completed: every warp drained), whole or a chunk at a time; dz =
     // (z > 0) da with z from c, which this thread wrote to its global rows
     // for the same fragment elements; dc = bf16(dz scale inv) and the
     // column sums of dz and dz (c - mean) into dS_h
+    float *prow_h = prow + (MODE == WG_F3B ? 4 * C : 0);
     for (int i = 0; i < g.nb; ++i)
       for (int sl = 0; sl < P.nsl; ++sl) {
         float acc[HB][4];
@@ -1054,18 +1149,18 @@ __device__ __forceinline__ void fwd_wg_body(
         const int s0 = sl * P.sw + wg * HB * 8;
         const int wsl = g.hc - s0 < HB * 8 ? g.hc - s0 : HB * 8;
         float v[2][HB][4];
-  #pragma unroll
+#pragma unroll
         for (int j = 0; j < HB; ++j)
-  #pragma unroll
+#pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int n = frag_col(lane, j, h), col = s0 + n;
             const float *bn = rBh + 4 * i * g.hc + (n < wsl ? col : 0);
             const float mean = bn[0], inv = bn[g.hc], scale = bn[2 * g.hc],
                         bias = bn[3 * g.hc];
-  #pragma unroll
+#pragma unroll
             for (int e2 = 0; e2 < 2; ++e2) {
               const int e = h + 2 * e2;
-              const int64_t p = tile_pix(g, pos, frag_row(wm, lane, e));
+              const int64_t p = e2 ? p1 : p0;
               v[0][j][e] = 0.0f;
               v[1][j][e] = 0.0f;
               if (n >= wsl || p < 0) continue;
@@ -1080,11 +1175,12 @@ __device__ __forceinline__ void fwd_wg_body(
           }
         if (wsl > 0) {
           const int off[2] = {2 * i * g.hc + s0, (2 * i + 1) * g.hc + s0};
-          wg_sums<HB, 2>(v, red, wg, wm, lane, prow + 4 * C, off, wsl);
+          wg_sums<HB, 2>(v, red, wg, wm, lane, prow_h, off, wsl);
         }
       }
-    zero_pad_cols(R.dc, t.ldc, g.nb, g.khc, g.hc, g, pos);
   }
+  if (BB || MODE == WG_F1B)
+    zero_pad_cols(R.dc, t.ldc, g.nb, g.khc, g.hc, g, pos);
 }
 
 // F1's partial rows (n_tiles x (3C + 2 NH) f32) on the plan P.
@@ -1093,7 +1189,7 @@ __global__ void __launch_bounds__(FT, 1)
 f1_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
              const bf16 *__restrict__ w, float *__restrict__ part) {
   fwd_wg_body<NTB, WG_F1>(g, t, P, xpad, w, nullptr, nullptr, nullptr,
-                          nullptr, nullptr, nullptr, part, F3bRows{});
+                          nullptr, nullptr, nullptr, part, BwdRows{});
 }
 
 // F3's output (M, C) bf16 on the plan P; a_ws (M, knh) where P keeps a
@@ -1106,7 +1202,35 @@ f3_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
              const float *__restrict__ gate, bf16 *__restrict__ out,
              bf16 *__restrict__ a_ws) {
   fwd_wg_body<NTB, WG_F3>(g, t, P, xpad, w, bnr, bnh, bnt, gate, out, a_ws,
-                          nullptr, F3bRows{});
+                          nullptr, BwdRows{});
+}
+
+// F1b's phase 0 on the plan P: dr and dc (M rows each, pitches kc and
+// ldc, zero padding columns), the scratch of cam_f1.cu:carve_f1b.
+template <int NTB>
+__global__ void __launch_bounds__(FT, 1)
+f1b_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
+              const bf16 *__restrict__ w, const float *__restrict__ dsr,
+              const float *__restrict__ dsh, bf16 *__restrict__ dr,
+              bf16 *__restrict__ dc) {
+  fwd_wg_body<NTB, WG_F1B>(
+      g, t, P, xpad, w, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, BwdRows{nullptr, dsr, dsh, nullptr, dr, nullptr, dc, nullptr});
+}
+
+// F2b's phase 0 on the plan P: a, dt, dc and c (M rows each, pitches
+// knh, kc, ldc and knh) and the partial rows (n_tiles x 2 NH f32: dS_h),
+// the workspace of cam_f2.cu:carve_f2b.
+template <int NTB>
+__global__ void __launch_bounds__(FT, 1)
+f2b_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
+              const bf16 *__restrict__ w, const float *__restrict__ bnh,
+              const float *__restrict__ dst, bf16 *__restrict__ a,
+              bf16 *__restrict__ dt, bf16 *__restrict__ dc,
+              float *__restrict__ part, bf16 *__restrict__ cb) {
+  fwd_wg_body<NTB, WG_F2B>(
+      g, t, P, xpad, w, nullptr, bnh, nullptr, nullptr, nullptr, a, part,
+      BwdRows{nullptr, nullptr, nullptr, dst, nullptr, dt, dc, cb});
 }
 
 // F3b's phase 0 on the plan P: dr, a, dt, dc and c (M rows each, pitches
@@ -1121,8 +1245,9 @@ f3b_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
               bf16 *__restrict__ dr, bf16 *__restrict__ a,
               bf16 *__restrict__ dt, bf16 *__restrict__ dc,
               float *__restrict__ part, bf16 *__restrict__ cb) {
-  fwd_wg_body<NTB, WG_F3B>(g, t, P, xpad, w, bnr, bnh, bnt, gate, nullptr,
-                           a, part, F3bRows{gout, dr, dt, dc, cb});
+  fwd_wg_body<NTB, WG_F3B>(
+      g, t, P, xpad, w, bnr, bnh, bnt, gate, nullptr, a, part,
+      BwdRows{gout, nullptr, nullptr, nullptr, dr, dt, dc, cb});
 }
 
 // ------------------------------------------------------------ dx
@@ -1400,23 +1525,21 @@ inline bool fwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P) {
   if (!tile_geo(geo, op, g, t)) return false;
   *P = FPlan{};
   if (!t->wide) return true;
-  *P = make_fplan(*g, *t, op);
+  *P = make_fplan(*g, *t);
   return P->nst > 0 && P->smem <= SMEM_MAX;
 }
 
 // tile_geo for a backward (op), with the plans here where make_tgeo takes
-// the wide plan: F3b's phase 0 (P, F3B only) and dx (D).  They fit
-// wherever that plan's refusal (tile_geo) lets a geometry through.
+// the wide plan: phase 0 (P) and dx (D).  They fit wherever that plan's
+// refusal (tile_geo) lets a geometry through.
 inline bool bwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P,
                     DPlan *D) {
   if (!tile_geo(geo, op, g, t)) return false;
   *P = FPlan{};
   *D = DPlan{};
   if (!t->wide) return true;
-  if (op == F3B) {
-    *P = make_fplan(*g, *t, op);
-    if (P->nst <= 0 || P->smem > SMEM_MAX) return false;
-  }
+  *P = make_fplan(*g, *t);
+  if (P->nst <= 0 || P->smem > SMEM_MAX) return false;
   *D = make_dplan(*g, *t);
   return D->nst > 0 && D->smem <= SMEM_MAX;
 }
@@ -1426,10 +1549,10 @@ inline bool bwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P,
 // re-laid weights of phase 0 and phase 1, 4 the wide plan, 5 x's K chunk,
 // 6 a's (the kt^T stages' width where phase 0 runs here), 7 and 8
 // dx_wg_kernel's stage width over a halo chunk and the chunk's width, 9
-// branch slices; where phase 0 runs here (F1, F3, F3b where the wide plan
-// would run them; else 0) 10: 1, 11: its n8 tiles of a slice, 12: x's
-// stage width, 13: a in shared memory, 14: the BN rows there, 15: its
-// stages a tile; where dx_wg_kernel runs (else 0) 16: 1, 17: n8 tiles a
+// branch slices; where phase 0 runs here (every op but F2 where the wide
+// plan would run it; else 0) 10: 1, 11: its n8 tiles of a slice, 12: x's
+// stage width, 13: a in shared memory, 14: the epilogues' rows there, 15:
+// its stages a tile; where dx_wg_kernel runs (else 0) 16: 1, 17: n8 tiles a
 // warpgroup, 18: column passes, 19: the whole halo in shared memory, 20:
 // dr's rows there, 21: its stages a tile; -1 for an invalid geometry or
 // code.
@@ -1443,7 +1566,7 @@ inline long long op_plan(const int *geo, int op, int what) {
                   : op == F2 ? tile_geo(geo, op, &g, &t)
                              : fwd_geo(geo, op, &g, &t, &P);
   if (!ok || what < 0 || what > 21) return -1;
-  const bool wg = t.wide && (op == F1 || op == F3 || op == F3B);
+  const bool wg = t.wide && op != F2;
   const bool dw = t.wide && bwd;
   if (what >= 16) {
     const long long v[] = {1, D.ntw, D.npass, D.hres, D.dr_res, D.nst};

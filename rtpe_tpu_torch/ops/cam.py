@@ -558,12 +558,14 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 # staged once at full depth; elsewhere the wide plan stages every operand
 # in chunks of input channels and walks a branch in slices (cam_tile.cuh:
 # "wide plan"), and refuses only a largest dilation whose halo of one
-# 16-channel chunk does not fit.  There F1, F3 and F3b's phase 0 run the
-# wgmma kernels of csrc/cam_wg.cuh instead ("wg" in tile_plan: whole
-# branches of up to 128 columns, the halo at full depth where it fits,
-# _wg_weights), and every backward's phase 1 its dx_wg_kernel ("dx_wg":
-# all output columns in one block, the dc halo once a tile, _dx_weights),
-# refusing the same.  tile_plan and _tile_weights are that contract's
+# 16-channel chunk does not fit.  There the wide plan runs F2 alone: F1,
+# F3 and the three backwards' phase 0 run the wgmma kernels of
+# csrc/cam_wg.cuh instead (f1_wg_kernel, f3_wg_kernel, f1b_wg_kernel,
+# f2b_wg_kernel, f3b_wg_kernel; "wg" in tile_plan: whole branches of up
+# to 128 columns, the halo at full depth where it fits, _wg_weights), and
+# every backward's phase 1 its dx_wg_kernel ("dx_wg": all output columns
+# in one block, the dc halo once a tile, _dx_weights), refusing the
+# same.  tile_plan and _tile_weights are that contract's
 # Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b"); the C side
 # (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0,
 # WStage0; cam_wg.cuh:make_fplan, fwd_produce, make_dplan, dx_produce,
@@ -580,8 +582,8 @@ TILE_SW_MAX = 40     # columns of a branch (slice) (cam_core.cuh:SW_MAX)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
 # cam_wg.cuh's plan: ring slots, columns of a 1x1 chunk, n8 tiles of a
 # branch slice (the kernels' instances), bytes before the ring, F1's and
-# F3b's column-sum scratch (f32); dx_wg_kernel's n8 tiles a warpgroup (its
-# instances)
+# the branch backward's (F2b, F3b) column-sum scratch (f32); dx_wg_kernel's
+# n8 tiles a warpgroup (its instances)
 WG_NS, WG_N1, WG_NTB, WG_BAR, WG_RED = 4, 64, (2, 4, 6, 8, 12, 16), 128, 1024
 WG_RED3 = 1280
 DX_NTW = (8, 12, 14, 17)
@@ -625,10 +627,10 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     (bf16 elements; w1_elems 0 for a forward) of ``op``'s tile kernels at
     x (b, h, w, c), ``dils``, branch width hc; "wide" 1 for the wide plan,
     with its slices (nsl of sw columns) and phase-0 chunks (kq / nq of kc,
-    kqa / nqa of knh), and there "wg" (F1, F3, F3b's phase 0 on cam_wg.cuh,
-    :func:`_wg_plan`) and "dx_wg" (a backward's phase 1 on dx_wg_kernel,
-    :func:`_dx_plan`); "ok" 0 where the largest dilation's halo does not
-    fit even so."""
+    kqa / nqa of knh), and there "wg" (phase 0 of every op but F2 on
+    cam_wg.cuh, :func:`_wg_plan`) and "dx_wg" (a backward's phase 1 on
+    dx_wg_kernel, :func:`_dx_plan`); "ok" 0 where the largest dilation's
+    halo does not fit even so."""
     res, top, bb = TILE_OPS[op]
     bwd = op.endswith("b")
     nb = len(dils)
@@ -693,34 +695,43 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     p["smem1"] = p["w1_elems"] = 0
     p["w0_elems"] = (9 + bb) * nb * nsl * sw * kc \
         + p["nchr"] * TILE_NC * (kc * res + knh * top)
-    if op in ("f1", "f3", "f3b"):
+    if op != "f2":
         _wg_plan(p, op, c, nb, hc)
     if bwd and p["ok"]:
         _dx_plan(p, res, c, nb)
     return p
 
 
-def _wg_fixed(p, f3, bb, c, nh, kq, a_res, rows):
+def _wg_rows(op, c, nh):
+    """cam_wg.cuh:fplan_rows: f32 elements of the rows ``op``'s epilogues
+    read (f1b dsr and dsh, f2b dst and bnh, f3 and f3b bnr, bnt, the gate
+    and bnh)."""
+    return {"f1": 0, "f1b": 2 * c + 2 * nh,
+            "f2b": 2 * c + 4 * nh}.get(op, 9 * c + 4 * nh)
+
+
+def _wg_fixed(p, op, c, nh, kq, a_res, rows):
     """cam_wg.cuh:fplan_fixed: shared memory besides the ring."""
+    _, top, bb = TILE_OPS[op]
     b = WG_BAR + 2 * p["hr"] * kq
-    if f3 and a_res:
+    if top and a_res:
         b += 2 * TILE_TP * p["knh"]
-    if f3:
-        return b + (4 * (9 * c + 4 * nh) if rows else 0) \
-            + (4 * WG_RED3 if bb else 0)
-    return b + 4 * WG_RED
+    if rows:
+        b += 4 * _wg_rows(op, c, nh)
+    return b + (4 * WG_RED3 if bb else 0) + (4 * WG_RED if op == "f1" else 0)
 
 
 def _wg_plan(p, op, c, nb, hc):
-    """F1's, F3's or F3b's phase-0 plan where the wide plan would run
-    them (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8
+    """The phase-0 plan of F1, F3 or a backward where the wide plan would
+    run it (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8
     tiles (sw columns, nsl slices), 1x1 chunks of WG_N1 columns (nch1),
-    the x halo in nq chunks of kq, x's stages kb wide at most, a's (F3,
-    F3b) kqa (nqa of them), a (a_res) and the BN rows (rows_smem) in
-    shared memory or not; F3b's dt restaged into the halo's buffer in nd
-    chunks of kdq, its stages kbd wide; wg_nst stages a tile; smem0 and
-    w0_elems its own."""
-    f3, bb = op in ("f3", "f3b"), op == "f3b"
+    the x halo in nq chunks of kq, x's stages kb wide at most, a's (top:
+    F3, F2b, F3b) kqa (nqa of them), a (a_res) and the epilogues' rows
+    (rows_smem; F1b's always) in shared memory or not; the branch
+    backward's (F2b, F3b) dt restaged into the halo's buffer in nd chunks
+    of kdq, its stages kbd wide; wg_nst stages a tile; smem0 and w0_elems
+    its own."""
+    res, top, bb = TILE_OPS[op]
     kc, knh, hr, nh = p["kc"], p["knh"], p["hr"], nb * hc
     n8 = -(-hc // 8)
     nsl = -(-n8 // 16)
@@ -729,8 +740,9 @@ def _wg_plan(p, op, c, nb, hc):
     nw = max(sw, WG_N1)
     found = None
     for thr in (64, 16):
-        for m in range(3 if f3 else 1):
-            a_res, rows = int(f3 and m < 2), int(f3 and m < 1)
+        for m in range(3 if top else 1):
+            a_res = int(top and m < 2)
+            rows = int(m < 1) if top else int(op == "f1b")
             prev, nq = 0, 0
             while found is None:
                 nq += 1
@@ -738,8 +750,7 @@ def _wg_plan(p, op, c, nb, hc):
                 if kq == prev:
                     continue
                 prev = kq
-                avail = SMEM_MAX - _wg_fixed(p, f3, bb, c, nh, kq, a_res,
-                                             rows)
+                avail = SMEM_MAX - _wg_fixed(p, op, c, nh, kq, a_res, rows)
                 k = -1 if avail < 0 else avail // (2 * WG_NS * nw) // 16 * 16
                 if k >= min(thr, kq):
                     found = (k, kq, a_res, rows)
@@ -757,7 +768,7 @@ def _wg_plan(p, op, c, nb, hc):
     kbx = _k_chunks(kq, kb)[0]
     kba, nba = 0, 0
     cap = hr * kq // TILE_TP // 16 * 16    # rows restaged into the halo's
-    if f3:                                 # buffer, 64 a plane
+    if top:                                # buffer, 64 a plane
         ka = kb if a_res else min(cap, kb)
         kba, nba = _k_chunks(knh, ka)
     kdq, nd, kbd, nud = 0, 0, 0, 0
@@ -768,16 +779,16 @@ def _wg_plan(p, op, c, nb, hc):
     slot = max(kbx, kba, kbd) * nw
     nu = sum(-(-min(kq, kc - q * kq) // kbx) for q in range(nq))
     nbr = 9 * nb * nsl * nu
-    n11 = nch1 * (nu + f3 * nba)
+    n11 = nch1 * (res * nu + top * nba)
     nst = nbr + n11 + bb * nb * nsl * nud
     p.update(wg=1, ntb=ntb, sw=sw, brows=sw, nsl=nsl, nch1=nch1, kq=kq,
              nq=nq, kb=kbx, kqa=kba, nqa=nba, kqm=max(kbx, kba),
              kw0=max(kbx, kba), a_res=a_res, rows_smem=rows, kdq=kdq, nd=nd,
              kbd=kbd, slot=slot, nbr=nbr, n11=n11, nst0=nst, wg_nst=nst,
-             smem0=_wg_fixed(p, f3, bb, c, nh, kq, a_res, rows)
+             smem0=_wg_fixed(p, op, c, nh, kq, a_res, rows)
              + 2 * WG_NS * slot,
              w0_elems=9 * nb * nsl * kc * sw + nch1 * WG_N1 * (
-                 kc + f3 * knh) + bb * nb * nsl * kc * sw)
+                 res * kc + top * knh) + bb * nb * nsl * kc * sw)
 
 
 def _dx_fixed(p, res, hres, kq, dr_res):
@@ -871,8 +882,11 @@ def _wg_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
     each stage [N / 8][kw][8] (N the stage's output columns) with zeros
     padding K and N: per (branch, slice, chunk of x, tap, stage of kb)
     kh[i, tap] [kw][sw]; then per 1x1 chunk of WG_N1 output columns kr's
-    x stages [kw][WG_N1] and (f3, f3b) kt's stages over knh; then (f3b)
-    per (branch, slice, chunk of dt, stage of kbd) kt[i]^T [kw][sw]."""
+    x stages [kw][WG_N1] (f1, f3, f1b, f3b) and kt's stages over knh (f3,
+    f2b, f3b); then (f2b, f3b) per (branch, slice, chunk of dt, stage of
+    kbd) kt[i]^T [kw][sw].  So f1b's layout is f1's and f2b's f3b's
+    without the kr stages."""
+    res, top, bb = TILE_OPS[op]
     nb, _, _, c, hc = kh.shape
     nh = nb * hc
     kc, knh, nsl, sw, nch1 = p["kc"], p["knh"], p["nsl"], p["sw"], p["nch1"]
@@ -886,16 +900,18 @@ def _wg_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
             [_wg_block(khp, k0, kw).reshape(nb, nsl, 9, -1)
              for k0, kw in chunk], 3).reshape(nb, nsl, -1))
     ncol = nch1 * WG_N1
-    krp = F.pad(kr, (0, ncol - c, 0, kc - c)).reshape(kc, nch1, WG_N1)
-    ones = [_wg_block(krp.transpose(0, 1), k0, kw).reshape(nch1, -1)
-            for chunk in xst for k0, kw in chunk]
-    if op in ("f3", "f3b"):
+    ones = []
+    if res:
+        krp = F.pad(kr, (0, ncol - c, 0, kc - c)).reshape(kc, nch1, WG_N1)
+        ones += [_wg_block(krp.transpose(0, 1), k0, kw).reshape(nch1, -1)
+                 for chunk in xst for k0, kw in chunk]
+    if top:
         ktp = F.pad(kt.reshape(nh, c), (0, ncol - c, 0, knh - nh))
         ktp = ktp.reshape(knh, nch1, WG_N1).transpose(0, 1)
         ones += [_wg_block(ktp, k0, kw).reshape(nch1, -1)
                  for k0, kw in _wg_stages(knh, p["kqa"])]
     out = [torch.cat(branch, 2).reshape(-1), torch.cat(ones, 1).reshape(-1)]
-    if op == "f3b":
+    if bb:
         # kt[i]^T (kc, nsl sw) per branch, a slice's columns a stage
         ktb = F.pad(kt.transpose(1, 2), (0, nsl * sw - hc, 0, kc - c))
         ktb = ktb.reshape(nb, kc, nsl, sw).transpose(1, 2)
@@ -950,12 +966,12 @@ def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
     rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
     nb x 9 stages of kh[i, tap] [nxr][khc].  Where ``plan`` (the call's
     :func:`tile_plan`) is the wide one, its layout instead: w0 the wide
-    plan's (:func:`_wide_weights`) or, where phase 0 runs cam_wg.cuh's
-    kernels (``plan["wg"]``: F1, F3, F3b), theirs (:func:`_wg_weights`);
-    w1 dx_wg_kernel's (:func:`_dx_weights`)."""
+    plan's (:func:`_wide_weights`, F2) or, where phase 0 runs cam_wg.cuh's
+    kernels (``plan["wg"]``: every other op), theirs
+    (:func:`_wg_weights`); w1 dx_wg_kernel's (:func:`_dx_weights`)."""
     if plan is not None and plan["wide"]:
         w0 = (_wg_weights(op, plan, kr, kh, kt) if plan["wg"]
-              else _wide_weights(op, plan, kr, kh, kt))
+              else _wide_weights(plan, kh, kt))
         w1 = _dx_weights(op, plan, kr, kh) if op.endswith("b") else None
         return w0, w1
     nb, _, _, c, hc = kh.shape
@@ -994,17 +1010,15 @@ def _k_split(t: torch.Tensor, width: int) -> list:
     return list(torch.split(t, width, dim=-1))
 
 
-def _wide_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
+def _wide_weights(p: Dict[str, int], kh, kt) -> torch.Tensor:
     """The wide plan's phase-0 weights (``cam_tile.cuh:WStage0`` walks
-    them; F2, F1b, F2b), [n][k] with zeros padding n and k: per (branch,
-    slice, chunk of kc, tap) [sw][kw] of kh[i, tap]^T; per 1x1 chunk of
-    TILE_NC output channels its kr^T chunks [NC][kw] (f1b), then its kt^T
-    chunks of knh [NC][kw] (f2, f2b); per (branch, slice, chunk of kc)
-    [sw][kw] of kt[i] (f2b)."""
-    res, top, bb = TILE_OPS[op]
+    them; F2's, the one op it runs), [n][k] with zeros padding n and k:
+    per (branch, slice, chunk of kc, tap) [sw][kw] of kh[i, tap]^T; per
+    1x1 chunk of TILE_NC output channels its kt^T chunks of knh
+    [NC][kw]."""
     nb, _, _, c, hc = kh.shape
     nh = nb * hc
-    kc, khc, knh, nsl, sw = p["kc"], p["khc"], p["knh"], p["nsl"], p["sw"]
+    kc, knh, nsl, sw = p["kc"], p["knh"], p["nsl"], p["sw"]
     nchr, kq = p["nchr"], p["kq"]
     cpad = nchr * TILE_NC
     # (nb, 9, kc, nsl, sw) -> per chunk (nb, nsl, 9, sw, kw)
@@ -1012,21 +1026,10 @@ def _wide_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
     taps = taps.reshape(nb, 9, kc, nsl, sw).permute(0, 3, 1, 4, 2)
     w0 = [torch.cat([q.reshape(nb, nsl, -1) for q in _k_split(taps, kq)],
                     2).reshape(-1)]
-    chunk = []
-    if res:
-        krt = F.pad(kr.t(), (0, kc - c, 0, cpad - c)).reshape(nchr, TILE_NC,
-                                                              kc)
-        chunk += [q.reshape(nchr, -1) for q in _k_split(krt, kq)]
-    if top:
-        ktt = F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c))
-        ktt = ktt.reshape(nchr, TILE_NC, knh)
-        chunk += [q.reshape(nchr, -1) for q in _k_split(ktt, p["kqa"])]
-    w0.append(torch.cat(chunk, 1).reshape(-1))
-    if bb:
-        ktb = F.pad(kt, (0, kc - c, 0, nsl * sw - hc))
-        ktb = ktb.reshape(nb, nsl, sw, kc)
-        w0.append(torch.cat([q.reshape(nb, nsl, -1)
-                             for q in _k_split(ktb, kq)], 2).reshape(-1))
+    ktt = F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c))
+    ktt = ktt.reshape(nchr, TILE_NC, knh)
+    w0.append(torch.cat([q.reshape(nchr, -1)
+                         for q in _k_split(ktt, p["kqa"])], 1).reshape(-1))
     return torch.cat(w0).contiguous()
 
 
@@ -1063,10 +1066,11 @@ def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
 
 def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
     """F1b (replaces ``pallas_cam.py:_f1b_call``): (dx, dkr, dkh).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``, dx on
-    ``csrc/cam_wg.cuh``'s dx_wg_kernel where the wide plan would run it
-    (``tile_plan``'s "dx_wg"); ``ValueError`` only for a largest dilation
-    whose halo does not fit (:func:`tile_plan`)."""
+    the card the tile kernels of ``csrc/cam_tile.cuh``, or where the wide
+    plan would run them ``csrc/cam_wg.cuh``'s f1b_wg_kernel for phase 0
+    and dx_wg_kernel for dx (``tile_plan``'s "wg" and "dx_wg");
+    ``ValueError`` only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_bwd"):
         return cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils)
     x, kr, kh, dsr, dsh, dgap = _check(x, kr, kh, None, dils,
@@ -1105,10 +1109,11 @@ def _f2b_launch(x, kh, kt, bnh, dst, dils):
 
 def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
     """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``, dx on
-    ``csrc/cam_wg.cuh``'s dx_wg_kernel where the wide plan would run it
-    (``tile_plan``'s "dx_wg"); ``ValueError`` only for a largest dilation
-    whose halo does not fit (:func:`tile_plan`)."""
+    the card the tile kernels of ``csrc/cam_tile.cuh``, or where the wide
+    plan would run them ``csrc/cam_wg.cuh``'s f2b_wg_kernel for phase 0
+    and dx_wg_kernel for dx (``tile_plan``'s "wg" and "dx_wg");
+    ``ValueError`` only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_bwd"):
         return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
     out, _ = _f2b_launch(x, kh, kt, bnh, dst, dils)

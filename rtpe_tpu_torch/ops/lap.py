@@ -48,7 +48,11 @@ def lap_columns(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
     loop has ended (what ``vmap`` of the JAX loops does), with the
     kernel's float32 arithmetic step for step.  ``lap_columns.passes``
     counts the (matrix, Dijkstra step) pairs run: the work these
-    inputs need (``chip_smoke.py`` bounds the kernel with it).
+    inputs need (``chip_smoke.py`` bounds the kernel with it), and
+    ``lap_columns.image_passes`` the same for each matrix of the batch,
+    (B,) int64, summed over the calls since it was last set to None (a
+    call of another batch starts it again): the longest matrix's chain
+    of steps from one batched solve.
     """
     b, _, mc = cost.shape
     dev = cost.device
@@ -65,6 +69,10 @@ def lap_columns(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
     p = torch.zeros((b, mc + 1), dtype=torch.int64, device=dev)
     failed = torch.zeros(b, dtype=torch.bool, device=dev)
     n_max = int(n_rows.max()) if b else 0
+    counts = lap_columns.image_passes
+    if counts is None or counts.shape != (b,) or counts.device != dev:
+        lap_columns.image_passes = torch.zeros(b, dtype=torch.int64,
+                                               device=dev)
     for i in range(1, n_max + 1):
         p[:, 0] = i
         u_col[:, 0] = 0.0
@@ -80,6 +88,7 @@ def lap_columns(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
             if not n_act:
                 break
             lap_columns.passes += n_act
+            lap_columns.image_passes += act
             used = used | (act[:, None] & (lane[None, :] == j0[:, None]))
             crow = crows[bi, (pj0 - 1).clamp(min=0)]
             cur = torch.where(valid & ~used, crow - uj0[:, None] - v, inf)
@@ -113,6 +122,7 @@ def lap_columns(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
 
 
 lap_columns.passes = 0
+lap_columns.image_passes = None
 
 
 def rows_to_columns(p: torch.Tensor, n: int) -> torch.Tensor:

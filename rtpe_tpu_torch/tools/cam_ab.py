@@ -128,7 +128,8 @@ TIMED = ("steps", "pyramid_hi", "step128")
 # than the parent's: a per-pixel bf16 output may round the other way
 # (F3's out: one bf16 step of an element near max |parent| is 2^-8), a
 # backward's ReLU mask may flip where its recomputed conv rounds the
-# other way (F3b's phase 0 on f3b_wg_kernel; every dx on dx_wg_kernel)
+# other way (every backward's phase 0 on f1b_wg_kernel / f2b_wg_kernel /
+# f3b_wg_kernel; every dx on dx_wg_kernel)
 REDESIGNED = {"cam_f1_fwd", "cam_f3_fwd", "cam_f1_bwd", "cam_f2_bwd",
               "cam_f3_bwd"}
 REDESIGN_TOL = 2.0 ** -6
@@ -160,7 +161,8 @@ def kernel_part(name: str) -> str:
         return "wgrad_plain"
     if "dx_kernel" in name or "dx_wg_kernel" in name:
         return "dx"
-    if "f3b_wg_kernel" in name:
+    if any(k in name for k in ("f1b_wg_kernel", "f2b_wg_kernel",
+                               "f3b_wg_kernel")):
         return "phase0"
     if "_wg_kernel" in name:
         return "forward"

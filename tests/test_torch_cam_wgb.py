@@ -126,7 +126,8 @@ def dx_stages(op, p, nb):
 @pytest.mark.parametrize("op,name", by_op(GRID))
 def test_wgb_plans_fit_every_width(op, name):
     """F1b, F2b and F3b at every shape of the width grid: dx_wg_kernel's
-    plan (and F3b's f3b_wg_kernel plan) where the wide plan would run
+    plan (and F3b's f3b_wg_kernel plan; F1b's and F2b's phase 0 are
+    ``tests/test_torch_cam_wgb0.py``'s) where the wide plan would run
     (the train step's shapes and the pyramid's narrow ones keep the
     whole-depth plan), within SMEM_MAX as the kernels carve it: the dc
     halo (whole or two chunk buffers), dr's rows (whole or a stage), the
@@ -143,7 +144,7 @@ def test_wgb_plans_fit_every_width(op, name):
     if name in TRAIN | WHOLE_DEPTH:
         assert not (p["wide"] or p["wg"] or p["dx_wg"])
         return
-    assert p["dx_wg"] and p["wg"] == (op == "f3b")
+    assert p["dx_wg"] and p["wg"]
     ntw, npass, np_ = p["dx_ntw"], p["dx_npass"], p["dx_np"]
     assert ntw in cam.DX_NTW and np_ == 16 * ntw
     assert npass * np_ >= c > (npass - 1) * np_
@@ -187,7 +188,7 @@ def test_wgb_plans_refuse_what_the_wide_plan_refuses(op):
     exactly where the wide plan's limit lets it through (its x halo of
     one 16-channel chunk with the ring, and the mma.sync phase 1's dc
     halo with its slots: ``cam_tile.cuh:make_tgeo``), and there it gets
-    dx_wg_kernel's plan (and F3b f3b_wg_kernel's) within SMEM_MAX; at
+    dx_wg_kernel's plan and its phase 0's within SMEM_MAX; at
     C = 163 F1b and F3b take a largest dilation of 18 and refuse 19,
     F2b takes 19 and refuses 20."""
     res, top, bb = cam.TILE_OPS[op]
@@ -204,7 +205,7 @@ def test_wgb_plans_refuse_what_the_wide_plan_refuses(op):
                      and cam._k_fit(hr, nxr + res * TP, 0) >= 0)
             assert bool(p["ok"]) == limit, (c, hc, d)
             if limit:
-                assert p["dx_wg"] and p["wg"] == (op == "f3b")
+                assert p["dx_wg"] and p["wg"]
                 assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
     d = DIL_LAST[op]
     assert cam.tile_plan(op, 1, 16, 16, 163, (1, d), 40)["ok"]

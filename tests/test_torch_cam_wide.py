@@ -9,14 +9,15 @@ student step at those widths against the JAX package.
   to 6 and 8, and the train step's two shapes.  ``tile_plan`` of all six
   ops fits a block's shared memory at each of them, keeps the
   whole-depth plan where it fits (the train step's shapes) and takes the
-  wide one elsewhere (F1, F3 and F3b's phase 0 there the wgmma plan of
-  ``csrc/cam_wg.cuh``: whole branches of up to 128 columns, and every
-  backward's phase 1 its ``dx_wg_kernel``; their own tests are
-  ``tests/test_torch_cam_wg.py`` and ``tests/test_torch_cam_wgb.py``).
+  wide one elsewhere (F1, F3 and every backward's phase 0 there the
+  wgmma plan of ``csrc/cam_wg.cuh``: whole branches of up to 128
+  columns, and every backward's phase 1 its ``dx_wg_kernel``; their own
+  tests are ``tests/test_torch_cam_wg.py``, ``tests/test_torch_cam_wgb.py``
+  and ``tests/test_torch_cam_wgb0.py``).
 * The wide plan's re-laid weights (``ops/cam.py:_wide_weights``), stage
   by stage as the kernels walk them (a model of
-  ``cam_tile.cuh:WStage0``), give back kr, kh and kt with zero padding,
-  for the three ops whose phase 0 runs it.
+  ``cam_tile.cuh:WStage0``), give back kh and kt with zero padding, for
+  F2, the one op whose phase 0 runs it.
 * ``fused_cam`` (the plain versions, on the CPU) against
   ``rtpe_tpu.ops.pallas_cam.fused_cam`` in interpret mode at two wide
   shapes, forward and gradients, with ``tests/test_torch_cam.py``'s
@@ -80,22 +81,22 @@ def test_tile_plan_fits_every_width(op, name):
     """Every op at every shape of the grid: a plan, within SMEM_MAX in
     both phases, whole-depth where that fits (one K chunk, one slice);
     otherwise the wide plan: slices of at most 40 columns covering hc
-    (F1's, F3's and F3b's wgmma plan: of at most 128), chunks of at most
-    the widest that fits covering kc and knh (F1's wgmma plan reads no
-    a), a backward's phase 1 on dx_wg_kernel."""
+    (the wgmma plan of every op but F2: of at most 128), chunks of at
+    most the widest that fits covering kc and knh (F1's and F1b's wgmma
+    plans read no a), a backward's phase 1 on dx_wg_kernel."""
     b, h, w, c, dils, hc = shape = GRID[name]
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
     assert p["wide"] == (name not in WHOLE_DEPTH
                          and (op, name) not in WHOLE_DEPTH_OPS)
-    assert p["wg"] == (p["wide"] and op in ("f1", "f3", "f3b"))
+    assert p["wg"] == (p["wide"] and op != "f2")
     assert p["dx_wg"] == (p["wide"] and op.endswith("b"))
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
     sw_max = 8 * max(cam.WG_NTB) if p["wg"] else cam.TILE_SW_MAX
     assert p["sw"] <= sw_max and p["sw"] % 8 == 0
     chunks = [(p["kc"], p["kq"], p["nq"])]
-    if not (p["wg"] and op == "f1"):
+    if not (p["wg"] and op in ("f1", "f1b")):
         chunks.append((p["knh"], p["kqa"], p["nqa"]))
     for k, width, n in chunks:
         assert width % 16 == 0 and 0 < k - (n - 1) * width <= width
@@ -104,13 +105,11 @@ def test_tile_plan_fits_every_width(op, name):
         assert p["kq"] == p["kc"]
 
 
-def wide_stage0(p, nb, s, op):
-    """Phase-0 stage s of the wide plan, as ``cam_tile.cuh:WStage0`` walks
-    w0: (offset, rows, k width, kind, first k, branch, slice, tap, 1x1
-    chunk); kind "br" (branch convs: branch, slice, K chunk of kc, tap),
-    "res" / "top" (per 1x1 chunk of NC channels its K chunks of kc, then
-    of knh) or "bb" (branch backward: branch, slice, K chunk of kc)."""
-    res, top, bb = cam.TILE_OPS[op]
+def wide_stage0(p, nb, s):
+    """Phase-0 stage s of the wide plan (F2's), as ``cam_tile.cuh:WStage0``
+    walks w0: (offset, rows, k width, kind, first k, branch, slice, tap,
+    1x1 chunk); kind "br" (branch convs: branch, slice, K chunk of kc,
+    tap) or "top" (per 1x1 chunk of NC channels its K chunks of knh)."""
     kc, knh, sw, nsl = p["kc"], p["knh"], p["sw"], p["nsl"]
     kq, nq, kqa, nqa = p["kq"], p["nq"], p["kqa"], p["nqa"]
     blk = 9 * sw * kc
@@ -121,25 +120,10 @@ def wide_stage0(p, nb, s, op):
         kw = min(kq, kc - q * kq)
         return (isl * blk + 9 * q * sw * kq + tap * sw * kw, sw, kw, "br",
                 q * kq, isl // nsl, isl % nsl, tap, None)
-    s -= nbr
-    base1 = nb * nsl * blk
-    per = res * nq + top * nqa
-    pair = NC * (res * kc + top * knh)
-    if s < p["nchr"] * per:
-        ch, v = divmod(s, per)
-        if res and v < nq:
-            kw = min(kq, kc - v * kq)
-            return (base1 + ch * pair + v * NC * kq, NC, kw, "res", v * kq,
-                    None, None, None, ch)
-        q = v - res * nq
-        kw = min(kqa, knh - q * kqa)
-        return (base1 + ch * pair + res * NC * kc + q * NC * kqa, NC, kw,
-                "top", q * kqa, None, None, None, ch)
-    s -= p["nchr"] * per
-    q, isl = s % nq, s // nq
-    kw = min(kq, kc - q * kq)
-    return (base1 + p["nchr"] * pair + isl * sw * kc + q * sw * kq, sw, kw,
-            "bb", q * kq, isl // nsl, isl % nsl, None, None)
+    ch, q = divmod(s - nbr, nqa)
+    kw = min(kqa, knh - q * kqa)
+    return (nb * nsl * blk + ch * NC * knh + q * NC * kqa, NC, kw, "top",
+            q * kqa, None, None, None, ch)
 
 
 # the wide grid's weight shapes (the layout depends on C, the
@@ -160,10 +144,10 @@ def _weights(c, nb, hc, seed):
     return draw(c, c), draw(nb, 3, 3, c, hc), draw(nb, hc, c)
 
 
-# F1, F3 and F3b's phase 0 run cam_wg.cuh's kernels where the wide plan
-# would run them, and so does every backward's phase 1: their re-laid
-# weights are tests/test_torch_cam_wg.py's and test_torch_cam_wgb.py's
-WIDE_OPS = ("f1b", "f2b", "f2")
+# every phase but F2's runs cam_wg.cuh's kernels where the wide plan
+# would run it: their re-laid weights are tests/test_torch_cam_wg.py's,
+# test_torch_cam_wgb.py's and test_torch_cam_wgb0.py's
+WIDE_OPS = ("f2",)
 
 
 @pytest.mark.parametrize("op,name", [
@@ -172,13 +156,11 @@ WIDE_OPS = ("f1b", "f2b", "f2")
 def test_wide_weights_unpad_to_the_inputs(op, name):
     b, h, w, c, dils, hc = shape = WEIGHT_SHAPES[name]
     nb, nh = len(dils), len(dils) * hc
-    res, top, bb = cam.TILE_OPS[op]
     p = cam.tile_plan(op, *shape)
-    assert p["wide"]
-    kr, kh, kt = _weights(c, nb, hc, 3)
-    w0, w1 = cam._tile_weights(op, kr if res else None, kh,
-                               kt if top else None, p)
-    assert w0.numel() == p["w0_elems"]
+    assert p["wide"] and not p["wg"]
+    _, kh, kt = _weights(c, nb, hc, 3)
+    w0, w1 = cam._tile_weights(op, None, kh, kt, p)
+    assert w0.numel() == p["w0_elems"] and w1 is None
 
     def check(block, want):
         n, k = want.shape
@@ -188,7 +170,7 @@ def test_wide_weights_unpad_to_the_inputs(op, name):
     ktf = kt.reshape(nh, c)
     kinds = []
     for s in range(p["nst0"]):
-        off, rows, kw, kind, k0, i, sl, tap, ch = wide_stage0(p, nb, s, op)
+        off, rows, kw, kind, k0, i, sl, tap, ch = wide_stage0(p, nb, s)
         assert kw % 16 == 0 and kw <= p["kqm"] and rows <= NC
         block = w0[off:off + rows * kw].reshape(rows, kw)
         kinds.append(kind)
@@ -196,21 +178,12 @@ def test_wide_weights_unpad_to_the_inputs(op, name):
             s0 = sl * p["sw"]
             check(block, kh[i, tap // 3, tap % 3, k0:k0 + kw,
                             s0:s0 + p["sw"]].t())
-        elif kind == "bb":
-            s0 = sl * p["sw"]
-            check(block, kt[i, s0:s0 + p["sw"], k0:k0 + kw])
         else:
-            src = kr if kind == "res" else ktf
-            check(block, src[k0:k0 + kw, ch * NC:(ch + 1) * NC].t())
+            check(block, ktf[k0:k0 + kw, ch * NC:(ch + 1) * NC].t())
     assert off + rows * kw == p["w0_elems"]      # the last stage ends w0
     assert kinds.count("br") == p["nbr"] == 9 * nb * p["nsl"] * p["nq"]
-    assert kinds.count("res") == res * p["nchr"] * p["nq"]
-    assert kinds.count("top") == top * p["nchr"] * p["nqa"]
-    assert kinds.count("bb") == bb * nb * p["nsl"] * p["nq"]
-    if not op.endswith("b"):
-        assert w1 is None and p["w1_elems"] == 0
-        return
-    assert w1.numel() == p["w1_elems"]       # dx_wg_kernel's layout
+    assert kinds.count("top") == p["nchr"] * p["nqa"]
+    assert p["w1_elems"] == 0
 
 
 # ------------------------------------------------------------ fused_cam

@@ -820,15 +820,30 @@ WIDE_BHW = (2, 21, 19)
     + WIDTH_GRID))
 def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     """Shared memory, re-laid weight sizes and the wide plan (its flag,
-    K chunks and slices), where F1, F3 and F3b's phase 0 run cam_wg.cuh's
-    kernels that plan's (its flag, n8 tiles of a slice, x's stage width,
-    a and the BN rows in shared memory, stages), and where a backward's
+    K chunks and slices), where F1, F3 and every backward's phase 0 run
+    cam_wg.cuh's kernels that plan's (its flag, n8 tiles of a slice, x's
+    stage width, a and the epilogues' rows in shared memory, stages;
+    F1b's and F2b's phase 0 too at every width-grid shape), and where a
+    backward's
     phase 1 runs dx_wg_kernel its plan's (stage and halo chunk widths,
     n8 tiles a warpgroup, column passes, the halo and dr's rows in shared
     memory, stages): the C formulas (cam_wg.cuh:op_plan, exported as
     cam_f{1,2,3}_plan and cam_f{1,2,3}b_plan) and the Python ones
     (ops/cam.py:tile_plan) agree on all of ``cam.PLAN_CODES``, for each
     tile op."""
+    lib, geo, p = _plan_codes_match(op, shape)
+    if f"cam_{op}_workspace" in cam._WORKSPACE[f"cam_{op[:2]}"]:
+        # F3's is the wgmma plan's a rows where it keeps a out of shared
+        # memory, none elsewhere
+        assert (getattr(lib, f"cam_{op}_workspace")(
+            cam.ctypes.addressof(geo)) > 0) == (
+                op != "f3" or (p["wg"] and not p["a_res"]))
+
+
+def _plan_codes_match(op, shape):
+    """cam_<op>_plan's codes (cam_wg.cuh:op_plan) at ``shape`` equal
+    ``tile_plan``'s, all of ``cam.PLAN_CODES``: (library, geometry,
+    plan)."""
     b, h, w, c, dils, hc = shape
     x = torch.empty((b, h, w, c), dtype=torch.bfloat16)
     kh = torch.empty((len(dils), 3, 3, c, hc), dtype=torch.bfloat16)
@@ -839,12 +854,7 @@ def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     got = [plan(cam.ctypes.addressof(geo), k)
            for k in range(len(cam.PLAN_CODES))]
     assert got == [p[k] for k in cam.PLAN_CODES]
-    if f"cam_{op}_workspace" in cam._WORKSPACE[f"cam_{op[:2]}"]:
-        # F3's is the wgmma plan's a rows where it keeps a out of shared
-        # memory, none elsewhere
-        assert (getattr(lib, f"cam_{op}_workspace")(
-            cam.ctypes.addressof(geo)) > 0) == (
-                op != "f3" or (p["wg"] and not p["a_res"]))
+    return lib, geo, p
 
 
 def _refuses_a_halo_that_does_not_fit(device, op, dils=(1, 20)):
@@ -932,12 +942,13 @@ def test_cam_wg_forwards_match_plain(no_tf32, op, shape):
     assert not faults, faults
 
 
-# F3b's phase 0 and every backward's phase 1 on cam_wg.cuh's kernels
-# (f3b_wg_kernel, dx_wg_kernel): the step CAM of --inplanes 128 at the
-# train step's size, ragged images at C = 259 and 515 (the dc halo in two
-# branch buffers, two column passes, the x halo in K chunks), six
-# dilations up to 8 at C = 163, and a plan with two branch slices that
-# keeps F3b's a and BN rows out of shared memory
+# every backward's phase 0 and phase 1 on cam_wg.cuh's kernels
+# (f1b_wg_kernel, f2b_wg_kernel, f3b_wg_kernel, dx_wg_kernel): the step
+# CAM of --inplanes 128 at the train step's size, ragged images at C = 259
+# and 515 (the dc halo in two branch buffers, two column passes, the x
+# halo in K chunks), six dilations up to 8 at C = 163, and a plan with two
+# branch slices that keeps F2b's and F3b's a and rows out of shared
+# memory
 WGB_SHAPES = [(16, 113, 113, 259, (1, 2, 3), 64),
               (2, 21, 19, 259, (1, 2, 3), 64),
               (2, 21, 19, 515, (1, 2, 3), 128),
@@ -948,13 +959,16 @@ WGB_SHAPES = [(16, 113, 113, 259, (1, 2, 3), 64),
 @pytest.mark.parametrize("op", ["f3b", "f1b", "f2b"])
 @pytest.mark.parametrize("shape", WGB_SHAPES)
 def test_cam_wgb_backwards_match_plain(no_tf32, op, shape):
-    """F1b, F2b and F3b where dx_wg_kernel (and for F3b f3b_wg_kernel)
-    run, counted launches: exact-sum inputs with every per-pixel output
+    """F1b, F2b and F3b where their phase-0 kernels (f1b_wg_kernel,
+    f2b_wg_kernel, f3b_wg_kernel) and dx_wg_kernel run, counted launches;
+    their plan codes equal ``tile_plan``'s: exact-sum inputs with every
+    per-pixel output
     bitwise the plain version's and every reduction within
     ``cam_check.SUM_TOL`` of its float64 sum of |terms|; random inputs
     within the float64 check's limits (small caps)."""
     p = cam.tile_plan(op, *shape)
-    assert p["dx_wg"] and p["wg"] == (op == "f3b")
+    assert p["dx_wg"] and p["wg"]
+    _plan_codes_match(op, shape)
     case = cam_case(*shape, seed=11, device=no_tf32, exact=True)
     name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
     before = kernel.launches
@@ -981,11 +995,13 @@ DIL_LAST = {"f3b": 18, "f1b": 18, "f2b": 19}
 @pytest.mark.parametrize("op", ["f3b", "f1b", "f2b"])
 def test_cam_wgb_refuses_a_dilation_of_19(no_tf32, op):
     """At C = 163 F1b and F3b take a largest dilation of 18 on the new
-    kernels (dx bitwise the plain version's on exact sums) and refuse 19,
-    F2b takes 19 and refuses 20, as the wide plan did: the refusal stays
-    the ops'."""
+    kernels (both phases on cam_wg.cuh; dx bitwise the plain version's on
+    exact sums) and refuse 19, F2b takes 19 and refuses 20, as the wide
+    plan did: the refusal stays the ops'."""
     d = DIL_LAST[op]
-    assert cam.tile_plan(op, 1, 16, 16, 163, (1, d), 40)["dx_wg"]
+    p = cam.tile_plan(op, 1, 16, 16, 163, (1, d), 40)
+    assert p["dx_wg"] and p["wg"]
+    _plan_codes_match(op, (1, 16, 16, 163, (1, d), 40))
     assert not cam.tile_plan(op, 1, 16, 16, 163, (1, d + 1), 40)["ok"]
     case = cam_case(1, 16, 16, 163, (1, d), 40, seed=3, device=no_tf32,
                     exact=True)

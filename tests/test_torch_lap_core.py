@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from chip_smoke import decode_costs
 from rtpe_tpu.ops.pallas_lap import hungarian_rect_pallas
-from rtpe_tpu_torch.ops.lap import lap_rect_plain
+from rtpe_tpu_torch.ops.lap import lap_columns, lap_rect_plain
 
 F32 = torch.float32
 INF = 1e18
@@ -224,3 +224,27 @@ def test_walk_on_random_tie_matrices(n, extra, seed, q):
     c = torch.from_numpy(cost)
     assert torch.equal(columns(lap_warp(c, q), n, m),
                        lap_rect_plain(c[None])[0])
+
+
+@pytest.mark.parametrize("m", [30, 63, 127])
+def test_image_passes_count_each_matrix(m):
+    """``lap_columns.image_passes`` after one batched solve: each matrix's
+    Dijkstra steps as the matrix solved alone counts them (``passes``),
+    summed over calls until it is set to None, restarted by a call of
+    another batch (``chip_smoke.py`` takes the longest image's chain of
+    steps from it)."""
+    cost = torch.from_numpy(decode_costs(8, min(30, m), m,
+                                         np.random.default_rng(m + 1)))
+    alone = []
+    for i in range(cost.shape[0]):
+        lap_columns.passes = 0
+        lap_rect_plain(cost[i:i + 1])
+        alone.append(lap_columns.passes)
+    assert len(set(alone)) > 1
+    lap_columns.image_passes = None
+    lap_rect_plain(cost)
+    assert lap_columns.image_passes.tolist() == alone
+    lap_rect_plain(cost)
+    assert lap_columns.image_passes.tolist() == [2 * a for a in alone]
+    lap_rect_plain(cost[:3])
+    assert lap_columns.image_passes.tolist() == alone[:3]
