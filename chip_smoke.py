@@ -89,9 +89,9 @@ Phases, each of which fails the run:
     plain versions (``rtpe_tpu_torch/tools/cam_check.py``) at the train
     step's two CAM shapes, B=16, 113 x 113 x 163 (dilations 1-3) and x 83
     (1-4), its step CAM at ``--inplanes`` 128 (113 x 113 x 259, hc = 64,
-    B=16: the wide plan at full size), and a ragged (3, 29, 21, 83) case
-    with per-image gates of both
-    signs (all six on the 8 x 8 tiles of ``csrc/cam_tile.cuh``): on
+    B=16: the wgmma kernels of ``csrc/cam_wg.cuh`` at full size), and a
+    ragged (3, 29, 21, 83) case with per-image gates of both signs (the
+    other three on the 8 x 8 tiles of ``csrc/cam_tile.cuh``): on
     random inputs each output within the limits two float32 controls
     (TF32 off and on) set, F2b's and F3b's also with each one's own
     masks pinned (the kernels' read from their scratch) and by their
@@ -102,10 +102,10 @@ Phases, each of which fails the run:
     every pixel reduction within 2^-14 of its float64 sum of |terms|;
     the same two checks at the width grid (``WIDE_CAMS``: the student's
     CAMs at ``--inplanes`` 96, 128 and 256 and six dilations up to 6 and
-    8 at C = 163, B = 2, 21 x 19, on the kernels' wide plan: K-chunked
-    halos and stages, branches in slices of at most 40 columns; F1, F3
-    and the three backwards there on the wgmma kernels of
-    ``csrc/cam_wg.cuh``, whole branches of up to 128 columns);
+    8 at C = 163, B = 2, 21 x 19, where the whole-depth plan does not
+    fit: all six ops there on the wgmma kernels of ``csrc/cam_wg.cuh``,
+    whole branches of up to 128 columns, K-chunked halos where they do
+    not fit);
     then the backwards' weight-gradient kernels alone (``cam.cam_wgrad``:
     dkh at each dilation, dkr, dkt) against a float64 product of the
     same bf16 operands at both train shapes, the ragged shape and C = 12
@@ -124,7 +124,7 @@ Phases, each of which fails the run:
     within 1e-3 of each other; step times, peak memory and a
     ``torch.profiler`` view of one fused step; then the same fused and
     cuDNN pair at ``--inplanes 128`` (its step CAMs, C = 259, hc = 64,
-    where the wide plan would run: F2 on it, the other five ops on
+    where the whole-depth plan does not fit: all six ops on
     ``cam_wg.cuh``'s kernels): launches, losses within 1e-3, ms, img/s,
     peak GB;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
@@ -136,9 +136,9 @@ Phases, each of which fails the run:
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper), each
     kernel under its own name (``tile_parts``: the whole-depth plan's
     ``<op>_tile_kernel`` and ``dx_kernel``, at ``at_step128`` the
-    wide plan's ``f2_tile_kernel<true>``, ``f1_wg_kernel`` /
-    ``f3_wg_kernel``, the backwards' phase 0 ``f1b_wg_kernel`` /
-    ``f2b_wg_kernel`` / ``f3b_wg_kernel`` and their ``dx_wg_kernel``).
+    wgmma kernels ``f1_wg_kernel`` / ``f2_wg_kernel`` / ``f3_wg_kernel``,
+    the backwards' phase 0 ``f1b_wg_kernel`` / ``f2b_wg_kernel`` /
+    ``f3b_wg_kernel`` and their ``dx_wg_kernel``).
 
 20. flip and multi-scale (0.5, 1, 2) TTA at full W48 width on 640 x 640
     images: the grouping self-checks at D=2 (the solver ``lap="auto"``
@@ -370,16 +370,13 @@ TILE_OPS = {"cam_f1_fwd": ("f1", None), "cam_f2_fwd": ("f2", None),
 
 def tile_parts(name: str, wide: bool) -> tuple:
     """The kernels of tiled op ``name`` by the names the profiler gives
-    them, those of the whole-depth plan or (``wide``) of the wide plan:
-    F2's ``f2_tile_kernel<false|true>``, every other op's
-    ``<op>_tile_kernel`` and where the wide plan would run it
-    ``<op>_wg_kernel``, ``dx_kernel`` or ``dx_wg_kernel`` (each matched
-    after its namespace's ``::``; ``dx_wg_kernel<ntw, dr, gap>``)."""
+    them, those of the whole-depth plan (``<op>_tile_kernel``,
+    ``dx_kernel``) or (``wide``) of the wgmma plan that runs where it
+    does not fit (``<op>_wg_kernel``, ``dx_wg_kernel``), each matched
+    after its namespace's ``::`` (``<op>_wg_kernel<ntb>``,
+    ``dx_wg_kernel<ntw, dr, gap>``)."""
     op, dx = TILE_OPS[name]
-    if op != "f2":
-        parts = (f"::{op}_{'wg' if wide else 'tile'}_kernel",)
-    else:
-        parts = (f"::{op}_tile_kernel<{'true' if wide else 'false'}>",)
+    parts = (f"::{op}_{'wg' if wide else 'tile'}_kernel",)
     if dx is not None:
         parts += (f"::dx_wg_kernel<" if wide else f"::dx_kernel<{dx}>",
                   "wgrad_taps_kernel", "wgrad_plain_kernel")
@@ -1897,8 +1894,8 @@ def phase_cam(cam_mod, cc, set_tf32, dev) -> dict:
     """The six CAM kernels held to the float64 evaluation of their plain
     versions (``rtpe_tpu_torch/tools/cam_check.py``).  Random inputs at
     both CAM shapes of the train step (B=16), its step CAM at
-    ``--inplanes`` WIDE_INPLANES (``STEP128_CAM``: the wide plan at the
-    step's batch and image size) and the ragged shape with
+    ``--inplanes`` WIDE_INPLANES (``STEP128_CAM``: the wgmma kernels at
+    the step's batch and image size) and the ragged shape with
     per-image gates of both signs: each output's worst and mean error
     and share off by more than ``cc.OFF``, kernel - f64 within the
     limits the controls (float32 plain - f64, TF32 off and on) give,
@@ -1909,8 +1906,9 @@ def phase_cam(cam_mod, cc, set_tf32, dev) -> dict:
     shapes and two small ones: per-pixel outputs bitwise the float32
     plain version's, reductions within ``cc.SUM_TOL`` of their sums of
     |terms| (every output bitwise at the small shapes).  The same two
-    checks at the width grid (``WIDE_CAMS``: the wide plan's slices and K
-    chunks; the random inputs' share of elements off uncapped, as the
+    checks at the width grid (``WIDE_CAMS``: the wgmma kernels' whole
+    branches and K chunks; the random inputs' share of elements off
+    uncapped, as the
     card tests' small caps: one mask flip covers more than 1e-4 of an
     output this small).  Then :func:`phase_wgrad`.  Returns the max abs
     error of each kernel's outputs against its float32 plain version at
@@ -2126,7 +2124,7 @@ def phase_train(students, train_mod, cam_mod, w48_state, dev) -> dict:
     cuDNN on the same batch, each from the fused run's parameters of that
     step (so each step's losses differ by the CAM implementation alone);
     then the same pair at ``--inplanes`` WIDE_INPLANES (its step CAMs on
-    the kernels' wide plan, C = 259, hc = 64) without the profile."""
+    the wgmma kernels, C = 259, hc = 64) without the profile."""
     batch = train_batch(dev)
     fused = run_train(students, train_mod, cam_mod, True, w48_state, None,
                       batch, dev, profile=True)
@@ -2279,8 +2277,8 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev,
                     wgrad, wgrad_launches, wide_launches) -> list:
     """One row per CAM kernel: at the steps' shape, at the pyramid's
     full-resolution shape under ``at_pyramid_hi``, and at the step CAM of
-    ``--inplanes`` WIDE_INPLANES under ``at_step128`` (the wide plan; its
-    launches a step from ``wide_launches``); each row also carries
+    ``--inplanes`` WIDE_INPLANES under ``at_step128`` (the wgmma kernels;
+    its launches a step from ``wide_launches``); each row also carries
     its per-launch breakdown at both shapes (ms by kernel), and each
     backward its weight-gradient launches (``wgrad``: their launches in
     the train steps, ``wgrad_launches`` from :func:`run_train`; ms each

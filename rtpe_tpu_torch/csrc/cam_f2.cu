@@ -14,19 +14,23 @@
 // tiles, one halo per tile, 16-byte async copies; cam_tile.cuh) read x
 // padded to kc channels and the weights re-laid by
 // ops/cam.py:_tile_weights; F2's w0 is the prefix of F2b's before its
-// kt[i] stages; where make_tgeo takes the wide plan, F2 runs
-// cam_tile.cuh's wide plan, F2b's phase 0 cam_wg.cuh's f2b_wg_kernel
-// (wgmma, whole branches: F3b's body without x kr^T, its own layout,
-// _wg_weights) and its phase 1 dx_wg_kernel (_dx_weights).  F2 is F2b's
-// phase 0 without the branch backward: the branch convs into sA (shared
-// memory only), the kt^T chunks, and an epilogue that rounds t to bf16
-// and sums t and t^2 per column over the tile's pixels in the image,
-// through a spent ring buffer (cam_tile.cuh:ring_colsums); the per-tile
-// rows are summed in tile order (reduce_rows), no float atomics.
+// kt[i] stages.  F2 is F2b's phase 0 without the branch backward: the
+// branch convs into sA (shared memory only), the kt^T chunks, and an
+// epilogue that rounds t to bf16 and sums t and t^2 per column over the
+// tile's pixels in the image, through a spent ring buffer
+// (cam_tile.cuh:ring_colsums); the per-tile rows are summed in tile
+// order (reduce_rows), no float atomics.  Where make_tgeo takes the wide
+// plan, cam_wg.cuh's wgmma kernels run instead, on their own layout
+// (_wg_weights, in which F2's w0 is again the prefix of F2b's):
+// f2_wg_kernel (F2b's products without the branch backward, F1's column
+// sums of bf16(t) and t^2 after each 64-column chunk, the same tile-order
+// reduction), F2b's phase 0 f2b_wg_kernel (F3b's body without x kr^T)
+// and its phase 1 dx_wg_kernel (_dx_weights).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F2 does 9 nb C hc + nb hc C = 195.6 K multiply-adds a
-// pixel: 0.081 ms at 989 TFLOP/s (bf16 dense); F2b about 3x.
+// pixel: 0.081 ms at 989 TFLOP/s (bf16 dense); F2b about 3x.  At
+// --inplanes 128's step CAM (C = 259, hc = 64) 497.3 K, 0.206 ms.
 
 #include "cam_wg.cuh"
 
@@ -37,13 +41,12 @@ namespace tile {
 // sums of squares (C)] of t = bf16(a . kt) over the tile's pixels in the
 // image (a pixel outside it is masked: its BN bias and dilated taps make
 // its t nonzero), a = bf16(relu(BN_h(bf16(c)))) kept in shared memory only.
-// WIDE: the wide plan (cam_tile.cuh), a through its rows in `a` (pitch
-// knh, by pixel), bnh read from global memory.
-template <bool WIDE>
+// Where make_tgeo takes the wide plan, f2_wg_kernel (cam_wg.cuh) runs
+// instead.
 __global__ void __launch_bounds__(TT, 1)
 f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
                const bf16 *__restrict__ w0, const float *__restrict__ bnh,
-               float *__restrict__ part, bf16 *__restrict__ a) {
+               float *__restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int xp = g.kc + 8, C = g.C;
   const int wbuf = WROWS * (t.kw0 + 8);
@@ -52,28 +55,14 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
   bf16 *sA = sW + NBUF * wbuf;
   float *sBh = reinterpret_cast<float *>(sA + TP * g.nhp);
   const Lane L = lane_of(t);
-  const uint32_t aH = WIDE ? 0 : halo_row(sH, xp, t, L);
+  const uint32_t aH = halo_row(sH, xp, t, L);
   float *prow = part + static_cast<int64_t>(blockIdx.x) * 2 * C;
-  auto ring = [&]() {
-    if constexpr (WIDE) {
-      bf16 *wH;
-      bf16 *wW = wide_carve(smem, t, t.kqm, &wH);
-      return WRing<WStage0>{WStage0{g, t, xpad, a}, w0, wW, wH,
-                            t.kqm, WROWS, TP, t.nst0, g, t, L, 0};
-    } else {
-      return Ring{w0, sW, wbuf, L.lane, 0};
-    }
-  }();
+  Ring ring{w0, sW, wbuf, L.lane, 0};
 
-  if constexpr (WIDE) {
-    zero_pad_cols(a, g.knh, 1, g.knh, g.NH, g, L.pos);
-    ring.start();
-  } else {
-    stage_halo(sH, xpad, g.kc, g, t, L.pos);
-    ring.start(g, t);
-    for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
-    zero_top_pads(g, sA, nullptr);
-  }
+  stage_halo(sH, xpad, g.kc, g, t, L.pos);
+  ring.start(g, t);
+  for (int i = threadIdx.x; i < 4 * g.NH; i += TT) sBh[i] = bnh[i];
+  zero_top_pads(g, sA, nullptr);
 
   // the lane's fragment rows in the image (e < 2: row r, else r + 8)
   const bool in0 = tile_pix(g, L.pos, frag_row(L.wm, L.lane, 0)) >= 0;
@@ -90,16 +79,10 @@ f2_tile_kernel(Geo g, TGeo t, const bf16 *__restrict__ xpad,
     ring_colsums<GC>(v, L, sc.j0, L.wn ? NTC - GC : GC, ring.spent(),
                      prow + n0, C, C - n0 < NC ? C - n0 : NC);
   };
-  if constexpr (WIDE) {
-    wbranch_convs(g, t, ring, L,
-                  ToActivations<false, true>{g, L, bnh, nullptr, nullptr, a});
-    wconv1x1_chunks(g, t, ring, L, epi_t);
-  } else {
-    branch_convs(g, t, ring, aH, L,
-                 ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
-    conv1x1_chunks<false, true>(g, t, ring, 0, tile_row(sA, g.nhp, L), L,
-                                epi_t);
-  }
+  branch_convs(g, t, ring, aH, L,
+               ToActivations<false>{g, L, sBh, nullptr, sA, nullptr});
+  conv1x1_chunks<false, true>(g, t, ring, 0, tile_row(sA, g.nhp, L), L,
+                              epi_t);
 }
 
 // Phase 0 of F2b on one 8 x 8 tile: a (M, knh), dt (M, kc) and dc
@@ -207,12 +190,15 @@ F2bWs carve_f2b(const Geo &g, const tile::TGeo &t, void *base,
 
 using namespace cam;
 
-// F2's per-tile partial rows, then (the wide plan) a (M, knh), bf16.
-static int64_t carve_f2(const Geo &g, const tile::TGeo &t, void *base,
-                        float **part, bf16 **a) {
+// F2's per-tile partial rows, then a (M, knh) bf16 where f2_wg_kernel
+// keeps it out of shared memory.
+static int64_t carve_f2(const Geo &g, const tile::TGeo &t,
+                        const tile::FPlan &P, void *base, float **part,
+                        bf16 **a) {
   Carve cv(base);
   *part = cv.take<float>(static_cast<int64_t>(t.n_tiles) * 2 * g.C);
-  *a = cv.take<bf16>(t.wide ? static_cast<int64_t>(g.M) * g.knh : 0);
+  *a = cv.take<bf16>(t.wide && !P.a_res ? static_cast<int64_t>(g.M) * g.knh
+                                        : 0);
   return cv.off;
 }
 
@@ -220,10 +206,11 @@ static int64_t carve_f2(const Geo &g, const tile::TGeo &t, void *base,
 extern "C" long long cam_f2_workspace(const int *geo) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F2, &g, &t)) return -1;
+  tile::FPlan P;
+  if (!tile::fwd_geo(geo, tile::F2, &g, &t, &P)) return -1;
   float *part;
   bf16 *a;
-  return carve_f2(g, t, nullptr, &part, &a);
+  return carve_f2(g, t, P, nullptr, &part, &a);
 }
 
 // F2's tile plan (cam_wg.cuh:op_plan).
@@ -232,23 +219,29 @@ extern "C" long long cam_f2_plan(const int *geo, int what) {
 }
 
 // xpad (B, H, W, kc) bf16, x with zero channels C..kc; w0 the weights
-// re-laid by ops/cam.py:_tile_weights("f2", ...).  s_t (2, C) f32.
-// ws: cam_f2_workspace(geo) bytes.
+// re-laid by ops/cam.py:_tile_weights("f2", ...) (_wg_weights where
+// f2_wg_kernel runs).  s_t (2, C) f32.  ws: cam_f2_workspace(geo) bytes.
 extern "C" int cam_f2_launch(const int *geo, const void *xpad,
                              const void *w0, const void *bnh, void *ws,
                              void *s_t, void *stream) {
   Geo g;
   tile::TGeo t;
-  if (!tile::tile_geo(geo, tile::F2, &g, &t))
+  tile::FPlan P;
+  if (!tile::fwd_geo(geo, tile::F2, &g, &t, &P))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   float *part;
   bf16 *a;
-  carve_f2(g, t, ws, &part, &a);
-  CAM_TRY(CAM_TILE_LAUNCH(tile::f2_tile_kernel, g, t, st,
-                          static_cast<const bf16 *>(xpad),
-                          static_cast<const bf16 *>(w0),
-                          static_cast<const float *>(bnh), part, a));
+  carve_f2(g, t, P, ws, &part, &a);
+  const auto *xx = static_cast<const bf16 *>(xpad);
+  const auto *w = static_cast<const bf16 *>(w0);
+  const auto *h = static_cast<const float *>(bnh);
+  if (t.wide)
+    CAM_TRY(CAM_WG_LAUNCH(tile::f2_wg_kernel, g, t, P, st, xx, w, h, part,
+                          a));
+  else
+    CAM_TRY(tile::launch(tile::f2_tile_kernel, dim3(t.n_tiles),
+                         tile::smem0_bytes(g, t), st, g, t, xx, w, h, part));
   CAM_TRY(reduce_rows(part, 2 * g.C, 0, 2 * g.C, t.n_tiles, 1,
                       static_cast<float *>(s_t), 0, st));
   return 0;

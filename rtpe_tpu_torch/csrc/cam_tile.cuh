@@ -15,10 +15,11 @@
 // width and 1..6 dilations: where a branch has at most 40 columns and the
 // tile's halo at full channel depth fits a block's shared memory (the
 // train step's CAMs at the default --inplanes 80) the kernels below run
-// as described here; elsewhere F2 runs its wide plan ("wide plan" below:
-// K-chunked halos and stages, branches in slices), and F1, F3 and both
-// phases of every backward the wgmma kernels of cam_wg.cuh.  Every op refuses only a largest dilation whose halo of one
-// 16-channel chunk does not fit the wide plan (19 and up at C = 163).
+// as described here; elsewhere ("the wide plan" below: make_tgeo's
+// limits) every forward and both phases of every backward run the wgmma
+// kernels of cam_wg.cuh.  Every op refuses only a largest dilation whose
+// halo of one 16-channel chunk does not fit those limits (at C = 163:
+// 19 and up for F1b and F3b, 20 and up for the others).
 //
 // Bound at the steps' CAM (B=16, 113 x 113, C=163, hc=40, dils 1..3):
 // operations.  F3b does 3 x 222.2 K multiply-adds a pixel, 0.275 ms at
@@ -136,21 +137,18 @@ struct TGeo {
   int nxr, nchx;              // dx stage rows, dx channel chunks
   int nksr, nst1;             // dx stages of dr kr^T, dx stages per chunk
   // The wide plan (wide = 1), for a branch wider than SW_MAX or a
-  // geometry whose whole-depth halo and stages do not fit: every operand
-  // K-chunked through shared memory (wide_kernels below; phase 1 runs
-  // cam_wg.cuh:dx_wg_kernel); else 0 and the fields below describe the
-  // one chunk of the plan above.
+  // geometry whose whole-depth halo and stages do not fit: both phases
+  // run cam_wg.cuh's kernels on plans of their own, and the fields below
+  // are the limits every op is refused by ("wide plan" below); else 0
+  // and they describe the one chunk of the plan above.
   int wide;
-  int nsl, sw;                // branch slices, their width (brows)
   int kq, nq, kqa, nqa;       // phase-0 K chunks of kc (x, dt) and of knh
                               // (a): width, count
   int kqm;                    // widest phase-0 chunk (the buffers' pitch - 8)
-  int nbr, n11;               // phase-0 stages of the branch convs, 1x1s
-  int safe_a;                 // the first stage that may read a
 };
 
-// The wide plan's chunks of K (a multiple of 16) at most kmax wide: as
-// few as fit, of even width (to 16), the last one what is left.
+// Chunks of K (a multiple of 16) at most kmax wide: as few as fit, of
+// even width (to 16), the last one what is left.
 inline void k_chunks(int K, int kmax, int *w, int *n) {
   *n = (K + kmax - 1) / kmax;
   *w = ((K + *n - 1) / *n + 15) / 16 * 16;
@@ -193,28 +191,21 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   t.nksr = t.res ? (g.kc + g.khc - 1) / g.khc : 0;
   t.nst1 = t.nksr + 9 * g.nb;
   t.wide = 0;
-  t.nsl = 1;
-  t.sw = t.brows;
   t.kq = t.kqm = g.kc;
   t.nq = 1;
   t.kqa = g.knh;
   t.nqa = 1;
-  t.nbr = 9 * g.nb;
-  t.n11 = (t.res + t.top) * t.nchr;
-  t.safe_a = -1;
   if (g.hc <= SW_MAX && smem0_bytes(g, t) <= SMEM_MAX &&
       smem1_bytes(g, t) <= SMEM_MAX)
     return t;
-  // the wide plan: branch slices of at most SW_MAX columns, K chunks as
-  // wide as shared memory takes (kq = -1: it takes none).  A backward is
-  // also refused where a K-chunked phase 1 of mma.sync stages (two halo
-  // buffers of a 16-channel chunk and NBUF slots of nxr weight and TP dr
-  // rows) would not fit: the limit the ops have always had;
-  // dx_wg_kernel, which runs phase 1 there, needs less
+  // the wide plan's limits: K chunks of mma.sync stages (branch slices
+  // of at most SW_MAX columns) as wide as shared memory takes (kq = -1:
+  // it takes none).  A backward is also refused where a K-chunked phase
+  // 1 of mma.sync stages (two halo buffers of a 16-channel chunk and
+  // NBUF slots of nxr weight and TP dr rows) would not fit: the limit the
+  // ops have always had; cam_wg.cuh's kernels, which run both phases
+  // there, need less
   t.wide = 1;
-  t.nsl = (g.hc + SW_MAX - 1) / SW_MAX;
-  t.sw = up8((g.hc + t.nsl - 1) / t.nsl);
-  t.brows = t.sw;
   const int k0 = k_fit(t.hr, WROWS + TP, t.bb ? 4LL * NWARPS * NRED * NC : 0);
   const int k1 = t.bwd ? k_fit(t.hr, t.nxr + t.res * TP, 0) : 16;
   if (k0 < 0 || k1 < 0) {
@@ -224,11 +215,6 @@ inline TGeo make_tgeo(const Geo &g, int op) {
   k_chunks(g.kc, k0, &t.kq, &t.nq);
   k_chunks(g.knh, k0, &t.kqa, &t.nqa);
   t.kqm = t.top && t.kqa > t.kq ? t.kqa : t.kq;
-  t.kw0 = t.kqm;
-  t.nbr = 9 * g.nb * t.nsl * t.nq;
-  t.n11 = t.nchr * (t.res * t.nq + t.top * t.nqa);
-  t.nst0 = t.nbr + t.n11 + t.bb * g.nb * t.nsl * t.nq;
-  t.safe_a = t.top ? t.nbr : -1;
   return t;
 }
 
@@ -241,10 +227,10 @@ inline TGeo make_tgeo(const Geo &g, int op) {
 // and bnt (4C each), image b's gate (C) and bnh (4 NH).  F1's and F2's
 // column sums go through a weight buffer (Ring::spent), so F1 needs F1b's
 // phase 0 less its rows and F2 F2b's less sCb, sD, the dst rows and the
-// scratch: each fits wherever its backward does.  The wide plan: two
-// halo buffers of hr x (kqm + 8) and NBUF slots of WROWS weight rows and
-// TP A rows of pitch kqm + 8, then the column-sum scratch (F2b, F3b):
-// the limit of every op's refusal (tile_geo), run by F2 alone.
+// scratch: each fits wherever its backward does.  The wide plan's limit:
+// two halo buffers of hr x (kqm + 8) and NBUF slots of WROWS weight rows
+// and TP A rows of pitch kqm + 8, then the column-sum scratch (F2b,
+// F3b): every op's refusal (tile_geo); no kernel carves it.
 inline int64_t smem0_bytes(const Geo &g, const TGeo &t) {
   if (t.wide)
     return 2LL * (2LL * t.hr + 1LL * NBUF * (WROWS + TP)) * (t.kqm + 8) +
@@ -274,13 +260,10 @@ inline int64_t smem1_bytes(const Geo &g, const TGeo &t) {
                 1LL * NBUF * t.nxr * (g.khc + 8));
 }
 
-// bf16 elements of the two re-laid weight buffers (w1: a backward's
-// whole-depth phase 1; the wide plan's is cam_wg.cuh:make_dplan's).
+// bf16 elements of the whole-depth plan's two re-laid weight buffers (w1:
+// a backward's phase 1; the wide plan's are cam_wg.cuh:make_fplan's and
+// make_dplan's).
 inline int64_t w0_elems(const Geo &g, const TGeo &t) {
-  if (t.wide)
-    return (9LL + t.bb) * g.nb * t.nsl * t.sw * g.kc +
-           static_cast<int64_t>(t.nchr) * NC *
-               (t.res * g.kc + t.top * g.knh);
   return (9LL + t.bb) * g.nb * t.brows * g.kc +
          static_cast<int64_t>(t.nchr) * NC *
              (t.res * g.kc + t.top * g.knh);
@@ -602,8 +585,8 @@ __device__ __forceinline__ uint32_t tile_row(const bf16 *s, int ld,
   return saddr(s + (L.wm * 16 + lm_row(L.lane)) * ld + (L.lane >> 4) * 8);
 }
 
-// A branch's columns s0 .. s0 + w of branch i (the whole branch, s0 = 0
-// and w = hc, but in the wide plan's slices).
+// A branch's columns s0 .. s0 + w of branch i (the whole branch: s0 = 0
+// and w = hc).
 struct Slice {
   int i, s0, w;
 };
@@ -661,11 +644,10 @@ __device__ __forceinline__ void conv1x1_chunks(const Geo &g, const TGeo &t,
   }
 }
 
-// The branch convs' epilogue of F3, F2b and F3b: sA = bf16(relu(BN(c)))
-// from the BN rows sBh; with BWD (F2b, F3b) also sCb = bf16(c) and
-// a_out = the same a.  WIDE (F2's wide plan): a goes to a_out only (the
-// 1x1 stages read it back), rows of pitch knh by pixel.
-template <bool BWD, bool WIDE = false>
+// The branch convs' epilogue of F2, F3, F2b and F3b: sA =
+// bf16(relu(BN(c))) from the BN rows sBh; with BWD (F2b, F3b) also sCb =
+// bf16(c) and a_out = the same a.
+template <bool BWD>
 struct ToActivations {
   const Geo &g;
   const Lane &L;
@@ -687,11 +669,6 @@ struct ToActivations {
         const float z = bn_apply(cb, bn[0], bn[g.hc], bn[2 * g.hc],
                                  bn[3 * g.hc]);
         const bf16 ab = f2bf(relu(z));
-        if (WIDE) {
-          const int64_t p = tile_pix(g, L.pos, r);
-          if (p >= 0) a_out[p * g.knh + i * g.hc + col] = ab;
-          continue;
-        }
         if (BWD) sCb[r * g.nhp + i * g.hc + col] = f2bf(cb);
         sA[r * g.nhp + i * g.hc + col] = ab;
         if (BWD) {
@@ -880,253 +857,6 @@ dx_kernel(Geo g, TGeo t, const bf16 *__restrict__ dr,
     }
 }
 
-// ------------------------------------------------------------ wide plan
-//
-// The wide plan (TGeo::wide) of F2 (F1, F3, every backward's phase 0 and
-// phase 1 run cam_wg.cuh's kernels where make_tgeo picks it; its limits,
-// tile_geo's, stay every op's refusal) takes any branch width and any C:
-// shared memory depends on the chunk widths and the largest dilation, not
-// on C.
-//   - every K dimension goes in chunks (k_chunks, as wide as SMEM_MAX
-//     takes: x's kc in kq chunks, a's knh in kqa); the x halo is staged
-//     one chunk at a time, double-buffered, and every stage of the ring
-//     carries its B weights and, for a 1x1 product, its A chunk of the
-//     tile's 64 rows of a, so a 1x1 product's partial sums stay in
-//     registers across its K chunks, a branch conv's across its chunks
-//     and taps (order: chunks, then taps, k-steps ascending);
-//   - branches go in slices of at most SW_MAX columns (sw: 48 as 2 x 24,
-//     64 as 2 x 32, 128 as 4 x 32), each a branch of the plan above;
-//   - a is not kept in shared memory: it is written to its scratch rows
-//     in global memory and read back as the A chunks of the 1x1 stages;
-//     the first stage that reads them may start only after every warp has
-//     written its rows (TGeo::safe_a: their A chunks are not prefetched
-//     past that point but copied there, and waited for);
-//   - the BN rows are read from global memory (a few KB, cached).
-// The per-pixel outputs keep their rounding points; the products add
-// their chunks in another order than the plan above, which a geometry
-// takes only where it fits (a branch of at most SW_MAX columns and a
-// whole-depth halo and stages within SMEM_MAX).
-
-enum AKind { A_NONE = 0, A_HALO = 1, A_ROWS = 2 };
-
-// A wide-plan stage: B (brows x kw at boff of the re-laid weights); its A
-// (A_HALO: a halo chunk into halo buffer hb, read by this and the next 8
-// stages; A_ROWS: the tile's rows into the stage's slot) from asrc
-// (pitch ald, columns ac0 ..); dep: the first stage at whose barrier
-// the A rows may be read (they are made in this launch), or -1; halo: the
-// stage reads a halo buffer (a branch stage), with its tap.
-struct WSt {
-  int64_t boff;
-  int brows, kw, akind;
-  const bf16 *asrc;
-  int ald, ac0, hb, dep, tap, halo;
-};
-
-// Phase-0 stage s of the wide plan (F2), in w0 as ops/cam.py:_wide_weights
-// lays it out: the branch convs per (branch, slice, chunk, tap), [sw][kw]
-// of kh[i, tap]^T, the halo chunk staged at tap 0 (once in all if there is
-// one chunk); per 1x1 chunk of NC channels its kt^T chunks [NC][kw] with
-// a's rows.
-struct WStage0 {
-  const Geo &g;
-  const TGeo &t;
-  const bf16 *xpad, *a;
-  __device__ __forceinline__ WSt operator()(int s) const {
-    WSt r;
-    r.akind = A_NONE;
-    r.asrc = xpad;
-    r.ald = g.kc;
-    r.hb = 0;
-    r.dep = -1;
-    r.tap = 0;
-    r.halo = 0;
-    const int64_t blk = 9LL * t.sw * g.kc;
-    if (s < t.nbr) {
-      const int tap = s % 9, u = s / 9, q = u % t.nq, isl = u / t.nq;
-      const int k0 = q * t.kq;
-      r.kw = g.kc - k0 < t.kq ? g.kc - k0 : t.kq;
-      r.boff = isl * blk + 9LL * q * t.sw * t.kq +
-               static_cast<int64_t>(tap) * t.sw * r.kw;
-      r.brows = t.sw;
-      r.halo = 1;
-      if (tap == 0 && (t.nq > 1 || isl == 0)) r.akind = A_HALO;
-      r.ac0 = k0;
-      r.hb = t.nq > 1 ? (u & 1) : 0;
-      r.tap = tap;
-      return r;
-    }
-    s -= t.nbr;
-    const int ch = s / t.nqa, q = s - ch * t.nqa;
-    r.akind = A_ROWS;
-    r.brows = NC;
-    r.ac0 = q * t.kqa;
-    r.kw = g.knh - r.ac0 < t.kqa ? g.knh - r.ac0 : t.kqa;
-    r.boff = static_cast<int64_t>(g.nb) * t.nsl * blk +
-             static_cast<int64_t>(ch) * NC * g.knh +
-             static_cast<int64_t>(q) * NC * t.kqa;
-    r.asrc = a;
-    r.ald = g.knh;
-    r.dep = t.safe_a;
-    return r;
-  }
-};
-
-// The addresses of a stage for this lane: b its B row (lm_brow, lm_bk) at
-// the first n8 tile, a its A row (the halo's centre row or the slot's
-// tile row), pitch (kw + 8) * 2 bytes, and the stage.
-struct WCur {
-  uint32_t b, a;
-  int pitch;
-  WSt st;
-};
-
-// The wide plan's ring: NBUF slots of wrows weight rows and trows A rows
-// (TP, or 0 where no stage has A rows) of pitch kqm + 8, two halo buffers
-// of hr rows; two stages in flight, as
-// Ring, one group committed a step.  A stage's A rows made in this launch
-// (dep >= 0) go with its weights only if they are issued at or after
-// stage dep's barrier; else stage dep's step copies them after its
-// barrier (stages dep and dep + 1 at most) and waits for them.
-template <typename SD>
-struct WRing {
-  SD sd;
-  const bf16 *w;
-  bf16 *sW, *sH;
-  int kqm, wrows, trows, nst;
-  const Geo &g;
-  const TGeo &t;
-  const Lane &L;
-  int s;
-
-  __device__ __forceinline__ bf16 *slot(int x) const {
-    return sW + (x % NBUF) * (wrows + trows) * (kqm + 8);
-  }
-  __device__ __forceinline__ bf16 *arows(int x) const {
-    return slot(x) + wrows * (kqm + 8);
-  }
-  __device__ __forceinline__ bf16 *halo(int hb) const {
-    return sH + hb * t.hr * (kqm + 8);
-  }
-
-  // Issue stage x's copies from the step of stage `at`.
-  __device__ __forceinline__ void copy(int x, int at) const {
-    const WSt st = sd(x);
-    copy_stage(slot(x), w + st.boff, st.brows, st.kw);
-    if (st.akind == A_HALO)
-      stage_halo_cols(halo(st.hb), st.asrc, st.ald, st.ac0, st.kw, g, t,
-                      L.pos);
-    else if (st.akind == A_ROWS && (st.dep < 0 || at >= st.dep))
-      stage_rows_cols(arows(x), st.asrc, st.ald, st.ac0, st.kw, g, L.pos);
-  }
-
-  __device__ __forceinline__ void start() {
-    for (int u = 0; u < 2; ++u) {
-      if (u < nst) copy(u, u - 2);
-      cp_commit();
-    }
-  }
-
-  __device__ __forceinline__ WCur next() {
-    cp_wait_one();
-    __syncthreads();
-    bool late = false;
-    if (s == t.safe_a)
-      for (int x = s; x < s + 2 && x < nst; ++x) {
-        const WSt st = sd(x);
-        if (st.akind == A_ROWS && st.dep == s) {
-          stage_rows_cols(arows(x), st.asrc, st.ald, st.ac0, st.kw, g,
-                          L.pos);
-          late = true;
-        }
-      }
-    if (late) cp_commit();
-    if (s + 2 < nst) copy(s + 2, s);
-    cp_commit();
-    if (late) {
-      cp_wait_one();
-      __syncthreads();
-    }
-    WCur c;
-    c.st = sd(s);
-    c.pitch = (c.st.kw + 8) * 2;
-    c.b = saddr(slot(s) + lm_brow(L.lane) * (c.st.kw + 8) + lm_bk(L.lane));
-    const int lr = L.wm * 16 + lm_row(L.lane), ak = (L.lane >> 4) * 8;
-    c.a = c.st.halo
-              ? saddr(halo(c.st.hb) +
-                      (((lr >> 3) + t.dmax) * t.hs + (lr & 7) + t.dmax) *
-                          (c.st.kw + 8) +
-                      ak)
-              : saddr(arows(s) + lr * (c.st.kw + 8) + ak);
-    ++s;
-    return c;
-  }
-
-  // As Ring::spent: the slot of the stage next() returned last.
-  __device__ __forceinline__ float *spent() const {
-    return reinterpret_cast<float *>(slot(s - 1));
-  }
-};
-
-// The wide plan's branch convs: per branch slice acc = the sum over its
-// chunks and taps of the halo chunk's rows shifted by the tap's offset .
-// kh[i, tap]'s chunk, then epi(slice, split, acc).
-template <typename R, typename Epi>
-__device__ __forceinline__ void wbranch_convs(const Geo &g, const TGeo &t,
-                                              R &ring, const Lane &L,
-                                              Epi epi) {
-  constexpr int GB = (NTB + 1) / 2;
-  const Split sb = split<NTB>(L.wn, t.sw / 8);
-  for (int i = 0; i < g.nb; ++i)
-    for (int sl = 0; sl < t.nsl; ++sl) {
-      const int d = g.dil[i];
-      float acc[GB][4];
-      zero_acc(acc);
-#pragma unroll 1
-      for (int u = 0; u < 9 * t.nq; ++u) {
-        const WCur c = ring.next();
-        const int tap = c.st.tap;
-        const int sh = ((tap / 3 - 1) * t.hs + (tap % 3 - 1)) * d;
-        mma_rows<GB>(acc, c.a + sh * c.pitch, c.b + sb.j0 * 8 * c.pitch,
-                     c.pitch, c.st.kw / 16, sb.cnt);
-      }
-      const int s0 = sl * t.sw;
-      epi(Slice{i, s0, g.hc - s0 < t.sw ? g.hc - s0 : t.sw}, sb, acc);
-    }
-}
-
-// The wide plan's 1x1 convs (F2's kt^T) in chunks of NC output channels:
-// per chunk at = the sum over a's K chunks, then epi(n0, split, acr, at)
-// with acr zero (no kr^T).
-template <typename R, typename Epi>
-__device__ __forceinline__ void wconv1x1_chunks(const Geo &g, const TGeo &t,
-                                                R &ring, const Lane &L,
-                                                Epi epi) {
-  constexpr int GC = (NTC + 1) / 2;
-  for (int n0 = 0; n0 < g.C; n0 += NC) {
-    const int ntc = (g.C - n0 + 7) / 8 < NTC ? (g.C - n0 + 7) / 8 : NTC;
-    const Split sc = split<NTC>(L.wn, ntc);
-    float acr[GC][4], at[GC][4];
-    zero_acc(acr);
-    zero_acc(at);
-#pragma unroll 1
-    for (int q = 0; q < t.nqa; ++q) {
-      const WCur c = ring.next();
-      mma_rows<GC>(at, c.a, c.b + sc.j0 * 8 * c.pitch, c.pitch,
-                   c.st.kw / 16, sc.cnt);
-    }
-    epi(n0, sc, acr, at);
-  }
-}
-
-// The wide plan's shared memory: two halo buffers, then NBUF slots of
-// WRing rows, all of pitch kqm + 8; returns the slots.
-__device__ __forceinline__ bf16 *wide_carve(unsigned char *smem,
-                                            const TGeo &t, int kqm,
-                                            bf16 **sH) {
-  *sH = reinterpret_cast<bf16 *>(smem);
-  return *sH + 2 * t.hr * (kqm + 8);
-}
-
 // ------------------------------------------------------------ host side
 
 // Launch a tile kernel (TT threads, smem bytes of dynamic shared memory).
@@ -1150,13 +880,6 @@ cudaError_t launch_dx(const Geo &g, const TGeo &t, const bf16 *dr,
   return launch(dx_kernel<HAS_DR, HAS_GAP>, dim3(t.n_tiles, t.nchx),
                 smem1_bytes(g, t), st, g, t, dr, dc, w1, dgap, inv_n, dx);
 }
-
-// Launch op kernel K<false> (the plan above) or K<true> (the wide plan).
-#define CAM_TILE_LAUNCH(K, g, t, st, ...)                                  \
-  ((t).wide ? tile::launch(K<true>, dim3((t).n_tiles),                     \
-                           tile::smem0_bytes(g, t), st, g, t, __VA_ARGS__) \
-            : tile::launch(K<false>, dim3((t).n_tiles),                    \
-                           tile::smem0_bytes(g, t), st, g, t, __VA_ARGS__))
 
 // The dkh product: x (padded, pitch kc) at each branch's 9 taps against
 // that branch's dc columns (pitch ldc, branch i at i khc); out laid out as

@@ -1,16 +1,16 @@
 // The fused-CAM ops' wgmma kernels at the student's wider geometries,
 // CUDA C++ for sm_90a (cam_f1.cu, cam_f2.cu and cam_f3.cu include this
-// header): f1_wg_kernel, f3_wg_kernel and the three backwards' phase 0,
-// f1b_wg_kernel, f2b_wg_kernel and f3b_wg_kernel (one body, fwd_wg_body,
-// in five modes), and dx_wg_kernel (phase 1 of all three backwards), for
-// every geometry where cam_tile.cuh:make_tgeo does not take the
-// whole-depth plan (a branch wider than SW_MAX = 40 columns, or a
-// whole-depth halo and stages that do not fit: every --inplanes above 80,
-// six dilations up to 6 or 8 at C = 163).  F2 alone keeps cam_tile.cuh's
-// wide plan there.
+// header): f1_wg_kernel, f2_wg_kernel, f3_wg_kernel and the three
+// backwards' phase 0, f1b_wg_kernel, f2b_wg_kernel and f3b_wg_kernel (one
+// body, fwd_wg_body, in six modes), and dx_wg_kernel (phase 1 of all
+// three backwards), for every geometry where cam_tile.cuh:make_tgeo does
+// not take the whole-depth plan (a branch wider than SW_MAX = 40 columns,
+// or a whole-depth halo and stages that do not fit: every --inplanes
+// above 80, six dilations up to 6 or 8 at C = 163).
 //
 // Replaces, at those geometries, the TPU kernels _f1_call / _f1_kernel
-// (the batch statistics S_r, S_h and the per-image sum of x), _f3_call /
+// (the batch statistics S_r, S_h and the per-image sum of x), _f2_call /
+// _f2_kernel (s_t, the sums of t = bf16(a kt) and t^2), _f3_call /
 // _f3_kernel (out = relu(relu(BN_r(x kr)) + relu(BN_t(a kt)) gate[b]),
 // a = relu(BN_h(c)), c the three dilated 3x3 branch convs), the phase 0
 // of _f1b_call / _f1b_kernel (F1's recompute, dc_i = dsh[2i] + 2 c_i
@@ -30,10 +30,12 @@
 // F1 and F1b's phase 0 C^2 + 9 nb C hc = 514.6 K, 0.213 ms; F2b's phase 0
 // 9 nb C hc + 2 nb hc C (t, and the branch backward's da) = 547.0 K,
 // 0.226 ms; F3b's phase 0 F3's plus the branch backward's nb hc C =
-// 614.1 K, 0.254 ms; dx C^2 + 9 nb hc C = 514.6 K (F2b, without dr,
-// 447.6 K), 0.213 / 0.185 ms.  x is read once in 0.03 ms.
+// 614.1 K, 0.254 ms; F2 9 nb C hc + nb hc C = 497.3 K, 0.206 ms; dx
+// C^2 + 9 nb hc C = 514.6 K (F2b, without dr, 447.6 K), 0.213 / 0.185
+// ms.  x is read once in 0.03 ms.
 //
-// cam_tile.cuh's wide plan ran these there as ~100 stages a 64-pixel
+// cam_tile.cuh's wide plan (now only its limits, every op's refusal) ran
+// these there as ~100 stages a 64-pixel
 // tile, each ~0.3 M multiply-adds of mma.sync m16n8k16 behind a
 // __syncthreads, branches in slices of at most 40 columns, K in chunks,
 // the x halo staged again for every branch slice, a, c and dt through
@@ -88,7 +90,9 @@
 //     epilogues: F1b stores dc after each branch slice and dr after each
 //     1x1 chunk (no column sums; dsr and dsh staged where F1 keeps its
 //     column-sum scratch), F2b runs no x kr^T and stores dt = dst[0] +
-//     2 t dst[1] where F3b runs F3's epilogue.
+//     2 t dst[1] where F3b runs F3's epilogue; F2 is F2b's products
+//     without the branch backward, its epilogue F1's column sums of
+//     bf16(t) and t^2 (bnh staged where it fits, the scratch after it).
 // The per-pixel rounding points are cam_tile.cuh's; the products add
 // their K stages, taps and k-steps in another order than the wide plan.
 
@@ -335,8 +339,9 @@ constexpr int FN1 = 64;              // columns of a 1x1-conv chunk
 constexpr int FNT1 = FN1 / 8;
 constexpr int FNB_MAX = 16;          // n8 tiles of a branch slice at most
 constexpr int FBAR = 128;            // bytes before the ring: the mbarriers
-constexpr int FRED = 4 * 2 * FNB_MAX * 8;   // F1's column-sum scratch, f32
-                                            // (a half each warpgroup)
+constexpr int FRED = 4 * 2 * FNB_MAX * 8;   // F1's and F2's column-sum
+                                            // scratch, f32 (a half each
+                                            // warpgroup)
 constexpr int FRED3 = 2 * 4 * 5 * FN1 / 2;  // the branch backward's (F2b,
                                             // F3b): 4 warps x 5 sums x a
                                             // warpgroup's 32 1x1 columns
@@ -344,12 +349,13 @@ constexpr int FRED3 = 2 * 4 * 5 * FN1 / 2;  // the branch backward's (F2b,
                                             // columns of a branch slice
                                             // each
 
-// The plan of f1_wg_kernel, f3_wg_kernel and the backwards' phase-0
-// kernels (f1b_wg_kernel, f2b_wg_kernel, f3b_wg_kernel) at one geometry;
-// ops/cam.py:_wg_plan computes the same.
+// The plan of f1_wg_kernel, f2_wg_kernel, f3_wg_kernel and the
+// backwards' phase-0 kernels (f1b_wg_kernel, f2b_wg_kernel,
+// f3b_wg_kernel) at one geometry; ops/cam.py:_wg_plan computes the same.
 struct FPlan {
   int res, top, bb;     // the products: x kr^T (F1, F3, F1b, F3b), a kt^T
-                        // (F3, F2b, F3b), the branch backward (F2b, F3b)
+                        // (F2, F3, F2b, F3b), the branch backward (F2b,
+                        // F3b)
   int ntb, sw, nsl;     // a branch slice's n8 tiles and columns; slices
   int nch1;             // 1x1-conv chunks of FN1 output columns
   int kq, nq;           // the x halo's K chunks: width, count
@@ -358,8 +364,9 @@ struct FPlan {
   int a_res;            // top: a kept in shared memory (else in global
                         // rows, restaged a stage at a time)
   int rows_smem;        // the epilogues' rows in shared memory: F3's and
-                        // F3b's BN rows and gate, F2b's dst and bnh (else
-                        // read from global memory); F1b's dsr and dsh always
+                        // F3b's BN rows and gate, F2b's dst and bnh, F2's
+                        // bnh (else read from global memory); F1b's dsr
+                        // and dsh always
   int kdq, nd, kbd;     // bb: dt's chunks of kc staged in the halo's
                         // buffer (width, count) and their stages' width
   int slot;             // bf16 elements of a ring slot
@@ -377,11 +384,12 @@ inline int fplan_ntb(int per) {
 }
 
 // f32 elements of the rows op's epilogues read: F1b dsr (2C) and dsh
-// (2 NH), F2b dst (2C) and bnh (4 NH), F3 and F3b bnr and bnt (4C each),
-// image b's gate (C) and bnh (4 NH).
+// (2 NH), F2b dst (2C) and bnh (4 NH), F2 bnh (4 NH), F3 and F3b bnr and
+// bnt (4C each), image b's gate (C) and bnh (4 NH).
 __host__ __device__ inline int64_t fplan_rows(const Geo &g, int op) {
   return op == F1B   ? 2LL * g.C + 2LL * g.NH
          : op == F2B ? 2LL * g.C + 4LL * g.NH
+         : op == F2  ? 4LL * g.NH
          : op == F1  ? 0
                      : 9LL * g.C + 4LL * g.NH;
 }
@@ -389,14 +397,14 @@ __host__ __device__ inline int64_t fplan_rows(const Geo &g, int op) {
 // Shared memory besides the ring: the mbarriers, the x halo (chunk of kq
 // channels: kq / 8 planes of hr 16-byte rows), a (top, a_res: knh / 8
 // planes of 64 rows), then in f32 the epilogues' rows (rows_smem) and the
-// column-sum scratch (F1's, or the branch backward's).
+// column-sum scratch (F1's and F2's, or the branch backward's).
 inline int64_t fplan_fixed(const Geo &g, const TGeo &t, int kq, int a_res,
                            int rows_smem) {
   int64_t b = FBAR + 2LL * t.hr * kq;
   if (t.top && a_res) b += 2LL * TP * g.knh;
   if (rows_smem) b += 4LL * fplan_rows(g, t.op);
   if (t.bb) b += 4LL * FRED3;
-  if (t.op == F1) b += 4LL * FRED;
+  if (t.op == F1 || t.op == F2) b += 4LL * FRED;
   return b;
 }
 
@@ -725,15 +733,18 @@ struct BwdRows {
   bf16 *dr, *dt, *dc, *cb;
 };
 
-enum WgMode { WG_F1 = 0, WG_F3 = 1, WG_F3B = 2, WG_F1B = 3, WG_F2B = 4 };
+enum WgMode {
+  WG_F1 = 0, WG_F3 = 1, WG_F3B = 2, WG_F1B = 3, WG_F2B = 4, WG_F2 = 5
+};
 
-// F1, F3 or a backward's phase 0 (MODE) on one 8 x 8 tile of the plan P
-// (see the note at the top): threads 0..255 the two consumer warpgroups,
-// each the tile's 64 pixels against half of every product's columns,
-// 256..287 the producer warp.  F1 writes the tile's partial row [S_r (2C)
-// | S_h (2 NH) | the sum of x (C)] (pixels outside the image masked); F3
-// out (M, C) bf16, with a in a_ws (pitch knh, by pixel) where P keeps it
-// out of shared memory.  F1b runs F1's products and writes dc and dr to
+// A forward or a backward's phase 0 (MODE) on one 8 x 8 tile of the plan
+// P (see the note at the top): threads 0..255 the two consumer
+// warpgroups, each the tile's 64 pixels against half of every product's
+// columns, 256..287 the producer warp.  F1 writes the tile's partial row
+// [S_r (2C) | S_h (2 NH) | the sum of x (C)], F2 its [S_t (C) | S_t^2
+// (C)] (pixels outside the image masked); F3 out (M, C) bf16; F2 and F3
+// put a in a_ws (pitch knh, by pixel) where P keeps it out of shared
+// memory.  F1b runs F1's products and writes dc and dr to
 // R's rows; F2b runs the branch convs and a kt^T, writes a to a_ws, c, dt
 // and dc to R's rows and the partial row dS_h (2 NH); F3b recomputes F3's
 // products and writes a to a_ws, c, dr, dt and dc to R's rows and the
@@ -747,8 +758,8 @@ __device__ __forceinline__ void fwd_wg_body(
     const float *gate, bf16 *out, bf16 *a_ws, float *part,
     const BwdRows &R) {
   constexpr bool F3 = MODE == WG_F3 || MODE == WG_F3B;
-  constexpr bool RES = MODE != WG_F2B;              // x kr^T
-  constexpr bool TOP = F3 || MODE == WG_F2B;        // a, a kt^T
+  constexpr bool RES = MODE != WG_F2B && MODE != WG_F2;   // x kr^T
+  constexpr bool TOP = F3 || MODE == WG_F2B || MODE == WG_F2;   // a kt^T
   constexpr bool BB = MODE == WG_F3B || MODE == WG_F2B;
   constexpr int HB = NTB / 2, H1 = FNT1 / 2;   // a warpgroup's n8 tiles
   extern __shared__ __align__(16) unsigned char smem[];
@@ -788,21 +799,22 @@ __device__ __forceinline__ void fwd_wg_body(
   // x's rows for kr^T come from the halo unless it is chunked or the
   // halo buffer carries restaged a rows (without a_res)
   const bool xrows = P.nq > 1 || (TOP && !P.a_res);
-  // the partial row: F1's, F3b's or F2b's (dS_h only)
+  // the partial row: F1's, F2's, F3b's or F2b's (dS_h only)
   const int64_t pld = MODE == WG_F1    ? 3 * C + 2 * g.NH
+                      : MODE == WG_F2  ? 2 * C
                       : MODE == WG_F3B ? 5 * C + 2 * g.NH
                                        : 2 * g.NH;
-  float *prow = MODE == WG_F1 || BB
+  float *prow = MODE == WG_F1 || MODE == WG_F2 || BB
                     ? part + static_cast<int64_t>(blockIdx.x) * pld
                     : nullptr;
-  // F1's and the branch backward's column sums: the warpgroup's scratch
-  // (the branch backward's after the rows)
-  float *red = BB ? sF + (P.rows_smem ? fplan_rows(g, t.op) : 0) +
-                        wg * (FRED3 / 2)
-                  : sF + wg * (FRED / 2);
+  // F1's, F2's and the branch backward's column sums: the warpgroup's
+  // scratch, after the rows staged there (F2, F2b, F3b)
+  float *red = sF + (P.rows_smem ? fplan_rows(g, t.op) : 0) +
+               wg * ((BB ? FRED3 : FRED) / 2);
 
   // the epilogues' rows: BN (F3, F3b: bnr, bnt, gate[b]; bnh), F2b's
-  // dst, F1b's dsr and dsh, staged once a tile where P.rows_smem
+  // dst and bnh, F2's bnh, F1b's dsr and dsh, staged once a tile where
+  // P.rows_smem
   const float *rBr = bnr, *rBt = bnt, *rBh = bnh;
   const float *rG = F3 ? gate + static_cast<int64_t>(pos.b) * C : nullptr;
   const float *rD0 = MODE == WG_F1B ? R.dsr : R.dst, *rDh = R.dsh;
@@ -831,6 +843,10 @@ __device__ __forceinline__ void fwd_wg_body(
       rBh = sD1;
     else
       rDh = sD1;
+  }
+  if (MODE == WG_F2 && P.rows_smem) {
+    for (int i = threadIdx.x; i < 4 * g.NH; i += FC) sF[i] = bnh[i];
+    rBh = sF;
   }
   if (TOP) {
     // a's K padding (columns NH .. knh) is zero
@@ -1106,13 +1122,17 @@ __device__ __forceinline__ void fwd_wg_body(
           }
         }
     } else {
-      // F1: the column sums of bf16(x kr) and of its squares
+      // F1: the column sums of bf16(x kr) and of its squares; F2: of
+      // t = bf16(a kt) (a pixel outside the image masked: its BN bias
+      // and dilated taps make its t nonzero)
       float v[2][H1][4];
 #pragma unroll
       for (int j = 0; j < H1; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          v[0][j][e] = (e < 2 ? in0 : in1) ? bfr(acr[j][e]) : 0.0f;
+          v[0][j][e] = (e < 2 ? in0 : in1)
+                           ? bfr(MODE == WG_F2 ? at[j][e] : acr[j][e])
+                           : 0.0f;
           v[1][j][e] = __fmul_rn(v[0][j][e], v[0][j][e]);
         }
       const int off[2] = {n0, C + n0};
@@ -1190,6 +1210,17 @@ f1_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
              const bf16 *__restrict__ w, float *__restrict__ part) {
   fwd_wg_body<NTB, WG_F1>(g, t, P, xpad, w, nullptr, nullptr, nullptr,
                           nullptr, nullptr, nullptr, part, BwdRows{});
+}
+
+// F2's partial rows (n_tiles x 2C f32: the sums of t and of t^2) on the
+// plan P; a_ws (M, knh) where P keeps a out of shared memory.
+template <int NTB>
+__global__ void __launch_bounds__(FT, 1)
+f2_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
+             const bf16 *__restrict__ w, const float *__restrict__ bnh,
+             float *__restrict__ part, bf16 *__restrict__ a_ws) {
+  fwd_wg_body<NTB, WG_F2>(g, t, P, xpad, w, nullptr, bnh, nullptr, nullptr,
+                          nullptr, a_ws, part, BwdRows{});
 }
 
 // F3's output (M, C) bf16 on the plan P; a_ws (M, knh) where P keeps a
@@ -1519,8 +1550,9 @@ dx_wg_kernel(Geo g, TGeo t, DPlan D, const bf16 *__restrict__ dr,
 
 // ------------------------------------------------------------ host side
 
-// tile_geo for F1 and F3 (op), with the plan here (P) where cam_tile.cuh
-// would take its wide plan (t->wide); it refuses what that plan refuses.
+// tile_geo for a forward (op), with the plan here (P) where make_tgeo
+// takes the wide plan (t->wide); it refuses what that plan's limits
+// refuse.
 inline bool fwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P) {
   if (!tile_geo(geo, op, g, t)) return false;
   *P = FPlan{};
@@ -1546,11 +1578,12 @@ inline bool bwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P,
 
 // cam_<op>_plan of every op, as ops/cam.py:tile_plan computes them: 0
 // phase 0's shared memory, 1 phase 1's (0 for a forward), 2 and 3 the
-// re-laid weights of phase 0 and phase 1, 4 the wide plan, 5 x's K chunk,
-// 6 a's (the kt^T stages' width where phase 0 runs here), 7 and 8
+// re-laid weights of phase 0 and phase 1, 4 the wide plan (phase 0 runs
+// here, and a backward's phase 1 on dx_wg_kernel), 5 x's K chunk, 6 a's
+// (the kt^T stages' width where phase 0 runs here), 7 and 8
 // dx_wg_kernel's stage width over a halo chunk and the chunk's width, 9
-// branch slices; where phase 0 runs here (every op but F2 where the wide
-// plan would run it; else 0) 10: 1, 11: its n8 tiles of a slice, 12: x's
+// branch slices; where phase 0 runs here (every op where make_tgeo takes
+// the wide plan; else 0) 10: 1, 11: its n8 tiles of a slice, 12: x's
 // stage width, 13: a in shared memory, 14: the epilogues' rows there, 15:
 // its stages a tile; where dx_wg_kernel runs (else 0) 16: 1, 17: n8 tiles a
 // warpgroup, 18: column passes, 19: the whole halo in shared memory, 20:
@@ -1562,11 +1595,10 @@ inline long long op_plan(const int *geo, int op, int what) {
   FPlan P{};
   DPlan D{};
   const bool bwd = op >= F1B && op <= F3B;
-  const bool ok = bwd         ? bwd_geo(geo, op, &g, &t, &P, &D)
-                  : op == F2 ? tile_geo(geo, op, &g, &t)
-                             : fwd_geo(geo, op, &g, &t, &P);
+  const bool ok = bwd ? bwd_geo(geo, op, &g, &t, &P, &D)
+                      : fwd_geo(geo, op, &g, &t, &P);
   if (!ok || what < 0 || what > 21) return -1;
-  const bool wg = t.wide && op != F2;
+  const bool wg = t.wide;
   const bool dw = t.wide && bwd;
   if (what >= 16) {
     const long long v[] = {1, D.ntw, D.npass, D.hres, D.dr_res, D.nst};
@@ -1585,7 +1617,7 @@ inline long long op_plan(const int *geo, int op, int what) {
     case 5: return wg ? P.kq : t.kq;
     case 6: return wg ? P.kba : t.kqa;
     case 7: return dw ? D.kbc : 0;
-    default: return what == 8 ? (dw ? D.kq : 0) : (wg ? P.nsl : t.nsl);
+    default: return what == 8 ? (dw ? D.kq : 0) : (wg ? P.nsl : 1);
   }
 }
 

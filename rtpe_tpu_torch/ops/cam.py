@@ -504,9 +504,10 @@ def cam_f1_fwd(x, kr, kh, dils):
 
 def cam_f2_fwd(x, kh, kt, bnh, dils):
     """F2 (replaces ``pallas_cam.py:_f2_call``): s_t (2, C) float32.  On
-    the card the tile kernel of ``csrc/cam_tile.cuh``; ``ValueError``
-    only for a largest dilation whose halo does not fit
-    (:func:`tile_plan`)."""
+    the card the tile kernel of ``csrc/cam_tile.cuh``, or
+    ``csrc/cam_wg.cuh``'s where the wide plan would run (``tile_plan``'s
+    "wg"); ``ValueError`` only for a largest dilation whose halo does not
+    fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_fwd"):
         return cam_f2_fwd_plain(x, kh, kt, bnh, dils)
     x, kh, kt, bnh = _check(x, None, kh, kt, dils, (bnh,))
@@ -555,20 +556,19 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 # wrapper gives it once per call.  Where a branch has at most TILE_SW_MAX
 # columns and the tile's halo at full channel depth and the weight stages
 # fit a block's shared memory (the train step's CAMs), each tile's halo is
-# staged once at full depth; elsewhere the wide plan stages every operand
-# in chunks of input channels and walks a branch in slices (cam_tile.cuh:
-# "wide plan"), and refuses only a largest dilation whose halo of one
-# 16-channel chunk does not fit.  There the wide plan runs F2 alone: F1,
-# F3 and the three backwards' phase 0 run the wgmma kernels of
-# csrc/cam_wg.cuh instead (f1_wg_kernel, f3_wg_kernel, f1b_wg_kernel,
+# staged once at full depth.  Elsewhere ("wide": every --inplanes above
+# 80) every op's phase 0 runs the wgmma kernels of csrc/cam_wg.cuh
+# (f1_wg_kernel, f2_wg_kernel, f3_wg_kernel, f1b_wg_kernel,
 # f2b_wg_kernel, f3b_wg_kernel; "wg" in tile_plan: whole branches of up
 # to 128 columns, the halo at full depth where it fits, _wg_weights), and
 # every backward's phase 1 its dx_wg_kernel ("dx_wg": all output columns
-# in one block, the dc halo once a tile, _dx_weights), refusing the
-# same.  tile_plan and _tile_weights are that contract's
-# Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b"); the C side
-# (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems, stage0,
-# WStage0; cam_wg.cuh:make_fplan, fwd_produce, make_dplan, dx_produce,
+# in one block, the dc halo once a tile, _dx_weights).  Every op refuses
+# only a largest dilation whose halo of one 16-channel chunk does not
+# fit the limits of the mma.sync plan that once ran there (cam_tile.cuh:
+# make_tgeo; _k_fit here).  tile_plan and _tile_weights are that
+# contract's Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b");
+# the C side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems,
+# stage0; cam_wg.cuh:make_fplan, fwd_produce, make_dplan, dx_produce,
 # op_plan) computes the same, and each wrapper checks the weight counts
 # against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on every call.
 
@@ -582,8 +582,8 @@ TILE_SW_MAX = 40     # columns of a branch (slice) (cam_core.cuh:SW_MAX)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
 # cam_wg.cuh's plan: ring slots, columns of a 1x1 chunk, n8 tiles of a
 # branch slice (the kernels' instances), bytes before the ring, F1's and
-# the branch backward's (F2b, F3b) column-sum scratch (f32); dx_wg_kernel's
-# n8 tiles a warpgroup (its instances)
+# F2's and the branch backward's (F2b, F3b) column-sum scratch (f32);
+# dx_wg_kernel's n8 tiles a warpgroup (its instances)
 WG_NS, WG_N1, WG_NTB, WG_BAR, WG_RED = 4, 64, (2, 4, 6, 8, 12, 16), 128, 1024
 WG_RED3 = 1280
 DX_NTW = (8, 12, 14, 17)
@@ -605,8 +605,8 @@ def _up(v: int, m: int) -> int:
 
 
 def _k_chunks(k: int, kmax: int) -> Tuple[int, int]:
-    """(width, count) of the wide plan's chunks of K (cam_tile.cuh:
-    k_chunks): as few as fit in kmax, of even width to 16."""
+    """(width, count) of chunks of K (cam_tile.cuh:k_chunks): as few as
+    fit in kmax, of even width to 16."""
     n = -(-k // kmax)
     return _up(-(-k // n), 16), n
 
@@ -615,7 +615,7 @@ def _k_fit(hr: int, slot: int, fixed: int) -> int:
     """The widest chunk (a multiple of 16; -1 if none) whose two halo
     buffers of hr rows and TILE_NBUF ring slots of ``slot`` rows, pitch
     chunk + 8 bf16, and ``fixed`` bytes fit SMEM_MAX (cam_tile.cuh:
-    k_fit)."""
+    k_fit): the wide plan's limit, every op's refusal."""
     k = (SMEM_MAX - fixed) // (2 * (2 * hr + TILE_NBUF * slot)) - 8
     return -1 if k < 16 else k // 16 * 16
 
@@ -625,12 +625,13 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     """Tiles, padded widths and pitches (bf16 elements), stage counts,
     shared memory (bytes; smem1 0 for a forward) and re-laid weight sizes
     (bf16 elements; w1_elems 0 for a forward) of ``op``'s tile kernels at
-    x (b, h, w, c), ``dils``, branch width hc; "wide" 1 for the wide plan,
-    with its slices (nsl of sw columns) and phase-0 chunks (kq / nq of kc,
-    kqa / nqa of knh), and there "wg" (phase 0 of every op but F2 on
-    cam_wg.cuh, :func:`_wg_plan`) and "dx_wg" (a backward's phase 1 on
-    dx_wg_kernel, :func:`_dx_plan`); "ok" 0 where the largest dilation's
-    halo does not fit even so."""
+    x (b, h, w, c), ``dils``, branch width hc; "wide" 1 where the
+    whole-depth plan does not fit, and there "wg" (phase 0 on
+    cam_wg.cuh, :func:`_wg_plan`: its slices, nsl of sw columns, and
+    chunks, kq / nq of kc, kqa / nqa of knh) and "dx_wg" (a backward's
+    phase 1 on dx_wg_kernel, :func:`_dx_plan`); "ok" 0 where the largest
+    dilation's halo, in chunks of 16 channels, does not fit the wide
+    plan's limit (:func:`_k_fit`)."""
     res, top, bb = TILE_OPS[op]
     bwd = op.endswith("b")
     nb = len(dils)
@@ -671,32 +672,19 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
              dx_dr_res=0, dx_nst=0, dx_kb=0, dx_kq=0)
     if hc <= TILE_SW_MAX and max(p["smem0"], p["smem1"]) <= SMEM_MAX:
         return p
-    # the wide plan; a backward is also refused where a K-chunked phase 1
-    # of mma.sync stages (two halo buffers of a 16-channel chunk, three
-    # slots of nxr weight and 64 dr rows) would not fit: the limit the
-    # ops have always had (cam_tile.cuh:make_tgeo)
-    nsl = -(-hc // TILE_SW_MAX)
-    sw = _up(-(-hc // nsl), 8)
+    # the wide plan's limit, the mma.sync plan's that once ran there: a
+    # phase 0 of K-chunked stages (two halo buffers of a 16-channel chunk,
+    # three slots of 56 weight and 64 A rows) and, for a backward, a
+    # phase 1 (the same halo buffers, three slots of nxr weight and 64 dr
+    # rows) that fit (cam_tile.cuh:make_tgeo); cam_wg.cuh's plans, which
+    # run both phases there, need less
     k0 = _k_fit(p["hr"], TILE_NC + tp, 4 * red)
     k1 = _k_fit(p["hr"], p["nxr"] + res * tp, 0) if bwd else 16
-    p.update(wide=1, nsl=nsl, sw=sw, brows=sw)
+    p.update(wide=1, smem1=0, w1_elems=0)
     if k0 < 0 or k1 < 0:
         p["ok"] = 0
         return p
-    kq, nq = _k_chunks(kc, k0)
-    kqa, nqa = _k_chunks(knh, k0)
-    kqm = max(kq, kqa) if top else kq
-    nbr = 9 * nb * nsl * nq
-    n11 = p["nchr"] * (res * nq + top * nqa)
-    p.update(kq=kq, nq=nq, kqa=kqa, nqa=nqa, kqm=kqm, kw0=kqm, nbr=nbr,
-             n11=n11, nst0=nbr + n11 + bb * nb * nsl * nq)
-    p["smem0"] = 2 * (2 * p["hr"] + TILE_NBUF * (TILE_NC + tp)) * (kqm + 8) \
-        + 4 * red
-    p["smem1"] = p["w1_elems"] = 0
-    p["w0_elems"] = (9 + bb) * nb * nsl * sw * kc \
-        + p["nchr"] * TILE_NC * (kc * res + knh * top)
-    if op != "f2":
-        _wg_plan(p, op, c, nb, hc)
+    _wg_plan(p, op, c, nb, hc)
     if bwd and p["ok"]:
         _dx_plan(p, res, c, nb)
     return p
@@ -704,9 +692,9 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
 
 def _wg_rows(op, c, nh):
     """cam_wg.cuh:fplan_rows: f32 elements of the rows ``op``'s epilogues
-    read (f1b dsr and dsh, f2b dst and bnh, f3 and f3b bnr, bnt, the gate
-    and bnh)."""
-    return {"f1": 0, "f1b": 2 * c + 2 * nh,
+    read (f1b dsr and dsh, f2b dst and bnh, f2 bnh, f3 and f3b bnr, bnt,
+    the gate and bnh)."""
+    return {"f1": 0, "f1b": 2 * c + 2 * nh, "f2": 4 * nh,
             "f2b": 2 * c + 4 * nh}.get(op, 9 * c + 4 * nh)
 
 
@@ -718,15 +706,16 @@ def _wg_fixed(p, op, c, nh, kq, a_res, rows):
         b += 2 * TILE_TP * p["knh"]
     if rows:
         b += 4 * _wg_rows(op, c, nh)
-    return b + (4 * WG_RED3 if bb else 0) + (4 * WG_RED if op == "f1" else 0)
+    return b + (4 * WG_RED3 if bb else 0) \
+        + (4 * WG_RED if op in ("f1", "f2") else 0)
 
 
 def _wg_plan(p, op, c, nb, hc):
-    """The phase-0 plan of F1, F3 or a backward where the wide plan would
-    run it (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8
+    """The phase-0 plan of ``op`` where the whole-depth plan does not fit
+    (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8
     tiles (sw columns, nsl slices), 1x1 chunks of WG_N1 columns (nch1),
     the x halo in nq chunks of kq, x's stages kb wide at most, a's (top:
-    F3, F2b, F3b) kqa (nqa of them), a (a_res) and the epilogues' rows
+    F2, F3, F2b, F3b) kqa (nqa of them), a (a_res) and the epilogues' rows
     (rows_smem; F1b's always) in shared memory or not; the branch
     backward's (F2b, F3b) dt restaged into the halo's buffer in nd chunks
     of kdq, its stages kbd wide; wg_nst stages a tile; smem0 and w0_elems
@@ -882,10 +871,11 @@ def _wg_weights(op: str, p: Dict[str, int], kr, kh, kt) -> torch.Tensor:
     each stage [N / 8][kw][8] (N the stage's output columns) with zeros
     padding K and N: per (branch, slice, chunk of x, tap, stage of kb)
     kh[i, tap] [kw][sw]; then per 1x1 chunk of WG_N1 output columns kr's
-    x stages [kw][WG_N1] (f1, f3, f1b, f3b) and kt's stages over knh (f3,
-    f2b, f3b); then (f2b, f3b) per (branch, slice, chunk of dt, stage of
-    kbd) kt[i]^T [kw][sw].  So f1b's layout is f1's and f2b's f3b's
-    without the kr stages."""
+    x stages [kw][WG_N1] (f1, f3, f1b, f3b) and kt's stages over knh (f2,
+    f3, f2b, f3b); then (f2b, f3b) per (branch, slice, chunk of dt, stage
+    of kbd) kt[i]^T [kw][sw].  So f1b's layout is f1's, f2's the prefix
+    of f2b's before its kt[i]^T stages, and f2b's f3b's without the kr
+    stages."""
     res, top, bb = TILE_OPS[op]
     nb, _, _, c, hc = kh.shape
     nh = nb * hc
@@ -965,13 +955,11 @@ def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
     them); w1 (None for a forward), per chunk of TILE_NX output channels (nxr
     rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
     nb x 9 stages of kh[i, tap] [nxr][khc].  Where ``plan`` (the call's
-    :func:`tile_plan`) is the wide one, its layout instead: w0 the wide
-    plan's (:func:`_wide_weights`, F2) or, where phase 0 runs cam_wg.cuh's
-    kernels (``plan["wg"]``: every other op), theirs
-    (:func:`_wg_weights`); w1 dx_wg_kernel's (:func:`_dx_weights`)."""
+    :func:`tile_plan`) is the wide one, the layouts of cam_wg.cuh's
+    kernels instead: w0 phase 0's (:func:`_wg_weights`), w1
+    dx_wg_kernel's (:func:`_dx_weights`)."""
     if plan is not None and plan["wide"]:
-        w0 = (_wg_weights(op, plan, kr, kh, kt) if plan["wg"]
-              else _wide_weights(plan, kh, kt))
+        w0 = _wg_weights(op, plan, kr, kh, kt)
         w1 = _dx_weights(op, plan, kr, kh) if op.endswith("b") else None
         return w0, w1
     nb, _, _, c, hc = kh.shape
@@ -1002,35 +990,6 @@ def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
         krt = krt.reshape(nchx, nxr, nksr, khc).transpose(1, 2)
         w1 = torch.cat([krt, w1], 1)
     return w0, w1.reshape(-1).contiguous()
-
-
-def _k_split(t: torch.Tensor, width: int) -> list:
-    """t's last dimension in chunks of ``width`` (the last what is
-    left)."""
-    return list(torch.split(t, width, dim=-1))
-
-
-def _wide_weights(p: Dict[str, int], kh, kt) -> torch.Tensor:
-    """The wide plan's phase-0 weights (``cam_tile.cuh:WStage0`` walks
-    them; F2's, the one op it runs), [n][k] with zeros padding n and k:
-    per (branch, slice, chunk of kc, tap) [sw][kw] of kh[i, tap]^T; per
-    1x1 chunk of TILE_NC output channels its kt^T chunks of knh
-    [NC][kw]."""
-    nb, _, _, c, hc = kh.shape
-    nh = nb * hc
-    kc, knh, nsl, sw = p["kc"], p["knh"], p["nsl"], p["sw"]
-    nchr, kq = p["nchr"], p["kq"]
-    cpad = nchr * TILE_NC
-    # (nb, 9, kc, nsl, sw) -> per chunk (nb, nsl, 9, sw, kw)
-    taps = F.pad(kh.reshape(nb, 9, c, hc), (0, nsl * sw - hc, 0, kc - c))
-    taps = taps.reshape(nb, 9, kc, nsl, sw).permute(0, 3, 1, 4, 2)
-    w0 = [torch.cat([q.reshape(nb, nsl, -1) for q in _k_split(taps, kq)],
-                    2).reshape(-1)]
-    ktt = F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c))
-    ktt = ktt.reshape(nchr, TILE_NC, knh)
-    w0.append(torch.cat([q.reshape(nchr, -1)
-                         for q in _k_split(ktt, p["kqa"])], 1).reshape(-1))
-    return torch.cat(w0).contiguous()
 
 
 def _tile_call(op: str, name: str, x, kr, kh, kt, dils):

@@ -1,7 +1,7 @@
-"""The fused-CAM kernels at every student width, on the CPU: the wide plan
-of ``csrc/cam_tile.cuh`` (branches wider than 40 columns in slices,
-input channels staged in chunks) and the port's ``fused_cam`` and
-student step at those widths against the JAX package.
+"""The fused-CAM kernels at every student width, on the CPU: the tile
+plan of ``csrc/cam_tile.cuh`` (whole-depth where it fits, else the wide
+plan: the wgmma kernels of ``csrc/cam_wg.cuh``) and the port's
+``fused_cam`` and student step at those widths against the JAX package.
 
 * The width grid: the ``AttentionStudentSteps`` CAMs at ``--inplanes``
   96, 128 and 256 (step: C = 2 inplanes + 3 with dilations 1-3; pyramid:
@@ -9,15 +9,12 @@ student step at those widths against the JAX package.
   to 6 and 8, and the train step's two shapes.  ``tile_plan`` of all six
   ops fits a block's shared memory at each of them, keeps the
   whole-depth plan where it fits (the train step's shapes) and takes the
-  wide one elsewhere (F1, F3 and every backward's phase 0 there the
-  wgmma plan of ``csrc/cam_wg.cuh``: whole branches of up to 128
-  columns, and every backward's phase 1 its ``dx_wg_kernel``; their own
-  tests are ``tests/test_torch_cam_wg.py``, ``tests/test_torch_cam_wgb.py``
-  and ``tests/test_torch_cam_wgb0.py``).
-* The wide plan's re-laid weights (``ops/cam.py:_wide_weights``), stage
-  by stage as the kernels walk them (a model of
-  ``cam_tile.cuh:WStage0``), give back kh and kt with zero padding, for
-  F2, the one op whose phase 0 runs it.
+  wide one elsewhere (every op's phase 0 there the wgmma plan of
+  ``csrc/cam_wg.cuh``: whole branches of up to 128 columns, and every
+  backward's phase 1 its ``dx_wg_kernel``; their own tests, the re-laid
+  weights' included, are ``tests/test_torch_cam_wg.py``,
+  ``tests/test_torch_cam_wgf2.py``, ``tests/test_torch_cam_wgb.py`` and
+  ``tests/test_torch_cam_wgb0.py``).
 * ``fused_cam`` (the plain versions, on the CPU) against
   ``rtpe_tpu.ops.pallas_cam.fused_cam`` in interpret mode at two wide
   shapes, forward and gradients, with ``tests/test_torch_cam.py``'s
@@ -50,7 +47,6 @@ from rtpe_tpu_torch.ops import cam
 from rtpe_tpu_torch.train import (DistillConfig, DistillTrainState,
                                   make_distill_train_step)
 
-NC = cam.TILE_NC
 OPS = ("f3b", "f1b", "f2b", "f1", "f3", "f2")
 
 # (B, H, W, C, dilations, hc)
@@ -80,17 +76,17 @@ def by_op(names, ops=OPS):
 def test_tile_plan_fits_every_width(op, name):
     """Every op at every shape of the grid: a plan, within SMEM_MAX in
     both phases, whole-depth where that fits (one K chunk, one slice);
-    otherwise the wide plan: slices of at most 40 columns covering hc
-    (the wgmma plan of every op but F2: of at most 128), chunks of at
-    most the widest that fits covering kc and knh (F1's and F1b's wgmma
-    plans read no a), a backward's phase 1 on dx_wg_kernel."""
+    otherwise the wide plan, phase 0 on the wgmma plan: slices of at most
+    128 columns covering hc, chunks of at most the widest that fits
+    covering kc and knh (F1's and F1b's read no a), a backward's phase 1
+    on dx_wg_kernel."""
     b, h, w, c, dils, hc = shape = GRID[name]
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
     assert p["wide"] == (name not in WHOLE_DEPTH
                          and (op, name) not in WHOLE_DEPTH_OPS)
-    assert p["wg"] == (p["wide"] and op != "f2")
+    assert p["wg"] == p["wide"]
     assert p["dx_wg"] == (p["wide"] and op.endswith("b"))
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
     sw_max = 8 * max(cam.WG_NTB) if p["wg"] else cam.TILE_SW_MAX
@@ -105,30 +101,10 @@ def test_tile_plan_fits_every_width(op, name):
         assert p["kq"] == p["kc"]
 
 
-def wide_stage0(p, nb, s):
-    """Phase-0 stage s of the wide plan (F2's), as ``cam_tile.cuh:WStage0``
-    walks w0: (offset, rows, k width, kind, first k, branch, slice, tap,
-    1x1 chunk); kind "br" (branch convs: branch, slice, K chunk of kc,
-    tap) or "top" (per 1x1 chunk of NC channels its K chunks of knh)."""
-    kc, knh, sw, nsl = p["kc"], p["knh"], p["sw"], p["nsl"]
-    kq, nq, kqa, nqa = p["kq"], p["nq"], p["kqa"], p["nqa"]
-    blk = 9 * sw * kc
-    nbr = 9 * nb * nsl * nq
-    if s < nbr:
-        tap, u = s % 9, s // 9
-        q, isl = u % nq, u // nq
-        kw = min(kq, kc - q * kq)
-        return (isl * blk + 9 * q * sw * kq + tap * sw * kw, sw, kw, "br",
-                q * kq, isl // nsl, isl % nsl, tap, None)
-    ch, q = divmod(s - nbr, nqa)
-    kw = min(kqa, knh - q * kqa)
-    return (nb * nsl * blk + ch * NC * knh + q * NC * kqa, NC, kw, "top",
-            q * kqa, None, None, None, ch)
-
-
 # the wide grid's weight shapes (the layout depends on C, the
 # dilations' count and largest one, and hc), and two with narrow K
-# chunks forced by a wide dilation (several chunks of x, two slices)
+# chunks forced by a wide dilation (several chunks of x, a branch wider
+# than 40 columns beside a dilation of 11)
 WEIGHT_SHAPES = {n: GRID[n] for n in GRID if n not in WHOLE_DEPTH}
 WEIGHT_SHAPES.update({"chunks": (1, 11, 10, 150, (1, 12), 20),
                       "chunks_slices": (2, 9, 9, 100, (2, 11, 3), 44)})
@@ -142,48 +118,6 @@ def _weights(c, nb, hc, seed):
             np.float32)).to(torch.bfloat16)
 
     return draw(c, c), draw(nb, 3, 3, c, hc), draw(nb, hc, c)
-
-
-# every phase but F2's runs cam_wg.cuh's kernels where the wide plan
-# would run it: their re-laid weights are tests/test_torch_cam_wg.py's,
-# test_torch_cam_wgb.py's and test_torch_cam_wgb0.py's
-WIDE_OPS = ("f2",)
-
-
-@pytest.mark.parametrize("op,name", [
-    c for c in by_op(WEIGHT_SHAPES, WIDE_OPS)
-    if tuple(c.values) not in WHOLE_DEPTH_OPS])
-def test_wide_weights_unpad_to_the_inputs(op, name):
-    b, h, w, c, dils, hc = shape = WEIGHT_SHAPES[name]
-    nb, nh = len(dils), len(dils) * hc
-    p = cam.tile_plan(op, *shape)
-    assert p["wide"] and not p["wg"]
-    _, kh, kt = _weights(c, nb, hc, 3)
-    w0, w1 = cam._tile_weights(op, None, kh, kt, p)
-    assert w0.numel() == p["w0_elems"] and w1 is None
-
-    def check(block, want):
-        n, k = want.shape
-        assert torch.equal(block[:n, :k], want)
-        assert not block[n:].any() and not block[:, k:].any()
-
-    ktf = kt.reshape(nh, c)
-    kinds = []
-    for s in range(p["nst0"]):
-        off, rows, kw, kind, k0, i, sl, tap, ch = wide_stage0(p, nb, s)
-        assert kw % 16 == 0 and kw <= p["kqm"] and rows <= NC
-        block = w0[off:off + rows * kw].reshape(rows, kw)
-        kinds.append(kind)
-        if kind == "br":
-            s0 = sl * p["sw"]
-            check(block, kh[i, tap // 3, tap % 3, k0:k0 + kw,
-                            s0:s0 + p["sw"]].t())
-        else:
-            check(block, ktf[k0:k0 + kw, ch * NC:(ch + 1) * NC].t())
-    assert off + rows * kw == p["w0_elems"]      # the last stage ends w0
-    assert kinds.count("br") == p["nbr"] == 9 * nb * p["nsl"] * p["nq"]
-    assert kinds.count("top") == p["nchr"] * p["nqa"]
-    assert p["w1_elems"] == 0
 
 
 # ------------------------------------------------------------ fused_cam

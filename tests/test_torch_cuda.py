@@ -820,11 +820,10 @@ WIDE_BHW = (2, 21, 19)
     + WIDTH_GRID))
 def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     """Shared memory, re-laid weight sizes and the wide plan (its flag,
-    K chunks and slices), where F1, F3 and every backward's phase 0 run
-    cam_wg.cuh's kernels that plan's (its flag, n8 tiles of a slice, x's
-    stage width, a and the epilogues' rows in shared memory, stages;
-    F1b's and F2b's phase 0 too at every width-grid shape), and where a
-    backward's
+    K chunks and slices), where every op's phase 0 runs cam_wg.cuh's
+    kernels that plan's (its flag, n8 tiles of a slice, x's stage width,
+    a and the epilogues' rows in shared memory, stages; F2's since it
+    left cam_tile.cuh's wide plan), and where a backward's
     phase 1 runs dx_wg_kernel its plan's (stage and halo chunk widths,
     n8 tiles a warpgroup, column passes, the halo and dr's rows in shared
     memory, stages): the C formulas (cam_wg.cuh:op_plan, exported as
@@ -907,24 +906,27 @@ def test_cam_kernels_match_plain_at_every_width(no_tf32, shape):
         assert not faults, faults
 
 
-# F1 and F3 on cam_wg.cuh's kernels: the step CAM of --inplanes 128 at the
-# train step's size, ragged images at C = 259 and 515 (the halo at full
-# depth and in K chunks), and a plan with two branch slices that keeps
-# F3's a and BN rows out of shared memory
+# F1, F2 and F3 on cam_wg.cuh's kernels: the step CAM of --inplanes 128 at
+# the train step's size, ragged images at C = 259 and 515 (the halo at
+# full depth and in K chunks), and a plan with two branch slices that
+# keeps F2's and F3's a and BN rows out of shared memory
 WG_SHAPES = [(16, 113, 113, 259, (1, 2, 3), 64),
              (2, 21, 19, 259, (1, 2, 3), 64),
              (2, 21, 19, 515, (1, 2, 3), 128),
              (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256)]
 
 
-@pytest.mark.parametrize("op", ["f1", "f3"])
+@pytest.mark.parametrize("op", ["f1", "f2", "f3"])
 @pytest.mark.parametrize("shape", WG_SHAPES)
 def test_cam_wg_forwards_match_plain(no_tf32, op, shape):
-    """F1 and F3 where the wgmma plan runs them, counted launches:
-    exact-sum inputs with F3's out bitwise the plain version's and F1's
-    sums within ``cam_check.SUM_TOL`` of their float64 sums of |terms|;
-    random inputs within the float64 check's limits (small caps)."""
+    """F1, F2 and F3 where the wgmma plan runs them (f1_wg_kernel,
+    f2_wg_kernel, f3_wg_kernel; the plan codes equal ``tile_plan``'s),
+    counted launches: exact-sum inputs with F3's out bitwise the plain
+    version's and F1's and F2's sums within ``cam_check.SUM_TOL`` of
+    their float64 sums of |terms|; random inputs within the float64
+    check's limits (small caps)."""
     assert cam.tile_plan(op, *shape)["wg"]
+    _plan_codes_match(op, shape)
     case = cam_case(*shape, seed=11, device=no_tf32, exact=True)
     name, kernel, plain, args = cam_calls(case)[TILE_CALLS[op]]
     before = kernel.launches
@@ -1011,6 +1013,26 @@ def test_cam_wgb_refuses_a_dilation_of_19(no_tf32, op):
         want = _as_tuple(plain(*args))
     assert torch.equal(got[0], want[0])
     _refuses_a_halo_that_does_not_fit(no_tf32, op, dils=(1, d + 1))
+
+
+def test_cam_wg_f2_takes_a_dilation_of_19(no_tf32):
+    """At C = 163 F2 takes a largest dilation of 19 on f2_wg_kernel (x's
+    halo in K chunks, its plan codes ``tile_plan``'s) and refuses 20, as
+    the wide plan it left did: on exact-sum inputs its sums within
+    ``cam_check.SUM_TOL`` of their float64 sums of |terms|."""
+    shape = (1, 16, 16, 163, (1, 19), 40)
+    assert cam.tile_plan("f2", *shape)["wg"]
+    _plan_codes_match("f2", shape)
+    case = cam_case(*shape, seed=3, device=no_tf32, exact=True)
+    name, kernel, plain, args = cam_calls(case)[TILE_CALLS["f2"]]
+    got, _ = cam_check.run_kernel(name, kernel, args)
+    with torch.backends.cudnn.flags(enabled=False):
+        want, _ = cam_check.evaluate(name, args)
+        f64, terms = plain(*args, dtype=torch.float64, terms=True)
+    _, faults = cam_check.exact_check(name, got, want, _as_tuple(f64),
+                                      _as_tuple(terms))
+    assert not faults, faults
+    _refuses_a_halo_that_does_not_fit(no_tf32, "f2", dils=(1, 20))
 
 
 def test_cam_wrappers_refuse(cuda):
