@@ -89,9 +89,8 @@ Phases, each of which fails the run:
     plain versions (``rtpe_tpu_torch/tools/cam_check.py``) at the train
     step's two CAM shapes, B=16, 113 x 113 x 163 (dilations 1-3) and x 83
     (1-4), its step CAM at ``--inplanes`` 128 (113 x 113 x 259, hc = 64,
-    B=16: the wgmma kernels of ``csrc/cam_wg.cuh`` at full size), and a
-    ragged (3, 29, 21, 83) case with per-image gates of both signs (the
-    other three on the 8 x 8 tiles of ``csrc/cam_tile.cuh``): on
+    B=16), and a ragged (3, 29, 21, 83) case with per-image gates of both
+    signs (all on the wgmma kernels of ``csrc/cam_wg.cuh``): on
     random inputs each output within the limits two float32 controls
     (TF32 off and on) set, F2b's and F3b's also with each one's own
     masks pinned (the kernels' read from their scratch) and by their
@@ -102,10 +101,9 @@ Phases, each of which fails the run:
     every pixel reduction within 2^-14 of its float64 sum of |terms|;
     the same two checks at the width grid (``WIDE_CAMS``: the student's
     CAMs at ``--inplanes`` 96, 128 and 256 and six dilations up to 6 and
-    8 at C = 163, B = 2, 21 x 19, where the whole-depth plan does not
-    fit: all six ops there on the wgmma kernels of ``csrc/cam_wg.cuh``,
-    whole branches of up to 128 columns, K-chunked halos where they do
-    not fit);
+    8 at C = 163, B = 2, 21 x 19: all six ops on the wgmma kernels of
+    ``csrc/cam_wg.cuh`` as everywhere, whole branches of up to 128
+    columns, K-chunked halos where they do not fit);
     then the backwards' weight-gradient kernels alone (``cam.cam_wgrad``:
     dkh at each dilation, dkr, dkt) against a float64 product of the
     same bf16 operands at both train shapes, the ragged shape and C = 12
@@ -123,21 +121,18 @@ Phases, each of which fails the run:
     from the fused run's parameters of that step: each step's losses
     within 1e-3 of each other; step times, peak memory and a
     ``torch.profiler`` view of one fused step; then the same fused and
-    cuDNN pair at ``--inplanes 128`` (its step CAMs, C = 259, hc = 64,
-    where the whole-depth plan does not fit: all six ops on
-    ``cam_wg.cuh``'s kernels): launches, losses within 1e-3, ms, img/s,
-    peak GB;
+    cuDNN pair at ``--inplanes 128`` (its step CAMs, C = 259, hc = 64):
+    launches, losses within 1e-3, ms, img/s, peak GB;
 19. each CAM kernel's time, its plain version's, its bound and the cuDNN
     CAM's train-mode forward (or forward + backward) at both shapes and
     at ``--inplanes 128``'s step CAM (``at_step128``), and
     the per-launch breakdown under ``torch.profiler`` of F1, F2 and F3
-    (the tile kernel, F1's and F2's reductions, the wrapper's padding and
-    weight re-layout) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
+    (the kernel, F1's and F2's reductions, the wrapper's padding and
+    weight gather) and of F1b, F2b and F3b (phase 0, dx, the ``dkh`` and
     ``dkr``/``dkt`` weight gradients, the reductions, the wrapper), each
-    kernel under its own name (``tile_parts``: the whole-depth plan's
-    ``<op>_tile_kernel`` and ``dx_kernel``, at ``at_step128`` the
-    wgmma kernels ``f1_wg_kernel`` / ``f2_wg_kernel`` / ``f3_wg_kernel``,
-    the backwards' phase 0 ``f1b_wg_kernel`` / ``f2b_wg_kernel`` /
+    kernel under its own name (``tile_parts``: the wgmma kernels
+    ``f1_wg_kernel`` / ``f2_wg_kernel`` / ``f3_wg_kernel``, the
+    backwards' phase 0 ``f1b_wg_kernel`` / ``f2b_wg_kernel`` /
     ``f3b_wg_kernel`` and their ``dx_wg_kernel``).
 
 20. flip and multi-scale (0.5, 1, 2) TTA at full W48 width on 640 x 640
@@ -357,29 +352,24 @@ WIDE_TENSOR_TOL = 0.1
 STEP128_CAM = (16, 113, 113, 259, (1, 2, 3), 64)
 STEP256_CAM = (16, 113, 113, 515, (1, 2, 3), 128)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 16, 450, 5
-# the kernels of the tiled ops (the forwards: the tile kernel and F1's and
+# the kernels of the tiled ops (the forwards: the kernel and F1's and
 # F2's reductions; the backwards: phase 0, dx, the weight gradients'
 # kernels, wgrad_taps_kernel for dkh and wgrad_plain_kernel for dkr /
 # dkt, the reductions), for their per-launch breakdown under
-# torch.profiler; "other" is the wrapper's padded x and re-laid weights
-TILE_OPS = {"cam_f1_fwd": ("f1", None), "cam_f2_fwd": ("f2", None),
-            "cam_f3_fwd": ("f3", None), "cam_f1_bwd": ("f1b", "true, true"),
-            "cam_f2_bwd": ("f2b", "false, false"),
-            "cam_f3_bwd": ("f3b", "true, false")}
+# torch.profiler; "other" is the wrapper's padded x and gathered weights
+TILE_OPS = {"cam_f1_fwd": "f1", "cam_f2_fwd": "f2", "cam_f3_fwd": "f3",
+            "cam_f1_bwd": "f1b", "cam_f2_bwd": "f2b", "cam_f3_bwd": "f3b"}
 
 
-def tile_parts(name: str, wide: bool) -> tuple:
+def tile_parts(name: str) -> tuple:
     """The kernels of tiled op ``name`` by the names the profiler gives
-    them, those of the whole-depth plan (``<op>_tile_kernel``,
-    ``dx_kernel``) or (``wide``) of the wgmma plan that runs where it
-    does not fit (``<op>_wg_kernel``, ``dx_wg_kernel``), each matched
-    after its namespace's ``::`` (``<op>_wg_kernel<ntb>``,
-    ``dx_wg_kernel<ntw, dr, gap>``)."""
-    op, dx = TILE_OPS[name]
-    parts = (f"::{op}_{'wg' if wide else 'tile'}_kernel",)
-    if dx is not None:
-        parts += (f"::dx_wg_kernel<" if wide else f"::dx_kernel<{dx}>",
-                  "wgrad_taps_kernel", "wgrad_plain_kernel")
+    them (``<op>_wg_kernel<ntb>``, ``dx_wg_kernel<ntw, dr, gap>``), each
+    matched after its namespace's ``::``."""
+    op = TILE_OPS[name]
+    parts = (f"::{op}_wg_kernel",)
+    if op.endswith("b"):
+        parts += ("::dx_wg_kernel<", "wgrad_taps_kernel",
+                  "wgrad_plain_kernel")
     return parts + (("reduce_rows_kernel",) if name != "cam_f3_fwd" else ())
 
 
@@ -552,8 +542,8 @@ def phase_card() -> str:
 
 def entry_name(mangled: str) -> str:
     """A kernel's name from its Itanium-mangled symbol: the nested names
-    joined by ``::`` (``cam::tile::f3_tile_kernel``) and its bool or int
-    template arguments (``dx_kernel<true, false>``); the symbol as it is
+    joined by ``::`` (``cam::tile::f3_wg_kernel``) and its bool or int
+    template arguments (``dx_wg_kernel<12, true, false>``); the symbol as it is
     where it does not parse."""
     if not mangled.startswith("_Z"):
         return mangled
@@ -2097,13 +2087,14 @@ def run_train(students, train_mod, cam_mod, fused, w48_state, params,
            "peak_bytes": peak,
            "labels": train_mod.label_params(model.named_parameters())}
     if profile:
-        # the CAM kernels together, then each tile kernel and the weight
-        # gradients by name
+        # the CAM kernels together, then each kernel and the weight
+        # gradients by name: the forwards, the backwards' phase 0, dx
         out["profile"] = device_profile(
             lambda: step(state, batch),
-            ("cam::", "f1_tile", "f2_tile", "f3_tile", "f1b_tile",
-             "f2b_tile", "f3b_tile", "dx_kernel", "wgrad_taps_kernel",
-             "wgrad_plain_kernel", "reduce_rows"))
+            ("cam::", "::f1_wg_kernel", "::f2_wg_kernel", "::f3_wg_kernel",
+             "::f1b_wg_kernel", "::f2b_wg_kernel", "::f3b_wg_kernel",
+             "::dx_wg_kernel", "wgrad_taps_kernel", "wgrad_plain_kernel",
+             "reduce_rows"))
     return out
 
 
@@ -2295,7 +2286,7 @@ def cam_kernel_rows(cam_mod, students_mod, errs, launches, dev,
                 # the profiler can drop a kernel's events (seen on the
                 # H100: a backward's phase-0 and wgrad kernels in one of
                 # six profiles): profile again until each part shows
-                parts = tile_parts(name, key == "step128")
+                parts = tile_parts(name)
                 for _ in range(3):
                     prof = device_profile(lambda: kernel(*args), parts)
                     part = dict(prof.get("ours_ms") or {})

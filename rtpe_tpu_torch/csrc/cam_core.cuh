@@ -1,24 +1,21 @@
 // Shared core of the fused ContextAwareModule (CAM) kernels, CUDA C++ for
 // sm_90a: cam_f1.cu, cam_f2.cu and cam_f3.cu include it through
-// cam_tile.cuh, the 2-D tile kernels of the six ops, which build on it.
+// cam_wg.cuh, the kernels of the six ops, which build on it.
 //
 // The TPU kernels (rtpe_tpu/ops/pallas_cam.py) keep one zero-padded image
 // in VMEM and walk it in 16-row bands, grid (B, bands) or (B, phase,
 // bands), carrying every reduction in an output block across grid steps.
 // One 113 x 113 x 163 bf16 image is 4.2 MB, far above the 227 KB of shared
 // memory a block has, and grid steps here run in parallel and in no order.
-// So the port tiles the pixels instead (cam_tile.cuh: 8 x 8 pixels of one
+// So the port tiles the pixels instead (cam_wg.cuh: 8 x 8 pixels of one
 // image a block, so a per-tile partial is also a per-image partial, as the
 // GAP needs).  Here, what every op shares:
 //   - the geometry of a call (Geo): any C and branch width hc, 1..6
 //     dilations; odd channel counts (C = 83 / 163, hc = 20 / 40) are padded
 //     to multiples of 16 for K, and N to whole n8 tiles, with zeros the
 //     wrapper and the kernels stage, never changing the caller's tensors;
-//     the output channels of a 1x1 conv go in chunks of NC = 56, a branch's
-//     in slices of at most NTB n8 tiles (cam_tile.cuh's wide plan);
-//   - the mma.sync m16n8k16 bf16 -> f32 step and its fragment layout, the
-//     16-byte cp.async and the ldmatrix loads (the weight gradients: TMA
-//     and wgmma);
+//   - the wgmma helpers (descriptors, fences, mbarriers) and the fragment
+//     layout of an m64 accumulator;
 //   - every reduction over pixels (batch statistics, the BN parameters'
 //     gradients, the gate's gradient) is a per-tile partial written to
 //     global memory and summed over tiles in a fixed order by
@@ -30,7 +27,7 @@
 //     the branch activations a) to global bf16 scratch, every row 16-byte
 //     aligned (dr and dt of pitch kc, a of pitch knh, dc of pitch nb khc);
 //     phase 1, the transposed dilated convs that read dc with its halo, is
-//     a second launch, since the dependency crosses blocks (cam_tile.cuh).
+//     a second launch, since the dependency crosses blocks (cam_wg.cuh).
 // Rounding points are the TPU kernels': bf16(conv) before the statistics
 // and BN, bf16(a) before the top conv, bf16(t) before the top BN, bf16 of
 // dc, dr and dt before the weight-gradient products, dx in bf16.  The
@@ -109,14 +106,7 @@ namespace cam {
 typedef __nv_bfloat16 bf16;
 
 constexpr int TP = 64;            // pixels per tile
-constexpr int THREADS = 128;      // 4 warps x 16 pixel rows
-constexpr int NWARPS = THREADS / 32;
-constexpr int NC = 56;            // output channels per 1x1-conv chunk
-constexpr int NTC = NC / 8;       // its n8 tiles
-constexpr int NTB = 5;            // n8 tiles of a branch (slice)
-constexpr int SW_MAX = NTB * 8;   // 40 columns: wider branches go in slices
 constexpr int NB_MAX = 6;         // dilations at most
-constexpr int NRED = 5;           // column sums per chunk at most
 
 // Geometry of one CAM application, from the int[12] the wrapper passes:
 // B, H, W, C, nb, hc, then nb dilations.
@@ -184,16 +174,6 @@ __device__ __forceinline__ float bn_apply(float c, float mean, float inv,
                    bias);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 template <int NT>
 __device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
 #pragma unroll
@@ -208,17 +188,6 @@ __device__ __forceinline__ int frag_row(int warp, int lane, int e) {
 }
 __device__ __forceinline__ int frag_col(int lane, int j, int e) {
   return j * 8 + (lane & 3) * 2 + (e & 1);
-}
-
-// After a __syncthreads: the four warps' column sums of slot `slot`, in
-// warp order.  red is laid out [warp][SLOTS][NC].
-template <int SLOTS = NRED>
-__device__ __forceinline__ float block_col(const float *red, int slot,
-                                           int c) {
-  const int s = SLOTS * NC;
-  return ((red[slot * NC + c] + red[s + slot * NC + c]) +
-          red[2 * s + slot * NC + c]) +
-         red[3 * s + slot * NC + c];
 }
 
 // ------------------------------------------------------------ kernels

@@ -1,51 +1,56 @@
-// The fused-CAM ops' wgmma kernels at the student's wider geometries,
-// CUDA C++ for sm_90a (cam_f1.cu, cam_f2.cu and cam_f3.cu include this
-// header): f1_wg_kernel, f2_wg_kernel, f3_wg_kernel and the three
-// backwards' phase 0, f1b_wg_kernel, f2b_wg_kernel and f3b_wg_kernel (one
-// body, fwd_wg_body, in six modes), and dx_wg_kernel (phase 1 of all
-// three backwards), for every geometry where cam_tile.cuh:make_tgeo does
-// not take the whole-depth plan (a branch wider than SW_MAX = 40 columns,
-// or a whole-depth halo and stages that do not fit: every --inplanes
-// above 80, six dilations up to 6 or 8 at C = 163).
+// The fused-CAM ops' kernels, CUDA C++ for sm_90a (cam_f1.cu, cam_f2.cu
+// and cam_f3.cu include this header): f1_wg_kernel, f2_wg_kernel,
+// f3_wg_kernel and the three backwards' phase 0, f1b_wg_kernel,
+// f2b_wg_kernel and f3b_wg_kernel (one body, fwd_wg_body, in six modes),
+// and dx_wg_kernel (phase 1 of all three backwards), at every geometry
+// the ops take: the train step's CAMs at the default --inplanes 80 (C =
+// 163, hc = 40, dilations 1-3; C = 83, hc = 20, 1-4), every wider
+// --inplanes, six dilations up to 6 or 8 at C = 163.
 //
-// Replaces, at those geometries, the TPU kernels _f1_call / _f1_kernel
-// (the batch statistics S_r, S_h and the per-image sum of x), _f2_call /
-// _f2_kernel (s_t, the sums of t = bf16(a kt) and t^2), _f3_call /
-// _f3_kernel (out = relu(relu(BN_r(x kr)) + relu(BN_t(a kt)) gate[b]),
-// a = relu(BN_h(c)), c the three dilated 3x3 branch convs), the phase 0
-// of _f1b_call / _f1b_kernel (F1's recompute, dc_i = dsh[2i] + 2 c_i
-// dsh[2i+1], dr = dsr[0] + 2 bf16(x kr) dsr[1]), of _f2b_call /
-// _f2b_kernel (the branch convs and t = a kt, dt = dst[0] + 2 t dst[1],
-// the branch backward dc, dS_h) and of _f3b_call / _f3b_kernel (F3's
-// recompute, do, dgate, the residual and top BN backward dr, dt, the
-// branch backward dc, dS_h) and the phase 1 of all three (dx = bf16(dr)
-// kr^T + the transposed branch convs of dc, F1b's + dgap / (H W)) of
-// rtpe_tpu/ops/pallas_cam.py, with the rounding points of the port's ops
-// (bf16 of every conv before its statistics and BN, bf16(a), bf16 of dr,
-// dt and dc, dx rounded once).
+// Replaces the TPU kernels _f1_call / _f1_kernel (the batch statistics
+// S_r, S_h and the per-image sum of x), _f2_call / _f2_kernel (s_t, the
+// sums of t = bf16(a kt) and t^2), _f3_call / _f3_kernel (out =
+// relu(relu(BN_r(x kr)) + relu(BN_t(a kt)) gate[b]), a = relu(BN_h(c)), c
+// the dilated 3x3 branch convs), the phase 0 of _f1b_call / _f1b_kernel
+// (F1's recompute, dc_i = dsh[2i] + 2 c_i dsh[2i+1], dr = dsr[0] + 2
+// bf16(x kr) dsr[1]), of _f2b_call / _f2b_kernel (the branch convs and t
+// = a kt, dt = dst[0] + 2 t dst[1], the branch backward dc, dS_h) and of
+// _f3b_call / _f3b_kernel (F3's recompute, do, dgate, the residual and
+// top BN backward dr, dt, the branch backward dc, dS_h) and the phase 1
+// of all three (dx = bf16(dr) kr^T + the transposed branch convs of dc,
+// F1b's + dgap / (H W)) of rtpe_tpu/ops/pallas_cam.py, with the rounding
+// points of the port's ops: bf16 of every conv before its statistics and
+// BN, bf16(a), bf16 of dr, dt and dc, dx rounded once; the BN and
+// cotangent arithmetic in the _rn intrinsics in the JAX order.
 //
-// Bound at --inplanes 128's step CAM (B = 16, 113 x 113, C = 259,
-// hc = 64, dilations 1-3): operations.  F3 does C^2 + 9 nb C hc + nb hc C
-// = 564.4 K multiply-adds a pixel, 0.233 ms at 989 TFLOP/s (bf16 dense);
-// F1 and F1b's phase 0 C^2 + 9 nb C hc = 514.6 K, 0.213 ms; F2b's phase 0
-// 9 nb C hc + 2 nb hc C (t, and the branch backward's da) = 547.0 K,
-// 0.226 ms; F3b's phase 0 F3's plus the branch backward's nb hc C =
-// 614.1 K, 0.254 ms; F2 9 nb C hc + nb hc C = 497.3 K, 0.206 ms; dx
-// C^2 + 9 nb hc C = 514.6 K (F2b, without dr, 447.6 K), 0.213 / 0.185
-// ms.  x is read once in 0.03 ms.
+// Bound at the train step's CAMs (B = 16, 113 x 113, 204,304 pixels;
+// 989 TFLOP/s bf16 dense): operations.  At C = 163, hc = 40, dilations
+// 1-3, F3 does C^2 + 9 nb C hc + nb hc C = 222.2 K multiply-adds a pixel
+// (0.092 ms), F1 and F1b's phase 0 C^2 + 9 nb C hc = 202.6 K (0.084 ms),
+// F2 9 nb C hc + nb hc C = 195.6 K (0.081 ms); each backward about 3x its
+// forward.  At --inplanes 128's step CAM (C = 259, hc = 64) F3 564.4 K
+// (0.233 ms), F1 514.6 K (0.213 ms), F2b's phase 0 547.0 K (0.226 ms),
+// F3b's 614.1 K (0.254 ms), F2 497.3 K (0.206 ms), dx 514.6 K (F2b,
+// without dr, 447.6 K): 0.213 / 0.185 ms.  x is read once in 0.03 ms.
 //
-// cam_tile.cuh's wide plan (now only its limits, every op's refusal) ran
-// these there as ~100 stages a 64-pixel
-// tile, each ~0.3 M multiply-adds of mma.sync m16n8k16 behind a
-// __syncthreads, branches in slices of at most 40 columns, K in chunks,
-// the x halo staged again for every branch slice, a, c and dt through
-// global memory and read back, the BN rows and the gate read from global
-// memory; its dx ran (tiles x 2) blocks of at most 168 output channels,
-// each staging the whole dc halo and dr's rows again.  What this design
+// The first designs (cam_tile.cuh, gone) ran mma.sync m16n8k16 tiles:
+// at the train step's shapes the whole-depth plan (a branch of at most 40
+// columns, the x halo at full depth, 56-column 1x1 chunks, a ring of three
+// cp.async stages behind a __syncthreads each; dx 168 output channels a
+// block), 1.8-1.97 ms a forward call and 3.8-4.9 a backward at C = 163 on
+// one H100 (700 W); wider geometries a K-chunked plan of ~100 stages a
+// tile that restaged the halo for every branch slice.  What this design
 // does about it:
-//   - a product's N is the whole branch (up to 128 columns: hc = 48, 64,
-//     128 in one slice; wider branches in slices of at most 128), so a
-//     branch's accumulators stay in registers across its taps and K
+//   - a tile is 8 x 8 pixels of one image, numbered image-major (a
+//     per-tile partial is a per-image partial, as the GAP needs): 113 =
+//     14 x 8 + 1, so 15 x 15 tiles cover a 113 x 113 image, 12.8 % more
+//     pixels than it has; a pixel outside the image has zero rows, its
+//     outputs are not written and every per-tile sum masks it (its
+//     dilated taps can reach into the image, and its BN bias alone makes
+//     its activations nonzero);
+//   - a product's N is the whole branch (up to 128 columns: hc = 20, 40,
+//     48, 64, 128 in one slice; wider branches in slices of at most 128),
+//     so a branch's accumulators stay in registers across its taps and K
 //     stages; the 1x1 convs go in chunks of 64 output columns; dx takes
 //     every output column in one block (column passes of 16 NTW n8
 //     tiles, NTW <= 17: one pass up to C = 272).  Two consumer
@@ -65,18 +70,19 @@
 //     stride offset); a, dr's and dt's rows, and rows staged for a stage,
 //     are planes of 64 rows;
 //   - B, the weights the wrapper re-lays once per call in walking order
-//     (ops/cam.py:_wg_weights, _dx_weights; each stage a [N / 8][kw][8]
-//     block, the wgmma's N-major core matrices), arrives by one bulk copy
-//     a stage into a ring of 4 slots that one producer warp keeps full,
-//     each slot with a full and an empty mbarrier: no block-wide barrier
-//     a stage;
+//     (ops/cam.py:_wg_weights, _dx_weights, one gather a call; each stage
+//     a [N / 8][kw][8] block, the wgmma's N-major core matrices), arrives
+//     by one bulk copy a stage into a ring of 4 slots that one producer
+//     warp keeps full, each slot with a full and an empty mbarrier: no
+//     block-wide barrier a stage (at C = 163 one stage a tap, K = 176);
 //   - the x halo is staged once a tile at full depth where it fits (C =
-//     259: 196 rows x 272 channels, 107 KB), else in K chunks (C = 515),
-//     once per branch and chunk; dx's dc halo once a tile, whole where it
-//     fits beside dr's rows and the ring, else a branch (or a K chunk of
-//     one) at a time in two buffers, the next chunk's copies in flight
-//     while this one multiplies (C = 259: 25 KB a branch);
-//   - a stays in shared memory (64 x 192 at C = 259) for the kt^T
+//     163: 196 rows x 176 channels, 69 KB; C = 259: 107 KB), else in K
+//     chunks (C = 515), once per branch and chunk, with 16-byte cp.async
+//     (zero fill outside the image through the src-size operand); dx's dc
+//     halo once a tile, whole where it fits beside dr's rows and the
+//     ring, else a branch (or a K chunk of one) at a time in two buffers,
+//     the next chunk's copies in flight while this one multiplies;
+//   - a stays in shared memory (64 x 128 at C = 163) for the kt^T
 //     product; the BN rows and image b's gate are staged there once a
 //     tile.  Only a geometry where these do not fit reads its rows from
 //     global memory and takes a (and x's rows for kr^T) through rows
@@ -92,13 +98,19 @@
 //     column-sum scratch), F2b runs no x kr^T and stores dt = dst[0] +
 //     2 t dst[1] where F3b runs F3's epilogue; F2 is F2b's products
 //     without the branch backward, its epilogue F1's column sums of
-//     bf16(t) and t^2 (bnh staged where it fits, the scratch after it).
-// The per-pixel rounding points are cam_tile.cuh's; the products add
-// their K stages, taps and k-steps in another order than the wide plan.
+//     bf16(t) and t^2 (bnh staged where it fits, the scratch after it);
+//   - a backward's phase 0 writes what dx and the weight gradients read
+//     (dr, dt of pitch kc; a, c of pitch knh; dc of pitch nb khc, zero
+//     padding columns) to the workspace; dx is a second launch, since it
+//     reads dc across tiles.
+// Every reduction over pixels is a per-tile partial row summed over tiles
+// in a fixed order (cam_core.cuh:reduce_rows), no float atomics.  The
+// per-pixel rounding points are the first design's; each product adds its
+// K stages, taps and k-steps in ascending order.
 
 #pragma once
 
-#include "cam_tile.cuh"
+#include "cam_core.cuh"
 
 namespace cam {
 
@@ -331,6 +343,103 @@ struct WgmmaSS<17> {
 
 namespace tile {
 
+// ------------------------------------------------------------ tiles
+
+constexpr int TS = 8;             // tile side; TS * TS == TP
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block
+
+// The backwards, then the forwards.
+enum Op { F1B = 1, F2B = 2, F3B = 3, F1 = 4, F3 = 5, F2 = 6 };
+
+// The tiling of one call; ops/cam.py:tile_plan computes the same.
+struct TGeo {
+  int op;                     // F1B, F2B, F3B, F1, F3 or F2
+  int res, top, bb;           // phase 0 runs x kr^T, a kt^T and the
+                              // branch backward
+  int bwd;                    // a backward: it has a phase 1 (dx)
+  int tiles_x, tpi, n_tiles;  // tiles per image row, per image, in all
+  int dmax, hs, hr;           // largest dilation, halo side, halo rows
+  int ldc;                    // dc row pitch: nb khc
+};
+
+inline TGeo make_tgeo(const Geo &g, int op) {
+  TGeo t;
+  t.op = op;
+  t.res = op != F2B && op != F2;
+  t.top = op == F2B || op == F3B || op == F3 || op == F2;
+  t.bb = op == F2B || op == F3B;
+  t.bwd = op <= F3B;
+  t.tiles_x = (g.W + TS - 1) / TS;
+  t.tpi = t.tiles_x * ((g.H + TS - 1) / TS);
+  t.n_tiles = g.B * t.tpi;
+  t.dmax = 1;
+  for (int i = 0; i < g.nb; ++i)
+    t.dmax = g.dil[i] > t.dmax ? g.dil[i] : t.dmax;
+  t.hs = TS + 2 * t.dmax;
+  t.hr = t.hs * t.hs;
+  t.ldc = g.nb * g.khc;
+  return t;
+}
+
+// Chunks of K (a multiple of 16) at most kmax wide: as few as fit, of
+// even width (to 16), the last one what is left.
+inline void k_chunks(int K, int kmax, int *w, int *n) {
+  *n = (K + kmax - 1) / kmax;
+  *w = ((K + *n - 1) / *n + 15) / 16 * 16;
+}
+
+// The tile's place: image b, top-left pixel (y0, x0).
+struct TilePos {
+  int b, y0, x0;
+};
+
+__device__ __forceinline__ TilePos tile_pos(const TGeo &t, int T) {
+  const int u = T % t.tpi;
+  return {T / t.tpi, (u / t.tiles_x) * TS, (u % t.tiles_x) * TS};
+}
+
+// Flat pixel index (b H W + y W + x) of fragment row r (0..63) of the
+// tile, or -1 for a pixel outside the image.
+__device__ __forceinline__ int64_t tile_pix(const Geo &g, const TilePos &p,
+                                            int r) {
+  const int y = p.y0 + (r >> 3), x = p.x0 + (r & 7);
+  if (y >= g.H || x >= g.W) return -1;
+  return (static_cast<int64_t>(p.b) * g.H + y) * g.W + x;
+}
+
+// 16 bytes global -> shared, zero-filled (nothing read) when !valid.
+__device__ __forceinline__ void cp16(uint32_t dst, const void *src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The dkh product: x (padded, pitch kc) at each branch's 9 taps against
+// that branch's dc columns (pitch ldc, branch i at i khc); out laid out as
+// kh, (nb, 3, 3, C, hc).  Pointers may be null for sizing.
+inline bool dkh_plan(const Geo &g, const TGeo &t, const bf16 *xpad,
+                     const bf16 *dc, WgPlan *P) {
+  WgPlan p{};
+  p.njobs = g.nb;
+  for (int i = 0; i < g.nb; ++i) {
+    WgJob &w = p.job[i];
+    w.u = xpad; w.ldu = g.kc; w.u0 = 0; w.K = g.C;
+    w.v = dc; w.ldv = t.ldc; w.v0 = i * g.khc; w.N = g.hc;
+    w.d = g.dil[i];
+    w.out_off = static_cast<int64_t>(i) * 9 * g.C * g.hc;
+  }
+  p.total = 9LL * g.NH * g.C;
+  if (!wg_plan(p, 9, g.B, g.H, g.W)) return false;
+  *P = p;
+  return true;
+}
+
+// ------------------------------------------------------------ plans
+
 constexpr int FWG = 2;               // consumer warpgroups: N halves
 constexpr int FC = 128 * FWG;        // consumer threads
 constexpr int FT = FC + 32;          // and the producer warp
@@ -527,7 +636,8 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // f(row, chunk) for rows x cpr 16-byte chunks over the consumer warps
-// (cam_tile.cuh:for_chunks over FC threads).
+// (a warp covers 32 / cpr rows at a time, or one row in steps of 32
+// chunks when cpr > 32).
 template <typename F>
 __device__ __forceinline__ void cons_chunks(int rows, int cpr, F f) {
   constexpr int W = FC / 32;
@@ -574,6 +684,20 @@ __device__ __forceinline__ void rows_copies(bf16 *dst, const bf16 *src,
          q >= 0);
   });
   cp_commit();
+}
+
+// Zero the padding columns of the tile's rows of out (pitch ld), over the
+// consumer threads: in each of n groups of pitch gp, the columns w..gp
+// (dc: nb groups of khc with hc written).
+__device__ __forceinline__ void zero_pad_cols(bf16 *out, int ld, int n,
+                                              int gp, int w, const Geo &g,
+                                              const TilePos &pos) {
+  const int pw = gp - w, row = n * pw;
+  for (int k = threadIdx.x; k < TP * row; k += FC) {
+    const int64_t p = tile_pix(g, pos, k / row);
+    const int u = k % row;
+    if (p >= 0) out[p * ld + (u / pw) * gp + w + u % pw] = bzero();
+  }
 }
 
 // The consumers' copies landed, seen by the async proxy and every warp.
@@ -749,8 +873,8 @@ enum WgMode {
 // and dc to R's rows and the partial row dS_h (2 NH); F3b recomputes F3's
 // products and writes a to a_ws, c, dr, dt and dc to R's rows and the
 // partial row [dSr (2C) | dSt (2C) | dS_h (2 NH) | dgate (C)]; each with
-// cam_f1.cu:f1b_tile_kernel's, cam_f2.cu:f2b_tile_kernel's and
-// cam_f3.cu:f3b_tile_kernel's arithmetic and rounding points.
+// the first design's arithmetic and rounding points (see the note at the
+// top).
 template <int NTB, int MODE>
 __device__ __forceinline__ void fwd_wg_body(
     const Geo &g, const TGeo &t, const FPlan &P, const bf16 *xpad,
@@ -1021,7 +1145,7 @@ __device__ __forceinline__ void fwd_wg_body(
     if (MODE == WG_F3B) {
       // F3b: do = (pre > 0) g, dgate, the residual and top BN backward:
       // dr, dt (zero on the K padding C .. kc, which dt's restaging and
-      // dx read) and the five column sums, as f3b_tile_kernel's epilogue
+      // dx read) and the five column sums, as the first design's epilogue
       // computes them; a column's rows and gate loaded once
       float v[5][H1][4];
 #pragma unroll
@@ -1283,20 +1407,19 @@ f3b_wg_kernel(Geo g, TGeo t, FPlan P, const bf16 *__restrict__ xpad,
 
 // ------------------------------------------------------------ dx
 //
-// dx_wg_kernel: phase 1 of F1b, F2b and F3b wherever make_tgeo takes the
-// wide plan, dx = bf16(dr . kr^T (HAS_DR) + the sum over branches i and
-// taps of dc_i(p - tap offset d_i) . kh[i, tap]^T (+ dgap[b] / (H W),
-// HAS_GAP, before the one rounding)), from the scratch phase 0 leaves (dr
-// of pitch kc, dc of pitch ldc, branch i at i khc).  One block a tile and
-// all C output columns in it: the column pass's 16 NTW n8 tiles (NTW a
-// consumer warpgroup's, one wgmma m64 x 8 NTW; wider C in passes), so the
-// dc halo is staged once a tile, as wgmma's K-major core matrices (a tap
-// moves the descriptor's start by minus its shift), whole where it fits,
-// else a branch (or a K chunk of one) at a time into two buffers, the
-// next chunk loading while this one multiplies; dr's 64 rows are an A
-// operand too (whole, or a stage at a time).  B, kr and kh[i, tap]
-// re-laid once a call in walking order (ops/cam.py:_dx_weights), arrives
-// by bulk copy into the FNS-slot ring the producer warp keeps full.
+// dx_wg_kernel: phase 1 of F1b, F2b and F3b, dx = bf16(dr . kr^T (HAS_DR) +
+// the sum over branches i and taps of dc_i(p - tap offset d_i) . kh[i, tap]^T
+// (+ dgap[b] / (H W), HAS_GAP, before the one rounding)), from the scratch
+// phase 0 leaves (dr of pitch kc, dc of pitch ldc, branch i at i khc).  One
+// block a tile and all C output columns in it: the column pass's 16 NTW n8
+// tiles (NTW a consumer warpgroup's, one wgmma m64 x 8 NTW; wider C in
+// passes), so the dc halo is staged once a tile, as wgmma's K-major core
+// matrices (a tap moves the descriptor's start by minus its shift), whole
+// where it fits, else a branch (or a K chunk of one) at a time into two
+// buffers, the next chunk loading while this one multiplies; dr's 64 rows are
+// an A operand too (whole, or a stage at a time).  B, kr and kh[i, tap]
+// re-laid once a call in walking order (ops/cam.py:_dx_weights), arrives by
+// bulk copy into the FNS-slot ring the producer warp keeps full.
 
 // n8 tiles of a consumer warpgroup's columns in one pass: the kernel's
 // instances.
@@ -1550,45 +1673,86 @@ dx_wg_kernel(Geo g, TGeo t, DPlan D, const bf16 *__restrict__ dr,
 
 // ------------------------------------------------------------ host side
 
-// tile_geo for a forward (op), with the plan here (P) where make_tgeo
-// takes the wide plan (t->wide); it refuses what that plan's limits
-// refuse.
+// The ops' limit: a geometry is taken where the mma.sync tile plans that
+// first ran the ops took it, and refused elsewhere (a largest dilation
+// whose halo does not fit: at C = 163, 19 and up for F1b and F3b, 20 and
+// up for the others); the plans here need less wherever those fit.  That
+// is the whole-depth plan's shared memory (a branch of at most LIM_SW
+// columns; phase 0: the x halo at full depth, LIM_SLOTS weight slots of
+// LIM_ROWS rows of the widest K, a's and the branch backward's rows, the
+// epilogues' rows and column-sum scratch; a backward's dx: dr's rows, the
+// dc halo, LIM_SLOTS slots of up to LIM_NX rows of khc), or else the
+// K-chunked plan's (k_fit: two halo buffers of a 16-channel chunk and
+// LIM_SLOTS slots of LIM_ROWS weight and TP A rows; for a backward also
+// two dc halo buffers and LIM_SLOTS slots of up to LIM_NX weight and TP
+// dr rows).  ops/cam.py:_limit computes the same.
+constexpr int LIM_SW = 40, LIM_SLOTS = 3, LIM_ROWS = 56, LIM_NX = 168;
+constexpr int64_t LIM_RED = 4LL * 4 * 5 * LIM_ROWS;   // bytes: 4 warps x 5
+                                                      // column sums
+
+// The widest chunk (a multiple of 16, -1 if none) whose buffers fit
+// SMEM_MAX: two halo buffers of hr rows, LIM_SLOTS slots of `slot` rows,
+// each of pitch chunk + 8 bf16, and `fixed` bytes more.
+inline int k_fit(int hr, int slot, int64_t fixed) {
+  const int64_t per = 2LL * (2LL * hr + 1LL * LIM_SLOTS * slot);
+  const int64_t k = (SMEM_MAX - fixed) / per - 8;
+  return k < 16 ? -1 : static_cast<int>(k / 16 * 16);
+}
+
+inline bool within_limit(const Geo &g, const TGeo &t) {
+  const int nxr = (g.C + 7) / 8 * 8 < LIM_NX ? (g.C + 7) / 8 * 8 : LIM_NX;
+  const int kw0 = t.top && g.knh > g.kc ? g.knh : g.kc;
+  const int64_t el = 1LL * t.hr * (g.kc + 8) +
+                     1LL * LIM_SLOTS * LIM_ROWS * (kw0 + 8) +
+                     (t.top ? 1LL * TP * g.nhp : 0) +
+                     (t.bb ? 1LL * TP * g.nhp + TP * (g.kc + 8LL) : 0);
+  const int64_t smem0 = 2 * el + 4 * fplan_rows(g, t.op) +
+                        (t.bb ? LIM_RED : 0);
+  const int64_t smem1 =
+      t.bwd ? 2LL * ((t.res ? TP * (g.kc + 8LL) : 0) +
+                     1LL * t.hr * (t.ldc + 8) +
+                     1LL * LIM_SLOTS * nxr * (g.khc + 8))
+            : 0;
+  if (g.hc <= LIM_SW && smem0 <= SMEM_MAX && smem1 <= SMEM_MAX) return true;
+  return k_fit(t.hr, LIM_ROWS + TP, t.bb ? LIM_RED : 0) >= 0 &&
+         (!t.bwd || k_fit(t.hr, nxr + t.res * TP, 0) >= 0);
+}
+
+// The geometry of a call of op and the tiling, or false: an invalid
+// geometry or one past the ops' limit.
+inline bool tile_geo(const int *geo, int op, Geo *g, TGeo *t) {
+  if (op < F1B || op > F2 || !make_geo(geo, g)) return false;
+  *t = make_tgeo(*g, op);
+  return within_limit(*g, *t);
+}
+
+// tile_geo for a forward (op), with its plan (P); the plan fits wherever
+// the limit lets a geometry through.
 inline bool fwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P) {
   if (!tile_geo(geo, op, g, t)) return false;
-  *P = FPlan{};
-  if (!t->wide) return true;
   *P = make_fplan(*g, *t);
   return P->nst > 0 && P->smem <= SMEM_MAX;
 }
 
-// tile_geo for a backward (op), with the plans here where make_tgeo takes
-// the wide plan: phase 0 (P) and dx (D).  They fit wherever that plan's
-// refusal (tile_geo) lets a geometry through.
+// tile_geo for a backward (op), with its plans: phase 0 (P) and dx (D).
 inline bool bwd_geo(const int *geo, int op, Geo *g, TGeo *t, FPlan *P,
                     DPlan *D) {
-  if (!tile_geo(geo, op, g, t)) return false;
-  *P = FPlan{};
-  *D = DPlan{};
-  if (!t->wide) return true;
-  *P = make_fplan(*g, *t);
-  if (P->nst <= 0 || P->smem > SMEM_MAX) return false;
+  if (!fwd_geo(geo, op, g, t, P)) return false;
   *D = make_dplan(*g, *t);
   return D->nst > 0 && D->smem <= SMEM_MAX;
 }
 
 // cam_<op>_plan of every op, as ops/cam.py:tile_plan computes them: 0
 // phase 0's shared memory, 1 phase 1's (0 for a forward), 2 and 3 the
-// re-laid weights of phase 0 and phase 1, 4 the wide plan (phase 0 runs
-// here, and a backward's phase 1 on dx_wg_kernel), 5 x's K chunk, 6 a's
-// (the kt^T stages' width where phase 0 runs here), 7 and 8
-// dx_wg_kernel's stage width over a halo chunk and the chunk's width, 9
-// branch slices; where phase 0 runs here (every op where make_tgeo takes
-// the wide plan; else 0) 10: 1, 11: its n8 tiles of a slice, 12: x's
-// stage width, 13: a in shared memory, 14: the epilogues' rows there, 15:
-// its stages a tile; where dx_wg_kernel runs (else 0) 16: 1, 17: n8 tiles a
-// warpgroup, 18: column passes, 19: the whole halo in shared memory, 20:
-// dr's rows there, 21: its stages a tile; -1 for an invalid geometry or
-// code.
+// re-laid weights of phase 0 and phase 1 (0 for a forward), 4: 1 (the
+// op's kernels take the geometry), 5 x's K chunk, 6 the kt^T stages'
+// width over a (0 without kt^T), 7 and 8 dx_wg_kernel's stage width over
+// a halo chunk and the chunk's width, 9 branch slices, 10 phase 0's n8
+// tiles of a slice, 11 x's stage width, 12 a in shared memory, 13 the
+// epilogues' rows there, 14 phase 0's stages a tile; for a backward (else
+// 0) 15: 1, 16 dx's n8 tiles a warpgroup, 17 column passes, 18 the whole
+// dc halo in shared memory, 19 dr's rows there, 20 dx's stages a tile; -1
+// for a refused geometry or an invalid code.
 inline long long op_plan(const int *geo, int op, int what) {
   Geo g;
   TGeo t;
@@ -1597,28 +1761,17 @@ inline long long op_plan(const int *geo, int op, int what) {
   const bool bwd = op >= F1B && op <= F3B;
   const bool ok = bwd ? bwd_geo(geo, op, &g, &t, &P, &D)
                       : fwd_geo(geo, op, &g, &t, &P);
-  if (!ok || what < 0 || what > 21) return -1;
-  const bool wg = t.wide;
-  const bool dw = t.wide && bwd;
-  if (what >= 16) {
+  if (!ok || what < 0 || what > 20) return -1;
+  if (what >= 15) {
     const long long v[] = {1, D.ntw, D.npass, D.hres, D.dr_res, D.nst};
-    return dw ? v[what - 16] : 0;
+    return bwd ? v[what - 15] : 0;
   }
-  if (what >= 10) {
-    const long long v[] = {1, P.ntb, P.kbx, P.a_res, P.rows_smem, P.nst};
-    return wg ? v[what - 10] : 0;
-  }
-  switch (what) {
-    case 0: return wg ? P.smem : smem0_bytes(g, t);
-    case 1: return dw ? D.smem : smem1_bytes(g, t);
-    case 2: return wg ? P.w_elems : w0_elems(g, t);
-    case 3: return dw ? D.w_elems : w1_elems(g, t);
-    case 4: return t.wide;
-    case 5: return wg ? P.kq : t.kq;
-    case 6: return wg ? P.kba : t.kqa;
-    case 7: return dw ? D.kbc : 0;
-    default: return what == 8 ? (dw ? D.kq : 0) : (wg ? P.nsl : 1);
-  }
+  const long long v[] = {P.smem,  bwd ? D.smem : 0,   P.w_elems,
+                         bwd ? D.w_elems : 0,         1,
+                         P.kq,    P.kba,   D.kbc,     D.kq,
+                         P.nsl,   P.ntb,   P.kbx,     P.a_res,
+                         P.rows_smem,      P.nst};
+  return v[what];
 }
 
 // Launch kernel K<ntb> of P (FT threads, P.smem bytes of shared memory).
@@ -1674,19 +1827,6 @@ cudaError_t launch_dx_wg(const Geo &g, const TGeo &t, const DPlan &D,
                                inv_n, dx);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// Phase 1 of a backward: dx_wg_kernel where make_tgeo takes the wide plan,
-// else cam_tile.cuh's dx_kernel.
-template <bool HAS_DR, bool HAS_GAP>
-cudaError_t launch_phase1(const Geo &g, const TGeo &t, const DPlan &D,
-                          const bf16 *dr, const bf16 *dc, const bf16 *w1,
-                          const float *dgap, float inv_n, bf16 *dx,
-                          cudaStream_t st) {
-  if (t.wide)
-    return launch_dx_wg<HAS_DR, HAS_GAP>(g, t, D, dr, dc, w1, dgap, inv_n,
-                                         dx, st);
-  return launch_dx<HAS_DR, HAS_GAP>(g, t, dr, dc, w1, dgap, inv_n, dx, st);
 }
 
 }  // namespace tile

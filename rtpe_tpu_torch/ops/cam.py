@@ -19,8 +19,8 @@ MLP) is left to plain autograd:
 
 Six kernels: each op's forward and its backward (``cam_f1_fwd``,
 ``cam_f1_bwd``, ``cam_f2_fwd``, ``cam_f2_bwd``, ``cam_f3_fwd``,
-``cam_f3_bwd``), all on 8 x 8-pixel tiles: ``csrc/cam_tile.cuh``, and
-at the wider geometries ``csrc/cam_wg.cuh``'s ``wgmma`` kernels.  Each
+``cam_f3_bwd``), all on 8 x 8-pixel tiles: ``csrc/cam_wg.cuh``'s
+``wgmma`` kernels, at every geometry the ops take.  Each
 runs its plain version for CPU tensors and its kernel for CUDA tensors,
 with no fallback from one to the other; each counts its kernel launches
 in ``.launches``, and each plain version its calls in ``.calls``.  Layout is the JAX one: x (B, H, W, C) NHWC bf16,
@@ -47,6 +47,7 @@ the same.
 """
 
 import ctypes
+import math
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -477,10 +478,9 @@ def _dispatch(x, name):
 
 def cam_f1_fwd(x, kr, kh, dils):
     """F1 (replaces ``pallas_cam.py:_f1_call``): (s_r, s_h, sums of x per
-    image), float32.  On the card the tile kernel of
-    ``csrc/cam_tile.cuh``, or ``csrc/cam_wg.cuh``'s where the wide plan
-    would run (``tile_plan``'s "wg"); ``ValueError`` only for a largest
-    dilation whose halo does not fit (:func:`tile_plan`)."""
+    image), float32.  On the card ``csrc/cam_wg.cuh``'s f1_wg_kernel;
+    ``ValueError`` only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_fwd"):
         return cam_f1_fwd_plain(x, kr, kh, dils)
     x, kr, kh = _check(x, kr, kh, None, dils, ())
@@ -504,10 +504,8 @@ def cam_f1_fwd(x, kr, kh, dils):
 
 def cam_f2_fwd(x, kh, kt, bnh, dils):
     """F2 (replaces ``pallas_cam.py:_f2_call``): s_t (2, C) float32.  On
-    the card the tile kernel of ``csrc/cam_tile.cuh``, or
-    ``csrc/cam_wg.cuh``'s where the wide plan would run (``tile_plan``'s
-    "wg"); ``ValueError`` only for a largest dilation whose halo does not
-    fit (:func:`tile_plan`)."""
+    the card ``csrc/cam_wg.cuh``'s f2_wg_kernel; ``ValueError`` only for a
+    largest dilation whose halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_fwd"):
         return cam_f2_fwd_plain(x, kh, kt, bnh, dils)
     x, kh, kt, bnh = _check(x, None, kh, kt, dils, (bnh,))
@@ -526,10 +524,9 @@ def cam_f2_fwd(x, kh, kt, bnh, dils):
 
 def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
     """F3 (replaces ``pallas_cam.py:_f3_call``): the CAM output,
-    (B, H, W, C) bf16.  On the card the tile kernel of
-    ``csrc/cam_tile.cuh``, or ``csrc/cam_wg.cuh``'s where the wide plan
-    would run (``tile_plan``'s "wg"); ``ValueError`` only for a largest
-    dilation whose halo does not fit (:func:`tile_plan`)."""
+    (B, H, W, C) bf16.  On the card ``csrc/cam_wg.cuh``'s f3_wg_kernel;
+    ``ValueError`` only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f3_fwd"):
         return cam_f3_fwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, dils)
     x, kr, kh, kt, bnr, bnh, bnt, gate = _check(
@@ -551,35 +548,29 @@ def cam_f3_fwd(x, kr, kh, kt, bnr, bnh, bnt, gate, dils):
 
 # ------------------------------------------------------------ the tiles
 #
-# The tile kernels (csrc/cam_tile.cuh) of the six ops walk 8 x 8 pixel
-# tiles of one image and read every weight in the order and layout the
-# wrapper gives it once per call.  Where a branch has at most TILE_SW_MAX
-# columns and the tile's halo at full channel depth and the weight stages
-# fit a block's shared memory (the train step's CAMs), each tile's halo is
-# staged once at full depth.  Elsewhere ("wide": every --inplanes above
-# 80) every op's phase 0 runs the wgmma kernels of csrc/cam_wg.cuh
-# (f1_wg_kernel, f2_wg_kernel, f3_wg_kernel, f1b_wg_kernel,
-# f2b_wg_kernel, f3b_wg_kernel; "wg" in tile_plan: whole branches of up
-# to 128 columns, the halo at full depth where it fits, _wg_weights), and
-# every backward's phase 1 its dx_wg_kernel ("dx_wg": all output columns
-# in one block, the dc halo once a tile, _dx_weights).  Every op refuses
-# only a largest dilation whose halo of one 16-channel chunk does not
-# fit the limits of the mma.sync plan that once ran there (cam_tile.cuh:
-# make_tgeo; _k_fit here).  tile_plan and _tile_weights are that
-# contract's Python side, per op ("f1", "f2", "f3", "f1b", "f2b", "f3b");
-# the C side (make_tgeo, smem0_bytes, smem1_bytes, w0_elems, w1_elems,
-# stage0; cam_wg.cuh:make_fplan, fwd_produce, make_dplan, dx_produce,
-# op_plan) computes the same, and each wrapper checks the weight counts
-# against it (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) on every call.
+# The kernels of the six ops (csrc/cam_wg.cuh: f1_wg_kernel, f2_wg_kernel,
+# f3_wg_kernel, and each backward's phase 0, f1b_wg_kernel, f2b_wg_kernel,
+# f3b_wg_kernel, then its dx_wg_kernel) walk 8 x 8 pixel tiles of one
+# image and read every weight in the order and layout the wrapper gives
+# it once per call: whole branches of up to 128 columns, the halo at full
+# depth where it fits (_wg_plan; dx: all output columns in one block, the
+# dc halo once a tile, _dx_plan).  Every op refuses only a geometry past
+# the ops' limit (_limit): a largest dilation whose halo does not fit the
+# mma.sync tile plans that first ran the ops.  tile_plan and
+# _tile_weights are that contract's Python side, per op ("f1", "f2",
+# "f3", "f1b", "f2b", "f3b"); the C side (cam_wg.cuh: within_limit,
+# make_fplan, fwd_produce, make_dplan, dx_produce, op_plan) computes the
+# same, and each wrapper checks the weight counts against it
+# (cam_f{1,2,3}_plan, cam_f{1,2,3}b_plan) once a geometry.
 
-TILE_TS = 8          # tile side (cam_tile.cuh:TS)
+TILE_TS = 8          # tile side (cam_wg.cuh:TS)
 TILE_TP = 64         # pixels of a tile (cam_core.cuh:TP)
-TILE_NC = 56         # channels of a phase-0 1x1-conv chunk (cam_core.cuh:NC)
-TILE_NX = 168        # output channels of a dx block (cam_tile.cuh:NX)
-TILE_ROW_WARPS = 4   # warps of 16 pixel rows (times 2 column groups)
-TILE_NBUF = 3        # weight stages in shared memory (cam_tile.cuh:NBUF)
-TILE_SW_MAX = 40     # columns of a branch (slice) (cam_core.cuh:SW_MAX)
 SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
+# the ops' limit (cam_wg.cuh:within_limit): the mma.sync plans' branch
+# width, weight slots, 1x1-chunk rows and dx rows, and their column-sum
+# scratch (bytes)
+LIM_SW, LIM_SLOTS, LIM_ROWS, LIM_NX = 40, 3, 56, 168
+LIM_RED = 4 * 4 * 5 * LIM_ROWS
 # cam_wg.cuh's plan: ring slots, columns of a 1x1 chunk, n8 tiles of a
 # branch slice (the kernels' instances), bytes before the ring, F1's and
 # F2's and the branch backward's (F2b, F3b) column-sum scratch (f32);
@@ -587,14 +578,14 @@ SMEM_MAX = 232448    # dynamic shared memory of an sm_90 block, bytes
 WG_NS, WG_N1, WG_NTB, WG_BAR, WG_RED = 4, 64, (2, 4, 6, 8, 12, 16), 128, 1024
 WG_RED3 = 1280
 DX_NTW = (8, 12, 14, 17)
-# cam_<op>_plan's codes 0..21 (cam_wg.cuh:op_plan), as tile_plan's keys
-PLAN_CODES = ("smem0", "smem1", "w0_elems", "w1_elems", "wide", "kq", "kqa",
-              "dx_kb", "dx_kq", "nsl", "wg", "ntb", "kb", "a_res",
-              "rows_smem", "wg_nst", "dx_wg", "dx_ntw", "dx_npass",
-              "dx_hres", "dx_dr_res", "dx_nst")
-# op -> (its phase 0 runs kr^T chunks, kt^T chunks, the branch backward),
-# as cam_tile.cuh:make_tgeo sets res, top and bb; a backward ("...b") also
-# has a phase 1 (dx), a forward none
+# cam_<op>_plan's codes 0..20 (cam_wg.cuh:op_plan), as tile_plan's keys
+PLAN_CODES = ("smem0", "smem1", "w0_elems", "w1_elems", "wg", "kq", "kqa",
+              "dx_kb", "dx_kq", "nsl", "ntb", "kb", "a_res", "rows_smem",
+              "wg_nst", "dx_wg", "dx_ntw", "dx_npass", "dx_hres",
+              "dx_dr_res", "dx_nst")
+# op -> (its phase 0 runs x kr^T, a kt^T, the branch backward), as
+# cam_wg.cuh:make_tgeo sets res, top and bb; a backward ("...b") also has
+# a phase 1 (dx), a forward none
 TILE_OPS = {"f1b": (True, False, False), "f2b": (False, True, True),
             "f3b": (True, True, True), "f1": (True, False, False),
             "f3": (True, True, False), "f2": (False, True, False)}
@@ -605,7 +596,7 @@ def _up(v: int, m: int) -> int:
 
 
 def _k_chunks(k: int, kmax: int) -> Tuple[int, int]:
-    """(width, count) of chunks of K (cam_tile.cuh:k_chunks): as few as
+    """(width, count) of chunks of K (cam_wg.cuh:k_chunks): as few as
     fit in kmax, of even width to 16."""
     n = -(-k // kmax)
     return _up(-(-k // n), 16), n
@@ -613,26 +604,55 @@ def _k_chunks(k: int, kmax: int) -> Tuple[int, int]:
 
 def _k_fit(hr: int, slot: int, fixed: int) -> int:
     """The widest chunk (a multiple of 16; -1 if none) whose two halo
-    buffers of hr rows and TILE_NBUF ring slots of ``slot`` rows, pitch
-    chunk + 8 bf16, and ``fixed`` bytes fit SMEM_MAX (cam_tile.cuh:
-    k_fit): the wide plan's limit, every op's refusal."""
-    k = (SMEM_MAX - fixed) // (2 * (2 * hr + TILE_NBUF * slot)) - 8
+    buffers of hr rows and LIM_SLOTS slots of ``slot`` rows, pitch
+    chunk + 8 bf16, and ``fixed`` bytes fit SMEM_MAX (cam_wg.cuh:
+    k_fit): the K-chunked mma.sync plan's fit, part of the ops' limit."""
+    k = (SMEM_MAX - fixed) // (2 * (2 * hr + LIM_SLOTS * slot)) - 8
     return -1 if k < 16 else k // 16 * 16
+
+
+def _limit(op: str, p: Dict[str, int], c: int, nh: int, hc: int) -> bool:
+    """Whether ``op`` takes the geometry of ``p`` (cam_wg.cuh:
+    within_limit): where the mma.sync tile plans that first ran the ops
+    took it.  The whole-depth plan's shared memory (a branch of at most
+    LIM_SW columns; phase 0: the x halo at full depth, LIM_SLOTS weight
+    slots of LIM_ROWS rows of the widest K, a's and the branch backward's
+    rows, the epilogues' rows and column-sum scratch; a backward's dx:
+    dr's rows, the dc halo, LIM_SLOTS slots of up to LIM_NX rows of khc),
+    or else the K-chunked plan's (:func:`_k_fit`: a 16-channel chunk of
+    the halo, double-buffered, beside LIM_SLOTS slots of LIM_ROWS weight
+    and 64 A rows; for a backward also of up to LIM_NX weight and 64 dr
+    rows).  So at C = 163 F1b and F3b refuse a largest dilation of 19, the
+    others 20; the plans that run now need less wherever it is taken."""
+    res, top, bb = TILE_OPS[op]
+    bwd = op.endswith("b")
+    kc, knh, khc, hr, tp = p["kc"], p["knh"], p["khc"], p["hr"], TILE_TP
+    nxr = min(LIM_NX, _up(c, 8))
+    kw0 = max(kc, knh) if top else kc
+    el = hr * (kc + 8) + LIM_SLOTS * LIM_ROWS * (kw0 + 8)
+    if top:
+        el += tp * (knh + 8)
+    if bb:
+        el += tp * (knh + 8) + tp * (kc + 8)
+    smem0 = 2 * el + 4 * _wg_rows(op, c, nh) + (LIM_RED if bb else 0)
+    smem1 = 2 * (tp * (kc + 8) * res + hr * (p["ldc"] + 8)
+                 + LIM_SLOTS * nxr * (khc + 8)) if bwd else 0
+    if hc <= LIM_SW and max(smem0, smem1) <= SMEM_MAX:
+        return True
+    return (_k_fit(hr, LIM_ROWS + tp, LIM_RED if bb else 0) >= 0
+            and (not bwd or _k_fit(hr, nxr + res * tp, 0) >= 0))
 
 
 def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
               hc: int) -> Dict[str, int]:
     """Tiles, padded widths and pitches (bf16 elements), stage counts,
     shared memory (bytes; smem1 0 for a forward) and re-laid weight sizes
-    (bf16 elements; w1_elems 0 for a forward) of ``op``'s tile kernels at
-    x (b, h, w, c), ``dils``, branch width hc; "wide" 1 where the
-    whole-depth plan does not fit, and there "wg" (phase 0 on
-    cam_wg.cuh, :func:`_wg_plan`: its slices, nsl of sw columns, and
-    chunks, kq / nq of kc, kqa / nqa of knh) and "dx_wg" (a backward's
-    phase 1 on dx_wg_kernel, :func:`_dx_plan`); "ok" 0 where the largest
-    dilation's halo, in chunks of 16 channels, does not fit the wide
-    plan's limit (:func:`_k_fit`)."""
-    res, top, bb = TILE_OPS[op]
+    (bf16 elements; w1_elems 0 for a forward) of ``op``'s kernels at x
+    (b, h, w, c), ``dils``, branch width hc: phase 0's plan
+    (:func:`_wg_plan`: its slices, nsl of sw columns, and chunks, kq / nq
+    of kc, kqa / nqa of knh) and a backward's phase 1's (dx_wg_kernel,
+    :func:`_dx_plan`); "ok" (and "wg") 0 where the geometry is past the
+    ops' limit (:func:`_limit`)."""
     bwd = op.endswith("b")
     nb = len(dils)
     nh = nb * hc
@@ -642,51 +662,15 @@ def tile_plan(op: str, b: int, h: int, w: int, c: int, dils: Sequence[int],
     hs = TILE_TS + 2 * dmax
     p = dict(tiles_x=tiles_x, tiles_y=tiles_y, tpi=tiles_x * tiles_y,
              n_tiles=b * tiles_x * tiles_y, dmax=dmax, hs=hs, hr=hs * hs,
-             kc=kc, khc=khc, knh=knh, brows=_up(hc, 8),
-             nchr=-(-c // TILE_NC), kw0=max(kc, knh) if top else kc,
-             ldc=nb * khc, xp=kc + 8, nhp=knh + 8,
-             nxr=min(TILE_NX, _up(c, 8)), nchx=-(-c // TILE_NX),
-             nksr=-(-kc // khc) if res else 0)
-    p["cp"] = p["ldc"] + 8
-    p["nst0"] = (9 + bb) * nb + (res + top) * p["nchr"]
-    p["nst1"] = p["nksr"] + 9 * nb
-    tp, nwarps, nred = TILE_TP, TILE_ROW_WARPS, 5
-    rows = {"f1b": 2 * c + 2 * nh, "f2b": 2 * c + 4 * nh,
-            "f3b": 9 * c + 4 * nh, "f1": 0, "f3": 9 * c + 4 * nh,
-            "f2": 4 * nh}[op]
-    el = p["hr"] * p["xp"] + TILE_NBUF * TILE_NC * (p["kw0"] + 8)
-    if top:                                # sA
-        el += tp * p["nhp"]
-    if bb:                                 # sCb, sD
-        el += tp * p["nhp"] + tp * p["xp"]
-    red = nwarps * nred * TILE_NC if bb else 0   # the column-sum scratch
-    p["smem0"] = 2 * el + 4 * (rows + red)
-    p["smem1"] = 2 * (tp * p["xp"] * res + p["hr"] * p["cp"]
-                      + TILE_NBUF * p["nxr"] * (khc + 8)) if bwd else 0
-    p["w0_elems"] = (9 + bb) * nb * p["brows"] * kc \
-        + p["nchr"] * TILE_NC * (kc * res + knh * top)
-    p["w1_elems"] = p["nchx"] * p["nst1"] * p["nxr"] * khc if bwd else 0
-    p.update(wide=0, ok=1, nsl=1, sw=p["brows"], kq=kc, nq=1, kqa=knh,
-             nqa=1, kqm=kc, wg=0, ntb=0, kb=0, a_res=0, rows_smem=0,
-             wg_nst=0, dx_wg=0, dx_ntw=0, dx_npass=0, dx_hres=0,
+             kc=kc, khc=khc, knh=knh, ldc=nb * khc, ok=1, wg=1, smem1=0,
+             w1_elems=0, dx_wg=0, dx_ntw=0, dx_npass=0, dx_hres=0,
              dx_dr_res=0, dx_nst=0, dx_kb=0, dx_kq=0)
-    if hc <= TILE_SW_MAX and max(p["smem0"], p["smem1"]) <= SMEM_MAX:
-        return p
-    # the wide plan's limit, the mma.sync plan's that once ran there: a
-    # phase 0 of K-chunked stages (two halo buffers of a 16-channel chunk,
-    # three slots of 56 weight and 64 A rows) and, for a backward, a
-    # phase 1 (the same halo buffers, three slots of nxr weight and 64 dr
-    # rows) that fit (cam_tile.cuh:make_tgeo); cam_wg.cuh's plans, which
-    # run both phases there, need less
-    k0 = _k_fit(p["hr"], TILE_NC + tp, 4 * red)
-    k1 = _k_fit(p["hr"], p["nxr"] + res * tp, 0) if bwd else 16
-    p.update(wide=1, smem1=0, w1_elems=0)
-    if k0 < 0 or k1 < 0:
-        p["ok"] = 0
+    if not _limit(op, p, c, nh, hc):
+        p.update(ok=0, wg=0)
         return p
     _wg_plan(p, op, c, nb, hc)
     if bwd and p["ok"]:
-        _dx_plan(p, res, c, nb)
+        _dx_plan(p, TILE_OPS[op][0], c, nb)
     return p
 
 
@@ -711,15 +695,14 @@ def _wg_fixed(p, op, c, nh, kq, a_res, rows):
 
 
 def _wg_plan(p, op, c, nb, hc):
-    """The phase-0 plan of ``op`` where the whole-depth plan does not fit
-    (cam_wg.cuh:make_fplan), into ``p``: a branch slice of ntb n8
-    tiles (sw columns, nsl slices), 1x1 chunks of WG_N1 columns (nch1),
-    the x halo in nq chunks of kq, x's stages kb wide at most, a's (top:
-    F2, F3, F2b, F3b) kqa (nqa of them), a (a_res) and the epilogues' rows
-    (rows_smem; F1b's always) in shared memory or not; the branch
-    backward's (F2b, F3b) dt restaged into the halo's buffer in nd chunks
-    of kdq, its stages kbd wide; wg_nst stages a tile; smem0 and w0_elems
-    its own."""
+    """The phase-0 plan of ``op`` (cam_wg.cuh:make_fplan), into ``p``: a branch
+    slice of ntb n8 tiles (sw columns, nsl slices), 1x1 chunks of WG_N1 columns
+    (nch1), the x halo in nq chunks of kq, x's stages kb wide at most, a's
+    (top: F2, F3, F2b, F3b) kqa (nqa of them), a (a_res) and the epilogues'
+    rows (rows_smem; F1b's always) in shared memory or not; the branch
+    backward's (F2b, F3b) dt restaged into the halo's buffer in nd chunks of
+    kdq, its stages kbd wide; wg_nst stages a tile; smem0 and w0_elems its
+    own."""
     res, top, bb = TILE_OPS[op]
     kc, knh, hr, nh = p["kc"], p["knh"], p["hr"], nb * hc
     n8 = -(-hc // 8)
@@ -770,10 +753,9 @@ def _wg_plan(p, op, c, nb, hc):
     nbr = 9 * nb * nsl * nu
     n11 = nch1 * (res * nu + top * nba)
     nst = nbr + n11 + bb * nb * nsl * nud
-    p.update(wg=1, ntb=ntb, sw=sw, brows=sw, nsl=nsl, nch1=nch1, kq=kq,
-             nq=nq, kb=kbx, kqa=kba, nqa=nba, kqm=max(kbx, kba),
-             kw0=max(kbx, kba), a_res=a_res, rows_smem=rows, kdq=kdq, nd=nd,
-             kbd=kbd, slot=slot, nbr=nbr, n11=n11, nst0=nst, wg_nst=nst,
+    p.update(wg=1, ntb=ntb, sw=sw, nsl=nsl, nch1=nch1, kq=kq, nq=nq,
+             kb=kbx, kqa=kba, nqa=nba, a_res=a_res, rows_smem=rows, kdq=kdq,
+             nd=nd, kbd=kbd, slot=slot, wg_nst=nst,
              smem0=_wg_fixed(p, op, c, nh, kq, a_res, rows)
              + 2 * WG_NS * slot,
              w0_elems=9 * nb * nsl * kc * sw + nch1 * WG_N1 * (
@@ -788,13 +770,12 @@ def _dx_fixed(p, res, hres, kq, dr_res):
 
 
 def _dx_plan(p, res, c, nb):
-    """A backward's phase 1 on the wide plan, dx_wg_kernel's plan
-    (cam_wg.cuh:make_dplan), into ``p``: dx_ntw n8 tiles a consumer
-    warpgroup (one wgmma), dx_npass column passes of dx_np columns, the
-    dc halo whole (dx_hres) or a chunk of dx_kq channels of a branch at a
-    time in two buffers (dx_nq chunks a branch), dr's rows whole
-    (dx_dr_res) or a stage at a time, stages dx_kbr wide over dr's kc and
-    dx_kb over a chunk, dx_nst stages a tile; smem1 and w1_elems its
+    """A backward's phase 1, dx_wg_kernel's plan (cam_wg.cuh:make_dplan), into
+    ``p``: dx_ntw n8 tiles a consumer warpgroup (one wgmma), dx_npass column
+    passes of dx_np columns, the dc halo whole (dx_hres) or a chunk of dx_kq
+    channels of a branch at a time in two buffers (dx_nq chunks a branch), dr's
+    rows whole (dx_dr_res) or a stage at a time, stages dx_kbr wide over dr's
+    kc and dx_kb over a chunk, dx_nst stages a tile; smem1 and w1_elems its
     own."""
     kc, khc, hr = p["kc"], p["khc"], p["hr"]
     n8 = -(-c // 8)
@@ -944,92 +925,108 @@ def _dx_weights(op: str, p: Dict[str, int], kr, kh) -> torch.Tensor:
     return torch.cat(out).contiguous()
 
 
-def _tile_weights(op: str, kr, kh, kt, plan=None) -> Tuple[torch.Tensor,
-                                                          ...]:
+def _relaid_index(op: str, p: Dict[str, int], nb: int, c: int,
+                  hc: int) -> Tuple[torch.Tensor, int]:
+    """Where each element of ``op``'s re-laid weights on the plan ``p``
+    comes from: (index, n0), the layouts of :func:`_wg_weights` (w0, n0
+    elements) and, for a backward, :func:`_dx_weights` (w1, after it) as
+    positions in [0, kr, kh, kt] flattened (kr where ``op`` runs kr^T,
+    kt where it runs kt^T; the 0 in front is every padding element),
+    int64 on the CPU.  Built once per plan geometry (``op``, C, the
+    dilation count, hc, the largest dilation: the plan depends on no
+    other size) by running the layout code on index tensors."""
+    key = (op, c, nb, hc, p["dmax"])
+    got = _INDEX.get(key)
+    if got is None:
+        res, top, _ = TILE_OPS[op]
+        n = 1
+
+        def ids(*shape):
+            nonlocal n
+            t = torch.arange(n, n + math.prod(shape)).reshape(shape)
+            n += t.numel()
+            return t
+
+        kr = ids(c, c) if res else None
+        kh = ids(nb, 3, 3, c, hc)
+        kt = ids(nb, hc, c) if top else None
+        w0 = _wg_weights(op, p, kr, kh, kt)
+        w1 = [_dx_weights(op, p, kr, kh)] if op.endswith("b") else []
+        got = _INDEX[key] = (torch.cat([w0] + w1), w0.numel())
+    return got
+
+
+_INDEX: Dict[tuple, Tuple[torch.Tensor, int]] = {}
+
+
+def _tile_weights(op: str, kr, kh, kt, plan, index=None) -> Tuple[
+        torch.Tensor, ...]:
     """kr, kh, kt (those ``op`` reads; None for the others) re-laid for
-    its tile kernels, [n][k] with zeros padding n and k: w0, phase 0's
-    stages in walking order (the branch taps, nb x 9 of kh[i, tap]^T
-    [brows][kc]; then per chunk of TILE_NC output channels kr^T [NC][kc]
-    (f1, f3, f1b, f3b) and kt^T [NC][knh] (f2, f3, f2b, f3b); then per
-    branch kt[i] [brows][kc] (f2b, f3b), as ``cam_tile.cuh:stage0`` walks
-    them); w1 (None for a forward), per chunk of TILE_NX output channels (nxr
-    rows), nksr stages of kr's k slices [nxr][khc] (f1b, f3b) and then
-    nb x 9 stages of kh[i, tap] [nxr][khc].  Where ``plan`` (the call's
-    :func:`tile_plan`) is the wide one, the layouts of cam_wg.cuh's
-    kernels instead: w0 phase 0's (:func:`_wg_weights`), w1
-    dx_wg_kernel's (:func:`_dx_weights`)."""
-    if plan is not None and plan["wide"]:
-        w0 = _wg_weights(op, plan, kr, kh, kt)
-        w1 = _dx_weights(op, plan, kr, kh) if op.endswith("b") else None
-        return w0, w1
+    its kernels on ``plan`` (the call's :func:`tile_plan`): w0, phase 0's
+    stages (:func:`_wg_weights`), and for a backward w1, dx_wg_kernel's
+    (:func:`_dx_weights`; None for a forward), by one ``index_select`` of
+    the weights flattened behind one zero, bitwise those functions'
+    output.  ``index``: :func:`_relaid_index`'s (index, n0) on the
+    weights' device, else built here."""
     nb, _, _, c, hc = kh.shape
-    res, top, bb = TILE_OPS[op]
-    p = tile_plan(op, 1, 1, 1, c, [1] * nb, hc)
-    kc, khc, knh, br = p["kc"], p["khc"], p["knh"], p["brows"]
-    nchr, nh = p["nchr"], nb * hc
-    taps = kh.reshape(nb * 9, c, hc)
-    cpad = nchr * TILE_NC
-    w0 = [F.pad(taps.transpose(1, 2), (0, kc - c, 0, br - hc)).reshape(-1)]
-    chunk = []
-    if res:
-        chunk.append(F.pad(kr.t(), (0, kc - c, 0, cpad - c)))
-    if top:
-        chunk.append(F.pad(kt.reshape(nh, c).t(), (0, knh - nh, 0, cpad - c)))
-    w0.append(torch.cat([t.reshape(nchr, -1) for t in chunk], 1).reshape(-1))
-    if bb:
-        w0.append(F.pad(kt, (0, kc - c, 0, br - hc)).reshape(-1))
-    w0 = torch.cat(w0).contiguous()
-    if not op.endswith("b"):
-        return w0, None
-    nxr, nchx, nksr = p["nxr"], p["nchx"], p["nksr"]
-    npad = nchx * nxr
-    kht = F.pad(taps, (0, khc - hc, 0, npad - c))
-    w1 = kht.reshape(nb * 9, nchx, nxr, khc).transpose(0, 1)
-    if res:
-        krt = F.pad(kr, (0, nksr * khc - c, 0, npad - c))
-        krt = krt.reshape(nchx, nxr, nksr, khc).transpose(1, 2)
-        w1 = torch.cat([krt, w1], 1)
-    return w0, w1.reshape(-1).contiguous()
+    res, top, _ = TILE_OPS[op]
+    idx, n0 = index or _relaid_index(op, plan, nb, c, hc)
+    parts = [kh.new_zeros(1)] + [t.reshape(-1) for t, on in (
+        (kr, res), (kh, True), (kt, top)) if on]
+    w = torch.cat(parts).index_select(0, idx.to(kh.device))
+    return w[:n0], (w[n0:] if op.endswith("b") else None)
 
 
 def _tile_call(op: str, name: str, x, kr, kh, kt, dils):
     """The plan, the library, the geometry, the workspace (None where
     ``op`` takes none), the re-laid weights (w1 None for a forward) and
-    the channel-padded x of a tile-kernel call of ``op``; ``ValueError``
+    the channel-padded x of a kernel call of ``op``; ``ValueError``
     where the largest dilation's halo, in chunks of 16 channels, does not
-    fit a block's shared memory (the wide plan takes every other
-    geometry)."""
+    fit a block's shared memory.  The plan, the weights' index on x's
+    device and the C plans' check of the weight counts are made once a
+    geometry (:data:`_CALLS`)."""
     b, h, w, c = x.shape
-    plan = tile_plan(op, b, h, w, c, dils, kh.shape[4])
-    if not plan["ok"]:
-        raise ValueError(
-            f"{name}: the largest dilation {max(dils)} is too large: its "
-            f"tile halo ({plan['hs']} x {plan['hs']} pixels) in chunks of "
-            f"16 channels does not fit {SMEM_MAX} bytes of shared memory")
-    geo = _geo(x, kh, dils)
+    nb, hc = kh.shape[0], kh.shape[4]
+    key = (op, b, h, w, c, tuple(dils), hc, x.device)
+    got = _CALLS.get(key)
+    if got is None:
+        plan = tile_plan(op, b, h, w, c, dils, hc)
+        if not plan["ok"]:
+            raise ValueError(
+                f"{name}: the largest dilation {max(dils)} is too large: "
+                f"its tile halo ({plan['hs']} x {plan['hs']} pixels) in "
+                f"chunks of 16 channels does not fit {SMEM_MAX} bytes of "
+                f"shared memory")
     lname = f"cam_{op[:2]}"
     lib = _lib(lname)
+    geo = _geo(x, kh, dils)
+    if got is None:
+        idx, n0 = _relaid_index(op, plan, nb, c, hc)
+        plan_fn = getattr(lib, f"cam_{op}_plan")
+        for what, n in ((2, n0), (3, idx.numel() - n0)):
+            if plan_fn(ctypes.addressof(geo), what) != n:
+                raise RuntimeError(f"{name}: the re-laid weights and the "
+                                   "kernels' layout disagree")
+        got = _CALLS[key] = (plan, (idx.to(x.device), n0))
+    plan, index = got
     ws_fn = f"cam_{op}_workspace"
     ws = (_workspace(lib, ws_fn, geo, x.device)
           if ws_fn in _WORKSPACE[lname] else None)
-    w0, w1 = _tile_weights(op, kr, kh, kt, plan)
-    plan_fn = getattr(lib, f"cam_{op}_plan")
-    for what, t in ((2, w0), (3, w1)):
-        n = 0 if t is None else t.numel()
-        if plan_fn(ctypes.addressof(geo), what) != n:
-            raise RuntimeError(f"{name}: the re-laid weights and the "
-                               "kernels' layout disagree")
+    w0, w1 = _tile_weights(op, kr, kh, kt, plan, index)
     xpad = F.pad(x, (0, plan["kc"] - c))
     return lib, geo, ws, w0, w1, xpad
 
 
+# (op, B, H, W, C, dilations, hc, device) -> (the plan, the weights'
+# index on that device): what _tile_call makes once a geometry
+_CALLS: Dict[tuple, tuple] = {}
+
+
 def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
     """F1b (replaces ``pallas_cam.py:_f1b_call``): (dx, dkr, dkh).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``, or where the wide
-    plan would run them ``csrc/cam_wg.cuh``'s f1b_wg_kernel for phase 0
-    and dx_wg_kernel for dx (``tile_plan``'s "wg" and "dx_wg");
-    ``ValueError`` only for a largest dilation whose halo does not fit
-    (:func:`tile_plan`)."""
+    the card ``csrc/cam_wg.cuh``'s f1b_wg_kernel for phase 0 and
+    dx_wg_kernel for dx; ``ValueError`` only for a largest dilation whose
+    halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f1_bwd"):
         return cam_f1_bwd_plain(x, kr, kh, dsr, dsh, dgap, dils)
     x, kr, kh, dsr, dsh, dgap = _check(x, kr, kh, None, dils,
@@ -1051,7 +1048,7 @@ def cam_f1_bwd(x, kr, kh, dsr, dsh, dgap, dils):
 
 
 def _f2b_launch(x, kh, kt, bnh, dst, dils):
-    """F2b's tile kernels on the card: ((dx, dkh, dkt, dS), workspace)."""
+    """F2b's kernels on the card: ((dx, dkh, dkt, dS), workspace)."""
     x, kh, kt, bnh, dst = _check(x, None, kh, kt, dils, (bnh, dst))
     lib, geo, ws, w0, w1, xpad = _tile_call("f2b", "cam_f2_bwd", x, None, kh,
                                             kt, dils)
@@ -1068,11 +1065,9 @@ def _f2b_launch(x, kh, kt, bnh, dst, dils):
 
 def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
     """F2b (replaces ``pallas_cam.py:_f2b_call``): (dx, dkh, dkt, dS).  On
-    the card the tile kernels of ``csrc/cam_tile.cuh``, or where the wide
-    plan would run them ``csrc/cam_wg.cuh``'s f2b_wg_kernel for phase 0
-    and dx_wg_kernel for dx (``tile_plan``'s "wg" and "dx_wg");
-    ``ValueError`` only for a largest dilation whose halo does not fit
-    (:func:`tile_plan`)."""
+    the card ``csrc/cam_wg.cuh``'s f2b_wg_kernel for phase 0 and
+    dx_wg_kernel for dx; ``ValueError`` only for a largest dilation whose
+    halo does not fit (:func:`tile_plan`)."""
     if not _dispatch(x, "cam_f2_bwd"):
         return cam_f2_bwd_plain(x, kh, kt, bnh, dst, dils)
     out, _ = _f2b_launch(x, kh, kt, bnh, dst, dils)
@@ -1084,7 +1079,7 @@ def cam_f2_bwd(x, kh, kt, bnh, dst, dils):
 
 
 def _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
-    """F3b's tile kernels on the card: ((dx, dkr, dkh, dkt, dSr, dSh, dSt,
+    """F3b's kernels on the card: ((dx, dkr, dkh, dkt, dSr, dSh, dSt,
     dgate), workspace)."""
     x, kr, kh, kt, g, bnr, bnh, bnt, gate = _check(
         x, kr, kh, kt, dils, (bnr, bnh, bnt, gate), bf16_args=(g,))
@@ -1112,13 +1107,9 @@ def _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
 def cam_f3_bwd(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils):
     """F3b (replaces ``pallas_cam.py:_f3b_call``): (dx, dkr, dkh, dkt,
     dSr, dSh, dSt, dgate); image b's gate in both phases.  On the card
-    the tile kernels of ``csrc/cam_tile.cuh`` where the halo at full
-    channel depth and the weight stages fit a block's shared memory (the
-    train step's C = 163 with dilations 1-3 and C = 83 with 1-4 do), else
-    (the wide plan, :func:`tile_plan`) ``csrc/cam_wg.cuh``'s
-    f3b_wg_kernel for phase 0 and dx_wg_kernel for dx; ``ValueError``
-    only for a largest dilation whose halo does not fit even in
-    16-channel chunks (19 and up)."""
+    ``csrc/cam_wg.cuh``'s f3b_wg_kernel for phase 0 and dx_wg_kernel for
+    dx; ``ValueError`` only for a largest dilation whose halo does not fit
+    (:func:`tile_plan`: 19 and up at C = 163)."""
     if not _dispatch(x, "cam_f3_bwd"):
         return cam_f3_bwd_plain(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)
     out, _ = _f3b_launch(x, kr, kh, kt, bnr, bnh, bnt, gate, g, dils)

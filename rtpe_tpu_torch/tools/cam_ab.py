@@ -4,7 +4,7 @@ this repository on the same inputs, on one card: outputs compared,
 per-launch times side by side.
 
     python -m rtpe_tpu_torch.tools.cam_ab --parent <checkout> [--out DIR]
-        [--only cam|chain|group|nms|lap|qconv]
+        [--only cam|chain|group|nms|lap|qconv|step]
 
 run from the root of the checkout under test (beside ``chip_smoke.py``,
 whose seeded inputs it uses). ``<checkout>`` is another tree of the
@@ -24,7 +24,8 @@ train shapes and at ``step128``. The last line printed is one JSON
 object: for each op and
 case, whether each output is ``torch.equal`` to the parent's (else its
 largest difference of max |parent|), whether each tree repeats itself
-bitwise, and each turn's times.
+bitwise, and each turn's times (device ms, and at the timed shapes each
+call's host ms while the card is busy).
 
 The chain (``blocks.basicblock_chain``) runs on ``chip_smoke.chain_inputs``:
 4-block chains at the three branch shapes of a 640 x 640 forward at B=8
@@ -62,22 +63,32 @@ same calibrated scales), timed, with a ``torch.profiler`` breakdown by
 part (``qconv``, ``qfuse``, and everything else: PyTorch's glue).  Every
 output must be ``torch.equal`` to the parent's.
 
+The train step (``--only step``) runs ``chip_smoke.run_train`` as
+``chip_smoke.py``'s phase 18 runs it: ``TRAIN_STEPS`` steps of the
+distillation step (B=16, 450 x 450, the seeded W48 stem) with the fused
+CAMs, a ``torch.profiler`` view of one more (the CAM kernels by name,
+each tree's: phase 0, dx, the forwards, the weight gradients), then the
+same steps on cuDNN CAMs from the fused run's parameters, at
+``--inplanes`` 80 and 128; its line gives each turn's step times (host
+clock after a synchronise), peak GB, the losses' worst difference and
+the profile, nothing held.
+
 An output counts as bad where it differs from the parent's, except a
 pixel sum (``SUMS``, and the weight gradients ``WGRADS``, whose order a
 redesign may change) within ``SUM_TOL`` of max |parent|, or a chain
 output within ``CHAIN_TOL`` of max |parent| (a redesign may reorder its
-sums), on a case that is not an exact-sum one; F1's and F3's outputs at
-the wider geometries (``REDESIGNED``: ``csrc/cam_wg.cuh`` reorders their
-products' sums) within ``REDESIGN_TOL`` there, and the three backwards'
-there (``F64_HELD``) not against the parent but against float64: each
-tree's outputs through its own ``tools/cam_check.py`` (the CAM check's
-rule, its caps at the step CAM and the card tests' small caps on the
-width grid), the change showing no fault the parent does not.  For the
-CAM ops the first line also says whether every per-pixel output and
-statistic is
-``torch.equal`` to the parent's (``cam_per_pixel_and_stats_equal``,
-leaving out those of ``REDESIGNED``, reported apart as
-``redesigned_vs_parent``),
+sums), on a case that is not an exact-sum one; the six CAM ops' outputs
+on every random case (``REDESIGNED`` = ``F64_HELD``: a redesign of
+``csrc/cam_wg.cuh`` may reorder their products' sums) not against the
+parent but against float64: each tree's outputs through its own
+``tools/cam_check.py`` (the CAM check's rule, its caps at the timed
+shapes, the train step's two CAMs and ``step128``, and the card tests'
+small caps elsewhere), the change showing no fault the parent does not;
+their exact-sum cases stay bitwise.  For the CAM ops the first line also
+says whether every per-pixel output and statistic on the exact-sum
+cases is ``torch.equal`` to the parent's
+(``cam_per_pixel_and_stats_equal``; every case's difference of max
+|parent| is reported as ``redesigned_vs_parent``),
 the largest weight-gradient difference of max |parent|, and each tree's
 F1b dkh (per dilation) and dkr against a float64 product of x and the
 cotangents phase 0 makes (``WGRAD_CASES``: exact-sum x and weights, so
@@ -123,24 +134,17 @@ WGRADS = {"dkr", "dkh", "dkt"}
 SUM_TOL = 2.0 ** -8
 CHAIN_TOL = 2.0 ** -5
 TIMED = ("steps", "pyramid_hi", "step128")
-# ops whose kernels at the wider geometries (the cases below whose names
-# start with "step128" or "wide") add their products in another order
-# than the parent's: a per-pixel bf16 output may round the other way
-# (F3's out: one bf16 step of an element near max |parent| is 2^-8), a
-# backward's ReLU mask may flip where its recomputed conv rounds the
-# other way (every backward's phase 0 on f1b_wg_kernel / f2b_wg_kernel /
-# f3b_wg_kernel; every dx on dx_wg_kernel), and F2's bf16(t) the same
-# (f2_wg_kernel), moving its sums of t and t^2
+# ops whose kernels may add their products in another order than the
+# parent's (every case but the exact-sum ones): a per-pixel bf16 output
+# may round the other way (F3's out: one bf16 step of an element near max
+# |parent| is 2^-8), a backward's ReLU mask may flip where its recomputed
+# conv rounds the other way (a flip moves an output element by its whole
+# size), and F2's bf16(t) the same, moving its sums of t and t^2: their
+# random cases are held to the float64 check, each tree with its own
+# masks, and their difference of max |parent| is reported, not held
 REDESIGNED = {"cam_f1_fwd", "cam_f2_fwd", "cam_f3_fwd", "cam_f1_bwd",
               "cam_f2_bwd", "cam_f3_bwd"}
-REDESIGN_TOL = 2.0 ** -6
-# ... of them the backwards, whose ReLU masks (F3b's recomputed convs) and
-# bf16 cotangents can flip where a product adds in another order (a flip
-# moves an output element by its whole size), and F2, whose statistics
-# the float64 check holds: their random cases there are held to the
-# float64 check, each tree with its own masks, and their difference of
-# max |parent| is reported, not held
-F64_HELD = {"cam_f2_fwd", "cam_f1_bwd", "cam_f2_bwd", "cam_f3_bwd"}
+F64_HELD = REDESIGNED
 # Exact-sum x and weights with random F1b cotangents dsr / dsh: the conv
 # outputs are exact, so dc = bf16(dsh[0] + 2 c dsh[1]) and dr are the
 # same in every tree and in a float64 reference; each tree's dkh and dkr
@@ -483,6 +487,23 @@ def device_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Host ms of one call while the card is busy behind a sleep (the
+    host never waits for it): the wrapper's Python, its plan and weight
+    preparation and the launches."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def forward_ms(fn, windows: int = 3) -> dict:
     """Device ms of one forward: the median of ``windows`` windows of
     one call each behind a sleep of ~0.2 s, and whether the host had
@@ -638,13 +659,69 @@ def qconv_worker(qconv_inputs: str, outs: dict, times: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the train step's profile: the CAM kernels together, then each by name
+# (the first design's tile kernels and the wgmma kernels), the weight
+# gradients, the reductions and the wrapper's gather
+STEP_PARTS = ("cam::", "f1_tile", "f2_tile", "f3_tile", "f1b_tile",
+              "f2b_tile", "f3b_tile", "::dx_kernel", "::f1_wg_kernel",
+              "::f2_wg_kernel", "::f3_wg_kernel", "::f1b_wg_kernel",
+              "::f2b_wg_kernel", "::f3b_wg_kernel", "::dx_wg_kernel",
+              "wgrad_taps_kernel", "wgrad_plain_kernel", "reduce_rows",
+              "index_select")
+
+
+def step_worker(save: str) -> None:
+    """The train step in this tree (``--only step``), fused CAMs and
+    cuDNN's, at ``--inplanes`` 80 and 128; saved as JSON."""
+    import torch
+    import chip_smoke as cs
+    from rtpe_tpu_torch import train as train_mod
+    from rtpe_tpu_torch.models import factory, hrnet, students
+    from rtpe_tpu_torch.ops import cam
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = hrnet.init_random_(hrnet.PoseHigherHRNet(hrnet.w48_config()),
+                               seed=cs.SEED).state_dict()
+    batch = cs.train_batch(dev)
+    # the profile of each tree's run_train, read by STEP_PARTS
+    profile = cs.device_profile
+    cs.device_profile = lambda fn, ours=(): profile(fn, STEP_PARTS)
+    res = {"file": cam.__file__}
+    for inplanes in (80, 128):
+        run = {}
+        for fused in (True, False):
+            r = cs.run_train((factory, students), train_mod, cam, fused,
+                             state, run.get("params"), batch, dev,
+                             profile=fused, inplanes=inplanes)
+            run["params"] = r.pop("params")
+            r.pop("model")
+            run["fused" if fused else "cudnn"] = r
+        f, u = run["fused"], run["cudnn"]
+        prof = f["profile"]
+        res[str(inplanes)] = {
+            "fused": cs.train_summary(f), "cudnn": cs.train_summary(u),
+            "loss_worst_rel": max(
+                max(abs(a1 - a2) / abs(a2), abs(d1 - d2) / abs(d2))
+                for (a1, d1), (a2, d2) in zip(f["losses"], u["losses"])),
+            "profile": {k: prof.get(k) for k in ("wall_ms", "kernel_ms",
+                                                 "device_busy", "top")},
+            "profile_ms": {k: v for k, v in
+                           (prof.get("ours_ms") or {}).items() if v}}
+        del run, f, u
+        torch.cuda.empty_cache()
+    with open(save, "w") as fh:
+        json.dump(res, fh)
+
+
 def f64_faults(name: str, fn, args, case: str) -> list:
     """The float64 check's faults (``tools/cam_check.py`` of the tree
     that runs this) of op ``name`` on ``args``, by output: the CAM check's
-    caps at the step CAM, the card tests' small caps (one mask flip covers
-    more than 1e-4 of a small output) on the width grid."""
+    caps at the timed shapes (the train step's CAMs, ``step128``), the
+    card tests' small caps (one mask flip covers more than 1e-4 of a
+    small output) elsewhere."""
     from rtpe_tpu_torch.tools import cam_check
-    caps = cam_check.CAPS if case == "step128" \
+    caps = cam_check.CAPS if case in TIMED \
         else dict(cam_check.CAPS, share=1.0)
     got = cam_check.run_kernel(name, fn, args)
     ctl, ev64 = cam_check.evaluations(name, args)
@@ -687,13 +764,13 @@ def worker(root: str, inputs, chain_inputs, group_inputs, decode_inputs,
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
             outs[op, case["name"]] = [v.cpu() for v in got]
-            if check and op in F64_HELD and case["name"].startswith(
-                    ("step128", "wide")):
+            if check and op in F64_HELD and "exact" not in case["name"]:
                 checks[op, case["name"]] = f64_faults(op, fn, args,
                                                       case["name"])
             if case["name"] in TIMED:
                 times[op, case["name"]] = {
                     "ms": device_ms(lambda: fn(*args)),
+                    "host_ms": host_ms(lambda: fn(*args)),
                     **breakdown(lambda: fn(*args))}
         del t
         torch.cuda.empty_cache()
@@ -767,8 +844,15 @@ def main() -> None:
     ap.add_argument("--decode-inputs")
     ap.add_argument("--qconv-inputs")
     ap.add_argument("--only", choices=("cam", "chain", "group", "nms",
-                                       "lap", "qconv"))
+                                       "lap", "qconv", "step"))
     a = ap.parse_args()
+    if a.only == "step":
+        if a.worker:
+            sys.path.insert(0, os.path.abspath(a.root))
+            step_worker(a.save)
+        else:
+            step_main(a)
+        return
     if a.worker:
         worker(a.root, a.inputs, a.chain_inputs, a.group_inputs,
                a.decode_inputs, a.qconv_inputs, a.save, a.check)
@@ -832,8 +916,7 @@ def main() -> None:
         rep_par = all(same(x, y) for x, y in
                       zip(want, runs[3]["outs"][op, case]))
         exact = "exact" in case
-        redesigned = op in REDESIGNED and case.startswith(("step128",
-                                                           "wide"))
+        redesigned = op in REDESIGNED and "exact" not in case
         held = redesigned and op in F64_HELD
         for n, v in cmp.items():
             if op in OPS and n not in WGRADS and v != "equal" \
@@ -843,8 +926,6 @@ def main() -> None:
                 continue
             tol = CHAIN_TOL if op == "basicblock_chain" else (
                 SUM_TOL if n in SUMS | WGRADS else None)
-            if redesigned:
-                tol = max(tol or 0.0, REDESIGN_TOL)
             if op == "nms_topk" and case.startswith("nan"):
                 continue            # the parent's pool dropped the NaN
             if v != "equal" and (tol is None or v > tol or exact):
@@ -867,6 +948,7 @@ def main() -> None:
         f"{op} {case}": {
             "ms": [r["times"][op, case]["ms"] for r in runs],
             "ms_by_part": [r["times"][op, case]["parts"] for r in runs],
+            "host_ms": [r["times"][op, case].get("host_ms") for r in runs],
             "queued": [r["times"][op, case].get("queued") for r in runs],
             "kernels": {lab: runs[i]["times"][op, case]["kernels"]
                         for i, lab in ((0, "parent"), (1, "new"))}}
@@ -882,8 +964,7 @@ def main() -> None:
         report["redesigned_vs_parent"] = {
             f"{op} {case}": r["vs_parent"]
             for op, by in report["ops"].items() if op in REDESIGNED
-            for case, r in by.items()
-            if case.startswith(("step128", "wide", "exact_wide"))}
+            for case, r in by.items()}
     report["bad"] = bad
     with open(os.path.join(a.out, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -899,6 +980,22 @@ def main() -> None:
         if k in report}}))
     print(json.dumps(report))
     sys.exit(1 if bad else 0)
+
+
+def step_main(a) -> None:
+    """``--only step``: the train step in each tree, parent, new, new,
+    parent, one process each; one JSON line of every turn."""
+    os.makedirs(a.out, exist_ok=True)
+    runs = []
+    for k, (label, root) in enumerate((("parent", a.parent), ("new", "."),
+                                       ("new", "."), ("parent", a.parent))):
+        save = os.path.join(a.out, f"step_{k}_{label}.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--parent", a.parent, "--worker", "--only", "step",
+                        "--root", root, "--save", save], check=True)
+        with open(save) as fh:
+            runs.append({"turn": label, **json.load(fh)})
+    print(json.dumps(runs))
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
 """The wgmma forwards F1 and F3 (``csrc/cam_wg.cuh``) on the CPU: the
-kernels that run F1 and F3 wherever ``cam_tile.cuh:make_tgeo`` takes
-the wide plan (every ``--inplanes`` above 80, six dilations up to 8).
+kernels that run F1 and F3 at every geometry (the train step's CAMs at
+``--inplanes`` 80, every wider one, six dilations up to 8).
 
 * The plan (``ops/cam.py:_wg_plan``, the C side's ``make_fplan``) at the
   width grid of ``tests/test_torch_cam_wide.py``: within a block's
   shared memory, whole branches (up to 128 columns) a slice, the x halo
-  in as few K chunks as fit (one at ``--inplanes`` 128: staged once a
-  tile), a and the BN rows in shared memory there; the train step's
-  shapes keep the whole-depth plan.
+  in as few K chunks as fit (one at the train step's shapes and at
+  ``--inplanes`` 128: staged once a tile), a and the BN rows in shared
+  memory there.
 * The re-laid weights (``ops/cam.py:_wg_weights``), stage by stage in
   the order the producer warp copies them (a model of
   ``cam_wg.cuh:fwd_produce``), give back kr, kh and kt with zero
@@ -16,9 +16,12 @@ the wide plan (every ``--inplanes`` above 80, six dilations up to 8).
   halo's K chunks and their stages, the taps, then the 1x1 convs from x
   and from a) with the kernels' epilogues, bitwise the plain versions on
   exact sums (the halo at full depth and in chunks, branch slices, a
-  and the rows out of shared memory), and within ``tests/
+  and the rows out of shared memory; the train step's widths, C = 163,
+  hc = 40 and C = 83, hc = 20, and the first design's walk shapes: small
+  C and hc, a dilation of 9 past a tile side), and within ``tests/
   test_torch_cam.py``'s tolerances of the interpret-mode ``_f1_call`` /
-  ``_f3_call`` on random inputs at C = 195, hc = 48.
+  ``_f3_call`` on random inputs at C = 195, hc = 48 and at the train
+  step's widths.
 
 On the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 17)
 the kernels themselves are held to the plain versions.
@@ -34,7 +37,7 @@ from rtpe_tpu.ops import pallas_cam as pc
 from rtpe_tpu_torch.ops import cam
 from test_torch_cam import BF16_TOL, F32_TOL, _inputs
 from test_torch_cam_tile import _forward_args, _forward_case, _jx
-from test_torch_cam_wide import GRID, WEIGHT_SHAPES, WHOLE_DEPTH
+from test_torch_cam_wide import GRID, WEIGHT_SHAPES
 
 OPS = ("f1", "f3")
 TRAIN = {"steps", "pyramid"}
@@ -42,12 +45,24 @@ TRAIN = {"steps", "pyramid"}
 # (halo at full depth, a in shared memory), 96, x in K chunks (a dilation
 # of 12), the step CAM of 256 (K chunks, 128-column branches), and a
 # branch of 256 columns (two slices; F3 keeps a and the BN rows out of
-# shared memory)
+# shared memory); the train step's widths (hc 40: 48 columns, hc 20: 32,
+# a slice's n8 tiles 6 and 4) on small images, and the first design's
+# walk shapes (C = 12, hc = 3 at four dilations and beside a dilation of
+# 9; C = 70, 170)
 WALK_SHAPES = {"step128": (1, 9, 10, 259, (1, 2, 3), 64),
                "step96": (2, 9, 13, 195, (1, 2, 3), 48),
                "chunks": (1, 11, 10, 150, (1, 12), 20),
                "step256": (1, 9, 8, 515, (1, 2, 3), 128),
-               "slices": (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256)}
+               "slices": (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256),
+               "steps": (1, 9, 10, 163, (1, 2, 3), 40),
+               "pyramid": (2, 9, 13, 83, (1, 2, 3, 4), 20),
+               "tile0": (2, 9, 13, 12, (1, 2, 3, 4), 3),
+               "tile1": (1, 5, 30, 70, (1, 2, 3), 20),
+               "tile2": (1, 11, 19, 12, (1, 9), 3),
+               "tile3": (1, 9, 10, 170, (1, 2), 8)}
+# the train step's widths on small ragged images, against Pallas
+TRAIN_WALKS = {"steps": (1, 9, 11, 163, (1, 2, 3), 40),
+               "pyramid": (1, 9, 11, 83, (1, 2, 3, 4), 20)}
 
 
 def by_op(names, ops=OPS):
@@ -104,21 +119,17 @@ class Reader:
 
 @pytest.mark.parametrize("op,name", by_op(GRID))
 def test_wg_plan_fits_every_width(op, name):
-    """F1 and F3 at every shape of the width grid: the wgmma plan where
-    the wide plan would run (the train step's shapes and F1 at six
-    dilations up to 6 keep the whole-depth plan), within SMEM_MAX, its
-    shared memory and stage count as the kernels carve and walk them,
-    whole branches of up to 128 columns, x's K chunks and stages covering
-    kc; at --inplanes 128 (step128) the halo staged once at full depth,
-    a and the BN rows in shared memory."""
+    """F1 and F3 at every shape of the width grid: the wgmma plan within
+    SMEM_MAX, its shared memory and stage count as the kernels carve and
+    walk them, whole branches of up to 128 columns, x's K chunks and
+    stages covering kc; at the train step's shapes and at --inplanes 128
+    (step128) the halo staged once at full depth, a and the BN rows in
+    shared memory."""
     b, h, w, c, dils, hc = shape = GRID[name]
     nb = len(dils)
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
-    if name in TRAIN | WHOLE_DEPTH or (op, name) == ("f1", "dils6"):
-        assert not p["wg"] and not p["wide"]
-        return
-    assert p["wg"] and p["wide"] and p["smem0"] <= cam.SMEM_MAX
+    assert p["wg"] and p["smem0"] <= cam.SMEM_MAX
     assert p["ntb"] in cam.WG_NTB and p["sw"] == 8 * p["ntb"] <= 128
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
     assert p["nsl"] == 1                        # the grid's branches whole
@@ -138,13 +149,12 @@ def test_wg_plan_fits_every_width(op, name):
         assert p["kqa"] % 16 == 0 and sum(kw for _, kw in a_stages(p)) == knh
     else:
         assert p["kqa"] == 0 and not p["a_res"] and not p["rows_smem"]
-    if name == "step128":
+    if name in TRAIN | {"step128"}:
         assert p["nq"] == 1 and kq == kc            # the halo once a tile
         assert p["a_res"] == p["rows_smem"] == (op == "f3")
 
 
-@pytest.mark.parametrize("op,name", [
-    c for c in by_op(WEIGHT_SHAPES) if tuple(c.values) != ("f1", "dils6")])
+@pytest.mark.parametrize("op,name", by_op(WEIGHT_SHAPES))
 def test_wg_weights_unpad_to_the_inputs(op, name):
     """Each stage of ``_wg_weights`` (read as the producer copies them)
     is its slice of kh[i, tap] (the branch's slice columns), kr or
@@ -307,3 +317,26 @@ def test_wg_walk_matches_pallas_interpret(op):
         tol = BF16_TOL if op == "f3" else F32_TOL
         scale = max(float(np.abs(w_).max()), 1e-6)
         assert float(np.abs(g_ - w_).max()) <= tol * scale, (i, op)
+
+
+@pytest.mark.parametrize("op,name", by_op(TRAIN_WALKS))
+def test_wg_walk_matches_pallas_interpret_at_train_widths(op, name):
+    """The walk against ``_f1_call`` / ``_f3_call`` (interpret mode) at
+    the train step's widths (C = 163, hc = 40: a 48-column slice; C = 83,
+    hc = 20: 32 columns, 12 of them padding) on a ragged image, on
+    exact-sum inputs: bitwise."""
+    shape = TRAIN_WALKS[name]
+    p = cam.tile_plan(op, *shape)
+    assert p["wg"] and p["sw"] == {40: 48, 20: 32}[shape[5]]
+    k = _forward_case(shape, 21)
+    got = wg_walk(op, shape, k)
+    fn = {"f1": pc._f1_call, "f3": pc._f3_call}[op]
+    args = _forward_args(op, k, shape[4])
+    want = fn(*[_jx(t) for t in args[:-1]], shape[4])
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        w_ = torch.from_numpy(np.array(w_.astype(jnp.float32)))
+        assert g_.shape == w_.shape, i
+        assert bool((w_ != 0).any()), i
+        assert torch.equal(g_.float(), w_), i

@@ -1,18 +1,17 @@
 """The backwards' wgmma kernels (``csrc/cam_wg.cuh``) on the CPU:
 ``f3b_wg_kernel`` (F3b's phase 0) and ``dx_wg_kernel`` (phase 1, dx, of
-F1b, F2b and F3b), which run wherever ``cam_tile.cuh:make_tgeo`` takes
-the wide plan (every ``--inplanes`` above 80, six dilations up to 8).
+F1b, F2b and F3b), which run at every geometry (the train step's CAMs at
+``--inplanes`` 80, every wider one, six dilations up to 8).
 
 * The plans (``ops/cam.py:_wg_plan`` for F3b, ``_dx_plan``; the C side's
   ``make_fplan`` / ``make_dplan``, exported by ``cam_wg.cuh:op_plan``) at
   the width grid of ``tests/test_torch_cam_wide.py``: within a block's
   shared memory as the kernels carve it, their stage counts as the
   producer warps walk them, all of dx's output columns in one block, at
-  ``--inplanes`` 128 the dc halo and F3b's x halo staged once a tile; the
-  train step's shapes keep the whole-depth plan.  Every geometry the
-  wide plan's limit lets through gets both plans, so the ops refuse what
-  they refused before (a largest dilation of 19 at C = 163 for F1b and
-  F3b, 20 for F2b).
+  ``--inplanes`` 128 and at the train step's shapes the dc halo and
+  F3b's x halo staged once a tile.  Every geometry the ops' limit lets
+  through gets both plans, so the ops refuse what they refused before (a
+  largest dilation of 19 at C = 163 for F1b and F3b, 20 for F2b).
 * The re-laid weights (``ops/cam.py:_wg_weights`` for F3b,
   ``_dx_weights``), stage by stage in the order the producer warps copy
   them, give back kr, kh and kt with zero padding, each stage in wgmma's
@@ -23,11 +22,13 @@ the wide plan (every ``--inplanes`` above 80, six dilations up to 8).
   branch, halo chunk, tap and stage the transposed tap of dc), bitwise
   ``cam_f{1,2,3}_bwd_plain`` on exact sums (the halo whole, in two branch
   buffers and in K chunks, column passes, dr a stage at a time, F3b's a
-  and rows out of shared memory, dt in chunks), and within
+  and rows out of shared memory, dt in chunks; the train step's widths
+  and the first design's walk shapes), and within
   ``tests/test_torch_cam.py``'s tolerances of the interpret-mode
   ``_f1b_call`` / ``_f2b_call`` / ``_f3b_call`` on random inputs at
-  C = 195, hc = 48 (F3b's dx on image 0 only: the TPU kernel's phase 1
-  reads image 0's gate, ``pallas_cam.py:507``).
+  C = 195, hc = 48 and at the train step's widths (F3b's dx on image 0
+  only: the TPU kernel's phase 1 reads image 0's gate,
+  ``pallas_cam.py:507``).
 
 On the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 17)
 the kernels themselves are held to the plain versions.
@@ -42,9 +43,10 @@ import torch.nn.functional as F
 from rtpe_tpu.ops import pallas_cam as pc
 from rtpe_tpu_torch.ops import cam
 from test_torch_cam import BF16_TOL, _grad_close, _inputs
-from test_torch_cam_tile import _dyadic, _forward_case, _ints, _jx
-from test_torch_cam_wg import Reader, a_stages, x_stages
-from test_torch_cam_wide import GRID, WEIGHT_SHAPES, WHOLE_DEPTH, _weights
+from test_torch_cam_tile import (_dyadic, _forward_case, _ints, _jx,
+                                 first_design_fits)
+from test_torch_cam_wg import TRAIN_WALKS, Reader, a_stages, x_stages
+from test_torch_cam_wide import GRID, WEIGHT_SHAPES, _weights
 
 OPS = ("f3b", "f1b", "f2b")
 TRAIN = {"steps", "pyramid"}
@@ -55,13 +57,21 @@ TP = cam.TILE_TP
 # column passes, branches in K chunks; F3b's x halo in K chunks), a
 # dilation of 18 at C = 700 (dr a stage at a time, three passes), a
 # branch of 256 columns (two slices; F3b's a and rows out of shared
-# memory) and C = 300 with 256-column branches (F3b's dt in two chunks)
+# memory) and C = 300 with 256-column branches (F3b's dt in two chunks);
+# the train step's widths (dx: 12 and 8 n8 tiles a warpgroup) on small
+# images and the first design's walk shapes
 WALK_SHAPES = {"step128": (1, 9, 10, 259, (1, 2, 3), 64),
                "step96": (2, 9, 13, 195, (1, 2, 3), 48),
                "step256": (1, 9, 8, 515, (1, 2, 3), 128),
                "dr_stages": (1, 9, 10, 700, (1, 18), 8),
                "slices": (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256),
-               "dt_chunks": (1, 9, 10, 300, (1, 2, 3), 256)}
+               "dt_chunks": (1, 9, 10, 300, (1, 2, 3), 256),
+               "steps": (1, 9, 10, 163, (1, 2, 3), 40),
+               "pyramid": (2, 9, 13, 83, (1, 2, 3, 4), 20),
+               "tile0": (2, 9, 13, 12, (1, 2, 3, 4), 3),
+               "tile1": (1, 5, 30, 70, (1, 2, 3), 20),
+               "tile2": (1, 11, 19, 12, (1, 9), 3),
+               "tile3": (1, 9, 10, 170, (1, 2), 8)}
 # the largest dilation each backward takes at C = 163, hc = 40 (F2b has
 # no dr rows: one more)
 DIL_LAST = {"f3b": 18, "f1b": 18, "f2b": 19}
@@ -127,23 +137,22 @@ def dx_stages(op, p, nb):
 def test_wgb_plans_fit_every_width(op, name):
     """F1b, F2b and F3b at every shape of the width grid: dx_wg_kernel's
     plan (and F3b's f3b_wg_kernel plan; F1b's and F2b's phase 0 are
-    ``tests/test_torch_cam_wgb0.py``'s) where the wide plan would run
-    (the train step's shapes and the pyramid's narrow ones keep the
-    whole-depth plan), within SMEM_MAX as the kernels carve it: the dc
+    ``tests/test_torch_cam_wgb0.py``'s), within SMEM_MAX as the kernels
+    carve it: the dc
     halo (whole or two chunk buffers), dr's rows (whole or a stage), the
     ring of FNS slots of a pass's 16 ntw columns; its stage count as the
     producer walks it; every output column in one block (column passes
     of two warpgroups' n8 tiles); at --inplanes 128 (step128) one pass,
     each branch of the dc halo staged once, stages 64 wide, and F3b's x
-    halo and dt whole, a and the rows in shared memory."""
+    halo and dt whole, a and the rows in shared memory; at the train
+    step's shapes one pass of 12 (C = 163) or 8 (C = 83) n8 tiles a
+    warpgroup, the dc halo and dr's rows whole, F3b's x halo and dt
+    whole."""
     b, h, w, c, dils, hc = shape = GRID[name]
     nb = len(dils)
     res = cam.TILE_OPS[op][0]
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
-    if name in TRAIN | WHOLE_DEPTH:
-        assert not (p["wide"] or p["wg"] or p["dx_wg"])
-        return
     assert p["dx_wg"] and p["wg"]
     ntw, npass, np_ = p["dx_ntw"], p["dx_npass"], p["dx_np"]
     assert ntw in cam.DX_NTW and np_ == 16 * ntw
@@ -174,6 +183,11 @@ def test_wgb_plans_fit_every_width(op, name):
         # dt's chunks fit the halo's buffer, 64 rows a plane
         assert TP * p["kdq"] <= hr * p["kq"] and p["kdq"] % 16 == 0
         assert sum(kw for _, kw in dt_stages(p)) == kc
+    if name in TRAIN:
+        assert (npass, ntw) == (1, {163: 12, 83: 8}[c])
+        assert p["dx_hres"] and nq == 1 and (p["dx_dr_res"] or not res)
+        if op == "f3b":
+            assert p["nq"] == 1 and p["nd"] == 1
     if name == "step128":
         assert npass == 1 and nq == 1 and kb == 64
         assert not res or p["dx_dr_res"]
@@ -185,24 +199,18 @@ def test_wgb_plans_fit_every_width(op, name):
 @pytest.mark.parametrize("op", OPS)
 def test_wgb_plans_refuse_what_the_wide_plan_refuses(op):
     """Over C, branch widths and largest dilations: a geometry is taken
-    exactly where the wide plan's limit lets it through (its x halo of
-    one 16-channel chunk with the ring, and the mma.sync phase 1's dc
-    halo with its slots: ``cam_tile.cuh:make_tgeo``), and there it gets
+    exactly where the first design's tile plans took it (its whole-depth
+    plan, or its x halo of one 16-channel chunk with the ring and its
+    phase 1's dc halo with its slots: ``test_torch_cam_tile.py:
+    first_design_fits``, the ops' limit), and there it gets
     dx_wg_kernel's plan and its phase 0's within SMEM_MAX; at
     C = 163 F1b and F3b take a largest dilation of 18 and refuse 19,
     F2b takes 19 and refuses 20."""
-    res, top, bb = cam.TILE_OPS[op]
-    red = 4 * 5 * cam.TILE_NC if bb else 0
     for c, hc in ((16, 8), (163, 40), (515, 128), (1030, 256)):
-        nxr = min(cam.TILE_NX, -(-c // 8) * 8)
         for d in range(1, 24):
-            p = cam.tile_plan(op, 1, 16, 16, c, (1, d), hc)
-            if not p["wide"]:
-                assert p["ok"]
-                continue
-            hr = (8 + 2 * d) ** 2
-            limit = (cam._k_fit(hr, cam.TILE_NC + TP, 4 * red) >= 0
-                     and cam._k_fit(hr, nxr + res * TP, 0) >= 0)
+            shape = (1, 16, 16, c, (1, d), hc)
+            p = cam.tile_plan(op, *shape)
+            limit = first_design_fits(op, shape)
             assert bool(p["ok"]) == limit, (c, hc, d)
             if limit:
                 assert p["dx_wg"] and p["wg"]
@@ -484,9 +492,7 @@ def _exact_case(op, shape, seed):
     return got, want
 
 
-@pytest.mark.parametrize("op,name", [
-    c for c in by_op(WALK_SHAPES)
-    if cam.tile_plan(c.values[0], *WALK_SHAPES[c.values[1]])["wide"]])
+@pytest.mark.parametrize("op,name", by_op(WALK_SHAPES))
 def test_wgb_walk_matches_the_plain_backwards(op, name):
     """The walks on exact-sum inputs: F1b's and F2b's dx, and all eight
     of F3b's outputs (dx; dkr, dkh and dkt from the walk's scratch; dSr,
@@ -495,7 +501,7 @@ def test_wgb_walk_matches_the_plain_backwards(op, name):
     at plans with the dc halo whole, in two branch buffers and in K
     chunks, two and three column passes, dr a stage at a time, F3b's x
     halo in K chunks, branch slices with a and the rows out of shared
-    memory, and dt in chunks."""
+    memory, and dt in chunks, and at the train step's widths."""
     shape = WALK_SHAPES[name]
     p = cam.tile_plan(op, *shape)
     if name == "step128":       # F2b has no dr rows: its halo fits whole
@@ -534,7 +540,18 @@ def test_wgb_walk_matches_pallas_interpret(op):
     (hence c, a mask, dc) can round to the neighbouring bf16 value, and
     one such dc moves a dkh element by 8e-5 of dkh's largest here.
     F3b's dx on image 0 only, its other outputs whole."""
-    shape = (2, 9, 11, 195, (1, 2, 3), 48)
+    _vs_pallas(op, (2, 9, 11, 195, (1, 2, 3), 48))
+
+
+@pytest.mark.parametrize("op,name", by_op(TRAIN_WALKS))
+def test_wgb_walk_matches_pallas_interpret_at_train_widths(op, name):
+    """The same at the train step's widths (C = 163, hc = 40; C = 83,
+    hc = 20) on a small ragged image, with the same tolerances."""
+    b, h, w, c, dils, hc = TRAIN_WALKS[name]
+    _vs_pallas(op, (2, h, w, c, dils, hc))
+
+
+def _vs_pallas(op, shape):
     b, h, w, c, dils, hc = shape
     assert cam.tile_plan(op, *shape)["dx_wg"]
     inp = _inputs(*shape, seed=sum(shape[:4]) + 1)

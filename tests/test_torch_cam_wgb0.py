@@ -1,15 +1,15 @@
 """F1b's and F2b's phase 0 on ``csrc/cam_wg.cuh`` on the CPU:
 ``f1b_wg_kernel`` and ``f2b_wg_kernel``, two more modes of
-``fwd_wg_body``, which run wherever ``cam_tile.cuh:make_tgeo`` takes the
-wide plan (every ``--inplanes`` above 80, six dilations up to 8).
+``fwd_wg_body``, which run at every geometry (the train step's CAMs at
+``--inplanes`` 80, every wider one, six dilations up to 8).
 
 * The plans (``ops/cam.py:_wg_plan`` for "f1b" and "f2b"; the C side's
   ``make_fplan``, exported by ``cam_wg.cuh:op_plan``) at the width grid of
   ``tests/test_torch_cam_wide.py``: within a block's shared memory as the
   kernels carve it (F1b's dsr and dsh, F2b's dst and bnh where they fit),
   their stage counts as the producer warp walks them (F1b F1's products,
-  F2b no x kr^T), at ``--inplanes`` 128 x's halo staged once a tile; the
-  train step's shapes keep the whole-depth plan.
+  F2b no x kr^T), at ``--inplanes`` 128 and at the train step's shapes
+  x's halo staged once a tile.
 * The re-laid weights (``ops/cam.py:_wg_weights``), stage by stage in the
   order the producer warp copies them, give back kr, kh and kt with zero
   padding (F1b: F1's layout; F2b: F3b's without the kr stages).
@@ -20,9 +20,10 @@ wide plan (every ``--inplanes`` above 80, six dilations up to 8).
   leaves (``tests/test_torch_cam_wgb.py``'s ``dx_walk``), bitwise
   ``cam_f1_bwd_plain`` / ``cam_f2_bwd_plain`` on exact sums (the halo
   whole and in K chunks, two branch slices, F2b's a and rows out of
-  shared memory and dt in chunks), and within ``tests/test_torch_cam.py``'s
+  shared memory and dt in chunks; the train step's widths and the first
+  design's walk shapes), and within ``tests/test_torch_cam.py``'s
   tolerances of the interpret-mode ``_f1b_call`` / ``_f2b_call`` on random
-  inputs at C = 195, hc = 48.
+  inputs at C = 195, hc = 48 and at the train step's widths.
 
 On the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 17)
 the kernels themselves are held to the plain versions.
@@ -38,10 +39,10 @@ from rtpe_tpu.ops import pallas_cam as pc
 from rtpe_tpu_torch.ops import cam
 from test_torch_cam import BF16_TOL, _grad_close, _inputs
 from test_torch_cam_tile import _dyadic, _forward_case, _jx
-from test_torch_cam_wg import Reader, a_stages, x_stages
+from test_torch_cam_wg import TRAIN_WALKS, Reader, a_stages, x_stages
 from test_torch_cam_wgb import (WALK_SHAPES, _bn, _check_block, dt_stages,
                                 dx_walk)
-from test_torch_cam_wide import GRID, WEIGHT_SHAPES, WHOLE_DEPTH, _weights
+from test_torch_cam_wide import GRID, WEIGHT_SHAPES, _weights
 
 OPS = ("f1b", "f2b")
 TRAIN = {"steps", "pyramid"}
@@ -85,24 +86,19 @@ def stages(op, p, nb):
 
 @pytest.mark.parametrize("op,name", by_op(GRID))
 def test_wgb0_plans_fit_every_width(op, name):
-    """F1b's and F2b's phase 0 at every shape of the width grid: the
-    wgmma plan where the wide plan would run (the train step's shapes and
-    the pyramid's narrow ones keep the whole-depth plan), within SMEM_MAX
-    as the kernel carves it (the mbarriers, x's halo chunk, F2b's a where
-    it fits, the epilogues' rows: F1b's dsr and dsh always, F2b's dst and
-    bnh where they fit; F2b's column-sum scratch; FNS ring slots), its
-    stage count as the producer walks it, whole branches of up to 128
-    columns, x's stages covering kc (and F2b's a's covering knh, dt's
-    chunks the halo's buffer); at --inplanes 128 (step128) x's halo
-    staged once a tile, F2b's a, rows and dt whole in shared memory."""
+    """F1b's and F2b's phase 0 at every shape of the width grid: the wgmma plan
+    within SMEM_MAX as the kernel carves it (the mbarriers, x's halo chunk,
+    F2b's a where it fits, the epilogues' rows: F1b's dsr and dsh always, F2b's
+    dst and bnh where they fit; F2b's column-sum scratch; FNS ring slots), its
+    stage count as the producer walks it, whole branches of up to 128 columns,
+    x's stages covering kc (and F2b's a's covering knh, dt's chunks the halo's
+    buffer); at --inplanes 128 (step128) x's halo staged once a tile, F2b's a,
+    rows and dt whole in shared memory, and so at the train step's shapes."""
     b, h, w, c, dils, hc = shape = GRID[name]
     nb, nh = len(dils), len(dils) * hc
     p = cam.tile_plan(op, *shape)
     assert p["ok"]
-    if name in TRAIN | WHOLE_DEPTH:
-        assert not (p["wide"] or p["wg"])
-        return
-    assert p["wide"] and p["wg"] and p["dx_wg"]
+    assert p["wg"] and p["dx_wg"]
     assert p["ntb"] in cam.WG_NTB and p["sw"] == 8 * p["ntb"] <= 128
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
     assert p["nsl"] == 1                        # the grid's branches whole
@@ -130,7 +126,7 @@ def test_wgb0_plans_fit_every_width(op, name):
     assert p["w0_elems"] == (9 * nb * kc * p["sw"]
                              + p["nch1"] * cam.WG_N1 * (res * kc + top * knh)
                              + bb * nb * kc * p["sw"])
-    if name == "step128":
+    if name in TRAIN | {"step128"}:
         assert p["nq"] == 1 and kq == kc            # the halo once a tile
         if op == "f2b":
             assert p["a_res"] and p["rows_smem"] and p["nd"] == 1
@@ -307,11 +303,11 @@ def test_wgb0_walk_matches_the_plain_backwards(op, name):
     ``cam_f1_bwd_plain`` / ``cam_f2_bwd_plain``, at plans with x's halo
     whole (step128, step96) and in K chunks (step256), two branch slices
     (slices; F2b's a and rows out of shared memory there) and F2b's dt
-    in chunks (dt_chunks)."""
+    in chunks (dt_chunks), and at the train step's widths."""
     b, h, w, c, dils, hc = shape = WALK_SHAPES[name]
     nb = len(dils)
     p = cam.tile_plan(op, *shape)
-    assert p["wide"] and p["wg"]
+    assert p["wg"]
     if name in ("step128", "step96"):
         assert p["nq"] == 1
     if name == "step256":
@@ -353,7 +349,18 @@ def test_wgb0_walk_matches_pallas_interpret(op):
     magnitude and cosine > 0.999: the walk adds a conv's K stages and
     taps in another order than XLA, so a recomputed conv can round to the
     neighbouring bf16 value and flip a mask or move a cotangent)."""
-    shape = (2, 9, 11, 195, (1, 2, 3), 48)
+    _vs_pallas(op, (2, 9, 11, 195, (1, 2, 3), 48))
+
+
+@pytest.mark.parametrize("op,name", by_op(TRAIN_WALKS))
+def test_wgb0_walk_matches_pallas_interpret_at_train_widths(op, name):
+    """The same at the train step's widths (C = 163, hc = 40; C = 83,
+    hc = 20) on a small ragged image, with the same tolerances."""
+    b, h, w, c, dils, hc = TRAIN_WALKS[name]
+    _vs_pallas(op, (2, h, w, c, dils, hc))
+
+
+def _vs_pallas(op, shape):
     b, h, w, c, dils, hc = shape
     assert cam.tile_plan(op, *shape)["wg"]
     inp = _inputs(*shape, seed=sum(shape[:4]) + 5)

@@ -1,17 +1,16 @@
 """F2 on ``csrc/cam_wg.cuh`` on the CPU: ``f2_wg_kernel``, the
-``WG_F2`` mode of ``fwd_wg_body``, which runs F2 wherever
-``cam_tile.cuh:make_tgeo`` takes the wide plan (every ``--inplanes``
-above 80, six dilations up to 8).
+``WG_F2`` mode of ``fwd_wg_body``, which runs F2 at every geometry (the
+train step's CAMs at ``--inplanes`` 80, every wider one, six dilations
+up to 8).
 
 * The plan (``ops/cam.py:_wg_plan`` for "f2"; the C side's
   ``make_fplan``, exported by ``cam_wg.cuh:op_plan``) at the width grid of
   ``tests/test_torch_cam_wide.py``: within a block's shared memory as the
   kernel carves it (a and bnh where they fit, F1's column-sum scratch
   after the rows), its stage count as the producer warp walks it (F2b's
-  products without the branch backward), at ``--inplanes`` 128 x's halo
-  staged once a tile; the train step's shapes keep the whole-depth plan;
-  a largest dilation refused exactly where the wide plan's limit refuses
-  it.
+  products without the branch backward), at ``--inplanes`` 128 and at
+  the train step's shapes x's halo staged once a tile; a largest
+  dilation refused exactly where the ops' limit refuses it.
 * The re-laid weights (``ops/cam.py:_wg_weights``), stage by stage in the
   order the producer warp copies them, give back kh and kt with zero
   padding, and are the prefix of F2b's before its kt[i]^T stages.
@@ -21,10 +20,12 @@ above 80, six dilations up to 8).
   64-column chunk, the sums of t and t^2 over each tile's pixels in the
   image, the tiles' rows summed in tile order) bitwise
   ``cam_f2_fwd_plain`` on exact sums (the halo whole and in K chunks, two
-  branch slices with a and bnh out of shared memory, ragged tiles), and
-  within ``tests/test_torch_cam.py``'s tolerance of the interpret-mode
+  branch slices with a and bnh out of shared memory, ragged tiles; the
+  train step's widths and the first design's walk shapes), and within
+  ``tests/test_torch_cam.py``'s tolerance of the interpret-mode
   ``_f2_call`` on random inputs at C = 195, hc = 48 on a ragged image,
-  where leaving the padding pixels unmasked is off by more than that.
+  where leaving the padding pixels unmasked is off by more than that
+  (bitwise on exact sums at the train step's widths).
 
 On the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 17)
 the kernel itself is held to the plain version.
@@ -39,12 +40,12 @@ import torch.nn.functional as F
 from rtpe_tpu.ops import pallas_cam as pc
 from rtpe_tpu_torch.ops import cam
 from test_torch_cam import F32_TOL, _inputs
-from test_torch_cam_tile import _ints, _jx
+from test_torch_cam_tile import _ints, _jx, first_design_fits
 from test_torch_cam_tile import _weights as _exact_weights
-from test_torch_cam_wg import Reader, a_stages, x_stages
+from test_torch_cam_wg import TRAIN_WALKS, Reader, a_stages, x_stages
 from test_torch_cam_wgb import _bn, _check_block
 from test_torch_cam_wgb0 import branch_walk
-from test_torch_cam_wide import GRID, WEIGHT_SHAPES, WHOLE_DEPTH, _weights
+from test_torch_cam_wide import GRID, WEIGHT_SHAPES, _weights
 
 TRAIN = {"steps", "pyramid"}
 TS, TP = cam.TILE_TS, cam.TILE_TP
@@ -53,13 +54,20 @@ TS, TP = cam.TILE_TS, cam.TILE_TP
 # 9 x 13 pixels on ragged tiles), x in K chunks (a dilation of 12, and a
 # wider branch beside an 11), the step CAM of 256 (K chunks, 128-column
 # branches), and a branch of 256 columns (two slices; a and bnh out of
-# shared memory)
+# shared memory); the train step's widths on small images and the first
+# design's walk shapes
 WALK_SHAPES = {"step128": (1, 9, 10, 259, (1, 2, 3), 64),
                "step96": (2, 9, 13, 195, (1, 2, 3), 48),
                "chunks": (1, 11, 10, 150, (1, 12), 20),
                "chunks_slices": (2, 9, 9, 100, (2, 11, 3), 44),
                "step256": (1, 9, 8, 515, (1, 2, 3), 128),
-               "slices": (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256)}
+               "slices": (1, 9, 10, 16, (1, 1, 1, 1, 1, 10), 256),
+               "steps": (1, 9, 10, 163, (1, 2, 3), 40),
+               "pyramid": (2, 9, 13, 83, (1, 2, 3, 4), 20),
+               "tile0": (2, 9, 13, 12, (1, 2, 3, 4), 3),
+               "tile1": (1, 5, 30, 70, (1, 2, 3), 20),
+               "tile2": (1, 11, 19, 12, (1, 9), 3),
+               "tile3": (1, 9, 10, 170, (1, 2), 8)}
 bf = cam._bf
 
 
@@ -83,22 +91,17 @@ def stages(p, nb):
 
 @pytest.mark.parametrize("name", sorted(GRID))
 def test_wgf2_plan_fits_every_width(name):
-    """F2 at every shape of the width grid: the wgmma plan where the wide
-    plan would run (the train step's shapes and the pyramid's narrow
-    ones keep the whole-depth plan), within SMEM_MAX as the kernel
-    carves it (the mbarriers, x's halo chunk, a where it fits, bnh where
-    it fits, F1's column-sum scratch, FNS ring slots), its stage count as
-    the producer walks it, whole branches of up to 128 columns, x's
-    stages covering kc and a's knh; at --inplanes 128 (step128) x's halo
-    staged once a tile, a and bnh in shared memory."""
+    """F2 at every shape of the width grid: the wgmma plan within SMEM_MAX as
+    the kernel carves it (the mbarriers, x's halo chunk, a where it fits, bnh
+    where it fits, F1's column-sum scratch, FNS ring slots), its stage count as
+    the producer walks it, whole branches of up to 128 columns, x's stages
+    covering kc and a's knh; at --inplanes 128 (step128) and at the train
+    step's shapes x's halo staged once a tile, a and bnh in shared memory."""
     b, h, w, c, dils, hc = shape = GRID[name]
     nb, nh = len(dils), len(dils) * hc
     p = cam.tile_plan("f2", *shape)
     assert p["ok"]
-    if name in TRAIN | WHOLE_DEPTH:
-        assert not (p["wide"] or p["wg"])
-        return
-    assert p["wide"] and p["wg"] and not p["dx_wg"]
+    assert p["wg"] and not p["dx_wg"]
     assert p["ntb"] in cam.WG_NTB and p["sw"] == 8 * p["ntb"] <= 128
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
     assert p["nsl"] == 1                        # the grid's branches whole
@@ -116,26 +119,23 @@ def test_wgf2_plan_fits_every_width(name):
     assert p["w0_elems"] == (9 * nb * kc * p["sw"]
                              + p["nch1"] * cam.WG_N1 * knh)
     assert p["w1_elems"] == p["smem1"] == 0
-    if name == "step128":
+    if name in TRAIN | {"step128"}:
         assert p["nq"] == 1 and kq == kc            # the halo once a tile
         assert p["a_res"] and p["rows_smem"]
 
 
 def test_wgf2_plan_refuses_what_the_wide_plan_refuses():
     """Over C, branch widths and largest dilations: F2 is taken exactly
-    where the wide plan's limit (its x halo of one 16-channel chunk with
-    the ring: ``cam_tile.cuh:make_tgeo``) lets it through, and there gets
-    the wgmma plan within SMEM_MAX; at C = 163 a largest dilation of 19
-    is taken and 20 refused, as before F2 left the wide plan."""
+    where the first design's tile plans took it (``test_torch_cam_tile.
+    py:first_design_fits``, the ops' limit), and there gets the wgmma
+    plan within SMEM_MAX; at C = 163 a largest dilation of 19 is taken
+    and 20 refused."""
     for c, hc in ((16, 8), (163, 40), (515, 128), (1030, 256)):
         for d in range(1, 24):
-            p = cam.tile_plan("f2", 1, 16, 16, c, (1, d), hc)
-            if not p["wide"]:
-                assert p["ok"]
-                continue
-            hr = (8 + 2 * d) ** 2
-            assert bool(p["ok"]) == (cam._k_fit(hr, cam.TILE_NC + TP, 0)
-                                     >= 0), (c, hc, d)
+            shape = (1, 16, 16, c, (1, d), hc)
+            p = cam.tile_plan("f2", *shape)
+            assert bool(p["ok"]) == first_design_fits("f2", shape), \
+                (c, hc, d)
             if p["ok"]:
                 assert p["wg"] and p["smem0"] <= cam.SMEM_MAX
     assert cam.tile_plan("f2", 1, 16, 16, 163, (1, 19), 40)["ok"]
@@ -256,7 +256,7 @@ def test_wgf2_walk_matches_the_plain_forward(name):
     the mask is not the plain version's."""
     b, h, w, c, dils, hc = shape = WALK_SHAPES[name]
     p = cam.tile_plan("f2", *shape)
-    assert p["wide"] and p["wg"]
+    assert p["wg"]
     assert h % TS or w % TS
     if name in ("step128", "step96"):
         assert p["nq"] == 1 and p["a_res"] and p["rows_smem"]
@@ -301,3 +301,19 @@ def test_wgf2_walk_matches_pallas_interpret():
     assert float((got - want).abs().max()) <= F32_TOL * scale
     unmasked = f2_walk(shape, k, masked=False)[0]
     assert float((unmasked - want).abs().max()) > F32_TOL * scale
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_WALKS))
+def test_wgf2_walk_matches_pallas_interpret_at_train_widths(name):
+    """The walk against ``_f2_call`` (interpret mode) at the train step's
+    widths (C = 163, hc = 40; C = 83, hc = 20) on a ragged image, on
+    exact-sum inputs: s_t bitwise."""
+    shape = TRAIN_WALKS[name]
+    assert cam.tile_plan("f2", *shape)["wg"]
+    k = _exact_case(shape, 13)
+    got = f2_walk(shape, k)[0]
+    want = pc._f2_call(*[_jx(k[n]) for n in ("x", "kh", "kt", "bnh")],
+                       shape[4])
+    want = torch.from_numpy(np.array(jnp.asarray(want, jnp.float32)))
+    assert got.shape == want.shape and bool((want != 0).any())
+    assert torch.equal(got, want)

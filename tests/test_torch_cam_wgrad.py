@@ -181,8 +181,8 @@ def bwd_workspace_bytes(op: str, b: int, h: int, w: int, c: int,
     cam_f2b_workspace, cam_f3b_workspace): its bf16 scratch rows (dr and
     dt of pitch kc, a of pitch knh, dc of pitch nb khc), the per-tile
     partial rows, then each weight-gradient launch's partial rows (slots
-    x total floats), each region 256-byte aligned, and the wide plan's c
-    (F2b, F3b: pitch knh) last; -1 where refused."""
+    x total floats), each region 256-byte aligned, and c (F2b, F3b: pitch
+    knh) last; -1 where refused."""
     p = cam.tile_plan(op, b, h, w, c, dils, hc)
     if not p["ok"]:
         return -1
@@ -198,7 +198,7 @@ def bwd_workspace_bytes(op: str, b: int, h: int, w: int, c: int,
         if plan is None:
             return -1
         regions.append(4 * plan["slots"] * total)
-    if p["wide"] and op != "f1b":
+    if op != "f1b":                 # c, the branch backward's rows
         regions.append(2 * m * p["knh"])
     return sum(cam._up(r, 256) for r in regions)
 
@@ -304,9 +304,11 @@ def test_wgrad_partials_fit_the_workspace(op, shape):
     b, h, w, c, dils, hc = shape
     m, nb = b * h * w, len(dils)
     p = cam.tile_plan(op, *shape)
+    # the bf16 scratch rows, F2b's and F3b's c (pitch knh) among them
     scratch = {"f1b": p["kc"] + p["ldc"],
-               "f2b": p["knh"] + p["kc"] + p["ldc"],
-               "f3b": p["kc"] + p["knh"] + p["kc"] + p["ldc"]}[op] * 2 * m
+               "f2b": p["knh"] + p["kc"] + p["ldc"] + p["knh"],
+               "f3b": p["kc"] + p["knh"] + p["kc"] + p["ldc"]
+               + p["knh"]}[op] * 2 * m
     parts = sum(4 * q["slots"] * total
                 for _, q, total in wgrad_launches(op, *shape))
     got = bwd_workspace_bytes(op, *shape)

@@ -1,20 +1,18 @@
-"""The fused-CAM kernels at every student width, on the CPU: the tile
-plan of ``csrc/cam_tile.cuh`` (whole-depth where it fits, else the wide
-plan: the wgmma kernels of ``csrc/cam_wg.cuh``) and the port's
-``fused_cam`` and student step at those widths against the JAX package.
+"""The fused-CAM kernels at every student width, on the CPU: the plan of
+``csrc/cam_wg.cuh``'s wgmma kernels (``ops/cam.py:tile_plan``) and the
+port's ``fused_cam`` and student step at those widths against the JAX
+package.
 
 * The width grid: the ``AttentionStudentSteps`` CAMs at ``--inplanes``
   96, 128 and 256 (step: C = 2 inplanes + 3 with dilations 1-3; pyramid:
   C = inplanes + 3 with 1-4; hc = C // 4), C = 163 with six dilations up
   to 6 and 8, and the train step's two shapes.  ``tile_plan`` of all six
-  ops fits a block's shared memory at each of them, keeps the
-  whole-depth plan where it fits (the train step's shapes) and takes the
-  wide one elsewhere (every op's phase 0 there the wgmma plan of
-  ``csrc/cam_wg.cuh``: whole branches of up to 128 columns, and every
-  backward's phase 1 its ``dx_wg_kernel``; their own tests, the re-laid
-  weights' included, are ``tests/test_torch_cam_wg.py``,
-  ``tests/test_torch_cam_wgf2.py``, ``tests/test_torch_cam_wgb.py`` and
-  ``tests/test_torch_cam_wgb0.py``).
+  ops fits a block's shared memory at each of them: every op's phase 0
+  on the wgmma plan of ``csrc/cam_wg.cuh`` (whole branches of up to 128
+  columns) and every backward's phase 1 on its ``dx_wg_kernel``; their
+  own tests, the re-laid weights' included, are
+  ``tests/test_torch_cam_wg.py``, ``tests/test_torch_cam_wgf2.py``,
+  ``tests/test_torch_cam_wgb.py`` and ``tests/test_torch_cam_wgb0.py``.
 * ``fused_cam`` (the plain versions, on the CPU) against
   ``rtpe_tpu.ops.pallas_cam.fused_cam`` in interpret mode at two wide
   shapes, forward and gradients, with ``tests/test_torch_cam.py``'s
@@ -61,11 +59,8 @@ GRID = {"step96": (16, 113, 113, 195, (1, 2, 3), 48),
         "dils6": (16, 113, 113, 163, (1, 2, 3, 4, 5, 6), 40),
         "dils8": (16, 113, 113, 163, (1, 2, 3, 4, 5, 8), 40),
         "steps": STEPS_CAM, "pyramid": PYRAMID_CAM}
-# the grid's shapes the whole-depth plan takes (the kernels stay those
-# the train step ran before the wide plan), and F1 at six dilations up to
-# 6 (its halo and weight ring, 209 KB, fit)
-WHOLE_DEPTH = {"pyramid96", "pyramid128", "steps", "pyramid"}
-WHOLE_DEPTH_OPS = {("f1", "dils6")}
+# the train step's own shapes at the default --inplanes 80
+TRAIN = {"steps", "pyramid"}
 
 
 def by_op(names, ops=OPS):
@@ -74,38 +69,34 @@ def by_op(names, ops=OPS):
 
 @pytest.mark.parametrize("op,name", by_op(GRID))
 def test_tile_plan_fits_every_width(op, name):
-    """Every op at every shape of the grid: a plan, within SMEM_MAX in
-    both phases, whole-depth where that fits (one K chunk, one slice);
-    otherwise the wide plan, phase 0 on the wgmma plan: slices of at most
-    128 columns covering hc, chunks of at most the widest that fits
-    covering kc and knh (F1's and F1b's read no a), a backward's phase 1
-    on dx_wg_kernel."""
+    """Every op at every shape of the grid: phase 0 on the wgmma plan,
+    within SMEM_MAX in both phases: slices of at most 128 columns covering
+    hc, chunks of at most the widest that fits covering kc and knh (F1's
+    and F1b's read no a), a backward's phase 1 on dx_wg_kernel; at the
+    train step's shapes one slice of 48 (hc 40) or 32 (hc 20) columns and
+    the halo whole."""
     b, h, w, c, dils, hc = shape = GRID[name]
     p = cam.tile_plan(op, *shape)
-    assert p["ok"]
+    assert p["ok"] and p["wg"]
     assert max(p["smem0"], p["smem1"]) <= cam.SMEM_MAX
-    assert p["wide"] == (name not in WHOLE_DEPTH
-                         and (op, name) not in WHOLE_DEPTH_OPS)
-    assert p["wg"] == p["wide"]
-    assert p["dx_wg"] == (p["wide"] and op.endswith("b"))
+    assert p["dx_wg"] == op.endswith("b")
     assert p["nsl"] * p["sw"] >= hc > (p["nsl"] - 1) * p["sw"]
-    sw_max = 8 * max(cam.WG_NTB) if p["wg"] else cam.TILE_SW_MAX
-    assert p["sw"] <= sw_max and p["sw"] % 8 == 0
+    assert p["sw"] <= 8 * max(cam.WG_NTB) and p["sw"] % 8 == 0
     chunks = [(p["kc"], p["kq"], p["nq"])]
-    if not (p["wg"] and op in ("f1", "f1b")):
+    if op not in ("f1", "f1b"):
         chunks.append((p["knh"], p["kqa"], p["nqa"]))
     for k, width, n in chunks:
         assert width % 16 == 0 and 0 < k - (n - 1) * width <= width
-    if not p["wide"]:
-        assert (p["nsl"], p["nq"], p["nqa"]) == (1, 1, 1)
-        assert p["kq"] == p["kc"]
+    if name in TRAIN:
+        assert (p["nsl"], p["nq"], p["kq"]) == (1, 1, p["kc"])
+        assert p["sw"] == {40: 48, 20: 32}[hc]
 
 
-# the wide grid's weight shapes (the layout depends on C, the
-# dilations' count and largest one, and hc), and two with narrow K
-# chunks forced by a wide dilation (several chunks of x, a branch wider
-# than 40 columns beside a dilation of 11)
-WEIGHT_SHAPES = {n: GRID[n] for n in GRID if n not in WHOLE_DEPTH}
+# the grid's weight shapes (the layout depends on C, the dilations'
+# count and largest one, and hc), and two with narrow K chunks forced by
+# a wide dilation (several chunks of x, a branch wider than 40 columns
+# beside a dilation of 11)
+WEIGHT_SHAPES = dict(GRID)
 WEIGHT_SHAPES.update({"chunks": (1, 11, 10, 150, (1, 12), 20),
                       "chunks_slices": (2, 9, 9, 100, (2, 11, 3), 44)})
 

@@ -750,7 +750,7 @@ def test_cam_f3b_uses_each_images_gate(no_tf32):
             <= cam_check.OFF * scale, b
 
 
-# The 2-D tiles (csrc/cam_tile.cuh) of the backwards and of the forwards at
+# The 8 x 8 tiles (csrc/cam_wg.cuh) of the backwards and of the forwards at
 # shapes the train step does not give: H and W not multiples of the
 # 8-pixel tile side, a side smaller than a tile, a dilation larger than a
 # tile side, two dx channel chunks
@@ -819,12 +819,10 @@ WIDE_BHW = (2, 21, 19)
                                (16, 113, 113, 83, (1, 2, 3, 4), 20)]
     + WIDTH_GRID))
 def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
-    """Shared memory, re-laid weight sizes and the wide plan (its flag,
-    K chunks and slices), where every op's phase 0 runs cam_wg.cuh's
-    kernels that plan's (its flag, n8 tiles of a slice, x's stage width,
-    a and the epilogues' rows in shared memory, stages; F2's since it
-    left cam_tile.cuh's wide plan), and where a backward's
-    phase 1 runs dx_wg_kernel its plan's (stage and halo chunk widths,
+    """Shared memory, re-laid weight sizes, phase 0's plan (K chunks and
+    slices, n8 tiles of a slice, x's stage width, a and the epilogues'
+    rows in shared memory, stages), and for a backward its phase 1's on
+    dx_wg_kernel (stage and halo chunk widths,
     n8 tiles a warpgroup, column passes, the halo and dr's rows in shared
     memory, stages): the C formulas (cam_wg.cuh:op_plan, exported as
     cam_f{1,2,3}_plan and cam_f{1,2,3}b_plan) and the Python ones
@@ -832,11 +830,10 @@ def test_cam_f3b_plan_matches_the_kernels(cuda, op, shape):
     tile op."""
     lib, geo, p = _plan_codes_match(op, shape)
     if f"cam_{op}_workspace" in cam._WORKSPACE[f"cam_{op[:2]}"]:
-        # F3's is the wgmma plan's a rows where it keeps a out of shared
-        # memory, none elsewhere
+        # F3's is a's rows where its plan keeps a out of shared memory,
+        # none elsewhere
         assert (getattr(lib, f"cam_{op}_workspace")(
-            cam.ctypes.addressof(geo)) > 0) == (
-                op != "f3" or (p["wg"] and not p["a_res"]))
+            cam.ctypes.addressof(geo)) > 0) == (op != "f3" or not p["a_res"])
 
 
 def _plan_codes_match(op, shape):
@@ -873,24 +870,22 @@ def test_cam_f3b_refuses_a_halo_that_does_not_fit(cuda):
 
 @pytest.mark.parametrize("op", ["f1b", "f2b", "f3", "f1", "f2"])
 def test_cam_tile_refuses_a_halo_that_does_not_fit(cuda, op):
-    """Every op refuses a largest dilation of 20 at C = 163 (the wide
-    plan's halo of one 16-channel chunk, double-buffered, does not fit),
-    F1 (whose whole-depth plan takes six dilations up to 6) too."""
+    """Every op refuses a largest dilation of 20 at C = 163 (past the ops'
+    limit: the first design's halo of one 16-channel chunk,
+    double-buffered, does not fit)."""
     _refuses_a_halo_that_does_not_fit(cuda, op)
 
 
 @pytest.mark.parametrize("shape", [WIDE_BHW + s[3:] for s in WIDTH_GRID]
                          + [WIDTH_GRID[1]])
 def test_cam_kernels_match_plain_at_every_width(no_tf32, shape):
-    """The six kernels at the width grid (the wide plan, and the
-    whole-depth one at the pyramid's C = 99 and 131), at WIDE_BHW, and
-    the step CAM of --inplanes 128 at the train step's B=16, 113 x 113
-    (the wide plan's 16 x 15 x 15 tiles and its scratch at 204,304
-    pixels).  Exact-sum inputs: every per-pixel output bitwise the plain
-    version's, every reduction within ``cam_check.SUM_TOL`` of its
-    float64 sum of |terms|.  Random inputs: within the float64 check's
-    limits (small caps: one mask flip covers more than 1e-4 of an
-    output this small)."""
+    """The six kernels at the width grid, at WIDE_BHW, and the step CAM of
+    --inplanes 128 at the train step's B=16, 113 x 113 (16 x 15 x 15 tiles and
+    the scratch at 204,304 pixels). Exact-sum inputs: every per-pixel output
+    bitwise the plain version's, every reduction within ``cam_check.SUM_TOL``
+    of its float64 sum of |terms|. Random inputs: within the float64 check's
+    limits (small caps: one mask flip covers more than 1e-4 of an output this
+    small)."""
     case = cam_case(*shape, seed=7, device=no_tf32, exact=True)
     for name, kernel, plain, args in cam_calls(case):
         got, masks = cam_check.run_kernel(name, kernel, args)
@@ -989,8 +984,8 @@ def test_cam_wgb_backwards_match_plain(no_tf32, op, shape):
 
 
 # the largest dilation each backward takes at C = 163 (F2b, which has no
-# dr rows, one more: the limit is the mma.sync phase 1's fit the ops
-# have always had, cam_tile.cuh:make_tgeo)
+# dr rows, one more: the ops' limit, the first design's phase 1 fit,
+# cam_wg.cuh:within_limit)
 DIL_LAST = {"f3b": 18, "f1b": 18, "f2b": 19}
 
 
@@ -1018,7 +1013,7 @@ def test_cam_wgb_refuses_a_dilation_of_19(no_tf32, op):
 def test_cam_wg_f2_takes_a_dilation_of_19(no_tf32):
     """At C = 163 F2 takes a largest dilation of 19 on f2_wg_kernel (x's
     halo in K chunks, its plan codes ``tile_plan``'s) and refuses 20, as
-    the wide plan it left did: on exact-sum inputs its sums within
+    the ops always have: on exact-sum inputs its sums within
     ``cam_check.SUM_TOL`` of their float64 sums of |terms|."""
     shape = (1, 16, 16, 163, (1, 19), 40)
     assert cam.tile_plan("f2", *shape)["wg"]
